@@ -1,0 +1,59 @@
+"""Device choice and field-stack placement on one device.
+
+The JAX package lays shards out along a 1-D device mesh, pads the shard
+axis to a multiple of the mesh size and reduces with a ``psum`` over ICI
+(``pilosa_tpu/parallel/mesh.py``).  On one card the whole shard axis is
+local: a field stack is one contiguous rows-major ``int32[R, S, WORDS]``
+tensor with no padding, and the reduce is the kernel's own (a block
+reduce plus one atomic add per block).
+
+Every entry point of the port runs on the card unless the caller asks for
+the CPU: ``resolve_device(None)`` is ``cuda`` and raises when no card is
+present, so a missing card can never silently turn a run into a CPU run.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default (raising if
+    there is no card), or the one the caller names (``"cpu"`` in tests)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device: {dev}")
+    return dev
+
+
+def host_stack(shape: Tuple[int, ...], device: torch.device):
+    """A zeroed host staging buffer for a field stack, plus its uint32
+    numpy view for the host assembly to fill.  Page-locked when the stack
+    is headed for the card, so the upload runs at the copy engine's rate
+    without a second host copy."""
+    pin = device.type == "cuda"
+    buf = torch.zeros(shape, dtype=torch.int32, pin_memory=pin)
+    return buf, buf.numpy().view(np.uint32)
+
+
+def put_stack(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Upload an assembled host stack to ``device`` (a no-op on the CPU).
+    The copy is synchronous, so the staging buffer may be dropped after."""
+    if device.type == "cpu":
+        return buf
+    return buf.to(device)
+
+
+def shard_mask(n_shards: int, positions, device: torch.device) -> torch.Tensor:
+    """int32[S] requested-shard gate: 1 at the canonical positions of the
+    requested shards, 0 elsewhere."""
+    host = np.zeros(n_shards, dtype=np.int32)
+    host[list(positions)] = 1
+    return torch.from_numpy(host).to(device)
