@@ -15,8 +15,8 @@ into the standing rankings — O(batch + top-k) instead of re-ranking every
 entry).  A zero count always POPS the entry, on the scalar and both bulk
 paths — a row cleared during a bulk import must evict its stale pair.
 
-TopN itself is not ported yet (ROADMAP.md Queue 1 item 10): fragments keep
-their caches current so that a later slice finds them maintained.
+TopN's candidate walk (``Fragment.top``) and the engine's candidate union
+read these caches.
 """
 
 from __future__ import annotations

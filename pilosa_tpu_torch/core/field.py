@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import resolve_device
 from ..roaring import Bitmap
 from . import cache as cache_mod
 from . import timequantum
@@ -167,13 +168,13 @@ class Field:
         path: Optional[str] = None,
         on_create_shard=None,
         ack: str = DEFAULT_ACK,
-        device="cpu",
+        device=None,
     ):
         self.index = index
         self.name = name
         self.path = path
         self.ack = ack
-        self.device = device
+        self.device = resolve_device(device)
         self.options = options or FieldOptions()
         self.options.validate()
         # Unique creation id: schema broadcasts carry it so a delete only

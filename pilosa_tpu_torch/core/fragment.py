@@ -16,16 +16,23 @@ slice calls (upstream Pilosa: fragment.go:87-2492):
 - Mutex fields: a column -> row occupancy vector gives the O(1) owner
   lookup (fragment.go:398-427).
 
+- TopN: ``top()`` is fragment.go's candidate walk, with every
+  candidate's src intersection count scored up front in one batched
+  ``bitops.popcount_and_rows`` (K3's P2 entry on the card).
+
 Left for later slices (ROADMAP.md Queue 1): the write logs behind the
 engine's in-place scatter-sync (every write here rebuilds the engine's
-stack), the write-delta hub, anti-entropy checksums, TopN's ``top()`` and
-the roaring/value bulk-import paths.
+stack), the write-delta hub, anti-entropy checksums, the row-attribute
+store behind TopN's attribute filter, and the roaring/value bulk-import
+paths.
 """
 
 from __future__ import annotations
 
 import functools
+import heapq
 import json
+import math
 import os
 import threading
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -35,6 +42,7 @@ import torch
 
 from .. import ops
 from ..ops import bitops
+from ..parallel.mesh import resolve_device
 from ..roaring import codec
 from . import cache as cache_mod
 from .row import Row
@@ -114,7 +122,7 @@ class Fragment:
         mutex: bool = False,
         on_touch=None,
         ack: str = DEFAULT_ACK,
-        device="cpu",
+        device=None,
     ):
         self.index = index
         self.field = field
@@ -127,7 +135,7 @@ class Fragment:
             raise ValueError(f"unknown ack level: {ack!r}")
         self.ack = ack
         # Device of the row mirror (the holder's device).
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # Owning view's version bump: the engine's stack invalidation token.
         self._on_touch = on_touch
 
@@ -401,6 +409,16 @@ class Fragment:
     def row_count(self, row_id: int) -> int:
         return self._store.count(row_id)
 
+    def counts_for(self, row_ids) -> np.ndarray:
+        """Bulk row_count: int64 STORE counts for an id sequence (0 for
+        absent rows) — the TopN candidate build calls it once per shard.
+        Ranked-cache counts are no substitute: the cache legally keeps
+        stale counts for updates below its admission threshold."""
+        get = self._store.counts.get
+        return np.fromiter(
+            (get(int(r), 0) for r in row_ids), dtype=np.int64, count=len(row_ids)
+        )
+
     def row_ids(self) -> List[int]:
         return self._store.row_ids()
 
@@ -610,6 +628,100 @@ class Fragment:
         self._mutex_owners = None
         self.cache.bulk_add(row_id, n)
         self._touch()
+
+    # -- TopN (fragment.go top :1018-1150) ---------------------------------
+
+    def top(
+        self,
+        n: int = 0,
+        src: Optional[Row] = None,
+        row_ids: Optional[List[int]] = None,
+        min_threshold: int = 0,
+        filter_name: str = "",
+        filter_values: Optional[list] = None,
+        tanimoto_threshold: int = 0,
+        src_counts: Optional[Dict[int, int]] = None,
+        src_count_total: Optional[int] = None,
+    ) -> List[Tuple[int, int]]:
+        """fragment.go top :1018-1150, exactly — the candidate walk with its
+        min-heap, threshold early-exits and Tanimoto window — except that
+        the per-candidate src intersection counts (the reference's hot loop
+        :1089, :1133) are computed for ALL candidates in one batched
+        popcount up front.  Callers that score across shards pass
+        ``src_counts`` (and ``src_count_total``) precomputed.  The attribute
+        filter needs the row-attribute store, which is not ported."""
+        if filter_name and filter_values:
+            raise NotImplementedError(
+                "TopN attribute filters are not ported to pilosa_tpu_torch yet: "
+                "ROADMAP.md Queue 1 item 2 (attributes)"
+            )
+        if row_ids:
+            pairs = [(r, self.row_count(r)) for r in row_ids]
+            n = 0  # explicit ids: never truncate
+        else:
+            pairs = list(self.cache.top())
+
+        has_src = src is not None or src_counts is not None
+        src_count = 0
+        min_tan = max_tan = 0.0
+        if tanimoto_threshold > 0 and has_src:
+            src_count = (
+                src_count_total if src_count_total is not None else src.count()
+            )
+            min_tan = src_count * tanimoto_threshold / 100.0
+            max_tan = src_count * 100.0 / tanimoto_threshold
+
+        if src_counts is None:
+            src_counts = {}
+            if src is not None:
+                seg = src.segment(self.shard)
+                _, idx = self.device_matrix()
+                present = [r for r, _ in pairs if r in idx]
+                if seg is not None and present:
+                    sel = self._dev_matrix[
+                        torch.tensor([idx[r] for r in present], dtype=torch.long,
+                                     device=self.device)
+                    ]
+                    counts = bitops.popcount_and_rows(sel, seg)
+                    src_counts = dict(zip(present, counts.tolist()))
+
+        # heap of (count, id): smallest count on top (pairHeap is a min-heap).
+        heap: List[Tuple[int, int]] = []
+        for row_id, cnt in pairs:
+            if cnt <= 0:
+                continue
+            if tanimoto_threshold > 0:
+                if cnt <= min_tan or cnt >= max_tan:
+                    continue
+            elif cnt < min_threshold:
+                continue
+
+            if n == 0 or len(heap) < n:
+                count = src_counts.get(row_id, 0) if has_src else cnt
+                if count == 0:
+                    continue
+                if tanimoto_threshold > 0:
+                    tan = math.ceil(count * 100 / (cnt + src_count - count))
+                    if tan <= tanimoto_threshold:
+                        continue
+                elif count < min_threshold:
+                    continue
+                heapq.heappush(heap, (count, row_id))
+                if n > 0 and len(heap) == n and not has_src:
+                    break
+                continue
+
+            threshold = heap[0][0]
+            if threshold < min_threshold or cnt < threshold:
+                break
+            count = src_counts.get(row_id, 0)
+            if count < threshold:
+                continue
+            heapq.heappush(heap, (count, row_id))
+
+        out = [(rid, c) for c, rid in heap]
+        out.sort(key=cache_mod.pair_sort_key)
+        return out
 
     def __repr__(self) -> str:
         return (

@@ -14,6 +14,7 @@ import threading
 import uuid
 from typing import Dict, List, Optional
 
+from ..parallel.mesh import resolve_device
 from ..roaring import Bitmap
 from . import cache as cache_mod
 from .field import Field, FieldOptions
@@ -30,7 +31,7 @@ class Index:
         track_existence: bool = True,
         on_create_shard=None,
         ack: Optional[str] = None,
-        device="cpu",
+        device=None,
     ):
         self.name = name
         self.path = path
@@ -41,7 +42,7 @@ class Index:
         from .fragment import DEFAULT_ACK
 
         self.ack = ack if ack is not None else DEFAULT_ACK
-        self.device = device
+        self.device = resolve_device(device)
         # See Field.creation_id: guards delete-index redelivery.
         self.creation_id = uuid.uuid4().hex
         self.fields: Dict[str, Field] = {}

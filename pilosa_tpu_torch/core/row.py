@@ -14,6 +14,7 @@ import numpy as np
 
 from .. import ops
 from ..ops import bitops
+from ..parallel.mesh import resolve_device
 
 
 class Row:
@@ -31,8 +32,10 @@ class Row:
         self.keys: Optional[List[str]] = None
 
     @classmethod
-    def from_columns(cls, columns, device="cpu") -> "Row":
-        """Build from absolute column IDs (test/import convenience)."""
+    def from_columns(cls, columns, device=None) -> "Row":
+        """Build from absolute column IDs (test/import convenience), on
+        the card unless ``device`` names another."""
+        device = resolve_device(device)
         columns = np.asarray(sorted(columns), dtype=np.uint64)
         shards = (columns // np.uint64(ops.SHARD_WIDTH)).astype(np.int64)
         segs: Dict[int, object] = {}

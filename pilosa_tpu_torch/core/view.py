@@ -11,6 +11,7 @@ import itertools
 import os
 from typing import Dict, Optional
 
+from ..parallel.mesh import resolve_device
 from . import fragment as fragment_mod
 
 VIEW_STANDARD = "standard"
@@ -32,7 +33,7 @@ class View:
         mutex: bool = False,
         on_create_shard=None,
         ack: str = fragment_mod.DEFAULT_ACK,
-        device="cpu",
+        device=None,
     ):
         self.index = index
         self.field = field
@@ -44,7 +45,7 @@ class View:
         # Ingest ack/durability level and device, threaded down to every
         # fragment.
         self.ack = ack
-        self.device = device
+        self.device = resolve_device(device)
         self.fragments: Dict[int, fragment_mod.Fragment] = {}
         # Callback fired when a shard's fragment first appears — the field
         # broadcasts CreateShardMessage here (view.go:226).

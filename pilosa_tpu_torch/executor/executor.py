@@ -13,6 +13,15 @@ The port of the Count slice of ``pilosa_tpu/executor/executor.py``
   kernel fault is never hidden behind a fallback.
 - The host bitmap lane evaluates Row/Union/Intersect/Difference/Xor/Not
   per shard on the fragments' row mirrors and merges the per-shard rows.
+- TopN (executor.go :694-828): with an engine, one fused device TopN
+  (``TorchEngine.topn_full``, or the host-only ``topn_cache_only`` with no
+  src); when that declines (an attribute or Tanimoto filter, or a
+  candidate union past ``MAX_TOPN_CANDIDATES``), the two-phase
+  composition: phase-1 scores for every shard in one device launch
+  (``topn_scores``), the per-shard heap walk of ``Fragment.top`` on the
+  host, then the exact phase-2 recount of the merged ids.  Without an
+  engine every shard runs ``Fragment.top(src=...)``.  Single node: no
+  result memo, batcher or singleflight yet.
 - Set/Clear write single bits (and the existence bit).
 
 Every other call raises NotImplementedError naming the ROADMAP.md queue
@@ -27,6 +36,7 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 from .. import pql
+from ..core import cache as cache_mod
 from ..core.field import FIELD_TYPE_BOOL, FIELD_TYPE_INT
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.row import Row
@@ -38,6 +48,11 @@ TIME_FORMAT = "%Y-%m-%dT%H:%M"  # pilosa.TimeFormat
 
 MAX_WRITES_PER_REQUEST = 5000
 
+DEFAULT_FIELD = "general"
+
+# TopN's default minimum threshold (executor.go defaultMinThreshold).
+DEFAULT_MIN_THRESHOLD = 1
+
 _WRITE_CALLS = {"Set", "Clear", "SetRowAttrs", "SetColumnAttrs", "Store", "ClearRow"}
 
 # Calls of the JAX executor this slice does not run yet, and the
@@ -47,7 +62,6 @@ _UNPORTED = {
     "Min": "Queue 1 item 9 (BSI)",
     "Max": "Queue 1 item 9 (BSI)",
     "Range": "Queue 1 item 9 (BSI and time-quantum Range)",
-    "TopN": "Queue 1 item 10 (TopN)",
     "Rows": "Queue 1 item 11 (GroupBy and Rows)",
     "GroupBy": "Queue 1 item 11 (GroupBy and Rows)",
     "Store": "Queue 1 item 6 (write path)",
@@ -169,6 +183,8 @@ class Executor:
             return self._execute_set(index, c)
         if name == "Clear":
             return self._execute_clear_bit(index, c)
+        if name == "TopN":
+            return self._execute_topn(index, c, shards)
         if name in _UNPORTED:
             _unported(name)
         return self._execute_bitmap_call(index, c, shards)
@@ -300,6 +316,172 @@ class Executor:
             return self.engine.count(index, child, list(shards))
         except UnsupportedLowering:
             return None
+
+    # -- TopN (executor.go :694-828) ---------------------------------------
+
+    @staticmethod
+    def _topn_args(c: Call):
+        """(field, n, ids, min_threshold, attr_name, attr_values,
+        tanimoto) of a TopN call, with the reference's defaults and
+        checks."""
+        field_name = c.args.get("_field") or DEFAULT_FIELD
+        n, _ = c.uint_arg("n")
+        row_ids, _ = c.uint_slice_arg("ids")
+        min_threshold, _ = c.uint_arg("threshold")
+        if min_threshold <= 0:
+            min_threshold = DEFAULT_MIN_THRESHOLD
+        tanimoto, _ = c.uint_arg("tanimotoThreshold")
+        if tanimoto > 100:
+            raise Error("Tanimoto Threshold is from 1 to 100 only")
+        return (field_name, n, row_ids, min_threshold, c.args.get("attrName", ""),
+                c.args.get("attrValues"), tanimoto)
+
+    def _execute_topn(self, index, c: Call, shards):
+        ids_arg, _ = c.uint_slice_arg("ids")
+        n, _ = c.uint_arg("n")
+
+        fused = self._mesh_topn_full(index, c, shards)
+        if fused is not None:
+            return fused
+
+        pairs = self._execute_topn_shards(index, c, shards)
+        if not pairs or ids_arg:
+            return pairs
+
+        # Phase 2: refetch exact counts for the merged candidate ids
+        # (executor.go :715-733).
+        other = c.clone()
+        other.args["ids"] = sorted(r for r, _ in pairs)
+        trimmed = self._execute_topn_shards(index, other, shards)
+        if n and n < len(trimmed):
+            trimmed = trimmed[:n]
+        return trimmed
+
+    def _mesh_topn_full(self, index, c: Call, shards):
+        """Single-dispatch TopN: both reference phases collapse into one K3
+        launch plus the K4 trim, with one small readback.  None when there
+        is no engine, an attribute or Tanimoto filter needs the host walk,
+        the candidate union is past MAX_TOPN_CANDIDATES, or the src tree
+        has no device lowering; the two-phase path then runs."""
+        if self.engine is None:
+            return None
+        if c.args.get("attrName") or c.args.get("attrValues"):
+            return None
+        tanimoto, _ = c.uint_arg("tanimotoThreshold")
+        if tanimoto > 0:
+            return None
+        if len(c.children) > 1:
+            raise Error("TopN() can only have one input bitmap")
+        field_name, n, row_ids, min_threshold, _, _, _ = self._topn_args(c)
+        if not c.children:
+            return self.engine.topn_cache_only(
+                index, field_name, shards, n, min_threshold, row_ids or None
+            )
+        try:
+            return self.engine.topn_full(
+                index, field_name, c.children[0], shards, n, min_threshold,
+                row_ids or None,
+            )
+        except UnsupportedLowering:
+            return None
+
+    def _execute_topn_shards(self, index, c: Call, shards):
+        fused = self._mesh_topn_shards(index, c, shards)
+        if fused is not None:
+            pairs = fused
+        else:
+            pairs = []
+            for shard in shards:
+                pairs = cache_mod.merge_pairs(
+                    [pairs, self._execute_topn_shard(index, c, shard)]
+                )
+        pairs.sort(key=cache_mod.pair_sort_key)
+        return pairs
+
+    def _mesh_topn_shards(self, index, c: Call, shards):
+        """TopN phase 1 over every requested shard: the per-candidate src
+        intersection counts of all shards in one K3 launch
+        (``TorchEngine.topn_scores``), then the reference's per-shard heap
+        walk on the host over the precomputed scores.  Returns the merged
+        pairs, or None to run the per-shard host lane.
+
+        The reference first tries its device slab lane
+        (``kernels.topn_slab_tree``) here.  On one node it declines every
+        call that reaches this point (the filters and the oversized union
+        that sent the call here decline it too), and otherwise serves only
+        peer calls of a cluster, so it is not ported (ROADMAP.md Queue 2
+        item 11)."""
+        if self.engine is None or len(c.children) != 1 or not shards:
+            return None
+        (field_name, n, row_ids, min_threshold, attr_name, attr_values,
+         tanimoto) = self._topn_args(c)
+        frags = {}
+        cand_set = set()
+        for s in shards:
+            frag = self.holder.fragment(index, field_name, VIEW_STANDARD, s)
+            if frag is None:
+                continue
+            pairs = (
+                [(r, frag.row_count(r)) for r in row_ids]
+                if row_ids
+                else list(frag.cache.top())
+            )
+            frags[s] = frag
+            cand_set.update(r for r, _ in pairs)
+        if not frags:
+            return []
+        candidates = sorted(cand_set)
+        try:
+            scored = self.engine.topn_scores(
+                index, field_name, candidates, c.children[0], list(shards)
+            )
+        except UnsupportedLowering:
+            return None
+        if scored is None:
+            return []
+        scores, src_counts, shard_pos = scored
+        cand_pos = {r: i for i, r in enumerate(candidates)}
+        all_pairs = []
+        for s in shards:
+            frag = frags.get(s)
+            si = shard_pos.get(s)
+            if frag is None or si is None:
+                continue
+            per_shard = {r: int(scores[si, cand_pos[r]]) for r in cand_set}
+            all_pairs.append(
+                frag.top(
+                    n=int(n),
+                    row_ids=row_ids or None,
+                    min_threshold=min_threshold,
+                    filter_name=attr_name,
+                    filter_values=attr_values,
+                    tanimoto_threshold=tanimoto,
+                    src_counts=per_shard,
+                    src_count_total=int(src_counts[si]),
+                )
+            )
+        return cache_mod.merge_pairs(all_pairs)
+
+    def _execute_topn_shard(self, index, c: Call, shard: int):
+        (field_name, n, row_ids, min_threshold, attr_name, attr_values,
+         tanimoto) = self._topn_args(c)
+        src = None
+        if len(c.children) == 1:
+            src = self._execute_bitmap_call_shard(index, c.children[0], shard)
+        elif len(c.children) > 1:
+            raise Error("TopN() can only have one input bitmap")
+        frag = self.holder.fragment(index, field_name, VIEW_STANDARD, shard)
+        if frag is None:
+            return []
+        return frag.top(
+            n=int(n),
+            src=src,
+            row_ids=row_ids or None,
+            min_threshold=min_threshold,
+            filter_name=attr_name,
+            filter_values=attr_values,
+            tanimoto_threshold=tanimoto,
+        )
 
     # -- writes ------------------------------------------------------------
 

@@ -12,7 +12,8 @@ bytes.  int32 and not ``torch.uint32``, because PyTorch's CPU build lacks
 PyTorch has no popcount operator.  The plain popcount here is SWAR
 (bit-sliced adds) in int64, which keeps the sign bit out of the shifts;
 the CUDA kernels of ``parallel/kernels.py`` and ``parallel/sparse.py``
-use ``__popc`` instead.
+use ``__popc`` instead, and ``popcount_and_rows`` on a card tensor
+launches one of them.
 """
 
 from __future__ import annotations
@@ -138,9 +139,24 @@ def popcount_rows(matrix):
     return popcount_words(matrix).sum(dim=-1)
 
 
+def popcount_and_rows_plain(matrix, row):
+    """int32[n_rows] counts of popcount(matrix[r] & row), in plain PyTorch
+    ops: the CPU path and the reference the card's kernel is held
+    against."""
+    return popcount_words(torch.bitwise_and(matrix, row[None, :])).sum(dim=-1).to(torch.int32)
+
+
 def popcount_and_rows(matrix, row):
-    """Per-row intersection counts against one row (TopN scoring)."""
-    return popcount_words(torch.bitwise_and(matrix, row[None, :])).sum(dim=-1)
+    """Per-row intersection counts int32[n_rows] of [n_rows, WORDS] against
+    one row (TopN scoring, fragment.go top :1089).  On the card it launches
+    K3's ``and_popcount_rows`` entry (the port of the Pallas kernel
+    ``scripts/pallas_vs_xla.py:56 matrix_and_popcount_pallas``) or raises;
+    on the CPU it runs the plain version."""
+    if matrix.is_cuda:
+        from ..parallel import kernels  # parallel imports ops: no cycle at load
+
+        return kernels.and_popcount_rows_cuda(matrix, row)
+    return popcount_and_rows_plain(matrix, row)
 
 
 def union_rows(matrix):

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("count_tree_dense", "count_tree_blocks")
+KERNELS = ("count_tree_dense", "count_tree_blocks", "score_rows", "topn_trim")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,7 @@
-"""TorchEngine: fused Count(tree) over device-resident field stacks.
+"""TorchEngine: fused Count(tree) and TopN over device-resident field stacks.
 
-The port of the Count slice of ``pilosa_tpu/parallel/engine.py``
-(``MeshEngine``).  Per query:
+The port of the Count and TopN slices of ``pilosa_tpu/parallel/engine.py``
+(``MeshEngine``).  Per Count query:
 
 1. the call tree is lowered to a normalized program over a list of field
    stacks ``int32[R, S, WORDS]`` — S the index's canonical shard axis,
@@ -11,6 +11,15 @@ The port of the Count slice of ``pilosa_tpu/parallel/engine.py``
    requested blocks survive, the count runs on K2 (``sparse.py``) over
    only those blocks, else on K1 (``kernels.py``) over every word;
 3. the kernel reduces on the device and the result is one int64.
+
+TopN (``topn_full``): the candidates are the id-descending union of the
+fragments' ranked caches, cached per (index, field) against the stack's
+token with their per-shard store counts; K3 scores every candidate
+against the masked src tree by index into the resident stack, gates each
+(candidate, shard) and sums the totals, and K4 trims them to the top n.
+``topn_scores`` is the two-phase lane's phase 1 (scores and src counts of
+every shard in one K3 launch) and ``topn_cache_only`` the no-src TopN,
+reduced on the host.
 
 Field stacks are cached per (index, field, view) over the canonical shard
 list, so queries over different shard subsets share one resident stack;
@@ -29,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.cache import pair_sort_key
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD
 from ..ops import bitops
@@ -95,7 +105,54 @@ class _Lowering:
         return i
 
 
+class _TopNCandidates:
+    """Candidate set + per-shard row-count matrix for the fused TopN.
+
+    ``cands`` is the id-DESCENDING union of the per-fragment ranked-cache
+    entries (fragment.go :1018-1040), descending so that K4's lower-index
+    tie-break equals the (-count, -id) pair order.  ``host_cnt``
+    int32[S, K_pad] holds each candidate's STORE row count per canonical
+    shard (the phase-2 ``cnt`` gate); ``dev_cnt`` is its device twin laid
+    out [K_pad, S] like the kernel's scores, and ``cand_idx`` int32[K_pad]
+    the stack rows to score.  Pad slots and absent rows name row 0 and
+    carry count 0, so the gate (thr >= 1) drops them."""
+
+    __slots__ = ("cands", "cand_idx", "dev_cnt", "host_cnt")
+
+    def __init__(self, cands, cand_idx, dev_cnt, host_cnt):
+        self.cands = cands
+        self.cand_idx = cand_idx
+        self.dev_cnt = dev_cnt
+        self.host_cnt = host_cnt
+
+
+def decode_topn_full(host, cands, n_out):
+    """The fused TopN readback (trimmed (vals, idx), or the full totals
+    when ``n_out`` is None) as sorted (row_id, count) pairs; a copy of
+    ``pilosa_tpu/parallel/fusion.py:200 decode_topn_full``.  Zero totals
+    and pad slots (index >= len(cands)) drop out."""
+    if host is None:
+        return []
+    if n_out is None:
+        totals = np.asarray(host)
+        pairs = [
+            (cands[k], int(totals[k])) for k in range(len(cands)) if totals[k] > 0
+        ]
+        pairs.sort(key=pair_sort_key)
+        return pairs
+    vals, top_idx = host
+    return [
+        (cands[int(i)], int(v))
+        for v, i in zip(vals, top_idx)
+        if v > 0 and int(i) < len(cands)
+    ]
+
+
 class TorchEngine:
+    # Above this candidate-union size the fused TopN declines and the
+    # executor runs the two-phase composition (engine.py:4197).
+    MAX_TOPN_CANDIDATES = 4096
+
     def __init__(self, holder, device=None):
         self.holder = holder
         self.device = resolve_device(device)
@@ -118,6 +175,9 @@ class TorchEngine:
         self.device_bytes_skipped = 0
         # The path the last count dispatch took: "dense" or "sparse".
         self.last_path: Optional[str] = None
+        # (index, field) -> (stack token, _TopNCandidates): the cache-fed
+        # TopN candidate build, rebuilt when the stack's token moves.
+        self._topn_cands: Dict[Tuple[str, str], tuple] = {}
 
     # -- canonical shard axis ---------------------------------------------
 
@@ -352,3 +412,175 @@ class TorchEngine:
         ).astype(np.int32)
         skipped = n_leaves * (denom - total_blocks) * bitops.OCC_BLOCK_WORDS * 4
         return np.ascontiguousarray(blk_idx), blk_n, skipped
+
+    # -- TopN (pilosa_tpu/parallel/engine.py:4102-4565) ---------------------
+
+    def _lower_src(self, index: str, src_call: Call, canonical: List[int]):
+        """The src tree of a TopN as a normalized program and its stacks;
+        a tree past the kernels' limits is UnsupportedLowering."""
+        lw = _Lowering(self, canonical)
+        prog = self._lower(index, src_call, lw)
+        if not kernels.fits(prog):
+            raise UnsupportedLowering("src tree exceeds the kernels' limits")
+        return prog, lw
+
+    def topn_scores(self, index: str, field: str, candidate_rows: List[int],
+                    src_call: Call, shards: List[int]):
+        """Batched TopN phase-1 scoring across all requested shards in one
+        K3 launch: (scores int32[S, K], src_counts int32[S], shard_pos) as
+        numpy, ``shard_pos`` mapping shard -> canonical position.
+        Candidates absent from the row table score 0 (they read row 0 on
+        the card and are zeroed here).  None when the field has no stack."""
+        canonical = self.canonical_shards(index)
+        stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
+        if stack is None:
+            return None
+        present = np.asarray([r in stack.row_index for r in candidate_rows], dtype=bool)
+        idx = np.asarray(
+            [stack.row_index.get(r, 0) for r in candidate_rows], dtype=np.int32
+        )
+        mask = self._mask_words(shards, canonical)
+        prog, lw = self._lower_src(index, src_call, canonical)
+        scores, counts = kernels.topn_tree(
+            prog, lw.mats, mask, stack.matrix, torch.from_numpy(idx).to(self.device)
+        )
+        # The kernel's score matrix is rows-major [K, S]; callers take [S, K].
+        scores = scores.cpu().numpy().T.copy()
+        scores[:, ~present] = 0
+        pos = {s: i for i, s in enumerate(stack.shards)}
+        return scores, counts.cpu().numpy(), pos
+
+    def _build_topn_candidates(self, index, field, stack, cands) -> _TopNCandidates:
+        """Assemble the id-descending candidate arrays for a stack."""
+        S = len(stack.shards)
+        K = len(cands)
+        K_pad = max(8, 1 << (K - 1).bit_length()) if K else 8
+        host_cnt = np.zeros((S, K_pad), dtype=np.int32)
+        if K:
+            cand_arr = np.asarray(cands, dtype=np.int64)
+            for si, s in enumerate(stack.shards):
+                frag = self.holder.fragment(index, field, VIEW_STANDARD, s)
+                if frag is not None:
+                    host_cnt[si, :K] = frag.counts_for(cand_arr).astype(np.int32)
+        idx = np.zeros(K_pad, dtype=np.int32)
+        idx[:K] = [stack.row_index.get(r, 0) for r in cands]
+        return _TopNCandidates(
+            list(cands),
+            torch.from_numpy(idx).to(self.device),
+            torch.from_numpy(host_cnt.T.copy()).to(self.device),
+            host_cnt,
+        )
+
+    def _topn_candidates(self, index, field, stack, row_ids=None) -> _TopNCandidates:
+        """Cached candidate arrays (the union of every shard's ranked-cache
+        ids); explicit ids= queries build ad hoc."""
+        if row_ids:
+            return self._build_topn_candidates(
+                index, field, stack, sorted(set(row_ids), reverse=True)
+            )
+        key = (index, field)
+        cached = self._topn_cands.get(key)
+        if cached is not None and cached[0] == stack.versions:
+            return cached[1]
+        cols = []
+        for s in stack.shards:
+            frag = self.holder.fragment(index, field, VIEW_STANDARD, s)
+            if frag is None:
+                continue
+            rank_columns = getattr(frag.cache, "rank_columns", None)
+            if rank_columns is not None:
+                cols.append(rank_columns()[0])
+            elif frag.cache.top():
+                cols.append(np.asarray([r for r, _ in frag.cache.top()], dtype=np.int64))
+        cands = [int(r) for r in np.unique(np.concatenate(cols))[::-1]] if cols else []
+        entry = self._build_topn_candidates(index, field, stack, cands)
+        self._topn_cands[key] = (stack.versions, entry)
+        return entry
+
+    def topn_full_async(self, index: str, field: str, src_call: Call, shards,
+                        n: int, min_threshold: int, row_ids=None):
+        """The whole TopN (phase-1 scores, per-shard gates, exact totals
+        and the trim) as K3 then K4, without waiting for the device:
+        (candidates, n_out, device result), or None when the candidate
+        union is past MAX_TOPN_CANDIDATES (the two-phase path runs)."""
+        canonical = self.canonical_shards(index)
+        stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
+        if stack is None:
+            return [], None, None
+        entry = self._topn_candidates(index, field, stack, row_ids)
+        if not entry.cands:
+            return [], None, None
+        if len(entry.cands) > self.MAX_TOPN_CANDIDATES:
+            return None
+        # ids= mode and n=0 skip the trim (never truncate).
+        K_pad = entry.host_cnt.shape[1]
+        n_out = min(int(n), K_pad) if n and not row_ids else None
+        mask = self._mask_words(shards, canonical)
+        prog, lw = self._lower_src(index, src_call, canonical)
+        out = kernels.topn_full_tree(
+            prog, lw.mats, mask, stack.matrix, entry.cand_idx, entry.dev_cnt,
+            max(int(min_threshold), 1), n_out,
+        )
+        return entry.cands, n_out, out
+
+    def topn_full(self, index: str, field: str, src_call: Call, shards,
+                  n: int, min_threshold: int, row_ids=None):
+        """Synchronous fused TopN -> sorted (row_id, count) pairs, one small
+        readback, or None when the fused path declines."""
+        res = self.topn_full_async(index, field, src_call, shards, n, min_threshold, row_ids)
+        if res is None:
+            return None
+        cands, n_out, out = res
+        if out is None:
+            host = None
+        elif n_out is None:
+            host = out.cpu().numpy()
+        else:
+            host = (out[0].cpu().numpy(), out[1].cpu().numpy())
+        return decode_topn_full(host, cands, n_out)
+
+    def topn_cache_only(self, index: str, field: str, shards, n, min_threshold,
+                        row_ids=None):
+        """TopN with no src bitmap: the per-shard store counts of the
+        candidates, reduced on the host (phase-1 per-shard top-n union plus
+        phase-2 exact totals over the requested shards), no device work.
+        Sorted trimmed pairs, or None when the candidate union is too
+        large."""
+        canonical = self.canonical_shards(index)
+        stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
+        if stack is None:
+            return []
+        entry = self._topn_candidates(index, field, stack, row_ids)
+        if row_ids:
+            n = 0  # explicit ids: never truncate
+        K = len(entry.cands)
+        if K == 0:
+            return []
+        if K > self.MAX_TOPN_CANDIDATES:
+            return None
+        pos = {s: i for i, s in enumerate(stack.shards)}
+        rows = [pos[s] for s in shards if s in pos]
+        if not rows:
+            return []
+        thr = max(int(min_threshold), 1)
+        cnt = entry.host_cnt[np.asarray(rows, dtype=np.intp)][:, :K]
+        gated = np.where(cnt >= thr, cnt, 0)
+        totals = gated.sum(axis=0, dtype=np.int64)
+        if n:
+            # Phase-1 candidate union: each shard's top-n by (count desc,
+            # id desc) — a stable argsort over the id-descending axis.
+            sel = np.argsort(-gated, axis=1, kind="stable")[:, : int(n)]
+            hit = np.nonzero(np.take_along_axis(gated, sel, axis=1) > 0)
+            union = np.zeros(K, dtype=bool)
+            union[sel[hit]] = True
+        else:
+            union = (gated > 0).any(axis=0)
+        pairs = [
+            (entry.cands[k], int(totals[k]))
+            for k in np.nonzero(union)[0]
+            if totals[k] > 0
+        ]
+        pairs.sort(key=pair_sort_key)
+        if n:
+            pairs = pairs[: int(n)]
+        return pairs

@@ -55,21 +55,6 @@ def count_tree_blocks_plain(prog, mats: Sequence[torch.Tensor],
     return torch.where(valid, per_slot, torch.zeros_like(per_slot)).sum()
 
 
-def _lib_blocks():
-    from . import build
-
-    lib = build.load("count_tree_blocks")
-    fn = lib.count_tree_blocks
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def count_tree_blocks_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
                            blk_idx: torch.Tensor, blk_n: torch.Tensor) -> torch.Tensor:
     """Launch K2 on the card: returns a 0-d int64 tensor, without waiting
@@ -86,7 +71,9 @@ def count_tree_blocks_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
     for m, r in code.leaves:
         if not 0 <= r < mats[m].shape[0]:
             raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
-    fn = _lib_blocks()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = kernels._lib_fn("count_tree_blocks", "count_tree_blocks",
+                         [P, I, P, I, P, P, I, I, I, P, P])
     out = torch.zeros(1, dtype=torch.int64, device=blk_n.device)
     leaf_arr, ops_arr = kernels._c_leaves(code, mats)
     stream = torch.cuda.current_stream(blk_n.device).cuda_stream

@@ -117,7 +117,9 @@ def test_tensor_round_trip_is_bit_identical():
 
 def test_import_is_jax_free():
     """In a fresh interpreter with JAX blocked, every module of the port
-    imports and no module of pilosa_tpu is loaded."""
+    imports, the TopN path (engine, executor lanes, kernel wrappers and
+    their CUDA sources) is present and runs a query on the CPU, and no
+    module of pilosa_tpu is loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -125,6 +127,21 @@ def test_import_is_jax_free():
         "import pilosa_tpu_torch\n"
         "for m in pkgutil.walk_packages(pilosa_tpu_torch.__path__, 'pilosa_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from pilosa_tpu_torch.parallel import build, kernels\n"
+        "from pilosa_tpu_torch.parallel.engine import TorchEngine, decode_topn_full\n"
+        "from pilosa_tpu_torch.executor import Executor\n"
+        "from pilosa_tpu_torch.core.holder import Holder\n"
+        "for name in ('score_rows', 'topn_tree', 'topn_full_tree', 'score_rows_cuda',\n"
+        "             'topn_trim_cuda', 'and_popcount_rows_cuda', 'topn_trim_plain'):\n"
+        "    assert callable(getattr(kernels, name)), name\n"
+        "assert set(build.KERNELS) >= {'score_rows', 'topn_trim'}\n"
+        "assert all((build.CSRC / f'{k}.cu').is_file() for k in build.KERNELS)\n"
+        "h = Holder(device='cpu'); h.open()\n"
+        "f = h.create_index('i').create_field('t')\n"
+        "f.import_bulk([1, 1, 2], [3, 4, 3])\n"
+        "ex = Executor(h, engine=TorchEngine(h, device='cpu'))\n"
+        "assert ex.execute('i', 'TopN(t, Row(t=2), n=2)').results[0] == [(2, 1), (1, 1)]\n"
+        "assert Executor(h).execute('i', 'TopN(t, n=1)').results[0] == [(1, 2)]\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"

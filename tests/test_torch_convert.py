@@ -94,3 +94,37 @@ def test_open_holder_reads_a_jax_data_directory(tmp_path):
     frag = th.fragment("i", "d", "standard", 2)
     assert frag.row_ids() == [1, 2, 3, 4, 9] and frag.row_count(9) == 1
     th.close()
+
+
+def test_open_holder_answers_topn_like_jax(tmp_path):
+    """A data directory with a TopN field and its rank-cache .cache files,
+    written by pilosa_tpu's Holder, opens in the port (the caches load
+    through Fragment._load_cache_file) and answers the TopN query set
+    exactly as the JAX executors do."""
+    import glob
+    import os
+
+    from test_torch_topn import QUERIES as TOPN_QUERIES
+    from test_torch_topn import fill as topn_fill
+    from test_torch_topn import topn_data
+
+    path = str(tmp_path / "data")
+    jh = JHolder(path)
+    jh.open()
+    topn_fill(jh, topn_data())
+    jex = JExecutor(jh)
+    for q in (f"Set({SW + 7}, t=1)", "Clear(5, t=20)", f"Set({3 * SW + 1}, t=40)"):
+        jex.execute("i", q)
+    fused = JExecutor(jh, mesh_engine=MeshEngine(jh, make_mesh(8)))
+    want = [[tuple(p) for p in fused.execute("i", q).results[0]] for q in TOPN_QUERIES]
+    assert want == [[tuple(p) for p in jex.execute("i", q).results[0]] for q in TOPN_QUERIES]
+    cache_top = jh.fragment("i", "t", "standard", 3).cache.top()
+    jh.close()
+    assert glob.glob(os.path.join(path, "i", "t", "views", "standard", "fragments", "*.cache"))
+
+    th = open_holder(path, device="cpu")
+    assert th.fragment("i", "t", "standard", 3).cache.top() == cache_top
+    for port in (Executor(th, engine=TorchEngine(th, device="cpu")), Executor(th)):
+        got = [[tuple(p) for p in port.execute("i", q).results[0]] for q in TOPN_QUERIES]
+        assert got == want
+    th.close()

@@ -216,3 +216,33 @@ def test_default_device_is_the_card():
         THolder()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchEngine(THolder(device="cpu"))
+
+
+def test_core_constructors_default_to_the_card():
+    """Objects built outside a Holder ask for the card too: with no device
+    named they raise here (no card), and with device="cpu" they are built
+    on the CPU."""
+    import torch
+
+    from pilosa_tpu_torch.core.field import Field
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.core.index import Index
+    from pilosa_tpu_torch.core.row import Row
+    from pilosa_tpu_torch.core.view import View
+
+    builders = [
+        lambda **kw: Fragment("i", "f", "standard", 0, **kw),
+        lambda **kw: View("i", "f", "standard", **kw),
+        lambda **kw: Field("i", "f", **kw),
+        lambda **kw: Index("i", **kw),
+        lambda **kw: Row.from_columns([1, SW + 2], **kw),
+    ]
+    for build in builders:
+        obj = build(device="cpu")
+        dev = obj.segments[0].device if isinstance(obj, Row) else obj.device
+        assert dev == torch.device("cpu")
+    if torch.cuda.is_available():  # the check below is about a card-less host
+        return
+    for build in builders:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
