@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--check-only | --root DIR]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build — nvcc compiles every kernel source under pilosa_tpu_torch/csrc/
    (one nvcc per source, all started together) into build/torch_kernels/.
 2. kernels — K1 count_tree_dense and K2 count_tree_blocks, K3 score_rows,
-   K4 topn_trim and P2 (K3's and_popcount_rows entry) against their plain
-   PyTorch versions on the card: random and adversarial words (all-ones,
-   sign-bit-only, zero), masked shards, ragged block lists and every Kb
-   tier; for K3 K in {1, 8, 16, 128, 129, 4096}, pad and absent slots,
-   zero and multi-leaf src trees; for K4 ties and all-zero totals.
-   Integer results, so they must agree exactly.
+   K4 topn_trim and P2 and_popcount_rows against their plain PyTorch
+   versions on the card: random and adversarial words (all-ones,
+   sign-bit-only, zero), masked shards; for K2 block words of every
+   density, block 63 (the sign bit), all 64 bits, one bit, ragged shard
+   counts, chain and interpreter trees, launches overlapping on two
+   streams; for K3 K in {1, 8, 16, 128, 129,
+   4096}, pad and absent slots, zero and multi-leaf src trees; for K4 ties
+   and all-zero totals; for P2 R in {1, 8, 16, 17, 64, 129, 8192}, every
+   row or rows by index (a subset, a permutation, one row, a list past
+   the launch-parameter cap).  Integer results, so they must agree
+   exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
    field s of 24 rows that each occupy 4 of the 64 occupancy blocks of
@@ -26,15 +31,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (the two-phase lane), through the engine (K3, K4), then one TopN through
    an engine-less Executor (Fragment.top per shard: P2).  Every answer
    equals a numpy oracle over the host words, and each path's kernels'
-   launch counters, zeroed just before it, must have moved.
-4. times — each kernel's p50 at the main path's shapes beside its bound,
-   its plain version's p50 (and a library call's where one computes the
-   same function), P2 at scripts/pallas_vs_xla.py's shapes, the
-   end-to-end Count and TopN p50s, and the card's name and power limit.
+   launch counters, zeroed just before it, must have moved.  Then the
+   engine-less TopN again, warm (its wall time); after phase 4, once more
+   under torch.profiler, whose kernel list must hold P2 alone.
+4. times — each kernel at the main path's shapes: "ms" (CUDA events
+   around 10 calls of the Python wrapper, the oldest column, kept for
+   comparison: for a kernel whose device work is microseconds, that is
+   the host's enqueue rate), "device_ms" (torch.profiler's kernel time
+   per launch; the run fails where the profiler sees no kernel),
+   "host_us" (host microseconds per wrapper call, no synchronise in the
+   window), beside
+   its bound, its plain version's p50 (and a library call's where one
+   computes the same function); P2 also at scripts/pallas_vs_xla.py's
+   shapes; the end-to-end Count and TopN p50s, and the card's name and
+   power limit.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs one card and fails without one.
+
+--root DIR (A/B of two checkouts in one call, e.g. the parent commit
+unpacked with git archive into an ignored directory, and "."): imports
+pilosa_tpu_torch from DIR, builds phase 3's index with it and prints one
+JSON line: the dense and sparse Count p50, the engine TopN p50, the warm
+engine-less TopN wall time, Fragment.top's microseconds per call, and the
+kernels that the sparse Counts and one warm engine-less TopN put on the
+card with their device time per launch (torch.profiler).  The data,
+queries and loops are this file's, so both trees are measured the same
+way.  Run the trees in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -57,6 +81,7 @@ INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 table entry)
 BLOCKS_PER_ROW = 4  # occupied blocks of each sparse row, per shard
 BLOCK_POOL = 8  # per shard, the sparse rows draw their blocks from 8
 TOP_ROWS = range(16)  # field top: 16 TopN candidate rows (bench.py:70,434-438)
+P2_CHECK_ROWS = (1, 8, 16, 17, 64, 129, 8192)  # every P2 grouping and cluster size
 
 
 def log(msg):
@@ -82,6 +107,77 @@ def p50_ms(fn, reps, sync, batch=10):
     return statistics.median(times)
 
 
+def on_card(fn):
+    """What ``fn()`` ran on the card, from torch.profiler (its CUDA kernel
+    and copy times, key_averages): {name: [launches, device ms in all]},
+    a kernel's name cut before its argument list.  Raises when the
+    profiler saw no kernel, so that no check or time built on it can pass
+    empty."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0].strip()
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        acc = seen.setdefault(name, [0, 0.0])
+        acc[0] += e.count
+        acc[1] += us / 1e3
+    if not any(not k.startswith(("Memcpy", "Memset")) for k in seen):
+        raise AssertionError(f"torch.profiler saw no kernel on the card: {seen}")
+    return seen
+
+
+def per_launch(seen):
+    """{name: {"launches": n, "device_ms": per launch}} of on_card's table."""
+    return {k: {"launches": n, "device_ms": t / n} for k, (n, t) in sorted(seen.items())}
+
+
+def device_ms(fn, kernel, windows=5, batch=10):
+    """Device time per launch of the kernel whose name contains
+    ``kernel``, over ``windows`` runs of ``batch`` calls of ``fn`` back to
+    back, from on_card.  Raises when the profiler saw no such launch."""
+    seen = on_card(lambda: [fn() for _ in range(windows * batch)])
+    hits = [v for k, v in seen.items() if kernel in k]
+    launches, total = sum(n for n, _ in hits), sum(t for _, t in hits)
+    if not launches or total <= 0:
+        raise AssertionError(f"torch.profiler saw no {kernel} launch: {seen}")
+    return total / launches
+
+
+def host_us(fn, sync, reps=15, batch=10):
+    """Host microseconds per call of ``fn``: the host clock around
+    ``batch`` calls with no synchronise inside the window; the p50 over
+    ``reps`` windows."""
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        times.append((time.perf_counter() - t0) / batch * 1e6)
+    sync()
+    return statistics.median(times)
+
+
+def measured(fn, kernel, sync, reps=15):
+    """{"ms", "device_ms", "host_us"} of one kernel wrapper call: ``ms``
+    as p50_ms has always measured it (CUDA events around 10 calls of the
+    Python wrapper, so host-bound where the device work is microseconds),
+    ``device_ms`` from the profiler, ``host_us`` from the host clock.  The
+    ``ms`` window runs first, before any profiler session."""
+    ms = p50_ms(fn, reps, sync)
+    return {"ms": ms, "device_ms": device_ms(fn, kernel), "host_us": host_us(fn, sync)}
+
+
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
@@ -101,6 +197,27 @@ def _adversarial_stack(rng, R, S, device):
         mask[keep] = True
         row[~mask] = 0
     return torch.from_numpy(words.view(np.int32)).to(device)
+
+
+def _block_word_cases(rng, S):
+    """(name, uint64[S] K2 block words) edge cases: random densities with
+    ragged per-shard counts and masked (0) shards, block 63 (the sign
+    bit) alone, all 64 bits, one bit per shard."""
+    cases = []
+    for most in (1, 2, 4, 8, 16, 32, 48, 64):
+        words = np.zeros(S, np.uint64)
+        for s in range(S):
+            for b in rng.choice(64, int(rng.integers(0, most + 1)), replace=False):
+                words[s] |= np.uint64(1) << np.uint64(b)
+        if most == 64:
+            words[0] = np.uint64((1 << 64) - 1)
+        words[1] = 0  # an unrequested shard
+        words[rng.random(S) < 0.25] = 0
+        cases.append((f"ragged up to {most} blocks", words))
+    cases.append(("bit 63", np.full(S, 1 << 63, np.uint64)))
+    cases.append(("all 64 bits", np.full(S, (1 << 64) - 1, np.uint64)))
+    cases.append(("one bit", np.uint64(1) << rng.integers(0, 64, S).astype(np.uint64)))
+    return cases
 
 
 KERNEL_PROGS = [
@@ -147,35 +264,68 @@ def check_kernels(device, seed):
             if e:
                 raise AssertionError(f"K1 {prog} mask={m.tolist()}: {int(got)} != {int(want)}")
             n += 1
-        for kb in (1, 2, 4, 8, 16, 32, 64):
-            blk_n = rng.integers(0, kb + 1, S).astype(np.int32)
-            blk_n[0] = kb
-            blk_n[1] = 0
-            blk_idx = np.zeros((S, kb), np.int32)
-            for s in range(S):
-                ids = np.sort(rng.choice(64, blk_n[s], replace=False)) if blk_n[s] else []
-                blk_idx[s, : len(ids)] = ids
-            bi = torch.from_numpy(blk_idx).to(device)
-            bn = torch.from_numpy(blk_n).to(device)
-            got = sparse.count_tree_blocks_cuda(code, mats, bi, bn)
+        for what, bits in _block_word_cases(rng, S):
+            bb = torch.from_numpy(bits.view(np.int64)).to(device)
+            got = sparse.count_tree_blocks_cuda(code, mats, bb)
             torch.cuda.synchronize()
-            want = sparse.count_tree_blocks_plain(prog, mats, bi, bn)
+            want = sparse.count_tree_blocks_plain(prog, mats, bb)
             e = abs(int(got) - int(want))
             err["count_tree_blocks"] = max(err["count_tree_blocks"], e)
             if e:
-                raise AssertionError(f"K2 {prog} Kb={kb}: {int(got)} != {int(want)}")
+                raise AssertionError(f"K2 {prog} {what}: {int(got)} != {int(want)}")
             n += 1
-    # The dense and sparse forms agree when every block is listed.
-    full_idx = torch.arange(64, dtype=torch.int32, device=device).repeat(S, 1).contiguous()
-    full_n = torch.full((S,), 64, dtype=torch.int32, device=device)
-    for prog in KERNEL_PROGS:
+    # The dense and sparse forms agree when every block is marked, over a
+    # ragged shard count too (31: seven CTAs of four shards and one of three).
+    for S2 in (S, 31):
+        mats2 = mats if S2 == S else [_adversarial_stack(rng, 4, S2, device) for _ in range(2)]
+        every = torch.full((S2,), -1, dtype=torch.int64, device=device)
+        for prog in KERNEL_PROGS:
+            code = kernels.compile_prog(prog)
+            a = int(kernels.count_tree_dense(code, mats2, torch.ones(S2, dtype=torch.int32, device=device)))
+            b = int(sparse.count_tree_blocks_cuda(code, mats2, every))
+            torch.cuda.synchronize()
+            if a != b:
+                raise AssertionError(f"K1 {a} != K2 over all blocks {b} for {prog} (S={S2})")
+            n += 1
+    # More shards than the grid holds at once (2048 threads per SM, 128 per
+    # shard, on 132 SMs: 2112): the CTAs stride over the shards.
+    S3 = 2200
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mats3 = [torch.randint(-2 ** 31, 2 ** 31 - 1, (4, S3, 32768), dtype=torch.int32, device=device,
+                           generator=gen) for _ in range(2)]
+    for prog in (KERNEL_PROGS[0], KERNEL_PROGS[2], KERNEL_PROGS[6]):
         code = kernels.compile_prog(prog)
-        a = int(kernels.count_tree_dense(code, mats, torch.ones(S, dtype=torch.int32, device=device)))
-        b = int(sparse.count_tree_blocks_cuda(code, mats, full_idx, full_n))
-        torch.cuda.synchronize()
-        if a != b:
-            raise AssertionError(f"K1 {a} != K2 over all blocks {b} for {prog}")
+        for what, bits in _block_word_cases(rng, S3):
+            bb = torch.from_numpy(bits.view(np.int64)).to(device)
+            got = int(sparse.count_tree_blocks_cuda(code, mats3, bb))
+            want = int(sparse.count_tree_blocks_plain(prog, mats3, bb))
+            if got != want:
+                raise AssertionError(f"K2 over {S3} shards {prog} {what}: {got} != {want}")
+            n += 1
+    del mats3
+    # Two streams at once: each takes its own scratch word, so K2 launches
+    # that overlap on two streams still finish exactly.
+    side = torch.cuda.Stream(device=device)
+    code = kernels.compile_prog(KERNEL_PROGS[0])
+    words = [torch.from_numpy(b.view(np.int64)).to(device) for _, b in _block_word_cases(rng, S)]
+    torch.cuda.synchronize()
+    got = []
+    for i in range(4 * len(words)):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            got.append((words[i % len(words)], sparse.count_tree_blocks_cuda(code, mats, words[i % len(words)])))
+    torch.cuda.synchronize()
+    for bb, g in got:
+        want = int(sparse.count_tree_blocks_plain(KERNEL_PROGS[0], mats, bb))
+        if int(g) != want:
+            raise AssertionError(f"K2 on two streams: {int(g)} != {want}")
         n += 1
+    # No shards at all: K2 still stores its (zero) result.
+    got = sparse.count_tree_blocks_cuda(kernels.compile_prog(KERNEL_PROGS[0]),
+                                        [m[:, :0].contiguous() for m in mats],
+                                        torch.zeros(0, dtype=torch.int64, device=device))
+    if int(got) != 0:
+        raise AssertionError(f"K2 over no shards: {int(got)} != 0")
+    n += 1
     # A too-deep tree is refused before launch.
     deep = ("row", 0, 0)
     for _ in range(kernels.MAX_STACK):
@@ -259,16 +409,27 @@ def check_topn_kernels(device, seed):
                 err["topn_trim"] = max(err["topn_trim"], _exact("K4", vals, wv, f"vals K={K} n={n_out}"),
                                        _exact("K4", idx, wi, f"idx K={K} n={n_out}"))
                 n += 1
-    for R2 in (1, 8, 64):
-        # Shard 0 of an adversarial stack: row 0 all-ones, row 1 sign bits.
-        mat = _adversarial_stack(rng, max(R2, 4), 3, device)[:R2, 0].contiguous()
-        for row in (mats[0][0, 1], mats[1][1, 0], torch.full((32768,), -1, dtype=torch.int32, device=device)):
-            got = kernels.and_popcount_rows_cuda(mat, row)
-            torch.cuda.synchronize()
-            err["and_popcount_rows"] = max(
-                err["and_popcount_rows"],
-                _exact("P2", got, bitops.popcount_and_rows_plain(mat, row), f"R={R2}"))
-            n += 1
+    for R2 in P2_CHECK_ROWS:
+        # Row 0 all-ones words, row 1 sign bits only, the rest random.
+        mat = torch.randint(-2 ** 31, 2 ** 31 - 1, (R2, 32768), dtype=torch.int32, device=device)
+        mat[0] = -1
+        if R2 > 1:
+            mat[1] = -2 ** 31
+        k = max(1, R2 // 2)
+        row_lists = [None, rng.permutation(R2)[:k].tolist(), rng.permutation(R2).tolist(),
+                     [R2 - 1], list(range(R2))]
+        if R2 >= 2 * kernels.P2_MAX_LISTED:  # past the parameter list: a device list
+            row_lists.append(rng.integers(0, R2, kernels.P2_MAX_LISTED + 88).tolist())
+        for row in (mats[0][0, 1], mats[1][1, 0], torch.full((32768,), -1, dtype=torch.int32, device=device),
+                    torch.full((32768,), -2 ** 31, dtype=torch.int32, device=device)):
+            for rows in row_lists:
+                got = kernels.and_popcount_rows_cuda(mat, row, rows)
+                torch.cuda.synchronize()
+                err["and_popcount_rows"] = max(
+                    err["and_popcount_rows"],
+                    _exact("P2", got, bitops.popcount_and_rows_plain(mat, row, rows),
+                           f"R={R2} rows={'all' if rows is None else len(rows)}"))
+                n += 1
     log(f"kernels: {n} comparisons exact (K3, K4 and P2 against plain versions)")
     return err
 
@@ -556,10 +717,58 @@ def run_topn_main_path(device, holder, engine, ex, host):
     log(f"main path: {q} without an engine over all {len(o.cnt[0])} shards -> {got}, "
         f"exact, in {wall:.3f} s (row mirrors built on first use); P2 launches "
         f"{launches['and_popcount_rows']}")
-    return launches
+
+    # Warm: the same query again, mirrors resident.
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = [tuple(p) for p in Executor(holder).execute("bench", q).results[0]]
+        walls.append(time.perf_counter() - t0)
+        if got != want:
+            raise AssertionError(f"{q} (no engine, warm): port {got} != numpy oracle {want}")
+    log(f"main path: warm engine-less {q} wall p50 {statistics.median(walls) * 1e3:.3f} ms "
+        f"over {len(walls)} calls ({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms)")
+    return launches, (q, want)
+
+
+def engine_less_kernels(holder, q, want):
+    """The card's kernel list of one warm engine-less TopN, from
+    torch.profiler: every launch must be P2 (no gather, no fill)."""
+    from pilosa_tpu_torch.executor.executor import Executor
+
+    got = []
+    seen = on_card(lambda: got.extend(tuple(p) for p in Executor(holder).execute("bench", q).results[0]))
+    if got != want:
+        raise AssertionError(f"{q} (no engine, profiled): port {got} != numpy oracle {want}")
+    log("main path: kernels of one warm engine-less TopN (torch.profiler): "
+        + json.dumps(per_launch(seen)))
+    stray = [k for k in seen if not k.startswith("Memcpy") and "and_popcount_rows_kernel" not in k]
+    if stray:
+        raise AssertionError(f"engine-less TopN launched kernels other than P2: {stray}")
 
 
 # -- phase 4: times ----------------------------------------------------------
+
+
+def _entry(name, source, replaces, launches, err, times, plain, byts, ops, library):
+    """One {"kernels": [...]} entry; the bound is the larger of the bytes
+    over the memory rate and the integer operations over the card's rate."""
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": times["ms"],
+        "device_ms": times["device_ms"], "host_us": times["host_us"], "plain_ms": plain,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library,
+    }
+
+
+def _times_line(tag, t, bound, plain, extra=""):
+    log(f"times: {tag} ms {t['ms']:.4f} (CUDA events around the wrapper), "
+        f"device {t['device_ms']:.4f} ms "
+        f"(torch.profiler), host {t['host_us']:.1f} us per call; bound {bound:.4f} ms, "
+        f"plain {plain:.3f} ms{extra}")
 
 
 def time_kernels(engine, ex, device, err, launches):
@@ -593,108 +802,89 @@ def time_kernels(engine, ex, device, err, launches):
     for _ in range(5):
         kernels.count_tree_dense(codes[0], lw.mats, mask)
     sync()
-    k1 = p50_ms(lambda: kernels.count_tree_dense(codes[next(it) % 12], lw.mats, mask), 15, sync)
+    t1 = measured(lambda: kernels.count_tree_dense(codes[next(it) % 12], lw.mats, mask),
+                  "count_tree_dense_kernel", sync)
     plain1 = p50_ms(lambda: kernels.count_tree_plain(progs[next(it) % 12], lw.mats, mask), 5, sync, batch=2)
     # Least time: each leaf row's words of the requested shards read once,
     # plus the mask and the result; about four integer ops per word.
     words = 2 * S * 32768
-    bytes1 = words * 4 + S * 4 + 8
-    ops1 = words * 4
-    bound1 = max(bytes1 / HBM_BYTES_PER_S, ops1 / INT_OPS_PER_S) * 1e3
-    out.append({
-        "name": "count_tree_dense", "route": "cuda",
-        "source": "pilosa_tpu_torch/csrc/count_tree_dense.cu",
-        "replaces": "pilosa_tpu/parallel/kernels.py:242",
-        "launches": launches["count_tree_dense"],
-        "max_abs_err": err["count_tree_dense"],
-        "ms": k1, "plain_ms": plain1, "bound_ms": bound1,
-        "bound_by": "bytes" if bytes1 / HBM_BYTES_PER_S >= ops1 / INT_OPS_PER_S else "operations",
-        "library_ms": None,
-    })
+    out.append(_entry("count_tree_dense", "pilosa_tpu_torch/csrc/count_tree_dense.cu",
+                      "pilosa_tpu/parallel/kernels.py:242", launches["count_tree_dense"],
+                      err["count_tree_dense"], t1, plain1, words * 4 + S * 4 + 8, words * 4, None))
+    _times_line("K1 count_tree_dense", t1, out[-1]["bound_ms"], plain1)
 
-    # K2 at the sparse main path's shape: the 12 pairs of s.
+    # K2 at the sparse main path's shape: the 12 pairs of s, each with the
+    # planner's block words on the card.
     lw2 = _Lowering(engine, canonical)
     plans = []
     for k in range(12):
         c = pql.parse(f"Intersect(Row(s={10 + 2 * k}), Row(s={11 + 2 * k}))").calls[0]
         prog = engine._lower("bench", c, lw2)
-        blk_idx, blk_n, _ = engine._sparse_plan(prog, lw2, canonical, canonical)
-        plans.append((prog, kernels.compile_prog(prog),
-                      torch.from_numpy(blk_idx).to(device),
-                      torch.from_numpy(blk_n).to(device)))
-    for prog, code, bi, bn in plans:  # held against plain at this shape
-        got = int(sparse.count_tree_blocks_cuda(code, lw2.mats, bi, bn))
-        e = abs(got - int(sparse.count_tree_blocks_plain(prog, lw2.mats, bi, bn)))
+        blk_bits, _ = engine._sparse_plan(prog, lw2, canonical, canonical)
+        plans.append((prog, kernels.compile_prog(prog), torch.from_numpy(blk_bits).to(device),
+                      int(popcounts(blk_bits.view(np.uint64)))))
+    for prog, code, bb, _ in plans:  # held against plain at this shape
+        got = int(sparse.count_tree_blocks_cuda(code, lw2.mats, bb))
+        e = abs(got - int(sparse.count_tree_blocks_plain(prog, lw2.mats, bb)))
         err["count_tree_blocks"] = max(err["count_tree_blocks"], e)
         if e:
             raise AssertionError(f"K2 at the main-path shape: {prog} off by {e}")
     for _ in range(5):
-        sparse.count_tree_blocks_cuda(plans[0][1], lw2.mats, plans[0][2], plans[0][3])
+        sparse.count_tree_blocks_cuda(plans[0][1], lw2.mats, plans[0][2])
     sync()
 
     def k2_call():
-        _, code, bi, bn = plans[next(it) % 12]
-        return sparse.count_tree_blocks_cuda(code, lw2.mats, bi, bn)
+        _, code, bb, _ = plans[next(it) % 12]
+        return sparse.count_tree_blocks_cuda(code, lw2.mats, bb)
 
     def k2_plain():
-        prog, _, bi, bn = plans[next(it) % 12]
-        return sparse.count_tree_blocks_plain(prog, lw2.mats, bi, bn)
+        prog, _, bb, _ = plans[next(it) % 12]
+        return sparse.count_tree_blocks_plain(prog, lw2.mats, bb)
 
-    k2 = p50_ms(k2_call, 15, sync)
+    t2 = measured(k2_call, "count_tree_blocks_kernel", sync)
     plain2 = p50_ms(k2_plain, 5, sync, batch=2)
-    # Least time per plan: each listed 2 KiB block of both leaves read
-    # once, plus the block lists and the result; the median over the 12.
-    bounds2, bytes2_all, ops2_all = [], [], []
-    for _, _, bi, bn in plans:
-        blocks = int(bn.sum())
-        b = 2 * blocks * 2048 + bi.numel() * 4 + bn.numel() * 4 + 8
-        o = 2 * blocks * 512 * 4
-        bytes2_all.append(b)
-        ops2_all.append(o)
-        bounds2.append(max(b / HBM_BYTES_PER_S, o / INT_OPS_PER_S) * 1e3)
-    bound2 = statistics.median(bounds2)
-    blocks = statistics.median(int(bn.sum()) for _, _, _, bn in plans)
-    by_bytes = statistics.median(bytes2_all) / HBM_BYTES_PER_S >= statistics.median(ops2_all) / INT_OPS_PER_S
-    out.append({
-        "name": "count_tree_blocks", "route": "cuda",
-        "source": "pilosa_tpu_torch/csrc/count_tree_blocks.cu",
-        "replaces": "pilosa_tpu/parallel/sparse.py:164",
-        "launches": launches["count_tree_blocks"],
-        "max_abs_err": err["count_tree_blocks"],
-        "ms": k2, "plain_ms": plain2, "bound_ms": bound2,
-        "bound_by": "bytes" if by_bytes else "operations",
-        "library_ms": None,
-    })
-    log(f"times: K1 p50 {k1:.4f} ms (bound {bound1:.4f} ms, plain {plain1:.3f} ms); "
-        f"K2 p50 {k2:.4f} ms over a median {blocks} blocks per leaf "
-        f"(bound {bound2:.4f} ms, plain {plain2:.3f} ms)")
+    # Least work per plan: each marked 2 KiB block of both leaves read
+    # once, plus the S block words and the result; the median plan of 12.
+    blocks = statistics.median(n for _, _, _, n in plans)
+    out.append(_entry("count_tree_blocks", "pilosa_tpu_torch/csrc/count_tree_blocks.cu",
+                      "pilosa_tpu/parallel/sparse.py:164", launches["count_tree_blocks"],
+                      err["count_tree_blocks"], t2, plain2,
+                      2 * blocks * 2048 + S * 8 + 8, 2 * blocks * 512 * 4, None))
+    _times_line("K2 count_tree_blocks", t2, out[-1]["bound_ms"], plain2,
+                f"; a median {blocks} blocks per leaf")
 
     # End to end: Executor.execute of the 12 north-star Counts, host clock
     # around a synchronous answer (parse cache warm, stacks resident).
     for field in ("f", "s"):
-        qs = [pql_of(field, "and", (10 + 2 * k, 11 + 2 * k)) for k in range(12)]
-        lat = []
-        for rep in range(4):
-            for q in qs:
-                t0 = time.perf_counter()
-                ex.execute("bench", q)
-                lat.append((time.perf_counter() - t0) * 1e3)
         log(f"times: end-to-end Count(Intersect) on {field} p50 "
-            f"{statistics.median(lat):.4f} ms over {len(lat)} queries")
+            f"{count_p50_ms(ex, field):.4f} ms over 48 queries")
     return out
 
 
-def _entry(name, source, replaces, launches, err, ms, plain, byts, ops, library):
-    """One {"kernels": [...]} entry; the bound is the larger of the bytes
-    over the memory rate and the integer operations over the card's rate."""
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
-    return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library,
-    }
+def count_p50_ms(ex, field):
+    """p50 of Executor.execute over the 12 north-star Counts on a field,
+    four times each, host clock around a synchronous answer."""
+    qs = [pql_of(field, "and", (10 + 2 * k, 11 + 2 * k)) for k in range(12)]
+    lat = []
+    for _ in range(4):
+        for q in qs:
+            t0 = time.perf_counter()
+            ex.execute("bench", q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
+
+
+def topn_p50_ms(ex):
+    """p50 of Executor.execute of TopN(top, Row(f=r), n=5) over 12 src
+    rows, three times each, host clock around a synchronous answer."""
+    qs = [f"TopN(top, Row(f={r}), n=5)" for r in range(10, 22)]
+    lat = []
+    for _ in range(3):
+        for q in qs:
+            t0 = time.perf_counter()
+            ex.execute("bench", q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
 
 
 def time_topn(engine, ex, holder, device, err, launches):
@@ -739,7 +929,7 @@ def time_topn(engine, ex, holder, device, err, launches):
     for _ in range(3):
         k3()
     sync()
-    ms3 = p50_ms(k3, 15, sync)
+    t3 = measured(k3, "score_rows_kernel", sync)
     plain3 = p50_ms(k3_plain, 3, sync, batch=1)
     # Least work: each candidate row and the src row of every requested
     # shard read once, the counts, mask and indices read, the totals
@@ -747,9 +937,8 @@ def time_topn(engine, ex, holder, device, err, launches):
     bytes3 = (K + 1) * S * W * 4 + K * S * 4 + S * 4 + K * 4 + K * 8
     out = [_entry("score_rows", "pilosa_tpu_torch/csrc/score_rows.cu",
                   "pilosa_tpu/parallel/kernels.py:346", launches["score_rows"],
-                  err["score_rows"], ms3, plain3, bytes3, 3 * K * S * W, None)]
-    log(f"times: K3 score_rows p50 {ms3:.4f} ms at K={K}, S={S} "
-        f"(bound {out[-1]['bound_ms']:.4f} ms, plain {plain3:.3f} ms)")
+                  err["score_rows"], t3, plain3, bytes3, 3 * K * S * W, None)]
+    _times_line(f"K3 score_rows at K={K}, S={S}", t3, out[-1]["bound_ms"], plain3)
 
     totals = k3()
     n_out = 5
@@ -757,59 +946,133 @@ def time_topn(engine, ex, holder, device, err, launches):
     want = kernels.topn_trim_plain(totals, n_out)
     err["topn_trim"] = max(err["topn_trim"], _exact("K4", got[0], want[0], "vals at the main-path shape"),
                            _exact("K4", got[1], want[1], "idx at the main-path shape"))
-    ms4 = p50_ms(lambda: kernels.topn_trim_cuda(totals, n_out), 15, sync)
+    t4 = measured(lambda: kernels.topn_trim_cuda(totals, n_out), "topn_trim_kernel", sync)
     plain4 = p50_ms(lambda: kernels.topn_trim_plain(totals, n_out), 5, sync)
     # The one PyTorch call with the same order: a stable descending sort
     # (its first n_out entries); timed as a yardstick, never used.
     lib4 = p50_ms(lambda: torch.sort(totals, descending=True, stable=True), 15, sync)
     out.append(_entry("topn_trim", "pilosa_tpu_torch/csrc/topn_trim.cu",
                       "pilosa_tpu/parallel/kernels.py:382", launches["topn_trim"],
-                      err["topn_trim"], ms4, plain4, K * 8 + n_out * 8, K * K, lib4))
-    log(f"times: K4 topn_trim p50 {ms4:.4f} ms at K={K}, n_out={n_out} (bound "
-        f"{out[-1]['bound_ms']:.6f} ms, plain {plain4:.4f} ms, torch.sort {lib4:.4f} ms)")
+                      err["topn_trim"], t4, plain4, K * 8 + n_out * 8, K * K, lib4))
+    _times_line(f"K4 topn_trim at K={K}, n_out={n_out}", t4, out[-1]["bound_ms"], plain4,
+                f"; torch.sort {lib4:.4f} ms")
 
-    # P2 at the main path's shape: one top fragment's mirror against the
-    # src row's segment (what Fragment.top scores per shard), then at the
-    # script's own shapes.
+    # P2 at the main path's shape: shard 0's top fragment mirror, its
+    # candidates named by index in the ranked cache's order, against the
+    # src row's segment (what Fragment.top scores per shard); then at the
+    # script's own shapes, every row in order.
     frag = holder.fragment("bench", "top", "standard", 0)
-    mat, _ = frag.device_matrix()
+    mat, idx = frag.device_matrix()
+    main_rows = [idx[r] for r, _ in frag.cache.top() if r in idx]
     row = holder.fragment("bench", "f", "standard", 0).device_row(10)
-    shapes = [(mat, row)]
+    shapes = [(mat, row, main_rows)]
     prng = torch.Generator(device=device).manual_seed(2)
     for n_rows in (64, 512, 2048, 8192):
         m = torch.randint(-2 ** 31, 2 ** 31 - 1, (n_rows, W), dtype=torch.int32,
                           device=device, generator=prng)
-        shapes.append((m, m[n_rows // 2].clone()))
+        shapes.append((m, m[n_rows // 2].clone(), None))
     p2 = []
-    for m, r in shapes:
-        e = _exact("P2", kernels.and_popcount_rows_cuda(m, r),
-                   bitops.popcount_and_rows_plain(m, r), f"R={m.shape[0]}")
+    for m, r, rows in shapes:
+        e = _exact("P2", kernels.and_popcount_rows_cuda(m, r, rows),
+                   bitops.popcount_and_rows_plain(m, r, rows), f"R={m.shape[0]}")
         err["and_popcount_rows"] = max(err["and_popcount_rows"], e)
-        ms = p50_ms(lambda: kernels.and_popcount_rows_cuda(m, r), 15, sync)
-        plain = p50_ms(lambda: bitops.popcount_and_rows_plain(m, r), 5, sync, batch=2)
-        R = m.shape[0]
-        bound = max((R * W * 4 + W * 4 + R * 4) / HBM_BYTES_PER_S, 3 * R * W / INT_OPS_PER_S) * 1e3
-        p2.append((R, ms, plain, bound))
-        log(f"times: P2 and_popcount_rows p50 {ms:.4f} ms at [{R}, {W}] "
-            f"(bound {bound:.4f} ms, plain {plain:.3f} ms)")
-    R, ms, plain, _ = p2[0]
-    out.append(_entry("and_popcount_rows", "pilosa_tpu_torch/csrc/score_rows.cu",
+        t = measured(lambda: kernels.and_popcount_rows_cuda(m, r, rows), "and_popcount_rows_kernel", sync)
+        plain = p50_ms(lambda: bitops.popcount_and_rows_plain(m, r, rows), 5, sync, batch=2)
+        R = m.shape[0] if rows is None else len(rows)
+        byts, ops = R * W * 4 + W * 4 + R * 4, 3 * R * W
+        bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        p2.append((R, t, plain, byts, ops))
+        _times_line(f"P2 and_popcount_rows at [{R}, {W}]" + (" by index" if rows else ""),
+                    t, bound, plain, f"; {bound / t['device_ms'] * 100:.1f}% of the bound")
+    R, t, plain, byts, ops = p2[0]
+    out.append(_entry("and_popcount_rows", "pilosa_tpu_torch/csrc/and_popcount_rows.cu",
                       "scripts/pallas_vs_xla.py:56", launches["and_popcount_rows"],
-                      err["and_popcount_rows"], ms, plain, R * W * 4 + W * 4 + R * 4,
-                      3 * R * W, None))
+                      err["and_popcount_rows"], t, plain, byts, ops, None))
 
     # End to end: Executor.execute of TopN(top, Row(f=r), n=5) over the 12
     # src rows, host clock around a synchronous answer.
-    qs = [f"TopN(top, Row(f={r}), n=5)" for r in range(10, 22)]
-    lat = []
-    for _ in range(3):
-        for q in qs:
-            t0 = time.perf_counter()
-            ex.execute("bench", q)
-            lat.append((time.perf_counter() - t0) * 1e3)
-    log(f"times: end-to-end TopN(top, Row(f=r), n=5) p50 {statistics.median(lat):.4f} ms "
-        f"over {len(lat)} queries")
+    log(f"times: end-to-end TopN(top, Row(f=r), n=5) p50 {topn_p50_ms(ex):.4f} ms over 36 queries")
     return out
+
+
+# -- --root: one checkout's end-to-end numbers, for an A/B in one call ------
+
+
+def run_ab(root, seed):
+    """The end-to-end numbers of the pilosa_tpu_torch imported from
+    ``root``, with this file's data, queries and timing loops (so two
+    checkouts are measured the same way), and the main path's kernels on
+    the card: one JSON line.  Host-clock numbers are compared only within
+    one call, in turns (parent, change, change, parent)."""
+    import torch
+
+    import pilosa_tpu_torch
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.parallel import build
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+
+    pkg = os.path.dirname(os.path.abspath(pilosa_tpu_torch.__file__))
+    if os.path.dirname(pkg) != root:
+        raise AssertionError(f"imported {pkg}, not the package under {root}")
+    build.build(build.KERNELS)
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    holder = Holder(device=device)
+    host = build_index(holder, N_SHARDS, seed)
+    engine = TorchEngine(holder, device=device)
+    ex = Executor(holder, engine=engine)
+    for field in ("f", "s", "top"):
+        engine.field_stack("bench", field, "standard")
+    torch.cuda.synchronize()
+    log(f"ab: {pkg}: index and stacks in {time.perf_counter() - t0:.3f} s")
+
+    # Warm engine-less TopN: the p50 of nine calls after a first that
+    # builds the row mirrors.
+    q = "TopN(top, Row(f=10), n=5)"
+    want = TopNOracle(host["top"]).two_phase(host["f"][10], 5)
+
+    def engine_less():
+        got = [tuple(p) for p in Executor(holder).execute("bench", q).results[0]]
+        if got != want:
+            raise AssertionError(f"{q} (no engine): {got} != numpy oracle {want}")
+
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        engine_less()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    # The layer under it: Fragment.top of every shard's top fragment in
+    # turn (one P2 launch and one readback each), p50 over three sweeps.
+    frags = [(holder.fragment("bench", "top", "standard", sh),
+              holder.fragment("bench", "f", "standard", sh).row(10)) for sh in range(N_SHARDS)]
+    per_call = []
+    for _ in range(3):
+        for frag, src in frags:
+            t0 = time.perf_counter()
+            frag.top(n=5, src=src)
+            per_call.append((time.perf_counter() - t0) * 1e6)
+    for field in ("f", "s"):  # one warm-up pass each
+        for k in range(12):
+            ex.execute("bench", pql_of(field, "and", (10 + 2 * k, 11 + 2 * k)))
+    ex.execute("bench", q)
+    out = {
+        "root": root,
+        "dense_count_p50_ms": count_p50_ms(ex, "f"),
+        "sparse_count_p50_ms": count_p50_ms(ex, "s"),
+        "engine_topn_p50_ms": topn_p50_ms(ex),
+        "engine_less_topn_warm_ms": statistics.median(walls[1:]),
+        "engine_less_topn_ms": walls,
+        "fragment_top_us": statistics.median(per_call),
+    }
+    # The main path's kernels on the card, after every host-clock window:
+    # the 12 sparse Counts once each (K2) and one warm engine-less TopN
+    # (P2, and whatever else that tree launches per shard).
+    sparse_qs = [pql_of("s", "and", (10 + 2 * k, 11 + 2 * k)) for k in range(12)]
+    out["sparse_count_kernels"] = per_launch(on_card(lambda: [ex.execute("bench", x) for x in sparse_qs]))
+    out["engine_less_topn_kernels"] = per_launch(on_card(engine_less))
+    out["card"] = card_line()
+    print(json.dumps(out), flush=True)
 
 
 def card_line():
@@ -826,6 +1089,12 @@ def card_line():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20)
+    ap.add_argument("--check-only", action="store_true",
+                    help="build the kernels and run phase 2 (kernels against their plain "
+                         "versions) only; prints no result line")
+    ap.add_argument("--root", help="A/B mode: import pilosa_tpu_torch from this checkout, print "
+                                   "its end-to-end numbers and main-path kernels as one JSON "
+                                   "line, and stop; prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -833,16 +1102,19 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.abspath(args.root or os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
     try:
         from pilosa_tpu_torch.parallel import build
     except ImportError as e:
-        print(f"chip_smoke: pilosa_tpu_torch not found beside this script: {e}",
-              file=sys.stderr)
+        print(f"chip_smoke: pilosa_tpu_torch not found under {root}: {e}", file=sys.stderr)
         return 2
     device = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    if args.root:
+        run_ab(root, args.seed)
+        return 0
 
     t0 = time.perf_counter()
     built = build.build(build.KERNELS)
@@ -851,13 +1123,19 @@ def main(argv=None):
 
     err = check_kernels(device, args.seed)
     err.update(check_topn_kernels(device, args.seed))
+    if args.check_only:
+        log(f"check-only: every kernel exact against its plain version: {err}")
+        return 0
     holder, engine, ex, host, launches = run_main_path(device, N_SHARDS, args.seed)
-    launches.update(run_topn_main_path(device, holder, engine, ex, host))
+    topn_launches, engine_less_query = run_topn_main_path(device, holder, engine, ex, host)
+    launches.update(topn_launches)
     for v in launches.values():
         if v <= 0:
             raise AssertionError(f"a kernel of the main path never launched: {launches}")
     kern = time_kernels(engine, ex, device, err, launches)
     kern += time_topn(engine, ex, holder, device, err, launches)
+    # After the timing windows, so that no profiler session precedes them.
+    engine_less_kernels(holder, *engine_less_query)
     log(card_line())
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {

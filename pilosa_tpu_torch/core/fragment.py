@@ -675,14 +675,14 @@ class Fragment:
             src_counts = {}
             if src is not None:
                 seg = src.segment(self.shard)
-                _, idx = self.device_matrix()
+                mat, idx = self.device_matrix()
                 present = [r for r, _ in pairs if r in idx]
                 if seg is not None and present:
-                    sel = self._dev_matrix[
-                        torch.tensor([idx[r] for r in present], dtype=torch.long,
-                                     device=self.device)
-                    ]
-                    counts = bitops.popcount_and_rows(sel, seg)
+                    # The candidates' rows are read in place by index: no
+                    # gathered copy of the matrix.
+                    counts = bitops.popcount_and_rows(
+                        mat, seg, rows=[idx[r] for r in present]
+                    )
                     src_counts = dict(zip(present, counts.tolist()))
 
         # heap of (count, id): smallest count on top (pairHeap is a min-heap).

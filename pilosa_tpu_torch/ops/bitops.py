@@ -139,24 +139,28 @@ def popcount_rows(matrix):
     return popcount_words(matrix).sum(dim=-1)
 
 
-def popcount_and_rows_plain(matrix, row):
-    """int32[n_rows] counts of popcount(matrix[r] & row), in plain PyTorch
-    ops: the CPU path and the reference the card's kernel is held
-    against."""
+def popcount_and_rows_plain(matrix, row, rows=None):
+    """int32[K] counts of popcount(matrix[rows[k]] & row) (every row when
+    ``rows`` is None), in plain PyTorch ops: the CPU path and the
+    reference the card's kernel is held against."""
+    if rows is not None:
+        matrix = matrix[torch.as_tensor(list(rows), dtype=torch.long, device=matrix.device)]
     return popcount_words(torch.bitwise_and(matrix, row[None, :])).sum(dim=-1).to(torch.int32)
 
 
-def popcount_and_rows(matrix, row):
-    """Per-row intersection counts int32[n_rows] of [n_rows, WORDS] against
-    one row (TopN scoring, fragment.go top :1089).  On the card it launches
-    K3's ``and_popcount_rows`` entry (the port of the Pallas kernel
-    ``scripts/pallas_vs_xla.py:56 matrix_and_popcount_pallas``) or raises;
-    on the CPU it runs the plain version."""
+def popcount_and_rows(matrix, row, rows=None):
+    """Per-row intersection counts int32[K] of [n_rows, WORDS] against one
+    row (TopN scoring, fragment.go top :1089): the rows named by index in
+    ``rows`` (a sequence of row positions), or every row when it is None.
+    On the card it launches P2 (``csrc/and_popcount_rows.cu``, the port of
+    the Pallas kernel ``scripts/pallas_vs_xla.py:56
+    matrix_and_popcount_pallas``), which reads the named rows in place, or
+    raises; on the CPU it runs the plain version."""
     if matrix.is_cuda:
         from ..parallel import kernels  # parallel imports ops: no cycle at load
 
-        return kernels.and_popcount_rows_cuda(matrix, row)
-    return popcount_and_rows_plain(matrix, row)
+        return kernels.and_popcount_rows_cuda(matrix, row, rows)
+    return popcount_and_rows_plain(matrix, row, rows)
 
 
 def union_rows(matrix):

@@ -9,7 +9,8 @@ The port of the Count and TopN slices of ``pilosa_tpu/parallel/engine.py``
 2. ``_sparse_plan`` combines the stacks' exact block-occupancy summaries
    through the tree on the host; when at most ``sparse_threshold`` of the
    requested blocks survive, the count runs on K2 (``sparse.py``) over
-   only those blocks, else on K1 (``kernels.py``) over every word;
+   only those blocks, named by one uint64 word per shard, else on K1
+   (``kernels.py``) over every word;
 3. the kernel reduces on the device and the result is one int64.
 
 TopN (``topn_full``): the candidates are the id-descending union of the
@@ -338,26 +339,26 @@ class TorchEngine:
         return kernels.count_tree(prog, lw.mats, self._mask_words(shards, canonical))
 
     def _dispatch_sparse(self, prog, mats, plan):
-        blk_idx, blk_n, skipped = plan
+        blk_bits, skipped = plan
         self.sparse_dispatches += 1
         self.device_bytes_skipped += skipped
         self.last_path = "sparse"
-        return sparse_mod.count_tree_blocks(
-            prog,
-            mats,
-            torch.from_numpy(blk_idx).to(self.device),
-            torch.from_numpy(blk_n).to(self.device),
-        )
+        bits = torch.from_numpy(blk_bits)
+        if self.device.type == "cuda":
+            # One pinned staging copy, queued behind the stream's work
+            # without waiting for it.
+            bits = bits.pin_memory().to(self.device, non_blocking=True)
+        return sparse_mod.count_tree_blocks(prog, mats, bits)
 
     def _sparse_plan(self, prog, lw: _Lowering, shards, canonical):
-        """Block lists for the sparse count, or None to take the dense
-        path.  Combines the stacks' occupancy summaries through the tree
-        on the host (and intersects, or/xor unite, andnot keeps its left
-        side — the right can only clear bits), gates by the requested
-        shards, and when the surviving block fraction is at or under
-        ``sparse_threshold`` returns ``(blk_idx int32[S, Kb], blk_n
-        int32[S], bytes_skipped)`` with the shard mask folded into
-        ``blk_n``."""
+        """The per-shard block words for the sparse count, or None to take
+        the dense path.  Combines the stacks' occupancy summaries through
+        the tree on the host (and intersects, or/xor unite, andnot keeps
+        its left side — the right can only clear bits), zeroes the
+        unrequested shards, and when the surviving block fraction is at or
+        under ``sparse_threshold`` returns ``(blk_bits int64[S],
+        bytes_skipped)``: bit b of word s set iff block b of shard s is
+        read."""
         S = len(canonical)
         n_leaves = 0
 
@@ -391,27 +392,12 @@ class TorchEngine:
         if n_req == 0:
             return None
         occ = np.where(req, occ, np.uint64(0))
-        bits = np.unpackbits(
-            occ.view(np.uint8).reshape(S, 8), axis=1, bitorder="little"
-        )  # [S, OCC_BLOCKS] 0/1
-        blk_n = bits.sum(axis=1).astype(np.int32)
-        total_blocks = int(blk_n.sum())
+        total_blocks = bitops.popcount_np(occ)
         denom = n_req * bitops.OCC_BLOCKS
         if total_blocks / denom > self.sparse_threshold:
             return None
-        # Occupied block ids first (the stable sort keeps them ascending),
-        # padded with block 0 — padding slots are skipped by the kernel.
-        # Kb pads to power-of-two tiers, as the JAX planner's do.
-        kmax = max(1, int(blk_n.max()))
-        Kb = 1 << (kmax - 1).bit_length()
-        order = np.argsort(~bits.astype(bool), axis=1, kind="stable")
-        blk_idx = np.where(
-            np.arange(Kb, dtype=np.int64)[None, :] < blk_n[:, None],
-            order[:, :Kb],
-            0,
-        ).astype(np.int32)
         skipped = n_leaves * (denom - total_blocks) * bitops.OCC_BLOCK_WORDS * 4
-        return np.ascontiguousarray(blk_idx), blk_n, skipped
+        return occ.view(np.int64), skipped
 
     # -- TopN (pilosa_tpu/parallel/engine.py:4102-4565) ---------------------
 

@@ -1,6 +1,6 @@
 """Count(tree) and TopN scoring over field stacks: K1 ``count_tree_dense``,
-K3 ``score_rows`` (with its P2 entry ``and_popcount_rows``) and K4
-``topn_trim``, each beside its plain twin.
+K3 ``score_rows``, K4 ``topn_trim`` and P2 ``and_popcount_rows``, each
+beside its plain twin.
 
 The engine lowers a PQL call tree to a normalized program over a list of
 field stacks ``int32[R, S, WORDS]`` (rows major, the canonical shard axis
@@ -26,11 +26,13 @@ postfix program (``compile_prog``), shared with K2 in ``sparse.py``.
 ``topn_tree`` and ``topn_full_tree`` (TopN, below) take the same src tree
 and wrap K3 ``csrc/score_rows.cu`` and K4 ``csrc/topn_trim.cu`` the same
 way: a CUDA tensor launches or raises, a CPU tensor takes the plain
-version.
+version.  P2 ``csrc/and_popcount_rows.cu`` scores one fragment's rows,
+named by index, against one src row (``bitops.popcount_and_rows``).
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -355,8 +357,14 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
         if not 0 <= r < mats[m].shape[0]:
             raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
     dev = cand_mat.device
-    out_scores = torch.zeros((K, S), dtype=torch.int32, device=dev) if scores else None
-    out_src = torch.zeros(S, dtype=torch.int32, device=dev) if src_counts else None
+    # The kernel stores every score and src count (zeros included); with
+    # no candidates it does not run, and the src counts stay zero.
+    out_scores = torch.empty((K, S), dtype=torch.int32, device=dev) if scores else None
+    out_src = None
+    if src_counts and K:
+        out_src = torch.empty(S, dtype=torch.int32, device=dev)
+    elif src_counts:
+        out_src = torch.zeros(S, dtype=torch.int32, device=dev)
     totals = torch.zeros(K, dtype=torch.int64, device=dev) if cnt is not None else None
     fn = _lib_fn("score_rows", "score_rows", _SCORE_ROWS_ARGS)
     leaf_arr, ops_arr = _c_leaves(code, mats)
@@ -375,18 +383,40 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
 score_rows_cuda.launches = 0
 
 
-def and_popcount_rows_cuda(matrix: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
-    """Launch K3's P2 entry on the card: int32[R] counts of
-    popcount(matrix[r] & row), without waiting for the device."""
+# P2 carries up to this many row indices in its launch parameters
+# (csrc/and_popcount_rows.cu kMaxListed); a longer list goes up in one
+# pinned, non-blocking copy.
+P2_MAX_LISTED = 512
+
+
+def and_popcount_rows_cuda(matrix: torch.Tensor, row: torch.Tensor,
+                           rows: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Launch P2 on the card: int32[K] counts of popcount(matrix[rows[k]]
+    & row), the rows read by index from ``matrix`` int32[R, W] (every row
+    when ``rows`` is None), without waiting for the device."""
     if matrix.dtype != torch.int32 or matrix.dim() != 2 or not matrix.is_cuda:
         raise ValueError("matrix must be an int32[R, W] tensor on the card")
     R, W = matrix.shape
     matrix = matrix.contiguous()
     row = _on_card_int32(row, "row", (W,))
-    out = torch.zeros(R, dtype=torch.int32, device=matrix.device)
-    fn = _lib_fn("score_rows", "and_popcount_rows", [_P, _P, _I, _I, _P, _P])
-    err = fn(matrix.data_ptr(), row.data_ptr(), R, W, out.data_ptr(),
-             torch.cuda.current_stream(matrix.device).cuda_stream)
+    dev = matrix.device
+    listed = dev_rows = None
+    K = R
+    if rows is not None:
+        listed = array.array("i", rows)  # the host list the launch copies
+        K = len(listed)
+        if K and (min(listed) < 0 or max(listed) >= R):
+            raise ValueError(f"row index outside the matrix of {R} rows")
+        if K > P2_MAX_LISTED:
+            dev_rows = torch.frombuffer(listed, dtype=torch.int32).pin_memory().to(
+                dev, non_blocking=True)
+            listed = None
+    out = torch.empty(K, dtype=torch.int32, device=dev)
+    if K == 0:
+        return out
+    fn = _lib_fn("and_popcount_rows", "and_popcount_rows", [_P, _I, _P, _P, _P, _I, _I, _P, _P])
+    err = fn(matrix.data_ptr(), R, row.data_ptr(), None if listed is None else listed.buffer_info()[0],
+             _ptr(dev_rows), K, W, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"and_popcount_rows launch failed: cudaError {err}")
     and_popcount_rows_cuda.launches += 1

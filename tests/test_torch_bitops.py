@@ -77,6 +77,32 @@ def test_popcount_family(seed):
     )
 
 
+@pytest.mark.parametrize("case", ["subset", "permutation", "one_row", "all_in_order", "repeats"])
+def test_popcount_and_rows_by_index(case):
+    """popcount_and_rows(matrix, row, rows=...) reads the named rows in
+    place; the reference scores the gathered rows (fragment.go top :1089's
+    batched form, as pilosa_tpu/core/fragment.py:1596-1600 calls it)."""
+    rng = np.random.default_rng(9)
+    R = 12
+    m = words(rng, (R, port.WORDS))
+    m[3] = 0xFFFFFFFF
+    m[5] = 0x80000000
+    r = words(rng, port.WORDS)
+    rows = {
+        "subset": [7, 3, 11, 0],
+        "permutation": rng.permutation(R).tolist(),
+        "one_row": [5],
+        "all_in_order": list(range(R)),  # the same counts as rows=None
+        "repeats": [3, 3, 5, 0, 5],
+    }[case]
+    want = np.asarray(ref.popcount_and_rows(jnp.asarray(m[rows]), jnp.asarray(r)))
+    got = port.popcount_and_rows(t(m), t(r), rows=rows)
+    assert got.dtype == torch.int32 and got.shape == (len(rows),)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "all_in_order":
+        np.testing.assert_array_equal(port.popcount_and_rows(t(m), t(r)).numpy(), want)
+
+
 def test_popcount_words_every_special_word():
     got = port.popcount_words(t(SPECIAL)).numpy()
     np.testing.assert_array_equal(got, np.bitwise_count(SPECIAL))

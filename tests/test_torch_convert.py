@@ -52,9 +52,8 @@ def test_converted_stack_counts_like_mesh_engine(jax_engine, field):
         want = jeng.count("i", jpql.parse(f"{name}(Row({field}=1), Row({field}=2))").calls[0], shards)
         prog = (op, ("row", 0, r1), ("row", 0, r2))
         dense = kernels.count_tree(prog, [st.matrix], torch.ones(N_SHARDS, dtype=torch.int32))
-        all_idx = torch.arange(64, dtype=torch.int32).repeat(N_SHARDS, 1)
-        blocks = sparse.count_tree_blocks(prog, [st.matrix], all_idx,
-                                          torch.full((N_SHARDS,), 64, dtype=torch.int32))
+        all_blocks = torch.full((N_SHARDS,), -1, dtype=torch.int64)
+        blocks = sparse.count_tree_blocks(prog, [st.matrix], all_blocks)
         assert int(dense) == int(blocks) == want
 
 

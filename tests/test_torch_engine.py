@@ -142,23 +142,34 @@ def test_stack_contents_and_occupancy_match(twins, jax_side, field):
     np.testing.assert_array_equal(st.occ, np.asarray(jst.occ)[:, :N_SHARDS])
 
 
-def test_sparse_plan_block_lists_exact(twins):
-    """The planner lists exactly the blocks both leaves share."""
-    _, th = twins
-    eng = TorchEngine(th, device="cpu")
+def test_sparse_plan_block_lists_exact(twins, jax_side):
+    """The planner marks exactly the blocks both leaves share, one word
+    per shard, and they are the blocks the reference planner lists."""
+    from pilosa_tpu.parallel.engine import _Lowering as JLowering
     from pilosa_tpu_torch.parallel.engine import _Lowering
 
+    _, th = twins
+    jeng, _ = jax_side
+    eng = TorchEngine(th, device="cpu")
+    q = "Intersect(Row(c=1), Row(c=2))"
     canonical = eng.canonical_shards("i")
     lw = _Lowering(eng, canonical)
-    prog = eng._lower("i", tpql.parse("Intersect(Row(c=1), Row(c=2))").calls[0], lw)
-    blk_idx, blk_n, skipped = eng._sparse_plan(prog, lw, canonical, canonical)
+    prog = eng._lower("i", tpql.parse(q).calls[0], lw)
+    blk_bits, skipped = eng._sparse_plan(prog, lw, canonical, canonical)
+    assert blk_bits.dtype == np.int64 and blk_bits.shape == (len(canonical),)
+    words = blk_bits.view(np.uint64)
     st = lw.stacks[0]
+    jlw = JLowering(jeng, jeng.canonical_shards("i"))
+    jplan = jeng._sparse_plan(jeng._lower("i", jpql.parse(q).calls[0], jlw),
+                              jlw, canonical, jeng.canonical_shards("i"))
+    jidx, jn = np.asarray(jplan[3]), np.asarray(jplan[4])
     for si in range(len(canonical)):
         both = int(st.occ[prog[1][2], si]) & int(st.occ[prog[2][2], si])
+        assert int(words[si]) == both
         want = [b for b in range(bitops.OCC_BLOCKS) if both >> b & 1]
-        assert blk_idx[si, :blk_n[si]].tolist() == want
-    assert blk_idx.shape[1] & (blk_idx.shape[1] - 1) == 0  # power-of-two tier
-    assert skipped == 2 * (len(canonical) * 64 - int(blk_n.sum())) * 2048
+        assert jidx[si, :jn[si]].tolist() == want
+    n_marked = sum(bin(int(w)).count("1") for w in words)
+    assert skipped == jplan[5] == 2 * (len(canonical) * 64 - n_marked) * 2048
 
 
 def test_stack_cached_until_a_write(twins):

@@ -403,25 +403,35 @@ def _pallas_script():
     return mod
 
 
-@pytest.mark.parametrize("case", ["random", "all_ones", "sign_bit"])
+@pytest.mark.parametrize("case", ["random", "all_ones", "sign_bit", "by_index"])
 def test_p2_matches_the_pallas_kernel(case):
     """P2, the Pallas kernel scripts/pallas_vs_xla.py:56 in interpret mode,
-    against the port's popcount_and_rows (plain here, K3's
-    and_popcount_rows entry on the card)."""
+    against the port's popcount_and_rows (plain here, P2
+    csrc/and_popcount_rows.cu on the card).  by_index: the port names 16
+    rows of a 24-row matrix out of order and reads them in place; the
+    Pallas kernel scores the same rows gathered."""
     from jax.experimental.pallas import tpu as pltpu
 
     rng = np.random.default_rng(17)
     mat, row = words(rng, (16, W)), words(rng, W)
+    rows = None
     if case == "all_ones":
         mat[::2] = 0xFFFFFFFF
         row[:] = 0xFFFFFFFF
     elif case == "sign_bit":
         mat[1::2] = 0x80000000
         row[::3] = 0x80000000
+    elif case == "by_index":
+        full = words(rng, (24, W))
+        rows = rng.permutation(24)[:16].tolist()
+        mat = full[rows]
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(_pallas_script().matrix_and_popcount_pallas(
             jnp.asarray(mat), jnp.asarray(row), 8))
-    got = bitops.popcount_and_rows(t32(mat), t32(row))
+    if rows is None:
+        got = bitops.popcount_and_rows(t32(mat), t32(row))
+    else:
+        got = bitops.popcount_and_rows(t32(full), t32(row), rows=rows)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -436,6 +446,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(stacks):
         kernels.topn_trim_cuda(torch.zeros(8, dtype=torch.int64), 2)
     with pytest.raises(ValueError, match="card"):
         kernels.and_popcount_rows_cuda(t32(cand[0]), t32(cand[0, 0]))
+    with pytest.raises(ValueError, match="card"):
+        kernels.and_popcount_rows_cuda(t32(cand[0]), t32(cand[0, 0]), rows=[1, 0])
     assert kernels.score_rows_cuda.launches == 0
     assert kernels.topn_trim_cuda.launches == 0
     assert kernels.and_popcount_rows_cuda.launches == 0
