@@ -7,15 +7,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build — nvcc compiles every kernel source under pilosa_tpu_torch/csrc/
    (one nvcc per source, all started together) into build/torch_kernels/.
-2. kernels — K1 count_tree_dense and K2 count_tree_blocks, K3 score_rows,
-   K4 topn_trim and P2 and_popcount_rows against their plain PyTorch
+2. kernels — K1 count_tree_dense and K2 count_tree_blocks, K3 score_rows
+   (with TopN's trim in the last block of its full-TopN launch) and P2
+   and_popcount_rows against their plain PyTorch
    versions on the card: random and adversarial words (all-ones,
    sign-bit-only, zero), masked shards; for K2 block words of every
    density, block 63 (the sign bit), all 64 bits, one bit, ragged shard
    counts, chain and interpreter trees, launches overlapping on two
-   streams; for K3 K in {1, 8, 16, 128, 129,
-   4096}, pad and absent slots, zero and multi-leaf src trees; for K4 ties
-   and all-zero totals; for P2 R in {1, 8, 16, 17, 64, 129, 8192}, every
+   streams; for K3 K in {1, 8, 16, 128, 129, 1000,
+   4096}, pad and absent slots, zero and multi-leaf src trees, split
+   (clustered) launches; for its trim ties, all-zero totals, n_out in
+   {1, 5, K} and none (the totals copied out), and launches overlapping
+   on two streams; for P2 R in {1, 8, 16, 17, 64, 129, 8192}, every
    row or rows by index (a subset, a permutation, one row, a list past
    the launch-parameter cap).  Integer results, so they must agree
    exactly.  --check-only stops here.
@@ -28,13 +31,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    f must take the dense path (K1) and s the sparse path (K2).  TopN:
    TopN(top, <src>, n=5) for several src rows and an Intersect, a
    threshold= query, an ids= query, a no-src query and a Tanimoto query
-   (the two-phase lane), through the engine (K3, K4), then one TopN through
+   (the two-phase lane), through the engine (K3), then one TopN through
    an engine-less Executor (Fragment.top per shard: P2).  Every answer
    equals a numpy oracle over the host words, and each path's kernels'
    launch counters, zeroed just before it, must have moved.  Then the
    engine-less TopN again, warm (its wall time); after phase 4, once more
-   under torch.profiler, whose kernel list must hold P2 alone.
-4. times — each kernel at the main path's shapes: "ms" (CUDA events
+   under torch.profiler, whose kernel list must hold P2 alone, and one
+   warm engine TopN, whose list must hold K3 and one copy back alone.
+4. times — each kernel at the main path's shapes (the trim: what it
+   adds to K3's launch, at K = 16 and 4096): "ms" (CUDA events
    around 10 calls of the Python wrapper, the oldest column, kept for
    comparison: for a kernel whose device work is microseconds, that is
    the host's enqueue rate), "device_ms" (torch.profiler's kernel time
@@ -45,6 +50,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    computes the same function); P2 also at scripts/pallas_vs_xla.py's
    shapes; the end-to-end Count and TopN p50s, and the card's name and
    power limit.
+5. write — on the same index, last because it writes it: 32 Sets and 32
+   Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
+   half its Sets into blocks the row left empty), each read back by a
+   Count(Intersect) against a numpy oracle kept beside it, with
+   write->Count p50 and the scatter's host time; one Set and Count under
+   torch.profiler, whose list must hold the scatter; a bulk import of
+   2^20 bits into f synced by the IngestSyncer (its seconds), then every
+   f Count against the oracle; writes to top, then an engine TopN against
+   the oracle.  No stack is rebuilt through all of it and some are
+   synced in place; then one write to a new row must rebuild f exactly
+   once (its seconds, beside the bulk sync's).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,7 +72,9 @@ pilosa_tpu_torch from DIR, builds phase 3's index with it and prints one
 JSON line: the dense and sparse Count p50, the engine TopN p50, the warm
 engine-less TopN wall time, Fragment.top's microseconds per call, and the
 kernels that the sparse Counts and one warm engine-less TopN put on the
-card with their device time per launch (torch.profiler).  The data,
+card with their device time per launch (torch.profiler), then phase 5's
+write->Count p50 and bulk-sync seconds (a checkout without the in-place
+sync pays a rebuild for each).  The data,
 queries and loops are this file's, so both trees are measured the same
 way.  Run the trees in turns: parent, change, change, parent.
 """
@@ -358,8 +376,9 @@ def _exact(name, got, want, what):
 
 
 def check_topn_kernels(device, seed):
-    """K3 (topn_tree and gated totals), K4 and P2 against their plain
-    versions; returns max |err| of each."""
+    """K3 (topn_tree, and the full TopN: gated totals and the trim in its
+    last block) and P2 against their plain versions; returns max |err| of
+    each."""
     import torch
 
     from pilosa_tpu_torch.ops import bitops
@@ -373,10 +392,16 @@ def check_topn_kernels(device, seed):
     masks[2][0] = 1
     err = {"score_rows": 0, "topn_trim": 0, "and_popcount_rows": 0}
     n = 0
-    for K in (1, 8, 16, 128, 129, 4096):
+    # S = 6 shards: up to 129 candidates the launcher splits the words over
+    # clusters of CTAs; at 1000 and 4096 it does not.  K = 1000 leaves a
+    # partial group and a partial tile of the trim; K = 4096 is the most
+    # the totals take.
+    for K in (1, 8, 16, 128, 129, 1000, 4096):
         idx = rng.integers(0, R, K).astype(np.int32)
-        idx[K // 2:] = 0  # the later half: pad / absent slots, reading row 0
         cnt = rng.integers(0, 1 << 20, (K, S)).astype(np.int32)
+        if K > 1:  # a tie: one row twice with the same counts
+            idx[1], cnt[1] = idx[0], cnt[0]
+        idx[K // 2:] = 0  # the later half: pad / absent slots, reading row 0
         cnt[K // 2:] = 0
         ci = torch.from_numpy(idx).to(device)
         cn = torch.from_numpy(cnt).to(device)
@@ -389,26 +414,43 @@ def check_topn_kernels(device, seed):
                 ws, wc = kernels.topn_tree_plain(prog, mats, mask, cand, ci)
                 err["score_rows"] = max(err["score_rows"], _exact("K3", scores, ws, f"scores K={K} {prog}"),
                                         _exact("K3", counts, wc, f"src counts K={K} {prog}"))
-                for thr in (1, int(ws.float().mean()) + 1):
-                    _, _, totals = kernels.score_rows_cuda(code, mats, mask, cand, ci, scores=False,
-                                                           cnt=cn, thr=thr)
-                    torch.cuda.synchronize()
+                n += 1
+                # thr 1 << 30 gates every pair out: all-zero totals.
+                for thr in (1, int(ws.float().mean()) + 1, 1 << 30):
                     want = kernels.topn_full_tree_plain(prog, mats, mask, cand, ci, cn, thr, None)
-                    err["score_rows"] = max(err["score_rows"],
-                                            _exact("K3", totals, want, f"totals K={K} thr={thr} {prog}"))
-                    n += 1
-                n += 1
-    for K in (8, 16, 1024, 4096):
-        cases = [rng.integers(0, 4, K), np.zeros(K, np.int64), rng.integers(0, 1 << 30, K)]
-        for totals in cases:
-            t = torch.from_numpy(totals.astype(np.int64)).to(device)
-            for n_out in sorted({1, 5, K}):
-                vals, idx = kernels.topn_trim_cuda(t, n_out)
-                torch.cuda.synchronize()
-                wv, wi = kernels.topn_trim_plain(t, n_out)
-                err["topn_trim"] = max(err["topn_trim"], _exact("K4", vals, wv, f"vals K={K} n={n_out}"),
-                                       _exact("K4", idx, wi, f"idx K={K} n={n_out}"))
-                n += 1
+                    for n_out in sorted({None, 1, min(5, K), K}, key=lambda v: v or 0):
+                        _, _, got = kernels.score_rows_cuda(code, mats, mask, cand, ci, scores=False,
+                                                            cnt=cn, thr=thr, n_out=n_out)
+                        torch.cuda.synchronize()
+                        what = f"K={K} thr={thr} n_out={n_out} {prog} mask={m.tolist()}"
+                        if n_out is None:
+                            err["score_rows"] = max(err["score_rows"], _exact("K3", got, want, f"totals {what}"))
+                        else:
+                            wv, wi = kernels.topn_trim_plain(want, n_out)
+                            err["topn_trim"] = max(err["topn_trim"], _exact("K3 trim", got[0], wv, f"vals {what}"),
+                                                   _exact("K3 trim", got[1], wi, f"idx {what}"))
+                        n += 1
+    # Fused TopNs on two streams at once: each stream has its own totals
+    # scratch, so launches that overlap still finish exactly.
+    side = torch.cuda.Stream(device=device)
+    code = kernels.compile_prog(TOPN_SRC_PROGS[1])
+    K = 128
+    ci = torch.from_numpy(rng.integers(0, R, K).astype(np.int32)).to(device)
+    cn = torch.from_numpy(rng.integers(0, 1 << 20, (K, S)).astype(np.int32)).to(device)
+    mask = torch.ones(S, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    got = []
+    for i in range(16):
+        thr = 1 + 997 * i
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            got.append((thr, kernels.score_rows_cuda(code, mats, mask, cand, ci, scores=False,
+                                                     cnt=cn, thr=thr, n_out=5)[2]))
+    torch.cuda.synchronize()
+    for thr, g in got:
+        want = kernels.topn_full_tree_plain(TOPN_SRC_PROGS[1], mats, mask, cand, ci, cn, thr, 5)
+        err["topn_trim"] = max(err["topn_trim"], _exact("K3 trim", g, torch.stack(want),
+                                                        f"on two streams, thr={thr}"))
+        n += 1
     for R2 in P2_CHECK_ROWS:
         # Row 0 all-ones words, row 1 sign bits only, the rest random.
         mat = torch.randint(-2 ** 31, 2 ** 31 - 1, (R2, 32768), dtype=torch.int32, device=device)
@@ -430,7 +472,7 @@ def check_topn_kernels(device, seed):
                     _exact("P2", got, bitops.popcount_and_rows_plain(mat, row, rows),
                            f"R={R2} rows={'all' if rows is None else len(rows)}"))
                 n += 1
-    log(f"kernels: {n} comparisons exact (K3, K4 and P2 against plain versions)")
+    log(f"kernels: {n} comparisons exact (K3 with its trim, and P2, against plain versions)")
     return err
 
 
@@ -672,7 +714,7 @@ def topn_main_path_queries(host):
 
 
 def run_topn_main_path(device, holder, engine, ex, host):
-    """TopN through Executor.execute with the engine (K3, K4), then one
+    """TopN through Executor.execute with the engine (K3), then one
     TopN through an engine-less Executor (Fragment.top per shard: P2).
     Each path's counters are zeroed just before it and read just after."""
     import torch
@@ -690,15 +732,13 @@ def run_topn_main_path(device, holder, engine, ex, host):
     queries, o = topn_main_path_queries(host)
     log(f"main path: TopN numpy oracle in {time.perf_counter() - t0:.3f} s")
     kernels.score_rows_cuda.launches = 0
-    kernels.topn_trim_cuda.launches = 0
     kernels.and_popcount_rows_cuda.launches = 0
     for q, want in queries:
         got = [tuple(p) for p in ex.execute("bench", q).results[0]]
         if got != want:
             raise AssertionError(f"{q}: port {got} != numpy oracle {want}")
         log(f"main path: {q} -> {got}")
-    launches = {"score_rows": kernels.score_rows_cuda.launches,
-                "topn_trim": kernels.topn_trim_cuda.launches}
+    launches = {"score_rows": kernels.score_rows_cuda.launches}
     log(f"main path: {len(queries)} TopN queries exact against numpy; launches {launches}")
     if kernels.and_popcount_rows_cuda.launches:
         raise AssertionError("the engine's TopN lanes launched P2")
@@ -745,6 +785,24 @@ def engine_less_kernels(holder, q, want):
     stray = [k for k in seen if not k.startswith("Memcpy") and "and_popcount_rows_kernel" not in k]
     if stray:
         raise AssertionError(f"engine-less TopN launched kernels other than P2: {stray}")
+
+
+def engine_topn_kernels(ex, q, want):
+    """The card's work for one warm engine TopN, from torch.profiler: one
+    K3 launch (its last block trims) and one copy back, nothing else: no
+    fill, no trim launch."""
+    got = []
+    seen = on_card(lambda: got.extend(tuple(p) for p in ex.execute("bench", q).results[0]))
+    if got != want:
+        raise AssertionError(f"{q} (profiled): port {got} != numpy oracle {want}")
+    log(f"main path: kernels of one warm engine {q} (torch.profiler): " + json.dumps(per_launch(seen)))
+    want_seen = {"score_rows_kernel": 1, "Memcpy DtoH": 1}
+    counts = {}
+    for k, (launches, _) in seen.items():
+        tag = next((w for w in want_seen if w in k), k)
+        counts[tag] = counts.get(tag, 0) + launches
+    if counts != want_seen:
+        raise AssertionError(f"a warm engine TopN put {counts} on the card, not {want_seen}")
 
 
 # -- phase 4: times ----------------------------------------------------------
@@ -887,10 +945,18 @@ def topn_p50_ms(ex):
     return statistics.median(lat)
 
 
+def trim_added(base, fused, sync):
+    """What the trim adds to K3's launch: ``fused`` (K3 trimming to n_out)
+    minus ``base`` (K3 copying the totals out), each measured twice, in
+    turns (base, fused, fused, base), as {"ms", "device_ms", "host_us"}."""
+    runs = [measured(fn, "score_rows_kernel", sync) for fn in (base, fused, fused, base)]
+    return {k: (runs[1][k] + runs[2][k] - runs[0][k] - runs[3][k]) / 2 for k in runs[0]}
+
+
 def time_topn(engine, ex, holder, device, err, launches):
-    """K3, K4 and P2 at the TopN main path's shapes (P2 also at
-    scripts/pallas_vs_xla.py's), each held against its plain version
-    there first, and the end-to-end TopN p50."""
+    """K3 (with the trim in its last block) and P2 at the TopN main path's
+    shapes (P2 also at scripts/pallas_vs_xla.py's), each held against its
+    plain version there first, and the end-to-end TopN p50."""
     import torch
 
     from pilosa_tpu_torch import pql
@@ -940,22 +1006,57 @@ def time_topn(engine, ex, holder, device, err, launches):
                   err["score_rows"], t3, plain3, bytes3, 3 * K * S * W, None)]
     _times_line(f"K3 score_rows at K={K}, S={S}", t3, out[-1]["bound_ms"], plain3)
 
-    totals = k3()
+    # The trim runs in K3's last block: what it adds to the full-TopN
+    # launch is K3 with n_out = 5 minus K3 copying the totals out, at the
+    # main path's K and at the most candidates the totals take.
     n_out = 5
-    got = kernels.topn_trim_cuda(totals, n_out)
-    want = kernels.topn_trim_plain(totals, n_out)
-    err["topn_trim"] = max(err["topn_trim"], _exact("K4", got[0], want[0], "vals at the main-path shape"),
-                           _exact("K4", got[1], want[1], "idx at the main-path shape"))
-    t4 = measured(lambda: kernels.topn_trim_cuda(totals, n_out), "topn_trim_kernel", sync)
+    for prog, code, mats in lowered[:2]:  # held against plain at this shape
+        _, _, got = kernels.score_rows_cuda(code, mats, mask, stack.matrix, entry.cand_idx,
+                                            scores=False, cnt=entry.dev_cnt, thr=1, n_out=n_out)
+        want = kernels.topn_full_tree_plain(prog, mats, mask, stack.matrix, entry.cand_idx,
+                                            entry.dev_cnt, 1, n_out)
+        err["topn_trim"] = max(err["topn_trim"], _exact("K3 trim", got, torch.stack(want),
+                                                        "at the main-path shape"))
+
+    def k3_trim():
+        _, code, mats = lowered[next(it) % len(lowered)]
+        return kernels.score_rows_cuda(code, mats, mask, stack.matrix, entry.cand_idx,
+                                       scores=False, cnt=entry.dev_cnt, thr=1, n_out=n_out)[2]
+
+    added = {K: trim_added(k3, k3_trim, sync)}
+    gen = torch.Generator(device=device).manual_seed(4096)
+    S_M, R_M, K_M = 8, 16, kernels.TOTALS_MAX
+    mat_m = torch.randint(-2 ** 31, 2 ** 31 - 1, (R_M, S_M, W), dtype=torch.int32, device=device,
+                          generator=gen)
+    src_m = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, S_M, W), dtype=torch.int32, device=device,
+                          generator=gen)
+    idx_m = torch.randint(0, R_M, (K_M,), dtype=torch.int32, device=device, generator=gen)
+    cnt_m = torch.randint(0, 1 << 20, (K_M, S_M), dtype=torch.int32, device=device, generator=gen)
+    mask_m = torch.ones(S_M, dtype=torch.int32, device=device)
+    code_m = kernels.compile_prog(("row", 0, 0))
+    got = kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False, cnt=cnt_m,
+                                  n_out=n_out)[2]
+    want = kernels.topn_full_tree_plain(("row", 0, 0), [src_m], mask_m, mat_m, idx_m, cnt_m, 1, n_out)
+    err["topn_trim"] = max(err["topn_trim"], _exact("K3 trim", got, torch.stack(want), f"at K={K_M}"))
+    added[K_M] = trim_added(
+        lambda: kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False, cnt=cnt_m)[2],
+        lambda: kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False, cnt=cnt_m,
+                                        n_out=n_out)[2], sync)
+    del mat_m
+    totals = k3()
     plain4 = p50_ms(lambda: kernels.topn_trim_plain(totals, n_out), 5, sync)
     # The one PyTorch call with the same order: a stable descending sort
     # (its first n_out entries); timed as a yardstick, never used.
     lib4 = p50_ms(lambda: torch.sort(totals, descending=True, stable=True), 15, sync)
-    out.append(_entry("topn_trim", "pilosa_tpu_torch/csrc/topn_trim.cu",
-                      "pilosa_tpu/parallel/kernels.py:382", launches["topn_trim"],
-                      err["topn_trim"], t4, plain4, K * 8 + n_out * 8, K * K, lib4))
-    _times_line(f"K4 topn_trim at K={K}, n_out={n_out}", t4, out[-1]["bound_ms"], plain4,
-                f"; torch.sort {lib4:.4f} ms")
+    out.append(_entry("topn_trim", "pilosa_tpu_torch/csrc/score_rows.cu",
+                      "pilosa_tpu/parallel/kernels.py:382", 0, err["topn_trim"], added[K],
+                      plain4, K * 8 + n_out * 8, K * K, lib4))
+    out[-1]["runs_in"] = "score_rows (K3): the last block of its full-TopN launch"
+    out[-1]["added_device_ms"] = {str(k): v["device_ms"] for k, v in added.items()}
+    for k, v in added.items():
+        _times_line(f"trim in K3's last block at K={k}, n_out={n_out}: added", v,
+                    (k * 8 + n_out * 8) / HBM_BYTES_PER_S * 1e3, plain4,
+                    f"; torch.sort {lib4:.4f} ms" if k == K else f" (plain at K={K})")
 
     # P2 at the main path's shape: shard 0's top fragment mirror, its
     # candidates named by index in the ranked cache's order, against the
@@ -995,6 +1096,305 @@ def time_topn(engine, ex, holder, device, err, launches):
     return out
 
 
+# -- phase 5: the write path -------------------------------------------------
+
+OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
+NEW_ROW = 99  # no field of the index has this row
+
+
+def _bit(words, col):
+    """Bit ``col`` (a column of the index) of uint64[S, W64] host words."""
+    sh, pos = divmod(col, 1 << 20)
+    return int(words[sh, pos >> 6] >> np.uint64(pos & 63)) & 1
+
+
+def _put(words, col, on):
+    sh, pos = divmod(col, 1 << 20)
+    m = np.uint64(1) << np.uint64(pos & 63)
+    words[sh, pos >> 6] = words[sh, pos >> 6] | m if on else words[sh, pos >> 6] & ~m
+
+
+def _flat_index(cols):
+    """Word index into flattened uint64[S, W64] host words, and bit mask,
+    of each column of int64[n] ``cols``."""
+    return ((cols >> 20) * W64 + ((cols & ((1 << 20) - 1)) >> 6),
+            np.uint64(1) << (cols & 63).astype(np.uint64))
+
+
+def _occupied(words, sh):
+    """bool[64]: which occupancy blocks of shard ``sh`` hold a bit."""
+    return words[sh].reshape(64, 256).any(axis=1)
+
+
+def write_targets(rng, a, b, n_shards, n, sparse):
+    """(verb, column) for ``n`` Sets and ``n`` Clears of row ``a`` (host
+    words), read back by Count(Intersect(a, b)).  A Set goes where ``a``
+    has no bit and ``b`` has one, so the Count must move; with ``sparse``,
+    half the Sets go into a block ``a`` leaves empty (its occupancy bit is
+    0) and ``b`` occupies.  A Clear goes where both have the bit."""
+    out, filled = [], set()
+    while len(out) < 2 * n:
+        sh = int(rng.integers(0, n_shards))
+        verb = "Set" if len(out) % 2 == 0 else "Clear"
+        into_empty = sparse and verb == "Set" and len(out) % 4 == 0
+        if into_empty:  # each into its own block
+            blocks = [k for k in np.flatnonzero(_occupied(b, sh) & ~_occupied(a, sh)).tolist()
+                      if (sh, k) not in filled]
+        else:
+            blocks = np.flatnonzero(_occupied(b, sh) & _occupied(a, sh)).tolist()
+        if not blocks:
+            continue
+        blk = int(rng.choice(blocks))
+        if into_empty:
+            filled.add((sh, blk))
+        base = sh * (1 << 20) + blk * OCC_BLOCK_BITS
+        for pos in rng.permutation(OCC_BLOCK_BITS)[:256].tolist():
+            col = base + pos
+            if _bit(b, col) and _bit(a, col) == (verb == "Clear") and (verb, col) not in out:
+                out.append((verb, col))
+                break
+    return out
+
+
+def run_write_path(device, holder, engine, ex, host, seed):
+    """The write path on the 960-shard index: single-bit Sets and Clears
+    through Executor.execute on rows of f (dense) and s (sparse), each
+    read back by a Count(Intersect) against a numpy oracle kept beside
+    it; a bulk import of 2^20 bits into f synced by the IngestSyncer;
+    writes to top, then an engine TopN; then one write to a new row,
+    which must rebuild exactly once.  The stacks sync in place: no
+    rebuild until that last write.  Returns the phase's numbers."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels, sparse
+
+    cuda = device.type == "cuda"  # False only in a CPU rehearsal
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n_shards = len(engine.canonical_shards("bench"))
+    rng = np.random.default_rng(seed + 4)
+    t0 = time.perf_counter()
+    # The fragments hold the host arrays themselves: the oracle is a copy.
+    ora = {"f": {r: host["f"][r].copy() for r in F_ROWS},
+           "s": {r: host["s"][r].copy() for r in (10, 11)},
+           "top": {r: host["top"][r].copy() for r in TOP_ROWS}}
+    log(f"write: oracle copies in {time.perf_counter() - t0:.3f} s")
+    rebuilds0, updates0 = engine.stack_rebuilds, engine.stack_updates
+    kernels.count_tree_dense.launches = 0
+    sparse.count_tree_blocks_cuda.launches = 0
+    kernels.score_rows_cuda.launches = 0
+
+    # 1. Single-bit writes, each read back by the Count that must see it.
+    # The host clock splits each into the executor's Set, the stack sync
+    # (the snapshot and the scatter's enqueue, which the Count would run
+    # first) and the Count; inside the scatter, the pinned uploads.
+    scatter_us, upload_us = [], []
+    scatter, upload = engine._scatter_chain, engine._upload
+
+    def timed(fn, acc):
+        def run(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            acc.append((time.perf_counter() - t) * 1e6)
+            return out
+        return run
+
+    engine._scatter_chain = timed(scatter, scatter_us)
+    engine._upload = timed(upload, upload_us)
+    lat = {"f": [], "s": []}
+    parts = {"set": [], "sync": [], "count": []}
+    filled = 0
+    for field, path in (("f", "dense"), ("s", "sparse")):
+        a, b = ora[field][10], ora[field][11]
+        q = pql_of(field, "and", (10, 11))
+        want = int(popcounts(a & b).sum())
+        st = engine.field_stack("bench", field, "standard")
+        ri = st.row_index[10]
+        for verb, col in write_targets(rng, a, b, n_shards, 16, field == "s"):
+            sh, blk = col >> 20, (col & ((1 << 20) - 1)) // OCC_BLOCK_BITS
+            was_empty = not (int(st.occ[ri, sh]) >> blk) & 1
+            t = time.perf_counter()
+            ex.execute("bench", f"{verb}({col}, {field}=10)")
+            t1 = time.perf_counter()
+            engine.field_stack("bench", field, "standard")
+            t2 = time.perf_counter()
+            got = ex.execute("bench", q).results[0]
+            t3 = time.perf_counter()
+            lat[field].append((t3 - t) * 1e3)
+            for k, v in (("set", t1 - t), ("sync", t2 - t1), ("count", t3 - t2)):
+                parts[k].append(v * 1e3)
+            _put(a, col, verb == "Set")
+            want += 1 if verb == "Set" else -1
+            if got != want or engine.last_path != path:
+                raise AssertionError(f"{verb}({col}, {field}=10) then {q}: port {got} "
+                                     f"on {engine.last_path} != numpy oracle {want} on {path}")
+            if was_empty and verb == "Set":
+                filled += 1
+                if not (int(st.occ[ri, sh]) >> blk) & 1:
+                    raise AssertionError(f"occupancy bit {blk} of s=10, shard {sh} not set")
+        if want != int(popcounts(a & b).sum()):
+            raise AssertionError(f"{field}: the oracle's running count drifted")
+    if filled < 8:
+        raise AssertionError(f"only {filled} Sets went into empty blocks of s")
+    del engine._scatter_chain, engine._upload
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    log(f"write: 32 Sets and 32 Clears on f=10 and s=10, each then Count(Intersect) exact "
+        f"against numpy ({filled} Sets into blocks s=10 left empty, counted on the sparse "
+        f"path); write->Count p50 f {statistics.median(lat['f']):.4f} ms, s "
+        f"{statistics.median(lat['s']):.4f} ms (p50 of its parts, ms: {json.dumps(parts)}); "
+        f"scatter host p50 {statistics.median(scatter_us):.1f} us over {len(scatter_us)} "
+        f"syncs, of which its {len(upload_us) // max(1, len(scatter_us))} pinned uploads "
+        f"{statistics.median(upload_us):.1f} us each (p50)")
+
+    # The scatter on the card: one Set and the dense Count that syncs it.
+    col = next(c for v, c in write_targets(rng, ora["f"][10], ora["f"][11], n_shards, 1, False)
+               if v == "Set")
+    ex.execute("bench", f"Set({col}, f=10)")
+    _put(ora["f"][10], col, True)
+    got = []
+    q = pql_of("f", "and", (10, 11))
+    run = lambda: got.append(ex.execute("bench", q).results[0])  # noqa: E731
+    seen = on_card(run) if cuda else run() or {}
+    if got[0] != int(popcounts(ora["f"][10] & ora["f"][11]).sum()):
+        raise AssertionError("the profiled write->Count disagrees with numpy")
+    ours = ("count_tree_dense", "count_tree_blocks", "score_rows", "and_popcount_rows")
+    scat = {k: v for k, v in per_launch(seen).items()
+            if not k.startswith(("Memcpy", "Memset")) and not any(o in k for o in ours)}
+    if cuda and not scat:
+        raise AssertionError(f"no scatter kernel in the profiler's list: {seen}")
+    log("write: one Set then Count on the card (torch.profiler): " + json.dumps(per_launch(seen)))
+
+    # 2. Bulk import into f, synced by the ingest worker.
+    n = 1 << 20
+    rows = rng.choice(np.asarray(F_ROWS), n)
+    cols = rng.integers(0, n_shards << 20, n)
+    t = time.perf_counter()
+    holder.index("bench").field("f").import_bulk(rows, cols)
+    import_s = time.perf_counter() - t
+    t = time.perf_counter()
+    syncer = engine.ingest_syncer()
+    syncer.notify("bench")
+    if not syncer.flush(timeout=300):
+        raise AssertionError("the ingest sync did not finish")
+    sync()
+    bulk_sync_s = time.perf_counter() - t
+    if syncer.last_error is not None:
+        raise AssertionError(f"ingest sync failed: {syncer.last_error!r}")
+    for r in F_ROWS:
+        np.bitwise_or.at(ora["f"][r].reshape(-1), *_flat_index(cols[rows == r]))
+    for field, op, qrows in main_path_queries():
+        if field != "f":
+            continue
+        q = pql_of(field, op, qrows)
+        got, want = ex.execute("bench", q).results[0], oracle(ora["f"], op, qrows)
+        if got != want:
+            raise AssertionError(f"after the bulk import, {q}: port {got} != numpy oracle {want}")
+    log(f"write: import_bulk of {n} bits into f's 24 rows over {n_shards} shards in "
+        f"{import_s:.3f} s; IngestSyncer notify + flush (the scatter included) "
+        f"{bulk_sync_s:.3f} s; the 15 f Counts exact against numpy")
+
+    # 3. Writes to top, then the engine TopN.
+    src = ora["f"][10]
+    cand = rng.integers(0, n_shards << 20, 1 << 19)
+    wi, m = _flat_index(cand)
+    cand = cand[(src.reshape(-1)[wi] & m) != 0][: 1 << 18]
+    holder.index("bench").field("top").import_bulk(np.full(cand.size, 2), cand)
+    np.bitwise_or.at(ora["top"][2].reshape(-1), *_flat_index(cand))
+    for c in cand[:4].tolist():
+        ex.execute("bench", f"Clear({c}, top=2)")
+        _put(ora["top"][2], c, False)
+    q = "TopN(top, Row(f=10), n=5)"
+    want = TopNOracle(ora["top"]).fused(src, 5)
+    got = [tuple(p) for p in ex.execute("bench", q).results[0]]
+    if got != want:
+        raise AssertionError(f"after writes to top, {q}: port {got} != numpy oracle {want}")
+    log(f"write: {cand.size} bits into top=2 and 4 Clears, then {q} -> {got}, exact")
+
+    # 4. Counts: no rebuild so far; one write to a new row rebuilds once.
+    launches = {"count_tree_dense": kernels.count_tree_dense.launches,
+                "count_tree_blocks": sparse.count_tree_blocks_cuda.launches,
+                "score_rows": kernels.score_rows_cuda.launches}
+    updates = engine.stack_updates - updates0
+    if (engine.stack_rebuilds != rebuilds0 or updates <= 0
+            or (cuda and min(launches.values()) <= 0)):
+        raise AssertionError(f"write phase: rebuilds {engine.stack_rebuilds - rebuilds0} "
+                             f"(want 0), updates {updates}, launches {launches}")
+    col = int(rng.integers(0, n_shards << 20))
+    ex.execute("bench", f"Set({col}, f={NEW_ROW})")
+    t = time.perf_counter()
+    engine.field_stack("bench", "f", "standard")
+    sync()
+    rebuild_s = time.perf_counter() - t
+    q = f"Count(Intersect(Row(f={NEW_ROW}), Row(f=10)))"
+    for _ in range(2):
+        got = ex.execute("bench", q).results[0]
+        if got != _bit(ora["f"][10], col):
+            raise AssertionError(f"{q}: port {got} != numpy oracle {_bit(ora['f'][10], col)}")
+    if engine.stack_rebuilds != rebuilds0 + 1:
+        raise AssertionError(f"a write to a new row made {engine.stack_rebuilds - rebuilds0} "
+                             "rebuilds, not 1")
+    log(f"write: stack_rebuilds +0 through the writes above, stack_updates +{updates}; "
+        f"a write to new row f={NEW_ROW} rebuilt f once, in {rebuild_s:.3f} s (25 rows), "
+        f"against the bulk sync's {bulk_sync_s:.3f} s; launches {launches}")
+    return {
+        "write_count_p50_ms": {k: statistics.median(v) for k, v in lat.items()},
+        "write_count_parts_p50_ms": parts,
+        "scatter_host_us_p50": statistics.median(scatter_us),
+        "scatter_upload_host_us_p50": statistics.median(upload_us),
+        "scatter_kernels": scat,
+        "bulk_import_s": import_s,
+        "bulk_sync_s": bulk_sync_s,
+        "rebuild_s": rebuild_s,
+        "stack_updates": updates,
+        "launches": launches,
+    }
+
+
+def root_writes(engine, ex, holder, host, seed):
+    """--root's write items: write->Count p50 (three Sets on f=10 and
+    three on s=10, each then the Count that must see it), and the bulk
+    import of phase 5 then the sync that makes it visible: the ingest
+    worker where the checkout has one, else the rebuild the next query
+    pays.  Run last: it writes the index."""
+    import torch
+
+    rng = np.random.default_rng(seed + 4)
+    n_shards = len(engine.canonical_shards("bench"))
+    lat = []
+    for field in ("f", "s"):
+        a, b = host[field][10].copy(), host[field][11]
+        q = pql_of(field, "and", (10, 11))
+        want = int(popcounts(a & b).sum())
+        for verb, col in write_targets(rng, a, b, n_shards, 3, field == "s"):
+            if verb != "Set":
+                continue
+            t = time.perf_counter()
+            ex.execute("bench", f"Set({col}, {field}=10)")
+            got = ex.execute("bench", q).results[0]
+            lat.append((time.perf_counter() - t) * 1e3)
+            want += 1
+            if got != want:
+                raise AssertionError(f"Set({col}, {field}=10) then {q}: {got} != {want}")
+    n = 1 << 20
+    rows = rng.choice(np.asarray(F_ROWS), n)
+    cols = rng.integers(0, n_shards << 20, n)
+    holder.index("bench").field("f").import_bulk(rows, cols)
+    t = time.perf_counter()
+    if hasattr(engine, "ingest_syncer"):
+        how = "ingest_syncer"
+        syncer = engine.ingest_syncer()
+        syncer.notify("bench")
+        syncer.flush(timeout=300)
+    else:
+        how = "rebuild"
+        engine.field_stack("bench", "f", "standard")
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"write_count_p50_ms": statistics.median(lat), "write_count_ms": lat,
+            "bulk_sync_s": time.perf_counter() - t, "bulk_sync_by": how,
+            "stack_rebuilds": engine.stack_rebuilds,
+            "stack_updates": getattr(engine, "stack_updates", None)}
+
+
 # -- --root: one checkout's end-to-end numbers, for an A/B in one call ------
 
 
@@ -1009,7 +1409,7 @@ def run_ab(root, seed):
     import pilosa_tpu_torch
     from pilosa_tpu_torch.core.holder import Holder
     from pilosa_tpu_torch.executor.executor import Executor
-    from pilosa_tpu_torch.parallel import build
+    from pilosa_tpu_torch.parallel import build, kernels
     from pilosa_tpu_torch.parallel.engine import TorchEngine
 
     pkg = os.path.dirname(os.path.abspath(pilosa_tpu_torch.__file__))
@@ -1071,6 +1471,16 @@ def run_ab(root, seed):
     sparse_qs = [pql_of("s", "and", (10 + 2 * k, 11 + 2 * k)) for k in range(12)]
     out["sparse_count_kernels"] = per_launch(on_card(lambda: [ex.execute("bench", x) for x in sparse_qs]))
     out["engine_less_topn_kernels"] = per_launch(on_card(engine_less))
+    trim = getattr(kernels, "topn_trim_cuda", None)
+    if trim is not None:  # a checkout from before the trim moved into K3
+        gen = torch.Generator(device=device).manual_seed(seed)
+        out["topn_trim_launch"] = {}
+        for K in (16, 4096):
+            totals = torch.randint(0, 1 << 40, (K,), dtype=torch.int64, device=device,
+                                   generator=gen)
+            out["topn_trim_launch"][K] = measured(lambda: trim(totals, 5), "topn_trim_kernel",
+                                                  torch.cuda.synchronize)
+    out.update(root_writes(engine, ex, holder, host, seed))
     out["card"] = card_line()
     print(json.dumps(out), flush=True)
 
@@ -1136,6 +1546,10 @@ def main(argv=None):
     kern += time_topn(engine, ex, holder, device, err, launches)
     # After the timing windows, so that no profiler session precedes them.
     engine_less_kernels(holder, *engine_less_query)
+    q = "TopN(top, Row(f=10), n=5)"
+    engine_topn_kernels(ex, q, TopNOracle(host["top"]).fused(host["f"][10], 5))
+    # Last: it writes the index every phase above read.
+    log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     log(card_line())
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,13 +18,16 @@ slice calls (upstream Pilosa: fragment.go:87-2492):
 
 - TopN: ``top()`` is fragment.go's candidate walk, with every
   candidate's src intersection count scored up front in one batched
-  ``bitops.popcount_and_rows`` (K3's P2 entry on the card).
+  ``bitops.popcount_and_rows`` (P2 on the card).
+- Write logs: every write records its rows (``_mutlog``) and its changed
+  device words (the tiered word log), and ``sync_snapshot(version)``
+  hands the engine what changed since a sync point, words and exact
+  block occupancy read under one lock: the engine scatters only those
+  into its resident stacks (``parallel/engine.py``).
 
-Left for later slices (ROADMAP.md Queue 1): the write logs behind the
-engine's in-place scatter-sync (every write here rebuilds the engine's
-stack), the write-delta hub, anti-entropy checksums, the row-attribute
-store behind TopN's attribute filter, and the roaring/value bulk-import
-paths.
+Left for later slices (ROADMAP.md Queue 1): the write-delta hub,
+anti-entropy checksums, the row-attribute store behind TopN's attribute
+filter, and the roaring/value bulk-import paths.
 """
 
 from __future__ import annotations
@@ -155,6 +158,27 @@ class Fragment:
         self._dev_version = -1
         self._dev_matrix: Optional[torch.Tensor] = None
         self._dev_index: Dict[int, int] = {}
+        # Mutation log {row_id: last touched version}: what the engine's
+        # incremental sync replays into its resident stacks.  Bounded by
+        # the row count, so it never overflows.  ``_mut_floor`` is the
+        # last version bump with no row attribution (a storage load):
+        # syncs reaching back past it must rebuild.
+        self._mutlog: Dict[int, int] = {}
+        self._mut_floor = 0
+        # Word-level dirty tracking as whole-batch records [(version,
+        # packed ``row << 15 | word`` int64 keys)], so a point write syncs
+        # a few changed 4-byte words instead of the 128 KiB row.  Past
+        # WORD_LOG_RECORDS fresh records the tail compacts into one record
+        # stamped at the newest version (over-stamping only reships
+        # idempotent words), which becomes a tier that keeps its stamp;
+        # only a log past WORD_LOG_GLOBAL_MAX keys dedups everything, and
+        # rows with more than WORD_LOG_MAX dirty words then turn whole-row
+        # dirty.  ``_word_floor[row]`` is a row's last whole-row-dirty
+        # version (a dense load, log overflow): syncs reaching back past
+        # it ship the whole row.
+        self._word_log: List[tuple] = []
+        self._word_log_tiers = 0
+        self._word_floor: Dict[int, int] = {}
 
         # Lazily-built mutex occupancy vector: column -> owning row (-1 none).
         self._mutex_owners: Optional[np.ndarray] = None
@@ -199,7 +223,10 @@ class Fragment:
         self.cache.bulk_update(rows, new_counts)
         self.cache.invalidate()
         self._mutex_owners = None
-        self._touch()
+        self._version += 1
+        self._mut_floor = self._version  # a load is unattributed: no sync past it
+        if self._on_touch is not None:
+            self._on_touch()
 
     def positions(self) -> np.ndarray:
         """All storage positions, sorted (for snapshot serialization)."""
@@ -318,13 +345,134 @@ class Fragment:
 
     # -- bit mutation ------------------------------------------------------
 
-    def _touch(self):
-        """Record a mutation: bump this fragment's version (the device
-        mirror's staleness check) and the owning view's version (the
-        engine's stack token)."""
+    # Dirty words tracked per row before the whole row ships instead
+    # (2048 words = 8 KiB of scatter payload against the row's 128 KiB).
+    WORD_LOG_MAX = 2048
+    # Fresh records before the tail compacts, and the packed-key budget
+    # past which compaction dedups the whole log.
+    WORD_LOG_RECORDS = 16
+    WORD_LOG_GLOBAL_MAX = 1 << 20
+
+    def _touch(self, row_id: int, cols=None):
+        """Record a mutation of one row: bump this fragment's version (the
+        device mirror's staleness check and the sync point), log the row
+        and its changed device words — ``cols``, the in-row column
+        position(s) written (int or array), or None for a whole-row
+        change — and bump the owning view's version (the engine's stack
+        token)."""
         self._version += 1
+        v = self._version
+        self._mutlog[row_id] = v
+        if cols is None:
+            self._word_floor[row_id] = v
+        else:
+            base = np.int64(row_id << 15)
+            if isinstance(cols, (int, np.integer)):
+                packed = np.asarray([base | (int(cols) >> 5)], dtype=np.int64)
+            else:
+                packed = base | np.unique(np.asarray(cols, dtype=np.int64) >> 5)
+            if packed.size > self.WORD_LOG_MAX:
+                self._word_floor[row_id] = v
+            else:
+                self._word_log_push(v, packed)
         if self._on_touch is not None:
             self._on_touch()
+
+    def _touch_rows(self, rows: np.ndarray, words: np.ndarray, wbounds: np.ndarray):
+        """``_touch`` of a batch: one version bump and one word-log record
+        for every row of it.  ``words[wbounds[i]:wbounds[i+1]]`` are row
+        ``rows[i]``'s sorted unique dirty device words."""
+        self._version += 1
+        v = self._version
+        self._mutlog.update(dict.fromkeys(rows.tolist(), v))
+        sizes = np.diff(np.asarray(wbounds, dtype=np.int64))
+        over = sizes > self.WORD_LOG_MAX
+        if over.any():
+            for r in rows[over].tolist():
+                self._word_floor[r] = v
+            keep = np.repeat(~over, sizes)
+            packed = np.repeat(rows[~over].astype(np.int64) << 15, sizes[~over]) | words[keep]
+        else:
+            packed = np.repeat(rows.astype(np.int64) << 15, sizes) | words
+        if packed.size:
+            self._word_log_push(v, packed)
+        if self._on_touch is not None:
+            self._on_touch()
+
+    def _word_log_push(self, v: int, packed: np.ndarray):
+        """Append one batch's packed ``row << 15 | word`` keys as one
+        record.  Past WORD_LOG_RECORDS fresh records the tail compacts
+        into one record stamped at ``v``, which becomes a tier; a log past
+        WORD_LOG_GLOBAL_MAX keys dedups into one record, and its rows with
+        more than WORD_LOG_MAX distinct words turn whole-row dirty."""
+        log = self._word_log
+        log.append((v, packed))
+        tiers = self._word_log_tiers
+        if len(log) - tiers < self.WORD_LOG_RECORDS:
+            return
+        cat = np.concatenate([p for _, p in log[tiers:]])
+        del log[tiers:]
+        log.append((v, cat))
+        self._word_log_tiers = len(log)
+        if sum(p.size for _, p in log) <= self.WORD_LOG_GLOBAL_MAX:
+            return
+        cat = np.unique(np.concatenate([p for _, p in log]) if len(log) > 1 else log[0][1])
+        if cat.size > self.WORD_LOG_GLOBAL_MAX:
+            rk = cat >> np.int64(15)
+            starts = np.flatnonzero(np.r_[True, rk[1:] != rk[:-1]])
+            bnds = np.append(starts, cat.size)
+            over = np.flatnonzero(np.diff(bnds) > self.WORD_LOG_MAX)
+            if over.size:
+                keep = np.ones(cat.size, dtype=bool)
+                for k in over.tolist():
+                    keep[bnds[k]: bnds[k + 1]] = False
+                    self._word_floor[int(rk[starts[k]])] = v
+                cat = cat[keep]
+        log[:] = [(v, cat)]
+        self._word_log_tiers = 1
+
+    def sync_snapshot(self, version: int):
+        """Everything written after sync point ``version``, read atomically
+        under the fragment lock: ``(new_version, {row_id: update})``, or
+        None when the sync point predates the last storage load (only then
+        must the engine rebuild).  An update is ``("words", widxs int32[],
+        vals uint32[], occ)`` — just the changed device words, when the
+        word log covers the row — or ``("row", words uint32[WORDS], occ)``.
+        ``occ`` is the row's exact block-occupancy bitmap
+        (``bitops.occupancy64``), read under the same lock as the words,
+        so the engine's occupancy summary never disagrees with the words
+        it ships: a missing bit would make the block-skipping kernel drop
+        set bits.  (``pilosa_tpu/core/fragment.py`` sync_snapshot.)"""
+        with self._mu:
+            if version >= self._version:
+                return self._version, {}
+            if version < self._mut_floor:
+                return None
+            fresh = [p for rv, p in self._word_log if rv > version]
+            word_map = {}
+            if fresh:
+                packed = np.unique(np.concatenate(fresh) if len(fresh) > 1 else fresh[0])
+                rk = packed >> np.int64(15)
+                starts = np.flatnonzero(np.r_[True, rk[1:] != rk[:-1]])
+                bnds = np.append(starts, packed.size).tolist()
+                wlow = (packed & np.int64(bitops.WORDS - 1)).astype(np.int32)
+                word_map = {
+                    int(rk[bnds[k]]): wlow[bnds[k]: bnds[k + 1]]
+                    for k in range(len(bnds) - 1)
+                }
+            out = {}
+            for r, rv in self._mutlog.items():
+                if rv <= version:
+                    continue
+                occ = self._store.occupancy64(r)
+                widxs = word_map.get(r)
+                if (version < self._word_floor.get(r, 0) or widxs is None
+                        or widxs.size > self.WORD_LOG_MAX):
+                    # A copy: the store's dense words change in place.
+                    out[r] = ("row", self.row_words(r).copy(), occ)
+                else:
+                    out[r] = ("words", widxs, self.row_words(r)[widxs], occ)
+            return self._version, out
 
     @_locked
     def set_bit(self, row_id: int, column_id: int) -> bool:
@@ -362,7 +510,7 @@ class Fragment:
         if self._mutex_owners is not None:
             self._mutex_owners[in_row] = row_id
         self._append_op(codec.OP_TYPE_ADD, p)
-        self._touch()
+        self._touch(row_id, in_row)
         self.cache.add(row_id, self._store.count(row_id))
         return True
 
@@ -382,7 +530,7 @@ class Fragment:
         ):
             self._mutex_owners[in_row] = -1
         self._append_op(codec.OP_TYPE_REMOVE, p)
-        self._touch()
+        self._touch(row_id, in_row)
         self.cache.add(row_id, self._store.count(row_id))
         return True
 
@@ -514,7 +662,11 @@ class Fragment:
             changed_rows.append(i)
         if not changed_rows:
             return False
-        self._touch()
+        self._touch_rows(
+            np.asarray(changed_rows, dtype=np.int64),
+            np.full(len(changed_rows), in_row >> 5, dtype=np.int32),
+            np.arange(len(changed_rows) + 1, dtype=np.int64),
+        )
         for r in changed_rows:
             self.cache.add(r, store.count(r))
         return True
@@ -534,7 +686,9 @@ class Fragment:
 
     def _apply_packed(self, packed: np.ndarray, clear: bool) -> int:
         """Apply sorted unique packed (row, pos) keys as ONE multi-row
-        RowStore.bulk_merge + ONE touch.  Returns bits changed."""
+        RowStore.bulk_merge + ONE ``_touch_rows``, whose dirty device words
+        per row (``packed >> 5``) come out of the same sorted keys.
+        Returns bits changed."""
         rows, bounds, positions = self._split_packed(packed)
         new_counts, changed, touched = self._store.bulk_merge(
             rows, bounds, positions, clear=clear, packed=packed
@@ -547,10 +701,21 @@ class Fragment:
                 self._mutex_owners[idx[mine]] = -1
             else:
                 self._mutex_owners[idx] = rep
-        if touched.any():
-            self._touch()
+        wk = packed >> 5
+        uw = wk[np.r_[True, wk[1:] != wk[:-1]]]
+        words = (uw & (bitops.WORDS - 1)).astype(np.int32)
+        wrows = uw >> 15
+        wbounds = np.append(np.flatnonzero(np.r_[True, wrows[1:] != wrows[:-1]]), uw.size)
+        if not touched.all():
             keep = np.flatnonzero(touched)
-            self.cache.bulk_update(rows[keep], new_counts[keep])
+            rows, new_counts = rows[keep], new_counts[keep]
+            wsizes = np.diff(wbounds)[keep]
+            words = (np.concatenate([words[wbounds[i]: wbounds[i + 1]] for i in keep])
+                     if keep.size else words[:0])
+            wbounds = np.append(0, np.cumsum(wsizes))
+        if rows.size:
+            self._touch_rows(rows, words, wbounds)
+            self.cache.bulk_update(rows, new_counts)
         return int(changed.sum())
 
     @_locked
@@ -627,7 +792,7 @@ class Fragment:
         )
         self._mutex_owners = None
         self.cache.bulk_add(row_id, n)
-        self._touch()
+        self._touch(row_id)
 
     # -- TopN (fragment.go top :1018-1150) ---------------------------------
 

@@ -1,18 +1,20 @@
-// K3 score_rows: TopN candidate scoring against a masked src tree, per shard.
+// K3 score_rows: TopN candidate scoring against a masked src tree, per shard,
+// and the whole fused TopN (gates, totals and the top-n trim) in one launch.
 //
 //   score[k, s] = popcount(cand_rows[cand_idx[k], s] & tree(s) & mask[s])
 //
 // Replaces the XLA programs pilosa_tpu/parallel/kernels.py:227 score_rows,
 // :316 topn_tree and :346 topn_full_tree (the phase-1 scores, the src
-// counts, and the gated per-candidate totals).  (The Pallas kernel
-// scripts/pallas_vs_xla.py:56, one shard against a single src row, has its
-// own kernel, P2, in and_popcount_rows.cu.)
+// counts, the gated per-candidate totals and the trim, jax.lax.top_k at
+// :382).  (The Pallas kernel scripts/pallas_vs_xla.py:56, one shard against
+// a single src row, has its own kernel, P2, in and_popcount_rows.cu.)
 //
 // Bound: device-memory bytes.  Each requested (candidate, shard) row is
 // 128 KiB read once, plus the src tree's leaf rows (16 * 960 * 128 KiB +
 // 960 * 128 KiB = 2.14 GB for TopN(top, Row(f=10), n=5) over 960 shards,
 // about 0.64 ms at 3.35 TB/s); the AND, popcount and add are three integer
 // instructions per word and candidate, far below the card's integer rate.
+// The trim reads K totals and writes n_out pairs: bytes too few to matter.
 //
 // Design.  A block owns one shard and a group of up to kGroup candidates.
 // Its threads walk the shard's words as 16-byte vectors: at each position
@@ -29,18 +31,100 @@
 // cluster's rank 0 sums the chunks' partial counts through distributed
 // shared memory.  Either way the sums are finished before anything is
 // stored: scores and src counts are stored whole (zeros included), with no
-// atomics and no zeroed buffer; for TopN's totals the block applies the
-// gate cnt[k, s] >= thr && score >= thr to each finished score and adds the
-// gated score into totals[k] (summed over shards: zeroed by the caller)
-// with one 64-bit atomic.
+// atomics and no zeroed buffer.
+//
+// TopN's totals (cnt given) never leave the launch half-done.  Each rank-0
+// block applies the gate cnt[k, s] >= thr && score >= thr to its finished
+// scores and adds the gated ones into a scratch accumulator of kMaxCands
+// int64 totals (one 64-bit atomic each), then arrives on a counter in the
+// same scratch, masked shards and idle threads included.  The block that
+// sees every other arrival holds the whole totals: it copies them out, or
+// ranks them by counting (value descending, the lower index first on ties:
+// jax.lax.top_k's order, and with candidates id-descending the reference's
+// (-count, -id) pair order) and writes the top n_out as one int32[2, n_out]
+// (vals, idx); then it leaves the totals and the counter at zero for the
+// next launch.  So a full TopN is one launch, with no fill before it and no
+// trim launch after it.  Ranking walks the totals in tiles of kThreads
+// through shared memory (2 KiB, so K3's occupancy is untouched), each thread
+// ranking kTrimRegs candidates per pass: at the main path's K = 16 that is
+// 16 comparisons; at K = 4096 one block does K * K of them.  The wrapper
+// keeps one scratch per (device, stream), so launches that share one run
+// one after another.
 #include "reduce.cuh"
 #include "tree_eval.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGroup = 16;     // candidates per block
-constexpr int kMaxChunks = 8;   // word chunks per (shard, group): a cluster
+constexpr int kGroup = 16;       // candidates per block
+constexpr int kMaxChunks = 8;    // word chunks per (shard, group): a cluster
+constexpr int kMaxCands = 4096;  // totals the scratch holds (int64 each)
+constexpr int kTrimRegs = 4;     // candidates a thread ranks per pass
+
+// Where a launch's totals go: the scratch (kMaxCands int64 totals, then a
+// 32-bit arrival counter in the next int64), and the finished result.
+struct Totals {
+  const int* cnt;                // int32[K, S] row counts: the gate
+  int thr;
+  unsigned long long* acc;       // scratch: int64[kMaxCands], 0 between launches
+  unsigned int* arrivals;        // scratch: after acc, 0 between launches
+  int n_out;                     // 0: copy the totals to `all`
+  int* trimmed;                  // int32[2, n_out]: vals, then idx
+  long long* all;                // int64[K]
+};
+
+// Called by every thread of each rank-0 block once its gated adds are
+// issued: arrive, and in the block that arrives last, finish the totals.
+__device__ void finish_totals(const Totals& t, int n_cands,
+                              unsigned int expected) {
+  __shared__ long long tile[kThreads];
+  __shared__ bool last;
+  __threadfence();  // this block's adds, before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(t.arrivals, 1u) == expected - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every other block's adds, before the reads below
+  const int tid = threadIdx.x;
+  if (t.n_out == 0) {
+    for (int i = tid; i < n_cands; i += kThreads)
+      t.all[i] = (long long)__ldcg(t.acc + i);
+  } else {
+    for (int base = 0; base < n_cands; base += kThreads * kTrimRegs) {
+      long long v[kTrimRegs];
+      int rank[kTrimRegs];
+#pragma unroll
+      for (int u = 0; u < kTrimRegs; ++u) {
+        const int i = base + u * kThreads + tid;
+        v[u] = i < n_cands ? (long long)__ldcg(t.acc + i) : 0;
+        rank[u] = 0;
+      }
+      for (int j0 = 0; j0 < n_cands; j0 += kThreads) {
+        __syncthreads();  // the previous tile is no longer read
+        if (j0 + tid < n_cands) tile[tid] = (long long)__ldcg(t.acc + j0 + tid);
+        __syncthreads();
+        const int m = min(kThreads, n_cands - j0);
+        for (int j = 0; j < m; ++j) {
+          const long long w = tile[j];  // one broadcast, kTrimRegs compares
+#pragma unroll
+          for (int u = 0; u < kTrimRegs; ++u)
+            rank[u] += (w > v[u]) || (w == v[u] && j0 + j < base + u * kThreads + tid);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTrimRegs; ++u) {
+        const int i = base + u * kThreads + tid;
+        if (i < n_cands && rank[u] < t.n_out) {
+          t.trimmed[rank[u]] = (int)v[u];
+          t.trimmed[t.n_out + rank[u]] = i;
+        }
+      }
+    }
+  }
+  __syncthreads();  // every read of the totals is done: reset for the next launch
+  for (int i = tid; i < n_cands; i += kThreads) t.acc[i] = 0ull;
+  if (tid == 0) *t.arrivals = 0u;
+}
 
 template <bool kChain>
 __global__ void __launch_bounds__(kThreads)
@@ -48,20 +132,20 @@ __global__ void __launch_bounds__(kThreads)
                       const uint4* __restrict__ cand_base,
                       const int* __restrict__ cand_idx, int n_cands,
                       int n_shards, int w4, int* __restrict__ scores,
-                      int* __restrict__ src_counts, const int* __restrict__ cnt,
-                      int thr, unsigned long long* __restrict__ totals) {
+                      int* __restrict__ src_counts, Totals totals) {
   const int s = blockIdx.y;
   const int k0 = blockIdx.x * kGroup;
   const int n_here = min(kGroup, n_cands - k0);
   const int chunks = gridDim.z;
   const int chunk = blockIdx.z;  // the block's rank in its cluster
+  const int t = threadIdx.x;
+  const unsigned int expected = gridDim.x * gridDim.y;  // rank-0 blocks
   if (mask != nullptr && mask[s] == 0) {  // unrequested: no reads, zeros
-    if (chunk == 0) {                     // (the whole cluster returns here)
-      if (scores != nullptr && (int)threadIdx.x < n_here)
-        scores[(size_t)(k0 + threadIdx.x) * n_shards + s] = 0;
-      if (src_counts != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
-        src_counts[s] = 0;
-    }
+    if (chunk != 0) return;               // (the whole cluster returns here)
+    if (scores != nullptr && t < n_here)
+      scores[(size_t)(k0 + t) * n_shards + s] = 0;
+    if (src_counts != nullptr && blockIdx.x == 0 && t == 0) src_counts[s] = 0;
+    if (totals.cnt != nullptr) finish_totals(totals, n_cands, expected);
     return;
   }
   const size_t shard_off = (size_t)s * (size_t)w4;
@@ -79,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
   unsigned int acc[kGroup + 1];  // the candidates' counts, then the src's
 #pragma unroll
   for (int u = 0; u <= kGroup; ++u) acc[u] = 0u;
-  for (int i = begin + threadIdx.x; i < end; i += kThreads) {
+  for (int i = begin + t; i < end; i += kThreads) {
     const size_t off = shard_off + i;
     uint4 v;
     if (kChain)
@@ -99,29 +183,32 @@ __global__ void __launch_bounds__(kThreads)
   // The kGroup candidate sums and the src sum over the block, then over a
   // split launch's cluster (reduce.cuh).
   const unsigned int sum = cluster_sum<kGroup + 1, kThreads>(acc, chunk, chunks);
-  const int t = threadIdx.x;
-  if (chunk != 0 || t > kGroup) return;
-  if (t == kGroup) {  // the src count, once per shard (the first group)
-    if (src_counts != nullptr && blockIdx.x == 0) src_counts[s] = (int)sum;
-    return;
+  if (chunk != 0) return;  // the whole block: only rank 0 stores and arrives
+  if (t == kGroup && src_counts != nullptr && blockIdx.x == 0)
+    src_counts[s] = (int)sum;  // the src count, once per shard (the first group)
+  if (t < n_here) {
+    const int k = k0 + t;
+    if (scores != nullptr) scores[(size_t)k * n_shards + s] = (int)sum;
+    if (totals.cnt != nullptr && sum && (int)sum >= totals.thr &&
+        totals.cnt[(size_t)k * n_shards + s] >= totals.thr)
+      atomicAdd(totals.acc + k, (unsigned long long)sum);
   }
-  if (t >= n_here) return;
-  const int k = k0 + t;
-  if (scores != nullptr) scores[(size_t)k * n_shards + s] = (int)sum;
-  if (totals != nullptr && sum && cnt[(size_t)k * n_shards + s] >= thr &&
-      (int)sum >= thr)
-    atomicAdd(totals + k, (unsigned long long)sum);
+  if (totals.cnt != nullptr) finish_totals(totals, n_cands, expected);
 }
 
 int launch(const TreeProg& prog, const Leaves& leaves, const int* ops,
            int n_ops, const int* mask, const uint4* cand_base,
            const int* cand_idx, int n_cands, int n_shards, int words,
-           int* scores, int* src_counts, const int* cnt, int thr,
-           unsigned long long* totals, cudaStream_t stream) {
+           int* scores, int* src_counts, const Totals& totals,
+           cudaStream_t stream) {
   if (words <= 0 || words % 4 != 0 || n_cands < 0 || n_shards < 0 ||
       n_shards > 65535 || cand_base == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (totals != nullptr && cnt == nullptr) return (int)cudaErrorInvalidValue;
+  if (totals.cnt != nullptr &&
+      (totals.acc == nullptr || n_cands < 1 || n_cands > kMaxCands ||
+       n_shards < 1 || totals.n_out < 0 || totals.n_out > n_cands ||
+       (totals.n_out == 0 ? totals.all == nullptr : totals.trimmed == nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (n_cands == 0 || n_shards == 0) return (int)cudaSuccess;
   const int w4 = words / 4;
   const int groups = (n_cands + kGroup - 1) / kGroup;
@@ -148,10 +235,10 @@ int launch(const TreeProg& prog, const Leaves& leaves, const int* ops,
   const cudaError_t err =
       chain ? cudaLaunchKernelEx(&cfg, score_rows_kernel<true>, prog, leaves, mask,
                                  cand_base, cand_idx, n_cands, n_shards, w4,
-                                 scores, src_counts, cnt, thr, totals)
+                                 scores, src_counts, totals)
             : cudaLaunchKernelEx(&cfg, score_rows_kernel<false>, prog, leaves,
                                  mask, cand_base, cand_idx, n_cands, n_shards,
-                                 w4, scores, src_counts, cnt, thr, totals);
+                                 w4, scores, src_counts, totals);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -163,22 +250,36 @@ int launch(const TreeProg& prog, const Leaves& leaves, const int* ops,
 // null for every shard.  cand_base: device int32[R, S, W] field stack;
 // cand_idx: device int32[K] stack rows of the candidates, or null for rows
 // 0..K-1.  Outputs, each optional (null): scores int32[K, S] and src_counts
-// int32[S], every entry written by the kernel; totals uint64[K], zeroed by
-// the caller (gated by cnt int32[K, S] >= thr and score >= thr).  Returns
-// the cudaError_t of the launch.
+// int32[S], every entry written by the kernel.  TopN's totals, when cnt
+// int32[K, S] is given (1 <= K <= 4096, S >= 1): gated by cnt >= thr and
+// score >= thr and summed over shards in scratch (device int64[4097], zeroed
+// once when allocated and left at 0 by every launch; launches that share it
+// must run one after another, on one stream), then written whole to out
+// int64[K] when n_out is 0, or trimmed to the top n_out (1 <= n_out <= K) as
+// out int32[2, n_out], values then candidate indices, value descending and
+// the lower index first on ties.  Returns the cudaError_t of the launch.
 extern "C" int score_rows(const void* const* leaf_ptrs, int n_leaves,
                           const int* ops, int n_ops, const void* mask,
                           const void* cand_base, const void* cand_idx,
                           int n_cands, int n_shards, int words, void* scores,
                           void* src_counts, const void* cnt, int thr,
-                          void* totals, void* stream) {
+                          void* scratch, int n_out, void* out, void* stream) {
   TreeProg prog;
   Leaves leaves;
   if (!pack_args(leaf_ptrs, n_leaves, ops, n_ops, &prog, &leaves))
     return (int)cudaErrorInvalidValue;
+  Totals totals;
+  totals.cnt = (const int*)cnt;
+  totals.thr = thr;
+  totals.acc = (unsigned long long*)scratch;
+  totals.arrivals =
+      scratch == nullptr ? nullptr
+                         : (unsigned int*)((unsigned long long*)scratch + kMaxCands);
+  totals.n_out = n_out;
+  totals.trimmed = n_out > 0 ? (int*)out : nullptr;
+  totals.all = n_out == 0 ? (long long*)out : nullptr;
   return launch(prog, leaves, ops, n_ops, (const int*)mask,
                 (const uint4*)cand_base, (const int*)cand_idx, n_cands,
-                n_shards, words, (int*)scores, (int*)src_counts,
-                (const int*)cnt, thr, (unsigned long long*)totals,
+                n_shards, words, (int*)scores, (int*)src_counts, totals,
                 (cudaStream_t)stream);
 }

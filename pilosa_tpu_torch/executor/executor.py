@@ -358,8 +358,8 @@ class Executor:
         return trimmed
 
     def _mesh_topn_full(self, index, c: Call, shards):
-        """Single-dispatch TopN: both reference phases collapse into one K3
-        launch plus the K4 trim, with one small readback.  None when there
+        """Single-dispatch TopN: both reference phases and the trim
+        collapse into one K3 launch, with one small readback.  None when there
         is no engine, an attribute or Tanimoto filter needs the host walk,
         the candidate union is past MAX_TOPN_CANDIDATES, or the src tree
         has no device lowering; the two-phase path then runs."""

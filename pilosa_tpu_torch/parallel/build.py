@@ -32,8 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("count_tree_dense", "count_tree_blocks", "score_rows", "topn_trim",
-           "and_popcount_rows")
+KERNELS = ("count_tree_dense", "count_tree_blocks", "score_rows", "and_popcount_rows")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

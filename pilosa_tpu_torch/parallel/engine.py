@@ -17,22 +17,31 @@ TopN (``topn_full``): the candidates are the id-descending union of the
 fragments' ranked caches, cached per (index, field) against the stack's
 token with their per-shard store counts; K3 scores every candidate
 against the masked src tree by index into the resident stack, gates each
-(candidate, shard) and sums the totals, and K4 trims them to the top n.
+(candidate, shard) and sums the totals, and the launch's last block trims
+them to the top n: one launch and one readback.
 ``topn_scores`` is the two-phase lane's phase 1 (scores and src counts of
 every shard in one K3 launch) and ``topn_cache_only`` the no-src TopN,
 reduced on the host.
 
 Field stacks are cached per (index, field, view) over the canonical shard
 list, so queries over different shard subsets share one resident stack;
-the requested subset is a per-shard mask.  A stack is rebuilt whole when
-its view's version moves (``stack_rebuilds``): the in-place scatter-sync,
-partial residency, the block pool, the batcher and the result memo are
-later slices (ROADMAP.md Queue 1).
+the requested subset is a per-shard mask.  When a view's version moves,
+the stack syncs in place (``_try_incremental_sync``, ``stack_updates``):
+each fragment's ``sync_snapshot`` names the rows and words written since
+the stack's sync point, and only those are scattered into the resident
+tensor, with the exact block occupancy beside them.  A stack is rebuilt
+whole (``stack_rebuilds``) only when its shape or sources changed: a new
+row, a replaced or removed fragment, a new shard axis, or a storage load
+past the sync point.  ``IngestSyncer`` runs the same sync off the query
+path after bulk imports.  Partial residency, the block pool, the batcher
+and the result memo are later slices (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import threading
+import time
+import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -60,10 +69,12 @@ class _FieldStack:
     """Device-resident int32[R, S, WORDS] for one (index, field, view),
     rows major so a row slice is one contiguous [S, WORDS] block."""
 
-    __slots__ = ("matrix", "row_index", "versions", "shards", "occ")
+    __slots__ = ("matrix", "row_index", "versions", "shards", "occ", "frag_sync",
+                 "home", "written", "reads")
 
     def __init__(self, matrix: torch.Tensor, row_index: Dict[int, int],
-                 versions, shards: List[int], occ: np.ndarray):
+                 versions, shards: List[int], occ: np.ndarray, frag_sync=(),
+                 home=None):
         self.matrix = matrix
         self.row_index = row_index
         self.versions = versions
@@ -74,6 +85,17 @@ class _FieldStack:
         # to decide which device blocks to read at all, so a missing bit
         # here would silently undercount.
         self.occ = occ
+        # Per canonical shard: (weakref to the fragment, or None, and the
+        # fragment version the stack holds).  The incremental sync asks
+        # each fragment for what changed since that version; a stack with
+        # none (``convert.stack_from_numpy``) is rebuilt at its first write.
+        self.frag_sync = frag_sync
+        # Device ordering of in-place writes (``_scatter_chain``): the
+        # stream of the last write, the event after it, and per other
+        # stream the event after its last launch that read the stack.
+        self.home = home
+        self.written: Optional[torch.cuda.Event] = None
+        self.reads: Dict[int, torch.cuda.Event] = {}
 
 
 class _Lowering:
@@ -110,8 +132,8 @@ class _TopNCandidates:
     """Candidate set + per-shard row-count matrix for the fused TopN.
 
     ``cands`` is the id-DESCENDING union of the per-fragment ranked-cache
-    entries (fragment.go :1018-1040), descending so that K4's lower-index
-    tie-break equals the (-count, -id) pair order.  ``host_cnt``
+    entries (fragment.go :1018-1040), descending so that the trim's
+    lower-index tie-break equals the (-count, -id) pair order.  ``host_cnt``
     int32[S, K_pad] holds each candidate's STORE row count per canonical
     shard (the phase-2 ``cnt`` gate); ``dev_cnt`` is its device twin laid
     out [K_pad, S] like the kernel's scores, and ``cand_idx`` int32[K_pad]
@@ -128,8 +150,8 @@ class _TopNCandidates:
 
 
 def decode_topn_full(host, cands, n_out):
-    """The fused TopN readback (trimmed (vals, idx), or the full totals
-    when ``n_out`` is None) as sorted (row_id, count) pairs; a copy of
+    """The fused TopN readback (trimmed (vals, idx) rows, or the full
+    totals when ``n_out`` is None) as sorted (row_id, count) pairs; a copy of
     ``pilosa_tpu/parallel/fusion.py:200 decode_topn_full``.  Zero totals
     and pad slots (index >= len(cands)) drop out."""
     if host is None:
@@ -149,6 +171,92 @@ def decode_topn_full(host, cands, n_out):
     ]
 
 
+class IngestSyncer:
+    """Ingest device-sync worker (``pilosa_tpu/parallel/engine.py``
+    IngestSyncer).
+
+    An import mutates host truth in the caller's thread and then calls
+    ``notify(index)``; this worker scatter-syncs the index's RESIDENT
+    stacks (``TorchEngine.warm_sync``) on its own thread, so the next
+    import's host work overlaps the device scatter of the last, and
+    imports that land while a pass is pending coalesce into one
+    ``sync_snapshot`` drain and one scatter chain.  It only moves
+    freshness: a query that comes first syncs on demand in
+    ``field_stack``.  ``flush()`` waits for every pending notify."""
+
+    def __init__(self, engine: "TorchEngine"):
+        self._engine = engine
+        self._cv = threading.Condition()
+        self._pending: set = set()
+        self._busy = False
+        self._closed = False
+        self._thread: Optional[threading.Thread] = None
+        self.chunks = 0
+        self.coalesced = 0
+        self.syncs = 0
+        self.stacks_synced = 0
+        # The last warm-sync failure: the worker keeps running, and the
+        # next query on that stack syncs (and raises) on demand.
+        self.last_error: Optional[BaseException] = None
+
+    def notify(self, index: str):
+        """Mark an index's resident stacks stale and wake (or start) the
+        worker.  Never waits on device work."""
+        with self._cv:
+            if self._closed:
+                return
+            self.chunks += 1
+            if index in self._pending:
+                self.coalesced += 1
+            self._pending.add(index)
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._run, name="ingest-sync",
+                                                daemon=True)
+                self._thread.start()
+            self._cv.notify()
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._pending and not self._closed:
+                    self._cv.wait()
+                if self._closed and not self._pending:
+                    return
+                drain = list(self._pending)
+                self._pending.clear()
+                self._busy = True
+            try:
+                for index in drain:
+                    try:
+                        self.stacks_synced += self._engine.warm_sync(index)
+                    except Exception as e:  # noqa: BLE001 — the query path syncs on demand
+                        self.last_error = e
+                self.syncs += 1
+            finally:
+                with self._cv:
+                    self._busy = False
+                    self._cv.notify_all()
+
+    def flush(self, timeout: float = 30.0) -> bool:
+        """Block until every pending notify has synced; False on timeout."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while self._pending or self._busy:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cv.wait(left)
+            return True
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+            t = self._thread
+        if t is not None:
+            t.join(timeout=5)
+
+
 class TorchEngine:
     # Above this candidate-union size the fused TopN declines and the
     # executor runs the two-phase composition (engine.py:4197).
@@ -158,14 +266,16 @@ class TorchEngine:
         self.holder = holder
         self.device = resolve_device(device)
         self._stacks: "OrderedDict[Tuple[str, str, str], _FieldStack]" = OrderedDict()
-        # Serializes stack build/replace: two threads rebuilding one stale
-        # stack must not interleave their assignments.
+        # Serializes stack build, sync and every dispatch from lowering to
+        # launch: a query's plan (its occupancy) and its launch see one
+        # state of the stacks, and a sync never lands between them.
         self._stacks_lock = threading.RLock()
         self._canonical: Dict[str, Tuple[int, List[int]]] = {}
         self._masks: "OrderedDict[Tuple[int, bytes], torch.Tensor]" = OrderedDict()
-        # Full stack (re)builds: every write to a resident view costs one
-        # in this slice.
+        # Full stack (re)builds, and in-place syncs of a resident stack.
         self.stack_rebuilds = 0
+        self.stack_updates = 0
+        self._ingest_syncer: Optional[IngestSyncer] = None
         # Occupancy-guided block skipping: when the surviving block
         # fraction is at or under this threshold the count runs on K2.
         # 0.25 is the JAX package's prior; the crossover on this card is
@@ -215,7 +325,8 @@ class TorchEngine:
     def field_stack(self, index: str, field: str, view: str,
                     canonical: Optional[List[int]] = None) -> Optional[_FieldStack]:
         """The device stack of every row of a view across the index's
-        canonical shard axis, rebuilt whole when the view changed."""
+        canonical shard axis: synced in place when the view changed, and
+        rebuilt whole only when the sync cannot cover the change."""
         if canonical is None:
             canonical = self.canonical_shards(index)
         key = (index, field, view)
@@ -230,13 +341,20 @@ class TorchEngine:
             if cached is not None and cached.versions == token and cached.shards == canonical:
                 self._stacks.move_to_end(key)
                 return cached
+            if cached is not None:
+                updated = self._try_incremental_sync(cached, index, field, view, canonical,
+                                                     token)
+                if updated is not None:
+                    self._stacks.move_to_end(key)
+                    return updated
             self._stacks.pop(key, None)
             if not canonical:
                 return None
-            row_index, buf, occ = self._assemble_host(index, field, view, canonical)
-            stack = _FieldStack(
-                put_stack(buf, self.device), row_index, token, list(canonical), occ
-            )
+            frag_sync, row_index, buf, occ = self._assemble_host(index, field, view, canonical)
+            home = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                    else None)
+            stack = _FieldStack(put_stack(buf, self.device), row_index, token,
+                                list(canonical), occ, frag_sync, home)
             self.stack_rebuilds += 1
             self._stacks[key] = stack
             return stack
@@ -244,9 +362,14 @@ class TorchEngine:
     def _assemble_host(self, index, field, view, canonical):
         """Host half of a stack build: walk the view's fragments and fill
         the dense [R, S, WORDS] staging buffer plus the exact occupancy
-        summary, computed from the words just copied.  Returns
-        (row_index, host buffer, occ)."""
+        summary, computed from the words just copied.  The fragments' sync
+        points are taken before any row is read, so a write landing
+        mid-build is newer than its sync point and the next sync ships it
+        again (an idempotent word set), never loses it.  Returns
+        (frag_sync, row_index, host buffer, occ)."""
         frags = [self.holder.fragment(index, field, view, s) for s in canonical]
+        frag_sync = [(None, -1) if f is None else (weakref.ref(f), f._version)
+                     for f in frags]
         row_ids = sorted({r for f in frags if f is not None for r in f.row_ids()})
         if not row_ids:
             row_ids = [0]
@@ -261,7 +384,207 @@ class TorchEngine:
                 ri = row_index[r]
                 mat[ri, si] = f.row_words(r)
                 occ[ri, si] = bitops.occupancy64(mat[ri, si])
-        return row_index, buf, occ
+        return frag_sync, row_index, buf, occ
+
+    # -- write path: in-place sync of resident stacks ----------------------
+    # (pilosa_tpu/parallel/engine.py:2010-2289, minus partial stacks and
+    # the block pool)
+
+    # Rows per row-scatter launch: the chunk's host staging is rows x
+    # 128 KiB, so a bulk sync of any size goes in bounded chunks.
+    SCATTER_CHUNK_ROWS = 256
+
+    def _try_incremental_sync(self, cached: _FieldStack, index, field, view, canonical,
+                              token) -> Optional[_FieldStack]:
+        """Bring a stale resident stack up to date by scattering only what
+        each fragment's ``sync_snapshot`` reports changed since the
+        stack's sync point: the changed words of a row, or the whole row
+        when its word log does not cover the change.  Returns the stack,
+        or None when only a rebuild can cover the change: a new shard
+        axis or view, a fragment replaced or removed, a new row, or a
+        sync point older than a storage load.  The occupancy summary
+        takes each row's exact bitmap from the same snapshot as its words,
+        and only once the scatter was enqueued without error; a failed
+        scatter evicts the stack and re-raises."""
+        if cached.shards != canonical or not cached.frag_sync:
+            return None
+        # A shard-epoch change alone does not bail (a fragment created in
+        # a sibling field bumps the index's epoch); this stack's own
+        # changes are caught below, fragment by fragment and row by row.
+        if token[1] != cached.versions[1]:
+            return None  # the view was replaced
+        updates: List[Tuple[int, int, np.ndarray]] = []  # (row_idx, pos, words)
+        word_updates: List[Tuple[int, int, np.ndarray, np.ndarray]] = []
+        occ_updates: List[Tuple[int, int, int]] = []
+        n_words = 0
+        new_sync = list(cached.frag_sync)
+        view_obj = self.holder.view(index, field, view)
+        frags = {} if view_obj is None else view_obj.fragments
+        for si, s in enumerate(canonical):
+            frag = frags.get(s)
+            fref, synced = cached.frag_sync[si]
+            if frag is None:
+                if fref is not None:
+                    return None  # fragment removed
+                continue
+            # Weakref identity, never id(): a recycled address would pass
+            # for the old fragment and serve its rows forever.
+            if fref is None or fref() is not frag:
+                return None  # fragment new or replaced
+            if frag._version == synced:
+                continue  # clean: no lock taken
+            snap = frag.sync_snapshot(synced)
+            if snap is None:
+                return None  # the sync point predates a storage load
+            new_version, dirty = snap
+            for r, upd in dirty.items():
+                row_idx = cached.row_index.get(r)
+                if row_idx is None:
+                    return None  # a new row: the stack's shape changes
+                if upd[0] == "words":
+                    _, widxs, vals, occ64 = upd
+                    word_updates.append((row_idx, si, widxs, vals))
+                    n_words += len(widxs)
+                else:
+                    _, words, occ64 = upd
+                    updates.append((row_idx, si, words))
+                occ_updates.append((row_idx, si, occ64))
+            new_sync[si] = (fref, new_version)
+        if updates or word_updates:
+            try:
+                self._scatter_chain(cached, updates, word_updates, n_words)
+            except BaseException:
+                key = (index, field, view)
+                if self._stacks.get(key) is cached:
+                    del self._stacks[key]
+                raise
+            for row_idx, si, occ64 in occ_updates:
+                cached.occ[row_idx, si] = np.uint64(occ64)
+            self.stack_updates += 1
+        cached.versions = token
+        cached.frag_sync = new_sync
+        return cached
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """One host array on the engine's device: a pinned staging copy
+        queued on the current stream without waiting (a no-op copy-free
+        view on the CPU)."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _scatter_chain(self, stack: _FieldStack, updates, word_updates, n_words):
+        """Write a sync's changes into ``stack.matrix`` in place, on the
+        current stream: whole rows ``matrix[row, pos] = words`` in chunks
+        of SCATTER_CHUNK_ROWS, then changed words
+        ``matrix[row, pos, word] = value`` as one batch, each an
+        ``index_put_`` whose index and value arrays travel as one pinned,
+        non-blocking copy each.  (The reference's XLA scatters
+        ``_scatter_rows_impl`` / ``_scatter_words_impl``.)
+
+        Device ordering.  The reference donates the old buffer and leans
+        on one in-order stream; here the tensor is written in place, so a
+        stack keeps its own rule.  Its ``home`` is the stream of its last
+        write (the build's upload, or a scatter).  Work on the home stream
+        is ordered by the stream itself.  A launch that reads the stack on
+        another stream first waits for the event after the last write
+        (``written``) and then records its own event in ``reads``
+        (``_reading``).  A scatter enqueued from a stream other than home
+        first waits for everything enqueued on home so far; every scatter
+        waits for the recorded reads of other streams.  So a scatter never
+        overwrites words a launch enqueued earlier on any stream still
+        reads, and no launch on any stream reads before the scatter lands.
+        The host side is held under ``_stacks_lock``: a dispatch's plan
+        and its launch never straddle a sync."""
+        mat = stack.matrix
+        cur = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        if cur is not None:
+            if stack.home is not None and stack.home != cur:
+                ev = torch.cuda.Event()
+                ev.record(stack.home)
+                cur.wait_event(ev)
+            for sid, ev in stack.reads.items():
+                if sid != cur.cuda_stream:
+                    cur.wait_event(ev)
+        W = mat.shape[2]
+        for ci in range(0, len(updates), self.SCATTER_CHUNK_ROWS):
+            chunk = updates[ci: ci + self.SCATTER_CHUNK_ROWS]
+            idx = np.asarray([(r, p) for r, p, _ in chunk], dtype=np.int64).T.copy()
+            vals = np.empty((len(chunk), W), dtype=np.uint32)
+            for i, (_, _, words) in enumerate(chunk):
+                vals[i] = words
+            ix = self._upload(idx)
+            mat.index_put_((ix[0], ix[1]), self._upload(vals.view(np.int32)))
+        if word_updates:
+            idx = np.empty((3, n_words), dtype=np.int64)
+            vals = np.empty(n_words, dtype=np.uint32)
+            o = 0
+            for r, p, widxs, wv in word_updates:
+                k = len(widxs)
+                idx[0, o: o + k] = r
+                idx[1, o: o + k] = p
+                idx[2, o: o + k] = widxs
+                vals[o: o + k] = wv
+                o += k
+            ix = self._upload(idx)
+            mat.index_put_((ix[0], ix[1], ix[2]), self._upload(vals.view(np.int32)))
+        if cur is not None:
+            stack.home = cur
+            stack.written = torch.cuda.Event()
+            stack.written.record(cur)
+            stack.reads.clear()
+
+    def _reading(self, stacks, launch):
+        """Run ``launch()``, which enqueues kernels reading ``stacks``, on
+        the current stream under the ordering rule of ``_scatter_chain``."""
+        if self.device.type != "cuda":
+            return launch()
+        cur = torch.cuda.current_stream(self.device)
+        away = [st for st in stacks if st.home is not None and st.home != cur]
+        for st in away:
+            if st.written is not None:
+                cur.wait_event(st.written)
+        out = launch()
+        if away:
+            ev = torch.cuda.Event()
+            ev.record(cur)
+            for st in away:
+                st.reads[cur.cuda_stream] = ev
+        return out
+
+    def warm_sync(self, index: str) -> int:
+        """Sync every RESIDENT stack of ``index`` to host truth, the device
+        half of the ingest pipeline.  A stack no query asked for is never
+        built here.  Returns the stacks visited."""
+        with self._stacks_lock:
+            keys = [k for k in self._stacks if k[0] == index]
+            canonical = self.canonical_shards(index)
+            n = 0
+            for key in keys:
+                if key in self._stacks:
+                    self.field_stack(*key, canonical)
+                    n += 1
+            return n
+
+    def ingest_syncer(self) -> IngestSyncer:
+        """The engine's ingest sync worker, made at first use.  Nothing in
+        the port calls ``notify`` yet: the caller that imports does."""
+        with self._stacks_lock:
+            if self._ingest_syncer is None:
+                self._ingest_syncer = IngestSyncer(self)
+            return self._ingest_syncer
+
+    def close(self):
+        """Stop the ingest worker and drop every cached device buffer.
+        A closed engine still serves: its caches rebuild."""
+        syncer, self._ingest_syncer = self._ingest_syncer, None
+        if syncer is not None:
+            syncer.close()
+        with self._stacks_lock:
+            self._stacks.clear()
+            self._masks.clear()
+            self._topn_cands.clear()
 
     # -- call-tree lowering -------------------------------------------------
 
@@ -327,16 +650,19 @@ class TorchEngine:
         return self._dispatch_count(index, c, shards, canonical)
 
     def _dispatch_count(self, index, c, shards, canonical):
-        lw = _Lowering(self, canonical)
-        prog = self._lower(index, c, lw)
-        if not kernels.fits(prog):
-            raise UnsupportedLowering("count tree exceeds the kernels' limits")
-        plan = self._sparse_plan(prog, lw, shards, canonical)
-        if plan is not None:
-            return self._dispatch_sparse(prog, lw.mats, plan)
-        self.dense_dispatches += 1
-        self.last_path = "dense"
-        return kernels.count_tree(prog, lw.mats, self._mask_words(shards, canonical))
+        with self._stacks_lock:
+            lw = _Lowering(self, canonical)
+            prog = self._lower(index, c, lw)
+            if not kernels.fits(prog):
+                raise UnsupportedLowering("count tree exceeds the kernels' limits")
+            plan = self._sparse_plan(prog, lw, shards, canonical)
+            if plan is not None:
+                return self._reading(lw.stacks,
+                                     lambda: self._dispatch_sparse(prog, lw.mats, plan))
+            self.dense_dispatches += 1
+            self.last_path = "dense"
+            mask = self._mask_words(shards, canonical)
+            return self._reading(lw.stacks, lambda: kernels.count_tree(prog, lw.mats, mask))
 
     def _dispatch_sparse(self, prog, mats, plan):
         blk_bits, skipped = plan
@@ -418,18 +744,20 @@ class TorchEngine:
         Candidates absent from the row table score 0 (they read row 0 on
         the card and are zeroed here).  None when the field has no stack."""
         canonical = self.canonical_shards(index)
-        stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
-        if stack is None:
-            return None
-        present = np.asarray([r in stack.row_index for r in candidate_rows], dtype=bool)
-        idx = np.asarray(
-            [stack.row_index.get(r, 0) for r in candidate_rows], dtype=np.int32
-        )
-        mask = self._mask_words(shards, canonical)
-        prog, lw = self._lower_src(index, src_call, canonical)
-        scores, counts = kernels.topn_tree(
-            prog, lw.mats, mask, stack.matrix, torch.from_numpy(idx).to(self.device)
-        )
+        with self._stacks_lock:
+            stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
+            if stack is None:
+                return None
+            present = np.asarray([r in stack.row_index for r in candidate_rows], dtype=bool)
+            idx = np.asarray(
+                [stack.row_index.get(r, 0) for r in candidate_rows], dtype=np.int32
+            )
+            mask = self._mask_words(shards, canonical)
+            prog, lw = self._lower_src(index, src_call, canonical)
+            cand_idx = torch.from_numpy(idx).to(self.device)
+            scores, counts = self._reading(
+                lw.stacks + [stack],
+                lambda: kernels.topn_tree(prog, lw.mats, mask, stack.matrix, cand_idx))
         # The kernel's score matrix is rows-major [K, S]; callers take [S, K].
         scores = scores.cpu().numpy().T.copy()
         scores[:, ~present] = 0
@@ -486,28 +814,30 @@ class TorchEngine:
     def topn_full_async(self, index: str, field: str, src_call: Call, shards,
                         n: int, min_threshold: int, row_ids=None):
         """The whole TopN (phase-1 scores, per-shard gates, exact totals
-        and the trim) as K3 then K4, without waiting for the device:
-        (candidates, n_out, device result), or None when the candidate
-        union is past MAX_TOPN_CANDIDATES (the two-phase path runs)."""
+        and the trim) as one K3 launch, without waiting for the device:
+        (candidates, n_out, device result: int32[2, n_out] or the int64[K]
+        totals), or None when the candidate union is past
+        MAX_TOPN_CANDIDATES (the two-phase path runs)."""
         canonical = self.canonical_shards(index)
-        stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
-        if stack is None:
-            return [], None, None
-        entry = self._topn_candidates(index, field, stack, row_ids)
-        if not entry.cands:
-            return [], None, None
-        if len(entry.cands) > self.MAX_TOPN_CANDIDATES:
-            return None
-        # ids= mode and n=0 skip the trim (never truncate).
-        K_pad = entry.host_cnt.shape[1]
-        n_out = min(int(n), K_pad) if n and not row_ids else None
-        mask = self._mask_words(shards, canonical)
-        prog, lw = self._lower_src(index, src_call, canonical)
-        out = kernels.topn_full_tree(
-            prog, lw.mats, mask, stack.matrix, entry.cand_idx, entry.dev_cnt,
-            max(int(min_threshold), 1), n_out,
-        )
-        return entry.cands, n_out, out
+        with self._stacks_lock:
+            stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
+            if stack is None:
+                return [], None, None
+            entry = self._topn_candidates(index, field, stack, row_ids)
+            if not entry.cands:
+                return [], None, None
+            if len(entry.cands) > self.MAX_TOPN_CANDIDATES:
+                return None
+            # ids= mode and n=0 skip the trim (never truncate).
+            K_pad = entry.host_cnt.shape[1]
+            n_out = min(int(n), K_pad) if n and not row_ids else None
+            mask = self._mask_words(shards, canonical)
+            prog, lw = self._lower_src(index, src_call, canonical)
+            out = self._reading(lw.stacks + [stack], lambda: kernels.topn_full_tree(
+                prog, lw.mats, mask, stack.matrix, entry.cand_idx, entry.dev_cnt,
+                max(int(min_threshold), 1), n_out,
+            ))
+            return entry.cands, n_out, out
 
     def topn_full(self, index: str, field: str, src_call: Call, shards,
                   n: int, min_threshold: int, row_ids=None):
@@ -517,12 +847,9 @@ class TorchEngine:
         if res is None:
             return None
         cands, n_out, out = res
-        if out is None:
-            host = None
-        elif n_out is None:
-            host = out.cpu().numpy()
-        else:
-            host = (out[0].cpu().numpy(), out[1].cpu().numpy())
+        host = None if out is None else out.cpu().numpy()
+        if host is not None and n_out is not None:
+            host = (host[0], host[1])
         return decode_topn_full(host, cands, n_out)
 
     def topn_cache_only(self, index: str, field: str, shards, n, min_threshold,

@@ -1,6 +1,6 @@
 """Count(tree) and TopN scoring over field stacks: K1 ``count_tree_dense``,
-K3 ``score_rows``, K4 ``topn_trim`` and P2 ``and_popcount_rows``, each
-beside its plain twin.
+K3 ``score_rows`` (with TopN's trim in its last block) and P2
+``and_popcount_rows``, each beside its plain twin.
 
 The engine lowers a PQL call tree to a normalized program over a list of
 field stacks ``int32[R, S, WORDS]`` (rows major, the canonical shard axis
@@ -24,9 +24,9 @@ program limits (``check_prog``).  The tree travels to the kernel as a
 postfix program (``compile_prog``), shared with K2 in ``sparse.py``.
 
 ``topn_tree`` and ``topn_full_tree`` (TopN, below) take the same src tree
-and wrap K3 ``csrc/score_rows.cu`` and K4 ``csrc/topn_trim.cu`` the same
-way: a CUDA tensor launches or raises, a CPU tensor takes the plain
-version.  P2 ``csrc/and_popcount_rows.cu`` scores one fragment's rows,
+and wrap K3 ``csrc/score_rows.cu`` the same way: a CUDA tensor launches
+or raises, a CPU tensor takes the plain version.  A full TopN is one K3
+launch: its last block ranks the totals and writes the top n.  P2 ``csrc/and_popcount_rows.cu`` scores one fragment's rows,
 named by index, against one src row (``bitops.popcount_and_rows``).
 """
 
@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -242,7 +243,7 @@ def count_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.
     return count_tree_plain(prog, mats, mask)
 
 
-# -- TopN scoring: K3 score_rows and K4 topn_trim ----------------------------
+# -- TopN scoring: K3 score_rows (and the trim in its last block) -----------
 #
 # The ports of pilosa_tpu/parallel/kernels.py:227 score_rows, :316
 # topn_tree and :346 topn_full_tree, minus the mesh arguments.  Candidates
@@ -289,7 +290,7 @@ def topn_tree_plain(prog, mats, mask, cand_mat, cand_idx):
 def topn_trim_plain(totals: torch.Tensor, n_out: int):
     """The top ``n_out`` of ``totals`` int64[K] as (vals int32, idx int32),
     value descending and the lower index first on ties, by the same
-    rank-by-counting as K4."""
+    rank-by-counting as K3's last block."""
     K = totals.shape[0]
     v = totals[:, None]  # candidate i, against every j along dim 1
     j = torch.arange(K, device=totals.device)
@@ -316,7 +317,27 @@ def topn_full_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr: int, n_
     return topn_trim_plain(totals, n_out)
 
 
-_SCORE_ROWS_ARGS = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P]
+_SCORE_ROWS_ARGS = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P]
+
+# K3 sums TopN's totals in a scratch of this many int64 (then its arrival
+# counter), kept per (device, stream): the most candidates a full TopN
+# takes (csrc/score_rows.cu kMaxCands, the engine's MAX_TOPN_CANDIDATES).
+TOTALS_MAX = 4096
+_totals_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+_totals_lock = threading.Lock()
+
+
+def _totals_scratch_for(device: torch.device, stream: int) -> torch.Tensor:
+    """K3's totals scratch for one (device, stream), zeroed once; every
+    launch leaves it at zero, and launches on one stream run one after
+    another, so two launches never share one at the same time."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    with _totals_lock:
+        buf = _totals_scratch.get(key)
+        if buf is None:
+            buf = _totals_scratch[key] = torch.zeros(TOTALS_MAX + 1, dtype=torch.int64,
+                                                     device=device)
+        return buf
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -333,11 +354,15 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
                     mask: Optional[torch.Tensor], cand_mat: torch.Tensor,
                     cand_idx: Optional[torch.Tensor], *, scores: bool = True,
                     src_counts: bool = False, cnt: Optional[torch.Tensor] = None,
-                    thr: int = 1):
-    """Launch K3 on the card, without waiting for the device.  Returns
-    ``(scores int32[K, S] | None, src_counts int32[S] | None, totals
-    int64[K] | None)``; totals are computed when ``cnt`` int32[K, S] is
-    given.  ``mask`` None requests every shard, ``cand_idx`` None names
+                    thr: int = 1, n_out: Optional[int] = None):
+    """Launch K3 on the card, on the current stream, without waiting for
+    the device.  Returns ``(scores int32[K, S] | None, src_counts int32[S]
+    | None, result)``.  With ``cnt`` int32[K, S] (1 <= K <= TOTALS_MAX)
+    the launch also gates and sums TopN's totals, and its last block
+    writes ``result``: the totals int64[K] when ``n_out`` is None, else
+    their top ``n_out`` (1 <= n_out <= K) as int32[2, n_out], values then
+    candidate indices, value descending and the lower index first on
+    ties.  ``mask`` None requests every shard, ``cand_idx`` None names
     stack rows 0..K-1."""
     if cand_mat.dtype != torch.int32 or cand_mat.dim() != 3 or not cand_mat.is_contiguous():
         raise ValueError("cand_mat must be a contiguous int32[R, S, W] tensor")
@@ -351,6 +376,11 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
         cand_idx = _on_card_int32(cand_idx, "cand_idx", (K,))
     if cnt is not None:
         cnt = _on_card_int32(cnt, "cnt", (K, S))
+        if not 1 <= K <= TOTALS_MAX or S < 1:
+            raise ValueError(f"TopN totals take 1 <= K <= {TOTALS_MAX} candidates and "
+                             f"at least one shard, got K={K}, S={S}")
+        if n_out is not None and not 1 <= n_out <= K:
+            raise ValueError(f"the trim takes 1 <= n_out <= K, got n_out={n_out}, K={K}")
     if check_stacks(mats, S) != W and mats:
         raise ValueError("src stacks and candidate stack disagree on the row width")
     for m, r in code.leaves:
@@ -365,19 +395,25 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
         out_src = torch.empty(S, dtype=torch.int32, device=dev)
     elif src_counts:
         out_src = torch.zeros(S, dtype=torch.int32, device=dev)
-    totals = torch.zeros(K, dtype=torch.int64, device=dev) if cnt is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = result = None
+    if cnt is not None:
+        # The last block writes every entry: no fill.
+        scratch = _totals_scratch_for(dev, stream)
+        result = (torch.empty(K, dtype=torch.int64, device=dev) if n_out is None
+                  else torch.empty((2, n_out), dtype=torch.int32, device=dev))
     fn = _lib_fn("score_rows", "score_rows", _SCORE_ROWS_ARGS)
     leaf_arr, ops_arr = _c_leaves(code, mats)
     err = fn(
         leaf_arr, len(code.leaves), ops_arr, len(code.ops), _ptr(mask),
         cand_mat.data_ptr(), _ptr(cand_idx), K, S, W, _ptr(out_scores),
-        _ptr(out_src), _ptr(cnt), int(thr), _ptr(totals),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(out_src), _ptr(cnt), int(thr), _ptr(scratch), n_out or 0,
+        _ptr(result), stream,
     )
     if err != 0:
         raise RuntimeError(f"score_rows launch failed: cudaError {err}")
     score_rows_cuda.launches += 1
-    return out_scores, out_src, totals
+    return out_scores, out_src, result
 
 
 score_rows_cuda.launches = 0
@@ -425,34 +461,6 @@ def and_popcount_rows_cuda(matrix: torch.Tensor, row: torch.Tensor,
 
 and_popcount_rows_cuda.launches = 0
 
-# K4 stages the totals in 32 KiB of shared memory: the most candidates it
-# ranks (the engine's MAX_TOPN_CANDIDATES).
-TRIM_MAX = 4096
-
-
-def topn_trim_cuda(totals: torch.Tensor, n_out: int):
-    """Launch K4 on the card: the top ``n_out`` of int64[K] totals as
-    (vals int32, idx int32), without waiting for the device."""
-    if not totals.is_cuda or totals.dtype != torch.int64 or totals.dim() != 1:
-        raise ValueError("totals must be an int64[K] tensor on the card")
-    K = totals.shape[0]
-    if not 1 <= K <= TRIM_MAX or not 1 <= n_out <= K:
-        raise ValueError(f"topn_trim takes 1 <= n_out <= K <= {TRIM_MAX}, got n_out={n_out}, K={K}")
-    totals = totals.contiguous()
-    vals = torch.empty(n_out, dtype=torch.int32, device=totals.device)
-    idx = torch.empty(n_out, dtype=torch.int32, device=totals.device)
-    fn = _lib_fn("topn_trim", "topn_trim", [_P, _I, _I, _P, _P, _P])
-    err = fn(totals.data_ptr(), K, n_out, vals.data_ptr(), idx.data_ptr(),
-             torch.cuda.current_stream(totals.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"topn_trim launch failed: cudaError {err}")
-    topn_trim_cuda.launches += 1
-    return vals, idx
-
-
-topn_trim_cuda.launches = 0
-
-
 def score_rows(cands: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """int32[K, S] scores of candidates int32[K, S, W] against src
     int32[S, W].  CUDA tensors launch K3 or raise; CPU tensors take the
@@ -483,15 +491,14 @@ def topn_full_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
                    cand_mat: torch.Tensor, cand_idx: torch.Tensor,
                    cnt: torch.Tensor, thr: int, n_out: Optional[int]):
     """Full TopN: per-shard gates (row count >= thr and score >= thr),
-    totals over shards, and the top ``n_out`` as (vals, idx) — or the
-    int64[K] totals when ``n_out`` is None.  CUDA tensors launch K3 then
-    K4, or raise; CPU tensors take the plain version."""
+    totals over shards, and their top ``n_out`` as int32[2, n_out] (values,
+    then candidate indices) — or the int64[K] totals when ``n_out`` is
+    None.  CUDA tensors launch K3 once (its last block trims), or raise;
+    CPU tensors take the plain version."""
     code = compile_prog(prog)
     check_prog(code)
     if not mask.is_cuda:
-        return topn_full_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr, n_out)
-    _, _, totals = score_rows_cuda(code, mats, mask, cand_mat, cand_idx,
-                                   scores=False, cnt=cnt, thr=thr)
-    if n_out is None:
-        return totals
-    return topn_trim_cuda(totals, n_out)
+        out = topn_full_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr, n_out)
+        return out if n_out is None else torch.stack(out)
+    return score_rows_cuda(code, mats, mask, cand_mat, cand_idx, scores=False,
+                           cnt=cnt, thr=thr, n_out=n_out)[2]

@@ -158,9 +158,11 @@ def test_import_is_jax_free():
         "from pilosa_tpu_torch.executor import Executor\n"
         "from pilosa_tpu_torch.core.holder import Holder\n"
         "for name in ('score_rows', 'topn_tree', 'topn_full_tree', 'score_rows_cuda',\n"
-        "             'topn_trim_cuda', 'and_popcount_rows_cuda', 'topn_trim_plain'):\n"
+        "             'and_popcount_rows_cuda', 'topn_trim_plain', 'topn_full_tree_plain'):\n"
         "    assert callable(getattr(kernels, name)), name\n"
-        "assert set(build.KERNELS) >= {'score_rows', 'topn_trim'}\n"
+        "assert not hasattr(kernels, 'topn_trim_cuda'), 'the trim runs in K3'\n"
+        "assert set(build.KERNELS) >= {'score_rows', 'and_popcount_rows'}\n"
+        "assert 'topn_trim' not in build.KERNELS\n"
         "assert all((build.CSRC / f'{k}.cu').is_file() for k in build.KERNELS)\n"
         "h = Holder(device='cpu'); h.open()\n"
         "f = h.create_index('i').create_field('t')\n"

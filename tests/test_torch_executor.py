@@ -108,9 +108,11 @@ def test_write_rebuilds_the_stack_and_kernel_path_counts():
     dense = eng.dense_dispatches
     results(port, q)
     assert (eng.stack_rebuilds, eng.dense_dispatches) == (rebuilds, dense + 1)
+    updates = eng.stack_updates
     results(port, "Set(17, d=1)")
     results(port, q)
-    assert eng.stack_rebuilds == rebuilds + 1
+    # The write syncs the resident stack in place: no rebuild.
+    assert (eng.stack_rebuilds, eng.stack_updates) == (rebuilds, updates + 1)
     # A bare Count(Row) never reaches the engine (the O(1) lane).
     results(port, "Count(Row(d=1))")
     assert eng.dense_dispatches == dense + 2 and eng.sparse_dispatches == 0

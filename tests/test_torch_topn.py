@@ -356,6 +356,53 @@ def test_topn_full_tree_plain_matches_reference(mesh, stacks, prog_name, thr, n_
     assert decode_topn_full(host, cands, n_out) == want
 
 
+@pytest.mark.parametrize("n_out", [None, 16])
+@pytest.mark.parametrize("thr", [1, 1 << 30], ids=["gated", "all_zero"])
+def test_topn_full_tree_one_output(mesh, stacks, thr, n_out):
+    """The fused TopN's one output, at the main path's K = 16 (candidate
+    slots in pairs that tie): int32[2, n_out] (values, then candidate
+    indices) with n_out = K, or the int64[K] totals with n_out None,
+    equal to the JAX program and to decode_topn_full_scores.  thr past
+    every count gates every pair out: all-zero totals."""
+    src, cand = stacks
+    prog, mask = SRC_PROGS["and"], MASKS["some"]
+    cand_idx = np.repeat(np.array([3, 4, 0, 2, 1, 5, 0, 0], np.int32), 2)
+    cands = list(range(60, 48, -1))  # 12 id-descending candidates, 4 pads
+    host_cnt = np.zeros((N_SHARDS, 16), np.int32)
+    host_cnt[:, :12] = np.repeat(np.random.default_rng(8).integers(1, 2 << 20, (N_SHARDS, 6)),
+                                 2, axis=1)
+    jprog, ops, specs = jax_operands(mesh, prog, src)
+    jout = jk.topn_full_tree(
+        mesh, jprog, (P(),) + tuple(specs), n_out, None, jax_mask(mesh, mask),
+        put_global(mesh, cand, P(None, SHARD_AXIS)),
+        put_global(mesh, host_cnt.T.copy(), P(None, SHARD_AXIS)),
+        put_global(mesh, np.int32(thr), P()),
+        put_global(mesh, cand_idx, P()), *ops,
+    )
+    out = kernels.topn_full_tree(
+        prog, [t32(m) for m in src], torch.from_numpy(mask), t32(cand),
+        torch.from_numpy(cand_idx), torch.from_numpy(host_cnt.T.copy()), thr, n_out,
+    )
+    if n_out is None:
+        assert out.dtype == torch.int64 and out.shape == (16,)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+        host = out.numpy()
+    else:
+        assert out.dtype == torch.int32 and out.shape == (2, n_out)
+        np.testing.assert_array_equal(out.numpy(), np.stack([np.asarray(j) for j in jout]))
+        host = (out[0].numpy(), out[1].numpy())
+    scores, counts = kernels.topn_tree(
+        prog, [t32(m) for m in src], torch.from_numpy(mask), t32(cand),
+        torch.from_numpy(cand_idx),
+    )
+    want = jfusion.decode_topn_full_scores(
+        (scores.numpy(), counts.numpy()), host_cnt, cands, thr, n_out
+    )
+    assert decode_topn_full(host, cands, n_out) == want
+    if thr > 1:
+        assert want == []
+
+
 @pytest.mark.parametrize("case", ["ties", "zeros", "distinct"])
 def test_topn_trim_plain_order(case):
     """Value descending, the lower index first on ties — jax.lax.top_k's
@@ -443,13 +490,15 @@ def test_cuda_wrappers_refuse_cpu_tensors(stacks):
     with pytest.raises(ValueError, match="card"):
         kernels.score_rows_cuda(code, [t32(m) for m in src], mask, t32(cand), None)
     with pytest.raises(ValueError, match="card"):
-        kernels.topn_trim_cuda(torch.zeros(8, dtype=torch.int64), 2)
+        kernels.score_rows_cuda(code, [t32(m) for m in src], mask, t32(cand),
+                                torch.from_numpy(CAND_IDX), scores=False,
+                                cnt=torch.ones((8, N_SHARDS), dtype=torch.int32), n_out=2)
     with pytest.raises(ValueError, match="card"):
         kernels.and_popcount_rows_cuda(t32(cand[0]), t32(cand[0, 0]))
     with pytest.raises(ValueError, match="card"):
         kernels.and_popcount_rows_cuda(t32(cand[0]), t32(cand[0, 0]), rows=[1, 0])
     assert kernels.score_rows_cuda.launches == 0
-    assert kernels.topn_trim_cuda.launches == 0
+    assert not kernels._totals_scratch  # a refused launch allocates no scratch
     assert kernels.and_popcount_rows_cuda.launches == 0
 
 
