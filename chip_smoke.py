@@ -20,8 +20,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    {1, 5, K} and none (the totals copied out), and launches overlapping
    on two streams; for P2 R in {1, 8, 16, 17, 64, 129, 8192}, every
    row or rows by index (a subset, a permutation, one row, a list past
-   the launch-parameter cap).  Integer results, so they must agree
-   exactly.  --check-only stops here.
+   the launch-parameter cap); for K5 count_batch_tree K in {1, 2, 8, 9,
+   64, 65, 256, 512} random chain and interpreter trees with zero leaves,
+   duplicates fanned out, masks of no shard, every shard, one shard and a
+   ragged set, leaves of two stacks, 128 and 1024 distinct leaf rows, 37
+   shards (two mask words), no shards, launches overlapping on two
+   streams.  Integer results, so they must agree exactly.  --check-only
+   stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
    field s of 24 rows that each occupy 4 of the 64 occupancy blocks of
@@ -49,7 +54,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its bound, its plain version's p50 (and a library call's where one
    computes the same function); P2 also at scripts/pallas_vs_xla.py's
    shapes; the end-to-end Count and TopN p50s, and the card's name and
-   power limit.
+   power limit; K5 at K = 8, 64 and 256 distinct two-row trees on f,
+   beside the device time of as many K1 launches.
+   serve — batched Count serving on the same index, before phase 5: a
+   query of 8 consecutive Counts on f, and one on s, each one K5 launch
+   and no K1/K2 launch; 64 threads x 32 Executor.execute_async Counts
+   (the 30 trees of phase 3) with the result memo off, every answer
+   against numpy, printing queries/s, p50 latency, batches, batched
+   queries and the mean batch (>= 2), the K5 counter moved and no
+   _QueryFuture fallback; the same stream from the memo, with no launch
+   at all; the serial Count and 8-Count p50s; then bench.py's config-2
+   index b10m (10 shards, 128 dense rows): its 32 four-row trees against
+   numpy, setops_tree_10M_cols_p50 and setops_tree_single_dispatch_p50,
+   and K5 at K = 32 there.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -58,7 +75,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    torch.profiler, whose list must hold the scatter; a bulk import of
    2^20 bits into f synced by the IngestSyncer (its seconds), then every
    f Count against the oracle; writes to top, then an engine TopN against
-   the oracle.  No stack is rebuilt through all of it and some are
+   the oracle.  Each single-bit write is also read back through
+   execute_async, and 24 Sets on f=12 run beside 16 threads streaming
+   execute_async Counts: each Count submitted after a Set returned must
+   see it.  No stack is rebuilt through all of it and some are
    synced in place; then one write to a new row must rebuild f exactly
    once (its seconds, beside the bulk sync's).
 
@@ -74,7 +94,10 @@ engine-less TopN wall time, Fragment.top's microseconds per call, and the
 kernels that the sparse Counts and one warm engine-less TopN put on the
 card with their device time per launch (torch.profiler), then phase 5's
 write->Count p50 and bulk-sync seconds (a checkout without the in-place
-sync pays a rebuild for each).  The data,
+sync pays a rebuild for each), and the p50 of one query of 8 consecutive
+Counts on f with the kernels it puts on the card (8 K1 launches where
+Counts run one by one, one K5 where the run is one count_many).  The
+result memo is off for every timing loop.  The data,
 queries and loops are this file's, so both trees are measured the same
 way.  Run the trees in turns: parent, change, change, parent.
 """
@@ -82,6 +105,7 @@ way.  Run the trees in turns: parent, change, change, parent.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -474,6 +498,140 @@ def check_topn_kernels(device, seed):
                 n += 1
     log(f"kernels: {n} comparisons exact (K3 with its trim, and P2, against plain versions)")
     return err
+
+
+_OPS = ("and", "or", "andnot", "xor")
+
+
+def _rand_tree(rng, leaves, chain):
+    """A normalized tree over ``leaves`` (each ("row", m, r) or ("zero",)):
+    one n-ary node of leaves (the chain form K1 and K5 run in registers),
+    or nested binary nodes (their stack interpreter)."""
+    if len(leaves) == 1:
+        return leaves[0]
+    if chain:
+        return (_OPS[int(rng.integers(0, 4))],) + tuple(leaves)
+    cut = int(rng.integers(1, len(leaves)))
+    return (_OPS[int(rng.integers(0, 4))], _rand_tree(rng, leaves[:cut], False),
+            _rand_tree(rng, leaves[cut:], False))
+
+
+def _rand_batch(rng, K, rows_of, n_leaves=(1, 6), zero=0.1):
+    """K random trees; ``rows_of()`` draws one (m, r) leaf row."""
+    progs = []
+    for k in range(K):
+        leaves = [("zero",) if rng.random() < zero else ("row",) + rows_of()
+                  for _ in range(int(rng.integers(n_leaves[0], n_leaves[1])))]
+        progs.append(_rand_tree(rng, leaves, chain=k % 2 == 0))
+    return progs
+
+
+def _batch_masks(rng, S):
+    """bool[5, S] masks: none, all, one shard, the last shard, ragged."""
+    m = np.zeros((5, S), dtype=bool)
+    m[1] = True
+    m[2, int(rng.integers(0, S))] = True
+    m[3, S - 1] = True
+    m[4] = rng.random(S) < 0.5
+    return m
+
+
+def check_batch_kernel(device, seed):
+    """K5 count_batch_tree against count_batch_tree_plain: K in {1, 2, 8,
+    9, 64, 65, 256, 512}, duplicate queries (the fan-out), zero trees,
+    masks of no shard, every shard, one shard and a ragged set, leaves of
+    two stacks, 128 and 1024 distinct leaf rows (a staged and an unstaged
+    leaf table), 37 shards (two mask words), no shards, chain and
+    interpreter trees over adversarial words, and launches overlapping on
+    two streams.  Returns max |err|."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    rng = np.random.default_rng(seed + 5)
+    n = 0
+
+    def check(progs, mats, masks, mask_ids, what, out_index=None):
+        got = kernels.count_batch_tree_cuda(kernels.compile_batch(progs, mask_ids), mats, masks,
+                                            device, out_index)
+        return (progs, mats, masks, mask_ids, what, out_index, got)
+
+    def settle(pending):
+        nonlocal n
+        torch.cuda.synchronize()
+        for progs, mats, masks, mask_ids, what, out_index, got in pending:
+            want = kernels.count_batch_tree_plain(progs, mats, masks, mask_ids, device, out_index)
+            _exact("K5", got, want, what)
+            n += 1
+
+    S = 12
+    mats = [_adversarial_stack(rng, 4, S, device), _adversarial_stack(rng, 4, S, device)]
+    masks = _batch_masks(rng, S)
+    rows_of = lambda: (int(rng.integers(0, 2)), int(rng.integers(0, 4)))  # noqa: E731
+    for K in (1, 2, 8, 9, 64, 65, 256, 512):
+        progs = _rand_batch(rng, K, rows_of)
+        ids = rng.integers(0, len(masks), K).tolist()
+        settle([check(progs, mats, masks, ids, f"K={K}")])
+        # Duplicates: the batch of unique queries fanned out to K callers.
+        fan = rng.integers(0, K, K + 3).tolist()
+        settle([check(progs, mats, masks, ids, f"K={K} fanned out", out_index=fan)])
+    # Every mask on every query, and zero trees / absent rows alone.
+    progs = [("zero",), ("and", ("row", 0, 0), ("zero",)), ("row", 1, 1), KERNEL_PROGS[6],
+             KERNEL_PROGS[9], ("or", ("zero",), ("zero",))]
+    settle([check(progs * len(masks), mats, masks,
+                  [i for i in range(len(masks)) for _ in progs], "each mask")])
+    # 37 shards: a mask of two words.
+    mats37 = [_adversarial_stack(rng, 4, 37, device) for _ in range(2)]
+    masks37 = _batch_masks(rng, 37)
+    progs = _rand_batch(rng, 40, rows_of)
+    settle([check(progs, mats37, masks37, rng.integers(0, 5, 40).tolist(), "37 shards")])
+    del mats37
+    # Wide leaf tables: 128 distinct rows (staged in shared memory) and
+    # 1024 (read from device memory), over 3 shards of a 1024-row stack.
+    gen = torch.Generator(device=device).manual_seed(seed)
+    big = torch.randint(-2 ** 31, 2 ** 31 - 1, (1024, 3, 32768), dtype=torch.int32, device=device,
+                        generator=gen)
+    big[0] = -1
+    big[1] = -2 ** 31
+    big[2] = 0
+    masks3 = _batch_masks(rng, 3)
+    for width, K in ((128, 64), (1024, 512)):
+        rows = rng.permutation(width)
+        progs = [_rand_tree(rng, [("row", 0, int(r)) for r in rows[2 * k: 2 * k + 2]], k % 2 == 0)
+                 for k in range(width // 2)]
+        progs += _rand_batch(rng, K - len(progs), lambda: (0, int(rng.integers(0, width))))
+        assert len(kernels.compile_batch(progs, [0] * K).leaves) == width
+        settle([check(progs, [big], masks3, rng.integers(0, 5, K).tolist(),
+                      f"{width} distinct leaves")])
+    del big
+    # No shards: K5 still writes its (zero) answers.
+    empty = [m[:, :0].contiguous() for m in mats]
+    got = kernels.count_batch_tree(KERNEL_PROGS[:3], empty, np.zeros((1, 0), bool), [0, 0, 0],
+                                   device)
+    if got.tolist() != [0, 0, 0]:
+        raise AssertionError(f"K5 over no shards: {got.tolist()}")
+    n += 1
+    # Two streams at once: each keeps its own totals scratch.
+    side = torch.cuda.Stream(device=device)
+    torch.cuda.synchronize()
+    pending = []
+    for i in range(16):
+        progs = _rand_batch(rng, 33, rows_of)
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            pending.append(check(progs, mats, masks, rng.integers(0, 5, 33).tolist(),
+                                 f"two streams, launch {i}"))
+    settle(pending)
+    # Past the launch's query limit: refused before launch.
+    try:
+        kernels.count_batch_tree_cuda(kernels.compile_batch([("zero",)] * (kernels.BATCH_MAX + 1),
+                                                            [0] * (kernels.BATCH_MAX + 1)),
+                                      mats, masks, device)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"K5 launched {kernels.BATCH_MAX + 1} queries")
+    log(f"kernels: {n} comparisons exact (K5 count_batch_tree against its plain version)")
+    return {"count_batch_tree": 0}
 
 
 # -- phase 3: the main path --------------------------------------------------
@@ -913,9 +1071,10 @@ def time_kernels(engine, ex, device, err, launches):
 
     # End to end: Executor.execute of the 12 north-star Counts, host clock
     # around a synchronous answer (parse cache warm, stacks resident).
-    for field in ("f", "s"):
-        log(f"times: end-to-end Count(Intersect) on {field} p50 "
-            f"{count_p50_ms(ex, field):.4f} ms over 48 queries")
+    with memo_off(engine):  # the memo would answer the repeats
+        for field in ("f", "s"):
+            log(f"times: end-to-end Count(Intersect) on {field} p50 "
+                f"{count_p50_ms(ex, field):.4f} ms over 48 queries")
     return out
 
 
@@ -1096,6 +1255,409 @@ def time_topn(engine, ex, holder, device, err, launches):
     return out
 
 
+# -- phase 4 and the serve phase: K5 count_batch_tree ------------------------
+
+
+@contextlib.contextmanager
+def memo_off(engine):
+    """The engine's result memo off for the block (a checkout from before
+    the memo has none): timing loops repeat their queries, and a memo hit
+    would time the memo, not the path."""
+    memo = getattr(engine, "result_memo", None)
+    old = None if memo is None else memo.maxsize
+    if memo is not None:
+        memo.maxsize = 0
+    try:
+        yield
+    finally:
+        if memo is not None:
+            memo.maxsize = old
+
+
+def batch_bound(progs, mats, masks, mask_ids, S):
+    """(bytes, integer ops) K5's least work needs for one batch: each
+    distinct leaf row's words of the shards some query reading it
+    requests read once, the packed upload (leaf addresses, programs,
+    masks) read and the int64 answers written; per query and word, its
+    combines, a popcount and an add."""
+    from pilosa_tpu_torch.parallel import kernels
+
+    batch = kernels.compile_batch(progs, mask_ids)
+    req = {}
+    for k, (off, n_ops, mid, _) in enumerate(batch.qinfo.tolist()):
+        for code in batch.ops[off: off + n_ops].tolist():
+            if code & 0xFF == kernels.OP_LEAF:
+                req.setdefault(code >> 8, set()).add(mid)
+    words = mats[0].shape[2] if mats else 32768
+    row_bytes = sum(int(np.any(masks[sorted(m)], axis=0).sum()) for m in req.values()) * words * 4
+    upload = (len(batch.leaves) * 8 + batch.qinfo.nbytes + batch.ops.nbytes
+              + kernels.mask_bits(masks).nbytes)
+    ops = 0
+    for off, n_ops, mid, _ in batch.qinfo.tolist():
+        leaves = sum(1 for c in batch.ops[off: off + n_ops].tolist()
+                     if c & 0xFF in (kernels.OP_LEAF, kernels.OP_ZERO))
+        ops += (n_ops - leaves + 2) * int(masks[mid].sum()) * words
+    return row_bytes + upload + len(progs) * 8, ops
+
+
+def f_batch(engine, K, seed):
+    """K distinct two-row Count(Intersect) trees on f (of its 276 row
+    pairs, shuffled from ``seed``), lowered: (progs, mats, canonical)."""
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    rows = list(F_ROWS)
+    pairs = [(a, b) for i, a in enumerate(rows) for b in rows[i + 1:]]
+    order = np.random.default_rng(seed).permutation(len(pairs))[:K]
+    canonical = engine.canonical_shards("bench")
+    lw = _Lowering(engine, canonical)
+    progs = [engine._lower("bench", pql.parse(
+        "Intersect(Row(f=%d), Row(f=%d))" % pairs[i]).calls[0], lw) for i in order]
+    return progs, lw.mats, canonical
+
+
+def k1_launches_ms(engine, progs, mats, canonical, want, windows=3):
+    """The device time of the same trees through K1, one launch each on
+    the same stack (torch.profiler, the mean over ``windows`` passes of
+    all of them), after K1's answers are held against ``want``."""
+    from pilosa_tpu_torch.parallel import kernels
+
+    codes = [kernels.compile_prog(p) for p in progs]
+    mask = engine._mask_words(canonical, canonical)
+    got = [int(kernels.count_tree_dense(c, mats, mask)) for c in codes]
+    if got != want:
+        raise AssertionError(f"K1 over K5's trees: {got} != K5's {want}")
+    seen = on_card(lambda: [kernels.count_tree_dense(c, mats, mask)
+                            for _ in range(windows) for c in codes])
+    hits = [v for k, v in seen.items() if "count_tree_dense_kernel" in k]
+    if sum(n for n, _ in hits) != windows * len(codes):
+        raise AssertionError(f"torch.profiler saw {hits} K1 launches, not {windows * len(codes)}")
+    return sum(t for _, t in hits) / windows
+
+
+def time_batch_f(engine, device, err, seed):
+    """K5 at K = 8, 64 and 256 distinct two-row trees on f, every shard
+    requested: held exactly against its plain version there first, then
+    ms / device_ms / host_us, the bound, the plain p50 (K = 8, 64) and the
+    device time of the same K trees as K launches of K1.  Returns {K:
+    row}."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    sync = torch.cuda.synchronize
+    rows = {}
+    for K in (8, 64, 256):
+        progs, mats, canonical = f_batch(engine, K, seed)
+        S = len(canonical)
+        masks = np.ones((1, S), dtype=bool)
+        ids = [0] * K
+
+        def call(progs=progs, mats=mats, masks=masks, ids=ids):
+            return kernels.count_batch_tree(progs, mats, masks, ids, device)
+
+        got = call()
+        want = kernels.count_batch_tree_plain(progs, mats, masks, ids, device)
+        err["count_batch_tree"] = max(err["count_batch_tree"],
+                                      _exact("K5", got, want, f"at K={K} on f"))
+        for _ in range(3):
+            call()
+        sync()
+        t = measured(call, "count_batch_tree_kernel", sync)
+        plain = (p50_ms(lambda: kernels.count_batch_tree_plain(progs, mats, masks, ids, device),
+                        3, sync, batch=1) if K <= 64 else None)
+        byts, ops = batch_bound(progs, mats, masks, ids, S)
+        bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        distinct = len(kernels.compile_batch(progs, ids).leaves)
+        k1_ms = k1_launches_ms(engine, progs, mats, canonical, got.tolist())
+        rows[K] = {"times": t, "plain_ms": plain, "bytes": byts, "ops": ops, "bound_ms": bound,
+                   "distinct_leaves": distinct, "k1_launches_device_ms": k1_ms}
+        _times_line(f"K5 count_batch_tree at K={K} on f ({distinct} distinct rows, S={S})", t,
+                    bound, plain if plain is not None else float("nan"),
+                    f"; the same {K} trees as {K} K1 launches: {k1_ms:.4f} ms of device time "
+                    "(torch.profiler)")
+    return rows
+
+
+def expected_counts(host):
+    """{PQL: numpy answer} of the main path's 30 Counts."""
+    return {pql_of(f, op, rows): int(oracle(host[f], op, rows)) for f, op, rows in
+            main_path_queries()}
+
+
+def _stream(ex, queries, want, threads, per_thread, seed):
+    """``threads`` threads, each issuing ``per_thread`` Executor.execute_async
+    Counts drawn from ``queries``, each waited on before the next: every
+    future non-None and every answer equal to ``want``.  Returns (wall
+    seconds, per-query latencies in ms)."""
+    import threading
+
+    lat, errors = [], []
+    barrier = threading.Barrier(threads)
+
+    def run(i):
+        rng = np.random.default_rng(seed + i)
+        try:
+            barrier.wait(60)
+            for q in rng.choice(queries, per_thread).tolist():
+                t0 = time.perf_counter()
+                fut = ex.execute_async("bench", q)
+                if fut is None:
+                    raise AssertionError(f"execute_async declined {q}")
+                got = fut.result(120).results[0]
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if got != want[q]:
+                    raise AssertionError(f"{q} (execute_async): port {got} != numpy oracle {want[q]}")
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    workers = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(w.is_alive() for w in workers):
+        raise AssertionError(f"the execute_async stream failed: {errors[:3]}")
+    return wall, lat
+
+
+def _launch_counts():
+    from pilosa_tpu_torch.parallel import kernels, sparse
+
+    return {"count_tree_dense": kernels.count_tree_dense.launches,
+            "count_tree_blocks": sparse.count_tree_blocks_cuda.launches,
+            "count_batch_tree": kernels.count_batch_tree_cuda.launches}
+
+
+def _zero_launches():
+    from pilosa_tpu_torch.parallel import kernels, sparse
+
+    kernels.count_tree_dense.launches = 0
+    sparse.count_tree_blocks_cuda.launches = 0
+    kernels.count_batch_tree_cuda.launches = 0
+
+
+def eight_counts(field):
+    return "".join(pql_of(field, "and", (10 + 2 * k, 11 + 2 * k)) for k in range(8))
+
+
+def run_serve_path(device, holder, engine, ex, host, seed, threads=64, per_thread=32):
+    """Batched Count serving on the north-star index: a query of 8
+    consecutive Counts on f and one on s, each one K5 launch and no K1 or
+    K2 launch; ``threads`` x ``per_thread`` concurrent execute_async Counts
+    (the 12 pairs and the Union/Difference/Xor trees of f and s) with the
+    memo off, every answer against numpy, the K5 counter moved, a mean
+    batch of at least 2 and no _QueryFuture fallback; the same stream again
+    with the memo on, answered with no launch at all; then bench.py's
+    config-2 index b10m.  Returns the phase's numbers, its K5 launches and
+    the b10m K5 row."""
+    import torch
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    want = expected_counts(host)
+    log(f"serve: numpy oracle of {len(want)} Counts in {time.perf_counter() - t0:.3f} s")
+    out = {}
+    _zero_launches()
+    for field in ("f", "s"):
+        q = eight_counts(field)
+        before = _launch_counts()
+        got = ex.execute("bench", q).results
+        exp = [want[pql_of(field, "and", (10 + 2 * k, 11 + 2 * k))] for k in range(8)]
+        if got != exp:
+            raise AssertionError(f"8 Counts on {field}: port {got} != numpy oracle {exp}")
+        moved = {k: v - before[k] for k, v in _launch_counts().items()}
+        if cuda and moved != {"count_tree_dense": 0, "count_tree_blocks": 0, "count_batch_tree": 1}:
+            raise AssertionError(f"8 Counts on {field} launched {moved}, not one K5")
+        log(f"serve: Executor.execute of 8 consecutive Count(Intersect) on {field} exact; "
+            f"launches {moved}")
+
+    queries = sorted(want)
+    b = engine.batcher()
+    b0, q0 = b.batches, b.batched_queries
+    with memo_off(engine):
+        wall, lat = _stream(ex, queries, want, threads, per_thread, seed)
+    n = threads * per_thread
+    batches, batched = b.batches - b0, b.batched_queries - q0
+    launches = _launch_counts()
+    mean = batched / max(1, batches)
+    out["stream"] = {"queries": n, "threads": threads, "wall_s": wall, "qps": n / wall,
+                     "p50_ms": statistics.median(lat), "p99_ms": float(np.percentile(lat, 99)),
+                     "batches": batches, "batched_queries": batched, "mean_batch": mean,
+                     "launches": launches, "fallbacks": ex.async_fallbacks}
+    log(f"serve: {n} execute_async Counts from {threads} threads exact against numpy in "
+        f"{wall:.3f} s: {n / wall:.1f} queries/s, p50 {statistics.median(lat):.4f} ms; "
+        f"batches {batches}, batched_queries {batched}, mean batch {mean:.2f}; launches "
+        f"{launches}; _QueryFuture fallbacks {ex.async_fallbacks}")
+    if batched != n or mean < 2 or ex.async_fallbacks or (cuda and launches["count_batch_tree"] <= 0):
+        raise AssertionError(f"serve stream: {out['stream']}")
+
+    # The same stream with the memo on: one pass of each query fills it,
+    # then every answer comes from it, with no launch.
+    engine.result_memo.clear()
+    for q in queries:
+        if ex.execute_async("bench", q).result(300).results[0] != want[q]:
+            raise AssertionError(f"{q}: the memo's warm pass disagrees with numpy")
+    _zero_launches()
+    b0 = b.batches
+    wall_m, lat_m = _stream(ex, queries, want, threads, per_thread, seed)
+    memo_launches = _launch_counts()
+    out["memo_stream"] = {"wall_s": wall_m, "qps": n / wall_m, "p50_ms": statistics.median(lat_m),
+                          "launches": memo_launches, "batches": b.batches - b0,
+                          "memo_hits": engine.result_memo.hits}
+    log(f"serve: the stream again from the result memo: {n / wall_m:.1f} queries/s, p50 "
+        f"{statistics.median(lat_m):.4f} ms; launches {memo_launches}, batches {b.batches - b0}")
+    if any(memo_launches.values()) or b.batches != b0 or ex.async_fallbacks:
+        raise AssertionError(f"memo stream: {out['memo_stream']}")
+    with memo_off(engine):
+        out["serial_count_p50_ms"] = {f: count_p50_ms(ex, f) for f in ("f", "s")}
+        out["eight_counts_p50_ms"] = eight_count_p50_ms(ex)
+    log(f"serve: serial Count(Intersect) p50 {json.dumps(out['serial_count_p50_ms'])} ms against "
+        f"the stream's {statistics.median(lat):.4f} ms; the 8-Count query p50 "
+        f"{out['eight_counts_p50_ms']:.4f} ms")
+    out["b10m"], b10m_row = run_b10m(device, holder, engine, seed)
+    return out, launches["count_batch_tree"], b10m_row
+
+
+def eight_count_p50_ms(ex, reps=24):
+    """p50 of Executor.execute of the 8-Count query on f (host clock around
+    a synchronous answer)."""
+    q = eight_counts("f")
+    ex.execute("bench", q)
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ex.execute("bench", q)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
+
+
+N_SHARDS_10M = 10  # bench.py:67
+F10_ROWS = range(100, 228)  # bench.py:69: 32 disjoint 4-row trees
+C2_B = 32  # bench.py:523: queries per batched dispatch
+
+
+def run_b10m(device, holder, engine, seed):
+    """bench.py's config 2 (bench.py:457-468, 509-532): index b10m of 10
+    shards and 128 dense random rows of f (its BSI field v10 waits for the
+    BSI slice); the 32 trees Xor(Difference(Union(a, b), c), d) over
+    disjoint rows against numpy, then setops_tree_10M_cols_p50 (device time
+    of one 32-query count_many over 32) and setops_tree_single_dispatch_p50
+    (device time of one such Count alone), and K5's row at K = 32."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.core.view import VIEW_STANDARD
+    from pilosa_tpu_torch.parallel import kernels
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rng = np.random.default_rng(seed + 10)
+    t0 = time.perf_counter()
+    words = {r: rng.integers(0, 1 << 64, (N_SHARDS_10M, W64), dtype=np.uint64) for r in F10_ROWS}
+    view = holder.create_index("b10m").create_field("f").view_if_not_exists(VIEW_STANDARD)
+    for sh in range(N_SHARDS_10M):
+        frag = view.fragment_if_not_exists(sh)
+        for r in F10_ROWS:
+            frag.load_row_words(r, words[r][sh])
+        frag.cache.invalidate()
+    shards = list(range(N_SHARDS_10M))
+    trees = []
+    for k in range(len(F10_ROWS) // 4):
+        a = 100 + 4 * k
+        trees.append(f"Xor(Difference(Union(Row(f={a}), Row(f={a + 1})), Row(f={a + 2})), "
+                     f"Row(f={a + 3}))")
+    want = [int(popcounts(((words[a] | words[a + 1]) & ~words[a + 2]) ^ words[a + 3]).sum())
+            for a in range(100, 228, 4)]
+    calls = [pql.parse(t).calls[0] for t in trees]
+    engine.field_stack("b10m", "f", "standard")
+    sync()
+    log(f"serve: b10m ({N_SHARDS_10M} shards, 128 rows of f) made and uploaded in "
+        f"{time.perf_counter() - t0:.3f} s")
+    got = engine.count_many("b10m", calls, [shards] * C2_B)
+    if got != want:
+        raise AssertionError(f"b10m count_many: port {got} != numpy oracle {want}")
+    with memo_off(engine):
+        singles = [engine.count("b10m", c, shards) for c in calls]
+    if singles != want:
+        raise AssertionError(f"b10m single Counts: port {singles} != numpy oracle {want}")
+    log("serve: b10m's 32 four-row trees exact against numpy, batched and one by one")
+    out = {}
+    if not cuda:
+        return out, None
+    it = iter(range(10 ** 9))
+
+    def batch():
+        i = next(it)
+        return engine.count_many_async("b10m", [calls[(i + j) % C2_B] for j in range(C2_B)],
+                                       [shards] * C2_B)
+
+    def single():
+        return engine.count_async("b10m", calls[next(it) % C2_B], shards)
+
+    with memo_off(engine):
+        for _ in range(3):
+            batch()
+            single()
+        sync()
+        dev_batch = device_ms(batch, "count_batch_tree_kernel")
+        dev_single = device_ms(single, "count_tree_dense_kernel")
+        ms_batch = p50_ms(batch, 15, sync)
+        ms_single = p50_ms(single, 15, sync)
+    out["setops_tree_10M_cols_p50"] = dev_batch / C2_B
+    out["setops_tree_single_dispatch_p50"] = dev_single
+    out["batch_ms_per_query"] = ms_batch / C2_B
+    out["single_ms"] = ms_single
+    log(f"serve: setops_tree_10M_cols_p50 {dev_batch / C2_B:.6f} ms per query (K5, "
+        f"{dev_batch:.4f} ms per 32-query launch, torch.profiler); "
+        f"setops_tree_single_dispatch_p50 {dev_single:.6f} ms (K1); CUDA events around "
+        f"the engine call: {ms_batch / C2_B:.4f} ms per batched query, {ms_single:.4f} ms single")
+
+    # K5's row at K = 32 on b10m.
+    lw = _Lowering(engine, engine.canonical_shards("b10m"))
+    progs = [engine._lower("b10m", c, lw) for c in calls]
+    masks = np.ones((1, N_SHARDS_10M), dtype=bool)
+    ids = [0] * C2_B
+    k5 = kernels.count_batch_tree(progs, lw.mats, masks, ids, device)
+    if k5.tolist() != want:
+        raise AssertionError(f"K5 on b10m: {k5.tolist()} != {want}")
+
+    def call():
+        return kernels.count_batch_tree(progs, lw.mats, masks, ids, device)
+
+    t = measured(call, "count_batch_tree_kernel", sync)
+    plain = p50_ms(lambda: kernels.count_batch_tree_plain(progs, lw.mats, masks, ids, device), 5,
+                   sync, batch=1)
+    byts, ops = batch_bound(progs, lw.mats, masks, ids, N_SHARDS_10M)
+    bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+    _times_line(f"K5 count_batch_tree at K={C2_B} on b10m", t, bound, plain)
+    return out, {"times": t, "plain_ms": plain, "bytes": byts, "ops": ops, "bound_ms": bound,
+                 "distinct_leaves": 128}
+
+
+def k5_entry(rows_f, row_b10m, launches, err):
+    """K5's {"kernels": [...]} entry: the main columns at K = 64 on f, the
+    other shapes under "at"."""
+    main = rows_f[64]
+    e = _entry("count_batch_tree", "pilosa_tpu_torch/csrc/count_batch_tree.cu",
+               "pilosa_tpu/parallel/kernels.py:255", launches, err["count_batch_tree"],
+               main["times"], main["plain_ms"], main["bytes"], main["ops"], None)
+    e["shape"] = "K=64 distinct two-row trees on f, 960 shards"
+    e["k1_launches_device_ms"] = main["k1_launches_device_ms"]
+    e["at"] = {f"K={k} on f": {**r["times"], "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],
+                               "distinct_leaves": r["distinct_leaves"],
+                               "k1_launches_device_ms": r["k1_launches_device_ms"]}
+               for k, r in rows_f.items()}
+    if row_b10m is not None:
+        e["at"]["K=32 on b10m"] = {**row_b10m["times"], "bound_ms": row_b10m["bound_ms"],
+                                   "plain_ms": row_b10m["plain_ms"]}
+    return e
+
+
 # -- phase 5: the write path -------------------------------------------------
 
 OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
@@ -1203,6 +1765,10 @@ def run_write_path(device, holder, engine, ex, host, seed):
     lat = {"f": [], "s": []}
     parts = {"set": [], "sync": [], "count": []}
     filled = 0
+    # Memo off: every Count below dispatches (a write moves its key
+    # anyway), the execute_async one through the batcher too.
+    memo = contextlib.ExitStack()
+    memo.enter_context(memo_off(engine))
     for field, path in (("f", "dense"), ("s", "sparse")):
         a, b = ora[field][10], ora[field][11]
         q = pql_of(field, "and", (10, 11))
@@ -1227,6 +1793,10 @@ def run_write_path(device, holder, engine, ex, host, seed):
             if got != want or engine.last_path != path:
                 raise AssertionError(f"{verb}({col}, {field}=10) then {q}: port {got} "
                                      f"on {engine.last_path} != numpy oracle {want} on {path}")
+            fut = ex.execute_async("bench", q)
+            if fut is None or fut.result(300).results[0] != want:
+                raise AssertionError(f"{verb}({col}, {field}=10) then {q} through execute_async: "
+                                     f"{None if fut is None else fut.result(0).results} != {want}")
             if was_empty and verb == "Set":
                 filled += 1
                 if not (int(st.occ[ri, sh]) >> blk) & 1:
@@ -1236,6 +1806,8 @@ def run_write_path(device, holder, engine, ex, host, seed):
     if filled < 8:
         raise AssertionError(f"only {filled} Sets went into empty blocks of s")
     del engine._scatter_chain, engine._upload
+    batched_ryw = read_your_writes(engine, ex, ora, rng, n_shards)
+    memo.close()
     parts = {k: statistics.median(v) for k, v in parts.items()}
     log(f"write: 32 Sets and 32 Clears on f=10 and s=10, each then Count(Intersect) exact "
         f"against numpy ({filled} Sets into blocks s=10 left empty, counted on the sparse "
@@ -1243,7 +1815,8 @@ def run_write_path(device, holder, engine, ex, host, seed):
         f"{statistics.median(lat['s']):.4f} ms (p50 of its parts, ms: {json.dumps(parts)}); "
         f"scatter host p50 {statistics.median(scatter_us):.1f} us over {len(scatter_us)} "
         f"syncs, of which its {len(upload_us) // max(1, len(scatter_us))} pinned uploads "
-        f"{statistics.median(upload_us):.1f} us each (p50)")
+        f"{statistics.median(upload_us):.1f} us each (p50); each Count again through "
+        f"execute_async exact")
 
     # The scatter on the card: one Set and the dense Count that syncs it.
     col = next(c for v, c in write_targets(rng, ora["f"][10], ora["f"][11], n_shards, 1, False)
@@ -1314,10 +1887,11 @@ def run_write_path(device, holder, engine, ex, host, seed):
                 "count_tree_blocks": sparse.count_tree_blocks_cuda.launches,
                 "score_rows": kernels.score_rows_cuda.launches}
     updates = engine.stack_updates - updates0
-    if (engine.stack_rebuilds != rebuilds0 or updates <= 0
+    if (engine.stack_rebuilds != rebuilds0 or updates <= 0 or ex.async_fallbacks
             or (cuda and min(launches.values()) <= 0)):
         raise AssertionError(f"write phase: rebuilds {engine.stack_rebuilds - rebuilds0} "
-                             f"(want 0), updates {updates}, launches {launches}")
+                             f"(want 0), updates {updates}, launches {launches}, "
+                             f"_QueryFuture fallbacks {ex.async_fallbacks} (want 0)")
     col = int(rng.integers(0, n_shards << 20))
     ex.execute("bench", f"Set({col}, f={NEW_ROW})")
     t = time.perf_counter()
@@ -1346,7 +1920,95 @@ def run_write_path(device, holder, engine, ex, host, seed):
         "rebuild_s": rebuild_s,
         "stack_updates": updates,
         "launches": launches,
+        "batched_read_your_writes": batched_ryw,
     }
+
+
+def read_your_writes(engine, ex, ora, rng, n_shards, readers=16, n_sets=24):
+    """One writer thread Sets bits of f=12 where f=13 has them, beside
+    ``readers`` threads that each submit three Counts over those rows at
+    once through execute_async and wait on all three: Intersect (moves up
+    by one per Set), Difference(f=13, f=12) (down by one) and Union
+    (still).  Distinct trees in one drain make K5 launches, which the
+    batcher's dispatch thread orders against the writes' in-place
+    scatters.  Every Count submitted after a Set returned sees it, none
+    sees more Sets than were made, K5 launched and no _QueryFuture fell
+    back."""
+    import threading
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    a, b = ora["f"][12], ora["f"][13]
+    cols = [c for v, c in write_targets(rng, a, b, n_shards, n_sets, False) if v == "Set"]
+    n = len(cols)
+    qs = {pql_of("f", "and", (12, 13)): 1, pql_of("f", "andnot", (13, 12)): -1,
+          pql_of("f", "or", (12, 13)): 0}
+    ora2 = {"f": {12: a, 13: b}}
+    base = {q: int(oracle(ora2["f"], op, rows)) for q, (op, rows) in
+            zip(qs, (("and", (12, 13)), ("andnot", (13, 12)), ("or", (12, 13))))}
+    for q in qs:
+        if ex.execute("bench", q).results[0] != base[q]:
+            raise AssertionError(f"{q} before the writes disagrees with numpy")
+    fallbacks0 = ex.async_fallbacks
+    k5_0 = kernels.count_batch_tree_cuda.launches
+    done = [0]
+    stop = threading.Event()
+    errors, seen = [], []
+
+    def writer():
+        try:
+            for col in cols:
+                ex.execute("bench", f"Set({col}, f=12)")
+                done[0] += 1
+                time.sleep(0.02)  # several reader rounds between Sets
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    def reader():
+        try:
+            while not stop.is_set():
+                n0 = done[0]
+                futs = [(q, ex.execute_async("bench", q)) for q in qs]
+                for q, fut in futs:
+                    got = fut.result(300).results[0]
+                    seen.append((n0, got))
+                    lo, hi = sorted((base[q] + qs[q] * n0, base[q] + qs[q] * n))
+                    if not lo <= got <= hi:
+                        raise AssertionError(f"submitted after {n0} of {n} Sets returned, {q} "
+                                             f"saw {got}, outside [{lo}, {hi}]")
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    rs = [threading.Thread(target=reader) for _ in range(readers)]
+    w = threading.Thread(target=writer)
+    t0 = time.perf_counter()
+    for t in rs + [w]:
+        t.start()
+    w.join(300)
+    time.sleep(0.05)
+    stop.set()
+    for t in rs:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"read-your-writes under batching: {errors[:3]}")
+    k5 = kernels.count_batch_tree_cuda.launches - k5_0
+    fallbacks = ex.async_fallbacks - fallbacks0
+    for col in cols:
+        _put(a, col, True)
+    for q, (op, rows) in zip(qs, (("and", (12, 13)), ("andnot", (13, 12)), ("or", (12, 13)))):
+        final = ex.execute_async("bench", q).result(300).results[0]
+        if final != int(oracle(ora2["f"], op, rows)) or final != base[q] + qs[q] * n:
+            raise AssertionError(f"after the writes, {q}: {final} != {base[q] + qs[q] * n}")
+    if fallbacks or (engine.device.type == "cuda" and k5 <= 0):
+        raise AssertionError(f"read-your-writes under batching: {k5} K5 launches (want > 0), "
+                             f"{fallbacks} _QueryFuture fallbacks (want 0)")
+    log(f"write: {n} Sets on f=12 beside {readers} execute_async readers of Intersect, "
+        f"Difference and Union of f=12 and f=13: {len(seen)} Counts in {wall:.3f} s, each saw "
+        f"every Set that returned before it was submitted; {k5} K5 launches, {fallbacks} "
+        "_QueryFuture fallbacks")
+    return {"sets": n, "readers": readers, "counts": len(seen), "wall_s": wall,
+            "k5_launches": k5, "fallbacks": fallbacks}
 
 
 def root_writes(engine, ex, holder, host, seed):
@@ -1456,21 +2118,30 @@ def run_ab(root, seed):
         for k in range(12):
             ex.execute("bench", pql_of(field, "and", (10 + 2 * k, 11 + 2 * k)))
     ex.execute("bench", q)
-    out = {
-        "root": root,
-        "dense_count_p50_ms": count_p50_ms(ex, "f"),
-        "sparse_count_p50_ms": count_p50_ms(ex, "s"),
-        "engine_topn_p50_ms": topn_p50_ms(ex),
-        "engine_less_topn_warm_ms": statistics.median(walls[1:]),
-        "engine_less_topn_ms": walls,
-        "fragment_top_us": statistics.median(per_call),
-    }
+    with memo_off(engine):  # the memo would answer the timing loops' repeats
+        out = {
+            "root": root,
+            "dense_count_p50_ms": count_p50_ms(ex, "f"),
+            "sparse_count_p50_ms": count_p50_ms(ex, "s"),
+            "engine_topn_p50_ms": topn_p50_ms(ex),
+            "engine_less_topn_warm_ms": statistics.median(walls[1:]),
+            "engine_less_topn_ms": walls,
+            "fragment_top_us": statistics.median(per_call),
+            # 8 K1 launches where Counts run one by one, one K5 where a
+            # run of Counts is one count_many.
+            "eight_counts_p50_ms": eight_count_p50_ms(ex),
+        }
+        out["eight_counts_kernels"] = per_launch(on_card(lambda: ex.execute("bench", eight_counts("f"))))
     # The main path's kernels on the card, after every host-clock window:
     # the 12 sparse Counts once each (K2) and one warm engine-less TopN
     # (P2, and whatever else that tree launches per shard).
     sparse_qs = [pql_of("s", "and", (10 + 2 * k, 11 + 2 * k)) for k in range(12)]
-    out["sparse_count_kernels"] = per_launch(on_card(lambda: [ex.execute("bench", x) for x in sparse_qs]))
+    with memo_off(engine):
+        out["sparse_count_kernels"] = per_launch(on_card(lambda: [ex.execute("bench", x)
+                                                                  for x in sparse_qs]))
     out["engine_less_topn_kernels"] = per_launch(on_card(engine_less))
+    if hasattr(ex, "execute_async"):  # a checkout from before batched serving has none
+        out["stream"] = ab_stream(engine, ex, host, seed)
     trim = getattr(kernels, "topn_trim_cuda", None)
     if trim is not None:  # a checkout from before the trim moved into K3
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -1483,6 +2154,23 @@ def run_ab(root, seed):
     out.update(root_writes(engine, ex, holder, host, seed))
     out["card"] = card_line()
     print(json.dumps(out), flush=True)
+
+
+def ab_stream(engine, ex, host, seed, threads=64, per_thread=32):
+    """--root's serve item: the serve phase's concurrent execute_async
+    stream (memo off), its answers against numpy: queries/s, p50, batches
+    and the kernels they launched."""
+    want = expected_counts(host)
+    b = engine.batcher()
+    b0, q0 = b.batches, b.batched_queries
+    _zero_launches()
+    with memo_off(engine):
+        wall, lat = _stream(ex, sorted(want), want, threads, per_thread, seed)
+    n = threads * per_thread
+    return {"qps": n / wall, "p50_ms": statistics.median(lat),
+            "p99_ms": float(np.percentile(lat, 99)), "batches": b.batches - b0,
+            "mean_batch": (b.batched_queries - q0) / max(1, b.batches - b0),
+            "launches": _launch_counts(), "fallbacks": ex.async_fallbacks}
 
 
 def card_line():
@@ -1533,6 +2221,7 @@ def main(argv=None):
 
     err = check_kernels(device, args.seed)
     err.update(check_topn_kernels(device, args.seed))
+    err.update(check_batch_kernel(device, args.seed))
     if args.check_only:
         log(f"check-only: every kernel exact against its plain version: {err}")
         return 0
@@ -1544,10 +2233,14 @@ def main(argv=None):
             raise AssertionError(f"a kernel of the main path never launched: {launches}")
     kern = time_kernels(engine, ex, device, err, launches)
     kern += time_topn(engine, ex, holder, device, err, launches)
+    rows_f = time_batch_f(engine, device, err, args.seed)
     # After the timing windows, so that no profiler session precedes them.
     engine_less_kernels(holder, *engine_less_query)
     q = "TopN(top, Row(f=10), n=5)"
     engine_topn_kernels(ex, q, TopNOracle(host["top"]).fused(host["f"][10], 5))
+    serve, k5_launches, b10m_row = run_serve_path(device, holder, engine, ex, host, args.seed)
+    log("serve: " + json.dumps(serve))
+    kern.append(k5_entry(rows_f, b10m_row, k5_launches, err))
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     log(card_line())

@@ -98,6 +98,24 @@ def _sorted_unique_u64(values: np.ndarray) -> np.ndarray:
     return v
 
 
+class _WriteSeq:
+    """Process-global write sequence, bumped on every fragment mutation (a
+    copy of ``pilosa_tpu/core/fragment.py:147 _WriteSeq``).  Read-your-
+    writes for singleflight request collapsing: a flight key holds the
+    value at key time, so a caller whose own completed write bumped it
+    never joins a flight computed before that write.  Racy increments may
+    coalesce, but any write CHANGES the value, which is all the keys
+    need."""
+
+    __slots__ = ("v",)
+
+    def __init__(self):
+        self.v = 0
+
+
+WRITE_SEQ = _WriteSeq()
+
+
 def _locked(fn):
     """Run under the fragment mutex (fragment.go:88 RWMutex discipline)."""
 
@@ -224,6 +242,7 @@ class Fragment:
         self.cache.invalidate()
         self._mutex_owners = None
         self._version += 1
+        WRITE_SEQ.v += 1
         self._mut_floor = self._version  # a load is unattributed: no sync past it
         if self._on_touch is not None:
             self._on_touch()
@@ -361,6 +380,7 @@ class Fragment:
         change — and bump the owning view's version (the engine's stack
         token)."""
         self._version += 1
+        WRITE_SEQ.v += 1
         v = self._version
         self._mutlog[row_id] = v
         if cols is None:
@@ -383,6 +403,7 @@ class Fragment:
         for every row of it.  ``words[wbounds[i]:wbounds[i+1]]`` are row
         ``rows[i]``'s sorted unique dirty device words."""
         self._version += 1
+        WRITE_SEQ.v += 1
         v = self._version
         self._mutlog.update(dict.fromkeys(rows.tolist(), v))
         sizes = np.diff(np.asarray(wbounds, dtype=np.int64))

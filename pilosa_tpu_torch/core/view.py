@@ -17,6 +17,13 @@ from . import fragment as fragment_mod
 VIEW_STANDARD = "standard"
 VIEW_BSI_PREFIX = "bsig_"
 
+# Process-unique view generation tokens: two views that ever carried the
+# same (index, field, name) — an index dropped and recreated — must never
+# share a stack or memo token, or their independent version counters
+# would collide (the ABA that ``id()`` cannot rule out).
+_VIEW_GEN = itertools.count(1)
+
+
 def view_bsi_name(field_name: str) -> str:
     return VIEW_BSI_PREFIX + field_name
 
@@ -58,6 +65,9 @@ class View:
         # device stack forever).
         self._version_counter = itertools.count(1)
         self.version = 0
+        # This view's identity in the engine's stack tokens and result-memo
+        # keys, beside ``version``.
+        self.gen = next(_VIEW_GEN)
 
     def _bump_version(self) -> int:
         # next() on itertools.count is atomic under the GIL.

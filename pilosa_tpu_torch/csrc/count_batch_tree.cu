@@ -1,0 +1,318 @@
+// K5 count_batch_tree: K Count(tree) queries in one launch.
+//
+// Replaces the XLA program pilosa_tpu/parallel/kernels.py:255
+// count_batch_tree: for each query k, sum(popcount(tree_k(rows) & mask_k))
+// over field stacks int32[R, S, W], as int64[K] (the reference sums in
+// int32; the two agree below 2^31).  The serving tier drains concurrent
+// Counts into one launch and one readback (parallel/batcher.py).
+//
+// Bound: device-memory bytes.  A batch reads its table of distinct leaf rows
+// (parallel/kernels.py compile_batch), each over the shards some query
+// reading it requests: distinct rows x requested shards x 128 KiB, plus the
+// packed programs.  On the north-star field f (24 distinct rows, 960
+// shards) that is 3.02 GB, about 0.90 ms at 3.35 TB/s, whatever K is; K
+// launches of K1 would read every query's leaves again.  So the design's
+// one rule is that each distinct leaf word is read from device memory once
+// per launch, not once per query.
+//
+// Design.  A CTA of 256 threads takes one shard (blockIdx.y) and strides
+// over its tiles of T uint4 positions (blockIdx.x).  It first lists the
+// queries whose mask requests its shard and the leaf rows those queries
+// read.  Per tile, the CTA stages the tile's words of every listed leaf
+// row into shared memory with asynchronous copies, all in flight at once
+// (T chosen by the launcher so that the table's tile fits in 64 KiB:
+// neighbouring threads copy neighbouring 16-byte words), then its warps
+// take (query, chunk) items: a warp evaluates one
+// query's postfix program over one chunk of 32 x U positions from shared
+// memory (chain programs in registers, U positions per opcode fetch, as
+// K1's eval_chain; other trees through the stack interpreter), reduces the
+// popcounts with warp shuffles and adds them to the query's shared int32
+// counter.  So a leaf row read by many queries costs one load per word and
+// many shared-memory reads.  A table too wide to stage (more than 128 rows)
+// takes the same loop with loads from device memory (L1 and L2 then give
+// whatever reuse the batch has).  At the end each CTA adds its nonzero
+// counters into an int64 scratch with one atomic per (CTA, query) and
+// arrives on a counter after them; the CTA that arrives last copies the
+// totals out (through the fan-out map, when the batch was deduplicated),
+// then zeroes the scratch and the counter for the next launch on this
+// stream (the K3 pattern), so the output needs no fill.  The programs,
+// masks (one bit per shard), leaf row addresses and fan-out live in one
+// device buffer the wrapper uploads with one copy.
+#include <cuda_pipeline.h>
+
+#include "reduce.cuh"
+#include "tree_eval.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxQueries = 1024;         // parallel/kernels.py BATCH_MAX
+constexpr int kMaxLeaves = 4096;          // parallel/kernels.py MAX_BATCH_LEAVES
+constexpr long long kStageBytes = 64 * 1024;  // a tile of the leaf table
+constexpr int kDirectTile = 1024;         // uint4 per tile when not staged
+
+struct Batch {
+  const unsigned long long* leaves;  // address of each leaf row's [S, W] words
+  const int4* qinfo;                 // (ops offset, n ops, mask id, chain) per query
+  const int* ops;                    // the postfix programs, back to back
+  const unsigned int* masks;         // [n masks][s32]: bit s = shard s requested
+  int n_leaves;
+  int K;
+  int s32;
+  int w4;
+};
+
+// Leaf `l`'s words at position `p` of the tile starting at uint4 `base` of
+// the shard: from the staged tile, or from device memory (0 past the row).
+template <bool kStaged>
+__device__ __forceinline__ uint4 leaf_at(const Batch& b, const uint4* stage,
+                                         int tile, int l, size_t shard_off,
+                                         int base, int p) {
+  if (kStaged) return stage[(size_t)l * tile + p];
+  const int pos = base + p;
+  if (pos >= b.w4) return make_uint4(0u, 0u, 0u, 0u);
+  const uint4* row = reinterpret_cast<const uint4*>(__ldg(b.leaves + l));
+  return __ldg(row + shard_off + pos);
+}
+
+template <bool kStaged>
+__device__ __forceinline__ uint4 item_at(const Batch& b, const uint4* stage,
+                                         int tile, int code, size_t shard_off,
+                                         int base, int p) {
+  return (code & 0xff) == OP_LEAF
+             ? leaf_at<kStaged>(b, stage, tile, code >> 8, shard_off, base, p)
+             : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Popcount of query `q` over this lane's U positions of chunk `c`:
+// positions c * 32U + u * 32 + lane of the tile, so that for each u the
+// warp reads 32 neighbouring words.
+template <int U, bool kStaged>
+__device__ __forceinline__ unsigned int eval_item(const Batch& b,
+                                                  const uint4* stage, int tile,
+                                                  int4 q, size_t shard_off,
+                                                  int base, int c, int lane) {
+  int p[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) p[u] = c * 32 * U + u * 32 + lane;
+  const int* ops = b.ops + q.x;
+  unsigned int count = 0u;
+  if (q.w) {  // chain: item (item op)*, two live values per position
+    uint4 acc[U];
+    const int first = __ldg(ops);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      acc[u] = item_at<kStaged>(b, stage, tile, first, shard_off, base, p[u]);
+    for (int pc = 1; pc < q.y; pc += 2) {
+      const int code = __ldg(ops + pc);
+      const int op = __ldg(ops + pc + 1);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        acc[u] = combine4(
+            op, acc[u],
+            item_at<kStaged>(b, stage, tile, code, shard_off, base, p[u]));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) count += popc4(acc[u]);
+    return count;
+  }
+  for (int u = 0; u < U; ++u) {  // any tree within the limits
+    uint4 st[MAX_STACK];
+    int sp = 0;
+    for (int pc = 0; pc < q.y; ++pc) {
+      const int code = __ldg(ops + pc);
+      const int op = code & 0xff;
+      if (op == OP_LEAF || op == OP_ZERO) {
+        st[sp++] = item_at<kStaged>(b, stage, tile, code, shard_off, base, p[u]);
+      } else {
+        const uint4 r = st[--sp];
+        st[sp - 1] = combine4(op, st[sp - 1], r);
+      }
+    }
+    count += popc4(st[0]);
+  }
+  return count;
+}
+
+template <int U, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    count_batch_tree_kernel(Batch b, int tile, int tiles,
+                            const int* __restrict__ out_index, int k_out,
+                            unsigned long long* __restrict__ scratch,
+                            long long* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  __shared__ int n_req_s;
+  __shared__ int n_need_s;
+  __shared__ bool last;
+  const int s = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // Dynamic shared memory: the staged tile [n_leaves][tile] (staged only),
+  // then per requesting query its counter and its query index, then (staged
+  // only) a flag per leaf row and the list of rows to stage.
+  uint4* stage = smem;
+  unsigned int* cnt = reinterpret_cast<unsigned int*>(
+      smem + (kStaged ? (size_t)b.n_leaves * tile : 0));
+  int* qlist = reinterpret_cast<int*>(cnt + b.K);
+  int* needed = qlist + b.K;
+  int* nlist = needed + b.n_leaves;
+
+  if (tid == 0) {
+    n_req_s = 0;
+    n_need_s = 0;
+  }
+  if (kStaged)
+    for (int i = tid; i < b.n_leaves; i += kThreads) needed[i] = 0;
+  __syncthreads();
+  // The queries that request this shard, and the leaf rows they read.
+  for (int k = tid; k < b.K; k += kThreads) {
+    const int4 q = __ldg(b.qinfo + k);
+    const unsigned int m = __ldg(b.masks + (size_t)q.z * b.s32 + (s >> 5));
+    if ((m >> (s & 31)) & 1u) {
+      const int j = atomicAdd(&n_req_s, 1);
+      qlist[j] = k;
+      cnt[j] = 0u;
+      if (kStaged)
+        for (int pc = 0; pc < q.y; ++pc) {
+          const int code = __ldg(b.ops + q.x + pc);
+          if ((code & 0xff) == OP_LEAF) needed[code >> 8] = 1;
+        }
+    }
+  }
+  __syncthreads();
+  const int n_req = n_req_s;
+  if (kStaged) {
+    for (int i = tid; i < b.n_leaves; i += kThreads)
+      if (needed[i]) nlist[atomicAdd(&n_need_s, 1)] = i;
+    __syncthreads();
+  }
+  const int n_need = kStaged ? n_need_s : 0;
+  const size_t shard_off = (size_t)s * (size_t)b.w4;
+  const int chunks = tile / (32 * U);
+  const int shift = __ffs(tile) - 1;  // tile is a power of two
+  if (n_req > 0) {
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int base = t * tile;
+      if (kStaged) {
+        // Asynchronous copies (cp.async): every load of the tile is in
+        // flight at once, none waits on the one before.
+        for (int i = tid; i < n_need * tile; i += kThreads) {
+          const int l = nlist[i >> shift];
+          const int p = i & (tile - 1);
+          const int pos = base + p;
+          uint4* dst = stage + (size_t)l * tile + p;
+          if (pos < b.w4) {
+            const uint4* row = reinterpret_cast<const uint4*>(__ldg(b.leaves + l));
+            __pipeline_memcpy_async(dst, row + shard_off + pos, sizeof(uint4));
+          } else {
+            *dst = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncthreads();
+      }
+      // Items are warp-uniform, so every lane reaches the shuffles.
+      for (int it = warp; it < n_req * chunks; it += kWarps) {
+        const int j = it / chunks;
+        const int c = it - j * chunks;
+        const int4 q = __ldg(b.qinfo + qlist[j]);
+        unsigned int v =
+            eval_item<U, kStaged>(b, stage, tile, q, shard_off, base, c, lane);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+        if (lane == 0 && v) atomicAdd(&cnt[j], v);
+      }
+      if (kStaged) __syncthreads();  // the next tile overwrites the stage
+    }
+  }
+  __syncthreads();
+  for (int j = tid; j < n_req; j += kThreads)
+    if (cnt[j]) atomicAdd(scratch + qlist[j], (unsigned long long)cnt[j]);
+  __threadfence();  // this CTA's adds, before its arrival
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned long long ctas = (unsigned long long)gridDim.x * gridDim.y;
+    last = atomicAdd(scratch + kMaxQueries, 1ull) == ctas - 1ull;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every other CTA's adds, before the reads below
+  for (int i = tid; i < k_out; i += kThreads) {
+    const int src = out_index != nullptr ? __ldg(out_index + i) : i;
+    out[i] = (long long)__ldcg(scratch + src);
+  }
+  __syncthreads();
+  for (int i = tid; i < b.K; i += kThreads) scratch[i] = 0ull;
+  if (tid == 0) scratch[kMaxQueries] = 0ull;
+}
+
+template <int U, bool kStaged>
+int launch(const Batch& b, int tile, const int* out_index, int k_out,
+           int n_shards, unsigned long long* scratch, long long* out,
+           cudaStream_t stream) {
+  const size_t smem =
+      (kStaged ? (size_t)b.n_leaves * tile * sizeof(uint4) : 0) +
+      (size_t)b.K * 2 * sizeof(int) +
+      (kStaged ? (size_t)b.n_leaves * 2 * sizeof(int) : 0);
+  static size_t allowed = 48 * 1024;  // the default, per instantiation
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        count_batch_tree_kernel<U, kStaged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = smem;
+  }
+  const int tiles = (b.w4 + tile - 1) / tile;
+  // About eight CTAs per SM in all, at least one per shard.
+  int per_shard = (n_sms() * 8 + n_shards - 1) / n_shards;
+  if (per_shard > tiles) per_shard = tiles;
+  if (per_shard < 1) per_shard = 1;
+  const dim3 grid(per_shard, n_shards);
+  count_batch_tree_kernel<U, kStaged><<<grid, kThreads, smem, stream>>>(
+      b, tile, tiles, out_index, k_out, scratch, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// leaves: device uint64[n_leaves] row addresses.  qinfo: device
+// int32[K][4].  ops: device int32 programs.  masks: device
+// uint32[n masks][ceil(S / 32)].  out_index: device int32[k_out], or null
+// for out[i] = total of query i (k_out = K).  scratch: device
+// uint64[kMaxQueries + 1], zero (each launch leaves it zero).  out: device
+// int64[k_out], written whole.  Returns the cudaError_t of the launch.
+extern "C" int count_batch_tree(const void* leaves, int n_leaves,
+                                const void* qinfo, int K, const void* ops,
+                                const void* masks, const void* out_index,
+                                int k_out, int n_shards, int words,
+                                void* scratch, void* out, void* stream) {
+  if (K < 1 || K > kMaxQueries || n_leaves < 0 || n_leaves > kMaxLeaves ||
+      k_out < 1 || n_shards < 0 || n_shards > 65535 || words <= 0 ||
+      words % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n_shards == 0)  // no CTA would write the (zero) totals
+    return (int)cudaMemsetAsync(out, 0, (size_t)k_out * sizeof(long long), st);
+  Batch b;
+  b.leaves = (const unsigned long long*)leaves;
+  b.qinfo = (const int4*)qinfo;
+  b.ops = (const int*)ops;
+  b.masks = (const unsigned int*)masks;
+  b.n_leaves = n_leaves;
+  b.K = K;
+  b.s32 = (n_shards + 31) / 32;
+  b.w4 = words / 4;
+  // The widest tile (a power of two, at most kDirectTile) whose words of
+  // every leaf row fit the stage.
+  int tile = kDirectTile;
+  while (tile >= 32 && (long long)n_leaves * tile * 16 > kStageBytes) tile >>= 1;
+  unsigned long long* sc = (unsigned long long*)scratch;
+  long long* o = (long long*)out;
+  const int* fan = (const int*)out_index;
+  if (tile >= 128) return launch<4, true>(b, tile, fan, k_out, n_shards, sc, o, st);
+  if (tile >= 32) return launch<1, true>(b, tile, fan, k_out, n_shards, sc, o, st);
+  return launch<4, false>(b, kDirectTile, fan, k_out, n_shards, sc, o, st);
+}

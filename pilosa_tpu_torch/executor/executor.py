@@ -10,7 +10,13 @@ The port of the Count slice of ``pilosa_tpu/executor/executor.py``
   with no device work (the O(1) lane); any other tree runs as one fused
   device count through ``TorchEngine.count``.  Only
   ``UnsupportedLowering`` sends a Count to the host lane instead, so a
-  kernel fault is never hidden behind a fallback.
+  kernel fault is never hidden behind a fallback.  A run of two or more
+  CONSECUTIVE Counts in one query is one ``TorchEngine.count_many`` (one
+  K5 launch); a write between two Counts ends the run, so the second sees
+  it.
+- ``execute_async`` (all-Count queries): every Count is answered by the
+  O(1) lane or queued into the engine's batcher, and a future
+  (``_QueryFuture``) comes back without waiting for the card.
 - The host bitmap lane evaluates Row/Union/Intersect/Difference/Xor/Not
   per shard on the fragments' row mirrors and merges the per-shard rows.
 - TopN (executor.go :694-828): with an engine, one fused device TopN
@@ -20,8 +26,8 @@ The port of the Count slice of ``pilosa_tpu/executor/executor.py``
   composition: phase-1 scores for every shard in one device launch
   (``topn_scores``), the per-shard heap walk of ``Fragment.top`` on the
   host, then the exact phase-2 recount of the merged ids.  Without an
-  engine every shard runs ``Fragment.top(src=...)``.  Single node: no
-  result memo, batcher or singleflight yet.
+  engine every shard runs ``Fragment.top(src=...)``.  Identical
+  concurrent fused TopNs collapse into one launch (``SingleFlight``).
 - Set/Clear write single bits (and the existence bit).
 
 Every other call raises NotImplementedError naming the ROADMAP.md queue
@@ -37,11 +43,13 @@ from typing import Dict, List, Optional, Tuple
 
 from .. import pql
 from ..core import cache as cache_mod
+from ..core import fragment as frag_mod
 from ..core.field import FIELD_TYPE_BOOL, FIELD_TYPE_INT
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.row import Row
 from ..core.view import VIEW_STANDARD
 from ..parallel.engine import UnsupportedLowering
+from ..parallel.singleflight import SingleFlight
 from ..pql import Call, Condition, Query
 
 TIME_FORMAT = "%Y-%m-%dT%H:%M"  # pilosa.TimeFormat
@@ -113,6 +121,107 @@ def _call_cacheable(c: Call) -> bool:
     return all(_call_cacheable(ch) for ch in c.children)
 
 
+class _QueryFuture:
+    """Future of a deferred all-Count query (``Executor.execute_async``),
+    a port of ``pilosa_tpu/executor/executor.py:350 _QueryFuture``: it
+    resolves to a QueryResponse once every batched item lands.  On ANY
+    item error it re-executes the query synchronously on a fresh thread
+    (``_fallback``): the sync path has per-call lanes the pipeline skips
+    (the host lane for a tree that does not lower), so an async error
+    converges to the sync answer instead of surfacing an error the sync
+    path would not have raised.  Each such re-execution counts in
+    ``Executor.async_fallbacks``, so that it never hides a kernel fault:
+    a run that expects none checks the count.  The thread is fresh, never
+    a collect worker, whose pool resolves other batches."""
+
+    __slots__ = ("_executor", "_index", "_query", "_shards", "_slots", "_items", "_event",
+                 "_response", "_error", "_callbacks", "_cb_lock", "_draining", "_pending",
+                 "_lock")
+
+    def __init__(self, executor, index, query, shards, slots, items):
+        self._executor = executor
+        self._index = index
+        self._query = query
+        self._shards = shards
+        self._slots = slots
+        self._items = items  # [(result slot, batcher _Item), ...]
+        self._event = threading.Event()
+        self._response: Optional[QueryResponse] = None
+        self._error: Optional[BaseException] = None
+        self._callbacks: list = []
+        self._cb_lock = threading.Lock()
+        self._draining = False
+        self._pending = len(items)
+        self._lock = threading.Lock()
+        if not items:
+            self._finish_ok()  # every call hit the O(1) lane
+        else:
+            for _k, it in items:
+                it.add_done_callback(self._item_done)
+
+    def _item_done(self, _item):
+        with self._lock:
+            self._pending -= 1
+            if self._pending > 0:
+                return
+        if any(it.error is not None for _k, it in self._items):
+            threading.Thread(target=self._fallback, daemon=True, name="query-fallback").start()
+            return
+        for k, it in self._items:
+            self._slots[k] = it.result
+        self._finish_ok()
+
+    def _finish_ok(self):
+        self._response = QueryResponse(list(self._slots))
+        self._resolve()
+
+    def _fallback(self):
+        with self._executor._fallback_lock:
+            self._executor.async_fallbacks += 1
+        try:
+            self._response = self._executor.execute(self._index, self._query, self._shards)
+        except BaseException as e:  # noqa: BLE001
+            self._error = e
+        self._resolve()
+
+    def _resolve(self):
+        self._event.set()
+        # FIFO drain under _cb_lock: registration order is completion
+        # order.  ``_draining`` keeps a late registrant from running ahead
+        # of an earlier callback still running on this thread; callbacks
+        # run outside the lock.
+        while True:
+            with self._cb_lock:
+                if not self._callbacks:
+                    self._draining = False
+                    break
+                self._draining = True
+                fn = self._callbacks.pop(0)
+            try:
+                fn(self)
+            except Exception:  # noqa: BLE001
+                pass
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def add_done_callback(self, fn):
+        """Run ``fn(self)`` on resolution: at once when resolved and fully
+        drained, else behind the callbacks registered before it."""
+        with self._cb_lock:
+            if not self._event.is_set() or self._draining:
+                self._callbacks.append(fn)
+                return
+        fn(self)
+
+    def result(self, timeout: Optional[float] = None) -> QueryResponse:
+        if not self._event.wait(timeout if timeout is not None else 310.0):
+            raise Error("deferred query timed out (pipeline wedged?)")
+        if self._error is not None:
+            raise self._error
+        return self._response
+
+
 class Executor:
     """Single-node query executor over a Holder and, optionally, a
     ``TorchEngine`` for the fused Count lane."""
@@ -127,6 +236,12 @@ class Executor:
         self._parse_lock = threading.Lock()
         # index -> (shard_epoch, default shard list).
         self._default: Dict[str, Tuple[int, List[int]]] = {}
+        # Identical concurrent TopNs collapse into one launch.
+        self._sflight = SingleFlight()
+        # Deferred queries re-executed synchronously after an item error
+        # (_QueryFuture._fallback).
+        self.async_fallbacks = 0
+        self._fallback_lock = threading.Lock()
 
     def _parse_cached(self, s: str) -> Query:
         with self._parse_lock:
@@ -156,9 +271,98 @@ class Executor:
         needs = any(c.name not in _WRITE_CALLS for c in query.calls)
         if not shards and needs:
             shards = self._default_shards(index) or [0]
-        return QueryResponse(
-            [self._execute_call(index, c, shards) for c in query.calls]
-        )
+        return QueryResponse(self._execute_calls(index, query.calls, shards))
+
+    def _execute_calls(self, index, calls, shards) -> list:
+        """Each call in order; a run of CONSECUTIVE Counts is one batched
+        dispatch (executor.py:822-858).  Consecutive only: a write between
+        two Counts must be visible to the second."""
+        results: list = []
+        i, n = 0, len(calls)
+        while i < n:
+            if calls[i].name == "Count" and self.engine is not None:
+                j = i
+                while j < n and calls[j].name == "Count":
+                    j += 1
+                if j - i >= 2:
+                    batch = self._mesh_count_many(index, calls[i:j], shards)
+                    if batch is None:
+                        # The run declined as a whole: each call once.
+                        batch = [self._execute_call(index, c, shards) for c in calls[i:j]]
+                    results.extend(batch)
+                    i = j
+                    continue
+            results.append(self._execute_call(index, calls[i], shards))
+            i += 1
+        return results
+
+    # -- deferred execution (executor.py:587-697) ----------------------------
+
+    def execute_async(self, index: str, query, shards: Optional[List[int]] = None):
+        """Deferred execution of an all-Count query: every Count is
+        answered by the O(1) lane or queued into the engine's batcher, and
+        a future (``result``/``add_done_callback``) comes back without
+        waiting for the card.  None when the query is not eligible: the
+        caller runs ``execute``."""
+        eng = self.engine
+        if eng is None:
+            return None
+        try:
+            if isinstance(query, str):
+                query = self._parse_cached(query)
+        except Exception:  # noqa: BLE001 — the sync path surfaces the error
+            return None
+        calls = query.calls
+        if not calls or any(c.name != "Count" or len(c.children) != 1 for c in calls):
+            return None
+        if not index or self.holder.index(index) is None:
+            return None  # the sync path raises
+        try:
+            if not shards:
+                shards = self._default_shards(index) or [0]
+            children = [c.children[0] for c in calls]
+            if not all(eng.lowerable(ch) for ch in children):
+                return None
+            # Two passes: every O(1)-lane answer FIRST, so that a surprise
+            # in this host pass goes to the sync path with NO batcher item
+            # queued (bailing after a queue append would run the query
+            # twice).  The second pass only appends.
+            slots: list = [self._count_from_cardinalities(index, ch, shards)
+                           for ch in children]
+        except Exception:  # noqa: BLE001 — any surprise: the sync path decides
+            return None
+        items = [(k, eng.batched_count_async(index, ch, shards))
+                 for k, ch in enumerate(children) if slots[k] is None]
+        return _QueryFuture(self, index, query, shards, slots, items)
+
+    def memo_counts(self, index: str, query: str):
+        """The counts of ``query`` when EVERY top-level Count hits the
+        engine's result memo over the index's full shard set, else None
+        (the caller runs the deferred path).  A repeat dashboard query is
+        answered with a parse-cache hit and memo lookups, nothing else.
+        Correct as the batcher's memo lane is: the key carries the version
+        token of every view the tree reads."""
+        eng = self.engine
+        if eng is None:
+            return None
+        try:
+            q = self._parse_cached(query)
+            calls = q.calls
+            if not calls or any(c.name != "Count" or len(c.children) != 1 for c in calls):
+                return None
+            shards = self._default_shards(index) or [0]
+            out = []
+            for c in calls:
+                key = eng._memo_key(index, c.children[0], shards)
+                if key is None:
+                    return None
+                v = eng.result_memo.get(key)
+                if v is None:
+                    return None
+                out.append(int(v))
+        except Exception:  # noqa: BLE001 — any surprise: the full path decides
+            return None
+        return out
 
     def _default_shards(self, index: str) -> List[int]:
         """The index's available-shard list, cached behind its shard epoch."""
@@ -307,6 +511,34 @@ class Executor:
                 total += frag.row_count(row_val)
         return total
 
+    def _mesh_count_many(self, index, calls, shards):
+        """A run of consecutive Count() calls as ONE batched dispatch
+        (``TorchEngine.count_many``); O(1)-lane answers are peeled off
+        first.  The counts in call order, or None to run the calls one by
+        one (a tree with no device lowering)."""
+        children = []
+        for c in calls:
+            if len(c.children) != 1 or not self.engine.lowerable(c.children[0]):
+                return None
+            children.append(c.children[0])
+        results: list = [None] * len(children)
+        rem_idx, rem_calls = [], []
+        for k, ch in enumerate(children):
+            fast = self._count_from_cardinalities(index, ch, shards)
+            if fast is not None:
+                results[k] = fast
+            else:
+                rem_idx.append(k)
+                rem_calls.append(ch)
+        if rem_calls:
+            try:
+                counts = self.engine.count_many(index, rem_calls, [list(shards)] * len(rem_calls))
+            except UnsupportedLowering:
+                return None
+            for k, v in zip(rem_idx, counts):
+                results[k] = v
+        return results
+
     def _mesh_count(self, index, child: Call, shards):
         """Fused Count through the engine, or None when the tree has no
         device lowering."""
@@ -377,13 +609,21 @@ class Executor:
             return self.engine.topn_cache_only(
                 index, field_name, shards, n, min_threshold, row_ids or None
             )
+        # The write sequence before any derived state: a caller whose own
+        # write completed never joins a flight computed before it.
+        seq = frag_mod.WRITE_SEQ.v
         try:
-            return self.engine.topn_full(
-                index, field_name, c.children[0], shards, n, min_threshold,
-                row_ids or None,
+            out = self._sflight.do(
+                ("topn", seq, index, str(c), tuple(sorted(shards))),
+                lambda: self.engine.topn_full(
+                    index, field_name, c.children[0], shards, n, min_threshold,
+                    row_ids or None,
+                ),
             )
         except UnsupportedLowering:
             return None
+        # A copy: the flight's waiters share one list.
+        return list(out) if isinstance(out, list) else out
 
     def _execute_topn_shards(self, index, c: Call, shards):
         fused = self._mesh_topn_shards(index, c, shards)

@@ -32,7 +32,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("count_tree_dense", "count_tree_blocks", "score_rows", "and_popcount_rows")
+KERNELS = ("count_tree_dense", "count_tree_blocks", "score_rows", "and_popcount_rows",
+           "count_batch_tree")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

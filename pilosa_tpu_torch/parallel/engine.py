@@ -33,8 +33,18 @@ tensor, with the exact block occupancy beside them.  A stack is rebuilt
 whole (``stack_rebuilds``) only when its shape or sources changed: a new
 row, a replaced or removed fragment, a new shard axis, or a storage load
 past the sync point.  ``IngestSyncer`` runs the same sync off the query
-path after bulk imports.  Partial residency, the block pool, the batcher
-and the result memo are later slices (ROADMAP.md Queue 1).
+path after bulk imports.
+
+Serving (``count_many``, the result memo, ``batcher()``): K Counts run as
+one K5 launch (``kernels.count_batch_tree``) with one readback; identical
+(query, shard set) entries of a batch are evaluated once and fanned back
+out; a batch that dedups to one query takes the scalar path above (K1, or
+K2 through the sparse plan).  The result memo answers a repeat of a
+(query, shard set) against unchanged views with no launch at all: its key
+carries the version token of every view the tree reads, so a write
+re-keys its readers.  ``CountBatcher`` (``batcher.py``) drains concurrent
+Counts into ``count_many_async``.  Partial residency and the block pool
+are later slices (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -56,6 +66,12 @@ from ..pql import Call
 from . import kernels
 from . import sparse as sparse_mod
 from .mesh import host_stack, put_stack, resolve_device, shard_mask
+
+# count()/count_async()'s "the caller probed the memo already" default.
+_MEMO_UNSET = object()
+
+# Result-memo capacity (entries); ``result_memo.maxsize = 0`` turns it off.
+DEFAULT_RESULT_MEMO = 4096
 
 
 class UnsupportedLowering(Exception):
@@ -126,6 +142,77 @@ class _Lowering:
             self.mats.append(stack.matrix)
             self.stacks.append(stack)
         return i
+
+
+class _ResultMemo:
+    """Bounded LRU of Count results keyed by (index, query text, shard
+    set, version tokens) — ``TorchEngine._memo_key``; a copy of
+    ``pilosa_tpu/parallel/engine.py:412 _ResultMemo``.
+
+    The version tokens ARE the invalidation: every fragment write bumps
+    its view's version, a key computed after the write carries the new
+    token and simply misses, and the stale entry ages out of the LRU.  No
+    write-path hook and no sweep: a stale hit after a write cannot happen
+    rather than being merely tested for.
+
+    Values are host ints (stored by ``count`` and the batcher's collect
+    stage) or 0-d device tensors (stored by ``count_async`` before any
+    readback); both satisfy ``int()``."""
+
+    __slots__ = ("maxsize", "_od", "_lock", "hits", "misses", "_sig_tokens")
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        self._od: "OrderedDict" = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        # (index, query, shards) -> last-stored version-token tuple: WHY a
+        # memo missed (``miss_reason``), bounded like the entries.
+        self._sig_tokens: "OrderedDict" = OrderedDict()
+
+    def get(self, key):
+        if self.maxsize <= 0 or key is None:
+            return None
+        with self._lock:
+            v = self._od.get(key)
+            if v is None:
+                self.misses += 1
+                return None
+            self._od.move_to_end(key)
+            self.hits += 1
+            return v
+
+    def put(self, key, value):
+        if self.maxsize <= 0 or key is None or value is None:
+            return
+        with self._lock:
+            self._od[key] = value
+            self._od.move_to_end(key)
+            self._sig_tokens[key[:3]] = key[3]
+            self._sig_tokens.move_to_end(key[:3])
+            while len(self._od) > self.maxsize:
+                self._od.popitem(last=False)
+            while len(self._sig_tokens) > self.maxsize:
+                self._sig_tokens.popitem(last=False)
+
+    def miss_reason(self, key) -> str:
+        """Why a key missed: the same (index, query, shards) stored under
+        DIFFERENT tokens means a write advanced a version token since;
+        the same tokens mean the entry was evicted; an unseen signature is
+        cold."""
+        if key is None:
+            return "ineligible"
+        with self._lock:
+            toks = self._sig_tokens.get(key[:3])
+        if toks is None:
+            return "first_seen"
+        return "evicted" if toks == key[3] else "version_token_advanced"
+
+    def clear(self):
+        with self._lock:
+            self._od.clear()
+            self._sig_tokens.clear()
 
 
 class _TopNCandidates:
@@ -289,6 +376,18 @@ class TorchEngine:
         # (index, field) -> (stack token, _TopNCandidates): the cache-fed
         # TopN candidate build, rebuilt when the stack's token moves.
         self._topn_cands: Dict[Tuple[str, str], tuple] = {}
+        # Versioned result memo (_ResultMemo) and the memo-key signature
+        # cache: id(call) -> [call, query text, fields, referenced bit].
+        self.result_memo = _ResultMemo(DEFAULT_RESULT_MEMO)
+        self._memo_sig_cache: Dict[int, list] = {}
+        self._memo_sig_lock = threading.Lock()
+        # The cross-request micro-batcher (batcher.py), made at first use.
+        self._batcher = None
+        self._batcher_lock = threading.Lock()
+        # K5 launches of count_many, and batch entries answered by
+        # another entry of the same batch (batch CSE).
+        self.batch_dispatches = 0
+        self.batch_cse_deduped = 0
 
     # -- canonical shard axis ---------------------------------------------
 
@@ -334,7 +433,7 @@ class TorchEngine:
             view_obj = self.holder.view(index, field, view)
             token = (
                 self.holder.shard_epoch(index),
-                id(view_obj),
+                0 if view_obj is None else view_obj.gen,
                 -1 if view_obj is None else view_obj.version,
             )
             cached = self._stacks.get(key)
@@ -576,15 +675,21 @@ class TorchEngine:
             return self._ingest_syncer
 
     def close(self):
-        """Stop the ingest worker and drop every cached device buffer.
-        A closed engine still serves: its caches rebuild."""
+        """Stop the ingest worker and the batcher, and drop every cached
+        device buffer and memo entry.  A closed engine still serves: its
+        caches (and a batcher) rebuild."""
         syncer, self._ingest_syncer = self._ingest_syncer, None
         if syncer is not None:
             syncer.close()
+        with self._batcher_lock:
+            batcher, self._batcher = self._batcher, None
+        if batcher is not None:
+            batcher.stop()
         with self._stacks_lock:
             self._stacks.clear()
             self._masks.clear()
             self._topn_cands.clear()
+            self.result_memo.clear()
 
     # -- call-tree lowering -------------------------------------------------
 
@@ -637,17 +742,165 @@ class TorchEngine:
 
     # -- fused evaluation ---------------------------------------------------
 
-    def count(self, index: str, c: Call, shards: List[int]) -> int:
-        """Count(tree): one kernel launch, one readback."""
-        return int(self.count_async(index, c, shards))
+    def count(self, index: str, c: Call, shards: List[int], memo_key=_MEMO_UNSET) -> int:
+        """Count(tree): one kernel launch and one readback, or a result-memo
+        hit with neither.  ``memo_key`` hands through the key of a caller
+        that probed the memo already (the batcher's direct path)."""
+        key, hit = self._memo_lookup(index, c, shards, memo_key)
+        if hit is not None:
+            return int(hit)
+        canonical = self.canonical_shards(index)
+        if not canonical:
+            return 0
+        v = int(self._dispatch_count(index, c, shards, canonical))
+        self.result_memo.put(key, v)
+        return v
 
-    def count_async(self, index: str, c: Call, shards: List[int]) -> torch.Tensor:
+    def count_async(self, index: str, c: Call, shards: List[int],
+                    memo_key=_MEMO_UNSET) -> torch.Tensor:
         """Count(tree) as a 0-d int64 device tensor, without waiting for
-        the device."""
+        the device.  A repeat of this (query, shards) against unchanged
+        views is answered from the result memo with no launch; the memo
+        keeps the device scalar itself, so a later hit hands the same
+        tensor back."""
+        key, hit = self._memo_lookup(index, c, shards, memo_key)
+        if hit is not None:
+            if isinstance(hit, torch.Tensor):
+                return hit
+            return torch.tensor(int(hit), dtype=torch.int64, device=self.device)
         canonical = self.canonical_shards(index)
         if not canonical:
             return torch.zeros((), dtype=torch.int64, device=self.device)
-        return self._dispatch_count(index, c, shards, canonical)
+        dev = self._dispatch_count(index, c, shards, canonical)
+        self.result_memo.put(key, dev)
+        return dev
+
+    def _memo_lookup(self, index, c, shards, memo_key):
+        """(key, hit-or-None): ``memo_probe``, unless the caller probed
+        already and passed its key (a known miss)."""
+        if memo_key is not _MEMO_UNSET:
+            return memo_key, None
+        return self.memo_probe(index, c, shards)
+
+    # -- result memo (pilosa_tpu/parallel/engine.py:2695-2830) -------------
+    #
+    # The reference also probes its repair layer on a miss
+    # (``self.repairs.probe``, engine.py:2678 and :2825), which answers a
+    # repeat after a write from the write's delta; that layer is ROADMAP.md
+    # Queue 1 item 13, and until it lands a miss dispatches.
+
+    # Call names whose referenced fields _collect_fields can enumerate:
+    # what the engine lowers (lowerable), so every fused Count is eligible.
+    _MEMO_CALLS = frozenset(("Row", "Union", "Intersect", "Difference", "Xor", "Not"))
+
+    def _collect_fields(self, c: Call, out=None):
+        """Every field a tree reads, or None when the tree has a shape the
+        walk does not understand (no memo then: correctness first)."""
+        if out is None:
+            out = set()
+        if c.name not in self._MEMO_CALLS:
+            return None
+        if c.name == "Row":
+            try:
+                out.add(c.field_arg())
+            except ValueError:
+                return None
+        if c.name == "Not":
+            out.add(EXISTENCE_FIELD_NAME)
+        for ch in c.children:
+            if self._collect_fields(ch, out) is None:
+                return None
+        return out
+
+    def _memo_key(self, index: str, c: Call, shards):
+        """Result-memo key: (index, query text, shard set, version tokens
+        of EVERY view of every referenced field).  The tokens mirror the
+        stack token of ``field_stack`` — (shard epoch, view generation,
+        view version) — so any write that would stale a resident stack
+        also stales every memo entry over it, at no write-path cost.  None
+        when the tree is not walkable or the memo is off."""
+        if self.result_memo.maxsize <= 0:
+            return None
+        ent = self._memo_sig_cache.get(id(c))
+        if ent is not None and ent[0] is c:
+            ent[3] = True  # second-chance reference bit (GIL-atomic)
+            qstr, fields = ent[1], ent[2]
+        else:
+            fields = self._collect_fields(c)
+            if fields is None:
+                return None
+            qstr = str(c)
+            self._memo_sig_insert(c, qstr, fields)
+        toks = self.memo_tokens(index, fields)
+        if toks is None:
+            return None
+        return (index, qstr, tuple(sorted(set(shards))), toks)
+
+    _SIG_CACHE_MAX = 1024
+
+    def _memo_sig_insert(self, c, qstr, fields):
+        """Admit a tree signature under second-chance eviction: a full
+        cache evicts the oldest UNREFERENCED half and clears the
+        survivors' reference bits, so a hot repeat keeps its entry."""
+        with self._memo_sig_lock:
+            cache = self._memo_sig_cache
+            if len(cache) >= self._SIG_CACHE_MAX:
+                need = self._SIG_CACHE_MAX // 2
+                survivors: Dict[int, list] = {}
+                evicted = 0
+                for k, ent in cache.items():
+                    if evicted < need and not ent[3]:
+                        evicted += 1
+                        continue
+                    ent[3] = False
+                    survivors[k] = ent
+                if evicted < need:
+                    # Everything was referenced: drop the oldest anyway.
+                    for k in list(survivors)[: need - evicted]:
+                        del survivors[k]
+                self._memo_sig_cache = survivors
+            self._memo_sig_cache[id(c)] = [c, qstr, fields, False]
+
+    def memo_tokens(self, index: str, fields):
+        """Version tokens over every view of ``fields``: the index's shard
+        epoch, then (field, view, generation, version) per view.  None when
+        the index is unknown or a concurrent writer grew a view dict
+        mid-walk."""
+        idx_obj = self.holder.index(index)
+        if idx_obj is None:
+            return None
+        toks: list = [self.holder.shard_epoch(index)]
+        try:
+            for fname in sorted(fields):
+                f = idx_obj.field(fname)
+                if f is None:
+                    toks.append((fname, None))
+                    continue
+                for vname in sorted(f.views):
+                    v = f.views[vname]
+                    toks.append((fname, vname, v.gen, v.version))
+        except RuntimeError:
+            # A first write to a new view grew the dict mid-walk: skip the
+            # memo for this query rather than fail the read.
+            return None
+        return tuple(toks)
+
+    def memo_probe(self, index: str, c: Call, shards):
+        """(key, value-or-None) for the batcher's submit fast path: a hit
+        answers the Count before it touches the queue or the card.  The
+        key goes back to the caller so that the eventual result is stored
+        under the tokens read AT SUBMIT TIME: a write landing mid-flight
+        keys its readers to new tokens, so the entry can only be served to
+        queries that began before the write."""
+        key = self._memo_key(index, c, shards)
+        if key is None:
+            return None, None
+        return key, self.result_memo.get(key)
+
+    def memo_store(self, key, value, call=None):
+        """Store a result under a key from ``memo_probe``.  (``call`` is
+        the reference's repair-layer registration, Queue 1 item 13.)"""
+        self.result_memo.put(key, value)
 
     def _dispatch_count(self, index, c, shards, canonical):
         with self._stacks_lock:
@@ -724,6 +977,128 @@ class TorchEngine:
             return None
         skipped = n_leaves * (denom - total_blocks) * bitops.OCC_BLOCK_WORDS * 4
         return occ.view(np.int64), skipped
+
+    # -- batched Counts (pilosa_tpu/parallel/engine.py:3246-3386, 3719-3865)
+
+    _LOWERABLE = frozenset(("Row", "Union", "Intersect", "Difference", "Xor", "Not"))
+
+    def lowerable(self, c: Call) -> bool:
+        """Static pre-screen: every call name in the tree has a lowering.
+        Argument errors (a missing row id, an unknown field) still surface
+        at lowering; this keeps plainly host-lane calls out of batches."""
+        if c.name not in self._LOWERABLE:
+            return False
+        return all(self.lowerable(ch) for ch in c.children)
+
+    def count_many(self, index: str, calls, shards_list) -> List[int]:
+        """K Count(tree) queries in one K5 launch and one readback;
+        ``shards_list[i]`` is query i's requested shard subset."""
+        return [int(v) for v in self.count_many_async(index, calls, shards_list).tolist()]
+
+    def count_many_async(self, index: str, calls, shards_list) -> torch.Tensor:
+        """``count_many`` as an int64[K] device tensor, without waiting for
+        the device.  (The reference's multi-process replay of the batch,
+        ``_collective``, is ROADMAP.md Queue 1 item 15.)"""
+        if not calls:
+            return torch.zeros(0, dtype=torch.int64, device=self.device)
+        canonical = self.canonical_shards(index)
+        if not canonical:
+            return torch.zeros(len(calls), dtype=torch.int64, device=self.device)
+        return self._dispatch_count_batch(index, calls, shards_list, canonical)
+
+    def _dispatch_count_batch(self, index, calls, shards_list, canonical):
+        # Batch CSE: identical (query text, shard set) entries — repeated
+        # dashboards and pollers make them the common case — lower once
+        # and K5 fans the answer back out to every caller slot.
+        uniq: Dict[tuple, int] = {}
+        mapping: List[int] = []
+        u_calls: list = []
+        u_shards: list = []
+        for c, shards in zip(calls, shards_list):
+            k = (str(c), tuple(shards))
+            j = uniq.get(k)
+            if j is None:
+                j = uniq[k] = len(u_calls)
+                u_calls.append(c)
+                u_shards.append(shards)
+            mapping.append(j)
+        deduped = len(calls) - len(u_calls)
+        self.batch_cse_deduped += deduped
+        if len(u_calls) == 1:
+            # One unique query takes the scalar path: K1, or K2 where the
+            # sparse plan applies (K5 is dense by construction).
+            dev = self._dispatch_count(index, u_calls[0], u_shards[0], canonical)
+            return dev.reshape(1).expand(len(calls))
+        with self._stacks_lock:
+            lw = _Lowering(self, canonical)
+            progs = []
+            for c in u_calls:
+                prog = self._lower(index, c, lw)
+                if not kernels.fits(prog):
+                    raise UnsupportedLowering("count tree exceeds the kernels' limits")
+                progs.append(prog)
+            masks, mask_ids = self._mask_table(u_shards, canonical)
+            groups = kernels.batch_groups(progs)
+            self.batch_dispatches += len(groups)
+            self.last_path = "batch"
+            fan = mapping if deduped else None
+            if len(groups) == 1:
+                return self._reading(lw.stacks, lambda: kernels.count_batch_tree(
+                    progs, lw.mats, masks, mask_ids, self.device, fan))
+            # Past one launch's query or leaf-table limit: one launch per
+            # group, then the fan-out over their concatenation.
+            out = torch.cat([
+                self._reading(lw.stacks, lambda a=a, b=b: kernels.count_batch_tree(
+                    progs[a:b], lw.mats, masks, mask_ids[a:b], self.device))
+                for a, b in groups])
+            if fan is not None:
+                out = out[torch.as_tensor(fan, dtype=torch.int64).to(self.device)]
+            return out
+
+    def _mask_table(self, shard_lists, canonical):
+        """(bool[M, S] distinct requested-shard masks over the canonical
+        axis, mask id per query)."""
+        canon = np.asarray(canonical, dtype=np.int64)
+        ids: Dict[tuple, int] = {}
+        rows: List[np.ndarray] = []
+        mask_ids = []
+        for shards in shard_lists:
+            k = tuple(shards)
+            i = ids.get(k)
+            if i is None:
+                i = ids[k] = len(rows)
+                rows.append(np.isin(canon, np.asarray(k, dtype=np.int64)))
+            mask_ids.append(i)
+        return np.stack(rows), mask_ids
+
+    def batcher(self):
+        """The cross-request micro-batcher (``batcher.py``), made at first
+        use."""
+        if self._batcher is None:
+            with self._batcher_lock:
+                if self._batcher is None:
+                    from .batcher import CountBatcher
+
+                    self._batcher = CountBatcher(self)
+        return self._batcher
+
+    def batched_count(self, index: str, c: Call, shards) -> int:
+        """Count(tree) through the batcher: a lone caller runs the plain
+        path; concurrent callers drain into one K5 launch."""
+        return self.batcher().submit(index, c, shards)
+
+    def batched_count_async(self, index: str, c: Call, shards):
+        """Count(tree) queued into the batcher's bounded pipeline; returns
+        its future (``_Item``: wait/result/error/add_done_callback)
+        without blocking."""
+        return self.batcher().submit_async(index, c, shards)
+
+    def pipeline_snapshot(self):
+        """The batcher's pipeline telemetry (None before the first batched
+        query makes the batcher)."""
+        if self._batcher is None:
+            return None
+        return self._batcher.pipeline_snapshot()
 
     # -- TopN (pilosa_tpu/parallel/engine.py:4102-4565) ---------------------
 

@@ -28,15 +28,22 @@ and wrap K3 ``csrc/score_rows.cu`` the same way: a CUDA tensor launches
 or raises, a CPU tensor takes the plain version.  A full TopN is one K3
 launch: its last block ranks the totals and writes the top n.  P2 ``csrc/and_popcount_rows.cu`` scores one fragment's rows,
 named by index, against one src row (``bitops.popcount_and_rows``).
+
+``count_batch_tree`` (K Counts in one launch, below) compiles a batch of
+trees into one table of distinct leaf rows and one postfix program per
+query (``compile_batch``) and wraps K5 ``csrc/count_batch_tree.cu`` the
+same way.
 """
 
 from __future__ import annotations
 
 import array
 import ctypes
+import functools
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import bitops
@@ -51,19 +58,24 @@ MAX_STACK = 16
 
 class Postfix:
     """A tree compiled for the kernels: opcodes, distinct leaves
-    ``(mat_slot, row)`` in leaf-index order, and the stack depth."""
+    ``(mat_slot, row)`` in leaf-index order, the stack depth, and whether
+    the program has the chain form (``_is_chain``).  Shared by every
+    caller of ``compile_prog`` (it is cached): never mutated."""
 
-    __slots__ = ("ops", "leaves", "depth")
+    __slots__ = ("ops", "leaves", "depth", "chain")
 
     def __init__(self, ops: List[int], leaves: List[Tuple[int, int]], depth: int):
         self.ops = ops
         self.leaves = leaves
         self.depth = depth
+        self.chain = _is_chain(ops)
 
 
+@functools.lru_cache(maxsize=4096)
 def compile_prog(prog) -> Postfix:
-    """Postfix form of a normalized tree.  Raises ValueError on an unknown
-    node or when the program exceeds the kernels' limits."""
+    """Postfix form of a normalized tree, cached per tree: a serving
+    stream repeats its trees, and a batch compiles each one.  Raises
+    ValueError on an unknown node."""
     ops: List[int] = []
     leaf_of: Dict[Tuple[int, int], int] = {}
 
@@ -502,3 +514,223 @@ def topn_full_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
         return out if n_out is None else torch.stack(out)
     return score_rows_cuda(code, mats, mask, cand_mat, cand_idx, scores=False,
                            cnt=cnt, thr=thr, n_out=n_out)[2]
+
+
+# -- K Counts in one launch: K5 count_batch_tree ------------------------------
+#
+# The port of pilosa_tpu/parallel/kernels.py:255 count_batch_tree.  A batch
+# is K normalized trees over one list of field stacks, each with its own
+# requested-shard mask.  ``compile_batch`` gives the batch ONE table of
+# distinct leaf rows (a row read by several queries appears once), one
+# postfix program per query whose leaf opcodes index that table, and one
+# mask id per query into a table of distinct masks.  K5 reads each table
+# row's words of a shard once per launch, whatever the number of queries
+# that read it.  The reference pads batches to fixed tiers so that XLA
+# compiles one program per (structure, tier); K5 takes its programs as
+# data, so no batch is padded and an absent row is a ``("zero",)`` leaf.
+
+# Queries per launch and distinct leaf rows per batch (csrc/count_batch_tree.cu
+# kMaxQueries, kMaxLeaves); the engine splits a larger batch.
+BATCH_MAX = 1024
+MAX_BATCH_LEAVES = 4096
+
+
+class BatchProgram:
+    """A batch compiled for K5: ``leaves`` the distinct (mat_slot, row)
+    leaf rows, ``qinfo`` int32[K, 4] (program offset, program length,
+    mask id, chain form 0/1) and ``ops`` the concatenated postfix
+    programs, whose leaf opcodes carry indices into ``leaves``."""
+
+    __slots__ = ("leaves", "qinfo", "ops")
+
+    def __init__(self, leaves, qinfo, ops):
+        self.leaves = leaves
+        self.qinfo = qinfo
+        self.ops = ops
+
+
+def _leaf_rows(prog, out: set) -> set:
+    if prog[0] == "row":
+        out.add((int(prog[1]), int(prog[2])))
+    elif prog[0] != "zero":
+        for p in prog[1:]:
+            _leaf_rows(p, out)
+    return out
+
+
+def batch_groups(progs) -> List[Tuple[int, int]]:
+    """Cut a batch into consecutive [start, end) groups of at most
+    BATCH_MAX queries and MAX_BATCH_LEAVES distinct leaf rows each: one K5
+    launch per group (one group unless a batch is past either limit)."""
+    groups, start, seen = [], 0, set()
+    for k, prog in enumerate(progs):
+        rows = _leaf_rows(prog, set())
+        if k > start and (k - start >= BATCH_MAX or len(seen | rows) > MAX_BATCH_LEAVES):
+            groups.append((start, k))
+            start, seen = k, set()
+        seen |= rows
+    groups.append((start, len(progs)))
+    return groups
+
+
+def _is_chain(ops: List[int]) -> bool:
+    """The left-deep form ``item (item op)*`` that K1 and K5 evaluate in
+    registers (csrc/tree_eval.cuh is_chain)."""
+    item = lambda code: (code & 0xFF) in (OP_LEAF, OP_ZERO)  # noqa: E731
+    if not ops or len(ops) % 2 == 0 or not item(ops[0]):
+        return False
+    return all(item(ops[pc]) and not item(ops[pc + 1]) for pc in range(1, len(ops), 2))
+
+
+def compile_batch(progs, mask_ids: Sequence[int]) -> BatchProgram:
+    """Compile K normalized trees into one BatchProgram.  Raises
+    ValueError when a query's program exceeds MAX_PROG or MAX_STACK, or
+    the batch exceeds MAX_BATCH_LEAVES distinct leaf rows."""
+    if len(progs) != len(mask_ids):
+        raise ValueError("one mask id per query")
+    table: Dict[Tuple[int, int], int] = {}
+    qinfo = np.zeros((len(progs), 4), dtype=np.int32)
+    ops: List[int] = []
+    for k, prog in enumerate(progs):
+        code = compile_prog(prog)
+        if code.depth > MAX_STACK or len(code.ops) > MAX_PROG:
+            check_prog(Postfix(code.ops, [], code.depth))
+        glob = [table.setdefault(leaf, len(table)) for leaf in code.leaves]
+        qops = [OP_LEAF | (glob[c >> 8] << 8) if (c & 0xFF) == OP_LEAF else c
+                for c in code.ops]
+        qinfo[k] = (len(ops), len(qops), int(mask_ids[k]), int(code.chain))
+        ops.extend(qops)
+    if len(table) > MAX_BATCH_LEAVES:
+        raise ValueError(f"count batch reads {len(table)} distinct leaf rows; "
+                         f"K5 takes {MAX_BATCH_LEAVES}")
+    return BatchProgram(list(table), qinfo, np.asarray(ops or [OP_ZERO], dtype=np.int32))
+
+
+def count_batch_tree_plain(progs, mats: Sequence[torch.Tensor], masks: np.ndarray,
+                           mask_ids: Sequence[int], device,
+                           out_index: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """int64[K] masked popcounts of K trees, ``count_tree_plain`` per query
+    (``masks`` bool[M, S] the distinct requested-shard masks, query k
+    reading row ``mask_ids[k]``); with ``out_index`` the answers fanned out
+    as ``result[out_index]``.  The CPU path and the reference K5 is held
+    against."""
+    dev_masks = torch.from_numpy(np.ascontiguousarray(masks, dtype=np.int32)).to(device)
+    out = torch.zeros(len(progs), dtype=torch.int64, device=device)
+    for k, prog in enumerate(progs):
+        out[k] = count_tree_plain(prog, mats, dev_masks[int(mask_ids[k])])
+    if out_index is not None:
+        out = out[torch.as_tensor(np.asarray(out_index, dtype=np.int64), device=device)]
+    return out
+
+
+_BATCH_ARGS = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+_batch_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _batch_scratch_for(device: torch.device, stream: int) -> torch.Tensor:
+    """K5's totals scratch (BATCH_MAX int64, then its arrival counter) for
+    one (device, stream), zeroed once; every launch leaves it at zero, and
+    launches on one stream run one after another."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    with _totals_lock:
+        buf = _batch_scratch.get(key)
+        if buf is None:
+            buf = _batch_scratch[key] = torch.zeros(BATCH_MAX + 1, dtype=torch.int64,
+                                                    device=device)
+        return buf
+
+
+def mask_bits(masks: np.ndarray) -> np.ndarray:
+    """K5's mask table: uint32[M, ceil(S / 32)] of bool[M, S] requested-
+    shard masks, bit b of word w of row m set iff shard 32 * w + b of mask
+    m is requested (at least one word per mask)."""
+    M, S = masks.shape
+    bits = np.zeros((M, max(1, -(-S // 32)) * 32), dtype=bool)
+    bits[:, :S] = masks
+    return np.packbits(bits, axis=1, bitorder="little").view("<u4")
+
+
+def _pack(sections) -> Tuple[np.ndarray, List[int]]:
+    """One byte buffer holding each numpy array of ``sections`` at a
+    16-byte aligned offset; returns it and the offsets."""
+    offs, n = [], 0
+    for a in sections:
+        offs.append(n)
+        n += -(-a.nbytes // 16) * 16
+    buf = np.zeros(max(n, 16), dtype=np.uint8)
+    for a, o in zip(sections, offs):
+        buf[o: o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+    return buf, offs
+
+
+def count_batch_tree_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
+                          masks: np.ndarray, device: torch.device,
+                          out_index: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Launch K5 on the card, on the current stream, without waiting for
+    the device: int64[K] (or int64[len(out_index)], answer i being query
+    ``out_index[i]``'s).  The leaf row addresses, programs, masks (one bit
+    per shard) and the fan-out travel in one pinned buffer, uploaded with
+    one non-blocking copy.  PyTorch's caching host allocator keeps the
+    pinned buffer until that copy has run, and its device allocator hands
+    the device copy out again only to work queued after K5 on this stream,
+    so neither is reused while the launch may still read it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("K5 runs on the card")
+    K = batch.qinfo.shape[0]
+    if not 1 <= K <= BATCH_MAX:
+        raise ValueError(f"K5 takes 1 <= K <= {BATCH_MAX} queries, got {K}")
+    masks = np.asarray(masks, dtype=bool)
+    if masks.ndim != 2:
+        raise ValueError("masks must be bool[M, S]")
+    M, S = masks.shape
+    if int(batch.qinfo[:, 2].min()) < 0 or int(batch.qinfo[:, 2].max()) >= M:
+        raise ValueError("mask id outside the mask table")
+    words = check_stacks(mats, S)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if any(mat.device.index != index for mat in mats):
+        raise ValueError("field stacks and the launch disagree on the device")
+    for m, r in batch.leaves:
+        if not 0 <= r < mats[m].shape[0]:
+            raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
+    fan = None if out_index is None else np.asarray(out_index, dtype=np.int32)
+    if fan is not None and fan.size and (int(fan.min()) < 0 or int(fan.max()) >= K):
+        raise ValueError("out_index names a query outside the batch")
+    k_out = K if fan is None else int(fan.size)
+    out = torch.empty(k_out, dtype=torch.int64, device=device)
+    if k_out == 0:
+        return out
+    ptrs = np.asarray([mats[m].data_ptr() + int(r) * mats[m].stride(0) * 4
+                       for m, r in batch.leaves] or [0], dtype=np.uint64)
+    sections = [ptrs, batch.qinfo, batch.ops, mask_bits(masks)]
+    if fan is not None:
+        sections.append(fan)
+    buf, offs = _pack(sections)
+    dev_buf = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
+    base = dev_buf.data_ptr()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = _lib_fn("count_batch_tree", "count_batch_tree", _BATCH_ARGS)
+    err = fn(base + offs[0], len(batch.leaves), base + offs[1], K, base + offs[2],
+             base + offs[3], None if fan is None else base + offs[4], k_out, S, words,
+             _batch_scratch_for(device, stream).data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"count_batch_tree launch failed: cudaError {err}")
+    count_batch_tree_cuda.launches += 1
+    return out
+
+
+count_batch_tree_cuda.launches = 0
+
+
+def count_batch_tree(progs, mats: Sequence[torch.Tensor], masks: np.ndarray,
+                     mask_ids: Sequence[int], device,
+                     out_index: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """K Count(tree) queries in one launch: int64[K] of sum(popcount(tree_k
+    & mask_k)), query k requesting the shards of ``masks[mask_ids[k]]``
+    (``masks`` bool[M, S]); with ``out_index`` the answers fanned out as
+    ``result[out_index]``.  On the card K5 launches or raises; on the CPU
+    the plain version runs."""
+    batch = compile_batch(progs, mask_ids)
+    if torch.device(device).type == "cuda":
+        return count_batch_tree_cuda(batch, mats, masks, device, out_index)
+    return count_batch_tree_plain(progs, mats, masks, mask_ids, device, out_index)

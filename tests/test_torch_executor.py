@@ -102,6 +102,8 @@ def test_write_rebuilds_the_stack_and_kernel_path_counts():
     jh, th = build_twins()
     _, _, port = executors(jh, th)
     eng = port.engine
+    # Every repeat below must reach the kernel path, not the result memo.
+    eng.result_memo.maxsize = 0
     q = "Count(Intersect(Row(d=1), Row(d=2)))"
     results(port, q)
     rebuilds = eng.stack_rebuilds
