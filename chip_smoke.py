@@ -25,8 +25,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    duplicates fanned out, masks of no shard, every shard, one shard and a
    ragged set, leaves of two stacks, 128 and 1024 distinct leaf rows, 37
    shards (two mask words), no shards, launches overlapping on two
-   streams.  Integer results, so they must agree exactly.  --check-only
-   stops here.
+   streams; for the range leaf (in K1, K2 and K3), K6 sum_tree and K7
+   minmax_tree depths 0, 1, 8, 31, 32 and 63, every condition and
+   BETWEEN, predicates 0, 2^31, 2^63 - 1 and drawn ones, adversarial
+   planes, missing planes, one to four range leaves (five refused),
+   filters with and without range leaves, 12 and 31 shards, masks, K2's
+   block words, two streams.  Integer results, so they must agree
+   exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
    field s of 24 rows that each occupy 4 of the 64 occupancy blocks of
@@ -67,6 +72,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    index b10m (10 shards, 128 dense rows): its 32 four-row trees against
    numpy, setops_tree_10M_cols_p50 and setops_tree_single_dispatch_p50,
    and K5 at K = 32 there.
+   bsi — after serve, before phase 5: bench.py's BSI field v (depth 8)
+   and time field t (YMD) on the same index; Sum/Min/Max, Count(Range)
+   for every condition on all shards and a subset, the time-range Counts
+   and a 4-Count query with Ranges (K5 declines those to K1) against a
+   numpy value histogram, the range-leaf, K6, K7, K1 and K5 counters
+   moved and no host-lane fallback; each kernel at the main path's
+   shape against its plain version and its bound; bench.py's
+   sum/min/max_bsi_1B_cols_p50, their _e2e_p50 and timerange_1B_cols_p50;
+   then one Set(col, v=N) and an import_values of 2^20 values, each
+   followed by Sum/Min/Max, the stack synced in place.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -149,31 +164,47 @@ def p50_ms(fn, reps, sync, batch=10):
     return statistics.median(times)
 
 
-def on_card(fn):
+def on_card(fn, expect=None, windows=3):
     """What ``fn()`` ran on the card, from torch.profiler (its CUDA kernel
     and copy times, key_averages): {name: [launches, device ms in all]},
     a kernel's name cut before its argument list.  Raises when the
     profiler saw no kernel, so that no check or time built on it can pass
-    empty."""
+    empty.
+
+    The profiler on the card's machine loses device records now and then:
+    a window's first ones (a scatter's copies and kernel, while the CPU
+    side of the same trace showed them launched; 12 of 192 K1 launches),
+    or all of a short window's.  So each window follows a throwaway
+    session, and where ``expect(seen)`` is false ``fn`` runs again in a
+    new window, ``windows`` times at most: a loss does not repeat, a
+    fault does.  The last window is returned."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    seen = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0].strip()
-        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        acc = seen.setdefault(name, [0, 0.0])
-        acc[0] += e.count
-        acc[1] += us / 1e3
-    if not any(not k.startswith(("Memcpy", "Memset")) for k in seen):
+    scratch = torch.zeros(1024, device="cuda")
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]):
+            for _ in range(8):
+                scratch.add_(1)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0].strip()
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            acc = seen.setdefault(name, [0, 0.0])
+            acc[0] += e.count
+            acc[1] += us / 1e3
+        full = any(not k.startswith(("Memcpy", "Memset")) for k in seen)
+        if full and (expect is None or expect(seen)):
+            break
+    if not full:
         raise AssertionError(f"torch.profiler saw no kernel on the card: {seen}")
     return seen
 
@@ -187,7 +218,8 @@ def device_ms(fn, kernel, windows=5, batch=10):
     """Device time per launch of the kernel whose name contains
     ``kernel``, over ``windows`` runs of ``batch`` calls of ``fn`` back to
     back, from on_card.  Raises when the profiler saw no such launch."""
-    seen = on_card(lambda: [fn() for _ in range(windows * batch)])
+    seen = on_card(lambda: [fn() for _ in range(windows * batch)],
+                   lambda seen: any(kernel in k for k in seen))
     hits = [v for k, v in seen.items() if kernel in k]
     launches, total = sum(n for n, _ in hits), sum(t for _, t in hits)
     if not launches or total <= 0:
@@ -634,6 +666,172 @@ def check_batch_kernel(device, seed):
     return {"count_batch_tree": 0}
 
 
+def _bsi_stack(rng, depth, S, device, extra=2):
+    """int32[depth + 1 + extra, S, W]: BSI planes 0..depth-1, the not-null
+    plane at row depth, then ``extra`` rows of random words.  Adversarial
+    shards: 0 every plane all ones, 1 the sign bit only, 2 every plane zero,
+    3 not-null all ones over random planes, 4 not-null zero."""
+    import torch
+
+    R = depth + 1 + extra
+    words = rng.integers(0, 1 << 32, (R, S, 32768), dtype=np.uint64).astype(np.uint32)
+    words[:, 0] = 0xFFFFFFFF
+    words[:, 1] = 0x80000000
+    words[:, 2] = 0
+    words[depth, 3] = 0xFFFFFFFF
+    words[depth, 4] = 0
+    return torch.from_numpy(words.view(np.int32)).to(device)
+
+
+# Predicates of every range check: 0, 2^31, 2^63 - 1 (only the bits below
+# the depth are walked) and two drawn below 2^depth per depth.
+_BSI_PREDS = (0, 1 << 31, (1 << 63) - 1)
+_BSI_KINDS = ("eq", "neq", "lt", "lte", "gt", "gte", "between")
+
+
+def _range_leaf(kind, planes, lo, hi, slot=0):
+    return ("range", kind, slot, tuple(planes), lo, hi if kind == "between" else 0)
+
+
+def check_bsi_kernels(device, seed):
+    """KR (the range leaf of csrc/tree_eval.cuh, through K1, K2 and K3),
+    K6 sum_tree and K7 minmax_tree against their plain versions, exactly:
+    depths 1, 8, 31, 32 and 63 (and 0 for K6/K7), every kind and BETWEEN,
+    predicates 0, 2^31, 2^63 - 1 and drawn ones, adversarial planes, a
+    missing value plane and a missing not-null plane, chain and
+    interpreter trees with one, two and four range leaves (five are
+    refused), filters with and without range leaves, masked and ragged
+    shards (12, 31), K2's block words, and launches overlapping on two
+    streams.  Returns max |err| of each."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import bsi, kernels, sparse
+
+    rng = np.random.default_rng(seed + 7)
+    err = {"range_leaf": 0, "sum_tree": 0, "minmax_tree": 0}
+    n = 0
+
+    def same(name, key, got, want, what):
+        nonlocal n
+        torch.cuda.synchronize()
+        got = torch.as_tensor(got).reshape(-1)
+        want = torch.as_tensor(want).reshape(-1).to(got.device)
+        err[key] = max(err[key], _exact(name, got, want, what))
+        n += 1
+
+    for S in (12, 31):
+        rows = _adversarial_stack(rng, 4, S, device)
+        masks = [np.ones(S, np.int32), np.zeros(S, np.int32),
+                 (rng.random(S) < 0.5).astype(np.int32)]
+        masks = [torch.from_numpy(m).to(device) for m in masks]
+        cases = _block_word_cases(rng, S)[::3]
+        for depth in ((0, 1, 8, 31, 32, 63) if S == 12 else (8, 63)):
+            st = _bsi_stack(rng, depth, S, device)
+            mats = [st, rows]
+            full = tuple(range(depth + 1))
+            variants = [full]
+            if depth:
+                gap = list(full)
+                gap[depth // 2] = -1  # a value plane the stack lacks
+                nn_gone = list(full)
+                nn_gone[depth] = -1  # no not-null plane: every condition is empty
+                variants += [tuple(gap), tuple(nn_gone)]
+            preds = list(_BSI_PREDS)
+            if depth:
+                preds += [int(x) for x in rng.integers(0, 1 << min(depth, 62), 2)]
+            for planes in variants:
+                for m in masks:
+                    got = bsi.sum_tree_cuda(None, [], m, st, planes)
+                    same("K6", "sum_tree", got, bsi.sum_tree_plain(None, [], m, st, planes),
+                         f"depth {depth} planes {planes[:3]}.. unfiltered")
+                    for is_min in (True, False):
+                        got = bsi.minmax_tree_cuda(None, [], m, st, planes, is_min)
+                        want = bsi.minmax_tree_plain(None, [], m, st, planes, is_min)
+                        same("K7", "minmax_tree", torch.stack(got), torch.stack(want),
+                             f"depth {depth} min={is_min} unfiltered")
+                if not depth:
+                    continue
+                for kind in _BSI_KINDS:
+                    for lo in preds:
+                        hi = preds[int(rng.integers(0, len(preds)))]
+                        leaf = _range_leaf(kind, planes, lo, hi)
+                        leaf2 = _range_leaf(_BSI_KINDS[int(rng.integers(0, 7))], planes,
+                                            preds[int(rng.integers(0, len(preds)))], lo)
+                        progs = [leaf, ("and", ("row", 1, 0), leaf),
+                                 ("or", ("and", ("row", 1, 1), leaf),
+                                  ("andnot", ("row", 1, 2), leaf2))]
+                        for prog in progs:
+                            code = kernels.compile_prog(prog)
+                            m = masks[int(rng.integers(0, 3))]
+                            what = f"depth {depth} {prog[0]} {kind} {lo} {hi} S={S}"
+                            same("KR (K1)", "range_leaf", kernels.count_tree_dense(code, mats, m),
+                                 kernels.count_tree_plain(prog, mats, m), what)
+                        # K2 over block words, K3 scoring against the range.
+                        prog = progs[1]
+                        code = kernels.compile_prog(prog)
+                        _, bits = cases[int(rng.integers(0, len(cases)))]
+                        bb = torch.from_numpy(bits.view(np.int64)).to(device)
+                        same("KR (K2)", "range_leaf", sparse.count_tree_blocks_cuda(code, mats, bb),
+                             sparse.count_tree_blocks_plain(prog, mats, bb), f"{what} blocks")
+                        ci = torch.from_numpy(rng.integers(0, 4, 8).astype(np.int32)).to(device)
+                        m = masks[2]
+                        sc, cn, _ = kernels.score_rows_cuda(code, mats, m, rows, ci, src_counts=True)
+                        ws, wc = kernels.topn_tree_plain(prog, mats, m, rows, ci)
+                        same("KR (K3)", "range_leaf", torch.cat([sc.reshape(-1), cn]),
+                             torch.cat([ws.reshape(-1), wc]), f"{what} scores")
+                        # Sum and Min/Max filtered by a tree with a range leaf.
+                        if kind in ("lt", "between"):
+                            for filt in (prog, ("row", 1, 3), ("zero",)):
+                                m = masks[int(rng.integers(0, 3))]
+                                code = kernels.compile_prog(filt)
+                                same("K6", "sum_tree", bsi.sum_tree_cuda(code, mats, m, st, planes),
+                                     bsi.sum_tree_plain(filt, mats, m, st, planes), f"{what} filtered")
+                                for is_min in (True, False):
+                                    got = bsi.minmax_tree_cuda(code, mats, m, st, planes, is_min)
+                                    want = bsi.minmax_tree_plain(filt, mats, m, st, planes, is_min)
+                                    same("K7", "minmax_tree", torch.stack(got), torch.stack(want),
+                                         f"{what} filtered min={is_min}")
+            # Four range leaves in one tree (the most a tree takes), and five
+            # are refused before launch.
+            if depth:
+                four = ("and",) + tuple(_range_leaf(k, full, int(p), 0) for k, p in
+                                        zip(("gt", "lt", "neq", "gte"), rng.integers(0, 1 << min(depth, 62), 4)))
+                code = kernels.compile_prog(four)
+                same("KR (K1)", "range_leaf", kernels.count_tree_dense(code, mats, masks[0]),
+                     kernels.count_tree_plain(four, mats, masks[0]), f"depth {depth} four range leaves")
+                five = four + (_range_leaf("eq", full, 1, 0),)
+                try:
+                    kernels.count_tree(five, mats, masks[0])
+                except ValueError:
+                    pass
+                else:
+                    raise AssertionError("a tree of five range leaves was launched")
+            del st
+    # Two streams at once: K1 range counts and K6 sums interleaved.
+    st = _bsi_stack(rng, 8, 12, device)
+    rows = _adversarial_stack(rng, 4, 12, device)
+    mask = torch.ones(12, dtype=torch.int32, device=device)
+    side = torch.cuda.Stream(device=device)
+    full = tuple(range(9))
+    torch.cuda.synchronize()
+    pending = []
+    for i in range(16):
+        prog = ("and", ("row", 1, i % 4), _range_leaf(_BSI_KINDS[i % 7], full, 17 * i, 200))
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            code = kernels.compile_prog(prog)
+            pending.append((prog, kernels.count_tree_dense(code, [st, rows], mask),
+                            bsi.sum_tree_cuda(code, [st, rows], mask, st, full)))
+    torch.cuda.synchronize()
+    for prog, cnt, sm in pending:
+        same("KR (K1)", "range_leaf", cnt, kernels.count_tree_plain(prog, [st, rows], mask),
+             f"two streams {prog[2][1]}")
+        same("K6", "sum_tree", sm, bsi.sum_tree_plain(prog, [st, rows], mask, st, full),
+             "two streams")
+    log(f"kernels: {n} comparisons exact (the range leaf in K1, K2 and K3, K6 sum_tree and "
+        "K7 minmax_tree against plain versions)")
+    return err
+
+
 # -- phase 3: the main path --------------------------------------------------
 
 
@@ -935,7 +1133,12 @@ def engine_less_kernels(holder, q, want):
     from pilosa_tpu_torch.executor.executor import Executor
 
     got = []
-    seen = on_card(lambda: got.extend(tuple(p) for p in Executor(holder).execute("bench", q).results[0]))
+
+    def run():
+        got.clear()
+        got.extend(tuple(p) for p in Executor(holder).execute("bench", q).results[0])
+
+    seen = on_card(run, lambda seen: any("and_popcount_rows_kernel" in k for k in seen))
     if got != want:
         raise AssertionError(f"{q} (no engine, profiled): port {got} != numpy oracle {want}")
     log("main path: kernels of one warm engine-less TopN (torch.profiler): "
@@ -950,15 +1153,24 @@ def engine_topn_kernels(ex, q, want):
     K3 launch (its last block trims) and one copy back, nothing else: no
     fill, no trim launch."""
     got = []
-    seen = on_card(lambda: got.extend(tuple(p) for p in ex.execute("bench", q).results[0]))
+    want_seen = {"score_rows_kernel": 1, "Memcpy DtoH": 1}
+
+    def tally(seen):
+        counts = {}
+        for k, (launches, _) in seen.items():
+            tag = next((w for w in want_seen if w in k), k)
+            counts[tag] = counts.get(tag, 0) + launches
+        return counts
+
+    def run():
+        got.clear()
+        got.extend(tuple(p) for p in ex.execute("bench", q).results[0])
+
+    seen = on_card(run, lambda seen: tally(seen) == want_seen)
     if got != want:
         raise AssertionError(f"{q} (profiled): port {got} != numpy oracle {want}")
     log(f"main path: kernels of one warm engine {q} (torch.profiler): " + json.dumps(per_launch(seen)))
-    want_seen = {"score_rows_kernel": 1, "Memcpy DtoH": 1}
-    counts = {}
-    for k, (launches, _) in seen.items():
-        tag = next((w for w in want_seen if w in k), k)
-        counts[tag] = counts.get(tag, 0) + launches
+    counts = tally(seen)
     if counts != want_seen:
         raise AssertionError(f"a warm engine TopN put {counts} on the card, not {want_seen}")
 
@@ -1327,8 +1539,12 @@ def k1_launches_ms(engine, progs, mats, canonical, want, windows=3):
     got = [int(kernels.count_tree_dense(c, mats, mask)) for c in codes]
     if got != want:
         raise AssertionError(f"K1 over K5's trees: {got} != K5's {want}")
+    def k1_count(seen):
+        return sum(n for k, (n, _) in seen.items() if "count_tree_dense_kernel" in k)
+
     seen = on_card(lambda: [kernels.count_tree_dense(c, mats, mask)
-                            for _ in range(windows) for c in codes])
+                            for _ in range(windows) for c in codes],
+                   lambda seen: k1_count(seen) == windows * len(codes))
     hits = [v for k, v in seen.items() if "count_tree_dense_kernel" in k]
     if sum(n for n, _ in hits) != windows * len(codes):
         raise AssertionError(f"torch.profiler saw {hits} K1 launches, not {windows * len(codes)}")
@@ -1658,6 +1874,399 @@ def k5_entry(rows_f, row_b10m, launches, err):
     return e
 
 
+# -- the bsi phase: BSI Sum/Min/Max, Range conditions, time-quantum Range ----
+
+BSI_DEPTH = 8  # field v: min 0, max 255 (bench.py:71,410-412)
+T_ROWS = (7, 8)  # field t's rows (bench.py:413,442-447)
+T_VIEWS = ("standard", "standard_2018", "standard_201801", "standard_201802",
+           "standard_201803")
+T_SPAN = ("2018-01-01T00:00", "2018-04-01T00:00")  # three month views (bench.py:535-543)
+
+
+def build_bsi_fields(holder, n_shards, seed):
+    """bench.py's BSI field v (planes 0..7 random, the not-null plane all
+    ones) and time field t (rows 7 and 8, the same words in the standard,
+    year and three month views) on index "bench".  Returns ({plane:
+    uint64[S, W64]}, {row: uint64[S, W64]}): the arrays the fragments
+    hold."""
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    rng = np.random.default_rng(seed + 11)
+    idx = holder.index("bench")
+    v = idx.create_field("v", FieldOptions(type="int", min=0, max=(1 << BSI_DEPTH) - 1))
+    t = idx.create_field("t", FieldOptions(type="time", time_quantum="YMD"))
+    planes = {i: rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64)
+              for i in range(BSI_DEPTH)}
+    planes[BSI_DEPTH] = np.full((n_shards, W64), (1 << 64) - 1, dtype=np.uint64)
+    trows = {r: rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64) for r in T_ROWS}
+    for sh in range(n_shards):
+        frag = v.view_if_not_exists("bsig_v").fragment_if_not_exists(sh)
+        for i, words in planes.items():
+            frag.load_row_words(i, words[sh])
+        frag.cache.invalidate()
+        for view in T_VIEWS:
+            frag = t.view_if_not_exists(view).fragment_if_not_exists(sh)
+            for r in T_ROWS:
+                frag.load_row_words(r, trows[r][sh])
+            frag.cache.invalidate()
+    return planes, trows
+
+
+def _bits(words):
+    """uint64[S, W64] -> uint8[S, 2^20] of 0/1, bit p of a shard at column p."""
+    return np.unpackbits(words.view(np.uint8), axis=1, bitorder="little")
+
+
+def value_hists(planes, filters, chunk=16):
+    """Per filter (None: every column), the per-shard histogram int64[S,
+    256] of the values of the not-null columns that pass it, each column's
+    value assembled from its unpacked plane bits (BSI_DEPTH planes): the
+    numpy oracle of the bsi phase, its chunks of shards on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    S = planes[0].shape[0]
+    out = [np.zeros((S, 1 << BSI_DEPTH), np.int64) for _ in filters]
+
+    def one(a):
+        b = min(S, a + chunk)
+        vals = np.zeros((b - a, 1 << 20), np.uint8)
+        for i in range(BSI_DEPTH):
+            vals |= _bits(planes[i][a:b]) << i
+        code = vals.astype(np.int32) | (np.arange(b - a, dtype=np.int32)[:, None] << 9)
+        keep = _bits(planes[BSI_DEPTH][a:b])
+        for h, flt in zip(out, filters):
+            sel = keep if flt is None else keep & _bits(flt[a:b])
+            n = np.bincount((code | (sel.astype(np.int32) << 8)).ravel(),
+                            minlength=(b - a) << 9)
+            h[a:b] = n.reshape(b - a, 2, 1 << BSI_DEPTH)[:, 1]
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(0, S, chunk)))
+    return out
+
+
+def hist_sum(h, shards, where=None):
+    """(total, count) of Sum over the shards' histograms, the values
+    limited to ``where`` (bool[2^depth]) when given."""
+    h = h[shards] if where is None else h[shards] * where
+    return int((h * np.arange(h.shape[1])).sum()), int(h.sum())
+
+
+def hist_minmax(h, shards, is_min, where=None):
+    """(value, count) as the reference's ValCount reduce gives them: each
+    shard's extreme and its count there, the shards in canonical order,
+    the first shard's count standing on a tie; (0, 0) when empty."""
+    best, n = 0, 0
+    for sh in shards:
+        row = h[sh] if where is None else h[sh] * where
+        nz = np.flatnonzero(row)
+        if not nz.size:
+            continue
+        v = int(nz[0] if is_min else nz[-1])
+        if n == 0 or (v < best if is_min else v > best):
+            best, n = v, int(row[v])
+    return best, n
+
+
+def bsi_range_queries(n_shards):
+    """(Count query, value condition bool[256] or "zero"/"nn", shards)."""
+    vals = np.arange(1 << BSI_DEPTH)
+    every = list(range(n_shards))
+    subset = list(range(0, n_shards, 3))
+    cases = [
+        ("v > 100", vals > 100), ("v >= 100", vals >= 100), ("v < 37", vals < 37),
+        ("v <= 37", vals <= 37), ("v == 7", vals == 7), ("v != 7", vals != 7),
+        ("v >< [10, 200]", (vals >= 10) & (vals <= 200)), ("v >< [0, 1]", vals <= 1),
+        # PQL reads a < v < b as BETWEEN [a + 1, b] (pql/parser.py).
+        ("10 < v < 200", (vals > 10) & (vals <= 200)),
+        ("v != null", vals >= 0), ("v > 300", vals < 0), ("v < 0", vals < 0),
+        ("v >= 0", vals >= 0), ("v <= 255", vals >= 0), ("v > -5", vals >= 0),
+        ("v >< [-10, 300]", vals >= 0), ("v == 300", vals < 0), ("v != 300", vals >= 0),
+    ]
+    return [(f"Count(Range({c}))", w, sh) for c, w in cases for sh in (every, subset)]
+
+
+def _bsi_counters():
+    """_launch_counts, and the range leaf's, K6's and K7's (kept apart:
+    --root's checkouts from before the BSI slice have none)."""
+    from pilosa_tpu_torch.parallel import bsi, kernels
+
+    return {"range_leaf": kernels.range_leaf.launches, "sum_tree": bsi.sum_tree_cuda.launches,
+            "minmax_tree": bsi.minmax_tree_cuda.launches, **_launch_counts()}
+
+
+def _zero_bsi_counters():
+    from pilosa_tpu_torch.parallel import bsi, kernels
+
+    _zero_launches()
+    kernels.range_leaf.launches = 0
+    bsi.sum_tree_cuda.launches = 0
+    bsi.minmax_tree_cuda.launches = 0
+
+
+def _vc(res):
+    return (res.val, res.count)
+
+
+def run_bsi_path(device, holder, engine, ex, host, seed, err):
+    """The bsi phase on the north-star index, after serve and before the
+    writes of phase 5: bench.py's fields v and t, then through
+    Executor.execute, each against a numpy oracle over the host words:
+    Sum/Min/Max of v unfiltered and filtered by Row(f=10) and by Range(v >
+    100); Count(Range(v <op> N)) for every op, BETWEEN, != null and the
+    out-of-range cases, on all shards and on every third;
+    Count(Intersect(Row(f=10), Range(v > 100))); the time-quantum Counts
+    of t=7 and t=8 over three month views; a query of consecutive Counts
+    with Ranges among them (K5 declines those: they run on K1).  The
+    launch counters, zeroed just before, must have moved for the range
+    leaf, K6, K7 and K5, and the host lane must not have run.  Then one
+    Set(col, v=N) and an import_values of 2^20 values, each followed by
+    Sum/Min/Max, with the stack synced in place, not rebuilt.  Returns
+    the phase's numbers, its launches and its kernel entries."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import bsi, kernels
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n_shards = len(engine.canonical_shards("bench"))
+    t_phase = t0 = time.perf_counter()
+    planes, trows = build_bsi_fields(holder, n_shards, seed)
+    for field, view in (("v", "bsig_v"),) + tuple(("t", v) for v in T_VIEWS[2:]):
+        engine.field_stack("bench", field, view)
+    sync()
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ora = [p.copy() for p in planes.values()]  # the fragments hold `planes` itself
+    f10, f12 = host["f"][10], host["f"][12]
+    h_all, h_f10, h_f12 = value_hists(ora, [None, f10, f12])
+    oracle_s = time.perf_counter() - t0
+    log(f"bsi: fields v ({BSI_DEPTH + 1} planes) and t ({len(T_ROWS)} rows x {len(T_VIEWS)} "
+        f"views) made and their stacks built in {made_s:.3f} s; numpy oracle {oracle_s:.3f} s")
+    every = list(range(n_shards))
+    gt100 = np.arange(1 << BSI_DEPTH) > 100
+
+    def agg_want(q):
+        agg, _, rest = q.partition("(")
+        h, where = h_all, None
+        if rest.startswith("Row(f=10)"):
+            h = h_f10
+        elif rest.startswith("Range(v > 100)"):
+            where = gt100
+        if agg == "Sum":
+            return hist_sum(h, every, where)
+        return hist_minmax(h, every, agg == "Min", where)
+
+    agg_qs = [f"{a}({flt}field=v)" for a in ("Sum", "Min", "Max")
+              for flt in ("", "Row(f=10), ", "Range(v > 100), ")]
+    range_qs = bsi_range_queries(n_shards)
+    t_qs = [(f"Count(Range(t={r}, {T_SPAN[0]}, {T_SPAN[1]}))",
+             int(popcounts(trows[r]).sum())) for r in T_ROWS]
+    batch_q = ("Count(Range(v > 100)) Count(Intersect(Row(f=10), Row(f=11))) "
+               "Count(Range(v < 37)) Count(Union(Row(f=12), Range(v == 7)))")
+    eq7 = np.arange(1 << BSI_DEPTH) == 7
+    batch_want = [hist_sum(h_all, every, gt100)[1],
+                  int(popcounts(host["f"][10] & host["f"][11]).sum()),
+                  hist_sum(h_all, every, np.arange(1 << BSI_DEPTH) < 37)[1],
+                  int(popcounts(f12).sum()) + hist_sum(h_all, every, eq7)[1]
+                  - hist_sum(h_f12, every, eq7)[1]]
+
+    # The main path: every query once, the counters zeroed just before.
+    fallbacks0, declines0 = ex.host_fallbacks, engine.batch_declines
+    rebuilds0 = engine.stack_rebuilds
+    with memo_off(engine):
+        _zero_bsi_counters()
+        for q in agg_qs:
+            got, want = _vc(ex.execute("bench", q).results[0]), agg_want(q)
+            if got != want:
+                raise AssertionError(f"{q}: port {got} != numpy oracle {want}")
+        for q, where, shards in range_qs:
+            got = ex.execute("bench", q, shards=shards).results[0]
+            want = hist_sum(h_all, shards, where)[1]
+            if got != want:
+                raise AssertionError(f"{q} over {len(shards)} shards: port {got} != numpy {want}")
+        q = "Count(Intersect(Row(f=10), Range(v > 100)))"
+        got, want = ex.execute("bench", q).results[0], hist_sum(h_f10, every, gt100)[1]
+        if got != want:
+            raise AssertionError(f"{q}: port {got} != numpy oracle {want}")
+        for q, want in t_qs:
+            got = ex.execute("bench", q).results[0]
+            if got != want:
+                raise AssertionError(f"{q}: port {got} != numpy oracle {want}")
+        got = ex.execute("bench", batch_q).results
+        if got != batch_want:
+            raise AssertionError(f"{batch_q}: port {got} != numpy oracle {batch_want}")
+        launches = _bsi_counters()
+    declines = engine.batch_declines - declines0
+    fallbacks = ex.host_fallbacks - fallbacks0
+    log(f"bsi: {len(agg_qs)} Sum/Min/Max, {len(range_qs) + 1} range Counts, {len(t_qs)} "
+        f"time-range Counts and a 4-Count query exact against numpy; launches {launches}, "
+        f"K5 declines {declines}, host-lane fallbacks {fallbacks}")
+    if fallbacks or declines != 3 or engine.stack_rebuilds != rebuilds0:
+        raise AssertionError(f"bsi: host-lane fallbacks {fallbacks} (want 0), K5 declines "
+                             f"{declines} (want 3), rebuilds {engine.stack_rebuilds - rebuilds0}")
+    if cuda and min(launches[k] for k in ("range_leaf", "sum_tree", "minmax_tree",
+                                          "count_tree_dense", "count_batch_tree")) <= 0:
+        raise AssertionError(f"a kernel of the bsi path never launched: {launches}")
+
+    # Each kernel at the main path's shape, held against its plain version.
+    canonical = engine.canonical_shards("bench")
+    S = len(canonical)
+    lw = _Lowering(engine, canonical)
+    rprog = engine._lower("bench", pql.parse("Range(v > 100)").calls[0], lw)
+    tprog = engine._lower("bench", pql.parse(t_qs[0][0]).calls[0].children[0], lw)
+    vst = engine.field_stack("bench", "v", "bsig_v", canonical)
+    vplanes = engine._plane_spec(vst, BSI_DEPTH)
+    mask = engine._mask_words(canonical, canonical)
+    calls = {
+        "range_leaf": (lambda: kernels.count_tree(rprog, lw.mats, mask),
+                       lambda: kernels.count_tree_plain(rprog, lw.mats, mask)),
+        "time_range": (lambda: kernels.count_tree(tprog, lw.mats, mask),
+                       lambda: kernels.count_tree_plain(tprog, lw.mats, mask)),
+        "sum_tree": (lambda: bsi.sum_tree(None, [], mask, vst.matrix, vplanes),
+                     lambda: bsi.sum_tree_plain(None, [], mask, vst.matrix, vplanes)),
+        "minmax_tree": (lambda: torch.stack(bsi.minmax_tree(None, [], mask, vst.matrix,
+                                                            vplanes, True)),
+                        lambda: torch.stack(bsi.minmax_tree_plain(None, [], mask, vst.matrix,
+                                                                  vplanes, True))),
+    }
+    for name, (fn, plain) in calls.items():
+        got, want = fn(), plain()
+        sync()
+        key = "range_leaf" if name == "time_range" else name
+        err[key] = max(err.get(key, 0), _exact(name, got.reshape(-1), want.reshape(-1),
+                                               "at the main path's shape"))
+    out = {"made_s": made_s, "oracle_s": oracle_s, "launches": launches,
+           "k5_declines": declines, "host_fallbacks": fallbacks}
+    entries = []
+    if cuda:
+        rows_bytes = lambda n: n * S * 32768 * 4  # noqa: E731
+        kernel_of = {"range_leaf": "count_tree_dense_kernel", "time_range": "count_tree_dense_kernel",
+                     "sum_tree": "sum_tree_kernel", "minmax_tree": "minmax_tree_kernel"}
+        times = {}
+        for name, (fn, plain) in calls.items():
+            for _ in range(3):
+                fn()
+            sync()
+            times[name] = measured(fn, kernel_of[name], sync)
+            times[name]["plain_ms"] = p50_ms(plain, 3, sync, batch=1)
+        # Least time: each plane (or leaf row) of the requested shards read
+        # once; a few integer operations per word and plane.
+        spec = {"range_leaf": (BSI_DEPTH + 1, 4), "time_range": (3, 2),
+                "sum_tree": (BSI_DEPTH + 1, 3), "minmax_tree": (BSI_DEPTH + 1, 6)}
+        for name, t in times.items():
+            n_rows, ops = spec[name]
+            byts, n_ops = rows_bytes(n_rows) + S * 4 + 8, rows_bytes(n_rows) // 4 * ops
+            bound = max(byts / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S) * 1e3
+            _times_line(f"bsi {name}", t, bound, t["plain_ms"])
+            out[f"{name}_device_ms"], out[f"{name}_bound_ms"] = t["device_ms"], bound
+        for name, src, rep in (
+                ("range_leaf", "pilosa_tpu_torch/csrc/tree_eval.cuh",
+                 "pilosa_tpu/parallel/kernels.py:108"),
+                ("sum_tree", "pilosa_tpu_torch/csrc/sum_tree.cu",
+                 "pilosa_tpu/parallel/kernels.py:474"),
+                ("minmax_tree", "pilosa_tpu_torch/csrc/minmax_tree.cu",
+                 "pilosa_tpu/parallel/kernels.py:511")):
+            t = times[name]
+            n_rows, ops = spec[name]
+            entries.append(_entry(name, src, rep, launches[name], err[name], t, t["plain_ms"],
+                                  rows_bytes(n_rows) + S * 4 + 8, rows_bytes(n_rows) // 4 * ops,
+                                  None))
+        # bench.py's metrics: the engine call (CUDA events around 10 calls,
+        # per call) and Executor.execute (host clock around a synchronous
+        # answer), memo off; the time-range Count alternates t=7 and t=8.
+        it = iter(range(10 ** 9))
+        tcalls = [pql.parse(q).calls[0].children[0] for q, _ in t_qs]
+        with memo_off(engine):
+            out["sum_bsi_1B_cols_p50"] = p50_ms(
+                lambda: engine.sum_async("bench", "v", None, canonical)[0], 12, sync)
+            for agg, is_min in (("min", True), ("max", False)):
+                out[f"{agg}_bsi_1B_cols_p50"] = p50_ms(
+                    lambda: engine.min_max_async("bench", "v", None, canonical, is_min)[0][0],
+                    12, sync)
+            out["timerange_1B_cols_p50"] = p50_ms(
+                lambda: engine.count_async("bench", tcalls[next(it) % 2], canonical), 24, sync)
+            for agg in ("Sum", "Min", "Max"):
+                lat = []
+                for _ in range(24):
+                    t0 = time.perf_counter()
+                    ex.execute("bench", f"{agg}(field=v)")
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                out[f"{agg.lower()}_bsi_1B_cols_e2e_p50"] = statistics.median(lat)
+        log("bsi: " + ", ".join(f"{k} {out[k]:.4f} ms" for k in (
+            "sum_bsi_1B_cols_p50", "min_bsi_1B_cols_p50", "max_bsi_1B_cols_p50",
+            "sum_bsi_1B_cols_e2e_p50", "min_bsi_1B_cols_e2e_p50", "max_bsi_1B_cols_e2e_p50",
+            "timerange_1B_cols_p50")) + f"; {card_line()}")
+
+    # Writes: one Set(col, v=N), then an import_values of 2^20 values, each
+    # followed by Sum/Min/Max against the oracle, the stack synced in place.
+    rng = np.random.default_rng(seed + 12)
+    updates0, rebuilds0 = engine.stack_updates, engine.stack_rebuilds
+
+    def old_values(cols):
+        sh, pos = cols >> 20, cols & ((1 << 20) - 1)
+        w, b = pos >> 6, (pos & 63).astype(np.uint64)
+        return sum(((ora[i][sh, w] >> b) & np.uint64(1)).astype(np.int64) << i
+                   for i in range(BSI_DEPTH))
+
+    def apply(cols, vals):
+        """The writes of (cols, vals) on the oracle: the histograms, then
+        the copied planes."""
+        sh, old = cols >> 20, old_values(cols)
+        for h, flt in ((h_all, None), (h_f10, f10), (h_f12, f12)):
+            keep = np.ones(cols.size, bool) if flt is None else (
+                (flt[sh, (cols & 0xFFFFF) >> 6] >> (cols & 63).astype(np.uint64)) & np.uint64(1)
+            ).astype(bool)
+            np.add.at(h, (sh[keep], old[keep]), -1)
+            np.add.at(h, (sh[keep], vals[keep]), 1)
+        pos = cols & 0xFFFFF
+        for i in range(BSI_DEPTH):
+            bit = np.uint64(1) << (pos & 63).astype(np.uint64)
+            on = ((vals >> i) & 1).astype(bool)
+            ora[i][sh[on], pos[on] >> 6] |= bit[on]
+            ora[i][sh[~on], pos[~on] >> 6] &= ~bit[~on]
+
+    def check_aggs(what):
+        with memo_off(engine):
+            for q in agg_qs[::3] + agg_qs[1::3]:
+                got, want = _vc(ex.execute("bench", q).results[0]), agg_want(q)
+                if got != want:
+                    raise AssertionError(f"{what}, {q}: port {got} != numpy oracle {want}")
+
+    col = np.asarray([int(rng.integers(0, n_shards << 20))])
+    val = np.asarray([int(rng.integers(0, 1 << BSI_DEPTH))])
+    t0 = time.perf_counter()
+    ex.execute("bench", f"Set({int(col[0])}, v={int(val[0])})")
+    apply(col, val)
+    check_aggs(f"after Set({int(col[0])}, v={int(val[0])})")
+    set_ms = (time.perf_counter() - t0) * 1e3
+    cols = np.unique(rng.integers(0, n_shards << 20, (1 << 20) + (1 << 16)))
+    cols = rng.permutation(cols)[: 1 << 20]
+    vals = rng.integers(0, 1 << BSI_DEPTH, cols.size)
+    t0 = time.perf_counter()
+    holder.index("bench").field("v").import_values(cols, vals)
+    import_s = time.perf_counter() - t0
+    apply(cols, vals)
+    t0 = time.perf_counter()
+    engine.field_stack("bench", "v", "bsig_v")
+    sync()
+    sync_s = time.perf_counter() - t0
+    check_aggs(f"after import_values of {cols.size} values")
+    updates = engine.stack_updates - updates0
+    if engine.stack_rebuilds != rebuilds0 or updates < 2:
+        raise AssertionError(f"bsi writes: {engine.stack_rebuilds - rebuilds0} rebuilds "
+                             f"(want 0), {updates} in-place syncs (want 2)")
+    log(f"bsi: Set then Sum/Min/Max {set_ms:.3f} ms; import_values of {cols.size} values "
+        f"{import_s:.3f} s, its in-place sync {sync_s:.3f} s; Sum/Min/Max exact after each; "
+        f"stack_updates +{updates}, stack_rebuilds +0")
+    out.update({"set_then_aggs_ms": set_ms, "import_values_s": import_s,
+                "import_sync_s": sync_s, "stack_updates": updates,
+                "wall_s": time.perf_counter() - t_phase})
+    return out, entries
+
+
 # -- phase 5: the write path -------------------------------------------------
 
 OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
@@ -1818,20 +2427,26 @@ def run_write_path(device, holder, engine, ex, host, seed):
         f"{statistics.median(upload_us):.1f} us each (p50); each Count again through "
         f"execute_async exact")
 
-    # The scatter on the card: one Set and the dense Count that syncs it.
-    col = next(c for v, c in write_targets(rng, ora["f"][10], ora["f"][11], n_shards, 1, False)
-               if v == "Set")
-    ex.execute("bench", f"Set({col}, f=10)")
-    _put(ora["f"][10], col, True)
-    got = []
+    # The scatter on the card: one Set and the dense Count that syncs it,
+    # the sync inside the profiled window (stack_updates moves by one) and
+    # index_put_'s kernel in its list.
     q = pql_of("f", "and", (10, 11))
-    run = lambda: got.append(ex.execute("bench", q).results[0])  # noqa: E731
-    seen = on_card(run) if cuda else run() or {}
-    if got[0] != int(popcounts(ora["f"][10] & ora["f"][11]).sum()):
-        raise AssertionError("the profiled write->Count disagrees with numpy")
-    ours = ("count_tree_dense", "count_tree_blocks", "score_rows", "and_popcount_rows")
-    scat = {k: v for k, v in per_launch(seen).items()
-            if not k.startswith(("Memcpy", "Memset")) and not any(o in k for o in ours)}
+
+    def run():
+        col = next(c for v, c in write_targets(rng, ora["f"][10], ora["f"][11], n_shards, 1,
+                                                False) if v == "Set")
+        ex.execute("bench", f"Set({col}, f=10)")
+        _put(ora["f"][10], col, True)
+        synced = engine.stack_updates
+        got = ex.execute("bench", q).results[0]
+        if got != int(popcounts(ora["f"][10] & ora["f"][11]).sum()):
+            raise AssertionError("the profiled write->Count disagrees with numpy")
+        if engine.stack_updates != synced + 1:
+            raise AssertionError("the profiled Count did not sync the stack in place")
+
+    scattered = lambda seen: any("index_put" in k for k in seen)  # noqa: E731
+    seen = on_card(run, scattered) if cuda else run() or {}
+    scat = {k: v for k, v in per_launch(seen).items() if "index_put" in k}
     if cuda and not scat:
         raise AssertionError(f"no scatter kernel in the profiler's list: {seen}")
     log("write: one Set then Count on the card (torch.profiler): " + json.dumps(per_launch(seen)))
@@ -2222,6 +2837,7 @@ def main(argv=None):
     err = check_kernels(device, args.seed)
     err.update(check_topn_kernels(device, args.seed))
     err.update(check_batch_kernel(device, args.seed))
+    err.update(check_bsi_kernels(device, args.seed))
     if args.check_only:
         log(f"check-only: every kernel exact against its plain version: {err}")
         return 0
@@ -2241,6 +2857,9 @@ def main(argv=None):
     serve, k5_launches, b10m_row = run_serve_path(device, holder, engine, ex, host, args.seed)
     log("serve: " + json.dumps(serve))
     kern.append(k5_entry(rows_f, b10m_row, k5_launches, err))
+    bsi_out, bsi_entries = run_bsi_path(device, holder, engine, ex, host, args.seed, err)
+    log("bsi: " + json.dumps(bsi_out))
+    kern += bsi_entries
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     log(card_line())

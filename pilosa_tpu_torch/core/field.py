@@ -498,5 +498,30 @@ class Field:
             for frag, c, r in self._shard_groups(view, cols, rows)
         )
 
+    def import_values(self, column_ids, values, clear: bool = False,
+                      fresh: bool = False) -> None:
+        """BSI bulk write (field.go importValue): group the columns by shard
+        and apply each group with ``Fragment.import_values`` (the last
+        write of a column wins).  Every value is range-checked first, so a
+        bad one raises before any of the batch applies.  ``clear`` removes
+        the columns' not-null bit; ``fresh`` is the caller's promise that
+        the columns hold no value yet (a set-only write)."""
+        g = self.bsi_group(self.name)
+        if g is None:
+            raise ValueError(f"field {self.name} has no int range")
+        cols = np.asarray(column_ids, dtype=np.int64)
+        vals = np.asarray(values, dtype=np.int64)
+        if cols.size == 0:
+            return
+        bad = (vals < g.min) | (vals > g.max)
+        if bad.any():
+            raise ValueError(
+                f"value {int(vals[np.argmax(bad)])} out of range for field {self.name}"
+            )
+        view = self.view_if_not_exists(view_bsi_name(self.name))
+        depth = g.bit_depth()
+        for frag, c, v in self._shard_groups(view, cols, vals - g.min):
+            frag.import_values(c, v, depth, clear=clear, fresh=fresh)
+
     def __repr__(self) -> str:
         return f"Field({self.index}/{self.name}, type={self.options.type})"

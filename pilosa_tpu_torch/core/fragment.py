@@ -802,6 +802,48 @@ class Fragment:
         return (cols[keep],) + tuple(a[keep] for a in parallel)
 
     @_locked
+    def import_values(self, column_ids, values, bit_depth: int, clear: bool = False,
+                      fresh: bool = False):
+        """BSI bulk write as two multi-row merges (fragment.go importValue
+        :1609-1657): every plane's set positions in one sorted union, every
+        plane's cleared positions in one sorted difference, with the
+        not-null plane on the set side (or, with ``clear``, the cleared
+        side; the value planes are still written from the given bits, as
+        the reference does).  The last value given for a column wins.
+        ``fresh``: the caller promises the columns hold no value, so the
+        clear merge of the zero bits is skipped; on a column with a value
+        it would OR the old and new planes.  Each touched plane reaches
+        ``sync_snapshot`` through ``_touch_rows``, so resident stacks sync
+        in place."""
+        self._check_open()
+        cols = np.asarray(column_ids, dtype=np.int64)
+        vals = np.asarray(values, dtype=np.int64)
+        if cols.size == 0:
+            return
+        in_row, vals = self._last_write_wins(cols % SHARD_WIDTH, vals)
+        order = np.argsort(in_row)
+        in_row, vals = in_row[order], vals[order]
+        pos = in_row.astype(np.uint64)
+        exp = np.uint64(ops.SHARD_WIDTH_EXP)
+        set_chunks, clr_chunks = [], []
+        if bit_depth > 0:
+            planes = np.arange(bit_depth, dtype=np.uint64)
+            bitmat = ((vals[None, :] >> planes[:, None].astype(np.int64)) & 1).astype(bool)
+            packed = (planes[:, None] << exp) | pos[None, :]
+            set_chunks.append(packed[bitmat])
+            if clear or not fresh:
+                clr_chunks.append(packed[~bitmat])
+        not_null = (np.uint64(bit_depth) << exp) | pos
+        (clr_chunks if clear else set_chunks).append(not_null)
+        # Plane-major runs of ascending positions: sorted and unique.
+        for chunks, is_clear in ((clr_chunks, True), (set_chunks, False)):
+            packed = np.concatenate(chunks) if chunks else np.empty(0, dtype=np.uint64)
+            if packed.size:
+                self._apply_packed(packed, clear=is_clear)
+        self.cache.invalidate()
+        self.snapshot()
+
+    @_locked
     def load_row_words(self, row_id: int, words_u64: np.ndarray):
         """Install a dense row wholesale — the bulk load path for
         benchmarks and restores (no op-log, no snapshot; the caller

@@ -69,7 +69,7 @@ __device__ __forceinline__ unsigned long long block_sum64(unsigned long long v) 
 // shard's words), with the loads of all U blocks and every leaf in flight
 // together.  Slots past the last set bit repeat the first block's address
 // and are not counted.
-template <int U>
+template <int U, bool kRanges>
 __device__ __forceinline__ unsigned int chain_blocks(const TreeProg& prog,
                                                      const Leaves& leaves,
                                                      size_t pos,
@@ -89,7 +89,7 @@ __device__ __forceinline__ unsigned int chain_blocks(const TreeProg& prog,
     }
   }
   uint4 acc[U];
-  eval_chain<U>(prog, leaves, off, acc);
+  eval_chain<U, kRanges>(prog, leaves, off, acc);
   unsigned int count = 0;
 #pragma unroll
   for (int u = 0; u < U; ++u)
@@ -97,7 +97,7 @@ __device__ __forceinline__ unsigned int chain_blocks(const TreeProg& prog,
   return count;
 }
 
-template <bool kChain>
+template <bool kChain, bool kRanges>
 __global__ void __launch_bounds__(kThreads)
     count_tree_blocks_kernel(TreeProg prog, Leaves leaves,
                              const unsigned long long* __restrict__ blk_bits,
@@ -112,13 +112,13 @@ __global__ void __launch_bounds__(kThreads)
     const size_t pos = (size_t)s * (size_t)w4 + vec;
     while (bits) {  // uniform in the group: its threads hold the same word
       if (kChain && __popcll(bits) <= 2) {
-        count += chain_blocks<2>(prog, leaves, pos, &bits);
+        count += chain_blocks<2, kRanges>(prog, leaves, pos, &bits);
       } else if (kChain) {
-        count += chain_blocks<kInFlight>(prog, leaves, pos, &bits);
+        count += chain_blocks<kInFlight, kRanges>(prog, leaves, pos, &bits);
       } else {
         const int b = __ffsll((long long)bits) - 1;
         bits &= bits - 1;
-        count += popc4(eval_tree(prog, leaves, pos + (size_t)b * kBlockVec));
+        count += popc4(eval_tree<kRanges>(prog, leaves, pos + (size_t)b * kBlockVec));
       }
     }
   }
@@ -138,19 +138,22 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // leaf_ptrs: host array of n_leaves device pointers, each the [S, W] words
-// of one leaf row.  ops: host array of n_ops postfix opcodes.  blk_bits:
+// of one leaf row.  ranges, range_rows, n_ranges: the range leaves, as in
+// count_tree_dense.  ops: host array of n_ops postfix opcodes.  blk_bits:
 // device uint64[S], bit b of word s marks block b of shard s (0 for an
 // unrequested shard).  scratch: device uint64[1], zeroed once when
 // allocated and left at 0 by every launch; launches that share it must run
 // one after another (one stream).  out: device uint64[1], written by the
 // kernel.  Returns the cudaError_t of the launch.
 extern "C" int count_tree_blocks(const void* const* leaf_ptrs, int n_leaves,
-                                 const int* ops, int n_ops,
+                                 const void* ranges, const int* range_rows,
+                                 int n_ranges, const int* ops, int n_ops,
                                  const void* blk_bits, int n_shards, int words,
                                  void* scratch, void* out, void* stream) {
   TreeProg prog;
   Leaves leaves;
-  if (!pack_args(leaf_ptrs, n_leaves, ops, n_ops, &prog, &leaves))
+  if (!pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops, n_ops, &prog,
+                 &leaves))
     return (int)cudaErrorInvalidValue;
   const int n_blocks = words / kBlockWords;
   // The count must fit the scratch word's 48 sum bits: at most one per bit.
@@ -166,13 +169,13 @@ extern "C" int count_tree_blocks(const void* const* leaf_ptrs, int n_leaves,
   if (ctas > 65535) ctas = 65535;
   if (ctas < 1) ctas = 1;
   const unsigned long long* bits = (const unsigned long long*)blk_bits;
-  if (is_chain(ops, n_ops))
-    count_tree_blocks_kernel<true><<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
-        prog, leaves, bits, valid, n_shards, words / 4, (unsigned long long*)scratch,
-        (unsigned long long*)out);
-  else
-    count_tree_blocks_kernel<false><<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
-        prog, leaves, bits, valid, n_shards, words / 4, (unsigned long long*)scratch,
-        (unsigned long long*)out);
+  auto kernel = is_chain(ops, n_ops)
+                    ? (n_ranges ? count_tree_blocks_kernel<true, true>
+                                : count_tree_blocks_kernel<true, false>)
+                    : (n_ranges ? count_tree_blocks_kernel<false, true>
+                                : count_tree_blocks_kernel<false, false>);
+  kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
+      prog, leaves, bits, valid, n_shards, words / 4, (unsigned long long*)scratch,
+      (unsigned long long*)out);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,190 @@
+// K7 minmax_tree: BSI Min or Max per shard, in one pass over the planes.
+//
+// Replaces the XLA program pilosa_tpu/parallel/kernels.py:511 minmax_tree
+// (with pilosa_tpu/ops/bsi.py:185 minmax_valcount_nd): for each requested
+// shard, the least (Min) or greatest (Max) value among the columns of
+// notnull & filter(tree), and how many of them hold it, as uint64[S]
+// values and int64[S] counts (count 0: no column considered, value 0).
+// The reference splits the value into hi and lo halves because x64 is off
+// on its device; here it is one uint64 (depth reaches 63, so bits 0..62).
+// The host reduce over shards (decode_min_max) keeps the first shard in
+// canonical order on ties, as the reference's ValCount reduce does.
+//
+// Bound: device-memory bytes.  Each requested shard's D + 1 planes are
+// read once (9 x 960 x 128 KiB = 1.132 GB at depth 8, about 0.338 ms at
+// 3.35 TB/s), plus the filter tree's leaves; a few integer instructions per
+// plane word.
+//
+// Design.  One block per shard (960 blocks of 256 threads is one wave on
+// 132 SMs).  Each thread walks its 16-byte positions and runs, inside each
+// 32-bit word, the word-local walk of minmax_valcount_nd: keep the
+// candidates where sel = keep & ~plane (Min) or keep & plane (Max) is not
+// zero, and set the result bit where it is not (Min) or is (Max).  That
+// gives each word's extreme value and the count of its columns holding it;
+// the thread folds its words into one (value, count) pair, lexicographic
+// with the counts of equal values merged.  The block then folds the pairs
+// with warp shuffles and shared memory and stores the shard's pair, so the
+// outputs need no fill and no atomics.  The plane loop is unrolled up to
+// the launch's depth tier (8, 16, 32 or 63) with a guard, so a position's
+// plane loads are all in flight together.  A missing plane reads as zeros.
+#include "tree_eval.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Fold (v, c) into (best, n): the smaller (Min) or larger (Max) value
+// wins, equal values add their counts, n == 0 is empty.
+template <bool kMin>
+__device__ __forceinline__ void fold(unsigned long long& best, unsigned long long& n,
+                                     unsigned long long v, unsigned long long c) {
+  if (c == 0) return;
+  if (n == 0 || (kMin ? v < best : v > best)) {
+    best = v;
+    n = c;
+  } else if (v == best) {
+    n += c;
+  }
+}
+
+template <int kMaxD, bool kFilter, bool kChain, bool kMin>
+__global__ void __launch_bounds__(kThreads)
+    minmax_tree_kernel(TreeProg prog, Leaves leaves, RangeLeaf planes,
+                       const int* __restrict__ mask, int w4,
+                       unsigned long long* __restrict__ vals,
+                       long long* __restrict__ counts) {
+  const int s = blockIdx.x;
+  const int t = threadIdx.x;
+  if (mask[s] == 0) {  // unrequested shard: no reads, an empty pair
+    if (t == 0) {
+      vals[s] = 0ull;
+      counts[s] = 0;
+    }
+    return;
+  }
+  const int depth = planes.depth;
+  const size_t shard_off = (size_t)s * (size_t)w4;
+  unsigned long long best = 0ull, n = 0ull;
+  for (int i = t; i < w4; i += kThreads) {
+    const size_t off = shard_off + i;
+    uint4 k4 = load_plane(planes, depth, off);
+    if (kFilter) {
+      uint4 f;
+      if (kChain)
+        eval_chain<1>(prog, leaves, &off, &f);
+      else
+        f = eval_tree(prog, leaves, off);
+      k4 = and4(k4, f);
+    }
+    unsigned int keep[4] = {k4.x, k4.y, k4.z, k4.w};
+    const bool any[4] = {keep[0] != 0u, keep[1] != 0u, keep[2] != 0u, keep[3] != 0u};
+    if (!(any[0] || any[1] || any[2] || any[3])) continue;
+    unsigned long long v[4] = {0ull, 0ull, 0ull, 0ull};
+#pragma unroll
+    for (int p = kMaxD - 1; p >= 0; --p) {
+      if (p >= depth) continue;
+      const uint4 r4 = load_plane(planes, p, off);
+      const unsigned int row[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const unsigned int sel = keep[c] & (kMin ? ~row[c] : row[c]);
+        const bool has = sel != 0u;
+        keep[c] = has ? sel : keep[c];
+        if (kMin ? !has : has) v[c] |= 1ull << p;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (any[c]) fold<kMin>(best, n, v[c], (unsigned long long)__popc(keep[c]));
+  }
+
+  // The block's pairs: warp shuffles, then the warps' pairs in shared
+  // memory, folded in warp order by thread 0.
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long ob = __shfl_down_sync(0xffffffffu, best, o);
+    const unsigned long long on = __shfl_down_sync(0xffffffffu, n, o);
+    fold<kMin>(best, n, ob, on);
+  }
+  __shared__ unsigned long long wb[kWarps], wn[kWarps];
+  if ((t & 31) == 0) {
+    wb[t >> 5] = best;
+    wn[t >> 5] = n;
+  }
+  __syncthreads();
+  if (t == 0) {
+    for (int w = 1; w < kWarps; ++w) fold<kMin>(best, n, wb[w], wn[w]);
+    vals[s] = n ? best : 0ull;
+    counts[s] = (long long)n;
+  }
+}
+
+template <int kMaxD, bool kMin>
+void launch(int n_shards, bool filter, bool chain, const TreeProg& prog,
+            const Leaves& leaves, const RangeLeaf& planes, const int* mask,
+            int w4, unsigned long long* vals, long long* counts,
+            cudaStream_t stream) {
+  if (!filter)
+    minmax_tree_kernel<kMaxD, false, false, kMin><<<n_shards, kThreads, 0, stream>>>(
+        prog, leaves, planes, mask, w4, vals, counts);
+  else if (chain)
+    minmax_tree_kernel<kMaxD, true, true, kMin><<<n_shards, kThreads, 0, stream>>>(
+        prog, leaves, planes, mask, w4, vals, counts);
+  else
+    minmax_tree_kernel<kMaxD, true, false, kMin><<<n_shards, kThreads, 0, stream>>>(
+        prog, leaves, planes, mask, w4, vals, counts);
+}
+
+template <bool kMin>
+void launch_depth(int n_shards, bool filter, bool chain, const TreeProg& prog,
+                  const Leaves& leaves, const RangeLeaf& pl, const int* mask,
+                  int w4, unsigned long long* vals, long long* counts,
+                  cudaStream_t st) {
+  if (pl.depth <= 8)
+    launch<8, kMin>(n_shards, filter, chain, prog, leaves, pl, mask, w4, vals, counts, st);
+  else if (pl.depth <= 16)
+    launch<16, kMin>(n_shards, filter, chain, prog, leaves, pl, mask, w4, vals, counts, st);
+  else if (pl.depth <= 32)
+    launch<32, kMin>(n_shards, filter, chain, prog, leaves, pl, mask, w4, vals, counts, st);
+  else
+    launch<MAX_PLANES - 1, kMin>(n_shards, filter, chain, prog, leaves, pl, mask, w4,
+                                 vals, counts, st);
+}
+
+}  // namespace
+
+// leaf_ptrs, ranges, range_rows, ops: the filter tree as in
+// count_tree_dense, or n_ops = 0 for no filter.  planes, plane_rows: the
+// BSI stack's planes as in sum_tree.  is_min: 1 for Min, 0 for Max.  mask:
+// device int32[S].  vals: device uint64[S], counts: device int64[S], every
+// entry written by the kernel.  Returns the cudaError_t of the launch.
+extern "C" int minmax_tree(const void* const* leaf_ptrs, int n_leaves,
+                           const void* ranges, const int* range_rows,
+                           int n_ranges, const int* ops, int n_ops,
+                           const void* planes, int plane_rows, int is_min,
+                           const void* mask, int n_shards, int words,
+                           void* vals, void* counts, void* stream) {
+  TreeProg prog = {};
+  Leaves leaves = {};
+  const bool filter = n_ops > 0;
+  if (filter && !pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges,
+                           ops, n_ops, &prog, &leaves))
+    return (int)cudaErrorInvalidValue;
+  if (planes == nullptr || vals == nullptr || counts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const RangeLeaf pl = *(const RangeLeaf*)planes;
+  if (!planes_ok(pl, plane_rows) || words <= 0 || words % 4 != 0 || n_shards < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_shards == 0) return (int)cudaSuccess;
+  const bool chain = filter && is_chain(ops, n_ops);
+  const int* m = (const int*)mask;
+  unsigned long long* v = (unsigned long long*)vals;
+  long long* c = (long long*)counts;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_min)
+    launch_depth<true>(n_shards, filter, chain, prog, leaves, pl, m, words / 4, v, c, st);
+  else
+    launch_depth<false>(n_shards, filter, chain, prog, leaves, pl, m, words / 4, v, c, st);
+  return (int)cudaGetLastError();
+}

@@ -126,7 +126,7 @@ __device__ void finish_totals(const Totals& t, int n_cands,
   if (tid == 0) *t.arrivals = 0u;
 }
 
-template <bool kChain>
+template <bool kChain, bool kRanges>
 __global__ void __launch_bounds__(kThreads)
     score_rows_kernel(TreeProg prog, Leaves leaves, const int* __restrict__ mask,
                       const uint4* __restrict__ cand_base,
@@ -167,9 +167,9 @@ __global__ void __launch_bounds__(kThreads)
     const size_t off = shard_off + i;
     uint4 v;
     if (kChain)
-      eval_chain<1>(prog, leaves, &off, &v);
+      eval_chain<1, kRanges>(prog, leaves, &off, &v);
     else
-      v = eval_tree(prog, leaves, off);
+      v = eval_tree<kRanges>(prog, leaves, off);
     acc[kGroup] += popc4(v);
 #pragma unroll
     for (int u = 0; u < kGroup; ++u) {
@@ -196,8 +196,8 @@ __global__ void __launch_bounds__(kThreads)
   if (totals.cnt != nullptr) finish_totals(totals, n_cands, expected);
 }
 
-int launch(const TreeProg& prog, const Leaves& leaves, const int* ops,
-           int n_ops, const int* mask, const uint4* cand_base,
+int launch(const TreeProg& prog, const Leaves& leaves, bool ranges,
+           const int* ops, int n_ops, const int* mask, const uint4* cand_base,
            const int* cand_idx, int n_cands, int n_shards, int words,
            int* scores, int* src_counts, const Totals& totals,
            cudaStream_t stream) {
@@ -219,7 +219,9 @@ int launch(const TreeProg& prog, const Leaves& leaves, const int* ops,
   while ((long long)groups * n_shards * chunks < want && chunks < kMaxChunks &&
          w4 / (2 * chunks) >= kThreads)
     chunks *= 2;
-  const bool chain = is_chain(ops, n_ops);
+  auto kernel = is_chain(ops, n_ops)
+                    ? (ranges ? score_rows_kernel<true, true> : score_rows_kernel<true, false>)
+                    : (ranges ? score_rows_kernel<false, true> : score_rows_kernel<false, false>);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(groups, n_shards, chunks);
   cfg.blockDim = dim3(kThreads);
@@ -233,20 +235,16 @@ int launch(const TreeProg& prog, const Leaves& leaves, const int* ops,
   cfg.attrs = attr;
   cfg.numAttrs = chunks > 1 ? 1 : 0;
   const cudaError_t err =
-      chain ? cudaLaunchKernelEx(&cfg, score_rows_kernel<true>, prog, leaves, mask,
-                                 cand_base, cand_idx, n_cands, n_shards, w4,
-                                 scores, src_counts, totals)
-            : cudaLaunchKernelEx(&cfg, score_rows_kernel<false>, prog, leaves,
-                                 mask, cand_base, cand_idx, n_cands, n_shards,
-                                 w4, scores, src_counts, totals);
+      cudaLaunchKernelEx(&cfg, kernel, prog, leaves, mask, cand_base, cand_idx,
+                         n_cands, n_shards, w4, scores, src_counts, totals);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// leaf_ptrs/ops: the src tree as in count_tree_dense (host arrays; each
-// leaf pointer the [S, W] words of one row).  mask: device int32[S], or
+// leaf_ptrs/ranges/ops: the src tree as in count_tree_dense (host arrays;
+// each leaf pointer the [S, W] words of one row).  mask: device int32[S], or
 // null for every shard.  cand_base: device int32[R, S, W] field stack;
 // cand_idx: device int32[K] stack rows of the candidates, or null for rows
 // 0..K-1.  Outputs, each optional (null): scores int32[K, S] and src_counts
@@ -259,14 +257,16 @@ int launch(const TreeProg& prog, const Leaves& leaves, const int* ops,
 // out int32[2, n_out], values then candidate indices, value descending and
 // the lower index first on ties.  Returns the cudaError_t of the launch.
 extern "C" int score_rows(const void* const* leaf_ptrs, int n_leaves,
-                          const int* ops, int n_ops, const void* mask,
+                          const void* ranges, const int* range_rows,
+                          int n_ranges, const int* ops, int n_ops, const void* mask,
                           const void* cand_base, const void* cand_idx,
                           int n_cands, int n_shards, int words, void* scores,
                           void* src_counts, const void* cnt, int thr,
                           void* scratch, int n_out, void* out, void* stream) {
   TreeProg prog;
   Leaves leaves;
-  if (!pack_args(leaf_ptrs, n_leaves, ops, n_ops, &prog, &leaves))
+  if (!pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops, n_ops, &prog,
+                 &leaves))
     return (int)cudaErrorInvalidValue;
   Totals totals;
   totals.cnt = (const int*)cnt;
@@ -278,7 +278,7 @@ extern "C" int score_rows(const void* const* leaf_ptrs, int n_leaves,
   totals.n_out = n_out;
   totals.trimmed = n_out > 0 ? (int*)out : nullptr;
   totals.all = n_out == 0 ? (long long*)out : nullptr;
-  return launch(prog, leaves, ops, n_ops, (const int*)mask,
+  return launch(prog, leaves, n_ranges > 0, ops, n_ops, (const int*)mask,
                 (const uint4*)cand_base, (const int*)cand_idx, n_cands,
                 n_shards, words, (int*)scores, (int*)src_counts, totals,
                 (cudaStream_t)stream);

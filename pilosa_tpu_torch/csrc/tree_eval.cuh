@@ -1,10 +1,12 @@
-// Shared device code of the two count kernels (count_tree_dense.cu,
-// count_tree_blocks.cu): the postfix tree program, the per-thread tree
-// evaluation over 16-byte word vectors, and the block reduction.
+// Shared device code of the kernels that evaluate a tree (K1
+// count_tree_dense.cu, K2 count_tree_blocks.cu, K3 score_rows.cu, K6
+// sum_tree.cu, K7 minmax_tree.cu): the postfix tree program, the
+// per-thread tree evaluation over 16-byte word vectors, the BSI range leaf,
+// and the block reduction.
 //
-// A normalized count tree (leaves: a row of a field stack, or zero;
-// nodes: and / or / andnot / xor) reaches the kernels as a short postfix
-// program.  Each thread walks it over one uint4 (four 32-bit words) at a
+// A normalized count tree (leaves: a row of a field stack, zero, or a BSI
+// range condition; nodes: and / or / andnot / xor) reaches the kernels as
+// a short postfix program.  Each thread walks it over one uint4 (four 32-bit words) at a
 // time with a small stack, so no intermediate row is ever written to
 // device memory: every word of every leaf row is read once, combined in
 // registers/L1, popcounted and summed.  The program and the leaf base
@@ -24,6 +26,18 @@ enum : int {
   OP_OR = 3,
   OP_ANDNOT = 4,
   OP_XOR = 5,
+  OP_RANGE = 6,  // a BSI range leaf; its index into Leaves::range in bits 8+
+};
+
+// Range-leaf kinds; parallel/kernels.py keeps the same numbers.
+enum : int {
+  RANGE_EQ = 0,
+  RANGE_NEQ = 1,
+  RANGE_LT = 2,
+  RANGE_LTE = 3,
+  RANGE_GT = 4,
+  RANGE_GTE = 5,
+  RANGE_BETWEEN = 6,
 };
 
 // Limits; parallel/kernels.py checks every program against them (and
@@ -31,16 +45,133 @@ enum : int {
 constexpr int MAX_PROG = 128;
 constexpr int MAX_LEAVES = 32;
 constexpr int MAX_STACK = 16;
+constexpr int MAX_RANGES = 4;   // range leaves per tree
+constexpr int MAX_PLANES = 64;  // BSI depth up to 63, then the not-null plane
 
 struct TreeProg {
   int n;
   int ops[MAX_PROG];
 };
 
-// Base of each leaf row: that row's [S, W] words in its field stack.
+// The bit planes of one BSI field stack, and for a range leaf the
+// condition.  Plane i of a column position `off` (a uint4 offset into one
+// row's [S, W] words) is base[plane[i] * stride + off]; plane[depth] is
+// the not-null plane, and a plane missing from the stack (-1) reads as
+// zeros.  The predicate bits are data (the rebased value, bit i = plane
+// i), so one build serves every value.  The planes are stack rows named
+// here, never entries of the leaf table.
+struct RangeLeaf {
+  const uint4* base;         // the stack's row 0
+  unsigned long long stride;  // uint4 per stack row (S * W / 4)
+  unsigned long long lo;      // the predicate; BETWEEN's lower bound
+  unsigned long long hi;      // BETWEEN's upper bound
+  int kind;                   // RANGE_*
+  int depth;                  // value planes (0..63)
+  int plane[MAX_PLANES];
+};
+
+// Base of each leaf row (that row's [S, W] words in its field stack), and
+// the range leaves.
 struct Leaves {
   const uint4* base[MAX_LEAVES];
+  RangeLeaf range[MAX_RANGES];
 };
+
+__device__ __forceinline__ uint4 and4(uint4 a, uint4 b) {
+  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+}
+__device__ __forceinline__ uint4 or4(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ __forceinline__ uint4 andn4(uint4 a, uint4 b) {  // a & ~b
+  return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
+}
+
+// Plane i of a BSI stack at offset `off`: zeros for a missing plane.
+__device__ __forceinline__ uint4 load_plane(const RangeLeaf& r, int i,
+                                            size_t off) {
+  const int p = r.plane[i];
+  return p < 0 ? make_uint4(0u, 0u, 0u, 0u)
+               : __ldg(r.base + (size_t)p * r.stride + off);
+}
+
+// The range condition at U offsets: the bit-plane walks of
+// pilosa_tpu/ops/bsi.py (fragment.go rangeEQ/NEQ/LT/GT/Between), high bit
+// first.  The predicate bits are uniform across the grid, so each step's
+// branch is too; every plane word is read once per position, the U
+// positions' loads in flight together.
+template <int U>
+__device__ __forceinline__ void eval_range(const RangeLeaf& r, const size_t* off,
+                                           uint4* out) {
+  const int depth = r.depth;
+  const int kind = r.kind;
+  uint4 b[U], k1[U], k2[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    b[u] = load_plane(r, depth, off[u]);
+    k1[u] = k2[u] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  const bool eq = kind == RANGE_EQ || kind == RANGE_NEQ;
+  const bool lt = kind == RANGE_LT || kind == RANGE_LTE;
+  const bool gt = kind == RANGE_GT || kind == RANGE_GTE;
+  const bool allow_eq = kind == RANGE_LTE || kind == RANGE_GTE;
+  bool lz = true;  // lt: still in the predicate's leading zeros
+  for (int i = depth - 1; i >= 0; --i) {
+    const bool bit = (r.lo >> i) & 1ull;
+    const bool bit2 = (r.hi >> i) & 1ull;
+    uint4 row[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) row[u] = load_plane(r, i, off[u]);
+    if (eq) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) b[u] = bit ? and4(b[u], row[u]) : andn4(b[u], row[u]);
+    } else if (lt) {
+      if (i == 0 && !allow_eq) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          out[u] = bit ? andn4(b[u], andn4(row[u], k1[u])) : k1[u];
+        return;
+      }
+      if (!bit) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          b[u] = lz ? andn4(b[u], row[u]) : andn4(b[u], andn4(row[u], k1[u]));
+      } else if (i > 0) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) k1[u] = or4(k1[u], andn4(b[u], row[u]));
+      }
+      lz = lz && !bit;
+    } else if (gt) {
+      if (i == 0 && !allow_eq) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          out[u] = bit ? k1[u] : andn4(b[u], andn4(andn4(b[u], row[u]), k1[u]));
+        return;
+      }
+      if (bit) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) b[u] = andn4(b[u], andn4(andn4(b[u], row[u]), k1[u]));
+      } else if (i > 0) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) k1[u] = or4(k1[u], and4(b[u], row[u]));
+      }
+    } else {  // RANGE_BETWEEN: the >= lo and <= hi walks fused
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (bit) b[u] = andn4(b[u], andn4(andn4(b[u], row[u]), k1[u]));
+        else if (i > 0) k1[u] = or4(k1[u], and4(b[u], row[u]));
+        if (!bit2) b[u] = andn4(b[u], andn4(row[u], k2[u]));
+        else if (i > 0) k2[u] = or4(k2[u], andn4(b[u], row[u]));
+      }
+    }
+  }
+  if (kind == RANGE_NEQ) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) b[u] = andn4(load_plane(r, depth, off[u]), b[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) out[u] = b[u];
+}
 
 __device__ __forceinline__ uint4 combine4(int op, uint4 a, uint4 b) {
   switch (op) {
@@ -56,7 +187,10 @@ __device__ __forceinline__ uint4 combine4(int op, uint4 a, uint4 b) {
 }
 
 // Evaluate the program at uint4 offset `off` of every leaf row, with the
-// stack in thread-local memory (any program within the limits).
+// stack in thread-local memory (any program within the limits).  kRanges
+// false compiles the range leaf out: a kernel launched for a program
+// without one keeps the registers, and the occupancy, it had without it.
+template <bool kRanges = true>
 __device__ __forceinline__ uint4 eval_tree(const TreeProg& prog,
                                            const Leaves& leaves, size_t off) {
   uint4 stack[MAX_STACK];
@@ -66,6 +200,8 @@ __device__ __forceinline__ uint4 eval_tree(const TreeProg& prog,
     const int op = code & 0xff;
     if (op == OP_LEAF) {
       stack[sp++] = __ldg(leaves.base[code >> 8] + off);
+    } else if (kRanges && op == OP_RANGE) {
+      eval_range<1>(leaves.range[code >> 8], &off, &stack[sp++]);
     } else if (op == OP_ZERO) {
       stack[sp++] = make_uint4(0u, 0u, 0u, 0u);
     } else {
@@ -76,26 +212,34 @@ __device__ __forceinline__ uint4 eval_tree(const TreeProg& prog,
   return stack[0];
 }
 
-__device__ __forceinline__ uint4 load_item(int code, const Leaves& leaves,
-                                           size_t off) {
-  return (code & 0xff) == OP_LEAF ? __ldg(leaves.base[code >> 8] + off)
-                                  : make_uint4(0u, 0u, 0u, 0u);
+// One item of a chain (a row, zero or a range leaf) at U offsets.
+template <int U, bool kRanges = true>
+__device__ __forceinline__ void load_items(int code, const Leaves& leaves,
+                                           const size_t* off, uint4* v) {
+  const int op = code & 0xff;
+  if (op == OP_LEAF) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = __ldg(leaves.base[code >> 8] + off[u]);
+  } else if (kRanges && op == OP_RANGE) {
+    eval_range<U>(leaves.range[code >> 8], off, v);
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
-// A chain program is `item (item op)*` with items LEAF or ZERO: the
-// left-deep form of every n-ary Intersect/Union/Difference/Xor of rows.
-// At most two values are live, so it runs in registers, at U positions
-// per thread whose loads are all in flight together.
-template <int U>
+// A chain program is `item (item op)*` with items LEAF, ZERO or RANGE: the
+// left-deep form of every n-ary Intersect/Union/Difference/Xor of rows and
+// range conditions.  At most two values are live, so it runs in registers,
+// at U positions per thread whose loads are all in flight together.
+template <int U, bool kRanges = true>
 __device__ __forceinline__ void eval_chain(const TreeProg& prog,
                                            const Leaves& leaves,
                                            const size_t* off, uint4* acc) {
-#pragma unroll
-  for (int u = 0; u < U; ++u) acc[u] = load_item(prog.ops[0], leaves, off[u]);
+  load_items<U, kRanges>(prog.ops[0], leaves, off, acc);
   for (int pc = 1; pc < prog.n; pc += 2) {
     uint4 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) v[u] = load_item(prog.ops[pc], leaves, off[u]);
+    load_items<U, kRanges>(prog.ops[pc], leaves, off, v);
     const int op = prog.ops[pc + 1];
 #pragma unroll
     for (int u = 0; u < U; ++u) acc[u] = combine4(op, acc[u], v[u]);
@@ -129,7 +273,8 @@ __device__ __forceinline__ void block_add(unsigned int v,
 // Host side: whether a program has the chain form of eval_chain.
 static inline bool is_chain(const int* ops, int n_ops) {
   auto item = [](int code) {
-    return (code & 0xff) == OP_LEAF || (code & 0xff) == OP_ZERO;
+    return (code & 0xff) == OP_LEAF || (code & 0xff) == OP_ZERO ||
+           (code & 0xff) == OP_RANGE;
   };
   if (n_ops < 1 || n_ops % 2 == 0 || !item(ops[0])) return false;
   for (int pc = 1; pc < n_ops; pc += 2)
@@ -137,16 +282,47 @@ static inline bool is_chain(const int* ops, int n_ops) {
   return true;
 }
 
-// Host side: copy the program and leaf pointers into the by-value
-// parameter structs.  Returns false when they exceed the limits.
+// Host side: whether a plane table is well formed (depth 0..63, every
+// plane -1 or a row of the stack).
+static inline bool planes_ok(const RangeLeaf& r, int n_rows) {
+  if (r.depth < 0 || r.depth >= MAX_PLANES || (r.base == nullptr && n_rows > 0))
+    return false;
+  for (int i = 0; i <= r.depth; ++i)
+    if (r.plane[i] < -1 || r.plane[i] >= n_rows) return false;
+  return true;
+}
+
+// Host side: copy the program, the leaf pointers and the range leaves
+// (host array of n_ranges RangeLeaf, each with the row count of its stack
+// in range_rows) into the by-value parameter structs.  Returns false when
+// they exceed the limits or a leaf index or plane is out of bounds.
 static inline bool pack_args(const void* const* leaf_ptrs, int n_leaves,
-                             const int* ops, int n_ops, TreeProg* prog,
-                             Leaves* leaves) {
-  if (n_ops < 1 || n_ops > MAX_PROG || n_leaves < 0 || n_leaves > MAX_LEAVES)
+                             const void* ranges, const int* range_rows,
+                             int n_ranges, const int* ops, int n_ops,
+                             TreeProg* prog, Leaves* leaves) {
+  if (n_ops < 1 || n_ops > MAX_PROG || n_leaves < 0 || n_leaves > MAX_LEAVES ||
+      n_ranges < 0 || n_ranges > MAX_RANGES)
     return false;
   prog->n = n_ops;
-  for (int i = 0; i < n_ops; ++i) prog->ops[i] = ops[i];
+  for (int i = 0; i < n_ops; ++i) {
+    const int op = ops[i] & 0xff, arg = ops[i] >> 8;
+    if ((op == OP_LEAF && (arg < 0 || arg >= n_leaves)) ||
+        (op == OP_RANGE && (arg < 0 || arg >= n_ranges)) || op > OP_RANGE)
+      return false;
+    prog->ops[i] = ops[i];
+  }
   for (int i = 0; i < MAX_LEAVES; ++i)
     leaves->base[i] = i < n_leaves ? (const uint4*)leaf_ptrs[i] : nullptr;
+  const RangeLeaf* rs = (const RangeLeaf*)ranges;
+  for (int i = 0; i < MAX_RANGES; ++i) {
+    if (i < n_ranges) {
+      if (!planes_ok(rs[i], range_rows[i]) || rs[i].kind < RANGE_EQ ||
+          rs[i].kind > RANGE_BETWEEN)
+        return false;
+      leaves->range[i] = rs[i];
+    } else {
+      leaves->range[i] = RangeLeaf{};
+    }
+  }
   return true;
 }

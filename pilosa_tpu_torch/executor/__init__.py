@@ -4,6 +4,7 @@ from .executor import (
     FieldNotFoundError,
     IndexNotFoundError,
     QueryResponse,
+    ValCount,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "FieldNotFoundError",
     "IndexNotFoundError",
     "QueryResponse",
+    "ValCount",
 ]

@@ -1,8 +1,9 @@
-"""The query executor: PQL call dispatch, the fused Count lane and the host
-bitmap lane.
+"""The query executor: PQL call dispatch, the fused Count, TopN and BSI
+lanes and the host bitmap lane.
 
-The port of the Count slice of ``pilosa_tpu/executor/executor.py``
-(upstream Pilosa: executor.go:84-2890), single node:
+The port of the Count, TopN and BSI slices of
+``pilosa_tpu/executor/executor.py`` (upstream Pilosa: executor.go:84-2890),
+single node:
 
 - ``execute`` parses PQL and dispatches each call (executeCall
   :256-295).
@@ -18,7 +19,15 @@ The port of the Count slice of ``pilosa_tpu/executor/executor.py``
   O(1) lane or queued into the engine's batcher, and a future
   (``_QueryFuture``) comes back without waiting for the card.
 - The host bitmap lane evaluates Row/Union/Intersect/Difference/Xor/Not
-  per shard on the fragments' row mirrors and merges the per-shard rows.
+  and Range (a BSI condition through ``ops/bsi.py``, a time-quantum row
+  over its view cover) per shard on the fragments' row mirrors and merges
+  the per-shard rows.
+- Sum/Min/Max (executor.go :1756-1884): with an engine, one fused launch
+  (``TorchEngine.sum`` / ``min_max``; identical concurrent calls collapse
+  into one, keyed on the write sequence) and a ``ValCount``; without one,
+  or when the engine declines the filter (``UnsupportedLowering``), the
+  per-shard host lane.  ``host_fallbacks`` counts the Count/Sum/Min/Max
+  calls an engine declined to the host lane.
 - TopN (executor.go :694-828): with an engine, one fused device TopN
   (``TorchEngine.topn_full``, or the host-only ``topn_cache_only`` with no
   src); when that declines (an attribute or Tanimoto filter, or a
@@ -44,13 +53,16 @@ from typing import Dict, List, Optional, Tuple
 from .. import pql
 from ..core import cache as cache_mod
 from ..core import fragment as frag_mod
+from ..core import timequantum
 from ..core.field import FIELD_TYPE_BOOL, FIELD_TYPE_INT
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.row import Row
-from ..core.view import VIEW_STANDARD
+from ..core.view import VIEW_STANDARD, view_bsi_name
+from ..ops import bitops
+from ..ops import bsi as bsi_ops
 from ..parallel.engine import UnsupportedLowering
 from ..parallel.singleflight import SingleFlight
-from ..pql import Call, Condition, Query
+from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition, Query
 
 TIME_FORMAT = "%Y-%m-%dT%H:%M"  # pilosa.TimeFormat
 
@@ -66,10 +78,6 @@ _WRITE_CALLS = {"Set", "Clear", "SetRowAttrs", "SetColumnAttrs", "Store", "Clear
 # Calls of the JAX executor this slice does not run yet, and the
 # ROADMAP.md item that ports each.
 _UNPORTED = {
-    "Sum": "Queue 1 item 9 (BSI)",
-    "Min": "Queue 1 item 9 (BSI)",
-    "Max": "Queue 1 item 9 (BSI)",
-    "Range": "Queue 1 item 9 (BSI and time-quantum Range)",
     "Rows": "Queue 1 item 11 (GroupBy and Rows)",
     "GroupBy": "Queue 1 item 11 (GroupBy and Rows)",
     "Store": "Queue 1 item 6 (write path)",
@@ -91,6 +99,39 @@ class IndexNotFoundError(Error):
 
 class FieldNotFoundError(Error):
     pass
+
+
+class ValCount:
+    """Sum/Min/Max result (executor.go ValCount :2652-2696)."""
+
+    __slots__ = ("val", "count")
+
+    def __init__(self, val: int = 0, count: int = 0):
+        self.val = val
+        self.count = count
+
+    def add(self, other: "ValCount") -> "ValCount":
+        return ValCount(self.val + other.val, self.count + other.count)
+
+    def smaller(self, other: "ValCount") -> "ValCount":
+        if self.count == 0 or (other.val < self.val and other.count > 0):
+            return other
+        return ValCount(self.val, self.count)
+
+    def larger(self, other: "ValCount") -> "ValCount":
+        if self.count == 0 or (other.val > self.val and other.count > 0):
+            return other
+        return ValCount(self.val, self.count)
+
+    def __eq__(self, other):
+        return (isinstance(other, ValCount) and self.val == other.val
+                and self.count == other.count)
+
+    def __repr__(self):
+        return f"ValCount(val={self.val}, count={self.count})"
+
+    def to_dict(self):
+        return {"value": self.val, "count": self.count}
 
 
 class QueryResponse:
@@ -234,14 +275,17 @@ class Executor:
         # Parsed-query LRU for read-only queries (writes re-validate).
         self._parse_cache: "OrderedDict[str, Query]" = OrderedDict()
         self._parse_lock = threading.Lock()
-        # index -> (shard_epoch, default shard list).
-        self._default: Dict[str, Tuple[int, List[int]]] = {}
+        # index -> (availability token, default shard list).
+        self._default: Dict[str, Tuple[tuple, List[int]]] = {}
         # Identical concurrent TopNs collapse into one launch.
         self._sflight = SingleFlight()
         # Deferred queries re-executed synchronously after an item error
         # (_QueryFuture._fallback).
         self.async_fallbacks = 0
         self._fallback_lock = threading.Lock()
+        # Count/Sum/Min/Max calls the engine declined (UnsupportedLowering)
+        # and the host lane served.
+        self.host_fallbacks = 0
 
     def _parse_cached(self, s: str) -> Query:
         with self._parse_lock:
@@ -365,13 +409,23 @@ class Executor:
         return out
 
     def _default_shards(self, index: str) -> List[int]:
-        """The index's available-shard list, cached behind its shard epoch."""
-        epoch = self.holder.shard_epoch(index)
+        """The index's available-shard list, cached against (shard epoch,
+        the fields' remote-availability versions, the field count): a
+        fragment created or removed moves the epoch, a remote-availability
+        change moves a field's ``avail_version`` (executor.py:786-806)."""
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError(index)
+        token = (
+            self.holder.shard_epoch(index),
+            sum(f.avail_version for f in idx.fields.values()),
+            len(idx.fields),
+        )
         cached = self._default.get(index)
-        if cached is not None and cached[0] == epoch:
+        if cached is not None and cached[0] == token:
             return cached[1]
-        shards = [int(s) for s in self.holder.index(index).available_shards()]
-        self._default[index] = (epoch, shards)
+        shards = [int(s) for s in idx.available_shards()]
+        self._default[index] = (token, shards)
         return shards
 
     # -- dispatch (executor.go executeCall :245-295) -----------------------
@@ -389,6 +443,10 @@ class Executor:
             return self._execute_clear_bit(index, c)
         if name == "TopN":
             return self._execute_topn(index, c, shards)
+        if name == "Sum":
+            return self._execute_sum(index, c, shards)
+        if name in ("Min", "Max"):
+            return self._execute_min_max(index, c, shards, name == "Min")
         if name in _UNPORTED:
             _unported(name)
         return self._execute_bitmap_call(index, c, shards)
@@ -431,6 +489,8 @@ class Executor:
             return self._execute_nary_shard(index, c, shard, "xor", empty_ok=True)
         if name == "Not":
             return self._execute_not_shard(index, c, shard)
+        if name == "Range":
+            return self._execute_range_shard(index, c, shard)
         if name in _UNPORTED:
             _unported(name)
         raise Error(f"unknown call: {name}")
@@ -482,6 +542,8 @@ class Executor:
         fused = self._mesh_count(index, child, shards)
         if fused is not None:
             return fused
+        if self.engine is not None and shards:
+            self.host_fallbacks += 1
         return sum(
             self._execute_bitmap_call_shard(index, child, shard).count()
             for shard in shards
@@ -548,6 +610,190 @@ class Executor:
             return self.engine.count(index, child, list(shards))
         except UnsupportedLowering:
             return None
+
+    # -- Range (executor.go :1233-1440) ------------------------------------
+
+    def _execute_range_shard(self, index, c: Call, shard: int) -> Row:
+        if c.has_condition_arg():
+            return self._execute_bsi_range_shard(index, c, shard)
+        field_name = self._field_arg(c)
+        f = self._field(index, field_name)
+        row_id, ok = c.uint_arg(field_name)
+        if not ok:
+            raise Error("Range() must specify a row")
+        start_str = c.args.get("_start")
+        end_str = c.args.get("_end")
+        if not isinstance(start_str, str):
+            raise Error("Range() start time required")
+        if not isinstance(end_str, str):
+            raise Error("Range() end time required")
+        try:
+            start = dt.datetime.strptime(start_str, TIME_FORMAT)
+            end = dt.datetime.strptime(end_str, TIME_FORMAT)
+        except ValueError:
+            raise Error("cannot parse Range() time") from None
+        q = f.time_quantum()
+        if not q:
+            return Row()
+        row = Row()
+        for view_name in timequantum.views_by_time_range(VIEW_STANDARD, start, end, q):
+            frag = self.holder.fragment(index, field_name, view_name, shard)
+            if frag is not None:
+                row = row.union(frag.row(row_id))
+        return row
+
+    def _execute_bsi_range_shard(self, index, c: Call, shard: int) -> Row:
+        """A BSI condition on one shard's planes (``ops/bsi.py`` over the
+        fragment's device mirror), with the reference's special cases."""
+        if len(c.args) == 0:
+            raise Error("Range(): condition required")
+        if len(c.args) > 1:
+            raise Error("Range(): too many arguments")
+        (field_name, cond), = c.args.items()
+        if not isinstance(cond, Condition):
+            raise Error(f"Range(): {field_name}: expected condition argument")
+        bsig = self._field(index, field_name).bsi_group(field_name)
+        if bsig is None:
+            raise Error(f"field not found: {field_name}")
+        frag = self.holder.fragment(index, field_name, view_bsi_name(field_name), shard)
+        if frag is None:
+            return Row()
+        depth = bsig.bit_depth()
+        planes = frag.device_planes(depth)
+
+        def wrap(words):
+            return Row({shard: words})
+
+        if cond.op == NEQ and cond.value is None:  # `!= null` (executor.go:1355-1369)
+            return wrap(bsi_ops.not_null(planes))
+        if cond.op == BETWEEN:
+            predicates = cond.int_slice_value()
+            if len(predicates) != 2:
+                raise Error("Range(): BETWEEN condition requires exactly two integer values")
+            lo, hi, out_of_range = bsig.base_value_between(*predicates)
+            if out_of_range:
+                return Row()
+            if predicates[0] <= bsig.min and predicates[1] >= bsig.max:
+                return wrap(bsi_ops.not_null(planes))
+            return wrap(bsi_ops.range_between(planes, bsi_ops.to_bits(lo, depth),
+                                              bsi_ops.to_bits(hi, depth)))
+        if not isinstance(cond.value, int) or isinstance(cond.value, bool):
+            raise Error("Range(): conditions only support integer values")
+        value = cond.value
+        base, out_of_range = bsig.base_value(cond.op, value)
+        if out_of_range and cond.op != NEQ:
+            return Row()
+        # Whole-range LT/GT collapse to the not-null row (executor.go:1420).
+        if ((cond.op == LT and value > bsig.max) or (cond.op == LTE and value >= bsig.max)
+                or (cond.op == GT and value < bsig.min) or (cond.op == GTE and value <= bsig.min)
+                or (out_of_range and cond.op == NEQ)):
+            return wrap(bsi_ops.not_null(planes))
+        bits = bsi_ops.to_bits(base, depth)
+        if cond.op == EQ:
+            return wrap(bsi_ops.range_eq(planes, bits))
+        if cond.op == NEQ:
+            return wrap(bsi_ops.range_neq(planes, bits))
+        if cond.op in (LT, LTE):
+            return wrap(bsi_ops.range_lt(planes, bits, cond.op == LTE))
+        if cond.op in (GT, GTE):
+            return wrap(bsi_ops.range_gt(planes, bits, cond.op == GTE))
+        raise Error(f"Range(): unsupported operator {cond.op}")
+
+    # -- Sum, Min, Max (executor.go :1756-1884) ----------------------------
+
+    def _bsi_shard_ctx(self, index, c: Call, shard: int):
+        """(fragment, bsig, filter words) of one shard for the host lane's
+        Sum/Min/Max, or None when the shard has nothing to read."""
+        field_name = c.args.get("field")
+        if not field_name:
+            raise Error(f"{c.name}(): field required")
+        if len(c.children) > 1:
+            raise Error(f"{c.name}() only accepts a single bitmap input")
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx is not None else None
+        bsig = f.bsi_group(field_name) if f is not None else None
+        if bsig is None:
+            return None
+        frag = self.holder.fragment(index, field_name, view_bsi_name(field_name), shard)
+        if frag is None:
+            return None
+        if c.children:
+            seg = self._execute_bitmap_call_shard(index, c.children[0], shard).segment(shard)
+            words = bitops.empty_row(frag.device) if seg is None else seg.to(frag.device)
+        else:
+            words = bitops.full_row(frag.device)
+        return frag, bsig, words
+
+    def _bsi_host_lane(self, index, c: Call, shards, map_fn, reduce_fn) -> ValCount:
+        if self.engine is not None and shards:
+            self.host_fallbacks += 1
+        result = ValCount()
+        for shard in shards:
+            ctx = self._bsi_shard_ctx(index, c, shard)
+            if ctx is not None:
+                result = reduce_fn(result, map_fn(*ctx))
+        return ValCount() if result.count == 0 else result
+
+    def _execute_sum(self, index, c: Call, shards) -> ValCount:
+        fused = self._mesh_sum(index, c, shards)
+        if fused is not None:
+            return ValCount() if fused.count == 0 else fused
+
+        def map_fn(frag, bsig, filt):
+            depth = bsig.bit_depth()
+            counts, n = bsi_ops.sum_counts(frag.device_planes(depth), filt)
+            counts = counts.tolist()
+            n = int(n)
+            return ValCount(sum(int(counts[i]) << i for i in range(depth)) + n * bsig.min, n)
+
+        return self._bsi_host_lane(index, c, shards, map_fn, ValCount.add)
+
+    def _bsi_flight(self, kind, index, c: Call, shards, run):
+        """Run ``run(field_name, filter_call)`` of a fused Sum/Min/Max as one
+        flight per (call, shards, write sequence), or None for the host
+        lane: no engine, a missing field argument or several inputs (the
+        host lane raises), or a filter the engine declines."""
+        if self.engine is None or not shards:
+            return None
+        field_name = c.args.get("field")
+        if not field_name or len(c.children) > 1:
+            return None
+        # The write sequence before any derived state: a caller whose own
+        # write completed never joins a flight computed before it.
+        seq = frag_mod.WRITE_SEQ.v
+        filter_call = c.children[0] if c.children else None
+        try:
+            return self._sflight.do((kind, seq, index, str(c), tuple(shards)),
+                                    lambda: run(field_name, filter_call))
+        except UnsupportedLowering:
+            return None
+
+    def _mesh_sum(self, index, c: Call, shards) -> Optional[ValCount]:
+        """Fused BSI Sum through the engine (one K6 launch), or None."""
+        res = self._bsi_flight("sum", index, c, shards,
+                               lambda fld, filt: self.engine.sum(index, fld, filt, list(shards)))
+        return None if res is None else ValCount(*res)
+
+    def _execute_min_max(self, index, c: Call, shards, is_min: bool) -> ValCount:
+        fused = self._mesh_min_max(index, c, shards, is_min)
+        if fused is not None:
+            return ValCount() if fused.count == 0 else fused
+
+        def map_fn(frag, bsig, filt):
+            planes = frag.device_planes(bsig.bit_depth())
+            val, n = (bsi_ops.min_valcount if is_min else bsi_ops.max_valcount)(planes, filt)
+            n = int(n)
+            return ValCount() if n == 0 else ValCount(int(val) + bsig.min, n)
+
+        return self._bsi_host_lane(index, c, shards, map_fn,
+                                   ValCount.smaller if is_min else ValCount.larger)
+
+    def _mesh_min_max(self, index, c: Call, shards, is_min: bool) -> Optional[ValCount]:
+        """Fused BSI Min/Max through the engine (one K7 launch), or None."""
+        res = self._bsi_flight(
+            ("minmax", is_min), index, c, shards,
+            lambda fld, filt: self.engine.min_max(index, fld, filt, list(shards), is_min))
+        return None if res is None else ValCount(*res)
 
     # -- TopN (executor.go :694-828) ---------------------------------------
 

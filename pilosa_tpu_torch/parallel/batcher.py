@@ -42,8 +42,11 @@ direct path, exactly the unbatched Count); concurrent queries batch.
 Left for later slices: the aggregate lanes (``submit_op``: Sum/Min/Max/
 TopN/GroupBy items fused into one program with their drain-mates, the
 ``fused``/``solo`` groups of the reference's ``_plan_drain``) need
-``fusion.py`` and BSI (ROADMAP.md Queue 1 items 12 and 9); the query-plan
-and trace stamps of every stage are item 14.
+``fusion.py`` (ROADMAP.md Queue 1 item 12; the BSI ops they fuse came
+with item 9, and Sum/Min/Max call the engine directly until then); the
+query-plan and trace stamps of every stage are item 14.  A Count whose
+tree holds a BSI range leaf joins a drain like any other:
+``count_many_async`` runs it on K1/K2 beside the batch's K5 launch.
 """
 
 from __future__ import annotations
@@ -205,12 +208,13 @@ class CountBatcher:
         """An aggregate op (Sum/Min/Max/TopN/GroupBy) through the batch
         lane, fused with its drain-mates into one program.  Not ported: it
         needs the whole-program planner ``fusion.py`` (ROADMAP.md Queue 1
-        item 12) and the BSI ops (item 9); with it come the reference's
-        ``_direct_op``, ``_memo_probe_op`` and the ``fused``/``solo``
-        groups of ``_plan_drain``."""
+        item 12); with it come the reference's ``_direct_op``,
+        ``_memo_probe_op`` and the ``fused``/``solo`` groups of
+        ``_plan_drain``.  Until then the executor's Sum/Min/Max call
+        ``TorchEngine.sum`` / ``min_max`` directly."""
         raise NotImplementedError(
             f"batched {kind} is not ported to pilosa_tpu_torch yet: "
-            "ROADMAP.md Queue 1 item 12 (whole-program fusion) and item 9 (BSI)")
+            "ROADMAP.md Queue 1 item 12 (whole-program fusion)")
 
     def _memo_probe(self, index, call, shards):
         """engine.memo_probe, duck-typed: the batcher also runs against

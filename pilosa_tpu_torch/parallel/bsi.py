@@ -1,0 +1,189 @@
+"""BSI Sum, Min and Max over a resident field stack: K6 ``sum_tree`` and K7
+``minmax_tree``, each beside its plain twin, and the host decoders.
+
+The BSI field's planes live in its ``bsig_<field>`` view stack
+``int32[R, S, WORDS]`` like any other view; ``planes`` names the stack
+rows of value planes 0..depth-1 and then the not-null plane (-1 for a
+plane the stack lacks, which reads as zeros).  The optional filter is a
+normalized tree of ``kernels.py`` (range leaves included) over ``mats``;
+None means every column.  The mask is the requested-shard gate int32[S].
+
+- ``sum_tree`` -> int64[depth + 1]: popcount(plane_i & notnull & filter
+  & mask) per value plane, then the considered count; ``decode_sum`` turns
+  it into (total, count) with Python ints.  It replaces the XLA program
+  ``pilosa_tpu/parallel/kernels.py:474 sum_tree``.
+- ``minmax_tree`` -> (values int64[S], counts int64[S]): per shard the
+  extreme value among the considered columns and how many hold it (count
+  0: none); ``decode_min_max`` reduces the shards in canonical order.  It
+  replaces ``kernels.py:511 minmax_tree``, whose value comes as (hi, lo)
+  halves; here it is one int64.
+
+For tensors on the card each wrapper launches its hand-written CUDA kernel
+(``csrc/sum_tree.cu``, ``csrc/minmax_tree.cu``) or raises; for tensors on
+the CPU it evaluates the plain PyTorch version (``ops/bsi.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops import bsi as bsi_ops
+from . import kernels
+from .kernels import _I, _P, _TREE_ARGS
+
+
+def _identity(words):
+    return words
+
+
+def _filter_plain(prog, mats, mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The masked filter rows int32[S, W]: every column of the requested
+    shards for ``prog`` None."""
+    if prog is None:
+        f = torch.full(like.shape, -1, dtype=torch.int32, device=like.device)
+    else:
+        f = None if prog[0] == "zero" else kernels.eval_prog(prog, mats, _identity)
+        if f is None:
+            f = torch.zeros(like.shape, dtype=torch.int32, device=like.device)
+    return torch.where(mask[:, None] != 0, f, torch.zeros_like(f))
+
+
+def _planes_plain(plane_mat: torch.Tensor, planes) -> torch.Tensor:
+    return kernels.range_planes(plane_mat, planes, _identity)
+
+
+def sum_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                   plane_mat: torch.Tensor, planes) -> torch.Tensor:
+    """int64[depth + 1] plane counts and considered count, in plain PyTorch
+    ops: the CPU path and the reference K6 is held against."""
+    p = _planes_plain(plane_mat, planes)
+    counts, n = bsi_ops.sum_counts(p, _filter_plain(prog, mats, mask, p[0]))
+    return torch.cat([counts, n.reshape(1)])
+
+
+def minmax_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                      plane_mat: torch.Tensor, planes, is_min: bool):
+    """(values int64[S], counts int64[S]) in plain PyTorch ops: the CPU
+    path and the reference K7 is held against."""
+    p = _planes_plain(plane_mat, planes)
+    return bsi_ops.minmax_valcount_nd(p, _filter_plain(prog, mats, mask, p[0]), is_min)
+
+
+def _launch_args(code: Optional[kernels.Postfix], mats, mask: torch.Tensor,
+                 plane_mat: torch.Tensor, planes):
+    """Checks shared by K6 and K7, then (tree args, the planes' RangeLeaf,
+    S, W)."""
+    if not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 1:
+        raise ValueError("mask must be an int32[S] tensor on the card")
+    S = mask.shape[0]
+    W = kernels.check_stacks(list(mats) + [plane_mat], S)
+    if code is None:
+        tree = (None, 0, None, None, 0, None, 0)
+    else:
+        for m, r in code.leaves:
+            if not 0 <= r < mats[m].shape[0]:
+                raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
+        tree = kernels._c_leaves(code, mats)
+    return tree, kernels.c_planes(plane_mat, planes), S, W
+
+
+def sum_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                  mask: torch.Tensor, plane_mat: torch.Tensor, planes) -> torch.Tensor:
+    """Launch K6 on the card, on the current stream, without waiting for
+    the device: int64[depth + 1]."""
+    tree, pl, S, W = _launch_args(code, mats, mask, plane_mat, planes)
+    out = torch.zeros(len(planes), dtype=torch.int64, device=mask.device)
+    fn = kernels._lib_fn("sum_tree", "sum_tree", _TREE_ARGS + [_P, _I, _P, _I, _I, _P, _P])
+    err = fn(*tree, ctypes.byref(pl), plane_mat.shape[0], mask.contiguous().data_ptr(), S, W,
+             out.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sum_tree launch failed: cudaError {err}")
+    sum_tree_cuda.launches += 1
+    return out
+
+
+sum_tree_cuda.launches = 0
+
+
+def minmax_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                     mask: torch.Tensor, plane_mat: torch.Tensor, planes, is_min: bool):
+    """Launch K7 on the card, on the current stream, without waiting for
+    the device: (values int64[S], counts int64[S])."""
+    tree, pl, S, W = _launch_args(code, mats, mask, plane_mat, planes)
+    vals = torch.empty(S, dtype=torch.int64, device=mask.device)
+    counts = torch.empty(S, dtype=torch.int64, device=mask.device)
+    fn = kernels._lib_fn("minmax_tree", "minmax_tree",
+                         _TREE_ARGS + [_P, _I, _I, _P, _I, _I, _P, _P, _P])
+    err = fn(*tree, ctypes.byref(pl), plane_mat.shape[0], int(bool(is_min)),
+             mask.contiguous().data_ptr(), S, W, vals.data_ptr(), counts.data_ptr(),
+             torch.cuda.current_stream(mask.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"minmax_tree launch failed: cudaError {err}")
+    minmax_tree_cuda.launches += 1
+    return vals, counts
+
+
+minmax_tree_cuda.launches = 0
+
+
+def _compiled(prog) -> Optional[kernels.Postfix]:
+    if prog is None:
+        return None
+    code = kernels.compile_prog(prog)
+    kernels.check_prog(code)
+    return code
+
+
+def sum_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+             plane_mat: torch.Tensor, planes) -> torch.Tensor:
+    """BSI Sum's counts: int64[depth + 1].  CUDA tensors launch K6 or
+    raise; CPU tensors take the plain version."""
+    code = _compiled(prog)
+    if mask.is_cuda:
+        return sum_tree_cuda(code, mats, mask, plane_mat, planes)
+    return sum_tree_plain(prog, mats, mask, plane_mat, planes)
+
+
+def minmax_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                plane_mat: torch.Tensor, planes, is_min: bool):
+    """BSI Min or Max per shard: (values int64[S], counts int64[S]).  CUDA
+    tensors launch K7 or raise; CPU tensors take the plain version."""
+    code = _compiled(prog)
+    if mask.is_cuda:
+        return minmax_tree_cuda(code, mats, mask, plane_mat, planes, is_min)
+    return minmax_tree_plain(prog, mats, mask, plane_mat, planes, is_min)
+
+
+# -- host decoders (pilosa_tpu/parallel/fusion.py:164-190) ------------------
+
+
+def decode_sum(host, depth: int, base_min: int):
+    """int64[depth + 1] counts (K6's readback) -> (total, count), the
+    weighted sum in Python ints: the reference's ``decode_sum``."""
+    host = np.asarray(host)
+    n = int(host[depth])
+    total = sum(int(host[i]) << i for i in range(depth))
+    return total + n * base_min, n
+
+
+def decode_min_max(host, canonical, base_min: int, is_min: bool):
+    """(values[S], counts[S]) (K7's readback) -> (value, count): the
+    reference's ``decode_min_max``, ValCount's smaller/larger reduce over
+    the shards in canonical order, so on a tie across shards the first
+    shard's count stands.  (0, 0) when no column was considered."""
+    vals, counts = host
+    best_val, best_n = 0, 0
+    for si in range(len(canonical)):
+        n = int(counts[si])
+        if n == 0:
+            continue
+        val = int(vals[si])
+        if best_n == 0 or (val < best_val if is_min else val > best_val):
+            best_val, best_n = val, n
+    if best_n == 0:
+        return 0, 0
+    return best_val + base_min, best_n

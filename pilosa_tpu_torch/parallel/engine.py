@@ -1,11 +1,15 @@
-"""TorchEngine: fused Count(tree) and TopN over device-resident field stacks.
+"""TorchEngine: fused Count(tree), TopN and BSI Sum/Min/Max over
+device-resident field stacks.
 
-The port of the Count and TopN slices of ``pilosa_tpu/parallel/engine.py``
-(``MeshEngine``).  Per Count query:
+The port of the Count, TopN and BSI slices of
+``pilosa_tpu/parallel/engine.py`` (``MeshEngine``).  Per Count query:
 
 1. the call tree is lowered to a normalized program over a list of field
    stacks ``int32[R, S, WORDS]`` — S the index's canonical shard axis,
-   R the view's row table — with row indices as plain integers;
+   R the view's row table — with row indices as plain integers; a BSI
+   ``Range`` condition is one range leaf over its ``bsig_<field>`` stack's
+   planes, and a time-quantum ``Range`` the OR of one row leaf per view
+   of the minimal view cover;
 2. ``_sparse_plan`` combines the stacks' exact block-occupancy summaries
    through the tree on the host; when at most ``sparse_threshold`` of the
    requested blocks survive, the count runs on K2 (``sparse.py``) over
@@ -35,8 +39,14 @@ row, a replaced or removed fragment, a new shard axis, or a storage load
 past the sync point.  ``IngestSyncer`` runs the same sync off the query
 path after bulk imports.
 
+BSI (``sum``, ``min_max``): the filter tree and the field's planes go to
+one launch of K6 ``bsi.sum_tree`` (per-plane counts, summed on the host in
+Python ints) or K7 ``bsi.minmax_tree`` (per-shard extreme and count,
+reduced on the host).
+
 Serving (``count_many``, the result memo, ``batcher()``): K Counts run as
-one K5 launch (``kernels.count_batch_tree``) with one readback; identical
+one K5 launch (``kernels.count_batch_tree``) with one readback (a tree
+with a range leaf runs on K1 or K2 beside it: K5 takes none); identical
 (query, shard set) entries of a batch are evaluated once and fanned back
 out; a batch that dedups to one query takes the scalar path above (K1, or
 K2 through the sparse plan).  The result memo answers a repeat of a
@@ -58,11 +68,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import timequantum
 from ..core.cache import pair_sort_key
 from ..core.index import EXISTENCE_FIELD_NAME
-from ..core.view import VIEW_STANDARD
+from ..core.view import VIEW_STANDARD, view_bsi_name
 from ..ops import bitops
-from ..pql import Call
+from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
+from . import bsi as bsi_mod
 from . import kernels
 from . import sparse as sparse_mod
 from .mesh import host_stack, put_stack, resolve_device, shard_mask
@@ -388,6 +400,8 @@ class TorchEngine:
         # another entry of the same batch (batch CSE).
         self.batch_dispatches = 0
         self.batch_cse_deduped = 0
+        # Batch entries K5 declined (a range leaf), run on K1 or K2 instead.
+        self.batch_declines = 0
 
     # -- canonical shard axis ---------------------------------------------
 
@@ -717,6 +731,10 @@ class TorchEngine:
                 raise UnsupportedLowering("Not() requires a single input row")
             exist = self._lower_row(index, EXISTENCE_FIELD_NAME, 0, lw)
             return ("andnot", exist, self._lower(index, c.children[0], lw))
+        if name == "Range" and c.has_condition_arg():
+            return self._lower_range(index, c, lw)
+        if name == "Range":
+            return self._lower_time_range(index, c, lw)
         raise UnsupportedLowering(f"no device lowering for {name}()")
 
     @staticmethod
@@ -739,6 +757,112 @@ class TorchEngine:
         if ridx is None:
             return self._lower_zero()
         return ("row", lw.add_matrix(stack), ridx)
+
+    # -- BSI and time-quantum Range (pilosa_tpu/parallel/engine.py:2383-2558)
+
+    def _bsi_group(self, index: str, field_name: str):
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx is not None else None
+        return f.bsi_group(field_name) if f is not None else None
+
+    @staticmethod
+    def _plane_spec(stack: _FieldStack, depth: int) -> Tuple[int, ...]:
+        """The stack rows of BSI planes 0..depth (the not-null plane last),
+        -1 for a plane the stack lacks."""
+        return tuple(stack.row_index.get(r, -1) for r in range(depth + 1))
+
+    def _lower_range(self, index: str, c: Call, lw: _Lowering):
+        """A BSI Range condition: one range leaf, with the special cases
+        of the host lane (executor.go:1309-1440): ``!= null`` and a bound
+        past min/max or a BETWEEN covering [min, max] are the not-null
+        row, an out-of-range predicate is zero.  A malformed condition is
+        UnsupportedLowering: the host lane reports its error."""
+        if len(c.args) != 1:
+            raise UnsupportedLowering("Range() takes one condition")
+        (field_name, cond), = c.args.items()
+        if not isinstance(cond, Condition):
+            raise UnsupportedLowering("Range(): expected a condition argument")
+        bsig = self._bsi_group(index, field_name)
+        if bsig is None:
+            raise UnsupportedLowering(f"field not found: {field_name!r}")
+        depth = bsig.bit_depth()
+        stack = lw.stack_for(index, field_name, view_bsi_name(field_name))
+        if stack is None:
+            return self._lower_zero()
+        slot = lw.add_matrix(stack)
+        planes = self._plane_spec(stack, depth)
+
+        def not_null():
+            return self._lower_zero() if planes[depth] < 0 else ("row", slot, planes[depth])
+
+        if cond.op == NEQ and cond.value is None:
+            return not_null()
+        if cond.op == BETWEEN:
+            try:
+                bounds = cond.int_slice_value()
+            except (TypeError, ValueError):
+                raise UnsupportedLowering("Range(): BETWEEN takes two integers") from None
+            if len(bounds) != 2:
+                raise UnsupportedLowering("Range(): BETWEEN takes two integers")
+            lo, hi, out_of_range = bsig.base_value_between(*bounds)
+            if out_of_range:
+                return self._lower_zero()
+            if bounds[0] <= bsig.min and bounds[1] >= bsig.max:
+                return not_null()
+            return ("range", "between", slot, planes, lo, hi)
+        value = cond.value
+        kind = {EQ: "eq", NEQ: "neq", LT: "lt", LTE: "lte", GT: "gt", GTE: "gte"}.get(cond.op)
+        if kind is None or not isinstance(value, int) or isinstance(value, bool):
+            raise UnsupportedLowering("Range(): conditions only support integer values")
+        base, out_of_range = bsig.base_value(cond.op, value)
+        if out_of_range and cond.op != NEQ:
+            return self._lower_zero()
+        if ((cond.op == LT and value > bsig.max) or (cond.op == LTE and value >= bsig.max)
+                or (cond.op == GT and value < bsig.min) or (cond.op == GTE and value <= bsig.min)
+                or (out_of_range and cond.op == NEQ)):
+            return not_null()
+        return ("range", kind, slot, planes, base, 0)
+
+    def _lower_time_range(self, index: str, c: Call, lw: _Lowering):
+        """Time-quantum Range: the OR of the row over the minimal view cover
+        (executor.go executeRangeShard :1233-1307), one row leaf per view
+        stack, in the same launch.  A cover past the kernels' leaf table
+        declines at dispatch (UnsupportedLowering), to the host lane."""
+        try:
+            field_name = c.field_arg()
+            row_id, ok = c.uint_arg(field_name)
+        except ValueError as e:
+            raise UnsupportedLowering(str(e)) from None
+        if not ok:
+            raise UnsupportedLowering("Range() requires a row id")
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx is not None else None
+        if f is None:
+            raise UnsupportedLowering(f"field not found: {field_name!r}")
+        start_str, end_str = c.args.get("_start"), c.args.get("_end")
+        if not isinstance(start_str, str) or not isinstance(end_str, str):
+            raise UnsupportedLowering("Range() time bounds required")
+        try:
+            start = timequantum.parse_timestamp(start_str)
+            end = timequantum.parse_timestamp(end_str)
+        except ValueError:
+            raise UnsupportedLowering("cannot parse Range() time") from None
+        q = f.time_quantum()
+        if not q:
+            return self._lower_zero()
+        leaves = []
+        for view_name in timequantum.views_by_time_range(VIEW_STANDARD, start, end, q):
+            if f.view(view_name) is None:
+                continue
+            stack = lw.stack_for(index, field_name, view_name)
+            if stack is None:
+                continue
+            ridx = stack.row_index.get(row_id)
+            if ridx is not None:
+                leaves.append(("row", lw.add_matrix(stack), ridx))
+        if not leaves:
+            return self._lower_zero()
+        return leaves[0] if len(leaves) == 1 else ("or",) + tuple(leaves)
 
     # -- fused evaluation ---------------------------------------------------
 
@@ -791,7 +915,7 @@ class TorchEngine:
 
     # Call names whose referenced fields _collect_fields can enumerate:
     # what the engine lowers (lowerable), so every fused Count is eligible.
-    _MEMO_CALLS = frozenset(("Row", "Union", "Intersect", "Difference", "Xor", "Not"))
+    _MEMO_CALLS = frozenset(("Row", "Union", "Intersect", "Difference", "Xor", "Not", "Range"))
 
     def _collect_fields(self, c: Call, out=None):
         """Every field a tree reads, or None when the tree has a shape the
@@ -800,11 +924,13 @@ class TorchEngine:
             out = set()
         if c.name not in self._MEMO_CALLS:
             return None
-        if c.name == "Row":
+        if c.name == "Row" or (c.name == "Range" and not c.has_condition_arg()):
             try:
                 out.add(c.field_arg())
             except ValueError:
                 return None
+        elif c.name == "Range":  # a BSI condition: its field is the key
+            out.update(k for k, v in c.args.items() if isinstance(v, Condition))
         if c.name == "Not":
             out.add(EXISTENCE_FIELD_NAME)
         for ch in c.children:
@@ -949,6 +1075,13 @@ class TorchEngine:
             if kind == "row":
                 n_leaves += 1
                 return lw.stacks[p[1]].occ[p[2]]
+            if kind == "range":
+                # Every range condition is a subset of the not-null plane.
+                planes = p[3]
+                n_leaves += sum(1 for r in planes if r >= 0)
+                if planes[-1] < 0:
+                    return np.zeros(S, dtype=np.uint64)
+                return lw.stacks[p[2]].occ[planes[-1]]
             subs = [occ_of(q) for q in p[1:]]
             occ = subs[0]
             for so in subs[1:]:
@@ -980,7 +1113,7 @@ class TorchEngine:
 
     # -- batched Counts (pilosa_tpu/parallel/engine.py:3246-3386, 3719-3865)
 
-    _LOWERABLE = frozenset(("Row", "Union", "Intersect", "Difference", "Xor", "Not"))
+    _LOWERABLE = frozenset(("Row", "Union", "Intersect", "Difference", "Xor", "Not", "Range"))
 
     def lowerable(self, c: Call) -> bool:
         """Static pre-screen: every call name in the tree has a lowering.
@@ -1037,23 +1170,43 @@ class TorchEngine:
                 if not kernels.fits(prog):
                     raise UnsupportedLowering("count tree exceeds the kernels' limits")
                 progs.append(prog)
-            masks, mask_ids = self._mask_table(u_shards, canonical)
-            groups = kernels.batch_groups(progs)
-            self.batch_dispatches += len(groups)
-            self.last_path = "batch"
             fan = mapping if deduped else None
-            if len(groups) == 1:
-                return self._reading(lw.stacks, lambda: kernels.count_batch_tree(
-                    progs, lw.mats, masks, mask_ids, self.device, fan))
-            # Past one launch's query or leaf-table limit: one launch per
-            # group, then the fan-out over their concatenation.
-            out = torch.cat([
-                self._reading(lw.stacks, lambda a=a, b=b: kernels.count_batch_tree(
-                    progs[a:b], lw.mats, masks, mask_ids[a:b], self.device))
-                for a, b in groups])
+            solo = [j for j, prog in enumerate(progs) if not kernels.batchable(prog)]
+            if not solo:
+                return self._launch_batch(progs, lw, u_shards, canonical, fan)
+            # K5 takes no range leaf: those queries run one by one on K1 or
+            # K2 (the scalar path), the rest in one K5 launch beside them.
+            self.batch_declines += len(solo)
+            out = torch.empty(len(progs), dtype=torch.int64, device=self.device)
+            for j in solo:
+                out[j] = self._dispatch_count(index, u_calls[j], u_shards[j], canonical)
+            rest = [j for j in range(len(progs)) if j not in set(solo)]
+            if rest:
+                at = torch.as_tensor(rest, dtype=torch.int64).to(self.device)
+                out[at] = self._launch_batch([progs[j] for j in rest], lw,
+                                             [u_shards[j] for j in rest], canonical, None)
             if fan is not None:
                 out = out[torch.as_tensor(fan, dtype=torch.int64).to(self.device)]
             return out
+
+    def _launch_batch(self, progs, lw: _Lowering, shard_lists, canonical, fan):
+        """K5 over lowered trees: one launch, or one per group past a
+        launch's query or leaf-table limit; with ``fan`` the answers fanned
+        out as ``result[fan]``."""
+        masks, mask_ids = self._mask_table(shard_lists, canonical)
+        groups = kernels.batch_groups(progs)
+        self.batch_dispatches += len(groups)
+        self.last_path = "batch"
+        if len(groups) == 1:
+            return self._reading(lw.stacks, lambda: kernels.count_batch_tree(
+                progs, lw.mats, masks, mask_ids, self.device, fan))
+        out = torch.cat([
+            self._reading(lw.stacks, lambda a=a, b=b: kernels.count_batch_tree(
+                progs[a:b], lw.mats, masks, mask_ids[a:b], self.device))
+            for a, b in groups])
+        if fan is not None:
+            out = out[torch.as_tensor(fan, dtype=torch.int64).to(self.device)]
+        return out
 
     def _mask_table(self, shard_lists, canonical):
         """(bool[M, S] distinct requested-shard masks over the canonical
@@ -1272,3 +1425,71 @@ class TorchEngine:
         if n:
             pairs = pairs[: int(n)]
         return pairs
+
+    # -- BSI Sum, Min, Max (pilosa_tpu/parallel/engine.py:3953-4100) -------
+    #
+    # The reference replays these across processes (``_collective``); that
+    # is ROADMAP.md Queue 1 item 15.
+
+    def _bsi_dispatch(self, index: str, field_name: str, filter_call: Optional[Call],
+                      shards, launch):
+        """Lower the filter, then ``launch(prog, mats, mask, plane_mat,
+        planes)`` under the stacks lock: (device result, canonical, depth,
+        bsig), or None when the field is not an int field or the index has
+        no shards.  A filter tree with no lowering, or past the kernels'
+        limits, is UnsupportedLowering."""
+        bsig = self._bsi_group(index, field_name)
+        if bsig is None:
+            return None
+        depth = bsig.bit_depth()
+        canonical = self.canonical_shards(index)
+        with self._stacks_lock:
+            stack = self.field_stack(index, field_name, view_bsi_name(field_name), canonical)
+            if stack is None:
+                return None
+            lw = _Lowering(self, canonical)
+            prog = None if filter_call is None else self._lower(index, filter_call, lw)
+            if prog is not None and not kernels.fits(prog):
+                raise UnsupportedLowering("filter tree exceeds the kernels' limits")
+            mask = self._mask_words(shards, canonical)
+            planes = self._plane_spec(stack, depth)
+            dev = self._reading(lw.stacks + [stack], lambda: launch(
+                prog, lw.mats, mask, stack.matrix, planes))
+        return dev, canonical, depth, bsig
+
+    def sum_async(self, index: str, field_name: str, filter_call: Optional[Call], shards):
+        """BSI Sum as one K6 launch, the result left on the device:
+        (int64[depth + 1] counts, depth, bsig), or None (no int field)."""
+        res = self._bsi_dispatch(index, field_name, filter_call, shards, bsi_mod.sum_tree)
+        if res is None:
+            return None
+        dev, _, depth, bsig = res
+        return dev, depth, bsig
+
+    def sum(self, index: str, field_name: str, filter_call: Optional[Call], shards):
+        """BSI Sum over the requested shards: (total, count), one launch and
+        one readback; the weighted sum in Python ints."""
+        res = self.sum_async(index, field_name, filter_call, shards)
+        if res is None:
+            return 0, 0
+        dev, depth, bsig = res
+        return bsi_mod.decode_sum(dev.cpu().numpy(), depth, bsig.min)
+
+    def min_max_async(self, index: str, field_name: str, filter_call: Optional[Call],
+                      shards, is_min: bool):
+        """BSI Min or Max as one K7 launch, the per-shard (values, counts)
+        left on the device: (result, canonical, depth, bsig), or None."""
+        return self._bsi_dispatch(
+            index, field_name, filter_call, shards,
+            lambda *a: bsi_mod.minmax_tree(*a, is_min))
+
+    def min_max(self, index: str, field_name: str, filter_call: Optional[Call], shards,
+                is_min: bool):
+        """BSI Min or Max: (value, count), or (0, 0) when no column was
+        considered (fragment.go min/max :745-806 and ValCount's reduce)."""
+        res = self.min_max_async(index, field_name, filter_call, shards, is_min)
+        if res is None:
+            return 0, 0
+        (vals, counts), canonical, _, bsig = res
+        host = torch.stack([vals, counts]).cpu().numpy()
+        return bsi_mod.decode_min_max(host, canonical, bsig.min, is_min)

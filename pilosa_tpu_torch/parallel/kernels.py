@@ -8,6 +8,11 @@ second, no padding):
 
 - leaves ``("row", mat_slot, row)`` — row ``row`` of stack ``mats[mat_slot]``
   — and ``("zero",)``;
+- range leaves ``("range", kind, mat_slot, planes, lo, hi)`` — a BSI
+  condition (``kind`` one of ``ops.bsi.RANGE_KINDS``, ``lo`` the rebased
+  predicate, ``hi`` BETWEEN's upper bound, else 0) over the bit planes of
+  stack ``mats[mat_slot]`` whose rows ``planes`` names, value planes first
+  and the not-null plane last, -1 for a plane the stack lacks;
 - nodes ``("and" | "or" | "andnot" | "xor", child, child, ...)``, folded
   left to right.
 
@@ -21,7 +26,10 @@ For tensors on the card the wrapper launches the hand-written CUDA kernel
 ``csrc/count_tree_dense.cu`` and raises if it cannot; for tensors on the
 CPU it evaluates the plain PyTorch version.  Both enforce the same
 program limits (``check_prog``).  The tree travels to the kernel as a
-postfix program (``compile_prog``), shared with K2 in ``sparse.py``.
+postfix program (``compile_prog``), shared with K2 in ``sparse.py``; a
+range leaf carries its stack, plane rows and predicate bits by value
+(``csrc/tree_eval.cuh`` RangeLeaf), so its planes take no entry of the
+leaf table.
 
 ``topn_tree`` and ``topn_full_tree`` (TopN, below) take the same src tree
 and wrap K3 ``csrc/score_rows.cu`` the same way: a CUDA tensor launches
@@ -47,26 +55,34 @@ import numpy as np
 import torch
 
 from ..ops import bitops
+from ..ops import bsi as bsi_ops
 
 # Postfix opcodes and limits: csrc/tree_eval.cuh holds the same values.
-OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_ANDNOT, OP_XOR = range(6)
+OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_ANDNOT, OP_XOR, OP_RANGE = range(7)
 _NODE_OPS = {"and": OP_AND, "or": OP_OR, "andnot": OP_ANDNOT, "xor": OP_XOR}
+_ITEM_OPS = (OP_LEAF, OP_ZERO, OP_RANGE)
 MAX_PROG = 128
 MAX_LEAVES = 32
 MAX_STACK = 16
+MAX_RANGES = 4  # range leaves per tree
+MAX_PLANES = 64  # BSI depth up to 63, then the not-null plane
 
 
 class Postfix:
     """A tree compiled for the kernels: opcodes, distinct leaves
-    ``(mat_slot, row)`` in leaf-index order, the stack depth, and whether
-    the program has the chain form (``_is_chain``).  Shared by every
-    caller of ``compile_prog`` (it is cached): never mutated."""
+    ``(mat_slot, row)`` in leaf-index order, distinct range leaves
+    ``(mat_slot, kind, planes, lo, hi)`` in range-index order, the stack
+    depth, and whether the program has the chain form (``_is_chain``).
+    Shared by every caller of ``compile_prog`` (it is cached): never
+    mutated."""
 
-    __slots__ = ("ops", "leaves", "depth", "chain")
+    __slots__ = ("ops", "leaves", "ranges", "depth", "chain")
 
-    def __init__(self, ops: List[int], leaves: List[Tuple[int, int]], depth: int):
+    def __init__(self, ops: List[int], leaves: List[Tuple[int, int]], depth: int,
+                 ranges: Optional[list] = None):
         self.ops = ops
         self.leaves = leaves
+        self.ranges = ranges or []
         self.depth = depth
         self.chain = _is_chain(ops)
 
@@ -78,6 +94,7 @@ def compile_prog(prog) -> Postfix:
     ValueError on an unknown node."""
     ops: List[int] = []
     leaf_of: Dict[Tuple[int, int], int] = {}
+    range_of: Dict[tuple, int] = {}
 
     def walk(p):
         kind = p[0]
@@ -85,6 +102,10 @@ def compile_prog(prog) -> Postfix:
             key = (int(p[1]), int(p[2]))
             k = leaf_of.setdefault(key, len(leaf_of))
             ops.append(OP_LEAF | (k << 8))
+        elif kind == "range" and len(p) == 6 and p[1] in bsi_ops.RANGE_KINDS:
+            key = (int(p[2]), p[1], tuple(int(x) for x in p[3]), int(p[4]), int(p[5]))
+            k = range_of.setdefault(key, len(range_of))
+            ops.append(OP_RANGE | (k << 8))
         elif kind == "zero":
             ops.append(OP_ZERO)
         elif kind in _NODE_OPS and len(p) >= 2:
@@ -98,9 +119,9 @@ def compile_prog(prog) -> Postfix:
     walk(prog)
     depth = sp = 0
     for code in ops:
-        sp += 1 if (code & 0xFF) in (OP_LEAF, OP_ZERO) else -1
+        sp += 1 if (code & 0xFF) in _ITEM_OPS else -1
         depth = max(depth, sp)
-    return Postfix(ops, list(leaf_of), depth)
+    return Postfix(ops, list(leaf_of), depth, list(range_of))
 
 
 def check_prog(code: Postfix) -> None:
@@ -118,6 +139,14 @@ def check_prog(code: Postfix) -> None:
         raise ValueError(
             f"count tree has {len(code.leaves)} leaf rows; the kernels take {MAX_LEAVES}"
         )
+    if len(code.ranges) > MAX_RANGES:
+        raise ValueError(
+            f"count tree has {len(code.ranges)} range leaves; the kernels take {MAX_RANGES}"
+        )
+    for _, _, planes, lo, hi in code.ranges:
+        if not 1 <= len(planes) <= MAX_PLANES or not (0 <= lo < 1 << 63 and 0 <= hi < 1 << 63):
+            raise ValueError(f"range leaf of {len(planes)} planes (the kernels take 1 to "
+                             f"{MAX_PLANES}) or predicate outside 0..2^63-1")
 
 
 def fits(prog) -> bool:
@@ -139,12 +168,23 @@ _COMBINE = {
 }
 
 
+def range_planes(mat: torch.Tensor, planes, select) -> torch.Tensor:
+    """The planes of a range leaf, ``select`` applied to each: a stack
+    ``[len(planes), ...]`` with zeros for a missing (-1) plane."""
+    like = select(mat[0])
+    return torch.stack([select(mat[p]) if p >= 0 else torch.zeros_like(like) for p in planes])
+
+
 def eval_prog(prog, mats: Sequence[torch.Tensor], select) -> torch.Tensor:
     """Evaluate a normalized tree with ``select(row_words)`` applied to
     every leaf row (the identity for the dense count, a block gather for
-    the sparse one).  ``("zero",)`` takes the shape of the first leaf."""
+    the sparse one) and to every plane a range leaf reads.  ``("zero",)``
+    takes the shape of the first leaf."""
     if prog[0] == "row":
         return select(mats[prog[1]][prog[2]])
+    if prog[0] == "range":
+        _, kind, slot, planes, lo, hi = prog
+        return bsi_ops.range_rows(kind, range_planes(mats[slot], planes, select), lo, hi)
     subs = [
         None if p[0] == "zero" else eval_prog(p, mats, select) for p in prog[1:]
     ]
@@ -171,15 +211,52 @@ def count_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> 
 
 # -- CUDA kernel K1 ----------------------------------------------------------
 
-def _c_leaves(code: Postfix, mats: Sequence[torch.Tensor]):
-    """ctypes arrays of the leaf row base pointers and the opcodes."""
+class RangeLeaf(ctypes.Structure):
+    """csrc/tree_eval.cuh's RangeLeaf: a BSI stack's planes (its row 0,
+    uint4 per stack row, the rows of planes 0..depth, -1 for a missing
+    one) and a range condition (kind, predicate bits)."""
+
+    _fields_ = [("base", ctypes.c_void_p), ("stride", ctypes.c_uint64),
+                ("lo", ctypes.c_uint64), ("hi", ctypes.c_uint64), ("kind", ctypes.c_int),
+                ("depth", ctypes.c_int), ("plane", ctypes.c_int * MAX_PLANES)]
+
+
+def c_planes(mat: torch.Tensor, planes, kind: str = "eq", lo: int = 0, hi: int = 0) -> RangeLeaf:
+    """A RangeLeaf over stack ``mat`` int32[R, S, W] (on the card)."""
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"{len(planes)} planes; the kernels take 1 to {MAX_PLANES}")
+    R = mat.shape[0]
+    if any(not -1 <= int(p) < R for p in planes):
+        raise ValueError(f"plane row outside stack of {R} rows")
+    leaf = RangeLeaf(mat.data_ptr(), mat.stride(0) // 4, int(lo), int(hi),
+                     bsi_ops.RANGE_KINDS.index(kind), len(planes) - 1)
+    for i, p in enumerate(planes):
+        leaf.plane[i] = int(p)
+    return leaf
+
+
+def _c_leaves(code: Postfix, mats: Sequence[torch.Tensor]) -> tuple:
+    """The tree's launch arguments, in the kernels' order: the leaf row
+    base pointers and their count, the range leaves, their stacks' row
+    counts and their count, the opcodes and their count."""
     ptrs = []
     for m, r in code.leaves:
         mat = mats[m]
         ptrs.append(mat.data_ptr() + int(r) * mat.stride(0) * mat.element_size())
     leaf_arr = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+    n_r = len(code.ranges)
+    ranges, rows = _NO_RANGES
+    if n_r:
+        ranges = (RangeLeaf * n_r)(*[c_planes(mats[m], planes, kind, lo, hi)
+                                     for m, kind, planes, lo, hi in code.ranges])
+        rows = (ctypes.c_int * n_r)(*[mats[m].shape[0] for m, *_ in code.ranges])
     ops_arr = (ctypes.c_int * len(code.ops))(*code.ops)
-    return leaf_arr, ops_arr
+    return leaf_arr, len(ptrs), ranges, rows, n_r, ops_arr, len(code.ops)
+
+
+# The range arguments of a tree without range leaves (never read, never
+# written: the kernels copy n_ranges = 0 entries).
+_NO_RANGES = ((RangeLeaf * 1)(), (ctypes.c_int * 1)())
 
 
 def check_stacks(mats: Sequence[torch.Tensor], n_shards: int) -> int:
@@ -214,6 +291,8 @@ def _lib_fn(lib_name: str, fn_name: str, argtypes):
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# The argument types of a tree (_c_leaves), first in every kernel that takes one.
+_TREE_ARGS = [_P, _I, _P, _P, _I, _P, _I]
 
 
 def count_tree_dense(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
@@ -227,21 +306,29 @@ def count_tree_dense(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Te
     for m, r in code.leaves:
         if not 0 <= r < mats[m].shape[0]:
             raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
-    fn = _lib_fn("count_tree_dense", "count_tree_dense", [_P, _I, _P, _I, _P, _I, _I, _P, _P])
+    fn = _lib_fn("count_tree_dense", "count_tree_dense", _TREE_ARGS + [_P, _I, _I, _P, _P])
     out = torch.zeros(1, dtype=torch.int64, device=mask.device)
-    leaf_arr, ops_arr = _c_leaves(code, mats)
     stream = torch.cuda.current_stream(mask.device).cuda_stream
-    err = fn(
-        leaf_arr, len(code.leaves), ops_arr, len(code.ops), mask.data_ptr(),
-        n_shards, words, out.data_ptr(), stream,
-    )
+    err = fn(*_c_leaves(code, mats), mask.data_ptr(), n_shards, words, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"count_tree_dense launch failed: cudaError {err}")
     count_tree_dense.launches += 1
+    range_leaf(code)
     return out[0]
 
 
 count_tree_dense.launches = 0
+
+
+def range_leaf(code: Postfix) -> None:
+    """Called by K1, K2 and K3 after a launch: ``range_leaf.launches``
+    counts those whose tree holds a range leaf (csrc/tree_eval.cuh), the
+    range leaf's own launch counter."""
+    if code.ranges:
+        range_leaf.launches += 1
+
+
+range_leaf.launches = 0
 
 
 def count_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
@@ -329,7 +416,7 @@ def topn_full_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr: int, n_
     return topn_trim_plain(totals, n_out)
 
 
-_SCORE_ROWS_ARGS = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P]
+_SCORE_ROWS_ARGS = _TREE_ARGS + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P]
 
 # K3 sums TopN's totals in a scratch of this many int64 (then its arrival
 # counter), kept per (device, stream): the most candidates a full TopN
@@ -415,16 +502,15 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
         result = (torch.empty(K, dtype=torch.int64, device=dev) if n_out is None
                   else torch.empty((2, n_out), dtype=torch.int32, device=dev))
     fn = _lib_fn("score_rows", "score_rows", _SCORE_ROWS_ARGS)
-    leaf_arr, ops_arr = _c_leaves(code, mats)
     err = fn(
-        leaf_arr, len(code.leaves), ops_arr, len(code.ops), _ptr(mask),
-        cand_mat.data_ptr(), _ptr(cand_idx), K, S, W, _ptr(out_scores),
-        _ptr(out_src), _ptr(cnt), int(thr), _ptr(scratch), n_out or 0,
+        *_c_leaves(code, mats), _ptr(mask), cand_mat.data_ptr(), _ptr(cand_idx), K, S, W,
+        _ptr(out_scores), _ptr(out_src), _ptr(cnt), int(thr), _ptr(scratch), n_out or 0,
         _ptr(result), stream,
     )
     if err != 0:
         raise RuntimeError(f"score_rows launch failed: cudaError {err}")
     score_rows_cuda.launches += 1
+    range_leaf(code)
     return out_scores, out_src, result
 
 
@@ -552,7 +638,7 @@ class BatchProgram:
 def _leaf_rows(prog, out: set) -> set:
     if prog[0] == "row":
         out.add((int(prog[1]), int(prog[2])))
-    elif prog[0] != "zero":
+    elif prog[0] not in ("zero", "range"):
         for p in prog[1:]:
             _leaf_rows(p, out)
     return out
@@ -574,18 +660,27 @@ def batch_groups(progs) -> List[Tuple[int, int]]:
 
 
 def _is_chain(ops: List[int]) -> bool:
-    """The left-deep form ``item (item op)*`` that K1 and K5 evaluate in
-    registers (csrc/tree_eval.cuh is_chain)."""
-    item = lambda code: (code & 0xFF) in (OP_LEAF, OP_ZERO)  # noqa: E731
+    """The left-deep form ``item (item op)*`` (items: rows, zeros and
+    range leaves) that K1 and K5 evaluate in registers (csrc/tree_eval.cuh
+    is_chain)."""
+    item = lambda code: (code & 0xFF) in _ITEM_OPS  # noqa: E731
     if not ops or len(ops) % 2 == 0 or not item(ops[0]):
         return False
     return all(item(ops[pc]) and not item(ops[pc + 1]) for pc in range(1, len(ops), 2))
 
 
+def batchable(prog) -> bool:
+    """True when K5 takes the tree: it stages leaf rows in shared memory
+    and has no range leaf (ROADMAP.md Queue 2 item 18), so the engine
+    sends a tree with one to K1 or K2 instead."""
+    return not compile_prog(prog).ranges
+
+
 def compile_batch(progs, mask_ids: Sequence[int]) -> BatchProgram:
     """Compile K normalized trees into one BatchProgram.  Raises
-    ValueError when a query's program exceeds MAX_PROG or MAX_STACK, or
-    the batch exceeds MAX_BATCH_LEAVES distinct leaf rows."""
+    ValueError when a query's program exceeds MAX_PROG or MAX_STACK, holds
+    a range leaf (``batchable``), or the batch exceeds MAX_BATCH_LEAVES
+    distinct leaf rows."""
     if len(progs) != len(mask_ids):
         raise ValueError("one mask id per query")
     table: Dict[Tuple[int, int], int] = {}
@@ -593,6 +688,8 @@ def compile_batch(progs, mask_ids: Sequence[int]) -> BatchProgram:
     ops: List[int] = []
     for k, prog in enumerate(progs):
         code = compile_prog(prog)
+        if code.ranges:
+            raise ValueError("K5 takes no range leaves: the engine sends such a tree to K1/K2")
         if code.depth > MAX_STACK or len(code.ops) > MAX_PROG:
             check_prog(Postfix(code.ops, [], code.depth))
         glob = [table.setdefault(leaf, len(table)) for leaf in code.leaves]

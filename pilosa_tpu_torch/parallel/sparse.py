@@ -4,7 +4,9 @@ The engine keeps an exact per-(row, shard) block-occupancy summary on
 every resident stack (``bitops.OCC_BLOCKS`` blocks of
 ``bitops.OCC_BLOCK_WORDS`` words, one uint64 per (row, shard)).  At
 dispatch it combines the leaves' occupancy through the tree on the host
-(and intersects, or/xor unite, andnot keeps its left side) and, when few
+(and intersects, or/xor unite, andnot keeps its left side; a BSI range
+leaf takes its not-null plane's occupancy, since every range condition
+is a subset of not-null) and, when few
 enough blocks survive, ships the combined words and calls
 ``count_tree_blocks`` here instead of the dense ``kernels.count_tree``.
 
@@ -89,19 +91,17 @@ def count_tree_blocks_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
             raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = kernels._lib_fn("count_tree_blocks", "count_tree_blocks",
-                         [P, I, P, I, P, I, I, P, P, P])
+                         kernels._TREE_ARGS + [P, I, I, P, P, P])
     dev = blk_bits.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty(1, dtype=torch.int64, device=dev)
     scratch = _scratch_for(dev, stream)
-    leaf_arr, ops_arr = kernels._c_leaves(code, mats)
-    err = fn(
-        leaf_arr, len(code.leaves), ops_arr, len(code.ops), blk_bits.data_ptr(),
-        n_shards, words, scratch.data_ptr(), out.data_ptr(), stream,
-    )
+    err = fn(*kernels._c_leaves(code, mats), blk_bits.data_ptr(), n_shards, words,
+             scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"count_tree_blocks launch failed: cudaError {err}")
     count_tree_blocks_cuda.launches += 1
+    kernels.range_leaf(code)
     return out[0]
 
 

@@ -143,9 +143,9 @@ def test_tensor_round_trip_is_bit_identical():
 
 def test_import_is_jax_free():
     """In a fresh interpreter with JAX blocked, every module of the port
-    imports, the TopN path (engine, executor lanes, kernel wrappers and
-    their CUDA sources) is present and runs a query on the CPU, and no
-    module of pilosa_tpu is loaded."""
+    imports, the TopN and BSI paths (engine, executor lanes, kernel
+    wrappers and their CUDA sources) are present and run queries on the
+    CPU, and no module of pilosa_tpu is loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -161,7 +161,16 @@ def test_import_is_jax_free():
         "             'and_popcount_rows_cuda', 'topn_trim_plain', 'topn_full_tree_plain'):\n"
         "    assert callable(getattr(kernels, name)), name\n"
         "assert not hasattr(kernels, 'topn_trim_cuda'), 'the trim runs in K3'\n"
-        "assert set(build.KERNELS) >= {'score_rows', 'and_popcount_rows'}\n"
+        "assert set(build.KERNELS) >= {'score_rows', 'and_popcount_rows', 'sum_tree',\n"
+        "                              'minmax_tree'}\n"
+        "from pilosa_tpu_torch.parallel import bsi\n"
+        "from pilosa_tpu_torch.ops import bsi as bsi_ops\n"
+        "for name in ('sum_tree', 'minmax_tree', 'sum_tree_cuda', 'minmax_tree_cuda',\n"
+        "             'sum_tree_plain', 'minmax_tree_plain', 'decode_sum', 'decode_min_max'):\n"
+        "    assert callable(getattr(bsi, name)), name\n"
+        "for name in ('range_eq', 'range_neq', 'range_lt', 'range_gt', 'range_between',\n"
+        "             'sum_counts', 'minmax_valcount_nd', 'min_valcount', 'max_valcount'):\n"
+        "    assert callable(getattr(bsi_ops, name)), name\n"
         "assert 'topn_trim' not in build.KERNELS\n"
         "assert all((build.CSRC / f'{k}.cu').is_file() for k in build.KERNELS)\n"
         "h = Holder(device='cpu'); h.open()\n"
@@ -170,6 +179,11 @@ def test_import_is_jax_free():
         "ex = Executor(h, engine=TorchEngine(h, device='cpu'))\n"
         "assert ex.execute('i', 'TopN(t, Row(t=2), n=2)').results[0] == [(2, 1), (1, 1)]\n"
         "assert Executor(h).execute('i', 'TopN(t, n=1)').results[0] == [(1, 2)]\n"
+        "from pilosa_tpu_torch.core.field import FieldOptions\n"
+        "v = h.index('i').create_field('v', FieldOptions(type='int', min=-5, max=9))\n"
+        "v.import_values([3, 4, 9], [-5, 9, 2])\n"
+        "assert ex.execute('i', 'Count(Range(v > 0))').results[0] == 2\n"
+        "assert ex.execute('i', 'Sum(field=v)').results[0].to_dict() == {'value': 6, 'count': 3}\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"

@@ -197,7 +197,7 @@ def test_stack_cached_until_a_write(twins):
 
 @pytest.mark.parametrize("q", [
     "Intersect(Row(nope=1), Row(d=2))",
-    "Range(d=1, 2010-01-01T00:00, 2011-01-01T00:00)",
+    "Range(nope=1, 2010-01-01T00:00, 2011-01-01T00:00)",
     "Not(Row(d=1), Row(d=2))",
 ])
 def test_unsupported_trees_raise_their_own_error(twins, q):

@@ -148,18 +148,40 @@ def test_deep_tree_serves_from_the_host_lane(trio):
     assert results(port, q) == results(fused, q)
 
 
+def test_default_shards_follow_remote_availability():
+    """A remote-availability change moves the default shard list in both
+    packages (the list is cached against the fields' availability
+    versions, not the shard epoch alone)."""
+    from pilosa_tpu.roaring import Bitmap as JBitmap
+    from pilosa_tpu_torch.roaring import Bitmap as TBitmap
+
+    jh, th = build_twins()
+    jex, tex = JExecutor(jh), Executor(th)
+    assert jex._default_shards("i") == tex._default_shards("i") == [0, 1, 2]
+    jh.index("i").field("d").add_remote_available_shards(JBitmap([9]))
+    th.index("i").field("d").add_remote_available_shards(TBitmap([9]))
+    assert jex._default_shards("i") == tex._default_shards("i") == [0, 1, 2, 9]
+    # A Count over the default shards still agrees: shard 9 has no local
+    # fragment.
+    q = "Count(Intersect(Row(d=1), Row(d=2)))"
+    assert results(tex, q) == results(jex, q)
+
+
 def test_errors(trio):
     _, host, port = trio
     with pytest.raises(FieldNotFoundError):
         results(port, "Count(Intersect(Row(nope=1), Row(d=1)))")
-    # TopN is ported (Queue 1 item 10); GroupBy and Rows are not yet.
+    # TopN (Queue 1 item 10) and BSI and time Range (item 9) are ported;
+    # GroupBy and Rows are not yet.
     assert results(port, "TopN(d, n=2)") == results(host, "TopN(d, n=2)")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
         results(port, "Rows(field=d)")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        results(port, "Count(Range(d=1, 2010-01-01T00:00, 2011-01-01T00:00))")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        results(port, "Sum(field=d)")
+    q = "Count(Range(d=1, 2010-01-01T00:00, 2011-01-01T00:00))"
+    assert results(port, q) == results(host, q) == [0]
+    got, want = results(port, "Sum(field=d)")[0], results(host, "Sum(field=d)")[0]
+    assert (got.val, got.count) == (want.val, want.count) == (0, 0)
+    with pytest.raises(FieldNotFoundError):
+        results(port, "Count(Range(nope > 1))")
     with pytest.raises(Exception, match="single input row"):
         results(port, "Count(Not(Row(d=1), Row(d=2)))")
     assert N_SHARDS == len(port.engine.canonical_shards("i"))
