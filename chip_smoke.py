@@ -30,8 +30,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    BETWEEN, predicates 0, 2^31, 2^63 - 1 and drawn ones, adversarial
    planes, missing planes, one to four range leaves (five refused),
    filters with and without range leaves, 12 and 31 shards, masks, K2's
-   block words, two streams.  Integer results, so they must agree
-   exactly.  --check-only stops here.
+   block words, two streams; for K8 groupn_tree 1 to 5 and 8 fields, K
+   of 1, 2, 4, 32 and 33 (up to 1024 combinations, 1025 refused), rows
+   repeated and missing (-1), no filter, a chain, an interpreter tree and
+   one to four range leaves, masks of no shard, every shard and a ragged
+   set, 12 and 37 shards, two streams.  Integer results, so they must
+   agree exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
    field s of 24 rows that each occupy 4 of the 64 occupancy blocks of
@@ -82,6 +86,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sum/min/max_bsi_1B_cols_p50, their _e2e_p50 and timerange_1B_cols_p50;
    then one Set(col, v=N) and an import_values of 2^20 values, each
    followed by Sum/Min/Max, the stack synced in place.
+   groupby — after bsi, before phase 5: bench.py's config-5 fields ga,
+   gb and gc (4, 2 and 2 rows of rand & rand over all 960 shards); the
+   8-way and 3-field GroupBy through Executor.execute, with
+   filter=Row(f=10), with filter=Range(v > 100) (a range leaf in K8),
+   with limit/offset and on a shard subset (the fused lane: K8's counter
+   must move, with no host fallback), one with a child Rows(limit=) and
+   one with previous= (the host lane), and Rows with column=, limit= and
+   previous=, each against a numpy oracle; K8 at the 8-way and 3-field
+   shapes against its plain version and its bound; bench.py's
+   groupby_8way/3field_1B_cols_p50 and _e2e_p50; the trim's torch.sort
+   yardstick is timed at K = 16 and 4096 in phase 4.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -93,9 +108,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the oracle.  Each single-bit write is also read back through
    execute_async, and 24 Sets on f=12 run beside 16 threads streaming
    execute_async Counts: each Count submitted after a Set returned must
-   see it.  No stack is rebuilt through all of it and some are
-   synced in place; then one write to a new row must rebuild f exactly
-   once (its seconds, beside the bulk sync's).
+   see it.  Then ClearRow on rows f=33 and s=33 and a
+   Store(Intersect(Row(f=100), Row(f=101)), f=227) on b10m, each read
+   back by Counts against the oracle.  No stack is rebuilt through all of
+   it and some are synced in place; then one write to a new row must
+   rebuild f exactly once (its seconds, beside the bulk sync's).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -832,6 +849,113 @@ def check_bsi_kernels(device, seed):
     return err
 
 
+# Row lists of the K8 checks, by field: (stack, K), K rows drawn from the
+# stack (a 4-row and a 33-row one); n = 1 to 5 and 8 fields, K of 1, 2, 4,
+# 32 and 33, up to 1024 combinations (32 x 32).
+_GROUP_SHAPES = [
+    (("g4", 1),), (("g4", 4),), (("g33", 33),),
+    (("g4", 4), ("g4", 2)), (("g33", 33), ("g4", 1)), (("g33", 32), ("g33", 32)),
+    (("g4", 2), ("g33", 33)),
+    (("g4", 4), ("g4", 2), ("g4", 2)), (("g4", 1), ("g4", 4), ("g33", 33)),
+    (("g4", 2), ("g4", 2), ("g4", 2), ("g4", 2)),
+    (("g4", 4), ("g4", 2), ("g4", 1), ("g33", 33)),
+    (("g4", 1), ("g4", 2), ("g4", 1), ("g4", 2), ("g33", 33)),
+    (("g4", 2),) * 8,
+]
+
+
+def check_groupby_kernel(device, seed):
+    """K8 groupn_tree against groupn_tree_plain, exactly: 1 to 5 and 8
+    fields, K of 1, 2, 4, 32 and 33 (up to 1024 combinations; 1025 is
+    refused before launch), rows drawn at random with repeats and a row
+    the stack lacks (-1), adversarial words (all-ones, sign bit only,
+    zero, sparse rows), no filter, a one-leaf chain, an interpreter tree
+    and one to four range leaves, masks of no shard, every shard and a
+    ragged set, 12 and 37 shards, and launches overlapping on two
+    streams.  Returns max |err|."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import groupby
+
+    rng = np.random.default_rng(seed + 13)
+    err = {"groupn_tree": 0}
+    n = 0
+
+    def same(got, want, what):
+        nonlocal n
+        torch.cuda.synchronize()
+        err["groupn_tree"] = max(err["groupn_tree"], _exact("K8", got, want.to(got.device), what))
+        n += 1
+
+    for S in (12, 37):
+        stacks = {"g4": _adversarial_stack(rng, 4, S, device),
+                  "g33": _adversarial_stack(rng, 33, S, device)}
+        bst = _bsi_stack(rng, 8, S, device)
+        mats = [_adversarial_stack(rng, 4, S, device), _adversarial_stack(rng, 4, S, device), bst]
+        full = tuple(range(9))
+        ranges = [_range_leaf(k, full, int(p), 200, slot=2)
+                  for k, p in zip(("gt", "lt", "between", "neq"), rng.integers(0, 256, 4))]
+        filters = [None, ("row", 1, 2), KERNEL_PROGS[6], ("and", ("row", 0, 1), ranges[0]),
+                   ("or",) + tuple(ranges[:2]), ("and",) + tuple(ranges), ("zero",)]
+        masks = [torch.from_numpy(m).to(device) for m in (
+            np.ones(S, np.int32), np.zeros(S, np.int32), (rng.random(S) < 0.5).astype(np.int32))]
+        for shape in _GROUP_SHAPES:
+            fmats = [stacks[name] for name, _ in shape]
+            lists = []
+            for name, k in shape:
+                R = stacks[name].shape[0]
+                rows = rng.permutation(R)[:k].tolist() if k < R else list(range(R))
+                if k > 2 and rng.random() < 0.5:
+                    rows[int(rng.integers(0, k))] = -1  # a row the stack lacks
+                if k > 3 and rng.random() < 0.5:
+                    rows[0] = rows[1]  # a repeated row
+                lists.append(rows)
+            for fi, prog in enumerate(filters):
+                mask = masks[0] if fi == 0 else masks[int(rng.integers(0, 3))]
+                code = None if prog is None else _checked(prog)
+                got = groupby.groupn_tree_cuda(code, mats, mask, fmats, lists)
+                want = groupby.groupn_tree_plain(prog, mats, mask, fmats, lists)
+                same(got, want, f"S={S} {[k for _, k in shape]} filter {fi}")
+            for mask in masks[1:]:
+                same(groupby.groupn_tree_cuda(None, mats, mask, fmats, lists),
+                     groupby.groupn_tree_plain(None, mats, mask, fmats, lists),
+                     f"S={S} {[k for _, k in shape]} mask {int(mask.sum())}")
+        try:
+            groupby.groupn_tree(None, mats, masks[0], [stacks["g33"]] * 2, [[0] * 41, [0] * 25])
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("K8 launched 1025 combinations")
+        if S == 12:
+            # Two streams at once: every launch has its own output.
+            side = torch.cuda.Stream(device=device)
+            torch.cuda.synchronize()
+            pending = []
+            for i in range(12):
+                lists = [[i % 4, (i + 1) % 4], list(range(33))]
+                prog = filters[i % len(filters)]
+                with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+                    code = None if prog is None else _checked(prog)
+                    pending.append((prog, lists, groupby.groupn_tree_cuda(
+                        code, mats, masks[0], [stacks["g4"], stacks["g33"]], lists)))
+            torch.cuda.synchronize()
+            for prog, lists, got in pending:
+                same(got, groupby.groupn_tree_plain(prog, mats, masks[0],
+                                                    [stacks["g4"], stacks["g33"]], lists),
+                     "two streams")
+        del stacks, bst, mats
+    log(f"kernels: {n} comparisons exact (K8 groupn_tree against its plain version)")
+    return err
+
+
+def _checked(prog):
+    from pilosa_tpu_torch.parallel import kernels
+
+    code = kernels.compile_prog(prog)
+    kernels.check_prog(code)
+    return code
+
+
 # -- phase 3: the main path --------------------------------------------------
 
 
@@ -1413,21 +1537,27 @@ def time_topn(engine, ex, holder, device, err, launches):
         lambda: kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False, cnt=cnt_m)[2],
         lambda: kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False, cnt=cnt_m,
                                         n_out=n_out)[2], sync)
+    totals_m = kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False,
+                                       cnt=cnt_m)[2]
     del mat_m
     totals = k3()
     plain4 = p50_ms(lambda: kernels.topn_trim_plain(totals, n_out), 5, sync)
     # The one PyTorch call with the same order: a stable descending sort
     # (its first n_out entries); timed as a yardstick, never used.
     lib4 = p50_ms(lambda: torch.sort(totals, descending=True, stable=True), 15, sync)
+    lib_m = p50_ms(lambda: torch.sort(totals_m, descending=True, stable=True), 15, sync)
+    plain_m = p50_ms(lambda: kernels.topn_trim_plain(totals_m, n_out), 5, sync)
     out.append(_entry("topn_trim", "pilosa_tpu_torch/csrc/score_rows.cu",
                       "pilosa_tpu/parallel/kernels.py:382", 0, err["topn_trim"], added[K],
                       plain4, K * 8 + n_out * 8, K * K, lib4))
     out[-1]["runs_in"] = "score_rows (K3): the last block of its full-TopN launch"
     out[-1]["added_device_ms"] = {str(k): v["device_ms"] for k, v in added.items()}
+    out[-1]["plain_ms_at"] = {str(K): plain4, str(K_M): plain_m}
+    out[-1]["library_ms_at"] = {str(K): lib4, str(K_M): lib_m}
     for k, v in added.items():
         _times_line(f"trim in K3's last block at K={k}, n_out={n_out}: added", v,
-                    (k * 8 + n_out * 8) / HBM_BYTES_PER_S * 1e3, plain4,
-                    f"; torch.sort {lib4:.4f} ms" if k == K else f" (plain at K={K})")
+                    (k * 8 + n_out * 8) / HBM_BYTES_PER_S * 1e3, plain4 if k == K else plain_m,
+                    f"; torch.sort {lib4 if k == K else lib_m:.4f} ms")
 
     # P2 at the main path's shape: shard 0's top fragment mirror, its
     # candidates named by index in the ranked cache's order, against the
@@ -2267,6 +2397,276 @@ def run_bsi_path(device, holder, engine, ex, host, seed, err):
     return out, entries
 
 
+# -- the groupby phase: GroupBy and Rows (config 5) ----------------------------
+
+G_ROWS = {"ga": 4, "gb": 2, "gc": 2}  # bench.py:75-77 GROUPS_A, _B, _C
+Q8 = "GroupBy(Rows(field=ga), Rows(field=gb))"
+Q3 = "GroupBy(Rows(field=ga), Rows(field=gb), Rows(field=gc))"
+
+
+def build_group_fields(holder, n_shards, seed):
+    """bench.py's config-5 fields ga, gb and gc on index "bench" (rows
+    rand & rand, bench.py:448-456).  Returns {field: {row: uint64[S,
+    W64]}}, the arrays the fragments hold."""
+    rng = np.random.default_rng(seed + 14)
+    idx = holder.index("bench")
+    host = {}
+    for name, n in G_ROWS.items():
+        host[name] = {r: rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64)
+                      & rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64)
+                      for r in range(n)}
+        view = idx.create_field(name).view_if_not_exists("standard")
+        for sh in range(n_shards):
+            frag = view.fragment_if_not_exists(sh)
+            for r, words in host[name].items():
+                frag.load_row_words(r, words[sh])
+            frag.cache.invalidate()
+    return host
+
+
+def v_greater(holder, n_shards, value):
+    """uint64[S, W64]: the columns whose BSI value of v is above ``value``,
+    from the planes the fragments hold now, by the textbook bit-sliced
+    comparison (high plane first)."""
+    out = np.empty((n_shards, W64), np.uint64)
+    for sh in range(n_shards):
+        frag = holder.fragment("bench", "v", "bsig_v", sh)
+        planes = [frag.row_words(i).view(np.uint64) for i in range(BSI_DEPTH + 1)]
+        eq, gt = planes[BSI_DEPTH].copy(), np.zeros(W64, np.uint64)
+        for i in range(BSI_DEPTH - 1, -1, -1):
+            if (value >> i) & 1:
+                eq &= planes[i]
+            else:
+                gt |= eq & planes[i]
+                eq &= ~planes[i]
+        out[sh] = gt
+    return out
+
+
+class GroupOracle:
+    """Per-shard combination counts of ga x gb (x gc) from the host words,
+    for each filter; ``want`` assembles a GroupBy's result as the
+    reference does (row-major, zero counts skipped, the progressive limit
+    cut, then offset and limit)."""
+
+    def __init__(self, host, filters):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.per_shard = {}
+        jobs = []
+        for fname, flt in filters.items():
+            for a in range(G_ROWS["ga"]):
+                for b in range(G_ROWS["gb"]):
+                    jobs.append((fname, (a, b), flt))
+                    for c in range(G_ROWS["gc"]):
+                        jobs.append((fname, (a, b, c), flt))
+
+        def one(job):
+            fname, combo, flt = job
+            w = host["ga"][combo[0]] & host["gb"][combo[1]]
+            if len(combo) == 3:
+                w &= host["gc"][combo[2]]
+            if flt is not None:
+                w &= flt
+            return (fname, combo), popcounts(w)
+
+        with ThreadPoolExecutor(8) as pool:
+            self.per_shard = dict(pool.map(one, jobs))
+
+    def want(self, n_fields, flt=None, shards=None, limit=None, offset=None, first=(0,)):
+        names = ("ga", "gb", "gc")[:n_fields]
+        out = []
+        for combo in np.ndindex(*(G_ROWS[f] for f in names)):
+            if combo[0] < first[0]:
+                continue
+            n = self.per_shard[(flt, combo)]
+            n = int(n.sum() if shards is None else n[shards].sum())
+            if n > 0:
+                out.append({"group": [{"field": f, "rowID": int(r)} for f, r in zip(names, combo)],
+                            "count": n})
+            if limit is not None and len(out) >= limit:
+                break
+        if offset is not None and offset < len(out):
+            out = out[offset:]
+        return out if limit is None else out[:limit]
+
+
+def group_queries(n_shards):
+    """(query, shards or None, oracle arguments, fused) of the groupby
+    phase: the fused lane's queries, then two on the host lane."""
+    subset = list(range(0, n_shards, 3))
+    return [
+        (Q8, None, dict(n_fields=2), True),
+        (Q3, None, dict(n_fields=3), True),
+        (Q8[:-1] + ", filter=Row(f=10))", None, dict(n_fields=2, flt="f10"), True),
+        (Q3[:-1] + ", filter=Row(f=10))", None, dict(n_fields=3, flt="f10"), True),
+        (Q8[:-1] + ", filter=Range(v > 100))", None, dict(n_fields=2, flt="v100"), True),
+        (Q3[:-1] + ", filter=Range(v > 100))", None, dict(n_fields=3, flt="v100"), True),
+        (Q3[:-1] + ", limit=5)", None, dict(n_fields=3, limit=5), True),
+        (Q3[:-1] + ", limit=6, offset=2)", None, dict(n_fields=3, limit=6, offset=2), True),
+        (Q8, subset, dict(n_fields=2, shards=subset), True),
+        (Q3[:-1] + ", filter=Row(f=10))", subset, dict(n_fields=3, flt="f10", shards=subset),
+         True),
+        ("GroupBy(Rows(field=ga, limit=2), Rows(field=gb))", None,
+         dict(n_fields=2, limit=4), False),
+        ("GroupBy(Rows(field=ga, previous=1), Rows(field=gb), limit=5)", None,
+         dict(n_fields=2, limit=5, first=(1,)), False),
+    ]
+
+
+def run_groupby_path(device, holder, engine, ex, host, seed, err):
+    """The groupby phase on the north-star index, after bsi and before the
+    writes of phase 5: bench.py's fields ga, gb and gc (4, 2 and 2 rows
+    of rand & rand over every shard), then through Executor.execute, each
+    against a numpy oracle over the host words: the 8-way and 3-field
+    GroupBy, with filter=Row(f=10), with filter=Range(v > 100) (a range
+    leaf in K8), with limit/offset and on a shard subset, all on the fused
+    lane (K8), whose launch counter must move with no host fallback; one
+    with a child Rows(limit=) and one with previous= on the host lane;
+    Rows(field=ga) with column=, limit= and previous=.  Then K8 at the
+    8-way and 3-field shapes against its plain version and its bound, and
+    bench.py's groupby_8way/3field_1B_cols_p50 and _e2e_p50.  Returns the
+    phase's numbers and K8's kernel entry."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import groupby
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    canonical = engine.canonical_shards("bench")
+    n_shards = len(canonical)
+    t_phase = t0 = time.perf_counter()
+    gh = build_group_fields(holder, n_shards, seed)
+    for name in G_ROWS:
+        engine.field_stack("bench", name, "standard")
+    sync()
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ora = GroupOracle(gh, {None: None, "f10": host["f"][10],
+                           "v100": v_greater(holder, n_shards, 100)})
+    oracle_s = time.perf_counter() - t0
+    log(f"groupby: fields ga, gb, gc (8 rows, {8 * n_shards * W64 * 8 / 1e9:.3f} GB) made and "
+        f"their stacks built in {made_s:.3f} s; numpy oracle {oracle_s:.3f} s")
+
+    # The main path: every query once, the counters zeroed just before.
+    fallbacks0, gfall0, rebuilds0 = ex.host_fallbacks, engine.group_host_fallbacks, \
+        engine.stack_rebuilds
+    with memo_off(engine):
+        for fused in (True, False):
+            groupby.groupn_tree_cuda.launches = 0
+            d0 = engine.group_dispatches
+            n_q = 0
+            for q, shards, args, lane in group_queries(n_shards):
+                if lane != fused:
+                    continue
+                got = [g.to_dict() for g in ex.execute("bench", q, shards=shards).results[0]]
+                want = ora.want(**args)
+                if got != want or not got:
+                    raise AssertionError(f"{q} over {len(shards or canonical)} shards: port "
+                                         f"{got} != numpy oracle {want}")
+                n_q += 1
+            launches = groupby.groupn_tree_cuda.launches
+            dispatches = engine.group_dispatches - d0
+            if fused and (dispatches != n_q or (cuda and launches != n_q)):
+                raise AssertionError(f"groupby: {n_q} fused queries made {dispatches} "
+                                     f"dispatches and {launches} K8 launches")
+            if not fused and (dispatches or launches):
+                raise AssertionError(f"groupby: the host-lane queries made {dispatches} "
+                                     f"dispatches and {launches} K8 launches")
+            if fused:
+                fused_launches = launches
+    if (ex.host_fallbacks != fallbacks0 or engine.group_host_fallbacks != gfall0
+            or engine.stack_rebuilds != rebuilds0):
+        raise AssertionError(f"groupby: host-lane fallbacks {ex.host_fallbacks - fallbacks0}, "
+                             f"group host fallbacks {engine.group_host_fallbacks - gfall0}, "
+                             f"rebuilds {engine.stack_rebuilds - rebuilds0} (want 0 each)")
+    col = int(np.random.default_rng(seed + 15).integers(0, n_shards << 20))
+    has = [r for r in range(G_ROWS["ga"]) if _bit(gh["ga"][r], col)]
+    for q, want in (("Rows(field=ga)", [0, 1, 2, 3]), ("Rows(field=ga, limit=2)", [0, 1]),
+                    ("Rows(field=ga, previous=1)", [2, 3]), (f"Rows(field=ga, column={col})", has),
+                    (f"Rows(field=ga, column={col}, limit=1)", has[:1]),
+                    (f"Rows(field=ga, column={col}, previous=0)", [r for r in has if r > 0])):
+        got = ex.execute("bench", q).results[0]
+        if got != want:
+            raise AssertionError(f"{q}: port {got} != numpy oracle {want}")
+    n_fused = sum(1 for *_, lane in group_queries(n_shards) if lane)
+    log(f"groupby: {len(group_queries(n_shards))} GroupBy queries ({n_fused} on the fused "
+        f"lane, K8 launches {fused_launches}; 2 on the host lane) and 6 Rows queries exact "
+        "against numpy; host-lane fallbacks 0, group host fallbacks 0")
+
+    # K8 at the main path's shapes, held against its plain version.
+    stacks = {f: engine.field_stack("bench", f, "standard", canonical) for f in G_ROWS}
+    lists = {f: [stacks[f].row_index[r] for r in range(n)] for f, n in G_ROWS.items()}
+    mask = engine._mask_words(canonical, canonical)
+    lw = _Lowering(engine, canonical)
+    fprog = engine._lower("bench", pql.parse("Row(f=10)").calls[0], lw)
+    shapes = {"8-way": (("ga", "gb"), None), "3-field": (("ga", "gb", "gc"), None),
+              "8-way, filter=Row(f=10)": (("ga", "gb"), fprog)}
+    calls = {}
+    for name, (fields, prog) in shapes.items():
+        fm, li = [stacks[f].matrix for f in fields], [lists[f] for f in fields]
+        calls[name] = (lambda fm=fm, li=li, prog=prog: groupby.groupn_tree(prog, lw.mats, mask,
+                                                                           fm, li),
+                       lambda fm=fm, li=li, prog=prog: groupby.groupn_tree_plain(
+                           prog, lw.mats, mask, fm, li))
+        got, want = calls[name][0](), calls[name][1]()
+        sync()
+        err["groupn_tree"] = max(err.get("groupn_tree", 0), _exact(
+            "K8", got, want, f"at the {name} shape"))
+    out = {"made_s": made_s, "oracle_s": oracle_s, "k8_launches": fused_launches}
+    entry = None
+    if cuda:
+        times = {}
+        for name, (fn, plain) in calls.items():
+            for _ in range(3):
+                fn()
+            sync()
+            times[name] = measured(fn, "groupn_tree_kernel", sync)
+            times[name]["plain_ms"] = p50_ms(plain, 3, sync, batch=1)
+            fields, prog = shapes[name]
+            n_rows = sum(G_ROWS[f] for f in fields) + (prog is not None)
+            C = int(np.prod([G_ROWS[f] for f in fields]))
+            words = n_shards * 32768
+            # Least work: each listed row (and filter row) of the requested
+            # shards read once, the mask, row list and counts; an AND, a
+            # popcount and an add per word and combination.
+            times[name]["bytes"] = n_rows * words * 4 + n_shards * 4 + 4 * n_rows + C * 8
+            times[name]["ops"] = words * C * 3
+            t = times[name]
+            t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / INT_OPS_PER_S) * 1e3
+            _times_line(f"K8 groupn_tree {name}", t, t["bound_ms"], t["plain_ms"])
+            out[f"k8_{name}"] = {k: t[k] for k in ("ms", "device_ms", "host_us", "plain_ms",
+                                                   "bound_ms")}
+        main = times["8-way"]
+        entry = _entry("groupn_tree", "pilosa_tpu_torch/csrc/groupn_tree.cu",
+                       "pilosa_tpu/parallel/kernels.py:707", fused_launches, err["groupn_tree"],
+                       main, main["plain_ms"], main["bytes"], main["ops"], None)
+        entry["shape"] = f"8-way: ga 4 x gb 2 rows, {n_shards} shards"
+        entry["at"] = {k: out[f"k8_{k}"] for k in shapes if k != "8-way"}
+        # bench.py's metrics: the engine call (CUDA events around 10 calls,
+        # per call) and Executor.execute (host clock around a synchronous
+        # answer), memo off.
+        rows = {f: list(range(n)) for f, n in G_ROWS.items()}
+        with memo_off(engine):
+            for metric, fields, q in (("groupby_8way_1B_cols", ("ga", "gb"), Q8),
+                                      ("groupby_3field_1B_cols", ("ga", "gb", "gc"), Q3)):
+                out[f"{metric}_p50"] = p50_ms(lambda fields=fields: engine.group_counts_async(
+                    "bench", list(fields), [rows[f] for f in fields], None, canonical), 12, sync)
+                lat = []
+                for _ in range(24):
+                    t0 = time.perf_counter()
+                    ex.execute("bench", q)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                out[f"{metric}_e2e_p50"] = statistics.median(lat)
+        log("groupby: " + ", ".join(f"{k} {out[k]:.4f} ms" for k in (
+            "groupby_8way_1B_cols_p50", "groupby_8way_1B_cols_e2e_p50",
+            "groupby_3field_1B_cols_p50", "groupby_3field_1B_cols_e2e_p50")) + f"; {card_line()}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out, entry
+
+
 # -- phase 5: the write path -------------------------------------------------
 
 OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
@@ -2497,7 +2897,50 @@ def run_write_path(device, holder, engine, ex, host, seed):
         raise AssertionError(f"after writes to top, {q}: port {got} != numpy oracle {want}")
     log(f"write: {cand.size} bits into top=2 and 4 Clears, then {q} -> {got}, exact")
 
-    # 4. Counts: no rebuild so far; one write to a new row rebuilds once.
+    # 4. Whole-row writes: ClearRow of f=33 and s=33 (rows no other check
+    # of this phase reads), then a Store of an Intersect into b10m's
+    # existing row f=227, each followed by Counts against the oracle; each
+    # syncs the resident stack in place.
+    whole = {}
+    for field, other in (("f", ora["f"][32]), ("s", host["s"][32])):
+        upd = engine.stack_updates
+        t = time.perf_counter()
+        res = ex.execute("bench", f"ClearRow({field}=33)").results
+        clear_s = time.perf_counter() - t
+        if field == "f":
+            ora["f"][33][:] = 0
+        for q, want in ((f"Count(Union(Row({field}=32), Row({field}=33)))",
+                         int(popcounts(other).sum())),
+                        (f"Count(Intersect(Row({field}=32), Row({field}=33)))", 0)):
+            got = ex.execute("bench", q).results[0]
+            if res != [True] or got != want:
+                raise AssertionError(f"ClearRow({field}=33) -> {res}, then {q}: port {got} != "
+                                     f"numpy oracle {want}")
+        whole[f"clear_row_{field}_s"] = clear_s
+        if engine.stack_updates <= upd:
+            raise AssertionError(f"ClearRow({field}=33) did not sync the stack in place")
+    b10 = {r: np.stack([holder.fragment("b10m", "f", "standard", sh).row_words(r).view(np.uint64)
+                        for sh in range(N_SHARDS_10M)]) for r in (100, 101, 226)}
+    engine.field_stack("b10m", "f", "standard")
+    upd = engine.stack_updates
+    q = "Store(Intersect(Row(f=100), Row(f=101)), f=227)"
+    t = time.perf_counter()
+    res = ex.execute("b10m", q).results
+    whole["store_b10m_s"] = time.perf_counter() - t
+    for cq, want in (("Count(Intersect(Row(f=227), Row(f=226)))",
+                      int(popcounts(b10[100] & b10[101] & b10[226]).sum())),
+                     ("Count(Xor(Row(f=227), Intersect(Row(f=100), Row(f=101))))", 0)):
+        got = ex.execute("b10m", cq).results[0]
+        if res != [True] or got != want:
+            raise AssertionError(f"{q} -> {res}, then {cq}: port {got} != numpy oracle {want}")
+    if engine.stack_updates <= upd:
+        raise AssertionError(f"{q} did not sync b10m's stack in place")
+    log(f"write: ClearRow(f=33) {whole['clear_row_f_s']:.3f} s and ClearRow(s=33) "
+        f"{whole['clear_row_s_s']:.3f} s over {n_shards} shards, {q} on b10m "
+        f"{whole['store_b10m_s']:.3f} s; the Counts after each exact against numpy, each "
+        "stack synced in place")
+
+    # 5. Counts: no rebuild so far; one write to a new row rebuilds once.
     launches = {"count_tree_dense": kernels.count_tree_dense.launches,
                 "count_tree_blocks": sparse.count_tree_blocks_cuda.launches,
                 "score_rows": kernels.score_rows_cuda.launches}
@@ -2536,6 +2979,7 @@ def run_write_path(device, holder, engine, ex, host, seed):
         "stack_updates": updates,
         "launches": launches,
         "batched_read_your_writes": batched_ryw,
+        "whole_row_writes_s": whole,
     }
 
 
@@ -2838,6 +3282,7 @@ def main(argv=None):
     err.update(check_topn_kernels(device, args.seed))
     err.update(check_batch_kernel(device, args.seed))
     err.update(check_bsi_kernels(device, args.seed))
+    err.update(check_groupby_kernel(device, args.seed))
     if args.check_only:
         log(f"check-only: every kernel exact against its plain version: {err}")
         return 0
@@ -2860,6 +3305,9 @@ def main(argv=None):
     bsi_out, bsi_entries = run_bsi_path(device, holder, engine, ex, host, args.seed, err)
     log("bsi: " + json.dumps(bsi_out))
     kern += bsi_entries
+    group_out, group_entry = run_groupby_path(device, holder, engine, ex, host, args.seed, err)
+    log("groupby: " + json.dumps(group_out))
+    kern.append(group_entry)
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     log(card_line())

@@ -16,6 +16,10 @@ slice calls (upstream Pilosa: fragment.go:87-2492):
 - Mutex fields: a column -> row occupancy vector gives the O(1) owner
   lookup (fragment.go:398-427).
 
+- Rows/GroupBy: ``rows_filtered`` and ``row_iterator`` (``RowIterator``)
+  are the host lane's row scans; Store/ClearRow: ``set_row`` and
+  ``clear_row`` overwrite a whole row, which reaches ``sync_snapshot`` as
+  a row entry.
 - TopN: ``top()`` is fragment.go's candidate walk, with every
   candidate's src intersection count scored up front in one batched
   ``bitops.popcount_and_rows`` (P2 on the card).
@@ -32,6 +36,7 @@ filter, and the roaring/value bulk-import paths.
 
 from __future__ import annotations
 
+import bisect
 import functools
 import heapq
 import json
@@ -857,6 +862,67 @@ class Fragment:
         self.cache.bulk_add(row_id, n)
         self._touch(row_id)
 
+    # -- whole-row writes (Store/ClearRow support) --------------------------
+
+    @_locked
+    def clear_row(self, row_id: int) -> bool:
+        """Remove every bit in a row, snapshot (fragment.go clearRow :551,
+        unprotectedClearRow).  The row reaches ``sync_snapshot`` as a
+        whole-row entry (zeros), so a resident stack holding it syncs in
+        place."""
+        self._check_open()
+        if self._mutex_owners is not None:
+            self._mutex_owners[self._store.positions(row_id).astype(np.int64)] = -1
+        changed = self._store.drop(row_id)
+        self.cache.add(row_id, 0)
+        self._touch(row_id)
+        self.snapshot()
+        return changed
+
+    @_locked
+    def set_row(self, row: Optional[Row], row_id: int) -> bool:
+        """Overwrite a row with a Row's segment for this shard, snapshot
+        (fragment.go setRow :501, Store() support).  Returns whether the
+        row changed."""
+        self._check_open()
+        seg = row.segment(self.shard) if row is not None else None
+        new = (np.zeros(WORDS64, dtype=np.uint64) if seg is None
+               else bitops.to_numpy(seg).view("<u8").copy())
+        old = self._store.words_u64(row_id) if row_id in self._store else None
+        changed = old is None or not np.array_equal(old, new)
+        n = self._store.set_dense(row_id, new)
+        self._mutex_owners = None
+        self.cache.bulk_add(row_id, n)
+        self.cache.invalidate()
+        self._touch(row_id)
+        self.snapshot()
+        return changed
+
+    # -- row scans (Rows/GroupBy support, fragment.go rows() :2000-2100) ---
+
+    def rows_filtered(self, start: int = 0, column: Optional[int] = None,
+                      limit: Optional[int] = None) -> List[int]:
+        """Row ids from ``start`` up, holding ``column`` when given, at
+        most ``limit`` of them."""
+        out = []
+        for r in self.row_ids():
+            if r < start:
+                continue
+            if column is not None and not self.bit(r, column):
+                continue
+            out.append(r)
+            if limit is not None and len(out) >= limit:
+                break
+        return out
+
+    def row_iterator(self, wrap: bool, row_ids_filter: Optional[List[int]] = None):
+        """Iterator over rows for GroupBy (fragment.go rowIterator :2101)."""
+        ids = self.row_ids()
+        if row_ids_filter is not None:
+            allowed = set(row_ids_filter)
+            ids = [r for r in ids if r in allowed]
+        return RowIterator(self, ids, wrap)
+
     # -- TopN (fragment.go top :1018-1150) ---------------------------------
 
     def top(
@@ -956,3 +1022,28 @@ class Fragment:
             f"Fragment({self.index}/{self.field}/{self.view}/{self.shard}, "
             f"rows={len(self._store)})"
         )
+
+
+class RowIterator:
+    """Sorted row-ID cursor with optional wraparound (fragment.go:2101-2135)."""
+
+    def __init__(self, frag: Fragment, row_ids: List[int], wrap: bool):
+        self.frag = frag
+        self.row_ids = row_ids
+        self.cur = 0
+        self.wrap = wrap
+
+    def seek(self, row_id: int):
+        self.cur = bisect.bisect_left(self.row_ids, row_id)
+
+    def next(self):
+        """Returns (row, row_id, wrapped); row is None when exhausted."""
+        wrapped = False
+        if self.cur >= len(self.row_ids):
+            if not self.wrap or not self.row_ids:
+                return None, 0, True
+            self.cur = 0
+            wrapped = True
+        row_id = self.row_ids[self.cur]
+        self.cur += 1
+        return self.frag.row(row_id), row_id, wrapped

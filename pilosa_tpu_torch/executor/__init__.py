@@ -2,6 +2,8 @@ from .executor import (
     Error,
     Executor,
     FieldNotFoundError,
+    FieldRow,
+    GroupCount,
     IndexNotFoundError,
     QueryResponse,
     ValCount,
@@ -11,6 +13,8 @@ __all__ = [
     "Error",
     "Executor",
     "FieldNotFoundError",
+    "FieldRow",
+    "GroupCount",
     "IndexNotFoundError",
     "QueryResponse",
     "ValCount",

@@ -1,7 +1,7 @@
-"""The query executor: PQL call dispatch, the fused Count, TopN and BSI
-lanes and the host bitmap lane.
+"""The query executor: PQL call dispatch, the fused Count, TopN, BSI and
+GroupBy lanes and the host bitmap lane.
 
-The port of the Count, TopN and BSI slices of
+The port of the Count, TopN, BSI and GroupBy slices of
 ``pilosa_tpu/executor/executor.py`` (upstream Pilosa: executor.go:84-2890),
 single node:
 
@@ -37,7 +37,15 @@ single node:
   host, then the exact phase-2 recount of the merged ids.  Without an
   engine every shard runs ``Fragment.top(src=...)``.  Identical
   concurrent fused TopNs collapse into one launch (``SingleFlight``).
-- Set/Clear write single bits (and the existence bit).
+- GroupBy (executor.go :1056-1170): plain ``Rows(field=f)`` children
+  run on the fused lane, every combination's count in one K8 launch
+  (``TorchEngine.batched_group_counts``), assembled in row-major order;
+  a child with ``previous``/``limit``/``column``, more than
+  MAX_GROUP_COMBOS combinations or a filter with no lowering runs the
+  per-shard host iterator (``_GroupByIterator``).  ``Rows`` merges the
+  fragments' sorted row ids with its limit.
+- Set/Clear write single bits (and the existence bit); Store and
+  ClearRow overwrite or clear a whole row per shard.
 
 Every other call raises NotImplementedError naming the ROADMAP.md queue
 item that ports it.
@@ -50,11 +58,14 @@ import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from .. import pql
 from ..core import cache as cache_mod
 from ..core import fragment as frag_mod
 from ..core import timequantum
-from ..core.field import FIELD_TYPE_BOOL, FIELD_TYPE_INT
+from ..core.field import (FIELD_TYPE_BOOL, FIELD_TYPE_INT, FIELD_TYPE_MUTEX, FIELD_TYPE_SET,
+                          FIELD_TYPE_TIME)
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.row import Row
 from ..core.view import VIEW_STANDARD, view_bsi_name
@@ -78,10 +89,6 @@ _WRITE_CALLS = {"Set", "Clear", "SetRowAttrs", "SetColumnAttrs", "Store", "Clear
 # Calls of the JAX executor this slice does not run yet, and the
 # ROADMAP.md item that ports each.
 _UNPORTED = {
-    "Rows": "Queue 1 item 11 (GroupBy and Rows)",
-    "GroupBy": "Queue 1 item 11 (GroupBy and Rows)",
-    "Store": "Queue 1 item 6 (write path)",
-    "ClearRow": "Queue 1 item 6 (write path)",
     "Options": "Queue 1 item 5 (executor lanes)",
     "Explain": "Queue 1 item 14 (serving and observability)",
     "SetRowAttrs": "Queue 1 item 14 (serving and observability)",
@@ -134,11 +141,118 @@ class ValCount:
         return {"value": self.val, "count": self.count}
 
 
+class FieldRow:
+    """One (field, row) of a GroupBy group (executor.go:976-1001)."""
+
+    __slots__ = ("field", "row_id", "row_key")
+
+    def __init__(self, field: str, row_id: int = 0, row_key: str = ""):
+        self.field = field
+        self.row_id = row_id
+        self.row_key = row_key
+
+    def __eq__(self, other):
+        return (isinstance(other, FieldRow) and self.field == other.field
+                and self.row_id == other.row_id and self.row_key == other.row_key)
+
+    def __repr__(self):
+        return f"FieldRow({self.field}.{self.row_key or self.row_id})"
+
+    def to_dict(self):
+        if self.row_key:
+            return {"field": self.field, "rowKey": self.row_key}
+        return {"field": self.field, "rowID": self.row_id}
+
+
+class GroupCount:
+    """One GroupBy result: the group's rows and their intersection count."""
+
+    __slots__ = ("group", "count")
+
+    def __init__(self, group: List[FieldRow], count: int):
+        self.group = group
+        self.count = count
+
+    def compare(self, other: "GroupCount") -> int:
+        """Order by row ids, field-major (executor.go Compare :1043)."""
+        for a, b in zip(self.group, other.group):
+            if a.row_id < b.row_id:
+                return -1
+            if a.row_id > b.row_id:
+                return 1
+        return 0
+
+    def __eq__(self, other):
+        return (isinstance(other, GroupCount) and self.group == other.group
+                and self.count == other.count)
+
+    def __repr__(self):
+        return f"GroupCount({self.group}, count={self.count})"
+
+    def to_dict(self):
+        return {"group": [g.to_dict() for g in self.group], "count": self.count}
+
+
 class QueryResponse:
     __slots__ = ("results",)
 
     def __init__(self, results=None):
         self.results = results if results is not None else []
+
+
+def _merge_row_ids(a: List[int], b: List[int], limit: int) -> List[int]:
+    """Sorted-unique merge with limit (executor.go RowIDs.merge :833)."""
+    out: List[int] = []
+    i = j = 0
+    while i < len(a) and j < len(b) and len(out) < limit:
+        if a[i] < b[j]:
+            out.append(a[i])
+            i += 1
+        elif a[i] > b[j]:
+            out.append(b[j])
+            j += 1
+        else:
+            out.append(a[i])
+            i += 1
+            j += 1
+    while i < len(a) and len(out) < limit:
+        out.append(a[i])
+        i += 1
+    while j < len(b) and len(out) < limit:
+        out.append(b[j])
+        j += 1
+    return out
+
+
+def _merge_group_counts(a: List[GroupCount], b: List[GroupCount],
+                        limit: int) -> List[GroupCount]:
+    """executor.go mergeGroupCounts :1013."""
+    limit = min(limit, len(a) + len(b))
+    out: List[GroupCount] = []
+    i = j = 0
+    while i < len(a) and j < len(b) and len(out) < limit:
+        c = a[i].compare(b[j])
+        if c < 0:
+            out.append(a[i])
+            i += 1
+        elif c == 0:
+            a[i].count += b[j].count
+            out.append(a[i])
+            i += 1
+            j += 1
+        else:
+            out.append(b[j])
+            j += 1
+    while i < len(a) and len(out) < limit:
+        out.append(a[i])
+        i += 1
+    while j < len(b) and len(out) < limit:
+        out.append(b[j])
+        j += 1
+    return out
+
+
+_MAXINT = (1 << 63) - 1
 
 
 def _unported(name: str):
@@ -268,6 +382,7 @@ class Executor:
     ``TorchEngine`` for the fused Count lane."""
 
     _PARSE_CACHE_MAX = 512
+    _GROUP_ROWS_MAX = 256
 
     def __init__(self, holder, engine=None):
         self.holder = holder
@@ -283,9 +398,12 @@ class Executor:
         # (_QueryFuture._fallback).
         self.async_fallbacks = 0
         self._fallback_lock = threading.Lock()
-        # Count/Sum/Min/Max calls the engine declined (UnsupportedLowering)
-        # and the host lane served.
+        # Count/Sum/Min/Max/GroupBy calls the engine declined
+        # (UnsupportedLowering) and the host lane served.
         self.host_fallbacks = 0
+        # (index, field, shards) -> (view token, sorted row ids): the fused
+        # GroupBy's row lists (_group_rows).
+        self._group_rows_cache: Dict[tuple, tuple] = {}
 
     def _parse_cached(self, s: str) -> Query:
         with self._parse_lock:
@@ -312,7 +430,9 @@ class Executor:
             raise IndexNotFoundError(index)
         if query.write_call_n() > MAX_WRITES_PER_REQUEST:
             raise Error("too many writes in a single request")
-        needs = any(c.name not in _WRITE_CALLS for c in query.calls)
+        # Store and ClearRow map over shards like reads (executor.go :146).
+        needs = any(c.name not in ("Set", "Clear", "SetRowAttrs", "SetColumnAttrs")
+                    for c in query.calls)
         if not shards and needs:
             shards = self._default_shards(index) or [0]
         return QueryResponse(self._execute_calls(index, query.calls, shards))
@@ -447,6 +567,14 @@ class Executor:
             return self._execute_sum(index, c, shards)
         if name in ("Min", "Max"):
             return self._execute_min_max(index, c, shards, name == "Min")
+        if name == "ClearRow":
+            return self._execute_clear_row(index, c, shards)
+        if name == "Store":
+            return self._execute_set_row(index, c, shards)
+        if name == "Rows":
+            return self._execute_rows(index, c, shards)
+        if name == "GroupBy":
+            return self._execute_group_by(index, c, shards)
         if name in _UNPORTED:
             _unported(name)
         return self._execute_bitmap_call(index, c, shards)
@@ -969,6 +1097,181 @@ class Executor:
             tanimoto_threshold=tanimoto,
         )
 
+    # -- Rows / GroupBy (executor.go :897-1170) ----------------------------
+
+    def _execute_rows(self, index, c: Call, shards) -> List[int]:
+        col, ok = c.uint_arg("column")
+        if ok:
+            shards = [col // frag_mod.SHARD_WIDTH]
+        limit_arg, has_limit = c.uint_arg("limit")
+        limit = limit_arg if has_limit else _MAXINT
+        out: List[int] = []
+        for shard in shards:
+            out = _merge_row_ids(out, self._execute_rows_shard(index, c, shard), limit)
+        return out
+
+    def _execute_rows_shard(self, index, c: Call, shard: int) -> List[int]:
+        field_name = c.args.get("field")
+        if not isinstance(field_name, str):
+            raise Error("Rows() argument required: field")
+        self._field(index, field_name)
+        frag = self.holder.fragment(index, field_name, VIEW_STANDARD, shard)
+        if frag is None:
+            return []
+        previous, has_prev = c.uint_arg("previous")
+        column = None
+        col, ok = c.uint_arg("column")
+        if ok:
+            if col // frag_mod.SHARD_WIDTH != shard:
+                return []
+            column = col
+        limit_arg, has_limit = c.uint_arg("limit")
+        return frag.rows_filtered(start=previous + 1 if has_prev else 0, column=column,
+                                  limit=limit_arg if has_limit else None)
+
+    def _execute_group_by(self, index, c: Call, shards) -> List[GroupCount]:
+        """GroupBy (executor.go :1056): the fused lane over plain
+        ``Rows(field=f)`` children, else the per-shard host iterator; then
+        ``offset`` and ``limit``."""
+        if not c.children:
+            raise Error("need at least one child call")
+        limit_arg, has_limit = c.uint_arg("limit")
+        limit = limit_arg if has_limit else _MAXINT
+        filter_call = c.call_arg("filter")
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError(index)
+        child_rows: List[Optional[List[int]]] = [None] * len(c.children)
+        for i, child in enumerate(c.children):
+            if child.name != "Rows":
+                raise Error(f"'{child.name}' is not a valid child query for GroupBy, "
+                            "must be 'Rows'")
+            # An unknown field is an error up front (executor.go GroupBy
+            # "Unknown Field"), not a silent empty result.
+            fname = child.args.get("field")
+            if not isinstance(fname, str) or idx.field(fname) is None:
+                raise FieldNotFoundError(str(fname))
+            _, has_lim = child.uint_arg("limit")
+            _, has_col = child.uint_arg("column")
+            if has_lim or has_col:
+                child_rows[i] = self._execute_rows(index, child, shards)
+                if not child_rows[i]:
+                    return []
+        results = self._mesh_group_by(index, c, filter_call, shards)
+        if results is None:
+            results = []
+            for shard in shards:
+                results = _merge_group_counts(results, self._execute_group_by_shard(
+                    index, c, filter_call, shard, child_rows), limit)
+        offset, has_offset = c.uint_arg("offset")
+        if has_offset and offset < len(results):
+            results = results[offset:]
+        if has_limit and limit < len(results):
+            results = results[:limit]
+        return results
+
+    def _mesh_group_by(self, index, c: Call, filter_call, shards):
+        """Fused GroupBy: every group combination's count in one K8 launch
+        (``TorchEngine.batched_group_counts``), assembled in row-major
+        order with the reference's progressive ``limit`` cut.  Applies to
+        plain ``Rows(field=f)`` children only.  The shaped count tensor
+        rides the result memo; the assembled list never does, so a memo
+        hit cannot drift from a recompute.  None sends the call to the
+        host lane: no engine, another child, more than MAX_GROUP_COMBOS
+        combinations, or a filter with no device lowering."""
+        eng = self.engine
+        if eng is None or not shards:
+            return None
+        for child in c.children:
+            if child.name != "Rows" or set(child.args) - {"field"}:
+                return None
+        # The write sequence before the row lists: a leader with stale row
+        # sets must key as pre-write.
+        seq = frag_mod.WRITE_SEQ.v
+        fields = [child.args["field"] for child in c.children]
+        qsig = str(c) if filter_call is None else f"{c}|flt:{filter_call}"
+        key, hit = eng.memo_probe_groupby(index, qsig, fields, filter_call, shards)
+        row_lists = [self._group_rows(index, f, shards) for f in fields]
+        if any(not rows for rows in row_lists):
+            return []
+        shape = tuple(len(rows) for rows in row_lists)
+        if hit is not None and tuple(hit.shape) == shape:
+            counts = hit
+        else:
+            try:
+                # The row lists derive from fragment state that WRITE_SEQ
+                # versions already, so they stay out of the key.
+                counts = self._sflight.do(
+                    ("groupby", seq, index, str(c), tuple(sorted(shards))),
+                    lambda: eng.batched_group_counts(index, fields, row_lists, filter_call,
+                                                     shards))
+            except UnsupportedLowering:
+                self.host_fallbacks += 1
+                return None
+            if counts is None:
+                return None
+            eng.memo_store_groupby(key, fields, row_lists, filter_call, counts)
+        limit_arg, has_limit = c.uint_arg("limit")
+        limit = limit_arg if has_limit else _MAXINT
+        counts = np.asarray(counts).reshape(shape)
+        results: List[GroupCount] = []
+        # np.ndindex walks the tensor in row-major order, the nested
+        # iterator's order (executor.go:2726), so the limit cut matches.
+        for combo in np.ndindex(shape):
+            n = int(counts[combo])
+            if n > 0:
+                results.append(GroupCount(
+                    [FieldRow(fields[d], row_lists[d][combo[d]]) for d in range(len(fields))],
+                    n))
+            if len(results) >= limit:
+                break
+        return results
+
+    def _group_rows(self, index, field, shards) -> List[int]:
+        """The sorted union of the field's row ids over ``shards``: the
+        fused lane's axis for the field.  Cached against the view's token
+        (shard epoch, generation, version), which every write to the view
+        moves: the union walks every shard's fragment, milliseconds at a
+        thousand shards."""
+        view = self.holder.view(index, field, VIEW_STANDARD)
+        if view is None:
+            return []
+        token = (self.holder.shard_epoch(index), view.gen, view.version)
+        key = (index, field, tuple(shards))
+        hit = self._group_rows_cache.get(key)
+        if hit is not None and hit[0] == token:
+            return hit[1]
+        rows = set()
+        for s in shards:
+            frag = view.fragments.get(s)
+            if frag is not None:
+                rows.update(frag.row_ids())
+        rows = sorted(rows)
+        if len(self._group_rows_cache) >= self._GROUP_ROWS_MAX:
+            self._group_rows_cache.clear()
+        self._group_rows_cache[key] = (token, rows)
+        return rows
+
+    def _execute_group_by_shard(self, index, c: Call, filter_call, shard,
+                                child_rows) -> List[GroupCount]:
+        filter_row = None
+        if filter_call is not None:
+            filter_row = self._execute_bitmap_call_shard(index, filter_call, shard)
+        iterator = _GroupByIterator.create(self, child_rows, c.children, filter_row, index,
+                                           shard)
+        if iterator is None:
+            return []
+        limit_arg, has_limit = c.uint_arg("limit")
+        limit = limit_arg if has_limit else _MAXINT
+        results: List[GroupCount] = []
+        while len(results) < limit:
+            gc, done = iterator.next()
+            if done:
+                break
+            if gc.count > 0:
+                results.append(gc)
+        return results
+
     # -- writes ------------------------------------------------------------
 
     def _execute_set(self, index, c: Call) -> bool:
@@ -1009,3 +1312,123 @@ class Executor:
         if not ok:
             raise Error("Clear() col argument required")
         return f.clear_bit(row_id, col_id)
+
+    # -- whole-row writes (executor.go :1964-2040) --------------------------
+
+    def _execute_clear_row(self, index, c: Call, shards) -> bool:
+        field_name = self._field_arg(c)
+        f = self._field(index, field_name)
+        if f.options.type not in (FIELD_TYPE_SET, FIELD_TYPE_TIME, FIELD_TYPE_MUTEX,
+                                  FIELD_TYPE_BOOL):
+            raise Error(f"ClearRow() is not supported on {f.options.type} field types")
+        row_id, ok = c.uint_arg(field_name)
+        if not ok:
+            raise Error("ClearRow() row argument required")
+        changed = False
+        for shard in shards:
+            for view in list(f.views.values()):
+                frag = view.fragment(shard)
+                if frag is not None:
+                    changed |= frag.clear_row(row_id)
+        return changed
+
+    def _execute_set_row(self, index, c: Call, shards) -> bool:
+        field_name = self._field_arg(c)
+        f = self._field(index, field_name)
+        if f.options.type != FIELD_TYPE_SET:
+            raise Error(f"Store() is not supported on {f.options.type} field types")
+        row_id, ok = c.uint_arg(field_name)
+        if not ok:
+            raise Error("Store() row argument required")
+        if len(c.children) != 1:
+            raise Error("Store() requires a source row")
+        changed = False
+        for shard in shards:
+            src = self._execute_bitmap_call_shard(index, c.children[0], shard)
+            frag = f.view_if_not_exists(VIEW_STANDARD).fragment_if_not_exists(shard)
+            changed |= frag.set_row(src, row_id)
+        return changed
+
+
+class _GroupByIterator:
+    """Multi-field row-combination walker (executor.go:2726-2890): the
+    GroupBy host lane over one shard."""
+
+    def __init__(self):
+        self.row_iters = []
+        self.rows: List[Tuple[Optional[Row], int]] = []
+        self.fields: List[FieldRow] = []
+        self.filter: Optional[Row] = None
+        self.done = False
+
+    @classmethod
+    def create(cls, executor, child_rows, children: List[Call], filter_row, index,
+               shard) -> Optional["_GroupByIterator"]:
+        gbi = cls()
+        gbi.filter = filter_row
+        gbi.rows = [(None, 0)] * len(children)
+        ignore_prev = False
+        for i, call in enumerate(children):
+            field_name = call.args["field"]
+            gbi.fields.append(FieldRow(field_name))
+            frag = executor.holder.fragment(index, field_name, VIEW_STANDARD, shard)
+            if frag is None:
+                return None
+            it = frag.row_iterator(wrap=(i != 0), row_ids_filter=child_rows[i] or None)
+            gbi.row_iters.append(it)
+            prev, has_prev = call.uint_arg("previous")
+            if has_prev and not ignore_prev:
+                if i == len(children) - 1:
+                    prev += 1
+                it.seek(prev)
+            next_row, row_id, wrapped = it.next()
+            if next_row is None:
+                gbi.done = True
+                return gbi
+            gbi.rows[i] = (next_row, row_id)
+            if has_prev and row_id != prev:
+                ignore_prev = True
+            if wrapped:
+                for j in range(i - 1, -1, -1):
+                    next_row, row_id, w2 = gbi.row_iters[j].next()
+                    if next_row is None:
+                        gbi.done = True
+                        return gbi
+                    gbi.rows[j] = (next_row, row_id)
+                    if not w2:
+                        break
+        if gbi.filter is not None and gbi.rows:
+            r, i0 = gbi.rows[0]
+            gbi.rows[0] = (r.intersect(gbi.filter), i0)
+        for i in range(1, len(gbi.rows) - 1):
+            r, rid = gbi.rows[i]
+            gbi.rows[i] = (r.intersect(gbi.rows[i - 1][0]), rid)
+        return gbi
+
+    def _next_at_idx(self, i: int):
+        nr, row_id, wrapped = self.row_iters[i].next()
+        if nr is None:
+            self.done = True
+            return
+        if wrapped and i != 0:
+            self._next_at_idx(i - 1)
+            if self.done:
+                return
+        if i == 0 and self.filter is not None:
+            self.rows[i] = (nr.intersect(self.filter), row_id)
+        elif i == 0 or i == len(self.rows) - 1:
+            self.rows[i] = (nr, row_id)
+        else:
+            self.rows[i] = (nr.intersect(self.rows[i - 1][0]), row_id)
+
+    def next(self) -> Tuple[Optional[GroupCount], bool]:
+        if self.done:
+            return None, True
+        if len(self.rows) == 1:
+            count = self.rows[-1][0].count()
+        else:
+            count = self.rows[-1][0].intersection_count(self.rows[-2][0])
+        group = [FieldRow(f.field, rid) for f, (_, rid) in zip(self.fields, self.rows)]
+        ret = GroupCount(group, count)
+        self._next_at_idx(len(self.rows) - 1)
+        return ret, False

@@ -36,24 +36,8 @@ from . import kernels
 from .kernels import _I, _P, _TREE_ARGS
 
 
-def _identity(words):
-    return words
-
-
-def _filter_plain(prog, mats, mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """The masked filter rows int32[S, W]: every column of the requested
-    shards for ``prog`` None."""
-    if prog is None:
-        f = torch.full(like.shape, -1, dtype=torch.int32, device=like.device)
-    else:
-        f = None if prog[0] == "zero" else kernels.eval_prog(prog, mats, _identity)
-        if f is None:
-            f = torch.zeros(like.shape, dtype=torch.int32, device=like.device)
-    return torch.where(mask[:, None] != 0, f, torch.zeros_like(f))
-
-
 def _planes_plain(plane_mat: torch.Tensor, planes) -> torch.Tensor:
-    return kernels.range_planes(plane_mat, planes, _identity)
+    return kernels.range_planes(plane_mat, planes, lambda words: words)
 
 
 def sum_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
@@ -61,7 +45,7 @@ def sum_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
     """int64[depth + 1] plane counts and considered count, in plain PyTorch
     ops: the CPU path and the reference K6 is held against."""
     p = _planes_plain(plane_mat, planes)
-    counts, n = bsi_ops.sum_counts(p, _filter_plain(prog, mats, mask, p[0]))
+    counts, n = bsi_ops.sum_counts(p, kernels.filter_plain(prog, mats, mask, p[0]))
     return torch.cat([counts, n.reshape(1)])
 
 
@@ -70,7 +54,7 @@ def minmax_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
     """(values int64[S], counts int64[S]) in plain PyTorch ops: the CPU
     path and the reference K7 is held against."""
     p = _planes_plain(plane_mat, planes)
-    return bsi_ops.minmax_valcount_nd(p, _filter_plain(prog, mats, mask, p[0]), is_min)
+    return bsi_ops.minmax_valcount_nd(p, kernels.filter_plain(prog, mats, mask, p[0]), is_min)
 
 
 def _launch_args(code: Optional[kernels.Postfix], mats, mask: torch.Tensor,

@@ -1,7 +1,7 @@
-"""TorchEngine: fused Count(tree), TopN and BSI Sum/Min/Max over
+"""TorchEngine: fused Count(tree), TopN, BSI Sum/Min/Max and GroupBy over
 device-resident field stacks.
 
-The port of the Count, TopN and BSI slices of
+The port of the Count, TopN, BSI and GroupBy slices of
 ``pilosa_tpu/parallel/engine.py`` (``MeshEngine``).  Per Count query:
 
 1. the call tree is lowered to a normalized program over a list of field
@@ -44,6 +44,11 @@ one launch of K6 ``bsi.sum_tree`` (per-plane counts, summed on the host in
 Python ints) or K7 ``bsi.minmax_tree`` (per-shard extreme and count,
 reduced on the host).
 
+GroupBy (``group_counts``): the group fields' stacks, their listed rows by
+index and the lowered filter go to one launch of K8 ``groupby.groupn_tree``
+(every combination's count, row-major); past MAX_GROUP_COMBOS
+combinations the executor's host iterator serves the call.
+
 Serving (``count_many``, the result memo, ``batcher()``): K Counts run as
 one K5 launch (``kernels.count_batch_tree``) with one readback (a tree
 with a range leaf runs on K1 or K2 beside it: K5 takes none); identical
@@ -75,6 +80,7 @@ from ..core.view import VIEW_STANDARD, view_bsi_name
 from ..ops import bitops
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
 from . import bsi as bsi_mod
+from . import groupby as groupby_mod
 from . import kernels
 from . import sparse as sparse_mod
 from .mesh import host_stack, put_stack, resolve_device, shard_mask
@@ -360,6 +366,9 @@ class TorchEngine:
     # Above this candidate-union size the fused TopN declines and the
     # executor runs the two-phase composition (engine.py:4197).
     MAX_TOPN_CANDIDATES = 4096
+    # Fused GroupBy combination cap: prod(K_i) above it goes to the host
+    # iterator (engine.py:4571), as K8's counters live in shared memory.
+    MAX_GROUP_COMBOS = groupby_mod.MAX_GROUP_COMBOS
 
     def __init__(self, holder, device=None):
         self.holder = holder
@@ -402,6 +411,10 @@ class TorchEngine:
         self.batch_cse_deduped = 0
         # Batch entries K5 declined (a range leaf), run on K1 or K2 instead.
         self.batch_declines = 0
+        # Fused GroupBy launches (K8), and GroupBys past MAX_GROUP_COMBOS
+        # (or MAX_GROUP_FIELDS) sent to the executor's host iterator.
+        self.group_dispatches = 0
+        self.group_host_fallbacks = 0
 
     # -- canonical shard axis ---------------------------------------------
 
@@ -1028,6 +1041,38 @@ class TorchEngine:
         the reference's repair-layer registration, Queue 1 item 13.)"""
         self.result_memo.put(key, value)
 
+    def memo_probe_groupby(self, index, c_str, fields, filter_call, shards):
+        """(key, counts-or-None) for the fused GroupBy lane.  The value is
+        the SHAPED count array, not the assembled result: the executor
+        re-runs its limit/offset assembly over it, so a hit cannot drift
+        from a recompute.  The tokens cover the group fields and the
+        filter's fields; the row lists derive from the group fields'
+        standard views, so unchanged tokens pin the array's axes too."""
+        if self.result_memo.maxsize <= 0:
+            return None, None
+        tfields = set(fields)
+        if filter_call is not None:
+            ffields = self._collect_fields(filter_call)
+            if ffields is None:
+                return None, None
+            tfields |= ffields
+        toks = self.memo_tokens(index, tfields)
+        if toks is None:
+            return None, None
+        key = (index, "groupby:" + c_str, tuple(sorted(set(shards))), toks)
+        return key, self.result_memo.get(key)
+
+    def memo_store_groupby(self, key, fields, row_lists, filter_call, counts):
+        """Store a GroupBy's counts, shaped [K_1, ..., K_n], under a key
+        from ``memo_probe_groupby``.  (The reference also registers the
+        entry with its repair layer, ``repairs.register_groupby``: ROADMAP.md
+        Queue 1 item 13.)"""
+        if key is None or counts is None:
+            return
+        shaped = np.asarray(counts, dtype=np.int64).reshape(
+            tuple(len(rows) for rows in row_lists))
+        self.result_memo.put(key, shaped)
+
     def _dispatch_count(self, index, c, shards, canonical):
         with self._stacks_lock:
             lw = _Lowering(self, canonical)
@@ -1493,3 +1538,56 @@ class TorchEngine:
         (vals, counts), canonical, _, bsig = res
         host = torch.stack([vals, counts]).cpu().numpy()
         return bsi_mod.decode_min_max(host, canonical, bsig.min, is_min)
+
+    # -- GroupBy (pilosa_tpu/parallel/engine.py:3702-3717, 4571-4673) ------
+
+    def group_counts_async(self, index: str, fields: List[str], row_lists,
+                           filter_call: Optional[Call], shards):
+        """Fused GroupBy as one K8 launch, the int64[K_1 * ... * K_n] counts
+        (row-major over ``row_lists``, the requested shards only) left on
+        the device.  None when the fused path does not apply: no shards,
+        or more than MAX_GROUP_COMBOS combinations or MAX_GROUP_FIELDS
+        fields (counted in ``group_host_fallbacks``; the executor's host
+        iterator serves them).  A listed row the stack lacks has no bits in
+        the stack's snapshot and counts zero.  A filter with no device
+        lowering, or past the kernels' limits, is UnsupportedLowering."""
+        if not fields:
+            raise ValueError("fused GroupBy requires at least one field")
+        combos = 1
+        for rows in row_lists:
+            combos *= max(len(rows), 1)
+        if combos > self.MAX_GROUP_COMBOS or len(fields) > groupby_mod.MAX_GROUP_FIELDS:
+            self.group_host_fallbacks += 1
+            return None
+        canonical = self.canonical_shards(index)
+        if not canonical:
+            return None
+        with self._stacks_lock:
+            stacks = [self.field_stack(index, f, VIEW_STANDARD, canonical) for f in fields]
+            idx_lists = [[st.row_index.get(r, -1) for r in rows]
+                         for st, rows in zip(stacks, row_lists)]
+            lw = _Lowering(self, canonical)
+            prog = None if filter_call is None else self._lower(index, filter_call, lw)
+            if prog is not None and not kernels.fits(prog):
+                raise UnsupportedLowering("filter tree exceeds the kernels' limits")
+            mask = self._mask_words(shards, canonical)
+            self.group_dispatches += 1
+            return self._reading(lw.stacks + stacks, lambda: groupby_mod.groupn_tree(
+                prog, lw.mats, mask, [st.matrix for st in stacks], idx_lists))
+
+    def group_counts(self, index: str, fields: List[str], row_lists,
+                     filter_call: Optional[Call], shards):
+        """Fused GroupBy: the counts as int64[K_1, ..., K_n] numpy, one
+        launch and one readback, or None (see ``group_counts_async``)."""
+        dev = self.group_counts_async(index, fields, row_lists, filter_call, shards)
+        if dev is None:
+            return None
+        return dev.cpu().numpy().reshape(tuple(len(rows) for rows in row_lists))
+
+    def batched_group_counts(self, index: str, fields: List[str], row_lists,
+                             filter_call: Optional[Call], shards):
+        """GroupBy through the batcher's entry point.  Until the batcher
+        fuses mixed operations (ROADMAP.md Queue 1 item 12) this is the
+        reference's idle direct path (engine.py:3626-3631): one
+        ``group_counts``."""
+        return self.group_counts(index, fields, row_lists, filter_call, shards)

@@ -1,0 +1,141 @@
+"""GroupBy's combination counts over resident field stacks: K8
+``groupn_tree`` beside its plain twin.
+
+Each of the n group fields (1 <= n <= MAX_GROUP_FIELDS) is a field stack
+``int32[R_i, S, WORDS]``; ``row_idx_lists[i]`` names the K_i stack rows of
+field i to group by (-1 for a row the stack lacks, which reads as zeros).
+The optional filter is a normalized tree of ``kernels.py`` (range leaves
+included) over ``mats``; None means every column.  The mask is the
+requested-shard gate int32[S].  The result is int64[K_1 * ... * K_n],
+row-major over the lists:
+
+    out[k_1, ..., k_n] = sum over requested shards of
+        popcount(filter & row_1[k_1] & ... & row_n[k_n])
+
+It replaces the XLA program ``pilosa_tpu/parallel/kernels.py:707
+groupn_tree`` (which sums in int32; the two agree below 2^31).  At most
+MAX_GROUP_COMBOS combinations: the engine sends a larger GroupBy to the
+executor's host iterator before any launch, as the reference does.
+
+For tensors on the card ``groupn_tree`` launches the hand-written CUDA
+kernel (``csrc/groupn_tree.cu``) or raises; for tensors on the CPU it
+evaluates the plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops import bitops
+from . import kernels
+from .kernels import _I, _P, _TREE_ARGS
+
+# csrc/groupn_tree.cu kMaxFields and kMaxCombos.
+MAX_GROUP_FIELDS = 8
+MAX_GROUP_COMBOS = 1024
+
+
+def groupn_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                      field_mats: Sequence[torch.Tensor], row_idx_lists) -> torch.Tensor:
+    """int64[K_1 * ... * K_n] combination counts in plain PyTorch ops, the
+    combinations walked depth first with one running AND per level, the
+    last level's rows counted together: the CPU path and the reference K8
+    is held against."""
+    lists = [[int(r) for r in rows] for rows in row_idx_lists]
+    if not all(lists):
+        return torch.zeros(0, dtype=torch.int64, device=mask.device)
+    like = field_mats[0][0]
+    zero = torch.zeros_like(like)
+
+    def rows_of(d):
+        return [field_mats[d][r] if r >= 0 else zero for r in lists[d]]
+
+    last = torch.stack(rows_of(len(lists) - 1))  # [K_n, S, W]
+    out = []
+
+    def walk(d, acc):
+        if d == len(lists) - 1:
+            out.append(bitops.popcount_words(torch.bitwise_and(last, acc)).sum(dim=(1, 2)))
+            return
+        for row in rows_of(d):
+            walk(d + 1, torch.bitwise_and(acc, row))
+
+    walk(0, kernels.filter_plain(prog, mats, mask, like))
+    return torch.cat(out).to(torch.int64)
+
+
+def _check_lists(field_mats: Sequence[torch.Tensor], row_idx_lists):
+    """The lists as ints, after the checks both versions share."""
+    n = len(field_mats)
+    if not 1 <= n <= MAX_GROUP_FIELDS or len(row_idx_lists) != n:
+        raise ValueError(f"GroupBy takes 1 to {MAX_GROUP_FIELDS} fields, one row list each")
+    lists = [[int(r) for r in rows] for rows in row_idx_lists]
+    if math.prod(len(rows) for rows in lists) > MAX_GROUP_COMBOS:
+        raise ValueError(f"GroupBy takes at most {MAX_GROUP_COMBOS} combinations")
+    for mat, rows in zip(field_mats, lists):
+        if any(not -1 <= r < mat.shape[0] for r in rows):
+            raise ValueError(f"group row outside stack of {mat.shape[0]} rows")
+    return lists
+
+
+def groupn_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                     mask: torch.Tensor, field_mats: Sequence[torch.Tensor],
+                     row_idx_lists) -> torch.Tensor:
+    """Launch K8 on the card, on the current stream, without waiting for
+    the device: int64[K_1 * ... * K_n].  The row lists travel to the card
+    in one pinned, non-blocking copy; PyTorch's caching allocators keep
+    the host buffer until the copy has run and hand the device copy out
+    again only to work queued after K8 on this stream."""
+    if not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 1:
+        raise ValueError("mask must be an int32[S] tensor on the card")
+    mask = mask.contiguous()
+    S = mask.shape[0]
+    W = kernels.check_stacks(list(mats) + list(field_mats), S)
+    lists = _check_lists(field_mats, row_idx_lists)
+    dev = mask.device
+    C = math.prod(len(rows) for rows in lists)
+    out = torch.zeros(C, dtype=torch.int64, device=dev)
+    if C == 0:
+        return out
+    if code is None:
+        tree = (None, 0, None, None, 0, None, 0)
+    else:
+        for m, r in code.leaves:
+            if not 0 <= r < mats[m].shape[0]:
+                raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
+        tree = kernels._c_leaves(code, mats)
+    idx = np.asarray([r for rows in lists for r in rows], dtype=np.int32)
+    dev_idx = torch.from_numpy(idx).pin_memory().to(dev, non_blocking=True)
+    n = len(field_mats)
+    ptrs = (ctypes.c_void_p * n)(*[m.data_ptr() for m in field_mats])
+    ks = (ctypes.c_int * n)(*[len(rows) for rows in lists])
+    fn = kernels._lib_fn("groupn_tree", "groupn_tree",
+                         _TREE_ARGS + [_P, _P, _I, _P, _P, _I, _I, _P, _P])
+    err = fn(*tree, ptrs, ks, n, dev_idx.data_ptr(), mask.data_ptr(), S, W, out.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"groupn_tree launch failed: cudaError {err}")
+    groupn_tree_cuda.launches += 1
+    return out
+
+
+groupn_tree_cuda.launches = 0
+
+
+def groupn_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                field_mats: Sequence[torch.Tensor], row_idx_lists) -> torch.Tensor:
+    """GroupBy's combination counts: int64[K_1 * ... * K_n].  CUDA tensors
+    launch K8 or raise; CPU tensors take the plain version."""
+    code = None
+    if prog is not None:
+        code = kernels.compile_prog(prog)
+        kernels.check_prog(code)
+    if mask.is_cuda:
+        return groupn_tree_cuda(code, mats, mask, field_mats, row_idx_lists)
+    _check_lists(field_mats, row_idx_lists)
+    return groupn_tree_plain(prog, mats, mask, field_mats, row_idx_lists)

@@ -197,6 +197,20 @@ def eval_prog(prog, mats: Sequence[torch.Tensor], select) -> torch.Tensor:
     return out
 
 
+def filter_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                 like: torch.Tensor) -> torch.Tensor:
+    """The masked filter rows int32[S, W] of an optional tree, shaped like
+    ``like``: every column of the requested shards for ``prog`` None, zeros
+    for a zero tree.  The plain filter of K6, K7 and K8."""
+    if prog is None:
+        f = torch.full(like.shape, -1, dtype=torch.int32, device=like.device)
+    else:
+        f = None if prog[0] == "zero" else eval_prog(prog, mats, lambda words: words)
+        if f is None:
+            f = torch.zeros(like.shape, dtype=torch.int32, device=like.device)
+    return torch.where(mask[:, None] != 0, f, torch.zeros_like(f))
+
+
 def count_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
     """sum(popcount(tree(rows) & mask)) in plain PyTorch ops: the CPU path
     and the reference the card's kernel is held against."""

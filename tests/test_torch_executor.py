@@ -171,11 +171,12 @@ def test_errors(trio):
     _, host, port = trio
     with pytest.raises(FieldNotFoundError):
         results(port, "Count(Intersect(Row(nope=1), Row(d=1)))")
-    # TopN (Queue 1 item 10) and BSI and time Range (item 9) are ported;
-    # GroupBy and Rows are not yet.
+    # TopN (Queue 1 item 10), BSI and time Range (item 9), Rows and
+    # GroupBy (item 11) are ported; Options is not yet.
     assert results(port, "TopN(d, n=2)") == results(host, "TopN(d, n=2)")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        results(port, "Rows(field=d)")
+    assert results(port, "Rows(field=d)") == results(host, "Rows(field=d)") == [[1, 2, 3, 4]]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        results(port, "Options(Row(d=1), excludeColumns=true)")
     q = "Count(Range(d=1, 2010-01-01T00:00, 2011-01-01T00:00))"
     assert results(port, q) == results(host, q) == [0]
     got, want = results(port, "Sum(field=d)")[0], results(host, "Sum(field=d)")[0]

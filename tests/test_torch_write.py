@@ -260,7 +260,17 @@ def set_col(tw, field, rows, shard=0):
 
 
 WRITES = ["set_d", "clear_d", "set_c_empty_block", "clear_c_block", "import_d",
-          "import_clear_d", "load_row_words_d", "set_then_clear"]
+          "import_clear_d", "load_row_words_d", "set_then_clear", "clear_row_d",
+          "clear_row_c", "store_d", "store_c"]
+
+
+def same_row_words(tw, field, row):
+    """The row's host words equal in both packages, shard by shard."""
+    for s in range(N_SHARDS):
+        jf, tf = tw.jh.fragment("i", field, "standard", s), tw.th.fragment("i", field, "standard", s)
+        np.testing.assert_array_equal(tf.row_words(row), jf.row_words(row),
+                                      err_msg=f"{field}={row}, shard {s}")
+        assert tf.row_count(row) == jf.row_count(row)
 
 
 @pytest.mark.parametrize("write", WRITES)
@@ -302,6 +312,17 @@ def test_write_syncs_the_resident_stack_in_place(write):
     elif write == "load_row_words_d":
         w = np.random.default_rng(9).integers(0, 1 << 64, bitops.WORDS // 2, dtype=np.uint64)
         tw.both(lambda h: h.fragment("i", "d", "standard", 1).load_row_words(2, w.copy()))
+    elif write in ("clear_row_d", "clear_row_c"):
+        assert tw.write(f"ClearRow({field}=2)") == [True]
+        assert tw.write(f"ClearRow({field}=2)") == [False]
+        same_row_words(tw, field, 2)
+        delta = -c0
+    elif write in ("store_d", "store_c"):
+        # Row 2 becomes Row 1 & Row 3: the Intersect counts 1 & 3.
+        assert tw.write(f"Store(Intersect(Row({field}=1), Row({field}=3)), {field}=2)") == [True]
+        assert tw.write(f"Store(Intersect(Row({field}=1), Row({field}=3)), {field}=2)") == [False]
+        same_row_words(tw, field, 2)
+        delta = tw.count(f"Intersect(Row({field}=1), Row({field}=3))") - c0
     else:
         col = free_col(tw, "d", (1, 2))
         tw.write(f"Set({col}, d=1)")
@@ -322,6 +343,65 @@ def test_write_syncs_the_resident_stack_in_place(write):
                f"Difference(Row({field}=2), Row({field}=1))",
                f"Xor(Row({field}=1), Row({field}=2))"):
         tw.count(q2)
+
+
+def test_store_and_clear_row_stale_the_memo_and_match_the_reference():
+    """A memoized Count misses after a Store or a ClearRow and sees it; a
+    Store of a new row adds the row (a rebuild, as for any new row); the
+    Store into an existing row and a ClearRow sync the stack in place."""
+    tw = Twins()
+    tw.stacks("d")
+    q = "Intersect(Row(d=1), Row(d=2))"
+    tw.count(q)
+    hits = tw.teng.result_memo.hits
+    c0 = tw.count(q)
+    assert tw.teng.result_memo.hits == hits + 1
+    before = tw.counters()
+    tw.write("Store(Union(Row(c=1), Row(d=4)), d=2)")
+    c1 = tw.count(q)
+    assert c1 != c0 and tw.teng.result_memo.hits == hits + 1
+    tw.write("ClearRow(d=1)")
+    assert tw.count(q) == 0
+    _, _, tr, tu = tw.counters()
+    assert tr == before[2] and tu > before[3]
+    assert_stack_current(tw, "d")
+    # Store into a row no fragment had: the stack grows a row.
+    tw.write("Store(Row(d=3), d=9)")
+    same_row_words(tw, "d", 9)
+    assert tw.count("Intersect(Row(d=9), Row(d=3))") == tw.count("Row(d=3)")
+    assert tw.counters()[2] == tr + 1
+    assert_stack_current(tw, "d")
+    # Rows sees the cleared and the stored rows as the reference does.
+    for rq in ("Rows(field=d)", "Rows(field=d, previous=1)"):
+        assert tw.port.execute("i", rq).results == tw.fused.execute("i", rq).results
+
+
+def test_store_and_clear_row_errors_match_the_reference():
+    from pilosa_tpu.core.field import FieldOptions as JFieldOptions
+    from pilosa_tpu.executor.executor import Error as JError
+    from pilosa_tpu_torch.core.field import FieldOptions as TFieldOptions
+    from pilosa_tpu_torch.executor.executor import Error as TError
+
+    tw = Twins()
+    for name, opts in (("v", dict(type="int", min=0, max=9)),
+                       ("m", dict(type="mutex")), ("b", dict(type="bool")),
+                       ("tq", dict(type="time", time_quantum="YMD"))):
+        tw.jh.index("i").create_field(name, JFieldOptions(**opts))
+        tw.th.index("i").create_field(name, TFieldOptions(**opts))
+    for q in ("ClearRow(v=1)", "Store(Row(d=1), v=1)", "Store(Row(d=1), m=1)",
+              "Store(Row(d=1), b=1)", "Store(Row(d=1), tq=1)", "Store(d=1)",
+              "Store(Row(d=1))", "Store(Row(d=1), Row(d=2), d=3)"):
+        with pytest.raises(JError) as want:
+            tw.fused.execute("i", q)
+        with pytest.raises(TError) as got:
+            tw.port.execute("i", q)
+        assert str(got.value) == str(want.value), q
+    # ClearRow takes set, time, mutex and bool fields, as the reference.
+    tw.write("Set(5, m=1) Set(6, b=1) Set(7, tq=2, 2018-01-02T00:00)")
+    for q in ("ClearRow(m=1)", "ClearRow(b=1)", "ClearRow(tq=2)"):
+        assert tw.write(q) == [True]
+    q = "Count(Range(tq=2, 2018-01-01T00:00, 2019-01-01T00:00))"
+    assert tw.port.execute("i", q).results == tw.fused.execute("i", q).results == [0]
 
 
 # -- (c) occupancy: a Set into an empty block on the sparse path ------------
