@@ -18,7 +18,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    4096}, pad and absent slots, zero and multi-leaf src trees, split
    (clustered) launches; for its trim ties, all-zero totals, n_out in
    {1, 5, K} and none (the totals copied out), and launches overlapping
-   on two streams; for P2 R in {1, 8, 16, 17, 64, 129, 8192}, every
+   on two streams, then the trim alone on totals set in its scratch
+   (TrimOnCard) at K in {1, 8, 16, 128, 129, 257, 1000, 2048, 4096},
+   n_out in {1, 5, 64, 255, 256, 257, K} and none, totals drawn, tied,
+   all equal, zero and at 2^31 - 1, and on two streams; for P2 R in {1, 8, 16, 17, 64, 129, 8192}, every
    row or rows by index (a subset, a permutation, one row, a list past
    the launch-parameter cap); for K5 count_batch_tree K in {1, 2, 8, 9,
    64, 65, 256, 512} random chain and interpreter trees with zero leaves,
@@ -30,11 +33,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    BETWEEN, predicates 0, 2^31, 2^63 - 1 and drawn ones, adversarial
    planes, missing planes, one to four range leaves (five refused),
    filters with and without range leaves, 12 and 31 shards, masks, K2's
-   block words, two streams; for K8 groupn_tree 1 to 5 and 8 fields, K
-   of 1, 2, 4, 32 and 33 (up to 1024 combinations, 1025 refused), rows
-   repeated and missing (-1), no filter, a chain, an interpreter tree and
-   one to four range leaves, masks of no shard, every shard and a ragged
-   set, 12 and 37 shards, two streams.  Integer results, so they must
+   block words, two streams; for K8 groupn_tree 1 to 8 fields, K of 1,
+   2, 3, 4, 32 and 33 (up to 1024 combinations, 1025 refused), the
+   register form's shapes (C up to 32, fields reordered) and the walk's
+   (up to 32 rows staged), rows repeated and missing (-1), no filter, a chain, an interpreter
+   tree and one to four range leaves, masks of no shard, every shard and
+   a ragged set, 12 and 37 shards, two streams.  Integer results, so they must
    agree exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
@@ -46,14 +50,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    TopN(top, <src>, n=5) for several src rows and an Intersect, a
    threshold= query, an ids= query, a no-src query and a Tanimoto query
    (the two-phase lane), through the engine (K3), then one TopN through
-   an engine-less Executor (Fragment.top per shard: P2).  Every answer
+   an engine-less Executor (Fragment.top per shard: P2).  Then the wide
+   part: index wide of 16 shards, field src of 8 dense rows and field w
+   of 4096 rows repeating 512 base rows of rand & rand & rand (8.6 GB on
+   the card), and five TopNs over all 4096 candidates (n = 5, 100, 4096,
+   an Intersect src, a threshold), each one K3 call that trims the 4096
+   totals (score_rows_trim_kernel after K3), no P2 launch and no host
+   fallback; K3's time
+   at that shape and what the trim adds to it (n_out 5 and 4096).  Every answer
    equals a numpy oracle over the host words, and each path's kernels'
    launch counters, zeroed just before it, must have moved.  Then the
    engine-less TopN again, warm (its wall time); after phase 4, once more
    under torch.profiler, whose kernel list must hold P2 alone, and one
    warm engine TopN, whose list must hold K3 and one copy back alone.
 4. times — each kernel at the main path's shapes (the trim: what it
-   adds to K3's launch, at K = 16 and 4096): "ms" (CUDA events
+   adds to a K3 call, at K = 16, 1000 and 4096 with n_out 5 and K,
+   beside torch.sort of the same totals): "ms" (CUDA events
    around 10 calls of the Python wrapper, the oldest column, kept for
    comparison: for a kernel whose device work is microseconds, that is
    the host's enqueue rate), "device_ms" (torch.profiler's kernel time
@@ -93,10 +105,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with limit/offset and on a shard subset (the fused lane: K8's counter
    must move, with no host fallback), one with a child Rows(limit=) and
    one with previous= (the host lane), and Rows with column=, limit= and
-   previous=, each against a numpy oracle; K8 at the 8-way and 3-field
-   shapes against its plain version and its bound; bench.py's
+   previous=, each against a numpy oracle, and GroupBy over ga, gb and
+   top (4 x 2 x 16: K8's walk); K8 at the 8-way, 3-field and filtered
+   shapes (the register form) and the 4 x 2 x 16 one against its plain
+   version and its bound (a device time below the bound is taken again,
+   at most three times); bench.py's
    groupby_8way/3field_1B_cols_p50 and _e2e_p50; the trim's torch.sort
-   yardstick is timed at K = 16 and 4096 in phase 4.
+   yardstick is timed at K = 16, 1000 and 4096 in phase 4.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -128,7 +143,10 @@ card with their device time per launch (torch.profiler), then phase 5's
 write->Count p50 and bulk-sync seconds (a checkout without the in-place
 sync pays a rebuild for each), and the p50 of one query of 8 consecutive
 Counts on f with the kernels it puts on the card (8 K1 launches where
-Counts run one by one, one K5 where the run is one count_many).  The
+Counts run one by one, one K5 where the run is one count_many), and
+(ab_kernels) K3's full TopN at K = 4096 copying its totals out and
+trimming to 5 and 4096, and K8 at the 8-way, 3-field and filtered
+shapes and at 32 x 32, device ms per launch.  The
 result memo is off for every timing loop.  The data,
 queries and loops are this file's, so both trees are measured the same
 way.  Run the trees in turns: parent, change, change, parent.
@@ -139,6 +157,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -231,17 +250,28 @@ def per_launch(seen):
     return {k: {"launches": n, "device_ms": t / n} for k, (n, t) in sorted(seen.items())}
 
 
-def device_ms(fn, kernel, windows=5, batch=10):
-    """Device time per launch of the kernel whose name contains
+def device_ms(fn, kernel, windows=5, batch=10, per_call=False, bound_ms=None):
+    """Device time per launch of the kernels whose names contain
     ``kernel``, over ``windows`` runs of ``batch`` calls of ``fn`` back to
-    back, from on_card.  Raises when the profiler saw no such launch."""
-    seen = on_card(lambda: [fn() for _ in range(windows * batch)],
-                   lambda seen: any(kernel in k for k in seen))
-    hits = [v for k, v in seen.items() if kernel in k]
-    launches, total = sum(n for n, _ in hits), sum(t for _, t in hits)
-    if not launches or total <= 0:
-        raise AssertionError(f"torch.profiler saw no {kernel} launch: {seen}")
-    return total / launches
+    back, from on_card; with ``per_call``, per call of ``fn``, each such
+    kernel launching once per call: the sum of their per-launch times (so
+    a window that lost some records does not read low).  Raises when the
+    profiler saw no such launch.  With ``bound_ms``, a reading below the
+    bound (records the profiler lost) is taken again, and raises the
+    third time."""
+    for attempt in range(3):
+        seen = on_card(lambda: [fn() for _ in range(windows * batch)],
+                       lambda seen: any(kernel in k for k in seen))
+        hits = [v for k, v in seen.items() if kernel in k]
+        launches, total = sum(n for n, _ in hits), sum(t for _, t in hits)
+        if not launches or total <= 0:
+            raise AssertionError(f"torch.profiler saw no {kernel} launch: {seen}")
+        ms = sum(t / n for n, t in hits if n) if per_call else total / launches
+        if bound_ms is None or ms >= bound_ms:
+            return ms
+        log(f"times: {kernel} read {ms:.4f} ms, below its bound {bound_ms:.4f} ms "
+            f"(attempt {attempt + 1} of 3): the profiler lost records")
+    raise AssertionError(f"{kernel}: device time below its bound in three windows")
 
 
 def host_us(fn, sync, reps=15, batch=10):
@@ -259,14 +289,16 @@ def host_us(fn, sync, reps=15, batch=10):
     return statistics.median(times)
 
 
-def measured(fn, kernel, sync, reps=15):
+def measured(fn, kernel, sync, reps=15, per_call=False, bound_ms=None):
     """{"ms", "device_ms", "host_us"} of one kernel wrapper call: ``ms``
     as p50_ms has always measured it (CUDA events around 10 calls of the
     Python wrapper, so host-bound where the device work is microseconds),
-    ``device_ms`` from the profiler, ``host_us`` from the host clock.  The
-    ``ms`` window runs first, before any profiler session."""
+    ``device_ms`` from the profiler (per_call, bound_ms: see device_ms),
+    ``host_us`` from the host clock.  The ``ms`` window runs first, before
+    any profiler session."""
     ms = p50_ms(fn, reps, sync)
-    return {"ms": ms, "device_ms": device_ms(fn, kernel), "host_us": host_us(fn, sync)}
+    return {"ms": ms, "device_ms": device_ms(fn, kernel, per_call=per_call, bound_ms=bound_ms),
+            "host_us": host_us(fn, sync)}
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -546,7 +578,107 @@ def check_topn_kernels(device, seed):
                            f"R={R2} rows={'all' if rows is None else len(rows)}"))
                 n += 1
     log(f"kernels: {n} comparisons exact (K3 with its trim, and P2, against plain versions)")
+    err["topn_trim"] = max(err["topn_trim"], check_trim(device, seed))
     return err
+
+
+# The trim's own checks: K and n_out on both sides of its sort's widths
+# (16 keys a thread, 512 a warp, the power of two above K).
+TRIM_CHECK_K = (1, 8, 16, 128, 129, 257, 1000, 2048, 4096)
+TRIM_CHECK_N_OUT = (1, 5, 64, 255, 256, 257)
+
+
+def _trim_totals(rng, kind, K):
+    """int64[K] totals of one kind: drawn, three levels (ties), all equal,
+    all zero, or half at 2^31 - 1 (the largest total an int32 holds)."""
+    if kind == "drawn":
+        return rng.integers(0, 1 << 30, K)
+    if kind == "ties":
+        return rng.choice(np.array([0, 5, 1 << 20]), K)
+    if kind == "equal":
+        return np.full(K, 12345)
+    if kind == "zero":
+        return np.zeros(K, np.int64)
+    return np.where(rng.random(K) < 0.5, 2 ** 31 - 1, rng.integers(0, 2 ** 31 - 1, K))
+
+
+class TrimOnCard:
+    """K3's trim on totals of the caller's choosing: they go into the
+    current stream's totals scratch, then a K3 launch whose one shard is
+    masked adds nothing to them, so its last block (past 256 candidates,
+    score_rows_trim_kernel after it) trims exactly these (n_out None:
+    copies them out).  Counts as a K3 launch."""
+
+    def __init__(self, device):
+        import torch
+
+        from pilosa_tpu_torch.parallel import kernels
+
+        self.kernels = kernels
+        self.code = kernels.compile_prog(("row", 0, 0))
+        self.mats = [torch.zeros((1, 1, 32768), dtype=torch.int32, device=device)]
+        self.mask = torch.zeros(1, dtype=torch.int32, device=device)
+        self.idx = torch.zeros(kernels.TOTALS_MAX, dtype=torch.int32, device=device)
+        self.cnt = torch.zeros((kernels.TOTALS_MAX, 1), dtype=torch.int32, device=device)
+
+    def __call__(self, totals, n_out):
+        import torch
+
+        K, dev = totals.shape[0], totals.device
+        scratch = self.kernels._totals_scratch_for(dev, torch.cuda.current_stream(dev).cuda_stream)
+        scratch[:K].copy_(totals)
+        return self.kernels.score_rows_cuda(self.code, self.mats, self.mask, self.mats[0],
+                                            self.idx[:K], scores=False, cnt=self.cnt[:K],
+                                            n_out=n_out)[2]
+
+
+def check_trim(device, seed):
+    """K3's trim against topn_trim_plain, exactly, on totals set directly
+    (TrimOnCard): K in TRIM_CHECK_K, n_out in TRIM_CHECK_N_OUT and K, and
+    none (the totals copied out), totals drawn, tied, all equal, zero and
+    at 2^31 - 1; then 16 launches alternating between two streams.
+    Returns max |err|."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    rng = np.random.default_rng(seed + 17)
+    trim = TrimOnCard(device)
+    e, n = 0, 0
+    for K in TRIM_CHECK_K:
+        for kind in ("drawn", "ties", "equal", "zero", "int32_max"):
+            totals = torch.from_numpy(_trim_totals(rng, kind, K).astype(np.int64)).to(device)
+            for n_out in [None] + sorted({v for v in TRIM_CHECK_N_OUT if v <= K} | {K}):
+                got = trim(totals, n_out)
+                torch.cuda.synchronize()
+                what = f"K={K} {kind} n_out={n_out}"
+                if n_out is None:
+                    e = max(e, _exact("K3 trim", got, totals, f"copied totals {what}"))
+                else:
+                    wv, wi = kernels.topn_trim_plain(totals, n_out)
+                    e = max(e, _exact("K3 trim", got[0], wv, f"vals {what}"),
+                            _exact("K3 trim", got[1], wi, f"idx {what}"))
+                n += 1
+    # Two streams at once: each has its own scratch.
+    side = torch.cuda.Stream(device=device)
+    torch.cuda.synchronize()
+    pending = []
+    for i in range(16):
+        K = TRIM_CHECK_K[i % len(TRIM_CHECK_K)]
+        totals = torch.from_numpy(_trim_totals(rng, "ties", K).astype(np.int64)).to(device)
+        n_out = min(K, (1, 5, 257, K)[i % 4])
+        stream = side if i % 2 else torch.cuda.default_stream(device)
+        stream.wait_stream(torch.cuda.default_stream(device))  # the totals' upload
+        with torch.cuda.stream(stream):
+            pending.append((totals, n_out, trim(totals, n_out)))
+    torch.cuda.synchronize()
+    for totals, n_out, got in pending:
+        want = torch.stack(kernels.topn_trim_plain(totals, n_out))
+        e = max(e, _exact("K3 trim", got, want, f"on two streams, K={totals.shape[0]}"))
+        n += 1
+    log(f"kernels: {n} comparisons exact (K3's trim on totals set directly, against "
+        "topn_trim_plain)")
+    return e
 
 
 _OPS = ("and", "or", "andnot", "xor")
@@ -850,24 +982,29 @@ def check_bsi_kernels(device, seed):
 
 
 # Row lists of the K8 checks, by field: (stack, K), K rows drawn from the
-# stack (a 4-row and a 33-row one); n = 1 to 5 and 8 fields, K of 1, 2, 4,
-# 32 and 33, up to 1024 combinations (32 x 32).
+# stack (a 4-row and a 33-row one); 1 to 8 fields, K of 1, 2, 4, 32 and 33,
+# up to 1024 combinations (32 x 32).  The register form takes the shapes
+# of at most 4 fields with one field of up to 4 rows and the others of up
+# to 2 (C up to 32: 4 x 2 x 2 x 2 and 2 x 2 x 4 x 2, reordered); the walk
+# every other (C = 33 and 1024 among them, up to 32 rows staged).
 _GROUP_SHAPES = [
     (("g4", 1),), (("g4", 4),), (("g33", 33),),
-    (("g4", 4), ("g4", 2)), (("g33", 33), ("g4", 1)), (("g33", 32), ("g33", 32)),
-    (("g4", 2), ("g33", 33)),
+    (("g4", 4), ("g4", 2)), (("g4", 2), ("g4", 3)), (("g33", 33), ("g4", 1)),
+    (("g33", 32), ("g33", 32)), (("g4", 2), ("g33", 33)),
     (("g4", 4), ("g4", 2), ("g4", 2)), (("g4", 1), ("g4", 4), ("g33", 33)),
     (("g4", 2), ("g4", 2), ("g4", 2), ("g4", 2)),
+    (("g4", 4), ("g4", 2), ("g4", 2), ("g4", 2)), (("g4", 2), ("g4", 2), ("g4", 4), ("g4", 2)),
     (("g4", 4), ("g4", 2), ("g4", 1), ("g33", 33)),
     (("g4", 1), ("g4", 2), ("g4", 1), ("g4", 2), ("g33", 33)),
+    (("g4", 2),) * 5 + (("g4", 1),), (("g4", 2),) * 6 + (("g33", 2),),
     (("g4", 2),) * 8,
 ]
 
 
 def check_groupby_kernel(device, seed):
-    """K8 groupn_tree against groupn_tree_plain, exactly: 1 to 5 and 8
-    fields, K of 1, 2, 4, 32 and 33 (up to 1024 combinations; 1025 is
-    refused before launch), rows drawn at random with repeats and a row
+    """K8 groupn_tree against groupn_tree_plain, exactly: 1 to 8 fields, K
+    of 1, 2, 3, 4, 32 and 33 (up to 1024 combinations; 1025 is refused
+    before launch), the register form and the walk, rows drawn at random with repeats and a row
     the stack lacks (-1), adversarial words (all-ones, sign bit only,
     zero, sparse rows), no filter, a one-leaf chain, an interpreter tree
     and one to four range leaves, masks of no shard, every shard and a
@@ -879,7 +1016,7 @@ def check_groupby_kernel(device, seed):
 
     rng = np.random.default_rng(seed + 13)
     err = {"groupn_tree": 0}
-    n = 0
+    n = n_reg = 0
 
     def same(got, want, what):
         nonlocal n
@@ -910,16 +1047,17 @@ def check_groupby_kernel(device, seed):
                 if k > 3 and rng.random() < 0.5:
                     rows[0] = rows[1]  # a repeated row
                 lists.append(rows)
+            n_reg += groupby.groupn_plan([k for _, k in shape])[0] == "registers"
             for fi, prog in enumerate(filters):
                 mask = masks[0] if fi == 0 else masks[int(rng.integers(0, 3))]
                 code = None if prog is None else _checked(prog)
-                got = groupby.groupn_tree_cuda(code, mats, mask, fmats, lists)
                 want = groupby.groupn_tree_plain(prog, mats, mask, fmats, lists)
+                got = groupby.groupn_tree_cuda(code, mats, mask, fmats, lists)
                 same(got, want, f"S={S} {[k for _, k in shape]} filter {fi}")
             for mask in masks[1:]:
+                want = groupby.groupn_tree_plain(None, mats, mask, fmats, lists)
                 same(groupby.groupn_tree_cuda(None, mats, mask, fmats, lists),
-                     groupby.groupn_tree_plain(None, mats, mask, fmats, lists),
-                     f"S={S} {[k for _, k in shape]} mask {int(mask.sum())}")
+                     want, f"S={S} {[k for _, k in shape]} mask {int(mask.sum())}")
         try:
             groupby.groupn_tree(None, mats, masks[0], [stacks["g33"]] * 2, [[0] * 41, [0] * 25])
         except ValueError:
@@ -932,7 +1070,8 @@ def check_groupby_kernel(device, seed):
             torch.cuda.synchronize()
             pending = []
             for i in range(12):
-                lists = [[i % 4, (i + 1) % 4], list(range(33))]
+                # The walk (2 x 33) and the register form (2 x 2) in turns.
+                lists = [[i % 4, (i + 1) % 4], list(range(33)) if i % 4 < 2 else [i % 3, 32]]
                 prog = filters[i % len(filters)]
                 with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
                     code = None if prog is None else _checked(prog)
@@ -942,9 +1081,11 @@ def check_groupby_kernel(device, seed):
             for prog, lists, got in pending:
                 same(got, groupby.groupn_tree_plain(prog, mats, masks[0],
                                                     [stacks["g4"], stacks["g33"]], lists),
-                     "two streams")
+                     f"two streams, {len(lists[1])} rows")
         del stacks, bst, mats
-    log(f"kernels: {n} comparisons exact (K8 groupn_tree against its plain version)")
+    log(f"kernels: {n} comparisons exact (K8 groupn_tree against its plain version; "
+        f"{n_reg // 2} of {len(_GROUP_SHAPES)} shapes in the register form, the rest "
+        "in the walk)")
     return err
 
 
@@ -1128,8 +1269,6 @@ class TopNOracle:
     @staticmethod
     def _walk(pairs, score, n, thr, tanimoto, src_count):
         import heapq
-        import math
-
         lo = src_count * tanimoto / 100.0 if tanimoto else 0.0
         hi = src_count * 100.0 / tanimoto if tanimoto else 0.0
         heap = []
@@ -1212,13 +1351,15 @@ def run_topn_main_path(device, holder, engine, ex, host):
     queries, o = topn_main_path_queries(host)
     log(f"main path: TopN numpy oracle in {time.perf_counter() - t0:.3f} s")
     kernels.score_rows_cuda.launches = 0
+    kernels.score_rows_cuda.trims = 0
     kernels.and_popcount_rows_cuda.launches = 0
     for q, want in queries:
         got = [tuple(p) for p in ex.execute("bench", q).results[0]]
         if got != want:
             raise AssertionError(f"{q}: port {got} != numpy oracle {want}")
         log(f"main path: {q} -> {got}")
-    launches = {"score_rows": kernels.score_rows_cuda.launches}
+    launches = {"score_rows": kernels.score_rows_cuda.launches,
+                "topn_trim": kernels.score_rows_cuda.trims}
     log(f"main path: {len(queries)} TopN queries exact against numpy; launches {launches}")
     if kernels.and_popcount_rows_cuda.launches:
         raise AssertionError("the engine's TopN lanes launched P2")
@@ -1249,6 +1390,165 @@ def run_topn_main_path(device, holder, engine, ex, host):
     log(f"main path: warm engine-less {q} wall p50 {statistics.median(walls) * 1e3:.3f} ms "
         f"over {len(walls)} calls ({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms)")
     return launches, (q, want)
+
+
+# The wide part of the TopN main path: a TopN over as many candidates as
+# the fused lane takes (the engine's MAX_TOPN_CANDIDATES).
+WIDE_SHARDS = 16  # 16.8M columns
+WIDE_ROWS = 4096  # field w: row r holds base row r % WIDE_BASE's words
+WIDE_BASE = 512
+
+
+class WideOracle(TopNOracle):
+    """TopNOracle over field w of index wide: every row r holds the words
+    of base row r % len(base), so the counts and scores of the base rows
+    serve all of w's rows (the fused lane's semantics, fused())."""
+
+    def __init__(self, base, n_rows):
+        self.base = base
+        self.rows = list(range(n_rows))
+        self.top = dict.fromkeys(self.rows)
+        counts = [popcounts(b) for b in base]
+        self.cnt = {r: counts[r % len(base)] for r in self.rows}
+
+    def scores(self, src):
+        sc = [popcounts(b & src) for b in self.base]
+        return {r: sc[r % len(self.base)] for r in self.rows}, popcounts(src)
+
+
+def build_wide(holder, n_shards, seed):
+    """Index wide: field src of 8 dense random rows, field w of WIDE_ROWS
+    rows whose words repeat WIDE_BASE base rows of rand & rand & rand, so
+    every total ties with 7 others and the tie order decides every rank.
+    The fragments share the base rows' arrays (nothing writes this index).
+    Returns (src rows, base rows), uint64[S, W64] each."""
+    from pilosa_tpu_torch.core.view import VIEW_STANDARD
+
+    rng = np.random.default_rng(seed + 29)
+    idx = holder.create_index("wide")
+    src = [rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64) for _ in range(8)]
+    base = []
+    for _ in range(WIDE_BASE):
+        b = rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64)
+        b &= rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64)
+        b &= rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64)
+        base.append(b)
+    for name, n_rows, words in (("src", 8, src), ("w", WIDE_ROWS, base)):
+        view = idx.create_field(name).view_if_not_exists(VIEW_STANDARD)
+        for sh in range(n_shards):
+            frag = view.fragment_if_not_exists(sh)
+            for r in range(n_rows):
+                frag.load_row_words(r, words[r % len(words)][sh])
+            frag.cache.invalidate()  # once after the bulk load
+    return src, base
+
+
+def wide_queries(src, base):
+    """(PQL, expected pairs) of the wide TopN part."""
+    o = WideOracle(base, WIDE_ROWS)
+    # Near the median per-shard score (2^20 / 8 / 2): gates about half.
+    thr = 65600
+    return [
+        ("TopN(w, Row(src=1), n=5)", o.fused(src[1], 5)),
+        ("TopN(w, Row(src=2), n=100)", o.fused(src[2], 100)),
+        ("TopN(w, Intersect(Row(src=3), Row(src=4)), n=5)", o.fused(src[3] & src[4], 5)),
+        (f"TopN(w, Row(src=5), n={WIDE_ROWS})", o.fused(src[5], WIDE_ROWS)),
+        (f"TopN(w, Row(src=6), n=5, threshold={thr})", o.fused(src[6], 5, thr=thr)),
+    ]
+
+
+def run_wide_topn(device, holder, engine, ex, seed, n_shards=WIDE_SHARDS):
+    """The wide part of the TopN main path: index wide (build_wide), each
+    query of wide_queries through Executor.execute against the numpy
+    oracle.  Every one must take the fused lane: one K3 call trimming the
+    4096 totals (score_rows_trim_kernel after K3), no P2 launch, no host
+    fallback.  The
+    counters are zeroed just before and read just after.  Returns the K3
+    launches and the part's numbers."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    t0 = time.perf_counter()
+    src, base = build_wide(holder, n_shards, seed)
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = engine.field_stack("wide", "w", "standard")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    log(f"main path: wide: data made in {made:.3f} s ({n_shards} shards, {WIDE_ROWS} rows of w "
+        f"over {WIDE_BASE} base rows); stack w {tuple(st.matrix.shape)} "
+        f"({st.matrix.numel() * 4 / 1e9:.3f} GB) built and uploaded in {stack_s:.3f} s")
+    t0 = time.perf_counter()
+    queries = wide_queries(src, base)
+    oracle_s = time.perf_counter() - t0
+    fallbacks = ex.host_fallbacks
+    kernels.score_rows_cuda.launches = 0
+    kernels.score_rows_cuda.trims = 0
+    kernels.and_popcount_rows_cuda.launches = 0
+    lat = []
+    for q, want in queries:
+        t0 = time.perf_counter()
+        got = [tuple(p) for p in ex.execute("wide", q).results[0]]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if got != want:
+            raise AssertionError(f"{q}: port {got[:8]}... != numpy oracle {want[:8]}... "
+                                 f"({len(got)} and {len(want)} pairs)")
+        log(f"main path: wide: {q} -> {len(got)} pairs, first {got[:3]}, exact")
+    launches = {"score_rows": kernels.score_rows_cuda.launches,
+                "topn_trim": kernels.score_rows_cuda.trims}
+    p2 = kernels.and_popcount_rows_cuda.launches
+    log(f"main path: wide: {len(queries)} TopN queries exact against numpy (oracle "
+        f"{oracle_s:.3f} s); launches {launches}, P2 launches {p2}, host fallbacks "
+        f"{ex.host_fallbacks - fallbacks}")
+    if device.type == "cuda" and launches != {"score_rows": len(queries),
+                                              "topn_trim": len(queries)}:
+        raise AssertionError(f"wide TopN: {launches} for {len(queries)} queries, so some "
+                             "query left the fused lane or skipped the trim")
+    if p2 or ex.host_fallbacks != fallbacks:
+        raise AssertionError("wide TopN took the engine-less or host lane")
+    out = {"made_s": made, "stack_s": stack_s, "oracle_s": oracle_s, "query_ms": lat}
+    if device.type == "cuda":
+        out.update(time_wide_k3(engine))
+    return launches, out
+
+
+def time_wide_k3(engine):
+    """K3 at the wide shape (4096 candidates over every shard of wide, the
+    src Row(src=1)): its device time copying the totals out, and what the
+    trim adds to it at n_out 5 and 4096, beside the bound."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import kernels
+
+    sync = torch.cuda.synchronize
+    canonical = engine.canonical_shards("wide")
+    stack = engine.field_stack("wide", "w", "standard")
+    entry = engine._topn_candidates("wide", "w", stack)
+    mask = engine._mask_words(canonical, canonical)
+    prog, lw = engine._lower_src("wide", pql.parse("Row(src=1)").calls[0], canonical)
+    code = kernels.compile_prog(prog)
+    K, S, W = entry.cand_idx.shape[0], len(canonical), 32768
+
+    def k3(n_out=None):
+        return kernels.score_rows_cuda(code, lw.mats, mask, stack.matrix, entry.cand_idx,
+                                       scores=False, cnt=entry.dev_cnt, thr=1, n_out=n_out)[2]
+
+    base = measured(k3, "score_rows_kernel", sync)
+    bound = ((K + 1) * S * W * 4 + K * S * 4 + K * 8) / HBM_BYTES_PER_S * 1e3
+    out = {"k3_wide": {**base, "bound_ms": bound, "K": K, "S": S}}
+    for n_out in (5, K):
+        out[f"trim_added_wide_{n_out}"] = trim_added(k3, lambda n_out=n_out: k3(n_out), sync)
+    totals = k3()
+    out["torch_sort_wide_ms"] = p50_ms(lambda: torch.sort(totals, descending=True, stable=True),
+                                       15, sync)
+    _times_line(f"K3 at the wide shape, K={K}, S={S}, totals copied out", base, bound, float("nan"),
+                "; trim added: " + ", ".join(
+                    f"n_out={n} {out[f'trim_added_wide_{n}']['device_ms']:.4f} ms"
+                    for n in (5, K)) + f"; torch.sort {out['torch_sort_wide_ms']:.4f} ms")
+    return out
 
 
 def engine_less_kernels(holder, q, want):
@@ -1441,10 +1741,12 @@ def topn_p50_ms(ex):
 
 
 def trim_added(base, fused, sync):
-    """What the trim adds to K3's launch: ``fused`` (K3 trimming to n_out)
-    minus ``base`` (K3 copying the totals out), each measured twice, in
-    turns (base, fused, fused, base), as {"ms", "device_ms", "host_us"}."""
-    runs = [measured(fn, "score_rows_kernel", sync) for fn in (base, fused, fused, base)]
+    """What the trim adds to a K3 call: ``fused`` (K3 trimming to n_out,
+    past 256 candidates with score_rows_trim_kernel after it) minus ``base`` (K3
+    copying the totals out), device time per call over both kernels, each
+    measured twice, in turns (base, fused, fused, base), as {"ms",
+    "device_ms", "host_us"}."""
+    runs = [measured(fn, "score_rows", sync, per_call=True) for fn in (base, fused, fused, base)]
     return {k: (runs[1][k] + runs[2][k] - runs[0][k] - runs[3][k]) / 2 for k in runs[0]}
 
 
@@ -1501,63 +1803,78 @@ def time_topn(engine, ex, holder, device, err, launches):
                   err["score_rows"], t3, plain3, bytes3, 3 * K * S * W, None)]
     _times_line(f"K3 score_rows at K={K}, S={S}", t3, out[-1]["bound_ms"], plain3)
 
-    # The trim runs in K3's last block: what it adds to the full-TopN
-    # launch is K3 with n_out = 5 minus K3 copying the totals out, at the
-    # main path's K and at the most candidates the totals take.
-    n_out = 5
+    # The trim runs in K3's last block (past 256 candidates in
+    # score_rows_trim_kernel after K3): what it adds to a full-TopN call is
+    # K3 trimming to n_out minus K3 copying the totals out, at the main
+    # path's K, at 1000 and at the most candidates the totals take, with
+    # n_out 5 and K; beside the plain trim and torch.sort.
     for prog, code, mats in lowered[:2]:  # held against plain at this shape
         _, _, got = kernels.score_rows_cuda(code, mats, mask, stack.matrix, entry.cand_idx,
-                                            scores=False, cnt=entry.dev_cnt, thr=1, n_out=n_out)
+                                            scores=False, cnt=entry.dev_cnt, thr=1, n_out=5)
         want = kernels.topn_full_tree_plain(prog, mats, mask, stack.matrix, entry.cand_idx,
-                                            entry.dev_cnt, 1, n_out)
+                                            entry.dev_cnt, 1, 5)
         err["topn_trim"] = max(err["topn_trim"], _exact("K3 trim", got, torch.stack(want),
                                                         "at the main-path shape"))
 
-    def k3_trim():
+    def k3_trim(n_out):
         _, code, mats = lowered[next(it) % len(lowered)]
         return kernels.score_rows_cuda(code, mats, mask, stack.matrix, entry.cand_idx,
                                        scores=False, cnt=entry.dev_cnt, thr=1, n_out=n_out)[2]
 
-    added = {K: trim_added(k3, k3_trim, sync)}
+    added, plain_at, lib_at = {}, {}, {}
+    for n_out in (5, K):
+        added[f"{K}/{n_out}"] = trim_added(k3, lambda n_out=n_out: k3_trim(n_out), sync)
+    totals = k3()
+    plain_at[str(K)] = p50_ms(lambda: kernels.topn_trim_plain(totals, 5), 5, sync)
+    # The one PyTorch call with the same order: a stable descending sort
+    # (its first n_out entries); timed as a yardstick, never used.
+    lib_at[str(K)] = p50_ms(lambda: torch.sort(totals, descending=True, stable=True), 15, sync)
     gen = torch.Generator(device=device).manual_seed(4096)
-    S_M, R_M, K_M = 8, 16, kernels.TOTALS_MAX
+    S_M, R_M = 8, 16
     mat_m = torch.randint(-2 ** 31, 2 ** 31 - 1, (R_M, S_M, W), dtype=torch.int32, device=device,
                           generator=gen)
     src_m = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, S_M, W), dtype=torch.int32, device=device,
                           generator=gen)
-    idx_m = torch.randint(0, R_M, (K_M,), dtype=torch.int32, device=device, generator=gen)
-    cnt_m = torch.randint(0, 1 << 20, (K_M, S_M), dtype=torch.int32, device=device, generator=gen)
+    idx_all = torch.randint(0, R_M, (kernels.TOTALS_MAX,), dtype=torch.int32, device=device,
+                            generator=gen)
+    cnt_all = torch.randint(0, 1 << 20, (kernels.TOTALS_MAX, S_M), dtype=torch.int32,
+                            device=device, generator=gen)
     mask_m = torch.ones(S_M, dtype=torch.int32, device=device)
     code_m = kernels.compile_prog(("row", 0, 0))
-    got = kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False, cnt=cnt_m,
-                                  n_out=n_out)[2]
-    want = kernels.topn_full_tree_plain(("row", 0, 0), [src_m], mask_m, mat_m, idx_m, cnt_m, 1, n_out)
-    err["topn_trim"] = max(err["topn_trim"], _exact("K3 trim", got, torch.stack(want), f"at K={K_M}"))
-    added[K_M] = trim_added(
-        lambda: kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False, cnt=cnt_m)[2],
-        lambda: kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False, cnt=cnt_m,
-                                        n_out=n_out)[2], sync)
-    totals_m = kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False,
-                                       cnt=cnt_m)[2]
+    for K_M in (1000, kernels.TOTALS_MAX):
+        idx_m, cnt_m = idx_all[:K_M], cnt_all[:K_M]
+
+        def k3_m(n_out=None, idx_m=idx_m, cnt_m=cnt_m):
+            return kernels.score_rows_cuda(code_m, [src_m], mask_m, mat_m, idx_m, scores=False,
+                                           cnt=cnt_m, n_out=n_out)[2]
+
+        for n_out in (5, K_M):
+            want = kernels.topn_full_tree_plain(("row", 0, 0), [src_m], mask_m, mat_m, idx_m,
+                                                cnt_m, 1, n_out)
+            err["topn_trim"] = max(err["topn_trim"], _exact(
+                "K3 trim", k3_m(n_out), torch.stack(want), f"at K={K_M}, n_out={n_out}"))
+            added[f"{K_M}/{n_out}"] = trim_added(k3_m, lambda n_out=n_out: k3_m(n_out), sync)
+        totals_m = k3_m()
+        plain_at[str(K_M)] = p50_ms(lambda: kernels.topn_trim_plain(totals_m, 5), 5, sync)
+        lib_at[str(K_M)] = p50_ms(lambda: torch.sort(totals_m, descending=True, stable=True),
+                                  15, sync)
     del mat_m
-    totals = k3()
-    plain4 = p50_ms(lambda: kernels.topn_trim_plain(totals, n_out), 5, sync)
-    # The one PyTorch call with the same order: a stable descending sort
-    # (its first n_out entries); timed as a yardstick, never used.
-    lib4 = p50_ms(lambda: torch.sort(totals, descending=True, stable=True), 15, sync)
-    lib_m = p50_ms(lambda: torch.sort(totals_m, descending=True, stable=True), 15, sync)
-    plain_m = p50_ms(lambda: kernels.topn_trim_plain(totals_m, n_out), 5, sync)
+    # Least work: the K totals read and the n_out pairs written; the
+    # K * log2(K) comparisons of a comparison sort, far below the card's rate.
     out.append(_entry("topn_trim", "pilosa_tpu_torch/csrc/score_rows.cu",
-                      "pilosa_tpu/parallel/kernels.py:382", 0, err["topn_trim"], added[K],
-                      plain4, K * 8 + n_out * 8, K * K, lib4))
-    out[-1]["runs_in"] = "score_rows (K3): the last block of its full-TopN launch"
-    out[-1]["added_device_ms"] = {str(k): v["device_ms"] for k, v in added.items()}
-    out[-1]["plain_ms_at"] = {str(K): plain4, str(K_M): plain_m}
-    out[-1]["library_ms_at"] = {str(K): lib4, str(K_M): lib_m}
-    for k, v in added.items():
-        _times_line(f"trim in K3's last block at K={k}, n_out={n_out}: added", v,
-                    (k * 8 + n_out * 8) / HBM_BYTES_PER_S * 1e3, plain4 if k == K else plain_m,
-                    f"; torch.sort {lib4 if k == K else lib_m:.4f} ms")
+                      "pilosa_tpu/parallel/kernels.py:382", launches["topn_trim"],
+                      err["topn_trim"], added[f"{K}/5"], plain_at[str(K)], K * 8 + 5 * 8,
+                      K * max(1, (K - 1).bit_length()), lib_at[str(K)]))
+    out[-1]["runs_in"] = ("score_rows (K3): the last block of its full-TopN launch, past 256 "
+                          "candidates score_rows_trim_kernel after it")
+    out[-1]["added_device_ms"] = {k: v["device_ms"] for k, v in added.items()}
+    out[-1]["plain_ms_at"] = plain_at
+    out[-1]["library_ms_at"] = lib_at
+    for key, v in added.items():
+        k, n_out = (int(x) for x in key.split("/"))
+        _times_line(f"trim at K={k}, n_out={n_out}: added to K3", v,
+                    (k * 8 + n_out * 8) / HBM_BYTES_PER_S * 1e3, plain_at[str(k)],
+                    f"; torch.sort {lib_at[str(k)]:.4f} ms")
 
     # P2 at the main path's shape: shard 0's top fragment mirror, its
     # candidates named by index in the ranked cache's order, against the
@@ -2402,6 +2719,10 @@ def run_bsi_path(device, holder, engine, ex, host, seed, err):
 G_ROWS = {"ga": 4, "gb": 2, "gc": 2}  # bench.py:75-77 GROUPS_A, _B, _C
 Q8 = "GroupBy(Rows(field=ga), Rows(field=gb))"
 Q3 = "GroupBy(Rows(field=ga), Rows(field=gb), Rows(field=gc))"
+# A GroupBy whose shape takes K8's walk: ga x gb x top, 4 x 2 x 16 = 128
+# combinations (top first in level order, 6 rows staged a pass).
+QW = "GroupBy(Rows(field=ga), Rows(field=gb), Rows(field=top))"
+GROUP_ROWS = {**G_ROWS, "top": len(TOP_ROWS)}
 
 
 def build_group_fields(holder, n_shards, seed):
@@ -2444,45 +2765,38 @@ def v_greater(holder, n_shards, value):
 
 
 class GroupOracle:
-    """Per-shard combination counts of ga x gb (x gc) from the host words,
-    for each filter; ``want`` assembles a GroupBy's result as the
-    reference does (row-major, zero counts skipped, the progressive limit
-    cut, then offset and limit)."""
+    """Per-shard combination counts of each (fields, filter) the queries
+    name, from the host words; ``want`` assembles a GroupBy's result as
+    the reference does (row-major, zero counts skipped, the progressive
+    limit cut, then offset and limit)."""
 
-    def __init__(self, host, filters):
+    def __init__(self, host, filters, shapes):
         from concurrent.futures import ThreadPoolExecutor
 
-        self.per_shard = {}
-        jobs = []
-        for fname, flt in filters.items():
-            for a in range(G_ROWS["ga"]):
-                for b in range(G_ROWS["gb"]):
-                    jobs.append((fname, (a, b), flt))
-                    for c in range(G_ROWS["gc"]):
-                        jobs.append((fname, (a, b, c), flt))
+        jobs = [(fields, fname, combo) for fields, fname in sorted(set(shapes), key=str)
+                for combo in np.ndindex(*(GROUP_ROWS[f] for f in fields))]
 
         def one(job):
-            fname, combo, flt = job
-            w = host["ga"][combo[0]] & host["gb"][combo[1]]
-            if len(combo) == 3:
-                w &= host["gc"][combo[2]]
-            if flt is not None:
-                w &= flt
-            return (fname, combo), popcounts(w)
+            fields, fname, combo = job
+            w = host[fields[0]][combo[0]].copy()
+            for f, r in zip(fields[1:], combo[1:]):
+                w &= host[f][r]
+            if filters[fname] is not None:
+                w &= filters[fname]
+            return job, popcounts(w)
 
         with ThreadPoolExecutor(8) as pool:
             self.per_shard = dict(pool.map(one, jobs))
 
-    def want(self, n_fields, flt=None, shards=None, limit=None, offset=None, first=(0,)):
-        names = ("ga", "gb", "gc")[:n_fields]
+    def want(self, fields, flt=None, shards=None, limit=None, offset=None, first=(0,)):
         out = []
-        for combo in np.ndindex(*(G_ROWS[f] for f in names)):
+        for combo in np.ndindex(*(GROUP_ROWS[f] for f in fields)):
             if combo[0] < first[0]:
                 continue
-            n = self.per_shard[(flt, combo)]
+            n = self.per_shard[(fields, flt, combo)]
             n = int(n.sum() if shards is None else n[shards].sum())
             if n > 0:
-                out.append({"group": [{"field": f, "rowID": int(r)} for f, r in zip(names, combo)],
+                out.append({"group": [{"field": f, "rowID": int(r)} for f, r in zip(fields, combo)],
                             "count": n})
             if limit is not None and len(out) >= limit:
                 break
@@ -2491,26 +2805,39 @@ class GroupOracle:
         return out if limit is None else out[:limit]
 
 
+def k8_work(ks, filtered, n_shards):
+    """(bytes, operations, bound ms) of one K8 launch over ``n_shards``
+    requested shards, fields listing ``ks`` rows: each listed row (and
+    the filter's row) read once, the mask, row list and counts; an AND, a
+    popcount and an add per word and combination."""
+    n_rows, C, words = sum(ks) + filtered, math.prod(ks), n_shards * 32768
+    byts = n_rows * words * 4 + n_shards * 4 + 4 * n_rows + C * 8
+    ops = words * C * 3
+    return byts, ops, max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+
+
 def group_queries(n_shards):
     """(query, shards or None, oracle arguments, fused) of the groupby
     phase: the fused lane's queries, then two on the host lane."""
     subset = list(range(0, n_shards, 3))
+    f2, f3 = ("ga", "gb"), ("ga", "gb", "gc")
     return [
-        (Q8, None, dict(n_fields=2), True),
-        (Q3, None, dict(n_fields=3), True),
-        (Q8[:-1] + ", filter=Row(f=10))", None, dict(n_fields=2, flt="f10"), True),
-        (Q3[:-1] + ", filter=Row(f=10))", None, dict(n_fields=3, flt="f10"), True),
-        (Q8[:-1] + ", filter=Range(v > 100))", None, dict(n_fields=2, flt="v100"), True),
-        (Q3[:-1] + ", filter=Range(v > 100))", None, dict(n_fields=3, flt="v100"), True),
-        (Q3[:-1] + ", limit=5)", None, dict(n_fields=3, limit=5), True),
-        (Q3[:-1] + ", limit=6, offset=2)", None, dict(n_fields=3, limit=6, offset=2), True),
-        (Q8, subset, dict(n_fields=2, shards=subset), True),
-        (Q3[:-1] + ", filter=Row(f=10))", subset, dict(n_fields=3, flt="f10", shards=subset),
+        (Q8, None, dict(fields=f2), True),
+        (Q3, None, dict(fields=f3), True),
+        (Q8[:-1] + ", filter=Row(f=10))", None, dict(fields=f2, flt="f10"), True),
+        (Q3[:-1] + ", filter=Row(f=10))", None, dict(fields=f3, flt="f10"), True),
+        (Q8[:-1] + ", filter=Range(v > 100))", None, dict(fields=f2, flt="v100"), True),
+        (Q3[:-1] + ", filter=Range(v > 100))", None, dict(fields=f3, flt="v100"), True),
+        (Q3[:-1] + ", limit=5)", None, dict(fields=f3, limit=5), True),
+        (Q3[:-1] + ", limit=6, offset=2)", None, dict(fields=f3, limit=6, offset=2), True),
+        (Q8, subset, dict(fields=f2, shards=subset), True),
+        (Q3[:-1] + ", filter=Row(f=10))", subset, dict(fields=f3, flt="f10", shards=subset),
          True),
+        (QW, None, dict(fields=("ga", "gb", "top")), True),
         ("GroupBy(Rows(field=ga, limit=2), Rows(field=gb))", None,
-         dict(n_fields=2, limit=4), False),
+         dict(fields=f2, limit=4), False),
         ("GroupBy(Rows(field=ga, previous=1), Rows(field=gb), limit=5)", None,
-         dict(n_fields=2, limit=5, first=(1,)), False),
+         dict(fields=f2, limit=5, first=(1,)), False),
     ]
 
 
@@ -2521,10 +2848,11 @@ def run_groupby_path(device, holder, engine, ex, host, seed, err):
     against a numpy oracle over the host words: the 8-way and 3-field
     GroupBy, with filter=Row(f=10), with filter=Range(v > 100) (a range
     leaf in K8), with limit/offset and on a shard subset, all on the fused
-    lane (K8), whose launch counter must move with no host fallback; one
-    with a child Rows(limit=) and one with previous= on the host lane;
-    Rows(field=ga) with column=, limit= and previous=.  Then K8 at the
-    8-way and 3-field shapes against its plain version and its bound, and
+    lane (K8), whose launch counter must move with no host fallback, as
+    must ga x gb x top (K8's walk); one with a child Rows(limit=) and one
+    with previous= on the host lane; Rows(field=ga) with column=, limit=
+    and previous=.  Then K8 at the 8-way, 3-field, filtered and 4 x 2 x
+    16 shapes against its plain version and its bound, and
     bench.py's groupby_8way/3field_1B_cols_p50 and _e2e_p50.  Returns the
     phase's numbers and K8's kernel entry."""
     import torch
@@ -2539,13 +2867,14 @@ def run_groupby_path(device, holder, engine, ex, host, seed, err):
     n_shards = len(canonical)
     t_phase = t0 = time.perf_counter()
     gh = build_group_fields(holder, n_shards, seed)
-    for name in G_ROWS:
+    for name in GROUP_ROWS:  # top's too: the new fields moved the shard epoch
         engine.field_stack("bench", name, "standard")
     sync()
     made_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ora = GroupOracle(gh, {None: None, "f10": host["f"][10],
-                           "v100": v_greater(holder, n_shards, 100)})
+    ora = GroupOracle({**gh, "top": host["top"]},
+                      {None: None, "f10": host["f"][10], "v100": v_greater(holder, n_shards, 100)},
+                      [(a["fields"], a.get("flt")) for _, _, a, _ in group_queries(n_shards)])
     oracle_s = time.perf_counter() - t0
     log(f"groupby: fields ga, gb, gc (8 rows, {8 * n_shards * W64 * 8 / 1e9:.3f} GB) made and "
         f"their stacks built in {made_s:.3f} s; numpy oracle {oracle_s:.3f} s")
@@ -2596,14 +2925,16 @@ def run_groupby_path(device, holder, engine, ex, host, seed, err):
         f"lane, K8 launches {fused_launches}; 2 on the host lane) and 6 Rows queries exact "
         "against numpy; host-lane fallbacks 0, group host fallbacks 0")
 
-    # K8 at the main path's shapes, held against its plain version.
-    stacks = {f: engine.field_stack("bench", f, "standard", canonical) for f in G_ROWS}
-    lists = {f: [stacks[f].row_index[r] for r in range(n)] for f, n in G_ROWS.items()}
+    # K8 at the main path's shapes, held against its plain version: the
+    # register form's three and the walk's one.
+    stacks = {f: engine.field_stack("bench", f, "standard", canonical) for f in GROUP_ROWS}
+    lists = {f: [stacks[f].row_index[r] for r in range(n)] for f, n in GROUP_ROWS.items()}
     mask = engine._mask_words(canonical, canonical)
     lw = _Lowering(engine, canonical)
     fprog = engine._lower("bench", pql.parse("Row(f=10)").calls[0], lw)
     shapes = {"8-way": (("ga", "gb"), None), "3-field": (("ga", "gb", "gc"), None),
-              "8-way, filter=Row(f=10)": (("ga", "gb"), fprog)}
+              "8-way, filter=Row(f=10)": (("ga", "gb"), fprog),
+              "walk, 4 x 2 x 16": (("ga", "gb", "top"), None)}
     calls = {}
     for name, (fields, prog) in shapes.items():
         fm, li = [stacks[f].matrix for f in fields], [lists[f] for f in fields]
@@ -2620,25 +2951,19 @@ def run_groupby_path(device, holder, engine, ex, host, seed, err):
     if cuda:
         times = {}
         for name, (fn, plain) in calls.items():
+            fields, prog = shapes[name]
+            ks = [GROUP_ROWS[f] for f in fields]
+            byts, ops, bound = k8_work(ks, prog is not None, n_shards)
             for _ in range(3):
                 fn()
             sync()
-            times[name] = measured(fn, "groupn_tree_kernel", sync)
-            times[name]["plain_ms"] = p50_ms(plain, 3, sync, batch=1)
-            fields, prog = shapes[name]
-            n_rows = sum(G_ROWS[f] for f in fields) + (prog is not None)
-            C = int(np.prod([G_ROWS[f] for f in fields]))
-            words = n_shards * 32768
-            # Least work: each listed row (and filter row) of the requested
-            # shards read once, the mask, row list and counts; an AND, a
-            # popcount and an add per word and combination.
-            times[name]["bytes"] = n_rows * words * 4 + n_shards * 4 + 4 * n_rows + C * 8
-            times[name]["ops"] = words * C * 3
-            t = times[name]
-            t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / INT_OPS_PER_S) * 1e3
-            _times_line(f"K8 groupn_tree {name}", t, t["bound_ms"], t["plain_ms"])
+            t = times[name] = measured(fn, "groupn_tree_kernel", sync, bound_ms=bound)
+            t.update(plain_ms=p50_ms(plain, 3, sync, batch=1), bytes=byts, ops=ops,
+                     bound_ms=bound, form=groupby.groupn_plan(ks)[0])
+            _times_line(f"K8 groupn_tree {name} ({t['form']})", t, bound, t["plain_ms"],
+                        f"; {bound / t['device_ms'] * 100:.1f}% of the bound")
             out[f"k8_{name}"] = {k: t[k] for k in ("ms", "device_ms", "host_us", "plain_ms",
-                                                   "bound_ms")}
+                                                   "bound_ms", "form")}
         main = times["8-way"]
         entry = _entry("groupn_tree", "pilosa_tpu_torch/csrc/groupn_tree.cu",
                        "pilosa_tpu/parallel/kernels.py:707", fused_launches, err["groupn_tree"],
@@ -3178,11 +3503,15 @@ def run_ab(root, seed):
             ex.execute("bench", pql_of(field, "and", (10 + 2 * k, 11 + 2 * k)))
     ex.execute("bench", q)
     with memo_off(engine):  # the memo would answer the timing loops' repeats
+        # The engine TopN in five windows of 36 queries: the host clock
+        # spreads, so the p50 is the median of the windows' p50s.
+        topn_windows = [topn_p50_ms(ex) for _ in range(5)]
         out = {
             "root": root,
             "dense_count_p50_ms": count_p50_ms(ex, "f"),
             "sparse_count_p50_ms": count_p50_ms(ex, "s"),
-            "engine_topn_p50_ms": topn_p50_ms(ex),
+            "engine_topn_p50_ms": statistics.median(topn_windows),
+            "engine_topn_windows_ms": topn_windows,
             "engine_less_topn_warm_ms": statistics.median(walls[1:]),
             "engine_less_topn_ms": walls,
             "fragment_top_us": statistics.median(per_call),
@@ -3201,18 +3530,81 @@ def run_ab(root, seed):
     out["engine_less_topn_kernels"] = per_launch(on_card(engine_less))
     if hasattr(ex, "execute_async"):  # a checkout from before batched serving has none
         out["stream"] = ab_stream(engine, ex, host, seed)
-    trim = getattr(kernels, "topn_trim_cuda", None)
-    if trim is not None:  # a checkout from before the trim moved into K3
-        gen = torch.Generator(device=device).manual_seed(seed)
-        out["topn_trim_launch"] = {}
-        for K in (16, 4096):
-            totals = torch.randint(0, 1 << 40, (K,), dtype=torch.int64, device=device,
-                                   generator=gen)
-            out["topn_trim_launch"][K] = measured(lambda: trim(totals, 5), "topn_trim_kernel",
-                                                  torch.cuda.synchronize)
+    out["kernels_at"] = ab_kernels(device, seed)
     out.update(root_writes(engine, ex, holder, host, seed))
     out["card"] = card_line()
     print(json.dumps(out), flush=True)
+
+
+def ab_kernels(device, seed):
+    """--root's kernel items, on tensors made here from the seed, through
+    the checkout's wrappers (their signatures unchanged since K8 came): K3's
+    full TopN at the main path's K = 16 over 960 shards and at K = 4096
+    (16 shards, 512 distinct rows named by index), copying the totals out
+    and trimming to 5 (and to 4096), so that the trim's share shows; K8
+    at the groupby phase's 8-way, 3-field, filtered and 4 x 2 x 16 shapes
+    over 960 shards and at 32 x 32 over 96 (the last two: the walk).
+    Device ms per call over K3's kernels, per launch for K8
+    (torch.profiler; a K8 reading below its bound is taken again)."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import groupby, kernels
+
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=device).manual_seed(seed)
+    W = 32768
+
+    def rand_and(shape, n):
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32, device=device,
+                          generator=gen)
+        for _ in range(n - 1):
+            x &= torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32, device=device,
+                               generator=gen)
+        return x
+
+    out = {}
+    code = kernels.compile_prog(("row", 0, 0))
+    for R, S, K, n_and, n_outs in ((16, N_SHARDS, 16, 2, (None, 5)),
+                                   (WIDE_BASE, 16, kernels.TOTALS_MAX, 3, (None, 5, 4096))):
+        cand = rand_and((R, S, W), n_and)
+        src = rand_and((1, S, W), 1)
+        idx = (torch.arange(K, device=device, dtype=torch.int32) % R).contiguous()
+        cnt = torch.full((K, S), 1 << 17, dtype=torch.int32, device=device)
+        mask = torch.ones(S, dtype=torch.int32, device=device)
+        for n_out in n_outs:
+            fn = lambda n_out=n_out: kernels.score_rows_cuda(  # noqa: E731
+                code, [src], mask, cand, idx, scores=False, cnt=cnt, n_out=n_out)
+            fn()
+            sync()
+            key = f"k3_K{K}_n_out_{n_out}" if K != 16 else f"k3_K16_S{S}_n_out_{n_out}"
+            out[key] = device_ms(fn, "score_rows", per_call=True)
+        del cand, src
+    S = N_SHARDS
+    g = {name: rand_and((n, S, W), 2) for name, n in GROUP_ROWS.items()}
+    frow = rand_and((1, S, W), 1)
+    mask = torch.ones(S, dtype=torch.int32, device=device)
+    shapes = {"8-way": (("ga", "gb"), None), "3-field": (("ga", "gb", "gc"), None),
+              "8-way, filter": (("ga", "gb"), code), "4x2x16": (("ga", "gb", "top"), None)}
+    for name, (fields, filt) in shapes.items():
+        fm = [g[f] for f in fields]
+        li = [list(range(GROUP_ROWS[f])) for f in fields]
+        fn = lambda fm=fm, li=li, filt=filt: groupby.groupn_tree_cuda(  # noqa: E731
+            filt, [frow], mask, fm, li)
+        fn()
+        sync()
+        bound = k8_work([GROUP_ROWS[f] for f in fields], filt is not None, S)[2]
+        out[f"k8_{name}"] = device_ms(fn, "groupn_tree_kernel", bound_ms=bound)
+    del g, frow
+    S = 96
+    big = rand_and((32, S, W), 2)
+    mask = torch.ones(S, dtype=torch.int32, device=device)
+    fn = lambda: groupby.groupn_tree_cuda(None, [], mask, [big, big],  # noqa: E731
+                                          [list(range(32)), list(range(32))])
+    fn()
+    sync()
+    out["k8_32x32_96_shards"] = device_ms(fn, "groupn_tree_kernel",
+                                          bound_ms=k8_work([32, 32], False, S)[2])
+    return out
 
 
 def ab_stream(engine, ex, host, seed, threads=64, per_thread=32):
@@ -3289,6 +3681,10 @@ def main(argv=None):
     holder, engine, ex, host, launches = run_main_path(device, N_SHARDS, args.seed)
     topn_launches, engine_less_query = run_topn_main_path(device, holder, engine, ex, host)
     launches.update(topn_launches)
+    wide_launches, wide_out = run_wide_topn(device, holder, engine, ex, args.seed)
+    log("wide: " + json.dumps(wide_out))
+    for k, v in wide_launches.items():
+        launches[k] += v
     for v in launches.values():
         if v <= 0:
             raise AssertionError(f"a kernel of the main path never launched: {launches}")

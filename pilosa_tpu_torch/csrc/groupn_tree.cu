@@ -25,14 +25,42 @@
 // the chain form in registers, else the interpreter; range leaves only in
 // the kRanges build), then walks the combinations depth first with one
 // running AND per level held in registers (the levels are a template
-// recursion, so a prefix is shared by every combination under it).  A
-// row of a deeper level is read again for each prefix above it, from L1
-// or L2, never again from device memory in the same pass.  At the last
-// level each combination's popcount is summed over the warp (redux.sync)
-// and lane 0 adds it to the warp's counter row in shared memory,
-// uint32[warps][C].  At the end the CTA sums its warps' rows and adds each
-// nonzero combination to the output with one 64-bit atomic.  The listed
-// row indices come from a device table the CTA copies into shared memory.
+// recursion, so a prefix is shared by every combination under it).  The
+// host puts the field with the most rows first and gives each level its
+// stride in the row-major output, so the order of the fields does not
+// matter.  Two forms of that walk:
+//
+// - Registers (the shallow shapes: at most kRegFields fields, the first
+//   level listing at most kRegK0 rows and every later one at most kRegK,
+//   so at most 32 combinations).  At the start of a pass each thread loads
+//   every listed row's words at its positions into registers, all loads
+//   issued together, so each listed row of the tile comes on chip once per
+//   pass (3-field 4 x 2 x 2: 8 row loads a position, where the walk below
+//   issues 28), and the walk reads registers only.  Every combination
+//   counts into a per-thread register counter across all passes; the warp
+//   sum and the add into shared memory run once per CTA, not once per
+//   combination and pass.  The levels' row capacities are compile-time, so
+//   every register index is a constant; a level lists fewer rows by
+//   skipping slots.
+// - The walk (every other shape, up to 8 fields and 1024 combinations):
+//   the field with the most rows is level 0 too, and the deeper levels'
+//   listed rows (at most 32 at C <= 1024 with the largest field first)
+//   are staged once per pass: each thread copies its own positions of each
+//   such row into shared memory with 16-byte asynchronous copies
+//   (cp.async, all issued together, no barrier since a thread reads only
+//   what it copied), and level 0's rows stream from device memory, the
+//   next one loaded while the current one's subtree is walked.  So each
+//   listed row of the tile comes on chip once per pass, where the walk
+//   before re-read a deeper row from L2 for each prefix above it (32 x 32:
+//   1024 row loads a position for 64 rows).  One position per thread and
+//   pass (4 for one field, where nothing is staged), so the stage is 4 KiB
+//   a row.  At the last level each combination's popcount is summed over
+//   the warp (redux.sync) and lane 0 adds it to the warp's counter row in
+//   shared memory, uint32[warps][C].  At the end the CTA sums its warps'
+//   rows.
+//
+// Either way the CTA adds each nonzero combination to the output with one
+// 64-bit atomic.  The listed row indices come from a device table.
 #include "reduce.cuh"
 #include "tree_eval.cuh"
 
@@ -42,63 +70,230 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxFields = 8;
 constexpr int kMaxCombos = 1024;
+// The register form's capacities (module comment): kRegK0 rows on the
+// first level, kRegK on each later one, up to kRegFields fields.
+constexpr int kRegK0 = 4;
+constexpr int kRegK = 2;
+constexpr int kRegFields = 4;
+// Positions per thread and pass.  The register form: 2 up to two fields,
+// else 1.  The walk: 4 for one field (nothing is staged), else 1 (the
+// stage holds 4 KiB of each deeper row).
+__host__ __device__ constexpr int reg_u(int n) { return n <= 2 ? 2 : 1; }
+__host__ __device__ constexpr int walk_u(int n) { return n == 1 ? 4 : 1; }
+// The most dynamic shared memory a CTA may take (sm_90).
+constexpr size_t kMaxSmem = 227 * 1024;
 
-// The group fields: each stack's row 0, its listed-row count, and where its
-// list starts in the row table.
+// The group fields, in level order: each stack's row 0, its listed-row
+// count, where its list starts in the row table, and its stride in the
+// row-major output.
 struct Fields {
   const uint4* base[kMaxFields];
   int k[kMaxFields];
   int start[kMaxFields];
+  int stride[kMaxFields];
 };
 
+// A 16-byte asynchronous copy from device memory into shared memory, and
+// the wait for every copy this thread has issued (its writes are then
+// visible to this thread).
+__device__ __forceinline__ void copy16_async(uint4* dst, const uint4* src) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Level L of the walk: AND each listed row of field L into `prev` and
-// recurse, or at the last level count.  `c` is the row-major combination
-// index, the same in every thread of the CTA.
+// recurse, or at the last level count.  Level 0's rows come from device
+// memory at `off` (the next one loaded before the current one's subtree),
+// a deeper level's from the stage, slot (its place in the row table less
+// level 0's rows) * kPass + this thread's position.  `c` is the
+// combination's place in the row-major output, the same in every thread
+// of the CTA.
 template <int L, int N, int U>
 __device__ __forceinline__ void walk(const uint4 (&prev)[U], const Fields& f,
                                      const int* table, size_t row_stride,
-                                     const size_t (&off)[U], int& c,
+                                     const size_t (&off)[U], const uint4* stage, int c,
                                      unsigned int* counts, int lane) {
-  const int* rows = table + f.start[L];
+  constexpr int kPass = kThreads * U;
+  uint4 nxt[U];
+  auto load0 = [&](int k) {
+    const int r = table[k];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      nxt[u] = r < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                     : __ldg(f.base[0] + (size_t)r * row_stride + off[u]);
+  };
+  if constexpr (L == 0) load0(0);
   for (int k = 0; k < f.k[L]; ++k) {
-    const int r = rows[k];
     uint4 cur[U];
-    if (r < 0) {
+    if constexpr (L == 0) {
 #pragma unroll
-      for (int u = 0; u < U; ++u) cur[u] = make_uint4(0u, 0u, 0u, 0u);
+      for (int u = 0; u < U; ++u) cur[u] = and4(prev[u], nxt[u]);
+      if (k + 1 < f.k[0]) load0(k + 1);
     } else {
-      const uint4* row = f.base[L] + (size_t)r * row_stride;
+      const uint4* row = stage + (size_t)(f.start[L] - f.k[0] + k) * kPass + threadIdx.x;
 #pragma unroll
-      for (int u = 0; u < U; ++u) cur[u] = and4(prev[u], __ldg(row + off[u]));
+      for (int u = 0; u < U; ++u) cur[u] = and4(prev[u], row[u * kThreads]);
     }
+    const int ck = c + k * f.stride[L];
     if constexpr (L == N - 1) {
       unsigned int v = 0u;
 #pragma unroll
       for (int u = 0; u < U; ++u) v += popc4(cur[u]);
       v = __reduce_add_sync(0xffffffffu, v);
-      if (lane == 0) counts[c] += v;
-      ++c;
+      if (lane == 0) counts[ck] += v;
     } else {
-      walk<L + 1, N, U>(cur, f, table, row_stride, off, c, counts, lane);
+      walk<L + 1, N, U>(cur, f, table, row_stride, off, stage, ck, counts, lane);
     }
   }
 }
 
-// kFilter: 0 none (every column), 1 a chain program, 2 any other tree.
+// The register form's walk: level L's listed rows are registers
+// row[first(L) + k]; `v` is the combination's index in the capacity shape
+// (kRegK0 x kRegK x ...), a constant once the walk is unrolled.
+template <int L, int N, int U, int kRows, int kCombos>
+__device__ __forceinline__ void reg_walk(const uint4 (&prev)[U],
+                                         const uint4 (&row)[kRows][U], const Fields& f,
+                                         int v, unsigned int (&cnt)[kCombos]) {
+  constexpr int cap = L == 0 ? kRegK0 : kRegK;
+  constexpr int first = L == 0 ? 0 : kRegK0 + (L - 1) * kRegK;
+#pragma unroll
+  for (int k = 0; k < cap; ++k) {
+    if (k < f.k[L]) {
+      uint4 cur[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) cur[u] = and4(prev[u], row[first + k][u]);
+      if constexpr (L == N - 1) {
+        unsigned int x = 0u;
+#pragma unroll
+        for (int u = 0; u < U; ++u) x += popc4(cur[u]);
+        cnt[v * cap + k] += x;
+      } else {
+        reg_walk<L + 1, N, U, kRows, kCombos>(cur, row, f, v * cap + k, cnt);
+      }
+    }
+  }
+}
+
+// The filter at U positions of a pass (positions past the row count
+// nothing).
+template <int U, int kFilter, bool kRanges>
+__device__ __forceinline__ void filter_words(const TreeProg& prog, const Leaves& leaves,
+                                             const size_t (&off)[U], const bool (&ok)[U],
+                                             uint4 (&acc)[U]) {
+  if constexpr (kFilter == 0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = make_uint4(~0u, ~0u, ~0u, ~0u);
+  } else if constexpr (kFilter == 1) {
+    eval_chain<U, kRanges>(prog, leaves, off, acc);
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = eval_tree<kRanges>(prog, leaves, off[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (!ok[u]) acc[u] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The register form (module comment): N levels in f, each within its
+// capacity, the fields' rows of this shard held per pass in registers and
+// the counts per thread.
+template <int N, int kFilter, bool kRanges>
+__global__ void __launch_bounds__(kThreads)
+    groupn_tree_kernel_regs(TreeProg prog, Leaves leaves, Fields f,
+                      const int* __restrict__ idx, const int* __restrict__ mask,
+                      int w4, unsigned long long* __restrict__ out) {
+  constexpr int U = reg_u(N);
+  constexpr int kRows = kRegK0 + (N - 1) * kRegK;
+  constexpr int kCombos = kRegK0 << (N - 1);  // kRegK = 2
+  static_assert(kRegK == 2 && N <= kRegFields, "the capacity shape");
+  const int s = blockIdx.y;
+  if (mask[s] == 0) return;  // unrequested shard: no reads at all
+  __shared__ unsigned int part[kWarps][kCombos];
+  const size_t row_stride = (size_t)gridDim.y * (size_t)w4;
+  const size_t shard_off = (size_t)s * (size_t)w4;
+  // Each slot's row in this shard, or null (a row of -1, an unused slot).
+  const uint4* rp[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int L = q < kRegK0 ? 0 : 1 + (q - kRegK0) / kRegK;
+    const int k = q < kRegK0 ? q : (q - kRegK0) % kRegK;
+    const int r = k < f.k[L] ? __ldg(idx + f.start[L] + k) : -1;
+    rp[q] = r < 0 ? nullptr : f.base[L] + (size_t)r * row_stride + shard_off;
+  }
+  unsigned int cnt[kCombos];
+#pragma unroll
+  for (int v = 0; v < kCombos; ++v) cnt[v] = 0u;
+  constexpr int kPass = kThreads * U;
+  for (int base = blockIdx.x * kPass; base < w4; base += gridDim.x * kPass) {
+    int j[U];
+    size_t off[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      j[u] = base + u * kThreads + threadIdx.x;
+      ok[u] = j[u] < w4;
+      if (!ok[u]) j[u] = base;
+      off[u] = shard_off + j[u];
+    }
+    uint4 row[kRows][U];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        row[q][u] = rp[q] != nullptr ? __ldg(rp[q] + j[u]) : make_uint4(0u, 0u, 0u, 0u);
+    uint4 acc[U];
+    filter_words<U, kFilter, kRanges>(prog, leaves, off, ok, acc);
+    reg_walk<0, N, U, kRows, kCombos>(acc, row, f, 0, cnt);
+  }
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int v = 0; v < kCombos; ++v) {
+    const unsigned int x = __reduce_add_sync(0xffffffffu, cnt[v]);
+    if (lane == 0) part[threadIdx.x >> 5][v] = x;
+  }
+  __syncthreads();
+  const int v = threadIdx.x;
+  if (v < kCombos) {
+    // v's digits, last level lowest: its place in the row-major output.
+    int c = 0, rest = v;
+    bool listed = true;
+#pragma unroll
+    for (int L = N - 1; L >= 0; --L) {
+      const int cap = L == 0 ? kRegK0 : kRegK;
+      const int k = rest % cap;
+      rest /= cap;
+      listed = listed && k < f.k[L];
+      c += k * f.stride[L];
+    }
+    unsigned long long sum = 0ull;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += part[w][v];
+    if (listed && sum) atomicAdd(out + c, sum);
+  }
+}
+
+// The walk (module comment).  kFilter: 0 none (every column), 1 a chain
+// program, 2 any other tree.
 template <int N, int kFilter, bool kRanges>
 __global__ void __launch_bounds__(kThreads)
     groupn_tree_kernel(TreeProg prog, Leaves leaves, Fields f,
                        const int* __restrict__ idx, int n_idx, int n_combos,
                        const int* __restrict__ mask, int w4,
                        unsigned long long* __restrict__ out) {
-  // Positions per thread and pass: fewer at depth, where every level
-  // holds U vectors in registers.
-  constexpr int U = N <= 4 ? 4 : 2;
+  constexpr int U = walk_u(N);
+  constexpr int kPass = kThreads * U;
   const int s = blockIdx.y;
   if (mask[s] == 0) return;  // unrequested shard: no reads at all
-  extern __shared__ unsigned int smem[];
-  int* table = (int*)smem;
-  unsigned int* warp_counts = smem + n_idx;  // [kWarps][n_combos]
+  // Dynamic shared memory: the stage [deeper rows][kPass], the row table,
+  // then the warps' counter rows [kWarps][n_combos].
+  extern __shared__ uint4 smem[];
+  const int n_stage = n_idx - f.k[0];
+  uint4* stage = smem;
+  int* table = (int*)(stage + (size_t)n_stage * kPass);
+  unsigned int* warp_counts = (unsigned int*)(table + n_idx);
   for (int i = threadIdx.x; i < n_idx; i += kThreads) table[i] = idx[i];
   for (int i = threadIdx.x; i < kWarps * n_combos; i += kThreads) warp_counts[i] = 0u;
   __syncthreads();
@@ -106,34 +301,42 @@ __global__ void __launch_bounds__(kThreads)
   unsigned int* counts = warp_counts + (threadIdx.x >> 5) * n_combos;
   const size_t row_stride = (size_t)gridDim.y * (size_t)w4;
   const size_t shard_off = (size_t)s * (size_t)w4;
-  constexpr int kPass = kThreads * U;
+  // A deeper row of -1 is zeros in the stage, written once: no copy
+  // lands in its slot.
+  for (int q = 0; q < n_stage; ++q)
+    if (table[f.k[0] + q] < 0)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        stage[(size_t)q * kPass + u * kThreads + threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
   // Every thread of the CTA runs the same passes (positions past the row
   // read a valid word and count nothing), so each warp reduces with all
   // of its lanes.
   for (int base = blockIdx.x * kPass; base < w4; base += gridDim.x * kPass) {
+    int j[U];
     size_t off[U];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int j = base + u * kThreads + threadIdx.x;
-      ok[u] = j < w4;
-      off[u] = shard_off + (ok[u] ? j : base);
+      j[u] = base + u * kThreads + threadIdx.x;
+      ok[u] = j[u] < w4;
+      if (!ok[u]) j[u] = base;
+      off[u] = shard_off + j[u];
     }
+    // The deeper levels' rows of this tile, each copied once.
+#pragma unroll
+    for (int L = 1; L < N; ++L)
+      for (int k = 0; k < f.k[L]; ++k) {
+        const int r = table[f.start[L] + k];
+        if (r < 0) continue;
+        const uint4* row = f.base[L] + (size_t)r * row_stride + shard_off;
+        uint4* dst = stage + (size_t)(f.start[L] - f.k[0] + k) * kPass + threadIdx.x;
+#pragma unroll
+        for (int u = 0; u < U; ++u) copy16_async(dst + u * kThreads, row + j[u]);
+      }
     uint4 acc[U];
-    if constexpr (kFilter == 0) {
-#pragma unroll
-      for (int u = 0; u < U; ++u) acc[u] = make_uint4(~0u, ~0u, ~0u, ~0u);
-    } else if constexpr (kFilter == 1) {
-      eval_chain<U, kRanges>(prog, leaves, off, acc);
-    } else {
-#pragma unroll
-      for (int u = 0; u < U; ++u) acc[u] = eval_tree<kRanges>(prog, leaves, off[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (!ok[u]) acc[u] = make_uint4(0u, 0u, 0u, 0u);
-    int c = 0;
-    walk<0, N, U>(acc, f, table, row_stride, off, c, counts, lane);
+    filter_words<U, kFilter, kRanges>(prog, leaves, off, ok, acc);
+    if constexpr (N > 1) copies_wait();
+    walk<0, N, U>(acc, f, table, row_stride, off, stage, 0, counts, lane);
   }
   __syncthreads();
   for (int c = threadIdx.x; c < n_combos; c += kThreads) {
@@ -145,17 +348,49 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int N>
-void launch(int filter, bool ranges, dim3 grid, size_t smem, const TreeProg& prog,
-            const Leaves& leaves, const Fields& f, const int* idx, int n_idx,
-            int n_combos, const int* mask, int w4, unsigned long long* out,
-            cudaStream_t st) {
+int launch(int filter, bool ranges, dim3 grid, size_t smem, const TreeProg& prog,
+           const Leaves& leaves, const Fields& f, const int* idx, int n_idx,
+           int n_combos, const int* mask, int w4, unsigned long long* out,
+           cudaStream_t st) {
   auto kernel = filter == 0   ? groupn_tree_kernel<N, 0, false>
                 : filter == 1 ? (ranges ? groupn_tree_kernel<N, 1, true>
                                         : groupn_tree_kernel<N, 1, false>)
                               : (ranges ? groupn_tree_kernel<N, 2, true>
                                         : groupn_tree_kernel<N, 2, false>);
+  // Past the default 48 KiB each variant is allowed more once, as needed.
+  static size_t allowed[5] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024};
+  const int variant = filter == 0 ? 0 : 2 * filter - 1 + (ranges ? 1 : 0);
+  if (smem > allowed[variant]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed[variant] = smem;
+  }
   kernel<<<grid, kThreads, smem, st>>>(prog, leaves, f, idx, n_idx, n_combos, mask,
                                        w4, out);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+void launch_reg(int filter, bool ranges, dim3 grid, const TreeProg& prog,
+                const Leaves& leaves, const Fields& f, const int* idx, const int* mask,
+                int w4, unsigned long long* out, cudaStream_t st) {
+  auto kernel = filter == 0   ? groupn_tree_kernel_regs<N, 0, false>
+                : filter == 1 ? (ranges ? groupn_tree_kernel_regs<N, 1, true>
+                                        : groupn_tree_kernel_regs<N, 1, false>)
+                              : (ranges ? groupn_tree_kernel_regs<N, 2, true>
+                                        : groupn_tree_kernel_regs<N, 2, false>);
+  kernel<<<grid, kThreads, 0, st>>>(prog, leaves, f, idx, mask, w4, out);
+}
+
+// The grid: about eight CTAs per SM, or one per tile of kThreads * u
+// vectors where a shard has fewer.
+dim3 grid_of(int w4, int u, int n_shards) {
+  const int tiles = (w4 + kThreads * u - 1) / (kThreads * u);
+  int per_shard = (n_sms() * 8 + n_shards - 1) / n_shards;
+  if (per_shard > tiles) per_shard = tiles;
+  if (per_shard < 1) per_shard = 1;
+  return dim3(per_shard, n_shards);
 }
 
 }  // namespace
@@ -163,17 +398,21 @@ void launch(int filter, bool ranges, dim3 grid, size_t smem, const TreeProg& pro
 // leaf_ptrs, ranges, range_rows, ops: the filter tree as in
 // count_tree_dense, or n_ops = 0 for no filter (every column).
 // field_ptrs: host array of n_fields device pointers, each a group field's
-// stack int32[R_i, S, W] (contiguous, the same S and W).  field_k: host
-// array of the K_i.  idx: device int32[sum K_i], the listed stack rows of
-// every field in field order, each in [-1, R_i) (the caller checks the
-// bounds).  mask: device int32[S].  out: device uint64[prod K_i], zeroed by
-// the caller.  Returns the cudaError_t of the launch.
+// stack int32[R_i, S, W] (contiguous, the same S and W), in level order.
+// field_k: host array of the K_i; field_stride: host array, field i's
+// stride in the row-major output.  regs: 1 for the register form (K_0 <= 4,
+// every later K_i <= 2, at most 4 fields), 0 for the walk (its stage must
+// fit in shared memory: put the field with the most rows first).  idx:
+// device int32[sum K_i], the listed stack rows of every field in the order
+// given, each in [-1, R_i) (the caller checks the bounds).  mask: device
+// int32[S].  out: device uint64[prod K_i], zeroed by the caller.  Returns
+// the cudaError_t of the launch.
 extern "C" int groupn_tree(const void* const* leaf_ptrs, int n_leaves,
                            const void* ranges, const int* range_rows, int n_ranges,
                            const int* ops, int n_ops, const void* const* field_ptrs,
-                           const int* field_k, int n_fields, const void* idx,
-                           const void* mask, int n_shards, int words, void* out,
-                           void* stream) {
+                           const int* field_k, const int* field_stride, int regs,
+                           int n_fields, const void* idx, const void* mask, int n_shards,
+                           int words, void* out, void* stream) {
   TreeProg prog = {};
   Leaves leaves = {};
   const bool filter = n_ops > 0;
@@ -181,45 +420,58 @@ extern "C" int groupn_tree(const void* const* leaf_ptrs, int n_leaves,
                            n_ops, &prog, &leaves))
     return (int)cudaErrorInvalidValue;
   if (n_fields < 1 || n_fields > kMaxFields || field_ptrs == nullptr ||
-      field_k == nullptr || idx == nullptr || out == nullptr || words <= 0 ||
-      words % 4 != 0 || n_shards < 0 || n_shards > 65535)
+      field_k == nullptr || field_stride == nullptr || idx == nullptr || out == nullptr ||
+      words <= 0 || words % 4 != 0 || n_shards < 0 || n_shards > 65535)
     return (int)cudaErrorInvalidValue;
   Fields f = {};
-  int n_idx = 0, n_combos = 1;
+  int n_idx = 0, n_combos = 1, last = 0;
   for (int i = 0; i < n_fields; ++i) {
-    if (field_k[i] < 1 || field_ptrs[i] == nullptr) return (int)cudaErrorInvalidValue;
+    if (field_k[i] < 1 || field_ptrs[i] == nullptr || field_stride[i] < 1)
+      return (int)cudaErrorInvalidValue;
+    if (regs && field_k[i] > (i == 0 ? kRegK0 : kRegK)) return (int)cudaErrorInvalidValue;
     f.base[i] = (const uint4*)field_ptrs[i];
     f.k[i] = field_k[i];
     f.start[i] = n_idx;
+    f.stride[i] = field_stride[i];
     n_idx += field_k[i];
     n_combos *= field_k[i];
     if (n_combos > kMaxCombos) return (int)cudaErrorInvalidValue;
+    last += (field_k[i] - 1) * field_stride[i];
   }
+  if (last != n_combos - 1 || (regs && n_fields > kRegFields))
+    return (int)cudaErrorInvalidValue;
+  const int u = regs ? reg_u(n_fields) : walk_u(n_fields);
+  const size_t smem =
+      regs ? 0
+           : (size_t)(n_idx - f.k[0]) * kThreads * u * sizeof(uint4) +
+                 (size_t)(n_idx + kWarps * n_combos) * sizeof(unsigned int);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (n_shards == 0) return (int)cudaSuccess;
   const int w4 = words / 4;
-  const int u = n_fields <= 4 ? 4 : 2;
-  const int tiles = (w4 + kThreads * u - 1) / (kThreads * u);
-  // About eight CTAs per SM, or one per tile where a shard has fewer.
-  int per_shard = (n_sms() * 8 + n_shards - 1) / n_shards;
-  if (per_shard > tiles) per_shard = tiles;
-  if (per_shard < 1) per_shard = 1;
-  const dim3 grid(per_shard, n_shards);
-  const size_t smem = (size_t)(n_idx + kWarps * n_combos) * sizeof(unsigned int);
   const int kind = !filter ? 0 : is_chain(ops, n_ops) ? 1 : 2;
   const bool rg = n_ranges > 0;
   const int* ix = (const int*)idx;
   const int* m = (const int*)mask;
   unsigned long long* o = (unsigned long long*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (n_fields) {
-    case 1: launch<1>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st); break;
-    case 2: launch<2>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st); break;
-    case 3: launch<3>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st); break;
-    case 4: launch<4>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st); break;
-    case 5: launch<5>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st); break;
-    case 6: launch<6>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st); break;
-    case 7: launch<7>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st); break;
-    default: launch<8>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st); break;
+  const dim3 grid = grid_of(w4, u, n_shards);
+  if (regs) {
+    switch (n_fields) {
+      case 1: launch_reg<1>(kind, rg, grid, prog, leaves, f, ix, m, w4, o, st); break;
+      case 2: launch_reg<2>(kind, rg, grid, prog, leaves, f, ix, m, w4, o, st); break;
+      case 3: launch_reg<3>(kind, rg, grid, prog, leaves, f, ix, m, w4, o, st); break;
+      default: launch_reg<4>(kind, rg, grid, prog, leaves, f, ix, m, w4, o, st); break;
+    }
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  switch (n_fields) {
+    case 1: return launch<1>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st);
+    case 2: return launch<2>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st);
+    case 3: return launch<3>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st);
+    case 4: return launch<4>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st);
+    case 5: return launch<5>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st);
+    case 6: return launch<6>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st);
+    case 7: return launch<7>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st);
+    default: return launch<8>(kind, rg, grid, smem, prog, leaves, f, ix, n_idx, n_combos, m, w4, o, st);
+  }
 }

@@ -39,17 +39,39 @@
 // int64 totals (one 64-bit atomic each), then arrives on a counter in the
 // same scratch, masked shards and idle threads included.  The block that
 // sees every other arrival holds the whole totals: it copies them out, or
-// ranks them by counting (value descending, the lower index first on ties:
+// orders them (value descending, the lower index first on ties:
 // jax.lax.top_k's order, and with candidates id-descending the reference's
 // (-count, -id) pair order) and writes the top n_out as one int32[2, n_out]
 // (vals, idx); then it leaves the totals and the counter at zero for the
-// next launch.  So a full TopN is one launch, with no fill before it and no
-// trim launch after it.  Ranking walks the totals in tiles of kThreads
-// through shared memory (2 KiB, so K3's occupancy is untouched), each thread
-// ranking kTrimRegs candidates per pass: at the main path's K = 16 that is
-// 16 comparisons; at K = 4096 one block does K * K of them.  The wrapper
-// keeps one scratch per (device, stream), so launches that share one run
-// one after another.
+// next launch.  So a full TopN of up to kThreads candidates is one launch,
+// with no fill before it and no trim launch after it; past that, one more
+// launch of one block sorts the totals.
+//
+// The trim sorts.  Each total and its index pack into one 64-bit key whose
+// unsigned order is the trim's order (the total, at most S * 2^20 < 2^36,
+// above 13 bits of 8191 - index; 0 pads), and a bitonic network sorts the
+// P keys (P, the next power of two >= K) descending, each step a
+// compare-exchange of the key at i with the one at i ^ j.  Up to kThreads
+// candidates (the main path's K = 16) the last block sorts them itself,
+// one key a thread: steps of j < 32 exchange through __shfl_xor_sync, the
+// rest through a 2 KiB shared tile (the shared memory the rank by counting
+// it replaced used).  Past kThreads the last block leaves the totals in
+// the scratch and score_rows_trim_kernel, one block launched right after
+// K3 on its stream, sorts them: thread t holds keys t * kTrimPer ..
+// t * kTrimPer + kTrimPer - 1 in registers, so a step of j below kTrimPer
+// swaps registers, one below 32 * kTrimPer exchanges them between lanes,
+// and only the steps past that (j = 512, 1024, 2048: six of the 78 steps
+// at K = 4096) go through 34 KiB of shared memory, one block barrier on
+// each side.  (The trim ranked by counting before, K^2 comparisons in one
+// block: 1.67 ms at K = 4096.)
+//
+// K3 is bounded to two CTAs of kThreads per SM (__launch_bounds__), the
+// occupancy its registers gave it anyway: the bound lets ptxas take up to
+// 128 registers and keep more of a group's candidate loads in flight.
+// Without it, edits to the last block's code alone moved those loads
+// (fewer of them in flight) and slowed the main loop on an H100.
+// The wrapper keeps one scratch per (device, stream), so launches that
+// share one run one after another.
 #include "reduce.cuh"
 #include "tree_eval.cuh"
 
@@ -59,7 +81,7 @@ constexpr int kThreads = 256;
 constexpr int kGroup = 16;       // candidates per block
 constexpr int kMaxChunks = 8;    // word chunks per (shard, group): a cluster
 constexpr int kMaxCands = 4096;  // totals the scratch holds (int64 each)
-constexpr int kTrimRegs = 4;     // candidates a thread ranks per pass
+constexpr int kTrimPer = kMaxCands / kThreads;  // the trim kernel's keys a thread: 16
 
 // Where a launch's totals go: the scratch (kMaxCands int64 totals, then a
 // 32-bit arrival counter in the next int64), and the finished result.
@@ -73,11 +95,29 @@ struct Totals {
   long long* all;                // int64[K]
 };
 
+// The trim's sort key of candidate i with total v (module comment).
+__device__ __forceinline__ unsigned long long trim_key(unsigned long long v, int i) {
+  return (v << 13) | (unsigned long long)(8191 - i);
+}
+
+// One bitonic step for the key `a` at position i against its partner's
+// `b` (position i ^ j) in the merge of width k: the lower position of a
+// pair keeps the larger key where the k-run sorts descending (i & k == 0),
+// the smaller one elsewhere.
+__device__ __forceinline__ unsigned long long bitonic_pick(unsigned long long a,
+                                                           unsigned long long b,
+                                                           int i, int j, int k) {
+  const bool keep_larger = ((i & j) == 0) == ((i & k) == 0);
+  return keep_larger ? (a > b ? a : b) : (a < b ? a : b);
+}
+
 // Called by every thread of each rank-0 block once its gated adds are
-// issued: arrive, and in the block that arrives last, finish the totals.
+// issued: arrive, and in the block that arrives last, finish the totals:
+// copy them out, or trim up to kThreads of them (one key a thread), or,
+// past kThreads, leave them in the scratch for score_rows_trim_kernel.
 __device__ void finish_totals(const Totals& t, int n_cands,
                               unsigned int expected) {
-  __shared__ long long tile[kThreads];
+  __shared__ unsigned long long tile[kThreads];
   __shared__ bool last;
   __threadfence();  // this block's adds, before its arrival
   __syncthreads();
@@ -86,48 +126,104 @@ __device__ void finish_totals(const Totals& t, int n_cands,
   if (!last) return;
   __threadfence();  // every other block's adds, before the reads below
   const int tid = threadIdx.x;
+  if (tid == 0) *t.arrivals = 0u;
+  if (t.n_out > 0 && n_cands > kThreads) return;  // score_rows_trim_kernel's
   if (t.n_out == 0) {
-    for (int i = tid; i < n_cands; i += kThreads)
+    for (int i = tid; i < n_cands; i += kThreads) {
       t.all[i] = (long long)__ldcg(t.acc + i);
-  } else {
-    for (int base = 0; base < n_cands; base += kThreads * kTrimRegs) {
-      long long v[kTrimRegs];
-      int rank[kTrimRegs];
-#pragma unroll
-      for (int u = 0; u < kTrimRegs; ++u) {
-        const int i = base + u * kThreads + tid;
-        v[u] = i < n_cands ? (long long)__ldcg(t.acc + i) : 0;
-        rank[u] = 0;
-      }
-      for (int j0 = 0; j0 < n_cands; j0 += kThreads) {
-        __syncthreads();  // the previous tile is no longer read
-        if (j0 + tid < n_cands) tile[tid] = (long long)__ldcg(t.acc + j0 + tid);
+      t.acc[i] = 0ull;
+    }
+    return;
+  }
+  int P = 1;
+  while (P < n_cands) P <<= 1;
+  unsigned long long key = tid < n_cands ? trim_key(__ldcg(t.acc + tid), tid) : 0ull;
+  if (tid < n_cands) t.acc[tid] = 0ull;
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      unsigned long long other;
+      if (j >= 32) {  // partner in another warp: through shared memory
+        tile[tid] = key;
         __syncthreads();
-        const int m = min(kThreads, n_cands - j0);
-        for (int j = 0; j < m; ++j) {
-          const long long w = tile[j];  // one broadcast, kTrimRegs compares
-#pragma unroll
-          for (int u = 0; u < kTrimRegs; ++u)
-            rank[u] += (w > v[u]) || (w == v[u] && j0 + j < base + u * kThreads + tid);
-        }
+        other = tile[tid ^ j];
+        __syncthreads();
+      } else {
+        other = __shfl_xor_sync(0xffffffffu, key, j);
       }
+      key = bitonic_pick(key, other, tid, j, k);
+    }
+  }
+  if (tid < t.n_out) {
+    t.trimmed[tid] = (int)(key >> 13);
+    t.trimmed[t.n_out + tid] = 8191 - (int)(key & 8191ull);
+  }
+}
+
+// The trim, one block launched right after K3 on its stream: sort the K
+// totals of the scratch as trim keys, descending, write the first n_out
+// as (vals, idx), and leave the scratch at zero.
+__global__ void __launch_bounds__(kThreads)
+    score_rows_trim_kernel(Totals t, int n_cands) {
+  // The cross-warp steps' keys, key i at i + i / kTrimPer: a warp's
+  // threads, kTrimPer keys apart, then fall in different banks (34 KiB).
+  __shared__ unsigned long long keys[kMaxCands + kMaxCands / kTrimPer];
+  int P = 1;
+  while (P < n_cands) P <<= 1;
+  const int first = threadIdx.x * kTrimPer;  // this thread's keys: first + u
+  unsigned long long key[kTrimPer];
 #pragma unroll
-      for (int u = 0; u < kTrimRegs; ++u) {
-        const int i = base + u * kThreads + tid;
-        if (i < n_cands && rank[u] < t.n_out) {
-          t.trimmed[rank[u]] = (int)v[u];
-          t.trimmed[t.n_out + rank[u]] = i;
-        }
+  for (int u = 0; u < kTrimPer; ++u) {
+    key[u] = 0ull;
+    if (first + u < n_cands) {  // read, then leave at zero for the next launch
+      key[u] = trim_key(__ldcg(t.acc + first + u), first + u);
+      t.acc[first + u] = 0ull;
+    }
+  }
+  for (int k = 2; k <= P; k <<= 1) {
+    int j = k >> 1;
+    for (; j >= 32 * kTrimPer; j >>= 1) {  // partner in another warp
+      __syncthreads();  // the previous step's reads are done
+#pragma unroll
+      for (int u = 0; u < kTrimPer; ++u) keys[first + threadIdx.x + u] = key[u];
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kTrimPer; ++u) {
+        const int i = (first + u) ^ j;
+        key[u] = bitonic_pick(key[u], keys[i + i / kTrimPer], first + u, j, k);
+      }
+    }
+    for (; j >= kTrimPer; j >>= 1) {  // partner in another lane of the warp
+#pragma unroll
+      for (int u = 0; u < kTrimPer; ++u)
+        key[u] = bitonic_pick(key[u], __shfl_xor_sync(0xffffffffu, key[u], j / kTrimPer),
+                              first + u, j, k);
+    }
+#pragma unroll
+    for (int jj = kTrimPer / 2; jj >= 1; jj >>= 1) {  // partner in this thread
+      if (jj > j) continue;
+#pragma unroll
+      for (int u = 0; u < kTrimPer; ++u) {
+        if (u & jj) continue;
+        const unsigned long long a = key[u], b = key[u | jj];
+        const bool desc = ((first + u) & k) == 0;
+        const unsigned long long hi = a > b ? a : b, lo = a > b ? b : a;
+        key[u] = desc ? hi : lo;
+        key[u | jj] = desc ? lo : hi;
       }
     }
   }
-  __syncthreads();  // every read of the totals is done: reset for the next launch
-  for (int i = tid; i < n_cands; i += kThreads) t.acc[i] = 0ull;
-  if (tid == 0) *t.arrivals = 0u;
+#pragma unroll
+  for (int u = 0; u < kTrimPer; ++u) {
+    const int p = first + u;  // rank p of the trim's order
+    if (p < t.n_out) {
+      t.trimmed[p] = (int)(key[u] >> 13);
+      t.trimmed[t.n_out + p] = 8191 - (int)(key[u] & 8191ull);
+    }
+  }
 }
 
 template <bool kChain, bool kRanges>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     score_rows_kernel(TreeProg prog, Leaves leaves, const int* __restrict__ mask,
                       const uint4* __restrict__ cand_base,
                       const int* __restrict__ cand_idx, int n_cands,
@@ -238,6 +334,8 @@ int launch(const TreeProg& prog, const Leaves& leaves, bool ranges,
       cudaLaunchKernelEx(&cfg, kernel, prog, leaves, mask, cand_base, cand_idx,
                          n_cands, n_shards, w4, scores, src_counts, totals);
   if (err != cudaSuccess) return (int)err;
+  if (totals.cnt != nullptr && totals.n_out > 0 && n_cands > kThreads)
+    score_rows_trim_kernel<<<1, kThreads, 0, stream>>>(totals, n_cands);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,11 @@ executor's host iterator before any launch, as the reference does.
 
 For tensors on the card ``groupn_tree`` launches the hand-written CUDA
 kernel (``csrc/groupn_tree.cu``) or raises; for tensors on the CPU it
-evaluates the plain PyTorch version.
+evaluates the plain PyTorch version.  ``groupn_plan`` orders the fields
+for the kernel (the one with the most rows first) and picks its form for
+the shape: registers (the counts per thread) where it fits, else the walk
+(the deeper levels' rows staged in shared memory).  Either form brings
+each listed row of a tile on chip once per pass.
 """
 
 from __future__ import annotations
@@ -38,6 +42,12 @@ from .kernels import _I, _P, _TREE_ARGS
 # csrc/groupn_tree.cu kMaxFields and kMaxCombos.
 MAX_GROUP_FIELDS = 8
 MAX_GROUP_COMBOS = 1024
+# csrc/groupn_tree.cu's register form: at most REG_FIELDS fields, REG_K0
+# rows on the first level and REG_K on each later one (kRegFields, kRegK0,
+# kRegK), so at most 32 combinations.
+REG_FIELDS = 4
+REG_K0 = 4
+REG_K = 2
 
 
 def groupn_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
@@ -83,14 +93,30 @@ def _check_lists(field_mats: Sequence[torch.Tensor], row_idx_lists):
     return lists
 
 
+def groupn_plan(ks: Sequence[int]):
+    """K8's launch plan for fields listing ``ks`` rows: ``(form, order,
+    strides)``.  ``order`` is the fields in level order, the one with the
+    most rows first (a stable sort: the walk then stages the fewest rows,
+    at most 32 within MAX_GROUP_COMBOS); ``strides`` each level's stride
+    in the row-major output; ``form`` "registers" where the shape fits
+    the register form in that order, else "walk"."""
+    n = len(ks)
+    order = sorted(range(n), key=lambda i: -ks[i])
+    stride = [math.prod(ks[i + 1:]) for i in range(n)]
+    regs = (n <= REG_FIELDS and ks[order[0]] <= REG_K0
+            and all(ks[i] <= REG_K for i in order[1:]))
+    return "registers" if regs else "walk", order, [stride[i] for i in order]
+
+
 def groupn_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
                      mask: torch.Tensor, field_mats: Sequence[torch.Tensor],
                      row_idx_lists) -> torch.Tensor:
     """Launch K8 on the card, on the current stream, without waiting for
-    the device: int64[K_1 * ... * K_n].  The row lists travel to the card
-    in one pinned, non-blocking copy; PyTorch's caching allocators keep
-    the host buffer until the copy has run and hand the device copy out
-    again only to work queued after K8 on this stream."""
+    the device: int64[K_1 * ... * K_n], in ``groupn_plan``'s form.  The
+    row lists travel to the card in one pinned, non-blocking copy;
+    PyTorch's caching allocators keep the host buffer until the copy has
+    run and hand the device copy out again only to work queued after K8
+    on this stream."""
     if not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 1:
         raise ValueError("mask must be an int32[S] tensor on the card")
     mask = mask.contiguous()
@@ -109,14 +135,16 @@ def groupn_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tenso
             if not 0 <= r < mats[m].shape[0]:
                 raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
         tree = kernels._c_leaves(code, mats)
-    idx = np.asarray([r for rows in lists for r in rows], dtype=np.int32)
+    form, order, strides = groupn_plan([len(rows) for rows in lists])
+    idx = np.asarray([r for i in order for r in lists[i]], dtype=np.int32)
     dev_idx = torch.from_numpy(idx).pin_memory().to(dev, non_blocking=True)
     n = len(field_mats)
-    ptrs = (ctypes.c_void_p * n)(*[m.data_ptr() for m in field_mats])
-    ks = (ctypes.c_int * n)(*[len(rows) for rows in lists])
+    ptrs = (ctypes.c_void_p * n)(*[field_mats[i].data_ptr() for i in order])
+    ks = (ctypes.c_int * n)(*[len(lists[i]) for i in order])
     fn = kernels._lib_fn("groupn_tree", "groupn_tree",
-                         _TREE_ARGS + [_P, _P, _I, _P, _P, _I, _I, _P, _P])
-    err = fn(*tree, ptrs, ks, n, dev_idx.data_ptr(), mask.data_ptr(), S, W, out.data_ptr(),
+                         _TREE_ARGS + [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P])
+    err = fn(*tree, ptrs, ks, (ctypes.c_int * n)(*strides), int(form == "registers"), n,
+             dev_idx.data_ptr(), mask.data_ptr(), S, W, out.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"groupn_tree launch failed: cudaError {err}")

@@ -402,19 +402,11 @@ def topn_tree_plain(prog, mats, mask, cand_mat, cand_idx):
 
 def topn_trim_plain(totals: torch.Tensor, n_out: int):
     """The top ``n_out`` of ``totals`` int64[K] as (vals int32, idx int32),
-    value descending and the lower index first on ties, by the same
-    rank-by-counting as K3's last block."""
-    K = totals.shape[0]
-    v = totals[:, None]  # candidate i, against every j along dim 1
-    j = torch.arange(K, device=totals.device)
-    before = (totals[None, :] > v) | ((totals[None, :] == v) & (j[None, :] < j[:, None]))
-    rank = before.sum(dim=1)
-    vals = torch.zeros(n_out, dtype=torch.int32, device=totals.device)
-    idx = torch.zeros(n_out, dtype=torch.int32, device=totals.device)
-    keep = rank < n_out
-    vals[rank[keep]] = totals[keep].to(torch.int32)
-    idx[rank[keep]] = j[keep].to(torch.int32)
-    return vals, idx
+    value descending and the lower index first on ties (jax.lax.top_k's
+    order), by a plain stable descending sort.  K3's last block gives the
+    same order by a bitonic sort of (total, index) keys."""
+    order = torch.sort(totals, descending=True, stable=True).indices[:n_out]
+    return totals[order].to(torch.int32), order.to(torch.int32)
 
 
 def topn_full_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr: int, n_out):
@@ -475,8 +467,9 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
     writes ``result``: the totals int64[K] when ``n_out`` is None, else
     their top ``n_out`` (1 <= n_out <= K) as int32[2, n_out], values then
     candidate indices, value descending and the lower index first on
-    ties.  ``mask`` None requests every shard, ``cand_idx`` None names
-    stack rows 0..K-1."""
+    ties (past 256 candidates the trim is a second launch of one block
+    on the same stream).  ``mask`` None requests every shard,
+    ``cand_idx`` None names stack rows 0..K-1."""
     if cand_mat.dtype != torch.int32 or cand_mat.dim() != 3 or not cand_mat.is_contiguous():
         raise ValueError("cand_mat must be a contiguous int32[R, S, W] tensor")
     if not cand_mat.is_cuda:
@@ -524,11 +517,14 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"score_rows launch failed: cudaError {err}")
     score_rows_cuda.launches += 1
+    if cnt is not None and n_out is not None:
+        score_rows_cuda.trims += 1  # a call that trims its totals
     range_leaf(code)
     return out_scores, out_src, result
 
 
 score_rows_cuda.launches = 0
+score_rows_cuda.trims = 0
 
 
 # P2 carries up to this many row indices in its launch parameters

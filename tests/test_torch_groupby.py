@@ -193,6 +193,7 @@ def _jax_groupn(jeng, fields, row_lists, filter_q, shards):
     (("a", "b"), True, "Row(c=1)", [0, 2]),
     (("a", "b", "c"), False, "Row(c=1)", [0, 1, 2]),
     (("b", "c", "sp", "a"), True, None, [1, 2]),
+    (("b", "a"), False, "Row(c=1)", [0, 1, 2]),
 ])
 def test_plain_matches_jax_kernel(jeng, fields, subset, filter_q, shards):
     canonical = jeng.canonical_shards("i")
@@ -239,6 +240,58 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
         groupby_mod.groupn_tree(None, [], mask, [st] * 9, [[0]] * 9)
     with pytest.raises(ValueError, match="outside stack"):
         groupby_mod.groupn_tree(None, [], mask, [st], [[3]])
+
+
+@pytest.mark.parametrize("ks,form,order", [
+    ((1,), "registers", [0]),
+    ((4,), "registers", [0]),
+    ((5,), "walk", [0]),
+    ((33,), "walk", [0]),
+    ((4, 2), "registers", [0, 1]),
+    ((2, 4), "registers", [1, 0]),
+    ((2, 3), "registers", [1, 0]),
+    ((3, 3), "walk", [0, 1]),
+    ((4, 2, 2), "registers", [0, 1, 2]),
+    ((2, 2, 4), "registers", [2, 0, 1]),
+    ((2, 1, 4, 2), "registers", [2, 0, 3, 1]),  # 16 combinations
+    ((2, 2, 4, 2), "registers", [2, 0, 1, 3]),  # 32: the most in registers
+    ((2, 2, 2, 2, 2), "walk", [0, 1, 2, 3, 4]),  # 32 but five fields
+    ((3, 11), "walk", [1, 0]),  # 33
+    ((32, 32), "walk", [0, 1]),  # 1024: 32 rows staged, the most
+    ((2,) * 8, "walk", list(range(8))),
+    ((4, 2, 16), "walk", [2, 0, 1]),  # 128: 6 rows staged
+])
+def test_groupn_plan_orders_levels_and_strides(ks, form, order):
+    """K8's launch plan: the field with the most rows first (the walk
+    then stages the fewest rows), the register form where the shape fits
+    it in that order, and each level's stride in the row-major output.
+    The plain version run on the fields in level order, each combination
+    put back at its strides' place, must equal the plain version in the
+    query's order: the placement either form of the kernel makes (exact,
+    integer counts)."""
+    got_form, got_order, strides = groupby_mod.groupn_plan(list(ks))
+    assert (got_form, got_order) == (form, order)
+    rng = np.random.default_rng(len(ks) * 10 + sum(ks))
+    S = 2
+    mats = [torch.from_numpy(rng.integers(0, 1 << 32, (k + 1, S, 32768), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)) for k in ks]
+    lists = [list(range(k)) for k in ks]
+    if ks[0] > 1:
+        lists[0][0] = -1  # a row the stack lacks
+    mask = torch.ones(S, dtype=torch.int32)
+    want = groupby_mod.groupn_tree_plain(None, [], mask, mats, lists)
+    level = groupby_mod.groupn_tree_plain(None, [], mask, [mats[i] for i in order],
+                                          [lists[i] for i in order])
+    placed = torch.zeros_like(want)
+    for v, count in enumerate(level.tolist()):
+        c, rest = 0, v
+        for L in reversed(range(len(ks))):
+            k = len(lists[order[L]])
+            c += (rest % k) * strides[L]
+            rest //= k
+        placed[c] = count
+    assert placed.tolist() == want.tolist()
+    assert int(want.sum()) > 0
 
 
 # -- the engines, call for call ----------------------------------------------

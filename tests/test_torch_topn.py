@@ -6,8 +6,12 @@ CPU mesh).
   ``Executor`` with ``MeshEngine`` and the JAX host ``Executor(holder)``:
   n in {0, 1, 3, all}, threshold, ids= (absent ids too), no src, Tanimoto,
   multi-leaf src trees, shard subsets, duplicate counts that pin the
-  (-count, -id) tie-break, and a candidate union past
+  (-count, -id) tie-break, a field of 600 rows (1024 candidate slots) whose
+  rows come in threes with equal bits, and a candidate union past
   MAX_TOPN_CANDIDATES (the two-phase path).
+- ``topn_trim_plain`` (the plain version of K3's trim) equals
+  ``jax.lax.top_k`` at K up to 4096 for tied, zero, distinct and
+  int32-max totals.
 - The kernels' plain versions equal the JAX programs on the same words:
   ``score_rows``, ``topn_tree``, ``topn_full_tree`` (and
   ``fusion.decode_topn_full_scores``), ``Fragment.top``, and P2 — the Pallas
@@ -45,6 +49,8 @@ SW = bitops.SHARD_WIDTH
 W = bitops.WORDS
 SPAN = 4096  # columns of each shard the rows draw from
 DUP_ROWS = (30, 31, 32)  # identical bits: every count and score ties
+WIDE_BASE = 200  # field m: rows b, b + 200 and b + 400 share base row b's bits
+M_SHARDS = (0, 1, 4)  # field m's shards (the host lane counts 600 rows in each)
 
 
 def topn_data(seed=11):
@@ -52,7 +58,8 @@ def topn_data(seed=11):
     the row id (so per-shard and global orders agree, as the two-phase
     reference needs to be exact), plus three identical rows of middling
     density.  Field w: src rows of three densities (5 dense, 6 medium, 7
-    sparse)."""
+    sparse).  Field m: 600 rows in threes of equal bits, over 200
+    base rows of 3 to 152 columns, on M_SHARDS only; field ms row 1: their union."""
     rng = np.random.default_rng(seed)
     rows, cols = [], []
     for s in range(N_SHARDS):
@@ -73,6 +80,19 @@ def topn_data(seed=11):
             rows.append(np.full(pos.size, r))
             cols.append(s * SW + pos)
     data["w"] = (np.concatenate(rows), np.concatenate(cols))
+    rows, cols, src = [], [], []
+    for s in M_SHARDS:
+        union = set()
+        for b in range(WIDE_BASE):
+            pos = rng.choice(SPAN, 3 + b % 150, replace=False)
+            union.update(pos.tolist())
+            for r in (b, b + WIDE_BASE, b + 2 * WIDE_BASE):
+                rows.append(np.full(pos.size, r))
+                cols.append(s * SW + pos)
+        src.append(s * SW + np.asarray(sorted(union)))
+    data["m"] = (np.concatenate(rows), np.concatenate(cols))
+    src = np.concatenate(src)
+    data["ms"] = (np.ones(src.size, np.int64), src)
     return data
 
 
@@ -93,6 +113,17 @@ def build_twins():
     th = THolder(device="cpu")
     th.open()
     return fill(jh, data), fill(th, data)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch ops: under several test
+    workers on a few cores a thread pool per worker spends its time
+    contending (the 600-row field's counts above all), not counting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -140,6 +171,9 @@ QUERIES = [
     "TopN(t, Row(w=5), n=2)",
     "TopN(t, Row(t=31), n=2)",
     "TopN(t, Intersect(Row(t=30), Row(w=5)), n=4)",
+    "TopN(m, Row(ms=1), n=5)",
+    "TopN(m, Row(ms=1), n=0)",
+    "TopN(m, Row(ms=1), n=600)",
 ]
 
 
@@ -417,6 +451,35 @@ def test_topn_trim_plain_order(case):
         jv, ji = jax.lax.top_k(jnp.asarray(totals.astype(np.int32)), n_out)
         np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+
+
+def _trim_totals(case, K, rng):
+    if case == "levels3":  # three values: ties everywhere
+        return rng.choice(np.array([0, 7, 1 << 20]), K)
+    if case == "zeros":
+        return np.zeros(K, np.int64)
+    if case == "distinct":
+        return rng.permutation(K).astype(np.int64) * 3
+    # Half at 2^31 - 1, the largest total an int32 holds, the rest below it.
+    return np.where(rng.random(K) < 0.5, 2 ** 31 - 1, rng.integers(0, 2 ** 31 - 1, K))
+
+
+@pytest.mark.parametrize("case", ["levels3", "zeros", "distinct", "int32_max"])
+@pytest.mark.parametrize("K", [1, 16, 257, 1000, 4096])
+def test_topn_trim_plain_matches_top_k(K, case):
+    """The plain trim against jax.lax.top_k over the same int32 totals,
+    exactly, at K from 1 to the 4096 candidates a fused TopN takes and
+    n_out on both sides of 256 (and of K3's sort widths: 16 keys a
+    thread, 512 a warp)."""
+    import jax
+
+    rng = np.random.default_rng(K)
+    totals = _trim_totals(case, K, rng).astype(np.int64)
+    for n_out in sorted({n for n in (1, 5, 255, 256, 257, 511, 512, 513) if n <= K} | {K}):
+        vals, idx = kernels.topn_trim_plain(torch.from_numpy(totals), n_out)
+        jv, ji = jax.lax.top_k(jnp.asarray(totals.astype(np.int32)), n_out)
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(jv), err_msg=f"n_out={n_out}")
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji), err_msg=f"n_out={n_out}")
 
 
 @pytest.mark.parametrize("kw", [
