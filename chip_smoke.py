@@ -112,6 +112,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at most three times); bench.py's
    groupby_8way/3field_1B_cols_p50 and _e2e_p50; the trim's torch.sort
    yardstick is timed at K = 16, 1000 and 4096 in phase 4.
+   api — after groupby, before phase 5: only pilosa_tpu_torch.api.API.
+   Field fk on bench (24 dense random rows keyed "k00".."k23", filled
+   like f): keyed Count(Intersect/Union/Difference) (K1), one with s
+   (K2), a query of 8 keyed Counts (one K5), TopN(fk, Row(f=10), n=5)
+   with its row keys (K3), Options(Count(...), shards=<480 of 960>) and
+   Options(Row(fk=...), excludeColumns=true); index users of 2^20 column
+   keys imported through API.import_bits in batches of row keys x column
+   keys (field seg, 8 keyed rows), SetColumnAttrs on 1,000 columns, a
+   keyed Row(seg=...) (its columns as keys) and columnAttrs, and a keyed
+   import into seg's resident stack, synced in place; SetRowAttrs on
+   top's 16 rows and TopN(top, Row(f=11), n=5, attrName=..., attrValues=
+   [1, 2]) (two K3 launches, the host walk filters); API.import_roaring
+   of 2^20 bits into one shard of fk, synced in place (stack_updates +1,
+   stack_rebuilds +0). Each answer against numpy; the K1, K2, K5 and K3
+   counters, zeroed just before the phase, must have moved, P2's not;
+   the p50 of API.query beside Executor.execute per operation, and the
+   import seconds.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -2992,6 +3009,299 @@ def run_groupby_path(device, holder, engine, ex, host, seed, err):
     return out, entry
 
 
+# -- the api phase: pilosa_tpu_torch.api.API on the north-star index ---------
+
+FK_ROWS = 24  # field fk: keys "k00".."k23", drawn like f
+USER_KEYS = 1 << 20  # index users: one full shard of column keys
+USER_BATCH = 1 << 16  # keys per import_bits request
+SEGS = 8  # field seg: keyed rows "seg0".."seg7"
+N_COL_ATTRS = 1000  # columns of users given attributes
+
+
+def _words_of(cols):
+    """uint64[W64] words of in-shard columns ``cols`` (int64, distinct)."""
+    w = np.zeros(W64, dtype=np.uint64)
+    np.bitwise_or.at(w, cols >> 6, np.uint64(1) << (cols & 63).astype(np.uint64))
+    return w
+
+
+def _api_p50s(api_q, ex_q, api, ex, index, reps=20):
+    """p50 ms of API.query and of Executor.execute (the same query with
+    ids) over ``reps`` warm runs each, host clock around a synchronous
+    answer; the two alternate, so that both see the same host."""
+    from pilosa_tpu_torch.api import QueryRequest
+
+    calls = {"api_p50_ms": lambda: api.query(QueryRequest(index, api_q)),
+             "executor_p50_ms": lambda: ex.execute(index, ex_q)}
+    lat = {name: [] for name in calls}
+    for fn in calls.values():
+        fn()
+    for _ in range(reps):
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            fn()
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    out = {name: statistics.median(v) for name, v in lat.items()}
+    out["api_host_ms"] = out["api_p50_ms"] - out["executor_p50_ms"]
+    return out
+
+
+def build_keyed_field(api, holder, n_shards, seed):
+    """Field fk (keys) on index bench: FK_ROWS dense random rows whose row
+    keys "k00".. the API's translate store gives ids, filled as build_index
+    fills f (load_row_words), not through import_bits.  Returns {key: id}
+    and the host words {id: uint64[S, W64]}."""
+    from pilosa_tpu_torch.core.view import VIEW_STANDARD
+
+    rng = np.random.default_rng(seed + 9)
+    keys = [f"k{r:02d}" for r in range(FK_ROWS)]
+    api.create_field("bench", "fk", {"keys": True})
+    ids = dict(zip(keys, api.translate_keys("bench", "fk", keys)))
+    words = {i: rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64) for i in ids.values()}
+    view = holder.index("bench").field("fk").view_if_not_exists(VIEW_STANDARD)
+    for sh in range(n_shards):
+        frag = view.fragment_if_not_exists(sh)
+        for i, w in words.items():
+            frag.load_row_words(i, w[sh])
+        frag.cache.invalidate()
+    return ids, words
+
+
+def import_users(api, n_keys, seed):
+    """Index users (keys) and field seg (keys): every column key one seg
+    row, one in four a second, through API.import_bits in batches of
+    USER_BATCH row keys x column keys.  Returns the keys, the (column
+    index, seg) pairs imported and the seconds (translation included)."""
+    from pilosa_tpu_torch.api import ImportRequest
+
+    rng = np.random.default_rng(seed + 11)
+    users = [f"u{i:07d}" for i in range(n_keys)]
+    segs = [f"seg{k}" for k in range(SEGS)]
+    api.create_index("users", keys=True)
+    api.create_field("users", "seg", {"keys": True})
+    first = rng.integers(0, SEGS, n_keys)
+    extra = np.flatnonzero(rng.random(n_keys) < 0.25)
+    second = (first[extra] + rng.integers(1, SEGS, extra.size)) % SEGS
+    cols = np.concatenate([np.arange(n_keys), extra])
+    rows = np.concatenate([first, second])
+    t0 = time.perf_counter()
+    for b in range(0, cols.size, USER_BATCH):
+        c, r = cols[b: b + USER_BATCH], rows[b: b + USER_BATCH]
+        api.import_bits(ImportRequest("users", "seg", column_keys=[users[i] for i in c],
+                                      row_keys=[segs[k] for k in r]))
+    return users, cols, rows, time.perf_counter() - t0
+
+
+def run_api_path(device, holder, engine, ex, host, seed, n_keys=USER_KEYS):
+    """pilosa_tpu_torch.api.API on the card, every answer against numpy:
+    keyed Counts on a field fk with row keys (K1; with field s, K2; 8 in
+    one query, one K5), a keyed TopN (K3) and Options(shards=...,
+    excludeColumns=...); an index users of ``n_keys`` column keys
+    imported through API.import_bits, a keyed Row with its columns as
+    keys and columnAttrs; SetRowAttrs on top and an attribute-filtered
+    TopN (K3's scoring, the host walk); API.import_roaring into fk, then a
+    keyed Count synced in place (S1).  The launch counters are zeroed just
+    before the phase and read just after.  Prints the p50 of API.query
+    against Executor.execute per operation and the import seconds."""
+    import torch
+
+    from pilosa_tpu_torch.api import API, ImportRequest, QueryRequest
+    from pilosa_tpu_torch.parallel import kernels
+    from pilosa_tpu_torch.roaring import codec
+
+    cuda = device.type == "cuda"
+    n_shards = len(host["f"][10])
+    api = API(holder=holder, engine=engine)
+    out = {"card": card_line()}
+    t_phase = time.perf_counter()
+
+    def q(text):
+        return api.query(QueryRequest("bench", text)).results
+
+    def check(what, got, want):
+        if got != want:
+            if isinstance(want, list) and len(want) > 8:
+                diff = next(k for k, (x, y) in enumerate(zip(got, want)) if x != y) \
+                    if len(got) == len(want) else None
+                raise AssertionError(f"api: {what}: port {len(got)} items != numpy oracle "
+                                     f"{len(want)} (first difference at {diff})")
+            raise AssertionError(f"api: {what}: port {got} != numpy oracle {want}")
+
+    t0 = time.perf_counter()
+    ids, fk = build_keyed_field(api, holder, n_shards, seed)
+    out["fk_fill_s"] = time.perf_counter() - t0
+    log(f"api: field fk ({FK_ROWS} keyed rows x {n_shards} shards) filled in "
+        f"{out['fk_fill_s']:.3f} s")
+    _zero_launches()
+    kernels.score_rows_cuda.launches = 0
+    kernels.and_popcount_rows_cuda.launches = 0
+    fallbacks0 = api.executor.host_fallbacks
+    timed = {}  # query with keys -> the same query with ids, for the p50s
+
+    with memo_off(engine):
+        # Keyed Counts: K1 on fk, K2 with the block-clustered field s.
+        a, b = ids["k03"], ids["k07"]
+        ab = popcounts(fk[a] & fk[b])  # int64[S]
+        for op, x, y, want in (("Intersect", "k03", "k07", int(ab.sum())),
+                               ("Union", "k01", "k02", oracle(fk, "or", (ids["k01"], ids["k02"]))),
+                               ("Difference", "k05", "k06",
+                                oracle(fk, "andnot", (ids["k05"], ids["k06"])))):
+            text = f'Count({op}(Row(fk="{x}"), Row(fk="{y}")))'
+            check(text, q(text), [want])
+            if engine.last_path != "dense":
+                raise AssertionError(f"api: {text} took the {engine.last_path} path")
+            timed[text] = f"Count({op}(Row(fk={ids[x]}), Row(fk={ids[y]})))"
+        text = 'Count(Intersect(Row(fk="k03"), Row(s=10)))'
+        check(text, q(text), [int(popcounts(fk[a] & host["s"][10]).sum())])
+        if engine.last_path != "sparse":
+            raise AssertionError(f"api: {text} took the {engine.last_path} path, not K2")
+        timed[text] = f"Count(Intersect(Row(fk={a}), Row(s=10)))"
+        pairs8 = [(ids[f"k{2 * k:02d}"], ids[f"k{2 * k + 1:02d}"]) for k in range(8)]
+        text8 = "".join(f'Count(Intersect(Row(fk="k{2 * k:02d}"), Row(fk="k{2 * k + 1:02d}")))'
+                        for k in range(8))
+        before = _launch_counts()
+        check("8 keyed Counts", q(text8), [int(popcounts(fk[x] & fk[y]).sum()) for x, y in pairs8])
+        moved = {k: v - before[k] for k, v in _launch_counts().items()}
+        if cuda and moved != {"count_tree_dense": 0, "count_tree_blocks": 0, "count_batch_tree": 1}:
+            raise AssertionError(f"api: 8 keyed Counts launched {moved}, not one K5")
+        timed[text8] = "".join(f"Count(Intersect(Row(fk={x}), Row(fk={y})))" for x, y in pairs8)
+        # Options: a shard subset, and a Row with excludeColumns.
+        sub = sorted(np.random.default_rng(seed + 13).choice(n_shards, n_shards // 2,
+                                                             replace=False).tolist())
+        inner = 'Count(Intersect(Row(fk="k03"), Row(fk="k07")))'
+        text = f"Options({inner}, shards={sub})"
+        check(text[:60], q(text), [int(ab[sub].sum())])
+        timed[text] = f"Options(Count(Intersect(Row(fk={a}), Row(fk={b}))), shards={sub})"
+        api.query(QueryRequest("bench", 'SetRowAttrs(fk, "k05", tier="gold")'))
+        row = q('Options(Row(fk="k05"), excludeColumns=true)')[0]
+        if row.columns().size or row.attrs != {"tier": "gold"}:
+            raise AssertionError(f"api: excludeColumns gave {row.columns().size} columns, "
+                                 f"attrs {row.attrs}")
+        # A keyed TopN (K3), the result's row keys checked.
+        key_of = {i: k for k, i in ids.items()}
+        o = TopNOracle(fk)
+        text = 'TopN(fk, Row(f=10), n=5)'
+        want = [(key_of[r], c) for r, c in o.fused(host["f"][10], 5)]
+        check(text, [tuple(p) for p in q(text)[0]], want)
+        timed[text] = text
+        # Row attributes on top, and the attribute-filtered TopN: the fused
+        # lane declines it, K3 scores the candidates (both phases) and
+        # Fragment.top filters them on the host.
+        api.query(QueryRequest("bench", " ".join(
+            f"SetRowAttrs(top, {r}, category={r % 4})" for r in TOP_ROWS)))
+        k3 = kernels.score_rows_cuda.launches
+        filtered = TopNOracle({r: w for r, w in host["top"].items() if r % 4 in (1, 2)})
+        text = 'TopN(top, Row(f=11), n=5, attrName="category", attrValues=[1, 2])'
+        check(text, [tuple(p) for p in q(text)[0]], filtered.two_phase(host["f"][11], 5))
+        out["filtered_topn"] = {"k3_launches": kernels.score_rows_cuda.launches - k3,
+                                "p2_launches": kernels.and_popcount_rows_cuda.launches,
+                                "host_fallbacks": api.executor.host_fallbacks - fallbacks0}
+        log(f"api: {text} exact; {json.dumps(out['filtered_topn'])}")
+        if cuda and out["filtered_topn"]["k3_launches"] != 2:
+            raise AssertionError(f"api: the filtered TopN: {out['filtered_topn']}")
+        timed[text] = text
+
+        # Column keys: index users, imported through API.import_bits.
+        users, cols, rows, imp_s = import_users(api, n_keys, seed)
+        out["users"] = {"keys": n_keys, "bits": int(cols.size), "import_bits_s": imp_s}
+        log(f"api: {n_keys} column keys x {SEGS} keyed rows imported through API.import_bits "
+            f"({cols.size} bits, translation included) in {imp_s:.3f} s"
+            + ("" if n_keys == USER_KEYS else f" (cut from {USER_KEYS} keys)"))
+        rng = np.random.default_rng(seed + 17)
+        attr_cols = np.sort(rng.choice(n_keys, N_COL_ATTRS, replace=False))
+        api.query(QueryRequest("users", " ".join(
+            f'SetColumnAttrs("{users[c]}", tier={c % 5}, vip={"true" if c % 2 else "false"})'
+            for c in attr_cols)))
+        seg3 = np.unique(cols[rows == 3])
+        want_keys = [users[c] for c in seg3]  # ids follow the keys' first import
+        got = api.query(QueryRequest("users", 'Row(seg="seg3")')).results[0]
+        check('Row(seg="seg3") keys', got.keys, want_keys)
+        resp = api.query(QueryRequest("users", 'Options(Row(seg="seg3"), columnAttrs=true)'))
+        want_sets = [{"key": users[c], "attrs": {"tier": int(c % 5), "vip": bool(c % 2)}}
+                     for c in np.intersect1d(attr_cols, seg3)]
+        check("columnAttrs", [s.to_dict() for s in resp.column_attr_sets], want_sets)
+        seg_id = {s: i for s, i in zip(
+            [f"seg{k}" for k in range(SEGS)],
+            api.translate_keys("users", "seg", [f"seg{k}" for k in range(SEGS)]))}
+        both = np.intersect1d(np.unique(cols[rows == 1]), np.unique(cols[rows == 2]))
+        text = 'Count(Intersect(Row(seg="seg1"), Row(seg="seg2")))'
+        check(text, api.query(QueryRequest("users", text)).results, [int(both.size)])
+        # A keyed import into rows and shards the seg stack holds: synced
+        # in place.
+        upd0, reb0 = engine.stack_updates, engine.stack_rebuilds
+        add = np.setdiff1d(np.unique(cols[rows == 1])[:5000], both)
+        api.import_bits(ImportRequest("users", "seg", column_keys=[users[c] for c in add],
+                                      row_keys=["seg2"] * add.size))
+        engine.ingest_syncer().flush()
+        check(text + " after a keyed import", api.query(QueryRequest("users", text)).results,
+              [int(both.size + add.size)])
+        out["users"]["keyed_import_sync"] = {"stack_updates": engine.stack_updates - upd0,
+                                             "stack_rebuilds": engine.stack_rebuilds - reb0}
+        if out["users"]["keyed_import_sync"] != {"stack_updates": 1, "stack_rebuilds": 0}:
+            raise AssertionError(f"api: keyed import sync {out['users']['keyed_import_sync']}")
+        log(f"api: keyed Row, columnAttrs ({len(want_sets)} sets) and Counts on users exact; "
+            f"keyed import synced {json.dumps(out['users']['keyed_import_sync'])}")
+
+        # API.import_roaring: 2^20 bits into one shard of fk (rows k03 and
+        # k07), then the keyed Count, synced in place.
+        sh = n_shards // 3
+        rng = np.random.default_rng(seed + 19)
+        half = 1 << 19
+        new_cols = {r: np.sort(rng.choice(1 << 20, half, replace=False)) for r in (a, b)}
+        old = {r: fk[r][sh].copy() for r in (a, b)}
+        new = {r: old[r] | _words_of(new_cols[r]) for r in (a, b)}
+        changed_want = sum(int(popcounts(new[r] & ~old[r])) for r in (a, b))
+        want = int(ab.sum() - ab[sh] + popcounts(new[a] & new[b]))
+        positions = np.concatenate([np.uint64(r << 20) + new_cols[r].astype(np.uint64)
+                                    for r in sorted((a, b))])
+        data = codec.serialize(positions)
+        upd0, reb0 = engine.stack_updates, engine.stack_rebuilds
+        t0 = time.perf_counter()
+        changed = api.import_roaring("bench", "fk", sh, data)
+        engine.ingest_syncer().flush()
+        if cuda:
+            torch.cuda.synchronize()
+        out["import_roaring"] = {"bits": int(positions.size), "bytes": len(data),
+                                 "changed": changed, "seconds": time.perf_counter() - t0}
+        check("import_roaring bits changed", changed, changed_want)
+        text = 'Count(Intersect(Row(fk="k03"), Row(fk="k07")))'
+        check(text + " after import_roaring", q(text), [want])
+        out["import_roaring"].update(stack_updates=engine.stack_updates - upd0,
+                                     stack_rebuilds=engine.stack_rebuilds - reb0)
+        log(f"api: import_roaring {json.dumps(out['import_roaring'])}")
+        if (out["import_roaring"]["stack_updates"], out["import_roaring"]["stack_rebuilds"]) != (1, 0):
+            raise AssertionError(f"api: import_roaring sync {out['import_roaring']}")
+
+        # p50s: API.query against Executor.execute of the same query.
+        times = {text: _api_p50s(text, by_id, api, ex, "bench") for text, by_id in timed.items()}
+        uq = {'Row(seg="seg3")': f"Row(seg={seg_id['seg3']})",
+              'Options(Row(seg="seg3"), columnAttrs=true)':
+                  f"Options(Row(seg={seg_id['seg3']}), columnAttrs=true)",
+              'Count(Intersect(Row(seg="seg1"), Row(seg="seg2")))':
+                  f"Count(Intersect(Row(seg={seg_id['seg1']}), Row(seg={seg_id['seg2']})))"}
+        for text, by_id in uq.items():
+            times[text] = _api_p50s(text, by_id, api, ex, "users")
+    launches = _launch_counts()
+    launches["score_rows"] = kernels.score_rows_cuda.launches
+    launches["and_popcount_rows"] = kernels.and_popcount_rows_cuda.launches
+    out["launches"] = launches
+    out["p50"] = times
+    for text, t in times.items():
+        log(f"api: {text[:72]}: API.query p50 {t['api_p50_ms']:.4f} ms, Executor.execute "
+            f"p50 {t['executor_p50_ms']:.4f} ms")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"api: launches {json.dumps(launches)}; host fallbacks "
+        f"{api.executor.host_fallbacks - fallbacks0}; phase {out['seconds']:.3f} s; "
+        f"{out['card']}")
+    if cuda and (min(launches[k] for k in ("count_tree_dense", "count_tree_blocks",
+                                           "count_batch_tree", "score_rows")) <= 0
+                 or launches["and_popcount_rows"]):
+        raise AssertionError(f"api: launches {launches}")
+    if api.executor.host_fallbacks != fallbacks0:
+        raise AssertionError("api: a Count fell back to the host lane")
+    return out
+
+
 # -- phase 5: the write path -------------------------------------------------
 
 OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
@@ -3704,6 +4014,7 @@ def main(argv=None):
     group_out, group_entry = run_groupby_path(device, holder, engine, ex, host, args.seed, err)
     log("groupby: " + json.dumps(group_out))
     kern.append(group_entry)
+    log("api: " + json.dumps(run_api_path(device, holder, engine, ex, host, args.seed)))
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     log(card_line())

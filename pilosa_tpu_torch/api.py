@@ -1,0 +1,384 @@
+"""API: the single-node surface a user calls, over the holder, the
+executor and the card.
+
+The port of the single-node part of ``pilosa_tpu/api.py`` (upstream
+Pilosa: api.go:39-1158): queries (``query``, ``query_async``), the schema
+(indexes, fields, views), the bulk imports (``import_bits`` with row and
+column keys, ``import_values``, ``import_roaring``), ``export_csv`` and key
+translation.  Keys are translated only here: the executor gets a
+``QueryTranslator`` over the API's ``TranslateFile``.
+
+Every import notifies the engine's ``IngestSyncer``, so resident stacks
+sync in place behind the write instead of on the next query's path.
+
+The reference's other methods belong to modules not ported yet; calling one
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it
+(``_UNPORTED``), so nothing left out can change an answer silently.
+"""
+
+from __future__ import annotations
+
+import csv
+import datetime as dt
+import os
+import shutil
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from . import __version__
+from .core.field import FieldOptions
+from .core.fragment import SHARD_WIDTH
+from .core.holder import Holder
+from .core.translate import TranslateFile
+from .core.view import VIEW_STANDARD
+from .executor import ExecOptions, Executor, QueryResponse
+from .executor.translate import QueryTranslator
+from .parallel.engine import TorchEngine
+from .roaring import codec
+
+# Methods of the reference's API that this module leaves out, and the
+# ROADMAP.md item that ports each.
+_ITEM_8_14 = "Queue 1 items 8 and 14 (batched serving; serving and observability)"
+_ITEM_14 = "Queue 1 item 14 (serving and observability)"
+_ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
+_UNPORTED = {
+    "fast_counts": _ITEM_8_14,
+    "cq": _ITEM_8_14,
+    "readiness": _ITEM_14,
+    "warm_status": _ITEM_14,
+    "recalculate_caches": _ITEM_14,
+    "attach_cluster": _ITEM_15,
+    "cluster_message": _ITEM_15,
+    "shard_nodes": _ITEM_15,
+    "hosts": _ITEM_15,
+    "node": _ITEM_15,
+    "state": _ITEM_15,
+    "set_coordinator": _ITEM_15,
+    "remove_node": _ITEM_15,
+    "resize_abort": _ITEM_15,
+    "get_translate_data": _ITEM_15,
+    "mesh_ticket": _ITEM_15,
+    "mesh_collective_accept": _ITEM_15,
+    "fragment_blocks": _ITEM_15,
+    "fragment_block_data": _ITEM_15,
+    "delete_available_shard": _ITEM_15,
+    "index_attr_diff": _ITEM_15,
+    "field_attr_diff": _ITEM_15,
+}
+
+
+class ApiError(Exception):
+    pass
+
+
+class NotFoundError(ApiError):
+    pass
+
+
+class QueryRequest:
+    """handler.go:21-47, single node.  ``remote`` (a peer's replay) and
+    ``profile`` (the query plan) are accepted so that a caller that sets
+    them gets an error naming the item that ports them, never a silently
+    different response."""
+
+    def __init__(
+        self,
+        index: str,
+        query: str,
+        shards: Optional[List[int]] = None,
+        column_attrs: bool = False,
+        exclude_row_attrs: bool = False,
+        exclude_columns: bool = False,
+        remote: bool = False,
+        profile: bool = False,
+    ):
+        self.index = index
+        self.query = query
+        self.shards = shards
+        self.column_attrs = column_attrs
+        self.exclude_row_attrs = exclude_row_attrs
+        self.exclude_columns = exclude_columns
+        self.remote = remote
+        self.profile = profile
+
+
+class ImportRequest:
+    """internal/public.proto ImportRequest."""
+
+    def __init__(
+        self,
+        index: str,
+        field: str,
+        shard: int = 0,
+        row_ids: Optional[List[int]] = None,
+        column_ids: Optional[List[int]] = None,
+        row_keys: Optional[List[str]] = None,
+        column_keys: Optional[List[str]] = None,
+        timestamps: Optional[List[Optional[int]]] = None,
+    ):
+        self.index = index
+        self.field = field
+        self.shard = shard
+        # `is None` (not truthiness): id and timestamp vectors may be
+        # numpy arrays.
+        self.row_ids = row_ids if row_ids is not None else []
+        self.column_ids = column_ids if column_ids is not None else []
+        self.row_keys = row_keys or []
+        self.column_keys = column_keys or []
+        self.timestamps = timestamps if timestamps is not None else []
+
+
+class ImportValueRequest:
+    def __init__(
+        self,
+        index: str,
+        field: str,
+        shard: int = 0,
+        column_ids: Optional[List[int]] = None,
+        column_keys: Optional[List[str]] = None,
+        values: Optional[List[int]] = None,
+    ):
+        self.index = index
+        self.field = field
+        self.shard = shard
+        self.column_ids = column_ids if column_ids is not None else []
+        self.column_keys = column_keys or []
+        self.values = values if values is not None else []
+
+
+class API:
+    """One node's API.  With no ``holder`` it builds an in-memory Holder,
+    and with no ``engine`` a ``TorchEngine`` over the holder, both on the
+    card unless ``device`` names another (``"cpu"`` in tests); with no
+    ``translate_store`` an in-memory ``TranslateFile``."""
+
+    def __init__(self, holder: Optional[Holder] = None,
+                 translate_store: Optional[TranslateFile] = None,
+                 engine: Optional[TorchEngine] = None, device=None):
+        self.holder = holder if holder is not None else Holder(device=device)
+        if not self.holder.opened:
+            self.holder.open()
+        self.translate_store = (
+            translate_store if translate_store is not None else TranslateFile()
+        )
+        self.engine = (engine if engine is not None
+                       else TorchEngine(self.holder, device=self.holder.device))
+        self.executor = Executor(self.holder, engine=self.engine,
+                                 translator=QueryTranslator(self.translate_store))
+
+    def __getattr__(self, name):
+        item = _UNPORTED.get(name)
+        if item is None:
+            raise AttributeError(name)
+        raise NotImplementedError(
+            f"API.{name} is not ported to pilosa_tpu_torch yet: ROADMAP.md {item}")
+
+    def close(self):
+        """Stop the engine's workers and close the holder."""
+        self.engine.close()
+        self.holder.close()
+
+    # -- queries (api.go Query :102) ---------------------------------------
+
+    @staticmethod
+    def _exec_options(req: QueryRequest) -> ExecOptions:
+        if req.remote:
+            raise NotImplementedError(
+                f"remote queries are not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_15}")
+        if req.profile:
+            raise NotImplementedError(
+                f"query plans are not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_14}")
+        return ExecOptions(exclude_row_attrs=req.exclude_row_attrs,
+                           exclude_columns=req.exclude_columns,
+                           column_attrs=req.column_attrs)
+
+    def query(self, req: QueryRequest) -> QueryResponse:
+        return self.executor.execute(req.index, req.query, req.shards, self._exec_options(req))
+
+    def query_async(self, req: QueryRequest):
+        """Deferred query: a future (``result``/``add_done_callback`` ->
+        QueryResponse) when the executor can pipeline the request (an
+        all-Count query through the batcher), else None, and the caller
+        runs ``query``."""
+        return self.executor.execute_async(req.index, req.query, req.shards,
+                                           self._exec_options(req))
+
+    # -- schema (api.go :129-386, 625-687) ---------------------------------
+
+    def create_index(self, name: str, keys: bool = False, track_existence: bool = True):
+        return self.holder.create_index(name, keys=keys, track_existence=track_existence)
+
+    def index(self, name: str):
+        idx = self.holder.index(name)
+        if idx is None:
+            raise NotFoundError(f"index not found: {name}")
+        return idx
+
+    def delete_index(self, name: str):
+        idx = self.holder.index(name)
+        cid = idx.creation_id if idx is not None else ""
+        # Tombstone the fields too: their creation ids must never come back.
+        field_cids = [f.creation_id for f in idx.fields.values()] if idx is not None else []
+        self.holder.delete_index(name)
+        self.holder.tombstone(cid)
+        for fcid in field_cids:
+            self.holder.tombstone(fcid)
+
+    def create_field(self, index_name: str, field_name: str, options=None):
+        idx = self.index(index_name)
+        if isinstance(options, dict):
+            options = FieldOptions.from_dict(options)
+        return idx.create_field(field_name, options)
+
+    def field(self, index_name: str, field_name: str):
+        f = self.index(index_name).field(field_name)
+        if f is None:
+            raise NotFoundError(f"field not found: {field_name}")
+        return f
+
+    def delete_field(self, index_name: str, field_name: str):
+        idx = self.index(index_name)
+        f = idx.field(field_name)
+        cid = f.creation_id if f is not None else ""
+        idx.delete_field(field_name)
+        self.holder.bump_shard_epoch(index_name)
+        self.holder.tombstone(cid)
+
+    def schema(self) -> List[dict]:
+        return self.holder.schema()
+
+    def views(self, index_name: str, field_name: str) -> List[str]:
+        return sorted(self.field(index_name, field_name).views)
+
+    def delete_view(self, index_name: str, field_name: str, view_name: str):
+        f = self.field(index_name, field_name)
+        v = f.views.pop(view_name, None)
+        if v is None:
+            raise NotFoundError(f"view not found: {view_name}")
+        v.close()
+        self.holder.bump_shard_epoch(index_name)
+        if v.path and os.path.isdir(v.path):
+            shutil.rmtree(v.path)
+
+    # -- imports (api.go Import :787, ImportValue :895, ImportRoaring :290) -
+
+    def import_bits(self, req: ImportRequest, clear: bool = False):
+        """Bulk bit import: translate the keys, then one bulk write per
+        fragment (api.go Import :787-894).  ``clear`` removes the given
+        bits instead (the handler's ?clear=true, http/handler.go:1002)."""
+        idx = self.index(req.index)
+        f = self.field(req.index, req.field)
+        col_ids = req.column_ids
+        row_ids = req.row_ids
+        if req.column_keys:
+            if not idx.keys:
+                raise ApiError("importing keys into unkeyed index")
+            col_ids = self.translate_store.translate_columns_to_uint64(
+                req.index, req.column_keys)
+        if req.row_keys:
+            if not f.options.keys:
+                raise ApiError("importing keys into unkeyed field")
+            row_ids = self.translate_store.translate_rows_to_uint64(
+                req.index, req.field, req.row_keys)
+        timestamps = (np.asarray(req.timestamps).tolist()
+                      if any(t for t in req.timestamps) else [])
+        # Validate before any write (field.go Import validation): a late
+        # error would leave the existence field holding the columns.
+        if timestamps:
+            if clear:
+                raise ValueError("import clear is not supported with timestamps")
+            if not f.time_quantum():
+                raise ValueError(
+                    f"field {req.field!r} has no time quantum: cannot import with timestamps")
+        ts = None
+        if timestamps:
+            # Epoch nanoseconds, the reference's wire format (api.go:874).
+            ts = [dt.datetime.fromtimestamp(t / 1e9, dt.timezone.utc).replace(tzinfo=None)
+                  if t else None for t in timestamps]
+        # Clears do not retract existence: other fields may hold the column.
+        ef = idx.existence_field()
+        if not clear and ef is not None and len(col_ids):
+            ef.import_bulk(np.zeros(len(col_ids), dtype=np.int64), col_ids)
+        f.import_bulk(row_ids, col_ids, ts, clear=clear)
+        self.engine.ingest_syncer().notify(req.index)
+
+    def import_values(self, req: ImportValueRequest, clear: bool = False,
+                      fresh: bool = False):
+        """BSI value import (api.go ImportValue :895); ``fresh`` is the
+        caller's promise that the columns hold no value yet."""
+        idx = self.index(req.index)
+        f = self.field(req.index, req.field)
+        col_ids = np.asarray(req.column_ids).tolist()
+        if req.column_keys:
+            if not idx.keys:
+                raise ApiError("importing keys into unkeyed index")
+            col_ids = self.translate_store.translate_columns_to_uint64(
+                req.index, req.column_keys)
+        ef = idx.existence_field()
+        if not clear and ef is not None and len(col_ids):
+            ef.import_bulk([0] * len(col_ids), col_ids)
+        f.import_values(col_ids, req.values, clear=clear, fresh=fresh)
+        self.engine.ingest_syncer().notify(req.index)
+
+    def import_roaring(self, index_name: str, field_name: str, shard: int, data: bytes,
+                       view: str = VIEW_STANDARD, clear: bool = False) -> int:
+        """Union (or clear) a serialized roaring bitmap into one fragment,
+        the fast ingest path (api.go:290-349).  The bitmap is decoded once,
+        and its positions serve both the fragment and the existence field.
+        Returns bits changed."""
+        idx = self.index(index_name)
+        f = self.field(index_name, field_name)
+        frag = f.view_if_not_exists(view).fragment_if_not_exists(shard)
+        positions = codec.deserialize(data).values
+        n = frag.import_roaring(data, clear=clear, values=positions)
+        ef = idx.existence_field()
+        if ef is not None and not clear and positions.size:
+            cols = (positions % SHARD_WIDTH).astype(np.int64) + shard * SHARD_WIDTH
+            ef.import_bulk(np.zeros(len(cols), dtype=np.int64), cols)
+        self.engine.ingest_syncer().notify(index_name)
+        return n
+
+    # -- export (api.go ExportCSV :416) ------------------------------------
+
+    def export_csv(self, index_name: str, field_name: str, shard: int, w) -> None:
+        idx = self.index(index_name)
+        f = self.field(index_name, field_name)
+        frag = self.holder.fragment(index_name, field_name, VIEW_STANDARD, shard)
+        if frag is None:
+            raise NotFoundError("fragment not found")
+        writer = csv.writer(w)
+        base = shard * SHARD_WIDTH
+        for row_id in frag.row_ids():
+            row_out = (self.translate_store.translate_row_to_string(index_name, field_name,
+                                                                    row_id)
+                       if f.options.keys else row_id)
+            for pos in frag.row_positions(row_id):
+                col = base + int(pos)
+                col_out = (self.translate_store.translate_column_to_string(index_name, col)
+                           if idx.keys else col)
+                writer.writerow([row_out, col_out])
+
+    # -- shards and node facts (api.go :493-563, 992-1010) ----------------
+
+    def max_shards(self) -> Dict[str, int]:
+        out = {}
+        for name, idx in self.holder.indexes.items():
+            shards = list(idx.available_shards())
+            out[name] = max(shards) if shards else 0
+        return out
+
+    def available_shards_by_index(self) -> Dict[str, List[int]]:
+        return {name: [int(s) for s in idx.available_shards()]
+                for name, idx in self.holder.indexes.items()}
+
+    def version(self) -> str:
+        return __version__
+
+    def info(self) -> dict:
+        return {"shardWidth": SHARD_WIDTH}
+
+    def translate_keys(self, index: str, field: str, keys: List[str]) -> List[int]:
+        if field:
+            return self.translate_store.translate_rows_to_uint64(index, field, keys)
+        return self.translate_store.translate_columns_to_uint64(index, keys)

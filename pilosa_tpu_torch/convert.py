@@ -9,8 +9,12 @@ The system holds data, not weights, so two things cross over:
   axis to a multiple of its mesh size; the port pads nothing, so the
   padding positions are cut off.
 - ``open_holder`` opens a data directory written by ``pilosa_tpu``'s
-  Holder: index/field metadata and the pilosa-roaring fragment files
-  (snapshot plus op-log) are read by the port's own copy of the codec.
+  Holder: index/field metadata, the pilosa-roaring fragment files
+  (snapshot plus op-log, read by the port's own copy of the codec) and the
+  row and column attribute stores (the sqlite ``.data`` files).
+- ``open_translate_store`` opens a ``.keys`` translate log (and its
+  ``.keys.idx`` sidecar) written by ``pilosa_tpu``'s TranslateFile, with
+  the same ids for the same keys.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .core.holder import Holder
+from .core.translate import TranslateFile
 from .ops import bitops
 from .parallel.engine import _FieldStack
 from .parallel.mesh import host_stack, put_stack, resolve_device
@@ -58,3 +63,10 @@ def open_holder(path: str, device=None) -> Holder:
     holder = Holder(path, device=device)
     holder.open()
     return holder
+
+
+def open_translate_store(path: str) -> TranslateFile:
+    """Open a translate log written by ``pilosa_tpu``'s TranslateFile."""
+    store = TranslateFile(path)
+    store.open()
+    return store

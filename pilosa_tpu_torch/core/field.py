@@ -8,9 +8,9 @@ Mirror of the reference's Field (field.go:61-1453): five types —
 - ``mutex``  at most one row per column
 - ``bool``   rows 0 (false) / 1 (true)
 
-plus an available-shards bitmap (field.go:228-317).  Row attributes and
-key translation are not ported yet (ROADMAP.md Queue 1 item 14); the
-``keys`` option is kept so schemas round-trip.
+plus an available-shards bitmap (field.go:228-317) and the row attribute
+store, ``<field>/.data`` (``core/attrs.py``).  The ``keys`` option marks a
+field whose rows the API translates from string keys (``core/translate.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..parallel.mesh import resolve_device
 from ..roaring import Bitmap
 from . import cache as cache_mod
 from . import timequantum
+from .attrs import AttrStore
 from .fragment import (  # noqa: F401
     DEFAULT_ACK,
     FALSE_ROW_ID,
@@ -184,6 +185,10 @@ class Field:
         self.creation_id = uuid.uuid4().hex
         self.views: Dict[str, View] = {}
         self.on_create_shard = on_create_shard
+        if path is not None:
+            os.makedirs(path, exist_ok=True)
+        # Row attributes (field.go RowAttrStore; BoltDB ".data" file).
+        self.row_attr_store = AttrStore(os.path.join(path, ".data") if path else None)
         self.bsi_groups: List[BSIGroup] = []
         if self.options.type == FIELD_TYPE_INT:
             self.bsi_groups.append(
@@ -248,6 +253,7 @@ class Field:
         self._save_available_shards()
         for view in self.views.values():
             view.close()
+        self.row_attr_store.close()
 
     # -- available shards (field.go:228-317) -------------------------------
 
@@ -315,6 +321,7 @@ class Field:
                 cache_size=self.options.cache_size,
                 mutex=self.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL),
                 on_create_shard=self.on_create_shard,
+                row_attr_store=self.row_attr_store,
                 ack=self.ack,
                 device=self.device,
             )
@@ -401,6 +408,16 @@ class Field:
 
     def row(self, row_id: int) -> Row:
         return self._view_row(self.view(VIEW_STANDARD), row_id)
+
+    def row_time(self, row_id: int, t: dt.datetime, quantum: str) -> Row:
+        """Row as of the finest unit of ``quantum`` at time ``t`` (field.go
+        RowTime :666: viewsByTime(...)[0] for the quantum's last unit).  The
+        empty quantum has no unit views, so it is invalid here even though
+        fields may carry it."""
+        if not quantum or not timequantum.valid_quantum(quantum):
+            raise ValueError(f"invalid time quantum: {quantum!r}")
+        names = timequantum.views_by_time(VIEW_STANDARD, t, quantum[-1])
+        return self._view_row(self.view(names[0]) if names else None, row_id)
 
     def _view_row(self, view, row_id: int) -> Row:
         if view is None:

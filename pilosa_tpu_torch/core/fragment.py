@@ -29,9 +29,11 @@ slice calls (upstream Pilosa: fragment.go:87-2492):
   block occupancy read under one lock: the engine scatters only those
   into its resident stacks (``parallel/engine.py``).
 
-Left for later slices (ROADMAP.md Queue 1): the write-delta hub,
-anti-entropy checksums, the row-attribute store behind TopN's attribute
-filter, and the roaring/value bulk-import paths.
+- Bulk writes: ``bulk_import``, ``import_values`` and ``import_roaring``
+  apply sorted packed keys in one multi-row merge each.
+
+Left for later slices (ROADMAP.md Queue 1): the write-delta hub and the
+anti-entropy checksums.
 """
 
 from __future__ import annotations
@@ -146,6 +148,7 @@ class Fragment:
         cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
         max_op_n: int = DEFAULT_MAX_OP_N,
         mutex: bool = False,
+        row_attr_store=None,
         on_touch=None,
         ack: str = DEFAULT_ACK,
         device=None,
@@ -157,6 +160,8 @@ class Fragment:
         self.path = path
         self.mutex = mutex
         self.max_op_n = max_op_n
+        # The field's row attributes: TopN's attribute filter reads them.
+        self.row_attr_store = row_attr_store
         if ack not in ACK_LEVELS:
             raise ValueError(f"unknown ack level: {ack!r}")
         self.ack = ack
@@ -849,6 +854,27 @@ class Fragment:
         self.snapshot()
 
     @_locked
+    def import_roaring(self, data: bytes, clear: bool = False,
+                       values: Optional[np.ndarray] = None) -> int:
+        """Union (or with ``clear``, subtract) a serialized roaring bitmap
+        straight into storage (fragment.go importRoaring :1659;
+        ImportRoaringRequest.Clear).  ``values``: the storage positions
+        already decoded (the API decodes once and shares them).  The
+        codec's sorted unique positions are the packed (row, pos) keys, as
+        row * ShardWidth + col is row << 20 | col, so they feed the
+        multi-row merge with no re-sort, and its ``_touch_rows`` marks the
+        changed words dirty: the next query syncs a resident stack in
+        place.  Returns bits changed."""
+        self._check_open()
+        if values is None:
+            values = codec.deserialize(data).values
+        positions = _sorted_unique_u64(values)
+        changed = self._apply_packed(positions, clear) if positions.size else 0
+        self.cache.invalidate()
+        self.snapshot()
+        return changed
+
+    @_locked
     def load_row_words(self, row_id: int, words_u64: np.ndarray):
         """Install a dense row wholesale — the bulk load path for
         benchmarks and restores (no op-log, no snapshot; the caller
@@ -942,18 +968,16 @@ class Fragment:
         the per-candidate src intersection counts (the reference's hot loop
         :1089, :1133) are computed for ALL candidates in one batched
         popcount up front.  Callers that score across shards pass
-        ``src_counts`` (and ``src_count_total``) precomputed.  The attribute
-        filter needs the row-attribute store, which is not ported."""
-        if filter_name and filter_values:
-            raise NotImplementedError(
-                "TopN attribute filters are not ported to pilosa_tpu_torch yet: "
-                "ROADMAP.md Queue 1 item 2 (attributes)"
-            )
+        ``src_counts`` (and ``src_count_total``) precomputed.  With
+        ``filter_name`` and ``filter_values``, a candidate whose row
+        attribute ``filter_name`` is not one of the values is skipped."""
         if row_ids:
             pairs = [(r, self.row_count(r)) for r in row_ids]
             n = 0  # explicit ids: never truncate
         else:
             pairs = list(self.cache.top())
+
+        filters = set(filter_values) if (filter_name and filter_values) else None
 
         has_src = src is not None or src_counts is not None
         src_count = 0
@@ -989,6 +1013,12 @@ class Fragment:
                     continue
             elif cnt < min_threshold:
                 continue
+            if filters is not None:
+                if self.row_attr_store is None:
+                    continue
+                val = self.row_attr_store.attrs(row_id).get(filter_name)
+                if val is None or val not in filters:
+                    continue
 
             if n == 0 or len(heap) < n:
                 count = src_counts.get(row_id, 0) if has_src else cnt

@@ -2,8 +2,8 @@
 
 Mirror of the reference's Index (index.go:30-496): fields map, keys flag,
 and the internal ``exists`` existence field (holder.go:45-46,
-index.go:123-175) that powers Not() and column counts.  Column attributes
-are not ported yet (ROADMAP.md Queue 1 item 14).
+index.go:123-175) that powers Not() and column counts, and the column
+attribute store, ``<index>/.data`` (``core/attrs.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 from ..parallel.mesh import resolve_device
 from ..roaring import Bitmap
 from . import cache as cache_mod
+from .attrs import AttrStore
 from .field import Field, FieldOptions
 
 EXISTENCE_FIELD_NAME = "exists"
@@ -50,6 +51,8 @@ class Index:
         self.on_create_shard = on_create_shard
         if path is not None:
             os.makedirs(path, exist_ok=True)
+        # Column attributes (index.go ColumnAttrStore; BoltDB ".data" file).
+        self.column_attr_store = AttrStore(os.path.join(path, ".data") if path else None)
 
     # -- metadata ----------------------------------------------------------
 
@@ -101,6 +104,7 @@ class Index:
     def close(self):
         for f in self.fields.values():
             f.close()
+        self.column_attr_store.close()
 
     # -- fields ------------------------------------------------------------
 

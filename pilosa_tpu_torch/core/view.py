@@ -39,6 +39,7 @@ class View:
         cache_size: int = 50000,
         mutex: bool = False,
         on_create_shard=None,
+        row_attr_store=None,
         ack: str = fragment_mod.DEFAULT_ACK,
         device=None,
     ):
@@ -49,6 +50,9 @@ class View:
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.mutex = mutex
+        # The field's row attributes, handed to every fragment for TopN's
+        # attribute filter.
+        self.row_attr_store = row_attr_store
         # Ingest ack/durability level and device, threaded down to every
         # fragment.
         self.ack = ack
@@ -115,6 +119,7 @@ class View:
                 cache_type=self.cache_type,
                 cache_size=self.cache_size,
                 mutex=self.mutex,
+                row_attr_store=self.row_attr_store,
                 on_touch=self._bump_version,
                 ack=self.ack,
                 device=self.device,

@@ -46,9 +46,20 @@ single node:
   fragments' sorted row ids with its limit.
 - Set/Clear write single bits (and the existence bit); Store and
   ClearRow overwrite or clear a whole row per shard.
+- Attributes (executor.go :2693-2730): SetRowAttrs and SetColumnAttrs
+  write the field's and the index's attribute stores (a query of
+  SetRowAttrs calls alone is one bulk write per field); a ``Row`` result
+  carries its row's attributes unless ``excludeRowAttrs``, and
+  ``columnAttrs`` adds the attributes of every result column to the
+  response (``QueryResponse.column_attr_sets``).
+- Options (executor.go :317): ``columnAttrs``, ``excludeRowAttrs``,
+  ``excludeColumns`` and ``shards`` for its one child call.
+- Keys: with a ``translator`` (``executor/translate.py``, which the API
+  plugs in), string keys in the calls become ids before execution and
+  the results' ids become keys after it.
 
-Every other call raises NotImplementedError naming the ROADMAP.md queue
-item that ports it.
+Explain raises NotImplementedError naming the ROADMAP.md queue item that
+ports it.
 """
 
 from __future__ import annotations
@@ -89,10 +100,7 @@ _WRITE_CALLS = {"Set", "Clear", "SetRowAttrs", "SetColumnAttrs", "Store", "Clear
 # Calls of the JAX executor this slice does not run yet, and the
 # ROADMAP.md item that ports each.
 _UNPORTED = {
-    "Options": "Queue 1 item 5 (executor lanes)",
     "Explain": "Queue 1 item 14 (serving and observability)",
-    "SetRowAttrs": "Queue 1 item 14 (serving and observability)",
-    "SetColumnAttrs": "Queue 1 item 14 (serving and observability)",
 }
 
 
@@ -106,6 +114,23 @@ class IndexNotFoundError(Error):
 
 class FieldNotFoundError(Error):
     pass
+
+
+class ExecOptions:
+    """executor.go execOptions, single node: the reference's ``remote``,
+    ``replica_read`` and ``freshness_ms`` belong to the cluster (ROADMAP.md
+    Queue 1 item 15)."""
+
+    __slots__ = ("exclude_row_attrs", "exclude_columns", "column_attrs")
+
+    def __init__(self, exclude_row_attrs: bool = False, exclude_columns: bool = False,
+                 column_attrs: bool = False):
+        self.exclude_row_attrs = exclude_row_attrs
+        self.exclude_columns = exclude_columns
+        self.column_attrs = column_attrs
+
+    def copy(self) -> "ExecOptions":
+        return ExecOptions(self.exclude_row_attrs, self.exclude_columns, self.column_attrs)
 
 
 class ValCount:
@@ -193,11 +218,52 @@ class GroupCount:
         return {"group": [g.to_dict() for g in self.group], "count": self.count}
 
 
-class QueryResponse:
-    __slots__ = ("results",)
+class RowIdentifiers:
+    """Rows() result of a translated query (executor.go:822-827)."""
 
-    def __init__(self, results=None):
+    __slots__ = ("rows", "keys")
+
+    def __init__(self, rows: List[int], keys: Optional[List[str]] = None):
+        self.rows = rows
+        self.keys = keys or []
+
+    def __eq__(self, other):
+        return (isinstance(other, RowIdentifiers) and self.rows == other.rows
+                and self.keys == other.keys)
+
+    def __repr__(self):
+        return f"RowIdentifiers(rows={self.rows}, keys={self.keys})"
+
+    def to_dict(self):
+        d = {"rows": self.rows}
+        if self.keys:
+            d["keys"] = self.keys
+        return d
+
+
+class ColumnAttrSet:
+    """One column's attributes in a ``columnAttrs`` response: by id, or by
+    key where the index has keys."""
+
+    __slots__ = ("id", "key", "attrs")
+
+    def __init__(self, id: int, attrs: dict, key: str = ""):
+        self.id = id
+        self.attrs = attrs
+        self.key = key
+
+    def to_dict(self):
+        if self.key:
+            return {"key": self.key, "attrs": self.attrs}
+        return {"id": self.id, "attrs": self.attrs}
+
+
+class QueryResponse:
+    __slots__ = ("results", "column_attr_sets")
+
+    def __init__(self, results=None, column_attr_sets=None):
         self.results = results if results is not None else []
+        self.column_attr_sets = column_attr_sets
 
 
 def _merge_row_ids(a: List[int], b: List[int], limit: int) -> List[int]:
@@ -289,15 +355,16 @@ class _QueryFuture:
     a run that expects none checks the count.  The thread is fresh, never
     a collect worker, whose pool resolves other batches."""
 
-    __slots__ = ("_executor", "_index", "_query", "_shards", "_slots", "_items", "_event",
-                 "_response", "_error", "_callbacks", "_cb_lock", "_draining", "_pending",
-                 "_lock")
+    __slots__ = ("_executor", "_index", "_query", "_shards", "_opt", "_slots", "_items",
+                 "_event", "_response", "_error", "_callbacks", "_cb_lock", "_draining",
+                 "_pending", "_lock")
 
-    def __init__(self, executor, index, query, shards, slots, items):
+    def __init__(self, executor, index, query, shards, opt, slots, items):
         self._executor = executor
         self._index = index
-        self._query = query
+        self._query = query  # parsed, its keys already translated
         self._shards = shards
+        self._opt = opt
         self._slots = slots
         self._items = items  # [(result slot, batcher _Item), ...]
         self._event = threading.Event()
@@ -334,7 +401,8 @@ class _QueryFuture:
         with self._executor._fallback_lock:
             self._executor.async_fallbacks += 1
         try:
-            self._response = self._executor.execute(self._index, self._query, self._shards)
+            self._response = self._executor._execute_translated(
+                self._index, self._query, self._shards, self._opt)
         except BaseException as e:  # noqa: BLE001
             self._error = e
         self._resolve()
@@ -379,14 +447,16 @@ class _QueryFuture:
 
 class Executor:
     """Single-node query executor over a Holder and, optionally, a
-    ``TorchEngine`` for the fused Count lane."""
+    ``TorchEngine`` for the fused lanes and a ``QueryTranslator`` for
+    string keys."""
 
     _PARSE_CACHE_MAX = 512
     _GROUP_ROWS_MAX = 256
 
-    def __init__(self, holder, engine=None):
+    def __init__(self, holder, engine=None, translator=None):
         self.holder = holder
         self.engine = engine
+        self.translator = translator
         # Parsed-query LRU for read-only queries (writes re-validate).
         self._parse_cache: "OrderedDict[str, Query]" = OrderedDict()
         self._parse_lock = threading.Lock()
@@ -421,26 +491,68 @@ class Executor:
 
     # -- entry point (executor.go Execute :84) -----------------------------
 
-    def execute(self, index: str, query, shards: Optional[List[int]] = None) -> QueryResponse:
+    def execute(self, index: str, query, shards: Optional[List[int]] = None,
+                opt: Optional[ExecOptions] = None) -> QueryResponse:
         if not index:
             raise Error("index required")
         if isinstance(query, str):
             query = self._parse_cached(query)
-        if self.holder.index(index) is None:
+        idx = self.holder.index(index)
+        if idx is None:
             raise IndexNotFoundError(index)
         if query.write_call_n() > MAX_WRITES_PER_REQUEST:
             raise Error("too many writes in a single request")
+        if self.translator is not None:
+            self.translator.translate_calls(index, idx, query.calls)
+        return self._execute_translated(index, query, shards, opt)
+
+    def _execute_translated(self, index: str, query: Query, shards, opt) -> QueryResponse:
+        """``execute`` after key translation (executor.go Execute :84-170):
+        the calls, then the column attributes a ``columnAttrs`` response
+        carries, then the results' ids turned into keys."""
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError(index)
+        opt = opt or ExecOptions()
         # Store and ClearRow map over shards like reads (executor.go :146).
         needs = any(c.name not in ("Set", "Clear", "SetRowAttrs", "SetColumnAttrs")
                     for c in query.calls)
         if not shards and needs:
             shards = self._default_shards(index) or [0]
-        return QueryResponse(self._execute_calls(index, query.calls, shards))
+        results = self._execute_calls(index, query.calls, shards, opt)
+        resp = QueryResponse(results)
+        if opt.column_attrs:
+            resp.column_attr_sets = self._column_attr_sets(index, idx, results)
+        if self.translator is not None:
+            self.translator.translate_results(index, idx, query.calls, results)
+        return resp
 
-    def _execute_calls(self, index, calls, shards) -> list:
-        """Each call in order; a run of CONSECUTIVE Counts is one batched
-        dispatch (executor.py:822-858).  Consecutive only: a write between
-        two Counts must be visible to the second."""
+    def _column_attr_sets(self, index, idx, results) -> List[ColumnAttrSet]:
+        """The attributes of every column of the Row results, by column
+        (executor.go Execute :139-162)."""
+        ids: List[int] = []
+        for r in results:
+            if isinstance(r, Row):
+                ids = _merge_row_ids(ids, r.columns().tolist(), _MAXINT)
+        sets = []
+        for cid in ids:
+            attrs = idx.column_attr_store.attrs(cid)
+            if attrs:
+                sets.append(ColumnAttrSet(cid, attrs))
+        if self.translator is not None and idx.keys:
+            for col in sets:
+                col.key = self.translator.translate_column_to_string(index, col.id)
+                col.id = 0
+        return sets
+
+    def _execute_calls(self, index, calls, shards, opt) -> list:
+        """Each call in order; a query of SetRowAttrs calls alone is one
+        bulk write per field (executor.go :146-149), and a run of
+        CONSECUTIVE Counts is one batched dispatch (executor.py:822-858).
+        Consecutive only: a write between two Counts must be visible to the
+        second."""
+        if calls and all(c.name == "SetRowAttrs" for c in calls):
+            return self._execute_bulk_set_row_attrs(index, calls)
         results: list = []
         i, n = 0, len(calls)
         while i < n:
@@ -452,24 +564,26 @@ class Executor:
                     batch = self._mesh_count_many(index, calls[i:j], shards)
                     if batch is None:
                         # The run declined as a whole: each call once.
-                        batch = [self._execute_call(index, c, shards) for c in calls[i:j]]
+                        batch = [self._execute_call(index, c, shards, opt)
+                                 for c in calls[i:j]]
                     results.extend(batch)
                     i = j
                     continue
-            results.append(self._execute_call(index, calls[i], shards))
+            results.append(self._execute_call(index, calls[i], shards, opt))
             i += 1
         return results
 
     # -- deferred execution (executor.py:587-697) ----------------------------
 
-    def execute_async(self, index: str, query, shards: Optional[List[int]] = None):
+    def execute_async(self, index: str, query, shards: Optional[List[int]] = None,
+                      opt: Optional[ExecOptions] = None):
         """Deferred execution of an all-Count query: every Count is
         answered by the O(1) lane or queued into the engine's batcher, and
         a future (``result``/``add_done_callback``) comes back without
-        waiting for the card.  None when the query is not eligible: the
-        caller runs ``execute``."""
+        waiting for the card.  None when the query is not eligible (a
+        ``columnAttrs`` request among them): the caller runs ``execute``."""
         eng = self.engine
-        if eng is None:
+        if eng is None or (opt is not None and opt.column_attrs):
             return None
         try:
             if isinstance(query, str):
@@ -479,9 +593,14 @@ class Executor:
         calls = query.calls
         if not calls or any(c.name != "Count" or len(c.children) != 1 for c in calls):
             return None
-        if not index or self.holder.index(index) is None:
+        idx = self.holder.index(index) if index else None
+        if idx is None:
             return None  # the sync path raises
         try:
+            if self.translator is not None:
+                # In place, as the sync path does; Count results are ints,
+                # which the result translation leaves as they are.
+                self.translator.translate_calls(index, idx, calls)
             if not shards:
                 shards = self._default_shards(index) or [0]
             children = [c.children[0] for c in calls]
@@ -497,7 +616,7 @@ class Executor:
             return None
         items = [(k, eng.batched_count_async(index, ch, shards))
                  for k, ch in enumerate(children) if slots[k] is None]
-        return _QueryFuture(self, index, query, shards, slots, items)
+        return _QueryFuture(self, index, query, shards, opt, slots, items)
 
     def memo_counts(self, index: str, query: str):
         """The counts of ``query`` when EVERY top-level Count hits the
@@ -507,7 +626,7 @@ class Executor:
         Correct as the batcher's memo lane is: the key carries the version
         token of every view the tree reads."""
         eng = self.engine
-        if eng is None:
+        if eng is None or self.translator is not None:
             return None
         try:
             q = self._parse_cached(query)
@@ -550,7 +669,7 @@ class Executor:
 
     # -- dispatch (executor.go executeCall :245-295) -----------------------
 
-    def _execute_call(self, index: str, c: Call, shards):
+    def _execute_call(self, index: str, c: Call, shards, opt: ExecOptions):
         ids = c.args.get("ids")
         if ids is not None and not isinstance(ids, list):
             raise Error("ids must be a list")
@@ -575,9 +694,17 @@ class Executor:
             return self._execute_rows(index, c, shards)
         if name == "GroupBy":
             return self._execute_group_by(index, c, shards)
+        if name == "SetRowAttrs":
+            self._execute_set_row_attrs(index, c)
+            return None
+        if name == "SetColumnAttrs":
+            self._execute_set_column_attrs(index, c)
+            return None
+        if name == "Options":
+            return self._execute_options_call(index, c, shards, opt)
         if name in _UNPORTED:
             _unported(name)
-        return self._execute_bitmap_call(index, c, shards)
+        return self._execute_bitmap_call(index, c, shards, opt)
 
     @staticmethod
     def _field_arg(c: Call) -> str:
@@ -597,10 +724,22 @@ class Executor:
 
     # -- host bitmap lane --------------------------------------------------
 
-    def _execute_bitmap_call(self, index, c: Call, shards) -> Row:
+    def _execute_bitmap_call(self, index, c: Call, shards, opt: ExecOptions) -> Row:
         row = Row()
         for shard in shards:
             row.merge(self._execute_bitmap_call_shard(index, c, shard))
+        # A Row() result carries its row's attributes (executor.go:491-530).
+        if c.name == "Row":
+            if opt.exclude_row_attrs:
+                row.attrs = {}
+            else:
+                field_name = self._field_arg(c)
+                fld = self.holder.index(index).field(field_name)
+                row_id, ok = c.uint_arg(field_name)
+                if fld is not None and ok:
+                    row.attrs = fld.row_attr_store.attrs(row_id)
+        if opt.exclude_columns:
+            row.segments = {}
         return row
 
     def _execute_bitmap_call_shard(self, index, c: Call, shard: int) -> Row:
@@ -1348,6 +1487,61 @@ class Executor:
             frag = f.view_if_not_exists(VIEW_STANDARD).fragment_if_not_exists(shard)
             changed |= frag.set_row(src, row_id)
         return changed
+
+    # -- attributes (executor.go :2693-2730) -------------------------------
+
+    def _row_attrs_args(self, index, c: Call):
+        """(field, row id, attributes) of a SetRowAttrs call."""
+        f = self._field(index, c.args.get("_field"))
+        row_id, ok = c.uint_arg("_row")
+        if not ok:
+            raise Error("SetRowAttrs() row field required")
+        attrs = {k: v for k, v in c.args.items() if k not in ("_field", "_row")}
+        return f, row_id, attrs
+
+    def _execute_set_row_attrs(self, index, c: Call):
+        f, row_id, attrs = self._row_attrs_args(index, c)
+        f.row_attr_store.set_attrs(row_id, attrs)
+
+    def _execute_bulk_set_row_attrs(self, index, calls: List[Call]) -> list:
+        """A query of SetRowAttrs calls alone: one bulk write per field."""
+        by_field: Dict[str, tuple] = {}
+        for c in calls:
+            f, row_id, attrs = self._row_attrs_args(index, c)
+            by_field.setdefault(f.name, (f, {}))[1].setdefault(row_id, {}).update(attrs)
+        for f, m in by_field.values():
+            f.row_attr_store.set_bulk_attrs(m)
+        return [None] * len(calls)
+
+    def _execute_set_column_attrs(self, index, c: Call):
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError(index)
+        col, ok = c.uint_arg("_col")
+        if not ok:
+            raise Error("SetColumnAttrs() column required")
+        attrs = {k: v for k, v in c.args.items() if k not in ("_col", "field")}
+        idx.column_attr_store.set_attrs(col, attrs)
+
+    # -- Options (executor.go :317) ----------------------------------------
+
+    def _execute_options_call(self, index, c: Call, shards, opt: ExecOptions):
+        opt_copy = opt.copy()
+        if "columnAttrs" in c.args:
+            opt.column_attrs, _ = c.bool_arg("columnAttrs")  # the whole response's
+        if "excludeRowAttrs" in c.args:
+            opt_copy.exclude_row_attrs, _ = c.bool_arg("excludeRowAttrs")
+        if "excludeColumns" in c.args:
+            opt_copy.exclude_columns, _ = c.bool_arg("excludeColumns")
+        if "shards" in c.args:
+            s = c.args["shards"]
+            if not isinstance(s, list) or any(
+                    isinstance(x, bool) or not isinstance(x, int) for x in s):
+                raise Error("Query(): shards must be a list of unsigned integers")
+            shards = [int(x) for x in s]
+        if len(c.children) != 1:
+            raise Error("Options() requires exactly one child call")
+        return self._execute_call(index, c.children[0], shards, opt_copy)
 
 
 class _GroupByIterator:

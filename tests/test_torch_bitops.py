@@ -145,7 +145,8 @@ def test_import_is_jax_free():
     """In a fresh interpreter with JAX blocked, every module of the port
     imports, the TopN and BSI paths (engine, executor lanes, kernel
     wrappers and their CUDA sources) are present and run queries on the
-    CPU, and no module of pilosa_tpu is loaded."""
+    CPU, the API answers a keyed query, and no module of pilosa_tpu is
+    loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -184,6 +185,12 @@ def test_import_is_jax_free():
         "v.import_values([3, 4, 9], [-5, 9, 2])\n"
         "assert ex.execute('i', 'Count(Range(v > 0))').results[0] == 2\n"
         "assert ex.execute('i', 'Sum(field=v)').results[0].to_dict() == {'value': 6, 'count': 3}\n"
+        "from pilosa_tpu_torch.api import API, ImportRequest, QueryRequest\n"
+        "a = API(device='cpu'); a.create_index('k', keys=True)\n"
+        "a.create_field('k', 'f', {'keys': True})\n"
+        "a.import_bits(ImportRequest('k', 'f', row_keys=['x', 'x'], column_keys=['c', 'd']))\n"
+        "assert a.query(QueryRequest('k', 'Row(f=\"x\")')).results[0].keys == ['c', 'd']\n"
+        "a.close()\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"

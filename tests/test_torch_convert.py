@@ -127,3 +127,75 @@ def test_open_holder_answers_topn_like_jax(tmp_path):
         got = [[tuple(p) for p in port.execute("i", q).results[0]] for q in TOPN_QUERIES]
         assert got == want
     th.close()
+
+
+def test_open_holder_and_translate_store_carry_attrs_and_keys(tmp_path):
+    """A data directory written through pilosa_tpu's API, with a keyed
+    index and field, row and column attributes and its ``.keys`` translate
+    log, opens in the port (``open_holder`` reads the ``.data`` attribute
+    stores, ``open_translate_store`` the log) with the same attributes and
+    keys, answers keyed queries as the reference did, and assigns the next
+    keys the reference's ids."""
+    import os
+
+    from pilosa_tpu import api as japi
+    from pilosa_tpu.core.translate import TranslateFile as JTranslateFile
+    from pilosa_tpu_torch import api as tapi
+    from pilosa_tpu_torch.convert import open_translate_store
+
+    path = str(tmp_path / "data")
+    keys_path = os.path.join(path, ".keys")
+    jh = JHolder(path)
+    jh.open()
+    jstore = JTranslateFile(keys_path)
+    jstore.open()
+    j = japi.API(holder=jh, translate_store=jstore)
+    j.create_index("k", keys=True)
+    j.create_field("k", "f", {"keys": True})
+    j.create_field("k", "n")
+    rng = np.random.default_rng(31)
+    users = [f"u{i}" for i in range(500)]
+    pick = rng.integers(0, 500, 2000)
+    j.import_bits(japi.ImportRequest("k", "f", column_keys=[users[i] for i in pick],
+                                     row_keys=[f"s{i % 5}" for i in rng.integers(0, 5, 2000)]))
+    j.import_bits(japi.ImportRequest("k", "n", column_keys=users[:300],
+                                     row_ids=rng.integers(0, 3, 300).tolist()))
+    j.query(japi.QueryRequest(
+        "k", 'SetRowAttrs(f, "s1", label="one", w=1) SetRowAttrs(n, 2, ok=true) '
+             'SetColumnAttrs("u7", tier=3) SetColumnAttrs("u8", tier=4)'))
+    queries = ['Row(f="s1")', 'Count(Intersect(Row(f="s1"), Row(f="s2")))', "TopN(f, n=3)",
+               'TopN(f, Row(n=1), n=2)', "Rows(field=f)", "Row(n=2)",
+               "GroupBy(Rows(field=f), Rows(field=n))"]
+    want = [j.query(japi.QueryRequest("k", q, column_attrs=True)) for q in queries]
+    row_attrs = jh.index("k").field("f").row_attr_store.blocks()
+    col_attrs = jh.index("k").column_attr_store.blocks()
+    jh.close()
+    jstore.close()
+
+    th = open_holder(path, device="cpu")
+    tstore = open_translate_store(keys_path)
+    assert th.index("k").keys and th.index("k").field("f").options.keys
+    assert th.index("k").field("f").row_attr_store.blocks() == row_attrs
+    assert th.index("k").column_attr_store.blocks() == col_attrs
+    t = tapi.API(holder=th, translate_store=tstore)
+    for q, w in zip(queries, want):
+        got = t.query(tapi.QueryRequest("k", q, column_attrs=True))
+        assert [c.to_dict() for c in got.column_attr_sets] == \
+            [c.to_dict() for c in w.column_attr_sets], q
+        g, w = got.results[0], w.results[0]
+        if hasattr(w, "columns"):
+            assert (g.keys, g.attrs) == (w.keys, w.attrs), q
+            np.testing.assert_array_equal(g.columns(), w.columns())
+        elif isinstance(w, list) and w and hasattr(w[0], "group"):
+            assert [x.to_dict() for x in g] == [x.to_dict() for x in w], q
+        elif hasattr(w, "rows"):
+            assert (g.rows, g.keys) == (w.rows, w.keys), q
+        else:
+            assert g == w, q
+    jnext = JTranslateFile(keys_path)
+    jnext.open()
+    assert t.translate_keys("k", "", ["new1", "u3"]) == \
+        jnext.translate_columns_to_uint64("k", ["new1", "u3"])
+    assert t.translate_keys("k", "f", ["s9"]) == jnext.translate_rows_to_uint64("k", "f", ["s9"])
+    t.close()
+    tstore.close()

@@ -231,10 +231,21 @@ def test_fused_lane_declines_past_max(twins):
     assert teng.topn_cache_only("i", "t", list(range(N_SHARDS)), 3, 1) is None
 
 
-def test_attribute_filter_is_not_ported(executors):
-    _, _, port, _ = executors
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        port.execute("i", 'TopN(t, Row(w=5), n=3, attrName="cat", attrValues=["a"])')
+def test_attribute_filter_is_not_ported(twins, executors):
+    """The attribute filter, once a pinned raise, now answers as the JAX
+    executors' two-phase lane does: the fused TopN declines it, K3 scores
+    the candidates and ``Fragment.top`` filters them by row attribute."""
+    jh, th = twins
+    for h in (jh, th):
+        h.index("i").field("t").row_attr_store.set_bulk_attrs(
+            {r: {"cat": "ab"[r % 2]} for r in range(1, 21)})
+    fused, host, port, port_host = executors
+    q = 'TopN(t, Row(w=5), n=3, attrName="cat", attrValues=["a"])'
+    want = pairs(fused, q)
+    assert want and all(r % 2 == 0 for r, _ in want)
+    assert pairs(host, q) == want
+    assert pairs(port, q) == want
+    assert pairs(port_host, q) == want
 
 
 def test_tanimoto_past_100_is_an_error(executors):
