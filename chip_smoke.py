@@ -38,8 +38,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    register form's shapes (C up to 32, fields reordered) and the walk's
    (up to 32 rows staged), rows repeated and missing (-1), no filter, a chain, an interpreter
    tree and one to four range leaves, masks of no shard, every shard and
-   a ragged set, 12 and 37 shards, two streams.  Integer results, so they must
-   agree exactly.  --check-only stops here.
+   a ragged set, 12 and 37 shards, two streams; for F1 fused_tree random flat
+   slot tables of 1 to 16 slots (mref chains, repeated and xor-cancelling
+   references, zeros, one to four range leaves), up to 32 count edges with
+   per-edge gates, materialized slots with and without a need gate, 12 and
+   37 shards, two streams, whole drains (F1 then K6, K7, K3 and K8 on its
+   slots) against fused_tree_plain, 17 slots and 33 edges refused.  Integer
+   results, so they must agree exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
    field s of 24 rows that each occupy 4 of the 64 occupancy blocks of
@@ -129,6 +134,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    counters, zeroed just before the phase, must have moved, P2's not;
    the p50 of API.query beside Executor.execute per operation, and the
    import seconds.
+   fusion — after api, before phase 5: indexes dash and dash2 (bench.py's
+   dashboard at 960 shards, seed 23: seg 4 rows rand | rand, w rows 1-4
+   rand, g 4 rows rand, v an int field 0..100 on 30,000 columns per 8
+   shards); the widgets at N = 2, 4, 8, 10 through TorchEngine.fused_many
+   (F1 once per drain, then K6, K7, K3, K8 on its slots) and one by one
+   through solo_op, through Executor.execute from N threads at once (the
+   aggregates pool in one batcher drain) and bench.py's cross-index drain
+   (one F1 per index), every answer against numpy with the memo off; F1's
+   launches zeroed just before and counted, fused_programs moving in the
+   executor's part and F1 in its profiler window; one Set into seg, after
+   which the 10-widget plan rebuilds (the stack synced in place) and stays
+   exact; bench.py's dashboard_fused_qps, dashboard_p50_ms,
+   dashboard_fused_speedup and dashboard_crossindex_p50_ms, and F1 at the
+   10-widget shape against its plain version and its bound.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -1114,6 +1133,158 @@ def _checked(prog):
     return code
 
 
+def _rand_slots(rng, n_slots, leaves, ranges, p_range=0.15):
+    """A random flat slot table of ``n_slots`` slots for F1: each slot a
+    leaf row, a range leaf, zero, or a node (and/or/andnot/xor) over one to
+    four of those and references to earlier slots (mref chains), at most
+    ``len(ranges)`` distinct range leaves in all."""
+    ops = ("and", "or", "andnot", "xor")
+
+    def item(k):
+        u = rng.random()
+        if k and u < 0.45:
+            return ("mref", int(rng.integers(0, k)))
+        if u < 0.45 + p_range and ranges:
+            return ranges[int(rng.integers(0, len(ranges)))]
+        if u > 0.95:
+            return ("zero",)
+        return leaves[int(rng.integers(0, len(leaves)))]
+
+    slots = []
+    for k in range(n_slots):
+        if rng.random() < 0.25:
+            slots.append(item(k))
+        else:
+            kids = [item(k) for _ in range(int(rng.integers(1, 5)))]
+            if k and rng.random() < 0.5:
+                kids[0] = ("mref", k - 1)  # a chain through every slot
+            slots.append((ops[int(rng.integers(0, 4))],) + tuple(kids))
+    return tuple(slots)
+
+
+def check_fused_kernel(device, seed):
+    """F1 fused_tree against fused_slots_plain / fused_tree_plain, exactly:
+    random flat slot tables of 1 to 16 slots (mref chains through every
+    slot, repeated and xor-cancelling references, ANDNOT with an mref on
+    its left, leaf rows of two stacks, zeros, one to four range leaves),
+    up to 32 count edges on random slots with per-edge gates (none, every
+    shard, ragged sets), materialized slots with and without a ``need``
+    gate (compared inside it), adversarial words, 12 and 37 shards, F1 on
+    two streams at once (a scratch per stream); then whole drains
+    (kernels.fused_tree: F1 and the K6, K7, K3 and K8 edges on materialized
+    slots) against fused_tree_plain; 17 slots and 33 count edges refused.
+    Returns max |err|."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    rng = np.random.default_rng(seed + 29)
+    err = {"fused_tree": 0}
+    n = 0
+
+    def same(got, want, what):
+        nonlocal n
+        torch.cuda.synchronize()
+        err["fused_tree"] = max(err["fused_tree"], _exact("F1", got, want.to(got.device), what))
+        n += 1
+
+    for S in (12, 37):
+        mats = [_adversarial_stack(rng, 6, S, device), _adversarial_stack(rng, 6, S, device),
+                _bsi_stack(rng, 8, S, device)]
+        leaves = [("row", m, r) for m in (0, 1) for r in range(6)]
+        full = tuple(range(9))
+        ranges = [_range_leaf(k, full, int(p), 200, slot=2)
+                  for k, p in zip(("gt", "lt", "between", "neq"), rng.integers(0, 256, 4))]
+        gate_pool = [np.ones(S, np.int32), np.zeros(S, np.int32)] + [
+            (rng.random(S) < q).astype(np.int32) for q in (0.2, 0.5, 0.8)]
+        for n_slots in (1, 2, 3, 4, 5, 8, 9, 12, 16):
+            for trial in range(3):
+                slots = _rand_slots(rng, n_slots, leaves, ranges[:1 + trial % 4],
+                                    p_range=0.0 if trial == 0 else 0.15)
+                E = int(rng.integers(1, kernels.MAX_FUSED_EDGES + 1)) if trial == 2 else \
+                    int(rng.integers(1, 5))
+                cslots = [int(j) for j in rng.integers(0, n_slots, E)]
+                gnp = [gate_pool[int(rng.integers(0, len(gate_pool)))] for _ in range(E)]
+                gates = [torch.from_numpy(g).to(device) for g in gnp]
+                msl = sorted({int(j) for j in rng.integers(0, n_slots, int(rng.integers(0, 4)))})
+                # Trials 1 and 2 keep only the slots an edge reads: one-row
+                # slots outside them compile into their readers.
+                code = kernels.compile_fused(
+                    slots, frozenset(cslots) | frozenset(msl) if trial else None)
+                kernels.check_fused(code)
+                need_np = None
+                if trial == 1:
+                    need_np = np.logical_or.reduce(gnp + [rng.random(S) < 0.3]).astype(np.int32)
+                need = None if need_np is None else torch.from_numpy(need_np).to(device)
+                counts, mat = kernels.fused_tree_cuda(code, mats, cslots, gates, msl, need)
+                vals = kernels.fused_slots_plain(slots, mats, (S, 32768), device)
+                want = torch.stack([
+                    (kernels.bitops.popcount_words(vals[j][g != 0]).sum())
+                    for j, g in zip(cslots, gates)]).to(torch.int64)
+                same(counts, want, f"S={S} {n_slots} slots trial {trial}: counts")
+                for i, j in enumerate(msl):
+                    keep = slice(None) if need_np is None else torch.from_numpy(
+                        need_np != 0).to(device)
+                    same(mat[i][keep], vals[j][keep], f"S={S} {n_slots} slots: slot {j}")
+        # Two streams at once, each F1 with its own scratch.
+        side = torch.cuda.Stream(device=device)
+        torch.cuda.synchronize()
+        pending = []
+        for i in range(8):
+            slots = _rand_slots(rng, 6, leaves, ranges[:2])
+            code = kernels.compile_fused(slots)
+            g = torch.from_numpy(gate_pool[i % len(gate_pool)]).to(device)
+            with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+                c, m = kernels.fused_tree_cuda(code, mats, [5, 3], [g, g], [5])
+                pending.append((slots, g, c, m.clone()))
+        torch.cuda.synchronize()
+        for slots, g, c, m in pending:
+            vals = kernels.fused_slots_plain(slots, mats, (S, 32768), device)
+            want = torch.stack([kernels.bitops.popcount_words(vals[j][g != 0]).sum()
+                                for j in (5, 3)]).to(torch.int64)
+            same(c, want, "two streams: counts")
+            same(m[0], vals[5], "two streams: slot 5")
+        # Whole drains: F1 then every aggregate edge kind on its slots.
+        if S == 12:
+            cand = _adversarial_stack(rng, 8, S, device)
+            dmats = mats + [cand]
+            masks = [torch.from_numpy(g).to(device) for g in gate_pool[:1] + gate_pool[2:]]
+            cnt = torch.from_numpy(rng.integers(0, 3, (8, S)).astype(np.int32)).to(device)
+            tensors = [torch.arange(8, dtype=torch.int32, device=device), cnt,
+                       torch.tensor([3, 0, 7, 3], dtype=torch.int32, device=device)]
+            for trial in range(6):
+                slots = _rand_slots(rng, 1 + 3 * trial % 16, leaves, ranges[:trial % 5])
+                k = len(slots)
+                pick = lambda: int(rng.integers(0, k))  # noqa: E731
+                aggs = [("sum", pick(), 1, 2, full), ("sum", -1, 0, 2, full),
+                        ("minmax", pick(), 2, 2, full, True), ("minmax", pick(), 0, 2, full, False),
+                        ("topn", pick(), 1, 3, 2), ("topnf", pick(), 0, 3, 0, 1, 1, 5),
+                        ("topnf", pick(), 3, 3, 0, 1, 2, None),
+                        ("group", pick(), 1, (0, 1), ((0, 3, -1), (2, 5))),
+                        ("group", -1, 2, (1,), ((4, 1, 0, 5),))]
+                spec = kernels.FusedSpec(slots, [(pick(), int(rng.integers(0, 4)))
+                                                 for _ in range(3)], aggs)
+                got = kernels.fused_tree(spec, dmats, masks, tensors)
+                want = kernels.fused_tree_plain(spec, dmats, masks, tensors)
+                for gi, (g, w) in enumerate(zip(got, want)):
+                    same(g, w, f"drain {trial}: output {gi}")
+    try:
+        kernels.check_fused(kernels.compile_fused(tuple(("row", 0, 0) for _ in range(17))))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("F1 took 17 slots")
+    try:
+        kernels.check_fused(kernels.compile_fused((("row", 0, 0),)), 33)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("F1 took 33 count edges")
+    log(f"kernels: {n} comparisons exact (F1 fused_tree against its plain version, and "
+        "whole drains against fused_tree_plain)")
+    return err
+
+
 # -- phase 3: the main path --------------------------------------------------
 
 
@@ -1607,7 +1778,8 @@ def engine_topn_kernels(ex, q, want):
         got.clear()
         got.extend(tuple(p) for p in ex.execute("bench", q).results[0])
 
-    seen = on_card(run, lambda seen: tally(seen) == want_seen)
+    with memo_off(ex.engine):  # a warm repeat would be a memo hit: no launch
+        seen = on_card(run, lambda seen: tally(seen) == want_seen)
     if got != want:
         raise AssertionError(f"{q} (profiled): port {got} != numpy oracle {want}")
     log(f"main path: kernels of one warm engine {q} (torch.profiler): " + json.dumps(per_launch(seen)))
@@ -1927,7 +2099,9 @@ def time_topn(engine, ex, holder, device, err, launches):
 
     # End to end: Executor.execute of TopN(top, Row(f=r), n=5) over the 12
     # src rows, host clock around a synchronous answer.
-    log(f"times: end-to-end TopN(top, Row(f=r), n=5) p50 {topn_p50_ms(ex):.4f} ms over 36 queries")
+    with memo_off(engine):  # a repeated TopN is a memo hit since the aggregate lane
+        log(f"times: end-to-end TopN(top, Row(f=r), n=5) p50 {topn_p50_ms(ex):.4f} ms "
+            "over 36 queries")
     return out
 
 
@@ -3302,6 +3476,452 @@ def run_api_path(device, holder, engine, ex, host, seed, n_keys=USER_KEYS):
     return out
 
 
+# -- the fusion phase: whole-dashboard drains (bench.py:1372-1680) ----------
+
+DASH_WIDGETS = (2, 4, 8, 10)  # bench.py DASH_WIDGETS
+DASH_REPS = 24  # bench.py DASH_REPS
+DASH_VALUES_PER_8 = 30_000  # v: bench.py's 30,000 values over 8 shards
+DASH_SEG = "Intersect(Row(seg=0), Row(seg=1), Row(seg=2), Row(seg=3))"
+# The widgets of bench.py _dash_entries as executor queries, in order (the
+# TopN-scores widget is TopN(ids=...): a user asks for those rows' counts).
+DASH_PQL = [
+    f"Count(Intersect({DASH_SEG}, Row(w=1)))",
+    f"Sum({DASH_SEG}, field=v)",
+    f"TopN(w, {DASH_SEG}, n=5)",
+    f"Min({DASH_SEG}, field=v)",
+    f"Max({DASH_SEG}, field=v)",
+    f"Count(Intersect({DASH_SEG}, Row(w=2)))",
+    f"TopN(w, {DASH_SEG}, ids=[1, 2, 3, 4])",
+    f"Count(Difference({DASH_SEG}, Row(w=3)))",
+    f"GroupBy(Rows(field=g), filter={DASH_SEG})",
+    f"TopN(w, Intersect({DASH_SEG}, Row(w=4)), n=3)",
+]
+
+
+def dash_entries(n, shards):
+    """bench.py's _dash_entries: 1 segment filter x ``n`` widgets."""
+    from pilosa_tpu_torch import pql
+
+    P = lambda q: pql.parse(q).calls[0]  # noqa: E731
+    segc = lambda: P(DASH_SEG)  # noqa: E731
+    return [
+        ({"kind": "count", "call": P(f"Intersect({DASH_SEG}, Row(w=1))")}, shards),
+        ({"kind": "sum", "field": "v", "filter": segc()}, shards),
+        ({"kind": "topnf", "field": "w", "src": segc(), "n": 5, "threshold": 1,
+          "row_ids": None}, shards),
+        ({"kind": "min", "field": "v", "filter": segc()}, shards),
+        ({"kind": "max", "field": "v", "filter": segc()}, shards),
+        ({"kind": "count", "call": P(f"Intersect({DASH_SEG}, Row(w=2))")}, shards),
+        ({"kind": "topn", "field": "w", "rows": [1, 2, 3, 4], "src": segc()}, shards),
+        ({"kind": "count", "call": P(f"Difference({DASH_SEG}, Row(w=3))")}, shards),
+        ({"kind": "group", "fields": ["g"], "rows": [[0, 1, 2, 3]], "filter": segc()},
+         shards),
+        ({"kind": "topnf", "field": "w", "src": P(f"Intersect({DASH_SEG}, Row(w=4))"),
+          "n": 3, "threshold": 1, "row_ids": None}, shards),
+    ][:n]
+
+
+def build_dash(holder, name, n_shards, rng, with_g=True):
+    """bench.py's dashboard index: seg 4 rows rand | rand, w rows 1-4 rand,
+    g 4 rows rand (``with_g``), v an int field 0..100 holding index % 100 at
+    30,000 random columns per 8 shards (its bit planes loaded directly, as
+    build_bsi_fields does).  Returns ({field: {row: uint64[S, W64]}}, cols,
+    values): copies of what the fragments hold."""
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    idx = holder.create_index(name)
+    host = {"seg": {r: _rand64(rng, n_shards) | _rand64(rng, n_shards) for r in range(4)},
+            "w": {r: _rand64(rng, n_shards) for r in range(1, 5)}}
+    if with_g:
+        host["g"] = {r: _rand64(rng, n_shards) for r in range(4)}
+    for field, rows in host.items():
+        view = idx.create_field(field).view_if_not_exists("standard")
+        for sh in range(n_shards):
+            frag = view.fragment_if_not_exists(sh)
+            for r, words in rows.items():
+                frag.load_row_words(r, words[sh].copy())
+            frag.cache.invalidate()
+    n_vals = DASH_VALUES_PER_8 * n_shards // 8
+    cols = np.sort(rng.choice(n_shards << 20, n_vals, replace=False)).astype(np.int64)
+    vals = np.arange(n_vals, dtype=np.int64) % 100
+    v = idx.create_field("v", FieldOptions(type="int", min=0, max=100))
+    depth = v.bsi_group("v").bit_depth()
+    planes = {}
+    for i in range(depth + 1):
+        on = cols if i == depth else cols[(vals >> i) & 1 == 1]
+        words = np.zeros(n_shards * W64, dtype=np.uint64)
+        np.bitwise_or.at(words, on >> 6, np.uint64(1) << (on & 63).astype(np.uint64))
+        planes[i] = words.reshape(n_shards, W64)
+    for sh in range(n_shards):
+        frag = v.view_if_not_exists("bsig_v").fragment_if_not_exists(sh)
+        for i, words in planes.items():
+            frag.load_row_words(i, words[sh].copy())
+        frag.cache.invalidate()
+    return host, cols, vals
+
+
+def _rand64(rng, n_shards):
+    return rng.integers(0, 1 << 64, (n_shards, W64), dtype=np.uint64)
+
+
+class DashOracle:
+    """Every widget's answer from the host words with numpy."""
+
+    def __init__(self, host, cols, vals):
+        self.host, self.cols, self.vals = host, cols, vals
+        seg = host["seg"][0] & host["seg"][1] & host["seg"][2] & host["seg"][3]
+        self.seg = seg
+        flat = seg.reshape(-1)
+        on = (flat[cols >> 6] >> (cols & 63).astype(np.uint64)) & np.uint64(1) == 1
+        self.seg_vals = vals[on]
+        self.seg_shard = cols[on] >> 20
+        self.topn = TopNOracle(host["w"])
+        self._want = {}
+
+    def _minmax(self, is_min):
+        """The reference's ValCount reduce: each shard's extreme and its
+        count there, shards in order, the first shard's count on a tie."""
+        best, n = 0, 0
+        for sh in np.unique(self.seg_shard):
+            v = self.seg_vals[self.seg_shard == sh]
+            x = int(v.min() if is_min else v.max())
+            if n == 0 or (x < best if is_min else x > best):
+                best, n = x, int((v == x).sum())
+        return (best, n)
+
+    def want(self, k):
+        """Widget k's result as TorchEngine returns it (fused_many), computed
+        once."""
+        if k not in self._want:
+            self._want[k] = self._compute(k)
+        return self._want[k]
+
+    def _compute(self, k):
+        h, seg = self.host, self.seg
+        if k in (0, 5):
+            return int(popcounts(seg & h["w"][1 + k // 5]).sum())
+        if k == 1:
+            return (int(self.seg_vals.sum()), int(self.seg_vals.size))
+        if k == 2:
+            return self.topn.fused(seg, 5)
+        if k in (3, 4):
+            return self._minmax(k == 3)
+        if k == 6:
+            return np.stack([popcounts(h["w"][r] & seg) for r in (1, 2, 3, 4)], axis=1), \
+                popcounts(seg)
+        if k == 7:
+            return int(popcounts(seg & ~h["w"][3]).sum())
+        if k == 8:
+            return np.asarray([int(popcounts(h["g"][r] & seg).sum()) for r in range(4)])
+        return self.topn.fused(seg & h["w"][4], 3)
+
+    def want_pql(self, k):
+        """Widget k's result as Executor.execute returns it (DASH_PQL)."""
+        if k == 6:
+            if "ids" not in self._want:
+                self._want["ids"] = self.topn.fused(self.seg, 0, ids=[1, 2, 3, 4])
+            return self._want["ids"]
+        if k == 8:
+            return [(r, int(c)) for r, c in enumerate(self.want(8)) if c > 0]
+        return self.want(k)
+
+
+def _dash_same(got, want, what):
+    if isinstance(want, tuple) and len(want) == 2 and isinstance(want[0], np.ndarray):
+        scores, counts, pos = got
+        order = [pos[s] for s in sorted(pos)]
+        ok = np.array_equal(scores[order], want[0]) and np.array_equal(
+            np.asarray(counts)[order], want[1])
+    elif isinstance(want, np.ndarray):
+        ok = np.array_equal(np.asarray(got).reshape(-1), want)
+    else:
+        ok = got == want
+    if not ok:
+        raise AssertionError(f"fusion: {what}: port {got!r} != numpy oracle {want!r}")
+
+
+def _pql_result(res):
+    """An Executor result in DashOracle.want_pql's form."""
+    if hasattr(res, "val") and hasattr(res, "count") and not isinstance(res, list):
+        return (res.val, res.count)
+    if isinstance(res, list) and res and hasattr(res[0], "group"):
+        return [(g.group[0].row_id, g.count) for g in res]
+    if isinstance(res, list):
+        return [tuple(p) for p in res]
+    return res
+
+
+def f1_work(code, n_shards, n_mat, n_counted):
+    """(bytes, operations) of one F1 launch over every shard: each leaf row
+    (and each range leaf's planes) read once, each materialized slot
+    written once; a 32-bit operation per word for each item, slot
+    reference and counted slot's popcount."""
+    rows = len(code.leaves) + sum(len(r[2]) for r in code.ranges) + n_mat
+    byts = rows * n_shards * W64 * 8
+    ops = n_shards * W64 * 2 * (len(code.items) + sum(bin(m).count("1") for m in code.mref)
+                                + n_counted)
+    return byts, ops
+
+
+def run_fusion_path(device, holder, engine, ex, seed, err, n_shards=N_SHARDS):
+    """The fusion phase, after api and before the writes of phase 5: index
+    dash (bench.py's dashboard at ``n_shards``) and dash2 (its cross-index
+    twin); the widgets at N in DASH_WIDGETS through engine.fused_many
+    against the sequential per-op path, through Executor.execute from N
+    threads at once, and bench.py's cross-index drain, every answer against
+    numpy, the memo off; F1's launches counted from zero just before and
+    read just after, fused_programs moving in the executor's part, F1 on
+    the card there (torch.profiler); one Set into seg, the plan rebuilt and
+    the drain exact; F1 at the 10-widget shape against its plain version
+    and its bound.  Returns the phase's numbers and F1's kernel entry."""
+    import threading
+
+    import torch
+
+    from pilosa_tpu_torch.parallel import bsi, groupby, kernels
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"card": card_line()}
+    t_phase = t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 3)  # 23 at the default seed: bench.py's
+    host, cols, vals = build_dash(holder, "dash", n_shards, rng)
+    host2, cols2, vals2 = build_dash(holder, "dash2", n_shards, rng, with_g=False)
+    shards = list(range(n_shards))
+    for name, fields in (("dash", ("seg", "w", "g")), ("dash2", ("seg", "w"))):
+        for f in fields:
+            engine.field_stack(name, f, "standard")
+        engine.field_stack(name, "v", "bsig_v")
+    sync()
+    out["made_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ora, ora2 = DashOracle(host, cols, vals), DashOracle(host2, cols2, vals2)
+    out["oracle_s"] = time.perf_counter() - t0
+    log(f"fusion: indexes dash and dash2 ({n_shards} shards, "
+        f"{(12 + 8 + 8 + 8) * n_shards * W64 * 8 / 1e9:.2f} GB of stacks) made in "
+        f"{out['made_s']:.3f} s; numpy oracle {out['oracle_s']:.3f} s")
+    counters = (kernels.fused_tree_cuda, bsi.sum_tree_cuda, bsi.minmax_tree_cuda,
+                kernels.score_rows_cuda, groupby.groupn_tree_cuda, kernels.count_tree_dense)
+    names = ("fused_tree", "sum_tree", "minmax_tree", "score_rows", "groupn_tree",
+             "count_tree_dense")
+
+    def launches():
+        return {k: c.launches for k, c in zip(names, counters)}
+
+    seq_lat = {}
+    with memo_off(engine):
+        # The main path: every drain once with F1's counter zeroed just
+        # before; then the p50s (bench.py's sync_p50 reps).
+        for c in counters:
+            c.launches = 0
+        p0 = engine.fused_programs
+        per_drain = {}
+        for n in DASH_WIDGETS:
+            entries = dash_entries(n, shards)
+            before = launches()
+            got = engine.fused_many("dash", entries)
+            per_drain[n] = {k: v - before[k] for k, v in launches().items()}
+            seq = [engine.solo_op("dash", sp["kind"], sp, sh) for sp, sh in entries]
+            for k in range(n):
+                _dash_same(got[k], ora.want(k), f"N={n} widget {k} fused")
+                _dash_same(seq[k], ora.want(k), f"N={n} widget {k} sequential")
+        f1_main = kernels.fused_tree_cuda.launches
+        if engine.fused_programs - p0 != len(DASH_WIDGETS) or (cuda and f1_main != len(
+                DASH_WIDGETS)):
+            raise AssertionError(f"fusion: {len(DASH_WIDGETS)} drains made "
+                                 f"{engine.fused_programs - p0} programs, {f1_main} F1 launches")
+        out["launches_per_drain"] = per_drain
+        log(f"fusion: N in {DASH_WIDGETS} exact against numpy (fused and sequential); "
+            f"launches per drain {json.dumps(per_drain)}")
+        reps = DASH_REPS if cuda else 1  # the CPU rehearsal runs the plain versions
+        for n in DASH_WIDGETS:
+            entries = dash_entries(n, shards)
+            lat = []
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                engine.fused_many("dash", entries)
+                lat.append(time.perf_counter() - t1)
+            slat = []
+            for _ in range(max(4, reps // 2) if cuda else 1):
+                t1 = time.perf_counter()
+                for sp, sh in entries:
+                    engine.solo_op("dash", sp["kind"], sp, sh)
+                slat.append(time.perf_counter() - t1)
+            t_f, t_s = statistics.median(lat), statistics.median(slat)
+            seq_lat[n] = t_s
+            out[f"dashboard_fused_qps_n{n}"] = n / t_f
+            out[f"dashboard_seq_qps_n{n}"] = n / t_s
+            out[f"dashboard_speedup_n{n}"] = t_s / t_f
+            if n == 8:
+                out["dashboard_fused_qps"] = 8 / t_f
+                out["dashboard_p50_ms"] = t_f * 1e3
+                out["dashboard_fused_speedup"] = t_s / t_f
+        log("fusion: " + ", ".join(f"{k} {out[k]:.4f}" for k in (
+            "dashboard_fused_qps", "dashboard_p50_ms", "dashboard_fused_speedup")))
+
+        # Executor.execute from N threads at once, each widget one query,
+        # the batcher hot so that every aggregate queues into one drain (a
+        # Count runs on its own launch: the executor's Count lane calls the
+        # engine directly, so N = 2, one Count and one Sum, fuses nothing).
+        b = engine.batcher()
+        ex_runs = {}
+
+        def executor_dashboard(n):
+            barrier = threading.Barrier(n)
+            res = [None] * n
+            q_ms = [0.0] * n
+
+            def run(k):
+                barrier.wait()
+                t1 = time.perf_counter()
+                res[k] = ex.execute("dash", DASH_PQL[k]).results[0]
+                q_ms[k] = (time.perf_counter() - t1) * 1e3
+
+            b._last_fused = time.monotonic() + 3600
+            threads = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+            try:
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(120)
+            finally:
+                b._last_fused = 0.0
+            for k in range(n):
+                _dash_same(_pql_result(res[k]), ora.want_pql(k), f"executor N={n} {DASH_PQL[k]}")
+            return q_ms
+
+        for n in DASH_WIDGETS:
+            p0, f0 = engine.fused_programs, kernels.fused_tree_cuda.launches
+            fb0 = ex.host_fallbacks
+            per_q = [executor_dashboard(n) for _ in range(3)]
+            # The dashboard's latency: until its last widget answered.
+            ex_runs[n] = {"dashboard_ms_p50": statistics.median(max(q) for q in per_q),
+                          "query_ms_p50": [statistics.median(q[k] for q in per_q)
+                                           for k in range(n)],
+                          "fused_programs": engine.fused_programs - p0,
+                          "f1_launches": kernels.fused_tree_cuda.launches - f0,
+                          "host_fallbacks": ex.host_fallbacks - fb0}
+            aggs = sum(1 for q in DASH_PQL[:n] if not q.startswith("Count("))
+            if ex_runs[n]["host_fallbacks"] or (aggs >= 2 and (
+                    ex_runs[n]["fused_programs"] < 1 or (cuda and ex_runs[n]["f1_launches"] < 1))):
+                raise AssertionError(f"fusion: executor N={n}: {ex_runs[n]}")
+        out["executor"] = ex_runs
+        out["executor_pipeline"] = b.pipeline_snapshot()["stages"]
+        log(f"fusion: Executor.execute from N threads exact; {json.dumps(ex_runs)}")
+        if cuda:
+            seen = on_card(lambda: executor_dashboard(10),
+                           lambda seen: any("fused_tree_kernel" in k for k in seen))
+            if not any("fused_tree_kernel" in k for k in seen):
+                raise AssertionError(f"fusion: the executor's dashboard put no F1 on the "
+                                     f"card: {sorted(seen)}")
+            out["executor_on_card"] = per_launch(seen)
+
+        # bench.py's cross-index drain: one part per index.
+        xs = [("dash", 0), ("dash2", 0), ("dash", 2), ("dash2", 1), ("dash", 8), ("dash2", 2)]
+        entries_x = [(name, dash_entries(10, shards)[k][0], shards) for name, k in xs]
+        f0 = kernels.fused_tree_cuda.launches
+        got = engine.fused_drain(entries_x)
+        if cuda and kernels.fused_tree_cuda.launches - f0 != 2:
+            raise AssertionError("fusion: the cross-index drain did not launch F1 per index")
+        for (name, k), g in zip(xs, got):
+            _dash_same(g, (ora if name == "dash" else ora2).want(k), f"cross-index {name} {k}")
+        lat = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            engine.fused_drain(entries_x)
+            lat.append(time.perf_counter() - t1)
+        out["dashboard_crossindex_p50_ms"] = statistics.median(lat) * 1e3
+        log(f"fusion: cross-index drain exact; dashboard_crossindex_p50_ms "
+            f"{out['dashboard_crossindex_p50_ms']:.4f}")
+
+        # One Set into seg: the stack syncs in place, the plan rebuilds,
+        # the drain stays exact.
+        h = ora.host
+        both = h["seg"][1] & h["seg"][2] & h["seg"][3] & h["w"][1] & ~h["seg"][0]
+        sh, word = map(int, np.argwhere(both != 0)[0])
+        bit = int(both[sh, word]).bit_length() - 1
+        col = (sh << 20) + word * 64 + bit
+        miss0, upd0, reb0 = engine.fused_plan_misses, engine.stack_updates, engine.stack_rebuilds
+        ex.execute("dash", f"Set({col}, seg=0)")
+        h["seg"][0][sh, word] |= np.uint64(1) << np.uint64(bit)
+        ora = DashOracle(h, cols, vals)
+        got = engine.fused_many("dash", dash_entries(10, shards))
+        for k in range(10):
+            _dash_same(got[k], ora.want(k), f"after Set({col}, seg=0), widget {k}")
+        moved = {"plan_misses": engine.fused_plan_misses - miss0,
+                 "stack_updates": engine.stack_updates - upd0,
+                 "stack_rebuilds": engine.stack_rebuilds - reb0}
+        if moved != {"plan_misses": 1, "stack_updates": 1, "stack_rebuilds": 0}:
+            raise AssertionError(f"fusion: after one Set: {moved}")
+        out["after_set"] = moved
+        log(f"fusion: Set({col}, seg=0) then the 10-widget drain exact; {json.dumps(moved)}")
+
+    # F1 at the 10-widget shape, alone, against its plain version and bound.
+    entry = None
+    from pilosa_tpu_torch.parallel import fusion
+
+    with engine._stacks_lock:
+        part = fusion.build(engine, [("dash", sp, sh) for sp, sh in
+                                     dash_entries(10, shards)]).parts[0]
+    spec = part.spec
+    code = spec.code()
+    gates = [part.masks[m] for _, m in spec.count_edges]
+    cslots = [j for j, _ in spec.count_edges]
+
+    def f1():
+        return kernels.fused_tree_cuda(code, part.lw.mats, cslots, gates, spec.mat_slots,
+                                       part.need)
+
+    def f1_plain():
+        vals_p = kernels.fused_slots_plain(spec.slots, part.lw.mats, (n_shards, 32768), device)
+        return [bitops_popcount(vals_p[j], g) for j, g in zip(cslots, gates)], vals_p
+
+    if cuda:
+        counts, mat = f1()
+        want_counts, vals_p = f1_plain()
+        sync()
+        e = _exact("F1", counts, torch.stack(want_counts).to(torch.int64),
+                   "at the 10-widget shape: counts")
+        for i, j in enumerate(spec.mat_slots):
+            e = max(e, _exact("F1", mat[i], vals_p[j], f"at the 10-widget shape: slot {j}"))
+        err["fused_tree"] = max(err.get("fused_tree", 0), e)
+        del vals_p
+        byts, ops = f1_work(code, n_shards, len(spec.mat_slots), len(set(cslots)))
+        bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        for _ in range(3):
+            f1()
+        sync()
+        t = measured(f1, "fused_tree_kernel", sync, bound_ms=bound)
+        plain = p50_ms(f1_plain, 3, sync, batch=1)
+        _times_line(f"F1 fused_tree at the 10-widget shape ({len(spec.slots)} slots, "
+                    f"{len(code.op)} of them in F1, {len(code.leaves)} leaf rows, "
+                    f"{len(spec.count_edges)} count edges, {len(spec.mat_slots)} "
+                    "materialized)", t, bound, plain,
+                    f"; {bound / t['device_ms'] * 100:.1f}% of the bound")
+        entry = _entry("fused_tree", "pilosa_tpu_torch/csrc/fused_tree.cu",
+                       "pilosa_tpu/parallel/kernels.py:545 fused_tree", f1_main,
+                       err["fused_tree"], t, plain, byts, ops, None)
+        entry["shape"] = (f"10-widget dashboard, {n_shards} shards: {len(spec.slots)} slots "
+                          f"({len(code.op)} in F1), {len(code.leaves)} leaf rows, "
+                          f"{len(spec.count_edges)} count edges, "
+                          f"{len(spec.mat_slots)} slots materialized")
+        entry["launches_per_drain"] = per_drain
+        out["f1"] = {"device_ms": t["device_ms"], "bound_ms": bound, "ms": t["ms"],
+                     "host_us": t["host_us"], "plain_ms": plain, "launches": f1_main,
+                     "launches_per_drain_n10": per_drain[10]}
+        log(f"fusion: F1 device_ms {t['device_ms']:.4f}, bound_ms {bound:.4f}, launches "
+            f"{f1_main} on the main path, per 10-widget drain {json.dumps(per_drain[10])}; "
+            f"{card_line()}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out, entry
+
+
+def bitops_popcount(words, gate):
+    from pilosa_tpu_torch.ops import bitops
+
+    return bitops.popcount_words(words[gate != 0]).sum()
+
+
 # -- phase 5: the write path -------------------------------------------------
 
 OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
@@ -3985,6 +4605,7 @@ def main(argv=None):
     err.update(check_batch_kernel(device, args.seed))
     err.update(check_bsi_kernels(device, args.seed))
     err.update(check_groupby_kernel(device, args.seed))
+    err.update(check_fused_kernel(device, args.seed))
     if args.check_only:
         log(f"check-only: every kernel exact against its plain version: {err}")
         return 0
@@ -4015,6 +4636,9 @@ def main(argv=None):
     log("groupby: " + json.dumps(group_out))
     kern.append(group_entry)
     log("api: " + json.dumps(run_api_path(device, holder, engine, ex, host, args.seed)))
+    fusion_out, fusion_entry = run_fusion_path(device, holder, engine, ex, args.seed, err)
+    log("fusion: " + json.dumps(fusion_out))
+    kern.append(fusion_entry)
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     log(card_line())

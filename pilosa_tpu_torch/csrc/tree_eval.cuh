@@ -1,6 +1,6 @@
 // Shared device code of the kernels that evaluate a tree (K1
 // count_tree_dense.cu, K2 count_tree_blocks.cu, K3 score_rows.cu, K6
-// sum_tree.cu, K7 minmax_tree.cu): the postfix tree program, the
+// sum_tree.cu, K7 minmax_tree.cu, F1 fused_tree.cu): the postfix tree program, the
 // per-thread tree evaluation over 16-byte word vectors, the BSI range leaf,
 // and the block reduction.
 //
@@ -27,6 +27,7 @@ enum : int {
   OP_ANDNOT = 4,
   OP_XOR = 5,
   OP_RANGE = 6,  // a BSI range leaf; its index into Leaves::range in bits 8+
+  OP_MREF = 7,   // an earlier mask slot of a fused program (fused_tree.cu only)
 };
 
 // Range-leaf kinds; parallel/kernels.py keeps the same numbers.

@@ -22,18 +22,21 @@ single node:
   and Range (a BSI condition through ``ops/bsi.py``, a time-quantum row
   over its view cover) per shard on the fragments' row mirrors and merges
   the per-shard rows.
-- Sum/Min/Max (executor.go :1756-1884): with an engine, one fused launch
-  (``TorchEngine.sum`` / ``min_max``; identical concurrent calls collapse
-  into one, keyed on the write sequence) and a ``ValCount``; without one,
+- Sum/Min/Max (executor.go :1756-1884): with an engine, through its batch
+  lane (``TorchEngine.batched_sum`` / ``batched_min_max``: one launch for a
+  lone caller, a fused program with concurrent drain-mates; identical
+  concurrent calls collapse into one, keyed on the write sequence) and a
+  ``ValCount``; without one,
   or when the engine declines the filter (``UnsupportedLowering``), the
   per-shard host lane.  ``host_fallbacks`` counts the Count/Sum/Min/Max
   calls an engine declined to the host lane.
 - TopN (executor.go :694-828): with an engine, one fused device TopN
-  (``TorchEngine.topn_full``, or the host-only ``topn_cache_only`` with no
-  src); when that declines (an attribute or Tanimoto filter, or a
-  candidate union past ``MAX_TOPN_CANDIDATES``), the two-phase
-  composition: phase-1 scores for every shard in one device launch
-  (``topn_scores``), the per-shard heap walk of ``Fragment.top`` on the
+  through the batch lane (``TorchEngine.batched_topn_full``, or the
+  host-only ``topn_cache_only`` with no src); when that declines (an
+  attribute or Tanimoto filter, or a candidate union past
+  ``MAX_TOPN_CANDIDATES``), the two-phase composition: phase-1 scores for
+  every shard in one device launch (``batched_topn_scores``), the
+  per-shard heap walk of ``Fragment.top`` on the
   host, then the exact phase-2 recount of the merged ids.  Without an
   engine every shard runs ``Fragment.top(src=...)``.  Identical
   concurrent fused TopNs collapse into one launch (``SingleFlight``).
@@ -1036,9 +1039,12 @@ class Executor:
             return None
 
     def _mesh_sum(self, index, c: Call, shards) -> Optional[ValCount]:
-        """Fused BSI Sum through the engine (one K6 launch), or None."""
-        res = self._bsi_flight("sum", index, c, shards,
-                               lambda fld, filt: self.engine.sum(index, fld, filt, list(shards)))
+        """Fused BSI Sum through the engine's batch lane (one K6 launch for a
+        lone caller; concurrent callers fuse with their drain-mates), or
+        None."""
+        res = self._bsi_flight(
+            "sum", index, c, shards,
+            lambda fld, filt: self.engine.batched_sum(index, fld, filt, list(shards)))
         return None if res is None else ValCount(*res)
 
     def _execute_min_max(self, index, c: Call, shards, is_min: bool) -> ValCount:
@@ -1056,10 +1062,12 @@ class Executor:
                                    ValCount.smaller if is_min else ValCount.larger)
 
     def _mesh_min_max(self, index, c: Call, shards, is_min: bool) -> Optional[ValCount]:
-        """Fused BSI Min/Max through the engine (one K7 launch), or None."""
+        """Fused BSI Min/Max through the engine's batch lane (one K7 launch
+        for a lone caller), or None."""
         res = self._bsi_flight(
             ("minmax", is_min), index, c, shards,
-            lambda fld, filt: self.engine.min_max(index, fld, filt, list(shards), is_min))
+            lambda fld, filt: self.engine.batched_min_max(index, fld, filt, list(shards),
+                                                          is_min))
         return None if res is None else ValCount(*res)
 
     # -- TopN (executor.go :694-828) ---------------------------------------
@@ -1128,7 +1136,7 @@ class Executor:
         try:
             out = self._sflight.do(
                 ("topn", seq, index, str(c), tuple(sorted(shards))),
-                lambda: self.engine.topn_full(
+                lambda: self.engine.batched_topn_full(
                     index, field_name, c.children[0], shards, n, min_threshold,
                     row_ids or None,
                 ),
@@ -1154,7 +1162,7 @@ class Executor:
     def _mesh_topn_shards(self, index, c: Call, shards):
         """TopN phase 1 over every requested shard: the per-candidate src
         intersection counts of all shards in one K3 launch
-        (``TorchEngine.topn_scores``), then the reference's per-shard heap
+        (``TorchEngine.batched_topn_scores``), then the reference's per-shard heap
         walk on the host over the precomputed scores.  Returns the merged
         pairs, or None to run the per-shard host lane.
 
@@ -1185,7 +1193,7 @@ class Executor:
             return []
         candidates = sorted(cand_set)
         try:
-            scored = self.engine.topn_scores(
+            scored = self.engine.batched_topn_scores(
                 index, field_name, candidates, c.children[0], list(shards)
             )
         except UnsupportedLowering:

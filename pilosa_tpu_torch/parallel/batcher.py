@@ -39,13 +39,15 @@ occupancy are kept in a ``util.stats.PipelineStats`` (``pipeline``).
 Policy: a lone query runs on its own thread with no added latency (the
 direct path, exactly the unbatched Count); concurrent queries batch.
 
-Left for later slices: the aggregate lanes (``submit_op``: Sum/Min/Max/
-TopN/GroupBy items fused into one program with their drain-mates, the
-``fused``/``solo`` groups of the reference's ``_plan_drain``) need
-``fusion.py`` (ROADMAP.md Queue 1 item 12; the BSI ops they fuse came
-with item 9, and Sum/Min/Max call the engine directly until then); the
-query-plan and trace stamps of every stage are item 14.  A Count whose
-tree holds a BSI range leaf joins a drain like any other:
+The aggregate lane (``submit_op``): Sum/Min/Max/TopN/GroupBy items queue
+beside the Counts.  ``_plan_drain`` pools every aggregate of a drain, and
+every Count that shares a Row subtree with one, over all indexes, into one
+``fused`` group (``TorchEngine.fused_drain_async``: one F1 per index and
+the edges' kernels, each shared mask evaluated once); a fused group of one
+is a ``solo`` group on the op's own program; the other Counts keep the
+count lane.  A fused or solo group's outputs come back in one copy.  The
+query-plan and trace stamps of every stage are ROADMAP.md Queue 1 item 14.
+A Count whose tree holds a BSI range leaf joins a drain like any other:
 ``count_many_async`` runs it on K1/K2 beside the batch's K5 launch.
 """
 
@@ -62,24 +64,29 @@ import numpy as np
 import torch
 
 from ..util.stats import PipelineStats
+from . import fusion
 from . import kernels
 from .engine import UnsupportedLowering, _Lowering
 
 
 class _Item:
-    """One submitted Count, resolved by the collect stage (or inline on the
-    direct path).  ``add_done_callback`` lets a caller resolve a pending
-    response without parking a thread in ``event.wait``."""
+    """One submitted item, a Count tree (``kind`` "count") or an aggregate
+    op (``spec``: {"kind", "field", "filter", ...}), resolved by the
+    collect stage (or inline on the direct path).  ``add_done_callback``
+    lets a caller resolve a pending response without parking a thread in
+    ``event.wait``."""
 
-    __slots__ = ("index", "call", "shards", "event", "result", "error", "t_submit",
-                 "memo_key", "_callbacks")
+    __slots__ = ("index", "call", "shards", "kind", "spec", "event", "result", "error",
+                 "t_submit", "memo_key", "_callbacks")
 
-    def __init__(self, index, call, shards):
+    def __init__(self, index, call, shards, kind="count", spec=None):
         self.index = index
         self.call = call
         self.shards = shards
+        self.kind = kind
+        self.spec = spec
         self.event = threading.Event()
-        self.result: Optional[int] = None
+        self.result = None
         self.error: Optional[BaseException] = None
         self.t_submit = time.monotonic()
         # Result-memo key computed at SUBMIT time (engine.memo_probe): the
@@ -205,16 +212,35 @@ class CountBatcher:
         return self._submit(index, call, shards, allow_direct=False, memo_key=key)
 
     def submit_op(self, index: str, kind: str, spec: dict, shards):
-        """An aggregate op (Sum/Min/Max/TopN/GroupBy) through the batch
-        lane, fused with its drain-mates into one program.  Not ported: it
-        needs the whole-program planner ``fusion.py`` (ROADMAP.md Queue 1
-        item 12); with it come the reference's ``_direct_op``,
-        ``_memo_probe_op`` and the ``fused``/``solo`` groups of
-        ``_plan_drain``.  Until then the executor's Sum/Min/Max call
-        ``TorchEngine.sum`` / ``min_max`` directly."""
-        raise NotImplementedError(
-            f"batched {kind} is not ported to pilosa_tpu_torch yet: "
-            "ROADMAP.md Queue 1 item 12 (whole-program fusion)")
+        """One aggregate op (sum/min/max/topn/topnf/group) through the batch
+        lane: a lone caller runs the op's own program directly (no added
+        latency); callers arriving while the pipe is busy queue into the
+        drain, where the planner fuses them with their drain-mates.
+        Returns the op's result; raises the item's own error."""
+        key, hit = self.engine.memo_probe_op(index, kind, spec, shards)
+        if hit is not None:
+            return hit
+        item = self._submit(index, None, shards, allow_direct=True, memo_key=key,
+                            kind=kind, spec=spec)
+        if item is None:
+            return self._direct_op(index, kind, spec, shards, key)
+        if not item.event.wait(self.WAIT_TIMEOUT):
+            raise RuntimeError("batched op timed out (engine wedged?)")
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    def _direct_op(self, index, kind, spec, shards, memo_key=None):
+        try:
+            out = self.engine.solo_op(index, kind, spec, shards)
+            if memo_key is not None:
+                self.engine.memo_store_op(memo_key, kind, spec, out)
+            return out
+        finally:
+            with self._lock:
+                self._busy = False
+                if self._queue:
+                    self._cond.notify_all()
 
     def _memo_probe(self, index, call, shards):
         """engine.memo_probe, duck-typed: the batcher also runs against
@@ -224,13 +250,14 @@ class CountBatcher:
             return None, None
         return probe(index, call, shards)
 
-    def _submit(self, index, call, shards, allow_direct: bool, memo_key=None):
+    def _submit(self, index, call, shards, allow_direct: bool, memo_key=None,
+                kind="count", spec=None):
         with self._lock:
             hot = time.monotonic() - self._last_fused < self.HOT_WINDOW
             if allow_direct and not self._busy and not self._queue and not hot:
                 self._busy = True
                 return None  # the caller runs the direct path
-            item = _Item(index, call, list(shards))
+            item = _Item(index, call, list(shards), kind=kind, spec=spec)
             item.memo_key = memo_key
             self._queue.append(item)
             self._ensure_workers()
@@ -314,16 +341,42 @@ class CountBatcher:
             with self._lock:
                 batch = self._queue[: self.max_batch]
                 del self._queue[: len(batch)]
-            # One count_many_async per index.  The reference splits a drain
-            # by _signature, because XLA compiles one program per structure;
-            # K5 takes any mix of trees in one launch.  (Its _plan_drain also
-            # plans fused and solo groups of aggregate items: ROADMAP.md
-            # Queue 1 item 12.)
-            groups: dict = {}
-            for it in batch:
-                groups.setdefault(it.index, []).append(it)
-            for index, items in groups.items():
-                self._dispatch_q.put(("count", index, items, False))
+            for group in self._plan_drain(batch):
+                self._dispatch_q.put(group + (False,))
+
+    def _plan_drain(self, batch):
+        """Group one drain: every aggregate item, and every Count that shares
+        a Row subtree with an aggregate of its index (the dashboard shape:
+        one segment filter fanned into N widgets), pooled over all indexes
+        into ONE ``fused`` group; a fused group of one is ``solo`` (the op's
+        own program); the remaining Counts one ``count`` group per index.
+        The reference splits those Counts by ``_signature``, because XLA
+        compiles one program per structure; K5 takes any mix of trees in
+        one launch."""
+        groups = []
+        fused_all: list = []
+        by_index: dict = {}
+        for it in batch:
+            by_index.setdefault(it.index, []).append(it)
+        for index, items in by_index.items():
+            aggs = [it for it in items if it.kind != "count"]
+            counts = [it for it in items if it.kind == "count"]
+            if aggs:
+                agg_texts = set()
+                for it in aggs:
+                    agg_texts |= fusion.item_texts(it.spec)
+                fused_all.extend(aggs)
+                rest = []
+                for it in counts:
+                    (fused_all if agg_texts & fusion.subtree_texts(it.call) else rest).append(it)
+                counts = rest
+            if counts:
+                groups.append(("count", index, counts))
+        if len(fused_all) == 1:
+            groups.append(("solo", fused_all[0].index, fused_all))
+        elif fused_all:
+            groups.append(("fused", None, fused_all))  # the items carry their indexes
+        return groups
 
     # -- dispatch stage -----------------------------------------------------
 
@@ -338,7 +391,7 @@ class CountBatcher:
             got = self._dispatch_q.get()
             if got is None:
                 return  # stop() sentinel
-            _gkind, index, items, retried = got
+            gkind, index, items, retried = got
             # Blocks while ``max_inflight`` batches are in the pipe: the
             # backpressure that lets the accumulate stage size batches.
             self._inflight.acquire()
@@ -349,11 +402,38 @@ class CountBatcher:
                 now = time.monotonic()
                 for it in items:
                     self.pipeline.record("queue_wait", now - it.t_submit)
+            decoders = None
             try:
                 t0 = time.monotonic()
-                dev = self.engine.count_many_async(
-                    index, [it.call for it in items], [it.shards for it in items])
-                readback = self._start_readback(dev, len(items))
+                if gkind == "count":
+                    dev = self.engine.count_many_async(
+                        index, [it.call for it in items], [it.shards for it in items])
+                    readback = self._start_readback(dev, len(items))
+                else:
+                    if gkind == "fused":
+                        fd = self.engine.fused_drain_async([
+                            (it.index, it.spec if it.spec is not None
+                             else {"kind": "count", "call": it.call}, it.shards)
+                            for it in items])
+                        live, decoders = [], []
+                        for it, err, dec in zip(items, fd.errors, fd.decoders):
+                            if err is not None:
+                                it.error = err
+                                it._resolve()
+                            else:
+                                live.append(it)
+                                decoders.append(dec)
+                        items = live
+                        dev, layout = fd.dev, fd.layout
+                    else:  # solo: one aggregate on its own program
+                        it0 = items[0]
+                        tensors, dec = self.engine.solo_op_async(it0.index, it0.kind, it0.spec,
+                                                                 it0.shards)
+                        decoders = [dec]
+                        dev, layout = (None, None) if tensors is None else fusion.pack(
+                            tensors, self.engine.device)
+                    readback = (None if dev is None else self._start_readback_bytes(dev),
+                                layout)
                 self.pipeline.record("lower_dispatch", time.monotonic() - t0)
             except BaseException as batch_err:  # noqa: BLE001 — the loop must
                 # survive anything: a dead dispatch worker would wedge every
@@ -362,7 +442,7 @@ class CountBatcher:
                     self._live -= 1
                 self.pipeline.add_delta("inflight", -1)
                 self._inflight.release()
-                self._handle_batch_failure(index, items, retried, batch_err)
+                self._handle_batch_failure(index, items, retried, batch_err, gkind)
                 continue
             self.batches += 1
             self.batched_queries += len(items)
@@ -373,7 +453,23 @@ class CountBatcher:
                 self.pipeline.incr("fused_batches")
                 self.pipeline.incr("fused_queries", len(items))
                 self._last_fused = time.monotonic()
-            self._collect_q.put((readback, items, time.monotonic()))
+            if gkind == "fused":
+                # Heterogeneous drains launched as fused programs.
+                self.pipeline.incr("fused_program_batches")
+                self.pipeline.incr("fused_program_queries", len(items))
+            self._collect_q.put((readback, items, time.monotonic(), decoders))
+
+    def _start_readback_bytes(self, dev):
+        """A fused or solo group's packed outputs (``fusion.pack``): on the
+        card, a non-blocking copy into a pinned buffer of their own on the
+        launching stream and an event after it; a CPU buffer as it is."""
+        if not dev.is_cuda:
+            return dev, None
+        host = torch.empty(dev.numel(), dtype=torch.uint8, pin_memory=True)
+        host.copy_(dev, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev.device))
+        return host, ev
 
     def _start_readback(self, dev, n: int):
         """Queue the copy of a batch's answers to the host without waiting:
@@ -396,15 +492,16 @@ class CountBatcher:
         ev.record(torch.cuda.current_stream(dev.device))
         return (buf, host, ev)
 
-    def _handle_batch_failure(self, index, items: List[_Item], retried, batch_err):
-        """One bad tree (an unknown field, a missing row argument) must not
+    def _handle_batch_failure(self, index, items: List[_Item], retried, batch_err,
+                              gkind="count"):
+        """One bad item (an unknown field, a missing row argument) must not
         fail its batchmates, and a serial retry per item would stall the
         pipeline.  Split FAST instead: probe each item's LOWERING (host
         work, no launch) to find the culprits, then re-enqueue the rest as
-        ONE batch, marked ``retried`` so that a failure of the launch
-        itself cannot loop.  The failed group's in-flight slot is released
-        before this runs: re-enqueueing while holding it would deadlock a
-        depth-1 pipeline."""
+        ONE group, marked ``retried`` so that a failure of the launch itself
+        cannot loop.  The failed group's in-flight slot is released before
+        this runs: re-enqueueing while holding it would deadlock a depth-1
+        pipeline."""
         if retried:
             for it in items:
                 if it.error is None:
@@ -414,13 +511,20 @@ class CountBatcher:
         good = []
         for it in items:
             try:
-                self._probe_lowering(it)
+                if it.kind == "count":
+                    self._probe_lowering(it)
+                else:
+                    self.engine.probe_fused_item(it.index, it.spec, it.shards)
                 good.append(it)
             except Exception as e:  # noqa: BLE001
                 it.error = e
                 it._resolve()
         if good and len(good) < len(items):
-            self._dispatch_q.put(("count", index, good, True))
+            if gkind == "fused" and len(good) == 1:
+                # A fused group that shrank to one takes that item's own lane.
+                gkind = "count" if good[0].kind == "count" else "solo"
+                index = good[0].index
+            self._dispatch_q.put((gkind, index, good, True))
         else:
             # Nothing attributable (a failure of the launch itself): fail
             # the whole group with the batch's error.
@@ -444,23 +548,37 @@ class CountBatcher:
             got = self._collect_q.get()
             if got is None:
                 return  # stop() sentinel
-            (buf, host, ev), items, t_dispatched = got
+            readback, items, t_dispatched, decoders = got
+            buf = None
             try:
-                if ev is not None:
-                    ev.synchronize()
-                    out = host.tolist()
-                    self._pinned.put(buf)
-                    buf = None
-                else:
-                    out = np.asarray(host).tolist()
+                if decoders is None:  # the count lane: int64[K]
+                    buf, host, ev = readback
+                    if ev is not None:
+                        ev.synchronize()
+                        out = host.tolist()
+                        self._pinned.put(buf)
+                        buf = None
+                    else:
+                        out = np.asarray(host).tolist()
+                else:  # fused or solo: packed outputs, or None (no launch)
+                    (got_bytes, layout) = readback
+                    parts = None
+                    if got_bytes is not None:
+                        host, ev = got_bytes
+                        if ev is not None:
+                            ev.synchronize()
+                        parts = fusion.unpack(host.numpy(), layout)
                 t_ready = time.monotonic()
                 self.pipeline.record("device_readback", t_ready - t_dispatched)
                 for i, it in enumerate(items):
-                    it.result = int(out[i])
+                    it.result = int(out[i]) if decoders is None else decoders[i](parts)
                     # Store under the tokens read at submit time
                     # (engine.memo_probe's ordering note).
                     if it.memo_key is not None:
-                        self.engine.memo_store(it.memo_key, it.result, call=it.call)
+                        if it.kind == "count":
+                            self.engine.memo_store(it.memo_key, it.result, call=it.call)
+                        else:
+                            self.engine.memo_store_op(it.memo_key, it.kind, it.spec, it.result)
                 self.pipeline.record("decode", time.monotonic() - t_ready)
             except BaseException as e:  # noqa: BLE001
                 for it in items:
@@ -483,8 +601,8 @@ class CountBatcher:
         with integer LITERALS masked, so that Counts of one structure
         (field names, operators, nesting) share a group whatever rows they
         ask for.  The count lane here groups by index alone (K5 takes any
-        mix of trees); the key waits for the fused lane of ROADMAP.md
-        Queue 1 item 12, which compiles per structure.
+        mix of trees, and F1 its slot table as data), so nothing keys on
+        it; it stays as the reference's vocabulary.
 
         Only digits in ARGUMENT position (after '=', '(', ',', '[', '<',
         '>' or whitespace) are masked: digit runs inside identifiers are

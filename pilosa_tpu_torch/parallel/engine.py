@@ -60,6 +60,17 @@ carries the version token of every view the tree reads, so a write
 re-keys its readers.  ``CountBatcher`` (``batcher.py``) drains concurrent
 Counts into ``count_many_async``.  Partial residency and the block pool
 are later slices (ROADMAP.md Queue 1).
+
+Whole-dashboard fusion (``fused_drain_async``, ``fusion.py``): a drain of
+mixed Count/Sum/Min/Max/TopN/GroupBy items, possibly over several
+indexes, is planned once per drain shape (``_fused_plan_for``, cached and
+revalidated against the stacks' version tokens) and launched as one F1 per
+index plus each aggregate edge's kernel, every distinct Row subtree
+evaluated once.  The batcher's aggregate lane (``submit_op``) reaches it
+through ``batched_sum``, ``batched_min_max``, ``batched_topn_scores``,
+``batched_topn_full`` and ``batched_group_counts``; a lone caller runs the
+op's own program (``solo_op``), and Sum/Min/Max/TopN ride the result memo
+(``memo_probe_op``).
 """
 
 from __future__ import annotations
@@ -80,9 +91,11 @@ from ..core.view import VIEW_STANDARD, view_bsi_name
 from ..ops import bitops
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
 from . import bsi as bsi_mod
+from . import fusion as fusion_mod
 from . import groupby as groupby_mod
 from . import kernels
 from . import sparse as sparse_mod
+from .fusion import decode_topn_full
 from .mesh import host_stack, put_stack, resolve_device, shard_mask
 
 # count()/count_async()'s "the caller probed the memo already" default.
@@ -254,28 +267,6 @@ class _TopNCandidates:
         self.host_cnt = host_cnt
 
 
-def decode_topn_full(host, cands, n_out):
-    """The fused TopN readback (trimmed (vals, idx) rows, or the full
-    totals when ``n_out`` is None) as sorted (row_id, count) pairs; a copy of
-    ``pilosa_tpu/parallel/fusion.py:200 decode_topn_full``.  Zero totals
-    and pad slots (index >= len(cands)) drop out."""
-    if host is None:
-        return []
-    if n_out is None:
-        totals = np.asarray(host)
-        pairs = [
-            (cands[k], int(totals[k])) for k in range(len(cands)) if totals[k] > 0
-        ]
-        pairs.sort(key=pair_sort_key)
-        return pairs
-    vals, top_idx = host
-    return [
-        (cands[int(i)], int(v))
-        for v, i in zip(vals, top_idx)
-        if v > 0 and int(i) < len(cands)
-    ]
-
-
 class IngestSyncer:
     """Ingest device-sync worker (``pilosa_tpu/parallel/engine.py``
     IngestSyncer).
@@ -415,6 +406,19 @@ class TorchEngine:
         # (or MAX_GROUP_FIELDS) sent to the executor's host iterator.
         self.group_dispatches = 0
         self.group_host_fallbacks = 0
+        # Whole-dashboard fusion: drains launched as fused programs, the
+        # items that rode them, distinct masks evaluated and mask
+        # references asked for (the gap is the evaluations fusion saved;
+        # util/stats.py names their series), parts past F1's limits run on
+        # per-op programs, and the plan cache (drain shape -> FusedPlan).
+        self.fused_programs = 0
+        self.fused_program_queries = 0
+        self.fused_masks_evaluated = 0
+        self.fused_masks_referenced = 0
+        self.fused_declines = 0
+        self.fused_plan_hits = 0
+        self.fused_plan_misses = 0
+        self._fused_plans: "OrderedDict[tuple, object]" = OrderedDict()
 
     # -- canonical shard axis ---------------------------------------------
 
@@ -483,6 +487,12 @@ class TorchEngine:
                                 list(canonical), occ, frag_sync, home)
             self.stack_rebuilds += 1
             self._stacks[key] = stack
+            if cached is not None:
+                # Cached fused plans hold the old matrix: drop those that
+                # read it rather than keep it alive until their next probe.
+                for pk in [k for k, plan in self._fused_plans.items()
+                           if key in plan.stack_tokens]:
+                    del self._fused_plans[pk]
             return stack
 
     def _assemble_host(self, index, field, view, canonical):
@@ -716,6 +726,7 @@ class TorchEngine:
             self._stacks.clear()
             self._masks.clear()
             self._topn_cands.clear()
+            self._fused_plans.clear()
             self.result_memo.clear()
 
     # -- call-tree lowering -------------------------------------------------
@@ -1309,13 +1320,12 @@ class TorchEngine:
             raise UnsupportedLowering("src tree exceeds the kernels' limits")
         return prog, lw
 
-    def topn_scores(self, index: str, field: str, candidate_rows: List[int],
-                    src_call: Call, shards: List[int]):
-        """Batched TopN phase-1 scoring across all requested shards in one
-        K3 launch: (scores int32[S, K], src_counts int32[S], shard_pos) as
-        numpy, ``shard_pos`` mapping shard -> canonical position.
-        Candidates absent from the row table score 0 (they read row 0 on
-        the card and are zeroed here).  None when the field has no stack."""
+    def topn_scores_async(self, index: str, field: str, candidate_rows: List[int],
+                          src_call: Call, shards: List[int]):
+        """TopN phase 1 as one K3 launch, without waiting for the device:
+        ([scores int32[K, S], src_counts int32[S]], decoder), the decoder
+        giving ``topn_scores``' result from their host arrays, or None
+        when the field has no stack."""
         canonical = self.canonical_shards(index)
         with self._stacks_lock:
             stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
@@ -1331,11 +1341,21 @@ class TorchEngine:
             scores, counts = self._reading(
                 lw.stacks + [stack],
                 lambda: kernels.topn_tree(prog, lw.mats, mask, stack.matrix, cand_idx))
-        # The kernel's score matrix is rows-major [K, S]; callers take [S, K].
-        scores = scores.cpu().numpy().T.copy()
-        scores[:, ~present] = 0
         pos = {s: i for i, s in enumerate(stack.shards)}
-        return scores, counts.cpu().numpy(), pos
+        return [scores, counts], fusion_mod._TopNScoresDecode(present, pos)
+
+    def topn_scores(self, index: str, field: str, candidate_rows: List[int],
+                    src_call: Call, shards: List[int]):
+        """Batched TopN phase-1 scoring across all requested shards in one
+        K3 launch: (scores int32[S, K], src_counts int32[S], shard_pos) as
+        numpy, ``shard_pos`` mapping shard -> canonical position.
+        Candidates absent from the row table score 0 (they read row 0 on
+        the card and are zeroed here).  None when the field has no stack."""
+        res = self.topn_scores_async(index, field, candidate_rows, src_call, shards)
+        if res is None:
+            return None
+        tensors, dec = res
+        return dec([t.cpu().numpy() for t in tensors])
 
     def _build_topn_candidates(self, index, field, stack, cands) -> _TopNCandidates:
         """Assemble the id-descending candidate arrays for a stack."""
@@ -1584,10 +1604,254 @@ class TorchEngine:
             return None
         return dev.cpu().numpy().reshape(tuple(len(rows) for rows in row_lists))
 
+    # -- whole-dashboard fusion (pilosa_tpu/parallel/engine.py:3390-3530) --
+    #
+    # The reference also keeps registry series of the counters (item 14)
+    # and replays nothing across processes: a fused drain is single-process
+    # there too.
+
+    FUSED_PLAN_CACHE = 256
+
+    def fused_many_async(self, index: str, entries):
+        """``fused_drain_async`` over (spec, shards) pairs of one index."""
+        return self.fused_drain_async([(index, spec, shards) for spec, shards in entries])
+
+    def fused_drain_async(self, entries):
+        """Plan and launch a heterogeneous drain, mixed Count/Sum/Min/Max/
+        TopN/GroupBy items that may share Row subtrees and span indexes,
+        without waiting for the device (``fusion.build`` / ``dispatch``).
+        ``entries`` is a list of (index, spec, shards) triples, spec
+        {"kind": ...} plus the op's arguments; returns a
+        ``fusion.FusedDispatch`` whose decoders give each op's result."""
+        entries = list(entries)
+        n = len(entries)
+        # Canonical order BEFORE keying and building: concurrent arrivals
+        # of one dashboard interleave in any order, and an arrival-order
+        # key would plan every permutation anew.  Entries with equal sort
+        # keys are the same item, so the stable sort's remap is defined.
+        try:
+            keys = [fusion_mod._entry_sort_key(e) for e in entries]
+            order = sorted(range(n), key=lambda i: keys[i])
+        except Exception:  # noqa: BLE001 — an unkeyable spec: build as is
+            keys, order = None, list(range(n))
+        sorted_entries = [entries[i] for i in order]
+        cache_key = None if keys is None else tuple(keys[i] for i in order)
+        with self._stacks_lock:
+            plan = self._fused_plan_for(sorted_entries, cache_key)
+            fd = fusion_mod.dispatch(self, plan)
+        if order == list(range(n)):
+            return fd
+        inv = [0] * n
+        for at, i in enumerate(order):
+            inv[i] = at
+        return fusion_mod.FusedDispatch(
+            fd.dev, fd.layout,
+            [fd.decoders[inv[i]] for i in range(n)],
+            [fd.weights[inv[i]] for i in range(n)],
+            [fd.errors[inv[i]] for i in range(n)],
+        )
+
+    def _fused_plan_for(self, entries, key):
+        """A validated (possibly cached) ``fusion.FusedPlan`` for this exact
+        (pre-sorted) drain shape.  Runs under the stacks lock."""
+        if key is None:
+            return fusion_mod.build(self, entries)
+        plan = self._fused_plans.get(key)
+        if plan is not None and self._fused_plan_valid(plan):
+            self.fused_plan_hits += 1
+            self._fused_plans.move_to_end(key)
+            return plan
+        self.fused_plan_misses += 1
+        self._fused_plans.pop(key, None)
+        plan = fusion_mod.build(self, entries)
+        if plan.cacheable:
+            self._fused_plans[key] = plan
+            while len(self._fused_plans) > self.FUSED_PLAN_CACHE:
+                self._fused_plans.popitem(last=False)
+        return plan
+
+    def _fused_plan_valid(self, plan) -> bool:
+        """True when every reuse gate holds: each index's canonical shard
+        axis, and every referenced stack present or absent as before with
+        the same version token.  ``field_stack`` is consulted, not peeked,
+        so a stale stack syncs FIRST: its token then moves (an in-place
+        sync and a rebuild both change ``_FieldStack.versions``) and the
+        plan rebuilds over the fresh stacks and occupancy."""
+        for idx, canon in plan.canonical.items():
+            if self.canonical_shards(idx) != canon:
+                return False
+        for (idx, field, view), (absent, tok) in plan.stack_tokens.items():
+            st = self.field_stack(idx, field, view, plan.canonical.get(idx))
+            if (st is None) != absent:
+                return False
+            if st is not None and st.versions != tok:
+                return False
+        return True
+
+    def fused_many(self, index: str, entries):
+        """Synchronous fused drain over (spec, shards) pairs of one index:
+        launch and one readback, results in entry order."""
+        return self.fused_drain([(index, spec, shards) for spec, shards in entries])
+
+    def fused_drain(self, entries):
+        """Synchronous cross-index drain over (index, spec, shards) triples:
+        ``fused_drain_async``, one readback, each item's result (its error
+        raised)."""
+        fd = self.fused_drain_async(entries)
+        return fd.results(fd.dev.cpu().numpy())
+
+    # -- the aggregate lane's per-op programs and memo -----------------------
+
+    def solo_op_async(self, index: str, kind: str, spec: dict, shards):
+        """One item on its own per-op program (K1/K2, K6, K7, K3 or K8),
+        without waiting for the device: (device tensors, decoder over their
+        host arrays), or (None, decoder of a constant) when no launch is
+        needed.  The decoders are fusion.py's, so the results match the
+        synchronous wrappers."""
+        if kind == "count":
+            return [self.count_async(index, spec["call"], shards)], fusion_mod._ScalarDecode()
+        if kind == "sum":
+            res = self.sum_async(index, spec["field"], spec.get("filter"), shards)
+            if res is None:
+                return None, fusion_mod._Const((0, 0))
+            dev, depth, bsig = res
+            return [dev], fusion_mod._SumDecode(depth, bsig.min)
+        if kind in ("min", "max"):
+            res = self.min_max_async(index, spec["field"], spec.get("filter"), shards,
+                                     kind == "min")
+            if res is None:
+                return None, fusion_mod._Const((0, 0))
+            (vals, counts), canonical, _, bsig = res
+            return [vals, counts], fusion_mod._MinMaxDecode(list(canonical), bsig.min,
+                                                            kind == "min")
+        if kind == "topn":
+            res = self.topn_scores_async(index, spec["field"], spec["rows"], spec["src"],
+                                         shards)
+            return (None, fusion_mod._Const(None)) if res is None else res
+        if kind == "topnf":
+            res = self.topn_full_async(index, spec["field"], spec["src"], shards,
+                                       spec.get("n") or 0, spec.get("threshold") or 1,
+                                       spec.get("row_ids"))
+            if res is None:
+                return None, fusion_mod._Const(fusion_mod.DECLINED)
+            cands, n_out, out = res
+            if out is None:
+                return None, fusion_mod._Const([])
+            return [out], fusion_mod._TopNDeviceDecode(cands, n_out)
+        if kind == "group":
+            dev = self.group_counts_async(index, spec["fields"], spec["rows"],
+                                          spec.get("filter"), shards)
+            if dev is None:
+                return None, fusion_mod._Const(fusion_mod.DECLINED)
+            return [dev], fusion_mod._GroupDecode(tuple(len(r) for r in spec["rows"]))
+        raise ValueError(f"unknown solo op kind: {kind!r}")
+
+    def solo_op(self, index: str, kind: str, spec: dict, shards):
+        """Blocking single-op dispatch (the batcher's idle direct path):
+        the op's result, DECLINED where its fused lane would decline."""
+        tensors, dec = self.solo_op_async(index, kind, spec, shards)
+        if tensors is None:
+            return dec(None)
+        return dec([t.cpu().numpy() for t in tensors])
+
+    def probe_fused_item(self, index: str, spec: dict, shards):
+        """Host-only lowering probe for batch-failure attribution: lower the
+        item's mask tree without launching; raises the item's own error."""
+        kind = spec["kind"]
+        if kind == "count":
+            trees = [spec["call"]]
+        elif kind in ("sum", "min", "max", "group"):
+            trees = [spec["filter"]] if spec.get("filter") is not None else []
+        else:
+            trees = [spec["src"]]
+        lw = _Lowering(self, self.canonical_shards(index))
+        for t in trees:
+            prog = self._lower(index, t, lw)
+            if not kernels.fits(prog):
+                raise UnsupportedLowering("tree exceeds the kernels' limits")
+
+    # The op kinds whose results ride the result memo (the reference's
+    # _OP_CACHE_TAG); TopN scores and GroupBy do not (the executor keeps
+    # GroupBy's shaped counts itself, memo_probe_groupby).
+    _MEMO_OPS = frozenset(("sum", "min", "max", "topnf"))
+
+    def memo_key_op(self, index: str, kind: str, spec: dict, shards):
+        """Memo key of an aggregate op: ``_memo_key``'s shape, signed by the
+        op's canonical spec text (``fusion.op_signature``)."""
+        if self.result_memo.maxsize <= 0:
+            return None
+        fields = fusion_mod.op_fields(kind, spec, self._collect_fields)
+        if fields is None:
+            return None
+        toks = self.memo_tokens(index, fields)
+        if toks is None:
+            return None
+        return (index, "op:" + fusion_mod.op_signature(kind, spec),
+                tuple(sorted(set(shards))), toks)
+
+    def memo_probe_op(self, index: str, kind: str, spec: dict, shards):
+        """(key, value-or-None) for ``submit_op``: a hit answers the op with
+        no launch.  (The reference's repair probe on a miss is ROADMAP.md
+        Queue 1 item 13.)"""
+        if kind not in self._MEMO_OPS:
+            return None, None
+        key = self.memo_key_op(index, kind, spec, shards)
+        if key is None:
+            return None, None
+        v = self.result_memo.get(key)
+        if v is not None and kind == "topnf":
+            v = [tuple(p) for p in v]
+        return key, v
+
+    def memo_store_op(self, key, kind: str, spec: dict, value):
+        """Store an op's result under its submit-time key; DECLINED is never
+        stored."""
+        if key is None or value is None or value is fusion_mod.DECLINED:
+            return
+        if kind == "topnf":
+            value = tuple(map(tuple, value))
+        self.result_memo.put(key, value)
+
+    # -- the aggregate lane (pilosa_tpu/parallel/engine.py:3652-3720) --------
+
+    def batched_sum(self, index: str, field: str, filter_call, shards):
+        """BSI Sum through the batcher: a lone caller runs K6 directly;
+        concurrent callers drain into one fused program with their
+        drain-mates."""
+        return self.batcher().submit_op(
+            index, "sum", {"kind": "sum", "field": field, "filter": filter_call}, shards)
+
+    def batched_min_max(self, index: str, field: str, filter_call, shards, is_min: bool):
+        kind = "min" if is_min else "max"
+        return self.batcher().submit_op(
+            index, kind, {"kind": kind, "field": field, "filter": filter_call}, shards)
+
+    def batched_topn_scores(self, index: str, field: str, candidate_rows, src_call, shards):
+        return self.batcher().submit_op(
+            index, "topn", {"kind": "topn", "field": field, "rows": list(candidate_rows),
+                            "src": src_call}, shards)
+
+    def batched_topn_full(self, index: str, field: str, src_call, shards, n: int,
+                          min_threshold: int, row_ids=None):
+        """Full TopN through the batcher: sorted pairs, or None when the
+        fused path declines (candidate union too large)."""
+        out = self.batcher().submit_op(
+            index, "topnf",
+            {"kind": "topnf", "field": field, "src": src_call, "n": int(n),
+             "threshold": int(min_threshold),
+             "row_ids": None if not row_ids else list(row_ids)},
+            shards)
+        return None if out is fusion_mod.DECLINED else out
+
     def batched_group_counts(self, index: str, fields: List[str], row_lists,
                              filter_call: Optional[Call], shards):
-        """GroupBy through the batcher's entry point.  Until the batcher
-        fuses mixed operations (ROADMAP.md Queue 1 item 12) this is the
-        reference's idle direct path (engine.py:3626-3631): one
-        ``group_counts``."""
-        return self.group_counts(index, fields, row_lists, filter_call, shards)
+        """GroupBy through the batcher: the counts int64[K_1, ..., K_n], or
+        None when the fused path declines (past MAX_GROUP_COMBOS
+        combinations, or a missing stack): the executor's host iterator
+        then serves it."""
+        out = self.batcher().submit_op(
+            index, "group",
+            {"kind": "group", "fields": list(fields), "rows": [list(r) for r in row_lists],
+             "filter": filter_call},
+            shards)
+        return None if out is fusion_mod.DECLINED else out

@@ -41,6 +41,12 @@ named by index, against one src row (``bitops.popcount_and_rows``).
 trees into one table of distinct leaf rows and one postfix program per
 query (``compile_batch``) and wraps K5 ``csrc/count_batch_tree.cu`` the
 same way.
+
+``fused_tree`` (a whole dashboard of one index, below) evaluates a table
+of mask slots, each a flat node over leaves and ``("mref", j)`` references
+to earlier slots, counts the count edges and runs the aggregate edges on
+the slots: F1 ``csrc/fused_tree.cu`` for the slots and counts, then K3,
+K6, K7 and K8 with a slot as their filter row.
 """
 
 from __future__ import annotations
@@ -58,9 +64,11 @@ from ..ops import bitops
 from ..ops import bsi as bsi_ops
 
 # Postfix opcodes and limits: csrc/tree_eval.cuh holds the same values.
-OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_ANDNOT, OP_XOR, OP_RANGE = range(7)
+# OP_MREF, a reference to an earlier mask slot (its index in bits 8 and
+# up), exists only inside a fused program (F1): check_prog refuses it.
+OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_ANDNOT, OP_XOR, OP_RANGE, OP_MREF = range(8)
 _NODE_OPS = {"and": OP_AND, "or": OP_OR, "andnot": OP_ANDNOT, "xor": OP_XOR}
-_ITEM_OPS = (OP_LEAF, OP_ZERO, OP_RANGE)
+_ITEM_OPS = (OP_LEAF, OP_ZERO, OP_RANGE, OP_MREF)
 MAX_PROG = 128
 MAX_LEAVES = 32
 MAX_STACK = 16
@@ -108,6 +116,8 @@ def compile_prog(prog) -> Postfix:
             ops.append(OP_RANGE | (k << 8))
         elif kind == "zero":
             ops.append(OP_ZERO)
+        elif kind == "mref" and len(p) == 2:
+            ops.append(OP_MREF | (int(p[1]) << 8))
         elif kind in _NODE_OPS and len(p) >= 2:
             walk(p[1])
             for q in p[2:]:
@@ -126,7 +136,10 @@ def compile_prog(prog) -> Postfix:
 
 def check_prog(code: Postfix) -> None:
     """Raise ValueError when a compiled program does not fit the kernels'
-    fixed stack, program and leaf-table sizes."""
+    fixed stack, program and leaf-table sizes, or holds a slot reference
+    (only a fused program has slots)."""
+    if any((op & 0xFF) == OP_MREF for op in code.ops):
+        raise ValueError("a slot reference (mref) runs only inside a fused program")
     if code.depth > MAX_STACK:
         raise ValueError(
             f"count tree needs a stack of {code.depth}; the kernels hold {MAX_STACK}"
@@ -175,18 +188,21 @@ def range_planes(mat: torch.Tensor, planes, select) -> torch.Tensor:
     return torch.stack([select(mat[p]) if p >= 0 else torch.zeros_like(like) for p in planes])
 
 
-def eval_prog(prog, mats: Sequence[torch.Tensor], select) -> torch.Tensor:
+def eval_prog(prog, mats: Sequence[torch.Tensor], select, slots=None) -> torch.Tensor:
     """Evaluate a normalized tree with ``select(row_words)`` applied to
     every leaf row (the identity for the dense count, a block gather for
     the sparse one) and to every plane a range leaf reads.  ``("zero",)``
-    takes the shape of the first leaf."""
+    takes the shape of the first leaf.  ``("mref", j)`` reads ``slots[j]``,
+    an evaluated mask slot of a fused program (``fused_slots_plain``)."""
     if prog[0] == "row":
         return select(mats[prog[1]][prog[2]])
+    if prog[0] == "mref":
+        return slots[prog[1]]
     if prog[0] == "range":
         _, kind, slot, planes, lo, hi = prog
         return bsi_ops.range_rows(kind, range_planes(mats[slot], planes, select), lo, hi)
     subs = [
-        None if p[0] == "zero" else eval_prog(p, mats, select) for p in prog[1:]
+        None if p[0] == "zero" else eval_prog(p, mats, select, slots) for p in prog[1:]
     ]
     like = next((s for s in subs if s is not None), None)
     if like is None:
@@ -249,23 +265,29 @@ def c_planes(mat: torch.Tensor, planes, kind: str = "eq", lo: int = 0, hi: int =
     return leaf
 
 
-def _c_leaves(code: Postfix, mats: Sequence[torch.Tensor]) -> tuple:
-    """The tree's launch arguments, in the kernels' order: the leaf row
-    base pointers and their count, the range leaves, their stacks' row
-    counts and their count, the opcodes and their count."""
+def _c_table(leaves, ranges, mats: Sequence[torch.Tensor]) -> tuple:
+    """A leaf table's launch arguments: the leaf row base pointers and
+    their count, the range leaves, their stacks' row counts and their
+    count."""
     ptrs = []
-    for m, r in code.leaves:
+    for m, r in leaves:
         mat = mats[m]
         ptrs.append(mat.data_ptr() + int(r) * mat.stride(0) * mat.element_size())
     leaf_arr = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
-    n_r = len(code.ranges)
-    ranges, rows = _NO_RANGES
+    n_r = len(ranges)
+    range_arr, rows = _NO_RANGES
     if n_r:
-        ranges = (RangeLeaf * n_r)(*[c_planes(mats[m], planes, kind, lo, hi)
-                                     for m, kind, planes, lo, hi in code.ranges])
-        rows = (ctypes.c_int * n_r)(*[mats[m].shape[0] for m, *_ in code.ranges])
+        range_arr = (RangeLeaf * n_r)(*[c_planes(mats[m], planes, kind, lo, hi)
+                                        for m, kind, planes, lo, hi in ranges])
+        rows = (ctypes.c_int * n_r)(*[mats[m].shape[0] for m, *_ in ranges])
+    return leaf_arr, len(ptrs), range_arr, rows, n_r
+
+
+def _c_leaves(code: Postfix, mats: Sequence[torch.Tensor]) -> tuple:
+    """The tree's launch arguments, in the kernels' order: the leaf table
+    (``_c_table``), the opcodes and their count."""
     ops_arr = (ctypes.c_int * len(code.ops))(*code.ops)
-    return leaf_arr, len(ptrs), ranges, rows, n_r, ops_arr, len(code.ops)
+    return _c_table(code.leaves, code.ranges, mats) + (ops_arr, len(code.ops))
 
 
 # The range arguments of a tree without range leaves (never read, never
@@ -700,6 +722,8 @@ def compile_batch(progs, mask_ids: Sequence[int]) -> BatchProgram:
         code = compile_prog(prog)
         if code.ranges:
             raise ValueError("K5 takes no range leaves: the engine sends such a tree to K1/K2")
+        if any((c & 0xFF) == OP_MREF for c in code.ops):
+            raise ValueError("a slot reference (mref) runs only inside a fused program")
         if code.depth > MAX_STACK or len(code.ops) > MAX_PROG:
             check_prog(Postfix(code.ops, [], code.depth))
         glob = [table.setdefault(leaf, len(table)) for leaf in code.leaves]
@@ -841,3 +865,362 @@ def count_batch_tree(progs, mats: Sequence[torch.Tensor], masks: np.ndarray,
     if torch.device(device).type == "cuda":
         return count_batch_tree_cuda(batch, mats, masks, device, out_index)
     return count_batch_tree_plain(progs, mats, masks, mask_ids, device, out_index)
+
+
+# -- whole-dashboard fusion: F1 fused_tree -----------------------------------
+#
+# The port of pilosa_tpu/parallel/kernels.py:545 fused_tree, minus the mesh
+# arguments, for the mask slots of ONE index (a drain spanning indexes runs
+# one per index: their shard axes differ).  ``parallel/fusion.py`` builds
+# the slot table by hash-consing every subtree of a drain's trees, so each
+# slot is a flat node over items: a leaf row, a range leaf, zero, or
+# ``("mref", j)``, the value of an earlier slot j.  F1 evaluates every slot
+# once per word, keeps every slot's value in registers (an mref costs no
+# memory access), counts the count edges, and writes only the slots an
+# aggregate edge reads to a scratch int32[n_mat, S, W]; the aggregate edges
+# then run K6, K7, K3 and K8 with such a slot as an ordinary filter row.
+
+MAX_FUSED_SLOTS = 16  # csrc/fused_tree.cu kMaxSlots: 16 uint4 of registers
+MAX_FUSED_EDGES = 32  # count edges per F1 launch (kMaxEdges)
+MAX_FUSED_ITEMS = 128  # leaf, range and zero items over all slots (kMaxItems)
+
+
+class FusedCode:
+    """A slot table compiled for F1.  Slot k is the flat node ``op[k]``
+    (OP_AND, OP_OR, OP_ANDNOT or OP_XOR; a bare item is an OR of one)
+    over: ``first[k]``, ANDNOT's left side (an item code or an OP_MREF;
+    -1 for the other ops, which start from their identity); the items
+    ``items[item_off[k]: item_off[k] + item_len[k]]`` (OP_LEAF with its
+    index into ``leaves``, OP_RANGE with its index into ``ranges``,
+    OP_ZERO); and ``mref[k]``, the bit set of earlier slots it combines
+    (for XOR, those named an odd number of times: the others cancel).
+    ``leaves`` (mat_slot, row) and ``ranges`` are shared by every slot.
+    F1 evaluates the slots in its own order: every slot that reads no
+    other slot first (their loads all in flight before the first node
+    waits on one), then the rest in table order; ``pos[j]`` is the place
+    of table slot j (-1 for a one-row slot compiled into its readers,
+    ``compile_fused``), and every field above is in F1's order.  Cached
+    and shared: never mutated."""
+
+    __slots__ = ("op", "first", "item_off", "item_len", "mref", "items", "leaves", "ranges",
+                 "pos")
+
+    def __init__(self, op, first, item_off, item_len, mref, items, leaves, ranges, pos):
+        self.pos = pos
+        self.op = op
+        self.first = first
+        self.item_off = item_off
+        self.item_len = item_len
+        self.mref = mref
+        self.items = items
+        self.leaves = leaves
+        self.ranges = ranges
+
+
+@functools.lru_cache(maxsize=1024)
+def compile_fused(slots, keep=None) -> FusedCode:
+    """F1's form of a slot table (a tuple of slot progs).  ``keep`` is the
+    frozenset of slots an edge reads (None: every slot): a slot of one leaf
+    row (or zero) outside it is not one of F1's slots, each slot that
+    references it reads the row itself (a repeat of a word the thread just
+    read), and its ``pos`` is -1.  That keeps the registers and the
+    unrolled reference tests of a dashboard's F1 to its nodes.  Raises
+    ValueError on a slot that is not flat (a node whose children are all
+    items) or that references itself or a later slot."""
+    leaf_of: Dict[Tuple[int, int], int] = {}
+    range_of: Dict[tuple, int] = {}
+    ops, first, offs, lens, mrefs, items = [], [], [], [], [], []
+
+    def item(p, k) -> int:
+        kind = p[0]
+        if kind == "row" and len(p) == 3:
+            return OP_LEAF | (leaf_of.setdefault((int(p[1]), int(p[2])), len(leaf_of)) << 8)
+        if kind == "range" and len(p) == 6 and p[1] in bsi_ops.RANGE_KINDS:
+            key = (int(p[2]), p[1], tuple(int(x) for x in p[3]), int(p[4]), int(p[5]))
+            return OP_RANGE | (range_of.setdefault(key, len(range_of)) << 8)
+        if kind == "zero":
+            return OP_ZERO
+        if kind == "mref" and len(p) == 2:
+            j = int(p[1])
+            if not 0 <= j < k:
+                raise ValueError(f"fused slot {k} references slot {j}: only earlier slots")
+            return OP_MREF | (j << 8)
+        raise ValueError(f"fused slot {k}: {p!r} is not flat (leaf, range leaf, zero or mref "
+                         "under one node)")
+
+    nodes = []
+    for k, prog in enumerate(slots):
+        if prog[0] in _NODE_OPS and len(prog) >= 2:
+            op, kids = _NODE_OPS[prog[0]], prog[1:]
+        else:
+            op, kids = OP_OR, (prog,)
+        nodes.append((op, [item(p, k) for p in kids]))
+    inline = {}
+    for k, (op, codes) in enumerate(nodes):
+        if (keep is not None and k not in keep and op == OP_OR and len(codes) == 1
+                and (codes[0] & 0xFF) in (OP_LEAF, OP_ZERO)):
+            inline[k] = codes[0]
+    nodes = [(op, [inline.get(c >> 8, c) if (c & 0xFF) == OP_MREF else c for c in codes])
+             for op, codes in nodes]
+    live = [k for k in range(len(nodes)) if k not in inline]
+    # A valid order stays valid when the slots that read no slot move to
+    # the front: the others read only earlier slots.
+    reads = [any((c & 0xFF) == OP_MREF for c in codes) for _, codes in nodes]
+    order = [k for k in live if not reads[k]] + [k for k in live if reads[k]]
+    pos = [-1] * len(nodes)
+    for at, k in enumerate(order):
+        pos[k] = at
+
+    def moved(c):
+        return OP_MREF | (pos[c >> 8] << 8) if (c & 0xFF) == OP_MREF else c
+
+    for k in order:
+        op, codes = nodes[k]
+        codes = [moved(c) for c in codes]
+        f = codes.pop(0) if op == OP_ANDNOT else -1
+        m, rest = 0, []
+        for c in codes:
+            if (c & 0xFF) == OP_MREF:
+                m = m ^ (1 << (c >> 8)) if op == OP_XOR else m | (1 << (c >> 8))
+            else:
+                rest.append(c)
+        ops.append(op)
+        first.append(f)
+        offs.append(len(items))
+        lens.append(len(rest))
+        mrefs.append(m)
+        items.extend(rest)
+    return FusedCode(ops, first, offs, lens, mrefs, items, list(leaf_of), list(range_of), pos)
+
+
+def check_fused(code: FusedCode, n_count_edges: int = 0) -> None:
+    """Raise ValueError when a slot table (and its count edges) does not
+    fit F1: at most MAX_FUSED_SLOTS slots, MAX_FUSED_EDGES count edges,
+    MAX_FUSED_ITEMS items, MAX_LEAVES leaf rows and MAX_RANGES range
+    leaves.  The planner declines such a drain to the per-op programs."""
+    if not 1 <= len(code.op) <= MAX_FUSED_SLOTS:
+        raise ValueError(f"fused program of {len(code.op)} slots; F1 takes 1 to "
+                         f"{MAX_FUSED_SLOTS}")
+    if n_count_edges > MAX_FUSED_EDGES:
+        raise ValueError(f"fused program of {n_count_edges} count edges; F1 takes "
+                         f"{MAX_FUSED_EDGES}")
+    if len(code.items) > MAX_FUSED_ITEMS:
+        raise ValueError(f"fused program of {len(code.items)} items; F1 takes {MAX_FUSED_ITEMS}")
+    check_prog(Postfix([OP_ZERO], code.leaves, 1, code.ranges))
+
+
+def fused_slots_plain(slots, mats: Sequence[torch.Tensor], shape, device) -> List[torch.Tensor]:
+    """Every slot's value int32[S, W] (``shape``), in order, with
+    ``eval_prog`` reading earlier slots for ``("mref", j)``: the plain
+    version of F1's slot evaluation."""
+    vals: List[torch.Tensor] = []
+    for prog in slots:
+        v = eval_prog(prog, mats, lambda words: words, vals)
+        vals.append(torch.zeros(shape, dtype=torch.int32, device=device) if v is None else v)
+    return vals
+
+
+_fused_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _fused_scratch_for(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """F1's scratch of materialized slots for one (device, stream): at
+    least ``n`` int32, grown on demand.  A drain's F1 writes it and the
+    drain's aggregate launches read it after, on that stream; the next
+    drain's F1 on the stream runs after them.  A grown buffer's old block
+    goes back to the caching allocator, which hands it out again only to
+    work queued after it on this stream."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    with _totals_lock:
+        buf = _fused_scratch.get(key)
+        if buf is None or buf.numel() < n:
+            buf = _fused_scratch[key] = torch.empty(n, dtype=torch.int32, device=device)
+        return buf[:n]
+
+
+_FUSED_ARGS = [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
+
+
+def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: Sequence[int],
+                    gates: Sequence[torch.Tensor], mat_slots: Sequence[int] = (),
+                    need: Optional[torch.Tensor] = None, n_shards: Optional[int] = None):
+    """Launch F1 on the card, on the current stream, without waiting for
+    the device.  Returns ``(counts int64[E], mat)``: count edge e is
+    sum(popcount(slot[count_slots[e]] & gates[e])) over the shards (each
+    gate int32[S], nonzero = requested); ``mat`` int32[len(mat_slots), S,
+    W] holds slot ``mat_slots[i]`` in row i (None without mat_slots), in
+    the per-(device, stream) scratch, valid until the next F1 on this
+    stream.  With ``need`` int32[S] F1 reads and writes only the shards it
+    marks: every gate must lie inside it, and ``mat`` is unspecified
+    outside it (each aggregate kernel skips the shards its mask leaves
+    out)."""
+    S = (need.shape[0] if need is not None else gates[0].shape[0] if gates
+         else n_shards if n_shards is not None else mats[0].shape[1])
+    W = check_stacks(mats, S)
+    n_slots, E = len(code.op), len(count_slots)
+
+    def compiled(j) -> bool:  # a slot of the table that F1 evaluates
+        return 0 <= int(j) < len(code.pos) and code.pos[int(j)] >= 0
+
+    if len(gates) != E or not all(compiled(j) for j in count_slots):
+        raise ValueError("one gate per count edge, each edge on a slot of the table in keep")
+    if len(set(mat_slots)) != len(mat_slots) or not all(compiled(j) for j in mat_slots):
+        raise ValueError("materialized slots must be distinct slots of the table in keep")
+    gates = [_on_card_int32(g, "gate", (S,)) for g in gates]
+    if need is not None:
+        need = _on_card_int32(need, "need", (S,))
+    for m, r in code.leaves:
+        if not 0 <= r < mats[m].shape[0]:
+            raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
+    dev = gates[0].device if gates else need.device if need is not None else mats[0].device
+    if dev.type != "cuda":
+        raise ValueError("F1 runs on the card")
+    out = torch.zeros(max(E, 1), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mat = None
+    if mat_slots:
+        mat = _fused_scratch_for(dev, stream, len(mat_slots) * S * W).view(len(mat_slots), S, W)
+    mat_row = [-1] * n_slots
+    for i, j in enumerate(mat_slots):
+        mat_row[code.pos[int(j)]] = i
+    edge_slots = [code.pos[int(j)] for j in count_slots]
+    counted = 0
+    for j in edge_slots:
+        counted |= 1 << j
+    info = (ctypes.c_int * (5 * n_slots))(*[
+        v for k in range(n_slots) for v in (code.op[k], code.first[k], code.item_off[k],
+                                            code.item_len[k], code.mref[k])])
+    items = (ctypes.c_int * max(1, len(code.items)))(*code.items)
+    fn = _lib_fn("fused_tree", "fused_tree", _FUSED_ARGS)
+    err = fn(*_c_table(code.leaves, code.ranges, mats), n_slots, info, items, len(code.items),
+             (ctypes.c_int * n_slots)(*mat_row), counted, E,
+             (ctypes.c_int * max(1, E))(*edge_slots),
+             (ctypes.c_void_p * max(1, E))(*[g.data_ptr() for g in gates]),
+             _ptr(need), S, W, _ptr(mat), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_tree launch failed: cudaError {err}")
+    fused_tree_cuda.launches += 1
+    range_leaf(code)
+    return out[:E], mat
+
+
+fused_tree_cuda.launches = 0
+
+# Device outputs of each aggregate edge kind (FusedSpec).
+FUSED_ARITY = {"sum": 1, "minmax": 2, "topn": 2, "topnf": 1, "group": 1}
+
+
+class FusedSpec:
+    """One index's part of a fused drain: ``slots`` the mask-slot progs in
+    dependency order, ``count_edges`` (slot, mask) pairs, and
+    ``agg_edges``, each reading slot ``slot`` as its filter (-1: none; a
+    TopN always has one):
+
+      ("sum", slot, mask, plane_mat, planes)            -> int64[D + 1]
+      ("minmax", slot, mask, plane_mat, planes, is_min) -> values int64[S], counts int64[S]
+      ("topn", slot, mask, cand_mat, idx)               -> scores int32[K, S], src counts int32[S]
+      ("topnf", slot, mask, cand_mat, idx, cnt, thr, n_out)
+                                                        -> int32[2, n_out] (int64[K] for n_out None)
+      ("group", slot, mask, (mat, ...), (rows, ...))    -> int64[K_1 * ... * K_n]
+
+    ``mat``/``plane_mat``/``cand_mat`` index the field stacks, ``mask``
+    the int32[S] masks, ``idx``/``cnt`` the other tensors (TopN's
+    candidate stack rows int32[K] and per-shard row counts int32[K, S]);
+    ``planes`` and ``rows`` are stack rows as for K6/K7 and K8."""
+
+    __slots__ = ("slots", "count_edges", "agg_edges", "mat_slots")
+
+    def __init__(self, slots, count_edges, agg_edges):
+        self.slots = tuple(slots)
+        self.count_edges = tuple(count_edges)
+        self.agg_edges = tuple(agg_edges)
+        self.mat_slots = tuple(sorted({e[1] for e in self.agg_edges if e[1] >= 0}))
+
+    def code(self) -> FusedCode:
+        """F1's form of the slot table, every slot an edge reads kept."""
+        return compile_fused(self.slots, frozenset(j for j, _ in self.count_edges)
+                             | frozenset(self.mat_slots))
+
+
+def _agg_outputs(spec: FusedSpec, mats, mat, masks, tensors, plain: bool) -> list:
+    """The aggregate edges' outputs, each edge's kernel (or, with
+    ``plain``, its plain version) reading its slot as row
+    ``spec.mat_slots.index(slot)`` of ``mat``."""
+    from . import bsi as bsi_mod
+    from . import groupby as groupby_mod
+
+    ext = list(mats) + ([mat] if mat is not None else [])
+    row_of = {j: i for i, j in enumerate(spec.mat_slots)}
+    outs: list = []
+    for e in spec.agg_edges:
+        kind, slot, mask = e[0], e[1], masks[e[2]]
+        prog = None if slot < 0 else ("row", len(mats), row_of[slot])
+        if kind == "sum":
+            fn = bsi_mod.sum_tree_plain if plain else bsi_mod.sum_tree
+            outs.append(fn(prog, ext, mask, mats[e[3]], e[4]))
+        elif kind == "minmax":
+            fn = bsi_mod.minmax_tree_plain if plain else bsi_mod.minmax_tree
+            outs.extend(fn(prog, ext, mask, mats[e[3]], e[4], e[5]))
+        elif kind == "topn":
+            fn = topn_tree_plain if plain else topn_tree
+            outs.extend(fn(prog, ext, mask, mats[e[3]], tensors[e[4]]))
+        elif kind == "topnf":
+            _, _, _, cm, ix, cnt, thr, n_out = e
+            if plain:
+                out = topn_full_tree_plain(prog, ext, mask, mats[cm], tensors[ix], tensors[cnt],
+                                           thr, n_out)
+                outs.append(out if n_out is None else torch.stack(out))
+            else:
+                outs.append(topn_full_tree(prog, ext, mask, mats[cm], tensors[ix], tensors[cnt],
+                                           thr, n_out))
+        elif kind == "group":
+            fn = groupby_mod.groupn_tree_plain if plain else groupby_mod.groupn_tree
+            outs.append(fn(prog, ext, mask, [mats[i] for i in e[3]], e[4]))
+        else:
+            raise ValueError(f"bad fused edge {kind!r}")
+    return outs
+
+
+def fused_tree_plain(spec: FusedSpec, mats: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+                     tensors: Sequence[torch.Tensor] = ()) -> list:
+    """The outputs of a fused drain's part in plain PyTorch ops: the count
+    vector int64[n_count] (when it has count edges), then each aggregate
+    edge's outputs in edge order (FusedSpec).  The slots by
+    ``fused_slots_plain``, the counts by the SWAR popcount, the edges by
+    the plain versions of K6, K7, K3 and K8.  The CPU path and the
+    reference F1 and the drain's launches are held against."""
+    if not masks:
+        return []
+    S = masks[0].shape[0]
+    W = int(mats[0].shape[2]) if mats else bitops.WORDS
+    vals = fused_slots_plain(spec.slots, mats, (S, W), masks[0].device)
+    outs = []
+    if spec.count_edges:
+        outs.append(torch.stack([bitops.popcount_words(vals[j][masks[m] != 0]).sum()
+                                 for j, m in spec.count_edges]).to(torch.int64))
+    mat = torch.stack([vals[j] for j in spec.mat_slots]) if spec.mat_slots else None
+    return outs + _agg_outputs(spec, mats, mat, masks, tensors, plain=True)
+
+
+def fused_tree(spec: FusedSpec, mats: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+               tensors: Sequence[torch.Tensor] = (), need: Optional[torch.Tensor] = None) -> list:
+    """A fused drain's part (FusedSpec): its outputs as ``fused_tree_plain``
+    returns them.  CUDA tensors launch F1 (when the part has slots) and
+    then each aggregate edge's kernel, all on the current stream without
+    waiting for the device, or raise; CPU tensors take the plain version.
+    ``need`` (see ``fused_tree_cuda``) must cover every mask."""
+    if not masks:
+        return []
+    if not masks[0].is_cuda:
+        return fused_tree_plain(spec, mats, masks, tensors)
+    outs: list = []
+    mat = None
+    if spec.slots and (spec.count_edges or spec.mat_slots):
+        code = spec.code()
+        check_fused(code, len(spec.count_edges))
+        counts, mat = fused_tree_cuda(code, mats, [j for j, _ in spec.count_edges],
+                                      [masks[m] for _, m in spec.count_edges], spec.mat_slots,
+                                      need, n_shards=masks[0].shape[0])
+        if spec.count_edges:
+            outs.append(counts)
+    return outs + _agg_outputs(spec, mats, mat, masks, tensors, plain=False)

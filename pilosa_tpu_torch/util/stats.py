@@ -1,11 +1,12 @@
 """Pipeline telemetry: a fixed-bucket latency histogram and the per-stage
-stats of the count batcher.
+stats of the count batcher, and the names of the fused-program series.
 
 Copies of ``Histogram`` and ``PipelineStats`` from
 ``pilosa_tpu/util/stats.py``, minus the process metrics registry that
 feeds ``/metrics`` there (ROADMAP.md Queue 1 item 14 ports that surface):
 the stats live on the batcher that records them and are read through its
-``pipeline_snapshot()``.
+``pipeline_snapshot()``, and the engine's fusion counters are plain
+attributes, named below with the series they will feed.
 """
 
 from __future__ import annotations
@@ -13,6 +14,23 @@ from __future__ import annotations
 import bisect
 import threading
 from typing import Dict, List, Tuple
+
+# -- whole-dashboard fusion (pilosa_tpu/util/stats.py:379-400) ---------------
+#   pilosa_engine_fused_program_programs_total   drains launched as fused
+#                                                programs (TorchEngine.fused_programs)
+#   pilosa_engine_fused_program_queries_total    items that rode them
+#                                                (fused_program_queries)
+#   pilosa_engine_fused_program_masks_evaluated_total  distinct Row subtrees
+#                                                evaluated (fused_masks_evaluated)
+#   pilosa_engine_fused_program_masks_referenced_total subtree references the
+#                                                drains asked for; the gap to
+#                                                masks_evaluated is the
+#                                                evaluations fusion saved
+#                                                (fused_masks_referenced)
+METRIC_ENGINE_FUSED_PROGRAMS = "pilosa_engine_fused_program_programs_total"
+METRIC_ENGINE_FUSED_QUERIES = "pilosa_engine_fused_program_queries_total"
+METRIC_ENGINE_FUSED_MASKS_EVAL = "pilosa_engine_fused_program_masks_evaluated_total"
+METRIC_ENGINE_FUSED_MASKS_REF = "pilosa_engine_fused_program_masks_referenced_total"
 
 # Fixed log-spaced latency buckets (seconds), 100 us .. 60 s.  Fixed
 # buckets (not reservoirs) keep observe() O(log B) with bounded memory.

@@ -145,8 +145,8 @@ def test_import_is_jax_free():
     """In a fresh interpreter with JAX blocked, every module of the port
     imports, the TopN and BSI paths (engine, executor lanes, kernel
     wrappers and their CUDA sources) are present and run queries on the
-    CPU, the API answers a keyed query, and no module of pilosa_tpu is
-    loaded."""
+    CPU, a fused drain (``parallel/fusion.py``) answers, the API answers a
+    keyed query, and no module of pilosa_tpu is loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -191,6 +191,17 @@ def test_import_is_jax_free():
         "a.import_bits(ImportRequest('k', 'f', row_keys=['x', 'x'], column_keys=['c', 'd']))\n"
         "assert a.query(QueryRequest('k', 'Row(f=\"x\")')).results[0].keys == ['c', 'd']\n"
         "a.close()\n"
+        "from pilosa_tpu_torch.parallel import fusion\n"
+        "for name in ('build', 'dispatch', 'pack', 'unpack', 'op_signature', 'item_texts'):\n"
+        "    assert callable(getattr(fusion, name)), name\n"
+        "for name in ('fused_tree', 'fused_tree_cuda', 'fused_tree_plain', 'compile_fused'):\n"
+        "    assert callable(getattr(kernels, name)), name\n"
+        "assert 'fused_tree' in build.KERNELS\n"
+        "eng = ex.engine\n"
+        "got = eng.fused_many('i', [({'kind': 'sum', 'field': 'v', 'filter': None}, [0]),\n"
+        "                           ({'kind': 'count', 'call': ex._parse_cached('Row(t=1)').calls[0]},\n"
+        "                            [0])])\n"
+        "assert got == [(6, 3), 2], got\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
