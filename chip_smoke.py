@@ -148,6 +148,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    exact; bench.py's dashboard_fused_qps, dashboard_p50_ms,
    dashboard_fused_speedup and dashboard_crossindex_p50_ms, and F1 at the
    10-widget shape against its plain version and its bound.
+   http — after fusion, before phase 5: pilosa_tpu_torch.net.server.serve
+   over the same holder and engine on the default (async reactor)
+   backend, as bench.py:806-824 serves them, with bench.py's v10 added to
+   b10m.  Over HTTP, the launch counters zeroed first: Count(Intersect) on
+   f (K1) and s (K2), the 8-Count query (K5), TopN(top, Row(f=10), n=5)
+   (K3), Sum(field=v10) (K6), GroupBy(ga, gb) (K8), a protobuf query and a
+   protobuf import, and an import-roaring into f synced in place
+   (stack_updates +1, stack_rebuilds +0); every answer against numpy and
+   each of those counters moved.  Then bench.py's loops with the memo
+   off, every reply 200 and checked: http_count_e2e_p50 (30 sequential
+   urllib requests of the c2 texts), http_count_qps (one client process,
+   640 connections x 32, after the warm of tiers 1, 9, 65 and 257; the
+   batcher's batches, mean batch and K5's launches by K, those at
+   K >= 256 among them) and http_mixed_qps (Count, Count, TopN, Sum; F1's
+   launches counted); the same p50 on the threaded backend; and the node
+   through its entry point: python -m pilosa_tpu_torch server on a data
+   directory under build/http_node, b10m's 128 rows on 2 shards by
+   import-roaring through InternalClient, the c2 Counts, the CLI's export
+   and backup of a small index, SIGTERM, a restart whose warm start must
+   build every stack and skip none before /readyz answers 200, and the
+   Counts again; /metrics carries pilosa_server_requests_total, and the
+   node must exit 0 with no traceback.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -1416,6 +1438,23 @@ def popcounts(words):
     return ((x * u(0x0101010101010101)) >> u(56)).sum(axis=-1, dtype=np.int64)
 
 
+def and_popcounts(a, b, threads=8):
+    """popcounts(a & b) over uint64[S, W64] words, the shards split over
+    ``threads`` threads (numpy's ufuncs release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if a.ndim < 2 or a.shape[0] < 2 * threads:
+        return popcounts(a & b)
+    cuts = np.linspace(0, a.shape[0], threads + 1).astype(int)
+
+    def one(i):
+        lo, hi = cuts[i], cuts[i + 1]
+        return popcounts(a[lo:hi] & (b if b.ndim == 1 else b[lo:hi]))
+
+    with ThreadPoolExecutor(threads) as pool:
+        return np.concatenate(list(pool.map(one, range(threads))))
+
+
 def _by_count(pairs):
     return sorted(pairs, key=lambda p: (-p[1], -p[0]))
 
@@ -1433,7 +1472,7 @@ class TopNOracle:
         self.cnt = {r: popcounts(w) for r, w in host_top.items()}  # int64[S]
 
     def scores(self, src):
-        return {r: popcounts(w & src) for r, w in self.top.items()}, popcounts(src)
+        return {r: and_popcounts(w, src) for r, w in self.top.items()}, popcounts(src)
 
     def fused(self, src, n, thr=1, ids=None):
         sc, _ = self.scores(src)
@@ -3186,7 +3225,9 @@ def run_groupby_path(device, holder, engine, ex, host, seed, err):
 # -- the api phase: pilosa_tpu_torch.api.API on the north-star index ---------
 
 FK_ROWS = 24  # field fk: keys "k00".."k23", drawn like f
-USER_KEYS = 1 << 20  # index users: one full shard of column keys
+# Index users: a quarter of one shard of column keys (the api phase's
+# depth, cut from a full shard, 2^20, to keep the script's time).
+USER_KEYS = 1 << 18
 USER_BATCH = 1 << 16  # keys per import_bits request
 SEGS = 8  # field seg: keyed rows "seg0".."seg7"
 N_COL_ATTRS = 1000  # columns of users given attributes
@@ -3922,6 +3963,622 @@ def bitops_popcount(words, gate):
     return bitops.popcount_words(words[gate != 0]).sum()
 
 
+# -- the http phase: the HTTP node (bench.py:804-1283) ------------------------
+
+HTTP_REPS = 30  # bench.py HTTP_REPS: sequential requests of the c2 texts
+QPS_CONNS, QPS_PER_CONN = 640, 32  # bench.py run_qps: one client process
+WARM_TIERS = (1, 9, 65, 257)  # bench.py:943-946
+NODE_SHARDS = N_SHARDS_10M  # the node's b10m: config 2's 10 shards
+NODE_READY_S = 60.0
+
+# bench.py's raw-socket load generator (bench.py:868-910), one process of
+# many persistent connections, and every reply checked: status 200 and the
+# body's results equal to the oracle's (the bytes before its traceID).
+QPS_CLIENT = r"""
+import json, socket, sys, threading, time
+port, n_threads, per_conn = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+doc = json.loads(sys.stdin.read())
+texts, wants = doc["texts"], [w.encode() for w in doc["wants"]]
+
+def build(body):
+    b = body.encode()
+    return (b"POST /index/b10m/query HTTP/1.1\r\nHost: l\r\n"
+            b"Content-Type: application/json\r\n"
+            b"Content-Length: " + str(len(b)).encode() + b"\r\n\r\n" + b)
+
+reqs = [build(t) for t in texts]
+done, bad = [], []
+lock = threading.Lock()
+
+def worker(tid):
+    n = 0
+    try:
+        s = socket.create_connection(("localhost", port), timeout=300)
+        f = s.makefile("rb")
+        for j in range(per_conn):
+            k = (tid * per_conn + j) % len(reqs)
+            s.sendall(reqs[k])
+            line = f.readline()
+            clen = 0
+            while True:
+                h = f.readline()
+                if h in (b"\r\n", b""):
+                    break
+                if h.lower().startswith(b"content-length:"):
+                    clen = int(h.split(b":")[1])
+            body = f.read(clen)
+            rest = body[len(wants[k]):]
+            if (not line.startswith(b"HTTP/1.1 200") or not body.startswith(wants[k])
+                    or not rest.startswith(b', "traceID": "')):
+                with lock:
+                    bad.append([texts[k], line.decode(errors="replace"),
+                                body[:200].decode(errors="replace")])
+            n += 1
+        s.close()
+    except Exception as e:
+        with lock:
+            bad.append(["worker", repr(e), ""])
+    finally:
+        with lock:
+            done.append(n)
+
+threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+t0 = time.perf_counter()
+for t in threads: t.start()
+for t in threads: t.join()
+print(json.dumps({"n": sum(done), "seconds": time.perf_counter() - t0, "bad": len(bad),
+                  "first_bad": bad[:3]}))
+"""
+
+
+def _results_prefix(results):
+    """The bytes a query response starts with: ``{"results": [...]`` as
+    the node's JSON encoder writes them."""
+    return '{"results": ' + json.dumps(results)
+
+
+def run_qps(port, texts, wants, conns=QPS_CONNS, per_conn=QPS_PER_CONN):
+    """bench.py's QPS loop: one client subprocess, ``conns`` connections
+    of ``per_conn`` requests each; every reply 200 and exact.  Returns
+    (queries/s, requests)."""
+    payload = json.dumps({"texts": texts, "wants": [_results_prefix(w) for w in wants]})
+    proc = subprocess.run([sys.executable, "-c", QPS_CLIENT, str(port), str(conns),
+                           str(per_conn)], input=payload, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"http: the QPS client failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    if out["bad"] or out["n"] != conns * per_conn:
+        raise AssertionError(f"http: {out['bad']} bad replies of {out['n']}: {out['first_bad']}")
+    return out["n"] / out["seconds"], out["n"]
+
+
+def _http_launches():
+    from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
+
+    return {"count_tree_dense": kernels.count_tree_dense.launches,
+            "count_tree_blocks": sparse.count_tree_blocks_cuda.launches,
+            "score_rows": kernels.score_rows_cuda.launches,
+            "count_batch_tree": kernels.count_batch_tree_cuda.launches,
+            "sum_tree": bsi.sum_tree_cuda.launches,
+            "minmax_tree": bsi.minmax_tree_cuda.launches,
+            "groupn_tree": groupby.groupn_tree_cuda.launches,
+            "fused_tree": kernels.fused_tree_cuda.launches,
+            "range_leaf": kernels.range_leaf.launches}
+
+
+def _zero_http_launches():
+    from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
+
+    for fn in (kernels.count_tree_dense, sparse.count_tree_blocks_cuda,
+               kernels.score_rows_cuda, kernels.count_batch_tree_cuda, bsi.sum_tree_cuda,
+               bsi.minmax_tree_cuda, groupby.groupn_tree_cuda, kernels.fused_tree_cuda,
+               kernels.range_leaf):
+        fn.launches = 0
+    kernels.count_batch_tree_cuda.by_k.clear()
+
+
+def _frag_words(holder, index, field, view, rows, n_shards):
+    """{row: uint64[S, W64]}: the words the fragments hold."""
+    return {r: np.stack([holder.fragment(index, field, view, s).row_words(r).view(np.uint64)
+                         for s in range(n_shards)]) for r in rows}
+
+
+def c2_queries(w10):
+    """bench.py's c2 texts (32 four-row trees on b10m) and their counts."""
+    texts, wants = [], []
+    for k in range(len(F10_ROWS) // 4):
+        a = 100 + 4 * k
+        texts.append(f"Count(Xor(Difference(Union(Row(f={a}), Row(f={a + 1})), "
+                     f"Row(f={a + 2})), Row(f={a + 3})))")
+        wants.append([int(popcounts(((w10[a] | w10[a + 1]) & ~w10[a + 2]) ^ w10[a + 3]).sum())])
+    return texts, wants
+
+
+def dense_roaring(rows):
+    """Pilosa-roaring bytes of dense rows ({row: uint64[W64]}, each of its
+    16 containers over 4096 bits): one bitmap container per 2^16 bits, the
+    in-fragment positions row * 2^20 + column, as import-roaring takes
+    them (codec.serialize over 2^20 positions a row would cost seconds)."""
+    import struct
+
+    from pilosa_tpu_torch.roaring import codec
+
+    heads, pays = [], []
+    for r in sorted(rows):
+        w = rows[r].reshape(16, 1024)
+        cnt = np.bitwise_count(w).sum(axis=1)
+        for c in range(16):
+            if cnt[c] <= codec.ARRAY_MAX_SIZE:
+                raise AssertionError("dense_roaring: a sparse container")
+            heads.append(struct.pack("<QHH", r * 16 + c, codec.CONTAINER_BITMAP, int(cnt[c]) - 1))
+            pays.append(w[c].astype("<u8").tobytes())
+    out = bytearray(struct.pack("<II", codec.COOKIE, len(heads)))
+    out += b"".join(heads)
+    off = codec.HEADER_BASE_SIZE + len(heads) * 16
+    for p in pays:
+        out += struct.pack("<I", off)
+        off += len(p)
+    out += b"".join(pays)
+    return bytes(out)
+
+
+def _http_post(port, index, body, headers=None, timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://localhost:{port}/index/{index}/query",
+                                 data=body if isinstance(body, bytes) else body.encode(),
+                                 method="POST")
+    req.add_header("Content-Type", "application/json")
+    for k, v in (headers or {}).items():
+        req.add_header(k, v)
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+
+def _http_results(port, index, text, want, what):
+    """One query over HTTP: 200, a traceID, and the results equal to
+    ``want``."""
+    status, ctype, body = _http_post(port, index, text)
+    doc = json.loads(body)
+    if status != 200 or ctype != "application/json" or "traceID" not in doc:
+        raise AssertionError(f"http: {what}: {status} {ctype} {body[:200]!r}")
+    if doc["results"] != want:
+        raise AssertionError(f"http: {what}: port {doc['results']} != numpy oracle {want}")
+    return doc
+
+
+def _seq_p50(port, texts, wants, reps=HTTP_REPS):
+    """bench.py's http_count_e2e_p50: ``reps`` sequential urllib requests
+    of the c2 texts, each answer checked; the median in ms."""
+    lat = []
+    for i in range(reps):
+        k = i % len(texts)
+        t0 = time.perf_counter()
+        _, _, body = _http_post(port, "b10m", texts[k])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if json.loads(body)["results"] != wants[k]:
+            raise AssertionError(f"http: {texts[k]}: {body[:200]!r} != {wants[k]}")
+    return statistics.median(lat)
+
+
+def run_http_path(device, holder, engine, host, seed, node_cmd=None,
+                  node_shards=NODE_SHARDS, conns=QPS_CONNS, per_conn=QPS_PER_CONN):
+    """The http phase, after fusion and before the writes of phase 5:
+    pilosa_tpu_torch.net.server.serve over the north-star index and b10m
+    (with bench.py's v10), as bench.py:806-824 serves them.  Over HTTP,
+    every answer against numpy: Count(Intersect) on f (K1) and s (K2), an
+    8-Count query (K5), a TopN (K3), Sum(field=v10) (K6), a GroupBy (K8),
+    a protobuf query and a protobuf import, and an import-roaring into f
+    synced in place; the launch counters are zeroed first and each must
+    move.  Then bench.py's loops with the memo off, every reply checked:
+    http_count_e2e_p50, http_count_qps (640 connections x 32 after the
+    warm of tiers 1, 9, 65 and 257) and http_mixed_qps; the same p50 on
+    the threaded backend; and the node through its entry point (``python
+    -m pilosa_tpu_torch server``), restarted on its data directory.
+    Returns the phase's numbers."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.net import proto
+    from pilosa_tpu_torch.net.admission import AdmissionController
+    from pilosa_tpu_torch.net.server import serve
+    from pilosa_tpu_torch.parallel import kernels
+
+    cuda = device.type == "cuda"
+    t_phase = t0 = time.perf_counter()
+    out = {"card": card_line()}
+    n_shards = len(host["f"][10])
+    shards10 = list(range(N_SHARDS_10M))
+
+    # bench.py's v10 on b10m (bench.py:459-468): planes 0..7 random, the
+    # not-null plane all ones.
+    rng = np.random.default_rng(seed + 31)
+    v10 = holder.index("b10m").create_field(
+        "v10", FieldOptions(type="int", min=0, max=(1 << BSI_DEPTH) - 1))
+    planes = {p: rng.integers(0, 1 << 64, (N_SHARDS_10M, W64), dtype=np.uint64)
+              for p in range(BSI_DEPTH)}
+    planes[BSI_DEPTH] = np.full((N_SHARDS_10M, W64), (1 << 64) - 1, dtype=np.uint64)
+    for sh in range(N_SHARDS_10M):
+        frag = v10.view_if_not_exists("bsig_v10").fragment_if_not_exists(sh)
+        for p, words in planes.items():
+            frag.load_row_words(p, words[sh])
+        frag.cache.invalidate()
+    sum_want = [{"value": sum((1 << p) * int(popcounts(planes[p]).sum())
+                              for p in range(BSI_DEPTH)),
+                 "count": N_SHARDS_10M << 20}]
+    w10 = _frag_words(holder, "b10m", "f", "standard", F10_ROWS, N_SHARDS_10M)
+    c2_texts, c2_wants = c2_queries(w10)
+    top10 = TopNOracle(w10)
+    mixed_texts, mixed_wants = [], []
+    for k in range(len(F10_ROWS) // 4):
+        a = 100 + 4 * k
+        for j in (k, (k + 7) % len(c2_texts)):
+            mixed_texts.append(c2_texts[j])
+            mixed_wants.append(c2_wants[j])
+        mixed_texts.append(f"TopN(f, Row(f={a}), n=5)")
+        mixed_wants.append([[{"id": r, "count": c} for r, c in top10.fused(w10[a], 5)]])
+        mixed_texts.append("Sum(field=v10)")
+        mixed_wants.append(sum_want)
+    gw = _frag_words(holder, "bench", "ga", "standard", range(G_ROWS["ga"]), n_shards)
+    gb = _frag_words(holder, "bench", "gb", "standard", range(G_ROWS["gb"]), n_shards)
+    group_want = []
+    for a in range(G_ROWS["ga"]):
+        for b in range(G_ROWS["gb"]):
+            n = int(and_popcounts(gw[a], gb[b]).sum())
+            if n:
+                group_want.append({"group": [{"field": "ga", "rowID": a},
+                                             {"field": "gb", "rowID": b}], "count": n})
+    del gw, gb
+    want = expected_counts(host)
+    topn_want = [[{"id": r, "count": c}
+                  for r, c in TopNOracle(host["top"]).fused(host["f"][10], 5)]]
+    log(f"http: b10m's v10 made; numpy oracles in {time.perf_counter() - t0:.3f} s")
+
+    api = API(holder=holder, engine=engine)
+    srv, _ = serve(api, "localhost", 0, admission=AdmissionController(max_inflight=1 << 17))
+    port = srv.server_address[1]
+    try:
+        # -- every kernel of the path, through the routes ------------------
+        fallbacks0 = api.executor.host_fallbacks
+        with memo_off(engine):
+            _zero_http_launches()
+            for field in ("f", "s"):
+                text = pql_of(field, "and", (10, 11))
+                _http_results(port, "bench", text, [want[text]], text)
+            texts8 = eight_counts("f")
+            _http_results(port, "bench", texts8,
+                          [want[pql_of("f", "and", (10 + 2 * k, 11 + 2 * k))] for k in range(8)],
+                          "the 8-Count query")
+            _http_results(port, "bench", "TopN(top, Row(f=10), n=5)", topn_want, "TopN")
+            _http_results(port, "b10m", "Sum(field=v10)", sum_want, "Sum(field=v10)")
+            _http_results(port, "bench", Q8, [group_want], Q8)
+            # Protobuf: a query in and out, and an import.
+            text = pql_of("f", "and", (12, 13))
+            status, ctype, body = _http_post(
+                port, "bench", proto.encode_query_request(text),
+                {"Content-Type": proto.CONTENT_TYPE, "Accept": proto.CONTENT_TYPE})
+            doc = proto.decode_query_response(body, device=device)
+            if (status, ctype, doc["err"], doc["results"]) != (200, proto.CONTENT_TYPE, "",
+                                                               [want[text]]):
+                raise AssertionError(f"http: protobuf {text}: {status} {ctype} {doc}")
+            launches = _http_launches()
+        api.create_field("b10m", "pb")
+        cols = np.unique(rng.integers(0, N_SHARDS_10M << 20, 5000)).tolist()
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"http://localhost:{port}/index/b10m/field/pb/import", method="POST",
+            data=proto.encode_import_request("b10m", "pb", 0, row_ids=[1] * len(cols),
+                                             column_ids=cols),
+            headers={"Content-Type": proto.CONTENT_TYPE})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            if resp.status != 200:
+                raise AssertionError(f"http: protobuf import: {resp.status}")
+        _http_results(port, "b10m", "Count(Row(pb=1))", [len(cols)], "after a protobuf import")
+        # import-roaring into f: half of one shard of row 33 set anew,
+        # synced in place behind the import.
+        sh = n_shards // 2
+        new_cols = np.sort(rng.choice(1 << 20, 1 << 19, replace=False)).astype(np.uint64)
+        upd0, reb0 = engine.stack_updates, engine.stack_rebuilds
+        old = host["f"][33][sh].copy()
+        t0 = time.perf_counter()
+        from pilosa_tpu_torch.roaring import codec
+
+        req = urllib.request.Request(
+            f"http://localhost:{port}/index/bench/field/f/import-roaring/{sh}", method="POST",
+            data=codec.serialize(np.uint64(33 << 20) + new_cols))
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            changed = json.loads(resp.read())["changed"]
+        engine.ingest_syncer().flush()
+        roaring_s = time.perf_counter() - t0
+        # The fragment keeps the oracle's array as the row's storage, or
+        # replaced it: either way the oracle takes the fragment's words.
+        host["f"][33][sh] = holder.fragment("bench", "f", "standard", sh).row_words(33).view(
+            np.uint64)
+        if changed != int(popcounts(host["f"][33][sh] & ~old)):
+            raise AssertionError(f"http: import-roaring changed {changed}")
+        text = pql_of("f", "and", (32, 33))
+        with memo_off(engine):
+            _http_results(port, "bench", text, [int(oracle(host["f"], "and", (32, 33)))],
+                          text + " after import-roaring")
+        out["import_roaring"] = {"changed": changed, "seconds": roaring_s,
+                                 "stack_updates": engine.stack_updates - upd0,
+                                 "stack_rebuilds": engine.stack_rebuilds - reb0}
+        log(f"http: every answer exact over HTTP; launches {json.dumps(launches)}; "
+            f"import-roaring {json.dumps(out['import_roaring'])}")
+        out["launches"] = launches
+        if cuda and min(launches[k] for k in ("count_tree_dense", "count_tree_blocks",
+                                              "count_batch_tree", "score_rows", "sum_tree",
+                                              "groupn_tree")) <= 0:
+            raise AssertionError(f"http: a kernel of the path never launched: {launches}")
+        if (out["import_roaring"]["stack_updates"], out["import_roaring"]["stack_rebuilds"]) \
+                != (1, 0):
+            raise AssertionError(f"http: import-roaring sync {out['import_roaring']}")
+
+        # -- bench.py's loops, the memo off ----------------------------------
+        with memo_off(engine):
+            out["http_count_e2e_p50"] = _seq_p50(port, c2_texts, c2_wants)
+            warm = pql.parse(c2_texts[0]).calls[0].children[0]
+            for k in WARM_TIERS:
+                engine.count_many("b10m", [warm] * k, [shards10] * k)
+            b = engine.batcher()
+            b0, q0 = b.batches, b.batched_queries
+            # The largest drain of this load alone: the gauge keeps a
+            # high-water mark, so it starts from 0 here.
+            b.pipeline.gauge("max_batch_occupancy", 0)
+            _zero_http_launches()
+            qps, n = run_qps(port, c2_texts, c2_wants, conns, per_conn)
+            by_k = dict(kernels.count_batch_tree_cuda.by_k)
+            batches, batched = b.batches - b0, b.batched_queries - q0
+            out["http_count_qps"] = qps
+            snap = engine.pipeline_snapshot() or {}
+            out["count_qps_batches"] = {
+                "requests": n, "batches": batches, "batched_queries": batched,
+                "mean_batch": batched / max(1, batches),
+                "max_batch": snap.get("gauges", {}).get("max_batch_occupancy"),
+                "k5_launches": sum(by_k.values()),
+                "k5_max_k": max(by_k, default=0),
+                "k5_launches_k_ge_256": sum(v for k, v in by_k.items() if k >= 256),
+                "k5_by_k": {str(k): by_k[k] for k in sorted(by_k)}}
+            log(f"http: http_count_e2e_p50 {out['http_count_e2e_p50']:.4f} ms; http_count_qps "
+                f"{qps:.1f} over {n} requests ({conns} connections x {per_conn}), every reply "
+                f"exact; batches {json.dumps(out['count_qps_batches'])}")
+            _zero_http_launches()
+            for text, w in zip(mixed_texts[:8], mixed_wants[:8]):
+                _http_results(port, "b10m", text, w, text)
+            b0, q0 = b.batches, b.batched_queries
+            mixed, n = run_qps(port, mixed_texts, mixed_wants, conns, per_conn)
+            out["http_mixed_qps"] = mixed
+            out["mixed_launches"] = _http_launches()
+            out["mixed_batches"] = {"batches": b.batches - b0,
+                                    "mean_batch": (b.batched_queries - q0)
+                                    / max(1, b.batches - b0)}
+            log(f"http: http_mixed_qps {mixed:.1f} over {n} requests, every reply exact; "
+                f"batches {json.dumps(out['mixed_batches'])}; launches "
+                f"{json.dumps(out['mixed_launches'])} (F1 counted, not required)")
+    finally:
+        srv.shutdown()
+    if api.executor.host_fallbacks != fallbacks0:
+        raise AssertionError("http: a query fell back to the host lane")
+
+    # -- the threaded backend (the reference's differential oracle) ---------
+    srv, _ = serve(api, "localhost", 0, backend="threaded")
+    try:
+        with memo_off(engine):
+            out["http_count_e2e_p50_threaded"] = _seq_p50(srv.server_address[1], c2_texts,
+                                                          c2_wants)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    log(f"http: http_count_e2e_p50 on the threaded backend "
+        f"{out['http_count_e2e_p50_threaded']:.4f} ms")
+    # The layers under HTTP: the same Counts through API.query (the sync
+    # path: the engine's Count, no batcher) and API.query_async (the
+    # batcher, as the reactor submits them), each answer checked.
+    from pilosa_tpu_torch.api import QueryRequest
+
+    for name, run in (("api_query_p50", lambda t: api.query(QueryRequest("b10m", t))),
+                      ("api_query_async_p50",
+                       lambda t: api.query_async(QueryRequest("b10m", t)).result(300))):
+        lat = []
+        with memo_off(engine):
+            for i in range(HTTP_REPS):
+                k = i % len(c2_texts)
+                t0 = time.perf_counter()
+                got = run(c2_texts[k]).results
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if got != c2_wants[k]:
+                    raise AssertionError(f"http: {name} {c2_texts[k]}: {got} != {c2_wants[k]}")
+        out[name] = statistics.median(lat)
+    log(f"http: the same Counts through API.query p50 {out['api_query_p50']:.4f} ms, "
+        f"API.query_async p50 {out['api_query_async_p50']:.4f} ms")
+
+    # -- the node through its entry point -----------------------------------
+    out["node"] = run_http_node(w10, c2_texts, c2_wants, node_cmd, node_shards)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"http: phase {out['seconds']:.3f} s; {out['card']}")
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _start_node(cmd, data_dir, port, log_path):
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    errf = open(log_path, "ab")
+    proc = subprocess.Popen(cmd + ["server", "-d", data_dir, "-b", f"localhost:{port}"],
+                            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=errf)
+    errf.close()
+    return proc
+
+
+def _wait_ready(proc, port, log_path, what):
+    """Poll /readyz until 200 (at most NODE_READY_S from the start); a
+    node still opening its holder has bound its socket but serves nothing
+    yet, so each poll has a short timeout.  Returns (seconds, whether a
+    503 'warming' answer was seen)."""
+    from pilosa_tpu_torch.net import InternalClient
+    from pilosa_tpu_torch.net.client import ClientError
+
+    client = InternalClient(f"http://localhost:{port}", timeout=2.0, retries=0)
+    t0 = time.perf_counter()
+    warming = False
+    while time.perf_counter() - t0 < NODE_READY_S:
+        if proc.poll() is not None:
+            raise AssertionError(f"http: the node exited ({proc.returncode}) {what}: "
+                                 f"{open(log_path).read()[-3000:]}")
+        try:
+            client._get("/readyz")
+            return time.perf_counter() - t0, warming
+        except ClientError as e:
+            if e.code == 503 and "warming" in (e.body or ""):
+                warming = True
+        time.sleep(0.1)
+    raise AssertionError(f"http: /readyz not 200 within {NODE_READY_S} s {what}")
+
+
+def _stop_node(proc, log_path):
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("http: the node did not stop on SIGTERM within 60 s")
+    text = open(log_path).read()
+    if rc != 0 or "Traceback" in text:
+        raise AssertionError(f"http: the node exited {rc}: {text[-3000:]}")
+    return text
+
+
+def run_http_node(w10, c2_texts, c2_wants, node_cmd=None, node_shards=NODE_SHARDS):
+    """``python -m pilosa_tpu_torch server`` as a subprocess on a data
+    directory under build/: b10m's schema through InternalClient, its 128
+    rows over ``node_shards`` shards through import-roaring, the c2 Counts
+    against numpy, ``export`` and ``backup`` of a small index through the
+    CLI, then SIGTERM, a restart on the same directory whose warm start
+    must build every stack and skip none before /readyz answers 200, and
+    the same Counts again.  ``node_cmd`` replaces ``python -m
+    pilosa_tpu_torch`` (a CPU rehearsal)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.net import InternalClient
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "http_node")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_dir, log_path = os.path.join(work, "data"), os.path.join(work, "node.log")
+    cmd = node_cmd or [sys.executable, "-m", "pilosa_tpu_torch"]
+    port = _free_port()
+    out = {}
+    # The oracle over the node's shards.
+    wn = {r: w[:node_shards] for r, w in w10.items()}
+    _, wants = c2_queries(wn)
+    t0 = time.perf_counter()
+    proc = _start_node(cmd, data_dir, port, log_path)
+    try:
+        client = InternalClient(f"http://localhost:{port}", timeout=600)
+        out["start_s"], _ = _wait_ready(proc, port, log_path, "at its first start")
+        # No existence field: bench.py loads b10m's rows with no existence
+        # bits either, and 2^20 columns of existence per shard would
+        # double the import's host work.
+        client._post("/index/b10m", {"options": {"trackExistence": False}})
+        client.create_field("b10m", "f")
+        t1 = time.perf_counter()
+        bodies = [dense_roaring({r: wn[r][sh] for r in F10_ROWS}) for sh in range(node_shards)]
+
+        def imp(sh):
+            return client.import_roaring("b10m", "f", sh, bodies[sh])
+
+        with ThreadPoolExecutor(node_shards) as pool:
+            changed = list(pool.map(imp, range(node_shards)))
+        want_bits = [int(sum(popcounts(wn[r][sh]) for r in F10_ROWS)) for sh in
+                     range(node_shards)]
+        if changed != want_bits:
+            raise AssertionError(f"http: node import-roaring changed {changed} != {want_bits}")
+        out["import_s"] = time.perf_counter() - t1
+        out["import_bytes"] = sum(len(b) for b in bodies)
+        del bodies
+
+        def counts(c):
+            for text, w in zip(c2_texts, wants):
+                doc = c.query("b10m", text)
+                if doc["results"] != w or "traceID" not in doc:
+                    raise AssertionError(f"http: node {text}: {doc} != {w}")
+
+        counts(client)
+        # A small index for the CLI's export and backup.
+        client.create_index("tiny")
+        client.create_field("tiny", "f")
+        client.query("tiny", "Set(1, f=10) Set(1048580, f=10) Set(2, f=11)")
+        host_arg = ["--host", f"http://localhost:{port}"]
+        env = dict(os.environ, PYTHONPATH=root)
+        res = subprocess.run(cmd + ["export"] + host_arg + ["-i", "tiny", "-f", "f"], cwd=root,
+                             env=env, capture_output=True, text=True, timeout=120)
+        if res.returncode != 0 or sorted(res.stdout.split()) != ["10,1", "10,1048580", "11,2"]:
+            raise AssertionError(f"http: export: {res.returncode} {res.stdout!r} {res.stderr}")
+        archive = os.path.join(work, "tiny.tar.gz")
+        res = subprocess.run(cmd + ["backup"] + host_arg + ["-i", "tiny", "-o", archive],
+                             cwd=root, env=env, capture_output=True, text=True, timeout=120)
+        if res.returncode != 0 or not os.path.getsize(archive):
+            raise AssertionError(f"http: backup: {res.returncode} {res.stderr}")
+        out["backup"] = res.stdout.strip()
+        metrics = client._get("/metrics", raw=True).decode()
+        if "pilosa_server_requests_total" not in metrics:
+            raise AssertionError("http: /metrics lacks pilosa_server_requests_total")
+        first_log = _stop_node(proc, log_path)
+        # The restart: the warm start builds every stack before /readyz is 200.
+        t1 = time.perf_counter()
+        proc = _start_node(cmd, data_dir, port, log_path)
+        client = InternalClient(f"http://localhost:{port}", timeout=600)
+        out["restart_ready_s"], out["warming_seen"] = _wait_ready(proc, port, log_path,
+                                                                  "after its restart")
+        line = None
+        for _ in range(50):
+            text = open(log_path).read()[len(first_log):]
+            line = next((ln for ln in text.splitlines() if "warm-start done" in ln), None)
+            if line is not None:
+                break
+            time.sleep(0.1)
+        import re
+
+        m = re.search(r"warm-start done: (\d+)/(\d+) stacks resident \((\d+) skipped\)",
+                      line or "")
+        if m is None or m.group(1) != m.group(2) or m.group(3) != "0" or int(m.group(2)) < 2:
+            raise AssertionError(f"http: the restart's warm start: {line!r}")
+        out["warm_start"] = line.split("warm-start done: ")[1]
+        ready = client.readiness()
+        if not ready["ready"] or not ready["warming"]["done"]:
+            raise AssertionError(f"http: /readyz after the warm start: {ready}")
+        counts(client)
+        _stop_node(proc, log_path)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"http: the node (python -m pilosa_tpu_torch server, {node_shards} shards x "
+        f"{len(F10_ROWS)} rows, {out['import_bytes'] / 1e6:.1f} MB by import-roaring in "
+        f"{out['import_s']:.3f} s) answered the 32 c2 Counts exactly, before and after a "
+        f"SIGTERM and restart (warm start {out['warm_start']}; /readyz 200 after "
+        f"{out['restart_ready_s']:.3f} s, warming seen {out['warming_seen']}); export and "
+        f"backup ran; {out['seconds']:.3f} s")
+    return out
+
+
 # -- phase 5: the write path -------------------------------------------------
 
 OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
@@ -4609,6 +5266,13 @@ def main(argv=None):
     if args.check_only:
         log(f"check-only: every kernel exact against its plain version: {err}")
         return 0
+    timeline, t_mark = {"build_and_checks": time.perf_counter() - t0}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        timeline[name] = now - t_mark[0]
+        t_mark[0] = now
+
     holder, engine, ex, host, launches = run_main_path(device, N_SHARDS, args.seed)
     topn_launches, engine_less_query = run_topn_main_path(device, holder, engine, ex, host)
     launches.update(topn_launches)
@@ -4619,6 +5283,7 @@ def main(argv=None):
     for v in launches.values():
         if v <= 0:
             raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    mark("main_path")
     kern = time_kernels(engine, ex, device, err, launches)
     kern += time_topn(engine, ex, holder, device, err, launches)
     rows_f = time_batch_f(engine, device, err, args.seed)
@@ -4626,21 +5291,32 @@ def main(argv=None):
     engine_less_kernels(holder, *engine_less_query)
     q = "TopN(top, Row(f=10), n=5)"
     engine_topn_kernels(ex, q, TopNOracle(host["top"]).fused(host["f"][10], 5))
+    mark("kernel_times")
     serve, k5_launches, b10m_row = run_serve_path(device, holder, engine, ex, host, args.seed)
     log("serve: " + json.dumps(serve))
     kern.append(k5_entry(rows_f, b10m_row, k5_launches, err))
+    mark("serve")
     bsi_out, bsi_entries = run_bsi_path(device, holder, engine, ex, host, args.seed, err)
     log("bsi: " + json.dumps(bsi_out))
     kern += bsi_entries
+    mark("bsi")
     group_out, group_entry = run_groupby_path(device, holder, engine, ex, host, args.seed, err)
     log("groupby: " + json.dumps(group_out))
     kern.append(group_entry)
+    mark("groupby")
     log("api: " + json.dumps(run_api_path(device, holder, engine, ex, host, args.seed)))
+    mark("api")
     fusion_out, fusion_entry = run_fusion_path(device, holder, engine, ex, args.seed, err)
     log("fusion: " + json.dumps(fusion_out))
     kern.append(fusion_entry)
+    mark("fusion")
+    log("http: " + json.dumps(run_http_path(device, holder, engine, host, args.seed)))
+    mark("http")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
+    mark("write")
+    log("timeline (s): " + json.dumps({k: round(v, 3) for k, v in timeline.items()})
+        + f"; total {time.perf_counter() - t0:.3f} s")
     log(card_line())
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {

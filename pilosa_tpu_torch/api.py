@@ -9,7 +9,12 @@ translation.  Keys are translated only here: the executor gets a
 ``QueryTranslator`` over the API's ``TranslateFile``.
 
 Every import notifies the engine's ``IngestSyncer``, so resident stacks
-sync in place behind the write instead of on the next query's path.
+sync in place behind the write instead of on the next query's path, and
+records the ``pilosa_ingest_*`` series.  ``query`` and ``query_async``
+open the ``api.Query`` span (its trace id rides the response), observe
+``pilosa_query_seconds`` and write the long-query log line.  The node
+facts a single node answers (``node``, ``hosts``, ``state``,
+``readiness``, ``warm_status``) back ``/status`` and ``/readyz``.
 
 The reference's other methods belong to modules not ported yet; calling one
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it
@@ -22,7 +27,8 @@ import csv
 import datetime as dt
 import os
 import shutil
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -30,12 +36,26 @@ from . import __version__
 from .core.field import FieldOptions
 from .core.fragment import SHARD_WIDTH
 from .core.holder import Holder
+from .core.rowstore import SPARSE_MAX
 from .core.translate import TranslateFile
 from .core.view import VIEW_STANDARD
 from .executor import ExecOptions, Executor, QueryResponse
 from .executor.translate import QueryTranslator
 from .parallel.engine import TorchEngine
 from .roaring import codec
+from .util import events as events_mod
+from .util import tracing
+from .util.logger import NopLogger
+from .util.stats import (
+    INGEST_PATHS,
+    METRIC_INGEST_BATCHES,
+    METRIC_INGEST_BITS,
+    METRIC_INGEST_CHANGED,
+    METRIC_INGEST_SECONDS,
+    METRIC_QUERY,
+    REGISTRY,
+)
+from .util.tracing import Tracer
 
 # Methods of the reference's API that this module leaves out, and the
 # ROADMAP.md item that ports each.
@@ -45,15 +65,10 @@ _ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 _UNPORTED = {
     "fast_counts": _ITEM_8_14,
     "cq": _ITEM_8_14,
-    "readiness": _ITEM_14,
-    "warm_status": _ITEM_14,
     "recalculate_caches": _ITEM_14,
     "attach_cluster": _ITEM_15,
     "cluster_message": _ITEM_15,
     "shard_nodes": _ITEM_15,
-    "hosts": _ITEM_15,
-    "node": _ITEM_15,
-    "state": _ITEM_15,
     "set_coordinator": _ITEM_15,
     "remove_node": _ITEM_15,
     "resize_abort": _ITEM_15,
@@ -80,7 +95,8 @@ class QueryRequest:
     """handler.go:21-47, single node.  ``remote`` (a peer's replay) and
     ``profile`` (the query plan) are accepted so that a caller that sets
     them gets an error naming the item that ports them, never a silently
-    different response."""
+    different response.  ``trace_context`` (the caller's X-Trace-Id) roots
+    the query's span in the caller's trace."""
 
     def __init__(
         self,
@@ -91,6 +107,7 @@ class QueryRequest:
         exclude_row_attrs: bool = False,
         exclude_columns: bool = False,
         remote: bool = False,
+        trace_context=None,
         profile: bool = False,
     ):
         self.index = index
@@ -100,6 +117,7 @@ class QueryRequest:
         self.exclude_row_attrs = exclude_row_attrs
         self.exclude_columns = exclude_columns
         self.remote = remote
+        self.trace_context = trace_context
         self.profile = profile
 
 
@@ -151,21 +169,48 @@ class API:
     """One node's API.  With no ``holder`` it builds an in-memory Holder,
     and with no ``engine`` a ``TorchEngine`` over the holder, both on the
     card unless ``device`` names another (``"cpu"`` in tests); with no
-    ``translate_store`` an in-memory ``TranslateFile``."""
+    ``translate_store`` an in-memory ``TranslateFile``.  ``stats``,
+    ``tracer``, ``logger``, ``journal`` and ``long_query_time`` are the
+    reference's (pilosa_tpu/api.py:140-200): the default tracer is a real
+    span tracer, so every response carries a trace id.  ``node`` is the
+    dict ``/status`` reports for this node (the Server passes its id and
+    address).  ``with_engine=False`` builds no engine: every query runs on
+    the host lane (the Server's ``[mesh] devices = -1``)."""
 
     def __init__(self, holder: Optional[Holder] = None,
                  translate_store: Optional[TranslateFile] = None,
-                 engine: Optional[TorchEngine] = None, device=None):
+                 engine: Optional[TorchEngine] = None, device=None, stats=None,
+                 tracer=None, long_query_time: float = 0.0, logger=None, journal=None,
+                 node: Optional[dict] = None, with_engine: bool = True):
+        self.long_query_time = long_query_time
+        self.logger = logger if logger is not None else NopLogger()
+        self.journal = journal if journal is not None else events_mod.JOURNAL
+        self.tracer = tracer if tracer is not None else Tracer()
+        self._node = node
+        # Wired by net.serve() on the event-loop backend.
+        self.admission = None
+        # Whole-query latency and ingest series, resolved once: the hot
+        # paths pay the per-series locks only.
+        self._h_query_sync = REGISTRY.histogram(METRIC_QUERY, path="sync")
+        self._h_query_pipelined = REGISTRY.histogram(METRIC_QUERY, path="pipelined")
+        self._ingest_series = {
+            path: (REGISTRY.counter(METRIC_INGEST_BATCHES, path=path),
+                   REGISTRY.counter(METRIC_INGEST_BITS, path=path),
+                   REGISTRY.histogram(METRIC_INGEST_SECONDS, path=path))
+            for path in INGEST_PATHS
+        }
+        self._ingest_changed = REGISTRY.counter(METRIC_INGEST_CHANGED)
         self.holder = holder if holder is not None else Holder(device=device)
         if not self.holder.opened:
             self.holder.open()
         self.translate_store = (
             translate_store if translate_store is not None else TranslateFile()
         )
-        self.engine = (engine if engine is not None
+        self.engine = (engine if engine is not None or not with_engine
                        else TorchEngine(self.holder, device=self.holder.device))
         self.executor = Executor(self.holder, engine=self.engine,
-                                 translator=QueryTranslator(self.translate_store))
+                                 translator=QueryTranslator(self.translate_store),
+                                 stats=stats)
 
     def __getattr__(self, name):
         item = _UNPORTED.get(name)
@@ -176,7 +221,8 @@ class API:
 
     def close(self):
         """Stop the engine's workers and close the holder."""
-        self.engine.close()
+        if self.engine is not None:
+            self.engine.close()
         self.holder.close()
 
     # -- queries (api.go Query :102) ---------------------------------------
@@ -193,16 +239,60 @@ class API:
                            exclude_columns=req.exclude_columns,
                            column_attrs=req.column_attrs)
 
+    def _long_query(self, req: QueryRequest, elapsed: float, span):
+        """The long-query log line (api.go:1021, server LongQueryTime)."""
+        if self.long_query_time and elapsed > self.long_query_time:
+            self.logger.printf("%.3fs > %.1fs: %s %s (trace %s)", elapsed,
+                               self.long_query_time, req.index, str(req.query)[:200],
+                               span.trace_id if span is not None else "-")
+
     def query(self, req: QueryRequest) -> QueryResponse:
-        return self.executor.execute(req.index, req.query, req.shards, self._exec_options(req))
+        opt = self._exec_options(req)
+        start = time.monotonic()
+        with self.tracer.start_span("api.Query", parent=req.trace_context, index=req.index,
+                                    remote=req.remote) as span:
+            resp = self.executor.execute(req.index, req.query, req.shards, opt)
+        elapsed = time.monotonic() - start
+        self._h_query_sync.observe(elapsed)
+        if span is not None:
+            resp.trace_id = span.trace_id
+        self._long_query(req, elapsed, span)
+        return resp
 
     def query_async(self, req: QueryRequest):
         """Deferred query: a future (``result``/``add_done_callback`` ->
-        QueryResponse) when the executor can pipeline the request (an
-        all-Count query through the batcher), else None, and the caller
-        runs ``query``."""
-        return self.executor.execute_async(req.index, req.query, req.shards,
-                                           self._exec_options(req))
+        QueryResponse, its span at ``trace_span``) when the executor can
+        pipeline the request (an all-Count query through the batcher),
+        else None, and the caller runs ``query``.  Nothing here waits on
+        the card: the reactor thread calls it."""
+        opt = self._exec_options(req)
+        start = time.monotonic()
+        # Begun here, finished by the completion callback on the
+        # batcher's drain thread.
+        span = self.tracer.begin("api.Query", parent=req.trace_context, index=req.index,
+                                 pipelined=True)
+        with tracing.attach(span):
+            fut = self.executor.execute_async(req.index, req.query, req.shards, opt)
+        if fut is None:
+            # Declined: drop the provisional span from a live parent's
+            # tree; query() roots its own for the retry.
+            if span is not None and span.parent is not None:
+                try:
+                    span.parent.children.remove(span)
+                except ValueError:
+                    pass
+            return None
+        fut.trace_span = span
+
+        def _finish(_f):
+            elapsed = time.monotonic() - start
+            if span is not None:
+                span.finish()
+            self._h_query_pipelined.observe(elapsed)
+            self._long_query(req, elapsed, span)
+
+        fut.add_done_callback(_finish)
+        return fut
 
     # -- schema (api.go :129-386, 625-687) ---------------------------------
 
@@ -267,6 +357,7 @@ class API:
         """Bulk bit import: translate the keys, then one bulk write per
         fragment (api.go Import :787-894).  ``clear`` removes the given
         bits instead (the handler's ?clear=true, http/handler.go:1002)."""
+        t0 = time.monotonic()
         idx = self.index(req.index)
         f = self.field(req.index, req.field)
         col_ids = req.column_ids
@@ -301,12 +392,13 @@ class API:
         if not clear and ef is not None and len(col_ids):
             ef.import_bulk(np.zeros(len(col_ids), dtype=np.int64), col_ids)
         f.import_bulk(row_ids, col_ids, ts, clear=clear)
-        self.engine.ingest_syncer().notify(req.index)
+        self._ingest_done("bits", req.index, len(col_ids), t0)
 
     def import_values(self, req: ImportValueRequest, clear: bool = False,
                       fresh: bool = False):
         """BSI value import (api.go ImportValue :895); ``fresh`` is the
         caller's promise that the columns hold no value yet."""
+        t0 = time.monotonic()
         idx = self.index(req.index)
         f = self.field(req.index, req.field)
         col_ids = np.asarray(req.column_ids).tolist()
@@ -319,25 +411,49 @@ class API:
         if not clear and ef is not None and len(col_ids):
             ef.import_bulk([0] * len(col_ids), col_ids)
         f.import_values(col_ids, req.values, clear=clear, fresh=fresh)
-        self.engine.ingest_syncer().notify(req.index)
+        self._ingest_done("values", req.index, len(col_ids), t0)
 
     def import_roaring(self, index_name: str, field_name: str, shard: int, data: bytes,
                        view: str = VIEW_STANDARD, clear: bool = False) -> int:
         """Union (or clear) a serialized roaring bitmap into one fragment,
         the fast ingest path (api.go:290-349).  The bitmap is decoded once,
-        and its positions serve both the fragment and the existence field.
+        by rows where it holds dense rows (``codec.decode_rows``),
+        and serves both the fragment and the existence field.
         Returns bits changed."""
+        t0 = time.monotonic()
         idx = self.index(index_name)
         f = self.field(index_name, field_name)
         frag = f.view_if_not_exists(view).fragment_if_not_exists(shard)
-        positions = codec.deserialize(data).values
-        n = frag.import_roaring(data, clear=clear, values=positions)
         ef = idx.existence_field()
-        if ef is not None and not clear and positions.size:
-            cols = (positions % SHARD_WIDTH).astype(np.int64) + shard * SHARD_WIDTH
+        by_rows = codec.decode_rows(data, SPARSE_MAX)
+        if by_rows is not None:
+            n = frag.import_roaring(data, clear=clear, by_rows=by_rows)
+            bits = by_rows.bits()
+            cols = by_rows.columns() if ef is not None and not clear else None
+        else:
+            positions = codec.deserialize(data).values
+            n = frag.import_roaring(data, clear=clear, values=positions)
+            bits = int(positions.size)
+            cols = np.unique(positions % SHARD_WIDTH).astype(np.int64)
+        if ef is not None and not clear and cols.size:
+            cols = cols + shard * SHARD_WIDTH
             ef.import_bulk(np.zeros(len(cols), dtype=np.int64), cols)
-        self.engine.ingest_syncer().notify(index_name)
+        self._ingest_done("roaring", index_name, bits, t0, changed=n)
         return n
+
+    def _ingest_done(self, path: str, index_name: str, bits: int, t0: float,
+                     changed: int = 0):
+        """Record one applied import batch (the pilosa_ingest_* series) and
+        notify the engine's sync worker, so resident stacks sync behind
+        the write instead of on the next query's path."""
+        batches, bits_c, hist = self._ingest_series[path]
+        batches.inc()
+        bits_c.inc(bits)
+        hist.observe(time.monotonic() - t0)
+        if changed:
+            self._ingest_changed.inc(changed)
+        if self.engine is not None:
+            self.engine.ingest_syncer().notify(index_name)
 
     # -- export (api.go ExportCSV :416) ------------------------------------
 
@@ -371,6 +487,46 @@ class API:
     def available_shards_by_index(self) -> Dict[str, List[int]]:
         return {name: [int(s) for s in idx.available_shards()]
                 for name, idx in self.holder.indexes.items()}
+
+    def node(self) -> dict:
+        """This node as ``/status`` reports it (api.go Node)."""
+        if self._node is not None:
+            return dict(self._node)
+        return {"id": "local", "uri": "http://localhost:10101", "isCoordinator": True}
+
+    def hosts(self) -> List[dict]:
+        return [self.node()]
+
+    def state(self) -> str:
+        return "NORMAL"
+
+    def readiness(self) -> Tuple[bool, List[str]]:
+        """Readiness verdict with reason strings (the GET /readyz
+        contract): ready iff the holder is open and the engine's warm
+        start, when one ran this boot, is done."""
+        reasons: List[str] = []
+        if not self.holder.opened:
+            reasons.append("holder not opened")
+        ws = self.warm_status()
+        if ws is not None and not ws["done"]:
+            reasons.append(f"warming: residency {ws['fraction']:.0%} "
+                           f"({ws['built']}/{ws['total']} stacks)")
+        return (not reasons), reasons
+
+    def warm_status(self) -> Optional[dict]:
+        """The engine's warm-start progress ({"done", "fraction", "built",
+        "total", "skipped"}), or None when no warm start ran this boot."""
+        ws = getattr(self.engine, "warm_state", None)
+        if ws is None:
+            return None
+        total = ws.get("total") or 0
+        return {
+            "done": bool(ws.get("done")),
+            "built": int(ws.get("built", 0)),
+            "total": int(ws.get("total", 0)),
+            "skipped": int(ws.get("skipped", 0)),
+            "fraction": 1.0 if not total else min(1.0, ws.get("built", 0) / total),
+        }
 
     def version(self) -> str:
         return __version__

@@ -56,7 +56,7 @@ from ..parallel.mesh import resolve_device
 from ..roaring import codec
 from . import cache as cache_mod
 from .row import Row
-from .rowstore import RowStore
+from .rowstore import SPARSE_MAX, RowStore
 
 SHARD_WIDTH = ops.SHARD_WIDTH
 WORDS64 = bitops.WORDS64
@@ -221,7 +221,16 @@ class Fragment:
         if os.path.exists(self.path):
             with open(self.path, "rb") as f:
                 data = f.read()
+        by_rows = None
         if data:
+            try:
+                # A snapshot with no op-log loads its dense rows as words.
+                by_rows = codec.decode_rows(data, SPARSE_MAX)
+            except ValueError:
+                by_rows = None
+        if by_rows is not None:
+            self._load_positions(by_rows.positions, by_rows)
+        elif data:
             try:
                 dec = codec.deserialize(data)
             except ValueError:
@@ -241,14 +250,20 @@ class Fragment:
         self._op_file = open(self.path, "ab")
         self._load_cache_file()
 
-    def _load_positions(self, positions: np.ndarray):
+    def _load_positions(self, positions: np.ndarray, by_rows=None):
         """Storage positions (row*ShardWidth + in-shard col) -> rows,
-        through the same multi-row merge as the bulk-import path."""
-        if positions.size == 0:
+        through the same multi-row merge as the bulk-import path; and the
+        dense rows of ``by_rows`` (``codec.decode_rows``) as they are."""
+        if positions.size == 0 and not (by_rows and by_rows.rows):
             return
-        rows, bounds, pos = self._split_packed(_sorted_unique_u64(positions))
-        new_counts, _, _ = self._store.bulk_merge(rows, bounds, pos)
-        self.cache.bulk_update(rows, new_counts)
+        if by_rows is not None and by_rows.rows:
+            counts = [self._store.set_dense(r, w) for r, w in zip(by_rows.rows, by_rows.words)]
+            self.cache.bulk_update(np.asarray(by_rows.rows, dtype=np.int64),
+                                   np.asarray(counts, dtype=np.int64))
+        if positions.size:
+            rows, bounds, pos = self._split_packed(_sorted_unique_u64(positions))
+            new_counts, _, _ = self._store.bulk_merge(rows, bounds, pos)
+            self.cache.bulk_update(rows, new_counts)
         self.cache.invalidate()
         self._mutex_owners = None
         self._version += 1
@@ -268,6 +283,14 @@ class Fragment:
             return np.empty(0, dtype=np.uint64)
         return np.concatenate(chunks)
 
+    def serialized(self) -> bytes:
+        """The fragment's bits as pilosa-roaring bytes, as
+        ``codec.serialize(self.positions())`` gives them; dense rows are
+        written from their words."""
+        store = self._store
+        return codec.serialize_rows(
+            (r, store.dense.get(r), store.sparse.get(r)) for r in store.row_ids())
+
     @_locked
     def snapshot(self):
         """Compact: write a fresh roaring snapshot, truncate the op-log
@@ -277,7 +300,7 @@ class Fragment:
         if self.path is None:
             self.op_n = 0
             return
-        data = codec.serialize(self.positions())
+        data = self.serialized()
         tmp = self.path + ".snapshotting"
         with open(tmp, "wb") as f:
             f.write(data)
@@ -855,23 +878,61 @@ class Fragment:
 
     @_locked
     def import_roaring(self, data: bytes, clear: bool = False,
-                       values: Optional[np.ndarray] = None) -> int:
+                       values: Optional[np.ndarray] = None, by_rows=None) -> int:
         """Union (or with ``clear``, subtract) a serialized roaring bitmap
         straight into storage (fragment.go importRoaring :1659;
         ImportRoaringRequest.Clear).  ``values``: the storage positions
-        already decoded (the API decodes once and shares them).  The
+        already decoded (the API decodes once and shares them), or
+        ``by_rows``, the body by rows (``codec.decode_rows``: dense rows go
+        in as words, through ``_apply_rows``).  The
         codec's sorted unique positions are the packed (row, pos) keys, as
         row * ShardWidth + col is row << 20 | col, so they feed the
         multi-row merge with no re-sort, and its ``_touch_rows`` marks the
         changed words dirty: the next query syncs a resident stack in
         place.  Returns bits changed."""
         self._check_open()
-        if values is None:
-            values = codec.deserialize(data).values
+        if values is None and by_rows is None:
+            by_rows = codec.decode_rows(data, SPARSE_MAX)
+            if by_rows is None:
+                values = codec.deserialize(data).values
+        if by_rows is not None:
+            changed = self._apply_rows(by_rows.rows, by_rows.words, clear)
+            values = by_rows.positions
+        else:
+            changed = 0
         positions = _sorted_unique_u64(values)
-        changed = self._apply_packed(positions, clear) if positions.size else 0
+        changed += self._apply_packed(positions, clear) if positions.size else 0
         self.cache.invalidate()
         self.snapshot()
+        return changed
+
+    def _apply_rows(self, rows, words, clear: bool) -> int:
+        """OR (or with ``clear``, AND NOT) dense rows into storage, each
+        row's changed 32-bit words logged for the stacks' in-place sync,
+        as ``_apply_packed`` logs a sparse batch's.  Returns bits
+        changed."""
+        store = self._store
+        touched, counts, dirty, changed = [], [], [], 0
+        for r, w in zip(rows, words):
+            if r not in store and clear:
+                continue
+            old = store.words_u64(r)
+            new = old & ~w if clear else old | w
+            diff = np.flatnonzero(new.view(np.uint32) != old.view(np.uint32))
+            if not diff.size:
+                continue
+            n_old = store.count(r)
+            n = store.set_dense(r, new)
+            changed += abs(n - n_old)
+            touched.append(r)
+            counts.append(n)
+            dirty.append(diff.astype(np.int32))
+        if touched:
+            self._mutex_owners = None
+            rows_a = np.asarray(touched, dtype=np.int64)
+            self._touch_rows(rows_a, np.concatenate(dirty),
+                             np.append(0, np.cumsum([d.size for d in dirty])))
+            self.cache.bulk_update(rows_a, np.asarray(counts, dtype=np.int64))
         return changed
 
     @_locked

@@ -88,6 +88,7 @@ from ..ops import bsi as bsi_ops
 from ..parallel.engine import UnsupportedLowering
 from ..parallel.singleflight import SingleFlight
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition, Query
+from ..util.stats import NopStatsClient
 
 TIME_FORMAT = "%Y-%m-%dT%H:%M"  # pilosa.TimeFormat
 
@@ -262,11 +263,13 @@ class ColumnAttrSet:
 
 
 class QueryResponse:
-    __slots__ = ("results", "column_attr_sets")
+    __slots__ = ("results", "column_attr_sets", "trace_id")
 
     def __init__(self, results=None, column_attr_sets=None):
         self.results = results if results is not None else []
         self.column_attr_sets = column_attr_sets
+        # Stamped by the API layer, surfaced as the response's "traceID".
+        self.trace_id: Optional[str] = None
 
 
 def _merge_row_ids(a: List[int], b: List[int], limit: int) -> List[int]:
@@ -360,7 +363,7 @@ class _QueryFuture:
 
     __slots__ = ("_executor", "_index", "_query", "_shards", "_opt", "_slots", "_items",
                  "_event", "_response", "_error", "_callbacks", "_cb_lock", "_draining",
-                 "_pending", "_lock")
+                 "_pending", "_lock", "trace_span")
 
     def __init__(self, executor, index, query, shards, opt, slots, items):
         self._executor = executor
@@ -378,6 +381,8 @@ class _QueryFuture:
         self._draining = False
         self._pending = len(items)
         self._lock = threading.Lock()
+        # The API's deferred span, set by API.query_async.
+        self.trace_span = None
         if not items:
             self._finish_ok()  # every call hit the O(1) lane
         else:
@@ -456,10 +461,13 @@ class Executor:
     _PARSE_CACHE_MAX = 512
     _GROUP_ROWS_MAX = 256
 
-    def __init__(self, holder, engine=None, translator=None):
+    def __init__(self, holder, engine=None, translator=None, stats=None):
         self.holder = holder
         self.engine = engine
         self.translator = translator
+        # Per-call counts by index (the reference's stats.count hooks),
+        # served at /debug/vars by an ExpvarStatsClient.
+        self.stats = stats if stats is not None else NopStatsClient()
         # Parsed-query LRU for read-only queries (writes re-validate).
         self._parse_cache: "OrderedDict[str, Query]" = OrderedDict()
         self._parse_lock = threading.Lock()
@@ -619,6 +627,7 @@ class Executor:
             return None
         items = [(k, eng.batched_count_async(index, ch, shards))
                  for k, ch in enumerate(children) if slots[k] is None]
+        self.stats.count("Count", len(calls), tags=[f"index:{index}"])
         return _QueryFuture(self, index, query, shards, opt, slots, items)
 
     def memo_counts(self, index: str, query: str):
@@ -677,6 +686,7 @@ class Executor:
         if ids is not None and not isinstance(ids, list):
             raise Error("ids must be a list")
         name = c.name
+        self.stats.count(name, 1, tags=[f"index:{index}"])
         if name == "Count":
             return self._execute_count(index, c, shards)
         if name == "Set":
@@ -869,6 +879,7 @@ class Executor:
                 return None
             for k, v in zip(rem_idx, counts):
                 results[k] = v
+        self.stats.count("Count", len(calls), tags=[f"index:{index}"])
         return results
 
     def _mesh_count(self, index, child: Call, shards):

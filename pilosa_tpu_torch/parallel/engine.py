@@ -419,6 +419,9 @@ class TorchEngine:
         self.fused_plan_hits = 0
         self.fused_plan_misses = 0
         self._fused_plans: "OrderedDict[tuple, object]" = OrderedDict()
+        # Warm-start progress ({total, built, skipped, done}); None until
+        # warm_start runs.
+        self.warm_state: Optional[dict] = None
 
     # -- canonical shard axis ---------------------------------------------
 
@@ -710,6 +713,52 @@ class TorchEngine:
             if self._ingest_syncer is None:
                 self._ingest_syncer = IngestSyncer(self)
             return self._ingest_syncer
+
+    # -- warm start (pilosa_tpu/parallel/engine.py:1510) --------------------
+
+    def warm_start(self, indexes=None) -> dict:
+        """Upload every field stack of the just-opened holder to the card
+        while the node already answers queries (the Server runs this on a
+        thread of its own).  Progress lands in ``self.warm_state``
+        ({total, built, skipped, done}), which /readyz reports as
+        ``warming`` until done.  Stacks go in holder order; one that
+        ``torch.cuda.mem_get_info`` says does not fit is skipped and
+        counted, and queries build it on demand as usual.  What waits:
+        the hot-tenant order (``_index_cost``, fed by the plan ledger:
+        ROADMAP.md Queue 1 item 14) and the prefetch thread that assembles
+        stack N+1 on the host while stack N uploads (item 13)."""
+        keys = []
+        for index in list(indexes if indexes is not None else self.holder.indexes):
+            idx = self.holder.index(index)
+            if idx is None or not self.canonical_shards(index):
+                continue
+            for fname, f in list(idx.fields.items()):
+                for vname in list(f.views):
+                    keys.append((index, fname, vname))
+        state = {"total": len(keys), "built": 0, "skipped": 0, "done": False}
+        self.warm_state = state
+        for key in keys:
+            if self._warm_fits(*key) and self.field_stack(*key) is not None:
+                state["built"] += 1
+            else:
+                state["skipped"] += 1
+        state["done"] = True
+        return state
+
+    def _warm_fits(self, index: str, field: str, view: str) -> bool:
+        """Whether the stack of a view (its [R, S, WORDS] words and the
+        occupancy summary) fits the card's free memory now."""
+        if self.device.type != "cuda":
+            return True
+        canonical = self.canonical_shards(index)
+        rows = set()
+        for s in canonical:
+            frag = self.holder.fragment(index, field, view, s)
+            if frag is not None:
+                rows.update(frag.row_ids())
+        need = max(1, len(rows)) * len(canonical) * (bitops.WORDS * 4 + 8)
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return need <= free
 
     def close(self):
         """Stop the ingest worker and the batcher, and drop every cached

@@ -847,10 +847,13 @@ def count_batch_tree_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"count_batch_tree launch failed: cudaError {err}")
     count_batch_tree_cuda.launches += 1
+    count_batch_tree_cuda.by_k[K] = count_batch_tree_cuda.by_k.get(K, 0) + 1
     return out
 
 
 count_batch_tree_cuda.launches = 0
+# Launches by batch size K (the queries of one launch).
+count_batch_tree_cuda.by_k = {}
 
 
 def count_batch_tree(progs, mats: Sequence[torch.Tensor], masks: np.ndarray,

@@ -103,14 +103,19 @@ def serialize(values: np.ndarray) -> bytes:
 
 
 def _serialize_py(values: np.ndarray) -> bytes:
+    headers, payloads = [], []
+    _containers(values, headers, payloads)
+    return _assemble(headers, payloads)
+
+
+def _containers(values: np.ndarray, headers: list, payloads: list) -> None:
+    """Append the containers of a sorted unique u64 vector: their
+    ``(key, type, n)`` headers and payload bytes."""
     values = np.asarray(values, dtype=np.uint64)
     highs = (values >> np.uint64(16)).astype(np.uint64)
     lows_all = (values & np.uint64(0xFFFF)).astype(np.uint16)
     keys, starts = np.unique(highs, return_index=True)
     bounds = np.append(starts, values.size)
-
-    headers = []
-    payloads = []
     for i, key in enumerate(keys):
         lows = lows_all[bounds[i] : bounds[i + 1]]
         ctype = container_type_for(lows)
@@ -124,18 +129,66 @@ def _serialize_py(values: np.ndarray) -> bytes:
         headers.append((int(key), ctype, lows.size))
         payloads.append(payload)
 
+
+def _assemble(headers: list, payloads: list) -> bytes:
     key_n = len(headers)
     out = bytearray()
     out += struct.pack("<II", COOKIE, key_n)
-    for key, ctype, n in headers:
-        out += struct.pack("<QHH", key, ctype, n - 1)
+    out += b"".join(struct.pack("<QHH", key, ctype, n - 1) for key, ctype, n in headers)
     offset = HEADER_BASE_SIZE + key_n * (8 + 2 + 2 + 4)
-    for payload in payloads:
-        out += struct.pack("<I", offset)
-        offset += len(payload)
-    for payload in payloads:
-        out += payload
+    offs = np.cumsum([offset] + [len(p) for p in payloads[:-1]], dtype=np.int64) \
+        if payloads else np.empty(0, dtype=np.int64)
+    out += offs.astype("<u4").tobytes()
+    out += b"".join(payloads)
     return bytes(out)
+
+
+# Containers per 2^20-bit fragment row: a row's words are 16 containers
+# of 1024 words each, and a storage key is ``row << 4 | container``.
+ROW_CONTAINERS = 16
+_WORDS_PER_CONTAINER = 1024
+
+
+def serialize_rows(rows) -> bytes:
+    """``serialize`` of a fragment's rows, byte for byte, without their
+    positions: ``rows`` yields ``(row, words, positions)`` in ascending
+    row order, ``words`` a dense ``uint64[16384]`` row or None, else
+    ``positions`` the row's sorted in-row ``uint32`` positions.  A dense
+    row's container types come from its words' popcounts and run counts
+    (the number of 1 bits whose lower neighbour is 0), so a bitmap
+    container is copied out as it is."""
+    headers, payloads = [], []
+    sparse = []
+
+    def flush_sparse():
+        if sparse:
+            _containers(np.concatenate(sparse), headers, payloads)
+            sparse.clear()
+
+    for row, words, positions in rows:
+        base = np.uint64(row) << np.uint64(20)
+        if words is None:
+            if positions is not None and positions.size:
+                sparse.append(positions.astype(np.uint64) + base)
+            continue
+        flush_sparse()
+        w = np.ascontiguousarray(words, dtype=np.uint64).reshape(
+            ROW_CONTAINERS, _WORDS_PER_CONTAINER)
+        counts = np.bitwise_count(w).sum(axis=1, dtype=np.int64)
+        below = np.zeros_like(w)
+        below[:, 1:] = w[:, :-1] >> np.uint64(63)
+        runs = np.bitwise_count(w & ~((w << np.uint64(1)) | below)).sum(axis=1, dtype=np.int64)
+        key0 = int(row) * ROW_CONTAINERS
+        for c in np.flatnonzero(counts).tolist():
+            n, r = int(counts[c]), int(runs[c])
+            if (r <= RUN_MAX_SIZE and r <= n // 2) or n < ARRAY_MAX_SIZE:
+                _containers(_words_to_lows(w[c]).astype(np.uint64)
+                            + np.uint64((key0 + c) << 16), headers, payloads)
+            else:
+                headers.append((key0 + c, CONTAINER_BITMAP, n))
+                payloads.append(w[c].astype("<u8").tobytes())
+    flush_sparse()
+    return _assemble(headers, payloads)
 
 
 class _Decoded:
@@ -190,20 +243,14 @@ def _expand_runs(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return np.repeat(starts - shifted, lengths) + np.arange(total)
 
 
-def _deserialize_np(data: bytes) -> _Decoded:
-    """Vectorized decode of the pilosa format: ONE structured-dtype
-    frombuffer for the whole header table, per-container numpy payload
-    decode (array: zero-copy frombuffer; run: repeat/cumsum range
-    expansion; bitmap: unpackbits), and a batch op-log replay
-    (vectorized FNV-1a checksums + last-write-wins set algebra) — no
-    per-byte python on any path a bulk import takes.  Official-format
-    cookies delegate to ``_deserialize_official``; corruption raises
-    the same ValueErrors as the scalar oracle."""
+def _header_table(data: bytes):
+    """The pilosa format's header table: ``(key_n, keys, types, ns,
+    offsets, off_end)``, or None for another cookie."""
     if len(data) < HEADER_BASE_SIZE:
         raise ValueError("roaring: data too small")
     magic, version = struct.unpack_from("<HH", data, 0)
     if magic != MAGIC:
-        return _deserialize_official(data)
+        return None
     if version != VERSION:
         raise ValueError(f"roaring: wrong version {version}")
     key_n = struct.unpack_from("<I", data, 4)[0]
@@ -219,6 +266,22 @@ def _deserialize_np(data: bytes) -> _Decoded:
     keys = hdr["key"].astype(np.uint64)
     types = hdr["type"]
     ns = hdr["n"].astype(np.int64) + 1
+    return key_n, keys, types, ns, offsets, off_end
+
+
+def _deserialize_np(data: bytes) -> _Decoded:
+    """Vectorized decode of the pilosa format: ONE structured-dtype
+    frombuffer for the whole header table, per-container numpy payload
+    decode (array: zero-copy frombuffer; run: repeat/cumsum range
+    expansion; bitmap: unpackbits), and a batch op-log replay
+    (vectorized FNV-1a checksums + last-write-wins set algebra) — no
+    per-byte python on any path a bulk import takes.  Official-format
+    cookies delegate to ``_deserialize_official``; corruption raises
+    the same ValueErrors as the scalar oracle."""
+    table = _header_table(data)
+    if table is None:
+        return _deserialize_official(data)
+    key_n, keys, types, ns, offsets, off_end = table
 
     # Group maximal runs of back-to-back ARRAY containers: a sparse
     # ingest batch (fewer than 4096 bits per 65k-key range) is nothing
@@ -288,6 +351,131 @@ def _deserialize_np(data: bytes) -> _Decoded:
         np.concatenate(chunks) if chunks else np.empty(0, dtype=np.uint64)
     )
     return _replay_ops_np(values, data, ops_offset)
+
+
+class RowsDecoded:
+    """A fragment body decoded by rows (``decode_rows``): ``rows[i]``'s
+    dense words are ``words[i]``; ``positions`` holds the storage
+    positions of every other row, sorted and unique."""
+
+    __slots__ = ("rows", "words", "positions")
+
+    def __init__(self, rows, words, positions):
+        self.rows = rows
+        self.words = words
+        self.positions = positions
+
+    def bits(self) -> int:
+        return int(sum(int(np.bitwise_count(w).sum()) for w in self.words)) + \
+            int(self.positions.size)
+
+    def columns(self) -> np.ndarray:
+        """The sorted unique in-row columns that any row sets."""
+        cols = np.zeros(ROW_CONTAINERS * _WORDS_PER_CONTAINER, dtype=np.uint64)
+        for w in self.words:
+            cols |= w
+        out = _words_to_lows32(cols)
+        if self.positions.size:
+            out = np.union1d(out, (self.positions & np.uint64((1 << 20) - 1)).astype(np.int64))
+        return out
+
+
+def _words_to_lows32(words: np.ndarray) -> np.ndarray:
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    return np.flatnonzero(bits).astype(np.int64)
+
+
+def decode_rows(data: bytes, dense_over: int = ARRAY_MAX_SIZE):
+    """Decode a pilosa-format fragment body by rows: every row of more
+    than ``dense_over`` bits (the headers' counts; a row store keeps such
+    a row dense) as a ``uint64[16384]`` word vector, its bitmap
+    containers copied in and its other containers set bit by bit; every
+    other row as storage positions.  So a dense body never expands into
+    one u64 per set bit.  Returns None where there is nothing to gain or
+    the body needs ``deserialize``: no such row, a non-empty op-log,
+    another cookie.  Corruption raises the ValueErrors ``deserialize``
+    raises."""
+    table = _header_table(data)
+    if table is None:
+        return None
+    key_n, keys, types, ns, offsets, off_end = table
+    row_of = (keys >> np.uint64(4)).astype(np.int64)
+    rows, inv = np.unique(row_of, return_inverse=True)
+    dense_rows = rows[np.bincount(inv, weights=ns, minlength=rows.size) > dense_over]
+    if not dense_rows.size:
+        return None
+    bad = np.flatnonzero(offsets >= len(data))
+    if bad.size:
+        raise ValueError(f"roaring: offset out of bounds: {int(offsets[bad[0]])}")
+    last = key_n - 1
+    ctype, off = int(types[last]), int(offsets[last])
+    if ctype == CONTAINER_ARRAY:
+        end = off + int(ns[last]) * 2
+    elif ctype == CONTAINER_BITMAP:
+        end = off + _WORDS_PER_CONTAINER * 8
+    elif ctype == CONTAINER_RUN:
+        if off + 2 > len(data):
+            raise ValueError("roaring: truncated data: run header")
+        end = off + 2 + struct.unpack_from("<H", data, off)[0] * 4
+    else:
+        raise ValueError(f"roaring: unknown container type {ctype}")
+    if end != len(data):
+        return None  # an op-log to replay (or a truncated tail): deserialize
+    slot = np.searchsorted(dense_rows, row_of)
+    slot[slot >= dense_rows.size] = 0
+    in_dense = dense_rows[slot] == row_of
+    mat = np.zeros((dense_rows.size, ROW_CONTAINERS * _WORDS_PER_CONTAINER), dtype=np.uint64)
+    flat = mat.reshape(-1)
+    in_row = np.uint64((1 << 20) - 1)
+
+    def scatter(pos, slots):
+        at = (pos & in_row).astype(np.int64) >> 6
+        np.bitwise_or.at(flat, at + slots * mat.shape[1], np.uint64(1) << (pos & np.uint64(63)))
+
+    # Every array container in one gather: its u16 values read bytewise.
+    chunks = []
+    arr = np.flatnonzero(types == CONTAINER_ARRAY)
+    if arr.size:
+        a_off, a_n = offsets[arr].astype(np.int64), ns[arr]
+        if (a_off + 2 * a_n > len(data)).any():
+            raise ValueError("roaring: truncated data: array container")
+        first = np.concatenate(([0], np.cumsum(a_n)[:-1]))
+        at = np.repeat(a_off - 2 * first, a_n) + 2 * np.arange(int(a_n.sum()))
+        buf = np.frombuffer(data, dtype=np.uint8)
+        lows = buf[at].astype(np.uint64) | (buf[at + 1].astype(np.uint64) << np.uint64(8))
+        pos = (np.repeat(keys[arr], a_n) << np.uint64(16)) | lows
+        dense = np.repeat(in_dense[arr], a_n)
+        scatter(pos[dense], np.repeat(slot[arr], a_n)[dense])
+        chunks.append(pos[~dense])
+    for i in np.flatnonzero(types != CONTAINER_ARRAY).tolist():
+        ctype, off = int(types[i]), int(offsets[i])
+        if ctype == CONTAINER_BITMAP:
+            if off + _WORDS_PER_CONTAINER * 8 > len(data):
+                raise ValueError("roaring: truncated data: bitmap container")
+            words = np.frombuffer(data, dtype="<u8", count=_WORDS_PER_CONTAINER, offset=off)
+            if in_dense[i]:
+                c = int(keys[i]) & (ROW_CONTAINERS - 1)
+                mat[slot[i], c * _WORDS_PER_CONTAINER:(c + 1) * _WORDS_PER_CONTAINER] |= words
+            else:
+                chunks.append((keys[i] << np.uint64(16)) | _words_to_lows(words).astype(np.uint64))
+        elif ctype == CONTAINER_RUN:
+            if off + 2 > len(data):
+                raise ValueError("roaring: truncated data: run header")
+            run_count = struct.unpack_from("<H", data, off)[0]
+            if off + 2 + run_count * 4 > len(data):
+                raise ValueError("roaring: truncated data: run container")
+            runs = np.frombuffer(data, dtype="<u2", count=run_count * 2,
+                                 offset=off + 2).reshape(run_count, 2).astype(np.int64)
+            lows = _expand_runs(runs[:, 0], runs[:, 1] - runs[:, 0] + 1).astype(np.uint64)
+            pos = (keys[i] << np.uint64(16)) | lows
+            if in_dense[i]:
+                scatter(pos, slot[i])
+            else:
+                chunks.append(pos)
+        else:
+            raise ValueError(f"roaring: unknown container type {ctype}")
+    positions = np.unique(np.concatenate(chunks)) if chunks else np.empty(0, dtype=np.uint64)
+    return RowsDecoded(dense_rows.tolist(), list(mat), positions)
 
 
 def _replay_ops_np(values: np.ndarray, data: bytes, ops_offset: int) -> _Decoded:

@@ -1,19 +1,25 @@
-"""Pipeline telemetry: a fixed-bucket latency histogram and the per-stage
-stats of the count batcher, and the names of the fused-program series.
+"""Telemetry: a fixed-bucket latency histogram, the per-stage stats of the
+count batcher, the process metrics registry that ``GET /metrics`` and
+``/debug/vars`` serve, and the stats clients of the server.
 
-Copies of ``Histogram`` and ``PipelineStats`` from
-``pilosa_tpu/util/stats.py``, minus the process metrics registry that
-feeds ``/metrics`` there (ROADMAP.md Queue 1 item 14 ports that surface):
-the stats live on the batcher that records them and are read through its
-``pipeline_snapshot()``, and the engine's fusion counters are plain
-attributes, named below with the series they will feed.
+Copies from ``pilosa_tpu/util/stats.py``: ``Histogram``,
+``PipelineStats``, ``Counter``, ``MetricsRegistry`` with its classic
+Prometheus exposition, ``REGISTRY``, the ``METRIC_*`` names the serving
+modules record, ``diff_rates`` and the ``NopStatsClient`` /
+``ExpvarStatsClient`` / ``MultiStatsClient`` backends.  What waits for
+the query plans (ROADMAP.md Queue 1 item 14): the OpenMetrics exposition
+with its trace-id exemplars, and the per-tenant cost series.  The
+engine's fusion counters are plain attributes, named below with the
+series that ``/metrics`` publishes them under.
 """
 
 from __future__ import annotations
 
 import bisect
+import re
 import threading
-from typing import Dict, List, Tuple
+import time
+from typing import Dict, List, Optional, Tuple
 
 # -- whole-dashboard fusion (pilosa_tpu/util/stats.py:379-400) ---------------
 #   pilosa_engine_fused_program_programs_total   drains launched as fused
@@ -175,3 +181,404 @@ class PipelineStats:
             "gauges": gauges,
             "counters": counters,
         }
+
+
+class Counter:
+    """One monotonic counter series with a cached handle: ``inc()`` is a
+    single locked add on the series' own lock, so hot paths resolve the
+    series once and never touch the registry lock again."""
+
+    __slots__ = ("value", "_lock")
+
+    def __init__(self):
+        self.value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, value: float = 1.0):
+        with self._lock:
+            self.value += value
+
+    def set(self, value: float):
+        """Publish a total kept elsewhere (an engine attribute) at scrape
+        time."""
+        with self._lock:
+            self.value = float(value)
+
+    def get(self) -> float:
+        with self._lock:
+            return self.value
+
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name: str) -> str:
+    name = _NAME_RE.sub("_", name)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+def _prom_float(v: float) -> str:
+    """Prometheus number formatting: shortest round-trippable text."""
+    return f"{v:.10g}"
+
+
+class MetricsRegistry:
+    """Name + labels -> histogram/counter/gauge, exported as Prometheus
+    text (the /metrics surface) and as a JSON snapshot (merged into
+    /debug/vars).  Label sets are sorted tuples so label order never
+    splits a series."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._hists: Dict[str, Dict[tuple, Histogram]] = {}
+        self._counters: Dict[str, Dict[tuple, Counter]] = {}
+        self._gauges: Dict[str, Dict[tuple, float]] = {}
+        self._help: Dict[str, str] = {}
+
+    @staticmethod
+    def _labelkey(labels: dict) -> tuple:
+        return tuple(sorted(labels.items()))
+
+    def histogram(self, name: str, help: str = "", **labels) -> Histogram:
+        """Get-or-create the histogram series (registering it makes the
+        series visible at /metrics before the first observation)."""
+        key = self._labelkey(labels)
+        with self._lock:
+            if help and name not in self._help:
+                self._help[name] = help
+            series = self._hists.setdefault(name, {})
+            h = series.get(key)
+            if h is None:
+                h = series[key] = Histogram()
+            return h
+
+    def observe(self, name: str, seconds: float, **labels):
+        self.histogram(name, **labels).observe(seconds)
+
+    def counter(self, name: str, help: str = "", **labels) -> Counter:
+        """Get-or-create the counter series handle.  Resolve once per hot
+        path and call ``inc()`` on the handle."""
+        key = self._labelkey(labels)
+        with self._lock:
+            if help and name not in self._help:
+                self._help[name] = help
+            series = self._counters.setdefault(name, {})
+            c = series.get(key)
+            if c is None:
+                c = series[key] = Counter()
+            return c
+
+    def inc(self, name: str, value: float = 1.0, **labels):
+        self.counter(name, **labels).inc(value)
+
+    def set_gauge(self, name: str, value: float, **labels):
+        key = self._labelkey(labels)
+        with self._lock:
+            self._gauges.setdefault(name, {})[key] = value
+
+    def get_histogram(self, name: str, **labels) -> Optional[Histogram]:
+        with self._lock:
+            return self._hists.get(name, {}).get(self._labelkey(labels))
+
+    def get_gauge(self, name: str, **labels) -> Optional[float]:
+        with self._lock:
+            return self._gauges.get(name, {}).get(self._labelkey(labels))
+
+    @staticmethod
+    def _fmt_labels(key: tuple, extra: str = "") -> str:
+        def esc(v) -> str:
+            return str(v).replace("\\", "\\\\").replace('"', '\\"')
+
+        parts = [f'{_prom_name(k)}="{esc(v)}"' for k, v in key]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    def prometheus_text(self) -> str:
+        """The whole registry in the classic Prometheus text exposition."""
+        with self._lock:
+            hists = {n: dict(s) for n, s in self._hists.items()}
+            counters = {n: dict(s) for n, s in self._counters.items()}
+            gauges = {n: dict(s) for n, s in self._gauges.items()}
+            helps = dict(self._help)
+        lines: List[str] = []
+        for name in sorted(hists):
+            pname = _prom_name(name)
+            lines.append(f"# HELP {pname} {helps.get(name, name)}")
+            lines.append(f"# TYPE {pname} histogram")
+            for key in sorted(hists[name]):
+                counts, h_sum, h_count = hists[name][key].export()
+                running = 0
+                for i, bound in enumerate(hists[name][key].buckets):
+                    running += counts[i]
+                    le = self._fmt_labels(key, f'le="{_prom_float(bound)}"')
+                    lines.append(f"{pname}_bucket{le} {running}")
+                le = self._fmt_labels(key, 'le="+Inf"')
+                lines.append(f"{pname}_bucket{le} {running + counts[-1]}")
+                lbl = self._fmt_labels(key)
+                lines.append(f"{pname}_sum{lbl} {_prom_float(h_sum)}")
+                lines.append(f"{pname}_count{lbl} {h_count}")
+        for name in sorted(counters):
+            pname = _prom_name(name)
+            lines.append(f"# HELP {pname} {helps.get(name, name)}")
+            lines.append(f"# TYPE {pname} counter")
+            for key in sorted(counters[name]):
+                lbl = self._fmt_labels(key)
+                lines.append(f"{pname}{lbl} {_prom_float(counters[name][key].get())}")
+        for name in sorted(gauges):
+            pname = _prom_name(name)
+            lines.append(f"# HELP {pname} {helps.get(name, name)}")
+            lines.append(f"# TYPE {pname} gauge")
+            for key in sorted(gauges[name]):
+                lbl = self._fmt_labels(key)
+                lines.append(f"{pname}{lbl} {_prom_float(gauges[name][key])}")
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> dict:
+        """JSON view (histograms as count/sum/quantiles) for /debug/vars."""
+        with self._lock:
+            hists = {n: dict(s) for n, s in self._hists.items()}
+            counters = {n: dict(s) for n, s in self._counters.items()}
+            gauges = {n: dict(s) for n, s in self._gauges.items()}
+
+        def label_str(key: tuple) -> str:
+            return ",".join(f"{k}={v}" for k, v in key) or "_"
+
+        return {
+            "histograms": {n: {label_str(k): h.snapshot() for k, h in s.items()}
+                           for n, s in hists.items()},
+            "counters": {n: {label_str(k): c.get() for k, c in s.items()}
+                         for n, s in counters.items()},
+            "gauges": {n: {label_str(k): v for k, v in s.items()}
+                       for n, s in gauges.items()},
+        }
+
+    def collect_rates(self, prev, now: Optional[float] = None,
+                      snapshot: Optional[dict] = None):
+        """Counter snapshot -> per-second rates since ``prev`` (the state
+        the previous call returned; None on the first call, which yields
+        no rates).  Returns ``(rates, state)``."""
+        if now is None:
+            now = time.time()
+        snap = snapshot if snapshot is not None else self.snapshot()
+        counters = snap.get("counters", {})
+        state = {"ts": now, "counters": counters}
+        if not prev or not prev.get("counters"):
+            return {}, state
+        return diff_rates(prev["counters"], counters, now - float(prev.get("ts", now))), state
+
+
+def diff_rates(prev_counters: dict, cur_counters: dict,
+               dt: float) -> Dict[str, Dict[str, float]]:
+    """Per-second rates from two counter snapshots taken ``dt`` apart; a
+    counter that went down contributes its current value (a reset)."""
+    if dt <= 0:
+        return {}
+    out: Dict[str, Dict[str, float]] = {}
+    for family, cur in cur_counters.items():
+        prev = prev_counters.get(family)
+        if prev is None:
+            continue
+        fam_out = {}
+        for label_str, cur_v in cur.items():
+            if label_str not in prev:
+                continue
+            d = cur_v - prev[label_str]
+            fam_out[label_str] = (cur_v if d < 0 else d) / dt
+        if fam_out:
+            out[family] = fam_out
+    return out
+
+
+# The process-wide metrics registry, exported at GET /metrics and merged
+# into /debug/vars.
+REGISTRY = MetricsRegistry()
+
+#   pilosa_query_seconds{path=sync|pipelined}  whole-query latency (api.py)
+METRIC_QUERY = "pilosa_query_seconds"
+#   pilosa_pipeline_stage_seconds / _depth*, pipeline_* gauges: the
+#   batcher's PipelineStats, published at scrape time
+METRIC_PIPELINE_STAGE = "pilosa_pipeline_stage_seconds"
+#   pilosa_ingest_batches_total{path=}     import batches applied (api.py)
+#   pilosa_ingest_bits_total{path=}        bits they carried
+#   pilosa_ingest_changed_total            bits import-roaring changed
+#   pilosa_ingest_seconds{path=}           host time per batch
+METRIC_INGEST_BATCHES = "pilosa_ingest_batches_total"
+METRIC_INGEST_BITS = "pilosa_ingest_bits_total"
+METRIC_INGEST_CHANGED = "pilosa_ingest_changed_total"
+METRIC_INGEST_SECONDS = "pilosa_ingest_seconds"
+INGEST_PATHS = ("bits", "values", "roaring")
+#   pilosa_engine_stack_rebuilds_total / _updates_total: TorchEngine's
+#   stack_rebuilds and stack_updates, published at scrape time
+METRIC_ENGINE_REBUILDS = "pilosa_engine_stack_rebuilds_total"
+METRIC_ENGINE_UPDATES = "pilosa_engine_stack_updates_total"
+#   pilosa_client_retries_total            InternalClient retries
+#   pilosa_cluster_remote_calls_total      InternalClient requests
+METRIC_CLIENT_RETRIES = "pilosa_client_retries_total"
+METRIC_CLUSTER_REMOTE_CALLS = "pilosa_cluster_remote_calls_total"
+# -- serving tier ------------------------------------------------------------
+#   pilosa_admission_inflight               gauge: requests admitted, not done
+#   pilosa_admission_active_tenants         gauge: tenants with in-flight work
+#   pilosa_admission_admitted_total         counter: requests admitted
+#   pilosa_admission_shed_total{reason=}    counter: fast-rejected requests
+#   pilosa_server_connections               gauge: live HTTP connections
+#   pilosa_server_connections_total         counter: connections accepted
+#   pilosa_server_requests_total{path=}     counter: requests by dispatch path
+#                                           (inline = reactor fast path,
+#                                           pool = blocking worker, shed)
+#   pilosa_server_errors_total              counter: 5xx responses served
+METRIC_ADMISSION_INFLIGHT = "pilosa_admission_inflight"
+METRIC_ADMISSION_TENANTS = "pilosa_admission_active_tenants"
+METRIC_ADMISSION_ADMITTED = "pilosa_admission_admitted_total"
+METRIC_ADMISSION_SHED = "pilosa_admission_shed_total"
+METRIC_SERVER_CONNECTIONS = "pilosa_server_connections"
+METRIC_SERVER_CONNECTIONS_TOTAL = "pilosa_server_connections_total"
+METRIC_SERVER_REQUESTS = "pilosa_server_requests_total"
+METRIC_SERVER_ERRORS = "pilosa_server_errors_total"
+SHED_REASONS = ("overload", "tenant_fair", "queue_full")
+SERVER_REQUEST_PATHS = ("inline", "pool", "shed")
+
+# Pre-register the always-on surface so /metrics exposes every required
+# series from process start.
+for _path in ("sync", "pipelined"):
+    REGISTRY.histogram(METRIC_QUERY, help="Whole-query latency (seconds)", path=_path)
+for _path in SERVER_REQUEST_PATHS:
+    REGISTRY.counter(METRIC_SERVER_REQUESTS, help="HTTP requests by dispatch path",
+                     path=_path)
+REGISTRY.counter(METRIC_SERVER_ERRORS, help="HTTP 5xx responses served")
+REGISTRY.counter(METRIC_SERVER_CONNECTIONS_TOTAL, help="HTTP connections accepted")
+for _path in INGEST_PATHS:
+    REGISTRY.counter(METRIC_INGEST_BATCHES, help="Import batches applied", path=_path)
+    REGISTRY.counter(METRIC_INGEST_BITS, help="Bits carried by import batches", path=_path)
+    REGISTRY.histogram(METRIC_INGEST_SECONDS, help="Host time per import batch (seconds)",
+                       path=_path)
+REGISTRY.counter(METRIC_INGEST_CHANGED, help="Bits changed by roaring imports")
+
+
+class StatsClient:
+    """Interface (stats/stats.go:31-66); also usable as a base class."""
+
+    def with_tags(self, *tags: str) -> "StatsClient":
+        return self
+
+    def tags(self) -> List[str]:
+        return []
+
+    def count(self, name: str, value: int = 1, rate: float = 1.0, tags=None):
+        pass
+
+    def count_with_custom_tags(self, name, value, rate, tags):
+        self.count(name, value, rate, tags)
+
+    def gauge(self, name: str, value: float, rate: float = 1.0):
+        pass
+
+    def histogram(self, name: str, value: float, rate: float = 1.0):
+        pass
+
+    def set(self, name: str, value: str, rate: float = 1.0):
+        pass
+
+    def timing(self, name: str, value_seconds: float, rate: float = 1.0):
+        pass
+
+    def open(self):
+        pass
+
+    def close(self):
+        pass
+
+
+class NopStatsClient(StatsClient):
+    pass
+
+
+class ExpvarStatsClient(StatsClient):
+    """In-memory, inspectable backend (the reference's expvar client,
+    stats/stats.go:117-214): exposed by the HTTP layer at /debug/vars."""
+
+    def __init__(self, _tags: Optional[List[str]] = None, _root=None):
+        self._tags = _tags or []
+        if _root is None:
+            _root = {"lock": threading.Lock(), "counters": {}, "gauges": {},
+                     "timings": {}, "sets": {}, "children": {}}
+        self._root = _root
+
+    def _scope(self, name: str) -> str:
+        if not self._tags:
+            return name
+        return ",".join(sorted(self._tags)) + ":" + name
+
+    def with_tags(self, *tags: str) -> "ExpvarStatsClient":
+        return ExpvarStatsClient(sorted(set(self._tags) | set(tags)), self._root)
+
+    def tags(self) -> List[str]:
+        return list(self._tags)
+
+    def count(self, name, value: int = 1, rate: float = 1.0, tags=None):
+        key = self._scope(name)
+        if tags:
+            key += "," + ",".join(tags)
+        with self._root["lock"]:
+            self._root["counters"][key] = self._root["counters"].get(key, 0) + value
+
+    def gauge(self, name, value: float, rate: float = 1.0):
+        with self._root["lock"]:
+            self._root["gauges"][self._scope(name)] = value
+
+    def histogram(self, name, value: float, rate: float = 1.0):
+        with self._root["lock"]:
+            h = self._root["timings"].get(self._scope(name))
+            if h is None:
+                h = self._root["timings"][self._scope(name)] = Histogram()
+        h.observe(value)
+
+    def set(self, name, value: str, rate: float = 1.0):
+        with self._root["lock"]:
+            self._root["sets"][self._scope(name)] = value
+
+    def timing(self, name, value_seconds: float, rate: float = 1.0):
+        self.histogram(name, value_seconds, rate)
+
+    def snapshot(self) -> Dict[str, dict]:
+        with self._root["lock"]:
+            timings = dict(self._root["timings"])
+            return {
+                "counters": dict(self._root["counters"]),
+                "gauges": dict(self._root["gauges"]),
+                "sets": dict(self._root["sets"]),
+                "timingCounts": {k: h.count for k, h in timings.items()},
+                "timings": {k: h.snapshot() for k, h in timings.items()},
+            }
+
+
+class MultiStatsClient(StatsClient):
+    """Fan out to several backends (stats/stats.go:217-283)."""
+
+    def __init__(self, clients: List[StatsClient]):
+        self.clients = clients
+
+    def with_tags(self, *tags: str) -> "MultiStatsClient":
+        return MultiStatsClient([c.with_tags(*tags) for c in self.clients])
+
+    def count(self, name, value: int = 1, rate: float = 1.0, tags=None):
+        for c in self.clients:
+            c.count(name, value, rate, tags)
+
+    def gauge(self, name, value: float, rate: float = 1.0):
+        for c in self.clients:
+            c.gauge(name, value, rate)
+
+    def histogram(self, name, value: float, rate: float = 1.0):
+        for c in self.clients:
+            c.histogram(name, value, rate)
+
+    def set(self, name, value: str, rate: float = 1.0):
+        for c in self.clients:
+            c.set(name, value, rate)
+
+    def timing(self, name, value_seconds: float, rate: float = 1.0):
+        for c in self.clients:
+            c.timing(name, value_seconds, rate)

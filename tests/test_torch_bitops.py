@@ -146,7 +146,9 @@ def test_import_is_jax_free():
     imports, the TopN and BSI paths (engine, executor lanes, kernel
     wrappers and their CUDA sources) are present and run queries on the
     CPU, a fused drain (``parallel/fusion.py``) answers, the API answers a
-    keyed query, and no module of pilosa_tpu is loaded."""
+    keyed query, the node's modules (server, config, cli, __main__ and
+    every net module) import and serve a keyed query over HTTP, and no
+    module of pilosa_tpu is loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -202,6 +204,17 @@ def test_import_is_jax_free():
         "                           ({'kind': 'count', 'call': ex._parse_cached('Row(t=1)').calls[0]},\n"
         "                            [0])])\n"
         "assert got == [(6, 3), 2], got\n"
+        "for name in ('server', 'config', 'cli', '__main__', 'net', 'net.server', 'net.aserver',\n"
+        "             'net.wire', 'net.proto', 'net.admission', 'net.client'):\n"
+        "    importlib.import_module('pilosa_tpu_torch.' + name)\n"
+        "from pilosa_tpu_torch.net import InternalClient, serve\n"
+        "a = API(device='cpu'); a.create_index('k', keys=True)\n"
+        "srv, _ = serve(a, 'localhost', 0)\n"
+        "c = InternalClient(f'http://localhost:{srv.server_address[1]}')\n"
+        "c.create_field('k', 'f', {'keys': True})\n"
+        "c.query('k', 'Set(\"c\", f=\"x\") Set(\"d\", f=\"x\")')\n"
+        "assert c.query('k', 'Row(f=\"x\")')['results'][0]['keys'] == ['c', 'd']\n"
+        "srv.shutdown(); a.close()\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
