@@ -43,7 +43,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    references, zeros, one to four range leaves), up to 32 count edges with
    per-edge gates, materialized slots with and without a need gate, 12 and
    37 shards, two streams, whole drains (F1 then K6, K7, K3 and K8 on its
-   slots) against fused_tree_plain, 17 slots and 33 edges refused.  Integer
+   slots) against fused_tree_plain, 17 slots and 33 edges refused; for the
+   pool leaf (rowb) in K1, K2, K3, K5, K6, K7, K8 and F1: random slot
+   layouts with slot-0 blocks, rows all zero, slots shared by two rows, a
+   pool of one slot, pool leaves alone and beside stack rows and range
+   leaves, 12 and 37 shards, two streams.  Integer
    results, so they must agree exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
@@ -170,6 +174,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    build every stack and skip none before /readyz answers 200, and the
    Counts again; /metrics carries pilosa_server_requests_total, and the
    node must exit 0 with no traceback.
+   residency — after http, before phase 5, on its own holder and engines
+   (freed after): bench.py's residency sweep at 960 shards (index rsw:
+   wf0..wf3 of 32 rows, each rand & rand in 8 of the 64 occupancy blocks
+   of every shard, 16.1 GB dense; rt, 4 rows; rv, an int field), an
+   engine with twice the index as its budget (the fully resident
+   yardstick, freed before the next part) and one with a quarter of it
+   less one row-shard (no stack fits).  A cold dashboard (one
+   Count(Intersect) per field) from the host lane, fallbacks and
+   promotion requests counted; the same dashboard warm from the block
+   pools (K1 over pool leaves, no fallback); an 8-Count query on pool rows
+   (one K5), a fused drain with Counts, a Sum and a TopN filtered by pool
+   rows (F1, K6, K3), TopN and Sum through the executor; an uncovered row
+   growing the working set; Sets into empty blocks, a Clear and an import
+   synced in place into the pool (a freed slot reused, slot 0 zero);
+   working sets rotated in until the budget evicts and the cached fused
+   plan is dropped.  Every answer against numpy.  Prints bench.py's
+   oversubscribed_4x_count_p50_ms, fully_resident_count_p50_ms,
+   oversubscribed_4x_cold_p50_ms, residency_hit_rate and
+   promotion_overlap_mbits_s, the pool leaf's K1 time against its bound
+   and the engine's default budget.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -220,6 +244,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1308,6 +1333,148 @@ def check_fused_kernel(device, seed):
 
 
 # -- phase 3: the main path --------------------------------------------------
+
+
+def _pool_case(rng, S, P, n_rows, device):
+    """A block pool int32[P, S, 512] of random words (slot 0 all zero) and
+    its slot table int32[n_rows + 1, 64]: random block layouts whose slots
+    repeat across rows (a slot recycled by another row), row 1 all zero (a
+    row known empty), the last row the all-zero vector the engine gives an
+    absent row, and one row using every block (when P > 1)."""
+    import torch
+
+    words = rng.integers(0, 1 << 32, (P, S, 512), dtype=np.uint64).astype(np.uint32)
+    words[0] = 0
+    if P > 1:
+        words[1, 0] = 0xFFFFFFFF
+        words[1, 1] = 0x80000000
+    table = np.zeros((n_rows + 1, 64), dtype=np.int32)
+    if P > 1:
+        for r in range(n_rows):
+            if r == 1:
+                continue
+            blocks = rng.choice(64, int(rng.integers(1, 64 if r == 2 else 16)), replace=False)
+            table[r, blocks] = rng.integers(1, P, len(blocks))
+        table[n_rows - 1] = rng.integers(1, P, 64)  # every block
+    return (torch.from_numpy(words.view(np.int32)).to(device),
+            torch.from_numpy(table).to(device))
+
+
+def check_pool_leaf(device, seed):
+    """The pool leaf ("rowb", csrc/tree_eval.cuh load_pool; K5's staging)
+    in every kernel that evaluates a tree, against the plain versions
+    (kernels.pool_row's gather), exactly: random slot layouts with slot 0
+    blocks, rows all zero, slots shared by two rows, the all-zero vector,
+    a pool of one slot; pool leaves alone and mixed with stack rows and
+    range leaves; in K1 (chain and interpreter trees), K2 (block words),
+    K3 (a src tree), K5 (batches with their tiles staged and not), K6 and
+    K7 (filters), K8 (a filter) and F1 (slots and whole drains); masks of
+    every shard, none and a ragged set; 12 and 37 shards; two streams.
+    Returns max |err|."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
+
+    rng = np.random.default_rng(seed + 41)
+    err = {"rowb": 0}
+    n = 0
+
+    def same(got, want, what):
+        nonlocal n
+        torch.cuda.synchronize()
+        err["rowb"] = max(err["rowb"], _exact("rowb", got, want.to(got.device), what))
+        n += 1
+
+    for S, P in ((12, 9), (37, 33), (12, 1)):
+        pool, table = _pool_case(rng, S, P, 6, device)
+        dense = _adversarial_stack(rng, 4, S, device)
+        bst = _bsi_stack(rng, 8, S, device)
+        mats = [dense, pool, table, bst]
+        full = tuple(range(9))
+        rb = [("rowb", 1, 2, r) for r in range(7)]
+        rg = _range_leaf("gt", full, int(rng.integers(0, 256)), 0, slot=3)
+        trees = [
+            rb[0], ("and", rb[0], ("row", 0, 1)), ("or", rb[2], rb[3], rb[1]),
+            ("andnot", rb[5], ("row", 0, 0)), ("xor", rb[0], rb[4], ("row", 0, 2)),
+            ("and", rb[6], rb[0]), ("and", ("or", rb[0], ("zero",)), rb[3]),
+            ("andnot", ("or", rb[2], ("row", 0, 3)), ("and", rb[4], ("xor", rb[5], rb[0]))),
+            ("and", rb[2], rg), ("or", ("andnot", rb[3], rg), ("row", 0, 1)),
+        ]
+        masks = [torch.from_numpy(m).to(device) for m in (
+            np.ones(S, np.int32), np.zeros(S, np.int32), (rng.random(S) < 0.5).astype(np.int32))]
+        # A tree of stack rows only, with the pool and its table among the
+        # launch's stacks all the same (a batch's lowering holds them).
+        dense_t = ("and", ("row", 0, 1), ("row", 0, 2))
+        same(kernels.count_tree_dense(kernels.compile_prog(dense_t), mats, masks[0]).reshape(1),
+             kernels.count_tree_plain(dense_t, mats, masks[0]).reshape(1), "K1 beside a pool")
+        for t in trees:
+            code = kernels.compile_prog(t)
+            kernels.check_prog(code)
+            for m in masks:
+                same(kernels.count_tree_dense(code, mats, m).reshape(1),
+                     kernels.count_tree_plain(t, mats, m).reshape(1), f"K1 {t} S={S} P={P}")
+            for what, bits in _block_word_cases(rng, S)[::3]:
+                bb = torch.from_numpy(bits.view(np.int64)).to(device)
+                same(sparse.count_tree_blocks_cuda(code, mats, bb).reshape(1),
+                     sparse.count_tree_blocks_plain(t, mats, bb).reshape(1), f"K2 {t} {what}")
+            cand = torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=device)
+            m = masks[2]
+            sc, cnt, _ = kernels.score_rows_cuda(code, mats, m, dense, cand, src_counts=True)
+            ws, wc = kernels.topn_tree_plain(t, mats, m, dense, cand)
+            same(sc, ws, f"K3 scores {t}")
+            same(cnt, wc, f"K3 src counts {t}")
+            same(bsi.sum_tree(t, mats, m, bst, full), bsi.sum_tree_plain(t, mats, m, bst, full),
+                 f"K6 {t}")
+            for is_min in (True, False):
+                got = bsi.minmax_tree(t, mats, m, bst, full, is_min)
+                want = bsi.minmax_tree_plain(t, mats, m, bst, full, is_min)
+                same(got[0], want[0], f"K7 values {t}")
+                same(got[1], want[1], f"K7 counts {t}")
+            lists = [[0, 2, 1], [3, -1]]
+            same(groupby.groupn_tree(t, mats, m, [dense, dense], lists),
+                 groupby.groupn_tree_plain(t, mats, m, [dense, dense], lists), f"K8 {t}")
+        # K5: batches of the trees without a range leaf, staged (few leaf
+        # rows) and unstaged (past 128 distinct rows), with repeats.
+        batch = [t for t in trees if kernels.batchable(t)]
+        bmasks = np.stack([np.ones(S, bool), np.zeros(S, bool), rng.random(S) < 0.5])
+        for progs in (batch, batch * 3, batch + [("or", ("row", 0, k % 4), rb[k % 7])
+                                                 for k in range(140)]):
+            ids = [int(i) for i in rng.integers(0, 3, len(progs))]
+            got = kernels.count_batch_tree_cuda(kernels.compile_batch(progs, ids), mats, bmasks,
+                                                device)
+            same(got, kernels.count_batch_tree_plain(progs, mats, bmasks, ids, device),
+                 f"K5 {len(progs)} queries S={S} P={P}")
+        # F1: a slot table over pool, stack and range leaves, count edges
+        # and materialized slots read by K6, K7, K3 and K8 edges.
+        slots = (("and", rb[0], ("row", 0, 1)), ("or", ("mref", 0), rb[2]),
+                 ("xor", ("mref", 1), rb[4], ("row", 0, 2)), ("andnot", rb[5], rg),
+                 ("or", ("mref", 2), ("mref", 3), rb[6]))
+        fmasks = masks[:1] + masks[2:]
+        cand_idx = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=device)
+        cnt = torch.randint(0, 3, (4, S), dtype=torch.int32, device=device)
+        spec = kernels.FusedSpec(
+            slots, [(0, 0), (1, 1), (2, 0), (4, 1)],
+            [("sum", 1, 0, 3, full), ("minmax", 3, 1, 3, full, True),
+             ("topn", 2, 0, 0, 0), ("topnf", 4, 1, 0, 0, 1, 1, 2), ("group", 4, 0, (0,), ((0, 1),))])
+        got = kernels.fused_tree(spec, mats, fmasks, [cand_idx, cnt])
+        want = kernels.fused_tree_plain(spec, mats, fmasks, [cand_idx, cnt])
+        for i, (g, w) in enumerate(zip(got, want)):
+            same(g, w, f"F1 drain output {i} S={S} P={P}")
+    # Two streams at once over one pool.
+    side = torch.cuda.Stream(device=device)
+    t = ("or", rb[2], ("row", 0, 1))
+    code = kernels.compile_prog(t)
+    outs = []
+    torch.cuda.synchronize()
+    for i in range(8):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            outs.append(kernels.count_tree_dense(code, mats, masks[i % 3 if i % 3 != 1 else 0]))
+    for i, g in enumerate(outs):
+        m = masks[i % 3 if i % 3 != 1 else 0]
+        same(g.reshape(1), kernels.count_tree_plain(t, mats, m).reshape(1), "K1 on two streams")
+    log(f"pool leaf: {n} comparisons exact (rowb in K1, K2, K3, K5, K6, K7, K8 and F1 "
+        "against their plain versions)")
+    return err
 
 
 def build_index(holder, n_shards, seed):
@@ -3957,6 +4124,426 @@ def run_fusion_path(device, holder, engine, ex, seed, err, n_shards=N_SHARDS):
     return out, entry
 
 
+# -- residency: the index 4x the device budget (bench.py:2094-2260) ---------
+
+RSW_FIELDS = 4  # bench.py RSW_FIELDS
+RSW_ROWS = 32  # bench.py RSW_ROWS: rows per field
+RSW_BLOCKS = 8  # bench.py RSW_BLOCKS: occupied blocks of 64 per row and shard
+RSW_WARM_REPS = 40  # bench.py RSW_WARM_REPS
+RSW_SEED = 11  # bench.py residency_sweep's rng
+RSW_ROTATIONS = range(8, 22, 2)  # working sets rotated in after the checks
+ROW_SHARD_BYTES = 32768 * 4 + 16  # engine.ROW_SHARD_BYTES (budget units)
+
+
+def build_rsw(holder, n_shards, seed=RSW_SEED):
+    """bench.py's residency-sweep index at ``n_shards`` shards: fields
+    wf0..wf3 of 32 rows, each row rand & rand in its first 8 occupancy blocks
+    of every shard (the rest zero); field rt, 4 rows of random words in the
+    same blocks (TopN candidates), and rv, an int field 0..100 on 64
+    columns of each shard's first 8 blocks.  Rows are loaded as words
+    (load_row_words keeps each array: the zero blocks stay untouched pages).
+    Returns {field: uint64[rows, S, W64]} and rv's (columns, values)."""
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    rng = np.random.default_rng(seed)
+    W64 = 16384
+    nw = RSW_BLOCKS * 256  # uint64 words of the occupied blocks
+    idx = holder.create_index("rsw")
+    words = {}
+    for name, rows in [(f"wf{fi}", RSW_ROWS) for fi in range(RSW_FIELDS)] + [("rt", 4)]:
+        arr = np.zeros((rows, n_shards, W64), dtype=np.uint64)
+        for r in range(rows):
+            a = rng.integers(0, 1 << 64, (n_shards, nw), dtype=np.uint64)
+            if name != "rt":
+                a &= rng.integers(0, 1 << 64, (n_shards, nw), dtype=np.uint64)
+            arr[r, :, :nw] = a
+        view = idx.create_field(name).view_if_not_exists("standard")
+        for s in range(n_shards):
+            frag = view.fragment_if_not_exists(s)
+            for r in range(rows):
+                frag.load_row_words(r, arr[r, s])
+            frag.cache.invalidate()
+        words[name] = arr
+    cols = (np.arange(n_shards, dtype=np.int64)[:, None] << 20) + rng.integers(
+        0, nw * 64, (n_shards, 64))
+    cols = np.unique(cols.reshape(-1))
+    vals = cols % 101
+    idx.create_field("rv", FieldOptions(type="int", min=0, max=100)).import_values(
+        cols.tolist(), vals.tolist())
+    return words, (cols, vals)
+
+
+def _bit_of(arr, row, cols):
+    """The bits of row ``row`` of uint64[rows, S, W64] at columns ``cols``."""
+    s, c = cols >> 20, cols & ((1 << 20) - 1)
+    return (arr[row, s, c >> 6] >> (c & 63).astype(np.uint64)) & np.uint64(1)
+
+
+def run_residency_path(device, seed, n_shards=N_SHARDS):
+    """Tiered residency on the card (docs/residency.md; bench.py
+    --residency-sweep at 960 shards): the index is 4x the device budget, so
+    no field stack fits it.  Checks, each against numpy: a cold dashboard
+    (one Count(Intersect) per field) answered exactly from the host lane,
+    host fallbacks and promotion requests rising; after the promotions the
+    same dashboard from the block pools (K1 over pool leaves, no fallback);
+    an 8-Count query on pool rows (one K5), a fused drain of Counts, a Sum
+    and a TopN whose filters read pool rows (F1, K6, K3); TopN and Sum
+    through the executor (K3, K6); an uncovered row growing the working set;
+    Sets into empty blocks, a Clear and an import, synced in place into the
+    pool with a freed slot reused; working sets rotated until the budget
+    evicts and a cached fused plan is dropped.  Prints bench.py's numbers
+    and the pool leaf's K1 time against its bound.  Runs on its own holder
+    and engines, freed at the end."""
+    import gc
+
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel import kernels
+    from pilosa_tpu_torch.parallel.engine import TorchEngine, _Lowering
+
+    t_phase = time.perf_counter()
+    card = device.type == "cuda"  # a CPU rehearsal has no times or launches
+    out = {"card": card_line(), "shards": n_shards}
+    t0 = time.perf_counter()
+    holder = Holder(device=device)
+    holder.open()
+    words, (vcols, vvals) = build_rsw(holder, n_shards)
+    out["made_s"] = time.perf_counter() - t0
+    S = n_shards
+    all_shards = list(range(S))
+    stack_bytes = RSW_ROWS * S * ROW_SHARD_BYTES
+    total = RSW_FIELDS * stack_bytes
+    budget = total // 4 - S * ROW_SHARD_BYTES
+    assert stack_bytes > budget, "shape error: a full stack must not fit the budget"
+    out.update(index_bytes=total, budget_bytes=budget, stack_bytes=stack_bytes)
+    log(f"residency: index rsw {total / 1e9:.3f} GB over {RSW_FIELDS} stacks of "
+        f"{stack_bytes / 1e9:.3f} GB, budget {budget / 1e9:.3f} GB (4x oversubscribed); "
+        f"made in {out['made_s']:.3f} s")
+    nw = RSW_BLOCKS * 256
+
+    def pc_and(a, b):
+        return int(and_popcounts(a[:, :nw], b[:, :nw]).sum())
+
+    dashboard = []
+    for fi in range(RSW_FIELDS):
+        w = words[f"wf{fi}"]
+        q = f"Count(Intersect(Row(wf{fi}={2 * fi}), Row(wf{fi}={2 * fi + 1})))"
+        dashboard.append((q, pc_and(w[2 * fi], w[2 * fi + 1])))
+
+    def run_dash(ex, dash):
+        for q, want in dash:
+            got = ex.execute("rsw", q).results[0]
+            if got != want:
+                raise AssertionError(f"residency: {q} = {got}, numpy {want}")
+
+    def dash_p50(ex, reps):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            run_dash(ex, dashboard)
+            times.append((time.perf_counter() - t) / len(dashboard) * 1e3)
+        return statistics.median(times)
+
+    # The engine's default budget, from the card's memory.
+    free, total_mem = torch.cuda.mem_get_info() if card else (1 << 62, 0)
+    out["engine_default_budget"] = TorchEngine(Holder(device=device), device=device).max_resident_bytes
+    out["card_memory_bytes"] = total_mem
+    # Fully resident: budget twice the index; its stacks take 16 GB.
+    if free < total + (4 << 30):
+        raise AssertionError(f"residency: {free / 1e9:.1f} GB free on the card, the fully "
+                             f"resident engine needs {total / 1e9:.1f} GB and headroom")
+    eng_full = TorchEngine(holder, device=device, max_resident_bytes=2 * total)
+    eng_full.result_memo.maxsize = 0
+    ex_full = Executor(holder, engine=eng_full)
+    run_dash(ex_full, dashboard)
+    assert eng_full.host_fallbacks == 0 and eng_full.stack_rebuilds == RSW_FIELDS
+    out["fully_resident_count_p50_ms"] = dash_p50(ex_full, 8)
+    # The dense K1 over the first dashboard query's two rows, for the pool
+    # leaf's comparison below.
+    call = pql.parse(dashboard[0][0][6:-1]).calls[0]
+    lw_d = _Lowering(eng_full, eng_full.canonical_shards("rsw"))
+    prog_d = eng_full._lower("rsw", call, lw_d)
+    mask_all = eng_full._mask_words(all_shards, lw_d.canonical)
+    code_d = kernels.compile_prog(prog_d)
+    sync = torch.cuda.synchronize
+    if card:
+        out["dense_k1_device_ms"] = measured(
+            lambda: kernels.count_tree_dense(code_d, lw_d.mats, mask_all),
+            "count_tree_dense", sync)["device_ms"]
+    del lw_d, prog_d, code_d
+    eng_full.close()
+    del eng_full, ex_full
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+
+    # -- 4x oversubscribed ------------------------------------------------
+    eng = TorchEngine(holder, device=device, max_resident_bytes=budget)
+    eng.result_memo.maxsize = 0
+    ex = Executor(holder, engine=eng)
+    kernels.pool_leaf.launches = 0
+    kernels.pool_leaf.by_kernel.clear()
+    _zero_launches()
+    # 1. Cold: the host lane answers, each stack misses and requests a
+    # promotion of the query's rows.
+    t = time.perf_counter()
+    run_dash(ex, dashboard)
+    out["oversubscribed_4x_cold_p50_ms"] = (time.perf_counter() - t) / len(dashboard) * 1e3
+    snap = eng.residency.snapshot()
+    if eng.host_fallbacks < RSW_FIELDS or snap["requests"] < RSW_FIELDS:
+        raise AssertionError(f"residency: cold dashboard {eng.host_fallbacks} fallbacks, "
+                             f"{snap['requests']} requests; expected {RSW_FIELDS} each")
+    out["cold"] = {"host_fallbacks": eng.host_fallbacks, "requests": snap["requests"],
+                   "count_tree_dense": kernels.count_tree_dense.launches}
+    t = time.perf_counter()
+    assert eng.residency.flush(300.0), "residency: the promotions did not drain"
+    out["promote_s"] = time.perf_counter() - t
+    snap = eng.residency.snapshot()
+    if snap["partialPromotions"] < RSW_FIELDS:
+        raise AssertionError(f"residency: {snap['partialPromotions']} partial promotions")
+    for fi in range(RSW_FIELDS):
+        st = eng._stacks[("rsw", f"wf{fi}", "standard")]
+        assert st.pool and set(st.row_index) == {2 * fi, 2 * fi + 1}, (fi, st.row_index)
+        assert not np.any(st.occ & ~st.block_mask)
+    out["pool_shape"] = list(eng._stacks[("rsw", "wf0", "standard")].matrix.shape)
+    # 2. Warm: the same dashboard from the pools, no fallback, K1 with pool
+    # leaves.
+    fb0, k1 = eng.host_fallbacks, kernels.pool_leaf.by_kernel.get("count_tree_dense", 0)
+    out["oversubscribed_4x_count_p50_ms"] = dash_p50(ex, RSW_WARM_REPS)
+    n_warm = RSW_WARM_REPS * len(dashboard)
+    fallbacks = eng.host_fallbacks - fb0
+    out["residency_hit_rate"] = (n_warm - fallbacks) / n_warm
+    pool_k1 = kernels.pool_leaf.by_kernel.get("count_tree_dense", 0) - k1
+    if fallbacks or (card and pool_k1 < n_warm):
+        raise AssertionError(f"residency: warm dashboard {fallbacks} fallbacks, "
+                             f"{pool_k1} K1 launches over pool leaves of {n_warm} queries")
+    out["warm"] = {"queries": n_warm, "host_fallbacks": fallbacks, "k1_pool_launches": pool_k1}
+    out["within_2x"] = out["oversubscribed_4x_count_p50_ms"] <= 2 * out["fully_resident_count_p50_ms"]
+    # The pool leaf's K1 over the first query's two pool rows: the bytes of
+    # its occupied blocks.  Its check and timing launches are not the
+    # path's: the path's counts are saved here and put back after them.
+    path_counts = (kernels.pool_leaf.launches, dict(kernels.pool_leaf.by_kernel),
+                   _launch_counts())
+    lw = _Lowering(eng, eng.canonical_shards("rsw"))
+    prog = eng._lower("rsw", call, lw)
+    assert prog[1][0] == "rowb" and prog[2][0] == "rowb", prog
+    code = kernels.compile_prog(prog)
+    want0 = dashboard[0][1]
+    assert int(kernels.count_tree(prog, lw.mats, mask_all)) == want0
+    plain = int(kernels.count_tree_plain(prog, lw.mats, mask_all))
+    assert plain == want0
+    occupied = sum(int(np.count_nonzero(lw.stacks[p[1]].slot_of[r])) for p, r in
+                   ((prog[1], 0), (prog[2], 1)))
+    pool_bytes = occupied * S * 2048
+    bound = pool_bytes / HBM_BYTES_PER_S * 1e3
+    t_k1, plain_ms = {"ms": None, "device_ms": None, "host_us": None}, None
+    if card:
+        t_k1 = measured(lambda: kernels.count_tree_dense(code, lw.mats, mask_all),
+                        "count_tree_dense", sync, bound_ms=bound)
+        plain_ms = p50_ms(lambda: kernels.count_tree_plain(prog, lw.mats, mask_all), 3, sync,
+                          batch=1)
+    out["rowb_k1"] = {"device_ms": t_k1["device_ms"], "bound_ms": bound,
+                      "bytes": pool_bytes, "plain_ms": plain_ms,
+                      "dense_k1_device_ms": out.get("dense_k1_device_ms")}
+    rowb_times = (t_k1, plain_ms, pool_bytes)
+    del lw, prog, code
+    kernels.pool_leaf.launches, by_kernel, dense = path_counts
+    kernels.pool_leaf.by_kernel.clear()
+    kernels.pool_leaf.by_kernel.update(by_kernel)
+    kernels.count_tree_dense.launches = dense["count_tree_dense"]
+    # 3a. Eight Counts on pool rows: one K5 launch.
+    eight = [(f"Count({op}(Row(wf{fi}={2 * fi}), Row(wf{fi}={2 * fi + 1})))", fi, op)
+             for fi in range(RSW_FIELDS) for op in ("Intersect", "Union")]
+    q8 = "".join(q for q, _, _ in eight)
+    want8 = []
+    for _, fi, op in eight:
+        w = words[f"wf{fi}"]
+        a, b = w[2 * fi][:, :nw], w[2 * fi + 1][:, :nw]
+        want8.append(int(popcounts(a & b if op == "Intersect" else a | b).sum()))
+    k5, pk5 = kernels.count_batch_tree_cuda.launches, kernels.pool_leaf.by_kernel.get(
+        "count_batch_tree", 0)
+    got8 = ex.execute("rsw", q8).results
+    if got8 != want8:
+        raise AssertionError(f"residency: 8 Counts {got8} != numpy {want8}")
+    if card and (kernels.count_batch_tree_cuda.launches - k5 != 1
+                 or kernels.pool_leaf.by_kernel.get("count_batch_tree", 0) - pk5 != 1):
+        raise AssertionError("residency: the 8-Count query was not one K5 launch over pools")
+    # 3b. A fused drain: Counts sharing a pool-row subtree, a Sum and a TopN
+    # filtered by pool rows (rv and rt are small full stacks that fit).
+    seg = "Intersect(Row(wf0=0), Row(wf0=1))"
+    w0, w1, rt = words["wf0"], words["wf1"], words["rt"]
+    segw = w0[0][:, :nw] & w0[1][:, :nw]
+    in_seg = ((segw[vcols >> 20, (vcols & 0xFFFFF) >> 6] >> (vcols & 63).astype(np.uint64))
+              & np.uint64(1)).astype(bool)
+    want_sum = (int(vvals[in_seg].sum()), int(in_seg.sum()))
+    totals = [(r, int(popcounts(rt[r][:, :nw] & w1[2][:, :nw]).sum())) for r in range(4)]
+    want_top = sorted([p for p in totals if p[1] > 0], key=lambda p: (-p[1], -p[0]))[:3]
+    entries = [
+        ({"kind": "count", "call": pql.parse(seg).calls[0]}, all_shards),
+        ({"kind": "count", "call": pql.parse(f"Union({seg}, Row(wf1=2))").calls[0]}, all_shards),
+        ({"kind": "sum", "field": "rv", "filter": pql.parse(seg).calls[0]}, all_shards),
+        ({"kind": "topnf", "field": "rt", "src": pql.parse("Row(wf1=2)").calls[0], "n": 3,
+          "threshold": 1, "row_ids": None}, all_shards),
+    ]
+    want_drain = [int(popcounts(segw).sum()),
+                  int(popcounts(segw | w1[2][:, :nw]).sum()), want_sum, want_top]
+    f1, pf1 = kernels.fused_tree_cuda.launches, kernels.pool_leaf.by_kernel.get("fused_tree", 0)
+    eng.fused_many("rsw", entries)  # first: rv and rt are built (they fit)
+    got = eng.fused_many("rsw", entries)
+    if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+        raise AssertionError(f"residency: fused drain {got} != numpy {want_drain}")
+    if card and (kernels.fused_tree_cuda.launches - f1 < 1
+                 or kernels.pool_leaf.by_kernel.get("fused_tree", 0) - pf1 < 1):
+        raise AssertionError("residency: the fused drain did not launch F1 over pools")
+    plans = len(eng._fused_plans)
+    assert plans >= 1, "residency: the fused drain's plan was not cached"
+    # 3c. TopN and Sum through the executor: K3 and K6 over a pool row.
+    k3, k6 = (kernels.pool_leaf.by_kernel.get("score_rows", 0),
+              kernels.pool_leaf.by_kernel.get("sum_tree", 0))
+    got_top = ex.execute("rsw", "TopN(rt, Row(wf1=2), n=3)").results[0]
+    got_top = [(p.id, p.count) if hasattr(p, "id") else tuple(p) for p in got_top]
+    if got_top != want_top:
+        raise AssertionError(f"residency: TopN {got_top} != numpy {want_top}")
+    vc = ex.execute("rsw", f"Sum({seg}, field=rv)").results[0]
+    if (vc.val, vc.count) != want_sum:
+        raise AssertionError(f"residency: Sum {(vc.val, vc.count)} != numpy {want_sum}")
+    if card and (kernels.pool_leaf.by_kernel.get("score_rows", 0) == k3
+                 or kernels.pool_leaf.by_kernel.get("sum_tree", 0) == k6):
+        raise AssertionError("residency: TopN/Sum did not launch K3/K6 over a pool row")
+    # 4. An uncovered row grows the working set and keeps the old rows.
+    qg = "Count(Intersect(Row(wf0=30), Row(wf0=31)))"
+    wantg = pc_and(w0[30], w0[31])
+    fb = eng.host_fallbacks
+    if ex.execute("rsw", qg).results[0] != wantg or eng.host_fallbacks != fb + 1:
+        raise AssertionError("residency: the uncovered rows were not a counted miss")
+    assert eng.residency.flush(300.0)
+    st0 = eng._stacks[("rsw", "wf0", "standard")]
+    assert {0, 1, 30, 31} <= set(st0.row_index), st0.row_index
+    fb = eng.host_fallbacks
+    run_dash(ex, [(qg, wantg), dashboard[0]])
+    if eng.host_fallbacks != fb:
+        raise AssertionError("residency: the grown working set missed")
+    # 5. Writes into the pool, synced in place: Sets into empty blocks of
+    # promoted rows (every never-written slot taken), a Clear that empties
+    # a block (its slot freed), and an import whose new block takes the
+    # freed slot (zeroed first) and whose other bit lands in an occupied
+    # block (a word write).  Shard 0; each Set its own column.
+    qu = "Count(Union(Row(wf0=0), Row(wf0=1)))"
+    want_u = int(popcounts(w0[0][:, :nw] | w0[1][:, :nw]).sum())
+    rebuilds, updates = eng.stack_rebuilds, eng.stack_updates
+    st0 = eng._stacks[("rsw", "wf0", "standard")]
+    virgin = int(st0.matrix.shape[0]) - st0.pool_next
+    slots_free = [(r, b) for r in (0, 1) for b in range(RSW_BLOCKS, 64)]
+    assert virgin < len(slots_free), (virgin, len(slots_free))
+    taken = slots_free[:virgin]
+    sets = "".join(f"Set({b * 16384 + 5 + r}, wf0={r})" for r, b in taken)
+    got = ex.execute("rsw", sets + qu).results[-1]
+    want_u += len(taken)
+    if got != want_u or st0.pool_next != st0.matrix.shape[0] or st0.free_dirty:
+        raise AssertionError(f"residency: Union after {len(taken)} Sets {got} != {want_u}, "
+                             f"or the never-written slots were not all taken")
+    r_c, b_c = taken[-1]
+    freed = int(st0.slot_of[r_c][b_c])
+    got = ex.execute("rsw", f"Clear({b_c * 16384 + 5 + r_c}, wf0={r_c})" + qu).results[-1]
+    want_u -= 1
+    if got != want_u or freed not in st0.free_dirty or int(st0.slot_of[r_c][b_c]) != 0:
+        raise AssertionError(f"residency: the Clear did not free slot {freed} ({got}, {want_u})")
+    r_n, b_n = slots_free[virgin]
+    # The import's second bit: a column of occupied block 3 clear in both
+    # rows and outside rv, so that only the Union moves (by one).
+    cand = np.arange(3 * 16384, 4 * 16384, dtype=np.int64)
+    clear = (_bit_of(w0, 0, cand) | _bit_of(w0, 1, cand)) == 0
+    col_old = int(cand[clear & ~np.isin(cand, vcols)][0])
+    col_new = b_n * 16384 + 9
+    holder.index("rsw").field("wf0").import_bulk([r_n, r_n], [col_new, col_old])
+    want_u += 2
+    got = ex.execute("rsw", qu).results[0]
+    if got != want_u:
+        raise AssertionError(f"residency: Union after the import {got} != numpy {want_u}")
+    if int(st0.slot_of[r_n][b_n]) != freed:
+        raise AssertionError("residency: the freed slot was not reused")
+    if eng.stack_rebuilds != rebuilds or eng.stack_updates < updates + 3:
+        raise AssertionError(f"residency: writes rebuilt the pool ({eng.stack_rebuilds - rebuilds} "
+                             f"rebuilds, {eng.stack_updates - updates} in-place syncs)")
+    if int(st0.matrix[0].abs().sum()) != 0:
+        raise AssertionError("residency: slot 0 is not zero")
+    out["writes"] = {"sets": len(taken), "freed_slot": freed, "reused": True,
+                     "stack_updates": eng.stack_updates - updates,
+                     "stack_rebuilds": eng.stack_rebuilds - rebuilds}
+    # 6. Rotate working sets in until the budget evicts; the cached fused
+    # plan is dropped with its pool, and everything stays exact.
+    ev0, bev0 = eng.evictions, eng.budget_evictions
+    for off in RSW_ROTATIONS:
+        rot = []
+        for fi in range(RSW_FIELDS):
+            w = words[f"wf{fi}"]
+            ra, rb = off + 2 * fi, off + 2 * fi + 1
+            rot.append((f"Count(Intersect(Row(wf{fi}={ra}), Row(wf{fi}={rb})))",
+                        pc_and(w[ra], w[rb])))
+        run_dash(ex, rot)
+        assert eng.residency.flush(300.0), "residency: rotation promotions did not drain"
+        run_dash(ex, rot)
+    if eng.budget_evictions - bev0 < 1 or len(eng._fused_plans) >= plans:
+        raise AssertionError(f"residency: rotation evicted {eng.budget_evictions - bev0} stacks "
+                             f"for the budget, {len(eng._fused_plans)} fused plans cached")
+    # The drain's working set went with the eviction: it misses (each item
+    # fails alone with ResidencyMiss, for its caller's host lane), its rows
+    # are promoted, and then it runs on the card again.
+    from pilosa_tpu_torch.parallel.errors import ResidencyMiss
+
+    misses = 0
+    for _ in range(3):
+        try:
+            got = eng.fused_many("rsw", entries)
+            break
+        except ResidencyMiss:
+            misses += 1
+            assert eng.residency.flush(300.0)
+    else:
+        raise AssertionError("residency: the fused drain missed three times after the eviction")
+    if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+        raise AssertionError(f"residency: fused drain after eviction {got} != {want_drain}")
+    out["drain_misses_after_eviction"] = misses
+    run_dash(ex, dashboard)
+    assert eng.residency.flush(300.0)
+    snap = eng.residency.snapshot()
+    out["rotation"] = {"evictions": eng.evictions - ev0,
+                       "budget_evictions": eng.budget_evictions - bev0,
+                       "resident_bytes": eng._resident_bytes,
+                       "fused_plans_dropped": True}
+    out["promotion_overlap_mbits_s"] = (snap["promotedBytes"] * 8 / max(snap["promoteSeconds"],
+                                                                        1e-9) / 1e6)
+    out["residency"] = snap
+    out["cache"] = {k: v for k, v in eng.cache_snapshot().items()
+                    if k not in ("workingSet", "residency")}
+    out["pool_leaf_launches"] = dict(kernels.pool_leaf.by_kernel)
+    launches = kernels.pool_leaf.launches
+    for k in ("count_tree_dense", "count_batch_tree", "fused_tree", "score_rows", "sum_tree"):
+        if card and not kernels.pool_leaf.by_kernel.get(k):
+            raise AssertionError(f"residency: {k} never launched over a pool: "
+                                 f"{kernels.pool_leaf.by_kernel}")
+    eng.close()
+    del eng, ex
+    holder.close()
+    del holder, words
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"residency: oversubscribed_4x_count_p50_ms {out['oversubscribed_4x_count_p50_ms']:.4f}, "
+        f"fully_resident_count_p50_ms {out['fully_resident_count_p50_ms']:.4f} "
+        f"(within 2x: {out['within_2x']}), oversubscribed_4x_cold_p50_ms "
+        f"{out['oversubscribed_4x_cold_p50_ms']:.4f}, residency_hit_rate "
+        f"{out['residency_hit_rate']:.4f}, promotion_overlap_mbits_s "
+        f"{out['promotion_overlap_mbits_s']:.1f}; rowb K1 device {t_k1['device_ms']} ms, "
+        f"bound {bound:.4f} ms; engine_default_budget {out['engine_default_budget']}; "
+        f"{out['card']}")
+    return out, launches, rowb_times
+
+
 def bitops_popcount(words, gate):
     from pilosa_tpu_torch.ops import bitops
 
@@ -5118,9 +5705,72 @@ def run_ab(root, seed):
     if hasattr(ex, "execute_async"):  # a checkout from before batched serving has none
         out["stream"] = ab_stream(engine, ex, host, seed)
     out["kernels_at"] = ab_kernels(device, seed)
+    out["k1_kr"] = ab_k1_kr(engine, holder, seed)
     out.update(root_writes(engine, ex, holder, host, seed))
     out["card"] = card_line()
     print(json.dumps(out), flush=True)
+
+
+def ab_k1_kr(engine, holder, seed):
+    """--root's launch-bound items: K1 at the main path's shape (the 12
+    pairs of f in turn over 960 shards) and the range leaf KR (K1 over
+    Range(v > 100), bench.py's v of depth 8), each as ``measured`` gives
+    it: CUDA-event ms around 10 wrapper calls, device ms per launch, host
+    us per call.  Made through the checkout's engine, so that a change to
+    the launch's parameters or to the kernels' variants shows."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import kernels
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    sync = torch.cuda.synchronize
+    canonical = engine.canonical_shards("bench")
+    S = len(canonical)
+    lw = _Lowering(engine, canonical)
+    codes = [kernels.compile_prog(engine._lower("bench", pql.parse(
+        f"Intersect(Row(f={10 + 2 * k}), Row(f={11 + 2 * k}))").calls[0], lw)) for k in range(12)]
+    mask = engine._mask_words(canonical, canonical)
+    it = iter(range(10 ** 9))
+    for _ in range(5):
+        kernels.count_tree_dense(codes[0], lw.mats, mask)
+    sync()
+    out = {"k1": measured(lambda: kernels.count_tree_dense(codes[next(it) % 12], lw.mats, mask),
+                          "count_tree_dense_kernel", sync,
+                          bound_ms=2 * S * W64 * 8 / HBM_BYTES_PER_S * 1e3)}
+    # The launch alone: K1's C entry with its arguments made once, so that
+    # the host time of the launch (the parameters packed and sent) shows
+    # apart from the wrapper's Python.
+    fn = kernels._lib_fn("count_tree_dense", "count_tree_dense",
+                         kernels._TREE_ARGS + [kernels._P, kernels._I, kernels._I, kernels._P,
+                                               kernels._P])
+    res = torch.zeros(1, dtype=torch.int64, device=mask.device)
+    args = (kernels._c_leaves(codes[0], lw.mats) + (mask.data_ptr(), S, 32768, res.data_ptr(),
+                                                    torch.cuda.current_stream().cuda_stream))
+    out["k1_launch_host_us"] = host_us(lambda: fn(*args), sync)
+    # K1 where the launch is the cost: two rows over 16 shards.
+    small = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, 16, 32768), dtype=torch.int32,
+                          device=mask.device)
+    mask16 = torch.ones(16, dtype=torch.int32, device=mask.device)
+    code16 = kernels.compile_prog(("and", ("row", 0, 0), ("row", 0, 1)))
+    out["k1_16_shards"] = measured(lambda: kernels.count_tree_dense(code16, [small], mask16),
+                                   "count_tree_dense_kernel", sync)
+    out["threads"] = sorted(t.name for t in threading.enumerate())
+    build_bsi_fields(holder, S, seed)
+    engine.field_stack("bench", "v", "bsig_v")
+    lw = _Lowering(engine, canonical)
+    rprog = engine._lower("bench", pql.parse("Range(v > 100)").calls[0], lw)
+    got, want = kernels.count_tree(rprog, lw.mats, mask), kernels.count_tree_plain(rprog, lw.mats,
+                                                                                  mask)
+    if int(got) != int(want):
+        raise AssertionError(f"KR: {int(got)} != plain {int(want)}")
+    for _ in range(3):
+        kernels.count_tree(rprog, lw.mats, mask)
+    sync()
+    out["kr"] = measured(lambda: kernels.count_tree(rprog, lw.mats, mask),
+                         "count_tree_dense_kernel", sync,
+                         bound_ms=(BSI_DEPTH + 1) * S * W64 * 8 / HBM_BYTES_PER_S * 1e3)
+    return out
 
 
 def ab_kernels(device, seed):
@@ -5263,6 +5913,7 @@ def main(argv=None):
     err.update(check_bsi_kernels(device, args.seed))
     err.update(check_groupby_kernel(device, args.seed))
     err.update(check_fused_kernel(device, args.seed))
+    err.update(check_pool_leaf(device, args.seed))
     if args.check_only:
         log(f"check-only: every kernel exact against its plain version: {err}")
         return 0
@@ -5312,6 +5963,13 @@ def main(argv=None):
     mark("fusion")
     log("http: " + json.dumps(run_http_path(device, holder, engine, host, args.seed)))
     mark("http")
+    res_out, res_launches, (t_rowb, plain_rowb, rowb_bytes) = run_residency_path(
+        device, args.seed)
+    log("residency: " + json.dumps(res_out))
+    kern.append(_entry("rowb", "pilosa_tpu_torch/csrc/tree_eval.cuh",
+                       "pilosa_tpu/parallel/kernels.py:84", res_launches, err["rowb"], t_rowb,
+                       plain_rowb, rowb_bytes, rowb_bytes // 4 * 2, None))
+    mark("residency")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     mark("write")

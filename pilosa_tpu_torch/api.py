@@ -528,6 +528,25 @@ class API:
             "fraction": 1.0 if not total else min(1.0, ws.get("built", 0) / total),
         }
 
+    def residency_status(self) -> Optional[dict]:
+        """The engine's device working set under its budget (GET /readyz
+        ``residency``): the resident block fraction, the resident bytes
+        against the budget, partial stacks, queries served from the host
+        tier and promotions pending.  None without an engine, or with no
+        bound to report (the CPU's default)."""
+        eng = self.engine
+        if eng is None or eng.max_resident_bytes >= 1 << 62:
+            return None
+        snap = eng.cache_snapshot()
+        return {
+            "residentBlockFraction": snap["residentBlockFraction"],
+            "residentBytes": snap["residentBytes"],
+            "deviceBudgetBytes": snap["deviceBudgetBytes"],
+            "partialStacks": snap["partialStacks"],
+            "hostFallbacks": snap["hostFallbacks"],
+            "pendingPromotions": snap["residency"]["pendingPromotions"],
+        }
+
     def version(self) -> str:
         return __version__
 

@@ -149,7 +149,8 @@ class Config:
         # budget in bytes — a SOFT target past which field stacks evict
         # (cost-priced) and cold stacks serve from the compressed host
         # tier while an async promotion admits their touched rows.
-        # 0 = the engine default (8 GiB).
+        # 0 = the engine default (parallel/engine.py DEFAULT_BUDGET_FRACTION
+        # of the card's memory).
         self.engine_device_budget_bytes = 0
         # mesh (TPU-native: devices for the shard mesh; 0 = all)
         self.mesh_devices = 0

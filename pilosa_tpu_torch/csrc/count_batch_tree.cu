@@ -38,6 +38,13 @@
 // stream (the K3 pattern), so the output needs no fill.  The programs,
 // masks (one bit per shard), leaf row addresses and fan-out live in one
 // device buffer the wrapper uploads with one copy.
+//
+// A leaf row of a partial stack's block pool (OP_ROWB, tree_eval.cuh) is
+// staged through its slot vector: each 2 KiB block of the tile is copied
+// from the pool slot the vector names, and a block in slot 0 (empty in
+// every shard) is written as zeros with no load.  The programs then read
+// the staged tile as they read any leaf row, so a batch of Counts over a
+// partial stack is one launch that reads only the occupied blocks.
 #include <cuda_pipeline.h>
 
 #include "reduce.cuh"
@@ -54,6 +61,11 @@ constexpr int kDirectTile = 1024;         // uint4 per tile when not staged
 
 struct Batch {
   const unsigned long long* leaves;  // address of each leaf row's [S, W] words
+  // Per leaf, the address of its slot vector (device int32[64]) for a pool
+  // row, whose `leaves` entry is then the pool's slot 0; 0 for a stack row.
+  const unsigned long long* slots;
+  unsigned int pool_shards;          // S of the pools (the launch's S)
+  int has_pool;                      // any pool row: else no slot is read
   const int4* qinfo;                 // (ops offset, n ops, mask id, chain) per query
   const int* ops;                    // the postfix programs, back to back
   const unsigned int* masks;         // [n masks][s32]: bit s = shard s requested
@@ -63,15 +75,31 @@ struct Batch {
   int w4;
 };
 
+// The address of position `pos` of this CTA's shard of pool leaf `l`, or
+// null for a block in slot 0 (zeros, nothing to read).
+__device__ __forceinline__ const uint4* pool_at(const Batch& b, int l, int pos) {
+  const int* slot = reinterpret_cast<const int*>(__ldg(b.slots + l));
+  const int sl = __ldg(slot + pos / kPoolBlockVec);
+  if (sl == 0) return nullptr;
+  const uint4* pool = reinterpret_cast<const uint4*>(__ldg(b.leaves + l));
+  return pool + ((size_t)sl * b.pool_shards + blockIdx.y) * kPoolBlockVec +
+         pos % kPoolBlockVec;
+}
+
 // Leaf `l`'s words at position `p` of the tile starting at uint4 `base` of
 // the shard: from the staged tile, or from device memory (0 past the row).
 template <bool kStaged>
 __device__ __forceinline__ uint4 leaf_at(const Batch& b, const uint4* stage,
-                                         int tile, int l, size_t shard_off,
+                                         int tile, int code, size_t shard_off,
                                          int base, int p) {
+  const int l = code >> 8;
   if (kStaged) return stage[(size_t)l * tile + p];
   const int pos = base + p;
   if (pos >= b.w4) return make_uint4(0u, 0u, 0u, 0u);
+  if ((code & 0xff) == OP_ROWB) {
+    const uint4* src = pool_at(b, l, pos);
+    return src == nullptr ? make_uint4(0u, 0u, 0u, 0u) : __ldg(src);
+  }
   const uint4* row = reinterpret_cast<const uint4*>(__ldg(b.leaves + l));
   return __ldg(row + shard_off + pos);
 }
@@ -80,8 +108,8 @@ template <bool kStaged>
 __device__ __forceinline__ uint4 item_at(const Batch& b, const uint4* stage,
                                          int tile, int code, size_t shard_off,
                                          int base, int p) {
-  return (code & 0xff) == OP_LEAF
-             ? leaf_at<kStaged>(b, stage, tile, code >> 8, shard_off, base, p)
+  return (code & 0xff) == OP_LEAF || (code & 0xff) == OP_ROWB
+             ? leaf_at<kStaged>(b, stage, tile, code, shard_off, base, p)
              : make_uint4(0u, 0u, 0u, 0u);
 }
 
@@ -123,7 +151,7 @@ __device__ __forceinline__ unsigned int eval_item(const Batch& b,
     for (int pc = 0; pc < q.y; ++pc) {
       const int code = __ldg(ops + pc);
       const int op = code & 0xff;
-      if (op == OP_LEAF || op == OP_ZERO) {
+      if (op == OP_LEAF || op == OP_ROWB || op == OP_ZERO) {
         st[sp++] = item_at<kStaged>(b, stage, tile, code, shard_off, base, p[u]);
       } else {
         const uint4 r = st[--sp];
@@ -177,7 +205,8 @@ __global__ void __launch_bounds__(kThreads)
       if (kStaged)
         for (int pc = 0; pc < q.y; ++pc) {
           const int code = __ldg(b.ops + q.x + pc);
-          if ((code & 0xff) == OP_LEAF) needed[code >> 8] = 1;
+          if ((code & 0xff) == OP_LEAF || (code & 0xff) == OP_ROWB)
+            needed[code >> 8] = 1;
         }
     }
   }
@@ -203,9 +232,15 @@ __global__ void __launch_bounds__(kThreads)
           const int p = i & (tile - 1);
           const int pos = base + p;
           uint4* dst = stage + (size_t)l * tile + p;
+          const uint4* src = nullptr;
           if (pos < b.w4) {
-            const uint4* row = reinterpret_cast<const uint4*>(__ldg(b.leaves + l));
-            __pipeline_memcpy_async(dst, row + shard_off + pos, sizeof(uint4));
+            src = b.has_pool && __ldg(b.slots + l) != 0ull
+                      ? pool_at(b, l, pos)
+                      : reinterpret_cast<const uint4*>(__ldg(b.leaves + l)) +
+                            shard_off + pos;
+          }
+          if (src != nullptr) {
+            __pipeline_memcpy_async(dst, src, sizeof(uint4));
           } else {
             *dst = make_uint4(0u, 0u, 0u, 0u);
           }
@@ -278,13 +313,16 @@ int launch(const Batch& b, int tile, const int* out_index, int k_out,
 
 }  // namespace
 
-// leaves: device uint64[n_leaves] row addresses.  qinfo: device
+// leaves: device uint64[2 * n_leaves], the leaf row addresses and then
+// each leaf's slot vector address (0 for a stack row; a pool row's address
+// is the pool's slot 0); has_pool: whether any leaf is a pool row.  qinfo:
+// device
 // int32[K][4].  ops: device int32 programs.  masks: device
 // uint32[n masks][ceil(S / 32)].  out_index: device int32[k_out], or null
 // for out[i] = total of query i (k_out = K).  scratch: device
 // uint64[kMaxQueries + 1], zero (each launch leaves it zero).  out: device
 // int64[k_out], written whole.  Returns the cudaError_t of the launch.
-extern "C" int count_batch_tree(const void* leaves, int n_leaves,
+extern "C" int count_batch_tree(const void* leaves, int n_leaves, int has_pool,
                                 const void* qinfo, int K, const void* ops,
                                 const void* masks, const void* out_index,
                                 int k_out, int n_shards, int words,
@@ -298,6 +336,9 @@ extern "C" int count_batch_tree(const void* leaves, int n_leaves,
     return (int)cudaMemsetAsync(out, 0, (size_t)k_out * sizeof(long long), st);
   Batch b;
   b.leaves = (const unsigned long long*)leaves;
+  b.slots = b.leaves + n_leaves;
+  b.pool_shards = (unsigned int)n_shards;
+  b.has_pool = has_pool != 0;
   b.qinfo = (const int4*)qinfo;
   b.ops = (const int*)ops;
   b.masks = (const unsigned int*)masks;

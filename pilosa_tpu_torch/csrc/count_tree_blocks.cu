@@ -153,7 +153,7 @@ extern "C" int count_tree_blocks(const void* const* leaf_ptrs, int n_leaves,
   TreeProg prog;
   Leaves leaves;
   if (!pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops, n_ops, &prog,
-                 &leaves))
+                 &leaves, n_shards))
     return (int)cudaErrorInvalidValue;
   const int n_blocks = words / kBlockWords;
   // The count must fit the scratch word's 48 sum bits: at most one per bit.
@@ -169,11 +169,12 @@ extern "C" int count_tree_blocks(const void* const* leaf_ptrs, int n_leaves,
   if (ctas > 65535) ctas = 65535;
   if (ctas < 1) ctas = 1;
   const unsigned long long* bits = (const unsigned long long*)blk_bits;
+  const bool extra = has_extra_leaves(ops, n_ops, n_ranges);
   auto kernel = is_chain(ops, n_ops)
-                    ? (n_ranges ? count_tree_blocks_kernel<true, true>
-                                : count_tree_blocks_kernel<true, false>)
-                    : (n_ranges ? count_tree_blocks_kernel<false, true>
-                                : count_tree_blocks_kernel<false, false>);
+                    ? (extra ? count_tree_blocks_kernel<true, true>
+                             : count_tree_blocks_kernel<true, false>)
+                    : (extra ? count_tree_blocks_kernel<false, true>
+                             : count_tree_blocks_kernel<false, false>);
   kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
       prog, leaves, bits, valid, n_shards, words / 4, (unsigned long long*)scratch,
       (unsigned long long*)out);

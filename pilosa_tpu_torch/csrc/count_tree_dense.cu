@@ -79,7 +79,7 @@ extern "C" int count_tree_dense(const void* const* leaf_ptrs, int n_leaves,
   TreeProg prog;
   Leaves leaves;
   if (!pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops, n_ops, &prog,
-                 &leaves))
+                 &leaves, n_shards))
     return (int)cudaErrorInvalidValue;
   if (words <= 0 || words % 4 != 0 || n_shards < 0 || n_shards > 65535)
     return (int)cudaErrorInvalidValue;
@@ -88,11 +88,12 @@ extern "C" int count_tree_dense(const void* const* leaf_ptrs, int n_leaves,
   int chunks = (w4 + kThreads * kUint4PerThread - 1) / (kThreads * kUint4PerThread);
   if (chunks < 1) chunks = 1;
   const dim3 grid(chunks, n_shards);
+  const bool extra = has_extra_leaves(ops, n_ops, n_ranges);
   auto kernel = is_chain(ops, n_ops)
-                    ? (n_ranges ? count_tree_dense_kernel<true, true>
-                                : count_tree_dense_kernel<true, false>)
-                    : (n_ranges ? count_tree_dense_kernel<false, true>
-                                : count_tree_dense_kernel<false, false>);
+                    ? (extra ? count_tree_dense_kernel<true, true>
+                             : count_tree_dense_kernel<true, false>)
+                    : (extra ? count_tree_dense_kernel<false, true>
+                             : count_tree_dense_kernel<false, false>);
   kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       prog, leaves, (const int*)mask, w4, (unsigned long long*)out);
   return (int)cudaGetLastError();

@@ -155,11 +155,13 @@ void launch(bool ranges, dim3 grid, cudaStream_t stream, const FusedProg& fp,
     fused_tree_kernel<kSlots, false><<<grid, kThreads, 0, stream>>>(fp, leaves, need, w4, mat, out);
 }
 
-// An item code of slot table entries: a leaf or range leaf within the
-// tables, or zero.
-bool item_ok(int code, int n_leaves, int n_ranges) {
+// An item code of slot table entries: a leaf (a pool leaf with its slot
+// vector) or range leaf within the tables, or zero.
+bool item_ok(int code, const void* const* leaf_ptrs, int n_leaves, int n_ranges) {
   const int op = code & 0xff, arg = code >> 8;
   return (op == OP_LEAF && arg >= 0 && arg < n_leaves) ||
+         (op == OP_ROWB && arg >= 0 && arg < n_leaves &&
+          leaf_ptrs[n_leaves + arg] != nullptr) ||
          (op == OP_RANGE && arg >= 0 && arg < n_ranges) || code == OP_ZERO;
 }
 
@@ -186,7 +188,7 @@ extern "C" int fused_tree(const void* const* leaf_ptrs, int n_leaves,
   Leaves leaves;
   const int zero = OP_ZERO;
   if (!pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, &zero, 1, &unused,
-                 &leaves))
+                 &leaves, n_shards))
     return (int)cudaErrorInvalidValue;
   if (n_slots < 1 || n_slots > kMaxSlots || n_items < 0 || n_items > kMaxItems ||
       n_edges < 0 || n_edges > kMaxEdges || words <= 0 || words % 4 != 0 ||
@@ -198,7 +200,7 @@ extern "C" int fused_tree(const void* const* leaf_ptrs, int n_leaves,
   fp.counted = (unsigned)counted;
   if (fp.counted >> n_slots) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n_items; ++i) {
-    if (!item_ok(items[i], n_leaves, n_ranges)) return (int)cudaErrorInvalidValue;
+    if (!item_ok(items[i], leaf_ptrs, n_leaves, n_ranges)) return (int)cudaErrorInvalidValue;
     fp.items[i] = items[i];
   }
   for (int k = 0; k < n_slots; ++k) {
@@ -207,7 +209,7 @@ extern "C" int fused_tree(const void* const* leaf_ptrs, int n_leaves,
     const unsigned m = (unsigned)info[5 * k + 4];
     const bool first_ok =
         op == OP_ANDNOT
-            ? (item_ok(first, n_leaves, n_ranges) ||
+            ? (item_ok(first, leaf_ptrs, n_leaves, n_ranges) ||
                ((first & 0xff) == OP_MREF && (first >> 8) >= 0 && (first >> 8) < k))
             : first == -1;
     if (op < OP_AND || op > OP_XOR || !first_ok || off < 0 || len < 0 ||
@@ -234,7 +236,8 @@ extern "C" int fused_tree(const void* const* leaf_ptrs, int n_leaves,
   if (chunks < 1) chunks = 1;
   const dim3 grid(chunks, n_shards);
   const cudaStream_t st = (cudaStream_t)stream;
-  const bool r = n_ranges > 0;
+  bool r = has_extra_leaves(items, n_items, n_ranges);
+  for (int k = 0; k < n_slots; ++k) r = r || (fp.first[k] & 0xff) == OP_ROWB;
   const int* nd = (const int*)need;
   uint4* mt = (uint4*)mat;
   unsigned long long* o = (unsigned long long*)out;

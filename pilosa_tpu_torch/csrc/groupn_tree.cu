@@ -417,7 +417,7 @@ extern "C" int groupn_tree(const void* const* leaf_ptrs, int n_leaves,
   Leaves leaves = {};
   const bool filter = n_ops > 0;
   if (filter && !pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops,
-                           n_ops, &prog, &leaves))
+                           n_ops, &prog, &leaves, n_shards))
     return (int)cudaErrorInvalidValue;
   if (n_fields < 1 || n_fields > kMaxFields || field_ptrs == nullptr ||
       field_k == nullptr || field_stride == nullptr || idx == nullptr || out == nullptr ||
@@ -449,7 +449,7 @@ extern "C" int groupn_tree(const void* const* leaf_ptrs, int n_leaves,
   if (n_shards == 0) return (int)cudaSuccess;
   const int w4 = words / 4;
   const int kind = !filter ? 0 : is_chain(ops, n_ops) ? 1 : 2;
-  const bool rg = n_ranges > 0;
+  const bool rg = filter && has_extra_leaves(ops, n_ops, n_ranges);
   const int* ix = (const int*)idx;
   const int* m = (const int*)mask;
   unsigned long long* o = (unsigned long long*)out;

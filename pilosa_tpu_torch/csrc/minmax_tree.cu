@@ -169,7 +169,7 @@ extern "C" int minmax_tree(const void* const* leaf_ptrs, int n_leaves,
   Leaves leaves = {};
   const bool filter = n_ops > 0;
   if (filter && !pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges,
-                           ops, n_ops, &prog, &leaves))
+                           ops, n_ops, &prog, &leaves, n_shards))
     return (int)cudaErrorInvalidValue;
   if (planes == nullptr || vals == nullptr || counts == nullptr)
     return (int)cudaErrorInvalidValue;

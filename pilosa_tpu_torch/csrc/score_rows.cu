@@ -364,7 +364,7 @@ extern "C" int score_rows(const void* const* leaf_ptrs, int n_leaves,
   TreeProg prog;
   Leaves leaves;
   if (!pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops, n_ops, &prog,
-                 &leaves))
+                 &leaves, n_shards))
     return (int)cudaErrorInvalidValue;
   Totals totals;
   totals.cnt = (const int*)cnt;
@@ -376,7 +376,8 @@ extern "C" int score_rows(const void* const* leaf_ptrs, int n_leaves,
   totals.n_out = n_out;
   totals.trimmed = n_out > 0 ? (int*)out : nullptr;
   totals.all = n_out == 0 ? (long long*)out : nullptr;
-  return launch(prog, leaves, n_ranges > 0, ops, n_ops, (const int*)mask,
+  return launch(prog, leaves, has_extra_leaves(ops, n_ops, n_ranges), ops, n_ops,
+                (const int*)mask,
                 (const uint4*)cand_base, (const int*)cand_idx, n_cands,
                 n_shards, words, (int*)scores, (int*)src_counts, totals,
                 (cudaStream_t)stream);

@@ -101,7 +101,7 @@ extern "C" int sum_tree(const void* const* leaf_ptrs, int n_leaves,
   Leaves leaves = {};
   const bool filter = n_ops > 0;
   if (filter && !pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges,
-                           ops, n_ops, &prog, &leaves))
+                           ops, n_ops, &prog, &leaves, n_shards))
     return (int)cudaErrorInvalidValue;
   if (planes == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
   const RangeLeaf pl = *(const RangeLeaf*)planes;

@@ -1,11 +1,13 @@
 // Shared device code of the kernels that evaluate a tree (K1
 // count_tree_dense.cu, K2 count_tree_blocks.cu, K3 score_rows.cu, K6
-// sum_tree.cu, K7 minmax_tree.cu, F1 fused_tree.cu): the postfix tree program, the
-// per-thread tree evaluation over 16-byte word vectors, the BSI range leaf,
-// and the block reduction.
+// sum_tree.cu, K7 minmax_tree.cu, K8's filter in groupn_tree.cu, F1
+// fused_tree.cu): the postfix tree program, the per-thread tree evaluation
+// over 16-byte word vectors, the BSI range leaf, the block-pool leaf, and the
+// block reduction.
 //
-// A normalized count tree (leaves: a row of a field stack, zero, or a BSI
-// range condition; nodes: and / or / andnot / xor) reaches the kernels as
+// A normalized count tree (leaves: a row of a field stack, a row of a block
+// pool, zero, or a BSI range condition; nodes: and / or / andnot / xor)
+// reaches the kernels as
 // a short postfix program.  Each thread walks it over one uint4 (four 32-bit words) at a
 // time with a small stack, so no intermediate row is ever written to
 // device memory: every word of every leaf row is read once, combined in
@@ -28,6 +30,7 @@ enum : int {
   OP_XOR = 5,
   OP_RANGE = 6,  // a BSI range leaf; its index into Leaves::range in bits 8+
   OP_MREF = 7,   // an earlier mask slot of a fused program (fused_tree.cu only)
+  OP_ROWB = 8,   // a row of a block pool; its leaf index in bits 8+
 };
 
 // Range-leaf kinds; parallel/kernels.py keeps the same numbers.
@@ -71,12 +74,41 @@ struct RangeLeaf {
   int plane[MAX_PLANES];
 };
 
-// Base of each leaf row (that row's [S, W] words in its field stack), and
-// the range leaves.
+// The block pool of a partial stack (parallel/engine.py _promote): int32
+// [P, S, 512], slot p holding one 2 KiB occupancy block of some row for
+// every shard, slot 0 all zero.  A pool row is its slot vector int32[64]:
+// block b of the row, in every shard, is slot slot[b] of the pool.  Pool
+// rows are always full width (W = 32768 words, 8192 uint4 per shard).
+constexpr int kPoolBlockVec = 128;  // uint4 per 2 KiB block
+constexpr int kPoolRowVec = 8192;   // uint4 per [W] row of one shard
+
+// Base of each leaf row (that row's [S, W] words in its field stack; for an
+// OP_ROWB leaf the pool's slot 0), its slot vector (OP_ROWB leaves only, a
+// device int32[64]; null otherwise), the pool's shard count, and the range
+// leaves.  The slot vectors stay in device memory, read through the
+// read-only cache, so a launch's parameters grow by one pointer a leaf and
+// not by the 256 bytes of a vector.
 struct Leaves {
   const uint4* base[MAX_LEAVES];
+  const int* slot[MAX_LEAVES];
+  unsigned int pool_shards;
   RangeLeaf range[MAX_RANGES];
 };
+
+// Leaf k of a block pool at uint4 offset `off` of its [S, W] row: the
+// block's slot from the slot vector, then that slot's words for the shard.
+// The slot is the same for 128 consecutive offsets, so a warp on
+// neighbouring offsets takes one branch; a block in slot 0 (empty in every
+// shard) reads as zero with no load at all.
+__device__ __forceinline__ uint4 load_pool(const Leaves& leaves, int k, size_t off) {
+  const size_t s = off / kPoolRowVec;
+  const unsigned int w = (unsigned int)(off - s * kPoolRowVec);
+  const int slot = __ldg(leaves.slot[k] + (w / kPoolBlockVec));
+  if (slot == 0) return make_uint4(0u, 0u, 0u, 0u);
+  return __ldg(leaves.base[k] +
+               ((size_t)slot * leaves.pool_shards + s) * kPoolBlockVec +
+               (w % kPoolBlockVec));
+}
 
 __device__ __forceinline__ uint4 and4(uint4 a, uint4 b) {
   return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
@@ -189,8 +221,9 @@ __device__ __forceinline__ uint4 combine4(int op, uint4 a, uint4 b) {
 
 // Evaluate the program at uint4 offset `off` of every leaf row, with the
 // stack in thread-local memory (any program within the limits).  kRanges
-// false compiles the range leaf out: a kernel launched for a program
-// without one keeps the registers, and the occupancy, it had without it.
+// false compiles the range and pool leaves out: a kernel launched for a
+// program with neither keeps the registers, and the occupancy, it had
+// without them (the host picks it with has_extra_leaves).
 template <bool kRanges = true>
 __device__ __forceinline__ uint4 eval_tree(const TreeProg& prog,
                                            const Leaves& leaves, size_t off) {
@@ -203,6 +236,8 @@ __device__ __forceinline__ uint4 eval_tree(const TreeProg& prog,
       stack[sp++] = __ldg(leaves.base[code >> 8] + off);
     } else if (kRanges && op == OP_RANGE) {
       eval_range<1>(leaves.range[code >> 8], &off, &stack[sp++]);
+    } else if (kRanges && op == OP_ROWB) {
+      stack[sp++] = load_pool(leaves, code >> 8, off);
     } else if (op == OP_ZERO) {
       stack[sp++] = make_uint4(0u, 0u, 0u, 0u);
     } else {
@@ -223,13 +258,16 @@ __device__ __forceinline__ void load_items(int code, const Leaves& leaves,
     for (int u = 0; u < U; ++u) v[u] = __ldg(leaves.base[code >> 8] + off[u]);
   } else if (kRanges && op == OP_RANGE) {
     eval_range<U>(leaves.range[code >> 8], off, v);
+  } else if (kRanges && op == OP_ROWB) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = load_pool(leaves, code >> 8, off[u]);
   } else {
 #pragma unroll
     for (int u = 0; u < U; ++u) v[u] = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// A chain program is `item (item op)*` with items LEAF, ZERO or RANGE: the
+// A chain program is `item (item op)*` with items LEAF, ROWB, ZERO or RANGE: the
 // left-deep form of every n-ary Intersect/Union/Difference/Xor of rows and
 // range conditions.  At most two values are live, so it runs in registers,
 // at U positions per thread whose loads are all in flight together.
@@ -275,7 +313,7 @@ __device__ __forceinline__ void block_add(unsigned int v,
 static inline bool is_chain(const int* ops, int n_ops) {
   auto item = [](int code) {
     return (code & 0xff) == OP_LEAF || (code & 0xff) == OP_ZERO ||
-           (code & 0xff) == OP_RANGE;
+           (code & 0xff) == OP_RANGE || (code & 0xff) == OP_ROWB;
   };
   if (n_ops < 1 || n_ops % 2 == 0 || !item(ops[0])) return false;
   for (int pc = 1; pc < n_ops; pc += 2)
@@ -293,27 +331,44 @@ static inline bool planes_ok(const RangeLeaf& r, int n_rows) {
   return true;
 }
 
+// Host side: whether a program needs the range/pool leaf paths (kRanges).
+static inline bool has_extra_leaves(const int* ops, int n_ops, int n_ranges) {
+  if (n_ranges > 0) return true;
+  for (int i = 0; i < n_ops; ++i)
+    if ((ops[i] & 0xff) == OP_ROWB) return true;
+  return false;
+}
+
 // Host side: copy the program, the leaf pointers and the range leaves
 // (host array of n_ranges RangeLeaf, each with the row count of its stack
-// in range_rows) into the by-value parameter structs.  Returns false when
-// they exceed the limits or a leaf index or plane is out of bounds.
+// in range_rows) into the by-value parameter structs.  leaf_ptrs holds
+// 2 * n_leaves pointers: each leaf's base, then each leaf's slot vector
+// (null for a stack row; an OP_ROWB leaf needs one).  n_shards is the
+// launch's shard count (the pools' S).  Returns false when they exceed the
+// limits or a leaf index or plane is out of bounds.
 static inline bool pack_args(const void* const* leaf_ptrs, int n_leaves,
                              const void* ranges, const int* range_rows,
                              int n_ranges, const int* ops, int n_ops,
-                             TreeProg* prog, Leaves* leaves) {
+                             TreeProg* prog, Leaves* leaves, int n_shards) {
   if (n_ops < 1 || n_ops > MAX_PROG || n_leaves < 0 || n_leaves > MAX_LEAVES ||
-      n_ranges < 0 || n_ranges > MAX_RANGES)
+      n_ranges < 0 || n_ranges > MAX_RANGES || n_shards < 0)
     return false;
   prog->n = n_ops;
   for (int i = 0; i < n_ops; ++i) {
     const int op = ops[i] & 0xff, arg = ops[i] >> 8;
     if ((op == OP_LEAF && (arg < 0 || arg >= n_leaves)) ||
-        (op == OP_RANGE && (arg < 0 || arg >= n_ranges)) || op > OP_RANGE)
+        (op == OP_ROWB && (arg < 0 || arg >= n_leaves ||
+                           leaf_ptrs[n_leaves + arg] == nullptr)) ||
+        (op == OP_RANGE && (arg < 0 || arg >= n_ranges)) ||
+        (op > OP_RANGE && op != OP_ROWB))
       return false;
     prog->ops[i] = ops[i];
   }
-  for (int i = 0; i < MAX_LEAVES; ++i)
+  for (int i = 0; i < MAX_LEAVES; ++i) {
     leaves->base[i] = i < n_leaves ? (const uint4*)leaf_ptrs[i] : nullptr;
+    leaves->slot[i] = i < n_leaves ? (const int*)leaf_ptrs[n_leaves + i] : nullptr;
+  }
+  leaves->pool_shards = (unsigned int)n_shards;
   const RangeLeaf* rs = (const RangeLeaf*)ranges;
   for (int i = 0; i < MAX_RANGES; ++i) {
     if (i < n_ranges) {

@@ -85,7 +85,7 @@ from ..core.row import Row
 from ..core.view import VIEW_STANDARD, view_bsi_name
 from ..ops import bitops
 from ..ops import bsi as bsi_ops
-from ..parallel.engine import UnsupportedLowering
+from ..parallel.errors import HostFallback
 from ..parallel.singleflight import SingleFlight
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition, Query
 from ..util.stats import NopStatsClient
@@ -875,7 +875,7 @@ class Executor:
         if rem_calls:
             try:
                 counts = self.engine.count_many(index, rem_calls, [list(shards)] * len(rem_calls))
-            except UnsupportedLowering:
+            except HostFallback:
                 return None
             for k, v in zip(rem_idx, counts):
                 results[k] = v
@@ -889,7 +889,7 @@ class Executor:
             return None
         try:
             return self.engine.count(index, child, list(shards))
-        except UnsupportedLowering:
+        except HostFallback:
             return None
 
     # -- Range (executor.go :1233-1440) ------------------------------------
@@ -1046,7 +1046,7 @@ class Executor:
         try:
             return self._sflight.do((kind, seq, index, str(c), tuple(shards)),
                                     lambda: run(field_name, filter_call))
-        except UnsupportedLowering:
+        except HostFallback:
             return None
 
     def _mesh_sum(self, index, c: Call, shards) -> Optional[ValCount]:
@@ -1138,9 +1138,12 @@ class Executor:
             raise Error("TopN() can only have one input bitmap")
         field_name, n, row_ids, min_threshold, _, _, _ = self._topn_args(c)
         if not c.children:
-            return self.engine.topn_cache_only(
-                index, field_name, shards, n, min_threshold, row_ids or None
-            )
+            try:
+                return self.engine.topn_cache_only(
+                    index, field_name, shards, n, min_threshold, row_ids or None
+                )
+            except HostFallback:
+                return None
         # The write sequence before any derived state: a caller whose own
         # write completed never joins a flight computed before it.
         seq = frag_mod.WRITE_SEQ.v
@@ -1152,7 +1155,7 @@ class Executor:
                     row_ids or None,
                 ),
             )
-        except UnsupportedLowering:
+        except HostFallback:
             return None
         # A copy: the flight's waiters share one list.
         return list(out) if isinstance(out, list) else out
@@ -1207,7 +1210,7 @@ class Executor:
             scored = self.engine.batched_topn_scores(
                 index, field_name, candidates, c.children[0], list(shards)
             )
-        except UnsupportedLowering:
+        except HostFallback:
             return None
         if scored is None:
             return []
@@ -1363,7 +1366,7 @@ class Executor:
                     ("groupby", seq, index, str(c), tuple(sorted(shards))),
                     lambda: eng.batched_group_counts(index, fields, row_lists, filter_call,
                                                      shards))
-            except UnsupportedLowering:
+            except HostFallback:
                 self.host_fallbacks += 1
                 return None
             if counts is None:

@@ -620,6 +620,7 @@ class Handler:
                 (METRIC_ENGINE_FUSED_MASKS_REF, eng.fused_masks_referenced),
             ):
                 REGISTRY.counter(name).set(value)
+            eng.refresh_metrics()  # the resident block fraction
         # Serving-tier gauges (live connections, admission in-flight /
         # active tenants) refresh at scrape time too.
         if self.server is not None:
@@ -658,6 +659,11 @@ class Handler:
         ws = self.api.warm_status()
         if ws is not None:
             doc["warming"] = ws
+        # The device working set (docs/residency.md): informational, a
+        # cold working set still answers from the host tier.
+        rs = self.api.residency_status()
+        if rs is not None:
+            doc["residency"] = rs
         payload = json.dumps(doc).encode()
         return (200 if ready else 503), "application/json", payload
 
@@ -709,6 +715,10 @@ class Handler:
                 "fusedPrograms": eng.fused_programs,
                 "deviceBytesSkipped": eng.device_bytes_skipped,
             }
+            # The stack cache: resident and evicted-live bytes against the
+            # budget, evictions, the residency fraction, the promotion
+            # worker and the per-index working set.
+            out["engineCaches"] = eng.cache_snapshot()
             syncer = eng._ingest_syncer
             if syncer is not None:
                 out["ingestSync"] = {

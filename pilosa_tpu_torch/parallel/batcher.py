@@ -53,6 +53,7 @@ A Count whose tree holds a BSI range leaf joins a drain like any other:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue as queue_mod
 import re
@@ -509,12 +510,17 @@ class CountBatcher:
                 it._resolve()
             return
         good = []
+        # Probe mode: an item whose stack missed was counted once already,
+        # when the batch raised; its ResidencyMiss goes back to its caller,
+        # who serves it from the host lane.
+        probe = getattr(self.engine, "probe_residency", contextlib.nullcontext)
         for it in items:
             try:
-                if it.kind == "count":
-                    self._probe_lowering(it)
-                else:
-                    self.engine.probe_fused_item(it.index, it.spec, it.shards)
+                with probe():
+                    if it.kind == "count":
+                        self._probe_lowering(it)
+                    else:
+                        self.engine.probe_fused_item(it.index, it.spec, it.shards)
                 good.append(it)
             except Exception as e:  # noqa: BLE001
                 it.error = e
@@ -537,7 +543,10 @@ class CountBatcher:
         """Lower one item's tree as its batch would, and raise what its
         lowering raises."""
         eng = self.engine
-        prog = eng._lower(it.index, it.call, _Lowering(eng, eng.canonical_shards(it.index)))
+        lw = _Lowering(eng, eng.canonical_shards(it.index))
+        if hasattr(eng, "_collect_row_hints"):
+            lw.row_hints = eng._collect_row_hints(it.index, it.call)
+        prog = eng._lower(it.index, it.call, lw)
         if not kernels.fits(prog):
             raise UnsupportedLowering("count tree exceeds the kernels' limits")
 

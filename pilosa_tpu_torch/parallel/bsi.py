@@ -64,14 +64,8 @@ def _launch_args(code: Optional[kernels.Postfix], mats, mask: torch.Tensor,
     if not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 1:
         raise ValueError("mask must be an int32[S] tensor on the card")
     S = mask.shape[0]
-    W = kernels.check_stacks(list(mats) + [plane_mat], S)
-    if code is None:
-        tree = (None, 0, None, None, 0, None, 0)
-    else:
-        for m, r in code.leaves:
-            if not 0 <= r < mats[m].shape[0]:
-                raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
-        tree = kernels._c_leaves(code, mats)
+    W = kernels.check_stacks(list(mats) + [plane_mat], S, code, extra=(len(mats),))
+    tree = (None, 0, None, None, 0, None, 0) if code is None else kernels._c_leaves(code, mats)
     return tree, kernels.c_planes(plane_mat, planes), S, W
 
 
@@ -87,6 +81,8 @@ def sum_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"sum_tree launch failed: cudaError {err}")
     sum_tree_cuda.launches += 1
+    if code is not None:
+        kernels.pool_leaf(code, "sum_tree")
     return out
 
 
@@ -108,6 +104,8 @@ def minmax_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tenso
     if err != 0:
         raise RuntimeError(f"minmax_tree launch failed: cudaError {err}")
     minmax_tree_cuda.launches += 1
+    if code is not None:
+        kernels.pool_leaf(code, "minmax_tree")
     return vals, counts
 
 

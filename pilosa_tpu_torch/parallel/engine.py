@@ -58,8 +58,24 @@ K2 through the sparse plan).  The result memo answers a repeat of a
 (query, shard set) against unchanged views with no launch at all: its key
 carries the version token of every view the tree reads, so a write
 re-keys its readers.  ``CountBatcher`` (``batcher.py``) drains concurrent
-Counts into ``count_many_async``.  Partial residency and the block pool
-are later slices (ROADMAP.md Queue 1).
+Counts into ``count_many_async``.
+
+Tiered residency (docs/residency.md; ``pilosa_tpu/parallel/engine.py``
+:1092-1440, :1719-2160): the card is a working-set cache over the host
+tier under ``max_resident_bytes``.  A full stack that fits is built as
+above, after cost-priced eviction of other stacks makes room; one that
+does not fit raises ``ResidencyMiss`` (the executor serves the query from
+the host lane) and asks the ``ResidencyManager`` (``residency.py``) to
+promote the rows the query touches (``_collect_row_hints``).  Its worker
+(``_promote``) packs those rows' occupied 2 KiB blocks into a block pool
+``int32[P, S, 512]`` whose slot 0 is all zero, one slot per (row, occupied
+block); a row of it lowers to a pool leaf ``("rowb", pool, table, row)``
+that the hand kernels read in place through the row's slot vector
+(``csrc/tree_eval.cuh``), so the next query over the working set runs on
+the card.  A query touching a row outside a partial stack misses and grows
+the working set; aggregates (BSI planes, TopN candidates, GroupBy fields)
+need full stacks (``_require_full_stack``).  Writes to a pool stack sync
+in place as block writes (``_pool_sync_row``).
 
 Whole-dashboard fusion (``fused_drain_async``, ``fusion.py``): a drain of
 mixed Count/Sum/Min/Max/TopN/GroupBy items, possibly over several
@@ -75,6 +91,7 @@ op's own program (``solo_op``), and Sum/Min/Max/TopN ride the result memo
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 import weakref
@@ -90,11 +107,16 @@ from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD, view_bsi_name
 from ..ops import bitops
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
+from ..util import events as events_mod
+from ..util.stats import (METRIC_ENGINE_EVICTIONS, METRIC_ENGINE_PROMOTIONS,
+                          METRIC_ENGINE_RESIDENT_BLOCK_FRACTION, REGISTRY)
 from . import bsi as bsi_mod
 from . import fusion as fusion_mod
 from . import groupby as groupby_mod
 from . import kernels
+from . import residency as residency_mod
 from . import sparse as sparse_mod
+from .errors import HostFallback, ResidencyMiss, UnsupportedLowering  # noqa: F401 (re-exported)
 from .fusion import decode_topn_full
 from .mesh import host_stack, put_stack, resolve_device, shard_mask
 
@@ -105,23 +127,36 @@ _MEMO_UNSET = object()
 DEFAULT_RESULT_MEMO = 4096
 
 
-class UnsupportedLowering(Exception):
-    """The call tree has no device lowering here (an unported call, a
-    missing field or row argument, or a tree past the kernels' limits).
-    The executor serves such a Count from the host bitmap lane; no other
-    exception from the engine is caught, so a kernel fault surfaces."""
+# The default device budget: this fraction of the card's memory
+# (``torch.cuda.mem_get_info``'s total when the engine is built: 63.8 GB
+# of an H100 80GB HBM3's 85.0 GB), leaving the rest to the caching
+# allocator's scratch, launch buffers, the CUDA context and the host lane's
+# fragment mirrors.  The reference's 8 GiB (DEFAULT_RESIDENCY_BYTES) is a
+# TPU's figure.
+DEFAULT_BUDGET_FRACTION = 0.75
+
+# Device and summary bytes one (row, shard) of a full stack charges the
+# budget: its int32[WORDS] words plus the uint64 occupancy and
+# resident-block summaries (the reference's _row_shard_bytes, engine.py
+# :1210), so the port and the reference decide alike under one budget.
+ROW_SHARD_BYTES = bitops.WORDS * 4 + 16
 
 
 class _FieldStack:
     """Device-resident int32[R, S, WORDS] for one (index, field, view),
-    rows major so a row slice is one contiguous [S, WORDS] block."""
+    rows major so a row slice is one contiguous [S, WORDS] block; or, for
+    a partial stack, the block pool of its promoted rows."""
 
     __slots__ = ("matrix", "row_index", "versions", "shards", "occ", "frag_sync",
-                 "home", "written", "reads")
+                 "home", "written", "reads", "partial", "absent_rows", "block_mask",
+                 "universe_rows", "universe_blocks", "footprint", "pool", "slot_of",
+                 "pool_next", "free_dirty", "slot_table")
 
     def __init__(self, matrix: torch.Tensor, row_index: Dict[int, int],
                  versions, shards: List[int], occ: np.ndarray, frag_sync=(),
-                 home=None):
+                 home=None, partial=False, absent_rows=None, block_mask=None,
+                 universe_rows=None, universe_blocks=None, slot_of=None, pool_next=0,
+                 slot_table=None):
         self.matrix = matrix
         self.row_index = row_index
         self.versions = versions
@@ -143,12 +178,63 @@ class _FieldStack:
         self.home = home
         self.written: Optional[torch.cuda.Event] = None
         self.reads: Dict[int, torch.cuda.Event] = {}
+        # -- tiered residency (pilosa_tpu/parallel/engine.py:175-260) -------
+        # A PARTIAL stack holds only the promoted working-set rows:
+        # row_index maps them to their rows of the occ / block_mask
+        # summaries, absent_rows holds rows KNOWN EMPTY when promoted
+        # (lowered to the zero slot vector), and any other row is not
+        # resident: the lowering raises ResidencyMiss.
+        self.partial = partial
+        self.absent_rows = set() if absent_rows is None else absent_rows
+        # uint64[R, S] blocks whose device words are valid (partial stacks;
+        # None on full ones): a promotion uploads every occupied block of a
+        # promoted row, so mask >= occ is the invariant the sparse plan
+        # re-checks before trusting a partial stack.
+        self.block_mask = block_mask
+        # The row universe and its occupied blocks when (re)built: the
+        # denominators of the resident fractions.
+        self.universe_rows = matrix.shape[0] if universe_rows is None else universe_rows
+        self.universe_blocks = universe_blocks
+        # Bytes charged to the budget: the device matrix plus the host
+        # summaries (the slot table is not counted, as the reference does
+        # not count its slot vectors).
+        self.footprint = int(matrix.numel()) * matrix.element_size() + int(occ.nbytes) + (
+            0 if block_mask is None else int(block_mask.nbytes))
+        # -- the packed 2 KiB block pool (partial stacks) --------------------
+        # With ``slot_of``, ``matrix`` is a pool int32[P, S, 512]: each
+        # promoted row maps to an int32[64] slot vector (slot 0, the
+        # reserved all-zero block, for a block empty in every shard), so a
+        # partial stack costs one 2 KiB block per occupied (row, block) and
+        # shard.  ``slot_table`` int32[len(row_index) + 1, 64] on the card
+        # holds the vectors, row ``row_index[r]`` for row r and the last row
+        # all zero; the kernels read it in place.
+        self.pool = slot_of is not None
+        self.slot_of = slot_of  # row -> np.int32[64]
+        self.pool_next = pool_next  # first never-written slot
+        self.free_dirty: List[int] = []  # freed slots: zero-filled on reuse
+        self.slot_table = slot_table
+
+    def slot_vec(self, row_id) -> int:
+        """The slot-table row of ``row_id`` (the all-zero last row for
+        None or a row without blocks)."""
+        ridx = None if row_id is None else self.row_index.get(row_id)
+        return self.slot_table.shape[0] - 1 if ridx is None else ridx
+
+    def resident_fraction(self) -> float:
+        """Resident rows / row universe (1.0 for full stacks)."""
+        if not self.partial or not self.universe_rows:
+            return 1.0
+        return min(1.0, len(self.row_index) / self.universe_rows)
 
 
 class _Lowering:
     """The field stacks one query program reads.  ``stack_for`` fetches
     each (index, field, view) once, so the query sees one consistent
-    snapshot; ``add_matrix`` dedups stacks into program slots."""
+    snapshot; ``add_matrix`` dedups stacks into program slots.
+    ``row_hints`` maps each (index, field, view) to the rows the query
+    touches there (None: the whole stack), collected before lowering
+    (``TorchEngine._collect_row_hints``), so that a miss requests one
+    promotion of the query's whole working set."""
 
     def __init__(self, engine: "TorchEngine", canonical: List[int]):
         self.engine = engine
@@ -157,21 +243,27 @@ class _Lowering:
         self.stacks: List[_FieldStack] = []
         self._slots: Dict[int, int] = {}
         self._by_key: dict = {}
+        self.row_hints: Dict[tuple, Optional[set]] = {}
 
     def stack_for(self, index, field, view) -> Optional[_FieldStack]:
         key = (index, field, view)
         if key not in self._by_key:
             self._by_key[key] = self.engine.field_stack(
-                index, field, view, self.canonical
+                index, field, view, self.canonical, rows_hint=self.row_hints.get(key)
             )
         return self._by_key[key]
 
     def add_matrix(self, stack: _FieldStack) -> int:
+        """The program slot of a stack's matrix; a pool's slot table takes
+        the slot after it (``mats`` and ``stacks`` stay aligned)."""
         i = self._slots.get(id(stack.matrix))
         if i is None:
             i = self._slots[id(stack.matrix)] = len(self.mats)
             self.mats.append(stack.matrix)
             self.stacks.append(stack)
+            if stack.pool:
+                self.mats.append(stack.slot_table)
+                self.stacks.append(stack)
         return i
 
 
@@ -361,9 +453,29 @@ class TorchEngine:
     # iterator (engine.py:4571), as K8's counters live in shared memory.
     MAX_GROUP_COMBOS = groupby_mod.MAX_GROUP_COMBOS
 
-    def __init__(self, holder, device=None):
+    # Rows per promotion chunk: the host assembly of chunk N+1 overlaps the
+    # upload of chunk N.
+    PROMOTE_CHUNK_ROWS = 64
+    # Warm start admits up to this fraction of the budget; the rest is the
+    # on-demand lane for queries and their promotions.
+    WARM_TARGET_FRACTION = 0.9
+
+    def __init__(self, holder, device=None, max_resident_bytes: Optional[int] = None,
+                 journal=None, logger=None):
+        """``max_resident_bytes`` is the device budget of resident stacks
+        (the server's ``[engine] device-budget-bytes``); None or 0 takes
+        DEFAULT_BUDGET_FRACTION of the card's memory, and on the CPU no
+        bound.  It counts bytes the engine owns (stack footprints,
+        promotions in flight, evicted stacks a launch may still read),
+        never ``mem_get_info``'s free figure: PyTorch's caching allocator
+        keeps what an eviction frees."""
         self.holder = holder
         self.device = resolve_device(device)
+        self.logger = logger
+        self.journal = journal if journal is not None else events_mod.JOURNAL
+        if not max_resident_bytes:
+            max_resident_bytes = self.default_budget()
+        self.max_resident_bytes = int(max_resident_bytes)
         self._stacks: "OrderedDict[Tuple[str, str, str], _FieldStack]" = OrderedDict()
         # Serializes stack build, sync and every dispatch from lowering to
         # launch: a query's plan (its occupancy) and its launch see one
@@ -422,6 +534,37 @@ class TorchEngine:
         # Warm-start progress ({total, built, skipped, done}); None until
         # warm_start runs.
         self.warm_state: Optional[dict] = None
+        # -- tiered residency ------------------------------------------------
+        # Footprints of the resident stacks, and (weakref to an evicted
+        # matrix, its bytes) for evicted stacks a queued launch may still
+        # read: both count against the budget until the tensor is freed.
+        self._resident_bytes = 0
+        self._pending_free: list = []
+        self.residency = residency_mod.ResidencyManager(self)
+        # Queries answered from the host tier because their stack (or rows)
+        # was not resident, and stacks evicted (for the budget, or replaced
+        # by a re-promotion or a rebuild of the same key).
+        self.host_fallbacks = 0
+        self.evictions = 0
+        # Of them, the stacks evicted to make room under the budget.
+        self.budget_evictions = 0
+        self._evictions_counter = REGISTRY.counter(METRIC_ENGINE_EVICTIONS)
+        self._promotions_warm_counter = REGISTRY.counter(METRIC_ENGINE_PROMOTIONS,
+                                                         cause="warm_start")
+        # Per thread: fallbacks raised while probing (the batcher's failure
+        # attribution, a promotion's commit) are not counted again.
+        self._probe_tls = threading.local()
+        # Eviction pricing: index -> device-cost signal (higher = hotter =
+        # evicted later), LRU among equals.  The reference reads the plan
+        # ledger's per-tenant cost EWMA here and ranks the prefetch
+        # advisor's predicted stacks last; both are ROADMAP.md Queue 1 item
+        # 14 (util/plans.py, parallel/advisor.py) and read as empty until
+        # it lands, so the default is LRU.
+        self.cost_of_index = lambda index: 0.0
+        self._closed = False
+        self.last_promote_error: Optional[str] = None
+        # key -> (version token, occupied blocks of the row universe).
+        self._universe_blocks_at: Dict[tuple, tuple] = {}
 
     # -- canonical shard axis ---------------------------------------------
 
@@ -455,48 +598,461 @@ class TorchEngine:
 
     # -- residency ---------------------------------------------------------
 
+    def default_budget(self) -> int:
+        """DEFAULT_BUDGET_FRACTION of the card's memory; no bound on the CPU."""
+        if self.device.type != "cuda":
+            return 1 << 62
+        _, total = torch.cuda.mem_get_info(self.device)
+        return int(total * DEFAULT_BUDGET_FRACTION)
+
+    def _token(self, index: str, view_obj) -> tuple:
+        return (
+            self.holder.shard_epoch(index),
+            0 if view_obj is None else view_obj.gen,
+            -1 if view_obj is None else view_obj.version,
+        )
+
     def field_stack(self, index: str, field: str, view: str,
-                    canonical: Optional[List[int]] = None) -> Optional[_FieldStack]:
+                    canonical: Optional[List[int]] = None,
+                    rows_hint: Optional[set] = None) -> Optional[_FieldStack]:
         """The device stack of every row of a view across the index's
         canonical shard axis: synced in place when the view changed, and
-        rebuilt whole only when the sync cannot cover the change."""
+        rebuilt whole only when the sync cannot cover the change.
+        ``rows_hint`` is the rows the caller's query touches (None: the
+        whole stack).  It changes nothing while the full stack fits the
+        budget; past it, it is what the promotion admits, and the call
+        raises ``ResidencyMiss`` so the query is served from the host tier
+        meanwhile."""
         if canonical is None:
             canonical = self.canonical_shards(index)
         key = (index, field, view)
         with self._stacks_lock:
-            view_obj = self.holder.view(index, field, view)
-            token = (
-                self.holder.shard_epoch(index),
-                0 if view_obj is None else view_obj.gen,
-                -1 if view_obj is None else view_obj.version,
-            )
-            cached = self._stacks.get(key)
-            if cached is not None and cached.versions == token and cached.shards == canonical:
+            return self._field_stack_locked(key, index, field, view, canonical, rows_hint)
+
+    def _field_stack_locked(self, key, index, field, view, canonical, rows_hint=None):
+        view_obj = self.holder.view(index, field, view)
+        token = self._token(index, view_obj)
+        cached = self._stacks.get(key)
+        if cached is not None and cached.versions == token and cached.shards == canonical:
+            self._stacks.move_to_end(key)
+            return cached
+        prior_rows = None
+        if cached is not None:
+            updated = self._try_incremental_sync(cached, index, field, view, canonical, token)
+            if updated is not None:
                 self._stacks.move_to_end(key)
-                return cached
-            if cached is not None:
-                updated = self._try_incremental_sync(cached, index, field, view, canonical,
-                                                     token)
-                if updated is not None:
-                    self._stacks.move_to_end(key)
-                    return updated
-            self._stacks.pop(key, None)
+                return updated
+            if cached.partial:
+                # A rebuilt partial stack keeps its working set.
+                prior_rows = set(cached.row_index)
+            self._evict(key)
+        if not canonical:
+            return None
+        # Admission (pilosa_tpu/parallel/engine.py:1157-1175): price the
+        # FULL stack from its row universe before any host assembly.  One
+        # that fits is built now, colder stacks evicted to make room; one
+        # that does not requests a promotion of the touched rows and sends
+        # the query to the host tier.
+        universe = self._row_universe(index, field, view, canonical)
+        full_foot = max(1, len(universe)) * len(canonical) * ROW_SHARD_BYTES
+        if not self._admissible(full_foot):
+            if prior_rows:
+                rows_hint = prior_rows if rows_hint is None else set(rows_hint) | prior_rows
+            self._miss_to_host(key, rows_hint, 0.0, full_foot)
+        frag_sync, row_index, buf, occ = self._assemble_host(index, field, view, canonical)
+        self._evict_for(int(buf.numel()) * 4 + int(occ.nbytes))
+        home = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                else None)
+        stack = _FieldStack(put_stack(buf, self.device), row_index, token,
+                            list(canonical), occ, frag_sync, home)
+        self.stack_rebuilds += 1
+        self._stacks[key] = stack
+        self._resident_bytes += stack.footprint
+        return stack
+
+    def _row_universe(self, index, field, view, canonical) -> List[int]:
+        """Sorted distinct row ids across the view's fragments: the
+        admission estimate's rows and the partial stacks' denominator."""
+        rows = set()
+        for s in canonical:
+            f = self.holder.fragment(index, field, view, s)
+            if f is not None:
+                rows.update(f.row_ids())
+        return sorted(rows)
+
+    def _pending_bytes(self) -> int:
+        """Bytes of evicted matrices still alive (a queued launch or a
+        caller may hold one); dead ones are dropped."""
+        live = [(r, n) for r, n in self._pending_free if r() is not None]
+        self._pending_free = live
+        return sum(n for _, n in live)
+
+    def _admissible(self, nbytes: int) -> bool:
+        """Could ``nbytes`` fit the budget if every resident stack were
+        evicted?  Evicted-but-live matrices and promotions in flight count
+        (an evicted matrix held only by garbage awaiting the cycle
+        collector is collected once before a refusal)."""
+        def fits():
+            return (nbytes + self._pending_bytes() + self.residency.inflight_bytes()
+                    <= self.max_resident_bytes)
+
+        if fits():
+            return True
+        if self._pending_free:
+            gc.collect()
+            return fits()
+        return False
+
+    def _evict_for(self, need_bytes: int, protect=frozenset()) -> bool:
+        """Evict resident stacks until ``need_bytes`` more fits the budget,
+        the cheapest first (``cost_of_index``), least recently used among
+        equals.  The budget is a SOFT target: when nothing more can go the
+        caller admits anyway.  Runs under the stacks lock."""
+
+        def fits():
+            return (self._resident_bytes + self._pending_bytes()
+                    + self.residency.inflight_bytes() + need_bytes
+                    <= self.max_resident_bytes)
+
+        if fits():
+            return True
+        lru_pos = {k: i for i, k in enumerate(self._stacks)}
+        order = sorted((k for k in self._stacks if k not in protect),
+                       key=lambda k: (self._index_cost(k[0]), lru_pos[k]))
+        for k in order:
+            if fits():
+                return True
+            self._evict(k)
+            self.budget_evictions += 1
+        return fits()
+
+    def _index_cost(self, index: str) -> float:
+        """The eviction price of an index, tolerant of a broken hook."""
+        try:
+            return float(self.cost_of_index(index))
+        except Exception:  # noqa: BLE001 — pricing never fails an admission
+            return 0.0
+
+    def _evict(self, key):
+        """Drop a resident stack from the cache.  The tensor is never freed
+        here: a queued launch or an in-flight dispatch may still read it,
+        so its bytes stay counted (``_pending_free``) until the last
+        reference goes.  Cached fused plans that read it are dropped, so
+        they neither keep it alive nor serve it after a rebuild."""
+        stack = self._stacks.pop(key, None)
+        if stack is None:
+            return
+        self._resident_bytes -= stack.footprint
+        self._pending_free.append((weakref.ref(stack.matrix),
+                                   int(stack.matrix.numel()) * stack.matrix.element_size()))
+        self.evictions += 1
+        self._evictions_counter.inc()
+        for pk in [k for k, plan in self._fused_plans.items() if key in plan.stack_tokens]:
+            del self._fused_plans[pk]
+        if not self._closed:
+            index, field, view = key
+            self.journal.append("engine.evict", index=index, field=field, view=view,
+                                bytes=stack.footprint, residentBytes=self._resident_bytes)
+
+    # -- the host-lane fallback protocol (engine.py:1353-1440) --------------
+
+    def _host_fallback(self, key, rows, fraction: float, msg: str):
+        """Count the fallback, request the promotion and raise
+        ResidencyMiss, so that the executor serves the query from the host
+        tier.  In probe mode (``probe_residency``: the batcher re-lowering
+        items whose batch already failed, a promotion's commit) the
+        counters stay still; the request (merged by the manager) still
+        lands."""
+        if not getattr(self._probe_tls, "quiet", False):
+            self.host_fallbacks += 1
+            self.residency.note_host_fallback()
+        self.residency.request(key, rows, cause="reactive")
+        raise ResidencyMiss(msg, key=key, resident_fraction=fraction)
+
+    class _ProbeMode:
+        __slots__ = ("_tls",)
+
+        def __init__(self, tls):
+            self._tls = tls
+
+        def __enter__(self):
+            self._tls.quiet = True
+
+        def __exit__(self, *exc):
+            self._tls.quiet = False
+            return False
+
+    def probe_residency(self):
+        """A context in which this thread's residency fallbacks are probes
+        (not counted again)."""
+        return self._ProbeMode(self._probe_tls)
+
+    def _miss_to_host(self, key, rows_hint, fraction: float, need_bytes: int):
+        """A stack is not resident and does not fit whole."""
+        self._host_fallback(
+            key, rows_hint, fraction,
+            f"stack {key} not device-resident ({need_bytes} B vs budget "
+            f"{self.max_resident_bytes} B); promotion requested, serving from the host tier")
+
+    def _partial_miss(self, index, field, view, row_id, lw, stack):
+        """A query touched a row outside a partial stack's working set:
+        request the query's whole hinted working set (and this row)."""
+        key = (index, field, view)
+        hint = lw.row_hints.get(key) if lw is not None else None
+        rows = set(hint) if hint else set()
+        rows.add(int(row_id))
+        frac = stack.resident_fraction()
+        self._host_fallback(key, rows, frac,
+                            f"row {row_id} of {key} not resident ({frac:.0%} of the stack "
+                            "is); promotion requested")
+
+    def _require_full_stack(self, index, field, view, stack):
+        """Aggregates (BSI planes, TopN candidates, GroupBy fields) read
+        whole stacks: a partial one requests the full promotion and sends
+        the query to the host tier."""
+        if stack is None or not stack.partial:
+            return stack
+        frac = stack.resident_fraction()
+        self._host_fallback((index, field, view), None, frac,
+                            f"aggregate over partial stack {(index, field, view)} "
+                            f"({frac:.0%} resident); full promotion requested")
+
+    # -- asynchronous promotion (pilosa_tpu/parallel/engine.py:1719-2010) ---
+
+    def _log(self, msg: str):
+        """A promotion the worker could not finish: kept for
+        ``cache_snapshot`` and logged; the host tier keeps serving."""
+        self.last_promote_error = msg
+        if self.logger is not None:
+            self.logger.printf("%s", msg)
+
+    def _promote(self, key, rows, cause="reactive", trace_id=""):
+        """Promote ``key``'s working set to the card; runs on the residency
+        worker.  ``rows`` is the merged row set of the misses (None: the
+        whole stack).  Returns (outcome, bytes shipped), outcome one of
+        "full", "partial", "declined" or "skipped".
+
+        The fragments' sync points are taken before any row is read, so a
+        write landing mid-promotion leaves the committed stack behind it,
+        and the commit's token re-check syncs it at once through
+        ``_try_incremental_sync`` (an idempotent word set), before any query
+        reads the stack.  A whole stack that fits the budget is built as a
+        query would build it; otherwise the rows' occupied blocks go to a
+        block pool: one slot per (row, block occupied in any shard), slot 0
+        all zero, a power-of-two capacity with 2x headroom that never
+        shrinks for this stack, uploaded in chunks of PROMOTE_CHUNK_ROWS
+        rows whose host assembly overlaps the previous chunk's copy.  The
+        uploads run on this thread's current stream (the default stream,
+        the queries' own), so no query reads the pool before they land."""
+        index, field, view = key
+        if self._closed:
+            return "skipped", 0
+        with self._stacks_lock:
+            canonical = self.canonical_shards(index)
             if not canonical:
-                return None
-            frag_sync, row_index, buf, occ = self._assemble_host(index, field, view, canonical)
+                return "skipped", 0
+            token = self._token(index, self.holder.view(index, field, view))
+            existing = self._stacks.get(key)
+            if existing is not None and not existing.partial and existing.versions == token:
+                return "skipped", 0  # a query built it first
+            want = None if rows is None else set(rows)
+            if existing is not None and existing.partial and want is not None:
+                want |= set(existing.row_index)  # growth keeps the working set
+        # Unlocked host walk; sync points FIRST.
+        frags = [self.holder.fragment(index, field, view, s) for s in canonical]
+        frag_sync = [(None, -1) if f is None else (weakref.ref(f), f._version) for f in frags]
+        universe = sorted({r for f in frags if f is not None for r in f.row_ids()})
+        universe_blocks = self._universe_blocks(key, token, frags)
+        S = len(canonical)
+        full_foot = max(1, len(universe)) * S * ROW_SHARD_BYTES
+        if want is None or self._admissible(full_foot):
+            if not self._admissible(full_foot):
+                return "declined", 0
+            self.residency.add_inflight(full_foot)
+            credited = True
+            try:
+                with self._stacks_lock:
+                    self._evict_for(0, protect=frozenset((key,)))
+                sync2, row_index, buf, occ = self._assemble_host(index, field, view, canonical)
+                mat = put_stack(buf, self.device)
+                self.residency.sub_inflight(full_foot)
+                credited = False
+                return self._commit_promotion(
+                    key, canonical, token, sync2, row_index, mat, occ, partial=False,
+                    absent=set(), universe_rows=len(universe), universe_blocks=universe_blocks,
+                    shipped=int(buf.numel()) * 4, cause=cause, trace_id=trace_id)
+            finally:
+                if credited:
+                    self.residency.sub_inflight(full_foot)
+        uni = set(universe)
+        target = sorted(r for r in want if r in uni)
+        absent = {r for r in want if r not in uni}
+        if not target and not absent:
+            return "skipped", 0
+        BW = bitops.OCC_BLOCK_WORDS
+        slot_of: Dict[int, np.ndarray] = {}
+        next_slot = 1
+        for r in target:
+            u = 0
+            for f in frags:
+                if f is not None and f.row_count(r):
+                    u |= int(f.row_occupancy(r))
+            vec = np.zeros(bitops.OCC_BLOCKS, dtype=np.int32)
+            while u:
+                blk = (u & -u).bit_length() - 1
+                vec[blk] = next_slot
+                next_slot += 1
+                u &= u - 1
+            slot_of[r] = vec
+        P_cap = 1 << max(3, (2 * next_slot - 1).bit_length())
+        with self._stacks_lock:
+            prev = self._stacks.get(key)
+            if prev is not None and prev.pool:
+                P_cap = max(P_cap, int(prev.matrix.shape[0]))
+        part_foot = P_cap * S * BW * 4 + len(target) * S * 16
+        if not self._admissible(part_foot):
+            return "declined", 0
+        self.residency.add_inflight(part_foot)
+        credited = True
+        try:
+            with self._stacks_lock:
+                self._evict_for(0, protect=frozenset((key,)))
+            pool = torch.zeros((P_cap, S, BW), dtype=torch.int32, device=self.device)
+            row_index = {r: i for i, r in enumerate(target)}
+            occ = np.zeros((len(target), S), dtype=np.uint64)
+            shipped = 0
+            for ci in range(0, len(target), self.PROMOTE_CHUNK_ROWS):
+                chunk = target[ci: ci + self.PROMOTE_CHUNK_ROWS]
+                updates, sb = self._assemble_pool_chunk(chunk, row_index, slot_of, frags, occ)
+                shipped += sb
+                if updates:
+                    self._upload_blocks(pool, updates)
+            table = np.zeros((len(target) + 1, bitops.OCC_BLOCKS), dtype=np.int32)
+            for r, i in row_index.items():
+                table[i] = slot_of[r]
+            slot_table = self._upload(table)
+            self.residency.sub_inflight(part_foot)
+            credited = False
+            return self._commit_promotion(
+                key, canonical, token, frag_sync, row_index, pool, occ, partial=True,
+                absent=absent, universe_rows=len(universe), universe_blocks=universe_blocks,
+                shipped=shipped, cause=cause, trace_id=trace_id, slot_of=slot_of,
+                pool_next=next_slot, slot_table=slot_table)
+        finally:
+            if credited:
+                self.residency.sub_inflight(part_foot)
+
+    def _universe_blocks(self, key, token, frags) -> int:
+        """Occupied blocks over a view's whole row universe (the partial
+        stacks' resident-fraction denominator): every row's occupancy, a
+        scan of its words, so it is kept per (key, token) and a stack
+        promoted again at the same version pays for it once."""
+        hit = self._universe_blocks_at.get(key)
+        if hit is not None and hit[0] == token:
+            return hit[1]
+        n = sum(int(f.row_occupancy(r)).bit_count()
+                for f in frags if f is not None for r in f.row_ids())
+        self._universe_blocks_at[key] = (token, n)
+        return n
+
+    _BLOCK_BITS = np.arange(bitops.OCC_BLOCKS, dtype=np.uint64)
+
+    def _assemble_pool_chunk(self, chunk_rows, row_index, slot_of, frags, occ):
+        """Host half of one promotion chunk: each (row, shard)'s words,
+        its occupancy computed from those words (never a second read), and
+        its occupied blocks with their slots, so only occupied blocks cross
+        the bus.  A block occupied by a write that raced the slot
+        assignment has no slot: it is left out of both the upload and the
+        occupancy, and the write's version replays it through the sync
+        after the commit.  Returns ([(slots int64[k], shard, blocks
+        uint32[k, 512])], bytes)."""
+        BW = bitops.OCC_BLOCK_WORDS
+        parts: list = []
+        shipped = 0
+        for r in chunk_rows:
+            ri = row_index[r]
+            slots = slot_of[r]
+            slotted = np.uint64(int(np.packbits(slots != 0, bitorder="little").view("<u8")[0]))
+            for si, f in enumerate(frags):
+                if f is None or not f.row_count(r):
+                    continue  # empty (a write since the sync points replays)
+                words = np.asarray(f.row_words(r), dtype=np.uint32)
+                kept = np.uint64(bitops.occupancy64(words)) & slotted
+                if not kept:
+                    continue
+                ids = np.flatnonzero((kept >> self._BLOCK_BITS) & np.uint64(1))
+                parts.append((slots[ids].astype(np.int64), si, words.reshape(-1, BW)[ids]))
+                shipped += len(ids) * BW * 4
+                occ[ri, si] = kept
+        return parts, shipped
+
+    def _upload_blocks(self, pool: torch.Tensor, parts):
+        """Write a chunk's (slots, shard, blocks) into a private pool: the
+        blocks go into one page-locked buffer and up with one non-blocking
+        copy, then one ``index_put_``, so the caller's next chunk is
+        assembled while this one crosses the bus."""
+        n = sum(len(p[0]) for p in parts)
+        pin = self.device.type == "cuda"
+        vals = torch.empty((n, bitops.OCC_BLOCK_WORDS), dtype=torch.int32, pin_memory=pin)
+        idx = torch.empty((2, n), dtype=torch.int64, pin_memory=pin)
+        v, ix = vals.numpy().view(np.uint32), idx.numpy()
+        o = 0
+        for slots, si, blocks in parts:
+            k = len(slots)
+            ix[0, o: o + k] = slots
+            ix[1, o: o + k] = si
+            v[o: o + k] = blocks
+            o += k
+        if pin:
+            vals = vals.to(self.device, non_blocking=True)
+            idx = idx.to(self.device, non_blocking=True)
+        pool.index_put_((idx[0], idx[1]), vals)
+
+    def _commit_promotion(self, key, canonical, token, frag_sync, row_index, mat, occ,
+                          partial, absent, universe_rows, shipped, universe_blocks=None,
+                          cause="reactive", trace_id="", slot_of=None, pool_next=0,
+                          slot_table=None):
+        """Admit a promoted matrix under the stacks lock: a moved shard axis
+        or a replaced view aborts (the next miss requests again), and a
+        version a mid-promotion write advanced syncs at once through
+        ``_field_stack_locked`` before any query can read the stack."""
+        index, field, view = key
+        with self._stacks_lock:
+            if self._closed or self.canonical_shards(index) != canonical:
+                return "skipped", shipped
+            view_obj = self.holder.view(index, field, view)
+            if (0 if view_obj is None else view_obj.gen) != token[1]:
+                return "skipped", shipped
+            if key in self._stacks:
+                self._evict(key)
             home = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
                     else None)
-            stack = _FieldStack(put_stack(buf, self.device), row_index, token,
-                                list(canonical), occ, frag_sync, home)
-            self.stack_rebuilds += 1
+            stack = _FieldStack(
+                mat, row_index, token, list(canonical), occ, frag_sync, home,
+                partial=partial, absent_rows=set(absent),
+                block_mask=occ.copy() if partial else None, universe_rows=universe_rows,
+                universe_blocks=universe_blocks, slot_of=slot_of, pool_next=pool_next,
+                slot_table=slot_table)
+            if home is not None:
+                stack.written = torch.cuda.Event()
+                stack.written.record(home)
+            self._evict_for(stack.footprint)
             self._stacks[key] = stack
-            if cached is not None:
-                # Cached fused plans hold the old matrix: drop those that
-                # read it rather than keep it alive until their next probe.
-                for pk in [k for k, plan in self._fused_plans.items()
-                           if key in plan.stack_tokens]:
-                    del self._fused_plans[pk]
-            return stack
+            self._resident_bytes += stack.footprint
+            self.stack_rebuilds += 1
+            if self._token(index, view_obj) != token:
+                # A write landed mid-promotion: sync now.  Probe mode: this
+                # serves no query, so a miss here counts no fallback.
+                try:
+                    with self.probe_residency():
+                        self._field_stack_locked(key, index, field, view, canonical)
+                except ResidencyMiss:
+                    return "declined", shipped
+            self.journal.append("engine.promotion", trace_id=trace_id or None, index=index,
+                                field=field, view=view, cause=cause, partial=bool(partial),
+                                rows=len(row_index), universeRows=int(universe_rows),
+                                bytes=int(shipped))
+        return ("partial" if partial else "full"), shipped
 
     def _assemble_host(self, index, field, view, canonical):
         """Host half of a stack build: walk the view's fragments and fill
@@ -526,8 +1082,7 @@ class TorchEngine:
         return frag_sync, row_index, buf, occ
 
     # -- write path: in-place sync of resident stacks ----------------------
-    # (pilosa_tpu/parallel/engine.py:2010-2289, minus partial stacks and
-    # the block pool)
+    # (pilosa_tpu/parallel/engine.py:2015-2289)
 
     # Rows per row-scatter launch: the chunk's host staging is rows x
     # 128 KiB, so a bulk sync of any size goes in bounded chunks.
@@ -538,13 +1093,14 @@ class TorchEngine:
         """Bring a stale resident stack up to date by scattering only what
         each fragment's ``sync_snapshot`` reports changed since the
         stack's sync point: the changed words of a row, or the whole row
-        when its word log does not cover the change.  Returns the stack,
-        or None when only a rebuild can cover the change: a new shard
-        axis or view, a fragment replaced or removed, a new row, or a
-        sync point older than a storage load.  The occupancy summary
-        takes each row's exact bitmap from the same snapshot as its words,
-        and only once the scatter was enqueued without error; a failed
-        scatter evicts the stack and re-raises."""
+        when its word log does not cover the change.  A pool stack takes
+        them as block writes (``_pool_sync_row``).  Returns the stack, or
+        None when only a rebuild can cover the change: a new shard axis or
+        view, a fragment replaced or removed, a new row of a full stack, a
+        pool out of slots, or a sync point older than a storage load.  The
+        occupancy summary takes each row's exact bitmap from the same
+        snapshot as its words, and only once the scatter was enqueued
+        without error; a failed scatter evicts the stack and re-raises."""
         if cached.shards != canonical or not cached.frag_sync:
             return None
         # A shard-epoch change alone does not bail (a fragment created in
@@ -555,6 +1111,7 @@ class TorchEngine:
         updates: List[Tuple[int, int, np.ndarray]] = []  # (row_idx, pos, words)
         word_updates: List[Tuple[int, int, np.ndarray, np.ndarray]] = []
         occ_updates: List[Tuple[int, int, int]] = []
+        pool_rows: set = set()  # pool rows whose slot vectors may change
         n_words = 0
         new_sync = list(cached.frag_sync)
         view_obj = self.holder.view(index, field, view)
@@ -579,30 +1136,146 @@ class TorchEngine:
             for r, upd in dirty.items():
                 row_idx = cached.row_index.get(r)
                 if row_idx is None:
+                    if cached.partial:
+                        # A row outside the working set changed: it is not
+                        # resident, but may no longer be the known-empty
+                        # row the lowering zeroes, so the next query over
+                        # it misses and promotes it.
+                        cached.absent_rows.discard(r)
+                        continue
                     return None  # a new row: the stack's shape changes
+                if cached.pool:
+                    occ64 = self._pool_sync_row(cached, r, row_idx, si, upd, updates,
+                                                word_updates)
+                    if occ64 is None:
+                        return None  # pool out of slots: rebuild at a new tier
+                    pool_rows.add(r)
+                    occ_updates.append((row_idx, si, occ64))
+                    continue
                 if upd[0] == "words":
                     _, widxs, vals, occ64 = upd
                     word_updates.append((row_idx, si, widxs, vals))
-                    n_words += len(widxs)
                 else:
                     _, words, occ64 = upd
                     updates.append((row_idx, si, words))
                 occ_updates.append((row_idx, si, occ64))
             new_sync[si] = (fref, new_version)
-        if updates or word_updates:
+        n_words = sum(len(w[2]) for w in word_updates)
+        table_rows = sorted(cached.row_index[r] for r in pool_rows)
+        if updates or word_updates or table_rows:
             try:
-                self._scatter_chain(cached, updates, word_updates, n_words)
+                self._scatter_chain(cached, updates, word_updates, n_words, table_rows)
             except BaseException:
                 key = (index, field, view)
                 if self._stacks.get(key) is cached:
-                    del self._stacks[key]
+                    self._evict(key)
                 raise
+            # Occupancy lands only after the words did.  The resident-block
+            # mask grows with it (mask >= occ stays invariant).
             for row_idx, si, occ64 in occ_updates:
                 cached.occ[row_idx, si] = np.uint64(occ64)
+                if cached.block_mask is not None:
+                    cached.block_mask[row_idx, si] |= np.uint64(occ64)
+            if pool_rows:
+                self._free_empty_blocks(cached, pool_rows)
             self.stack_updates += 1
         cached.versions = token
         cached.frag_sync = new_sync
         return cached
+
+    def _pool_sync_row(self, cached: _FieldStack, r, row_idx, si, upd, updates,
+                       word_updates) -> Optional[int]:
+        """Turn one dirty row's delta into block-pool writes
+        (pilosa_tpu/parallel/engine.py:2142-2230).  A block the row newly
+        occupies takes a slot: a never-written one (``pool_next``, still
+        the zeros the pool was made with) or a freed one (``free_dirty``),
+        whose words are zeroed in every shard first (the full-block
+        entries go in ``updates``, which ``_scatter_chain`` writes before
+        the word deltas).  Slot 0 is never written.  The slot vector
+        changes on the host here and in the slot table with the scatter.
+        Returns the shard's new occupancy, or None when the pool is out of
+        slots."""
+        BW = bitops.OCC_BLOCK_WORDS
+        slots = cached.slot_of.get(r)
+        if slots is None:
+            return None
+        S = cached.matrix.shape[1]
+        P_cap = cached.matrix.shape[0]
+
+        def alloc(cover_si):
+            # cover_si: a full-block entry for (slot, si) follows in
+            # ``updates``, so the zero fill skips that shard (two entries
+            # for one (slot, shard) in one scatter would race).
+            if cached.pool_next < P_cap:
+                slot = cached.pool_next
+                cached.pool_next += 1
+                return slot
+            if cached.free_dirty:
+                slot = cached.free_dirty.pop()
+                zero = np.zeros(BW, dtype=np.uint32)
+                for sp in range(S):
+                    if not (cover_si and sp == si):
+                        updates.append((slot, sp, zero))
+                return slot
+            return None
+
+        if upd[0] == "words":
+            _, widxs, vals, occ64 = upd
+            blk_of = np.asarray(widxs, dtype=np.int64) // BW
+            for blk in np.unique(blk_of).tolist():
+                sel = blk_of == blk
+                slot = int(slots[blk])
+                if slot == 0:
+                    # Slot 0: the block was empty in EVERY shard at the
+                    # sync point, so the changed words over zeros are the
+                    # whole block.
+                    slot = alloc(cover_si=False)
+                    if slot is None:
+                        return None
+                    slots[blk] = slot
+                word_updates.append((slot, si,
+                                     (np.asarray(widxs)[sel] % BW).astype(np.int32),
+                                     np.asarray(vals, dtype=np.uint32)[sel]))
+            return int(occ64)
+        # A whole row: every resident block takes its new words, and newly
+        # occupied blocks take slots.
+        words = np.asarray(upd[1], dtype=np.uint32)
+        occ64 = int(upd[2])
+        prev = int(cached.block_mask[row_idx, si])
+        for blk in range(bitops.OCC_BLOCKS):
+            has = (occ64 >> blk) & 1
+            slot = int(slots[blk])
+            if slot == 0:
+                if not has:
+                    continue
+                slot = alloc(cover_si=True)
+                if slot is None:
+                    return None
+                slots[blk] = slot
+                updates.append((slot, si, words[blk * BW: (blk + 1) * BW]))
+            elif has or (prev >> blk) & 1:
+                # Occupied now, or stale words to zero out.
+                updates.append((slot, si, words[blk * BW: (blk + 1) * BW]))
+        return occ64
+
+    def _free_empty_blocks(self, cached: _FieldStack, rows):
+        """Return to ``free_dirty`` the slots of blocks a sync emptied in
+        every shard of a pool row (their words are all zero now): the row's
+        vector names slot 0 there again, and the slot's next owner zeroes
+        it before use.  The slot table rows change on the next sync's
+        scatter, or now."""
+        changed = []
+        for r in rows:
+            ri = cached.row_index[r]
+            union = int(np.bitwise_or.reduce(cached.occ[ri]))
+            slots = cached.slot_of[r]
+            for blk in np.flatnonzero(slots).tolist():
+                if not (union >> blk) & 1:
+                    cached.free_dirty.append(int(slots[blk]))
+                    slots[blk] = 0
+                    changed.append(ri)
+        if changed:
+            self._scatter_chain(cached, [], [], 0, sorted(set(changed)))
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """One host array on the engine's device: a pinned staging copy
@@ -613,14 +1286,19 @@ class TorchEngine:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _scatter_chain(self, stack: _FieldStack, updates, word_updates, n_words):
+    def _scatter_chain(self, stack: _FieldStack, updates, word_updates, n_words,
+                       table_rows=()):
         """Write a sync's changes into ``stack.matrix`` in place, on the
         current stream: whole rows ``matrix[row, pos] = words`` in chunks
         of SCATTER_CHUNK_ROWS, then changed words
         ``matrix[row, pos, word] = value`` as one batch, each an
         ``index_put_`` whose index and value arrays travel as one pinned,
         non-blocking copy each.  (The reference's XLA scatters
-        ``_scatter_rows_impl`` / ``_scatter_words_impl``.)
+        ``_scatter_rows_impl`` / ``_scatter_words_impl``.)  On a pool stack
+        a "row" is a 2 KiB block of a slot, a later entry for the same
+        (slot, shard) replaces an earlier one (a recycled slot's zero fill
+        and then its data), and ``table_rows`` are slot-table rows written
+        from ``slot_of`` after the blocks.
 
         Device ordering.  The reference donates the old buffer and leans
         on one in-order stream; here the tensor is written in place, so a
@@ -647,6 +1325,9 @@ class TorchEngine:
                 if sid != cur.cuda_stream:
                     cur.wait_event(ev)
         W = mat.shape[2]
+        if stack.pool and updates:
+            last = {(r, p): i for i, (r, p, _) in enumerate(updates)}
+            updates = [updates[i] for i in sorted(last.values())]
         for ci in range(0, len(updates), self.SCATTER_CHUNK_ROWS):
             chunk = updates[ci: ci + self.SCATTER_CHUNK_ROWS]
             idx = np.asarray([(r, p) for r, p, _ in chunk], dtype=np.int64).T.copy()
@@ -668,6 +1349,11 @@ class TorchEngine:
                 o += k
             ix = self._upload(idx)
             mat.index_put_((ix[0], ix[1], ix[2]), self._upload(vals.view(np.int32)))
+        if table_rows:
+            inv = {ri: r for r, ri in stack.row_index.items()}
+            vecs = np.stack([stack.slot_of[inv[ri]] for ri in table_rows]).astype(np.int32)
+            stack.slot_table.index_put_(
+                (self._upload(np.asarray(table_rows, dtype=np.int64)),), self._upload(vecs))
         if cur is not None:
             stack.home = cur
             stack.written = torch.cuda.Event()
@@ -717,16 +1403,19 @@ class TorchEngine:
     # -- warm start (pilosa_tpu/parallel/engine.py:1510) --------------------
 
     def warm_start(self, indexes=None) -> dict:
-        """Upload every field stack of the just-opened holder to the card
+        """Upload the field stacks of the just-opened holder to the card
         while the node already answers queries (the Server runs this on a
         thread of its own).  Progress lands in ``self.warm_state``
         ({total, built, skipped, done}), which /readyz reports as
-        ``warming`` until done.  Stacks go in holder order; one that
-        ``torch.cuda.mem_get_info`` says does not fit is skipped and
-        counted, and queries build it on demand as usual.  What waits:
-        the hot-tenant order (``_index_cost``, fed by the plan ledger:
-        ROADMAP.md Queue 1 item 14) and the prefetch thread that assembles
-        stack N+1 on the host while stack N uploads (item 13)."""
+        ``warming`` until done.  Stacks go in holder order; warming stops
+        at the working-set target (``warm_target_bytes``, a fraction of the
+        budget, pilosa_tpu/parallel/engine.py:1677-1683) and skips a stack
+        the card's free memory (``torch.cuda.mem_get_info``) cannot hold,
+        so queries admit their own working set in the headroom.  Warming
+        never evicts.  What waits: the hot-tenant order (``_index_cost``
+        over the plan ledger's cost EWMA: ROADMAP.md Queue 1 item 14) and
+        the prefetch thread that assembles stack N+1 on the host while
+        stack N uploads."""
         keys = []
         for index in list(indexes if indexes is not None else self.holder.indexes):
             idx = self.holder.index(index)
@@ -738,32 +1427,54 @@ class TorchEngine:
         state = {"total": len(keys), "built": 0, "skipped": 0, "done": False}
         self.warm_state = state
         for key in keys:
-            if self._warm_fits(*key) and self.field_stack(*key) is not None:
+            if key in self._stacks:
+                state["built"] += 1  # a query built it first
+                continue
+            need = self._stack_bytes(*key)
+            with self._stacks_lock:
+                used = (self._resident_bytes + self._pending_bytes()
+                        + self.residency.inflight_bytes())
+            if used + need > self.warm_target_bytes():
+                break  # the target: the rest stays in the host tier
+            if not self._card_fits(need):
+                continue
+            try:
+                built = self.field_stack(*key) is not None
+            except HostFallback:
+                built = False  # the budget filled meanwhile: a query admits it
+            if built:
                 state["built"] += 1
-            else:
-                state["skipped"] += 1
+                self._promotions_warm_counter.inc()
+                self.journal.append("engine.promotion", index=key[0], field=key[1],
+                                    view=key[2], cause="warm_start", partial=False,
+                                    bytes=need)
+        state["skipped"] = state["total"] - state["built"]
         state["done"] = True
         return state
 
-    def _warm_fits(self, index: str, field: str, view: str) -> bool:
-        """Whether the stack of a view (its [R, S, WORDS] words and the
-        occupancy summary) fits the card's free memory now."""
+    def warm_target_bytes(self) -> int:
+        return int(self.max_resident_bytes * self.WARM_TARGET_FRACTION)
+
+    def _stack_bytes(self, index: str, field: str, view: str) -> int:
+        """The budget charge of a view's full stack."""
+        canonical = self.canonical_shards(index)
+        rows = self._row_universe(index, field, view, canonical)
+        return max(1, len(rows)) * len(canonical) * ROW_SHARD_BYTES
+
+    def _card_fits(self, need: int) -> bool:
+        """Whether the card's free memory holds ``need`` bytes now."""
         if self.device.type != "cuda":
             return True
-        canonical = self.canonical_shards(index)
-        rows = set()
-        for s in canonical:
-            frag = self.holder.fragment(index, field, view, s)
-            if frag is not None:
-                rows.update(frag.row_ids())
-        need = max(1, len(rows)) * len(canonical) * (bitops.WORDS * 4 + 8)
         free, _ = torch.cuda.mem_get_info(self.device)
         return need <= free
 
     def close(self):
-        """Stop the ingest worker and the batcher, and drop every cached
-        device buffer and memo entry.  A closed engine still serves: its
-        caches (and a batcher) rebuild."""
+        """Stop the residency worker, the ingest worker and the batcher,
+        and drop every cached device buffer and memo entry.  A closed
+        engine still serves: its caches (a batcher, a residency worker)
+        rebuild."""
+        self._closed = True
+        self.residency.close()
         syncer, self._ingest_syncer = self._ingest_syncer, None
         if syncer is not None:
             syncer.close()
@@ -773,10 +1484,15 @@ class TorchEngine:
             batcher.stop()
         with self._stacks_lock:
             self._stacks.clear()
+            self._resident_bytes = 0
+            self._pending_free = []
             self._masks.clear()
             self._topn_cands.clear()
             self._fused_plans.clear()
+            self._universe_blocks_at.clear()
             self.result_memo.clear()
+            self.residency = residency_mod.ResidencyManager(self)
+            self._closed = False
 
     # -- call-tree lowering -------------------------------------------------
 
@@ -826,7 +1542,19 @@ class TorchEngine:
         stack = lw.stack_for(index, field, VIEW_STANDARD)
         if stack is None:
             return self._lower_zero()
+        return self._row_leaf(index, field, VIEW_STANDARD, stack, row_id, lw)
+
+    def _row_leaf(self, index, field, view, stack: _FieldStack, row_id, lw: _Lowering):
+        """The leaf of one row of a stack: a stack row, a pool row (the
+        all-zero slot vector for a row known empty), or zero for a row the
+        stack lacks.  A row outside a partial stack's working set is not
+        known to be empty: it misses (``_partial_miss`` raises)."""
         ridx = stack.row_index.get(row_id)
+        if ridx is None and stack.partial and row_id not in stack.absent_rows:
+            self._partial_miss(index, field, view, row_id, lw, stack)
+        if stack.pool:
+            p = lw.add_matrix(stack)
+            return ("rowb", p, p + 1, stack.slot_vec(row_id))
         if ridx is None:
             return self._lower_zero()
         return ("row", lw.add_matrix(stack), ridx)
@@ -862,6 +1590,8 @@ class TorchEngine:
         stack = lw.stack_for(index, field_name, view_bsi_name(field_name))
         if stack is None:
             return self._lower_zero()
+        # A predicate reads every plane: a partial stack cannot serve it.
+        self._require_full_stack(index, field_name, view_bsi_name(field_name), stack)
         slot = lw.add_matrix(stack)
         planes = self._plane_spec(stack, depth)
 
@@ -930,12 +1660,63 @@ class TorchEngine:
             stack = lw.stack_for(index, field_name, view_name)
             if stack is None:
                 continue
-            ridx = stack.row_index.get(row_id)
-            if ridx is not None:
-                leaves.append(("row", lw.add_matrix(stack), ridx))
+            leaf = self._row_leaf(index, field_name, view_name, stack, row_id, lw)
+            if leaf[0] != "zero":
+                leaves.append(leaf)
         if not leaves:
             return self._lower_zero()
         return leaves[0] if len(leaves) == 1 else ("or",) + tuple(leaves)
+
+    def _collect_row_hints(self, index: str, c: Call, out=None) -> dict:
+        """(index, field, view) -> the row ids the lowered tree will read
+        there (None: the whole stack), by the leaf walk of ``_lower`` without
+        fetching a stack (pilosa_tpu/parallel/engine.py:2560).  Collected
+        before lowering, so that a miss requests ONE promotion of the whole
+        query's working set.  Advisory: a shape the walk does not know marks
+        nothing, and the lowering reports real errors."""
+        if out is None:
+            out = {}
+
+        def add(field, view, row_id):
+            key = (index, field, view)
+            cur = out.get(key, ())
+            if cur is None:
+                return  # the whole stack is required already
+            rows = cur if cur != () else set()
+            rows.add(int(row_id))
+            out[key] = rows
+
+        try:
+            name = c.name
+            if name == "Row":
+                field = c.field_arg()
+                row_id, ok = c.uint_arg(field)
+                if ok:
+                    add(field, VIEW_STANDARD, row_id)
+            elif name == "Not":
+                add(EXISTENCE_FIELD_NAME, VIEW_STANDARD, 0)
+                for ch in c.children:
+                    self._collect_row_hints(index, ch, out)
+            elif name in ("Union", "Intersect", "Difference", "Xor"):
+                for ch in c.children:
+                    self._collect_row_hints(index, ch, out)
+            elif name == "Range" and c.has_condition_arg():
+                (field, _cond), = c.args.items()
+                out[(index, field, view_bsi_name(field))] = None
+            elif name == "Range":
+                field = c.field_arg()
+                row_id, ok = c.uint_arg(field)
+                idx = self.holder.index(index)
+                f = idx.field(field) if idx is not None else None
+                if ok and f is not None and f.time_quantum():
+                    start = timequantum.parse_timestamp(c.args["_start"])
+                    end = timequantum.parse_timestamp(c.args["_end"])
+                    for vname in timequantum.views_by_time_range(VIEW_STANDARD, start, end,
+                                                                 f.time_quantum()):
+                        add(field, vname, row_id)
+        except Exception:  # noqa: BLE001 — hints are advisory only
+            pass
+        return out
 
     # -- fused evaluation ---------------------------------------------------
 
@@ -1136,6 +1917,7 @@ class TorchEngine:
     def _dispatch_count(self, index, c, shards, canonical):
         with self._stacks_lock:
             lw = _Lowering(self, canonical)
+            lw.row_hints = self._collect_row_hints(index, c)
             prog = self._lower(index, c, lw)
             if not kernels.fits(prog):
                 raise UnsupportedLowering("count tree exceeds the kernels' limits")
@@ -1168,18 +1950,31 @@ class TorchEngine:
         unrequested shards, and when the surviving block fraction is at or
         under ``sparse_threshold`` returns ``(blk_bits int64[S],
         bytes_skipped)``: bit b of word s set iff block b of shard s is
-        read."""
+        read.  A tree with a pool leaf takes the dense path (K1 reads only
+        a pool row's occupied blocks anyway), once the partial stack's
+        invariant mask >= occ is checked: a violated one (structurally
+        unreachable) sends the query to the host tier rather than count
+        stale zeros (pilosa_tpu/parallel/engine.py:3150-3162)."""
         S = len(canonical)
         n_leaves = 0
+        pooled = False
 
         def occ_of(p):
-            nonlocal n_leaves
+            nonlocal n_leaves, pooled
             kind = p[0]
             if kind == "zero":
                 return np.zeros(S, dtype=np.uint64)
             if kind == "row":
                 n_leaves += 1
                 return lw.stacks[p[1]].occ[p[2]]
+            if kind == "rowb":
+                pooled = True
+                st, ridx = lw.stacks[p[1]], p[3]
+                if ridx >= st.occ.shape[0]:
+                    return np.zeros(S, dtype=np.uint64)  # the all-zero vector
+                if st.block_mask is not None and np.any(st.occ[ridx] & ~st.block_mask[ridx]):
+                    raise ResidencyMiss("occupied blocks not device-resident on a partial stack")
+                return st.occ[ridx]
             if kind == "range":
                 # Every range condition is a subset of the not-null plane.
                 planes = p[3]
@@ -1197,7 +1992,7 @@ class TorchEngine:
             return occ
 
         occ = occ_of(prog)
-        if n_leaves == 0:
+        if n_leaves == 0 or pooled:
             return None
         pos = {s: i for i, s in enumerate(canonical)}
         req = np.zeros(S, dtype=bool)
@@ -1269,6 +2064,8 @@ class TorchEngine:
             return dev.reshape(1).expand(len(calls))
         with self._stacks_lock:
             lw = _Lowering(self, canonical)
+            for c in u_calls:
+                self._collect_row_hints(index, c, lw.row_hints)
             progs = []
             for c in u_calls:
                 prog = self._lower(index, c, lw)
@@ -1364,6 +2161,7 @@ class TorchEngine:
         """The src tree of a TopN as a normalized program and its stacks;
         a tree past the kernels' limits is UnsupportedLowering."""
         lw = _Lowering(self, canonical)
+        lw.row_hints = self._collect_row_hints(index, src_call)
         prog = self._lower(index, src_call, lw)
         if not kernels.fits(prog):
             raise UnsupportedLowering("src tree exceeds the kernels' limits")
@@ -1377,7 +2175,9 @@ class TorchEngine:
         when the field has no stack."""
         canonical = self.canonical_shards(index)
         with self._stacks_lock:
-            stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
+            stack = self._require_full_stack(
+                index, field, VIEW_STANDARD,
+                self.field_stack(index, field, VIEW_STANDARD, canonical))
             if stack is None:
                 return None
             present = np.asarray([r in stack.row_index for r in candidate_rows], dtype=bool)
@@ -1462,7 +2262,9 @@ class TorchEngine:
         MAX_TOPN_CANDIDATES (the two-phase path runs)."""
         canonical = self.canonical_shards(index)
         with self._stacks_lock:
-            stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
+            stack = self._require_full_stack(
+                index, field, VIEW_STANDARD,
+                self.field_stack(index, field, VIEW_STANDARD, canonical))
             if stack is None:
                 return [], None, None
             entry = self._topn_candidates(index, field, stack, row_ids)
@@ -1502,7 +2304,10 @@ class TorchEngine:
         Sorted trimmed pairs, or None when the candidate union is too
         large."""
         canonical = self.canonical_shards(index)
-        stack = self.field_stack(index, field, VIEW_STANDARD, canonical)
+        with self._stacks_lock:
+            stack = self._require_full_stack(
+                index, field, VIEW_STANDARD,
+                self.field_stack(index, field, VIEW_STANDARD, canonical))
         if stack is None:
             return []
         entry = self._topn_candidates(index, field, stack, row_ids)
@@ -1558,10 +2363,14 @@ class TorchEngine:
         depth = bsig.bit_depth()
         canonical = self.canonical_shards(index)
         with self._stacks_lock:
-            stack = self.field_stack(index, field_name, view_bsi_name(field_name), canonical)
+            view = view_bsi_name(field_name)
+            stack = self._require_full_stack(index, field_name, view,
+                                             self.field_stack(index, field_name, view, canonical))
             if stack is None:
                 return None
             lw = _Lowering(self, canonical)
+            if filter_call is not None:
+                lw.row_hints = self._collect_row_hints(index, filter_call)
             prog = None if filter_call is None else self._lower(index, filter_call, lw)
             if prog is not None and not kernels.fits(prog):
                 raise UnsupportedLowering("filter tree exceeds the kernels' limits")
@@ -1632,10 +2441,14 @@ class TorchEngine:
         if not canonical:
             return None
         with self._stacks_lock:
-            stacks = [self.field_stack(index, f, VIEW_STANDARD, canonical) for f in fields]
+            stacks = [self._require_full_stack(
+                index, f, VIEW_STANDARD, self.field_stack(index, f, VIEW_STANDARD, canonical))
+                for f in fields]
             idx_lists = [[st.row_index.get(r, -1) for r in rows]
                          for st, rows in zip(stacks, row_lists)]
             lw = _Lowering(self, canonical)
+            if filter_call is not None:
+                lw.row_hints = self._collect_row_hints(index, filter_call)
             prog = None if filter_call is None else self._lower(index, filter_call, lw)
             if prog is not None and not kernels.fits(prog):
                 raise UnsupportedLowering("filter tree exceeds the kernels' limits")
@@ -1814,6 +2627,7 @@ class TorchEngine:
         else:
             trees = [spec["src"]]
         lw = _Lowering(self, self.canonical_shards(index))
+        lw.row_hints = fusion_mod._item_hints(self, index, spec)
         for t in trees:
             prog = self._lower(index, t, lw)
             if not kernels.fits(prog):
@@ -1904,3 +2718,77 @@ class TorchEngine:
              "filter": filter_call},
             shards)
         return None if out is fusion_mod.DECLINED else out
+
+    # -- residency telemetry (pilosa_tpu/parallel/engine.py:4745-4880) -------
+
+    def resident_block_fraction(self) -> float:
+        """Occupied blocks resident on the card over the occupied blocks of
+        the known stacks' full row universes (1.0 with no stack)."""
+        res = tot = 0
+        with self._stacks_lock:
+            for st in self._stacks.values():
+                rb = bitops.popcount_np(st.occ)
+                tb = st.universe_blocks if st.partial and st.universe_blocks is not None else rb
+                res += rb
+                tot += max(tb, rb)  # writes may grow occ past the promotion's count
+        return round(res / tot, 4) if tot else 1.0
+
+    def refresh_metrics(self):
+        """Scrape-time gauges of the residency state."""
+        REGISTRY.set_gauge(METRIC_ENGINE_RESIDENT_BLOCK_FRACTION, self.resident_block_fraction())
+
+    def _working_set_snapshot(self) -> dict:
+        """Per-index resident-vs-total bytes, the promotion queue and the
+        eviction pressure (/debug/vars ``engineCaches.workingSet``)."""
+        per: Dict[str, dict] = {}
+        with self._stacks_lock:
+            for (idx, _f, _v), st in self._stacks.items():
+                d = per.setdefault(idx, {"stacks": 0, "partialStacks": 0,
+                                         "residentBytes": 0, "totalBytes": 0})
+                d["stacks"] += 1
+                d["partialStacks"] += int(st.partial)
+                d["residentBytes"] += int(st.footprint)
+                d["totalBytes"] += int(st.universe_rows) * len(st.shards) * ROW_SHARD_BYTES
+        for d in per.values():
+            d["residentFraction"] = (round(min(1.0, d["residentBytes"] / d["totalBytes"]), 4)
+                                     if d["totalBytes"] else 1.0)
+        res = self.residency.snapshot()
+        return {
+            "perIndex": per,
+            "pendingPromotions": res["pendingPromotions"],
+            "inflightBytes": res["inflightBytes"],
+            "evictionPressure": {"evictions": self.evictions,
+                                 "budgetEvictions": self.budget_evictions,
+                                 "promotionsDeclined": res["declined"],
+                                 "hostFallbacks": self.host_fallbacks},
+            "deviceBudgetBytes": self.max_resident_bytes,
+        }
+
+    def cache_snapshot(self) -> dict:
+        """The stack cache for /debug/vars: resident and evicted-live bytes,
+        evictions, rebuilds and syncs, the residency fraction, the
+        promotion worker's snapshot and the working set."""
+        self.refresh_metrics()
+        with self._stacks_lock:
+            resident = self._resident_bytes
+            pending = self._pending_bytes()
+            n_stacks = len(self._stacks)
+            partial = sum(1 for st in self._stacks.values() if st.partial)
+        return {
+            "residentBytes": resident,
+            "evictedLiveBytes": pending,
+            "deviceBudgetBytes": self.max_resident_bytes,
+            "evictions": self.evictions,
+            "budgetEvictions": self.budget_evictions,
+            "stackRebuilds": self.stack_rebuilds,
+            "stackUpdates": self.stack_updates,
+            "stacks": n_stacks,
+            "partialStacks": partial,
+            "residentBlockFraction": self.resident_block_fraction(),
+            "hostFallbacks": self.host_fallbacks,
+            "lastPromoteError": self.last_promote_error,
+            "residency": self.residency.snapshot(),
+            "workingSet": self._working_set_snapshot(),
+            "resultMemoEntries": len(self.result_memo._od),
+            "fusedPlans": len(self._fused_plans),
+        }

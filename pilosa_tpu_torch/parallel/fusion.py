@@ -27,10 +27,15 @@ The decode helpers here turn each op's device output into the engine's
 public result shape; the fused path, the batcher's solo path and the
 engine's synchronous wrappers share them.
 
-Left for later slices: the working-set heat of each item (``_item_hints``,
-``merge_hints``, ``_item_touches``: Queue 1 item 13, with residency) and
+Residency: the drain's row hints (``_item_hints`` merged by
+``merge_hints``) go to every lowering of the build, so an item that misses
+a partial stack requests the whole drain's working set; a pool stack's
+rows are leaves of the slot table like any row (``("rowb", ...)``), and the
+aggregate edges require full stacks (an item that misses fails alone with
+``ResidencyMiss``, which its caller serves from the host lane).  Left for
+later slices: the working-set heat of each item (``_item_touches``) and
 the per-item plan notes and dispatch notes (``plans_mod.note_dispatch``:
-item 14, the serving and observability surface).  The reference pads slots
+ROADMAP.md Queue 1 item 14, the plans and the heat recorder).  The reference pads slots
 and edges to pow2 tiers to key XLA executables; F1 takes its table as data
 and templates only on the slot tier, so nothing is padded here, and the
 canonical build order is kept so that a drain in any arrival order maps to
@@ -89,6 +94,44 @@ def op_fields(kind: str, spec: dict, collect_fields):
             return None
         fields |= sub
     return fields
+
+
+def _item_hints(engine, index, spec) -> dict:
+    """The row hints of ONE drain item: every (index, field, view) stack
+    it reads -> the row ids it reads there (None: the whole stack, as a BSI
+    plane walk or a TopN candidate sweep does).  The reference's
+    ``pilosa_tpu/parallel/fusion.py:378``."""
+    kind = spec["kind"]
+    hints: dict = {}
+    if kind == "count":
+        hints = engine._collect_row_hints(index, spec["call"])
+    elif kind in ("sum", "min", "max"):
+        hints[(index, spec["field"], view_bsi_name(spec["field"]))] = None
+        if spec.get("filter") is not None:
+            engine._collect_row_hints(index, spec["filter"], hints)
+    elif kind == "topn":
+        hints[(index, spec["field"], VIEW_STANDARD)] = {int(r) for r in spec["rows"]}
+        engine._collect_row_hints(index, spec["src"], hints)
+    elif kind == "topnf":
+        hints[(index, spec["field"], VIEW_STANDARD)] = None
+        engine._collect_row_hints(index, spec["src"], hints)
+    elif kind == "group":
+        for fname, rows in zip(spec.get("fields") or (), spec.get("rows") or ()):
+            hints[(index, fname, VIEW_STANDARD)] = {int(r) for r in rows}
+        if spec.get("filter") is not None:
+            engine._collect_row_hints(index, spec["filter"], hints)
+    return hints
+
+
+def merge_hints(into: dict, hints: dict) -> dict:
+    """Merge one item's hints into a drain-wide map: None (the whole
+    stack) wins, row sets unite."""
+    for key, rows in hints.items():
+        if rows is None or into.get(key, ()) is None:
+            into[key] = None
+        else:
+            into.setdefault(key, set()).update(rows)
+    return into
 
 
 def _pow2(n: int) -> int:
@@ -330,7 +373,7 @@ def _slot_rows(prog) -> float:
     """Shard rows a slot's OWN prog sweeps (mrefs cost nothing here: their
     slots carry their own cost)."""
     kind = prog[0]
-    if kind == "row":
+    if kind in ("row", "rowb"):
         return 1
     if kind == "range":
         return len(prog[3])
@@ -372,10 +415,21 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
     slot_of: Dict[tuple, int] = {}  # (index, subtree text) -> slot of its part
     slot_hits: Dict[tuple, int] = {}
 
+    # The whole drain's row hints, before any stack fetch: an item that
+    # misses a partial stack requests the drain's working set.  A malformed
+    # item raises again in its own lowering below.
+    hints: dict = {}
+    for idx_h, spec_h, _ in entries:
+        try:
+            merge_hints(hints, _item_hints(engine, idx_h, spec_h))
+        except Exception:  # noqa: BLE001 — hints are advisory only
+            pass
+
     def part_for(index, canonical) -> _Part:
         p = parts.get(index)
         if p is None:
             p = parts[index] = _Part(index, _Lowering(engine, canonical))
+            p.lw.row_hints = hints
         return p
 
     def lower_shared(part: _Part, call):
@@ -438,6 +492,7 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                 call = spec["call"]
                 if not any(text_items[t] > 1 for t in texts[i]):
                     lw1 = _Lowering(engine, canonical)
+                    lw1.row_hints = hints
                     prog1 = engine._lower(index, call, lw1)
                     if not kernels.fits(prog1):
                         raise UnsupportedLowering("count tree exceeds the kernels' limits")
@@ -465,6 +520,7 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                 if bsig is None or stack is None:
                     routes[i] = ("const", (0, 0))
                     continue
+                engine._require_full_stack(index, field, view_bsi_name(field), stack)
                 depth = bsig.bit_depth()
                 j = -1
                 if spec.get("filter") is not None:
@@ -492,6 +548,7 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                 if stack is None:
                     routes[i] = ("const", None if kind == "topn" else [])
                     continue
+                engine._require_full_stack(index, field, VIEW_STANDARD, stack)
                 if kind == "topn":
                     rows = list(spec["rows"])
                     present = np.asarray([r in stack.row_index for r in rows], dtype=bool)
@@ -553,6 +610,7 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                     stack = part.lw.stack_for(index, fname, VIEW_STANDARD)
                     if stack is None:
                         break
+                    engine._require_full_stack(index, fname, VIEW_STANDARD, stack)
                     g_mats.append(part.lw.add_matrix(stack))
                     g_idx.append(tuple(stack.row_index.get(r, -1) for r in rows))
                 if len(g_mats) != len(fields):

@@ -121,20 +121,15 @@ def groupn_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tenso
         raise ValueError("mask must be an int32[S] tensor on the card")
     mask = mask.contiguous()
     S = mask.shape[0]
-    W = kernels.check_stacks(list(mats) + list(field_mats), S)
+    W = kernels.check_stacks(list(mats) + list(field_mats), S, code,
+                             extra=range(len(mats), len(mats) + len(field_mats)))
     lists = _check_lists(field_mats, row_idx_lists)
     dev = mask.device
     C = math.prod(len(rows) for rows in lists)
     out = torch.zeros(C, dtype=torch.int64, device=dev)
     if C == 0:
         return out
-    if code is None:
-        tree = (None, 0, None, None, 0, None, 0)
-    else:
-        for m, r in code.leaves:
-            if not 0 <= r < mats[m].shape[0]:
-                raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
-        tree = kernels._c_leaves(code, mats)
+    tree = (None, 0, None, None, 0, None, 0) if code is None else kernels._c_leaves(code, mats)
     form, order, strides = groupn_plan([len(rows) for rows in lists])
     idx = np.asarray([r for i in order for r in lists[i]], dtype=np.int32)
     dev_idx = torch.from_numpy(idx).pin_memory().to(dev, non_blocking=True)
@@ -149,6 +144,8 @@ def groupn_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tenso
     if err != 0:
         raise RuntimeError(f"groupn_tree launch failed: cudaError {err}")
     groupn_tree_cuda.launches += 1
+    if code is not None:
+        kernels.pool_leaf(code, "groupn_tree")
     return out
 
 

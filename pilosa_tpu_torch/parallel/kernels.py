@@ -8,6 +8,14 @@ second, no padding):
 
 - leaves ``("row", mat_slot, row)`` — row ``row`` of stack ``mats[mat_slot]``
   — and ``("zero",)``;
+- pool leaves ``("rowb", pool_slot, table_slot, row)`` — a row of a partial
+  stack's packed block pool ``mats[pool_slot]`` int32[P, S, 512] (slot 0
+  all zero), its block layout row ``row`` of the slot table
+  ``mats[table_slot]`` int32[n, 64]: block b of the row, in every shard, is
+  pool slot ``table[row, b]`` (the reference's ``apply_prog`` ``rowb`` leaf,
+  ``pilosa_tpu/parallel/kernels.py:84-97``).  The kernels read the pool in
+  place through the slot vector (``csrc/tree_eval.cuh`` load_pool): a block
+  in slot 0 reads as zero with no load, and no dense row is ever built;
 - range leaves ``("range", kind, mat_slot, planes, lo, hi)`` — a BSI
   condition (``kind`` one of ``ops.bsi.RANGE_KINDS``, ``lo`` the rebased
   predicate, ``hi`` BETWEEN's upper bound, else 0) over the bit planes of
@@ -66,9 +74,14 @@ from ..ops import bsi as bsi_ops
 # Postfix opcodes and limits: csrc/tree_eval.cuh holds the same values.
 # OP_MREF, a reference to an earlier mask slot (its index in bits 8 and
 # up), exists only inside a fused program (F1): check_prog refuses it.
-OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_ANDNOT, OP_XOR, OP_RANGE, OP_MREF = range(8)
+# OP_ROWB, a row of a block pool, indexes the leaf table like OP_LEAF; its
+# entry is (pool slot, slot-table row, slot-table slot).
+OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_ANDNOT, OP_XOR, OP_RANGE, OP_MREF, OP_ROWB = range(9)
 _NODE_OPS = {"and": OP_AND, "or": OP_OR, "andnot": OP_ANDNOT, "xor": OP_XOR}
-_ITEM_OPS = (OP_LEAF, OP_ZERO, OP_RANGE, OP_MREF)
+_ITEM_OPS = (OP_LEAF, OP_ZERO, OP_RANGE, OP_MREF, OP_ROWB)
+# A pool row's block layout: OCC_BLOCKS slots of OCC_BLOCK_WORDS words.
+POOL_BLOCKS = bitops.OCC_BLOCKS
+POOL_BLOCK_WORDS = bitops.OCC_BLOCK_WORDS
 MAX_PROG = 128
 MAX_LEAVES = 32
 MAX_STACK = 16
@@ -78,13 +91,14 @@ MAX_PLANES = 64  # BSI depth up to 63, then the not-null plane
 
 class Postfix:
     """A tree compiled for the kernels: opcodes, distinct leaves
-    ``(mat_slot, row)`` in leaf-index order, distinct range leaves
+    ``(mat_slot, row)`` (a pool leaf ``(pool_slot, row, table_slot)``) in
+    leaf-index order, distinct range leaves
     ``(mat_slot, kind, planes, lo, hi)`` in range-index order, the stack
-    depth, and whether the program has the chain form (``_is_chain``).
-    Shared by every caller of ``compile_prog`` (it is cached): never
-    mutated."""
+    depth, whether the program has the chain form (``_is_chain``), and
+    ``reads``/``pooled`` (``leaf_reads``).  Shared by every caller of
+    ``compile_prog`` (it is cached): never mutated."""
 
-    __slots__ = ("ops", "leaves", "ranges", "depth", "chain")
+    __slots__ = ("ops", "leaves", "ranges", "depth", "chain", "reads", "pooled")
 
     def __init__(self, ops: List[int], leaves: List[Tuple[int, int]], depth: int,
                  ranges: Optional[list] = None):
@@ -93,6 +107,25 @@ class Postfix:
         self.ranges = ranges or []
         self.depth = depth
         self.chain = _is_chain(ops)
+        self.reads, self.pooled = leaf_reads(self.leaves, self.ranges)
+
+
+# The kinds of matrix a launch reads (leaf_reads, check_stacks).
+_STACK, _POOL, _TABLE = range(3)
+
+
+def leaf_reads(leaves, ranges=()) -> tuple:
+    """What a leaf table reads, worked out once per compiled program so
+    that a launch checks only that: the sorted (mat_slot, kind) pairs of
+    its stacks, pools and slot tables, and whether a leaf is a pool leaf."""
+    reads = set()
+    for leaf in leaves:
+        if len(leaf) == 3:
+            reads.update(((leaf[0], _POOL), (leaf[2], _TABLE)))
+        else:
+            reads.add((leaf[0], _STACK))
+    reads.update((r[0], _STACK) for r in ranges)
+    return tuple(sorted(reads)), any(len(leaf) == 3 for leaf in leaves)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -110,6 +143,10 @@ def compile_prog(prog) -> Postfix:
             key = (int(p[1]), int(p[2]))
             k = leaf_of.setdefault(key, len(leaf_of))
             ops.append(OP_LEAF | (k << 8))
+        elif kind == "rowb" and len(p) == 4:
+            key = (int(p[1]), int(p[3]), int(p[2]))
+            k = leaf_of.setdefault(key, len(leaf_of))
+            ops.append(OP_ROWB | (k << 8))
         elif kind == "range" and len(p) == 6 and p[1] in bsi_ops.RANGE_KINDS:
             key = (int(p[2]), p[1], tuple(int(x) for x in p[3]), int(p[4]), int(p[5]))
             k = range_of.setdefault(key, len(range_of))
@@ -188,6 +225,16 @@ def range_planes(mat: torch.Tensor, planes, select) -> torch.Tensor:
     return torch.stack([select(mat[p]) if p >= 0 else torch.zeros_like(like) for p in planes])
 
 
+def pool_row(pool: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """A row int32[S, POOL_BLOCKS * POOL_BLOCK_WORDS] of block pool ``pool``
+    int32[P, S, POOL_BLOCK_WORDS] with slot vector ``slots`` int32[64]: the
+    gather ``pool[slots]`` [64, S, 512], blocks then made the row's words
+    (the reference's ``jnp.take`` and transpose).  The plain version of the
+    pool leaf; slot 0 must be all zero."""
+    blocks = pool[slots.long()]
+    return blocks.permute(1, 0, 2).reshape(pool.shape[1], -1)
+
+
 def eval_prog(prog, mats: Sequence[torch.Tensor], select, slots=None) -> torch.Tensor:
     """Evaluate a normalized tree with ``select(row_words)`` applied to
     every leaf row (the identity for the dense count, a block gather for
@@ -196,6 +243,8 @@ def eval_prog(prog, mats: Sequence[torch.Tensor], select, slots=None) -> torch.T
     an evaluated mask slot of a fused program (``fused_slots_plain``)."""
     if prog[0] == "row":
         return select(mats[prog[1]][prog[2]])
+    if prog[0] == "rowb":
+        return select(pool_row(mats[prog[1]], mats[prog[2]][prog[3]]))
     if prog[0] == "mref":
         return slots[prog[1]]
     if prog[0] == "range":
@@ -265,14 +314,29 @@ def c_planes(mat: torch.Tensor, planes, kind: str = "eq", lo: int = 0, hi: int =
     return leaf
 
 
+def leaf_pointers(leaves, mats: Sequence[torch.Tensor]) -> list:
+    """The leaf table's device addresses, as csrc/tree_eval.cuh pack_args
+    takes them: each leaf's base (a stack row's [S, W] words, or a pool's
+    slot 0), then each leaf's slot vector (a row of the slot table; 0 for
+    a stack row)."""
+    bases, slots = [], []
+    for leaf in leaves:
+        mat = mats[leaf[0]]
+        if len(leaf) == 3:
+            table = mats[leaf[2]]
+            bases.append(mat.data_ptr())
+            slots.append(table.data_ptr() + int(leaf[1]) * table.stride(0) * 4)
+        else:
+            bases.append(mat.data_ptr() + int(leaf[1]) * mat.stride(0) * mat.element_size())
+            slots.append(0)
+    return bases + slots
+
+
 def _c_table(leaves, ranges, mats: Sequence[torch.Tensor]) -> tuple:
-    """A leaf table's launch arguments: the leaf row base pointers and
-    their count, the range leaves, their stacks' row counts and their
-    count."""
-    ptrs = []
-    for m, r in leaves:
-        mat = mats[m]
-        ptrs.append(mat.data_ptr() + int(r) * mat.stride(0) * mat.element_size())
+    """A leaf table's launch arguments: the leaf pointers
+    (``leaf_pointers``) and the leaf count, the range leaves, their stacks'
+    row counts and their count."""
+    ptrs = [p or None for p in leaf_pointers(leaves, mats)]
     leaf_arr = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
     n_r = len(ranges)
     range_arr, rows = _NO_RANGES
@@ -280,7 +344,7 @@ def _c_table(leaves, ranges, mats: Sequence[torch.Tensor]) -> tuple:
         range_arr = (RangeLeaf * n_r)(*[c_planes(mats[m], planes, kind, lo, hi)
                                         for m, kind, planes, lo, hi in ranges])
         rows = (ctypes.c_int * n_r)(*[mats[m].shape[0] for m, *_ in ranges])
-    return leaf_arr, len(ptrs), range_arr, rows, n_r
+    return leaf_arr, len(leaves), range_arr, rows, n_r
 
 
 def _c_leaves(code: Postfix, mats: Sequence[torch.Tensor]) -> tuple:
@@ -295,21 +359,47 @@ def _c_leaves(code: Postfix, mats: Sequence[torch.Tensor]) -> tuple:
 _NO_RANGES = ((RangeLeaf * 1)(), (ctypes.c_int * 1)())
 
 
-def check_stacks(mats: Sequence[torch.Tensor], n_shards: int) -> int:
-    """Validate the field stacks a kernel reads; returns the row width."""
+def check_stacks(mats: Sequence[torch.Tensor], n_shards: int, code=None, extra=()) -> int:
+    """Validate what a kernel reads of ``mats``: the stacks, pools and slot
+    tables that ``code``'s leaves and range leaves name (``code.reads``),
+    and the stacks at the positions ``extra`` (a BSI stack's planes,
+    GroupBy's fields, TopN's candidates); a matrix no leaf names is never
+    read.  Stacks are contiguous int32[R, S, W] with one W; a pool leaf's
+    pool is int32[P, S, POOL_BLOCK_WORDS] and its table int32[n,
+    POOL_BLOCKS], and the row width is then the full WORDS.  Every leaf's
+    row must lie in its stack (or its table).  Returns the row width."""
+    leaves, reads = ((), ()) if code is None else (code.leaves, code.reads)
+    if extra:
+        reads = sorted(set(reads).union((i, _STACK) for i in extra))
     words = None
-    for mat in mats:
-        if mat.dtype != torch.int32 or mat.dim() != 3 or not mat.is_contiguous():
-            raise ValueError("field stacks must be contiguous int32[R, S, W]")
+    for i, kind in reads:
+        mat = mats[i]
         if not mat.is_cuda:
             raise ValueError("field stacks must live on the card")
+        if kind == _TABLE:
+            if (mat.dtype != torch.int32 or mat.dim() != 2 or mat.shape[1] != POOL_BLOCKS
+                    or not mat.is_contiguous()):
+                raise ValueError(f"slot tables must be contiguous int32[n, {POOL_BLOCKS}]")
+            continue
+        if mat.dtype != torch.int32 or mat.dim() != 3 or not mat.is_contiguous():
+            raise ValueError("field stacks must be contiguous int32[R, S, W]")
         if mat.shape[1] != n_shards:
             raise ValueError(
                 f"stack shard axis {mat.shape[1]} != mask length {n_shards}"
             )
+        if kind == _POOL:
+            if mat.shape[2] != POOL_BLOCK_WORDS or mat.shape[0] < 1:
+                raise ValueError(f"block pools must be int32[P >= 1, S, {POOL_BLOCK_WORDS}]")
+            continue
         if words is not None and mat.shape[2] != words:
             raise ValueError("field stacks disagree on the row width")
         words = mat.shape[2]
+    if code is not None and code.pooled and words not in (None, bitops.WORDS):
+        raise ValueError(f"pool rows are {bitops.WORDS} words wide; the stacks are {words}")
+    for leaf in leaves:
+        n = mats[leaf[2] if len(leaf) == 3 else leaf[0]].shape[0]
+        if not 0 <= leaf[1] < n:
+            raise ValueError(f"leaf row {leaf[1]} outside stack of {n} rows")
     return bitops.WORDS if words is None else int(words)
 
 
@@ -338,10 +428,7 @@ def count_tree_dense(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Te
         raise ValueError("mask must be an int32[S] tensor on the card")
     mask = mask.contiguous()
     n_shards = mask.shape[0]
-    words = check_stacks(mats, n_shards)
-    for m, r in code.leaves:
-        if not 0 <= r < mats[m].shape[0]:
-            raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
+    words = check_stacks(mats, n_shards, code)
     fn = _lib_fn("count_tree_dense", "count_tree_dense", _TREE_ARGS + [_P, _I, _I, _P, _P])
     out = torch.zeros(1, dtype=torch.int64, device=mask.device)
     stream = torch.cuda.current_stream(mask.device).cuda_stream
@@ -350,6 +437,7 @@ def count_tree_dense(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Te
         raise RuntimeError(f"count_tree_dense launch failed: cudaError {err}")
     count_tree_dense.launches += 1
     range_leaf(code)
+    pool_leaf(code, "count_tree_dense")
     return out[0]
 
 
@@ -365,6 +453,21 @@ def range_leaf(code: Postfix) -> None:
 
 
 range_leaf.launches = 0
+
+
+def pool_leaf(code, kernel: str) -> None:
+    """Called by every kernel wrapper whose launch may carry pool leaves
+    (K1, K2, K3, K5, K6, K7, K8 and F1) after it launched:
+    ``pool_leaf.launches`` counts the launches that read a block pool
+    (csrc/tree_eval.cuh load_pool, or K5's staging), ``pool_leaf.by_kernel``
+    them per kernel."""
+    if code.pooled:
+        pool_leaf.launches += 1
+        pool_leaf.by_kernel[kernel] = pool_leaf.by_kernel.get(kernel, 0) + 1
+
+
+pool_leaf.launches = 0
+pool_leaf.by_kernel = {}
 
 
 def count_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
@@ -509,11 +612,7 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
                              f"at least one shard, got K={K}, S={S}")
         if n_out is not None and not 1 <= n_out <= K:
             raise ValueError(f"the trim takes 1 <= n_out <= K, got n_out={n_out}, K={K}")
-    if check_stacks(mats, S) != W and mats:
-        raise ValueError("src stacks and candidate stack disagree on the row width")
-    for m, r in code.leaves:
-        if not 0 <= r < mats[m].shape[0]:
-            raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
+    check_stacks(list(mats) + [cand_mat], S, code, extra=(len(mats),))
     dev = cand_mat.device
     # The kernel stores every score and src count (zeros included); with
     # no candidates it does not run, and the src counts stay zero.
@@ -542,6 +641,7 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
     if cnt is not None and n_out is not None:
         score_rows_cuda.trims += 1  # a call that trims its totals
     range_leaf(code)
+    pool_leaf(code, "score_rows")
     return out_scores, out_src, result
 
 
@@ -657,19 +757,23 @@ class BatchProgram:
     """A batch compiled for K5: ``leaves`` the distinct (mat_slot, row)
     leaf rows, ``qinfo`` int32[K, 4] (program offset, program length,
     mask id, chain form 0/1) and ``ops`` the concatenated postfix
-    programs, whose leaf opcodes carry indices into ``leaves``."""
+    programs, whose leaf opcodes carry indices into ``leaves``;
+    ``reads``/``pooled`` as ``leaf_reads`` gives them."""
 
-    __slots__ = ("leaves", "qinfo", "ops")
+    __slots__ = ("leaves", "qinfo", "ops", "reads", "pooled")
 
     def __init__(self, leaves, qinfo, ops):
         self.leaves = leaves
         self.qinfo = qinfo
         self.ops = ops
+        self.reads, self.pooled = leaf_reads(leaves)
 
 
 def _leaf_rows(prog, out: set) -> set:
     if prog[0] == "row":
         out.add((int(prog[1]), int(prog[2])))
+    elif prog[0] == "rowb":
+        out.add((int(prog[1]), int(prog[3]), int(prog[2])))
     elif prog[0] not in ("zero", "range"):
         for p in prog[1:]:
             _leaf_rows(p, out)
@@ -702,9 +806,10 @@ def _is_chain(ops: List[int]) -> bool:
 
 
 def batchable(prog) -> bool:
-    """True when K5 takes the tree: it stages leaf rows in shared memory
-    and has no range leaf (ROADMAP.md Queue 2 item 18), so the engine
-    sends a tree with one to K1 or K2 instead."""
+    """True when K5 takes the tree: it stages leaf rows (pool rows
+    through their slot vectors) in shared memory and has no range leaf
+    (ROADMAP.md Queue 2 item 18), so the engine sends a tree with one to
+    K1 or K2 instead."""
     return not compile_prog(prog).ranges
 
 
@@ -727,7 +832,7 @@ def compile_batch(progs, mask_ids: Sequence[int]) -> BatchProgram:
         if code.depth > MAX_STACK or len(code.ops) > MAX_PROG:
             check_prog(Postfix(code.ops, [], code.depth))
         glob = [table.setdefault(leaf, len(table)) for leaf in code.leaves]
-        qops = [OP_LEAF | (glob[c >> 8] << 8) if (c & 0xFF) == OP_LEAF else c
+        qops = [(c & 0xFF) | (glob[c >> 8] << 8) if (c & 0xFF) in (OP_LEAF, OP_ROWB) else c
                 for c in code.ops]
         qinfo[k] = (len(ops), len(qops), int(mask_ids[k]), int(code.chain))
         ops.extend(qops)
@@ -754,7 +859,7 @@ def count_batch_tree_plain(progs, mats: Sequence[torch.Tensor], masks: np.ndarra
     return out
 
 
-_BATCH_ARGS = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+_BATCH_ARGS = [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P]
 _batch_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -817,13 +922,10 @@ def count_batch_tree_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
     M, S = masks.shape
     if int(batch.qinfo[:, 2].min()) < 0 or int(batch.qinfo[:, 2].max()) >= M:
         raise ValueError("mask id outside the mask table")
-    words = check_stacks(mats, S)
+    words = check_stacks(mats, S, batch)
     index = device.index if device.index is not None else torch.cuda.current_device()
     if any(mat.device.index != index for mat in mats):
         raise ValueError("field stacks and the launch disagree on the device")
-    for m, r in batch.leaves:
-        if not 0 <= r < mats[m].shape[0]:
-            raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
     fan = None if out_index is None else np.asarray(out_index, dtype=np.int32)
     if fan is not None and fan.size and (int(fan.min()) < 0 or int(fan.max()) >= K):
         raise ValueError("out_index names a query outside the batch")
@@ -831,8 +933,7 @@ def count_batch_tree_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
     out = torch.empty(k_out, dtype=torch.int64, device=device)
     if k_out == 0:
         return out
-    ptrs = np.asarray([mats[m].data_ptr() + int(r) * mats[m].stride(0) * 4
-                       for m, r in batch.leaves] or [0], dtype=np.uint64)
+    ptrs = np.asarray(leaf_pointers(batch.leaves, mats) or [0], dtype=np.uint64)
     sections = [ptrs, batch.qinfo, batch.ops, mask_bits(masks)]
     if fan is not None:
         sections.append(fan)
@@ -841,13 +942,15 @@ def count_batch_tree_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
     base = dev_buf.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = _lib_fn("count_batch_tree", "count_batch_tree", _BATCH_ARGS)
-    err = fn(base + offs[0], len(batch.leaves), base + offs[1], K, base + offs[2],
+    has_pool = int(any(len(leaf) == 3 for leaf in batch.leaves))
+    err = fn(base + offs[0], len(batch.leaves), has_pool, base + offs[1], K, base + offs[2],
              base + offs[3], None if fan is None else base + offs[4], k_out, S, words,
              _batch_scratch_for(device, stream).data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"count_batch_tree launch failed: cudaError {err}")
     count_batch_tree_cuda.launches += 1
     count_batch_tree_cuda.by_k[K] = count_batch_tree_cuda.by_k.get(K, 0) + 1
+    pool_leaf(batch, "count_batch_tree")
     return out
 
 
@@ -906,7 +1009,7 @@ class FusedCode:
     and shared: never mutated."""
 
     __slots__ = ("op", "first", "item_off", "item_len", "mref", "items", "leaves", "ranges",
-                 "pos")
+                 "pos", "reads", "pooled")
 
     def __init__(self, op, first, item_off, item_len, mref, items, leaves, ranges, pos):
         self.pos = pos
@@ -918,6 +1021,7 @@ class FusedCode:
         self.items = items
         self.leaves = leaves
         self.ranges = ranges
+        self.reads, self.pooled = leaf_reads(leaves, ranges)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -938,6 +1042,9 @@ def compile_fused(slots, keep=None) -> FusedCode:
         kind = p[0]
         if kind == "row" and len(p) == 3:
             return OP_LEAF | (leaf_of.setdefault((int(p[1]), int(p[2])), len(leaf_of)) << 8)
+        if kind == "rowb" and len(p) == 4:
+            key = (int(p[1]), int(p[3]), int(p[2]))
+            return OP_ROWB | (leaf_of.setdefault(key, len(leaf_of)) << 8)
         if kind == "range" and len(p) == 6 and p[1] in bsi_ops.RANGE_KINDS:
             key = (int(p[2]), p[1], tuple(int(x) for x in p[3]), int(p[4]), int(p[5]))
             return OP_RANGE | (range_of.setdefault(key, len(range_of)) << 8)
@@ -961,7 +1068,7 @@ def compile_fused(slots, keep=None) -> FusedCode:
     inline = {}
     for k, (op, codes) in enumerate(nodes):
         if (keep is not None and k not in keep and op == OP_OR and len(codes) == 1
-                and (codes[0] & 0xFF) in (OP_LEAF, OP_ZERO)):
+                and (codes[0] & 0xFF) in (OP_LEAF, OP_ROWB, OP_ZERO)):
             inline[k] = codes[0]
     nodes = [(op, [inline.get(c >> 8, c) if (c & 0xFF) == OP_MREF else c for c in codes])
              for op, codes in nodes]
@@ -1059,7 +1166,7 @@ def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: 
     out)."""
     S = (need.shape[0] if need is not None else gates[0].shape[0] if gates
          else n_shards if n_shards is not None else mats[0].shape[1])
-    W = check_stacks(mats, S)
+    W = check_stacks(mats, S, code)
     n_slots, E = len(code.op), len(count_slots)
 
     def compiled(j) -> bool:  # a slot of the table that F1 evaluates
@@ -1072,9 +1179,6 @@ def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: 
     gates = [_on_card_int32(g, "gate", (S,)) for g in gates]
     if need is not None:
         need = _on_card_int32(need, "need", (S,))
-    for m, r in code.leaves:
-        if not 0 <= r < mats[m].shape[0]:
-            raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
     dev = gates[0].device if gates else need.device if need is not None else mats[0].device
     if dev.type != "cuda":
         raise ValueError("F1 runs on the card")
@@ -1104,6 +1208,7 @@ def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: 
         raise RuntimeError(f"fused_tree launch failed: cudaError {err}")
     fused_tree_cuda.launches += 1
     range_leaf(code)
+    pool_leaf(code, "fused_tree")
     return out[:E], mat
 
 
@@ -1152,12 +1257,14 @@ def _agg_outputs(spec: FusedSpec, mats, mat, masks, tensors, plain: bool) -> lis
     from . import bsi as bsi_mod
     from . import groupby as groupby_mod
 
-    ext = list(mats) + ([mat] if mat is not None else [])
+    # An edge's filter is one row of ``mat``, its only leaf stack (the part's
+    # pools and slot tables stay out of the edge kernels' stack list).
+    ext = [] if mat is None else [mat]
     row_of = {j: i for i, j in enumerate(spec.mat_slots)}
     outs: list = []
     for e in spec.agg_edges:
         kind, slot, mask = e[0], e[1], masks[e[2]]
-        prog = None if slot < 0 else ("row", len(mats), row_of[slot])
+        prog = None if slot < 0 else ("row", 0, row_of[slot])
         if kind == "sum":
             fn = bsi_mod.sum_tree_plain if plain else bsi_mod.sum_tree
             outs.append(fn(prog, ext, mask, mats[e[3]], e[4]))

@@ -83,12 +83,9 @@ def count_tree_blocks_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
             or not blk_bits.is_contiguous()):
         raise ValueError("blk_bits must be a contiguous int64[S] tensor on the card")
     n_shards = blk_bits.shape[0]
-    words = kernels.check_stacks(mats, n_shards)
+    words = kernels.check_stacks(mats, n_shards, code)
     if words % bitops.OCC_BLOCK_WORDS or not 1 <= words // bitops.OCC_BLOCK_WORDS <= 64:
         raise ValueError(f"row width {words} is not 1..64 blocks of {bitops.OCC_BLOCK_WORDS} words")
-    for m, r in code.leaves:
-        if not 0 <= r < mats[m].shape[0]:
-            raise ValueError(f"leaf row {r} outside stack of {mats[m].shape[0]} rows")
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = kernels._lib_fn("count_tree_blocks", "count_tree_blocks",
                          kernels._TREE_ARGS + [P, I, I, P, P, P])
@@ -102,6 +99,7 @@ def count_tree_blocks_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
         raise RuntimeError(f"count_tree_blocks launch failed: cudaError {err}")
     count_tree_blocks_cuda.launches += 1
     kernels.range_leaf(code)
+    kernels.pool_leaf(code, "count_tree_blocks")
     return out[0]
 
 

@@ -46,7 +46,6 @@ from .util import (
     VerboseLogger,
 )
 
-_ITEM_13 = "Queue 1 item 13 (residency and incrementality)"
 _ITEM_14 = "Queue 1 item 14 (serving and observability)"
 _ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 
@@ -76,7 +75,6 @@ _UNPORTED_KEYS = (
     ("server_workers", "[server] workers", _ITEM_14),
     ("faults_rules", "[faults] rules", _ITEM_14),
     ("obs_history", "[observability] history", _ITEM_14),
-    ("engine_device_budget_bytes", "[engine] device-budget-bytes", _ITEM_13),
 )
 
 
@@ -212,7 +210,12 @@ class Server:
         self.translate_store.open()
         self.holder.open()
         if self.config.mesh_devices >= 0:
-            self.engine = TorchEngine(self.holder, device=self.device)
+            # [engine] device-budget-bytes: the soft device working-set
+            # target (0: the engine's default, a fraction of the card).
+            self.engine = TorchEngine(
+                self.holder, device=self.device,
+                max_resident_bytes=self.config.engine_device_budget_bytes or None,
+                logger=self.logger, journal=self.journal)
         node = {"id": self.node_id, "uri": _advertise_uri(host, port, self.scheme),
                 "isCoordinator": True}
         self.api = API(

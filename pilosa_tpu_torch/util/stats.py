@@ -37,6 +37,33 @@ METRIC_ENGINE_FUSED_PROGRAMS = "pilosa_engine_fused_program_programs_total"
 METRIC_ENGINE_FUSED_QUERIES = "pilosa_engine_fused_program_queries_total"
 METRIC_ENGINE_FUSED_MASKS_EVAL = "pilosa_engine_fused_program_masks_evaluated_total"
 METRIC_ENGINE_FUSED_MASKS_REF = "pilosa_engine_fused_program_masks_referenced_total"
+# -- tiered residency (pilosa_tpu/util/stats.py:425-451) ----------------------
+#   pilosa_engine_promotions_total{cause=}  promotions completing a FULL stack
+#   pilosa_engine_partial_promotions_total  promotions admitting a partial
+#                                           (working-set) block-pool stack
+#   pilosa_engine_promotions_declined_total promotions that could not fit even
+#                                           partially (the key cools down)
+#   pilosa_engine_promoted_bytes_total      device bytes the promotion worker
+#                                           shipped
+#   pilosa_engine_host_fallbacks_total      queries served from the host tier
+#                                           because their stack was not
+#                                           resident (each requested a
+#                                           promotion instead of blocking)
+#   pilosa_engine_resident_block_fraction   gauge: occupancy blocks resident
+#                                           on the card / blocks of the full
+#                                           row universe, over known stacks
+#   pilosa_engine_evictions_total           stacks the budget evicted
+METRIC_ENGINE_PROMOTIONS = "pilosa_engine_promotions_total"
+METRIC_ENGINE_PARTIAL_PROMOTIONS = "pilosa_engine_partial_promotions_total"
+METRIC_ENGINE_PROMOTIONS_DECLINED = "pilosa_engine_promotions_declined_total"
+METRIC_ENGINE_PROMOTED_BYTES = "pilosa_engine_promoted_bytes_total"
+METRIC_ENGINE_HOST_FALLBACKS = "pilosa_engine_host_fallbacks_total"
+METRIC_ENGINE_RESIDENT_BLOCK_FRACTION = "pilosa_engine_resident_block_fraction"
+METRIC_ENGINE_EVICTIONS = "pilosa_engine_evictions_total"
+# The {cause=} of pilosa_engine_promotions_total: "reactive" (a query missed
+# and the worker chased it) or "warm_start" (restart admission).  The
+# reference's "advisor" cause (promote-ahead) comes with parallel/advisor.py,
+# ROADMAP.md Queue 1 item 14.
 
 # Fixed log-spaced latency buckets (seconds), 100 us .. 60 s.  Fixed
 # buckets (not reservoirs) keep observe() O(log B) with bounded memory.

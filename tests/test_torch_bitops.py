@@ -147,8 +147,11 @@ def test_import_is_jax_free():
     wrappers and their CUDA sources) are present and run queries on the
     CPU, a fused drain (``parallel/fusion.py``) answers, the API answers a
     keyed query, the node's modules (server, config, cli, __main__ and
-    every net module) import and serve a keyed query over HTTP, and no
-    module of pilosa_tpu is loaded."""
+    every net module) import and serve a keyed query over HTTP, the
+    residency modules (``parallel/residency.py``, ``parallel/errors.py``)
+    serve a query under a budget below one stack (a miss, the promotion,
+    then the query warm from the pool), and no module of pilosa_tpu is
+    loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -215,6 +218,22 @@ def test_import_is_jax_free():
         "c.query('k', 'Set(\"c\", f=\"x\") Set(\"d\", f=\"x\")')\n"
         "assert c.query('k', 'Row(f=\"x\")')['results'][0]['keys'] == ['c', 'd']\n"
         "srv.shutdown(); a.close()\n"
+        "from pilosa_tpu_torch.parallel import errors, residency\n"
+        "assert issubclass(errors.ResidencyMiss, errors.HostFallback)\n"
+        "assert residency.MAX_PENDING == 64 and residency.DECLINE_COOLDOWN == 5.0\n"
+        "hr = Holder(device='cpu'); hr.open()\n"
+        "g = hr.create_index('r').create_field('g')\n"
+        "g.import_bulk([r for r in range(8) for _ in range(3)], [c for r in range(8) for c in (r, 9, 20)])\n"
+        "one = 32768 * 4 + 16\n"
+        "er = TorchEngine(hr, device='cpu', max_resident_bytes=4 * one)\n"
+        "er.result_memo.maxsize = 0\n"
+        "xr = Executor(hr, engine=er)\n"
+        "q = 'Count(Union(Row(g=1), Row(g=2)))'\n"
+        "assert xr.execute('r', q).results[0] == 4 and er.host_fallbacks == 1\n"
+        "assert er.residency.flush(30.0)\n"
+        "assert er._stacks[('r', 'g', 'standard')].pool\n"
+        "assert xr.execute('r', q).results[0] == 4 and er.host_fallbacks == 1\n"
+        "er.close()\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"

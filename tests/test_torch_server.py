@@ -14,6 +14,8 @@ JAX package's (pilosa_tpu.server, .config).
 - ``Server(cfg)`` with no device runs on the card, so it raises where
   there is none (this machine); ``[mesh] devices = -1`` serves with no
   engine.
+- ``[engine] device-budget-bytes`` reaches the engine as its device budget
+  and shows on /debug/vars and /readyz.
 
 Answers are ids and counts: exact agreement (tolerance 0)."""
 
@@ -235,6 +237,51 @@ def test_data_directory_opens_in_the_other_package(tmp_path, writer, reader):
     finally:
         srv.close()
     assert got == want == jgot
+
+
+def test_device_budget_reaches_the_engine_and_the_debug_surfaces(tmp_path):
+    """``[engine] device-budget-bytes`` below one full stack: the Server
+    starts, hands the budget to its engine (``max_resident_bytes``), every
+    answer equals the reference Server's under the same budget (cold ones
+    from the host tier, then from the promoted block pool), and /debug/vars
+    (``engineCaches``) and /readyz (``residency``) report it.  Closing the
+    Server stops the residency worker."""
+    import threading
+
+    budget = 3 * (32768 * 4 + 16)  # f holds 2 rows x 2 shards of them
+    answers = []
+    for cls in (JServer, TServer):
+        cfg = _cfg(JConfig if cls is JServer else TConfig, tmp_path / cls.__module__,
+                   engine_device_budget_bytes=budget)
+        srv = _open(cls, cfg)
+        try:
+            c = _client(srv)
+            _fill(c)
+            got = [_answers(c)]
+            if cls is TServer:
+                assert srv.engine.max_resident_bytes == budget
+                assert srv.engine.host_fallbacks >= 1
+                assert srv.engine.residency.flush(30.0)
+                fb = srv.engine.host_fallbacks
+                for index, text in (READS[0], READS[3]):
+                    c.query(index, text)
+                assert srv.engine.host_fallbacks == fb  # Counts from the pool
+                got.append(_answers(c))  # TopN needs the full stack: host tier
+                caches = c._get("/debug/vars")["engineCaches"]
+                assert caches["deviceBudgetBytes"] == budget
+                assert caches["partialStacks"] >= 1 and caches["hostFallbacks"] > fb
+                assert caches["residency"]["partialPromotions"] >= 1
+                assert caches["workingSet"]["deviceBudgetBytes"] == budget
+                res = c._get("/readyz")["residency"]
+                assert res["deviceBudgetBytes"] == budget and 0.0 < res[
+                    "residentBlockFraction"] <= 1.0
+                assert res["residentBytes"] <= budget
+            answers.append(got[-1])
+        finally:
+            srv.close()
+    assert answers[0] == answers[1]
+    assert not [t for t in threading.enumerate()
+                if t.name == "residency-promote" and t.is_alive()]
 
 
 def test_readyz_reports_warming_until_the_warm_start_is_done(tmp_path):
