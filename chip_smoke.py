@@ -44,10 +44,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    per-edge gates, materialized slots with and without a need gate, 12 and
    37 shards, two streams, whole drains (F1 then K6, K7, K3 and K8 on its
    slots) against fused_tree_plain, 17 slots and 33 edges refused; for the
-   pool leaf (rowb) in K1, K2, K3, K5, K6, K7, K8 and F1: random slot
-   layouts with slot-0 blocks, rows all zero, slots shared by two rows, a
-   pool of one slot, pool leaves alone and beside stack rows and range
-   leaves, 12 and 37 shards, two streams.  Integer
+   pool leaf (rowb) in K1, K2, K3, K5, K6, K7, K8 and F1, and K1P
+   count_tree_pool against both count_tree_pool_plain and
+   count_tree_plain: random slot layouts with slot-0 blocks, rows all
+   zero, slots shared by two rows, a pool of one slot, pool leaves alone
+   and beside stack rows and range leaves, trees whose live word is 0,
+   12 and 37 shards, two streams.  Integer
    results, so they must agree exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
@@ -183,7 +185,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    less one row-shard (no stack fits).  A cold dashboard (one
    Count(Intersect) per field) from the host lane, fallbacks and
    promotion requests counted; the same dashboard warm from the block
-   pools (K1 over pool leaves, no fallback); an 8-Count query on pool rows
+   pools (one K1P launch each, no fallback); an 8-Count query on pool rows
    (one K5), a fused drain with Counts, a Sum and a TopN filtered by pool
    rows (F1, K6, K3), TopN and Sum through the executor; an uncovered row
    growing the working set; Sets into empty blocks, a Clear and an import
@@ -192,8 +194,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plan is dropped.  Every answer against numpy.  Prints bench.py's
    oversubscribed_4x_count_p50_ms, fully_resident_count_p50_ms,
    oversubscribed_4x_cold_p50_ms, residency_hit_rate and
-   promotion_overlap_mbits_s, the pool leaf's K1 time against its bound
-   and the engine's default budget.
+   promotion_overlap_mbits_s, K1P's time (rowb_k1p) against its bound
+   beside the K1 it replaced, the pool leaf's device time inside K5, F1,
+   K3 and K6 against their leaves' live bytes (pool_leaf_in), and the
+   engine's default budget.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -1370,20 +1374,29 @@ def check_pool_leaf(device, seed):
     K3 (a src tree), K5 (batches with their tiles staged and not), K6 and
     K7 (filters), K8 (a filter) and F1 (slots and whole drains); masks of
     every shard, none and a ragged set; 12 and 37 shards; two streams.
-    Returns max |err|."""
+    K1P (count_tree_pool) on the same trees, sizes and masks, and on
+    trees whose live word is 0, against both count_tree_pool_plain and
+    count_tree_plain.  Returns max |err|."""
     import torch
 
     from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
 
     rng = np.random.default_rng(seed + 41)
-    err = {"rowb": 0}
+    err = {"rowb": 0, "count_tree_pool": 0}
     n = 0
 
-    def same(got, want, what):
+    def same(got, want, what, key="rowb"):
         nonlocal n
         torch.cuda.synchronize()
-        err["rowb"] = max(err["rowb"], _exact("rowb", got, want.to(got.device), what))
+        err[key] = max(err[key], _exact(key, got, want.to(got.device), what))
         n += 1
+
+    def k1p_same(t, code, mats, m, what):
+        got = kernels.count_tree_pool(code, mats, m).reshape(1)
+        same(got, kernels.count_tree_pool_plain(t, mats, m).reshape(1), f"K1P {what}",
+             "count_tree_pool")
+        same(got, kernels.count_tree_plain(t, mats, m).reshape(1), f"K1P against K1's plain {what}",
+             "count_tree_pool")
 
     for S, P in ((12, 9), (37, 33), (12, 1)):
         pool, table = _pool_case(rng, S, P, 6, device)
@@ -1407,6 +1420,15 @@ def check_pool_leaf(device, seed):
         dense_t = ("and", ("row", 0, 1), ("row", 0, 2))
         same(kernels.count_tree_dense(kernels.compile_prog(dense_t), mats, masks[0]).reshape(1),
              kernels.count_tree_plain(dense_t, mats, masks[0]).reshape(1), "K1 beside a pool")
+        # K1P: every block of a tree without pool leaves is live; a dead
+        # live word (an all-zero row, the all-zero vector, a zero subtree
+        # under an and) reads nothing and counts 0.
+        dead = [("and", rb[1], rb[0]), ("and", ("row", 0, 2), ("and", rb[6], rb[3])),
+                ("andnot", ("and", rb[2], ("zero",)), ("row", 0, 1))]
+        for t in [dense_t] + dead + trees:
+            code = kernels.compile_prog(t)
+            for m in masks:
+                k1p_same(t, code, mats, m, f"{t} S={S} P={P}")
         for t in trees:
             code = kernels.compile_prog(t)
             kernels.check_prog(code)
@@ -1472,7 +1494,15 @@ def check_pool_leaf(device, seed):
     for i, g in enumerate(outs):
         m = masks[i % 3 if i % 3 != 1 else 0]
         same(g.reshape(1), kernels.count_tree_plain(t, mats, m).reshape(1), "K1 on two streams")
-    log(f"pool leaf: {n} comparisons exact (rowb in K1, K2, K3, K5, K6, K7, K8 and F1 "
+    outs = []
+    torch.cuda.synchronize()
+    for i in range(8):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            outs.append(kernels.count_tree_pool(code, mats, masks[i % 3]))
+    for i, g in enumerate(outs):
+        same(g.reshape(1), kernels.count_tree_pool_plain(t, mats, masks[i % 3]).reshape(1),
+             "K1P on two streams", "count_tree_pool")
+    log(f"pool leaf: {n} comparisons exact (rowb in K1, K1P, K2, K3, K5, K6, K7, K8 and F1 "
         "against their plain versions)")
     return err
 
@@ -4179,21 +4209,94 @@ def _bit_of(arr, row, cols):
     return (arr[row, s, c >> 6] >> (c & 63).astype(np.uint64)) & np.uint64(1)
 
 
+@contextlib.contextmanager
+def _path_counts_kept():
+    """Put back, on leaving, every kernel wrapper's launch count and the
+    pool leaf's counts: the launches inside (checks, timing windows) are
+    not the path's."""
+    from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
+
+    fns = (kernels.count_tree_dense, kernels.count_tree_pool, sparse.count_tree_blocks_cuda,
+           kernels.score_rows_cuda, kernels.count_batch_tree_cuda, bsi.sum_tree_cuda,
+           bsi.minmax_tree_cuda, groupby.groupn_tree_cuda, kernels.fused_tree_cuda,
+           kernels.range_leaf, kernels.pool_leaf)
+    saved = [f.launches for f in fns], dict(kernels.pool_leaf.by_kernel)
+    try:
+        yield
+    finally:
+        for f, n in zip(fns, saved[0]):
+            f.launches = n
+        kernels.pool_leaf.by_kernel.clear()
+        kernels.pool_leaf.by_kernel.update(saved[1])
+
+
+def live_leaf_bytes(prog, mats, mask):
+    """The bytes K1P must read for a tree: each leaf's live blocks (a pool
+    leaf's where its slot is not 0 too; a range leaf's planes) over the
+    requested shards, 2 KiB each, and the mask and the result."""
+    from pilosa_tpu_torch.parallel import kernels
+
+    live = kernels.live_blocks(prog, mats, mask.device)
+    n_live = int(live.sum())
+    code = kernels.compile_prog(prog)
+    blocks = sum(int((live & (mats[leaf[2]][leaf[1]] != 0)).sum()) if len(leaf) == 3 else n_live
+                 for leaf in code.leaves)
+    blocks += sum(sum(1 for p in planes if p >= 0) * n_live for _, _, planes, _, _ in code.ranges)
+    return blocks * int((mask != 0).sum()) * 2048 + mask.numel() * 4 + 8
+
+
+def pool_leaf_in(eng, ex, holder, q8, entries, seg, S):
+    """The pool leaf inside K5 (the 8-Count query), F1 (the fused drain),
+    K3 (TopN(rt, Row(wf1=2))) and K6 (Sum over the seg filter): device ms
+    per launch (K3: per call) against the bytes of their leaves in the
+    blocks the query can read (the pool rows' occupied blocks; a src or
+    filter's live blocks for K3's candidates and K6's planes), reads
+    only."""
+    st = {f: eng._stacks[("rsw", f, "standard")] for f in ("wf0", "wf1", "wf2", "wf3")}
+
+    def occ(f, r):
+        return int(np.count_nonzero(st[f].slot_of[r]))
+
+    blk = S * 2048
+    seg_live = int(np.count_nonzero((st["wf0"].slot_of[0] != 0) & (st["wf0"].slot_of[1] != 0)))
+    planes = holder.index("rsw").field("rv").bit_depth() + 1
+    items = {
+        "k5": (lambda: ex.execute("rsw", q8), "count_batch_tree",
+               sum(occ(f"wf{fi}", r) for fi in range(RSW_FIELDS) for r in (2 * fi, 2 * fi + 1))),
+        "f1": (lambda: eng.fused_many("rsw", entries), "fused_tree_kernel",
+               occ("wf0", 0) + occ("wf0", 1) + occ("wf1", 2)),
+        "k3": (lambda: ex.execute("rsw", "TopN(rt, Row(wf1=2), n=3)"), "score_rows",
+               (1 + 4) * occ("wf1", 2)),
+        "k6": (lambda: ex.execute("rsw", f"Sum({seg}, field=rv)"), "sum_tree",
+               (2 + planes) * seg_live),
+    }
+    out = {}
+    for name, (fn, kernel, blocks) in items.items():
+        byts = blocks * blk
+        out[name] = {"device_ms": device_ms(fn, kernel, per_call=name == "k3"),
+                     "live_bytes": byts, "bound_ms": byts / HBM_BYTES_PER_S * 1e3}
+    log(f"residency: the pool leaf in K5, F1, K3, K6: {json.dumps(out)}")
+    return out
+
+
 def run_residency_path(device, seed, n_shards=N_SHARDS):
     """Tiered residency on the card (docs/residency.md; bench.py
     --residency-sweep at 960 shards): the index is 4x the device budget, so
     no field stack fits it.  Checks, each against numpy: a cold dashboard
     (one Count(Intersect) per field) answered exactly from the host lane,
     host fallbacks and promotion requests rising; after the promotions the
-    same dashboard from the block pools (K1 over pool leaves, no fallback);
+    same dashboard from the block pools (K1P, no fallback);
     an 8-Count query on pool rows (one K5), a fused drain of Counts, a Sum
     and a TopN whose filters read pool rows (F1, K6, K3); TopN and Sum
     through the executor (K3, K6); an uncovered row growing the working set;
     Sets into empty blocks, a Clear and an import, synced in place into the
     pool with a freed slot reused; working sets rotated until the budget
-    evicts and a cached fused plan is dropped.  Prints bench.py's numbers
-    and the pool leaf's K1 time against its bound.  Runs on its own holder
-    and engines, freed at the end."""
+    evicts and a cached fused plan is dropped.  Prints bench.py's numbers,
+    K1P's time against its bound beside K1's over the same pool rows, and
+    the pool leaf's device time inside K5, F1, K3 and K6.  Runs on its own
+    holder and engines, freed at the end.  Returns the phase's numbers,
+    its launches over pools, the rowb entry's K1 times and K1P's launches
+    and times."""
     import gc
 
     import torch
@@ -4286,6 +4389,7 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     ex = Executor(holder, engine=eng)
     kernels.pool_leaf.launches = 0
     kernels.pool_leaf.by_kernel.clear()
+    kernels.count_tree_pool.launches = 0
     _zero_launches()
     # 1. Cold: the host lane answers, each stack misses and requests a
     # promotion of the query's rows.
@@ -4309,51 +4413,60 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         assert st.pool and set(st.row_index) == {2 * fi, 2 * fi + 1}, (fi, st.row_index)
         assert not np.any(st.occ & ~st.block_mask)
     out["pool_shape"] = list(eng._stacks[("rsw", "wf0", "standard")].matrix.shape)
-    # 2. Warm: the same dashboard from the pools, no fallback, K1 with pool
-    # leaves.
-    fb0, k1 = eng.host_fallbacks, kernels.pool_leaf.by_kernel.get("count_tree_dense", 0)
+    # 2. Warm: the same dashboard from the pools, no fallback, one K1P
+    # launch over pool leaves per query.
+    fb0, k1p = eng.host_fallbacks, kernels.pool_leaf.by_kernel.get("count_tree_pool", 0)
     out["oversubscribed_4x_count_p50_ms"] = dash_p50(ex, RSW_WARM_REPS)
     n_warm = RSW_WARM_REPS * len(dashboard)
     fallbacks = eng.host_fallbacks - fb0
     out["residency_hit_rate"] = (n_warm - fallbacks) / n_warm
-    pool_k1 = kernels.pool_leaf.by_kernel.get("count_tree_dense", 0) - k1
-    if fallbacks or (card and pool_k1 < n_warm):
+    pool_k1p = kernels.pool_leaf.by_kernel.get("count_tree_pool", 0) - k1p
+    if fallbacks or (card and pool_k1p < n_warm):
         raise AssertionError(f"residency: warm dashboard {fallbacks} fallbacks, "
-                             f"{pool_k1} K1 launches over pool leaves of {n_warm} queries")
-    out["warm"] = {"queries": n_warm, "host_fallbacks": fallbacks, "k1_pool_launches": pool_k1}
+                             f"{pool_k1p} K1P launches over pool leaves of {n_warm} queries")
+    out["warm"] = {"queries": n_warm, "host_fallbacks": fallbacks, "k1p_pool_launches": pool_k1p}
     out["within_2x"] = out["oversubscribed_4x_count_p50_ms"] <= 2 * out["fully_resident_count_p50_ms"]
-    # The pool leaf's K1 over the first query's two pool rows: the bytes of
-    # its occupied blocks.  Its check and timing launches are not the
-    # path's: the path's counts are saved here and put back after them.
-    path_counts = (kernels.pool_leaf.launches, dict(kernels.pool_leaf.by_kernel),
-                   _launch_counts())
-    lw = _Lowering(eng, eng.canonical_shards("rsw"))
-    prog = eng._lower("rsw", call, lw)
-    assert prog[1][0] == "rowb" and prog[2][0] == "rowb", prog
-    code = kernels.compile_prog(prog)
-    want0 = dashboard[0][1]
-    assert int(kernels.count_tree(prog, lw.mats, mask_all)) == want0
-    plain = int(kernels.count_tree_plain(prog, lw.mats, mask_all))
-    assert plain == want0
-    occupied = sum(int(np.count_nonzero(lw.stacks[p[1]].slot_of[r])) for p, r in
-                   ((prog[1], 0), (prog[2], 1)))
-    pool_bytes = occupied * S * 2048
-    bound = pool_bytes / HBM_BYTES_PER_S * 1e3
-    t_k1, plain_ms = {"ms": None, "device_ms": None, "host_us": None}, None
-    if card:
-        t_k1 = measured(lambda: kernels.count_tree_dense(code, lw.mats, mask_all),
-                        "count_tree_dense", sync, bound_ms=bound)
-        plain_ms = p50_ms(lambda: kernels.count_tree_plain(prog, lw.mats, mask_all), 3, sync,
-                          batch=1)
-    out["rowb_k1"] = {"device_ms": t_k1["device_ms"], "bound_ms": bound,
-                      "bytes": pool_bytes, "plain_ms": plain_ms,
-                      "dense_k1_device_ms": out.get("dense_k1_device_ms")}
-    rowb_times = (t_k1, plain_ms, pool_bytes)
-    del lw, prog, code
-    kernels.pool_leaf.launches, by_kernel, dense = path_counts
-    kernels.pool_leaf.by_kernel.clear()
-    kernels.pool_leaf.by_kernel.update(by_kernel)
-    kernels.count_tree_dense.launches = dense["count_tree_dense"]
+    # K1P over each query's two pool rows against the bytes of their live
+    # blocks, and the K1 it replaced (which visits every position) over the
+    # same rows.  The timing windows take the four queries in turn, as the
+    # dashboard does: 4 x 31.5 MB, more than the card's 50 MB L2.  Their
+    # checks and timing launches are not the path's (_path_counts_kept).
+    with _path_counts_kept():
+        lw = _Lowering(eng, eng.canonical_shards("rsw"))
+        progs = [eng._lower("rsw", pql.parse(q[6:-1]).calls[0], lw) for q, _ in dashboard]
+        codes = [kernels.compile_prog(p) for p in progs]
+        for prog, code, (_, want) in zip(progs, codes, dashboard):
+            assert prog[1][0] == "rowb" and prog[2][0] == "rowb", prog
+            for fn in (kernels.count_tree, kernels.count_tree_pool_plain,
+                       kernels.count_tree_plain):
+                got = int(fn(prog, lw.mats, mask_all))
+                if got != want:
+                    raise AssertionError(f"residency: {fn.__name__} {got} != numpy {want}")
+            if card and int(kernels.count_tree_dense(code, lw.mats, mask_all)) != want:
+                raise AssertionError("residency: K1 over the pool rows disagrees with numpy")
+        pool_bytes = live_leaf_bytes(progs[0], lw.mats, mask_all)
+        assert all(live_leaf_bytes(p, lw.mats, mask_all) == pool_bytes for p in progs)
+        bound = pool_bytes / HBM_BYTES_PER_S * 1e3
+        none = {"ms": None, "device_ms": None, "host_us": None}
+        t_k1p, t_k1, plain_k1p, plain_k1 = none, none, None, None
+        it = iter(range(10 ** 9))
+        if card:
+            t_k1p = measured(lambda: kernels.count_tree_pool(codes[next(it) % 4], lw.mats,
+                                                             mask_all),
+                             "count_tree_pool", sync, bound_ms=bound)
+            t_k1 = measured(lambda: kernels.count_tree_dense(codes[next(it) % 4], lw.mats,
+                                                             mask_all),
+                            "count_tree_dense", sync, bound_ms=bound)
+            plain_k1p = p50_ms(lambda: kernels.count_tree_pool_plain(progs[0], lw.mats,
+                                                                     mask_all), 3, sync, batch=1)
+            plain_k1 = p50_ms(lambda: kernels.count_tree_plain(progs[0], lw.mats, mask_all), 3,
+                              sync, batch=1)
+        out["rowb_k1p"] = {**t_k1p, "bound_ms": bound, "bytes": pool_bytes, "plain_ms": plain_k1p,
+                           "k1_device_ms": t_k1["device_ms"],
+                           "dense_k1_device_ms": out.get("dense_k1_device_ms")}
+        rowb_times = (t_k1, plain_k1, pool_bytes)
+        k1p_times = (t_k1p, plain_k1p, pool_bytes)
+        del lw, progs, codes
     # 3a. Eight Counts on pool rows: one K5 launch.
     eight = [(f"Count({op}(Row(wf{fi}={2 * fi}), Row(wf{fi}={2 * fi + 1})))", fi, op)
              for fi in range(RSW_FIELDS) for op in ("Intersect", "Union")]
@@ -4413,6 +4526,11 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     if card and (kernels.pool_leaf.by_kernel.get("score_rows", 0) == k3
                  or kernels.pool_leaf.by_kernel.get("sum_tree", 0) == k6):
         raise AssertionError("residency: TopN/Sum did not launch K3/K6 over a pool row")
+    # 3d. The pool leaf inside K5, F1, K3 and K6 on the calls of 3a-3c:
+    # device ms against the bytes of their leaves' live blocks.
+    if card:
+        with _path_counts_kept():
+            out["pool_leaf_in"] = pool_leaf_in(eng, ex, holder, q8, entries, seg, S)
     # 4. An uncovered row grows the working set and keeps the old rows.
     qg = "Count(Intersect(Row(wf0=30), Row(wf0=31)))"
     wantg = pc_and(w0[30], w0[31])
@@ -4521,7 +4639,8 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
                     if k not in ("workingSet", "residency")}
     out["pool_leaf_launches"] = dict(kernels.pool_leaf.by_kernel)
     launches = kernels.pool_leaf.launches
-    for k in ("count_tree_dense", "count_batch_tree", "fused_tree", "score_rows", "sum_tree"):
+    k1p_launches = kernels.count_tree_pool.launches
+    for k in ("count_tree_pool", "count_batch_tree", "fused_tree", "score_rows", "sum_tree"):
         if card and not kernels.pool_leaf.by_kernel.get(k):
             raise AssertionError(f"residency: {k} never launched over a pool: "
                                  f"{kernels.pool_leaf.by_kernel}")
@@ -4538,10 +4657,10 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         f"(within 2x: {out['within_2x']}), oversubscribed_4x_cold_p50_ms "
         f"{out['oversubscribed_4x_cold_p50_ms']:.4f}, residency_hit_rate "
         f"{out['residency_hit_rate']:.4f}, promotion_overlap_mbits_s "
-        f"{out['promotion_overlap_mbits_s']:.1f}; rowb K1 device {t_k1['device_ms']} ms, "
-        f"bound {bound:.4f} ms; engine_default_budget {out['engine_default_budget']}; "
-        f"{out['card']}")
-    return out, launches, rowb_times
+        f"{out['promotion_overlap_mbits_s']:.1f}; rowb K1P device {t_k1p['device_ms']} ms "
+        f"(K1 {t_k1['device_ms']} ms), bound {bound:.4f} ms; engine_default_budget "
+        f"{out['engine_default_budget']}; {out['card']}")
+    return out, launches, rowb_times, (k1p_launches,) + k1p_times
 
 
 def bitops_popcount(words, gate):
@@ -5963,12 +6082,18 @@ def main(argv=None):
     mark("fusion")
     log("http: " + json.dumps(run_http_path(device, holder, engine, host, args.seed)))
     mark("http")
-    res_out, res_launches, (t_rowb, plain_rowb, rowb_bytes) = run_residency_path(
+    res_out, res_launches, (t_rowb, plain_rowb, rowb_bytes), k1p = run_residency_path(
         device, args.seed)
     log("residency: " + json.dumps(res_out))
+    # rowb: the pool leaf inside the kernels, timed in K1 over the same
+    # pool rows as K1P (which replaced it on the Count path).
     kern.append(_entry("rowb", "pilosa_tpu_torch/csrc/tree_eval.cuh",
                        "pilosa_tpu/parallel/kernels.py:84", res_launches, err["rowb"], t_rowb,
                        plain_rowb, rowb_bytes, rowb_bytes // 4 * 2, None))
+    k1p_launches, t_k1p, plain_k1p, k1p_bytes = k1p
+    kern.append(_entry("count_tree_pool", "pilosa_tpu_torch/csrc/count_tree_pool.cu",
+                       "pilosa_tpu/parallel/kernels.py:84", k1p_launches, err["count_tree_pool"],
+                       t_k1p, plain_k1p, k1p_bytes, k1p_bytes // 4 * 2, None))
     mark("residency")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))

@@ -1,9 +1,9 @@
 // Shared device code of the kernels that evaluate a tree (K1
-// count_tree_dense.cu, K2 count_tree_blocks.cu, K3 score_rows.cu, K6
-// sum_tree.cu, K7 minmax_tree.cu, K8's filter in groupn_tree.cu, F1
-// fused_tree.cu): the postfix tree program, the per-thread tree evaluation
-// over 16-byte word vectors, the BSI range leaf, the block-pool leaf, and the
-// block reduction.
+// count_tree_dense.cu, K1P count_tree_pool.cu, K2 count_tree_blocks.cu,
+// K3 score_rows.cu, K6 sum_tree.cu, K7 minmax_tree.cu, K8's filter in
+// groupn_tree.cu, F1 fused_tree.cu): the postfix tree program, the
+// per-thread tree evaluation over 16-byte word vectors, the BSI range leaf,
+// the block-pool leaf, and the block reduction.
 //
 // A normalized count tree (leaves: a row of a field stack, a row of a block
 // pool, zero, or a BSI range condition; nodes: and / or / andnot / xor)
@@ -223,8 +223,10 @@ __device__ __forceinline__ uint4 combine4(int op, uint4 a, uint4 b) {
 // stack in thread-local memory (any program within the limits).  kRanges
 // false compiles the range and pool leaves out: a kernel launched for a
 // program with neither keeps the registers, and the occupancy, it had
-// without them (the host picks it with has_extra_leaves).
-template <bool kRanges = true>
+// without them (the host picks it with has_extra_leaves).  kPools, kRanges
+// unless named, keeps the pool leaf alone (K1P's trees without a range
+// leaf).
+template <bool kRanges = true, bool kPools = kRanges>
 __device__ __forceinline__ uint4 eval_tree(const TreeProg& prog,
                                            const Leaves& leaves, size_t off) {
   uint4 stack[MAX_STACK];
@@ -236,7 +238,7 @@ __device__ __forceinline__ uint4 eval_tree(const TreeProg& prog,
       stack[sp++] = __ldg(leaves.base[code >> 8] + off);
     } else if (kRanges && op == OP_RANGE) {
       eval_range<1>(leaves.range[code >> 8], &off, &stack[sp++]);
-    } else if (kRanges && op == OP_ROWB) {
+    } else if (kPools && op == OP_ROWB) {
       stack[sp++] = load_pool(leaves, code >> 8, off);
     } else if (op == OP_ZERO) {
       stack[sp++] = make_uint4(0u, 0u, 0u, 0u);
@@ -249,7 +251,7 @@ __device__ __forceinline__ uint4 eval_tree(const TreeProg& prog,
 }
 
 // One item of a chain (a row, zero or a range leaf) at U offsets.
-template <int U, bool kRanges = true>
+template <int U, bool kRanges = true, bool kPools = kRanges>
 __device__ __forceinline__ void load_items(int code, const Leaves& leaves,
                                            const size_t* off, uint4* v) {
   const int op = code & 0xff;
@@ -258,7 +260,7 @@ __device__ __forceinline__ void load_items(int code, const Leaves& leaves,
     for (int u = 0; u < U; ++u) v[u] = __ldg(leaves.base[code >> 8] + off[u]);
   } else if (kRanges && op == OP_RANGE) {
     eval_range<U>(leaves.range[code >> 8], off, v);
-  } else if (kRanges && op == OP_ROWB) {
+  } else if (kPools && op == OP_ROWB) {
 #pragma unroll
     for (int u = 0; u < U; ++u) v[u] = load_pool(leaves, code >> 8, off[u]);
   } else {
@@ -271,14 +273,14 @@ __device__ __forceinline__ void load_items(int code, const Leaves& leaves,
 // left-deep form of every n-ary Intersect/Union/Difference/Xor of rows and
 // range conditions.  At most two values are live, so it runs in registers,
 // at U positions per thread whose loads are all in flight together.
-template <int U, bool kRanges = true>
+template <int U, bool kRanges = true, bool kPools = kRanges>
 __device__ __forceinline__ void eval_chain(const TreeProg& prog,
                                            const Leaves& leaves,
                                            const size_t* off, uint4* acc) {
-  load_items<U, kRanges>(prog.ops[0], leaves, off, acc);
+  load_items<U, kRanges, kPools>(prog.ops[0], leaves, off, acc);
   for (int pc = 1; pc < prog.n; pc += 2) {
     uint4 v[U];
-    load_items<U, kRanges>(prog.ops[pc], leaves, off, v);
+    load_items<U, kRanges, kPools>(prog.ops[pc], leaves, off, v);
     const int op = prog.ops[pc + 1];
 #pragma unroll
     for (int u = 0; u < U; ++u) acc[u] = combine4(op, acc[u], v[u]);

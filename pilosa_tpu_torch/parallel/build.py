@@ -32,8 +32,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("count_tree_dense", "count_tree_blocks", "score_rows", "and_popcount_rows",
-           "count_batch_tree", "sum_tree", "minmax_tree", "groupn_tree", "fused_tree")
+KERNELS = ("count_tree_dense", "count_tree_pool", "count_tree_blocks", "score_rows",
+           "and_popcount_rows", "count_batch_tree", "sum_tree", "minmax_tree", "groupn_tree",
+           "fused_tree")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

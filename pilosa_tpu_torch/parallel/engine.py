@@ -1950,11 +1950,12 @@ class TorchEngine:
         unrequested shards, and when the surviving block fraction is at or
         under ``sparse_threshold`` returns ``(blk_bits int64[S],
         bytes_skipped)``: bit b of word s set iff block b of shard s is
-        read.  A tree with a pool leaf takes the dense path (K1 reads only
-        a pool row's occupied blocks anyway), once the partial stack's
-        invariant mask >= occ is checked: a violated one (structurally
-        unreachable) sends the query to the host tier rather than count
-        stale zeros (pilosa_tpu/parallel/engine.py:3150-3162)."""
+        read.  A tree with a pool leaf takes the dense path (there K1P
+        reads only the tree's live blocks, the same in every shard), once
+        the partial stack's invariant mask >= occ is checked: a violated
+        one (structurally unreachable) sends the query to the host tier
+        rather than count stale zeros
+        (pilosa_tpu/parallel/engine.py:3150-3162)."""
         S = len(canonical)
         n_leaves = 0
         pooled = False

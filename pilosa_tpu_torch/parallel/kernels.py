@@ -1,6 +1,6 @@
 """Count(tree) and TopN scoring over field stacks: K1 ``count_tree_dense``,
-K3 ``score_rows`` (with TopN's trim in its last block) and P2
-``and_popcount_rows``, each beside its plain twin.
+K1P ``count_tree_pool``, K3 ``score_rows`` (with TopN's trim in its last
+block) and P2 ``and_popcount_rows``, each beside its plain twin.
 
 The engine lowers a PQL call tree to a normalized program over a list of
 field stacks ``int32[R, S, WORDS]`` (rows major, the canonical shard axis
@@ -31,8 +31,10 @@ the stacks' device.  It replaces the XLA program ``count_tree`` +
 int32; the two agree below 2^31).
 
 For tensors on the card the wrapper launches the hand-written CUDA kernel
-``csrc/count_tree_dense.cu`` and raises if it cannot; for tensors on the
-CPU it evaluates the plain PyTorch version.  Both enforce the same
+``csrc/count_tree_dense.cu`` (K1) and raises if it cannot; a tree with a
+pool leaf launches ``csrc/count_tree_pool.cu`` (K1P) instead, which reads
+only the tree's live blocks (``live_blocks``).  For tensors on the CPU
+each evaluates its plain PyTorch version.  Both enforce the same
 program limits (``check_prog``).  The tree travels to the kernel as a
 postfix program (``compile_prog``), shared with K2 in ``sparse.py``; a
 range leaf carries its stack, plane rows and predicate bits by value
@@ -235,23 +237,30 @@ def pool_row(pool: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     return blocks.permute(1, 0, 2).reshape(pool.shape[1], -1)
 
 
-def eval_prog(prog, mats: Sequence[torch.Tensor], select, slots=None) -> torch.Tensor:
+def eval_prog(prog, mats: Sequence[torch.Tensor], select, slots=None,
+              blocks=None) -> torch.Tensor:
     """Evaluate a normalized tree with ``select(row_words)`` applied to
     every leaf row (the identity for the dense count, a block gather for
     the sparse one) and to every plane a range leaf reads.  ``("zero",)``
     takes the shape of the first leaf.  ``("mref", j)`` reads ``slots[j]``,
-    an evaluated mask slot of a fused program (``fused_slots_plain``)."""
+    an evaluated mask slot of a fused program (``fused_slots_plain``).
+    With ``blocks`` (block indices, ``select`` then the same restriction
+    of a row's words), a pool row is gathered from those blocks' slots
+    only."""
     if prog[0] == "row":
         return select(mats[prog[1]][prog[2]])
     if prog[0] == "rowb":
-        return select(pool_row(mats[prog[1]], mats[prog[2]][prog[3]]))
+        slots_of = mats[prog[2]][prog[3]]
+        if blocks is not None:
+            return pool_row(mats[prog[1]], slots_of[blocks])
+        return select(pool_row(mats[prog[1]], slots_of))
     if prog[0] == "mref":
         return slots[prog[1]]
     if prog[0] == "range":
         _, kind, slot, planes, lo, hi = prog
         return bsi_ops.range_rows(kind, range_planes(mats[slot], planes, select), lo, hi)
     subs = [
-        None if p[0] == "zero" else eval_prog(p, mats, select, slots) for p in prog[1:]
+        None if p[0] == "zero" else eval_prog(p, mats, select, slots, blocks) for p in prog[1:]
     ]
     like = next((s for s in subs if s is not None), None)
     if like is None:
@@ -285,6 +294,48 @@ def count_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> 
     row = eval_prog(prog, mats, lambda words: words)
     if row is None:
         return torch.zeros((), dtype=torch.int64, device=device)
+    return bitops.popcount_words(row[mask != 0]).sum()
+
+
+def live_blocks(prog, mats: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The tree's live word as bool[POOL_BLOCKS]: block b is live where
+    the tree's words can be non-zero in some shard.  A pool leaf is live
+    where its slot is not 0 (the same slot in every shard), a stack row or
+    range leaf everywhere, zero nowhere; ``and`` intersects, ``or`` and
+    ``xor`` unite, ``andnot`` keeps its left side (K1P's prologue,
+    csrc/count_tree_pool.cu)."""
+    kind = prog[0]
+    if kind == "rowb":
+        return mats[prog[2]][prog[3]] != 0
+    if kind in ("row", "range"):
+        return torch.ones(POOL_BLOCKS, dtype=torch.bool, device=device)
+    if kind == "zero":
+        return torch.zeros(POOL_BLOCKS, dtype=torch.bool, device=device)
+    live = live_blocks(prog[1], mats, device)
+    for p in prog[2:]:
+        if kind == "and":
+            live = live & live_blocks(p, mats, device)
+        elif kind != "andnot":
+            live = live | live_blocks(p, mats, device)
+    return live
+
+
+def count_tree_pool_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
+    """K1P's plain version: the live word from the slot table
+    (``live_blocks``), then the masked popcount of the tree over the live
+    blocks of each leaf only (a pool row gathered from those slots).
+    Equal to ``count_tree_plain`` for every tree over full-width rows."""
+    idx = torch.nonzero(live_blocks(prog, mats, mask.device)).flatten()
+    if idx.numel() == 0:  # a zero tree too: nothing is read
+        return torch.zeros((), dtype=torch.int64, device=mask.device)
+
+    def select(words):
+        return words.reshape(words.shape[0], POOL_BLOCKS, POOL_BLOCK_WORDS)[:, idx].reshape(
+            words.shape[0], -1)
+
+    # A non-empty live word means the tree is not made of zero leaves
+    # alone, so eval_prog returns words here, never None.
+    row = eval_prog(prog, mats, select, blocks=idx)
     return bitops.popcount_words(row[mask != 0]).sum()
 
 
@@ -421,31 +472,52 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _TREE_ARGS = [_P, _I, _P, _P, _I, _P, _I]
 
 
-def count_tree_dense(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on the card: returns a 0-d int64 tensor, without waiting
-    for the device."""
+def _count_launch(name: str, code: Postfix, mats: Sequence[torch.Tensor],
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Launch K1 or K1P (kernel library ``name``, the same C arguments) on
+    the card: returns a 0-d int64 tensor, without waiting for the device."""
     if not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 1:
         raise ValueError("mask must be an int32[S] tensor on the card")
     mask = mask.contiguous()
     n_shards = mask.shape[0]
     words = check_stacks(mats, n_shards, code)
-    fn = _lib_fn("count_tree_dense", "count_tree_dense", _TREE_ARGS + [_P, _I, _I, _P, _P])
+    fn = _lib_fn(name, name, _TREE_ARGS + [_P, _I, _I, _P, _P])
     out = torch.zeros(1, dtype=torch.int64, device=mask.device)
     stream = torch.cuda.current_stream(mask.device).cuda_stream
     err = fn(*_c_leaves(code, mats), mask.data_ptr(), n_shards, words, out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"count_tree_dense launch failed: cudaError {err}")
-    count_tree_dense.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     range_leaf(code)
-    pool_leaf(code, "count_tree_dense")
+    pool_leaf(code, name)
     return out[0]
+
+
+def count_tree_dense(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on the card: returns a 0-d int64 tensor, without waiting
+    for the device."""
+    out = _count_launch("count_tree_dense", code, mats, mask)
+    count_tree_dense.launches += 1
+    return out
 
 
 count_tree_dense.launches = 0
 
 
+def count_tree_pool(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
+    """Launch K1P (``csrc/count_tree_pool.cu``) on the card: Count(tree)
+    over only the tree's live blocks (``live_blocks``), for a tree with
+    pool leaves; any tree over full-width rows gives K1's answer.  Returns
+    a 0-d int64 tensor, without waiting for the device."""
+    out = _count_launch("count_tree_pool", code, mats, mask)
+    count_tree_pool.launches += 1
+    return out
+
+
+count_tree_pool.launches = 0
+
+
 def range_leaf(code: Postfix) -> None:
-    """Called by K1, K2 and K3 after a launch: ``range_leaf.launches``
+    """Called by K1, K1P, K2 and K3 after a launch: ``range_leaf.launches``
     counts those whose tree holds a range leaf (csrc/tree_eval.cuh), the
     range leaf's own launch counter."""
     if code.ranges:
@@ -457,7 +529,7 @@ range_leaf.launches = 0
 
 def pool_leaf(code, kernel: str) -> None:
     """Called by every kernel wrapper whose launch may carry pool leaves
-    (K1, K2, K3, K5, K6, K7, K8 and F1) after it launched:
+    (K1, K1P, K2, K3, K5, K6, K7, K8 and F1) after it launched:
     ``pool_leaf.launches`` counts the launches that read a block pool
     (csrc/tree_eval.cuh load_pool, or K5's staging), ``pool_leaf.by_kernel``
     them per kernel."""
@@ -472,13 +544,14 @@ pool_leaf.by_kernel = {}
 
 def count_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
     """Count(tree) over the requested shards (``mask`` int32[S], nonzero =
-    requested).  CUDA tensors launch K1 or raise; CPU tensors take the
-    plain version."""
+    requested).  CUDA tensors launch K1P for a tree with a pool leaf and
+    K1 for any other, or raise; CPU tensors take the matching plain
+    version."""
     code = compile_prog(prog)
     check_prog(code)
     if mask.is_cuda:
-        return count_tree_dense(code, mats, mask)
-    return count_tree_plain(prog, mats, mask)
+        return (count_tree_pool if code.pooled else count_tree_dense)(code, mats, mask)
+    return (count_tree_pool_plain if code.pooled else count_tree_plain)(prog, mats, mask)
 
 
 # -- TopN scoring: K3 score_rows (and the trim in its last block) -----------
