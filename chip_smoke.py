@@ -45,11 +45,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    37 shards, two streams, whole drains (F1 then K6, K7, K3 and K8 on its
    slots) against fused_tree_plain, 17 slots and 33 edges refused; for the
    pool leaf (rowb) in K1, K2, K3, K5, K6, K7, K8 and F1, and K1P
-   count_tree_pool against both count_tree_pool_plain and
-   count_tree_plain: random slot layouts with slot-0 blocks, rows all
+   count_tree_pool, K3P score_rows_pool (scores, src counts, gated totals
+   and the trim, K = 8 and 300) and K6P sum_tree_pool (full and holed
+   planes) against both their pool plain versions and the whole-row
+   ones: random slot layouts with slot-0 blocks, rows all
    zero, slots shared by two rows, a pool of one slot, pool leaves alone
-   and beside stack rows and range leaves, trees whose live word is 0,
-   12 and 37 shards, two streams.  Integer
+   and beside stack rows and range leaves, trees whose live word is 0
+   and trees whose live word is full, 12 and 37 shards, two streams.  Integer
    results, so they must agree exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
@@ -196,8 +198,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    oversubscribed_4x_cold_p50_ms, residency_hit_rate and
    promotion_overlap_mbits_s, K1P's time (rowb_k1p) against its bound
    beside the K1 it replaced, the pool leaf's device time inside K5, F1,
-   K3 and K6 against their leaves' live bytes (pool_leaf_in), and the
-   engine's default budget.
+   K3P and K6P against their leaves' live bytes (pool_leaf_in), the
+   executor's TopN and Sum p50 over the pool rows, K3P and K6P through
+   their wrappers (pool_aggregates: exact against numpy and both plain
+   versions, their times against the bytes of the live blocks beside the
+   whole-row walk of K3 and K6 over the same rows, and both again over a
+   full live word), and the engine's default budget.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -232,7 +238,11 @@ Counts on f with the kernels it puts on the card (8 K1 launches where
 Counts run one by one, one K5 where the run is one count_many), and
 (ab_kernels) K3's full TopN at K = 4096 copying its totals out and
 trimming to 5 and 4096, and K8 at the 8-way, 3-field and filtered
-shapes and at 32 x 32, device ms per launch.  The
+shapes and at 32 x 32, device ms per launch; (ab_pool) K1P, the full
+TopN against a pool row and the Sum under pool rows at the residency
+sweep's shape through the checkout's wrappers (K3P and K6P where it has
+them, K3's and K6's whole-row walk where not); (ab_k1_kr) K1, KR and K6
+at the bsi phase's shape.  The
 result memo is off for every timing loop.  The data,
 queries and loops are this file's, so both trees are measured the same
 way.  Run the trees in turns: parent, change, change, parent.
@@ -1376,13 +1386,18 @@ def check_pool_leaf(device, seed):
     every shard, none and a ragged set; 12 and 37 shards; two streams.
     K1P (count_tree_pool) on the same trees, sizes and masks, and on
     trees whose live word is 0, against both count_tree_pool_plain and
-    count_tree_plain.  Returns max |err|."""
+    count_tree_plain.  K3P (score_rows_pool: the phase-1 scores and src
+    counts, the full TopN's totals and trim) and K6P (sum_tree_pool, full
+    and holed plane sets) on the same trees, sizes and masks, and on dead
+    and full live words, against both their pool plain versions and the
+    whole-row ones; K3P at K = 300 (the trim launch) and on two streams
+    (the totals scratch).  Returns max |err|."""
     import torch
 
     from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
 
     rng = np.random.default_rng(seed + 41)
-    err = {"rowb": 0, "count_tree_pool": 0}
+    err = {"rowb": 0, "count_tree_pool": 0, "score_rows_pool": 0, "sum_tree_pool": 0}
     n = 0
 
     def same(got, want, what, key="rowb"):
@@ -1397,6 +1412,31 @@ def check_pool_leaf(device, seed):
              "count_tree_pool")
         same(got, kernels.count_tree_plain(t, mats, m).reshape(1), f"K1P against K1's plain {what}",
              "count_tree_pool")
+
+    def k3p_same(t, code, mats, m, dense, cand, cnt, what):
+        """K3P's phase 1 and full TopN (totals, and trimmed to 3 and K)
+        against both plain versions."""
+        sc, cn, _ = kernels.score_rows_pool_cuda(code, mats, m, dense, cand, src_counts=True)
+        for plain in (kernels.topn_tree_pool_plain, kernels.topn_tree_plain):
+            ws, wc = plain(t, mats, m, dense, cand)
+            same(sc, ws, f"K3P scores {what} ({plain.__name__})", "score_rows_pool")
+            same(cn, wc, f"K3P src counts {what} ({plain.__name__})", "score_rows_pool")
+        for thr in (1, 1 << 14):
+            for n_out in (None, 3, cand.numel()):
+                got = kernels.score_rows_pool_cuda(code, mats, m, dense, cand, scores=False,
+                                                   cnt=cnt, thr=thr, n_out=n_out)[2]
+                for plain in (kernels.topn_full_tree_pool_plain, kernels.topn_full_tree_plain):
+                    want = plain(t, mats, m, dense, cand, cnt, thr, n_out)
+                    want = want if n_out is None else torch.stack(want)
+                    same(got.reshape(-1), want.reshape(-1),
+                         f"K3P TopN thr={thr} n_out={n_out} {what} ({plain.__name__})",
+                         "score_rows_pool")
+
+    def k6p_same(t, code, mats, m, bst, planes, what):
+        got = bsi.sum_tree_pool_cuda(code, mats, m, bst, planes)
+        for plain in (bsi.sum_tree_pool_plain, bsi.sum_tree_plain):
+            same(got, plain(t, mats, m, bst, planes), f"K6P {what} ({plain.__name__})",
+                 "sum_tree_pool")
 
     for S, P in ((12, 9), (37, 33), (12, 1)):
         pool, table = _pool_case(rng, S, P, 6, device)
@@ -1425,10 +1465,22 @@ def check_pool_leaf(device, seed):
         # under an and) reads nothing and counts 0.
         dead = [("and", rb[1], rb[0]), ("and", ("row", 0, 2), ("and", rb[6], rb[3])),
                 ("andnot", ("and", rb[2], ("zero",)), ("row", 0, 1))]
+        cand8 = torch.tensor([0, 3, 1, 2, 3, 0, 0, 0], dtype=torch.int32, device=device)
+        cnt8 = torch.randint(0, 3 << 15, (8, S), dtype=torch.int32, device=device)
+        holed = tuple(-1 if i == 3 else i for i in range(9))
         for t in [dense_t] + dead + trees:
             code = kernels.compile_prog(t)
             for m in masks:
                 k1p_same(t, code, mats, m, f"{t} S={S} P={P}")
+                k3p_same(t, code, mats, m, dense, cand8, cnt8, f"{t} S={S} P={P}")
+                k6p_same(t, code, mats, m, bst, full if m is masks[2] else holed,
+                         f"{t} S={S} P={P}")
+        # K3P past 256 candidates: the trim is a second launch.
+        big = torch.from_numpy(rng.integers(0, 4, 300).astype(np.int32)).to(device)
+        big_cnt = torch.randint(0, 3 << 15, (300, S), dtype=torch.int32, device=device)
+        for t in (trees[2], trees[8], dead[0]):
+            k3p_same(t, kernels.compile_prog(t), mats, masks[2], dense, big, big_cnt,
+                     f"K=300 {t} S={S} P={P}")
         for t in trees:
             code = kernels.compile_prog(t)
             kernels.check_prog(code)
@@ -1445,8 +1497,8 @@ def check_pool_leaf(device, seed):
             ws, wc = kernels.topn_tree_plain(t, mats, m, dense, cand)
             same(sc, ws, f"K3 scores {t}")
             same(cnt, wc, f"K3 src counts {t}")
-            same(bsi.sum_tree(t, mats, m, bst, full), bsi.sum_tree_plain(t, mats, m, bst, full),
-                 f"K6 {t}")
+            same(bsi.sum_tree_cuda(code, mats, m, bst, full),
+                 bsi.sum_tree_plain(t, mats, m, bst, full), f"K6 {t}")
             for is_min in (True, False):
                 got = bsi.minmax_tree(t, mats, m, bst, full, is_min)
                 want = bsi.minmax_tree_plain(t, mats, m, bst, full, is_min)
@@ -1502,8 +1554,19 @@ def check_pool_leaf(device, seed):
     for i, g in enumerate(outs):
         same(g.reshape(1), kernels.count_tree_pool_plain(t, mats, masks[i % 3]).reshape(1),
              "K1P on two streams", "count_tree_pool")
-    log(f"pool leaf: {n} comparisons exact (rowb in K1, K1P, K2, K3, K5, K6, K7, K8 and F1 "
-        "against their plain versions)")
+    # K3P's full TopN on two streams at once: each stream's totals scratch.
+    outs = []
+    torch.cuda.synchronize()
+    for i in range(8):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            outs.append(kernels.score_rows_pool_cuda(code, mats, masks[i % 3], dense, cand8,
+                                                     scores=False, cnt=cnt8, n_out=3)[2])
+    for i, g in enumerate(outs):
+        want = kernels.topn_full_tree_pool_plain(t, mats, masks[i % 3], dense, cand8, cnt8, 1, 3)
+        same(g.reshape(-1), torch.stack(want).reshape(-1), "K3P on two streams",
+             "score_rows_pool")
+    log(f"pool leaf: {n} comparisons exact (rowb in K1, K1P, K2, K3, K3P, K5, K6, K6P, K7, K8 "
+        "and F1 against their plain versions)")
     return err
 
 
@@ -4217,9 +4280,10 @@ def _path_counts_kept():
     from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
 
     fns = (kernels.count_tree_dense, kernels.count_tree_pool, sparse.count_tree_blocks_cuda,
-           kernels.score_rows_cuda, kernels.count_batch_tree_cuda, bsi.sum_tree_cuda,
-           bsi.minmax_tree_cuda, groupby.groupn_tree_cuda, kernels.fused_tree_cuda,
-           kernels.range_leaf, kernels.pool_leaf)
+           kernels.score_rows_cuda, kernels.score_rows_pool_cuda, kernels.count_batch_tree_cuda,
+           bsi.sum_tree_cuda, bsi.sum_tree_pool_cuda, bsi.minmax_tree_cuda,
+           groupby.groupn_tree_cuda, kernels.fused_tree_cuda, kernels.range_leaf,
+           kernels.pool_leaf)
     saved = [f.launches for f in fns], dict(kernels.pool_leaf.by_kernel)
     try:
         yield
@@ -4279,6 +4343,94 @@ def pool_leaf_in(eng, ex, holder, q8, entries, seg, S):
     return out
 
 
+def pool_aggregates(eng, seg, S, want_top, want_sum):
+    """K3P and K6P on the residency phase's TopN(rt, Row(wf1=2), n=3) and
+    Sum(seg, field=rv), through their wrappers with the engine's own
+    arguments (its lowering, candidates, gates and plane rows): each result
+    against numpy and both plain versions, exactly; then each kernel's
+    times (``measured``) against the bytes it must read, the src or
+    filter's leaves and the candidate rows or planes at the live blocks
+    (``live_leaf_bytes`` and the rows on top), beside the whole-row walk
+    (K3, K6) over the same rows, and the pool plain version's p50.  Then
+    both again over a full live word, the src or filter OR'd with a dense
+    row of rt, where the two walks read the same bytes.  Returns
+    {"k3p": ..., "k6p": ..., "k3p_full": ..., "k6p_full": ...}."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import bsi, kernels
+    from pilosa_tpu_torch.parallel.engine import _Lowering, decode_topn_full
+
+    sync = torch.cuda.synchronize
+    canonical = eng.canonical_shards("rsw")
+    mask = eng._mask_words(list(range(S)), canonical)
+    n_req = int((mask != 0).sum())
+    rt = eng._stacks[("rsw", "rt", "standard")]
+    entry = eng._topn_candidates("rsw", "rt", rt)
+    n_out = min(3, entry.host_cnt.shape[1])
+    vst = eng._stacks[("rsw", "rv", "bsig_rv")]
+    depth = eng._bsi_group("rsw", "rv").bit_depth()
+    planes = eng._plane_spec(vst, depth)
+    n_planes = sum(1 for p in planes if p >= 0)
+    out = {}
+    for tag, src_q, filt_q in (("", "Row(wf1=2)", seg),
+                               ("_full", "Union(Row(wf1=2), Row(rt=0))", f"Union({seg}, Row(rt=1))")):
+        prog, lw = eng._lower_src("rsw", pql.parse(src_q).calls[0], canonical)
+        code = kernels.compile_prog(prog)
+        args = (lw.mats, mask, rt.matrix, entry.cand_idx)
+        full = dict(scores=False, cnt=entry.dev_cnt, thr=1, n_out=n_out)
+        got = kernels.score_rows_pool_cuda(code, *args, **full)[2]
+        for plain in (kernels.topn_full_tree_pool_plain, kernels.topn_full_tree_plain):
+            want = torch.stack(plain(prog, *args, entry.dev_cnt, 1, n_out))
+            _exact("score_rows_pool", got.reshape(-1), want.reshape(-1),
+                   f"residency TopN({src_q}) against {plain.__name__}")
+        host = got.cpu().numpy()
+        pairs = decode_topn_full((host[0], host[1]), entry.cands, n_out)
+        if not tag and pairs != want_top:
+            raise AssertionError(f"residency: K3P TopN {pairs} != numpy {want_top}")
+        n_live = int(kernels.live_blocks(prog, lw.mats, mask.device).sum())
+        byts = live_leaf_bytes(prog, lw.mats, mask) + len(entry.cands) * n_live * n_req * 2048
+        bound = byts / HBM_BYTES_PER_S * 1e3
+        for _ in range(3):
+            kernels.score_rows_pool_cuda(code, *args, **full)
+        sync()
+        t_p = measured(lambda: kernels.score_rows_pool_cuda(code, *args, **full),
+                       "score_rows_pool_kernel", sync, bound_ms=bound)
+        t_w = measured(lambda: kernels.score_rows_cuda(code, *args, **full),
+                       "score_rows_kernel", sync, bound_ms=bound)
+        plain_ms = p50_ms(lambda: kernels.topn_full_tree_pool_plain(
+            prog, *args, entry.dev_cnt, 1, n_out), 3, sync, batch=1)
+        out["k3p" + tag] = {**t_p, "bound_ms": bound, "bytes": byts, "live_blocks": n_live,
+                            "plain_ms": plain_ms, "k3_whole_row": t_w}
+        lw = _Lowering(eng, canonical)
+        fprog = eng._lower("rsw", pql.parse(filt_q).calls[0], lw)
+        fcode = kernels.compile_prog(fprog)
+        fargs = (lw.mats, mask, vst.matrix, planes)
+        got = bsi.sum_tree_pool_cuda(fcode, *fargs)
+        for plain in (bsi.sum_tree_pool_plain, bsi.sum_tree_plain):
+            _exact("sum_tree_pool", got, plain(fprog, *fargs),
+                   f"residency Sum({filt_q}) against {plain.__name__}")
+        total = bsi.decode_sum(got.cpu().numpy(), depth, eng._bsi_group("rsw", "rv").min)
+        if not tag and total != want_sum:
+            raise AssertionError(f"residency: K6P Sum {total} != numpy {want_sum}")
+        n_live = int(kernels.live_blocks(fprog, lw.mats, mask.device).sum())
+        byts = live_leaf_bytes(fprog, lw.mats, mask) + n_planes * n_live * n_req * 2048
+        bound = byts / HBM_BYTES_PER_S * 1e3
+        for _ in range(3):
+            bsi.sum_tree_pool_cuda(fcode, *fargs)
+        sync()
+        t_p = measured(lambda: bsi.sum_tree_pool_cuda(fcode, *fargs), "sum_tree_pool_kernel",
+                       sync, bound_ms=bound)
+        t_w = measured(lambda: bsi.sum_tree_cuda(fcode, *fargs), "sum_tree_kernel", sync,
+                       bound_ms=bound)
+        plain_ms = p50_ms(lambda: bsi.sum_tree_pool_plain(fprog, *fargs), 3, sync, batch=1)
+        out["k6p" + tag] = {**t_p, "bound_ms": bound, "bytes": byts, "live_blocks": n_live,
+                            "plain_ms": plain_ms, "k6_whole_row": t_w}
+    log(f"residency: K3P and K6P against their live bytes, beside the whole-row walk: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def run_residency_path(device, seed, n_shards=N_SHARDS):
     """Tiered residency on the card (docs/residency.md; bench.py
     --residency-sweep at 960 shards): the index is 4x the device budget, so
@@ -4304,7 +4456,7 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     from pilosa_tpu_torch import pql
     from pilosa_tpu_torch.core.holder import Holder
     from pilosa_tpu_torch.executor import Executor
-    from pilosa_tpu_torch.parallel import kernels
+    from pilosa_tpu_torch.parallel import bsi, kernels
     from pilosa_tpu_torch.parallel.engine import TorchEngine, _Lowering
 
     t_phase = time.perf_counter()
@@ -4390,6 +4542,8 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     kernels.pool_leaf.launches = 0
     kernels.pool_leaf.by_kernel.clear()
     kernels.count_tree_pool.launches = 0
+    kernels.score_rows_pool_cuda.launches = 0
+    bsi.sum_tree_pool_cuda.launches = 0
     _zero_launches()
     # 1. Cold: the host lane answers, each stack misses and requests a
     # promotion of the query's rows.
@@ -4513,24 +4667,45 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         raise AssertionError("residency: the fused drain did not launch F1 over pools")
     plans = len(eng._fused_plans)
     assert plans >= 1, "residency: the fused drain's plan was not cached"
-    # 3c. TopN and Sum through the executor: K3 and K6 over a pool row.
+    # 3c. TopN and Sum through the executor: K3P and K6P over a pool row
+    # (the pool leaf's count keeps their launches under K3's and K6's names).
     k3, k6 = (kernels.pool_leaf.by_kernel.get("score_rows", 0),
               kernels.pool_leaf.by_kernel.get("sum_tree", 0))
-    got_top = ex.execute("rsw", "TopN(rt, Row(wf1=2), n=3)").results[0]
-    got_top = [(p.id, p.count) if hasattr(p, "id") else tuple(p) for p in got_top]
-    if got_top != want_top:
-        raise AssertionError(f"residency: TopN {got_top} != numpy {want_top}")
-    vc = ex.execute("rsw", f"Sum({seg}, field=rv)").results[0]
-    if (vc.val, vc.count) != want_sum:
-        raise AssertionError(f"residency: Sum {(vc.val, vc.count)} != numpy {want_sum}")
+    k3p, k6p = kernels.score_rows_pool_cuda.launches, bsi.sum_tree_pool_cuda.launches
+    q_top, q_sum = "TopN(rt, Row(wf1=2), n=3)", f"Sum({seg}, field=rv)"
+
+    def run_top():
+        got = ex.execute("rsw", q_top).results[0]
+        got = [(p.id, p.count) if hasattr(p, "id") else tuple(p) for p in got]
+        if got != want_top:
+            raise AssertionError(f"residency: TopN {got} != numpy {want_top}")
+
+    def run_sum():
+        vc = ex.execute("rsw", q_sum).results[0]
+        if (vc.val, vc.count) != want_sum:
+            raise AssertionError(f"residency: Sum {(vc.val, vc.count)} != numpy {want_sum}")
+
+    run_top()
+    run_sum()
     if card and (kernels.pool_leaf.by_kernel.get("score_rows", 0) == k3
-                 or kernels.pool_leaf.by_kernel.get("sum_tree", 0) == k6):
-        raise AssertionError("residency: TopN/Sum did not launch K3/K6 over a pool row")
+                 or kernels.pool_leaf.by_kernel.get("sum_tree", 0) == k6
+                 or kernels.score_rows_pool_cuda.launches == k3p
+                 or bsi.sum_tree_pool_cuda.launches == k6p):
+        raise AssertionError("residency: TopN/Sum did not launch K3P/K6P over a pool row")
+    # Their end-to-end p50s through Executor.execute (memo off).
+    for name, fn in (("pool_topn_e2e_p50_ms", run_top), ("pool_sum_e2e_p50_ms", run_sum)):
+        times = []
+        for _ in range(RSW_WARM_REPS):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times)
     # 3d. The pool leaf inside K5, F1, K3 and K6 on the calls of 3a-3c:
     # device ms against the bytes of their leaves' live blocks.
     if card:
         with _path_counts_kept():
             out["pool_leaf_in"] = pool_leaf_in(eng, ex, holder, q8, entries, seg, S)
+            out["pool_aggregates"] = pool_aggregates(eng, seg, S, want_top, want_sum)
     # 4. An uncovered row grows the working set and keeps the old rows.
     qg = "Count(Intersect(Row(wf0=30), Row(wf0=31)))"
     wantg = pc_and(w0[30], w0[31])
@@ -4640,6 +4815,11 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     out["pool_leaf_launches"] = dict(kernels.pool_leaf.by_kernel)
     launches = kernels.pool_leaf.launches
     k1p_launches = kernels.count_tree_pool.launches
+    aggs = {"score_rows_pool": (kernels.score_rows_pool_cuda.launches, "k3p"),
+            "sum_tree_pool": (bsi.sum_tree_pool_cuda.launches, "k6p")}
+    if card and not all(n for n, _ in aggs.values()):
+        raise AssertionError(f"residency: K3P or K6P never launched: {aggs}")
+    aggs = {k: (n, out["pool_aggregates"][key] if card else None) for k, (n, key) in aggs.items()}
     for k in ("count_tree_pool", "count_batch_tree", "fused_tree", "score_rows", "sum_tree"):
         if card and not kernels.pool_leaf.by_kernel.get(k):
             raise AssertionError(f"residency: {k} never launched over a pool: "
@@ -4658,9 +4838,11 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         f"{out['oversubscribed_4x_cold_p50_ms']:.4f}, residency_hit_rate "
         f"{out['residency_hit_rate']:.4f}, promotion_overlap_mbits_s "
         f"{out['promotion_overlap_mbits_s']:.1f}; rowb K1P device {t_k1p['device_ms']} ms "
-        f"(K1 {t_k1['device_ms']} ms), bound {bound:.4f} ms; engine_default_budget "
+        f"(K1 {t_k1['device_ms']} ms), bound {bound:.4f} ms; pool_topn_e2e_p50_ms "
+        f"{out['pool_topn_e2e_p50_ms']:.4f}, pool_sum_e2e_p50_ms "
+        f"{out['pool_sum_e2e_p50_ms']:.4f}; engine_default_budget "
         f"{out['engine_default_budget']}; {out['card']}")
-    return out, launches, rowb_times, (k1p_launches,) + k1p_times
+    return out, launches, rowb_times, (k1p_launches,) + k1p_times, aggs
 
 
 def bitops_popcount(words, gate):
@@ -5824,6 +6006,7 @@ def run_ab(root, seed):
     if hasattr(ex, "execute_async"):  # a checkout from before batched serving has none
         out["stream"] = ab_stream(engine, ex, host, seed)
     out["kernels_at"] = ab_kernels(device, seed)
+    out["pool"] = ab_pool(device, seed)
     out["k1_kr"] = ab_k1_kr(engine, holder, seed)
     out.update(root_writes(engine, ex, holder, host, seed))
     out["card"] = card_line()
@@ -5840,7 +6023,7 @@ def ab_k1_kr(engine, holder, seed):
     import torch
 
     from pilosa_tpu_torch import pql
-    from pilosa_tpu_torch.parallel import kernels
+    from pilosa_tpu_torch.parallel import bsi, kernels
     from pilosa_tpu_torch.parallel.engine import _Lowering
 
     sync = torch.cuda.synchronize
@@ -5889,6 +6072,74 @@ def ab_k1_kr(engine, holder, seed):
     out["kr"] = measured(lambda: kernels.count_tree(rprog, lw.mats, mask),
                          "count_tree_dense_kernel", sync,
                          bound_ms=(BSI_DEPTH + 1) * S * W64 * 8 / HBM_BYTES_PER_S * 1e3)
+    # K6 at the bsi phase's shape: Sum(field=v), no filter.
+    vst = engine.field_stack("bench", "v", "bsig_v", canonical)
+    vplanes = engine._plane_spec(vst, BSI_DEPTH)
+    for _ in range(3):
+        bsi.sum_tree(None, [], mask, vst.matrix, vplanes)
+    sync()
+    out["k6"] = measured(lambda: bsi.sum_tree(None, [], mask, vst.matrix, vplanes),
+                         "sum_tree_kernel", sync,
+                         bound_ms=(BSI_DEPTH + 1) * S * W64 * 8 / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def ab_pool(device, seed):
+    """--root's pool items, on tensors made here from the seed at the
+    residency sweep's shape (960 shards, rows in 8 of the 64 blocks): a
+    block pool of 4 rows, 4 candidate rows and an 8-plane BSI stack (7
+    value planes and not-null) with words in those blocks only.  K1P over
+    the Intersect of two pool rows (kernels.count_tree), the full TopN of
+    the 4 candidates against one pool row (kernels.topn_full_tree, n = 3),
+    and the Sum under the Intersect of two pool rows (bsi.sum_tree): each
+    through the checkout's wrapper, so that K3P and K6P show where the
+    checkout has them and K3's and K6's whole-row walk where it has not.
+    Each against its plain version; device ms per call (torch.profiler)."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import bsi, kernels
+
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=device).manual_seed(seed + 14)
+    S, W, live = N_SHARDS, 32768, RSW_BLOCKS * 512
+
+    def rand(shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32, device=device,
+                             generator=gen)
+
+    pool = rand((1 + 4 * RSW_BLOCKS, S, 512))
+    pool[0] = 0
+    table = torch.zeros((4, 64), dtype=torch.int32, device=device)
+    table[:, :RSW_BLOCKS] = 1 + torch.arange(4 * RSW_BLOCKS, dtype=torch.int32,
+                                             device=device).reshape(4, RSW_BLOCKS)
+    cand = torch.zeros((4, S, W), dtype=torch.int32, device=device)
+    cand[:, :, :live] = rand((4, S, live))
+    bst = torch.zeros((8, S, W), dtype=torch.int32, device=device)
+    bst[:, :, :live] = rand((8, S, live))
+    mats = [pool, table]
+    mask = torch.ones(S, dtype=torch.int32, device=device)
+    rb = [("rowb", 0, 1, r) for r in range(4)]
+    seg = ("and", rb[0], rb[1])
+    idx = torch.tensor([0, 1, 2, 3, 0, 0, 0, 0], dtype=torch.int32, device=device)
+    cnt = torch.zeros((8, S), dtype=torch.int32, device=device)
+    cnt[:4] = 1 << 17
+    planes = tuple(range(8))
+    calls = {
+        "k1p": (lambda: kernels.count_tree(seg, mats, mask),
+                lambda: kernels.count_tree_plain(seg, mats, mask), "count_tree_pool"),
+        "k3_pool_src": (lambda: kernels.topn_full_tree(rb[2], mats, mask, cand, idx, cnt, 1, 3),
+                        lambda: torch.stack(kernels.topn_full_tree_plain(
+                            rb[2], mats, mask, cand, idx, cnt, 1, 3)), "score_rows"),
+        "k6_pool_filter": (lambda: bsi.sum_tree(seg, mats, mask, bst, planes),
+                           lambda: bsi.sum_tree_plain(seg, mats, mask, bst, planes), "sum_tree"),
+    }
+    out = {}
+    for name, (fn, plain, kernel) in calls.items():
+        _exact(name, fn().reshape(-1), plain().reshape(-1), "in --root")
+        for _ in range(3):
+            fn()
+        sync()
+        out[name] = device_ms(fn, kernel, per_call=True)
     return out
 
 
@@ -6082,7 +6333,7 @@ def main(argv=None):
     mark("fusion")
     log("http: " + json.dumps(run_http_path(device, holder, engine, host, args.seed)))
     mark("http")
-    res_out, res_launches, (t_rowb, plain_rowb, rowb_bytes), k1p = run_residency_path(
+    res_out, res_launches, (t_rowb, plain_rowb, rowb_bytes), k1p, aggs = run_residency_path(
         device, args.seed)
     log("residency: " + json.dumps(res_out))
     # rowb: the pool leaf inside the kernels, timed in K1 over the same
@@ -6094,6 +6345,13 @@ def main(argv=None):
     kern.append(_entry("count_tree_pool", "pilosa_tpu_torch/csrc/count_tree_pool.cu",
                        "pilosa_tpu/parallel/kernels.py:84", k1p_launches, err["count_tree_pool"],
                        t_k1p, plain_k1p, k1p_bytes, k1p_bytes // 4 * 2, None))
+    # K3P and K6P on the residency phase's TopN and Sum over pool rows:
+    # an AND, a popcount and an add per word read.
+    for name, rep in (("score_rows_pool", "pilosa_tpu/parallel/kernels.py:346"),
+                      ("sum_tree_pool", "pilosa_tpu/parallel/kernels.py:475")):
+        n, t = aggs[name]
+        kern.append(_entry(name, f"pilosa_tpu_torch/csrc/{name[:-5]}.cu", rep, n, err[name], t,
+                           t["plain_ms"], t["bytes"], t["bytes"] // 4 * 3, None))
     mark("residency")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))

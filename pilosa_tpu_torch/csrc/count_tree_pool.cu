@@ -18,14 +18,11 @@
 // Design.
 // 1. The live word.  Block b of a pool row sits in slot slot[b] in every
 //    shard, so which blocks a tree can read is one 64-bit word for all
-//    shards: the tree evaluated on one bit a block, a pool leaf live where
-//    its slot is not 0, a stack row or range leaf live everywhere, zero
-//    dead; `and` intersects, `or`/`xor` unite, `andnot` keeps its left side
-//    (the sparse planner's rules, parallel/engine.py _sparse_plan).  Each
-//    CTA works it out on entry: 64 threads take one block each over the
-//    slot vectors (in device memory, read through the read-only cache), two
-//    warp ballots give the word, and the live blocks are listed in shared
-//    memory.  No host read of the slot table, no extra argument.
+//    shards (tree_eval.cuh block_live).  Each CTA works it out on entry
+//    (tree_eval.cuh live_block_list, shared with K3P and K6P): 64 threads
+//    take one block each over the slot vectors, two warp ballots give the
+//    word, and the live blocks are listed in shared memory.  No host read
+//    of the slot table, no extra argument.
 // 2. The grid covers live work only.  A work item is a (live block, shard)
 //    pair, numbered block-major, so neighbouring items are neighbouring
 //    shards of one block: for a pool leaf, neighbouring 2 KiB in memory
@@ -57,35 +54,6 @@ constexpr int kBlocks = kPoolRowVec / kPoolBlockVec;  // 64 blocks a row
 constexpr int kInFlight = 2;                          // items read together
 constexpr int kMaxShards = 65535;  // keeps a CTA's count within 32 bits
 
-// Whether block b of the tree's words can be non-zero in some shard: the
-// postfix program evaluated on one bit a value, the stack in the bits of a
-// register.
-__device__ __forceinline__ bool block_live(const TreeProg& prog, const Leaves& leaves, int b) {
-  unsigned int stack = 0u;
-  int sp = 0;
-  for (int pc = 0; pc < prog.n; ++pc) {
-    const int code = prog.ops[pc];
-    const int op = code & 0xff;
-    unsigned int v;
-    if (op == OP_LEAF || op == OP_RANGE) {
-      v = 1u;
-    } else if (op == OP_ZERO) {
-      v = 0u;
-    } else if (op == OP_ROWB) {
-      v = __ldg(leaves.slot[code >> 8] + b) != 0 ? 1u : 0u;
-    } else {
-      --sp;
-      const unsigned int right = (stack >> sp) & 1u;
-      const unsigned int left = (stack >> (sp - 1)) & 1u;
-      v = op == OP_AND ? (left & right) : op == OP_ANDNOT ? left : (left | right);
-      --sp;
-    }
-    stack = (stack & ~(1u << sp)) | (v << sp);
-    ++sp;
-  }
-  return stack & 1u;
-}
-
 // The next item at or after i, in steps of `stride`, whose shard is
 // requested (n_items when none is left).
 __device__ __forceinline__ int next_item(int i, int n_items, int n_shards, int stride,
@@ -106,18 +74,9 @@ template <bool kChain, bool kRanges>
 __global__ void __launch_bounds__(kThreads)
     count_tree_pool_kernel(TreeProg prog, Leaves leaves, const int* __restrict__ mask,
                            int n_shards, unsigned long long* __restrict__ out) {
-  __shared__ unsigned int live_half[2];
-  __shared__ int blocks[kBlocks];
-  if (threadIdx.x < kBlocks) {  // warps 0 and 1, whole
-    const unsigned int bits = __ballot_sync(0xffffffffu, block_live(prog, leaves, threadIdx.x));
-    if ((threadIdx.x & 31) == 0) live_half[threadIdx.x >> 5] = bits;
-  }
-  __syncthreads();
-  const unsigned long long live = live_half[0] | ((unsigned long long)live_half[1] << 32);
-  if (threadIdx.x < kBlocks && ((live >> threadIdx.x) & 1ull))
-    blocks[__popcll(live & ((1ull << threadIdx.x) - 1ull))] = threadIdx.x;
-  __syncthreads();
-  const int n_items = __popcll(live) * n_shards;
+  __shared__ LiveBlocks live;
+  const int n_items = live_block_list(prog, leaves, live) * n_shards;
+  const int* blocks = live.block;
   if (n_items == 0) return;  // uniform over the CTA: nothing to read
 
   const int vec = threadIdx.x % kPoolBlockVec;

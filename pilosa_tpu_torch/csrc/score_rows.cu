@@ -72,6 +72,30 @@
 // (fewer of them in flight) and slowed the main loop on an H100.
 // The wrapper keeps one scratch per (device, stream), so launches that
 // share one run one after another.
+//
+// K3P (score_rows_pool): K3 for a src tree with pool leaves, the TopN over
+// a field whose src rows are only partly resident (a block pool,
+// tree_eval.cuh load_pool).  Such a tree can be non-zero only in the
+// blocks of its live word, the same for every shard (tree_eval.cuh
+// block_live), so no other position can add to a score or the src count.
+// Bound: device-memory bytes, the src leaves and the K candidate rows read
+// at the live blocks only: (1 + 4) rows x 8 live blocks x 960 shards x
+// 2 KiB = 78.6 MB, 0.0235 ms at 3.35 TB/s, for the residency sweep's
+// TopN(rt, Row(wf1=2), n=3), where K3 reads the candidate rows whole
+// (503 MB).  Design: K3's grid, cluster split, stores, totals and trim;
+// each block first lists the live blocks in shared memory (tree_eval.cuh
+// live_block_list: 64 threads, two ballots), then walks their n_live * 128
+// uint4 positions in place of the row's 8192, the src evaluated and every
+// candidate of the group read at the same offsets.  At 8 live blocks a
+// thread has 4 positions, so latency, not bytes, decides: K3P takes
+// kGroupPool = 8 candidates a block (K3: 16), which leaves registers for
+// kUnrollPool = 2 positions a thread in flight at once, 18 loads, under
+// the same bound of two CTAs an SM.  (K3's shape, 16 candidates and one
+// position, ran at a third of the bound there; 8 with two positions,
+// about twice as fast, also beat K3 over a full live word.)  A live word
+// of 0 walks nothing: zero scores and src count, stored, and the block
+// still arrives on the totals counter.  K3 itself is the same code with
+// the walk over every position (score_rows_body's kLive false).
 #include "reduce.cuh"
 #include "tree_eval.cuh"
 
@@ -222,16 +246,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kChain, bool kRanges>
-__global__ void __launch_bounds__(kThreads, 2)
-    score_rows_kernel(TreeProg prog, Leaves leaves, const int* __restrict__ mask,
-                      const uint4* __restrict__ cand_base,
-                      const int* __restrict__ cand_idx, int n_cands,
-                      int n_shards, int w4, int* __restrict__ scores,
-                      int* __restrict__ src_counts, Totals totals) {
+// K3P's shape (the module comment): candidates per block and positions of
+// a thread in flight together.
+constexpr int kGroupPool = 8;
+constexpr int kUnrollPool = 2;
+
+// The main loop of K3 (kLive false: every position of the shard's row, one
+// at a time) and of K3P (kLive true: the positions of the src tree's live
+// blocks, tree_eval.cuh live_block_list, kUnrollPool of them a thread at a
+// time, each candidate row read at the same offsets).  kG candidates a
+// block.  kPools compiles the pool leaf in (kRanges for K3, whose host
+// sets it for range and pool leaves alike; always for K3P).
+template <int kG, bool kChain, bool kRanges, bool kLive>
+__device__ __forceinline__ void score_rows_body(
+    const TreeProg& prog, const Leaves& leaves, const int* __restrict__ mask,
+    const uint4* __restrict__ cand_base, const int* __restrict__ cand_idx, int n_cands,
+    int n_shards, int w4, int* __restrict__ scores, int* __restrict__ src_counts,
+    const Totals& totals) {
+  constexpr bool kPools = kLive || kRanges;
   const int s = blockIdx.y;
-  const int k0 = blockIdx.x * kGroup;
-  const int n_here = min(kGroup, n_cands - k0);
+  const int k0 = blockIdx.x * kG;
+  const int n_here = min(kG, n_cands - k0);
   const int chunks = gridDim.z;
   const int chunk = blockIdx.z;  // the block's rank in its cluster
   const int t = threadIdx.x;
@@ -246,41 +281,86 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   const size_t shard_off = (size_t)s * (size_t)w4;
   const size_t row_stride = (size_t)n_shards * (size_t)w4;
-  const uint4* cand[kGroup];
+  const uint4* cand[kG];
 #pragma unroll
-  for (int u = 0; u < kGroup; ++u) {
+  for (int u = 0; u < kG; ++u) {
     const int k = k0 + (u < n_here ? u : 0);
     const int r = cand_idx != nullptr ? cand_idx[k] : k;
     cand[u] = cand_base + (size_t)r * row_stride + shard_off;
   }
-  const int begin = (int)((long long)w4 * chunk / chunks);
-  const int end = (int)((long long)w4 * (chunk + 1) / chunks);
+  // K3P walks the n_live * kPoolBlockVec positions of the live blocks, in
+  // block order; a live word of 0 walks none, so it reads no leaf and no
+  // candidate and stores zeros.
+  __shared__ LiveBlocks live;
+  const int n_pos = kLive ? live_block_list(prog, leaves, live) * kPoolBlockVec : w4;
+  const int begin = (int)((long long)n_pos * chunk / chunks);
+  const int end = (int)((long long)n_pos * (chunk + 1) / chunks);
 
-  unsigned int acc[kGroup + 1];  // the candidates' counts, then the src's
+  unsigned int acc[kG + 1];  // the candidates' counts, then the src's
 #pragma unroll
-  for (int u = 0; u <= kGroup; ++u) acc[u] = 0u;
-  for (int i = begin + t; i < end; i += kThreads) {
-    const size_t off = shard_off + i;
-    uint4 v;
-    if (kChain)
-      eval_chain<1, kRanges>(prog, leaves, &off, &v);
-    else
-      v = eval_tree<kRanges>(prog, leaves, off);
-    acc[kGroup] += popc4(v);
+  for (int u = 0; u <= kG; ++u) acc[u] = 0u;
+  if constexpr (kLive) {
+    // A thread takes kUnrollPool positions kThreads apart at a time, their
+    // loads in flight together; a position past the chunk's end reads the
+    // first one again (from L1) and counts nothing.
+    constexpr int U = kUnrollPool;
+    for (int i = begin + t; i < end; i += U * kThreads) {
+      int pos[U];
+      bool in[U];
 #pragma unroll
-    for (int u = 0; u < kGroup; ++u) {
-      if (u < n_here) {
-        const uint4 c = __ldg(cand[u] + i);
-        acc[u] += popc4(make_uint4(c.x & v.x, c.y & v.y, c.z & v.z, c.w & v.w));
+      for (int q = 0; q < U; ++q) {
+        const int j = i + q * kThreads;
+        in[q] = j < end;
+        const int jj = in[q] ? j : i;
+        pos[q] = live.block[jj / kPoolBlockVec] * kPoolBlockVec + jj % kPoolBlockVec;
+      }
+      size_t off[U];
+#pragma unroll
+      for (int q = 0; q < U; ++q) off[q] = shard_off + pos[q];
+      uint4 v[U];
+      if (kChain) {
+        eval_chain<U, kRanges, true>(prog, leaves, off, v);
+      } else {
+#pragma unroll
+        for (int q = 0; q < U; ++q) v[q] = eval_tree<kRanges, true>(prog, leaves, off[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < U; ++q)
+        if (!in[q]) v[q] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int q = 0; q < U; ++q) acc[kG] += popc4(v[q]);
+#pragma unroll
+      for (int u = 0; u < kG; ++u) {
+        if (u < n_here) {
+#pragma unroll
+          for (int q = 0; q < U; ++q) acc[u] += popc4(and4(__ldg(cand[u] + pos[q]), v[q]));
+        }
+      }
+    }
+  } else {
+    for (int i = begin + t; i < end; i += kThreads) {
+      const size_t off = shard_off + i;
+      uint4 v;
+      if (kChain)
+        eval_chain<1, kRanges, kPools>(prog, leaves, &off, &v);
+      else
+        v = eval_tree<kRanges, kPools>(prog, leaves, off);
+      acc[kG] += popc4(v);
+#pragma unroll
+      for (int u = 0; u < kG; ++u) {
+        if (u < n_here) {
+          const uint4 c = __ldg(cand[u] + i);
+          acc[u] += popc4(make_uint4(c.x & v.x, c.y & v.y, c.z & v.z, c.w & v.w));
+        }
       }
     }
   }
 
-  // The kGroup candidate sums and the src sum over the block, then over a
+  // The kG candidate sums and the src sum over the block, then over a
   // split launch's cluster (reduce.cuh).
-  const unsigned int sum = cluster_sum<kGroup + 1, kThreads>(acc, chunk, chunks);
+  const unsigned int sum = cluster_sum<kG + 1, kThreads>(acc, chunk, chunks);
   if (chunk != 0) return;  // the whole block: only rank 0 stores and arrives
-  if (t == kGroup && src_counts != nullptr && blockIdx.x == 0)
+  if (t == kG && src_counts != nullptr && blockIdx.x == 0)
     src_counts[s] = (int)sum;  // the src count, once per shard (the first group)
   if (t < n_here) {
     const int k = k0 + t;
@@ -292,13 +372,39 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (totals.cnt != nullptr) finish_totals(totals, n_cands, expected);
 }
 
-int launch(const TreeProg& prog, const Leaves& leaves, bool ranges,
+template <bool kChain, bool kRanges>
+__global__ void __launch_bounds__(kThreads, 2)
+    score_rows_kernel(TreeProg prog, Leaves leaves, const int* __restrict__ mask,
+                      const uint4* __restrict__ cand_base,
+                      const int* __restrict__ cand_idx, int n_cands,
+                      int n_shards, int w4, int* __restrict__ scores,
+                      int* __restrict__ src_counts, Totals totals) {
+  score_rows_body<kGroup, kChain, kRanges, false>(prog, leaves, mask, cand_base, cand_idx,
+                                                  n_cands, n_shards, w4, scores, src_counts,
+                                                  totals);
+}
+
+// K3P: K3 over the live blocks of a src tree with pool leaves (w4 is a
+// pool row's kPoolRowVec).
+template <bool kChain, bool kRanges>
+__global__ void __launch_bounds__(kThreads, 2)
+    score_rows_pool_kernel(TreeProg prog, Leaves leaves, const int* __restrict__ mask,
+                           const uint4* __restrict__ cand_base,
+                           const int* __restrict__ cand_idx, int n_cands,
+                           int n_shards, int w4, int* __restrict__ scores,
+                           int* __restrict__ src_counts, Totals totals) {
+  score_rows_body<kGroupPool, kChain, kRanges, true>(prog, leaves, mask, cand_base, cand_idx,
+                                                     n_cands, n_shards, w4, scores, src_counts,
+                                                     totals);
+}
+
+int launch(const TreeProg& prog, const Leaves& leaves, bool ranges, bool live,
            const int* ops, int n_ops, const int* mask, const uint4* cand_base,
            const int* cand_idx, int n_cands, int n_shards, int words,
            int* scores, int* src_counts, const Totals& totals,
            cudaStream_t stream) {
   if (words <= 0 || words % 4 != 0 || n_cands < 0 || n_shards < 0 ||
-      n_shards > 65535 || cand_base == nullptr)
+      n_shards > 65535 || cand_base == nullptr || (live && words != kPoolRowVec * 4))
     return (int)cudaErrorInvalidValue;
   if (totals.cnt != nullptr &&
       (totals.acc == nullptr || n_cands < 1 || n_cands > kMaxCands ||
@@ -307,17 +413,29 @@ int launch(const TreeProg& prog, const Leaves& leaves, bool ranges,
     return (int)cudaErrorInvalidValue;
   if (n_cands == 0 || n_shards == 0) return (int)cudaSuccess;
   const int w4 = words / 4;
-  const int groups = (n_cands + kGroup - 1) / kGroup;
+  const int group = live ? kGroupPool : kGroup;
+  const int groups = (n_cands + group - 1) / group;
   // Split the words only where the (shard, group) blocks cannot fill the
-  // card, and never below one vector per thread.
+  // card, and never below one vector per thread.  K3P splits the same way:
+  // the host cannot know the live word without reading the slot table, so
+  // it splits as for a full row, the most a live word can hold, and each
+  // chunk takes its share of the live positions.  With few live blocks a
+  // chunk then leaves threads idle, but a split happens only for a launch
+  // too small to fill the card, where the prologue's latency decides.
   int chunks = 1;
   const long long want = 2LL * n_sms();
   while ((long long)groups * n_shards * chunks < want && chunks < kMaxChunks &&
          w4 / (2 * chunks) >= kThreads)
     chunks *= 2;
-  auto kernel = is_chain(ops, n_ops)
-                    ? (ranges ? score_rows_kernel<true, true> : score_rows_kernel<true, false>)
-                    : (ranges ? score_rows_kernel<false, true> : score_rows_kernel<false, false>);
+  const bool chain = is_chain(ops, n_ops);
+  auto kernel = live ? (chain ? (ranges ? score_rows_pool_kernel<true, true>
+                                        : score_rows_pool_kernel<true, false>)
+                              : (ranges ? score_rows_pool_kernel<false, true>
+                                        : score_rows_pool_kernel<false, false>))
+                     : (chain ? (ranges ? score_rows_kernel<true, true>
+                                        : score_rows_kernel<true, false>)
+                              : (ranges ? score_rows_kernel<false, true>
+                                        : score_rows_kernel<false, false>));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(groups, n_shards, chunks);
   cfg.blockDim = dim3(kThreads);
@@ -337,6 +455,36 @@ int launch(const TreeProg& prog, const Leaves& leaves, bool ranges,
   if (totals.cnt != nullptr && totals.n_out > 0 && n_cands > kThreads)
     score_rows_trim_kernel<<<1, kThreads, 0, stream>>>(totals, n_cands);
   return (int)cudaGetLastError();
+}
+
+int score_rows_entry(bool live, const void* const* leaf_ptrs, int n_leaves,
+                     const void* ranges, const int* range_rows, int n_ranges, const int* ops,
+                     int n_ops, const void* mask, const void* cand_base, const void* cand_idx,
+                     int n_cands, int n_shards, int words, void* scores, void* src_counts,
+                     const void* cnt, int thr, void* scratch, int n_out, void* out,
+                     void* stream) {
+  TreeProg prog;
+  Leaves leaves;
+  if (!pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops, n_ops, &prog,
+                 &leaves, n_shards))
+    return (int)cudaErrorInvalidValue;
+  Totals totals;
+  totals.cnt = (const int*)cnt;
+  totals.thr = thr;
+  totals.acc = (unsigned long long*)scratch;
+  totals.arrivals =
+      scratch == nullptr ? nullptr
+                         : (unsigned int*)((unsigned long long*)scratch + kMaxCands);
+  totals.n_out = n_out;
+  totals.trimmed = n_out > 0 ? (int*)out : nullptr;
+  totals.all = n_out == 0 ? (long long*)out : nullptr;
+  // K3 compiles range and pool leaves in together; K3P always has the
+  // pool leaf, and the range leaf only where the tree holds one.
+  const bool ranged = live ? n_ranges > 0 : has_extra_leaves(ops, n_ops, n_ranges);
+  return launch(prog, leaves, ranged, live, ops, n_ops, (const int*)mask,
+                (const uint4*)cand_base, (const int*)cand_idx, n_cands,
+                n_shards, words, (int*)scores, (int*)src_counts, totals,
+                (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -361,24 +509,23 @@ extern "C" int score_rows(const void* const* leaf_ptrs, int n_leaves,
                           int n_cands, int n_shards, int words, void* scores,
                           void* src_counts, const void* cnt, int thr,
                           void* scratch, int n_out, void* out, void* stream) {
-  TreeProg prog;
-  Leaves leaves;
-  if (!pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops, n_ops, &prog,
-                 &leaves, n_shards))
-    return (int)cudaErrorInvalidValue;
-  Totals totals;
-  totals.cnt = (const int*)cnt;
-  totals.thr = thr;
-  totals.acc = (unsigned long long*)scratch;
-  totals.arrivals =
-      scratch == nullptr ? nullptr
-                         : (unsigned int*)((unsigned long long*)scratch + kMaxCands);
-  totals.n_out = n_out;
-  totals.trimmed = n_out > 0 ? (int*)out : nullptr;
-  totals.all = n_out == 0 ? (long long*)out : nullptr;
-  return launch(prog, leaves, has_extra_leaves(ops, n_ops, n_ranges), ops, n_ops,
-                (const int*)mask,
-                (const uint4*)cand_base, (const int*)cand_idx, n_cands,
-                n_shards, words, (int*)scores, (int*)src_counts, totals,
-                (cudaStream_t)stream);
+  return score_rows_entry(false, leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops,
+                          n_ops, mask, cand_base, cand_idx, n_cands, n_shards, words, scores,
+                          src_counts, cnt, thr, scratch, n_out, out, stream);
+}
+
+// K3P: score_rows's arguments and outputs, for a src tree with pool
+// leaves; words must be a pool row's full 32768.  Only the src tree's live
+// blocks are read, of its leaves and of every candidate row; any tree over
+// full-width rows gives score_rows's answer.
+extern "C" int score_rows_pool(const void* const* leaf_ptrs, int n_leaves,
+                               const void* ranges, const int* range_rows,
+                               int n_ranges, const int* ops, int n_ops, const void* mask,
+                               const void* cand_base, const void* cand_idx,
+                               int n_cands, int n_shards, int words, void* scores,
+                               void* src_counts, const void* cnt, int thr,
+                               void* scratch, int n_out, void* out, void* stream) {
+  return score_rows_entry(true, leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops,
+                          n_ops, mask, cand_base, cand_idx, n_cands, n_shards, words, scores,
+                          src_counts, cnt, thr, scratch, n_out, out, stream);
 }

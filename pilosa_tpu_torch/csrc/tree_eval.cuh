@@ -1,9 +1,10 @@
 // Shared device code of the kernels that evaluate a tree (K1
 // count_tree_dense.cu, K1P count_tree_pool.cu, K2 count_tree_blocks.cu,
-// K3 score_rows.cu, K6 sum_tree.cu, K7 minmax_tree.cu, K8's filter in
-// groupn_tree.cu, F1 fused_tree.cu): the postfix tree program, the
+// K3/K3P score_rows.cu, K6/K6P sum_tree.cu, K7 minmax_tree.cu, K8's filter
+// in groupn_tree.cu, F1 fused_tree.cu): the postfix tree program, the
 // per-thread tree evaluation over 16-byte word vectors, the BSI range leaf,
-// the block-pool leaf, and the block reduction.
+// the block-pool leaf and a pool tree's live blocks, and the block
+// reduction.
 //
 // A normalized count tree (leaves: a row of a field stack, a row of a block
 // pool, zero, or a BSI range condition; nodes: and / or / andnot / xor)
@@ -81,6 +82,7 @@ struct RangeLeaf {
 // rows are always full width (W = 32768 words, 8192 uint4 per shard).
 constexpr int kPoolBlockVec = 128;  // uint4 per 2 KiB block
 constexpr int kPoolRowVec = 8192;   // uint4 per [W] row of one shard
+constexpr int kPoolBlocks = kPoolRowVec / kPoolBlockVec;  // 64 blocks a row
 
 // Base of each leaf row (that row's [S, W] words in its field stack; for an
 // OP_ROWB leaf the pool's slot 0), its slot vector (OP_ROWB leaves only, a
@@ -108,6 +110,72 @@ __device__ __forceinline__ uint4 load_pool(const Leaves& leaves, int k, size_t o
   return __ldg(leaves.base[k] +
                ((size_t)slot * leaves.pool_shards + s) * kPoolBlockVec +
                (w % kPoolBlockVec));
+}
+
+// The live word (K1P count_tree_pool.cu, K3P score_rows.cu, K6P
+// sum_tree.cu).  Block b of a pool row sits in slot slot[b] in every
+// shard, so which blocks a tree can make non-zero is one 64-bit word for
+// all shards: the tree evaluated on one bit a block, a pool leaf live where
+// its slot is not 0, a stack row or range leaf live everywhere, zero dead;
+// `and` intersects, `or`/`xor` unite, `andnot` keeps its left side (the
+// sparse planner's rules, parallel/engine.py _sparse_plan; on the host,
+// parallel/kernels.py live_blocks).
+
+// Whether block b of the tree's words can be non-zero in some shard: the
+// postfix program evaluated on one bit a value, the stack in the bits of a
+// register.
+__device__ __forceinline__ bool block_live(const TreeProg& prog, const Leaves& leaves, int b) {
+  unsigned int stack = 0u;
+  int sp = 0;
+  for (int pc = 0; pc < prog.n; ++pc) {
+    const int code = prog.ops[pc];
+    const int op = code & 0xff;
+    unsigned int v;
+    if (op == OP_LEAF || op == OP_RANGE) {
+      v = 1u;
+    } else if (op == OP_ZERO) {
+      v = 0u;
+    } else if (op == OP_ROWB) {
+      v = __ldg(leaves.slot[code >> 8] + b) != 0 ? 1u : 0u;
+    } else {
+      --sp;
+      const unsigned int right = (stack >> sp) & 1u;
+      const unsigned int left = (stack >> (sp - 1)) & 1u;
+      v = op == OP_AND ? (left & right) : op == OP_ANDNOT ? left : (left | right);
+      --sp;
+    }
+    stack = (stack & ~(1u << sp)) | (v << sp);
+    ++sp;
+  }
+  return stack & 1u;
+}
+
+// A CTA's live blocks, in shared memory: the live word's two ballots, and
+// the live blocks in ascending order.
+struct LiveBlocks {
+  unsigned int half[2];
+  int block[kPoolBlocks];
+};
+
+// The CTA's prologue: threads 0..63 (warps 0 and 1, whole) take one block
+// each over the slot vectors (in device memory, read through the read-only
+// cache), two warp ballots give the live word, and the live blocks are
+// listed in `live` (the caller's shared memory).  Returns how many are
+// live, the same in every thread.  No host read of the slot table, no
+// extra argument.  Every thread of a CTA of at least kPoolBlocks threads
+// must call it (two barriers).
+__device__ __forceinline__ int live_block_list(const TreeProg& prog, const Leaves& leaves,
+                                               LiveBlocks& live) {
+  if (threadIdx.x < kPoolBlocks) {
+    const unsigned int bits = __ballot_sync(0xffffffffu, block_live(prog, leaves, threadIdx.x));
+    if ((threadIdx.x & 31) == 0) live.half[threadIdx.x >> 5] = bits;
+  }
+  __syncthreads();
+  const unsigned long long word = live.half[0] | ((unsigned long long)live.half[1] << 32);
+  if (threadIdx.x < kPoolBlocks && ((word >> threadIdx.x) & 1ull))
+    live.block[__popcll(word & ((1ull << threadIdx.x) - 1ull))] = threadIdx.x;
+  __syncthreads();
+  return __popcll(word);
 }
 
 __device__ __forceinline__ uint4 and4(uint4 a, uint4 b) {

@@ -11,7 +11,9 @@ None means every column.  The mask is the requested-shard gate int32[S].
 - ``sum_tree`` -> int64[depth + 1]: popcount(plane_i & notnull & filter
   & mask) per value plane, then the considered count; ``decode_sum`` turns
   it into (total, count) with Python ints.  It replaces the XLA program
-  ``pilosa_tpu/parallel/kernels.py:474 sum_tree``.
+  ``pilosa_tpu/parallel/kernels.py:474 sum_tree``.  A filter with a pool
+  leaf launches K6P (``sum_tree_pool`` in the same source), which reads
+  the filter's leaves and the planes at the filter's live blocks only.
 - ``minmax_tree`` -> (values int64[S], counts int64[S]): per shard the
   extreme value among the considered columns and how many hold it (count
   0: none); ``decode_min_max`` reduces the shards in canonical order.  It
@@ -49,6 +51,21 @@ def sum_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
     return torch.cat([counts, n.reshape(1)])
 
 
+def sum_tree_pool_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                        plane_mat: torch.Tensor, planes) -> torch.Tensor:
+    """K6P's plain version: ``sum_tree_plain``'s counts from the filter
+    tree's live blocks alone (``kernels.live_blocks``), the filter's leaves
+    and every plane read there only.  Equal to ``sum_tree_plain`` for every
+    filter over full-width rows."""
+    idx, select = kernels.live_select(prog, mats, mask.device)
+    if idx.numel() == 0:  # a zero filter too: nothing is read
+        return torch.zeros(len(planes), dtype=torch.int64, device=mask.device)
+    p = kernels.range_planes(plane_mat, planes, select)
+    f = kernels.eval_prog(prog, mats, select, blocks=idx)
+    counts, n = bsi_ops.sum_counts(p, torch.where(mask[:, None] != 0, f, torch.zeros_like(f)))
+    return torch.cat([counts, n.reshape(1)])
+
+
 def minmax_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
                       plane_mat: torch.Tensor, planes, is_min: bool):
     """(values int64[S], counts int64[S]) in plain PyTorch ops: the CPU
@@ -69,24 +86,49 @@ def _launch_args(code: Optional[kernels.Postfix], mats, mask: torch.Tensor,
     return tree, kernels.c_planes(plane_mat, planes), S, W
 
 
-def sum_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
-                  mask: torch.Tensor, plane_mat: torch.Tensor, planes) -> torch.Tensor:
-    """Launch K6 on the card, on the current stream, without waiting for
-    the device: int64[depth + 1]."""
+def _sum_launch(entry: str, code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                mask: torch.Tensor, plane_mat: torch.Tensor, planes) -> torch.Tensor:
+    """Launch K6 or K6P (C entry ``entry`` of the sum_tree library, the
+    same arguments): int64[depth + 1]."""
     tree, pl, S, W = _launch_args(code, mats, mask, plane_mat, planes)
     out = torch.zeros(len(planes), dtype=torch.int64, device=mask.device)
-    fn = kernels._lib_fn("sum_tree", "sum_tree", _TREE_ARGS + [_P, _I, _P, _I, _I, _P, _P])
+    fn = kernels._lib_fn("sum_tree", entry, _TREE_ARGS + [_P, _I, _P, _I, _I, _P, _P])
     err = fn(*tree, ctypes.byref(pl), plane_mat.shape[0], mask.contiguous().data_ptr(), S, W,
              out.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sum_tree launch failed: cudaError {err}")
-    sum_tree_cuda.launches += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     if code is not None:
         kernels.pool_leaf(code, "sum_tree")
     return out
 
 
+def sum_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                  mask: torch.Tensor, plane_mat: torch.Tensor, planes) -> torch.Tensor:
+    """Launch K6 on the card, on the current stream, without waiting for
+    the device: int64[depth + 1]."""
+    out = _sum_launch("sum_tree", code, mats, mask, plane_mat, planes)
+    sum_tree_cuda.launches += 1
+    return out
+
+
 sum_tree_cuda.launches = 0
+
+
+def sum_tree_pool_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
+                       mask: torch.Tensor, plane_mat: torch.Tensor, planes) -> torch.Tensor:
+    """Launch K6P (``csrc/sum_tree.cu`` sum_tree_pool) on the card:
+    ``sum_tree_cuda``'s result for a filter tree with pool leaves, the
+    filter's leaves and the planes read at its live blocks only
+    (``kernels.live_blocks``); any filter over full-width rows gives K6's
+    answer.  Rows are the full WORDS wide; a filter is required."""
+    if code is None:
+        raise ValueError("K6P takes a filter tree")
+    out = _sum_launch("sum_tree_pool", code, mats, mask, plane_mat, planes)
+    sum_tree_pool_cuda.launches += 1
+    return out
+
+
+sum_tree_pool_cuda.launches = 0
 
 
 def minmax_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
@@ -122,12 +164,16 @@ def _compiled(prog) -> Optional[kernels.Postfix]:
 
 def sum_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
              plane_mat: torch.Tensor, planes) -> torch.Tensor:
-    """BSI Sum's counts: int64[depth + 1].  CUDA tensors launch K6 or
-    raise; CPU tensors take the plain version."""
+    """BSI Sum's counts: int64[depth + 1].  CUDA tensors launch K6P for a
+    filter with a pool leaf and K6 for any other (or no filter), or raise;
+    CPU tensors take the matching plain version."""
     code = _compiled(prog)
+    pooled = code is not None and code.pooled
     if mask.is_cuda:
-        return sum_tree_cuda(code, mats, mask, plane_mat, planes)
-    return sum_tree_plain(prog, mats, mask, plane_mat, planes)
+        return (sum_tree_pool_cuda if pooled else sum_tree_cuda)(code, mats, mask, plane_mat,
+                                                                 planes)
+    return (sum_tree_pool_plain if pooled else sum_tree_plain)(prog, mats, mask, plane_mat,
+                                                               planes)
 
 
 def minmax_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,

@@ -43,8 +43,11 @@ leaf table.
 
 ``topn_tree`` and ``topn_full_tree`` (TopN, below) take the same src tree
 and wrap K3 ``csrc/score_rows.cu`` the same way: a CUDA tensor launches
-or raises, a CPU tensor takes the plain version.  A full TopN is one K3
-launch: its last block ranks the totals and writes the top n.  P2 ``csrc/and_popcount_rows.cu`` scores one fragment's rows,
+or raises, a CPU tensor takes the plain version; a src tree with a pool
+leaf launches K3P (``score_rows_pool`` in the same source), which reads
+the src leaves and the candidate rows at the tree's live blocks only.  A
+full TopN is one K3 launch: its last block ranks the totals and writes
+the top n.  P2 ``csrc/and_popcount_rows.cu`` scores one fragment's rows,
 named by index, against one src row (``bitops.popcount_and_rows``).
 
 ``count_batch_tree`` (K Counts in one launch, below) compiles a batch of
@@ -320,19 +323,27 @@ def live_blocks(prog, mats: Sequence[torch.Tensor], device) -> torch.Tensor:
     return live
 
 
-def count_tree_pool_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
-    """K1P's plain version: the live word from the slot table
-    (``live_blocks``), then the masked popcount of the tree over the live
-    blocks of each leaf only (a pool row gathered from those slots).
-    Equal to ``count_tree_plain`` for every tree over full-width rows."""
-    idx = torch.nonzero(live_blocks(prog, mats, mask.device)).flatten()
-    if idx.numel() == 0:  # a zero tree too: nothing is read
-        return torch.zeros((), dtype=torch.int64, device=mask.device)
+def live_select(prog, mats, device):
+    """The tree's live blocks (``live_blocks``) as an index tensor, and
+    the restriction of a row's words int32[S, W] to them, int32[S,
+    n_live * POOL_BLOCK_WORDS]."""
+    idx = torch.nonzero(live_blocks(prog, mats, device)).flatten()
 
     def select(words):
         return words.reshape(words.shape[0], POOL_BLOCKS, POOL_BLOCK_WORDS)[:, idx].reshape(
             words.shape[0], -1)
 
+    return idx, select
+
+
+def count_tree_pool_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
+    """K1P's plain version: the live word from the slot table
+    (``live_blocks``), then the masked popcount of the tree over the live
+    blocks of each leaf only (a pool row gathered from those slots).
+    Equal to ``count_tree_plain`` for every tree over full-width rows."""
+    idx, select = live_select(prog, mats, mask.device)
+    if idx.numel() == 0:  # a zero tree too: nothing is read
+        return torch.zeros((), dtype=torch.int64, device=mask.device)
     # A non-empty live word means the tree is not made of zero leaves
     # alone, so eval_prog returns words here, never None.
     row = eval_prog(prog, mats, select, blocks=idx)
@@ -517,7 +528,7 @@ count_tree_pool.launches = 0
 
 
 def range_leaf(code: Postfix) -> None:
-    """Called by K1, K1P, K2 and K3 after a launch: ``range_leaf.launches``
+    """Called by K1, K1P, K2, K3 and K3P after a launch: ``range_leaf.launches``
     counts those whose tree holds a range leaf (csrc/tree_eval.cuh), the
     range leaf's own launch counter."""
     if code.ranges:
@@ -529,7 +540,8 @@ range_leaf.launches = 0
 
 def pool_leaf(code, kernel: str) -> None:
     """Called by every kernel wrapper whose launch may carry pool leaves
-    (K1, K1P, K2, K3, K5, K6, K7, K8 and F1) after it launched:
+    (K1, K1P, K2, K3, K3P, K5, K6, K6P, K7, K8 and F1) after it launched
+    (K3P under "score_rows", K6P under "sum_tree"):
     ``pool_leaf.launches`` counts the launches that read a block pool
     (csrc/tree_eval.cuh load_pool, or K5's staging), ``pool_leaf.by_kernel``
     them per kernel."""
@@ -574,13 +586,15 @@ def _src_plain(prog, mats, mask: torch.Tensor, like: torch.Tensor) -> torch.Tens
     return torch.where(mask[:, None] != 0, row, torch.zeros_like(row))
 
 
-def _scores_plain(cand_mat: torch.Tensor, cand_idx, src: torch.Tensor) -> torch.Tensor:
+def _scores_plain(cand_mat: torch.Tensor, cand_idx, src: torch.Tensor,
+                  select=lambda words: words) -> torch.Tensor:
     """int32[K, S] scores, one candidate at a time, so the int64 popcount
-    temporaries stay the size of one [S, W] row stack."""
+    temporaries stay the size of one [S, W] row stack; ``select`` restricts
+    a candidate row to the words ``src`` holds (K3P's live blocks)."""
     rows = [int(r) for r in cand_idx]
     out = torch.zeros((len(rows), src.shape[0]), dtype=torch.int32, device=src.device)
     for k, r in enumerate(rows):
-        out[k] = bitops.popcount_words(torch.bitwise_and(cand_mat[r], src)).sum(dim=-1)
+        out[k] = bitops.popcount_words(torch.bitwise_and(select(cand_mat[r]), src)).sum(dim=-1)
     return out
 
 
@@ -598,6 +612,30 @@ def topn_tree_plain(prog, mats, mask, cand_mat, cand_idx):
     return _scores_plain(cand_mat, cand_idx.tolist(), src), counts
 
 
+def _src_pool_plain(prog, mats, mask, cand_mat):
+    """K3P's plain src: the masked src tree over its live blocks only
+    int32[S, n_live * POOL_BLOCK_WORDS] (a pool row gathered from those
+    slots), and the restriction that reads a candidate row there."""
+    idx, select = live_select(prog, mats, mask.device)
+    S = cand_mat.shape[1]
+    if idx.numel() == 0:  # a zero tree too: no leaf is read
+        return torch.zeros((S, 0), dtype=torch.int32, device=mask.device), select
+    # A non-empty live word means the tree is not made of zero leaves
+    # alone, so eval_prog returns words here, never None.
+    row = eval_prog(prog, mats, select, blocks=idx)
+    return torch.where(mask[:, None] != 0, row, torch.zeros_like(row)), select
+
+
+def topn_tree_pool_plain(prog, mats, mask, cand_mat, cand_idx):
+    """K3P's plain version of phase 1: (scores int32[K, S], src_counts
+    int32[S]) from the src tree's live blocks alone (``live_blocks``),
+    each candidate row read there only.  Equal to ``topn_tree_plain`` for
+    every tree over full-width rows."""
+    src, select = _src_pool_plain(prog, mats, mask, cand_mat)
+    counts = bitops.popcount_words(src).sum(dim=-1).to(torch.int32)
+    return _scores_plain(cand_mat, cand_idx.tolist(), src, select), counts
+
+
 def topn_trim_plain(totals: torch.Tensor, n_out: int):
     """The top ``n_out`` of ``totals`` int64[K] as (vals int32, idx int32),
     value descending and the lower index first on ties (jax.lax.top_k's
@@ -607,17 +645,27 @@ def topn_trim_plain(totals: torch.Tensor, n_out: int):
     return totals[order].to(torch.int32), order.to(torch.int32)
 
 
-def topn_full_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr: int, n_out):
-    """Gated totals int64[K] (row count and score both >= thr per shard,
-    summed over shards), trimmed to (vals, idx) of length ``n_out`` unless
-    ``n_out`` is None, in plain PyTorch ops."""
-    src = _src_plain(prog, mats, mask, cand_mat)
-    scores = _scores_plain(cand_mat, cand_idx.tolist(), src)
+def _gated_totals(scores, cnt, thr, n_out):
     gate = (cnt >= thr) & (scores >= thr)
     totals = torch.where(gate, scores, torch.zeros_like(scores)).sum(dim=1, dtype=torch.int64)
     if n_out is None:
         return totals
     return topn_trim_plain(totals, n_out)
+
+
+def topn_full_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr: int, n_out):
+    """Gated totals int64[K] (row count and score both >= thr per shard,
+    summed over shards), trimmed to (vals, idx) of length ``n_out`` unless
+    ``n_out`` is None, in plain PyTorch ops."""
+    src = _src_plain(prog, mats, mask, cand_mat)
+    return _gated_totals(_scores_plain(cand_mat, cand_idx.tolist(), src), cnt, thr, n_out)
+
+
+def topn_full_tree_pool_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr: int, n_out):
+    """K3P's plain version of the full TopN: ``topn_full_tree_plain``'s
+    gated totals and trim over the scores of ``topn_tree_pool_plain``."""
+    src, select = _src_pool_plain(prog, mats, mask, cand_mat)
+    return _gated_totals(_scores_plain(cand_mat, cand_idx.tolist(), src, select), cnt, thr, n_out)
 
 
 _SCORE_ROWS_ARGS = _TREE_ARGS + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P]
@@ -653,21 +701,12 @@ def _on_card_int32(t: torch.Tensor, name: str, shape) -> torch.Tensor:
     return t.contiguous()
 
 
-def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
-                    mask: Optional[torch.Tensor], cand_mat: torch.Tensor,
-                    cand_idx: Optional[torch.Tensor], *, scores: bool = True,
-                    src_counts: bool = False, cnt: Optional[torch.Tensor] = None,
-                    thr: int = 1, n_out: Optional[int] = None):
-    """Launch K3 on the card, on the current stream, without waiting for
-    the device.  Returns ``(scores int32[K, S] | None, src_counts int32[S]
-    | None, result)``.  With ``cnt`` int32[K, S] (1 <= K <= TOTALS_MAX)
-    the launch also gates and sums TopN's totals, and its last block
-    writes ``result``: the totals int64[K] when ``n_out`` is None, else
-    their top ``n_out`` (1 <= n_out <= K) as int32[2, n_out], values then
-    candidate indices, value descending and the lower index first on
-    ties (past 256 candidates the trim is a second launch of one block
-    on the same stream).  ``mask`` None requests every shard,
-    ``cand_idx`` None names stack rows 0..K-1."""
+def _score_rows_launch(entry: str, code: Postfix, mats: Sequence[torch.Tensor],
+                       mask: Optional[torch.Tensor], cand_mat: torch.Tensor,
+                       cand_idx: Optional[torch.Tensor], scores: bool, src_counts: bool,
+                       cnt: Optional[torch.Tensor], thr: int, n_out: Optional[int]):
+    """Launch K3 or K3P (C entry ``entry`` of the score_rows library, the
+    same arguments): score_rows_cuda's checks, outputs and result."""
     if cand_mat.dtype != torch.int32 or cand_mat.dim() != 3 or not cand_mat.is_contiguous():
         raise ValueError("cand_mat must be a contiguous int32[R, S, W] tensor")
     if not cand_mat.is_cuda:
@@ -702,24 +741,66 @@ def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
         scratch = _totals_scratch_for(dev, stream)
         result = (torch.empty(K, dtype=torch.int64, device=dev) if n_out is None
                   else torch.empty((2, n_out), dtype=torch.int32, device=dev))
-    fn = _lib_fn("score_rows", "score_rows", _SCORE_ROWS_ARGS)
+    fn = _lib_fn("score_rows", entry, _SCORE_ROWS_ARGS)
     err = fn(
         *_c_leaves(code, mats), _ptr(mask), cand_mat.data_ptr(), _ptr(cand_idx), K, S, W,
         _ptr(out_scores), _ptr(out_src), _ptr(cnt), int(thr), _ptr(scratch), n_out or 0,
         _ptr(result), stream,
     )
     if err != 0:
-        raise RuntimeError(f"score_rows launch failed: cudaError {err}")
-    score_rows_cuda.launches += 1
-    if cnt is not None and n_out is not None:
-        score_rows_cuda.trims += 1  # a call that trims its totals
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     range_leaf(code)
     pool_leaf(code, "score_rows")
     return out_scores, out_src, result
 
 
+def score_rows_cuda(code: Postfix, mats: Sequence[torch.Tensor],
+                    mask: Optional[torch.Tensor], cand_mat: torch.Tensor,
+                    cand_idx: Optional[torch.Tensor], *, scores: bool = True,
+                    src_counts: bool = False, cnt: Optional[torch.Tensor] = None,
+                    thr: int = 1, n_out: Optional[int] = None):
+    """Launch K3 on the card, on the current stream, without waiting for
+    the device.  Returns ``(scores int32[K, S] | None, src_counts int32[S]
+    | None, result)``.  With ``cnt`` int32[K, S] (1 <= K <= TOTALS_MAX)
+    the launch also gates and sums TopN's totals, and its last block
+    writes ``result``: the totals int64[K] when ``n_out`` is None, else
+    their top ``n_out`` (1 <= n_out <= K) as int32[2, n_out], values then
+    candidate indices, value descending and the lower index first on
+    ties (past 256 candidates the trim is a second launch of one block
+    on the same stream).  ``mask`` None requests every shard,
+    ``cand_idx`` None names stack rows 0..K-1."""
+    out = _score_rows_launch("score_rows", code, mats, mask, cand_mat, cand_idx, scores,
+                             src_counts, cnt, thr, n_out)
+    score_rows_cuda.launches += 1
+    if cnt is not None and n_out is not None:
+        score_rows_cuda.trims += 1  # a call that trims its totals
+    return out
+
+
 score_rows_cuda.launches = 0
 score_rows_cuda.trims = 0
+
+
+def score_rows_pool_cuda(code: Postfix, mats: Sequence[torch.Tensor],
+                         mask: Optional[torch.Tensor], cand_mat: torch.Tensor,
+                         cand_idx: Optional[torch.Tensor], *, scores: bool = True,
+                         src_counts: bool = False, cnt: Optional[torch.Tensor] = None,
+                         thr: int = 1, n_out: Optional[int] = None):
+    """Launch K3P (``csrc/score_rows.cu`` score_rows_pool) on the card:
+    ``score_rows_cuda``'s arguments and outputs, for a src tree with pool
+    leaves, reading the src leaves and the candidate rows at the tree's
+    live blocks only (``live_blocks``); any tree over full-width rows
+    gives K3's answer.  Rows are the full WORDS wide."""
+    out = _score_rows_launch("score_rows_pool", code, mats, mask, cand_mat, cand_idx, scores,
+                             src_counts, cnt, thr, n_out)
+    score_rows_pool_cuda.launches += 1
+    if cnt is not None and n_out is not None:
+        score_rows_pool_cuda.trims += 1
+    return out
+
+
+score_rows_pool_cuda.launches = 0
+score_rows_pool_cuda.trims = 0
 
 
 # P2 carries up to this many row indices in its launch parameters
@@ -779,15 +860,17 @@ def score_rows(cands: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 def topn_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
               cand_mat: torch.Tensor, cand_idx: torch.Tensor):
     """TopN phase 1: (scores int32[K, S], src_counts int32[S]) of the
-    candidates against the masked src tree.  CUDA tensors launch K3 or
-    raise; CPU tensors take the plain version."""
+    candidates against the masked src tree.  CUDA tensors launch K3P for
+    a src tree with a pool leaf and K3 for any other, or raise; CPU
+    tensors take the matching plain version."""
     code = compile_prog(prog)
     check_prog(code)
     if mask.is_cuda:
-        scores, counts, _ = score_rows_cuda(code, mats, mask, cand_mat, cand_idx,
-                                            src_counts=True)
+        launch = score_rows_pool_cuda if code.pooled else score_rows_cuda
+        scores, counts, _ = launch(code, mats, mask, cand_mat, cand_idx, src_counts=True)
         return scores, counts
-    return topn_tree_plain(prog, mats, mask, cand_mat, cand_idx)
+    plain = topn_tree_pool_plain if code.pooled else topn_tree_plain
+    return plain(prog, mats, mask, cand_mat, cand_idx)
 
 
 def topn_full_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
@@ -796,15 +879,18 @@ def topn_full_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
     """Full TopN: per-shard gates (row count >= thr and score >= thr),
     totals over shards, and their top ``n_out`` as int32[2, n_out] (values,
     then candidate indices) — or the int64[K] totals when ``n_out`` is
-    None.  CUDA tensors launch K3 once (its last block trims), or raise;
-    CPU tensors take the plain version."""
+    None.  CUDA tensors launch K3 once (its last block trims), K3P for a
+    src tree with a pool leaf, or raise; CPU tensors take the matching
+    plain version."""
     code = compile_prog(prog)
     check_prog(code)
     if not mask.is_cuda:
-        out = topn_full_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr, n_out)
+        plain = topn_full_tree_pool_plain if code.pooled else topn_full_tree_plain
+        out = plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr, n_out)
         return out if n_out is None else torch.stack(out)
-    return score_rows_cuda(code, mats, mask, cand_mat, cand_idx, scores=False,
-                           cnt=cnt, thr=thr, n_out=n_out)[2]
+    launch = score_rows_pool_cuda if code.pooled else score_rows_cuda
+    return launch(code, mats, mask, cand_mat, cand_idx, scores=False, cnt=cnt, thr=thr,
+                  n_out=n_out)[2]
 
 
 # -- K Counts in one launch: K5 count_batch_tree ------------------------------
