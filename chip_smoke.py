@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--check-only | --root DIR]
+    python3 chip_smoke.py [--seed N] [--check-only | --root DIR | --sass DIR]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -46,13 +46,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    slots) against fused_tree_plain, 17 slots and 33 edges refused; for the
    pool leaf (rowb) in K1, K2, K3, K5, K6, K7, K8 and F1, and K1P
    count_tree_pool, K3P score_rows_pool (scores, src counts, gated totals
-   and the trim, K = 8 and 300) and K6P sum_tree_pool (full and holed
-   planes) against both their pool plain versions and the whole-row
-   ones: random slot layouts with slot-0 blocks, rows all
-   zero, slots shared by two rows, a pool of one slot, pool leaves alone
-   and beside stack rows and range leaves, trees whose live word is 0
-   and trees whose live word is full, 12 and 37 shards, two streams.  Integer
-   results, so they must agree exactly.  --check-only stops here.
+   and the trim, K = 8 and 300), K6P sum_tree_pool (full and holed
+   planes), K5P count_batch_tree_pool (K = 1, 9, 65, 301 staged, 8 and
+   300 over more than 128 distinct rows, the direct path; a fan-out) and
+   F1P fused_tree_pool (counts, its pool and table against
+   fused_mat_pool_plain block for block, with and without a need subset
+   that leaves out shard 0; whole drains with every edge kind over its
+   pool rows, K3P's trim at K = 300) against both their pool plain
+   versions and the whole-row ones: random slot layouts with slot-0
+   blocks, rows all zero, slots shared by two rows, a pool of one slot,
+   pool leaves alone and beside stack rows and range leaves, mref chains,
+   trees and slots whose live word is 0 and whose live word is full, 12
+   and 37 shards, two streams.  Integer results, so they must agree
+   exactly.  --check-only stops here.
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
    field s of 24 rows that each occupy 4 of the 64 occupancy blocks of
@@ -188,8 +194,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Count(Intersect) per field) from the host lane, fallbacks and
    promotion requests counted; the same dashboard warm from the block
    pools (one K1P launch each, no fallback); an 8-Count query on pool rows
-   (one K5), a fused drain with Counts, a Sum and a TopN filtered by pool
-   rows (F1, K6, K3), TopN and Sum through the executor; an uncovered row
+   (one K5P launch), a fused drain with Counts, a Sum and a TopN filtered
+   by pool rows (each warm drain one F1P launch, then one K6P and one K3P
+   edge over its slots as pool rows), TopN and Sum through the executor,
+   each with its p50 (the drain's through fused_many); an uncovered row
    growing the working set; Sets into empty blocks, a Clear and an import
    synced in place into the pool (a freed slot reused, slot 0 zero);
    working sets rotated in until the budget evicts and the cached fused
@@ -197,13 +205,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    oversubscribed_4x_count_p50_ms, fully_resident_count_p50_ms,
    oversubscribed_4x_cold_p50_ms, residency_hit_rate and
    promotion_overlap_mbits_s, K1P's time (rowb_k1p) against its bound
-   beside the K1 it replaced, the pool leaf's device time inside K5, F1,
-   K3P and K6P against their leaves' live bytes (pool_leaf_in), the
-   executor's TopN and Sum p50 over the pool rows, K3P and K6P through
-   their wrappers (pool_aggregates: exact against numpy and both plain
-   versions, their times against the bytes of the live blocks beside the
-   whole-row walk of K3 and K6 over the same rows, and both again over a
-   full live word), and the engine's default budget.
+   beside the K1 it replaced, the device time of K5P, F1P, K3P and K6P on
+   those calls against their live bytes and every kernel of one drain
+   against the drain's (pool_leaf_in), K3P and K6P through their wrappers
+   (pool_aggregates: exact against numpy and both plain versions, their
+   times against the bytes of the live blocks beside the whole-row walk
+   of K3 and K6 over the same rows, and both again over a full live
+   word), K5P and F1P through theirs with the engine's arguments
+   (pool_batch_and_drain: exact, their times beside K5's and F1's
+   whole-row walks, and the drain as the parent ran it, F1 with K6 and
+   K3), and the engine's default budget.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -239,13 +250,21 @@ Counts run one by one, one K5 where the run is one count_many), and
 (ab_kernels) K3's full TopN at K = 4096 copying its totals out and
 trimming to 5 and 4096, and K8 at the 8-way, 3-field and filtered
 shapes and at 32 x 32, device ms per launch; (ab_pool) K1P, the full
-TopN against a pool row and the Sum under pool rows at the residency
-sweep's shape through the checkout's wrappers (K3P and K6P where it has
-them, K3's and K6's whole-row walk where not); (ab_k1_kr) K1, KR and K6
-at the bsi phase's shape.  The
+TopN against a pool row, the Sum under pool rows, the 8-Count query's
+batch and the drain (every kernel of one kernels.fused_tree call) at the
+residency sweep's shape through the checkout's wrappers (K3P, K6P, K5P
+and F1P where it has them, the whole-row walks where not), and F1 over
+dense rows; (ab_residency) the residency phase's index and engine, the
+drain's fused_many p50 and the 8-Count query's Executor.execute p50 with
+every kernel of one call of each; (ab_k1_kr) K1, KR and K6 at the bsi
+phase's shape.  The
 result memo is off for every timing loop.  The data,
 queries and loops are this file's, so both trees are measured the same
 way.  Run the trees in turns: parent, change, change, parent.
+
+--sass DIR builds every kernel library of this checkout and of DIR (one
+nvcc each, into build/sass/) and prints one JSON line: per library, how
+many of DIR's functions compile to the same SASS here (cuobjdump -sass).
 """
 
 from __future__ import annotations
@@ -1397,7 +1416,8 @@ def check_pool_leaf(device, seed):
     from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
 
     rng = np.random.default_rng(seed + 41)
-    err = {"rowb": 0, "count_tree_pool": 0, "score_rows_pool": 0, "sum_tree_pool": 0}
+    err = {"rowb": 0, "count_tree_pool": 0, "score_rows_pool": 0, "sum_tree_pool": 0,
+           "count_batch_tree_pool": 0, "fused_tree_pool": 0}
     n = 0
 
     def same(got, want, what, key="rowb"):
@@ -1437,6 +1457,15 @@ def check_pool_leaf(device, seed):
         for plain in (bsi.sum_tree_pool_plain, bsi.sum_tree_plain):
             same(got, plain(t, mats, m, bst, planes), f"K6P {what} ({plain.__name__})",
                  "sum_tree_pool")
+
+    def k5p_same(progs, mats, bmasks, what, fan=None):
+        """K5P over a batch against both plain versions (a fan-out too)."""
+        ids = [int(i) for i in rng.integers(0, len(bmasks), len(progs))]
+        batch = kernels.compile_batch(progs, ids)
+        got = kernels.count_batch_tree_pool_cuda(batch, mats, bmasks, device, fan)
+        for plain in (kernels.count_batch_tree_pool_plain, kernels.count_batch_tree_plain):
+            same(got, plain(progs, mats, bmasks, ids, device, fan),
+                 f"K5P {what} ({plain.__name__})", "count_batch_tree_pool")
 
     for S, P in ((12, 9), (37, 33), (12, 1)):
         pool, table = _pool_case(rng, S, P, 6, device)
@@ -1518,8 +1547,83 @@ def check_pool_leaf(device, seed):
                                                 device)
             same(got, kernels.count_batch_tree_plain(progs, mats, bmasks, ids, device),
                  f"K5 {len(progs)} queries S={S} P={P}")
+        # K5P: batches of the pool trees (dead and full live words among
+        # them) at K = 1, 8, 64 and 300, staged; and over a slot table of
+        # 150 rows (more than 128 distinct leaf rows: the direct path) at K
+        # = 8 and 300; masks of every shard, none and a ragged set.
+        pool_batch = [t for t in [dense_t] + dead + trees if kernels.batchable(t)]
+        k5p_same([trees[4]], mats, bmasks, f"K=1 (a full live word) S={S} P={P}")
+        for K in (8, 64, 300):
+            progs = [pool_batch[int(i)] for i in rng.integers(0, len(pool_batch), K)]
+            k5p_same(progs + [rb[2]], mats, bmasks, f"K={K + 1} staged S={S} P={P}")
+        k5p_same(dead, mats, bmasks, f"dead live words S={S} P={P}")
+        k5p_same(trees[:3] * 3, mats, bmasks, f"fanned out S={S} P={P}", fan=[8, 0, 3, 3, 5])
+        _, wide_table = _pool_case(rng, S, P, 150, device)
+        wmats = [dense, pool, wide_table, bst]
+        wide = [("and" if k % 3 else "or", ("rowb", 1, 2, k), ("rowb", 1, 2, (k + 77) % 151))
+                for k in range(151)] + [("xor", ("rowb", 1, 2, 9), ("row", 0, 2))]
+        k5p_same(wide + [wide[int(i)] for i in rng.integers(0, len(wide), 300 - len(wide))],
+                 wmats, bmasks, f"K=300 direct S={S} P={P}")
+        k5p_same([("or",) + tuple(("rowb", 1, 2, 17 * q + k) for k in range(17)) if q % 2 else
+                  ("and", ("or",) + tuple(("rowb", 1, 2, 17 * q + k) for k in range(16)),
+                   ("rowb", 1, 2, 17 * q + 16)) for q in range(8)],
+                 wmats, bmasks, f"K=8 direct (136 rows) S={S} P={P}")
+        # F1P: slot tables over pool rows (mref chains, an xor naming a slot
+        # twice, andnot with a pool left side, stack rows beside pool rows,
+        # a range leaf, a dead slot and a full one), count edges on gates,
+        # every edge kind over a pool slot; a need subset without shard 0
+        # (CTA (0, 0) writes the table all the same).
+        fslots = (("and", rb[0], ("row", 0, 1)), ("or", ("mref", 0), rb[2]),
+                  ("xor", ("mref", 1), rb[4], ("mref", 0), ("mref", 0)),
+                  ("andnot", rb[5], ("row", 0, 0)), ("or", ("mref", 2), ("mref", 3), rb[6]),
+                  ("and", rb[1], rb[0]), ("andnot", ("mref", 1), rb[3]),
+                  ("or", rb[2], ("row", 0, 3)), ("and", rb[2], rg))
+        f_masks = [torch.from_numpy(m).to(device) for m in (
+            np.ones(S, np.int32), (rng.random(S) < 0.5).astype(np.int32), np.zeros(S, np.int32))]
+        cand300 = torch.from_numpy(rng.integers(0, 4, 300).astype(np.int32)).to(device)
+        cnt300 = torch.randint(0, 3 << 15, (300, S), dtype=torch.int32, device=device)
+        f_tensors = [cand8, cnt8, cand300, cnt300]
+        f_aggs = [("sum", 1, 0, 3, full), ("sum", 7, 1, 3, holed), ("sum", 5, 0, 3, full),
+                  ("minmax", 3, 1, 3, full, True), ("minmax", 4, 0, 3, full, False),
+                  ("topn", 2, 0, 0, 0), ("topnf", 4, 1, 0, 2, 3, 1, 5),
+                  ("topnf", 8, 0, 0, 0, 1, 1 << 14, None), ("group", 6, 1, (0,), ((0, 1, 3),)),
+                  ("group", 5, 0, (0, 0), ((2, 1), (0, 3)))]
+        f_counts = [(0, 0), (1, 1), (2, 0), (4, 1), (5, 0), (6, 1), (7, 2), (8, 0)]
+        spec = kernels.FusedSpec(fslots, f_counts, f_aggs)
+        code = spec.code()
+        assert code.pooled
+        need_np = ((rng.random(S) < 0.6) | (f_masks[1].cpu().numpy() != 0)).astype(np.int32)
+        need_np[0] = 0
+        keep = torch.from_numpy(need_np != 0).to(device)
+        gates = [f_masks[m] * torch.from_numpy(need_np).to(device) for _, m in f_counts]
+        cslots = [j for j, _ in f_counts]
+        for nd in (None, torch.from_numpy(need_np).to(device)):
+            counts, (fpool, ftable) = kernels.fused_tree_pool_cuda(
+                code, mats, cslots, gates, spec.mat_slots, nd)
+            torch.cuda.synchronize()
+            fpool, ftable = fpool.clone(), ftable.clone()
+            vals = kernels.fused_slots_plain(fslots, mats, (S, 32768), device)
+            want = torch.stack([kernels.bitops.popcount_words(vals[j][g != 0]).sum()
+                                for j, g in zip(cslots, gates)]).to(torch.int64)
+            what = f"S={S} P={P} need={'none' if nd is None else 'subset'}"
+            same(counts, want, f"F1P counts {what}", "fused_tree_pool")
+            wpool, wtable = kernels.fused_mat_pool_plain(spec, mats, f_masks)
+            same(ftable, wtable, f"F1P table {what}", "fused_tree_pool")
+            live_slots = torch.unique(wtable[wtable != 0]).long()
+            rows = slice(None) if nd is None else keep
+            same(fpool[live_slots][:, rows], wpool[live_slots][:, rows],
+                 f"F1P pool at the live blocks {what}", "fused_tree_pool")
+            same(fpool[0], torch.zeros_like(fpool[0]), f"F1P pool slot 0 {what}",
+                 "fused_tree_pool")
+        got = kernels.fused_tree(spec, mats, f_masks, f_tensors)
+        for plain in (kernels.fused_tree_pool_plain, kernels.fused_tree_plain):
+            want = plain(spec, mats, f_masks, f_tensors)
+            for i, (g, w) in enumerate(zip(got, want)):
+                same(g, w, f"F1P drain output {i} S={S} P={P} ({plain.__name__})",
+                     "fused_tree_pool")
         # F1: a slot table over pool, stack and range leaves, count edges
-        # and materialized slots read by K6, K7, K3 and K8 edges.
+        # and materialized slots read by K6, K7, K3 and K8 edges (F1's own
+        # launch, whose slots then read as stack rows).
         slots = (("and", rb[0], ("row", 0, 1)), ("or", ("mref", 0), rb[2]),
                  ("xor", ("mref", 1), rb[4], ("row", 0, 2)), ("andnot", rb[5], rg),
                  ("or", ("mref", 2), ("mref", 3), rb[6]))
@@ -1530,10 +1634,18 @@ def check_pool_leaf(device, seed):
             slots, [(0, 0), (1, 1), (2, 0), (4, 1)],
             [("sum", 1, 0, 3, full), ("minmax", 3, 1, 3, full, True),
              ("topn", 2, 0, 0, 0), ("topnf", 4, 1, 0, 0, 1, 1, 2), ("group", 4, 0, (0,), ((0, 1),))])
-        got = kernels.fused_tree(spec, mats, fmasks, [cand_idx, cnt])
+        code = spec.code()
+        counts, fmat = kernels.fused_tree_cuda(code, mats, [j for j, _ in spec.count_edges],
+                                               [fmasks[m] for _, m in spec.count_edges],
+                                               spec.mat_slots)
+        got = [counts] + kernels._agg_outputs(spec, mats, fmat, fmasks, [cand_idx, cnt],
+                                              plain=False)
         want = kernels.fused_tree_plain(spec, mats, fmasks, [cand_idx, cnt])
         for i, (g, w) in enumerate(zip(got, want)):
             same(g, w, f"F1 drain output {i} S={S} P={P}")
+        got = kernels.fused_tree(spec, mats, fmasks, [cand_idx, cnt])
+        for i, (g, w) in enumerate(zip(got, want)):
+            same(g, w, f"F1P drain output {i} S={S} P={P}", "fused_tree_pool")
     # Two streams at once over one pool.
     side = torch.cuda.Stream(device=device)
     t = ("or", rb[2], ("row", 0, 1))
@@ -1565,8 +1677,44 @@ def check_pool_leaf(device, seed):
         want = kernels.topn_full_tree_pool_plain(t, mats, masks[i % 3], dense, cand8, cnt8, 1, 3)
         same(g.reshape(-1), torch.stack(want).reshape(-1), "K3P on two streams",
              "score_rows_pool")
-    log(f"pool leaf: {n} comparisons exact (rowb in K1, K1P, K2, K3, K3P, K5, K6, K6P, K7, K8 "
-        "and F1 against their plain versions)")
+    # F1P and K5P on two streams at once (each stream's pool, each
+    # stream's totals scratch), over a pool of 9 slots.
+    mats = [mats[0], *_pool_case(rng, 12, 9, 6, device), mats[3]]
+    spec = kernels.FusedSpec((("or", rb[2], rb[0]), ("and", ("mref", 0), rb[4]),
+                              ("xor", ("mref", 1), rb[3])), [(1, 0), (2, 0)], [])
+    code = spec.code()
+    spec_m = kernels.FusedSpec(spec.slots, spec.count_edges, [("sum", 2, 0, 3, full),
+                                                              ("sum", 1, 0, 3, full)])
+    pending = []
+    torch.cuda.synchronize()
+    for i in range(8):
+        g = masks[i % 3]
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            c, (fp, ft) = kernels.fused_tree_pool_cuda(code, mats, [1, 2], [g, g], [1, 2])
+            pending.append((g, c, fp.clone(), ft.clone()))
+    torch.cuda.synchronize()
+    for g, c, fp, ft in pending:
+        vals = kernels.fused_slots_plain(spec.slots, mats, (S, 32768), device)
+        same(c, torch.stack([kernels.bitops.popcount_words(vals[j][g != 0]).sum()
+                             for j in (1, 2)]).to(torch.int64), "F1P on two streams: counts",
+             "fused_tree_pool")
+        wpool, wtable = kernels.fused_mat_pool_plain(spec_m, mats, [g])
+        same(ft, wtable, "F1P on two streams: table", "fused_tree_pool")
+        live_slots = torch.unique(wtable[wtable != 0]).long()
+        same(fp[live_slots], wpool[live_slots], "F1P on two streams: pool", "fused_tree_pool")
+    progs = [t for t in trees if kernels.batchable(t)]
+    outs = []
+    torch.cuda.synchronize()
+    for i in range(8):
+        ids = [(i + k) % 3 for k in range(len(progs))]
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            outs.append((ids, kernels.count_batch_tree_pool_cuda(
+                kernels.compile_batch(progs, ids), mats, bmasks, device)))
+    for ids, g in outs:
+        same(g, kernels.count_batch_tree_pool_plain(progs, mats, bmasks, ids, device),
+             "K5P on two streams", "count_batch_tree_pool")
+    log(f"pool leaf: {n} comparisons exact (rowb in K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, "
+        "K8, F1 and F1P against their plain versions)")
     return err
 
 
@@ -4281,9 +4429,9 @@ def _path_counts_kept():
 
     fns = (kernels.count_tree_dense, kernels.count_tree_pool, sparse.count_tree_blocks_cuda,
            kernels.score_rows_cuda, kernels.score_rows_pool_cuda, kernels.count_batch_tree_cuda,
-           bsi.sum_tree_cuda, bsi.sum_tree_pool_cuda, bsi.minmax_tree_cuda,
-           groupby.groupn_tree_cuda, kernels.fused_tree_cuda, kernels.range_leaf,
-           kernels.pool_leaf)
+           kernels.count_batch_tree_pool_cuda, bsi.sum_tree_cuda, bsi.sum_tree_pool_cuda,
+           bsi.minmax_tree_cuda, groupby.groupn_tree_cuda, kernels.fused_tree_cuda,
+           kernels.fused_tree_pool_cuda, kernels.range_leaf, kernels.pool_leaf)
     saved = [f.launches for f in fns], dict(kernels.pool_leaf.by_kernel)
     try:
         yield
@@ -4309,13 +4457,30 @@ def live_leaf_bytes(prog, mats, mask):
     return blocks * int((mask != 0).sum()) * 2048 + mask.numel() * 4 + 8
 
 
+def call_kernels_ms(fn, names, reps=10):
+    """The device time of one call of ``fn``, kernel by kernel, from
+    torch.profiler over ``reps`` calls: {"device_ms": the sum over every
+    kernel (copies and fills aside), "kernels": {name: [launches, ms] per
+    call}}.  A window where a kernel of ``names`` shows fewer than ``reps``
+    launches (records the profiler lost) is taken again (on_card)."""
+    seen = on_card(lambda: [fn() for _ in range(reps)],
+                   lambda seen: all(sum(v[0] for k, v in seen.items() if n in k) >= reps
+                                    for n in names))
+    ks = {k: [n / reps, t / reps] for k, (n, t) in seen.items()
+          if not k.startswith(("Memcpy", "Memset"))}
+    return {"device_ms": sum(t for _, t in ks.values()), "kernels": ks}
+
+
 def pool_leaf_in(eng, ex, holder, q8, entries, seg, S):
-    """The pool leaf inside K5 (the 8-Count query), F1 (the fused drain),
-    K3 (TopN(rt, Row(wf1=2))) and K6 (Sum over the seg filter): device ms
-    per launch (K3: per call) against the bytes of their leaves in the
+    """The pool leaf inside K5P (the 8-Count query), F1P (the fused drain's
+    slot table), K3P (TopN(rt, Row(wf1=2))) and K6P (Sum over the seg
+    filter): device ms per launch (K3P: per call) against the bytes of the
     blocks the query can read (the pool rows' occupied blocks; a src or
-    filter's live blocks for K3's candidates and K6's planes), reads
-    only."""
+    filter's live blocks for K3P's candidates and K6P's planes) and F1P
+    writes (its two slots' live blocks).  And "drain": every kernel of one
+    fused_many call (F1P, then its K6P and K3P edges, and the wrapper's
+    small fills) against the live bytes of the leaves and slots F1P reads
+    and writes and of the slot, planes and candidates its edges read."""
     st = {f: eng._stacks[("rsw", f, "standard")] for f in ("wf0", "wf1", "wf2", "wf3")}
 
     def occ(f, r):
@@ -4323,14 +4488,15 @@ def pool_leaf_in(eng, ex, holder, q8, entries, seg, S):
 
     blk = S * 2048
     seg_live = int(np.count_nonzero((st["wf0"].slot_of[0] != 0) & (st["wf0"].slot_of[1] != 0)))
+    src_live = occ("wf1", 2)
     planes = holder.index("rsw").field("rv").bit_depth() + 1
+    f1_blocks = occ("wf0", 0) + occ("wf0", 1) + src_live + seg_live + src_live
     items = {
-        "k5": (lambda: ex.execute("rsw", q8), "count_batch_tree",
+        "k5": (lambda: ex.execute("rsw", q8), "count_batch_tree_pool",
                sum(occ(f"wf{fi}", r) for fi in range(RSW_FIELDS) for r in (2 * fi, 2 * fi + 1))),
-        "f1": (lambda: eng.fused_many("rsw", entries), "fused_tree_kernel",
-               occ("wf0", 0) + occ("wf0", 1) + occ("wf1", 2)),
+        "f1": (lambda: eng.fused_many("rsw", entries), "fused_tree_pool", f1_blocks),
         "k3": (lambda: ex.execute("rsw", "TopN(rt, Row(wf1=2), n=3)"), "score_rows",
-               (1 + 4) * occ("wf1", 2)),
+               (1 + 4) * src_live),
         "k6": (lambda: ex.execute("rsw", f"Sum({seg}, field=rv)"), "sum_tree",
                (2 + planes) * seg_live),
     }
@@ -4339,7 +4505,101 @@ def pool_leaf_in(eng, ex, holder, q8, entries, seg, S):
         byts = blocks * blk
         out[name] = {"device_ms": device_ms(fn, kernel, per_call=name == "k3"),
                      "live_bytes": byts, "bound_ms": byts / HBM_BYTES_PER_S * 1e3}
-    log(f"residency: the pool leaf in K5, F1, K3, K6: {json.dumps(out)}")
+    byts = (f1_blocks + (1 + planes) * seg_live + (1 + 4) * src_live) * blk
+    out["drain"] = {**call_kernels_ms(lambda: eng.fused_many("rsw", entries),
+                                      ("fused_tree_pool", "sum_tree_pool", "score_rows_pool")),
+                    "live_bytes": byts, "bound_ms": byts / HBM_BYTES_PER_S * 1e3}
+    log(f"residency: the pool leaf in K5P, F1P, K3P, K6P and the whole drain: {json.dumps(out)}")
+    return out
+
+
+def pool_batch_and_drain(eng, q8, entries, S):
+    """K5P and F1P through their wrappers with the engine's own arguments
+    (its lowering of the 8-Count query's trees and mask table; fusion's
+    plan of the residency drain): each exact against both plain versions
+    (F1P's pool and table against fused_mat_pool_plain, block for block),
+    then their times (``measured``) against the bytes of the live blocks
+    they read (and F1P writes), beside K5's and F1's whole-row walks over
+    the same arguments and the pool plain versions' p50; then the drain as
+    the parent ran it (F1, and K6 and K3 over its slots as stack rows),
+    every kernel of it (call_kernels_ms; pool_leaf_in times F1P's).
+    Returns {"k5p", "f1p", "drain_whole_row"}."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import fusion, kernels
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    sync = torch.cuda.synchronize
+    device = torch.device("cuda")
+    canonical = eng.canonical_shards("rsw")
+    lw = _Lowering(eng, canonical)
+    progs = [eng._lower("rsw", c.children[0], lw) for c in pql.parse(q8).calls]
+    masks, ids = eng._mask_table([list(range(S))] * len(progs), canonical)
+    batch = kernels.compile_batch(progs, ids)
+    assert batch.pooled
+    got = kernels.count_batch_tree_pool_cuda(batch, lw.mats, masks, device)
+    for plain in (kernels.count_batch_tree_pool_plain, kernels.count_batch_tree_plain):
+        _exact("count_batch_tree_pool", got, plain(progs, lw.mats, masks, ids, device),
+               f"the residency 8-Count batch against {plain.__name__}")
+    def live(leaf, mats):  # a pool leaf's occupied blocks; a stack row's every block
+        return int((mats[leaf[2]][leaf[1]] != 0).sum()) if len(leaf) == 3 else 64
+
+    byts = sum(live(leaf, lw.mats) for leaf in batch.leaves) * S * 2048
+    bound = byts / HBM_BYTES_PER_S * 1e3
+    out = {"k5p": {**measured(lambda: kernels.count_batch_tree_pool_cuda(batch, lw.mats, masks,
+                                                                          device),
+                              "count_batch_tree_pool", sync, bound_ms=bound),
+                   "bound_ms": bound, "bytes": byts,
+                   "plain_ms": p50_ms(lambda: kernels.count_batch_tree_pool_plain(
+                       progs, lw.mats, masks, ids, device), 3, sync, batch=1),
+                   "k5_whole_row": measured(lambda: kernels.count_batch_tree_cuda(
+                       batch, lw.mats, masks, device), "count_batch_tree_kernel", sync)}}
+    with eng._stacks_lock:
+        part = fusion.build(eng, [("rsw", sp, sh) for sp, sh in entries]).parts[0]
+    spec, mats = part.spec, part.lw.mats
+    code = spec.code()
+    assert code.pooled
+    cslots = [j for j, _ in spec.count_edges]
+    gates = [part.masks[m] for _, m in spec.count_edges]
+    args = (code, mats, cslots, gates, spec.mat_slots, part.need)
+    counts, (fpool, ftable) = kernels.fused_tree_pool_cuda(*args)
+    wpool, wtable = kernels.fused_mat_pool_plain(spec, mats, part.masks)
+    vals = kernels.fused_slots_plain(spec.slots, mats, (S, 32768), device)
+    _exact("fused_tree_pool", counts, torch.stack([
+        bitops_popcount(vals[j], g) for j, g in zip(cslots, gates)]).to(torch.int64),
+           "the residency drain's counts")
+    _exact("fused_tree_pool", ftable, wtable, "the residency drain's table")
+    named = torch.unique(wtable[wtable != 0]).long()
+    _exact("fused_tree_pool", fpool[named], wpool[named], "the residency drain's pool rows")
+    del vals, wpool
+    n_live = int((wtable != 0).sum())  # the materialized slots' live blocks
+    reads = sum(live(leaf, mats) for leaf in code.leaves)
+    byts = (reads + n_live) * S * 2048
+    bound = byts / HBM_BYTES_PER_S * 1e3
+    f1_plain = kernels.FusedSpec(spec.slots, spec.count_edges, [])
+    out["f1p"] = {**measured(lambda: kernels.fused_tree_pool_cuda(*args), "fused_tree_pool",
+                             sync, bound_ms=bound),
+                  "bound_ms": bound, "bytes": byts, "slots": len(code.op),
+                  "leaves": len(code.leaves), "written_blocks": n_live,
+                  "plain_ms": p50_ms(lambda: (kernels.fused_tree_pool_plain(
+                      f1_plain, mats, part.masks), kernels.fused_mat_pool_plain(
+                      spec, mats, part.masks)), 3, sync, batch=1),
+                  "f1_whole_row": measured(lambda: kernels.fused_tree_cuda(*args),
+                                           "fused_tree_kernel", sync)}
+
+    def parent_drain():
+        c, mat = kernels.fused_tree_cuda(*args)
+        return [c] + kernels._agg_outputs(spec, mats, mat, part.masks, part.tensors, plain=False)
+
+    want = kernels.fused_tree_plain(spec, mats, part.masks, part.tensors)
+    for i, (g, w) in enumerate(zip(parent_drain(), want)):
+        _exact("fused_tree", g, w, f"the residency drain on F1 output {i}")
+    out["drain_whole_row"] = call_kernels_ms(parent_drain, ("fused_tree_kernel",
+                                                            "sum_tree_kernel",
+                                                            "score_rows_kernel"))
+    log(f"residency: K5P and F1P against their live bytes, beside K5's and F1's whole-row "
+        f"walks, and the drain as F1 ran it: {json.dumps(out)}")
     return out
 
 
@@ -4431,6 +4691,44 @@ def pool_aggregates(eng, seg, S, want_top, want_sum):
     return out
 
 
+def rsw_queries(words, vcols, vvals):
+    """The residency phase's 8-Count query and fused drain over build_rsw's
+    index, with their numpy answers: (q8, want8, seg, entries,
+    want_drain).  The drain: two Counts sharing the pool-row subtree seg,
+    a Sum of rv over seg and a TopN of rt's 4 rows against Row(wf1=2)."""
+    from pilosa_tpu_torch import pql
+
+    nw = RSW_BLOCKS * 256
+    S = words["wf0"].shape[1]
+    all_shards = list(range(S))
+    eight = [(f"Count({op}(Row(wf{fi}={2 * fi}), Row(wf{fi}={2 * fi + 1})))", fi, op)
+             for fi in range(RSW_FIELDS) for op in ("Intersect", "Union")]
+    q8 = "".join(q for q, _, _ in eight)
+    want8 = []
+    for _, fi, op in eight:
+        w = words[f"wf{fi}"]
+        a, b = w[2 * fi][:, :nw], w[2 * fi + 1][:, :nw]
+        want8.append(int(popcounts(a & b if op == "Intersect" else a | b).sum()))
+    seg = "Intersect(Row(wf0=0), Row(wf0=1))"
+    w0, w1, rt = words["wf0"], words["wf1"], words["rt"]
+    segw = w0[0][:, :nw] & w0[1][:, :nw]
+    in_seg = ((segw[vcols >> 20, (vcols & 0xFFFFF) >> 6] >> (vcols & 63).astype(np.uint64))
+              & np.uint64(1)).astype(bool)
+    want_sum = (int(vvals[in_seg].sum()), int(in_seg.sum()))
+    totals = [(r, int(popcounts(rt[r][:, :nw] & w1[2][:, :nw]).sum())) for r in range(4)]
+    want_top = sorted([p for p in totals if p[1] > 0], key=lambda p: (-p[1], -p[0]))[:3]
+    entries = [
+        ({"kind": "count", "call": pql.parse(seg).calls[0]}, all_shards),
+        ({"kind": "count", "call": pql.parse(f"Union({seg}, Row(wf1=2))").calls[0]}, all_shards),
+        ({"kind": "sum", "field": "rv", "filter": pql.parse(seg).calls[0]}, all_shards),
+        ({"kind": "topnf", "field": "rt", "src": pql.parse("Row(wf1=2)").calls[0], "n": 3,
+          "threshold": 1, "row_ids": None}, all_shards),
+    ]
+    want_drain = [int(popcounts(segw).sum()),
+                  int(popcounts(segw | w1[2][:, :nw]).sum()), want_sum, want_top]
+    return q8, want8, seg, entries, want_drain
+
+
 def run_residency_path(device, seed, n_shards=N_SHARDS):
     """Tiered residency on the card (docs/residency.md; bench.py
     --residency-sweep at 960 shards): the index is 4x the device budget, so
@@ -4438,17 +4736,18 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     (one Count(Intersect) per field) answered exactly from the host lane,
     host fallbacks and promotion requests rising; after the promotions the
     same dashboard from the block pools (K1P, no fallback);
-    an 8-Count query on pool rows (one K5), a fused drain of Counts, a Sum
-    and a TopN whose filters read pool rows (F1, K6, K3); TopN and Sum
-    through the executor (K3, K6); an uncovered row growing the working set;
-    Sets into empty blocks, a Clear and an import, synced in place into the
-    pool with a freed slot reused; working sets rotated until the budget
-    evicts and a cached fused plan is dropped.  Prints bench.py's numbers,
-    K1P's time against its bound beside K1's over the same pool rows, and
-    the pool leaf's device time inside K5, F1, K3 and K6.  Runs on its own
-    holder and engines, freed at the end.  Returns the phase's numbers,
-    its launches over pools, the rowb entry's K1 times and K1P's launches
-    and times."""
+    an 8-Count query on pool rows (one K5P), a fused drain of Counts, a Sum
+    and a TopN whose filters read pool rows (F1P, then K6P and K3P over its
+    slots); TopN and Sum through the executor (K3P, K6P); an uncovered row
+    growing the working set; Sets into empty blocks, a Clear and an import,
+    synced in place into the pool with a freed slot reused; working sets
+    rotated until the budget evicts and a cached fused plan is dropped.
+    Prints bench.py's numbers, K1P's time against its bound beside K1's
+    over the same pool rows, and the device time of K5P, F1P, K3P, K6P and
+    the whole drain.  Runs on its own holder and engines, freed at the end.
+    Returns the phase's numbers, its launches over pools, the rowb entry's
+    K1 times, K1P's launches and times, and K3P's, K6P's, K5P's and F1P's
+    launches and times."""
     import gc
 
     import torch
@@ -4621,50 +4920,48 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         rowb_times = (t_k1, plain_k1, pool_bytes)
         k1p_times = (t_k1p, plain_k1p, pool_bytes)
         del lw, progs, codes
-    # 3a. Eight Counts on pool rows: one K5 launch.
-    eight = [(f"Count({op}(Row(wf{fi}={2 * fi}), Row(wf{fi}={2 * fi + 1})))", fi, op)
-             for fi in range(RSW_FIELDS) for op in ("Intersect", "Union")]
-    q8 = "".join(q for q, _, _ in eight)
-    want8 = []
-    for _, fi, op in eight:
-        w = words[f"wf{fi}"]
-        a, b = w[2 * fi][:, :nw], w[2 * fi + 1][:, :nw]
-        want8.append(int(popcounts(a & b if op == "Intersect" else a | b).sum()))
-    k5, pk5 = kernels.count_batch_tree_cuda.launches, kernels.pool_leaf.by_kernel.get(
-        "count_batch_tree", 0)
+    # 3a. Eight Counts on pool rows: one K5P launch.
+    q8, want8, seg, entries, want_drain = rsw_queries(words, vcols, vvals)
+    want_sum, want_top = want_drain[2], want_drain[3]
+    w0 = words["wf0"]
+    k5, k5p, pk5 = (kernels.count_batch_tree_cuda.launches,
+                    kernels.count_batch_tree_pool_cuda.launches,
+                    kernels.pool_leaf.by_kernel.get("count_batch_tree", 0))
     got8 = ex.execute("rsw", q8).results
     if got8 != want8:
         raise AssertionError(f"residency: 8 Counts {got8} != numpy {want8}")
-    if card and (kernels.count_batch_tree_cuda.launches - k5 != 1
+    if card and (kernels.count_batch_tree_pool_cuda.launches - k5p != 1
+                 or kernels.count_batch_tree_cuda.launches != k5
                  or kernels.pool_leaf.by_kernel.get("count_batch_tree", 0) - pk5 != 1):
-        raise AssertionError("residency: the 8-Count query was not one K5 launch over pools")
+        raise AssertionError("residency: the 8-Count query was not one K5P launch over pools")
     # 3b. A fused drain: Counts sharing a pool-row subtree, a Sum and a TopN
     # filtered by pool rows (rv and rt are small full stacks that fit).
-    seg = "Intersect(Row(wf0=0), Row(wf0=1))"
-    w0, w1, rt = words["wf0"], words["wf1"], words["rt"]
-    segw = w0[0][:, :nw] & w0[1][:, :nw]
-    in_seg = ((segw[vcols >> 20, (vcols & 0xFFFFF) >> 6] >> (vcols & 63).astype(np.uint64))
-              & np.uint64(1)).astype(bool)
-    want_sum = (int(vvals[in_seg].sum()), int(in_seg.sum()))
-    totals = [(r, int(popcounts(rt[r][:, :nw] & w1[2][:, :nw]).sum())) for r in range(4)]
-    want_top = sorted([p for p in totals if p[1] > 0], key=lambda p: (-p[1], -p[0]))[:3]
-    entries = [
-        ({"kind": "count", "call": pql.parse(seg).calls[0]}, all_shards),
-        ({"kind": "count", "call": pql.parse(f"Union({seg}, Row(wf1=2))").calls[0]}, all_shards),
-        ({"kind": "sum", "field": "rv", "filter": pql.parse(seg).calls[0]}, all_shards),
-        ({"kind": "topnf", "field": "rt", "src": pql.parse("Row(wf1=2)").calls[0], "n": 3,
-          "threshold": 1, "row_ids": None}, all_shards),
-    ]
-    want_drain = [int(popcounts(segw).sum()),
-                  int(popcounts(segw | w1[2][:, :nw]).sum()), want_sum, want_top]
-    f1, pf1 = kernels.fused_tree_cuda.launches, kernels.pool_leaf.by_kernel.get("fused_tree", 0)
     eng.fused_many("rsw", entries)  # first: rv and rt are built (they fit)
-    got = eng.fused_many("rsw", entries)
-    if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
-        raise AssertionError(f"residency: fused drain {got} != numpy {want_drain}")
-    if card and (kernels.fused_tree_cuda.launches - f1 < 1
-                 or kernels.pool_leaf.by_kernel.get("fused_tree", 0) - pf1 < 1):
-        raise AssertionError("residency: the fused drain did not launch F1 over pools")
+    # Each warm drain: one F1P launch, then its Sum edge on K6P and its TopN
+    # edge on K3P (the slots read as pool rows), no F1 and no whole-row
+    # walk; the pool leaf's counts show the edges under sum_tree and
+    # score_rows.
+    drain_fns = (kernels.fused_tree_pool_cuda, kernels.fused_tree_cuda,
+                 bsi.sum_tree_pool_cuda, bsi.sum_tree_cuda, kernels.score_rows_pool_cuda,
+                 kernels.score_rows_cuda)
+    by_kernel = ("fused_tree", "sum_tree", "score_rows")
+    n_drains = 3
+    before = ([f.launches for f in drain_fns],
+              [kernels.pool_leaf.by_kernel.get(k, 0) for k in by_kernel])
+    for _ in range(n_drains):
+        got = eng.fused_many("rsw", entries)
+        if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+            raise AssertionError(f"residency: fused drain {got} != numpy {want_drain}")
+    per_drain = {f.__name__: (f.launches - n0) / n_drains for f, n0 in zip(drain_fns, before[0])}
+    pool_edges = {k: (kernels.pool_leaf.by_kernel.get(k, 0) - n0) / n_drains
+                  for k, n0 in zip(by_kernel, before[1])}
+    out["drain_launches"] = {"per_drain": per_drain, "pool_leaf_by_kernel": pool_edges}
+    if card and (per_drain != {"fused_tree_pool_cuda": 1, "fused_tree_cuda": 0,
+                               "sum_tree_pool_cuda": 1, "sum_tree_cuda": 0,
+                               "score_rows_pool_cuda": 1, "score_rows_cuda": 0}
+                 or pool_edges != {"fused_tree": 1, "sum_tree": 1, "score_rows": 1}):
+        raise AssertionError(f"residency: a warm drain was not one F1P launch with one K6P and "
+                             f"one K3P edge: {out['drain_launches']}")
     plans = len(eng._fused_plans)
     assert plans >= 1, "residency: the fused drain's plan was not cached"
     # 3c. TopN and Sum through the executor: K3P and K6P over a pool row
@@ -4692,8 +4989,20 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
                  or kernels.score_rows_pool_cuda.launches == k3p
                  or bsi.sum_tree_pool_cuda.launches == k6p):
         raise AssertionError("residency: TopN/Sum did not launch K3P/K6P over a pool row")
-    # Their end-to-end p50s through Executor.execute (memo off).
-    for name, fn in (("pool_topn_e2e_p50_ms", run_top), ("pool_sum_e2e_p50_ms", run_sum)):
+    def run_drain():
+        got = eng.fused_many("rsw", entries)
+        if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+            raise AssertionError(f"residency: fused drain {got} != numpy {want_drain}")
+
+    def run_eight():
+        if ex.execute("rsw", q8).results != want8:
+            raise AssertionError("residency: the 8 Counts disagree with numpy")
+
+    # Their end-to-end p50s through Executor.execute (the drain's through
+    # fused_many; memo off).
+    for name, fn in (("pool_topn_e2e_p50_ms", run_top), ("pool_sum_e2e_p50_ms", run_sum),
+                     ("pool_drain_e2e_p50_ms", run_drain),
+                     ("pool_eight_counts_e2e_p50_ms", run_eight)):
         times = []
         for _ in range(RSW_WARM_REPS):
             t = time.perf_counter()
@@ -4706,6 +5015,7 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         with _path_counts_kept():
             out["pool_leaf_in"] = pool_leaf_in(eng, ex, holder, q8, entries, seg, S)
             out["pool_aggregates"] = pool_aggregates(eng, seg, S, want_top, want_sum)
+            out["pool_batch_and_drain"] = pool_batch_and_drain(eng, q8, entries, S)
     # 4. An uncovered row grows the working set and keeps the old rows.
     qg = "Count(Intersect(Row(wf0=30), Row(wf0=31)))"
     wantg = pc_and(w0[30], w0[31])
@@ -4815,11 +5125,15 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     out["pool_leaf_launches"] = dict(kernels.pool_leaf.by_kernel)
     launches = kernels.pool_leaf.launches
     k1p_launches = kernels.count_tree_pool.launches
-    aggs = {"score_rows_pool": (kernels.score_rows_pool_cuda.launches, "k3p"),
-            "sum_tree_pool": (bsi.sum_tree_pool_cuda.launches, "k6p")}
-    if card and not all(n for n, _ in aggs.values()):
-        raise AssertionError(f"residency: K3P or K6P never launched: {aggs}")
-    aggs = {k: (n, out["pool_aggregates"][key] if card else None) for k, (n, key) in aggs.items()}
+    aggs = {"score_rows_pool": (kernels.score_rows_pool_cuda.launches, "pool_aggregates", "k3p"),
+            "sum_tree_pool": (bsi.sum_tree_pool_cuda.launches, "pool_aggregates", "k6p"),
+            "count_batch_tree_pool": (kernels.count_batch_tree_pool_cuda.launches,
+                                      "pool_batch_and_drain", "k5p"),
+            "fused_tree_pool": (kernels.fused_tree_pool_cuda.launches, "pool_batch_and_drain",
+                                "f1p")}
+    if card and not all(n for n, _, _ in aggs.values()):
+        raise AssertionError(f"residency: K3P, K6P, K5P or F1P never launched: {aggs}")
+    aggs = {k: (n, out[part][key] if card else None) for k, (n, part, key) in aggs.items()}
     for k in ("count_tree_pool", "count_batch_tree", "fused_tree", "score_rows", "sum_tree"):
         if card and not kernels.pool_leaf.by_kernel.get(k):
             raise AssertionError(f"residency: {k} never launched over a pool: "
@@ -4840,7 +5154,9 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         f"{out['promotion_overlap_mbits_s']:.1f}; rowb K1P device {t_k1p['device_ms']} ms "
         f"(K1 {t_k1['device_ms']} ms), bound {bound:.4f} ms; pool_topn_e2e_p50_ms "
         f"{out['pool_topn_e2e_p50_ms']:.4f}, pool_sum_e2e_p50_ms "
-        f"{out['pool_sum_e2e_p50_ms']:.4f}; engine_default_budget "
+        f"{out['pool_sum_e2e_p50_ms']:.4f}, pool_drain_e2e_p50_ms "
+        f"{out['pool_drain_e2e_p50_ms']:.4f}, pool_eight_counts_e2e_p50_ms "
+        f"{out['pool_eight_counts_e2e_p50_ms']:.4f}; engine_default_budget "
         f"{out['engine_default_budget']}; {out['card']}")
     return out, launches, rowb_times, (k1p_launches,) + k1p_times, aggs
 
@@ -6007,6 +6323,7 @@ def run_ab(root, seed):
         out["stream"] = ab_stream(engine, ex, host, seed)
     out["kernels_at"] = ab_kernels(device, seed)
     out["pool"] = ab_pool(device, seed)
+    out["residency"] = ab_residency(device)
     out["k1_kr"] = ab_k1_kr(engine, holder, seed)
     out.update(root_writes(engine, ex, holder, host, seed))
     out["card"] = card_line()
@@ -6133,6 +6450,20 @@ def ab_pool(device, seed):
         "k6_pool_filter": (lambda: bsi.sum_tree(seg, mats, mask, bst, planes),
                            lambda: bsi.sum_tree_plain(seg, mats, mask, bst, planes), "sum_tree"),
     }
+    # The 8-Count query's shape (8 trees over 8 pool rows of a second pool)
+    # through kernels.count_batch_tree: K5P where the checkout has it.
+    pool8 = rand((1 + 8 * RSW_BLOCKS, S, 512))
+    pool8[0] = 0
+    table8 = torch.zeros((8, 64), dtype=torch.int32, device=device)
+    table8[:, :RSW_BLOCKS] = 1 + torch.arange(8 * RSW_BLOCKS, dtype=torch.int32,
+                                              device=device).reshape(8, RSW_BLOCKS)
+    rb8 = [("rowb", 0, 1, r) for r in range(8)]
+    progs = [(op, rb8[2 * f], rb8[2 * f + 1]) for f in range(4) for op in ("and", "or")]
+    bmasks, ids = np.ones((1, S), bool), [0] * len(progs)
+    calls["k5_pool"] = (
+        lambda: kernels.count_batch_tree(progs, [pool8, table8], bmasks, ids, device),
+        lambda: kernels.count_batch_tree_plain(progs, [pool8, table8], bmasks, ids, device),
+        "count_batch_tree")
     out = {}
     for name, (fn, plain, kernel) in calls.items():
         _exact(name, fn().reshape(-1), plain().reshape(-1), "in --root")
@@ -6140,6 +6471,100 @@ def ab_pool(device, seed):
             fn()
         sync()
         out[name] = device_ms(fn, kernel, per_call=True)
+    # The residency drain's shape through kernels.fused_tree: two Counts over
+    # seg and seg | row 2, a Sum under seg and a full TopN against row 2,
+    # every kernel of the call (F1P, K6P, K3P where the checkout has them;
+    # F1 and the whole-row K6 and K3 where not).  Then F1 over dense rows
+    # (the same slot table over 3 stack rows of random words), alone.
+    masks = [mask]
+    spec = kernels.FusedSpec((("and", rb[0], rb[1]), ("or", ("mref", 0), rb[2]), rb[2]),
+                             [(0, 0), (1, 0)], [("sum", 0, 0, 2, planes),
+                                                ("topnf", 2, 0, 3, 0, 1, 1, 3)])
+    dmats = [pool, table, bst, cand]
+
+    def drain():
+        return kernels.fused_tree(spec, dmats, masks, [idx, cnt])
+
+    for g, w in zip(drain(), kernels.fused_tree_plain(spec, dmats, masks, [idx, cnt])):
+        _exact("drain_pool", g.reshape(-1), w.reshape(-1), "in --root")
+    out["drain_pool"] = call_kernels_ms(drain, ("fused_tree", "sum_tree", "score_rows"))
+    rows = rand((3, S, W))
+    dslots = (("and", ("row", 0, 0), ("row", 0, 1)), ("or", ("mref", 0), ("row", 0, 2)),
+              ("row", 0, 2))
+    dcode = kernels.compile_fused(dslots, frozenset((0, 1, 2)))
+    fn = lambda: kernels.fused_tree_cuda(dcode, [rows], [0, 1], [mask, mask], [0, 2])  # noqa: E731
+    fn()
+    sync()
+    out["f1_dense"] = device_ms(fn, "fused_tree_kernel",
+                                bound_ms=5 * S * W * 4 / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def ab_residency(device):
+    """--root's residency items, through the checkout's engine: the
+    residency phase's index and budget (build_rsw at 960 shards, 4x
+    oversubscribed), the 8-Count query's and the drain's rows promoted by a
+    cold pass; then the drain's fused_many p50 and the 8-Count query's
+    Executor.execute p50 (each answer against numpy, memo off), and every
+    kernel of one call of each (call_kernels_ms): F1P, K6P, K3P and K5P
+    where the checkout has them, F1, K6, K3 and K5 where not."""
+    import gc
+
+    import torch
+
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+    from pilosa_tpu_torch.parallel.errors import ResidencyMiss
+
+    t0 = time.perf_counter()
+    holder = Holder(device=device)
+    holder.open()
+    words, (vcols, vvals) = build_rsw(holder, N_SHARDS)
+    q8, want8, _, entries, want_drain = rsw_queries(words, vcols, vvals)
+    budget = RSW_FIELDS * RSW_ROWS * N_SHARDS * ROW_SHARD_BYTES // 4 - N_SHARDS * ROW_SHARD_BYTES
+    eng = TorchEngine(holder, device=device, max_resident_bytes=budget)
+    eng.result_memo.maxsize = 0
+    ex = Executor(holder, engine=eng)
+
+    def eight():
+        if ex.execute("rsw", q8).results != want8:
+            raise AssertionError("--root residency: the 8 Counts disagree with numpy")
+
+    def drain():
+        got = eng.fused_many("rsw", entries)
+        if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+            raise AssertionError(f"--root residency: drain {got} != numpy {want_drain}")
+
+    eight()  # cold: the host lane, the rows requested
+    for _ in range(3):
+        assert eng.residency.flush(300.0)
+        try:
+            drain()
+            break
+        except ResidencyMiss:
+            pass
+    else:
+        raise AssertionError("--root residency: the drain missed three times")
+    fb = eng.host_fallbacks
+    eight()
+    if eng.host_fallbacks != fb:
+        raise AssertionError("--root residency: the warm 8-Count query fell back to the host")
+    out = {"set_up_s": time.perf_counter() - t0}
+    for name, fn in (("drain_e2e_p50_ms", drain), ("eight_counts_e2e_p50_ms", eight)):
+        times = []
+        for _ in range(RSW_WARM_REPS):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times)
+    out["drain_kernels"] = call_kernels_ms(drain, ("fused_tree", "sum_tree", "score_rows"))
+    out["eight_counts_kernels"] = call_kernels_ms(eight, ("count_batch_tree",))
+    eng.close()
+    holder.close()
+    del eng, ex, holder, words
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6231,6 +6656,62 @@ def ab_stream(engine, ex, host, seed, threads=64, per_thread=32):
             "launches": _launch_counts(), "fallbacks": ex.async_fallbacks}
 
 
+def compare_sass(parent):
+    """--sass: every kernel library of this checkout and of ``parent``
+    built with the build's flags (one nvcc each, all at once, into
+    build/sass/), and each parent function's SASS compared with the
+    function of the same name here (cuobjdump -sass, the
+    anonymous-namespace hash and the addresses stripped).  Prints one JSON
+    line: per library, the parent's functions, how many are identical, the
+    names of those that differ or are missing, and how many are new."""
+    import re
+
+    from pilosa_tpu_torch.parallel import build
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sass")
+    os.makedirs(out_dir, exist_ok=True)
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    procs = {}
+    for tag, root in (("change", str(build.CSRC.parents[1])), ("parent", parent)):
+        for name in build.KERNELS:
+            src = os.path.join(root, "pilosa_tpu_torch", "csrc", f"{name}.cu")
+            if os.path.exists(src):
+                lib = os.path.join(out_dir, f"{tag}-{name}.so")
+                procs[(tag, name)] = (lib, subprocess.Popen(
+                    [build.nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for (tag, name), (_, proc) in procs.items():
+        log_, _ = proc.communicate()
+        if proc.returncode:
+            raise AssertionError(f"sass: nvcc failed on {tag} {name}:\n{log_[-3000:]}")
+
+    def funcs(lib):
+        txt = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                             check=True).stdout
+        out, name = {}, None
+        for line in txt.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1))
+                out[name] = []
+            elif name:
+                out[name].append(re.sub(r"/\*[0-9a-f]{4}\*/|/\* 0x[0-9a-f]+ \*/", "",
+                                        line).strip())
+        return out
+
+    result = {}
+    for name in build.KERNELS:
+        if ("parent", name) not in procs:
+            continue
+        a, b = funcs(procs[("parent", name)][0]), funcs(procs[("change", name)][0])
+        result[name] = {"parent_functions": len(a),
+                        "identical": sum(1 for k in a if b.get(k) == a[k]),
+                        "differ": sorted(k for k in a if k in b and b[k] != a[k]),
+                        "missing": sorted(k for k in a if k not in b),
+                        "new": len(set(b) - set(a))}
+    print(json.dumps({"sass": result}), flush=True)
+
+
 def card_line():
     try:
         res = subprocess.run(
@@ -6251,6 +6732,9 @@ def main(argv=None):
     ap.add_argument("--root", help="A/B mode: import pilosa_tpu_torch from this checkout, print "
                                    "its end-to-end numbers and main-path kernels as one JSON "
                                    "line, and stop; prints no result line")
+    ap.add_argument("--sass", metavar="PARENT",
+                    help="build every kernel library of this checkout and of PARENT and "
+                         "compare each function's SASS; prints one JSON line and stops")
     args = ap.parse_args(argv)
 
     import torch
@@ -6270,6 +6754,9 @@ def main(argv=None):
         f"CUDA {torch.version.cuda}")
     if args.root:
         run_ab(root, args.seed)
+        return 0
+    if args.sass:
+        compare_sass(os.path.abspath(args.sass))
         return 0
 
     t0 = time.perf_counter()
@@ -6345,10 +6832,13 @@ def main(argv=None):
     kern.append(_entry("count_tree_pool", "pilosa_tpu_torch/csrc/count_tree_pool.cu",
                        "pilosa_tpu/parallel/kernels.py:84", k1p_launches, err["count_tree_pool"],
                        t_k1p, plain_k1p, k1p_bytes, k1p_bytes // 4 * 2, None))
-    # K3P and K6P on the residency phase's TopN and Sum over pool rows:
-    # an AND, a popcount and an add per word read.
+    # K3P, K6P, K5P and F1P on the residency phase's TopN, Sum, 8-Count
+    # query and drain over pool rows: an AND, a popcount and an add per
+    # word read.
     for name, rep in (("score_rows_pool", "pilosa_tpu/parallel/kernels.py:346"),
-                      ("sum_tree_pool", "pilosa_tpu/parallel/kernels.py:475")):
+                      ("sum_tree_pool", "pilosa_tpu/parallel/kernels.py:475"),
+                      ("count_batch_tree_pool", "pilosa_tpu/parallel/kernels.py:255"),
+                      ("fused_tree_pool", "pilosa_tpu/parallel/kernels.py:545")):
         n, t = aggs[name]
         kern.append(_entry(name, f"pilosa_tpu_torch/csrc/{name[:-5]}.cu", rep, n, err[name], t,
                            t["plain_ms"], t["bytes"], t["bytes"] // 4 * 3, None))

@@ -45,6 +45,25 @@
 // every shard) is written as zeros with no load.  The programs then read
 // the staged tile as they read any leaf row, so a batch of Counts over a
 // partial stack is one launch that reads only the occupied blocks.
+//
+// K5P (count_batch_tree_pool), the same kernel for a batch with pool
+// rows, also skips the blocks that no requesting query can read: each CTA
+// first forms its shard's live word, the union of the live words of the
+// leaf rows its requesting queries read (a pool row live where its slot
+// is not 0, a stack row everywhere; from the slot vectors, no host read
+// of the slot table; 256 threads, one block and every fourth row each,
+// eight ballots), lists the live blocks in shared memory and runs the
+// tile loop over live positions, not shard positions: live position i is
+// shard position 128 block[i / 128] + i % 128, for the staged copy and
+// for the direct path's loads alike.  So the 8-Count query over rows live
+// in 8 of 64 blocks stages and evaluates 8 blocks a shard, not 64: 8 rows
+// x 8 blocks x 960 shards x 2 KiB = 126 MB, 0.0376 ms at 3.35 TB/s.  The
+// first design united the queries' own words (each program evaluated on
+// one bit a block): a chain of dependent loads per query in every CTA's
+// prologue, 0.0835 ms on that query on an H100, where the rows' words,
+// one round trip, give the same 8 blocks.  K5P stages 32 KiB tiles and
+// takes one CTA a shard at 960 shards (the launcher says why).  A live
+// word of 0 stages nothing and adds nothing, and its CTA still arrives.
 #include <cuda_pipeline.h>
 
 #include "reduce.cuh"
@@ -88,14 +107,21 @@ __device__ __forceinline__ const uint4* pool_at(const Batch& b, int l, int pos) 
 
 // Leaf `l`'s words at position `p` of the tile starting at uint4 `base` of
 // the shard: from the staged tile, or from device memory (0 past the row).
-template <bool kStaged>
+// K5P (kLive) counts positions over the live blocks `blocks` only, n_pos
+// of them: live position i is shard position 128 blocks[i / 128] + i % 128.
+template <bool kStaged, bool kLive>
 __device__ __forceinline__ uint4 leaf_at(const Batch& b, const uint4* stage,
                                          int tile, int code, size_t shard_off,
-                                         int base, int p) {
+                                         int base, int p, const int* blocks, int n_pos) {
   const int l = code >> 8;
   if (kStaged) return stage[(size_t)l * tile + p];
-  const int pos = base + p;
-  if (pos >= b.w4) return make_uint4(0u, 0u, 0u, 0u);
+  int pos = base + p;
+  if constexpr (kLive) {
+    if (pos >= n_pos) return make_uint4(0u, 0u, 0u, 0u);
+    pos = blocks[pos / kPoolBlockVec] * kPoolBlockVec + pos % kPoolBlockVec;
+  } else {
+    if (pos >= b.w4) return make_uint4(0u, 0u, 0u, 0u);
+  }
   if ((code & 0xff) == OP_ROWB) {
     const uint4* src = pool_at(b, l, pos);
     return src == nullptr ? make_uint4(0u, 0u, 0u, 0u) : __ldg(src);
@@ -104,23 +130,24 @@ __device__ __forceinline__ uint4 leaf_at(const Batch& b, const uint4* stage,
   return __ldg(row + shard_off + pos);
 }
 
-template <bool kStaged>
+template <bool kStaged, bool kLive>
 __device__ __forceinline__ uint4 item_at(const Batch& b, const uint4* stage,
                                          int tile, int code, size_t shard_off,
-                                         int base, int p) {
+                                         int base, int p, const int* blocks, int n_pos) {
   return (code & 0xff) == OP_LEAF || (code & 0xff) == OP_ROWB
-             ? leaf_at<kStaged>(b, stage, tile, code, shard_off, base, p)
+             ? leaf_at<kStaged, kLive>(b, stage, tile, code, shard_off, base, p, blocks, n_pos)
              : make_uint4(0u, 0u, 0u, 0u);
 }
 
 // Popcount of query `q` over this lane's U positions of chunk `c`:
 // positions c * 32U + u * 32 + lane of the tile, so that for each u the
 // warp reads 32 neighbouring words.
-template <int U, bool kStaged>
+template <int U, bool kStaged, bool kLive>
 __device__ __forceinline__ unsigned int eval_item(const Batch& b,
                                                   const uint4* stage, int tile,
                                                   int4 q, size_t shard_off,
-                                                  int base, int c, int lane) {
+                                                  int base, int c, int lane,
+                                                  const int* blocks, int n_pos) {
   int p[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) p[u] = c * 32 * U + u * 32 + lane;
@@ -131,7 +158,8 @@ __device__ __forceinline__ unsigned int eval_item(const Batch& b,
     const int first = __ldg(ops);
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      acc[u] = item_at<kStaged>(b, stage, tile, first, shard_off, base, p[u]);
+      acc[u] = item_at<kStaged, kLive>(b, stage, tile, first, shard_off, base, p[u], blocks,
+                                       n_pos);
     for (int pc = 1; pc < q.y; pc += 2) {
       const int code = __ldg(ops + pc);
       const int op = __ldg(ops + pc + 1);
@@ -139,7 +167,8 @@ __device__ __forceinline__ unsigned int eval_item(const Batch& b,
       for (int u = 0; u < U; ++u)
         acc[u] = combine4(
             op, acc[u],
-            item_at<kStaged>(b, stage, tile, code, shard_off, base, p[u]));
+            item_at<kStaged, kLive>(b, stage, tile, code, shard_off, base, p[u], blocks,
+                                    n_pos));
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) count += popc4(acc[u]);
@@ -152,7 +181,8 @@ __device__ __forceinline__ unsigned int eval_item(const Batch& b,
       const int code = __ldg(ops + pc);
       const int op = code & 0xff;
       if (op == OP_LEAF || op == OP_ROWB || op == OP_ZERO) {
-        st[sp++] = item_at<kStaged>(b, stage, tile, code, shard_off, base, p[u]);
+        st[sp++] = item_at<kStaged, kLive>(b, stage, tile, code, shard_off, base, p[u],
+                                           blocks, n_pos);
       } else {
         const uint4 r = st[--sp];
         st[sp - 1] = combine4(op, st[sp - 1], r);
@@ -163,16 +193,20 @@ __device__ __forceinline__ unsigned int eval_item(const Batch& b,
   return count;
 }
 
-template <int U, bool kStaged>
-__global__ void __launch_bounds__(kThreads)
-    count_batch_tree_kernel(Batch b, int tile, int tiles,
-                            const int* __restrict__ out_index, int k_out,
-                            unsigned long long* __restrict__ scratch,
-                            long long* __restrict__ out) {
+// One CTA's work (K5, kLive false: every tile of the shard's rows; K5P,
+// kLive true: the tiles of the live positions only, see the file's head).
+template <int U, bool kStaged, bool kLive>
+__device__ __forceinline__ void count_batch_body(const Batch& b, int tile, int tiles,
+                                                 const int* __restrict__ out_index,
+                                                 int k_out,
+                                                 unsigned long long* __restrict__ scratch,
+                                                 long long* __restrict__ out) {
   extern __shared__ uint4 smem[];
   __shared__ int n_req_s;
   __shared__ int n_need_s;
   __shared__ bool last;
+  __shared__ LiveBlocks live;
+  __shared__ unsigned int warp_live[kWarps];
   const int s = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -221,6 +255,37 @@ __global__ void __launch_bounds__(kThreads)
   const size_t shard_off = (size_t)s * (size_t)b.w4;
   const int chunks = tile / (32 * U);
   const int shift = __ffs(tile) - 1;  // tile is a power of two
+  int n_pos = 0;
+  const int* blocks = nullptr;
+  if constexpr (kLive) {
+    // The shard's live word: the union of the live words of the leaf rows
+    // that its requesting queries read (the staged table's needed rows;
+    // the direct path, which lists none, takes every row of the batch), a
+    // stack row live everywhere.  It holds every query's own word, so the
+    // answers are exact.  Thread t takes block t % 64 over every fourth
+    // of those rows from row t / 64 on: one round trip for the slot
+    // vectors, their loads all in flight.
+    const int blk = tid & (kPoolBlocks - 1);
+    const int n_rows = kStaged ? n_need : (n_req > 0 ? b.n_leaves : 0);
+    bool on = false;
+    for (int i = tid / kPoolBlocks; i < n_rows; i += kThreads / kPoolBlocks) {
+      const unsigned long long sv = __ldg(b.slots + (kStaged ? nlist[i] : i));
+      on |= sv == 0ull || __ldg(reinterpret_cast<const int*>(sv) + blk) != 0;
+    }
+    const unsigned int bits = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) warp_live[warp] = bits;
+    __syncthreads();
+    unsigned long long word = 0ull;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      word |= (unsigned long long)warp_live[w] << (32 * (w & 1));
+    if (tid < kPoolBlocks && ((word >> tid) & 1ull))
+      live.block[__popcll(word & ((1ull << tid) - 1ull))] = tid;
+    __syncthreads();
+    n_pos = __popcll(word) * kPoolBlockVec;
+    tiles = (n_pos + tile - 1) / tile;
+    blocks = live.block;
+  }
   if (n_req > 0) {
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int base = t * tile;
@@ -233,11 +298,21 @@ __global__ void __launch_bounds__(kThreads)
           const int pos = base + p;
           uint4* dst = stage + (size_t)l * tile + p;
           const uint4* src = nullptr;
-          if (pos < b.w4) {
-            src = b.has_pool && __ldg(b.slots + l) != 0ull
-                      ? pool_at(b, l, pos)
-                      : reinterpret_cast<const uint4*>(__ldg(b.leaves + l)) +
-                            shard_off + pos;
+          if constexpr (kLive) {
+            if (pos < n_pos) {
+              const int at = live.block[pos / kPoolBlockVec] * kPoolBlockVec +
+                             pos % kPoolBlockVec;
+              src = __ldg(b.slots + l) != 0ull
+                        ? pool_at(b, l, at)
+                        : reinterpret_cast<const uint4*>(__ldg(b.leaves + l)) + shard_off + at;
+            }
+          } else {
+            if (pos < b.w4) {
+              src = b.has_pool && __ldg(b.slots + l) != 0ull
+                        ? pool_at(b, l, pos)
+                        : reinterpret_cast<const uint4*>(__ldg(b.leaves + l)) +
+                              shard_off + pos;
+            }
           }
           if (src != nullptr) {
             __pipeline_memcpy_async(dst, src, sizeof(uint4));
@@ -254,8 +329,8 @@ __global__ void __launch_bounds__(kThreads)
         const int j = it / chunks;
         const int c = it - j * chunks;
         const int4 q = __ldg(b.qinfo + qlist[j]);
-        unsigned int v =
-            eval_item<U, kStaged>(b, stage, tile, q, shard_off, base, c, lane);
+        unsigned int v = eval_item<U, kStaged, kLive>(b, stage, tile, q, shard_off, base, c,
+                                                      lane, blocks, n_pos);
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
         if (lane == 0 && v) atomicAdd(&cnt[j], v);
@@ -285,9 +360,31 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int U, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    count_batch_tree_kernel(Batch b, int tile, int tiles,
+                            const int* __restrict__ out_index, int k_out,
+                            unsigned long long* __restrict__ scratch,
+                            long long* __restrict__ out) {
+  count_batch_body<U, kStaged, false>(b, tile, tiles, out_index, k_out, scratch, out);
+}
+
+// K5P: K5 over the live blocks of the rows that each shard's requesting
+// queries read.
+template <int U, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    count_batch_tree_pool_kernel(Batch b, int tile, int tiles,
+                                 const int* __restrict__ out_index, int k_out,
+                                 unsigned long long* __restrict__ scratch,
+                                 long long* __restrict__ out) {
+  count_batch_body<U, kStaged, true>(b, tile, tiles, out_index, k_out, scratch, out);
+}
+
+template <int U, bool kStaged, bool kLive>
 int launch(const Batch& b, int tile, const int* out_index, int k_out,
            int n_shards, unsigned long long* scratch, long long* out,
            cudaStream_t stream) {
+  auto kernel = kLive ? count_batch_tree_pool_kernel<U, kStaged>
+                      : count_batch_tree_kernel<U, kStaged>;
   const size_t smem =
       (kStaged ? (size_t)b.n_leaves * tile * sizeof(uint4) : 0) +
       (size_t)b.K * 2 * sizeof(int) +
@@ -295,41 +392,43 @@ int launch(const Batch& b, int tile, const int* out_index, int k_out,
   static size_t allowed = 48 * 1024;  // the default, per instantiation
   if (smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        count_batch_tree_kernel<U, kStaged>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     allowed = smem;
   }
   const int tiles = (b.w4 + tile - 1) / tile;
-  // About eight CTAs per SM in all, at least one per shard.
+  // About eight CTAs per SM in all, at least one per shard.  K5P cannot
+  // know the live word without reading the slot table, and each of its
+  // CTAs pays a prologue (the live word, two barriers) before its first
+  // tile, so it takes only as many CTAs as fill the card once (the
+  // variant's occupancy at this stage), at least one a shard, each looping
+  // over its shard's live tiles; those past the live tiles find none and
+  // still arrive on the counter.  The residency phase's 8-Count query (960
+  // shards, 8 rows: 256-position tiles, 4 CTAs an SM) runs one CTA a
+  // shard over its 4 live tiles.
   int per_shard = (n_sms() * 8 + n_shards - 1) / n_shards;
+  if (kLive) {
+    int fit = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kThreads, smem) !=
+            cudaSuccess || fit <= 0)
+      fit = 1;
+    per_shard = (n_sms() * fit + n_shards - 1) / n_shards;
+  }
   if (per_shard > tiles) per_shard = tiles;
   if (per_shard < 1) per_shard = 1;
   const dim3 grid(per_shard, n_shards);
-  count_batch_tree_kernel<U, kStaged><<<grid, kThreads, smem, stream>>>(
-      b, tile, tiles, out_index, k_out, scratch, out);
+  kernel<<<grid, kThreads, smem, stream>>>(b, tile, tiles, out_index, k_out, scratch, out);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// leaves: device uint64[2 * n_leaves], the leaf row addresses and then
-// each leaf's slot vector address (0 for a stack row; a pool row's address
-// is the pool's slot 0); has_pool: whether any leaf is a pool row.  qinfo:
-// device
-// int32[K][4].  ops: device int32 programs.  masks: device
-// uint32[n masks][ceil(S / 32)].  out_index: device int32[k_out], or null
-// for out[i] = total of query i (k_out = K).  scratch: device
-// uint64[kMaxQueries + 1], zero (each launch leaves it zero).  out: device
-// int64[k_out], written whole.  Returns the cudaError_t of the launch.
-extern "C" int count_batch_tree(const void* leaves, int n_leaves, int has_pool,
-                                const void* qinfo, int K, const void* ops,
-                                const void* masks, const void* out_index,
-                                int k_out, int n_shards, int words,
-                                void* scratch, void* out, void* stream) {
+// Host side: count_batch_tree's launch (below), K5 or K5P.
+template <bool kLive>
+int run(const void* leaves, int n_leaves, int has_pool, const void* qinfo, int K,
+        const void* ops, const void* masks, const void* out_index, int k_out, int n_shards,
+        int words, void* scratch, void* out, void* stream) {
   if (K < 1 || K > kMaxQueries || n_leaves < 0 || n_leaves > kMaxLeaves ||
       k_out < 1 || n_shards < 0 || n_shards > 65535 || words <= 0 ||
-      words % 4 != 0)
+      words % 4 != 0 || (kLive && (has_pool == 0 || words != kPoolRowVec * 4)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (n_shards == 0)  // no CTA would write the (zero) totals
@@ -347,13 +446,49 @@ extern "C" int count_batch_tree(const void* leaves, int n_leaves, int has_pool,
   b.s32 = (n_shards + 31) / 32;
   b.w4 = words / 4;
   // The widest tile (a power of two, at most kDirectTile) whose words of
-  // every leaf row fit the stage.
+  // every leaf row fit the stage.  K5P stages half as much: its live
+  // tiles are few, so a CTA spends a larger share of its time in its
+  // prologue and evaluation, with nothing of its own in flight; at 32 KiB
+  // four CTAs share an SM (its registers' limit) where three did, and one
+  // CTA's copies overlap another's evaluation.  So its direct path starts
+  // past 64 rows.
+  const long long stage_bytes = kLive ? kStageBytes / 2 : kStageBytes;
   int tile = kDirectTile;
-  while (tile >= 32 && (long long)n_leaves * tile * 16 > kStageBytes) tile >>= 1;
+  while (tile >= 32 && (long long)n_leaves * tile * 16 > stage_bytes) tile >>= 1;
   unsigned long long* sc = (unsigned long long*)scratch;
   long long* o = (long long*)out;
   const int* fan = (const int*)out_index;
-  if (tile >= 128) return launch<4, true>(b, tile, fan, k_out, n_shards, sc, o, st);
-  if (tile >= 32) return launch<1, true>(b, tile, fan, k_out, n_shards, sc, o, st);
-  return launch<4, false>(b, kDirectTile, fan, k_out, n_shards, sc, o, st);
+  if (tile >= 128) return launch<4, true, kLive>(b, tile, fan, k_out, n_shards, sc, o, st);
+  if (tile >= 32) return launch<1, true, kLive>(b, tile, fan, k_out, n_shards, sc, o, st);
+  return launch<4, false, kLive>(b, kDirectTile, fan, k_out, n_shards, sc, o, st);
+}
+
+}  // namespace
+
+// leaves: device uint64[2 * n_leaves], the leaf row addresses and then
+// each leaf's slot vector address (0 for a stack row; a pool row's address
+// is the pool's slot 0); has_pool: whether any leaf is a pool row.  qinfo:
+// device int32[K][4].  ops: device int32 programs.  masks: device
+// uint32[n masks][ceil(S / 32)].  out_index: device int32[k_out], or null
+// for out[i] = total of query i (k_out = K).  scratch: device
+// uint64[kMaxQueries + 1], zero (each launch leaves it zero).  out: device
+// int64[k_out], written whole.  Returns the cudaError_t of the launch.
+extern "C" int count_batch_tree(const void* leaves, int n_leaves, int has_pool,
+                                const void* qinfo, int K, const void* ops,
+                                const void* masks, const void* out_index,
+                                int k_out, int n_shards, int words,
+                                void* scratch, void* out, void* stream) {
+  return run<false>(leaves, n_leaves, has_pool, qinfo, K, ops, masks, out_index, k_out,
+                    n_shards, words, scratch, out, stream);
+}
+
+// K5P: count_batch_tree's arguments for a batch with pool rows (has_pool
+// 1, words the full 32768 of a pool row), reading the live blocks only.
+extern "C" int count_batch_tree_pool(const void* leaves, int n_leaves, int has_pool,
+                                     const void* qinfo, int K, const void* ops,
+                                     const void* masks, const void* out_index,
+                                     int k_out, int n_shards, int words,
+                                     void* scratch, void* out, void* stream) {
+  return run<true>(leaves, n_leaves, has_pool, qinfo, K, ops, masks, out_index, k_out,
+                   n_shards, words, scratch, out, stream);
 }

@@ -1,7 +1,8 @@
-// Shared by count_tree_blocks.cu (K2), score_rows.cu (K3) and
-// and_popcount_rows.cu (P2): the card's SM count, which their launchers
-// size grids by, and the reduction of a CTA's per-thread counts that K3 and
-// P2 finish across a thread-block cluster.
+// Shared by count_tree_blocks.cu (K2), score_rows.cu (K3),
+// and_popcount_rows.cu (P2) and the launchers that size grids by the
+// card's SM count (K1P, K5, K6P, F1P): the SM count, and the reduction
+// of a CTA's per-thread counts that K3 and P2 finish across a
+// thread-block cluster.
 #pragma once
 
 #include <cooperative_groups.h>

@@ -1,10 +1,10 @@
 // Shared device code of the kernels that evaluate a tree (K1
 // count_tree_dense.cu, K1P count_tree_pool.cu, K2 count_tree_blocks.cu,
-// K3/K3P score_rows.cu, K6/K6P sum_tree.cu, K7 minmax_tree.cu, K8's filter
-// in groupn_tree.cu, F1 fused_tree.cu): the postfix tree program, the
-// per-thread tree evaluation over 16-byte word vectors, the BSI range leaf,
-// the block-pool leaf and a pool tree's live blocks, and the block
-// reduction.
+// K3/K3P score_rows.cu, K5/K5P count_batch_tree.cu, K6/K6P sum_tree.cu, K7
+// minmax_tree.cu, K8's filter in groupn_tree.cu, F1/F1P fused_tree.cu):
+// the postfix tree program, the per-thread tree evaluation over 16-byte
+// word vectors, the BSI range leaf, the block-pool leaf and a pool tree's
+// (or a fused slot table's) live blocks, and the block reduction.
 //
 // A normalized count tree (leaves: a row of a field stack, a row of a block
 // pool, zero, or a BSI range condition; nodes: and / or / andnot / xor)
@@ -113,13 +113,14 @@ __device__ __forceinline__ uint4 load_pool(const Leaves& leaves, int k, size_t o
 }
 
 // The live word (K1P count_tree_pool.cu, K3P score_rows.cu, K6P
-// sum_tree.cu).  Block b of a pool row sits in slot slot[b] in every
-// shard, so which blocks a tree can make non-zero is one 64-bit word for
-// all shards: the tree evaluated on one bit a block, a pool leaf live where
-// its slot is not 0, a stack row or range leaf live everywhere, zero dead;
-// `and` intersects, `or`/`xor` unite, `andnot` keeps its left side (the
-// sparse planner's rules, parallel/engine.py _sparse_plan; on the host,
-// parallel/kernels.py live_blocks).
+// sum_tree.cu, K5P count_batch_tree.cu, F1P fused_tree.cu).  Block b of a
+// pool row sits in slot slot[b] in every shard, so which blocks a tree can
+// make non-zero is one 64-bit word for all shards: the tree evaluated on
+// one bit a block, a pool leaf live where its slot is not 0, a stack row or
+// range leaf live everywhere, zero dead; `and` intersects, `or`/`xor`
+// unite, `andnot` keeps its left side (the sparse planner's rules,
+// parallel/engine.py _sparse_plan; on the host, parallel/kernels.py
+// live_blocks).  K5P unites its leaves' words instead (count_batch_tree.cu).
 
 // Whether block b of the tree's words can be non-zero in some shard: the
 // postfix program evaluated on one bit a value, the stack in the bits of a
@@ -148,6 +149,48 @@ __device__ __forceinline__ bool block_live(const TreeProg& prog, const Leaves& l
     ++sp;
   }
   return stack & 1u;
+}
+
+// Whether an item of a fused slot (a leaf, range leaf, zero or OP_MREF)
+// can be non-zero at block b: the rules above, an OP_MREF where the
+// earlier slot it names is (bit j of `earlier`).
+__device__ __forceinline__ unsigned int item_live(int code, const Leaves& leaves, int b,
+                                                  unsigned int earlier) {
+  const int op = code & 0xff;
+  if (op == OP_ROWB) return __ldg(leaves.slot[code >> 8] + b) != 0 ? 1u : 0u;
+  if (op == OP_MREF) return (earlier >> (code >> 8)) & 1u;
+  return op == OP_ZERO ? 0u : 1u;
+}
+
+// The live bits at block b of a table of flat slots (F1P, fused_tree.cu
+// FusedProg: op, first, item_off, item_len, items, mref), bit k for slot
+// k, in table order: block_live generalized to the flat node.  `and`
+// intersects its items and referenced slots (all ones with none), `or`
+// and `xor` unite them (xor's mref set holds only the slots named an odd
+// number of times: parallel/kernels.py compile_fused), `andnot` keeps its
+// left side `first`.
+template <class Slots>
+__device__ __forceinline__ unsigned int slots_live(const Slots& fp, const Leaves& leaves, int b) {
+  unsigned int bits = 0u;
+  for (int k = 0; k < fp.n_slots; ++k) {
+    const int op = fp.op[k];
+    unsigned int v;
+    if (op == OP_ANDNOT) {
+      v = item_live(fp.first[k], leaves, b, bits);
+    } else {
+      const bool conj = op == OP_AND;
+      v = conj ? 1u : 0u;
+      const int end = fp.item_off[k] + fp.item_len[k];
+      for (int pc = fp.item_off[k]; pc < end; ++pc) {
+        const unsigned int x = item_live(fp.items[pc], leaves, b, bits);
+        v = conj ? (v & x) : (v | x);
+      }
+      const unsigned int m = fp.mref[k];
+      v = conj ? (v & ((m & ~bits) == 0u ? 1u : 0u)) : (v | ((m & bits) != 0u ? 1u : 0u));
+    }
+    bits |= v << k;
+  }
+  return bits;
 }
 
 // A CTA's live blocks, in shared memory: the live word's two ballots, and

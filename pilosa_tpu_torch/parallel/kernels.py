@@ -1,6 +1,7 @@
 """Count(tree) and TopN scoring over field stacks: K1 ``count_tree_dense``,
 K1P ``count_tree_pool``, K3 ``score_rows`` (with TopN's trim in its last
-block) and P2 ``and_popcount_rows``, each beside its plain twin.
+block), P2 ``and_popcount_rows``, K5/K5P ``count_batch_tree`` and F1/F1P
+``fused_tree``, each beside its plain twin.
 
 The engine lowers a PQL call tree to a normalized program over a list of
 field stacks ``int32[R, S, WORDS]`` (rows major, the canonical shard axis
@@ -53,13 +54,18 @@ named by index, against one src row (``bitops.popcount_and_rows``).
 ``count_batch_tree`` (K Counts in one launch, below) compiles a batch of
 trees into one table of distinct leaf rows and one postfix program per
 query (``compile_batch``) and wraps K5 ``csrc/count_batch_tree.cu`` the
-same way.
+same way; a batch with a pool row launches K5P (``count_batch_tree_pool``
+in the same source), which stages and evaluates only the blocks where
+the rows its queries read can be non-zero.
 
 ``fused_tree`` (a whole dashboard of one index, below) evaluates a table
 of mask slots, each a flat node over leaves and ``("mref", j)`` references
 to earlier slots, counts the count edges and runs the aggregate edges on
 the slots: F1 ``csrc/fused_tree.cu`` for the slots and counts, then K3,
-K6, K7 and K8 with a slot as their filter row.
+K6, K7 and K8 with a slot as their filter row.  A table with a pool leaf
+launches F1P (``fused_tree_pool`` in the same source), which walks only
+its slots' live blocks and writes each materialized slot as a pool row,
+so that the Sum and TopN edges take K6P and K3P.
 """
 
 from __future__ import annotations
@@ -300,13 +306,16 @@ def count_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> 
     return bitops.popcount_words(row[mask != 0]).sum()
 
 
-def live_blocks(prog, mats: Sequence[torch.Tensor], device) -> torch.Tensor:
+def live_blocks(prog, mats: Sequence[torch.Tensor], device, slots=None) -> torch.Tensor:
     """The tree's live word as bool[POOL_BLOCKS]: block b is live where
     the tree's words can be non-zero in some shard.  A pool leaf is live
     where its slot is not 0 (the same slot in every shard), a stack row or
     range leaf everywhere, zero nowhere; ``and`` intersects, ``or`` and
     ``xor`` unite, ``andnot`` keeps its left side (K1P's prologue,
-    csrc/count_tree_pool.cu)."""
+    csrc/count_tree_pool.cu).  In a fused slot ``("mref", j)`` is live
+    where slot j is (``slots[j]``, its word), and an ``xor`` unites only
+    the slots it names an odd number of times, as ``compile_fused`` keeps
+    them (F1P's prologue, csrc/tree_eval.cuh slots_live)."""
     kind = prog[0]
     if kind == "rowb":
         return mats[prog[2]][prog[3]] != 0
@@ -314,12 +323,18 @@ def live_blocks(prog, mats: Sequence[torch.Tensor], device) -> torch.Tensor:
         return torch.ones(POOL_BLOCKS, dtype=torch.bool, device=device)
     if kind == "zero":
         return torch.zeros(POOL_BLOCKS, dtype=torch.bool, device=device)
-    live = live_blocks(prog[1], mats, device)
-    for p in prog[2:]:
+    if kind == "mref":
+        return slots[prog[1]]
+    kids = prog[1:]
+    if kind == "xor":
+        kids = [p for p in kids if p[0] != "mref" or kids.count(p) % 2]
+    live = torch.zeros(POOL_BLOCKS, dtype=torch.bool, device=device) if not kids else \
+        live_blocks(kids[0], mats, device, slots)
+    for p in kids[1:]:
         if kind == "and":
-            live = live & live_blocks(p, mats, device)
+            live = live & live_blocks(p, mats, device, slots)
         elif kind != "andnot":
-            live = live | live_blocks(p, mats, device)
+            live = live | live_blocks(p, mats, device, slots)
     return live
 
 
@@ -540,8 +555,9 @@ range_leaf.launches = 0
 
 def pool_leaf(code, kernel: str) -> None:
     """Called by every kernel wrapper whose launch may carry pool leaves
-    (K1, K1P, K2, K3, K3P, K5, K6, K6P, K7, K8 and F1) after it launched
-    (K3P under "score_rows", K6P under "sum_tree"):
+    (K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, K8, F1 and F1P) after it
+    launched (K3P under "score_rows", K6P under "sum_tree", K5P under
+    "count_batch_tree", F1P under "fused_tree"):
     ``pool_leaf.launches`` counts the launches that read a block pool
     (csrc/tree_eval.cuh load_pool, or K5's staging), ``pool_leaf.by_kernel``
     them per kernel."""
@@ -1009,10 +1025,25 @@ def count_batch_tree_plain(progs, mats: Sequence[torch.Tensor], masks: np.ndarra
     reading row ``mask_ids[k]``); with ``out_index`` the answers fanned out
     as ``result[out_index]``.  The CPU path and the reference K5 is held
     against."""
+    return _batch_plain(count_tree_plain, progs, mats, masks, mask_ids, device, out_index)
+
+
+def count_batch_tree_pool_plain(progs, mats: Sequence[torch.Tensor], masks: np.ndarray,
+                                mask_ids: Sequence[int], device,
+                                out_index: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """K5P's plain version: ``count_batch_tree_plain``'s answers, each
+    query's from its tree's live blocks only (``count_tree_pool_plain``).
+    Equal to ``count_batch_tree_plain`` for every batch over full-width
+    rows."""
+    return _batch_plain(count_tree_pool_plain, progs, mats, masks, mask_ids, device, out_index)
+
+
+def _batch_plain(count, progs, mats, masks, mask_ids, device, out_index) -> torch.Tensor:
+    """``count(prog, mats, mask)`` per query into int64[K], fanned out."""
     dev_masks = torch.from_numpy(np.ascontiguousarray(masks, dtype=np.int32)).to(device)
     out = torch.zeros(len(progs), dtype=torch.int64, device=device)
     for k, prog in enumerate(progs):
-        out[k] = count_tree_plain(prog, mats, dev_masks[int(mask_ids[k])])
+        out[k] = count(prog, mats, dev_masks[int(mask_ids[k])])
     if out_index is not None:
         out = out[torch.as_tensor(np.asarray(out_index, dtype=np.int64), device=device)]
     return out
@@ -1058,17 +1089,11 @@ def _pack(sections) -> Tuple[np.ndarray, List[int]]:
     return buf, offs
 
 
-def count_batch_tree_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
-                          masks: np.ndarray, device: torch.device,
-                          out_index: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """Launch K5 on the card, on the current stream, without waiting for
-    the device: int64[K] (or int64[len(out_index)], answer i being query
-    ``out_index[i]``'s).  The leaf row addresses, programs, masks (one bit
-    per shard) and the fan-out travel in one pinned buffer, uploaded with
-    one non-blocking copy.  PyTorch's caching host allocator keeps the
-    pinned buffer until that copy has run, and its device allocator hands
-    the device copy out again only to work queued after K5 on this stream,
-    so neither is reused while the launch may still read it."""
+def _batch_launch(entry: str, batch: BatchProgram, mats: Sequence[torch.Tensor],
+                  masks: np.ndarray, device: torch.device,
+                  out_index: Optional[Sequence[int]]) -> torch.Tensor:
+    """Launch K5 or K5P (C entry ``entry`` of the count_batch_tree library,
+    the same arguments): count_batch_tree_cuda's checks and result."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("K5 runs on the card")
@@ -1100,16 +1125,31 @@ def count_batch_tree_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
     dev_buf = torch.from_numpy(buf).pin_memory().to(device, non_blocking=True)
     base = dev_buf.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
-    fn = _lib_fn("count_batch_tree", "count_batch_tree", _BATCH_ARGS)
-    has_pool = int(any(len(leaf) == 3 for leaf in batch.leaves))
-    err = fn(base + offs[0], len(batch.leaves), has_pool, base + offs[1], K, base + offs[2],
-             base + offs[3], None if fan is None else base + offs[4], k_out, S, words,
-             _batch_scratch_for(device, stream).data_ptr(), out.data_ptr(), stream)
+    fn = _lib_fn("count_batch_tree", entry, _BATCH_ARGS)
+    err = fn(base + offs[0], len(batch.leaves), int(batch.pooled), base + offs[1], K,
+             base + offs[2], base + offs[3], None if fan is None else base + offs[4], k_out, S,
+             words, _batch_scratch_for(device, stream).data_ptr(), out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"count_batch_tree launch failed: cudaError {err}")
-    count_batch_tree_cuda.launches += 1
-    count_batch_tree_cuda.by_k[K] = count_batch_tree_cuda.by_k.get(K, 0) + 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     pool_leaf(batch, "count_batch_tree")
+    return out
+
+
+def count_batch_tree_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
+                          masks: np.ndarray, device: torch.device,
+                          out_index: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Launch K5 on the card, on the current stream, without waiting for
+    the device: int64[K] (or int64[len(out_index)], answer i being query
+    ``out_index[i]``'s).  The leaf row addresses, programs, masks (one bit
+    per shard) and the fan-out travel in one pinned buffer, uploaded with
+    one non-blocking copy.  PyTorch's caching host allocator keeps the
+    pinned buffer until that copy has run, and its device allocator hands
+    the device copy out again only to work queued after K5 on this stream,
+    so neither is reused while the launch may still read it."""
+    out = _batch_launch("count_batch_tree", batch, mats, masks, device, out_index)
+    count_batch_tree_cuda.launches += 1
+    K = batch.qinfo.shape[0]
+    count_batch_tree_cuda.by_k[K] = count_batch_tree_cuda.by_k.get(K, 0) + 1
     return out
 
 
@@ -1118,18 +1158,38 @@ count_batch_tree_cuda.launches = 0
 count_batch_tree_cuda.by_k = {}
 
 
+def count_batch_tree_pool_cuda(batch: BatchProgram, mats: Sequence[torch.Tensor],
+                               masks: np.ndarray, device: torch.device,
+                               out_index: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Launch K5P (``csrc/count_batch_tree.cu`` count_batch_tree_pool) on
+    the card: ``count_batch_tree_cuda``'s arguments and result, for a
+    batch with pool rows (rows the full WORDS wide), each shard's tiles
+    over the live blocks of the rows its requesting queries read only."""
+    if not batch.pooled:
+        raise ValueError("K5P takes a batch with pool rows")
+    out = _batch_launch("count_batch_tree_pool", batch, mats, masks, device, out_index)
+    count_batch_tree_pool_cuda.launches += 1
+    return out
+
+
+count_batch_tree_pool_cuda.launches = 0
+
+
 def count_batch_tree(progs, mats: Sequence[torch.Tensor], masks: np.ndarray,
                      mask_ids: Sequence[int], device,
                      out_index: Optional[Sequence[int]] = None) -> torch.Tensor:
     """K Count(tree) queries in one launch: int64[K] of sum(popcount(tree_k
     & mask_k)), query k requesting the shards of ``masks[mask_ids[k]]``
     (``masks`` bool[M, S]); with ``out_index`` the answers fanned out as
-    ``result[out_index]``.  On the card K5 launches or raises; on the CPU
-    the plain version runs."""
+    ``result[out_index]``.  On the card K5P launches for a batch with a
+    pool row and K5 for any other, or raises; on the CPU the matching plain
+    version runs."""
     batch = compile_batch(progs, mask_ids)
     if torch.device(device).type == "cuda":
-        return count_batch_tree_cuda(batch, mats, masks, device, out_index)
-    return count_batch_tree_plain(progs, mats, masks, mask_ids, device, out_index)
+        launch = count_batch_tree_pool_cuda if batch.pooled else count_batch_tree_cuda
+        return launch(batch, mats, masks, device, out_index)
+    plain = count_batch_tree_pool_plain if batch.pooled else count_batch_tree_plain
+    return plain(progs, mats, masks, mask_ids, device, out_index)
 
 
 # -- whole-dashboard fusion: F1 fused_tree -----------------------------------
@@ -1289,6 +1349,38 @@ def fused_slots_plain(slots, mats: Sequence[torch.Tensor], shape, device) -> Lis
     return vals
 
 
+def _fused_live(spec, mats, S: int, device) -> tuple:
+    """Every slot's value int32[S, WORDS] (``fused_slots_plain``) and live
+    word bool[64] (``live_blocks`` over the table), in table order."""
+    live: List[torch.Tensor] = []
+    for prog in spec.slots:
+        live.append(live_blocks(prog, mats, device, live))
+    return fused_slots_plain(spec.slots, mats, (S, bitops.WORDS), device), live
+
+
+def fused_mat_pool_plain(spec, mats: Sequence[torch.Tensor],
+                         masks: Sequence[torch.Tensor]) -> tuple:
+    """F1P's materialized slots in plain PyTorch ops: ``(pool int32[1 +
+    64 n_mat, S, 512], table int32[n_mat, 64])`` for the slots
+    ``spec.mat_slots``, slot r's live blocks (``live_blocks`` with mref,
+    over the table) at pool slots 1 + 64 r + b, its table row naming them
+    and 0 elsewhere; every other pool slot zero.  The tests' and the
+    card check's yardstick for F1P's pool and table."""
+    S = masks[0].shape[0]
+    device = masks[0].device
+    vals, live = _fused_live(spec, mats, S, device)
+    n_mat = len(spec.mat_slots)
+    pool = torch.zeros((1 + POOL_BLOCKS * n_mat, S, POOL_BLOCK_WORDS), dtype=torch.int32,
+                       device=device)
+    table = torch.zeros((n_mat, POOL_BLOCKS), dtype=torch.int32, device=device)
+    for r, j in enumerate(spec.mat_slots):
+        blocks = torch.nonzero(live[j]).flatten()
+        table[r, blocks] = (1 + POOL_BLOCKS * r + blocks).to(torch.int32)
+        words = vals[j].reshape(S, POOL_BLOCKS, POOL_BLOCK_WORDS)[:, blocks]
+        pool[1 + POOL_BLOCKS * r + blocks] = words.permute(1, 0, 2)
+    return pool, table
+
+
 _fused_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -1307,22 +1399,37 @@ def _fused_scratch_for(device: torch.device, stream: int, n: int) -> torch.Tenso
         return buf[:n]
 
 
+# F1P's pools, apart from F1's scratch, one per (device, stream): (buffer,
+# the length of its prefix known zero).  Slot 0 of a pool over S shards is
+# the buffer's first S * 512 int32.  F1P never writes slot 0, but a drain
+# over fewer shards writes its slots inside a longer drain's slot 0, so the
+# prefix is zeroed (on the stream, before F1P) whenever a drain needs more
+# of it than is known zero, and only the current drain's stays known.
+_fused_pool: Dict[Tuple[int, int], list] = {}
+
+
+def _fused_pool_for(device: torch.device, stream: int, n_mat: int, S: int) -> torch.Tensor:
+    """F1P's pool int32[1 + 64 n_mat, S, 512] for one (device, stream),
+    slot 0 zero: valid until the next F1P on this stream."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    slot = S * POOL_BLOCK_WORDS
+    n = (1 + POOL_BLOCKS * n_mat) * slot
+    with _totals_lock:
+        entry = _fused_pool.get(key)
+        if entry is None or entry[0].numel() < n:
+            entry = _fused_pool[key] = [torch.empty(n, dtype=torch.int32, device=device), 0]
+        if entry[1] < slot:
+            entry[0][:slot].zero_()
+        entry[1] = slot
+        return entry[0][:n].view(1 + POOL_BLOCKS * n_mat, S, POOL_BLOCK_WORDS)
+
+
 _FUSED_ARGS = [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
 
 
-def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: Sequence[int],
-                    gates: Sequence[torch.Tensor], mat_slots: Sequence[int] = (),
-                    need: Optional[torch.Tensor] = None, n_shards: Optional[int] = None):
-    """Launch F1 on the card, on the current stream, without waiting for
-    the device.  Returns ``(counts int64[E], mat)``: count edge e is
-    sum(popcount(slot[count_slots[e]] & gates[e])) over the shards (each
-    gate int32[S], nonzero = requested); ``mat`` int32[len(mat_slots), S,
-    W] holds slot ``mat_slots[i]`` in row i (None without mat_slots), in
-    the per-(device, stream) scratch, valid until the next F1 on this
-    stream.  With ``need`` int32[S] F1 reads and writes only the shards it
-    marks: every gate must lie inside it, and ``mat`` is unspecified
-    outside it (each aggregate kernel skips the shards its mask leaves
-    out)."""
+def _fused_args(code: FusedCode, mats, count_slots, gates, mat_slots, need, n_shards):
+    """F1's and F1P's checked arguments: (S, W, device, gates, need, the C
+    arguments up to the shard count)."""
     S = (need.shape[0] if need is not None else gates[0].shape[0] if gates
          else n_shards if n_shards is not None else mats[0].shape[1])
     W = check_stacks(mats, S, code)
@@ -1341,11 +1448,6 @@ def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: 
     dev = gates[0].device if gates else need.device if need is not None else mats[0].device
     if dev.type != "cuda":
         raise ValueError("F1 runs on the card")
-    out = torch.zeros(max(E, 1), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    mat = None
-    if mat_slots:
-        mat = _fused_scratch_for(dev, stream, len(mat_slots) * S * W).view(len(mat_slots), S, W)
     mat_row = [-1] * n_slots
     for i, j in enumerate(mat_slots):
         mat_row[code.pos[int(j)]] = i
@@ -1357,12 +1459,35 @@ def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: 
         v for k in range(n_slots) for v in (code.op[k], code.first[k], code.item_off[k],
                                             code.item_len[k], code.mref[k])])
     items = (ctypes.c_int * max(1, len(code.items)))(*code.items)
+    args = (*_c_table(code.leaves, code.ranges, mats), n_slots, info, items, len(code.items),
+            (ctypes.c_int * n_slots)(*mat_row), counted, E,
+            (ctypes.c_int * max(1, E))(*edge_slots),
+            (ctypes.c_void_p * max(1, E))(*[g.data_ptr() for g in gates]), _ptr(need), S)
+    return S, W, dev, args
+
+
+def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: Sequence[int],
+                    gates: Sequence[torch.Tensor], mat_slots: Sequence[int] = (),
+                    need: Optional[torch.Tensor] = None, n_shards: Optional[int] = None):
+    """Launch F1 on the card, on the current stream, without waiting for
+    the device.  Returns ``(counts int64[E], mat)``: count edge e is
+    sum(popcount(slot[count_slots[e]] & gates[e])) over the shards (each
+    gate int32[S], nonzero = requested); ``mat`` int32[len(mat_slots), S,
+    W] holds slot ``mat_slots[i]`` in row i (None without mat_slots), in
+    the per-(device, stream) scratch, valid until the next F1 on this
+    stream.  With ``need`` int32[S] F1 reads and writes only the shards it
+    marks: every gate must lie inside it, and ``mat`` is unspecified
+    outside it (each aggregate kernel skips the shards its mask leaves
+    out)."""
+    S, W, dev, args = _fused_args(code, mats, count_slots, gates, mat_slots, need, n_shards)
+    E = len(count_slots)
+    out = torch.zeros(max(E, 1), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mat = None
+    if mat_slots:
+        mat = _fused_scratch_for(dev, stream, len(mat_slots) * S * W).view(len(mat_slots), S, W)
     fn = _lib_fn("fused_tree", "fused_tree", _FUSED_ARGS)
-    err = fn(*_c_table(code.leaves, code.ranges, mats), n_slots, info, items, len(code.items),
-             (ctypes.c_int * n_slots)(*mat_row), counted, E,
-             (ctypes.c_int * max(1, E))(*edge_slots),
-             (ctypes.c_void_p * max(1, E))(*[g.data_ptr() for g in gates]),
-             _ptr(need), S, W, _ptr(mat), out.data_ptr(), stream)
+    err = fn(*args, W, _ptr(mat), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_tree launch failed: cudaError {err}")
     fused_tree_cuda.launches += 1
@@ -1372,6 +1497,41 @@ def fused_tree_cuda(code: FusedCode, mats: Sequence[torch.Tensor], count_slots: 
 
 
 fused_tree_cuda.launches = 0
+
+
+def fused_tree_pool_cuda(code: FusedCode, mats: Sequence[torch.Tensor],
+                         count_slots: Sequence[int], gates: Sequence[torch.Tensor],
+                         mat_slots: Sequence[int] = (), need: Optional[torch.Tensor] = None,
+                         n_shards: Optional[int] = None):
+    """Launch F1P (``csrc/fused_tree.cu`` fused_tree_pool) on the card:
+    ``fused_tree_cuda``'s arguments, for a slot table with pool leaves
+    (rows the full WORDS wide), reading and writing only the blocks its
+    slots can make non-zero.  Returns ``(counts int64[E], mat)`` with
+    ``mat`` the materialized slots as pool rows, ``(pool int32[1 + 64 n,
+    S, 512], table int32[n, 64])``: slot ``mat_slots[i]`` is the pool row
+    of table row i, ``("rowb", 0, 1, i)`` over ``[pool, table]`` (None
+    without mat_slots).  The pool is per (device, stream), valid until the
+    next F1P on this stream, unspecified outside ``need`` as F1's scratch
+    is; the table is the launch's own."""
+    S, W, dev, args = _fused_args(code, mats, count_slots, gates, mat_slots, need, n_shards)
+    E = len(count_slots)
+    out = torch.zeros(max(E, 1), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pool = table = None
+    if mat_slots:
+        pool = _fused_pool_for(dev, stream, len(mat_slots), S)
+        table = torch.empty((len(mat_slots), POOL_BLOCKS), dtype=torch.int32, device=dev)
+    fn = _lib_fn("fused_tree", "fused_tree_pool", _FUSED_ARGS + [_P])
+    err = fn(*args, W, _ptr(pool), _ptr(table), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_tree_pool launch failed: cudaError {err}")
+    fused_tree_pool_cuda.launches += 1
+    range_leaf(code)
+    pool_leaf(code, "fused_tree")
+    return out[:E], (None if pool is None else (pool, table))
+
+
+fused_tree_pool_cuda.launches = 0
 
 # Device outputs of each aggregate edge kind (FusedSpec).
 FUSED_ARITY = {"sum": 1, "minmax": 2, "topn": 2, "topnf": 1, "group": 1}
@@ -1412,32 +1572,40 @@ class FusedSpec:
 def _agg_outputs(spec: FusedSpec, mats, mat, masks, tensors, plain: bool) -> list:
     """The aggregate edges' outputs, each edge's kernel (or, with
     ``plain``, its plain version) reading its slot as row
-    ``spec.mat_slots.index(slot)`` of ``mat``."""
+    ``spec.mat_slots.index(slot)`` of ``mat``: a stack int32[n_mat, S, W]
+    (F1's), or F1P's ``(pool, table)``, whose pool row i is the leaf
+    ``("rowb", 0, 1, i)`` (so the Sum and TopN edges take K6P and K3P, and
+    K7 and K8 read it through load_pool)."""
     from . import bsi as bsi_mod
     from . import groupby as groupby_mod
 
     # An edge's filter is one row of ``mat``, its only leaf stack (the part's
     # pools and slot tables stay out of the edge kernels' stack list).
-    ext = [] if mat is None else [mat]
+    pooled = isinstance(mat, tuple)
+    ext = [] if mat is None else list(mat) if pooled else [mat]
     row_of = {j: i for i, j in enumerate(spec.mat_slots)}
     outs: list = []
     for e in spec.agg_edges:
         kind, slot, mask = e[0], e[1], masks[e[2]]
-        prog = None if slot < 0 else ("row", 0, row_of[slot])
+        prog = None if slot < 0 else ("rowb", 0, 1, row_of[slot]) if pooled else \
+            ("row", 0, row_of[slot])
+        pool_plain = pooled and prog is not None
         if kind == "sum":
-            fn = bsi_mod.sum_tree_plain if plain else bsi_mod.sum_tree
+            fn = bsi_mod.sum_tree if not plain else \
+                bsi_mod.sum_tree_pool_plain if pool_plain else bsi_mod.sum_tree_plain
             outs.append(fn(prog, ext, mask, mats[e[3]], e[4]))
         elif kind == "minmax":
             fn = bsi_mod.minmax_tree_plain if plain else bsi_mod.minmax_tree
             outs.extend(fn(prog, ext, mask, mats[e[3]], e[4], e[5]))
         elif kind == "topn":
-            fn = topn_tree_plain if plain else topn_tree
+            fn = topn_tree if not plain else \
+                topn_tree_pool_plain if pool_plain else topn_tree_plain
             outs.extend(fn(prog, ext, mask, mats[e[3]], tensors[e[4]]))
         elif kind == "topnf":
             _, _, _, cm, ix, cnt, thr, n_out = e
             if plain:
-                out = topn_full_tree_plain(prog, ext, mask, mats[cm], tensors[ix], tensors[cnt],
-                                           thr, n_out)
+                fn = topn_full_tree_pool_plain if pool_plain else topn_full_tree_plain
+                out = fn(prog, ext, mask, mats[cm], tensors[ix], tensors[cnt], thr, n_out)
                 outs.append(out if n_out is None else torch.stack(out))
             else:
                 outs.append(topn_full_tree(prog, ext, mask, mats[cm], tensors[ix], tensors[cnt],
@@ -1471,13 +1639,36 @@ def fused_tree_plain(spec: FusedSpec, mats: Sequence[torch.Tensor], masks: Seque
     return outs + _agg_outputs(spec, mats, mat, masks, tensors, plain=True)
 
 
+def fused_tree_pool_plain(spec: FusedSpec, mats: Sequence[torch.Tensor],
+                          masks: Sequence[torch.Tensor], tensors: Sequence[torch.Tensor] = ()
+                          ) -> list:
+    """F1P's drain in plain PyTorch ops, ``fused_tree_plain``'s outputs:
+    each count edge over its slot's live blocks only, the materialized
+    slots as ``fused_mat_pool_plain``'s pool rows, and the edges' pool
+    plain versions over them (K6P's and K3P's for Sum and TopN).  Equal to
+    ``fused_tree_plain`` for every drain over full-width rows."""
+    if not masks:
+        return []
+    S = masks[0].shape[0]
+    vals, live = _fused_live(spec, mats, S, masks[0].device)
+    outs = []
+    if spec.count_edges:
+        outs.append(torch.stack([
+            bitops.popcount_words(vals[j].reshape(S, POOL_BLOCKS, POOL_BLOCK_WORDS)[
+                masks[m] != 0][:, live[j]]).sum() for j, m in spec.count_edges]).to(torch.int64))
+    mat = fused_mat_pool_plain(spec, mats, masks) if spec.mat_slots else None
+    return outs + _agg_outputs(spec, mats, mat, masks, tensors, plain=True)
+
+
 def fused_tree(spec: FusedSpec, mats: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
                tensors: Sequence[torch.Tensor] = (), need: Optional[torch.Tensor] = None) -> list:
     """A fused drain's part (FusedSpec): its outputs as ``fused_tree_plain``
-    returns them.  CUDA tensors launch F1 (when the part has slots) and
-    then each aggregate edge's kernel, all on the current stream without
-    waiting for the device, or raise; CPU tensors take the plain version.
-    ``need`` (see ``fused_tree_cuda``) must cover every mask."""
+    returns them.  CUDA tensors launch F1 (when the part has slots), or
+    F1P for a slot table with a pool leaf, and then each aggregate edge's
+    kernel, all on the current stream without waiting for the device, or
+    raise; CPU tensors take the plain version.  After F1P an edge reads its
+    slot as a pool row (``_agg_outputs``).  ``need`` (see
+    ``fused_tree_cuda``) must cover every mask."""
     if not masks:
         return []
     if not masks[0].is_cuda:
@@ -1487,9 +1678,10 @@ def fused_tree(spec: FusedSpec, mats: Sequence[torch.Tensor], masks: Sequence[to
     if spec.slots and (spec.count_edges or spec.mat_slots):
         code = spec.code()
         check_fused(code, len(spec.count_edges))
-        counts, mat = fused_tree_cuda(code, mats, [j for j, _ in spec.count_edges],
-                                      [masks[m] for _, m in spec.count_edges], spec.mat_slots,
-                                      need, n_shards=masks[0].shape[0])
+        launch = fused_tree_pool_cuda if code.pooled else fused_tree_cuda
+        counts, mat = launch(code, mats, [j for j, _ in spec.count_edges],
+                             [masks[m] for _, m in spec.count_edges], spec.mat_slots,
+                             need, n_shards=masks[0].shape[0])
         if spec.count_edges:
             outs.append(counts)
     return outs + _agg_outputs(spec, mats, mat, masks, tensors, plain=False)
