@@ -205,16 +205,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    oversubscribed_4x_count_p50_ms, fully_resident_count_p50_ms,
    oversubscribed_4x_cold_p50_ms, residency_hit_rate and
    promotion_overlap_mbits_s, K1P's time (rowb_k1p) against its bound
-   beside the K1 it replaced, the device time of K5P, F1P, K3P and K6P on
-   those calls against their live bytes and every kernel of one drain
-   against the drain's (pool_leaf_in), K3P and K6P through their wrappers
+   beside the K1 it replaced, the device time of K3P and K6P on those
+   calls against their live bytes and every kernel of one drain against
+   the drain's (pool_leaf_in), K3P and K6P through their wrappers
    (pool_aggregates: exact against numpy and both plain versions, their
    times against the bytes of the live blocks beside the whole-row walk
    of K3 and K6 over the same rows, and both again over a full live
    word), K5P and F1P through theirs with the engine's arguments
    (pool_batch_and_drain: exact, their times beside K5's and F1's
-   whole-row walks, and the drain as the parent ran it, F1 with K6 and
-   K3), and the engine's default budget.
+   whole-row walks over the same arguments), and the engine's default
+   budget.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -250,13 +250,13 @@ Counts run one by one, one K5 where the run is one count_many), and
 (ab_kernels) K3's full TopN at K = 4096 copying its totals out and
 trimming to 5 and 4096, and K8 at the 8-way, 3-field and filtered
 shapes and at 32 x 32, device ms per launch; (ab_pool) K1P, the full
-TopN against a pool row, the Sum under pool rows, the 8-Count query's
-batch and the drain (every kernel of one kernels.fused_tree call) at the
-residency sweep's shape through the checkout's wrappers (K3P, K6P, K5P
-and F1P where it has them, the whole-row walks where not), and F1 over
-dense rows; (ab_residency) the residency phase's index and engine, the
-drain's fused_many p50 and the 8-Count query's Executor.execute p50 with
-every kernel of one call of each; (ab_k1_kr) K1, KR and K6 at the bsi
+TopN against a pool row and the Sum under pool rows at the residency
+sweep's shape through the checkout's wrappers (K3P and K6P where it has
+them, the whole-row walks where not), and F1 over dense rows;
+(ab_residency) the residency phase's index and engine, the drain's
+fused_many p50 and the 8-Count query's Executor.execute p50 with every
+kernel of one call of each (K5P, F1P, K6P and K3P where the checkout has
+them, K5, F1, K6 and K3 where not); (ab_k1_kr) K1, KR and K6 at the bsi
 phase's shape.  The
 result memo is off for every timing loop.  The data,
 queries and loops are this file's, so both trees are measured the same
@@ -4471,17 +4471,17 @@ def call_kernels_ms(fn, names, reps=10):
     return {"device_ms": sum(t for _, t in ks.values()), "kernels": ks}
 
 
-def pool_leaf_in(eng, ex, holder, q8, entries, seg, S):
-    """The pool leaf inside K5P (the 8-Count query), F1P (the fused drain's
-    slot table), K3P (TopN(rt, Row(wf1=2))) and K6P (Sum over the seg
-    filter): device ms per launch (K3P: per call) against the bytes of the
-    blocks the query can read (the pool rows' occupied blocks; a src or
-    filter's live blocks for K3P's candidates and K6P's planes) and F1P
-    writes (its two slots' live blocks).  And "drain": every kernel of one
-    fused_many call (F1P, then its K6P and K3P edges, and the wrapper's
-    small fills) against the live bytes of the leaves and slots F1P reads
-    and writes and of the slot, planes and candidates its edges read."""
-    st = {f: eng._stacks[("rsw", f, "standard")] for f in ("wf0", "wf1", "wf2", "wf3")}
+def pool_leaf_in(eng, ex, holder, entries, seg, S):
+    """The pool leaf inside K3P (TopN(rt, Row(wf1=2))) and K6P (Sum over
+    the seg filter): device ms per call for K3P, per launch for K6P,
+    against the bytes of the blocks the query can read (a src or filter's
+    live blocks for K3P's candidates and K6P's planes).  And "drain": every
+    kernel of one fused_many call (F1P, then its K6P and K3P edges, and the
+    wrapper's small fills) against the live bytes of the leaves and slots
+    F1P reads and writes and of the slot, planes and candidates its edges
+    read.  K5P and F1P alone are timed through their wrappers
+    (pool_batch_and_drain)."""
+    st = {f: eng._stacks[("rsw", f, "standard")] for f in ("wf0", "wf1")}
 
     def occ(f, r):
         return int(np.count_nonzero(st[f].slot_of[r]))
@@ -4492,9 +4492,6 @@ def pool_leaf_in(eng, ex, holder, q8, entries, seg, S):
     planes = holder.index("rsw").field("rv").bit_depth() + 1
     f1_blocks = occ("wf0", 0) + occ("wf0", 1) + src_live + seg_live + src_live
     items = {
-        "k5": (lambda: ex.execute("rsw", q8), "count_batch_tree_pool",
-               sum(occ(f"wf{fi}", r) for fi in range(RSW_FIELDS) for r in (2 * fi, 2 * fi + 1))),
-        "f1": (lambda: eng.fused_many("rsw", entries), "fused_tree_pool", f1_blocks),
         "k3": (lambda: ex.execute("rsw", "TopN(rt, Row(wf1=2), n=3)"), "score_rows",
                (1 + 4) * src_live),
         "k6": (lambda: ex.execute("rsw", f"Sum({seg}, field=rv)"), "sum_tree",
@@ -4509,7 +4506,7 @@ def pool_leaf_in(eng, ex, holder, q8, entries, seg, S):
     out["drain"] = {**call_kernels_ms(lambda: eng.fused_many("rsw", entries),
                                       ("fused_tree_pool", "sum_tree_pool", "score_rows_pool")),
                     "live_bytes": byts, "bound_ms": byts / HBM_BYTES_PER_S * 1e3}
-    log(f"residency: the pool leaf in K5P, F1P, K3P, K6P and the whole drain: {json.dumps(out)}")
+    log(f"residency: the pool leaf in K3P, K6P and the whole drain: {json.dumps(out)}")
     return out
 
 
@@ -4520,10 +4517,8 @@ def pool_batch_and_drain(eng, q8, entries, S):
     (F1P's pool and table against fused_mat_pool_plain, block for block),
     then their times (``measured``) against the bytes of the live blocks
     they read (and F1P writes), beside K5's and F1's whole-row walks over
-    the same arguments and the pool plain versions' p50; then the drain as
-    the parent ran it (F1, and K6 and K3 over its slots as stack rows),
-    every kernel of it (call_kernels_ms; pool_leaf_in times F1P's).
-    Returns {"k5p", "f1p", "drain_whole_row"}."""
+    the same arguments and the pool plain versions' p50.  Returns {"k5p",
+    "f1p"}."""
     import torch
 
     from pilosa_tpu_torch import pql
@@ -4587,19 +4582,8 @@ def pool_batch_and_drain(eng, q8, entries, S):
                       spec, mats, part.masks)), 3, sync, batch=1),
                   "f1_whole_row": measured(lambda: kernels.fused_tree_cuda(*args),
                                            "fused_tree_kernel", sync)}
-
-    def parent_drain():
-        c, mat = kernels.fused_tree_cuda(*args)
-        return [c] + kernels._agg_outputs(spec, mats, mat, part.masks, part.tensors, plain=False)
-
-    want = kernels.fused_tree_plain(spec, mats, part.masks, part.tensors)
-    for i, (g, w) in enumerate(zip(parent_drain(), want)):
-        _exact("fused_tree", g, w, f"the residency drain on F1 output {i}")
-    out["drain_whole_row"] = call_kernels_ms(parent_drain, ("fused_tree_kernel",
-                                                            "sum_tree_kernel",
-                                                            "score_rows_kernel"))
     log(f"residency: K5P and F1P against their live bytes, beside K5's and F1's whole-row "
-        f"walks, and the drain as F1 ran it: {json.dumps(out)}")
+        f"walks: {json.dumps(out)}")
     return out
 
 
@@ -4843,6 +4827,8 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     kernels.count_tree_pool.launches = 0
     kernels.score_rows_pool_cuda.launches = 0
     bsi.sum_tree_pool_cuda.launches = 0
+    kernels.count_batch_tree_pool_cuda.launches = 0
+    kernels.fused_tree_pool_cuda.launches = 0
     _zero_launches()
     # 1. Cold: the host lane answers, each stack misses and requests a
     # promotion of the query's rows.
@@ -5009,11 +4995,11 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
             fn()
             times.append((time.perf_counter() - t) * 1e3)
         out[name] = statistics.median(times)
-    # 3d. The pool leaf inside K5, F1, K3 and K6 on the calls of 3a-3c:
-    # device ms against the bytes of their leaves' live blocks.
+    # 3d. The pool leaf inside K3P and K6P on the calls of 3c and every
+    # kernel of one drain: device ms against the bytes of the live blocks.
     if card:
         with _path_counts_kept():
-            out["pool_leaf_in"] = pool_leaf_in(eng, ex, holder, q8, entries, seg, S)
+            out["pool_leaf_in"] = pool_leaf_in(eng, ex, holder, entries, seg, S)
             out["pool_aggregates"] = pool_aggregates(eng, seg, S, want_top, want_sum)
             out["pool_batch_and_drain"] = pool_batch_and_drain(eng, q8, entries, S)
     # 4. An uncovered row grows the working set and keeps the old rows.
@@ -6411,7 +6397,8 @@ def ab_pool(device, seed):
     and the Sum under the Intersect of two pool rows (bsi.sum_tree): each
     through the checkout's wrapper, so that K3P and K6P show where the
     checkout has them and K3's and K6's whole-row walk where it has not.
-    Each against its plain version; device ms per call (torch.profiler)."""
+    Each against its plain version; device ms per call (torch.profiler).
+    Then F1 over dense rows, device ms per launch."""
     import torch
 
     from pilosa_tpu_torch.parallel import bsi, kernels
@@ -6450,20 +6437,6 @@ def ab_pool(device, seed):
         "k6_pool_filter": (lambda: bsi.sum_tree(seg, mats, mask, bst, planes),
                            lambda: bsi.sum_tree_plain(seg, mats, mask, bst, planes), "sum_tree"),
     }
-    # The 8-Count query's shape (8 trees over 8 pool rows of a second pool)
-    # through kernels.count_batch_tree: K5P where the checkout has it.
-    pool8 = rand((1 + 8 * RSW_BLOCKS, S, 512))
-    pool8[0] = 0
-    table8 = torch.zeros((8, 64), dtype=torch.int32, device=device)
-    table8[:, :RSW_BLOCKS] = 1 + torch.arange(8 * RSW_BLOCKS, dtype=torch.int32,
-                                              device=device).reshape(8, RSW_BLOCKS)
-    rb8 = [("rowb", 0, 1, r) for r in range(8)]
-    progs = [(op, rb8[2 * f], rb8[2 * f + 1]) for f in range(4) for op in ("and", "or")]
-    bmasks, ids = np.ones((1, S), bool), [0] * len(progs)
-    calls["k5_pool"] = (
-        lambda: kernels.count_batch_tree(progs, [pool8, table8], bmasks, ids, device),
-        lambda: kernels.count_batch_tree_plain(progs, [pool8, table8], bmasks, ids, device),
-        "count_batch_tree")
     out = {}
     for name, (fn, plain, kernel) in calls.items():
         _exact(name, fn().reshape(-1), plain().reshape(-1), "in --root")
@@ -6471,23 +6444,8 @@ def ab_pool(device, seed):
             fn()
         sync()
         out[name] = device_ms(fn, kernel, per_call=True)
-    # The residency drain's shape through kernels.fused_tree: two Counts over
-    # seg and seg | row 2, a Sum under seg and a full TopN against row 2,
-    # every kernel of the call (F1P, K6P, K3P where the checkout has them;
-    # F1 and the whole-row K6 and K3 where not).  Then F1 over dense rows
-    # (the same slot table over 3 stack rows of random words), alone.
-    masks = [mask]
-    spec = kernels.FusedSpec((("and", rb[0], rb[1]), ("or", ("mref", 0), rb[2]), rb[2]),
-                             [(0, 0), (1, 0)], [("sum", 0, 0, 2, planes),
-                                                ("topnf", 2, 0, 3, 0, 1, 1, 3)])
-    dmats = [pool, table, bst, cand]
-
-    def drain():
-        return kernels.fused_tree(spec, dmats, masks, [idx, cnt])
-
-    for g, w in zip(drain(), kernels.fused_tree_plain(spec, dmats, masks, [idx, cnt])):
-        _exact("drain_pool", g.reshape(-1), w.reshape(-1), "in --root")
-    out["drain_pool"] = call_kernels_ms(drain, ("fused_tree", "sum_tree", "score_rows"))
+    # F1 over dense rows: the residency drain's slot table over 3 stack rows
+    # of random words, writing 2 slots.
     rows = rand((3, S, W))
     dslots = (("and", ("row", 0, 0), ("row", 0, 1)), ("or", ("mref", 0), ("row", 0, 2)),
               ("row", 0, 2))

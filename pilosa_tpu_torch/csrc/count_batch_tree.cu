@@ -408,10 +408,18 @@ int launch(const Batch& b, int tile, const int* out_index, int k_out,
   // shard over its 4 live tiles.
   int per_shard = (n_sms() * 8 + n_shards - 1) / n_shards;
   if (kLive) {
-    int fit = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kThreads, smem) !=
-            cudaSuccess || fit <= 0)
-      fit = 1;
+    // The occupancy at the last stage size, per instantiation: a batch's
+    // stage changes with its leaf count, rarely from one launch to the next.
+    static size_t fit_smem = ~(size_t)0;
+    static int fit = 1;
+    if (smem != fit_smem) {
+      int f = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f, kernel, kThreads, smem) !=
+              cudaSuccess || f <= 0)
+        f = 1;
+      fit = f;
+      fit_smem = smem;
+    }
     per_shard = (n_sms() * fit + n_shards - 1) / n_shards;
   }
   if (per_shard > tiles) per_shard = tiles;

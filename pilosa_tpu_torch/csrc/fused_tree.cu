@@ -418,7 +418,7 @@ extern "C" int fused_tree(const void* const* leaf_ptrs, int n_leaves,
 // F1P: fused_tree's arguments for a table with pool leaves (words the full
 // 32768 of a pool row), its materialized slots written as pool rows: pool
 // device int32[1 + 64 n_mat, S, 512], slot 0 zero and never written
-// (parallel/kernels.py keeps it zero), and table device int32[n_mat, 64],
+// (parallel/kernels.py zeroes it before each launch), and table device int32[n_mat, 64],
 // written whole (both null when no slot is materialized).
 extern "C" int fused_tree_pool(const void* const* leaf_ptrs, int n_leaves,
                                const void* ranges, const int* range_rows, int n_ranges,

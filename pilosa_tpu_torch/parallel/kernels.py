@@ -1399,13 +1399,12 @@ def _fused_scratch_for(device: torch.device, stream: int, n: int) -> torch.Tenso
         return buf[:n]
 
 
-# F1P's pools, apart from F1's scratch, one per (device, stream): (buffer,
-# the length of its prefix known zero).  Slot 0 of a pool over S shards is
-# the buffer's first S * 512 int32.  F1P never writes slot 0, but a drain
-# over fewer shards writes its slots inside a longer drain's slot 0, so the
-# prefix is zeroed (on the stream, before F1P) whenever a drain needs more
-# of it than is known zero, and only the current drain's stays known.
-_fused_pool: Dict[Tuple[int, int], list] = {}
+# F1P's pools, apart from F1's scratch, one per (device, stream).  Slot 0
+# of a pool over S shards is the buffer's first S * 512 int32.  F1P never
+# writes slot 0, but a drain over fewer shards writes its slots inside a
+# longer drain's slot 0, so each drain zeroes its slot 0 on the stream
+# before F1P.
+_fused_pool: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _fused_pool_for(device: torch.device, stream: int, n_mat: int, S: int) -> torch.Tensor:
@@ -1415,13 +1414,11 @@ def _fused_pool_for(device: torch.device, stream: int, n_mat: int, S: int) -> to
     slot = S * POOL_BLOCK_WORDS
     n = (1 + POOL_BLOCKS * n_mat) * slot
     with _totals_lock:
-        entry = _fused_pool.get(key)
-        if entry is None or entry[0].numel() < n:
-            entry = _fused_pool[key] = [torch.empty(n, dtype=torch.int32, device=device), 0]
-        if entry[1] < slot:
-            entry[0][:slot].zero_()
-        entry[1] = slot
-        return entry[0][:n].view(1 + POOL_BLOCKS * n_mat, S, POOL_BLOCK_WORDS)
+        buf = _fused_pool.get(key)
+        if buf is None or buf.numel() < n:
+            buf = _fused_pool[key] = torch.empty(n, dtype=torch.int32, device=device)
+    buf[:slot].zero_()
+    return buf[:n].view(1 + POOL_BLOCKS * n_mat, S, POOL_BLOCK_WORDS)
 
 
 _FUSED_ARGS = [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
