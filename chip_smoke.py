@@ -1410,14 +1410,19 @@ def check_pool_leaf(device, seed):
     and holed plane sets) on the same trees, sizes and masks, and on dead
     and full live words, against both their pool plain versions and the
     whole-row ones; K3P at K = 300 (the trim launch) and on two streams
-    (the totals scratch).  Returns max |err|."""
+    (the totals scratch).  K7P (minmax_tree_pool, Min and Max, depth tiers
+    8 and 16, full and holed plane sets) and K8P (groupn_tree_pool, the register form and the walk) on the same
+    trees and sizes, masks of every shard, none, a ragged set and one
+    without shard 0, against both their pool plain versions and the
+    whole-row ones, and on two streams.  Returns max |err|."""
     import torch
 
     from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
 
     rng = np.random.default_rng(seed + 41)
     err = {"rowb": 0, "count_tree_pool": 0, "score_rows_pool": 0, "sum_tree_pool": 0,
-           "count_batch_tree_pool": 0, "fused_tree_pool": 0}
+           "minmax_tree_pool": 0, "groupn_tree_pool": 0, "count_batch_tree_pool": 0,
+           "fused_tree_pool": 0}
     n = 0
 
     def same(got, want, what, key="rowb"):
@@ -1458,6 +1463,29 @@ def check_pool_leaf(device, seed):
             same(got, plain(t, mats, m, bst, planes), f"K6P {what} ({plain.__name__})",
                  "sum_tree_pool")
 
+    def k7p_same(t, code, mats, m, bst, planes, what):
+        """K7P's Min and Max against both plain versions."""
+        for is_min in (True, False):
+            got = bsi.minmax_tree_pool_cuda(code, mats, m, bst, planes, is_min)
+            for plain in (bsi.minmax_tree_pool_plain, bsi.minmax_tree_plain):
+                want = plain(t, mats, m, bst, planes, is_min)
+                for g, w, part in zip(got, want, ("values", "counts")):
+                    same(g, w, f"K7P {'Min' if is_min else 'Max'} {part} {what} "
+                         f"({plain.__name__})", "minmax_tree_pool")
+
+    def k8p_same(t, code, mats, m, fields, lists, what):
+        """K8P in the form groupn_plan gives the lists, against both plain
+        versions."""
+        got = groupby.groupn_tree_pool_cuda(code, mats, m, fields, lists)
+        for plain in (groupby.groupn_tree_pool_plain, groupby.groupn_tree_plain):
+            same(got, plain(t, mats, m, fields, lists), f"K8P {what} ({plain.__name__})",
+                 "groupn_tree_pool")
+
+    # K8P's shapes: the register form (4 rows, then 2), the walk (a second
+    # field of 3 rows; three fields); rows of -1 among them.
+    k8_shapes = [("registers", [[0, 2, 1, -1], [3, 1]]), ("walk", [[0, 2, 1], [3, -1, 0]]),
+                 ("walk", [[1, 3, 0], [0, 2, 3], [2, -1]])]
+
     def k5p_same(progs, mats, bmasks, what, fan=None):
         """K5P over a batch against both plain versions (a fan-out too)."""
         ids = [int(i) for i in rng.integers(0, len(bmasks), len(progs))]
@@ -1471,6 +1499,7 @@ def check_pool_leaf(device, seed):
         pool, table = _pool_case(rng, S, P, 6, device)
         dense = _adversarial_stack(rng, 4, S, device)
         bst = _bsi_stack(rng, 8, S, device)
+        bst16 = _bsi_stack(rng, 16, S, device)
         mats = [dense, pool, table, bst]
         full = tuple(range(9))
         rb = [("rowb", 1, 2, r) for r in range(7)]
@@ -1497,6 +1526,8 @@ def check_pool_leaf(device, seed):
         cand8 = torch.tensor([0, 3, 1, 2, 3, 0, 0, 0], dtype=torch.int32, device=device)
         cnt8 = torch.randint(0, 3 << 15, (8, S), dtype=torch.int32, device=device)
         holed = tuple(-1 if i == 3 else i for i in range(9))
+        no0 = (rng.random(S) < 0.6).astype(np.int32)
+        no0[0] = 0
         for t in [dense_t] + dead + trees:
             code = kernels.compile_prog(t)
             for m in masks:
@@ -1504,6 +1535,17 @@ def check_pool_leaf(device, seed):
                 k3p_same(t, code, mats, m, dense, cand8, cnt8, f"{t} S={S} P={P}")
                 k6p_same(t, code, mats, m, bst, full if m is masks[2] else holed,
                          f"{t} S={S} P={P}")
+            # K7P and K8P: masks of every shard, none, a ragged set and one
+            # without shard 0.
+            for m in masks + [torch.from_numpy(no0).to(device)]:
+                k7p_same(t, code, mats, m, bst, full if m is masks[2] else holed,
+                         f"depth 8 {t} S={S} P={P}")
+                for form, lists in k8_shapes:
+                    assert groupby.groupn_plan([len(r) for r in lists])[0] == form
+                    k8p_same(t, code, mats, m, [dense] * len(lists), lists,
+                             f"{form} {lists} {t} S={S} P={P}")
+            k7p_same(t, code, mats, masks[2], bst16, tuple(range(17)),
+                     f"depth 16 {t} S={S} P={P}")
         # K3P past 256 candidates: the trim is a second launch.
         big = torch.from_numpy(rng.integers(0, 4, 300).astype(np.int32)).to(device)
         big_cnt = torch.randint(0, 3 << 15, (300, S), dtype=torch.int32, device=device)
@@ -1529,12 +1571,12 @@ def check_pool_leaf(device, seed):
             same(bsi.sum_tree_cuda(code, mats, m, bst, full),
                  bsi.sum_tree_plain(t, mats, m, bst, full), f"K6 {t}")
             for is_min in (True, False):
-                got = bsi.minmax_tree(t, mats, m, bst, full, is_min)
+                got = bsi.minmax_tree_cuda(code, mats, m, bst, full, is_min)
                 want = bsi.minmax_tree_plain(t, mats, m, bst, full, is_min)
                 same(got[0], want[0], f"K7 values {t}")
                 same(got[1], want[1], f"K7 counts {t}")
             lists = [[0, 2, 1], [3, -1]]
-            same(groupby.groupn_tree(t, mats, m, [dense, dense], lists),
+            same(groupby.groupn_tree_cuda(code, mats, m, [dense, dense], lists),
                  groupby.groupn_tree_plain(t, mats, m, [dense, dense], lists), f"K8 {t}")
         # K5: batches of the trees without a range leaf, staged (few leaf
         # rows) and unstaged (past 128 distinct rows), with repeats.
@@ -1713,8 +1755,25 @@ def check_pool_leaf(device, seed):
     for ids, g in outs:
         same(g, kernels.count_batch_tree_pool_plain(progs, mats, bmasks, ids, device),
              "K5P on two streams", "count_batch_tree_pool")
+    # K7P and K8P on two streams at once, over the pool of 9 slots.
+    code_t = kernels.compile_prog(t)
+    outs = []
+    torch.cuda.synchronize()
+    for i in range(8):
+        m = masks[i % 3]
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            outs.append((m, bsi.minmax_tree_pool_cuda(code_t, mats, m, bst, full, i % 4 < 2),
+                         groupby.groupn_tree_pool_cuda(code_t, mats, m, [mats[0]] * 2,
+                                                       k8_shapes[i % 2][1])))
+    torch.cuda.synchronize()
+    for i, (m, (v, c), g) in enumerate(outs):
+        wv, wc = bsi.minmax_tree_pool_plain(t, mats, m, bst, full, i % 4 < 2)
+        same(v, wv, "K7P values on two streams", "minmax_tree_pool")
+        same(c, wc, "K7P counts on two streams", "minmax_tree_pool")
+        same(g, groupby.groupn_tree_pool_plain(t, mats, m, [mats[0]] * 2, k8_shapes[i % 2][1]),
+             "K8P on two streams", "groupn_tree_pool")
     log(f"pool leaf: {n} comparisons exact (rowb in K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, "
-        "K8, F1 and F1P against their plain versions)")
+        "K7P, K8, K8P, F1 and F1P against their plain versions)")
     return err
 
 
@@ -4430,7 +4489,8 @@ def _path_counts_kept():
     fns = (kernels.count_tree_dense, kernels.count_tree_pool, sparse.count_tree_blocks_cuda,
            kernels.score_rows_cuda, kernels.score_rows_pool_cuda, kernels.count_batch_tree_cuda,
            kernels.count_batch_tree_pool_cuda, bsi.sum_tree_cuda, bsi.sum_tree_pool_cuda,
-           bsi.minmax_tree_cuda, groupby.groupn_tree_cuda, kernels.fused_tree_cuda,
+           bsi.minmax_tree_cuda, bsi.minmax_tree_pool_cuda, groupby.groupn_tree_cuda,
+           groupby.groupn_tree_pool_cuda, kernels.fused_tree_cuda,
            kernels.fused_tree_pool_cuda, kernels.range_leaf, kernels.pool_leaf)
     saved = [f.launches for f in fns], dict(kernels.pool_leaf.by_kernel)
     try:
@@ -4457,17 +4517,46 @@ def live_leaf_bytes(prog, mats, mask):
     return blocks * int((mask != 0).sum()) * 2048 + mask.numel() * 4 + 8
 
 
-def call_kernels_ms(fn, names, reps=10):
+def minmax_live_bytes(prog, mats, mask, plane_mat, planes, leaf_bytes):
+    """The bytes K7P must read for a Min/Max under filter ``prog``: its
+    leaves (``leaf_bytes``), the not-null plane at the filter's live
+    blocks, and the value planes only in the 32-byte sectors that hold a
+    considered column (the word-local walk reads no value plane where
+    notnull & filter is zero), over the requested shards; from this run's
+    data."""
+    from pilosa_tpu_torch.parallel import kernels
+
+    idx, select = kernels.live_select(prog, mats, mask.device)
+    if idx.numel() == 0 or planes[-1] < 0:
+        return leaf_bytes
+    req = mask != 0
+    notnull = select(plane_mat[planes[-1]])[req]
+    cons = kernels.eval_prog(prog, mats, select, blocks=idx)[req] & notnull
+    sectors = int((cons.reshape(-1, 8) != 0).any(dim=1).sum())
+    return (leaf_bytes + notnull.numel() * 4
+            + sectors * 32 * sum(1 for p in planes[:-1] if p >= 0))
+
+
+def call_kernels_ms(fn, names, reps=10, bound_ms=None):
     """The device time of one call of ``fn``, kernel by kernel, from
     torch.profiler over ``reps`` calls: {"device_ms": the sum over every
-    kernel (copies and fills aside), "kernels": {name: [launches, ms] per
-    call}}.  A window where a kernel of ``names`` shows fewer than ``reps``
-    launches (records the profiler lost) is taken again (on_card)."""
-    seen = on_card(lambda: [fn() for _ in range(reps)],
-                   lambda seen: all(sum(v[0] for k, v in seen.items() if n in k) >= reps
-                                    for n in names))
-    ks = {k: [n / reps, t / reps] for k, (n, t) in seen.items()
-          if not k.startswith(("Memcpy", "Memset"))}
+    kernel (copies aside), "kernels": {name: [launches, ms] per call}}.  A
+    window where a kernel of ``names`` shows fewer than ``reps`` launches,
+    or the sum reads below ``bound_ms`` (records the profiler lost, or
+    times it halved), is taken again (on_card); the last window stands,
+    with a log line if it still reads so."""
+    def per_call(seen):
+        return {k: [n / reps, t / reps] for k, (n, t) in seen.items()
+                if not k.startswith(("Memcpy", "Memset"))}
+
+    def full(seen):
+        return (all(sum(v[0] for k, v in seen.items() if n in k) >= reps for n in names)
+                and (bound_ms is None or sum(t for _, t in per_call(seen).values()) >= bound_ms))
+
+    seen = on_card(lambda: [fn() for _ in range(reps)], full)
+    if not full(seen):
+        log(f"times: {names} short or below {bound_ms} ms in every window: {seen}")
+    ks = per_call(seen)
     return {"device_ms": sum(t for _, t in ks.values()), "kernels": ks}
 
 
@@ -4476,11 +4565,11 @@ def pool_leaf_in(eng, ex, holder, entries, seg, S):
     the seg filter): device ms per call for K3P, per launch for K6P,
     against the bytes of the blocks the query can read (a src or filter's
     live blocks for K3P's candidates and K6P's planes).  And "drain": every
-    kernel of one fused_many call (F1P, then its K6P and K3P edges, and the
-    wrapper's small fills) against the live bytes of the leaves and slots
-    F1P reads and writes and of the slot, planes and candidates its edges
-    read.  K5P and F1P alone are timed through their wrappers
-    (pool_batch_and_drain)."""
+    kernel of one fused_many call (F1P, then its K6P, K3P, K7P and K8P
+    edges, and the wrapper's small fills) against the live bytes of the
+    leaves and slots F1P reads and writes and of the slot, planes,
+    candidates and group rows its edges read.  K5P and F1P alone are timed
+    through their wrappers (pool_batch_and_drain)."""
     st = {f: eng._stacks[("rsw", f, "standard")] for f in ("wf0", "wf1")}
 
     def occ(f, r):
@@ -4502,10 +4591,26 @@ def pool_leaf_in(eng, ex, holder, entries, seg, S):
         byts = blocks * blk
         out[name] = {"device_ms": device_ms(fn, kernel, per_call=name == "k3"),
                      "live_bytes": byts, "bound_ms": byts / HBM_BYTES_PER_S * 1e3}
-    byts = (f1_blocks + (1 + planes) * seg_live + (1 + 4) * src_live) * blk
+    # The edges: K6P's slot and planes, K3P's slot and 4 candidates, K8P's
+    # slot and rt's 4 rows, and K7P's slot, not-null plane and the value
+    # planes' sectors that hold a considered column (minmax_live_bytes).
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    canonical = eng.canonical_shards("rsw")
+    lw = _Lowering(eng, canonical)
+    vst = eng._stacks[("rsw", "rv", "bsig_rv")]
+    k7_bytes = minmax_live_bytes(
+        eng._lower("rsw", pql.parse(seg).calls[0], lw), lw.mats,
+        eng._mask_words(list(range(S)), canonical), vst.matrix,
+        eng._plane_spec(vst, planes - 1), seg_live * blk)
+    byts = (f1_blocks + (1 + planes) * seg_live + (1 + 4) * src_live
+            + (1 + 4) * seg_live) * blk + k7_bytes
+    bound = byts / HBM_BYTES_PER_S * 1e3
     out["drain"] = {**call_kernels_ms(lambda: eng.fused_many("rsw", entries),
-                                      ("fused_tree_pool", "sum_tree_pool", "score_rows_pool")),
-                    "live_bytes": byts, "bound_ms": byts / HBM_BYTES_PER_S * 1e3}
+                                      ("fused_tree_pool", "sum_tree_pool", "score_rows_pool",
+                                       "minmax_tree_pool", "groupn_tree_pool"), bound_ms=bound),
+                    "live_bytes": byts, "bound_ms": bound}
     log(f"residency: the pool leaf in K3P, K6P and the whole drain: {json.dumps(out)}")
     return out
 
@@ -4587,7 +4692,7 @@ def pool_batch_and_drain(eng, q8, entries, S):
     return out
 
 
-def pool_aggregates(eng, seg, S, want_top, want_sum):
+def pool_aggregates(eng, seg, S, want_top, want_sum, want_min, want_group):
     """K3P and K6P on the residency phase's TopN(rt, Row(wf1=2), n=3) and
     Sum(seg, field=rv), through their wrappers with the engine's own
     arguments (its lowering, candidates, gates and plane rows): each result
@@ -4598,7 +4703,8 @@ def pool_aggregates(eng, seg, S, want_top, want_sum):
     (K3, K6) over the same rows, and the pool plain version's p50.  Then
     both again over a full live word, the src or filter OR'd with a dense
     row of rt, where the two walks read the same bytes.  Returns
-    {"k3p": ..., "k6p": ..., "k3p_full": ..., "k6p_full": ...}."""
+    {"k3p": ..., "k6p": ..., "k3p_full": ..., "k6p_full": ...} and
+    pool_minmax_group's items."""
     import torch
 
     from pilosa_tpu_torch import pql
@@ -4672,14 +4778,125 @@ def pool_aggregates(eng, seg, S, want_top, want_sum):
                             "plain_ms": plain_ms, "k6_whole_row": t_w}
     log(f"residency: K3P and K6P against their live bytes, beside the whole-row walk: "
         f"{json.dumps(out)}")
+    out.update(pool_minmax_group(eng, seg, S, want_min, want_group))
+    return out
+
+
+def pool_minmax_group(eng, seg, S, want_min, want_group):
+    """K7P and K8P on the residency phase's Min(seg, field=rv), Max and
+    GroupBy(Rows(field=rt), filter=seg), through their wrappers with the
+    engine's own arguments (its lowering of seg, gates, plane rows and
+    rt's rows): each result against numpy and both plain versions,
+    exactly; then K7P's Min and K8P's register form timed (``measured``)
+    against the bytes they must read, the filter's leaves and the planes
+    (minmax_live_bytes) or listed rows at the live blocks, beside K7's and
+    K8's whole-row walks over the same arguments (device ms), and the pool
+    plain version's p50.  K7P's Max, device ms.  K8P's walk on the group fields [rt, rt]
+    (4 x 4 combinations of rt's 4 rows, each row an input read once by the
+    bound).  Then K7P and both K8P forms again over a full live word (seg
+    OR'd with a dense row of rt, where each pool walk and its whole-row
+    walk read the same bytes).  Returns {"k7p", "k8p", "k8p_walk", and
+    each with "_full"}."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import bsi, groupby, kernels
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    sync = torch.cuda.synchronize
+    canonical = eng.canonical_shards("rsw")
+    mask = eng._mask_words(list(range(S)), canonical)
+    n_req = int((mask != 0).sum())
+    rt = eng._stacks[("rsw", "rt", "standard")]
+    rows = [rt.row_index[r] for r in range(4)]
+    vst = eng._stacks[("rsw", "rv", "bsig_rv")]
+    bsig = eng._bsi_group("rsw", "rv")
+    planes = eng._plane_spec(vst, bsig.bit_depth())
+    out = {}
+    for tag, filt_q in (("", seg), ("_full", f"Union({seg}, Row(rt=1))")):
+        lw = _Lowering(eng, canonical)
+        fprog = eng._lower("rsw", pql.parse(filt_q).calls[0], lw)
+        fcode = kernels.compile_prog(fprog)
+        n_live = int(kernels.live_blocks(fprog, lw.mats, mask.device).sum())
+        leaf_bytes = live_leaf_bytes(fprog, lw.mats, mask)
+        fargs = (lw.mats, mask, vst.matrix, planes)
+        for is_min in (True, False):
+            got = bsi.minmax_tree_pool_cuda(fcode, *fargs, is_min)
+            for plain in (bsi.minmax_tree_pool_plain, bsi.minmax_tree_plain):
+                want = plain(fprog, *fargs, is_min)
+                for g, w, what in zip(got, want, ("values", "counts")):
+                    _exact("minmax_tree_pool", g, w,
+                           f"residency {'Min' if is_min else 'Max'}({filt_q}) {what} against "
+                           f"{plain.__name__}")
+            if not tag and is_min:
+                host = torch.stack(got).cpu().numpy()
+                pair = bsi.decode_min_max(host, canonical, bsig.min, True)
+                if pair != tuple(want_min):
+                    raise AssertionError(f"residency: K7P Min {pair} != numpy {want_min}")
+        byts = minmax_live_bytes(fprog, lw.mats, mask, vst.matrix, planes, leaf_bytes)
+        bound = byts / HBM_BYTES_PER_S * 1e3
+        k7p = lambda is_min=True: bsi.minmax_tree_pool_cuda(fcode, *fargs, is_min)  # noqa: E731
+        for _ in range(3):
+            k7p()
+        sync()
+        t_p = (measured(k7p, "minmax_tree_pool_kernel", sync, bound_ms=bound) if not tag else
+               {"device_ms": device_ms(k7p, "minmax_tree_pool_kernel", bound_ms=bound)})
+        out["k7p" + tag] = {
+            **t_p, "bound_ms": bound, "bytes": byts, "live_blocks": n_live,
+            "max_device_ms": device_ms(lambda: k7p(False), "minmax_tree_pool_kernel",
+                                       bound_ms=bound),
+            "plain_ms": p50_ms(lambda: bsi.minmax_tree_pool_plain(fprog, *fargs, True), 3, sync,
+                               batch=1),
+            "k7_whole_row_device_ms": device_ms(
+                lambda: bsi.minmax_tree_cuda(fcode, *fargs, True), "minmax_tree_kernel",
+                bound_ms=bound)}
+        log(f"residency: K7P{tag} against its live bytes: {json.dumps(out['k7p' + tag])}")
+        for form, fields in (("", [rt.matrix]), ("_walk", [rt.matrix, rt.matrix])):
+            lists = [rows] * len(fields)
+            gargs = (lw.mats, mask, fields, lists)
+            assert groupby.groupn_plan([4] * len(fields))[0] == ("walk" if form else "registers")
+            got = groupby.groupn_tree_pool_cuda(fcode, *gargs)
+            for plain in (groupby.groupn_tree_pool_plain, groupby.groupn_tree_plain):
+                _exact("groupn_tree_pool", got, plain(fprog, *gargs),
+                       f"residency GroupBy {form or 'registers'} filter={filt_q} against "
+                       f"{plain.__name__}")
+            if not tag and not form:
+                pairs = [(r, int(n)) for r, n in enumerate(got.cpu().tolist()) if n > 0]
+                if pairs != want_group:
+                    raise AssertionError(f"residency: K8P GroupBy {pairs} != numpy {want_group}")
+            # Each input row read once: the walk's two levels list rt's
+            # same 4 rows, and the full filter's Row(rt=1) is one of them.
+            shared = sum(1 for leaf in fcode.leaves if len(leaf) == 2 and leaf[1] in rows
+                         and lw.mats[leaf[0]].data_ptr() == rt.matrix.data_ptr())
+            byts = leaf_bytes + (4 - shared) * n_live * n_req * 2048
+            bound = byts / HBM_BYTES_PER_S * 1e3
+            k8p = lambda gargs=gargs: groupby.groupn_tree_pool_cuda(fcode, *gargs)  # noqa: E731
+            for _ in range(3):
+                k8p()
+            sync()
+            t_p = (measured(k8p, "groupn_tree_pool_kernel", sync, bound_ms=bound)
+                   if not tag and not form else
+                   {"device_ms": device_ms(k8p, "groupn_tree_pool_kernel", bound_ms=bound)})
+            out["k8p" + form + tag] = {
+                **t_p, "bound_ms": bound, "bytes": byts, "live_blocks": n_live,
+                "plain_ms": p50_ms(lambda gargs=gargs: groupby.groupn_tree_pool_plain(
+                    fprog, *gargs), 3, sync, batch=1),
+                "k8_whole_row_device_ms": device_ms(
+                    lambda gargs=gargs: groupby.groupn_tree_cuda(fcode, *gargs),
+                    "groupn_tree_kernel", bound_ms=bound)}
+            log(f"residency: K8P{form}{tag} against its live bytes: "
+                f"{json.dumps(out['k8p' + form + tag])}")
     return out
 
 
 def rsw_queries(words, vcols, vvals):
     """The residency phase's 8-Count query and fused drain over build_rsw's
     index, with their numpy answers: (q8, want8, seg, entries,
-    want_drain).  The drain: two Counts sharing the pool-row subtree seg,
-    a Sum of rv over seg and a TopN of rt's 4 rows against Row(wf1=2)."""
+    want_drain, lone).  The drain: two Counts sharing the pool-row subtree
+    seg, a Sum of rv over seg, a TopN of rt's 4 rows against Row(wf1=2), a
+    Min of rv over seg and a GroupBy of rt's 4 rows filtered by seg.
+    ``lone``: {query: its numpy answer} of the Min, Max and GroupBy over
+    seg through Executor.execute, in _pql_result's form."""
     from pilosa_tpu_torch import pql
 
     nw = RSW_BLOCKS * 256
@@ -4699,6 +4916,22 @@ def rsw_queries(words, vcols, vvals):
     in_seg = ((segw[vcols >> 20, (vcols & 0xFFFFF) >> 6] >> (vcols & 63).astype(np.uint64))
               & np.uint64(1)).astype(bool)
     want_sum = (int(vvals[in_seg].sum()), int(in_seg.sum()))
+    seg_shard, seg_vals = vcols[in_seg] >> 20, vvals[in_seg]
+
+    def extreme(is_min):
+        """ValCount's reduce over the shards in canonical order: the first
+        shard holding the extreme gives it with its own count; (0, 0) with
+        no column considered."""
+        best = (0, 0)
+        for sh in np.unique(seg_shard):
+            v = seg_vals[seg_shard == sh]
+            x = int(v.min() if is_min else v.max())
+            if best[1] == 0 or (x < best[0] if is_min else x > best[0]):
+                best = (x, int((v == x).sum()))
+        return best
+
+    want_min, want_max = extreme(True), extreme(False)
+    per_row = [int(popcounts(rt[r][:, :nw] & segw).sum()) for r in range(4)]
     totals = [(r, int(popcounts(rt[r][:, :nw] & w1[2][:, :nw]).sum())) for r in range(4)]
     want_top = sorted([p for p in totals if p[1] > 0], key=lambda p: (-p[1], -p[0]))[:3]
     entries = [
@@ -4707,10 +4940,24 @@ def rsw_queries(words, vcols, vvals):
         ({"kind": "sum", "field": "rv", "filter": pql.parse(seg).calls[0]}, all_shards),
         ({"kind": "topnf", "field": "rt", "src": pql.parse("Row(wf1=2)").calls[0], "n": 3,
           "threshold": 1, "row_ids": None}, all_shards),
+        ({"kind": "min", "field": "rv", "filter": pql.parse(seg).calls[0]}, all_shards),
+        ({"kind": "group", "fields": ["rt"], "rows": [[0, 1, 2, 3]],
+          "filter": pql.parse(seg).calls[0]}, all_shards),
     ]
     want_drain = [int(popcounts(segw).sum()),
-                  int(popcounts(segw | w1[2][:, :nw]).sum()), want_sum, want_top]
-    return q8, want8, seg, entries, want_drain
+                  int(popcounts(segw | w1[2][:, :nw]).sum()), want_sum, want_top, want_min,
+                  per_row]
+    lone = {f"Min({seg}, field=rv)": want_min, f"Max({seg}, field=rv)": want_max,
+            f"GroupBy(Rows(field=rt), filter={seg})": [(r, n) for r, n in enumerate(per_row)
+                                                       if n > 0]}
+    return q8, want8, seg, entries, want_drain, lone
+
+
+def drain_plain(got):
+    """A fused_many result in rsw_queries' want_drain form: lists and
+    numpy arrays (a GroupBy's counts) as lists, pairs as tuples."""
+    return [g.tolist() if isinstance(g, np.ndarray) else list(g) if isinstance(g, list) else
+            tuple(g) if isinstance(g, tuple) else g for g in got]
 
 
 def run_residency_path(device, seed, n_shards=N_SHARDS):
@@ -4720,18 +4967,19 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     (one Count(Intersect) per field) answered exactly from the host lane,
     host fallbacks and promotion requests rising; after the promotions the
     same dashboard from the block pools (K1P, no fallback);
-    an 8-Count query on pool rows (one K5P), a fused drain of Counts, a Sum
-    and a TopN whose filters read pool rows (F1P, then K6P and K3P over its
-    slots); TopN and Sum through the executor (K3P, K6P); an uncovered row
+    an 8-Count query on pool rows (one K5P), a fused drain of Counts, a Sum,
+    a TopN, a Min and a GroupBy whose filters read pool rows (F1P, then
+    K6P, K3P, K7P and K8P over its slots); TopN, Sum, Min, Max and GroupBy
+    through the executor (K3P, K6P, K7P, K8P); an uncovered row
     growing the working set; Sets into empty blocks, a Clear and an import,
     synced in place into the pool with a freed slot reused; working sets
     rotated until the budget evicts and a cached fused plan is dropped.
     Prints bench.py's numbers, K1P's time against its bound beside K1's
-    over the same pool rows, and the device time of K5P, F1P, K3P, K6P and
-    the whole drain.  Runs on its own holder and engines, freed at the end.
-    Returns the phase's numbers, its launches over pools, the rowb entry's
-    K1 times, K1P's launches and times, and K3P's, K6P's, K5P's and F1P's
-    launches and times."""
+    over the same pool rows, and the device time of K5P, F1P, K3P, K6P,
+    K7P, K8P and the whole drain.  Runs on its own holder and engines, freed
+    at the end.  Returns the phase's numbers, its launches over pools, the
+    rowb entry's K1 times, K1P's launches and times, and K3P's, K6P's,
+    K7P's, K8P's, K5P's and F1P's launches and times."""
     import gc
 
     import torch
@@ -4739,7 +4987,7 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     from pilosa_tpu_torch import pql
     from pilosa_tpu_torch.core.holder import Holder
     from pilosa_tpu_torch.executor import Executor
-    from pilosa_tpu_torch.parallel import bsi, kernels
+    from pilosa_tpu_torch.parallel import bsi, groupby, kernels
     from pilosa_tpu_torch.parallel.engine import TorchEngine, _Lowering
 
     t_phase = time.perf_counter()
@@ -4827,6 +5075,8 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     kernels.count_tree_pool.launches = 0
     kernels.score_rows_pool_cuda.launches = 0
     bsi.sum_tree_pool_cuda.launches = 0
+    bsi.minmax_tree_pool_cuda.launches = 0
+    groupby.groupn_tree_pool_cuda.launches = 0
     kernels.count_batch_tree_pool_cuda.launches = 0
     kernels.fused_tree_pool_cuda.launches = 0
     _zero_launches()
@@ -4907,7 +5157,7 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         k1p_times = (t_k1p, plain_k1p, pool_bytes)
         del lw, progs, codes
     # 3a. Eight Counts on pool rows: one K5P launch.
-    q8, want8, seg, entries, want_drain = rsw_queries(words, vcols, vvals)
+    q8, want8, seg, entries, want_drain, lone = rsw_queries(words, vcols, vvals)
     want_sum, want_top = want_drain[2], want_drain[3]
     w0 = words["wf0"]
     k5, k5p, pk5 = (kernels.count_batch_tree_cuda.launches,
@@ -4920,23 +5170,25 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
                  or kernels.count_batch_tree_cuda.launches != k5
                  or kernels.pool_leaf.by_kernel.get("count_batch_tree", 0) - pk5 != 1):
         raise AssertionError("residency: the 8-Count query was not one K5P launch over pools")
-    # 3b. A fused drain: Counts sharing a pool-row subtree, a Sum and a TopN
-    # filtered by pool rows (rv and rt are small full stacks that fit).
+    # 3b. A fused drain: Counts sharing a pool-row subtree, a Sum, a TopN, a
+    # Min and a GroupBy filtered by pool rows (rv and rt are small full
+    # stacks that fit).
     eng.fused_many("rsw", entries)  # first: rv and rt are built (they fit)
-    # Each warm drain: one F1P launch, then its Sum edge on K6P and its TopN
-    # edge on K3P (the slots read as pool rows), no F1 and no whole-row
-    # walk; the pool leaf's counts show the edges under sum_tree and
-    # score_rows.
+    # Each warm drain: one F1P launch, then its Sum edge on K6P, its TopN
+    # edge on K3P, its Min edge on K7P and its group edge on K8P (the slots
+    # read as pool rows), no F1 and no whole-row walk; the pool leaf's
+    # counts show the edges under their kernels' names.
     drain_fns = (kernels.fused_tree_pool_cuda, kernels.fused_tree_cuda,
                  bsi.sum_tree_pool_cuda, bsi.sum_tree_cuda, kernels.score_rows_pool_cuda,
-                 kernels.score_rows_cuda)
-    by_kernel = ("fused_tree", "sum_tree", "score_rows")
+                 kernels.score_rows_cuda, bsi.minmax_tree_pool_cuda, bsi.minmax_tree_cuda,
+                 groupby.groupn_tree_pool_cuda, groupby.groupn_tree_cuda)
+    by_kernel = ("fused_tree", "sum_tree", "score_rows", "minmax_tree", "groupn_tree")
     n_drains = 3
     before = ([f.launches for f in drain_fns],
               [kernels.pool_leaf.by_kernel.get(k, 0) for k in by_kernel])
     for _ in range(n_drains):
         got = eng.fused_many("rsw", entries)
-        if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+        if drain_plain(got) != want_drain:
             raise AssertionError(f"residency: fused drain {got} != numpy {want_drain}")
     per_drain = {f.__name__: (f.launches - n0) / n_drains for f, n0 in zip(drain_fns, before[0])}
     pool_edges = {k: (kernels.pool_leaf.by_kernel.get(k, 0) - n0) / n_drains
@@ -4944,10 +5196,12 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     out["drain_launches"] = {"per_drain": per_drain, "pool_leaf_by_kernel": pool_edges}
     if card and (per_drain != {"fused_tree_pool_cuda": 1, "fused_tree_cuda": 0,
                                "sum_tree_pool_cuda": 1, "sum_tree_cuda": 0,
-                               "score_rows_pool_cuda": 1, "score_rows_cuda": 0}
-                 or pool_edges != {"fused_tree": 1, "sum_tree": 1, "score_rows": 1}):
-        raise AssertionError(f"residency: a warm drain was not one F1P launch with one K6P and "
-                             f"one K3P edge: {out['drain_launches']}")
+                               "score_rows_pool_cuda": 1, "score_rows_cuda": 0,
+                               "minmax_tree_pool_cuda": 1, "minmax_tree_cuda": 0,
+                               "groupn_tree_pool_cuda": 1, "groupn_tree_cuda": 0}
+                 or pool_edges != {k: 1 for k in by_kernel}):
+        raise AssertionError(f"residency: a warm drain was not one F1P launch with one K6P, "
+                             f"one K3P, one K7P and one K8P edge: {out['drain_launches']}")
     plans = len(eng._fused_plans)
     assert plans >= 1, "residency: the fused drain's plan was not cached"
     # 3c. TopN and Sum through the executor: K3P and K6P over a pool row
@@ -4975,9 +5229,26 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
                  or kernels.score_rows_pool_cuda.launches == k3p
                  or bsi.sum_tree_pool_cuda.launches == k6p):
         raise AssertionError("residency: TopN/Sum did not launch K3P/K6P over a pool row")
+    # 3d. Min, Max and GroupBy over seg through the executor: one K7P or K8P
+    # launch each over a pool row, no whole-row K7 or K8.
+    lone_fns = (bsi.minmax_tree_pool_cuda, bsi.minmax_tree_cuda, groupby.groupn_tree_pool_cuda,
+                groupby.groupn_tree_cuda)
+
+    def run_lone(q):
+        got = _pql_result(ex.execute("rsw", q).results[0])
+        if got != lone[q]:
+            raise AssertionError(f"residency: {q} {got} != numpy {lone[q]}")
+
+    for q in lone:
+        before = [f.launches for f in lone_fns]
+        run_lone(q)
+        step = [f.launches - n0 for f, n0 in zip(lone_fns, before)]
+        if card and step != ([0, 0, 1, 0] if q.startswith("GroupBy") else [1, 0, 0, 0]):
+            raise AssertionError(f"residency: {q} launched (K7P, K7, K8P, K8) {step}, not one "
+                                 "K7P or K8P")
     def run_drain():
         got = eng.fused_many("rsw", entries)
-        if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+        if drain_plain(got) != want_drain:
             raise AssertionError(f"residency: fused drain {got} != numpy {want_drain}")
 
     def run_eight():
@@ -4986,7 +5257,10 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
 
     # Their end-to-end p50s through Executor.execute (the drain's through
     # fused_many; memo off).
+    q_min, _, q_group = lone
     for name, fn in (("pool_topn_e2e_p50_ms", run_top), ("pool_sum_e2e_p50_ms", run_sum),
+                     ("pool_min_e2e_p50_ms", lambda: run_lone(q_min)),
+                     ("pool_groupby_e2e_p50_ms", lambda: run_lone(q_group)),
                      ("pool_drain_e2e_p50_ms", run_drain),
                      ("pool_eight_counts_e2e_p50_ms", run_eight)):
         times = []
@@ -4995,12 +5269,13 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
             fn()
             times.append((time.perf_counter() - t) * 1e3)
         out[name] = statistics.median(times)
-    # 3d. The pool leaf inside K3P and K6P on the calls of 3c and every
+    # 3e. The pool leaf inside K3P and K6P on the calls of 3c and every
     # kernel of one drain: device ms against the bytes of the live blocks.
     if card:
         with _path_counts_kept():
             out["pool_leaf_in"] = pool_leaf_in(eng, ex, holder, entries, seg, S)
-            out["pool_aggregates"] = pool_aggregates(eng, seg, S, want_top, want_sum)
+            out["pool_aggregates"] = pool_aggregates(eng, seg, S, want_top, want_sum,
+                                                     lone[q_min], lone[q_group])
             out["pool_batch_and_drain"] = pool_batch_and_drain(eng, q8, entries, S)
     # 4. An uncovered row grows the working set and keeps the old rows.
     qg = "Count(Intersect(Row(wf0=30), Row(wf0=31)))"
@@ -5093,7 +5368,7 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
             assert eng.residency.flush(300.0)
     else:
         raise AssertionError("residency: the fused drain missed three times after the eviction")
-    if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+    if drain_plain(got) != want_drain:
         raise AssertionError(f"residency: fused drain after eviction {got} != {want_drain}")
     out["drain_misses_after_eviction"] = misses
     run_dash(ex, dashboard)
@@ -5113,14 +5388,18 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     k1p_launches = kernels.count_tree_pool.launches
     aggs = {"score_rows_pool": (kernels.score_rows_pool_cuda.launches, "pool_aggregates", "k3p"),
             "sum_tree_pool": (bsi.sum_tree_pool_cuda.launches, "pool_aggregates", "k6p"),
+            "minmax_tree_pool": (bsi.minmax_tree_pool_cuda.launches, "pool_aggregates", "k7p"),
+            "groupn_tree_pool": (groupby.groupn_tree_pool_cuda.launches, "pool_aggregates",
+                                 "k8p"),
             "count_batch_tree_pool": (kernels.count_batch_tree_pool_cuda.launches,
                                       "pool_batch_and_drain", "k5p"),
             "fused_tree_pool": (kernels.fused_tree_pool_cuda.launches, "pool_batch_and_drain",
                                 "f1p")}
     if card and not all(n for n, _, _ in aggs.values()):
-        raise AssertionError(f"residency: K3P, K6P, K5P or F1P never launched: {aggs}")
+        raise AssertionError(f"residency: K3P, K6P, K7P, K8P, K5P or F1P never launched: {aggs}")
     aggs = {k: (n, out[part][key] if card else None) for k, (n, part, key) in aggs.items()}
-    for k in ("count_tree_pool", "count_batch_tree", "fused_tree", "score_rows", "sum_tree"):
+    for k in ("count_tree_pool", "count_batch_tree", "fused_tree", "score_rows", "sum_tree",
+              "minmax_tree", "groupn_tree"):
         if card and not kernels.pool_leaf.by_kernel.get(k):
             raise AssertionError(f"residency: {k} never launched over a pool: "
                                  f"{kernels.pool_leaf.by_kernel}")
@@ -5140,7 +5419,9 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         f"{out['promotion_overlap_mbits_s']:.1f}; rowb K1P device {t_k1p['device_ms']} ms "
         f"(K1 {t_k1['device_ms']} ms), bound {bound:.4f} ms; pool_topn_e2e_p50_ms "
         f"{out['pool_topn_e2e_p50_ms']:.4f}, pool_sum_e2e_p50_ms "
-        f"{out['pool_sum_e2e_p50_ms']:.4f}, pool_drain_e2e_p50_ms "
+        f"{out['pool_sum_e2e_p50_ms']:.4f}, pool_min_e2e_p50_ms "
+        f"{out['pool_min_e2e_p50_ms']:.4f}, pool_groupby_e2e_p50_ms "
+        f"{out['pool_groupby_e2e_p50_ms']:.4f}, pool_drain_e2e_p50_ms "
         f"{out['pool_drain_e2e_p50_ms']:.4f}, pool_eight_counts_e2e_p50_ms "
         f"{out['pool_eight_counts_e2e_p50_ms']:.4f}; engine_default_budget "
         f"{out['engine_default_budget']}; {out['card']}")
@@ -6319,7 +6600,8 @@ def run_ab(root, seed):
 def ab_k1_kr(engine, holder, seed):
     """--root's launch-bound items: K1 at the main path's shape (the 12
     pairs of f in turn over 960 shards) and the range leaf KR (K1 over
-    Range(v > 100), bench.py's v of depth 8), each as ``measured`` gives
+    Range(v > 100), bench.py's v of depth 8), then K6 and K7 over v
+    unfiltered (Sum, Min), each as ``measured`` gives
     it: CUDA-event ms around 10 wrapper calls, device ms per launch, host
     us per call.  Made through the checkout's engine, so that a change to
     the launch's parameters or to the kernels' variants shows."""
@@ -6383,6 +6665,13 @@ def ab_k1_kr(engine, holder, seed):
     sync()
     out["k6"] = measured(lambda: bsi.sum_tree(None, [], mask, vst.matrix, vplanes),
                          "sum_tree_kernel", sync,
+                         bound_ms=(BSI_DEPTH + 1) * S * W64 * 8 / HBM_BYTES_PER_S * 1e3)
+    # K7 at the same shape: Min(field=v), no filter.
+    for _ in range(3):
+        bsi.minmax_tree(None, [], mask, vst.matrix, vplanes, True)
+    sync()
+    out["k7"] = measured(lambda: bsi.minmax_tree(None, [], mask, vst.matrix, vplanes, True),
+                         "minmax_tree_kernel", sync,
                          bound_ms=(BSI_DEPTH + 1) * S * W64 * 8 / HBM_BYTES_PER_S * 1e3)
     return out
 
@@ -6462,10 +6751,11 @@ def ab_residency(device):
     """--root's residency items, through the checkout's engine: the
     residency phase's index and budget (build_rsw at 960 shards, 4x
     oversubscribed), the 8-Count query's and the drain's rows promoted by a
-    cold pass; then the drain's fused_many p50 and the 8-Count query's
-    Executor.execute p50 (each answer against numpy, memo off), and every
-    kernel of one call of each (call_kernels_ms): F1P, K6P, K3P and K5P
-    where the checkout has them, F1, K6, K3 and K5 where not."""
+    cold pass; then the drain's fused_many p50, the 8-Count query's and the
+    lone Min's and GroupBy's Executor.execute p50 (each answer against
+    numpy, memo off), and every kernel of one call of each
+    (call_kernels_ms): F1P, K6P, K3P, K7P, K8P and K5P where the checkout
+    has them, F1, K6, K3, K7, K8 and K5 where not."""
     import gc
 
     import torch
@@ -6479,7 +6769,7 @@ def ab_residency(device):
     holder = Holder(device=device)
     holder.open()
     words, (vcols, vvals) = build_rsw(holder, N_SHARDS)
-    q8, want8, _, entries, want_drain = rsw_queries(words, vcols, vvals)
+    q8, want8, seg, entries, want_drain, lone = rsw_queries(words, vcols, vvals)
     budget = RSW_FIELDS * RSW_ROWS * N_SHARDS * ROW_SHARD_BYTES // 4 - N_SHARDS * ROW_SHARD_BYTES
     eng = TorchEngine(holder, device=device, max_resident_bytes=budget)
     eng.result_memo.maxsize = 0
@@ -6491,7 +6781,7 @@ def ab_residency(device):
 
     def drain():
         got = eng.fused_many("rsw", entries)
-        if [list(g) if isinstance(g, list) else g for g in got] != want_drain:
+        if drain_plain(got) != want_drain:
             raise AssertionError(f"--root residency: drain {got} != numpy {want_drain}")
 
     eight()  # cold: the host lane, the rows requested
@@ -6508,16 +6798,28 @@ def ab_residency(device):
     eight()
     if eng.host_fallbacks != fb:
         raise AssertionError("--root residency: the warm 8-Count query fell back to the host")
+    q_min, _, q_group = lone
+
+    def one(q):
+        got = _pql_result(ex.execute("rsw", q).results[0])
+        if got != lone[q]:
+            raise AssertionError(f"--root residency: {q} {got} != numpy {lone[q]}")
+
     out = {"set_up_s": time.perf_counter() - t0}
-    for name, fn in (("drain_e2e_p50_ms", drain), ("eight_counts_e2e_p50_ms", eight)):
+    for name, fn in (("drain_e2e_p50_ms", drain), ("eight_counts_e2e_p50_ms", eight),
+                     ("min_e2e_p50_ms", lambda: one(q_min)),
+                     ("groupby_e2e_p50_ms", lambda: one(q_group))):
         times = []
         for _ in range(RSW_WARM_REPS):
             t = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t) * 1e3)
         out[name] = statistics.median(times)
-    out["drain_kernels"] = call_kernels_ms(drain, ("fused_tree", "sum_tree", "score_rows"))
+    out["drain_kernels"] = call_kernels_ms(drain, ("fused_tree", "sum_tree", "score_rows",
+                                                   "minmax_tree", "groupn_tree"))
     out["eight_counts_kernels"] = call_kernels_ms(eight, ("count_batch_tree",))
+    out["min_kernels"] = call_kernels_ms(lambda: one(q_min), ("minmax_tree",))
+    out["groupby_kernels"] = call_kernels_ms(lambda: one(q_group), ("groupn_tree",))
     eng.close()
     holder.close()
     del eng, ex, holder, words
@@ -6790,16 +7092,19 @@ def main(argv=None):
     kern.append(_entry("count_tree_pool", "pilosa_tpu_torch/csrc/count_tree_pool.cu",
                        "pilosa_tpu/parallel/kernels.py:84", k1p_launches, err["count_tree_pool"],
                        t_k1p, plain_k1p, k1p_bytes, k1p_bytes // 4 * 2, None))
-    # K3P, K6P, K5P and F1P on the residency phase's TopN, Sum, 8-Count
-    # query and drain over pool rows: an AND, a popcount and an add per
-    # word read.
-    for name, rep in (("score_rows_pool", "pilosa_tpu/parallel/kernels.py:346"),
-                      ("sum_tree_pool", "pilosa_tpu/parallel/kernels.py:475"),
-                      ("count_batch_tree_pool", "pilosa_tpu/parallel/kernels.py:255"),
-                      ("fused_tree_pool", "pilosa_tpu/parallel/kernels.py:545")):
+    # K3P, K6P, K7P, K8P, K5P and F1P on the residency phase's TopN, Sum,
+    # Min, GroupBy, 8-Count query and drain over pool rows: an AND, a
+    # popcount and an add per word read (K7P: six per plane word, as K7).
+    for name, src, rep, ops in (
+            ("score_rows_pool", "score_rows", "pilosa_tpu/parallel/kernels.py:346", 3),
+            ("sum_tree_pool", "sum_tree", "pilosa_tpu/parallel/kernels.py:475", 3),
+            ("minmax_tree_pool", "minmax_tree", "pilosa_tpu/parallel/kernels.py:511", 6),
+            ("groupn_tree_pool", "groupn_tree_pool", "pilosa_tpu/parallel/kernels.py:707", 3),
+            ("count_batch_tree_pool", "count_batch_tree", "pilosa_tpu/parallel/kernels.py:255", 3),
+            ("fused_tree_pool", "fused_tree", "pilosa_tpu/parallel/kernels.py:545", 3)):
         n, t = aggs[name]
-        kern.append(_entry(name, f"pilosa_tpu_torch/csrc/{name[:-5]}.cu", rep, n, err[name], t,
-                           t["plain_ms"], t["bytes"], t["bytes"] // 4 * 3, None))
+        kern.append(_entry(name, f"pilosa_tpu_torch/csrc/{src}.cu", rep, n, err[name], t,
+                           t["plain_ms"], t["bytes"], t["bytes"] // 4 * ops, None))
     mark("residency")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))

@@ -60,142 +60,11 @@
 //   rows.
 //
 // Either way the CTA adds each nonzero combination to the output with one
-// 64-bit atomic.  The listed row indices come from a device table.
-#include "reduce.cuh"
-#include "tree_eval.cuh"
+// 64-bit atomic.  The listed row indices come from a device table.  The
+// walks live in groupn_tree.cuh, shared with K8P (groupn_tree_pool.cu).
+#include "groupn_tree.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxFields = 8;
-constexpr int kMaxCombos = 1024;
-// The register form's capacities (module comment): kRegK0 rows on the
-// first level, kRegK on each later one, up to kRegFields fields.
-constexpr int kRegK0 = 4;
-constexpr int kRegK = 2;
-constexpr int kRegFields = 4;
-// Positions per thread and pass.  The register form: 2 up to two fields,
-// else 1.  The walk: 4 for one field (nothing is staged), else 1 (the
-// stage holds 4 KiB of each deeper row).
-__host__ __device__ constexpr int reg_u(int n) { return n <= 2 ? 2 : 1; }
-__host__ __device__ constexpr int walk_u(int n) { return n == 1 ? 4 : 1; }
-// The most dynamic shared memory a CTA may take (sm_90).
-constexpr size_t kMaxSmem = 227 * 1024;
-
-// The group fields, in level order: each stack's row 0, its listed-row
-// count, where its list starts in the row table, and its stride in the
-// row-major output.
-struct Fields {
-  const uint4* base[kMaxFields];
-  int k[kMaxFields];
-  int start[kMaxFields];
-  int stride[kMaxFields];
-};
-
-// A 16-byte asynchronous copy from device memory into shared memory, and
-// the wait for every copy this thread has issued (its writes are then
-// visible to this thread).
-__device__ __forceinline__ void copy16_async(uint4* dst, const uint4* src) {
-  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Level L of the walk: AND each listed row of field L into `prev` and
-// recurse, or at the last level count.  Level 0's rows come from device
-// memory at `off` (the next one loaded before the current one's subtree),
-// a deeper level's from the stage, slot (its place in the row table less
-// level 0's rows) * kPass + this thread's position.  `c` is the
-// combination's place in the row-major output, the same in every thread
-// of the CTA.
-template <int L, int N, int U>
-__device__ __forceinline__ void walk(const uint4 (&prev)[U], const Fields& f,
-                                     const int* table, size_t row_stride,
-                                     const size_t (&off)[U], const uint4* stage, int c,
-                                     unsigned int* counts, int lane) {
-  constexpr int kPass = kThreads * U;
-  uint4 nxt[U];
-  auto load0 = [&](int k) {
-    const int r = table[k];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      nxt[u] = r < 0 ? make_uint4(0u, 0u, 0u, 0u)
-                     : __ldg(f.base[0] + (size_t)r * row_stride + off[u]);
-  };
-  if constexpr (L == 0) load0(0);
-  for (int k = 0; k < f.k[L]; ++k) {
-    uint4 cur[U];
-    if constexpr (L == 0) {
-#pragma unroll
-      for (int u = 0; u < U; ++u) cur[u] = and4(prev[u], nxt[u]);
-      if (k + 1 < f.k[0]) load0(k + 1);
-    } else {
-      const uint4* row = stage + (size_t)(f.start[L] - f.k[0] + k) * kPass + threadIdx.x;
-#pragma unroll
-      for (int u = 0; u < U; ++u) cur[u] = and4(prev[u], row[u * kThreads]);
-    }
-    const int ck = c + k * f.stride[L];
-    if constexpr (L == N - 1) {
-      unsigned int v = 0u;
-#pragma unroll
-      for (int u = 0; u < U; ++u) v += popc4(cur[u]);
-      v = __reduce_add_sync(0xffffffffu, v);
-      if (lane == 0) counts[ck] += v;
-    } else {
-      walk<L + 1, N, U>(cur, f, table, row_stride, off, stage, ck, counts, lane);
-    }
-  }
-}
-
-// The register form's walk: level L's listed rows are registers
-// row[first(L) + k]; `v` is the combination's index in the capacity shape
-// (kRegK0 x kRegK x ...), a constant once the walk is unrolled.
-template <int L, int N, int U, int kRows, int kCombos>
-__device__ __forceinline__ void reg_walk(const uint4 (&prev)[U],
-                                         const uint4 (&row)[kRows][U], const Fields& f,
-                                         int v, unsigned int (&cnt)[kCombos]) {
-  constexpr int cap = L == 0 ? kRegK0 : kRegK;
-  constexpr int first = L == 0 ? 0 : kRegK0 + (L - 1) * kRegK;
-#pragma unroll
-  for (int k = 0; k < cap; ++k) {
-    if (k < f.k[L]) {
-      uint4 cur[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) cur[u] = and4(prev[u], row[first + k][u]);
-      if constexpr (L == N - 1) {
-        unsigned int x = 0u;
-#pragma unroll
-        for (int u = 0; u < U; ++u) x += popc4(cur[u]);
-        cnt[v * cap + k] += x;
-      } else {
-        reg_walk<L + 1, N, U, kRows, kCombos>(cur, row, f, v * cap + k, cnt);
-      }
-    }
-  }
-}
-
-// The filter at U positions of a pass (positions past the row count
-// nothing).
-template <int U, int kFilter, bool kRanges>
-__device__ __forceinline__ void filter_words(const TreeProg& prog, const Leaves& leaves,
-                                             const size_t (&off)[U], const bool (&ok)[U],
-                                             uint4 (&acc)[U]) {
-  if constexpr (kFilter == 0) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) acc[u] = make_uint4(~0u, ~0u, ~0u, ~0u);
-  } else if constexpr (kFilter == 1) {
-    eval_chain<U, kRanges>(prog, leaves, off, acc);
-  } else {
-#pragma unroll
-    for (int u = 0; u < U; ++u) acc[u] = eval_tree<kRanges>(prog, leaves, off[u]);
-  }
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (!ok[u]) acc[u] = make_uint4(0u, 0u, 0u, 0u);
-}
 
 // The register form (module comment): N levels in f, each within its
 // capacity, the fields' rows of this shard held per pass in registers and
@@ -419,33 +288,16 @@ extern "C" int groupn_tree(const void* const* leaf_ptrs, int n_leaves,
   if (filter && !pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops,
                            n_ops, &prog, &leaves, n_shards))
     return (int)cudaErrorInvalidValue;
-  if (n_fields < 1 || n_fields > kMaxFields || field_ptrs == nullptr ||
-      field_k == nullptr || field_stride == nullptr || idx == nullptr || out == nullptr ||
-      words <= 0 || words % 4 != 0 || n_shards < 0 || n_shards > 65535)
+  if (idx == nullptr || out == nullptr || words <= 0 || words % 4 != 0 || n_shards < 0 ||
+      n_shards > 65535)
     return (int)cudaErrorInvalidValue;
   Fields f = {};
-  int n_idx = 0, n_combos = 1, last = 0;
-  for (int i = 0; i < n_fields; ++i) {
-    if (field_k[i] < 1 || field_ptrs[i] == nullptr || field_stride[i] < 1)
-      return (int)cudaErrorInvalidValue;
-    if (regs && field_k[i] > (i == 0 ? kRegK0 : kRegK)) return (int)cudaErrorInvalidValue;
-    f.base[i] = (const uint4*)field_ptrs[i];
-    f.k[i] = field_k[i];
-    f.start[i] = n_idx;
-    f.stride[i] = field_stride[i];
-    n_idx += field_k[i];
-    n_combos *= field_k[i];
-    if (n_combos > kMaxCombos) return (int)cudaErrorInvalidValue;
-    last += (field_k[i] - 1) * field_stride[i];
-  }
-  if (last != n_combos - 1 || (regs && n_fields > kRegFields))
-    return (int)cudaErrorInvalidValue;
+  int n_idx = 0, n_combos = 1;
+  size_t smem = 0;
   const int u = regs ? reg_u(n_fields) : walk_u(n_fields);
-  const size_t smem =
-      regs ? 0
-           : (size_t)(n_idx - f.k[0]) * kThreads * u * sizeof(uint4) +
-                 (size_t)(n_idx + kWarps * n_combos) * sizeof(unsigned int);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (!pack_fields(field_ptrs, field_k, field_stride, regs, n_fields, u, &f, &n_idx, &n_combos,
+                   &smem))
+    return (int)cudaErrorInvalidValue;
   if (n_shards == 0) return (int)cudaSuccess;
   const int w4 = words / 4;
   const int kind = !filter ? 0 : is_chain(ops, n_ops) ? 1 : 2;

@@ -27,6 +27,27 @@
 // outputs need no fill and no atomics.  The plane loop is unrolled up to
 // the launch's depth tier (8, 16, 32 or 63) with a guard, so a position's
 // plane loads are all in flight together.  A missing plane reads as zeros.
+//
+// K7P (minmax_tree_pool): K7 for a filter tree with pool leaves, a Min or
+// Max over a segment whose rows are only partly resident (a block pool,
+// tree_eval.cuh load_pool).  The filter can be non-zero only in the blocks
+// of its live word, the same for every shard (tree_eval.cuh block_live),
+// and no column outside it is considered.  Bound: device-memory bytes, the
+// filter's leaves and the D + 1 planes read at the live blocks only:
+// (2 + 8) rows x 8 live blocks x 960 shards x 2 KiB = 157 MB, 0.047 ms at
+// 3.35 TB/s, for the residency sweep's Min(Intersect(Row(wf0=0),
+// Row(wf0=1)), field=rv), where K7 reads all eight planes whole (at
+// most: a position's value planes are read only where it holds a
+// considered column).  Design: unlike K6P's Sum, each shard's pair needs
+// one fold, so the grid does not flatten: CTAs of as many as the card
+// holds at once loop over the shards, each CTA listing the live blocks
+// once (tree_eval.cuh live_block_list), and walk each shard's live
+// positions with K7's body (shard_pair), the whole CTA a shard and K7's
+// fold.  Each shard's pair is written once; an unrequested shard, or a
+// live word of 0, writes (0, 0) and reads nothing.  (Smaller groups, down
+// to a warp a shard folded with shuffles alone, were slower at 8 live
+// blocks and at the full word: PERF.md.)
+#include "reduce.cuh"
 #include "tree_eval.cuh"
 
 namespace {
@@ -48,13 +69,13 @@ __device__ __forceinline__ void fold(unsigned long long& best, unsigned long lon
   }
 }
 
-template <int kMaxD, bool kFilter, bool kChain, bool kMin>
-__global__ void __launch_bounds__(kThreads)
-    minmax_tree_kernel(TreeProg prog, Leaves leaves, RangeLeaf planes,
-                       const int* __restrict__ mask, int w4,
-                       unsigned long long* __restrict__ vals,
-                       long long* __restrict__ counts) {
-  const int s = blockIdx.x;
+// Shard s's pair, by the whole block (module comment): K7 walks its w4
+// positions, K7P (kLive) the n_pos positions of the live blocks in `live`.
+template <int kMaxD, bool kFilter, bool kChain, bool kRanges, bool kLive, bool kMin>
+__device__ __forceinline__ void shard_pair(const TreeProg& prog, const Leaves& leaves,
+                                           const RangeLeaf& planes, const int* mask, int s,
+                                           int w4, int n_pos, const LiveBlocks* live,
+                                           unsigned long long* vals, long long* counts) {
   const int t = threadIdx.x;
   if (mask[s] == 0) {  // unrequested shard: no reads, an empty pair
     if (t == 0) {
@@ -66,15 +87,17 @@ __global__ void __launch_bounds__(kThreads)
   const int depth = planes.depth;
   const size_t shard_off = (size_t)s * (size_t)w4;
   unsigned long long best = 0ull, n = 0ull;
-  for (int i = t; i < w4; i += kThreads) {
-    const size_t off = shard_off + i;
+  for (int i = t; i < (kLive ? n_pos : w4); i += kThreads) {
+    size_t off = shard_off + i;
+    if constexpr (kLive)
+      off = shard_off + live->block[i / kPoolBlockVec] * kPoolBlockVec + i % kPoolBlockVec;
     uint4 k4 = load_plane(planes, depth, off);
     if (kFilter) {
       uint4 f;
       if (kChain)
-        eval_chain<1>(prog, leaves, &off, &f);
+        eval_chain<1, kRanges, true>(prog, leaves, &off, &f);
       else
-        f = eval_tree(prog, leaves, off);
+        f = eval_tree<kRanges, true>(prog, leaves, off);
       k4 = and4(k4, f);
     }
     unsigned int keep[4] = {k4.x, k4.y, k4.z, k4.w};
@@ -118,6 +141,68 @@ __global__ void __launch_bounds__(kThreads)
     vals[s] = n ? best : 0ull;
     counts[s] = (long long)n;
   }
+}
+
+template <int kMaxD, bool kFilter, bool kChain, bool kMin>
+__global__ void __launch_bounds__(kThreads)
+    minmax_tree_kernel(TreeProg prog, Leaves leaves, RangeLeaf planes,
+                       const int* __restrict__ mask, int w4,
+                       unsigned long long* __restrict__ vals,
+                       long long* __restrict__ counts) {
+  shard_pair<kMaxD, kFilter, kChain, true, false, kMin>(prog, leaves, planes, mask, blockIdx.x,
+                                                        w4, w4, nullptr, vals, counts);
+}
+
+// K7P: CTAs of as many as the card holds at once loop over the shards,
+// each listing the live blocks once.
+template <int kMaxD, bool kChain, bool kRanges, bool kMin>
+__global__ void __launch_bounds__(kThreads)
+    minmax_tree_pool_kernel(TreeProg prog, Leaves leaves, RangeLeaf planes,
+                            const int* __restrict__ mask, int n_shards,
+                            unsigned long long* __restrict__ vals,
+                            long long* __restrict__ counts) {
+  __shared__ LiveBlocks live;
+  const int n_pos = live_block_list(prog, leaves, live) * kPoolBlockVec;
+  for (int s = blockIdx.x; s < n_shards; s += gridDim.x) {
+    shard_pair<kMaxD, true, kChain, kRanges, true, kMin>(prog, leaves, planes, mask, s,
+                                                         kPoolRowVec, n_pos, &live, vals, counts);
+    __syncthreads();  // the next shard's fold writes wb, wn again
+  }
+}
+
+template <int kMaxD, bool kMin>
+void launch_pool(int n_shards, bool chain, bool ranges, const TreeProg& prog,
+                 const Leaves& leaves, const RangeLeaf& planes, const int* mask,
+                 unsigned long long* vals, long long* counts, cudaStream_t stream) {
+  auto kernel = chain ? (ranges ? minmax_tree_pool_kernel<kMaxD, true, true, kMin>
+                                : minmax_tree_pool_kernel<kMaxD, true, false, kMin>)
+                      : (ranges ? minmax_tree_pool_kernel<kMaxD, false, true, kMin>
+                                : minmax_tree_pool_kernel<kMaxD, false, false, kMin>);
+  // As many CTAs as the card holds at once (the variant's registers decide
+  // how many an SM takes), at most one a shard.
+  static int per_sm[2][2];
+  int& fit = per_sm[chain][ranges];
+  if (fit == 0 &&
+      (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kThreads, 0) != cudaSuccess ||
+       fit <= 0))
+    fit = 1;
+  const int ctas = n_shards < fit * n_sms() ? n_shards : fit * n_sms();
+  kernel<<<ctas, kThreads, 0, stream>>>(prog, leaves, planes, mask, n_shards, vals, counts);
+}
+
+template <bool kMin>
+void launch_pool_depth(int n_shards, bool chain, bool ranges, const TreeProg& prog,
+                       const Leaves& leaves, const RangeLeaf& pl, const int* mask,
+                       unsigned long long* vals, long long* counts, cudaStream_t st) {
+  if (pl.depth <= 8)
+    launch_pool<8, kMin>(n_shards, chain, ranges, prog, leaves, pl, mask, vals, counts, st);
+  else if (pl.depth <= 16)
+    launch_pool<16, kMin>(n_shards, chain, ranges, prog, leaves, pl, mask, vals, counts, st);
+  else if (pl.depth <= 32)
+    launch_pool<32, kMin>(n_shards, chain, ranges, prog, leaves, pl, mask, vals, counts, st);
+  else
+    launch_pool<MAX_PLANES - 1, kMin>(n_shards, chain, ranges, prog, leaves, pl, mask, vals,
+                                      counts, st);
 }
 
 template <int kMaxD, bool kMin>
@@ -186,5 +271,38 @@ extern "C" int minmax_tree(const void* const* leaf_ptrs, int n_leaves,
     launch_depth<true>(n_shards, filter, chain, prog, leaves, pl, m, words / 4, v, c, st);
   else
     launch_depth<false>(n_shards, filter, chain, prog, leaves, pl, m, words / 4, v, c, st);
+  return (int)cudaGetLastError();
+}
+
+// K7P: minmax_tree's arguments and outputs, for a filter tree (n_ops >= 1)
+// with pool leaves; words must be a pool row's full 32768.  Only the
+// filter's live blocks are read, of its leaves and of every plane; any
+// filter over full-width rows gives minmax_tree's answer.
+extern "C" int minmax_tree_pool(const void* const* leaf_ptrs, int n_leaves,
+                                const void* ranges, const int* range_rows, int n_ranges,
+                                const int* ops, int n_ops, const void* planes,
+                                int plane_rows, int is_min, const void* mask,
+                                int n_shards, int words, void* vals, void* counts,
+                                void* stream) {
+  TreeProg prog = {};
+  Leaves leaves = {};
+  if (n_ops < 1 || !pack_args(leaf_ptrs, n_leaves, ranges, range_rows, n_ranges, ops, n_ops,
+                              &prog, &leaves, n_shards))
+    return (int)cudaErrorInvalidValue;
+  if (planes == nullptr || vals == nullptr || counts == nullptr || mask == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const RangeLeaf pl = *(const RangeLeaf*)planes;
+  if (!planes_ok(pl, plane_rows) || words != kPoolRowVec * 4 || n_shards < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_shards == 0) return (int)cudaSuccess;
+  const bool chain = is_chain(ops, n_ops), ranged = n_ranges > 0;
+  const int* m = (const int*)mask;
+  unsigned long long* v = (unsigned long long*)vals;
+  long long* c = (long long*)counts;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_min)
+    launch_pool_depth<true>(n_shards, chain, ranged, prog, leaves, pl, m, v, c, st);
+  else
+    launch_pool_depth<false>(n_shards, chain, ranged, prog, leaves, pl, m, v, c, st);
   return (int)cudaGetLastError();
 }

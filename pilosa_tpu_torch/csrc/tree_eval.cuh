@@ -1,7 +1,8 @@
 // Shared device code of the kernels that evaluate a tree (K1
 // count_tree_dense.cu, K1P count_tree_pool.cu, K2 count_tree_blocks.cu,
-// K3/K3P score_rows.cu, K5/K5P count_batch_tree.cu, K6/K6P sum_tree.cu, K7
-// minmax_tree.cu, K8's filter in groupn_tree.cu, F1/F1P fused_tree.cu):
+// K3/K3P score_rows.cu, K5/K5P count_batch_tree.cu, K6/K6P sum_tree.cu,
+// K7/K7P minmax_tree.cu, K8's and K8P's filters in groupn_tree.cu and
+// groupn_tree_pool.cu, F1/F1P fused_tree.cu):
 // the postfix tree program, the per-thread tree evaluation over 16-byte
 // word vectors, the BSI range leaf, the block-pool leaf and a pool tree's
 // (or a fused slot table's) live blocks, and the block reduction.
@@ -113,7 +114,8 @@ __device__ __forceinline__ uint4 load_pool(const Leaves& leaves, int k, size_t o
 }
 
 // The live word (K1P count_tree_pool.cu, K3P score_rows.cu, K6P
-// sum_tree.cu, K5P count_batch_tree.cu, F1P fused_tree.cu).  Block b of a
+// sum_tree.cu, K7P minmax_tree.cu, K8P groupn_tree_pool.cu, K5P
+// count_batch_tree.cu, F1P fused_tree.cu).  Block b of a
 // pool row sits in slot slot[b] in every shard, so which blocks a tree can
 // make non-zero is one 64-bit word for all shards: the tree evaluated on
 // one bit a block, a pool leaf live where its slot is not 0, a stack row or

@@ -1,5 +1,6 @@
 """BSI Sum, Min and Max over a resident field stack: K6 ``sum_tree`` and K7
-``minmax_tree``, each beside its plain twin, and the host decoders.
+``minmax_tree`` (with K6P and K7P for a filter over pool rows), each beside
+its plain twin, and the host decoders.
 
 The BSI field's planes live in its ``bsig_<field>`` view stack
 ``int32[R, S, WORDS]`` like any other view; ``planes`` names the stack
@@ -18,7 +19,9 @@ None means every column.  The mask is the requested-shard gate int32[S].
   extreme value among the considered columns and how many hold it (count
   0: none); ``decode_min_max`` reduces the shards in canonical order.  It
   replaces ``kernels.py:511 minmax_tree``, whose value comes as (hi, lo)
-  halves; here it is one int64.
+  halves; here it is one int64.  A filter with a pool leaf launches K7P
+  (``minmax_tree_pool`` in the same source), which reads the filter's
+  leaves and the planes at the filter's live blocks only.
 
 For tensors on the card each wrapper launches its hand-written CUDA kernel
 (``csrc/sum_tree.cu``, ``csrc/minmax_tree.cu``) or raises; for tensors on
@@ -72,6 +75,23 @@ def minmax_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
     path and the reference K7 is held against."""
     p = _planes_plain(plane_mat, planes)
     return bsi_ops.minmax_valcount_nd(p, kernels.filter_plain(prog, mats, mask, p[0]), is_min)
+
+
+def minmax_tree_pool_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                           plane_mat: torch.Tensor, planes, is_min: bool):
+    """K7P's plain version: ``minmax_tree_plain``'s pairs from the filter
+    tree's live blocks alone (``kernels.live_blocks``), the filter's leaves
+    and every plane read there only; a live word of 0 gives every shard
+    (0, 0).  Equal to ``minmax_tree_plain`` for every filter over
+    full-width rows."""
+    idx, select = kernels.live_select(prog, mats, mask.device)
+    if idx.numel() == 0:  # a zero filter too: nothing is read
+        zero = torch.zeros(mask.shape[0], dtype=torch.int64, device=mask.device)
+        return zero, zero.clone()
+    p = kernels.range_planes(plane_mat, planes, select)
+    f = kernels.eval_prog(prog, mats, select, blocks=idx)
+    return bsi_ops.minmax_valcount_nd(p, torch.where(mask[:, None] != 0, f, torch.zeros_like(f)),
+                                      is_min)
 
 
 def _launch_args(code: Optional[kernels.Postfix], mats, mask: torch.Tensor,
@@ -131,27 +151,51 @@ def sum_tree_pool_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
 sum_tree_pool_cuda.launches = 0
 
 
-def minmax_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
-                     mask: torch.Tensor, plane_mat: torch.Tensor, planes, is_min: bool):
-    """Launch K7 on the card, on the current stream, without waiting for
-    the device: (values int64[S], counts int64[S])."""
+def _minmax_launch(entry: str, code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                   mask: torch.Tensor, plane_mat: torch.Tensor, planes, is_min: bool):
+    """Launch K7 or K7P (C entry ``entry`` of the minmax_tree library):
+    (values int64[S], counts int64[S])."""
     tree, pl, S, W = _launch_args(code, mats, mask, plane_mat, planes)
     vals = torch.empty(S, dtype=torch.int64, device=mask.device)
     counts = torch.empty(S, dtype=torch.int64, device=mask.device)
-    fn = kernels._lib_fn("minmax_tree", "minmax_tree",
-                         _TREE_ARGS + [_P, _I, _I, _P, _I, _I, _P, _P, _P])
+    fn = kernels._lib_fn("minmax_tree", entry, _TREE_ARGS + [_P, _I, _I, _P, _I, _I, _P, _P, _P])
     err = fn(*tree, ctypes.byref(pl), plane_mat.shape[0], int(bool(is_min)),
              mask.contiguous().data_ptr(), S, W, vals.data_ptr(), counts.data_ptr(),
              torch.cuda.current_stream(mask.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"minmax_tree launch failed: cudaError {err}")
-    minmax_tree_cuda.launches += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     if code is not None:
         kernels.pool_leaf(code, "minmax_tree")
     return vals, counts
 
 
+def minmax_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                     mask: torch.Tensor, plane_mat: torch.Tensor, planes, is_min: bool):
+    """Launch K7 on the card, on the current stream, without waiting for
+    the device: (values int64[S], counts int64[S])."""
+    out = _minmax_launch("minmax_tree", code, mats, mask, plane_mat, planes, is_min)
+    minmax_tree_cuda.launches += 1
+    return out
+
+
 minmax_tree_cuda.launches = 0
+
+
+def minmax_tree_pool_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
+                          mask: torch.Tensor, plane_mat: torch.Tensor, planes, is_min: bool):
+    """Launch K7P (``csrc/minmax_tree.cu`` minmax_tree_pool) on the card:
+    ``minmax_tree_cuda``'s pairs for a filter tree with pool leaves, the
+    filter's leaves and the planes read at its live blocks only
+    (``kernels.live_blocks``); any filter over full-width rows gives K7's
+    answer.  Rows are the full WORDS wide; a filter is required."""
+    if code is None:
+        raise ValueError("K7P takes a filter tree")
+    out = _minmax_launch("minmax_tree_pool", code, mats, mask, plane_mat, planes, is_min)
+    minmax_tree_pool_cuda.launches += 1
+    return out
+
+
+minmax_tree_pool_cuda.launches = 0
 
 
 def _compiled(prog) -> Optional[kernels.Postfix]:
@@ -179,11 +223,16 @@ def sum_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
 def minmax_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
                 plane_mat: torch.Tensor, planes, is_min: bool):
     """BSI Min or Max per shard: (values int64[S], counts int64[S]).  CUDA
-    tensors launch K7 or raise; CPU tensors take the plain version."""
+    tensors launch K7P for a filter with a pool leaf and K7 for any other
+    (or no filter), or raise; CPU tensors take the matching plain
+    version."""
     code = _compiled(prog)
+    pooled = code is not None and code.pooled
     if mask.is_cuda:
-        return minmax_tree_cuda(code, mats, mask, plane_mat, planes, is_min)
-    return minmax_tree_plain(prog, mats, mask, plane_mat, planes, is_min)
+        return (minmax_tree_pool_cuda if pooled else minmax_tree_cuda)(
+            code, mats, mask, plane_mat, planes, is_min)
+    return (minmax_tree_pool_plain if pooled else minmax_tree_plain)(
+        prog, mats, mask, plane_mat, planes, is_min)
 
 
 # -- host decoders (pilosa_tpu/parallel/fusion.py:164-190) ------------------

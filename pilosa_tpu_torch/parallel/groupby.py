@@ -1,5 +1,6 @@
 """GroupBy's combination counts over resident field stacks: K8
-``groupn_tree`` beside its plain twin.
+``groupn_tree`` (with K8P for a filter over pool rows) beside its plain
+twin.
 
 Each of the n group fields (1 <= n <= MAX_GROUP_FIELDS) is a field stack
 ``int32[R_i, S, WORDS]``; ``row_idx_lists[i]`` names the K_i stack rows of
@@ -23,7 +24,10 @@ evaluates the plain PyTorch version.  ``groupn_plan`` orders the fields
 for the kernel (the one with the most rows first) and picks its form for
 the shape: registers (the counts per thread) where it fits, else the walk
 (the deeper levels' rows staged in shared memory).  Either form brings
-each listed row of a tile on chip once per pass.
+each listed row of a tile on chip once per pass.  A filter with a pool
+leaf launches K8P (``csrc/groupn_tree_pool.cu``), either form over the
+filter's live blocks only, its leaves and every listed row read there
+alone.
 """
 
 from __future__ import annotations
@@ -39,15 +43,40 @@ from ..ops import bitops
 from . import kernels
 from .kernels import _I, _P, _TREE_ARGS
 
-# csrc/groupn_tree.cu kMaxFields and kMaxCombos.
+# csrc/groupn_tree.cuh kMaxFields and kMaxCombos.
 MAX_GROUP_FIELDS = 8
 MAX_GROUP_COMBOS = 1024
-# csrc/groupn_tree.cu's register form: at most REG_FIELDS fields, REG_K0
+# csrc/groupn_tree.cuh's register form: at most REG_FIELDS fields, REG_K0
 # rows on the first level and REG_K on each later one (kRegFields, kRegK0,
 # kRegK), so at most 32 combinations.
 REG_FIELDS = 4
 REG_K0 = 4
 REG_K = 2
+
+
+def _walk_plain(filt: torch.Tensor, field_mats: Sequence[torch.Tensor], lists,
+                select) -> torch.Tensor:
+    """The combination counts under the masked filter rows ``filt``, every
+    listed row restricted by ``select``: the combinations walked depth
+    first with one running AND per level, the last level's rows counted
+    together."""
+    zero = torch.zeros_like(filt)
+
+    def rows_of(d):
+        return [select(field_mats[d][r]) if r >= 0 else zero for r in lists[d]]
+
+    last = torch.stack(rows_of(len(lists) - 1))  # [K_n, S, W']
+    out = []
+
+    def walk(d, acc):
+        if d == len(lists) - 1:
+            out.append(bitops.popcount_words(torch.bitwise_and(last, acc)).sum(dim=(1, 2)))
+            return
+        for row in rows_of(d):
+            walk(d + 1, torch.bitwise_and(acc, row))
+
+    walk(0, filt)
+    return torch.cat(out).to(torch.int64)
 
 
 def groupn_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
@@ -59,24 +88,24 @@ def groupn_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
     lists = [[int(r) for r in rows] for rows in row_idx_lists]
     if not all(lists):
         return torch.zeros(0, dtype=torch.int64, device=mask.device)
-    like = field_mats[0][0]
-    zero = torch.zeros_like(like)
+    filt = kernels.filter_plain(prog, mats, mask, field_mats[0][0])
+    return _walk_plain(filt, field_mats, lists, lambda words: words)
 
-    def rows_of(d):
-        return [field_mats[d][r] if r >= 0 else zero for r in lists[d]]
 
-    last = torch.stack(rows_of(len(lists) - 1))  # [K_n, S, W]
-    out = []
-
-    def walk(d, acc):
-        if d == len(lists) - 1:
-            out.append(bitops.popcount_words(torch.bitwise_and(last, acc)).sum(dim=(1, 2)))
-            return
-        for row in rows_of(d):
-            walk(d + 1, torch.bitwise_and(acc, row))
-
-    walk(0, kernels.filter_plain(prog, mats, mask, like))
-    return torch.cat(out).to(torch.int64)
+def groupn_tree_pool_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                           field_mats: Sequence[torch.Tensor], row_idx_lists) -> torch.Tensor:
+    """K8P's plain version: ``groupn_tree_plain``'s counts from the filter
+    tree's live blocks alone (``kernels.live_blocks``), the filter's leaves
+    and every listed row read there only; a live word of 0 counts nothing.
+    Equal to ``groupn_tree_plain`` for every filter over full-width rows."""
+    lists = [[int(r) for r in rows] for rows in row_idx_lists]
+    idx, select = kernels.live_select(prog, mats, mask.device)
+    if not all(lists) or idx.numel() == 0:  # a zero filter too: nothing is read
+        return torch.zeros(math.prod(len(rows) for rows in lists), dtype=torch.int64,
+                           device=mask.device)
+    f = kernels.eval_prog(prog, mats, select, blocks=idx)
+    return _walk_plain(torch.where(mask[:, None] != 0, f, torch.zeros_like(f)), field_mats,
+                       lists, select)
 
 
 def _check_lists(field_mats: Sequence[torch.Tensor], row_idx_lists):
@@ -108,15 +137,15 @@ def groupn_plan(ks: Sequence[int]):
     return "registers" if regs else "walk", order, [stride[i] for i in order]
 
 
-def groupn_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
-                     mask: torch.Tensor, field_mats: Sequence[torch.Tensor],
-                     row_idx_lists) -> torch.Tensor:
-    """Launch K8 on the card, on the current stream, without waiting for
-    the device: int64[K_1 * ... * K_n], in ``groupn_plan``'s form.  The
-    row lists travel to the card in one pinned, non-blocking copy;
+def _groupn_launch(entry: str, code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                   mask: torch.Tensor, field_mats: Sequence[torch.Tensor],
+                   row_idx_lists) -> torch.Tensor:
+    """Launch K8 or K8P (C entry ``entry`` of the library of that name, the
+    same arguments) in ``groupn_plan``'s form: int64[K_1 * ... * K_n].
+    The row lists travel to the card in one pinned, non-blocking copy;
     PyTorch's caching allocators keep the host buffer until the copy has
-    run and hand the device copy out again only to work queued after K8
-    on this stream."""
+    run and hand the device copy out again only to work queued after the
+    kernel on this stream."""
     if not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 1:
         raise ValueError("mask must be an int32[S] tensor on the card")
     mask = mask.contiguous()
@@ -136,31 +165,63 @@ def groupn_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tenso
     n = len(field_mats)
     ptrs = (ctypes.c_void_p * n)(*[field_mats[i].data_ptr() for i in order])
     ks = (ctypes.c_int * n)(*[len(lists[i]) for i in order])
-    fn = kernels._lib_fn("groupn_tree", "groupn_tree",
+    fn = kernels._lib_fn(entry, entry,
                          _TREE_ARGS + [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P])
     err = fn(*tree, ptrs, ks, (ctypes.c_int * n)(*strides), int(form == "registers"), n,
              dev_idx.data_ptr(), mask.data_ptr(), S, W, out.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"groupn_tree launch failed: cudaError {err}")
-    groupn_tree_cuda.launches += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     if code is not None:
         kernels.pool_leaf(code, "groupn_tree")
+    return out
+
+
+def groupn_tree_cuda(code: Optional[kernels.Postfix], mats: Sequence[torch.Tensor],
+                     mask: torch.Tensor, field_mats: Sequence[torch.Tensor],
+                     row_idx_lists) -> torch.Tensor:
+    """Launch K8 on the card, on the current stream, without waiting for
+    the device: int64[K_1 * ... * K_n], in ``groupn_plan``'s form."""
+    out = _groupn_launch("groupn_tree", code, mats, mask, field_mats, row_idx_lists)
+    groupn_tree_cuda.launches += 1
     return out
 
 
 groupn_tree_cuda.launches = 0
 
 
+def groupn_tree_pool_cuda(code: kernels.Postfix, mats: Sequence[torch.Tensor],
+                          mask: torch.Tensor, field_mats: Sequence[torch.Tensor],
+                          row_idx_lists) -> torch.Tensor:
+    """Launch K8P (``csrc/groupn_tree_pool.cu``) on the card:
+    ``groupn_tree_cuda``'s counts for a filter tree with pool leaves, in
+    either form, the filter's leaves and every listed row read at its live
+    blocks only (``kernels.live_blocks``); any filter over full-width rows
+    gives K8's answer.  Rows are the full WORDS wide; a filter is
+    required."""
+    if code is None:
+        raise ValueError("K8P takes a filter tree")
+    out = _groupn_launch("groupn_tree_pool", code, mats, mask, field_mats, row_idx_lists)
+    groupn_tree_pool_cuda.launches += 1
+    return out
+
+
+groupn_tree_pool_cuda.launches = 0
+
+
 def groupn_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
                 field_mats: Sequence[torch.Tensor], row_idx_lists) -> torch.Tensor:
     """GroupBy's combination counts: int64[K_1 * ... * K_n].  CUDA tensors
-    launch K8 or raise; CPU tensors take the plain version."""
+    launch K8P for a filter with a pool leaf and K8 for any other (or no
+    filter), or raise; CPU tensors take the matching plain version."""
     code = None
     if prog is not None:
         code = kernels.compile_prog(prog)
         kernels.check_prog(code)
+    pooled = code is not None and code.pooled
     if mask.is_cuda:
-        return groupn_tree_cuda(code, mats, mask, field_mats, row_idx_lists)
+        return (groupn_tree_pool_cuda if pooled else groupn_tree_cuda)(
+            code, mats, mask, field_mats, row_idx_lists)
     _check_lists(field_mats, row_idx_lists)
-    return groupn_tree_plain(prog, mats, mask, field_mats, row_idx_lists)
+    return (groupn_tree_pool_plain if pooled else groupn_tree_plain)(
+        prog, mats, mask, field_mats, row_idx_lists)

@@ -65,7 +65,8 @@ the slots: F1 ``csrc/fused_tree.cu`` for the slots and counts, then K3,
 K6, K7 and K8 with a slot as their filter row.  A table with a pool leaf
 launches F1P (``fused_tree_pool`` in the same source), which walks only
 its slots' live blocks and writes each materialized slot as a pool row,
-so that the Sum and TopN edges take K6P and K3P.
+so that the Sum, TopN, Min/Max and group edges take K6P, K3P, K7P and
+K8P.
 """
 
 from __future__ import annotations
@@ -555,8 +556,9 @@ range_leaf.launches = 0
 
 def pool_leaf(code, kernel: str) -> None:
     """Called by every kernel wrapper whose launch may carry pool leaves
-    (K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, K8, F1 and F1P) after it
-    launched (K3P under "score_rows", K6P under "sum_tree", K5P under
+    (K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, K7P, K8, K8P, F1 and F1P)
+    after it launched (K3P under "score_rows", K6P under "sum_tree", K7P
+    under "minmax_tree", K8P under "groupn_tree", K5P under
     "count_batch_tree", F1P under "fused_tree"):
     ``pool_leaf.launches`` counts the launches that read a block pool
     (csrc/tree_eval.cuh load_pool, or K5's staging), ``pool_leaf.by_kernel``
@@ -1571,8 +1573,8 @@ def _agg_outputs(spec: FusedSpec, mats, mat, masks, tensors, plain: bool) -> lis
     ``plain``, its plain version) reading its slot as row
     ``spec.mat_slots.index(slot)`` of ``mat``: a stack int32[n_mat, S, W]
     (F1's), or F1P's ``(pool, table)``, whose pool row i is the leaf
-    ``("rowb", 0, 1, i)`` (so the Sum and TopN edges take K6P and K3P, and
-    K7 and K8 read it through load_pool)."""
+    ``("rowb", 0, 1, i)`` (so the Sum, TopN, Min/Max and group edges take
+    K6P, K3P, K7P and K8P)."""
     from . import bsi as bsi_mod
     from . import groupby as groupby_mod
 
@@ -1592,7 +1594,8 @@ def _agg_outputs(spec: FusedSpec, mats, mat, masks, tensors, plain: bool) -> lis
                 bsi_mod.sum_tree_pool_plain if pool_plain else bsi_mod.sum_tree_plain
             outs.append(fn(prog, ext, mask, mats[e[3]], e[4]))
         elif kind == "minmax":
-            fn = bsi_mod.minmax_tree_plain if plain else bsi_mod.minmax_tree
+            fn = bsi_mod.minmax_tree if not plain else \
+                bsi_mod.minmax_tree_pool_plain if pool_plain else bsi_mod.minmax_tree_plain
             outs.extend(fn(prog, ext, mask, mats[e[3]], e[4], e[5]))
         elif kind == "topn":
             fn = topn_tree if not plain else \
@@ -1608,7 +1611,8 @@ def _agg_outputs(spec: FusedSpec, mats, mat, masks, tensors, plain: bool) -> lis
                 outs.append(topn_full_tree(prog, ext, mask, mats[cm], tensors[ix], tensors[cnt],
                                            thr, n_out))
         elif kind == "group":
-            fn = groupby_mod.groupn_tree_plain if plain else groupby_mod.groupn_tree
+            fn = groupby_mod.groupn_tree if not plain else \
+                groupby_mod.groupn_tree_pool_plain if pool_plain else groupby_mod.groupn_tree_plain
             outs.append(fn(prog, ext, mask, [mats[i] for i in e[3]], e[4]))
         else:
             raise ValueError(f"bad fused edge {kind!r}")
@@ -1642,7 +1646,7 @@ def fused_tree_pool_plain(spec: FusedSpec, mats: Sequence[torch.Tensor],
     """F1P's drain in plain PyTorch ops, ``fused_tree_plain``'s outputs:
     each count edge over its slot's live blocks only, the materialized
     slots as ``fused_mat_pool_plain``'s pool rows, and the edges' pool
-    plain versions over them (K6P's and K3P's for Sum and TopN).  Equal to
+    plain versions over them (K6P's, K3P's, K7P's and K8P's).  Equal to
     ``fused_tree_plain`` for every drain over full-width rows."""
     if not masks:
         return []
