@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--check-only | --root DIR | --sass DIR]
+    python3 chip_smoke.py [--seed N] [--check-only | --root DIR [--serving ORDER] | --sass DIR]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -184,6 +184,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    build every stack and skip none before /readyz answers 200, and the
    Counts again; /metrics carries pilosa_server_requests_total, and the
    node must exit 0 with no traceback.
+   procmode — after http, before residency: process mode and the query
+   plans over the same API, bench and b10m, the memo off.  bench.py's
+   workers sweep (serve(api, workers=w) for w in 0, 1, 2, 4, 8; 128
+   connections x 64 c2 Counts, every reply 200 and exact):
+   http_count_qps_w{w}, the batch occupancy, cross_worker_fused_batches
+   (> 0 at w >= 2), the worker processes' boot to HELLO and w2/w0; with 4
+   workers nvidia-smi's compute apps are those of the owner alone, with no
+   worker pid, and no worker has a /dev/nvidia* node open while the owner
+   has; with 2, a sparse
+   Count with ?profile=1 and X-Pilosa-Tenant answered by a worker: exact,
+   its plan path sparse with the engine's own block counts, K2 in the
+   profiler's window, the plan under its trace id in /debug/plans, and
+   /debug/sequences answering; Explain(Count(...)) returns the plan with
+   no kernel in the profiler's window and no launch counted; bench.py's
+   profile_overhead_pct estimator (bench.py:3097-3212) on an 8-shard
+   index; then python -m pilosa_tpu_torch server with [server] workers =
+   2 on the http phase's data directory (restart to ready), a SIGKILL of
+   one worker (/readyz 503, then 200 after the respawn) and the c2 Counts
+   exact before and after.
    residency — after http, before phase 5, on its own holder and engines
    (freed after): bench.py's residency sweep at 960 shards (index rsw:
    wf0..wf3 of 32 rows, each rand & rand in 8 of the 64 occupancy blocks
@@ -249,7 +268,11 @@ Counts on f with the kernels it puts on the card (8 K1 launches where
 Counts run one by one, one K5 where the run is one count_many), and
 (ab_kernels) K3's full TopN at K = 4096 copying its totals out and
 trimming to 5 and 4096, and K8 at the 8-way, 3-field and filtered
-shapes and at 32 x 32, device ms per launch; (ab_pool) K1P, the full
+shapes and at 32 x 32, device ms per launch; (ab_count_lanes) the lone
+Count's p50 in one process with the executor's lane on engine.count and
+on engine.batched_count in turns; (ab_http) the http phase's
+http_count_e2e_p50, http_count_qps and http_mixed_qps loops through the
+checkout's node on its own b10m; (ab_pool) K1P, the full
 TopN against a pool row and the Sum under pool rows at the residency
 sweep's shape through the checkout's wrappers (K3P and K6P where it has
 them, the whole-row walks where not), and F1 over dense rows;
@@ -262,6 +285,14 @@ result memo is off for every timing loop.  The data,
 queries and loops are this file's, so both trees are measured the same
 way.  Run the trees in turns: parent, change, change, parent.
 
+--root DIR --serving ORDER prints the serving numbers alone, for many
+short calls in turns: the lone dense and sparse Count p50s and ab_http's
+loops (640 connections x 16 c2 Counts, 640 x 8 mixed queries), one
+round per entry of ORDER (on or off: the query-plan layer, where DIR has
+one; on-frozen or off-frozen: the http round under gc.freeze), each
+round with the serving threads' CPU and the cyclic GC's microseconds per
+query.
+
 --sass DIR builds every kernel library of this checkout and of DIR (one
 nvcc each, into build/sass/) and prints one JSON line: per library, how
 many of DIR's functions compile to the same SASS here (cuobjdump -sass).
@@ -271,6 +302,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -5594,10 +5626,10 @@ def dense_roaring(rows):
     return bytes(out)
 
 
-def _http_post(port, index, body, headers=None, timeout=300):
+def _http_post(port, index, body, headers=None, timeout=300, path_suffix=""):
     import urllib.request
 
-    req = urllib.request.Request(f"http://localhost:{port}/index/{index}/query",
+    req = urllib.request.Request(f"http://localhost:{port}/index/{index}/query{path_suffix}",
                                  data=body if isinstance(body, bytes) else body.encode(),
                                  method="POST")
     req.add_header("Content-Type", "application/json")
@@ -5614,7 +5646,7 @@ def _http_results(port, index, text, want, what):
     doc = json.loads(body)
     if status != 200 or ctype != "application/json" or "traceID" not in doc:
         raise AssertionError(f"http: {what}: {status} {ctype} {body[:200]!r}")
-    if doc["results"] != want:
+    if want is not None and doc["results"] != want:
         raise AssertionError(f"http: {what}: port {doc['results']} != numpy oracle {want}")
     return doc
 
@@ -5882,11 +5914,12 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _start_node(cmd, data_dir, port, log_path):
+def _start_node(cmd, data_dir, port, log_path, extra=()):
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     errf = open(log_path, "ab")
-    proc = subprocess.Popen(cmd + ["server", "-d", data_dir, "-b", f"localhost:{port}"],
+    proc = subprocess.Popen(cmd + ["server", "-d", data_dir, "-b", f"localhost:{port}"]
+                            + list(extra),
                             cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=errf)
     errf.close()
     return proc
@@ -6047,6 +6080,478 @@ def run_http_node(w10, c2_texts, c2_wants, node_cmd=None, node_shards=NODE_SHARD
         f"SIGTERM and restart (warm start {out['warm_start']}; /readyz 200 after "
         f"{out['restart_ready_s']:.3f} s, warming seen {out['warming_seen']}); export and "
         f"backup ran; {out['seconds']:.3f} s")
+    return out
+
+
+# -- the procmode phase: process mode and the query plans --------------------
+
+PM_WORKERS = (0, 1, 2, 4, 8)  # bench.py's workers sweep (bench.py:1228-1275)
+PM_CONNS, PM_TOTAL = 128, 8192  # bench.py W_CONNS, W_TOTAL
+PM_TENANT = "procmode"
+OVH_SHARDS = 8  # bench.py OVH_SHARDS
+OVH_P50_REPS = 48  # bench.py OVH_P50_REPS: the real query's wall p50
+OVH_REPLAY_N = 20000  # bench.py OVH_REPLAY_N: replays of the plan sequence
+OVH_REPLAY_LOOPS = 8  # bench.py OVH_REPLAY_LOOPS: the best mean over this many loops
+
+
+def _compute_app_pids():
+    """The pids ``nvidia-smi --query-compute-apps=pid`` lists: the
+    processes holding a CUDA context on the card."""
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30, check=True)
+    return sorted(int(x) for x in res.stdout.split() if x.strip().isdigit())
+
+
+def _nvidia_fds(pid):
+    """How many of process ``pid``'s open files are the card's device
+    nodes (/dev/nvidia*): a CUDA context holds them open, and a process
+    that never made one (importing torch maps libcuda but opens none)
+    holds none."""
+    n = 0
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            n += os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia")
+        except OSError:
+            pass  # closed while listed
+    return n
+
+
+def _worker_inline(srv):
+    """{worker: requests its reactor answered inline} from each worker's
+    registry, fetched over the engine link (a /metrics aggregation)."""
+    srv.aggregate_metrics(srv.handler)
+    out = {}
+    for wid in range(srv.workers):
+        text = srv._last_stats.get(wid, {}).get("text", "")
+        out[wid] = sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                       if ln.startswith('pilosa_server_requests_total{path="inline"}'))
+    return out
+
+
+def _engine_sparse_blocks(engine, index, text, shards):
+    """(blocks surviving, blocks total) of the engine's own sparse plan
+    (``_sparse_plan``) for a Count's tree over ``shards``."""
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.ops import bitops
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+    from pilosa_tpu_torch.util import plans
+
+    call = pql.parse(text).calls[0].children[0]
+    canonical = engine.canonical_shards(index)
+    with engine._stacks_lock:
+        lw = _Lowering(engine, canonical)
+        prog = engine._lower(index, call, lw)
+        plan = engine._sparse_plan(prog, lw, shards, canonical)
+    plans.take_dispatch_note()  # the planner's note: no plan on this thread
+    if plan is None:
+        raise AssertionError(f"procmode: {text} takes no sparse plan")
+    return bitops.popcount_np(plan[0].view(np.uint64)), len(shards) * bitops.OCC_BLOCKS
+
+
+def _profiled_through_a_worker(srv, port, text, tries=40):
+    """POST ``text`` with ?profile=1 and the tenant header on fresh
+    connections until a worker process (not the owner's own reactor, the
+    third member of the accept group) answered one; its decoded reply."""
+    for _ in range(tries):
+        before = _worker_inline(srv)
+        status, _, body = _http_post(port, "bench", text, {"X-Pilosa-Tenant": PM_TENANT},
+                                     path_suffix="?profile=1")
+        if status != 200:
+            raise AssertionError(f"procmode: ?profile=1 {text}: {status} {body[:200]!r}")
+        after = _worker_inline(srv)
+        if any(after[w] > before[w] for w in after):
+            return json.loads(body)
+    raise AssertionError(f"procmode: no worker answered {text} in {tries} tries")
+
+
+def profile_overhead(device, seed):
+    """bench.py's profile_overhead_pct estimator (bench.py:3097-3212) on
+    the port: the denominator is the wall p50 of the real
+    Count(Intersect(Row(f=0), Row(f=1))) over an 8-shard index through
+    API.query with plans on, on a holder and engine of its own as
+    bench.py builds them; the numerator replays the record sequence that
+    query's plan holds (begin and attach, its dispatch notes, the op,
+    stage and device stamps, finish, ring and ledger), the best mean over
+    several loops."""
+    from pilosa_tpu_torch.api import API, QueryRequest
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+    from pilosa_tpu_torch.util import plans
+
+    rng = np.random.default_rng(seed + 11)  # bench.py's rng(11), offset by the seed
+    holder = Holder(device=device)
+    holder.open()
+    engine = TorchEngine(holder, device=device)
+    f = holder.create_index("ovh").create_field("f")
+    view = f.view_if_not_exists("standard")
+    for s in range(OVH_SHARDS):
+        frag = view.fragment_if_not_exists(s)
+        for r in (0, 1):
+            frag.load_row_words(r, rng.integers(0, 1 << 64, W64, dtype=np.uint64))
+    for frag in view.fragments.values():
+        frag.cache.invalidate()
+    api = API(holder=holder, engine=engine)
+    req = QueryRequest("ovh", "Count(Intersect(Row(f=0), Row(f=1)))")
+    want = int(popcounts(np.stack([
+        holder.fragment("ovh", "f", "standard", s).row_words(0).view(np.uint64)
+        & holder.fragment("ovh", "f", "standard", s).row_words(1).view(np.uint64)
+        for s in range(OVH_SHARDS)])).sum())
+    with memo_off(engine):
+        for _ in range(3):
+            if int(api.query(req).results[0]) != want:
+                raise AssertionError("procmode: the overhead query disagrees with numpy")
+        lat = []
+        for _ in range(OVH_P50_REPS):
+            t0 = time.perf_counter()
+            resp = api.query(req)
+            lat.append(time.perf_counter() - t0)
+    p50 = statistics.median(lat)
+    real = plans.STORE.find(resp.trace_id)
+    if real is None:
+        raise AssertionError("procmode: the overhead query's plan was not recorded")
+    op_fields = dict(real.ops[0]) if real.ops else {"op": "Count", "path": "direct"}
+    occ = {k: op_fields.pop(k) for k in ("blocks_surviving", "blocks_total", "occ_fraction",
+                                         "threshold") if k in op_fields}
+    stage_events = list(real._stage_events)
+    dur = real.duration or p50
+    trace_id = resp.trace_id or "procmode"
+
+    def replay():
+        p = plans.begin("ovh", req.query)
+        with plans.attach(p):
+            if occ:
+                plans.note_dispatch(**occ)
+            plans.note_dispatch(**op_fields)
+            note = plans.take_dispatch_note()
+            p.note_op(**note)
+            for st, s in stage_events:
+                p.note_stage(st, s)
+            p.finish(dur, trace_id=trace_id)
+        plans.record(p)
+
+    for _ in range(OVH_REPLAY_N // 10):
+        replay()
+    loop_n = max(1, OVH_REPLAY_N // OVH_REPLAY_LOOPS)
+    best = math.inf
+    for _ in range(OVH_REPLAY_LOOPS):
+        t0 = time.perf_counter()
+        for _ in range(loop_n):
+            replay()
+        best = min(best, (time.perf_counter() - t0) / loop_n)
+    engine.close()
+    return {"count_intersect_plans_on_p50_ms": p50 * 1e3, "plan_record_us": best * 1e6,
+            "profile_overhead_pct": best / p50 * 100.0, "plan_ops": real.to_dict()["ops"]}
+
+
+def run_procmode_path(device, holder, engine, host, seed, node_cmd=None, workers=PM_WORKERS,
+                      conns=PM_CONNS, total=PM_TOTAL, node_shards=NODE_SHARDS):
+    """The procmode phase, after http and before residency: process mode
+    and the query plans over the same in-process API, ``bench`` (960
+    shards) and ``b10m``, the memo off as in the http phase.
+
+    bench.py's workers sweep: ``serve(api, workers=w)`` for w in 0, 1, 2,
+    4 and 8, each reply of 128 connections x 64 c2 Counts 200 and exact,
+    ``http_count_qps_w{w}`` with the batch occupancy and
+    ``cross_worker_fused_batches`` (> 0 at w >= 2), the worker boot to
+    HELLO and the w2/w0 ratio.  With four workers, no worker holds a CUDA
+    context (``nvidia-smi --query-compute-apps`` lists what it listed with
+    the owner alone and no worker pid, and no worker has a /dev/nvidia*
+    node open) while the owner does.  With two: a
+    sparse Count with ?profile=1 and X-Pilosa-Tenant answered by a worker
+    process: exact, its plan ``path: sparse`` with the engine's
+    ``_sparse_plan`` block counts, K2 in the profiler's window and its
+    counter, the plan in /debug/plans under its trace id, and
+    /debug/sequences answering; then ``Explain(Count(...))`` returns the
+    plan with no kernel in the profiler's window and no counter moved.
+    bench.py's profile_overhead_pct.  Then the node: ``python -m
+    pilosa_tpu_torch server`` with ``[server] workers = 2`` on the http
+    phase's data directory (restart to ready), a SIGKILL of a worker
+    (/readyz 503, then 200 after the respawn) and every answer exact
+    before and after.  Returns the phase's numbers and its launches."""
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.net.admission import AdmissionController
+    from pilosa_tpu_torch.net.server import serve
+    from pilosa_tpu_torch.parallel import kernels, sparse
+    from pilosa_tpu_torch.util import plans
+
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"card": card_line()}
+    w10 = _frag_words(holder, "b10m", "f", "standard", F10_ROWS, N_SHARDS_10M)
+    texts, wants = c2_queries(w10)
+    mixed_texts, mixed_wants = http_mixed(holder, w10)
+    want = expected_counts(host)
+    api = API(holder=holder, engine=engine)
+    plans.STORE.reset()
+    plans.LEDGER.reset()
+    sweep, boot = {}, {}
+    # The card's compute apps with the owner alone (its pid as the chip
+    # machine's nvidia-smi sees it may not be this namespace's).
+    apps0 = _compute_app_pids() if cuda else []
+    _zero_http_launches()
+    with memo_off(engine):
+        for w in workers:
+            t0 = time.perf_counter()
+            srv, _ = serve(api, "localhost", 0, workers=w,
+                           admission=AdmissionController(max_inflight=1 << 17))
+            try:
+                if w and not srv.wait_ready(120):
+                    raise AssertionError(f"procmode: {w} workers never connected")
+                if w:
+                    boot[w] = time.perf_counter() - t0
+                port = srv.server_address[1]
+                run_qps(port, texts, wants, 8, 32)  # warm connections and worker boots
+                b = engine.batcher()
+                b0, q0 = b.batches, b.batched_queries
+                x0 = b.pipeline.snapshot()["counters"].get("cross_worker_fused_batches", 0)
+                qps, n = run_qps(port, texts, wants, conns, max(32, total // conns))
+                xw = b.pipeline.snapshot()["counters"].get("cross_worker_fused_batches", 0) - x0
+                occ = (b.batched_queries - q0) / max(1, b.batches - b0)
+                out[f"http_count_qps_w{w}"] = qps
+                sweep[w] = {"requests": n, "batches": b.batches - b0, "occupancy": occ,
+                            "cross_worker_fused_batches": xw}
+                log(f"procmode: workers sweep w{w}: {qps:.1f} qps over {n}, every reply exact; "
+                    f"occupancy {occ:.2f}, cross-worker fused batches {xw}"
+                    + (f"; boot to HELLO {boot[w]:.3f} s" if w else ""))
+                if w >= 2 and xw <= 0:
+                    raise AssertionError(f"procmode: w{w}: no batch spanned two workers")
+                if w == 4 and cuda:
+                    pids = list(srv.worker_pids().values())
+                    apps = _compute_app_pids()
+                    owner = os.getpid()
+                    held = {"owner": owner, "workers": pids, "compute_apps_owner_alone": apps0,
+                            "compute_apps": apps, "owner_nvidia_fds": _nvidia_fds(owner),
+                            "worker_nvidia_fds": [_nvidia_fds(p) for p in pids]}
+                    out["cuda_contexts"] = held
+                    log(f"procmode: CUDA contexts with 4 workers: {json.dumps(held)}")
+                    # With four workers up, the card lists the contexts it
+                    # listed with the owner alone, and no worker's pid; no
+                    # worker has a device node open, the owner has.
+                    if (len(pids) != 4 or set(pids) & set(apps) or apps != apps0
+                            or any(held["worker_nvidia_fds"]) or not held["owner_nvidia_fds"]):
+                        raise AssertionError(f"procmode: a worker holds a CUDA context: {held}")
+                if w == 2:
+                    out.update(_plans_through_workers(srv, port, engine, want, cuda))
+                    out["mixed_w2"] = _mixed_through_workers(engine, port, mixed_texts,
+                                                             mixed_wants, conns, cuda)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+    out["launches"] = _http_launches()
+    out["sweep"] = sweep
+    out["worker_boot_s"] = boot
+    if out.get("http_count_qps_w0"):
+        out["w2_over_w0"] = out["http_count_qps_w2"] / out["http_count_qps_w0"]
+    log(f"procmode: w2/w0 {out.get('w2_over_w0', 0):.3f}; launches {json.dumps(out['launches'])}")
+    if cuda and min(out["launches"][k] for k in ("count_tree_dense", "count_tree_blocks")) <= 0:
+        raise AssertionError(f"procmode: a kernel of the path never launched: {out['launches']}")
+    out["tenants"] = plans.LEDGER.snapshot().get(PM_TENANT)
+    ovh = profile_overhead(device, seed)
+    out.update({k: v for k, v in ovh.items() if k != "plan_ops"})
+    log(f"procmode: plan-recording overhead: record {ovh['plan_record_us']:.3f} us / query "
+        f"p50 {ovh['count_intersect_plans_on_p50_ms'] * 1e3:.1f} us = "
+        f"{ovh['profile_overhead_pct']:.4f}% (target < 2%); its plan's ops "
+        f"{json.dumps(ovh['plan_ops'])}")
+    out["node"] = run_procmode_node(w10, texts, node_cmd, node_shards)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"procmode: phase {out['seconds']:.3f} s; {out['card']}")
+    return out
+
+
+def http_mixed(holder, w10):
+    """The http phase's mixed dashboard on b10m (bench.py's http_mixed:
+    per four-row tree two c2 Counts, a TopN and Sum(field=v10)) and its
+    numpy answers, from the words the fragments hold: v10 is the one the
+    http phase made."""
+    planes = _frag_words(holder, "b10m", "v10", "bsig_v10", range(BSI_DEPTH), N_SHARDS_10M)
+    sum_want = [{"value": sum((1 << p) * int(popcounts(w).sum()) for p, w in planes.items()),
+                 "count": N_SHARDS_10M << 20}]
+    c2_texts, c2_wants = c2_queries(w10)
+    top10 = TopNOracle(w10)
+    texts, wants = [], []
+    for k in range(len(F10_ROWS) // 4):
+        a = 100 + 4 * k
+        for j in (k, (k + 7) % len(c2_texts)):
+            texts.append(c2_texts[j])
+            wants.append(c2_wants[j])
+        texts.append(f"TopN(f, Row(f={a}), n=5)")
+        wants.append([[{"id": r, "count": c} for r, c in top10.fused(w10[a], 5)]])
+        texts.append("Sum(field=v10)")
+        wants.append(sum_want)
+    return texts, wants
+
+
+def _mixed_through_workers(engine, port, texts, wants, conns, cuda):
+    """With two workers: the mixed dashboard from ``conns`` connections of
+    32 queries each, every reply 200 and exact; the TopN and Sum results
+    come back through the worker's encode, and the drains that hold them
+    with Counts run fused (F1 with its K3 and K6 edges) on the card."""
+    pipe = engine.batcher().pipeline
+    before, fused0 = _http_launches(), pipe.snapshot()["counters"].get("fused_program_batches", 0)
+    qps, n = run_qps(port, texts, wants, conns, 32)
+    moved = {k: v - before[k] for k, v in _http_launches().items() if v != before[k]}
+    fused = pipe.snapshot()["counters"].get("fused_program_batches", 0) - fused0
+    log(f"procmode: mixed dashboard through 2 workers: {qps:.1f} qps over {n}, every reply "
+        f"exact; fused drains {fused}; launches {json.dumps(moved)}")
+    if fused <= 0 or (cuda and moved.get("fused_tree", 0) <= 0):
+        raise AssertionError(f"procmode: the mixed load ran no fused drain: {fused}, {moved}")
+    return {"http_mixed_qps": qps, "requests": n, "fused_drains": fused, "launches": moved}
+
+
+def _plans_through_workers(srv, port, engine, want, cuda):
+    """With two workers: the sparse Count's plan through a worker, the
+    plan routes, and Explain (run_procmode_path's docstring)."""
+    from pilosa_tpu_torch.parallel import sparse
+
+    out = {}
+    text = pql_of("s", "and", (10, 11))
+    shards = engine.canonical_shards("bench")
+    got = {}
+
+    def ask():
+        k2 = sparse.count_tree_blocks_cuda.launches
+        got["doc"] = _profiled_through_a_worker(srv, port, text)
+        got["k2"] = sparse.count_tree_blocks_cuda.launches - k2
+
+    seen = on_card(ask, lambda s: any("count_tree_blocks" in k for k in s)) if cuda else ask()
+    doc = got["doc"]
+    plan = doc["plan"]
+    op = next(o for o in plan["ops"] if o.get("op") == "Count")
+    surviving, total = _engine_sparse_blocks(engine, "bench", text, shards)
+    out["sparse_plan"] = {"results": doc["results"], "path": op["path"],
+                          "blocks_surviving": op["blocks_surviving"],
+                          "blocks_total": op["blocks_total"], "engine": [surviving, total],
+                          "tenant": plan["tenant"], "k2_launches": got["k2"],
+                          "bytes_skipped": plan["bytesSkipped"],
+                          "annotations": plan["annotations"]}
+    log(f"procmode: ?profile=1 {text} through a worker: {json.dumps(out['sparse_plan'])}"
+        + (f"; on the card {json.dumps(per_launch(seen))}" if cuda else ""))
+    if (doc["results"] != [want[text]] or op["path"] != "sparse"
+            or (op["blocks_surviving"], op["blocks_total"]) != (surviving, total)
+            or plan["tenant"] != PM_TENANT or plan["traceID"] != doc["traceID"]
+            or (cuda and got["k2"] <= 0)):
+        raise AssertionError(f"procmode: the sparse Count's plan: {out['sparse_plan']}")
+    from pilosa_tpu_torch.net import InternalClient
+
+    client = InternalClient(f"http://localhost:{port}", timeout=60)
+    found = client._get(f"/debug/plans?trace={doc['traceID']}")["plans"]
+    if len(found) != 1 or found[0]["ops"] != plan["ops"]:
+        raise AssertionError(f"procmode: /debug/plans?trace= holds {found}")
+    seq = client._get("/debug/sequences")
+    if seq.get("observed", 0) < 1:
+        raise AssertionError(f"procmode: /debug/sequences: {seq}")
+    out["sequences"] = {k: seq[k] for k in ("observed", "edgesObserved", "signatures")}
+    # Explain: the plan, with nothing launched.
+    explain = f"Explain({text})"
+    before = _http_launches()
+
+    def dry():
+        got["explain"] = _http_results(port, "bench", explain, None, explain)
+
+    if cuda:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dry()
+            torch.cuda.synchronize()
+        kernels_seen = sorted({e.key for e in prof.key_averages()
+                               if e.device_type == torch.autograd.DeviceType.CUDA})
+    else:
+        dry()
+        kernels_seen = []
+    moved = {k: v - before[k] for k, v in _http_launches().items() if v != before[k]}
+    ex = got["explain"]["results"][0]
+    out["explain"] = {"plannedPath": ex.get("plannedPath"),
+                      "blocksSurviving": ex.get("blocksSurviving"), "kernels": kernels_seen,
+                      "launches_moved": moved}
+    log(f"procmode: {explain}: {json.dumps(ex)}; kernels while it ran {kernels_seen}, "
+        f"launches moved {moved}")
+    if (ex.get("plannedPath") != "sparse" or ex.get("blocksSurviving") != surviving
+            or kernels_seen or moved):
+        raise AssertionError(f"procmode: Explain: {out['explain']}")
+    return out
+
+
+def run_procmode_node(w10, c2_texts, node_cmd=None, node_shards=NODE_SHARDS):
+    """``python -m pilosa_tpu_torch server -c <[server] workers = 2>`` on
+    the http phase's data directory (build/http_node/data): restart to
+    ready (the warm start and both workers' HELLO), the c2 Counts exact,
+    a SIGKILL of one worker, /readyz 503 and then 200 after the
+    supervisor's respawn, every Count answered in between exact or shed,
+    and the Counts exact again; SIGTERM, exit 0, no traceback."""
+    import signal
+
+    from pilosa_tpu_torch.net import InternalClient
+    from pilosa_tpu_torch.net.client import ClientError
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "http_node")
+    data_dir, log_path = os.path.join(work, "data"), os.path.join(work, "procnode.log")
+    cfg = os.path.join(work, "workers.toml")
+    with open(cfg, "w") as f:
+        f.write("[server]\nworkers = 2\n")
+    cmd = node_cmd or [sys.executable, "-m", "pilosa_tpu_torch"]
+    wn = {r: w[:node_shards] for r, w in w10.items()}
+    _, wants = c2_queries(wn)
+    out = {}
+    port = _free_port()
+    t0 = time.perf_counter()
+    proc = _start_node(cmd, data_dir, port, log_path, extra=["-c", cfg])
+    try:
+        out["restart_ready_s"], _ = _wait_ready(proc, port, log_path, "with two workers")
+        client = InternalClient(f"http://localhost:{port}", timeout=600)
+
+        def counts(c, what):
+            for text, w in zip(c2_texts, wants):
+                doc = c.query("b10m", text)
+                if doc["results"] != w or "traceID" not in doc:
+                    raise AssertionError(f"procmode: node {what} {text}: {doc} != {w}")
+
+        counts(client, "with two workers")
+        srv = client._get("/debug/vars")["server"]
+        pids = {int(k): v for k, v in srv["workerPids"].items()}
+        if srv["backend"] != "process" or len(pids) != 2:
+            raise AssertionError(f"procmode: the node's server: {srv}")
+        os.kill(pids[0], signal.SIGKILL)
+        probe = InternalClient(f"http://localhost:{port}", timeout=5.0, retries=0)
+        t_kill = time.perf_counter()
+        seen_503 = False
+        while time.perf_counter() - t_kill < NODE_READY_S:
+            try:
+                probe._get("/readyz")
+                if seen_503:
+                    break
+            except ClientError as e:
+                # code None: a connection the kernel gave the killed
+                # worker's listener, reset with it.
+                if e.code not in (503, None):
+                    raise
+                seen_503 = seen_503 or e.code == 503
+            time.sleep(0.05)
+        else:
+            raise AssertionError("procmode: /readyz did not turn 503 and back to 200 "
+                                 f"within {NODE_READY_S} s of the kill")
+        if not seen_503:
+            raise AssertionError("procmode: /readyz never turned 503 after the kill")
+        out["respawn_ready_s"] = time.perf_counter() - t_kill
+        client = InternalClient(f"http://localhost:{port}", timeout=600)
+        srv = client._get("/debug/vars")["server"]
+        if srv["restarts"] < 1 or int(srv["workerPids"]["0"]) == pids[0]:
+            raise AssertionError(f"procmode: no respawn: {srv}")
+        counts(client, "after the kill")
+        _stop_node(proc, log_path)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"procmode: the node with [server] workers = 2 ready {out['restart_ready_s']:.3f} s "
+        f"after its start on the http phase's data; a worker SIGKILLed, /readyz 503 then 200 "
+        f"after {out['respawn_ready_s']:.3f} s; the c2 Counts exact before and after; "
+        f"{out['seconds']:.3f} s")
     return out
 
 
@@ -6588,11 +7093,232 @@ def run_ab(root, seed):
     out["engine_less_topn_kernels"] = per_launch(on_card(engine_less))
     if hasattr(ex, "execute_async"):  # a checkout from before batched serving has none
         out["stream"] = ab_stream(engine, ex, host, seed)
+    out["count_lanes"] = ab_count_lanes(engine, ex)
+    out["http"] = ab_http(device, seed)
     out["kernels_at"] = ab_kernels(device, seed)
     out["pool"] = ab_pool(device, seed)
     out["residency"] = ab_residency(device)
     out["k1_kr"] = ab_k1_kr(engine, holder, seed)
     out.update(root_writes(engine, ex, holder, host, seed))
+    out["card"] = card_line()
+    print(json.dumps(out), flush=True)
+
+
+def ab_count_lanes(engine, ex, rounds=4):
+    """The lone Count's p50 (``count_p50_ms``, f dense and s sparse) with
+    the executor's Count lane set to each engine entry in turn, in one
+    process: ``engine.count`` (the lane before it went through the
+    batcher) and ``engine.batched_count`` (the batcher's submit and
+    direct path, the lane since), ``rounds`` alternations, the memo off.  Two processes'
+    host times spread more than the lanes differ; one process compares
+    the lanes alone."""
+    lanes = {"engine_count": lambda i, c, s: engine.count(i, c, list(s)),
+             "batched_count": lambda i, c, s: engine.batched_count(i, c, list(s))}
+    own = ex._mesh_count
+    out = {}
+    try:
+        with memo_off(engine):
+            for _ in range(rounds):
+                for name, fn in lanes.items():
+                    ex._mesh_count = fn
+                    for f in ("f", "s"):
+                        out.setdefault(f"{name}_{f}", []).append(count_p50_ms(ex, f))
+    finally:
+        ex._mesh_count = own
+    return {k: {"p50_of_rounds": statistics.median(v), "rounds": v} for k, v in out.items()}
+
+
+def ab_http(device, seed, rounds=2, plans_order=None, count_load=(QPS_CONNS, QPS_PER_CONN),
+            mixed_load=(QPS_CONNS, QPS_PER_CONN)):
+    """The http phase's QPS loops through the checkout's node, on a holder
+    and engine of its own: b10m (10 shards, 128 rows) with v10,
+    ``serve`` on the async backend, the memo off; per round
+    http_count_e2e_p50, http_count_qps (``count_load``: connections x c2
+    Counts each) and http_mixed_qps (Count, Count, TopN, Sum), every reply
+    exact.  ``plans_order`` (a list of (plans, frozen) pairs) sets the
+    query-plan layer on or off for each round in turn, where the checkout
+    has one, and with ``frozen`` moves every object alive before the
+    round out of the collector's reach (``gc.freeze``) for it; each round
+    also gives its Count loop's serving-thread CPU microseconds per query
+    (``_thread_cpu_s``) and cyclic-GC collections and time (``_GcMeter``)."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.core.view import VIEW_STANDARD
+    from pilosa_tpu_torch.net.admission import AdmissionController
+    from pilosa_tpu_torch.net.server import serve
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+
+    rng = np.random.default_rng(seed + 30)
+    holder = Holder(device=device)
+    engine = TorchEngine(holder, device=device)
+    words = {r: rng.integers(0, 1 << 64, (N_SHARDS_10M, W64), dtype=np.uint64) for r in F10_ROWS}
+    idx = holder.create_index("b10m")
+    view = idx.create_field("f").view_if_not_exists(VIEW_STANDARD)
+    for sh in range(N_SHARDS_10M):
+        frag = view.fragment_if_not_exists(sh)
+        for r in F10_ROWS:
+            frag.load_row_words(r, words[r][sh])
+        frag.cache.invalidate()
+    v10 = idx.create_field("v10", FieldOptions(type="int", min=0, max=(1 << BSI_DEPTH) - 1))
+    planes = {p: rng.integers(0, 1 << 64, (N_SHARDS_10M, W64), dtype=np.uint64)
+              for p in range(BSI_DEPTH)}
+    planes[BSI_DEPTH] = np.full((N_SHARDS_10M, W64), (1 << 64) - 1, dtype=np.uint64)
+    for sh in range(N_SHARDS_10M):
+        frag = v10.view_if_not_exists("bsig_v10").fragment_if_not_exists(sh)
+        for p, w in planes.items():
+            frag.load_row_words(p, w[sh])
+        frag.cache.invalidate()
+    sum_want = [{"value": sum((1 << p) * int(popcounts(planes[p]).sum()) for p in range(BSI_DEPTH)),
+                 "count": N_SHARDS_10M << 20}]
+    texts, wants = c2_queries(words)
+    top10 = TopNOracle(words)
+    mixed_texts, mixed_wants = [], []
+    for k in range(len(F10_ROWS) // 4):
+        a = 100 + 4 * k
+        for j in (k, (k + 7) % len(texts)):
+            mixed_texts.append(texts[j])
+            mixed_wants.append(wants[j])
+        mixed_texts.append(f"TopN(f, Row(f={a}), n=5)")
+        mixed_wants.append([[{"id": r, "count": c} for r, c in top10.fused(words[a], 5)]])
+        mixed_texts.append("Sum(field=v10)")
+        mixed_wants.append(sum_want)
+    srv, _ = serve(API(holder=holder, engine=engine), "localhost", 0,
+                   admission=AdmissionController(max_inflight=1 << 17))
+    port = srv.server_address[1]
+    out = {}
+    try:
+        with memo_off(engine):
+            for t, w in zip(mixed_texts[:8], mixed_wants[:8]):
+                _http_results(port, "b10m", t, w, t)
+            run_qps(port, texts, wants, 64, 8)
+            run_qps(port, mixed_texts, mixed_wants, 64, 8)
+            for r in range(rounds):
+                frozen = False
+                if plans_order:
+                    on, frozen = plans_order[r % len(plans_order)]
+                    out.setdefault("plans", []).append(_set_plans(on))
+                    out.setdefault("gc_frozen", []).append(frozen)
+                if frozen:
+                    gc.collect()
+                    gc.freeze()
+                out.setdefault("http_count_e2e_p50", []).append(_seq_p50(port, texts, wants))
+                c0 = _thread_cpu_s()
+                with _GcMeter() as meter:
+                    qps, n = run_qps(port, texts, wants, *count_load)
+                c1 = _thread_cpu_s()
+                out.setdefault("http_count_qps", []).append(qps)
+                out.setdefault("thread_cpu_us_per_query", []).append(
+                    {k: round((c1[k] - c0.get(k, 0.0)) / n * 1e6, 2) for k in c1
+                     if c1[k] > c0.get(k, 0.0)})
+                out.setdefault("gc_per_count_loop", []).append(
+                    {"collections": meter.collections, "us_per_query": meter.seconds / n * 1e6})
+                out.setdefault("http_mixed_qps", []).append(
+                    run_qps(port, mixed_texts, mixed_wants, *mixed_load)[0])
+                if frozen:
+                    gc.unfreeze()
+    finally:
+        srv.shutdown()
+        engine.close()
+        _set_plans(True)
+    return out
+
+
+class _GcMeter:
+    """The cyclic garbage collector's collections (per generation) and
+    seconds while the block runs, from ``gc.callbacks``: a collection
+    holds the GIL, so its time is taken from every serving thread."""
+
+    def __init__(self):
+        self.collections, self.seconds, self._t = [0, 0, 0], 0.0, 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.collections[info["generation"]] += 1
+            self.seconds += time.perf_counter() - self._t
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+        return False
+
+
+def _thread_cpu_s():
+    """CPU seconds of this process's threads, summed per kind (the name
+    without its number: ``http-reactor``, ``count-batch-drain``,
+    ``count-batch-dispatch``, ``count-batch-collect``, ...), from
+    /proc/self/task."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for t in threading.enumerate():
+        try:
+            with open(f"/proc/self/task/{t.native_id}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, TypeError):
+            continue
+        kind = t.name.rstrip("0123456789-_")
+        out[kind] = out.get(kind, 0.0) + (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+def _set_plans(on):
+    """The query-plan layer on or off (``util/plans.py ENABLED``, what
+    ``PILOSA_PLANS=0`` sets at import); None for a checkout from before
+    the plans."""
+    try:
+        from pilosa_tpu_torch.util import plans
+    except ImportError:
+        return None
+    plans.ENABLED = bool(on)
+    return plans.ENABLED
+
+
+def run_serving_ab(root, seed, order):
+    """``--root DIR --serving ORDER``: the serving numbers alone, for many
+    short alternating calls: the lone dense and sparse Count p50s
+    (``count_p50_ms`` over bench's 960 shards, as ``--root`` gives them)
+    and the http loops (``ab_http`` at 640 connections x 16 c2 Counts and
+    640 x 8 mixed queries), one round for each entry of ORDER (``on`` or
+    ``off``: the query-plan layer; ``-frozen`` after it: the http round
+    with ``gc.freeze``), with each round's serving-thread CPU and GC time
+    per query.  One JSON line."""
+    import torch
+
+    import pilosa_tpu_torch
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.parallel import build
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+
+    pkg = os.path.dirname(os.path.abspath(pilosa_tpu_torch.__file__))
+    if os.path.dirname(pkg) != root:
+        raise AssertionError(f"imported {pkg}, not the package under {root}")
+    plans_order = [(x.split("-")[0] == "on", x.endswith("-frozen")) for x in order.split(",")]
+    build.build(build.KERNELS)
+    device = torch.device("cuda")
+    holder = Holder(device=device)
+    build_index(holder, N_SHARDS, seed)
+    engine = TorchEngine(holder, device=device)
+    ex = Executor(holder, engine=engine)
+    for field in ("f", "s"):
+        engine.field_stack("bench", field, "standard")
+        for k in range(12):
+            ex.execute("bench", pql_of(field, "and", (10 + 2 * k, 11 + 2 * k)))
+    out = {"root": root, "plans": [], "dense_count_p50_ms": [], "sparse_count_p50_ms": []}
+    with memo_off(engine):
+        for on, _ in plans_order:
+            out["plans"].append(_set_plans(on))
+            out["dense_count_p50_ms"].append(count_p50_ms(ex, "f"))
+            out["sparse_count_p50_ms"].append(count_p50_ms(ex, "s"))
+    _set_plans(True)
+    engine.close()
+    out["http"] = ab_http(device, seed, rounds=len(plans_order), plans_order=plans_order,
+                          count_load=(QPS_CONNS, 16), mixed_load=(QPS_CONNS, 8))
     out["card"] = card_line()
     print(json.dumps(out), flush=True)
 
@@ -6992,6 +7718,9 @@ def main(argv=None):
     ap.add_argument("--root", help="A/B mode: import pilosa_tpu_torch from this checkout, print "
                                    "its end-to-end numbers and main-path kernels as one JSON "
                                    "line, and stop; prints no result line")
+    ap.add_argument("--serving", metavar="ORDER",
+                    help="with --root: only the lone Count p50s and the http loops, one round "
+                         "per entry of ORDER (on,off,...: the query-plan layer); one JSON line")
     ap.add_argument("--sass", metavar="PARENT",
                     help="build every kernel library of this checkout and of PARENT and "
                          "compare each function's SASS; prints one JSON line and stops")
@@ -7012,6 +7741,9 @@ def main(argv=None):
     device = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    if args.root and args.serving:
+        run_serving_ab(root, args.seed, args.serving)
+        return 0
     if args.root:
         run_ab(root, args.seed)
         return 0
@@ -7080,6 +7812,9 @@ def main(argv=None):
     mark("fusion")
     log("http: " + json.dumps(run_http_path(device, holder, engine, host, args.seed)))
     mark("http")
+    procmode = run_procmode_path(device, holder, engine, host, args.seed)
+    log("procmode: " + json.dumps(procmode))
+    mark("procmode")
     res_out, res_launches, (t_rowb, plain_rowb, rowb_bytes), k1p, aggs = run_residency_path(
         device, args.seed)
     log("residency: " + json.dumps(res_out))
@@ -7109,6 +7844,8 @@ def main(argv=None):
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     mark("write")
+    for entry in kern:  # the process-mode path's launches beside the main path's
+        entry["procmode_launches"] = procmode["launches"].get(entry["name"], 0)
     log("timeline (s): " + json.dumps({k: round(v, 3) for k, v in timeline.items()})
         + f"; total {time.perf_counter() - t0:.3f} s")
     log(card_line())

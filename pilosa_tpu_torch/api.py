@@ -11,8 +11,11 @@ translation.  Keys are translated only here: the executor gets a
 Every import notifies the engine's ``IngestSyncer``, so resident stacks
 sync in place behind the write instead of on the next query's path, and
 records the ``pilosa_ingest_*`` series.  ``query`` and ``query_async``
-open the ``api.Query`` span (its trace id rides the response), observe
-``pilosa_query_seconds`` and write the long-query log line.  The node
+open the ``api.Query`` span (its trace id rides the response), record the
+query's plan (``util/plans.py``: ``begin``, ``attach`` around the
+executor, ``record`` at the finish, the plan inline with ``profile``),
+observe ``pilosa_query_seconds`` and write the long-query log line.
+``fast_counts`` is the serving boundary's memo lane.  The node
 facts a single node answers (``node``, ``hosts``, ``state``,
 ``readiness``, ``warm_status``) back ``/status`` and ``/readyz``.
 
@@ -44,6 +47,8 @@ from .executor.translate import QueryTranslator
 from .parallel.engine import TorchEngine
 from .roaring import codec
 from .util import events as events_mod
+from .util import plan_miner  # noqa: F401 — feeds /debug/sequences from every plan
+from .util import plans
 from .util import tracing
 from .util.logger import NopLogger
 from .util.stats import (
@@ -63,7 +68,6 @@ _ITEM_8_14 = "Queue 1 items 8 and 14 (batched serving; serving and observability
 _ITEM_14 = "Queue 1 item 14 (serving and observability)"
 _ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 _UNPORTED = {
-    "fast_counts": _ITEM_8_14,
     "cq": _ITEM_8_14,
     "recalculate_caches": _ITEM_14,
     "attach_cluster": _ITEM_15,
@@ -92,11 +96,13 @@ class NotFoundError(ApiError):
 
 
 class QueryRequest:
-    """handler.go:21-47, single node.  ``remote`` (a peer's replay) and
-    ``profile`` (the query plan) are accepted so that a caller that sets
-    them gets an error naming the item that ports them, never a silently
-    different response.  ``trace_context`` (the caller's X-Trace-Id) roots
-    the query's span in the caller's trace."""
+    """handler.go:21-47, single node.  ``remote`` (a peer's replay) is
+    accepted so that a caller that sets it gets an error naming the item
+    that ports it, never a silently different response.
+    ``trace_context`` (the caller's X-Trace-Id) roots the query's span in
+    the caller's trace.  ``profile`` returns the recorded query plan with
+    the response; ``tenant`` keys the plan's cost attribution (the
+    X-Pilosa-Tenant header, else the index name, as admission keys it)."""
 
     def __init__(
         self,
@@ -109,6 +115,7 @@ class QueryRequest:
         remote: bool = False,
         trace_context=None,
         profile: bool = False,
+        tenant: str = "default",
     ):
         self.index = index
         self.query = query
@@ -119,6 +126,7 @@ class QueryRequest:
         self.remote = remote
         self.trace_context = trace_context
         self.profile = profile
+        self.tenant = tenant or "default"
 
 
 class ImportRequest:
@@ -189,6 +197,9 @@ class API:
         self._node = node
         # Wired by net.serve() on the event-loop backend.
         self.admission = None
+        # The process-mode server (net/procserver.py), wired by net.serve()
+        # with workers: /readyz folds the worker processes' health in.
+        self.process_server = None
         # Whole-query latency and ingest series, resolved once: the hot
         # paths pay the per-series locks only.
         self._h_query_sync = REGISTRY.histogram(METRIC_QUERY, path="sync")
@@ -232,9 +243,6 @@ class API:
         if req.remote:
             raise NotImplementedError(
                 f"remote queries are not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_15}")
-        if req.profile:
-            raise NotImplementedError(
-                f"query plans are not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_14}")
         return ExecOptions(exclude_row_attrs=req.exclude_row_attrs,
                            exclude_columns=req.exclude_columns,
                            column_attrs=req.column_attrs)
@@ -249,15 +257,42 @@ class API:
     def query(self, req: QueryRequest) -> QueryResponse:
         opt = self._exec_options(req)
         start = time.monotonic()
+        # The query's plan: the executor, engine and batcher stamp their
+        # decisions on it while the span carries the timing tree.
+        plan = plans.begin(req.index, req.query, tenant=req.tenant, profile=req.profile)
         with self.tracer.start_span("api.Query", parent=req.trace_context, index=req.index,
-                                    remote=req.remote) as span:
+                                    remote=req.remote) as span, plans.attach(plan):
             resp = self.executor.execute(req.index, req.query, req.shards, opt)
         elapsed = time.monotonic() - start
+        trace_id = span.trace_id if span is not None else None
         self._h_query_sync.observe(elapsed)
+        if plan is not None:
+            plan.finish(elapsed, trace_id=trace_id)
+            plans.record(plan)
+            if plan.profile:
+                resp.plan = plan.to_dict()
         if span is not None:
             resp.trace_id = span.trace_id
         self._long_query(req, elapsed, span)
         return resp
+
+    def fast_counts(self, index: str, query: str, tenant: str = "default"):
+        """The serving boundary's memo lane: ``(values, trace_id)`` when
+        every top-level Count of ``query`` answers from the versioned
+        result memo (``Executor.memo_counts``), else None.  Process mode's
+        device owner calls it before any request machinery: a repeat
+        dashboard query costs a parse-cache hit and K memo lookups.  The
+        tenant's query count and the pipelined latency still move; the span
+        tree and the plan ring are skipped, as in the reference
+        (pilosa_tpu/api.py:328-347)."""
+        t0 = time.monotonic()
+        vals = self.executor.memo_counts(index, query)
+        if vals is None:
+            return None
+        plans.LEDGER.account_queries(tenant, len(vals))
+        trace_id = tracing.new_id()
+        self._h_query_pipelined.observe(time.monotonic() - t0)
+        return vals, trace_id
 
     def query_async(self, req: QueryRequest):
         """Deferred query: a future (``result``/``add_done_callback`` ->
@@ -271,7 +306,10 @@ class API:
         # batcher's drain thread.
         span = self.tracer.begin("api.Query", parent=req.trace_context, index=req.index,
                                  pipelined=True)
-        with tracing.attach(span):
+        plan = plans.begin(req.index, req.query, tenant=req.tenant, profile=req.profile)
+        if plan is not None:
+            plan.pipelined = True
+        with tracing.attach(span), plans.attach(plan):
             fut = self.executor.execute_async(req.index, req.query, req.shards, opt)
         if fut is None:
             # Declined: drop the provisional span from a live parent's
@@ -283,11 +321,15 @@ class API:
                     pass
             return None
         fut.trace_span = span
+        fut.query_plan = plan
 
         def _finish(_f):
             elapsed = time.monotonic() - start
             if span is not None:
                 span.finish()
+            if plan is not None:
+                plan.finish(elapsed, trace_id=span.trace_id if span is not None else None)
+                plans.record(plan)
             self._h_query_pipelined.observe(elapsed)
             self._long_query(req, elapsed, span)
 
@@ -502,8 +544,9 @@ class API:
 
     def readiness(self) -> Tuple[bool, List[str]]:
         """Readiness verdict with reason strings (the GET /readyz
-        contract): ready iff the holder is open and the engine's warm
-        start, when one ran this boot, is done."""
+        contract): ready iff the holder is open, the engine's warm start,
+        when one ran this boot, is done and, in process mode, every worker
+        process is connected."""
         reasons: List[str] = []
         if not self.holder.opened:
             reasons.append("holder not opened")
@@ -511,6 +554,11 @@ class API:
         if ws is not None and not ws["done"]:
             reasons.append(f"warming: residency {ws['fraction']:.0%} "
                            f"({ws['built']}/{ws['total']} stacks)")
+        # Process mode: a missing or crashed worker process holds
+        # readiness back until the supervisor's respawn reconnects it.
+        ps = self.process_server
+        if ps is not None:
+            reasons.extend(ps.not_ready_reasons())
         return (not reasons), reasons
 
     def warm_status(self) -> Optional[dict]:

@@ -9,7 +9,10 @@ single node:
   :256-295).
 - Count: a bare ``Count(Row(f=n))`` sums maintained row cardinalities
   with no device work (the O(1) lane); any other tree runs as one fused
-  device count through ``TorchEngine.count``.  Only
+  device count through the engine's batcher (``TorchEngine.batched_count``,
+  as ``pilosa_tpu/executor/executor.py:1614`` does: a lone caller runs
+  the count directly, a caller within a batch's hot window rides the next
+  K5 launch).  Only
   ``UnsupportedLowering`` sends a Count to the host lane instead, so a
   kernel fault is never hidden behind a fallback.  A run of two or more
   CONSECUTIVE Counts in one query is one ``TorchEngine.count_many`` (one
@@ -61,14 +64,18 @@ single node:
   plugs in), string keys in the calls become ids before execution and
   the results' ids become keys after it.
 
-Explain raises NotImplementedError naming the ROADMAP.md queue item that
-ports it.
+- Query plans (``util/plans.py``): each call stamps the plan the API
+  attached to the thread, as the reference's executor does; the engine
+  and the batcher stamp the dispatch decisions.  ``Explain(<query>)``
+  plans a Count without launching anything (``TorchEngine.explain_count``)
+  and returns the plan as its result.
 """
 
 from __future__ import annotations
 
 import datetime as dt
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -88,6 +95,7 @@ from ..ops import bsi as bsi_ops
 from ..parallel.errors import HostFallback
 from ..parallel.singleflight import SingleFlight
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition, Query
+from ..util import plans as plans_mod
 from ..util.stats import NopStatsClient
 
 TIME_FORMAT = "%Y-%m-%dT%H:%M"  # pilosa.TimeFormat
@@ -101,11 +109,6 @@ DEFAULT_MIN_THRESHOLD = 1
 
 _WRITE_CALLS = {"Set", "Clear", "SetRowAttrs", "SetColumnAttrs", "Store", "ClearRow"}
 
-# Calls of the JAX executor this slice does not run yet, and the
-# ROADMAP.md item that ports each.
-_UNPORTED = {
-    "Explain": "Queue 1 item 14 (serving and observability)",
-}
 
 
 class Error(Exception):
@@ -263,13 +266,16 @@ class ColumnAttrSet:
 
 
 class QueryResponse:
-    __slots__ = ("results", "column_attr_sets", "trace_id")
+    __slots__ = ("results", "column_attr_sets", "trace_id", "plan")
 
     def __init__(self, results=None, column_attr_sets=None):
         self.results = results if results is not None else []
         self.column_attr_sets = column_attr_sets
         # Stamped by the API layer, surfaced as the response's "traceID".
         self.trace_id: Optional[str] = None
+        # The recorded QueryPlan dict when the request asked ?profile=1,
+        # surfaced as the response's "plan".
+        self.plan: Optional[dict] = None
 
 
 def _merge_row_ids(a: List[int], b: List[int], limit: int) -> List[int]:
@@ -327,12 +333,6 @@ def _merge_group_counts(a: List[GroupCount], b: List[GroupCount],
 _MAXINT = (1 << 63) - 1
 
 
-def _unported(name: str):
-    raise NotImplementedError(
-        f"{name}() is not ported to pilosa_tpu_torch yet: ROADMAP.md {_UNPORTED[name]}"
-    )
-
-
 def _call_cacheable(c: Call) -> bool:
     """True when a parsed call can be reused across executions: read-only
     and free of string/bool args anywhere in the tree."""
@@ -363,7 +363,7 @@ class _QueryFuture:
 
     __slots__ = ("_executor", "_index", "_query", "_shards", "_opt", "_slots", "_items",
                  "_event", "_response", "_error", "_callbacks", "_cb_lock", "_draining",
-                 "_pending", "_lock", "trace_span")
+                 "_pending", "_lock", "trace_span", "query_plan")
 
     def __init__(self, executor, index, query, shards, opt, slots, items):
         self._executor = executor
@@ -381,8 +381,9 @@ class _QueryFuture:
         self._draining = False
         self._pending = len(items)
         self._lock = threading.Lock()
-        # The API's deferred span, set by API.query_async.
+        # The API's deferred span and query plan, set by API.query_async.
         self.trace_span = None
+        self.query_plan = None
         if not items:
             self._finish_ok()  # every call hit the O(1) lane
         else:
@@ -682,6 +683,18 @@ class Executor:
     # -- dispatch (executor.go executeCall :245-295) -----------------------
 
     def _execute_call(self, index: str, c: Call, shards, opt: ExecOptions):
+        t0 = time.monotonic()
+        try:
+            return self._dispatch_call(index, c, shards, opt)
+        finally:
+            # The per-op plan entry of the host-lane and aggregate ops;
+            # Count's record comes from the engine/batcher with the
+            # dispatch's detail.
+            p = plans_mod.current_plan()
+            if p is not None and c.name not in ("Count", "Explain"):
+                p.note_op(op=c.name, seconds=round(time.monotonic() - t0, 6))
+
+    def _dispatch_call(self, index: str, c: Call, shards, opt: ExecOptions):
         ids = c.args.get("ids")
         if ids is not None and not isinstance(ids, list):
             raise Error("ids must be a list")
@@ -715,8 +728,8 @@ class Executor:
             return None
         if name == "Options":
             return self._execute_options_call(index, c, shards, opt)
-        if name in _UNPORTED:
-            _unported(name)
+        if name == "Explain":
+            return self._execute_explain(index, c, shards)
         return self._execute_bitmap_call(index, c, shards, opt)
 
     @staticmethod
@@ -771,8 +784,6 @@ class Executor:
             return self._execute_not_shard(index, c, shard)
         if name == "Range":
             return self._execute_range_shard(index, c, shard)
-        if name in _UNPORTED:
-            _unported(name)
         raise Error(f"unknown call: {name}")
 
     def _execute_row_shard(self, index, c: Call, shard: int) -> Row:
@@ -824,6 +835,10 @@ class Executor:
             return fused
         if self.engine is not None and shards:
             self.host_fallbacks += 1
+        p = plans_mod.current_plan()
+        if p is not None:
+            # No fused dispatch: the host lane serves every shard locally.
+            p.note_op(op="Count", path="host", local_shards=len(shards), remote_shards=0)
         return sum(
             self._execute_bitmap_call_shard(index, child, shard).count()
             for shard in shards
@@ -843,6 +858,10 @@ class Executor:
         if f is None or f.options.type == FIELD_TYPE_INT:
             return None
         view = f.view(VIEW_STANDARD)
+        p = plans_mod.current_plan()
+        if p is not None:
+            # This lane answers: a host-side cardinality sum, no device work.
+            p.note_op(op="Count", path="fast_cardinality")
         if view is None:
             return 0
         frags = view.fragments
@@ -865,6 +884,11 @@ class Executor:
             children.append(c.children[0])
         results: list = [None] * len(children)
         rem_idx, rem_calls = [], []
+        plan = plans_mod.current_plan()
+        # Where the plan's ops stood before the O(1) peel: on a decline the
+        # calls run one by one and stamp their own ops, so the peel's
+        # stamps are unwound (nothing else appends on this thread meanwhile).
+        ops_mark = len(plan.ops) if plan is not None else 0
         for k, ch in enumerate(children):
             fast = self._count_from_cardinalities(index, ch, shards)
             if fast is not None:
@@ -873,24 +897,71 @@ class Executor:
                 rem_idx.append(k)
                 rem_calls.append(ch)
         if rem_calls:
+            t0 = time.monotonic()
             try:
-                counts = self.engine.count_many(index, rem_calls, [list(shards)] * len(rem_calls))
+                try:
+                    counts = self.engine.count_many(index, rem_calls,
+                                                    [list(shards)] * len(rem_calls))
+                finally:
+                    # Claim the note on every exit: a half-written one would
+                    # merge into the next query's record on this thread.
+                    note = plans_mod.take_dispatch_note()
             except HostFallback:
+                if plan is not None:
+                    del plan.ops[ops_mark:]
                 return None
+            # The batch ran on THIS thread: the note once per call, and the
+            # blocking launch and readback as the query's "execute" stage.
+            elapsed = time.monotonic() - t0
+            if plan is not None and note is not None:
+                d = plans_mod.rider_note(note, len(rem_calls))
+                for _ in rem_calls:
+                    plan.note_op(**d)
+                plan.note_stage("execute", elapsed)
+                plan.note_device_seconds(elapsed)
             for k, v in zip(rem_idx, counts):
                 results[k] = v
         self.stats.count("Count", len(calls), tags=[f"index:{index}"])
         return results
 
     def _mesh_count(self, index, child: Call, shards):
-        """Fused Count through the engine, or None when the tree has no
-        device lowering."""
+        """Fused Count through the engine's batcher, or None when the tree
+        has no device lowering.  A lone caller runs the count directly
+        (``CountBatcher.submit``, then ``_direct``: no added latency); a
+        caller arriving while a batch is in flight, or within the hot
+        window after one, queues and is answered by the next K5 launch."""
         if self.engine is None or not shards:
             return None
         try:
-            return self.engine.count(index, child, list(shards))
+            return self.engine.batched_count(index, child, list(shards))
         except HostFallback:
             return None
+
+    def _execute_explain(self, index, c: Call, shards) -> dict:
+        """``Explain(<query>)``: plan WITHOUT dispatching
+        (pilosa_tpu/executor/executor.py:1531-1568).  Reports the path a
+        real execution would take (the O(1) lane's eligibility, the memo,
+        occupancy-guided sparse against dense, or the host lane), touching
+        neither the card nor the memo's contents."""
+        if len(c.children) != 1:
+            raise Error("Explain() requires a single query input")
+        child = c.children[0]
+        doc: dict = {"dryRun": True, "query": str(child)}
+        target = child
+        if child.name == "Count" and len(child.children) == 1:
+            target = child.children[0]
+            inner = target
+            arg = next(iter(inner.args.values()), None)
+            doc["fastCardinalityEligible"] = bool(
+                inner.name == "Row" and not inner.children and len(inner.args) == 1
+                and isinstance(arg, int) and not isinstance(arg, bool))
+        doc["localShards"] = len(shards)
+        doc["remoteShards"] = 0
+        if self.engine is None:
+            doc.update(op=child.name, plannedPath="host", lowerable=False)
+            return doc
+        doc.update(self.engine.explain_count(index, target, shards))
+        return doc
 
     # -- Range (executor.go :1233-1440) ------------------------------------
 
@@ -1143,6 +1214,8 @@ class Executor:
                     index, field_name, shards, n, min_threshold, row_ids or None
                 )
             except HostFallback:
+                # A direct engine call: claim its note before the fallback.
+                plans_mod.take_dispatch_note()
                 return None
         # The write sequence before any derived state: a caller whose own
         # write completed never joins a flight computed before it.
@@ -1206,6 +1279,9 @@ class Executor:
         if not frags:
             return []
         candidates = sorted(cand_set)
+        p = plans_mod.current_plan()
+        if p is not None:
+            p.note_op(op="TopN", path="host_merge", candidates=len(candidates))
         try:
             scored = self.engine.batched_topn_scores(
                 index, field_name, candidates, c.children[0], list(shards)
@@ -1357,6 +1433,9 @@ class Executor:
             return []
         shape = tuple(len(rows) for rows in row_lists)
         if hit is not None and tuple(hit.shape) == shape:
+            p = plans_mod.current_plan()
+            if p is not None:
+                p.note_op(op="GroupBy", path="memo", memo="hit")
             counts = hit
         else:
             try:
@@ -1367,6 +1446,7 @@ class Executor:
                     lambda: eng.batched_group_counts(index, fields, row_lists, filter_call,
                                                      shards))
             except HostFallback:
+                plans_mod.take_dispatch_note()
                 self.host_fallbacks += 1
                 return None
             if counts is None:

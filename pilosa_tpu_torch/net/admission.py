@@ -31,10 +31,10 @@ Telemetry: ``pilosa_admission_admitted_total``,
 ``pilosa_admission_inflight`` / ``pilosa_admission_active_tenants`` —
 the series the ops runbook (docs/serving.md) asserts on.
 
-A copy of ``pilosa_tpu/net/admission.py``.  The measured-cost pricing
-(``set_cost``) stays, but nothing feeds it yet: the tenant ledger that
-streams per-query device-seconds into it belongs to the query plans
-(ROADMAP.md Queue 1 item 14), so fairness here prices request counts.
+A copy of ``pilosa_tpu/net/admission.py``.  ``serve`` binds the tenant
+ledger (``util/plans.py TenantLedger.bind_admission``) to the controller,
+so every recorded plan streams its device-seconds into ``note_cost`` and
+fairness prices measured cost, as in the reference.
 """
 
 from __future__ import annotations

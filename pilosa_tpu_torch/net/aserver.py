@@ -37,10 +37,10 @@ threaded`` or config ``[server] backend``) as the differential oracle;
 both servers share the same ``Handler`` route table.  docs/serving.md
 is the operator guide.
 
-A copy of ``pilosa_tpu/net/aserver.py``.  Two things wait for ROADMAP.md
-Queue 1 item 14: the tenant ledger's shed accounting (the query plans)
-and process mode, whose worker processes hook their engine link into
-the loop (the reference's ``register_external*`` and ``loop_hooks``).
+A copy of ``pilosa_tpu/net/aserver.py``, with the tenant ledger's shed
+accounting (``util/plans.py``) and the process-mode hooks: worker
+processes watch their engine link on the loop (``register_external*``)
+and cork its frames per loop pass (``loop_hooks``).
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ from http.client import responses as STATUS_REASONS
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+from ..util import plans as plans_mod
 from ..util.stats import (
     METRIC_SERVER_CONNECTIONS,
     METRIC_SERVER_CONNECTIONS_TOTAL,
@@ -242,6 +243,39 @@ class _Reactor(threading.Thread):
         self._stopping = False
         self._last_sweep = time.monotonic()
         self._tid: Optional[int] = None
+        # (sock, callback) pairs registered before start(): extra
+        # readable fds the loop watches alongside its connections —
+        # process-mode workers hook their engine link in here so ONE
+        # thread owns client sockets AND the IPC socket (no cross-
+        # thread handoff, no wake syscalls, no GIL ping-pong on the
+        # query path).
+        self._externals: list = []
+
+    def add_external(self, sock, callback):
+        """Watch ``sock`` for readability and run ``callback`` on the
+        loop thread.  Must be called before the reactor starts."""
+        self._externals.append((sock, callback))
+
+    def register_external_soon(self, sock, callback):
+        """Thread-safe dynamic variant of ``add_external``: the
+        registration runs on the loop thread (selectors are not safe to
+        mutate mid-select from outside).  The process-mode device-owner
+        hooks (re)spawned worker links in with this."""
+        def _do():
+            try:
+                sock.setblocking(False)
+                self.sel.register(sock, selectors.EVENT_READ, ("ext", callback))
+            except (KeyError, ValueError, OSError):
+                pass
+        self.call_soon(_do)
+
+    def unregister_external_soon(self, sock):
+        def _do():
+            try:
+                self.sel.unregister(sock)
+            except (KeyError, ValueError, OSError):
+                pass
+        self.call_soon(_do)
 
     # -- cross-thread marshalling ------------------------------------------
 
@@ -270,6 +304,9 @@ class _Reactor(threading.Thread):
         self._tid = threading.get_ident()
         self.sel.register(self.lsock, selectors.EVENT_READ, ("accept", None))
         self.sel.register(self._wake_r, selectors.EVENT_READ, ("wake", None))
+        for s, cb in self._externals:
+            s.setblocking(False)
+            self.sel.register(s, selectors.EVENT_READ, ("ext", cb))
         try:
             while not self._stopping:
                 events = self.sel.select(
@@ -285,29 +322,51 @@ class _Reactor(threading.Thread):
                         fn()
                     except Exception:  # noqa: BLE001
                         pass
-                for key, mask in events:
-                    kind, conn = key.data
-                    try:
-                        if kind == "accept":
-                            self._accept()
-                        elif kind == "wake":
+                # Batch hooks (process mode): the worker's engine link
+                # is corked across this round's readable-event drain, so
+                # a parsed pipelined burst rides ONE sendall to the
+                # device-owner (net/ipc.FrameSender.cork).  Only the
+                # read/parse phase is corked — the completion callbacks
+                # above ran uncorked, so the engine receives the
+                # previous burst's stragglers while this one parses.
+                hooks = self.srv.loop_hooks
+                if hooks is not None:
+                    hooks[0]()
+                try:
+                    for key, mask in events:
+                        kind, conn = key.data
+                        if kind == "ext":
                             try:
-                                while self._wake_r.recv(4096):
-                                    pass
-                            except (BlockingIOError, OSError):
+                                conn()  # external-fd callback
+                            except Exception:  # noqa: BLE001 — the
+                                # callback owns its own error handling;
+                                # never let it take down the loop.
                                 pass
-                        else:
-                            if conn.handshaking:
-                                self._handshake(conn)
-                                continue
-                            if mask & selectors.EVENT_WRITE:
-                                self._flush(conn)
-                            if mask & selectors.EVENT_READ and not conn.closed:
-                                self._readable(conn)
-                    except Exception:  # noqa: BLE001 — one bad connection
-                        # must never take down the loop.
-                        if conn is not None:
-                            self._close(conn)
+                            continue
+                        try:
+                            if kind == "accept":
+                                self._accept()
+                            elif kind == "wake":
+                                try:
+                                    while self._wake_r.recv(4096):
+                                        pass
+                                except (BlockingIOError, OSError):
+                                    pass
+                            else:
+                                if conn.handshaking:
+                                    self._handshake(conn)
+                                    continue
+                                if mask & selectors.EVENT_WRITE:
+                                    self._flush(conn)
+                                if mask & selectors.EVENT_READ and not conn.closed:
+                                    self._readable(conn)
+                        except Exception:  # noqa: BLE001 — one bad connection
+                            # must never take down the loop.
+                            if conn is not None:
+                                self._close(conn)
+                finally:
+                    if hooks is not None:
+                        hooks[1]()
                 now = time.monotonic()
                 if now - self._last_sweep >= 0.25:
                     self._last_sweep = now
@@ -599,8 +658,9 @@ class _Reactor(threading.Thread):
             if decision is not None:
                 status, reason = decision
                 srv._c_req_shed.inc()
-                # The tenant ledger's shed count (pilosa_tenant_sheds_total)
-                # waits for the query plans: ROADMAP.md Queue 1 item 14.
+                # Charge the shed to the tenant's cost ledger
+                # (pilosa_tenant_sheds_total{tenant}).
+                plans_mod.LEDGER.note_shed(tenant)
                 self._complete(conn, slot, self._render(
                     status, "application/json",
                     json.dumps(
@@ -671,8 +731,8 @@ class _Reactor(threading.Thread):
                 return
             release_once()
             if admission is not None:
-                # No ledger shed count yet (item 14, as above).
                 status, reason = admission.shed_queue_full()
+                plans_mod.LEDGER.note_shed(tenant)
             else:
                 status, reason = 503, "queue_full"
             srv._c_req_shed.inc()
@@ -689,7 +749,9 @@ class _Reactor(threading.Thread):
     def _finish_result(result, finish):
         """Normalize a Handler result (triple | DeferredResponse | str |
         bytes | JSON-able) into ``finish(status, ctype, payload)``."""
-        from .server import DeferredResponse
+        # From net/front.py, not net/server.py: a process-mode worker runs
+        # this per request and must not load the API (and torch).
+        from .front import DeferredResponse
 
         if isinstance(result, DeferredResponse):
             result.on_ready(finish)
@@ -908,6 +970,10 @@ class AsyncHTTPServer:
     ):
         self.ssl_context = ssl_context
         self.handler = None
+        # Optional (cork, uncork) pair bracketing each reactor
+        # iteration — process-mode workers batch their engine-link
+        # frames with it.  None everywhere else.
+        self.loop_hooks = None
         # serve() does ``srv.RequestHandlerClass.handler = Handler(...)``
         # for the threaded server; aliasing the class to the instance
         # keeps that assignment working unchanged.
@@ -983,6 +1049,23 @@ class AsyncHTTPServer:
         self._started = False
         self._stop_event = threading.Event()
         self._lock = threading.Lock()
+
+    def register_external(self, sock, callback):
+        """Watch an extra readable fd on reactor 0's loop (before
+        ``serve_forever``).  Process-mode workers register their engine
+        link so the reactor thread owns the whole query path."""
+        self._reactors[0].add_external(sock, callback)
+
+    def register_external_soon(self, sock, callback):
+        """Dynamic, thread-safe external-fd registration on reactor 0
+        (works while the loop is running)."""
+        self._reactors[0].register_external_soon(sock, callback)
+
+    def unregister_external_soon(self, sock):
+        self._reactors[0].unregister_external_soon(sock)
+
+    def call_soon(self, fn):
+        self._reactors[0].call_soon(fn)
 
     # -- ThreadingHTTPServer-compatible lifecycle ---------------------------
 

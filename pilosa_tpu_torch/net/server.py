@@ -35,6 +35,7 @@ from ..executor import QueryResponse
 from ..executor.executor import Error as ExecError, FieldNotFoundError, IndexNotFoundError
 from ..executor.translate import TranslateError
 from ..pql import ParseError
+from ..util import plans as plans_mod
 from ..util.stats import (
     METRIC_ENGINE_FUSED_MASKS_EVAL,
     METRIC_ENGINE_FUSED_MASKS_REF,
@@ -46,6 +47,15 @@ from ..util.stats import (
     REGISTRY,
 )
 from . import proto
+from .admission import tenant_of
+from .front import (  # noqa: F401 — re-exported, the node's names for them
+    DeferredResponse,
+    _parse_shards,
+    _qbool,
+    _qflag,
+    decode_query_doc,
+    make_server_ssl_context,
+)
 from .wire import count_response_bytes, response_to_json
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -71,12 +81,10 @@ _UNPORTED_ROUTES = [
     ("POST", "/cluster/resize/remove-node", _ITEM_15),
     ("POST", "/cluster/resize/set-coordinator", _ITEM_15),
     ("GET", "/cluster/metrics", _ITEM_15),
-    ("GET", "/debug/plans", _ITEM_14),
     ("GET", "/debug/faults", _ITEM_14),
     ("POST", "/debug/faults", _ITEM_14),
     ("GET", "/debug/history", _ITEM_14),
     ("GET", "/debug/heat", _ITEM_14),
-    ("GET", "/debug/sequences", _ITEM_14),
     ("GET", "/debug/prefetch_advice", _ITEM_14),
     ("GET", "/debug/flightrecorder", _ITEM_14),
     ("GET", "/debug/pprof", _ITEM_14),
@@ -107,50 +115,6 @@ def _resolve_backend(backend: Optional[str]) -> str:
 
 # Process start reference for /healthz uptime.
 _START_MONOTONIC = time.monotonic()
-
-
-class DeferredResponse:
-    """A route handler's promise of a (status, content-type, payload)
-    triple resolved later by a completion callback (the pipelined query
-    path): the connection thread registers a writer and goes back to
-    reading requests instead of blocking on the card — no handler thread
-    is held per in-flight query, and one connection can have many
-    requests in flight (HTTP pipelining; the per-connection
-    _ResponseSequencer keeps responses in request order)."""
-
-    __slots__ = ("_triple", "_event", "_cbs")
-
-    def __init__(self):
-        self._triple = None
-        self._event = threading.Event()
-        self._cbs: list = []
-
-    def resolve(self, status: int, ctype: str, payload: bytes):
-        if self._event.is_set():
-            return  # first resolution wins: a duplicate must not double-write
-        self._triple = (status, ctype, payload)
-        self._event.set()
-        while self._cbs:
-            try:
-                fn = self._cbs.pop()
-            except IndexError:
-                break
-            try:
-                fn(*self._triple)
-            except Exception:  # noqa: BLE001 — a dead connection must not
-                pass  # poison the resolver (the batcher's drain thread)
-
-    def on_ready(self, fn):
-        """Register ``fn(status, ctype, payload)`` (runs immediately if
-        already resolved; append-then-claim keeps the race with resolve
-        lock-free)."""
-        self._cbs.append(fn)
-        if self._event.is_set():
-            try:
-                self._cbs.remove(fn)
-            except ValueError:
-                return
-            fn(*self._triple)
 
 
 def error_response(e: BaseException) -> Tuple[int, bytes]:
@@ -236,6 +200,8 @@ class Handler:
         r("POST", "/internal/translate/keys", self._translate_keys)
         r("POST", "/internal/fragment/data", self._post_fragment_data)
         r("GET", "/internal/fragment/data", self._get_fragment_data)
+        r("GET", "/debug/plans", self._debug_plans)
+        r("GET", "/debug/sequences", self._debug_sequences)
         for method, pattern, item in _UNPORTED_ROUTES:
             r(method, pattern, _unported(pattern, item))
 
@@ -466,7 +432,11 @@ class Handler:
             remote=doc["remote"],
             # Join the caller's trace when the request carries one.
             trace_context=self.api.tracer.extract_headers(h),
+            # ?profile=1 returns the recorded query plan inline; the
+            # tenant keys the plan's cost attribution the way admission
+            # fairness resolves it (the header, else the index name).
             profile=doc["profile"],
+            tenant=tenant_of(h, f"/index/{index}/query"),
         )
 
     def _defer_query(self, req: QueryRequest):
@@ -485,11 +455,15 @@ class Handler:
                 resp = f.result(0)
                 span = getattr(f, "trace_span", None)
                 trace_id = span.trace_id if span is not None else None
-                payload = count_response_bytes(resp, trace_id)
+                plan = getattr(f, "query_plan", None) if req.profile else None
+                payload = (count_response_bytes(resp, trace_id)
+                           if plan is None else None)  # profiled: the full encoder
                 if payload is None:
                     out = response_to_json(resp)
                     if trace_id is not None:
                         out["traceID"] = trace_id
+                    if plan is not None:
+                        out["plan"] = plan.to_dict()
                     payload = json.dumps(out).encode()
                 d.resolve(200, "application/json", payload)
             except Exception as e:  # noqa: BLE001
@@ -535,14 +509,17 @@ class Handler:
         if d is not None:
             return d
         resp = self.api.query(req)
-        # Fast JSON encode for int and TopN (id, count) results —
-        # byte-identical to the generic walk (net/wire.py).
-        payload = count_response_bytes(resp, getattr(resp, "trace_id", None))
-        if payload is not None:
-            return 200, "application/json", payload
+        if resp.plan is None:
+            # Fast JSON encode for int and TopN (id, count) results —
+            # byte-identical to the generic walk (net/wire.py).
+            payload = count_response_bytes(resp, getattr(resp, "trace_id", None))
+            if payload is not None:
+                return 200, "application/json", payload
         out = response_to_json(resp)
         if getattr(resp, "trace_id", None):
             out["traceID"] = resp.trace_id
+        if resp.plan is not None:
+            out["plan"] = resp.plan
         return out
 
     def _post_import(self, q, b, *, index, field, **kw):
@@ -625,7 +602,20 @@ class Handler:
         # active tenants) refresh at scrape time too.
         if self.server is not None:
             self.server.refresh_gauges()
+        # The tenant ledger's rows flush into pilosa_tenant_* at pull time
+        # (the query path only touches the ledger's own lock).
+        plans_mod.LEDGER.refresh_series()
         return REGISTRY.prometheus_text()
+
+    def _node_metrics_text(self) -> str:
+        """The whole node's exposition: this process's registry and, in
+        process mode, every worker's registry summed in at scrape time with
+        the per-process liveness and RSS gauges
+        (``ProcessHTTPServer.aggregate_metrics``)."""
+        srv = self.server
+        if srv is not None and hasattr(srv, "aggregate_metrics"):
+            return srv.aggregate_metrics(self)
+        return self._metrics_text()
 
     def _metrics(self, q, b, **kw):
         """GET /metrics: the process registry in the classic Prometheus
@@ -640,7 +630,7 @@ class Handler:
             raise NotImplementedError(
                 "the OpenMetrics exposition is not ported to pilosa_tpu_torch yet: "
                 f"ROADMAP.md {_ITEM_14}")
-        return 200, PROMETHEUS_CONTENT_TYPE, self._metrics_text().encode()
+        return 200, PROMETHEUS_CONTENT_TYPE, self._node_metrics_text().encode()
 
     def _healthz(self, q, b, **kw):
         """GET /healthz: liveness — the process is up and the route
@@ -690,6 +680,35 @@ class Handler:
             return {"recent": [], "slow": []}
         return tracer.traces()
 
+    def _debug_plans(self, q, b, **kw):
+        """GET /debug/plans: the bounded ring of recent plans and the
+        slow-query analyzer's worst plans per op, each annotated with why
+        it was slow.  ?op=Count filters by op, ?trace=<id> resolves one
+        trace id to its plan, ?limit=N keeps the newest N."""
+        try:
+            limit = int(q.get("limit", ["64"])[0])
+        except ValueError:
+            raise ValueError("limit must be an integer")
+        return plans_mod.STORE.to_doc(
+            op=q.get("op", [None])[0],
+            limit=limit,
+            trace=q.get("trace", [None])[0],
+        )
+
+    def _debug_sequences(self, q, b, **kw):
+        """GET /debug/sequences: the first-order plan-signature transition
+        model the sequence miner learns from every recorded plan (the
+        canonicalization of /debug/plans' subtrees): per signature the
+        next signatures' probabilities and average gaps.  ?top=N edges per
+        signature (default 5)."""
+        from ..util import plan_miner
+
+        try:
+            top = int(q.get("top", ["5"])[0])
+        except ValueError:
+            raise ValueError("top must be an integer")
+        return plan_miner.MINER.to_doc(top=top)
+
     def _debug_vars(self, q, b, **kw):
         stats = getattr(self.api.executor, "stats", None)
         out = (
@@ -731,9 +750,17 @@ class Handler:
         # in-flight and per-tenant occupancy.
         if self.server is not None:
             out["server"] = self.server.snapshot()
+        # Query plans and the tenant ledger's measured cost: the JSON twin
+        # of /debug/plans and pilosa_tenant_*.
+        out["queryPlans"] = {
+            "recorded": plans_mod.STORE.recorded,
+            "enabled": plans_mod.ENABLED,
+        }
+        out["tenants"] = plans_mod.LEDGER.snapshot()
         ws = self.api.warm_status()
         if ws is not None:
             out["warmStart"] = ws
+        plans_mod.LEDGER.refresh_series()
         snap = REGISTRY.snapshot()
         out["metrics"] = snap
         # Per-second counter rates since the previous /debug/vars scrape
@@ -774,46 +801,6 @@ class Handler:
         if frag is None:
             raise NotFoundError("fragment not found")
         return frag.serialized()
-
-
-def decode_query_doc(q: dict, b: bytes) -> dict:
-    """Decode one POST /index/{i}/query body + query params into plain
-    fields.  Accepts JSON ``{"query": ...}``, a JSON-quoted PQL string,
-    and raw PQL."""
-    try:
-        doc = json.loads(b) if b else {}
-    except json.JSONDecodeError:
-        doc = {"query": b.decode() if isinstance(b, bytes) else b}
-    if isinstance(doc, str):  # JSON-quoted PQL body
-        doc = {"query": doc}
-    return {
-        "query": doc.get("query", ""),
-        "shards": doc.get("shards") or _parse_shards(q),
-        "columnAttrs": _qbool(q, "columnAttrs") or doc.get("columnAttrs", False),
-        "excludeRowAttrs": _qbool(q, "excludeRowAttrs")
-        or doc.get("excludeRowAttrs", False),
-        "excludeColumns": _qbool(q, "excludeColumns")
-        or doc.get("excludeColumns", False),
-        "remote": _qbool(q, "remote") or doc.get("remote", False),
-        "profile": _qflag(q, "profile") or doc.get("profile", False),
-    }
-
-
-def _qbool(q: dict, name: str) -> bool:
-    return q.get(name, ["false"])[0].lower() == "true"
-
-
-def _qflag(q: dict, name: str) -> bool:
-    """Permissive boolean query flag: ``?profile=1`` and ``?profile=true``
-    both count."""
-    return q.get(name, ["0"])[0].lower() in ("1", "true", "yes")
-
-
-def _parse_shards(q: dict) -> Optional[List[int]]:
-    raw = q.get("shards", [""])[0]
-    if not raw:
-        return None
-    return [int(s) for s in raw.split(",")]
 
 
 class _ResponseSequencer:
@@ -1022,21 +1009,14 @@ class _HTTPRequestHandler(BaseHTTPRequestHandler):
         seq.complete(seq.open_slot(), b"\r\n".join(head) + b"\r\n\r\n")
 
 
-def make_server_ssl_context(certfile: str, keyfile: str):
-    """Server-side TLS context from cert/key paths (server/config.go
-    TLSConfig :25-33; server.go GetTLSConfig)."""
-    import ssl
-
-    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
-    ctx.load_cert_chain(certfile=certfile, keyfile=keyfile or None)
-    return ctx
-
-
 def bind_http(
     host: str = "localhost",
     port: int = 10101,
     ssl_context=None,
     backend: Optional[str] = None,
+    workers: Optional[int] = None,
+    tls_certificate: str = "",
+    tls_key: str = "",
     **server_opts,
 ):
     """Bind the listening socket WITHOUT serving yet, so that a caller
@@ -1046,10 +1026,26 @@ def bind_http(
 
     ``backend`` picks the serving engine: "async" (default; the
     net/aserver.py event-loop reactor) or "threaded" (the stdlib
-    thread-per-connection oracle).  Process mode is not ported
-    (``Server`` refuses ``[server] workers``).  ``server_opts`` go to the
-    reactor (reactors=, admission=, ...)."""
+    thread-per-connection oracle).  ``workers > 0`` selects PROCESS mode
+    on the async backend: N worker processes behind SO_REUSEPORT parse and
+    encode the HTTP traffic and forward decoded queries to this process,
+    the only one that touches the card (net/procserver.py; ``[server]
+    workers`` / ``PILOSA_TPU_SERVER_WORKERS``, default 0: the in-process
+    reactor).  ``server_opts`` go to the chosen server (reactors=,
+    admission=, ...)."""
     if _resolve_backend(backend) != "threaded":
+        if workers is None:
+            try:
+                workers = int(os.environ.get("PILOSA_TPU_SERVER_WORKERS", 0))
+            except ValueError:
+                workers = 0
+        if workers and int(workers) > 0:
+            from .procserver import ProcessHTTPServer
+
+            return ProcessHTTPServer(
+                host, port, workers=int(workers), ssl_context=ssl_context,
+                tls_certificate=tls_certificate, tls_key=tls_key, **server_opts,
+            )
         from .aserver import AsyncHTTPServer
 
         return AsyncHTTPServer(
@@ -1103,15 +1099,16 @@ def serve(
     thread).  port=0 binds an ephemeral port.  ``srv`` continues a socket
     pre-bound with bind_http().  ``ssl_context`` serves HTTPS;
     ``allowed_origins`` enables CORS.  ``backend``/``admission``/
-    ``server_opts`` configure the event-loop server (docs/serving.md);
-    the threaded backend ignores them."""
+    ``server_opts`` configure the event-loop server (docs/serving.md), and
+    ``workers=N`` (in ``server_opts``) runs it in process mode; the
+    threaded backend ignores them."""
     if srv is None:
         srv = bind_http(
             host, port, ssl_context=ssl_context, backend=backend,
             **server_opts,
         )
     handler = Handler(api, allowed_origins=allowed_origins)
-    if hasattr(srv, "admission"):  # the async reactor
+    if hasattr(srv, "admission"):  # the async reactor or process mode
         if admission is None and srv.admission is None:
             from .admission import AdmissionController
 
@@ -1120,6 +1117,13 @@ def serve(
             srv.admission = admission
         handler.server = srv
         api.admission = srv.admission
+        # The measured-cost loop: the tenant ledger streams each plan's
+        # device-seconds into the controller, so weighted-fair shares
+        # price what a tenant's queries cost, not how many it sent.
+        plans_mod.LEDGER.bind_admission(srv.admission)
+    if hasattr(srv, "not_ready_reasons"):
+        # Process mode: /readyz folds the worker processes' health in.
+        api.process_server = srv
     srv.RequestHandlerClass.handler = handler
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()

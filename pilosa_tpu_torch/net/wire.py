@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from ..core.row import Row
 from ..executor import FieldRow, GroupCount, RowIdentifiers, ValCount
+from .front import fast_results_bytes  # noqa: F401 — re-exported
 
 
 def result_to_json(result):
@@ -87,29 +88,6 @@ def fast_result_values(resp):
         else:
             return None
     return out
-
-
-def fast_results_bytes(results, trace_id=None) -> bytes:
-    """Exact ``json.dumps`` bytes for a fast-qualifying results list
-    (see ``fast_result_values``): ints render as-is, pair lists as
-    ``[{"id": i, "count": c}, ...]`` — byte-identical to the generic
-    encoder's output, without the per-response dict builds."""
-    parts = []
-    for r in results:
-        if type(r) is int:
-            parts.append(str(r))
-        else:
-            parts.append(
-                "["
-                + ", ".join(
-                    '{"id": %d, "count": %d}' % (i, c) for i, c in r
-                )
-                + "]"
-            )
-    body = '{"results": [' + ", ".join(parts) + "]"
-    if trace_id:
-        body += f', "traceID": "{trace_id}"'
-    return (body + "}").encode()
 
 
 def count_response_bytes(resp, trace_id=None):

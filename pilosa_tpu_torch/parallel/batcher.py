@@ -45,8 +45,18 @@ every Count that shares a Row subtree with one, over all indexes, into one
 ``fused`` group (``TorchEngine.fused_drain_async``: one F1 per index and
 the edges' kernels, each shared mask evaluated once); a fused group of one
 is a ``solo`` group on the op's own program; the other Counts keep the
-count lane.  A fused or solo group's outputs come back in one copy.  The
-query-plan and trace stamps of every stage are ROADMAP.md Queue 1 item 14.
+count lane.  A fused or solo group's outputs come back in one copy.
+
+Every item captures its submitter's query plan (``util/plans.py``), and
+each stage stamps it as the reference's stages do
+(``pilosa_tpu/parallel/batcher.py:298-346, 414-425, 589-920``): the memo
+outcome at submit, the queue wait, the engine's dispatch note fanned out
+to every rider (bytes divided by each rider's footprint share), and the
+device seconds from the host clock around the dispatch and the readback.
+An item also carries the submit origin of the thread that queued it
+(``set_submit_origin``; process mode's frame drains set it per worker),
+so ``cross_worker_fused_batches`` counts batches whose riders came
+through different worker processes.
 A Count whose tree holds a BSI range leaf joins a drain like any other:
 ``count_many_async`` runs it on K1/K2 beside the batch's K5 launch.
 """
@@ -64,10 +74,27 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..util import plans as plans_mod
 from ..util.stats import PipelineStats
 from . import fusion
 from . import kernels
 from .engine import UnsupportedLowering, _Lowering
+
+# Submission-origin tag (process mode): the device owner's frame drain
+# stamps its worker's identity here before it submits that worker's
+# queries, so every item carries it and the dispatch loop can count
+# batches whose riders arrived through DIFFERENT worker processes.  None
+# (the in-process reactor, a direct API call) contributes nothing.
+_ORIGIN = threading.local()
+
+
+def set_submit_origin(origin: Optional[str]):
+    """Tag every later submit from THIS thread with ``origin``."""
+    _ORIGIN.value = origin
+
+
+def submit_origin() -> Optional[str]:
+    return getattr(_ORIGIN, "value", None)
 
 
 class _Item:
@@ -77,8 +104,8 @@ class _Item:
     lets a caller resolve a pending response without parking a thread in
     ``event.wait``."""
 
-    __slots__ = ("index", "call", "shards", "kind", "spec", "event", "result", "error",
-                 "t_submit", "memo_key", "_callbacks")
+    __slots__ = ("index", "call", "shards", "kind", "spec", "plan_extra", "event", "result",
+                 "error", "t_submit", "plan", "memo_note", "memo_key", "origin", "_callbacks")
 
     def __init__(self, index, call, shards, kind="count", spec=None):
         self.index = index
@@ -86,14 +113,24 @@ class _Item:
         self.shards = shards
         self.kind = kind
         self.spec = spec
+        # Per-item plan-note extras from the fused planner (op name,
+        # mask_shared_with, a sparse peel's fields).
+        self.plan_extra = None
         self.event = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
         self.t_submit = time.monotonic()
+        # The submitter's query plan: the stage workers stamp decisions
+        # and timings onto it across the thread hops.
+        self.plan = plans_mod.current_plan()
+        # ("miss", reason) from submit time, merged into the plan's op.
+        self.memo_note = None
         # Result-memo key computed at SUBMIT time (engine.memo_probe): the
         # collect stage stores the answer under the version tokens the
         # query began with, never newer ones.
         self.memo_key = None
+        # The serving process that submitted it (None outside process mode).
+        self.origin = submit_origin()
         self._callbacks: List[Callable] = []
 
     def done(self) -> bool:
@@ -188,11 +225,13 @@ class CountBatcher:
         batch."""
         probed = getattr(self.engine, "memo_probe", None) is not None
         key, hit = self._memo_probe(index, call, shards)
+        memo_note = self._plan_memo_note(probed, key, hit)
         if hit is not None:
             return int(hit)
-        item = self._submit(index, call, shards, allow_direct=True, memo_key=key)
+        item = self._submit(index, call, shards, allow_direct=True, memo_key=key,
+                            memo_note=memo_note)
         if item is None:
-            return self._direct(index, call, shards, key, probed)
+            return self._direct(index, call, shards, key, probed, memo_note)
         if not item.event.wait(self.WAIT_TIMEOUT):
             raise RuntimeError("batched count timed out (engine wedged?)")
         if item.error is not None:
@@ -205,12 +244,15 @@ class CountBatcher:
         completion, so blocking here would defeat it.  A memo hit returns
         a future that has resolved already."""
         key, hit = self._memo_probe(index, call, shards)
+        memo_note = self._plan_memo_note(
+            getattr(self.engine, "memo_probe", None) is not None, key, hit)
         if hit is not None:
             item = _Item(index, call, list(shards))
             item.result = int(hit)
             item._resolve()
             return item
-        return self._submit(index, call, shards, allow_direct=False, memo_key=key)
+        return self._submit(index, call, shards, allow_direct=False, memo_key=key,
+                            memo_note=memo_note)
 
     def submit_op(self, index: str, kind: str, spec: dict, shards):
         """One aggregate op (sum/min/max/topn/topnf/group) through the batch
@@ -220,6 +262,9 @@ class CountBatcher:
         Returns the op's result; raises the item's own error."""
         key, hit = self.engine.memo_probe_op(index, kind, spec, shards)
         if hit is not None:
+            plan = plans_mod.current_plan()
+            if plan is not None:
+                plan.note_op(op=fusion.OP_NAMES.get(kind, kind), path="memo", memo="hit")
             return hit
         item = self._submit(index, None, shards, allow_direct=True, memo_key=key,
                             kind=kind, spec=spec)
@@ -232,16 +277,45 @@ class CountBatcher:
         return item.result
 
     def _direct_op(self, index, kind, spec, shards, memo_key=None):
+        t0 = time.monotonic()
         try:
             out = self.engine.solo_op(index, kind, spec, shards)
             if memo_key is not None:
                 self.engine.memo_store_op(memo_key, kind, spec, out)
             return out
         finally:
+            note = plans_mod.take_dispatch_note()
+            plan = plans_mod.current_plan()
+            if plan is not None:
+                d = dict(note) if note else {}
+                d.setdefault("op", fusion.OP_NAMES.get(kind, kind))
+                d.setdefault("path", "direct")
+                plan.note_op(**d)
+                elapsed = time.monotonic() - t0
+                plan.note_stage("execute", elapsed)
+                plan.note_device_seconds(elapsed)
             with self._lock:
                 self._busy = False
                 if self._queue:
                     self._cond.notify_all()
+
+    def _plan_memo_note(self, probed: bool, key, hit):
+        """Record the memo outcome on the SUBMIT thread, where the plan is
+        ambient: a hit is a whole op record (no dispatch follows); a miss
+        becomes a ("miss", reason) note merged into the op the dispatch
+        fan-out records."""
+        plan = plans_mod.current_plan()
+        if plan is None or not probed:
+            return None
+        if hit is not None:
+            plan.note_op(op="Count", path="memo", memo="hit")
+            return None
+        reason = "ineligible"
+        if key is not None:
+            memo = getattr(self.engine, "result_memo", None)
+            if memo is not None and hasattr(memo, "miss_reason"):
+                reason = memo.miss_reason(key)
+        return ("miss", reason)
 
     def _memo_probe(self, index, call, shards):
         """engine.memo_probe, duck-typed: the batcher also runs against
@@ -252,7 +326,7 @@ class CountBatcher:
         return probe(index, call, shards)
 
     def _submit(self, index, call, shards, allow_direct: bool, memo_key=None,
-                kind="count", spec=None):
+                memo_note=None, kind="count", spec=None):
         with self._lock:
             hot = time.monotonic() - self._last_fused < self.HOT_WINDOW
             if allow_direct and not self._busy and not self._queue and not hot:
@@ -260,6 +334,7 @@ class CountBatcher:
                 return None  # the caller runs the direct path
             item = _Item(index, call, list(shards), kind=kind, spec=spec)
             item.memo_key = memo_key
+            item.memo_note = memo_note
             self._queue.append(item)
             self._ensure_workers()
             # Wake the drain worker on the empty -> non-empty transition
@@ -268,7 +343,9 @@ class CountBatcher:
                 self._cond.notify_all()
         return item
 
-    def _direct(self, index, call, shards, memo_key=None, probed=False) -> int:
+    def _direct(self, index, call, shards, memo_key=None, probed=False,
+                memo_note=None) -> int:
+        t0 = time.monotonic()
         try:
             if probed:
                 # submit() probed (and missed): hand the key through so the
@@ -276,6 +353,19 @@ class CountBatcher:
                 return self.engine.count(index, call, shards, memo_key=memo_key)
             return self.engine.count(index, call, shards)
         finally:
+            # The engine published its dispatch decisions to this thread's
+            # note; the whole blocking launch and readback is this query's
+            # one "execute" stage and its device attribution.
+            note = plans_mod.take_dispatch_note()
+            plan = plans_mod.current_plan()
+            if plan is not None:
+                d = dict(note) if note else {"op": "Count", "path": "direct"}
+                if memo_note is not None:
+                    d["memo"], d["memo_reason"] = memo_note
+                plan.note_op(**d)
+                elapsed = time.monotonic() - t0
+                plan.note_stage("execute", elapsed)
+                plan.note_device_seconds(elapsed)
             with self._lock:
                 self._busy = False
                 if self._queue:
@@ -401,9 +491,20 @@ class CountBatcher:
             self.pipeline.add_delta("inflight", 1)
             if not retried:
                 now = time.monotonic()
+                # One wait per distinct plan: a query whose Counts ride as
+                # several items waits once, its longest.
+                plan_wait: dict = {}
                 for it in items:
                     self.pipeline.record("queue_wait", now - it.t_submit)
+                    if it.plan is not None:
+                        wait = now - it.t_submit
+                        prev = plan_wait.get(id(it.plan))
+                        if prev is None or wait > prev[1]:
+                            plan_wait[id(it.plan)] = (it.plan, wait)
+                for plan, wait in plan_wait.values():
+                    plan.note_stage("queue_wait", wait)
             decoders = None
+            weights = None
             try:
                 t0 = time.monotonic()
                 if gkind == "count":
@@ -416,14 +517,17 @@ class CountBatcher:
                             (it.index, it.spec if it.spec is not None
                              else {"kind": "count", "call": it.call}, it.shards)
                             for it in items])
-                        live, decoders = [], []
-                        for it, err, dec in zip(items, fd.errors, fd.decoders):
+                        live, decoders, weights = [], [], []
+                        for it, err, dec, w, note in zip(items, fd.errors, fd.decoders,
+                                                         fd.weights, fd.item_notes):
                             if err is not None:
                                 it.error = err
                                 it._resolve()
                             else:
+                                it.plan_extra = note
                                 live.append(it)
                                 decoders.append(dec)
+                                weights.append(w)
                         items = live
                         dev, layout = fd.dev, fd.layout
                     else:  # solo: one aggregate on its own program
@@ -435,10 +539,21 @@ class CountBatcher:
                             tensors, self.engine.device)
                     readback = (None if dev is None else self._start_readback_bytes(dev),
                                 layout)
-                self.pipeline.record("lower_dispatch", time.monotonic() - t0)
+                t1 = time.monotonic()
+                note = plans_mod.take_dispatch_note()
+                if note is None and gkind == "solo":
+                    # The per-op programs publish no note of their own:
+                    # name the lane, so the plan still says which ran.
+                    note = {"op": fusion.OP_NAMES.get(items[0].kind, items[0].kind),
+                            "path": "solo"}
+                self._stamp_plans(items, note, t1 - t0, weights)
+                self.pipeline.record("lower_dispatch", t1 - t0)
             except BaseException as batch_err:  # noqa: BLE001 — the loop must
                 # survive anything: a dead dispatch worker would wedge every
                 # later submit at WAIT_TIMEOUT.
+                # A failed dispatch may have half-written its plan note:
+                # clear it, so the next batch on this thread starts clean.
+                plans_mod.take_dispatch_note()
                 with self._lock:
                     self._live -= 1
                 self.pipeline.add_delta("inflight", -1)
@@ -454,11 +569,16 @@ class CountBatcher:
                 self.pipeline.incr("fused_batches")
                 self.pipeline.incr("fused_queries", len(items))
                 self._last_fused = time.monotonic()
+                # Process mode: a batch whose riders came through DIFFERENT
+                # worker processes is the cross-process coalescing evidence.
+                origins = {it.origin for it in items if it.origin}
+                if len(origins) >= 2:
+                    self.pipeline.incr("cross_worker_fused_batches")
             if gkind == "fused":
                 # Heterogeneous drains launched as fused programs.
                 self.pipeline.incr("fused_program_batches")
                 self.pipeline.incr("fused_program_queries", len(items))
-            self._collect_q.put((readback, items, time.monotonic(), decoders))
+            self._collect_q.put((readback, items, time.monotonic(), decoders, weights))
 
     def _start_readback_bytes(self, dev):
         """A fused or solo group's packed outputs (``fusion.pack``): on the
@@ -521,8 +641,15 @@ class CountBatcher:
                         self._probe_lowering(it)
                     else:
                         self.engine.probe_fused_item(it.index, it.spec, it.shards)
+                plans_mod.take_dispatch_note()  # probe leftovers: discard
                 good.append(it)
             except Exception as e:  # noqa: BLE001
+                # The probe may have noted WHY the item failed (the
+                # residency layer's host_fallback): fan it onto the item's
+                # plan, though the answer comes from the host lane.
+                note = plans_mod.take_dispatch_note()
+                if it.plan is not None and note is not None:
+                    it.plan.note_op(**plans_mod.rider_note(note, 1))
                 it.error = e
                 it._resolve()
         if good and len(good) < len(items):
@@ -538,6 +665,34 @@ class CountBatcher:
                 if it.error is None:
                     it.error = batch_err
                 it._resolve()
+
+    @staticmethod
+    def _stamp_plans(items: List[_Item], note, lower_seconds: float, weights=None):
+        """Fan the engine's dispatch note out to every rider's plan.  Byte
+        tallies divide by each rider's footprint share where the fused
+        planner measured one (``weights``), evenly otherwise; the
+        planner's per-item extras overlay the shared note."""
+        if note is None:
+            return
+        n = len(items)
+        total_w = sum(weights) if weights else 0.0
+        staged = set()
+        for i, it in enumerate(items):
+            if it.plan is None:
+                continue
+            frac = (weights[i] / total_w) if total_w else None
+            d = plans_mod.rider_note(note, n, frac=frac)
+            if it.plan_extra is not None:
+                d.update(it.plan_extra)
+                if frac is not None:
+                    d["fused_cost_frac"] = round(frac, 4)
+            if it.memo_note is not None:
+                d["memo"], d["memo_reason"] = it.memo_note
+            it.plan.note_op(**d)
+            # One lower_dispatch stamp per distinct plan.
+            if id(it.plan) not in staged:
+                staged.add(id(it.plan))
+                it.plan.note_stage("lower_dispatch", lower_seconds)
 
     def _probe_lowering(self, it: _Item):
         """Lower one item's tree as its batch would, and raise what its
@@ -557,7 +712,7 @@ class CountBatcher:
             got = self._collect_q.get()
             if got is None:
                 return  # stop() sentinel
-            readback, items, t_dispatched, decoders = got
+            readback, items, t_dispatched, decoders, weights = got
             buf = None
             try:
                 if decoders is None:  # the count lane: int64[K]
@@ -588,7 +743,24 @@ class CountBatcher:
                             self.engine.memo_store(it.memo_key, it.result, call=it.call)
                         else:
                             self.engine.memo_store_op(it.memo_key, it.kind, it.spec, it.result)
-                self.pipeline.record("decode", time.monotonic() - t_ready)
+                t_done = time.monotonic()
+                self.pipeline.record("decode", t_done - t_ready)
+                # Device-cost attribution from the host clock: the batch
+                # held its slot for the readback window; each rider pays
+                # its footprint share, or an even one.
+                window = t_ready - t_dispatched
+                total_w = sum(weights) if weights else 0.0
+                staged = set()
+                for i, it in enumerate(items):
+                    if it.plan is None:
+                        continue
+                    if id(it.plan) not in staged:
+                        staged.add(id(it.plan))
+                        it.plan.note_stage("device_readback", window)
+                        it.plan.note_stage("decode", t_done - t_ready)
+                    it.plan.note_device_seconds(
+                        window * weights[i] / total_w if total_w
+                        else window / max(1, len(items)))
             except BaseException as e:  # noqa: BLE001
                 for it in items:
                     it.error = e

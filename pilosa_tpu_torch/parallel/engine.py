@@ -108,6 +108,7 @@ from ..core.view import VIEW_STANDARD, view_bsi_name
 from ..ops import bitops
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
 from ..util import events as events_mod
+from ..util import plans as plans_mod
 from ..util.stats import (METRIC_ENGINE_EVICTIONS, METRIC_ENGINE_PROMOTIONS,
                           METRIC_ENGINE_RESIDENT_BLOCK_FRACTION, REGISTRY)
 from . import bsi as bsi_mod
@@ -305,6 +306,14 @@ class _ResultMemo:
             self._od.move_to_end(key)
             self.hits += 1
             return v
+
+    def peek(self, key) -> bool:
+        """Membership without an LRU bump or hit/miss accounting: the
+        Explain dry-run must not change which entry is evicted next."""
+        if self.maxsize <= 0 or key is None:
+            return False
+        with self._lock:
+            return key in self._od
 
     def put(self, key, value):
         if self.maxsize <= 0 or key is None or value is None:
@@ -767,6 +776,10 @@ class TorchEngine:
             self.host_fallbacks += 1
             self.residency.note_host_fallback()
         self.residency.request(key, rows, cause="reactive")
+        # The plan note the /debug/plans analyzer renders as "host
+        # fallback: stack NN% resident".
+        plans_mod.note_dispatch(path="host_fallback", stack="/".join(key),
+                                resident_fraction=round(fraction, 4))
         raise ResidencyMiss(msg, key=key, resident_fraction=fraction)
 
     class _ProbeMode:
@@ -1047,6 +1060,7 @@ class TorchEngine:
                     with self.probe_residency():
                         self._field_stack_locked(key, index, field, view, canonical)
                 except ResidencyMiss:
+                    plans_mod.take_dispatch_note()  # no plan on this thread
                     return "declined", shipped
             self.journal.append("engine.promotion", trace_id=trace_id or None, index=index,
                                 field=field, view=view, cause=cause, partial=bool(partial),
@@ -1914,6 +1928,59 @@ class TorchEngine:
             tuple(len(rows) for rows in row_lists))
         self.result_memo.put(key, shaped)
 
+    @staticmethod
+    def _operand_bytes(parts, mask_bytes: int = 0, slot_vector: bool = False,
+                       pad_copies: int = 0, extra: int = 0) -> int:
+        """The plan's ``bytes_touched`` of a dense launch: the device bytes
+        the reference's dispatch over the same lowering passes as operands
+        (``pilosa_tpu/parallel/engine.py:3068 _operand_bytes``), so that
+        both packages' plans agree.  ``parts`` is a list of (lowering,
+        programs): each distinct stack matrix of a lowering counts once (a
+        pool's slot table, which the reference does not have, never; a
+        missing stack as the reference's zero stack, uint32[1, S, WORDS],
+        once per shard axis), an int32 row scalar per row leaf (in batch
+        mode one int32 slot vector of at least one entry) and an int32[64]
+        slot vector per pool leaf; ``mask_bytes`` adds the uint32[S, 1]
+        shard masks and ``extra`` the other replicated operands.
+        ``pad_copies`` re-counts the first program's leaves that many
+        times: the reference pads a batch to its tier by lowering query 0
+        again."""
+        total = extra + mask_bytes
+        scalars = 0
+        zero_axes = set()
+
+        def walk(p, S):
+            nonlocal total, scalars
+            kind = p[0]
+            if kind == "row":
+                scalars += 1
+            elif kind == "rowb":
+                total += bitops.OCC_BLOCKS * 4
+            elif kind == "range":
+                scalars += sum(1 for r in p[3] if r >= 0)
+            elif kind == "zero":
+                if S not in zero_axes:
+                    zero_axes.add(S)
+                    total += S * bitops.WORDS * 4
+            elif kind != "mref":
+                for q in p[1:]:
+                    walk(q, S)
+
+        for lw, progs in parts:
+            seen = set()
+            for m, st in zip(lw.mats, lw.stacks):
+                if id(m) in seen or (st.pool and m is st.slot_table):
+                    continue
+                seen.add(id(m))
+                total += m.numel() * m.element_size()
+            S = len(lw.canonical)
+            for p in progs:
+                walk(p, S)
+            if pad_copies and progs:
+                for _ in range(pad_copies):
+                    walk(progs[0], S)
+        return total + 4 * (max(1, scalars) if slot_vector else scalars)
+
     def _dispatch_count(self, index, c, shards, canonical):
         with self._stacks_lock:
             lw = _Lowering(self, canonical)
@@ -1927,6 +1994,10 @@ class TorchEngine:
                                      lambda: self._dispatch_sparse(prog, lw.mats, plan))
             self.dense_dispatches += 1
             self.last_path = "dense"
+            if plans_mod.ENABLED:
+                # K1 and K1P alike note the reference's dense count_tree record.
+                plans_mod.note_dispatch(op="Count", path="dense", fused=True,
+                                        bytes_touched=self._operand_bytes([(lw, (prog,))]))
             mask = self._mask_words(shards, canonical)
             return self._reading(lw.stacks, lambda: kernels.count_tree(prog, lw.mats, mask))
 
@@ -1935,6 +2006,7 @@ class TorchEngine:
         self.sparse_dispatches += 1
         self.device_bytes_skipped += skipped
         self.last_path = "sparse"
+        plans_mod.note_dispatch(op="Count", path="sparse", fused=True, bytes_skipped=skipped)
         bits = torch.from_numpy(blk_bits)
         if self.device.type == "cuda":
             # One pinned staging copy, queued behind the stream's work
@@ -2007,12 +2079,23 @@ class TorchEngine:
         occ = np.where(req, occ, np.uint64(0))
         total_blocks = bitops.popcount_np(occ)
         denom = n_req * bitops.OCC_BLOCKS
+        # The occupancy decision either way: the blocks that survive the
+        # host-side combine against the dense sweep's, and the threshold.
+        plans_mod.note_dispatch(blocks_surviving=total_blocks, blocks_total=denom,
+                                occ_fraction=round(total_blocks / denom, 4),
+                                threshold=self.sparse_threshold)
         if total_blocks / denom > self.sparse_threshold:
             return None
-        skipped = n_leaves * (denom - total_blocks) * bitops.OCC_BLOCK_WORDS * 4
+        block_bytes = bitops.OCC_BLOCK_WORDS * 4
+        skipped = n_leaves * (denom - total_blocks) * block_bytes
+        plans_mod.note_dispatch(bytes_touched=n_leaves * total_blocks * block_bytes)
         return occ.view(np.int64), skipped
 
     # -- batched Counts (pilosa_tpu/parallel/engine.py:3246-3386, 3719-3865)
+
+    # The reference's batch program tiers: its plan records the tier a
+    # batch pads to, and the plans of both packages carry it.
+    BATCH_TIERS = (8, 64, 256, 512)
 
     _LOWERABLE = frozenset(("Row", "Union", "Intersect", "Difference", "Xor", "Not", "Range"))
 
@@ -2061,6 +2144,7 @@ class TorchEngine:
         if len(u_calls) == 1:
             # One unique query takes the scalar path: K1, or K2 where the
             # sparse plan applies (K5 is dense by construction).
+            plans_mod.note_dispatch(cse_unique=1, cse_deduped=deduped, batch_size=len(calls))
             dev = self._dispatch_count(index, u_calls[0], u_shards[0], canonical)
             return dev.reshape(1).expand(len(calls))
         with self._stacks_lock:
@@ -2074,6 +2158,18 @@ class TorchEngine:
                     raise UnsupportedLowering("count tree exceeds the kernels' limits")
                 progs.append(prog)
             fan = mapping if deduped else None
+            # The reference's record of its padded batch program: the tier
+            # it pads to and the operands that program passes.
+            if plans_mod.ENABLED:
+                K = len(progs)
+                K_pad = next((t for t in self.BATCH_TIERS if K <= t),
+                             max(1, 1 << (K - 1).bit_length()))
+                plans_mod.note_dispatch(
+                    op="Count", path="dense_batch", fused=True, cse_unique=K,
+                    cse_deduped=deduped, batch_size=len(calls), tier=K_pad,
+                    bytes_touched=self._operand_bytes(
+                        [(lw, progs)], slot_vector=True, pad_copies=K_pad - K,
+                        mask_bytes=4 * len(canonical) * len({frozenset(s) for s in u_shards})))
             solo = [j for j, prog in enumerate(progs) if not kernels.batchable(prog)]
             if not solo:
                 return self._launch_batch(progs, lw, u_shards, canonical, fan)
@@ -2126,6 +2222,90 @@ class TorchEngine:
                 rows.append(np.isin(canon, np.asarray(k, dtype=np.int64)))
             mask_ids.append(i)
         return np.stack(rows), mask_ids
+
+    _EXPLAIN_NARY = {"Intersect": "and", "Union": "or", "Difference": "andnot", "Xor": "xor"}
+
+    def explain_count(self, index: str, c: Call, shards) -> dict:
+        """Plan a Count WITHOUT launching anything: the PQL ``Explain(...)``
+        dry-run (pilosa_tpu/parallel/engine.py:3263-3351).  Combines the
+        per-(row, shard) block occupancy straight from the HOST fragments
+        (no stack is built or promoted), probes the result memo without
+        touching it, and reports the path a real dispatch would take."""
+        canonical = self.canonical_shards(index)
+        doc: dict = {
+            "op": "Count",
+            "query": str(c),
+            "lowerable": self.lowerable(c),
+            "shards": len(shards),
+            "canonicalShards": len(canonical),
+        }
+        key = self._memo_key(index, c, shards)
+        hit = self.result_memo.peek(key)
+        doc["memo"] = "hit" if hit else "miss"
+        if not hit:
+            doc["memoReason"] = self.result_memo.miss_reason(key)
+        if not doc["lowerable"] or not canonical:
+            doc["plannedPath"] = "host" if not doc["lowerable"] else "empty"
+            return doc
+        block_bytes = bitops.OCC_BLOCK_WORDS * 4
+        shard_set = set(shards)
+        n_req = sum(1 for s in canonical if s in shard_set)
+
+        class _NotSparse(Exception):
+            pass
+
+        def occ_of(call) -> np.ndarray:
+            if call.name == "Row" and not call.children and len(call.args) == 1:
+                (fname, row), = call.args.items()
+                if isinstance(row, bool) or not isinstance(row, int):
+                    raise _NotSparse
+                out = np.zeros(len(canonical), dtype=np.uint64)
+                for i, s in enumerate(canonical):
+                    if s not in shard_set:
+                        continue
+                    frag = self.holder.fragment(index, fname, VIEW_STANDARD, s)
+                    if frag is not None:
+                        out[i] = np.uint64(frag.row_occupancy(row))
+                return out
+            kind = self._EXPLAIN_NARY.get(call.name)
+            if kind is None or not call.children:
+                raise _NotSparse
+            occ = occ_of(call.children[0])
+            for ch in call.children[1:]:
+                so = occ_of(ch)
+                if kind == "and":
+                    occ = occ & so
+                elif kind != "andnot":  # or/xor widen; andnot keeps left
+                    occ = occ | so
+            return occ
+
+        def leaves(call) -> int:
+            if call.name == "Row":
+                return 1
+            return sum(leaves(ch) for ch in call.children)
+
+        try:
+            occ = occ_of(c)
+        except _NotSparse:
+            doc["plannedPath"] = "dense"
+            doc["sparseEligible"] = False
+            return doc
+        surviving = bitops.popcount_np(occ)
+        total = max(1, n_req * bitops.OCC_BLOCKS)
+        frac = surviving / total
+        sparse = frac <= self.sparse_threshold
+        n_leaves = leaves(c)
+        doc.update(
+            sparseEligible=True,
+            blocksSurviving=surviving,
+            blocksTotal=total,
+            occFraction=round(frac, 4),
+            sparseThreshold=self.sparse_threshold,
+            plannedPath="memo" if hit else ("sparse" if sparse else "dense"),
+            estBytesDense=n_leaves * total * block_bytes,
+            estBytesSkipped=n_leaves * (total - surviving) * block_bytes if sparse else 0,
+        )
+        return doc
 
     def batcher(self):
         """The cross-request micro-batcher (``batcher.py``), made at first
@@ -2512,6 +2692,7 @@ class TorchEngine:
             [fd.decoders[inv[i]] for i in range(n)],
             [fd.weights[inv[i]] for i in range(n)],
             [fd.errors[inv[i]] for i in range(n)],
+            [fd.item_notes[inv[i]] for i in range(n)],
         )
 
     def _fused_plan_for(self, entries, key):
@@ -2560,7 +2741,12 @@ class TorchEngine:
         """Synchronous cross-index drain over (index, spec, shards) triples:
         ``fused_drain_async``, one readback, each item's result (its error
         raised)."""
-        fd = self.fused_drain_async(entries)
+        try:
+            fd = self.fused_drain_async(entries)
+        finally:
+            # The async form leaves its note for its dispatcher (the batcher);
+            # here the caller records no plan, so claim it.
+            plans_mod.take_dispatch_note()
         return fd.results(fd.dev.cpu().numpy())
 
     # -- the aggregate lane's per-op programs and memo -----------------------

@@ -52,6 +52,7 @@ import torch
 from ..core.cache import pair_sort_key
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD, view_bsi_name
+from ..util import plans as plans_mod
 from . import bsi as bsi_mod
 from . import groupby as groupby_mod
 from . import kernels
@@ -132,6 +133,19 @@ def merge_hints(into: dict, hints: dict) -> dict:
         else:
             into.setdefault(key, set()).update(rows)
     return into
+
+
+# Plan-note op names per item kind (the reference's, so that the plans of
+# both packages name their ops alike).
+OP_NAMES = {
+    "count": "Count",
+    "sum": "Sum",
+    "min": "Min",
+    "max": "Max",
+    "topn": "TopN",
+    "topnf": "TopN",
+    "group": "GroupBy",
+}
 
 
 def _pow2(n: int) -> int:
@@ -252,16 +266,18 @@ def decode_topn_full(host, cands, n_out):
 class FusedDispatch:
     """One dispatched drain: the packed device outputs and their layout, a
     decoder per item over the unpacked host arrays, the per-item device-cost
-    weights (footprint-proportional) and the per-item errors."""
+    weights (footprint-proportional), the per-item plan notes and the
+    per-item errors."""
 
-    __slots__ = ("dev", "layout", "decoders", "weights", "errors")
+    __slots__ = ("dev", "layout", "decoders", "weights", "errors", "item_notes")
 
-    def __init__(self, dev, layout, decoders, weights, errors):
+    def __init__(self, dev, layout, decoders, weights, errors, item_notes=None):
         self.dev = dev
         self.layout = layout
         self.decoders = decoders
         self.weights = weights
         self.errors = errors
+        self.item_notes = item_notes if item_notes is not None else [None] * len(decoders)
 
     def results(self, host: np.ndarray) -> list:
         """Every item's result from the fetched packed bytes, raising the
@@ -320,7 +336,7 @@ class FusedPlan:
     __slots__ = (
         "indexes", "parts", "sparse", "decoders", "weights", "errors", "n_items",
         "fused_riders", "masks_evaluated", "masks_referenced", "stacks", "stack_tokens",
-        "canonical", "cacheable",
+        "canonical", "cacheable", "item_notes", "bytes_touched", "masks_tier",
     )
 
     def have_fused(self) -> bool:
@@ -342,6 +358,10 @@ def dispatch(engine, plan: FusedPlan) -> FusedDispatch:
                                                part.tensors, part.need))
         for prog, lw1, splan in plan.sparse:
             outs.append(engine._dispatch_sparse(prog, lw1.mats, splan))
+            # The peeled item's note was captured into its item note at
+            # build time: drop the fresh one, which must not reach the
+            # shared batch note below.
+            plans_mod.take_dispatch_note()
 
     engine._reading(plan.stacks, launch)
     decoders = list(plan.decoders)
@@ -365,8 +385,18 @@ def dispatch(engine, plan: FusedPlan) -> FusedDispatch:
         engine.fused_program_queries += plan.fused_riders
         engine.fused_masks_evaluated += plan.masks_evaluated
         engine.fused_masks_referenced += plan.masks_referenced
+    plans_mod.note_dispatch(
+        path="fused_program",
+        fused=True,
+        fused_queries=plan.n_items,
+        masks_evaluated=plan.masks_evaluated,
+        masks_referenced=plan.masks_referenced,
+        masks_tier=plan.masks_tier if plan.have_fused() else 0,
+        bytes_touched=plan.bytes_touched,
+        fused_indexes=len(plan.indexes),
+    )
     dev, layout = pack(outs, engine.device)
-    return FusedDispatch(dev, layout, decoders, plan.weights, errors)
+    return FusedDispatch(dev, layout, decoders, plan.weights, errors, plan.item_notes)
 
 
 def _slot_rows(prog) -> float:
@@ -477,6 +507,12 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
     routes: list = [None] * n_items
     top_slot: List[Optional[tuple]] = [None] * n_items  # (index, slot)
     reduce_rows = [0.0] * n_items
+    sparse_notes: list = [None] * n_items  # a peel's occupancy note
+    extra_notes: list = [None] * n_items  # per-item plan-note stamps
+    # The reference's replicated operands besides stacks and masks (TopN
+    # index vectors and count tables, GroupBy row lists), in bytes: its
+    # plan's bytes_touched counts them.
+    ref_extra = [0]
 
     order = sorted(range(n_items), key=lambda k: _entry_sort_key(entries[k]))
     for i in order:
@@ -499,10 +535,17 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                     splan = engine._sparse_plan(prog1, lw1, shards, canonical)
                     peel_lws.append(lw1)
                     if splan is not None:
+                        # Claim the occupancy note for THIS item only: the
+                        # shared batch note must not charge its batchmates
+                        # the skipped bytes.
+                        probe_note = plans_mod.take_dispatch_note() or {}
+                        probe_note.update(path="sparse", fused=True, bytes_skipped=int(splan[1]))
+                        sparse_notes[i] = probe_note
                         routes[i] = ("extra", len(sparse))
                         sparse.append((prog1, lw1, splan))
                         reduce_rows[i] = 0.25
                         continue
+                    plans_mod.take_dispatch_note()  # drop the occupancy probe
                 j = lower_shared(part, call)[1]
                 top_slot[i] = (index, j)
                 mi = part.mask(engine, shards)
@@ -582,14 +625,22 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                     if kind == "topn":
                         part.tensors.append(torch.from_numpy(idx).to(engine.device))
                         edge = ("topn", j, mi, cm, len(part.tensors) - 1)
+                        ref_extra[0] += 4 * weight  # int32[K_pad] row indexes
                     else:
                         part.tensors += [entry.cand_idx, entry.dev_cnt]
                         edge = ("topnf", j, mi, cm, len(part.tensors) - 2,
                                 len(part.tensors) - 1, thr, n_out)
+                        # int32[K_pad] row indexes, int32[S, K_pad] counts
+                        # and the threshold scalar.
+                        ref_extra[0] += 4 * weight + 4 * len(canonical) * weight
+                        if n_out is not None:
+                            ref_extra[0] += 4
                     hit = edge_of[ekey] = ("agg", part, len(part.agg_edges), dec)
                     part.agg_edges.append(edge)
                 routes[i] = hit
                 reduce_rows[i] = weight
+                if kind == "topnf" and n_out is not None:
+                    extra_notes[i] = {"topkDevice": int(n_out)}
             elif kind == "group":
                 fields = list(spec.get("fields") or ())
                 row_lists = [list(r) for r in spec.get("rows") or ()]
@@ -606,6 +657,7 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                     routes[i] = ("const", DECLINED)
                     continue
                 g_mats, g_idx = [], []
+                g_extra = 0
                 for fname, rows in zip(fields, row_lists):
                     stack = part.lw.stack_for(index, fname, VIEW_STANDARD)
                     if stack is None:
@@ -613,6 +665,10 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                     engine._require_full_stack(index, fname, VIEW_STANDARD, stack)
                     g_mats.append(part.lw.add_matrix(stack))
                     g_idx.append(tuple(stack.row_index.get(r, -1) for r in rows))
+                    ref_t = [stack.row_index.get(r, 0) for r in rows]
+                    if not (ref_t == list(range(len(ref_t)))
+                            or ref_t == list(range(len(ref_t) - 1, -1, -1))):
+                        g_extra += 4 * len(ref_t)  # a row list the reference gathers
                 if len(g_mats) != len(fields):
                     routes[i] = ("const", DECLINED)
                     continue
@@ -623,6 +679,7 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                 mi = part.mask(engine, shards)
                 edge = ("group", j, mi, tuple(g_mats), tuple(g_idx))
                 ekey = (index,) + edge + (tuple(fields), tuple(tuple(r) for r in row_lists))
+                ref_extra[0] += g_extra
                 hit = edge_of.get(ekey)
                 if hit is None:
                     dec = _GroupDecode(tuple(len(r) for r in row_lists))
@@ -630,6 +687,7 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
                     part.agg_edges.append(edge)
                 routes[i] = hit
                 reduce_rows[i] = float(sum(len(r) for r in row_lists))
+                extra_notes[i] = {"fusedGroupBy": int(combos)}
             else:
                 raise ValueError(f"unknown fused item kind: {kind!r}")
         except Exception as e:  # noqa: BLE001 — one bad item must not
@@ -676,6 +734,28 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
         for index, j in item_reach[i]:
             w += _slot_rows(parts[index].slots[j]) / sharers[(index, j)]
         weights.append(max(w, 0.25))
+
+    # Per-item plan notes (pilosa_tpu/parallel/fusion.py:846-882).
+    indexes = sorted({idx for idx, _, _ in entries})
+    item_notes: list = [None] * n_items
+    for i in range(n_items):
+        if routes[i] is None or routes[i][0] == "error":
+            continue
+        note = {
+            "op": OP_NAMES[entries[i][1]["kind"]],
+            "path": "fused_program",
+            "mask_shared_with": (sharers.get(top_slot[i], 1) - 1
+                                 if top_slot[i] is not None else 0),
+        }
+        if len(indexes) > 1:
+            note["crossIndex"] = True
+        if extra_notes[i] is not None:
+            note.update(extra_notes[i])
+        if sparse_notes[i] is not None:
+            note.update(sparse_notes[i])
+            note["op"] = "Count"
+            note["path"] = "sparse"
+        item_notes[i] = note
 
     # -- output positions and decoders ------------------------------------
     # Every live part's outputs in part order (its count vector first, then
@@ -726,6 +806,13 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
     plan.fused_riders = riders
     plan.masks_evaluated = sum(len(p.slots) for p in live)
     plan.masks_referenced = sum(p.refs for p in live)
+    plan.item_notes = item_notes
+    # The reference pads its one slot list to a power of two.
+    n_slots = sum(len(p.slots) for p in parts.values())
+    plan.masks_tier = _pow2(n_slots) if n_slots else 0
+    plan.bytes_touched = engine._operand_bytes(
+        [(p.lw, p.slots) for p in parts.values()], slot_vector=True, extra=ref_extra[0],
+        mask_bytes=sum(4 * len(p.lw.canonical) * len(p.masks) for p in parts.values()))
     lws = [p.lw for p in parts.values()] + peel_lws
     plan.stacks = [st for lw in lws for st in lw.stacks]
     # Reuse gates: each index's canonical shard axis and every referenced

@@ -72,7 +72,6 @@ _UNPORTED_KEYS = (
     ("jax_process_id", "[mesh] process-id", _ITEM_15),
     ("mesh_peers", "[mesh] peers", _ITEM_15),
     ("mesh_sequencer", "[mesh] sequencer", _ITEM_15),
-    ("server_workers", "[server] workers", _ITEM_14),
     ("faults_rules", "[faults] rules", _ITEM_14),
     ("obs_history", "[observability] history", _ITEM_14),
 )
@@ -252,12 +251,17 @@ class Server:
         if cfg.server_backend != "threaded":
             opts.update(
                 reactors=cfg.server_reactors,
+                workers=cfg.server_workers,
                 pool_workers=cfg.server_pool_workers,
                 queue_depth=cfg.server_queue_depth,
                 max_body_bytes=cfg.server_max_body_bytes,
                 read_timeout=cfg.server_read_timeout,
                 idle_timeout=cfg.server_idle_timeout,
             )
+            if cfg.server_workers > 0:
+                # Process mode terminates TLS in the workers, which need
+                # the PATHS (an SSLContext cannot cross a process).
+                opts.update(tls_certificate=cfg.tls_certificate, tls_key=cfg.tls_key)
         return opts
 
     def _make_admission(self):

@@ -6,10 +6,11 @@ Copies from ``pilosa_tpu/util/stats.py``: ``Histogram``,
 ``PipelineStats``, ``Counter``, ``MetricsRegistry`` with its classic
 Prometheus exposition, ``REGISTRY``, the ``METRIC_*`` names the serving
 modules record, ``diff_rates`` and the ``NopStatsClient`` /
-``ExpvarStatsClient`` / ``MultiStatsClient`` backends.  What waits for
-the query plans (ROADMAP.md Queue 1 item 14): the OpenMetrics exposition
-with its trace-id exemplars, and the per-tenant cost series.  The
-engine's fusion counters are plain attributes, named below with the
+``ExpvarStatsClient`` / ``MultiStatsClient`` backends, the per-tenant
+cost series (``pilosa_tenant_*``, fed by ``util/plans.py``), the
+process-mode gauges and ``merge_expositions``.  What waits for ROADMAP.md
+Queue 1 item 14: the OpenMetrics exposition with its trace-id exemplars.
+The engine's fusion counters are plain attributes, named below with the
 series that ``/metrics`` publishes them under.
 """
 
@@ -464,6 +465,33 @@ METRIC_SERVER_CONNECTIONS = "pilosa_server_connections"
 METRIC_SERVER_CONNECTIONS_TOTAL = "pilosa_server_connections_total"
 METRIC_SERVER_REQUESTS = "pilosa_server_requests_total"
 METRIC_SERVER_ERRORS = "pilosa_server_errors_total"
+# -- per-tenant cost attribution (util/plans.py) ------------------------------
+#   pilosa_tenant_queries_total{tenant=}        queries executed
+#   pilosa_tenant_device_seconds_total{tenant=} attributed device-seconds
+#                                               (each query's share of every
+#                                               batch it rode)
+#   pilosa_tenant_bytes_touched_total{tenant=}  device bytes its plans read
+#   pilosa_tenant_bytes_skipped_total{tenant=}  bytes its sparse plans skipped
+#   pilosa_tenant_sheds_total{tenant=}          admission sheds charged to it
+# Series are made per tenant when first seen (bounded by TenantLedger's
+# cardinality cap).
+METRIC_TENANT_QUERIES = "pilosa_tenant_queries_total"
+METRIC_TENANT_DEVICE_SECONDS = "pilosa_tenant_device_seconds_total"
+METRIC_TENANT_BYTES_TOUCHED = "pilosa_tenant_bytes_touched_total"
+METRIC_TENANT_BYTES_SKIPPED = "pilosa_tenant_bytes_skipped_total"
+METRIC_TENANT_SHEDS = "pilosa_tenant_sheds_total"
+#   pilosa_cache_recalculate_seconds{path=} / pilosa_cache_entries{cache_type=}:
+#   the TopN rank-cache series the slow-TopN analyzer note reads
+METRIC_CACHE_RECALC = "pilosa_cache_recalculate_seconds"
+METRIC_CACHE_ENTRIES = "pilosa_cache_entries"
+# -- process mode (net/procserver.py) -----------------------------------------
+#   pilosa_process_up{proc=}                1 while the process answers the
+#                                           scrape-time stats probe (engine:
+#                                           always 1; a wedged worker shows 0
+#                                           before the supervisor reaps it)
+#   pilosa_process_rss_bytes{proc=}         resident set size per process
+METRIC_PROCESS_UP = "pilosa_process_up"
+METRIC_PROCESS_RSS = "pilosa_process_rss_bytes"
 SHED_REASONS = ("overload", "tenant_fair", "queue_full")
 SERVER_REQUEST_PATHS = ("inline", "pool", "shed")
 
@@ -609,3 +637,109 @@ class MultiStatsClient(StatsClient):
     def timing(self, name, value_seconds: float, rate: float = 1.0):
         for c in self.clients:
             c.timing(name, value_seconds, rate)
+
+
+def _iter_samples(text: str):
+    """Yield ``(key, value, exemplar_suffix)`` per sample line of a
+    Prometheus exposition.  ``key`` is the exact ``name{labels}`` string
+    as rendered (every process renders through this module's registry,
+    so identical series give identical keys)."""
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        suffix = ""
+        if " # {" in line:
+            head, _, tail = line.rpartition(" # {")
+            line, suffix = head, " # {" + tail
+        key, sep, value = line.rpartition(" ")
+        if not sep:
+            continue
+        try:
+            v = float(value)
+        except ValueError:
+            continue
+        yield key, v, suffix
+
+
+def _exposition_meta(text: str) -> Dict[str, List[str]]:
+    """Metric family -> its # HELP/# TYPE lines, from one exposition."""
+    out: Dict[str, List[str]] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line.startswith("#"):
+            continue
+        parts = line.split(None, 3)
+        if len(parts) >= 3 and parts[1] in ("HELP", "TYPE"):
+            out.setdefault(parts[2], []).append(line)
+    return out
+
+
+def merge_expositions(primary: str, others: Dict[str, str]) -> str:
+    """Sum per-process registry expositions into ONE whole-node exposition
+    (the process-mode /metrics surface; pilosa_tpu/util/stats.py:1008).
+
+    ``primary`` is the device owner's exposition; ``others`` maps a
+    process label to that process's exposition (the worker registries).
+    Samples sharing an exact ``name{labels}`` key are SUMMED (counters,
+    gauges and histogram ``_bucket``/``_sum``/``_count`` lines are all
+    additive across processes, which share DEFAULT_BUCKETS).  Worker-only
+    series are appended with their own HELP/TYPE, emitted once and never
+    for a family the primary declared already (a second HELP/TYPE line
+    for one name fails the whole exposition in Prometheus' parser)."""
+    add: Dict[str, float] = {}
+    extra_order: List[str] = []
+    extra_meta: Dict[str, List[str]] = {}
+    for text in others.values():
+        for key, v, _suffix in _iter_samples(text):
+            if key in add:
+                add[key] += v
+            else:
+                add[key] = v
+                extra_order.append(key)
+        for fam, meta in _exposition_meta(text).items():
+            extra_meta.setdefault(fam, meta)
+    out: List[str] = []
+    for line in primary.splitlines():
+        stripped = line.strip()
+        if not stripped or stripped.startswith("#"):
+            out.append(line)
+            continue
+        suffix = ""
+        sample = stripped
+        if " # {" in sample:
+            head, _, tail = sample.rpartition(" # {")
+            sample, suffix = head, " # {" + tail
+        key, sep, value = sample.rpartition(" ")
+        delta = add.pop(key, None) if sep else None
+        if delta is None:
+            out.append(line)
+            continue
+        try:
+            total = float(value) + delta
+        except ValueError:
+            out.append(line)
+            continue
+        out.append(f"{key} {_prom_float(total)}{suffix}")
+    tail_lines: List[str] = []
+    emitted_meta: set = set(_exposition_meta(primary))
+    for key in extra_order:
+        if key not in add:
+            continue  # summed into a primary line above
+        fam = _prom_name(key.split("{", 1)[0])
+        base = fam
+        for strip in ("_bucket", "_sum", "_count"):
+            if base.endswith(strip):
+                base = base[: -len(strip)]
+        for meta_name in (base, fam):
+            if meta_name in extra_meta and meta_name not in emitted_meta:
+                emitted_meta.add(meta_name)
+                tail_lines.extend(extra_meta[meta_name])
+                break
+        tail_lines.append(f"{key} {_prom_float(add[key])}")
+    if tail_lines:
+        if out and out[-1].strip() == "# EOF":
+            out[-1:-1] = tail_lines
+        else:
+            out.extend(tail_lines)
+    return "\n".join(out) + "\n"

@@ -315,13 +315,52 @@ def test_default_device_is_the_card(monkeypatch):
 def test_what_is_left_out_raises_naming_its_item():
     t = tapi.API(device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 items 8 and 14"):
-        t.fast_counts("i", "Count(Row(f=1))")
+        t.cq
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         t.attach_cluster(None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         t.query(tapi.QueryRequest("i", "Count(Row(f=1))", remote=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        t.query(tapi.QueryRequest("i", "Count(Row(f=1))", profile=True))
+    t.create_index("i").create_field("f")
+    plan = t.query(tapi.QueryRequest("i", "Count(Row(f=1))", profile=True)).plan
+    assert plan["ops"] == [{"op": "Count", "path": "fast_cardinality"}]
     with pytest.raises(AttributeError):
         t.no_such_method
+    t.close()
+
+
+def test_fast_counts_matches_the_reference():
+    """The serving boundary's memo lane: None until every Count of the
+    query sits in the result memo, then the counts and a fresh trace id,
+    the tenant's query count moved; None again after a write.  An API
+    whose executor translates keys never takes the lane, in both."""
+    from pilosa_tpu.core.holder import Holder as JHolder
+    from pilosa_tpu.parallel import MeshEngine, make_mesh
+    from pilosa_tpu.util import plans as jplans
+    from pilosa_tpu_torch.util import plans as tplans
+
+    jh = JHolder()
+    jh.open()
+    j = japi.API(holder=jh, mesh_engine=MeshEngine(jh, make_mesh(1)))
+    t = tapi.API(device="cpu")
+    rows, cols = seeded_bits(11, 4, 3000)
+    q = "Count(Intersect(Row(f=1), Row(f=2))) Count(Union(Row(f=0), Row(f=3)))"
+    out = []
+    for api, mod, plans in ((j, japi, jplans), (t, tapi, tplans)):
+        api.create_index("i").create_field("f").import_bulk(rows.tolist(), cols.tolist())
+        api.query(mod.QueryRequest("i", q))
+        assert api.fast_counts("i", q) is None  # a translating executor
+        api.executor.translator = None
+        plans.LEDGER.reset()
+        first = api.fast_counts("i", q, "acme")
+        # Consecutive Counts run as one batch, which skips the memo (in
+        # both): each Count alone stores its answer.
+        for one in q.split(" Count"):
+            api.query(mod.QueryRequest("i", one if one.startswith("Count") else "Count" + one))
+        vals, tid = api.fast_counts("i", q, "acme")
+        assert isinstance(tid, str) and len(tid) == 16
+        api.query(mod.QueryRequest("i", "Set(3, f=1)"))
+        out.append((first, vals, api.fast_counts("i", q, "acme"),
+                    plans.LEDGER.snapshot()["acme"]["queries"]))
+    assert out[1] == out[0]
+    assert out[1][1] == [int(v) for v in t.query(tapi.QueryRequest("i", q)).results]
     t.close()

@@ -150,8 +150,10 @@ def test_import_is_jax_free():
     every net module) import and serve a keyed query over HTTP, the
     residency modules (``parallel/residency.py``, ``parallel/errors.py``)
     serve a query under a budget below one stack (a miss, the promotion,
-    then the query warm from the pool), and no module of pilosa_tpu is
-    loaded."""
+    then the query warm from the pool), process mode and the query plans
+    (``net.ipc``, ``net.worker``, ``net.procserver``, ``util.plans``,
+    ``util.plan_miner``) import and record a profiled query's plan, and no
+    module of pilosa_tpu is loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -234,6 +236,17 @@ def test_import_is_jax_free():
         "assert er._stacks[('r', 'g', 'standard')].pool\n"
         "assert xr.execute('r', q).results[0] == 4 and er.host_fallbacks == 1\n"
         "er.close()\n"
+        "for name in ('net.ipc', 'net.worker', 'net.procserver', 'util.plans',\n"
+        "             'util.plan_miner'):\n"
+        "    importlib.import_module('pilosa_tpu_torch.' + name)\n"
+        "from pilosa_tpu_torch.net import ipc, procserver, worker\n"
+        "from pilosa_tpu_torch.util import plan_miner, plans\n"
+        "assert procserver.ProcessHTTPServer and worker.EngineLink and ipc.QUERY == 2\n"
+        "a = API(device='cpu'); a.create_index('p').create_field('f').import_bulk([1, 2], [5, 5])\n"
+        "r = a.query(QueryRequest('p', 'Count(Intersect(Row(f=1), Row(f=2)))', profile=True))\n"
+        "assert r.results == [1] and r.plan['ops'][0]['path'] == 'sparse', r.plan\n"
+        "assert plans.STORE.recorded >= 1 and plan_miner.MINER.observed >= 1\n"
+        "a.close()\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"

@@ -168,19 +168,22 @@ def test_default_shards_follow_remote_availability():
 
 
 def test_errors(trio):
-    _, host, port = trio
+    fused, host, port = trio
     with pytest.raises(FieldNotFoundError):
         results(port, "Count(Intersect(Row(nope=1), Row(d=1)))")
     # TopN (Queue 1 item 10), BSI and time Range (item 9), Rows and
-    # GroupBy (item 11) and Options (item 5) are ported; Explain is not yet.
+    # GroupBy (item 11), Options (item 5) and Explain (item 14) are ported.
     assert results(port, "TopN(d, n=2)") == results(host, "TopN(d, n=2)")
     assert results(port, "Rows(field=d)") == results(host, "Rows(field=d)") == [[1, 2, 3, 4]]
     q = "Options(Row(d=1), excludeColumns=true)"
     got, want = results(port, q)[0], results(host, q)[0]
     assert got.columns().size == want.columns().size == 0
     assert got.attrs == want.attrs == {}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-        results(port, "Explain(Count(Row(d=1)))")
+    # Explain plans without dispatching, as the reference's does.
+    for q in ("Explain(Count(Row(d=1)))", "Explain(Count(Xor(Row(d=2), Row(c=3))))"):
+        assert results(port, q) == results(fused, q)
+    with pytest.raises(Exception, match="single query input"):
+        results(port, "Explain(Count(Row(d=1)), Count(Row(d=2)))")
     q = "Count(Range(d=1, 2010-01-01T00:00, 2011-01-01T00:00))"
     assert results(port, q) == results(host, q) == [0]
     got, want = results(port, "Sum(field=d)")[0], results(host, "Sum(field=d)")[0]

@@ -743,8 +743,9 @@ def norm(x):
 
 def test_executor_dashboard_concurrent(twins):
     """The dashboard as separate queries from threads at once, the HTTP
-    arrival shape: the aggregates ride one fused program, and every
-    response equals the JAX host executor's."""
+    arrival shape: the aggregates and the Count (the executor's Count lane
+    goes through the batcher, as the reference's does) ride one fused
+    program, and every response equals the JAX host executor's."""
     jh, th = twins
     eng = TorchEngine(th, device="cpu")
     eng.result_memo.maxsize = 0
@@ -754,11 +755,11 @@ def test_executor_dashboard_concurrent(twins):
     b, release = _held(eng)
     threads, out = _run([(k, lambda q=q: ex.execute("i", q).results)
                          for k, q in enumerate(DASH_QUERIES)])
-    release(len(DASH_QUERIES) - 1)  # the Count runs on the engine directly
+    release(len(DASH_QUERIES))
     _join(threads)
     for k, q in enumerate(DASH_QUERIES):
         assert norm(out[k]) == want[k], q
-    assert eng.fused_programs == 1 and eng.fused_program_queries == len(DASH_QUERIES) - 1
+    assert eng.fused_programs == 1 and eng.fused_program_queries == len(DASH_QUERIES)
     assert ex.host_fallbacks == 0
     eng.close()
 

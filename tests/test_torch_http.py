@@ -17,6 +17,10 @@
   with the same status, content type and body.  The only difference
   allowed is the value of ``traceID``, which both must carry.
 - Concurrent Counts through the port's reactor come back exact.
+- ``?profile=1``, ``GET /debug/plans`` and ``GET /debug/sequences``
+  answer as the reference's node over a ``MeshEngine`` does, once the
+  plans' timings (and the reference's heat-recorder ``touches``) are set
+  aside (``tests/test_torch_plans.py`` holds the plans field by field).
 - Every route this port leaves out answers 501 naming its ROADMAP.md item.
 
 Ids, counts, keys and bytes are discrete: exact agreement (tolerance 0)."""
@@ -414,16 +418,18 @@ def test_unported_routes_answer_501(method, pattern, item):
 
 
 def test_unported_options_answer_501():
-    """A query plan (?profile=1), a remote replay, a remote import and the
-    OpenMetrics exposition answer 501 naming their items."""
+    """A remote replay, a remote import and the OpenMetrics exposition
+    answer 501 naming their items; a query plan (?profile=1) answers 200
+    with its plan (its differential is ``test_profile_answers_as_the_reference``)."""
     a = tapi.API(device="cpu")
     a.create_index("i")
     a.create_field("i", "f")
     srv, _ = tserve(a, "localhost", 0)
     port = srv.server_address[1]
     try:
+        status, _, out = send(port, "POST", "/index/i/query?profile=1", b"Count(Row(f=1))")
+        assert status == 200 and json.loads(out)["plan"]["ops"][0]["path"] == "fast_cardinality"
         for path, body, headers, item in [
-            ("/index/i/query?profile=1", b"Count(Row(f=1))", {}, "item 14"),
             ("/index/i/query?remote=true", b"Count(Row(f=1))", {}, "item 15"),
             ("/index/i/field/f/import?remote=true", b'{"rowIDs": [1], "columnIDs": [1]}',
              {}, "item 15"),
@@ -439,6 +445,107 @@ def test_unported_options_answer_501():
     finally:
         srv.shutdown()
         a.close()
+
+
+def _engine_nodes(backend="async"):
+    """The reference node over a MeshEngine on one mesh device (its plans
+    name the engine's paths) and the port's, with the same seeded index."""
+    from pilosa_tpu.core.holder import Holder as JHolder
+    from pilosa_tpu.parallel import MeshEngine, make_mesh
+
+    jh = JHolder()
+    jh.open()
+    ja = japi.API(holder=jh, mesh_engine=MeshEngine(jh, make_mesh(1)))
+    ta = tapi.API(device="cpu")
+    rng = np.random.default_rng(3)
+    cols = rng.choice(3 * SW, 30000, replace=False)
+    rows = rng.integers(0, 4, len(cols))
+    for a in (ja, ta):
+        a.create_index("i").create_field("f").import_bulk(rows.tolist(), cols.tolist())
+    js, _ = jserve(ja, "localhost", 0, backend=backend)
+    ts, _ = tserve(ta, "localhost", 0, backend=backend)
+    return (ja, ta), (js, ts)
+
+
+def _close_nodes(apis, servers):
+    for srv in servers:
+        srv.shutdown()
+        srv.server_close()
+    apis[1].close()
+
+
+# Timings, and what is derived from them: the slow-plan retention ("slow",
+# plans past 100 ms) and the queue-wait note; the reference's "touches".
+_TIMING = ("startTime", "durationMs", "deviceSeconds", "stagesMs", "traceID", "seconds",
+           "touches", "avgGapMs", "slow")
+
+
+def _untimed(doc):
+    if isinstance(doc, dict):
+        return {k: _untimed(v) for k, v in doc.items() if k not in _TIMING}
+    if isinstance(doc, list):
+        return [_untimed(v) for v in doc
+                if not (isinstance(v, str) and v.startswith("queue wait dominated"))]
+    return doc
+
+
+@pytest.mark.parametrize("backend", ["async", "threaded"])
+def test_profile_answers_as_the_reference(backend):
+    """POST ?profile=1 (and a JSON body's "profile") answers with the
+    reference's status, results and plan, timings aside."""
+    from pilosa_tpu.util import plans as jplans
+    from pilosa_tpu_torch.util import plans as tplans
+
+    apis, servers = _engine_nodes(backend)
+    ports = [s.server_address[1] for s in servers]
+    try:
+        for mod in (jplans, tplans):
+            mod.STORE.reset()
+        for path, body, headers in (
+                ("/index/i/query?profile=1", b"Count(Intersect(Row(f=1), Row(f=2)))", {}),
+                ("/index/i/query?profile=true", b"Count(Union(Row(f=0), Row(f=3)))",
+                 {"X-Pilosa-Tenant": "acme"}),
+                ("/index/i/query", json.dumps({"query": "Count(Row(f=2)) TopN(f, n=2)",
+                                               "profile": True}).encode(), {}),
+                ("/index/i/query?profile=1", b"Count(Intersect(Row(f=1), Row(f=2)))", {})):
+            got = [send(p, "POST", path, body, headers) for p in ports]
+            assert got[0][:2] == got[1][:2] == (200, "application/json")
+            docs = [json.loads(g[2]) for g in got]
+            assert all(d["plan"]["traceID"] == d["traceID"] for d in docs)
+            assert _untimed(docs[1]) == _untimed(docs[0])
+        assert docs[1]["plan"]["ops"] == [{"op": "Count", "path": "memo", "memo": "hit"}]
+    finally:
+        _close_nodes(apis, servers)
+
+
+@pytest.mark.parametrize("route", ["/debug/plans", "/debug/sequences"])
+def test_plan_routes_answer_as_the_reference(route):
+    """The two routes the query plans serve answer as the reference's."""
+    from pilosa_tpu.util import plan_miner as jminer
+    from pilosa_tpu.util import plans as jplans
+    from pilosa_tpu_torch.util import plan_miner as tminer
+    from pilosa_tpu_torch.util import plans as tplans
+
+    apis, servers = _engine_nodes()
+    ports = [s.server_address[1] for s in servers]
+    try:
+        for mod in (jplans, tplans):
+            mod.STORE.reset()
+        for mod in (jminer, tminer):
+            mod.MINER.reset()
+        for port in ports:
+            for body in (b"Count(Intersect(Row(f=1), Row(f=2)))", b"Count(Row(f=1))",
+                         b"Count(Union(Row(f=0), Row(f=3)))",
+                         b"Count(Intersect(Row(f=1), Row(f=2)))"):
+                assert send(port, "POST", "/index/i/query", body)[0] == 200
+        for query in ("", "?limit=2", "?op=Count", "?top=1"):
+            got = [send(p, "GET", route + query) for p in ports]
+            assert got[0][:2] == got[1][:2] == (200, "application/json")
+            docs = [_untimed(json.loads(g[2])) for g in got]
+            assert docs[1] == docs[0], (route, query)
+        assert docs[1] != {}
+    finally:
+        _close_nodes(apis, servers)
 
 
 @pytest.mark.parametrize("name,item", sorted(tapi._UNPORTED.items()))

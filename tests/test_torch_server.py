@@ -16,6 +16,8 @@ JAX package's (pilosa_tpu.server, .config).
   engine.
 - ``[engine] device-budget-bytes`` reaches the engine as its device budget
   and shows on /debug/vars and /readyz.
+- ``[server] workers = 2`` serves in process mode, with the reference's
+  Server's answers on the same data.
 
 Answers are ids and counts: exact agreement (tolerance 0)."""
 
@@ -215,6 +217,30 @@ def test_server_serves_and_restarts(tmp_path):
         srv.close()
     assert first[0] == [1] and first[1][0]["columns"] == [1, 2, 1048577]
     assert first[1][0]["attrs"] == {"color": "red"}
+
+
+def test_server_workers_serves_in_process_mode(tmp_path):
+    """``[server] workers = 2``: two worker processes beside the device
+    owner's own reactor, /readyz 200 once both say HELLO, and the answers
+    of the reference's Server on the same data."""
+    path = tmp_path / "data"
+    srv = _open(JServer, _cfg(JConfig, path))
+    try:
+        c = _client(srv)
+        _fill(c)
+        want = _answers(c)
+    finally:
+        srv.close()
+    srv = _open(TServer, _cfg(TConfig, path, server_workers=2))
+    try:
+        http = srv._http
+        assert http.wait_ready(60) and len(http.worker_pids()) == 2
+        c = _client(srv)
+        assert c.readiness()["ready"] is True
+        assert _answers(c) == want
+        assert b'pilosa_process_up{proc="worker-1"} 1' in c._get("/metrics", raw=True)
+    finally:
+        srv.close()
 
 
 @pytest.mark.parametrize("writer,reader", [(JServer, TServer), (TServer, JServer)])
