@@ -233,7 +233,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    word), K5P and F1P through theirs with the engine's arguments
    (pool_batch_and_drain: exact, their times beside K5's and F1's
    whole-row walks over the same arguments), and the engine's default
-   budget.
+   budget.  Its holder stays open for the observe phase.
+   observe — after residency, before phase 5: bench.py's promote-ahead
+   A/B at equal budget (bench.py:2333-2392) on rsw (wf1 and wf3
+   alternating, a residency flush as the gap, 12 cycles, 2 learning; the
+   budget 1.5 × one 64-slot pool of 960 shards), advisor off and on:
+   residency_advisor_ab_speedup, each arm's p50, host fallbacks,
+   promotions by cause and K1P launches, every answer against numpy and
+   advisor promotions in the on-arm; bench.py's advisor sweep
+   (bench.py:3225-3331): prefetch_advisor_hit_rate (at least 0.7),
+   heat_observe_us, heat_overhead_pct; bench.py's history section
+   (bench.py:3380-3460, a synthetic clock): history_tick_us,
+   history_sampler_overhead_pct, history_query_p50_ms, and the PQL Sum
+   over _system through Executor.execute, equal to the sampler's points,
+   on K6 with no host fallback; then python -m pilosa_tpu_torch server
+   with two workers, history, an SLO and statsd: the heat recipe (rows
+   0/1/8/9 ranked, a residency gap seen, the advice, the gauges and
+   counters, the gap in the history), a serve-side error rule until
+   slo.burn (/readyz degraded, a flight-recorder bundle persisted), the
+   rule healed until slo.clear, the OpenMetrics exemplars and # EOF, and
+   the statsd datagrams.  Every kernel count (KERNEL_COUNTERS) is set to
+   0 before the phase and read after it (observe_launches: this process's
+   launches; the node's own launches are in its device owner's process and
+   not counted); K1P and K6 must have launched.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -289,9 +311,9 @@ way.  Run the trees in turns: parent, change, change, parent.
 short calls in turns: the lone dense and sparse Count p50s and ab_http's
 loops (640 connections x 16 c2 Counts, 640 x 8 mixed queries), one
 round per entry of ORDER (on or off: the query-plan layer, where DIR has
-one; on-frozen or off-frozen: the http round under gc.freeze), each
-round with the serving threads' CPU and the cyclic GC's microseconds per
-query.
+one; -noheat after it: the heat feed off; -frozen: the http round under
+gc.freeze), each round with the serving threads' CPU and the cyclic GC's
+microseconds per query.
 
 --sass DIR builds every kernel library of this checkout and of DIR (one
 nvcc each, into build/sass/) and prints one JSON line: per library, how
@@ -1904,8 +1926,7 @@ def run_main_path(device, n_shards, seed):
         log(f"main path: stack {field} {tuple(st.matrix.shape)} "
             f"({st.matrix.numel() * 4 / 1e9:.3f} GB) built and uploaded in "
             f"{time.perf_counter() - t0:.3f} s")
-    kernels.count_tree_dense.launches = 0
-    sparse.count_tree_blocks_cuda.launches = 0
+    zero_counts(("count_tree_dense", "count_tree_blocks"))
     paths = {}
     for field, op, rows in main_path_queries():
         q = pql_of(field, op, rows)
@@ -2076,16 +2097,13 @@ def run_topn_main_path(device, holder, engine, ex, host):
     t0 = time.perf_counter()
     queries, o = topn_main_path_queries(host)
     log(f"main path: TopN numpy oracle in {time.perf_counter() - t0:.3f} s")
-    kernels.score_rows_cuda.launches = 0
-    kernels.score_rows_cuda.trims = 0
-    kernels.and_popcount_rows_cuda.launches = 0
+    zero_counts(("score_rows", "topn_trim", "and_popcount_rows"))
     for q, want in queries:
         got = [tuple(p) for p in ex.execute("bench", q).results[0]]
         if got != want:
             raise AssertionError(f"{q}: port {got} != numpy oracle {want}")
         log(f"main path: {q} -> {got}")
-    launches = {"score_rows": kernels.score_rows_cuda.launches,
-                "topn_trim": kernels.score_rows_cuda.trims}
+    launches = read_counts(("score_rows", "topn_trim"))
     log(f"main path: {len(queries)} TopN queries exact against numpy; launches {launches}")
     if kernels.and_popcount_rows_cuda.launches:
         raise AssertionError("the engine's TopN lanes launched P2")
@@ -2094,7 +2112,7 @@ def run_topn_main_path(device, holder, engine, ex, host):
     # candidates with P2 (both phases of the reference's TopN).
     q = "TopN(top, Row(f=10), n=5)"
     want = o.two_phase(host["f"][10], 5)
-    kernels.and_popcount_rows_cuda.launches = 0
+    zero_counts(("and_popcount_rows",))
     t0 = time.perf_counter()
     got = [tuple(p) for p in Executor(holder).execute("bench", q).results[0]]
     wall = time.perf_counter() - t0
@@ -2210,9 +2228,7 @@ def run_wide_topn(device, holder, engine, ex, seed, n_shards=WIDE_SHARDS):
     queries = wide_queries(src, base)
     oracle_s = time.perf_counter() - t0
     fallbacks = ex.host_fallbacks
-    kernels.score_rows_cuda.launches = 0
-    kernels.score_rows_cuda.trims = 0
-    kernels.and_popcount_rows_cuda.launches = 0
+    zero_counts(("score_rows", "topn_trim", "and_popcount_rows"))
     lat = []
     for q, want in queries:
         t0 = time.perf_counter()
@@ -2222,8 +2238,7 @@ def run_wide_topn(device, holder, engine, ex, seed, n_shards=WIDE_SHARDS):
             raise AssertionError(f"{q}: port {got[:8]}... != numpy oracle {want[:8]}... "
                                  f"({len(got)} and {len(want)} pairs)")
         log(f"main path: wide: {q} -> {len(got)} pairs, first {got[:3]}, exact")
-    launches = {"score_rows": kernels.score_rows_cuda.launches,
-                "topn_trim": kernels.score_rows_cuda.trims}
+    launches = read_counts(("score_rows", "topn_trim"))
     p2 = kernels.and_popcount_rows_cuda.launches
     log(f"main path: wide: {len(queries)} TopN queries exact against numpy (oracle "
         f"{oracle_s:.3f} s); launches {launches}, P2 launches {p2}, host fallbacks "
@@ -2815,20 +2830,66 @@ def _stream(ex, queries, want, threads, per_thread, seed):
     return wall, lat
 
 
-def _launch_counts():
-    from pilosa_tpu_torch.parallel import kernels, sparse
+# Every kernel wrapper's launch count by its name in the kernels line:
+# (module of pilosa_tpu_torch.parallel, wrapper, counter).  Each wrapper adds
+# one where it launches its kernel; every phase zeroes and reads its
+# launches through this one table.
+KERNEL_COUNTERS = {
+    "count_tree_dense": ("kernels", "count_tree_dense", "launches"),
+    "count_tree_blocks": ("sparse", "count_tree_blocks_cuda", "launches"),
+    "count_tree_pool": ("kernels", "count_tree_pool", "launches"),
+    "score_rows": ("kernels", "score_rows_cuda", "launches"),
+    "topn_trim": ("kernels", "score_rows_cuda", "trims"),
+    "score_rows_pool": ("kernels", "score_rows_pool_cuda", "launches"),
+    "and_popcount_rows": ("kernels", "and_popcount_rows_cuda", "launches"),
+    "count_batch_tree": ("kernels", "count_batch_tree_cuda", "launches"),
+    "count_batch_tree_pool": ("kernels", "count_batch_tree_pool_cuda", "launches"),
+    "sum_tree": ("bsi", "sum_tree_cuda", "launches"),
+    "sum_tree_pool": ("bsi", "sum_tree_pool_cuda", "launches"),
+    "minmax_tree": ("bsi", "minmax_tree_cuda", "launches"),
+    "minmax_tree_pool": ("bsi", "minmax_tree_pool_cuda", "launches"),
+    "groupn_tree": ("groupby", "groupn_tree_cuda", "launches"),
+    "groupn_tree_pool": ("groupby", "groupn_tree_pool_cuda", "launches"),
+    "fused_tree": ("kernels", "fused_tree_cuda", "launches"),
+    "fused_tree_pool": ("kernels", "fused_tree_pool_cuda", "launches"),
+    "range_leaf": ("kernels", "range_leaf", "launches"),
+    "rowb": ("kernels", "pool_leaf", "launches"),
+}
+COUNT_KERNELS = ("count_tree_dense", "count_tree_blocks", "count_batch_tree")
+BSI_KERNELS = ("range_leaf", "sum_tree", "minmax_tree") + COUNT_KERNELS
+HTTP_KERNELS = BSI_KERNELS + ("score_rows", "groupn_tree", "fused_tree")
+POOL_KERNELS = ("rowb", "count_tree_pool", "score_rows_pool", "sum_tree_pool",
+                "minmax_tree_pool", "groupn_tree_pool", "count_batch_tree_pool",
+                "fused_tree_pool")
 
-    return {"count_tree_dense": kernels.count_tree_dense.launches,
-            "count_tree_blocks": sparse.count_tree_blocks_cuda.launches,
-            "count_batch_tree": kernels.count_batch_tree_cuda.launches}
+
+def _counters(names):
+    """(name, wrapper, counter) of ``names`` (None: every kernel), skipping
+    a wrapper that a --root checkout does not have."""
+    import importlib
+
+    for name in KERNEL_COUNTERS if names is None else names:
+        mod, fn, attr = KERNEL_COUNTERS[name]
+        obj = getattr(importlib.import_module(f"pilosa_tpu_torch.parallel.{mod}"), fn, None)
+        if obj is not None and hasattr(obj, attr):
+            yield name, obj, attr
+
+
+def zero_counts(names=None):
+    for _, obj, attr in _counters(names):
+        setattr(obj, attr, 0)
+
+
+def read_counts(names=None):
+    return {name: getattr(obj, attr) for name, obj, attr in _counters(names)}
+
+
+def _launch_counts():
+    return read_counts(COUNT_KERNELS)
 
 
 def _zero_launches():
-    from pilosa_tpu_torch.parallel import kernels, sparse
-
-    kernels.count_tree_dense.launches = 0
-    sparse.count_tree_blocks_cuda.launches = 0
-    kernels.count_batch_tree_cuda.launches = 0
+    zero_counts(COUNT_KERNELS)
 
 
 def eight_counts(field):
@@ -3163,21 +3224,12 @@ def bsi_range_queries(n_shards):
 
 
 def _bsi_counters():
-    """_launch_counts, and the range leaf's, K6's and K7's (kept apart:
-    --root's checkouts from before the BSI slice have none)."""
-    from pilosa_tpu_torch.parallel import bsi, kernels
-
-    return {"range_leaf": kernels.range_leaf.launches, "sum_tree": bsi.sum_tree_cuda.launches,
-            "minmax_tree": bsi.minmax_tree_cuda.launches, **_launch_counts()}
+    """_launch_counts, and the range leaf's, K6's and K7's."""
+    return read_counts(BSI_KERNELS)
 
 
 def _zero_bsi_counters():
-    from pilosa_tpu_torch.parallel import bsi, kernels
-
-    _zero_launches()
-    kernels.range_leaf.launches = 0
-    bsi.sum_tree_cuda.launches = 0
-    bsi.minmax_tree_cuda.launches = 0
+    zero_counts(BSI_KERNELS)
 
 
 def _vc(res):
@@ -3613,7 +3665,7 @@ def run_groupby_path(device, holder, engine, ex, host, seed, err):
         engine.stack_rebuilds
     with memo_off(engine):
         for fused in (True, False):
-            groupby.groupn_tree_cuda.launches = 0
+            zero_counts(("groupn_tree",))
             d0 = engine.group_dispatches
             n_q = 0
             for q, shards, args, lane in group_queries(n_shards):
@@ -3846,9 +3898,7 @@ def run_api_path(device, holder, engine, ex, host, seed, n_keys=USER_KEYS):
     out["fk_fill_s"] = time.perf_counter() - t0
     log(f"api: field fk ({FK_ROWS} keyed rows x {n_shards} shards) filled in "
         f"{out['fk_fill_s']:.3f} s")
-    _zero_launches()
-    kernels.score_rows_cuda.launches = 0
-    kernels.and_popcount_rows_cuda.launches = 0
+    zero_counts(COUNT_KERNELS + ("score_rows", "and_popcount_rows"))
     fallbacks0 = api.executor.host_fallbacks
     timed = {}  # query with keys -> the same query with ids, for the p50s
 
@@ -3995,9 +4045,7 @@ def run_api_path(device, holder, engine, ex, host, seed, n_keys=USER_KEYS):
                   f"Count(Intersect(Row(seg={seg_id['seg1']}), Row(seg={seg_id['seg2']})))"}
         for text, by_id in uq.items():
             times[text] = _api_p50s(text, by_id, api, ex, "users")
-    launches = _launch_counts()
-    launches["score_rows"] = kernels.score_rows_cuda.launches
-    launches["and_popcount_rows"] = kernels.and_popcount_rows_cuda.launches
+    launches = read_counts(COUNT_KERNELS + ("score_rows", "and_popcount_rows"))
     out["launches"] = launches
     out["p50"] = times
     for text, t in times.items():
@@ -4218,7 +4266,7 @@ def run_fusion_path(device, holder, engine, ex, seed, err, n_shards=N_SHARDS):
 
     import torch
 
-    from pilosa_tpu_torch.parallel import bsi, groupby, kernels
+    from pilosa_tpu_torch.parallel import kernels
 
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -4240,20 +4288,17 @@ def run_fusion_path(device, holder, engine, ex, seed, err, n_shards=N_SHARDS):
     log(f"fusion: indexes dash and dash2 ({n_shards} shards, "
         f"{(12 + 8 + 8 + 8) * n_shards * W64 * 8 / 1e9:.2f} GB of stacks) made in "
         f"{out['made_s']:.3f} s; numpy oracle {out['oracle_s']:.3f} s")
-    counters = (kernels.fused_tree_cuda, bsi.sum_tree_cuda, bsi.minmax_tree_cuda,
-                kernels.score_rows_cuda, groupby.groupn_tree_cuda, kernels.count_tree_dense)
     names = ("fused_tree", "sum_tree", "minmax_tree", "score_rows", "groupn_tree",
              "count_tree_dense")
 
     def launches():
-        return {k: c.launches for k, c in zip(names, counters)}
+        return read_counts(names)
 
     seq_lat = {}
     with memo_off(engine):
         # The main path: every drain once with F1's counter zeroed just
         # before; then the p50s (bench.py's sync_p50 reps).
-        for c in counters:
-            c.launches = 0
+        zero_counts(names)
         p0 = engine.fused_programs
         per_drain = {}
         for n in DASH_WIDGETS:
@@ -4992,7 +5037,7 @@ def drain_plain(got):
             tuple(g) if isinstance(g, tuple) else g for g in got]
 
 
-def run_residency_path(device, seed, n_shards=N_SHARDS):
+def run_residency_path(device, seed, n_shards=N_SHARDS, keep=None):
     """Tiered residency on the card (docs/residency.md; bench.py
     --residency-sweep at 960 shards): the index is 4x the device budget, so
     no field stack fits it.  Checks, each against numpy: a cold dashboard
@@ -5011,7 +5056,9 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     K7P, K8P and the whole drain.  Runs on its own holder and engines, freed
     at the end.  Returns the phase's numbers, its launches over pools, the
     rowb entry's K1 times, K1P's launches and times, and K3P's, K6P's,
-    K7P's, K8P's, K5P's and F1P's launches and times."""
+    K7P's, K8P's, K5P's and F1P's launches and times.  With ``keep`` (a
+    dict) the holder stays open for the observe phase, which reuses it:
+    ``keep`` gets the holder and the fields' words."""
     import gc
 
     import torch
@@ -5102,16 +5149,8 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
     eng = TorchEngine(holder, device=device, max_resident_bytes=budget)
     eng.result_memo.maxsize = 0
     ex = Executor(holder, engine=eng)
-    kernels.pool_leaf.launches = 0
+    zero_counts(POOL_KERNELS + COUNT_KERNELS)
     kernels.pool_leaf.by_kernel.clear()
-    kernels.count_tree_pool.launches = 0
-    kernels.score_rows_pool_cuda.launches = 0
-    bsi.sum_tree_pool_cuda.launches = 0
-    bsi.minmax_tree_pool_cuda.launches = 0
-    groupby.groupn_tree_pool_cuda.launches = 0
-    kernels.count_batch_tree_pool_cuda.launches = 0
-    kernels.fused_tree_pool_cuda.launches = 0
-    _zero_launches()
     # 1. Cold: the host lane answers, each stack misses and requests a
     # promotion of the query's rows.
     t = time.perf_counter()
@@ -5437,7 +5476,10 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
                                  f"{kernels.pool_leaf.by_kernel}")
     eng.close()
     del eng, ex
-    holder.close()
+    if keep is not None:
+        keep.update(holder=holder, words=words)
+    else:
+        holder.close()
     del holder, words
     gc.collect()
     if card:
@@ -5458,6 +5500,604 @@ def run_residency_path(device, seed, n_shards=N_SHARDS):
         f"{out['pool_eight_counts_e2e_p50_ms']:.4f}; engine_default_budget "
         f"{out['engine_default_budget']}; {out['card']}")
     return out, launches, rowb_times, (k1p_launches,) + k1p_times, aggs
+
+
+# -- the observe phase: working-set heat, promote-ahead and the node's ---------
+# self-observation (bench.py:2333-2392, 3225-3331, 3380-3460)
+
+OBS_AB_CYCLES, OBS_AB_LEARN = 12, 2  # bench.py AB_CYCLES, AB_LEARN
+ADV_SHARDS = 4  # bench.py ADV_SHARDS
+ADV_WARM_PAIRS, ADV_SCORE_PAIRS = 12, 64  # bench.py ADV_WARM_PAIRS, ADV_SCORE_PAIRS
+ADV_P50_REPS = 48  # bench.py ADV_P50_REPS
+ADV_REPLAY_N, ADV_REPLAY_LOOPS = 4000, 8  # bench.py ADV_REPLAY_N, ADV_REPLAY_LOOPS
+HIST_P50_REPS = 48  # bench.py HIST_P50_REPS
+HIST_TICK_N, HIST_TICK_LOOPS = 240, 8  # bench.py HIST_TICK_N, HIST_TICK_LOOPS
+HIST_SEED_TICKS, HIST_READ_REPS = 120, 32  # bench.py HIST_SEED_TICKS, HIST_READ_REPS
+OBS_SLO_WINDOW_S = 6.0  # the node's [observability] slo-window
+
+
+def _reset_observers():
+    from pilosa_tpu_torch.parallel.advisor import ADVISOR
+    from pilosa_tpu_torch.util import plan_miner
+    from pilosa_tpu_torch.util.heat import HEAT
+
+    HEAT.reset()
+    plan_miner.MINER.reset()
+    ADVISOR.reset()
+    ADVISOR.drive_promotions = True
+
+
+def _promotions_by_cause(journal):
+    by = {}
+    for e in journal.events(type="engine.promotion"):
+        c = e.fields.get("cause")
+        by[c] = by.get(c, 0) + 1
+    return by
+
+
+def _pool_tier(holder, index, field, rows):
+    """The slots of the block pool the engine promotes for ``rows`` of a
+    field's standard view: one slot per block occupied in any shard, times
+    two, to a power of two (engine.py's ``P_cap``)."""
+    frags = holder.index(index).field(field).view("standard").fragments.values()
+    n = 0
+    for r in rows:
+        u = 0
+        for f in frags:
+            if f.row_count(r):
+                u |= int(f.row_occupancy(r))
+        n += u.bit_count()
+    return 1 << max(3, (2 * n + 1).bit_length())
+
+
+def advisor_ab(device, holder, words):
+    """bench.py's promote-ahead A/B at equal budget (bench.py:2333-2392) on
+    the residency phase's rsw index: two single-query dashboards over
+    disjoint stacks (wf1 and wf3) alternate, with a residency flush as the
+    gap, under a budget that holds one 64-slot pool of the 960 shards but
+    not two.  Advisor off pays a host fallback and a demand promotion every
+    swing; advisor on promotes the next stack during the gap, so a warm
+    arrival runs K1P over its pool rows.  Every answer is checked against
+    numpy; the learning cycles are left out of the p50."""
+    from pilosa_tpu_torch.api import API, QueryRequest
+    from pilosa_tpu_torch.parallel import kernels
+    from pilosa_tpu_torch.parallel.advisor import ADVISOR
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+    from pilosa_tpu_torch.util.events import EventJournal
+
+    card = device.type == "cuda"
+    S = len(holder.index("rsw").field("wf0").view("standard").fragments)
+    nw = RSW_BLOCKS * 256
+    pool64_bytes = 64 * S * 512 * 4  # one 64-slot pool: 2 KiB a slot and shard
+    budget = (3 * pool64_bytes) // 2
+    reqs = []
+    # bench.py alternates wf0 and wf2; the residency phase's write checks
+    # grew rows 0 and 1 of wf0 past 8 occupied blocks in shard 0, so their
+    # pool would take a 128-slot tier this budget cannot hold.  wf1 and wf3
+    # are untouched and of the same shape.
+    for fi in (1, 3):
+        ra, rb = 2 * fi, 2 * fi + 1
+        # The budget holds one 64-slot pool and not two: a stack whose pool
+        # takes another tier would change what the A/B measures.
+        tier = _pool_tier(holder, "rsw", f"wf{fi}", (ra, rb))
+        if tier != 64:
+            raise AssertionError(f"observe: A/B rows {ra}, {rb} of wf{fi} take a {tier}-slot "
+                                 f"pool, not the 64-slot tier the budget is sized for")
+        w = words[f"wf{fi}"]
+        reqs.append((QueryRequest("rsw", f"Count(Intersect(Row(wf{fi}={ra}), Row(wf{fi}={rb})))"),
+                     int(and_popcounts(w[ra][:, :nw], w[rb][:, :nw]).sum())))
+    out = {"pool64_bytes": pool64_bytes, "budget_bytes": budget, "cycles": OBS_AB_CYCLES,
+           "learn": OBS_AB_LEARN}
+
+    def arm(drive):
+        _reset_observers()
+        ADVISOR.drive_promotions = drive
+        journal = EventJournal()
+        eng = TorchEngine(holder, device=device, max_resident_bytes=budget, journal=journal)
+        eng.result_memo.maxsize = 0
+        api = API(holder=holder, engine=eng)
+        k1p0 = kernels.count_tree_pool.launches
+        times = []
+        try:
+            for cyc in range(OBS_AB_CYCLES):
+                for req, want in reqs:
+                    t0 = time.perf_counter()
+                    got = int(api.query(req).results[0])
+                    dt = time.perf_counter() - t0
+                    if got != want:
+                        raise AssertionError(f"observe: A/B {req.query} = {got}, numpy {want}")
+                    # The gap: the promotion the miss queued, or the one the
+                    # advisor drove, lands inside it.
+                    assert eng.residency.flush(120.0)
+                    gc.collect()
+                    if cyc >= OBS_AB_LEARN:
+                        times.append(dt)
+            doc = ADVISOR.to_doc()
+            res = {"p50_ms": statistics.median(times) * 1e3,
+                   "host_fallbacks": eng.host_fallbacks,
+                   "promotions_by_cause": _promotions_by_cause(journal),
+                   "k1p_launches": kernels.count_tree_pool.launches - k1p0,
+                   "driven_requests": doc["drivenRequests"],
+                   "hit_rate": doc["hitRate"],
+                   "residency": eng.residency.snapshot(),
+                   "last_promote_error": eng.last_promote_error}
+        finally:
+            ADVISOR.drive_promotions = True
+            eng.close()
+            del api, eng
+            gc.collect()
+        return res
+
+    out["off"] = arm(False)
+    out["on"] = arm(True)
+    out["residency_advisor_ab_speedup"] = out["off"]["p50_ms"] / max(out["on"]["p50_ms"], 1e-9)
+    on = out["on"]
+    if on["promotions_by_cause"].get("advisor", 0) <= 0 or on["driven_requests"] <= 0:
+        raise AssertionError(f"observe: the advisor-on arm drove no promotion: {on}")
+    if out["off"]["promotions_by_cause"].get("advisor", 0):
+        raise AssertionError(f"observe: the advisor-off arm promoted ahead: {out['off']}")
+    if card and on["k1p_launches"] <= 0:
+        raise AssertionError(f"observe: K1P never launched in the advisor-on arm: {on}")
+    log(f"observe: residency_advisor_ab_speedup {out['residency_advisor_ab_speedup']:.4f} "
+        f"(off p50 {out['off']['p50_ms']:.4f} ms, {out['off']['host_fallbacks']} host "
+        f"fallbacks, promotions {out['off']['promotions_by_cause']}, K1P "
+        f"{out['off']['k1p_launches']}; on p50 {out['on']['p50_ms']:.4f} ms, "
+        f"{on['host_fallbacks']} host fallbacks, promotions {on['promotions_by_cause']}, K1P "
+        f"{on['k1p_launches']}, driven {on['driven_requests']}) at a budget of "
+        f"{budget / 1e6:.1f} MB over {S} shards")
+    return out
+
+
+def advisor_sweep(device, seed):
+    """bench.py --advisor-sweep (bench.py:3225-3331) on the card: two
+    Counts over disjoint rows (0/1 and 8/9 of index adv, 4 shards of random
+    words) alternate through the API with the memo off; after the learning
+    pairs, the graded pairs give prefetch_advisor_hit_rate (the
+    reference's floor 0.7), and the replay estimator gives heat_observe_us
+    (HEAT.observe_plan on a real query's recorded plan, best loop mean)
+    over the real query's p50: heat_overhead_pct (target < 2%, printed)."""
+    from pilosa_tpu_torch.api import API, QueryRequest
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.parallel.advisor import ADVISOR
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+    from pilosa_tpu_torch.util import plans
+    from pilosa_tpu_torch.util.heat import HEAT
+
+    rng = np.random.default_rng(19)
+    holder = Holder(device=device)
+    holder.open()
+    view = holder.create_index("adv").create_field("f").view_if_not_exists("standard")
+    rows = {}
+    for s in range(ADV_SHARDS):
+        frag = view.fragment_if_not_exists(s)
+        for r in (0, 1, 8, 9):
+            w = rng.integers(0, 1 << 63, 16384, dtype=np.uint64) | (
+                rng.integers(0, 1 << 63, 16384, dtype=np.uint64) << np.uint64(1))
+            rows.setdefault(r, []).append(w.copy())
+            frag.load_row_words(r, w)
+    for frag in view.fragments.values():
+        frag.cache.invalidate()
+    eng = TorchEngine(holder, device=device)
+    eng.result_memo.maxsize = 0
+    api = API(holder=holder, engine=eng)
+    _reset_observers()
+    req_a = QueryRequest("adv", "Count(Intersect(Row(f=0), Row(f=1)))")
+    req_b = QueryRequest("adv", "Count(Intersect(Row(f=8), Row(f=9)))")
+    want_a = int(and_popcounts(np.stack(rows[0]), np.stack(rows[1])).sum())
+    want_b = int(and_popcounts(np.stack(rows[8]), np.stack(rows[9])).sum())
+
+    def pair():
+        if int(api.query(req_a).results[0]) != want_a or int(
+                api.query(req_b).results[0]) != want_b:
+            raise AssertionError("observe: an advisor-sweep Count disagrees with numpy")
+
+    for _ in range(ADV_WARM_PAIRS + 1):
+        pair()
+    h0, m0 = ADVISOR.hits, ADVISOR.misses
+    for _ in range(ADV_SCORE_PAIRS):
+        pair()
+    hits, misses = ADVISOR.hits - h0, ADVISOR.misses - m0
+    if hits + misses <= 0:
+        raise AssertionError("observe: the advisor graded nothing")
+    out = {"prefetch_advisor_hit_rate": hits / (hits + misses), "hits": hits, "misses": misses}
+    times = []
+    resp = None
+    for _ in range(ADV_P50_REPS):
+        t0 = time.perf_counter()
+        resp = api.query(req_a)
+        times.append(time.perf_counter() - t0)
+    p50 = statistics.median(times)
+    real = plans.STORE.find(resp.trace_id)
+    if real is None:
+        raise AssertionError("observe: the query's plan was not recorded")
+    loop_n = max(1, ADV_REPLAY_N // ADV_REPLAY_LOOPS)
+    for _ in range(loop_n // 10):
+        HEAT.observe_plan(real)
+    best = math.inf
+    for _ in range(ADV_REPLAY_LOOPS):
+        t0 = time.perf_counter()
+        for _ in range(loop_n):
+            HEAT.observe_plan(real)
+        best = min(best, (time.perf_counter() - t0) / loop_n)
+    doc = ADVISOR.to_doc()
+    out.update(heat_observe_us=best * 1e6, query_p50_ms=p50 * 1e3,
+               heat_overhead_pct=best / p50 * 100.0, advice_sets=doc["adviceSets"],
+               learned_signatures=doc["learnedSignatures"])
+    eng.close()
+    holder.close()
+    if out["prefetch_advisor_hit_rate"] < 0.7:
+        raise AssertionError(f"observe: prefetch_advisor_hit_rate below 0.7: {out}")
+    log(f"observe: prefetch_advisor_hit_rate {out['prefetch_advisor_hit_rate']:.4f} "
+        f"({hits}/{hits + misses}); heat_observe_us {out['heat_observe_us']:.3f} over a "
+        f"{out['query_p50_ms']:.4f} ms query p50: heat_overhead_pct "
+        f"{out['heat_overhead_pct']:.4f}")
+    return out
+
+
+def history_path(device, seed):
+    """bench.py's history section (bench.py:3380-3460) on the card, on a
+    synthetic clock (one bucket per tick): history_tick_us (best loop mean
+    of a sampler pass under live counters), history_sampler_overhead_pct
+    (that over the 1 s interval), history_query_p50_ms (a 1 h /debug/history
+    read).  Then the PQL read over _system on the card (history_cover)."""
+    from pilosa_tpu_torch.api import API, QueryRequest
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+    from pilosa_tpu_torch.util.history import HistorySampler
+
+    rng = np.random.default_rng(13)
+    holder = Holder(device=device)
+    holder.open()
+    frag = holder.create_index("hov").create_field("f").view_if_not_exists(
+        "standard").fragment_if_not_exists(0)
+    ws = []
+    for r in (0, 1):
+        w = rng.integers(0, 1 << 63, 16384, dtype=np.uint64) | (
+            rng.integers(0, 1 << 63, 16384, dtype=np.uint64) << np.uint64(1))
+        ws.append(w.copy())
+        frag.load_row_words(r, w)
+    frag.cache.invalidate()
+    eng = TorchEngine(holder, device=device)
+    api = API(holder=holder, engine=eng)
+    req = QueryRequest("hov", "Count(Intersect(Row(f=0), Row(f=1)))")
+    want = int(and_popcounts(ws[0][None], ws[1][None]).sum())
+    if int(api.query(req).results[0]) != want:
+        raise AssertionError("observe: the history phase's Count disagrees with numpy")
+    interval = 1.0
+    hist = HistorySampler(api, node="chip", interval=interval)
+    clock = [float(int(time.time()))]
+
+    def tick_once():
+        clock[0] += interval
+        hist.tick(now=clock[0])
+
+    tick_once()
+    for _ in range(8):
+        api.query(req)
+        tick_once()
+    loop_n = max(1, HIST_TICK_N // HIST_TICK_LOOPS)
+    best = math.inf
+    for _ in range(HIST_TICK_LOOPS):
+        for _ in range(4):
+            api.query(req)
+        t0 = time.perf_counter()
+        for _ in range(loop_n):
+            tick_once()
+        best = min(best, (time.perf_counter() - t0) / loop_n)
+    for _ in range(HIST_SEED_TICKS):
+        tick_once()
+    now = clock[0]
+    reads = []
+    doc = None
+    for _ in range(HIST_READ_REPS):
+        t0 = time.perf_counter()
+        doc = hist.query("pilosa_query_seconds_rate", since=now - 3600.0, until=now)
+        reads.append(time.perf_counter() - t0)
+    if not any(doc["points"].values()):
+        raise AssertionError("observe: the 1 h history read found no point")
+    out = {"history_tick_us": best * 1e6, "history_sampler_overhead_pct": best / interval * 100.0,
+           "history_query_p50_ms": statistics.median(reads) * 1e3,
+           "series": len(hist.series_names())}
+    eng.close()
+    holder.close()
+    out.update(history_cover(device))
+    log(f"observe: history_tick_us {out['history_tick_us']:.1f} ({out['series']} series), "
+        f"history_sampler_overhead_pct {out['history_sampler_overhead_pct']:.4f}, "
+        f"history_query_p50_ms {out['history_query_p50_ms']:.4f}")
+    return out
+
+
+def history_cover(device, interval=60.0, per_hour=(3, 5, 2)):
+    """The history's PQL read on the card: a sampler (3 h retention) ticks
+    on a synthetic clock through three hour views, ``per_hour`` ticks in
+    each, and ``Sum(Range(samples=<sid>, S, E), field=<family>)`` over the
+    middle hour alone goes through ``Executor.execute``: K6 with that hour
+    view's time cover as its filter.  It must equal the sum of ``query``'s
+    points over that hour, differ from the sum over all three, launch K6
+    and take no host fallback."""
+    import datetime as dt
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.parallel import bsi
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+    from pilosa_tpu_torch.util.history import HistorySampler
+
+    card = device.type == "cuda"
+    holder = Holder(device=device)
+    holder.open()
+    eng = TorchEngine(holder, device=device)
+    api = API(holder=holder, engine=eng)
+    hist = HistorySampler(api, node="chip", interval=interval, retention=3 * 3600.0)
+    h0 = math.floor(time.time() / 3600.0) * 3600.0 - 3 * 3600.0
+    for h, n in enumerate(per_hour):
+        for k in range(n):
+            hist.tick(now=h0 + h * 3600.0 + 600.0 + k * interval)
+    now = h0 + 2 * 3600.0 + 600.0 + (per_hour[2] - 1) * interval
+    if len(hist.snapshot()["hourViews"]) != len(per_hour):
+        raise AssertionError(f"observe: the history's hour views {hist.snapshot()['hourViews']}")
+    family = "pilosa_history_ticks_total_rate"
+    sid = hist._series[family]["_"]
+
+    def hour(ts):
+        return dt.datetime.fromtimestamp(ts, dt.timezone.utc).strftime("%Y-%m-%dT%H:%M")
+
+    def points(since, until):
+        pts = hist.query(family, since=since, until=until)["points"]["_"]
+        return sum(v for _, v in pts), len(pts)
+
+    lo, hi = h0 + 3600.0, h0 + 2 * 3600.0  # the middle hour; Range's end is exclusive
+    want, every = points(lo, hi - interval), points(h0, now)
+    q = f"Sum(Range(samples={sid}, {hour(lo)}, {hour(hi)}), field={family})"
+    k6_0, fb0, efb0 = bsi.sum_tree_cuda.launches, api.executor.host_fallbacks, eng.host_fallbacks
+    r = api.executor.execute("_system", q).results[0]
+    got = (r.val, r.count)
+    out = {"pql_sum": list(got), "query_points_sum": list(want), "all_hours_sum": list(every),
+           "k6_launches": bsi.sum_tree_cuda.launches - k6_0,
+           "host_fallbacks": api.executor.host_fallbacks - fb0 + eng.host_fallbacks - efb0}
+    eng.close()
+    holder.close()
+    if got != want or not want[1] or want == every:
+        raise AssertionError(f"observe: PQL {q} = {got}, the sampler's points over that hour "
+                             f"{want}, over all three {every}")
+    if out["host_fallbacks"] or (card and out["k6_launches"] <= 0):
+        raise AssertionError(f"observe: the _system Sum took the host lane or no K6: {out}")
+    log(f"observe: {q} = {got} = the sampler's points over that hour (all three hours: "
+        f"{every}), K6 {out['k6_launches']}, host fallbacks 0")
+    return out
+
+
+def _poll(what, fn, timeout):
+    """fn() until it returns a true value (at most ``timeout`` seconds)."""
+    t0 = time.perf_counter()
+    while True:
+        v = fn()
+        if v:
+            return v
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"observe: {what} within {timeout} s")
+        time.sleep(0.1)
+
+
+def observe_node(node_cmd=None, workers=2):
+    """``python -m pilosa_tpu_torch server`` with ``[server] workers = 2``,
+    ``[observability] history = true`` (1 s samples, an error-rate SLO),
+    ``[metric] service = statsd`` at a UDP socket this script holds and a
+    device budget of three rows.  The reference's heat recipe through the
+    node: rows 0/1/8/9 of one field, dashboards A = 0 AND 1 and B = 8 AND 9
+    alternating; /debug/heat ranks exactly those rows with a residency gap
+    seen, /debug/prefetch_advice holds its hints and hit rate, /metrics the
+    heat gauges and the advisor counters, /debug/history the gap's nonzero
+    points.  Then the SLO: a serve-side error rule posted to /debug/faults,
+    queries until /debug/events holds slo.burn, /readyz 200 with the
+    degraded reason, a bundle at /debug/flightrecorder and under
+    .flightrec/; the rule healed, queries until slo.clear.  The
+    OpenMetrics exposition carries exemplars and # EOF, statsd datagrams
+    arrived; SIGTERM, exit 0."""
+    import shutil
+    import socket
+
+    from pilosa_tpu_torch.net import InternalClient
+    from pilosa_tpu_torch.net.client import ClientError
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "observe_node")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_dir, log_path = os.path.join(work, "data"), os.path.join(work, "node.log")
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sock.bind(("127.0.0.1", 0))
+    sock.setblocking(False)
+    cfg = os.path.join(work, "observe.toml")
+    with open(cfg, "w") as f:
+        f.write(f"[server]\nworkers = {workers}\n\n"
+                f"[engine]\ndevice-budget-bytes = {3 * (32768 * 4 + 16)}\n\n"
+                f"[metric]\nservice = \"statsd\"\nhost = \"127.0.0.1:{sock.getsockname()[1]}\"\n\n"
+                f"[observability]\nhistory = true\nsample-interval = \"1s\"\n"
+                f"slo-error-rate = 0.01\nslo-window = \"{int(OBS_SLO_WINDOW_S)}s\"\n")
+    cmd = node_cmd or [sys.executable, "-m", "pilosa_tpu_torch"]
+    port = _free_port()
+    out = {"workers": workers}
+    t0 = time.perf_counter()
+    proc = _start_node(cmd, data_dir, port, log_path, extra=["-c", cfg])
+    try:
+        out["ready_s"], _ = _wait_ready(proc, port, log_path, "with history and workers")
+        c = InternalClient(f"http://localhost:{port}", timeout=120)
+        c.create_index("i")
+        c.create_field("i", "f")
+        rng = np.random.default_rng(23)
+        cols = {r: np.sort(rng.choice(1 << 20, 20000, replace=False)) for r in (0, 1, 8, 9)}
+        c.import_bits("i", "f", 0, [r for r in cols for _ in cols[r]],
+                      [int(x) for r in cols for x in cols[r]])
+        qa, qb = "Count(Intersect(Row(f=0), Row(f=1)))", "Count(Intersect(Row(f=8), Row(f=9)))"
+        wa, wb = len(np.intersect1d(cols[0], cols[1])), len(np.intersect1d(cols[8], cols[9]))
+        gap_max = 0
+        for _ in range(6):
+            for q, w in ((qa, wa), (qb, wb)):
+                got = c.query("i", q)["results"][0]
+                if got != w:
+                    raise AssertionError(f"observe: node {q} = {got}, numpy {w}")
+                doc = c._get("/debug/heat?index=i&field=f&topk=8")
+                gap_max = max([gap_max] + [t["gapBytes"] for t in doc["tables"]])
+        heat = c._get("/debug/heat?index=i&field=f&topk=8")
+        tab = heat["tables"][0]
+        if sorted(r["row"] for r in tab["topRows"]) != [0, 1, 8, 9] or tab["hotRows"] != 4:
+            raise AssertionError(f"observe: /debug/heat does not rank rows 0, 1, 8, 9: {tab}")
+        if gap_max <= 0:
+            raise AssertionError("observe: /debug/heat never showed a residency gap")
+        out["heat"] = {"hotRows": tab["hotRows"], "gapBytes_max": gap_max,
+                       "topRows": [r["row"] for r in tab["topRows"]]}
+        c.query("i", qa)
+        adv = c._get("/debug/prefetch_advice")
+        if not adv["outstanding"] or adv["hitRate"] is None:
+            raise AssertionError(f"observe: /debug/prefetch_advice holds no advice: {adv}")
+        out["advice"] = {"hints": [h["rows"] for h in adv["outstanding"]["hints"]],
+                         "hitRate": adv["hitRate"], "drivenRequests": adv["drivenRequests"]}
+        metrics = c.metrics()
+        for name in ("pilosa_engine_heat_tracked_rows", "pilosa_engine_residency_gap_bytes",
+                     "pilosa_advisor_predictions_total", "pilosa_advisor_hits_total",
+                     "pilosa_advisor_misses_total"):
+            if f"\n{name}" not in metrics:
+                raise AssertionError(f"observe: /metrics lacks {name}")
+
+        def gap_points():
+            doc = c._get("/debug/history?series=pilosa_engine_residency_gap_bytes")
+            pts = [v for series in doc["points"].values() for _, v in series]
+            return pts if any(pts) else None
+
+        out["history_gap_points"] = len(_poll("no nonzero residency-gap point in the history",
+                                              gap_points, 15.0))
+        # The SLO: errors injected on the served side, then healed.
+        c._post("/debug/faults", {"seed": 1,
+                                  "rules": ["error peer=serve route=/index/* status=503"]})
+        burst = InternalClient(f"http://localhost:{port}", timeout=30, retries=0)
+
+        def hammer():
+            # A worker sends a query to the owner as a decoded frame, past
+            # the serve-side intercept (as the reference's does); every
+            # other route passes through to the owner's handler, which
+            # applies it.  So the drill reads the index's schema.
+            for _ in range(20):
+                try:
+                    burst._get("/index/i")
+                except ClientError as e:
+                    if e.code != 503:
+                        raise
+
+        def burned():
+            hammer()
+            evs = c._get("/debug/events?type=slo")["events"]
+            return [e for e in evs if e["type"] == "slo.burn"]
+
+        t_burn = time.perf_counter()
+        _poll("no slo.burn in /debug/events", burned, 30.0)
+        out["burn_s"] = time.perf_counter() - t_burn
+        ready = c._get("/readyz")
+        if ready.get("degraded") != ["slo:error_rate"]:
+            raise AssertionError(f"observe: /readyz is not degraded: {ready}")
+        bundle = c._get("/debug/flightrecorder")
+        if bundle.get("kind") != "flightrecorder" or "history" not in bundle:
+            raise AssertionError(f"observe: /debug/flightrecorder: {sorted(bundle)}")
+        fr = os.path.join(data_dir, ".flightrec")
+        persisted = sorted(os.listdir(fr)) if os.path.isdir(fr) else []
+        if not persisted:
+            raise AssertionError("observe: no flight-recorder bundle under .flightrec/")
+        faults = c._get("/debug/faults")
+        out["slo"] = {"degraded": ready["degraded"], "bundles": persisted,
+                      "injected": faults["rules"][0]["injected"],
+                      "bundle_keys": sorted(bundle)}
+        c._post("/debug/faults", {"rules": []})
+
+        def cleared():
+            for _ in range(10):
+                if c.query("i", qb)["results"][0] != wb:
+                    raise AssertionError("observe: a Count after the heal disagrees")
+            evs = c._get("/debug/events?type=slo")["events"]
+            return [e for e in evs if e["type"] == "slo.clear"]
+
+        t_clear = time.perf_counter()
+        _poll("no slo.clear after the heal", cleared, OBS_SLO_WINDOW_S + 20.0)
+        out["clear_s"] = time.perf_counter() - t_clear
+        if c._get("/readyz").get("degraded") != []:
+            raise AssertionError("observe: /readyz still degraded after slo.clear")
+        status, text = _openmetrics(port)
+        lines = text.splitlines()
+        ex = [ln for ln in lines if ln.startswith("pilosa_query_seconds_bucket")
+              and ' # {trace_id="' in ln]
+        if status != 200 or not ex or lines[-1] != "# EOF":
+            raise AssertionError(f"observe: the OpenMetrics exposition ({status}) lacks "
+                                 "exemplars or # EOF")
+        out["exemplars"] = len(ex)
+        grams = []
+        while True:
+            try:
+                grams.append(sock.recv(65536))
+            except BlockingIOError:
+                break
+        if not grams:
+            raise AssertionError("observe: no statsd datagram arrived")
+        out["statsd_datagrams"] = len(grams)
+        out["statsd_sample"] = grams[0].decode(errors="replace")[:80]
+        _stop_node(proc, log_path)
+    finally:
+        sock.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"observe: node with {workers} workers ready in {out['ready_s']:.3f} s; heat "
+        f"{out['heat']}; advice {out['advice']}; {out['history_gap_points']} gap points in "
+        f"the history; slo.burn after {out['burn_s']:.3f} s (degraded {out['slo']['degraded']}, "
+        f"bundles {out['slo']['bundles']}), slo.clear {out['clear_s']:.3f} s after the heal; "
+        f"{out['exemplars']} exemplars; {out['statsd_datagrams']} statsd datagrams; "
+        f"{out['seconds']:.3f} s")
+    return out
+
+
+def _openmetrics(port):
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics", headers={"Accept": "application/openmetrics-text"})
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        conn.close()
+
+
+def run_observe_path(device, seed, keep, node_cmd=None):
+    """The observe phase (after residency, before the writes): promote-ahead
+    at equal budget on the residency phase's rsw holder (``keep``), the
+    advisor sweep, the history on the card and the node.  Every kernel
+    wrapper's count is set to 0 first and read at the end, in this
+    process (the node's device owner is another): K1P (the A/B's warm
+    arrivals) and K6 (the _system Sum) must have launched.  Closes
+    the rsw holder.  Returns the phase's numbers and its launches."""
+    import torch
+
+    card = device.type == "cuda"
+    t0 = time.perf_counter()
+    zero_counts()
+    out = {"card": card_line()}
+    try:
+        out["advisor_ab"] = advisor_ab(device, keep["holder"], keep["words"])
+    finally:
+        keep["holder"].close()
+        keep.clear()
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+    out["advisor_sweep"] = advisor_sweep(device, seed)
+    out["history"] = history_path(device, seed)
+    out["node"] = observe_node(node_cmd)
+    _reset_observers()
+    out["launches"] = read_counts()
+    if card and min(out["launches"][k] for k in ("count_tree_pool", "sum_tree")) <= 0:
+        raise AssertionError(f"observe: K1P or K6 never launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"observe: launches {json.dumps(out['launches'])}; {out['seconds']:.3f} s")
+    return out
 
 
 def bitops_popcount(words, gate):
@@ -5557,27 +6197,13 @@ def run_qps(port, texts, wants, conns=QPS_CONNS, per_conn=QPS_PER_CONN):
 
 
 def _http_launches():
-    from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
-
-    return {"count_tree_dense": kernels.count_tree_dense.launches,
-            "count_tree_blocks": sparse.count_tree_blocks_cuda.launches,
-            "score_rows": kernels.score_rows_cuda.launches,
-            "count_batch_tree": kernels.count_batch_tree_cuda.launches,
-            "sum_tree": bsi.sum_tree_cuda.launches,
-            "minmax_tree": bsi.minmax_tree_cuda.launches,
-            "groupn_tree": groupby.groupn_tree_cuda.launches,
-            "fused_tree": kernels.fused_tree_cuda.launches,
-            "range_leaf": kernels.range_leaf.launches}
+    return read_counts(HTTP_KERNELS)
 
 
 def _zero_http_launches():
-    from pilosa_tpu_torch.parallel import bsi, groupby, kernels, sparse
+    from pilosa_tpu_torch.parallel import kernels
 
-    for fn in (kernels.count_tree_dense, sparse.count_tree_blocks_cuda,
-               kernels.score_rows_cuda, kernels.count_batch_tree_cuda, bsi.sum_tree_cuda,
-               bsi.minmax_tree_cuda, groupby.groupn_tree_cuda, kernels.fused_tree_cuda,
-               kernels.range_leaf):
-        fn.launches = 0
+    zero_counts(HTTP_KERNELS)
     kernels.count_batch_tree_cuda.by_k.clear()
 
 
@@ -6273,7 +6899,6 @@ def run_procmode_path(device, holder, engine, host, seed, node_cmd=None, workers
     from pilosa_tpu_torch.api import API
     from pilosa_tpu_torch.net.admission import AdmissionController
     from pilosa_tpu_torch.net.server import serve
-    from pilosa_tpu_torch.parallel import kernels, sparse
     from pilosa_tpu_torch.util import plans
 
     cuda = device.type == "cuda"
@@ -6291,6 +6916,7 @@ def run_procmode_path(device, holder, engine, host, seed, node_cmd=None, workers
     # machine's nvidia-smi sees it may not be this namespace's).
     apps0 = _compute_app_pids() if cuda else []
     _zero_http_launches()
+    zero_counts()
     with memo_off(engine):
         for w in workers:
             t0 = time.perf_counter()
@@ -6339,7 +6965,7 @@ def run_procmode_path(device, holder, engine, host, seed, node_cmd=None, workers
             finally:
                 srv.shutdown()
                 srv.server_close()
-    out["launches"] = _http_launches()
+    out["launches"] = read_counts()
     out["sweep"] = sweep
     out["worker_boot_s"] = boot
     if out.get("http_count_qps_w0"):
@@ -6638,9 +7264,7 @@ def run_write_path(device, holder, engine, ex, host, seed):
            "top": {r: host["top"][r].copy() for r in TOP_ROWS}}
     log(f"write: oracle copies in {time.perf_counter() - t0:.3f} s")
     rebuilds0, updates0 = engine.stack_rebuilds, engine.stack_updates
-    kernels.count_tree_dense.launches = 0
-    sparse.count_tree_blocks_cuda.launches = 0
-    kernels.score_rows_cuda.launches = 0
+    zero_counts(("count_tree_dense", "count_tree_blocks", "score_rows"))
 
     # 1. Single-bit writes, each read back by the Count that must see it.
     # The host clock splits each into the executor's Set, the stack sync
@@ -7135,9 +7759,10 @@ def ab_http(device, seed, rounds=2, plans_order=None, count_load=(QPS_CONNS, QPS
     ``serve`` on the async backend, the memo off; per round
     http_count_e2e_p50, http_count_qps (``count_load``: connections x c2
     Counts each) and http_mixed_qps (Count, Count, TopN, Sum), every reply
-    exact.  ``plans_order`` (a list of (plans, frozen) pairs) sets the
-    query-plan layer on or off for each round in turn, where the checkout
-    has one, and with ``frozen`` moves every object alive before the
+    exact.  ``plans_order`` (a list of (plans, frozen, heat) triples) sets
+    the query-plan layer and the heat feed on or off for each round in
+    turn, where the checkout has them, and with ``frozen`` moves every
+    object alive before the
     round out of the collector's reach (``gc.freeze``) for it; each round
     also gives its Count loop's serving-thread CPU microseconds per query
     (``_thread_cpu_s``) and cyclic-GC collections and time (``_GcMeter``)."""
@@ -7196,8 +7821,9 @@ def ab_http(device, seed, rounds=2, plans_order=None, count_load=(QPS_CONNS, QPS
             for r in range(rounds):
                 frozen = False
                 if plans_order:
-                    on, frozen = plans_order[r % len(plans_order)]
+                    on, frozen, heat = plans_order[r % len(plans_order)]
                     out.setdefault("plans", []).append(_set_plans(on))
+                    out.setdefault("heat", []).append(_set_heat(heat))
                     out.setdefault("gc_frozen", []).append(frozen)
                 if frozen:
                     gc.collect()
@@ -7221,6 +7847,7 @@ def ab_http(device, seed, rounds=2, plans_order=None, count_load=(QPS_CONNS, QPS
         srv.shutdown()
         engine.close()
         _set_plans(True)
+        _set_heat(True)
     return out
 
 
@@ -7278,15 +7905,27 @@ def _set_plans(on):
     return plans.ENABLED
 
 
+def _set_heat(on):
+    """The heat feed on or off (``HEAT.enabled``, what ``PILOSA_HEAT=0``
+    sets at import; heat feeds the miner and the advisor, so all three);
+    None for a checkout from before heat."""
+    try:
+        from pilosa_tpu_torch.util.heat import HEAT
+    except ImportError:
+        return None
+    HEAT.enabled = bool(on)
+    return HEAT.enabled
+
+
 def run_serving_ab(root, seed, order):
     """``--root DIR --serving ORDER``: the serving numbers alone, for many
     short alternating calls: the lone dense and sparse Count p50s
     (``count_p50_ms`` over bench's 960 shards, as ``--root`` gives them)
     and the http loops (``ab_http`` at 640 connections x 16 c2 Counts and
     640 x 8 mixed queries), one round for each entry of ORDER (``on`` or
-    ``off``: the query-plan layer; ``-frozen`` after it: the http round
-    with ``gc.freeze``), with each round's serving-thread CPU and GC time
-    per query.  One JSON line."""
+    ``off``: the query-plan layer; ``-noheat`` after it: the heat feed
+    off; ``-frozen``: the http round with ``gc.freeze``), with each round's
+    serving-thread CPU and GC time per query.  One JSON line."""
     import torch
 
     import pilosa_tpu_torch
@@ -7298,7 +7937,8 @@ def run_serving_ab(root, seed, order):
     pkg = os.path.dirname(os.path.abspath(pilosa_tpu_torch.__file__))
     if os.path.dirname(pkg) != root:
         raise AssertionError(f"imported {pkg}, not the package under {root}")
-    plans_order = [(x.split("-")[0] == "on", x.endswith("-frozen")) for x in order.split(",")]
+    plans_order = [(x.split("-")[0] == "on", "frozen" in x.split("-")[1:],
+                    "noheat" not in x.split("-")[1:]) for x in order.split(",")]
     build.build(build.KERNELS)
     device = torch.device("cuda")
     holder = Holder(device=device)
@@ -7309,13 +7949,16 @@ def run_serving_ab(root, seed, order):
         engine.field_stack("bench", field, "standard")
         for k in range(12):
             ex.execute("bench", pql_of(field, "and", (10 + 2 * k, 11 + 2 * k)))
-    out = {"root": root, "plans": [], "dense_count_p50_ms": [], "sparse_count_p50_ms": []}
+    out = {"root": root, "plans": [], "heat": [], "dense_count_p50_ms": [],
+           "sparse_count_p50_ms": []}
     with memo_off(engine):
-        for on, _ in plans_order:
+        for on, _, heat in plans_order:
             out["plans"].append(_set_plans(on))
+            out["heat"].append(_set_heat(heat))
             out["dense_count_p50_ms"].append(count_p50_ms(ex, "f"))
             out["sparse_count_p50_ms"].append(count_p50_ms(ex, "s"))
     _set_plans(True)
+    _set_heat(True)
     engine.close()
     out["http"] = ab_http(device, seed, rounds=len(plans_order), plans_order=plans_order,
                           count_load=(QPS_CONNS, 16), mixed_load=(QPS_CONNS, 8))
@@ -7815,8 +8458,9 @@ def main(argv=None):
     procmode = run_procmode_path(device, holder, engine, host, args.seed)
     log("procmode: " + json.dumps(procmode))
     mark("procmode")
+    keep = {}
     res_out, res_launches, (t_rowb, plain_rowb, rowb_bytes), k1p, aggs = run_residency_path(
-        device, args.seed)
+        device, args.seed, keep=keep)
     log("residency: " + json.dumps(res_out))
     # rowb: the pool leaf inside the kernels, timed in K1 over the same
     # pool rows as K1P (which replaced it on the Count path).
@@ -7841,11 +8485,15 @@ def main(argv=None):
         kern.append(_entry(name, f"pilosa_tpu_torch/csrc/{src}.cu", rep, n, err[name], t,
                            t["plain_ms"], t["bytes"], t["bytes"] // 4 * ops, None))
     mark("residency")
+    observe = run_observe_path(device, args.seed, keep)
+    log("observe: " + json.dumps(observe))
+    mark("observe")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     mark("write")
-    for entry in kern:  # the process-mode path's launches beside the main path's
-        entry["procmode_launches"] = procmode["launches"].get(entry["name"], 0)
+    for entry in kern:  # the process-mode and observe paths' launches beside the main path's
+        entry["procmode_launches"] = procmode["launches"][entry["name"]]
+        entry["observe_launches"] = observe["launches"][entry["name"]]
     log("timeline (s): " + json.dumps({k: round(v, 3) for k, v in timeline.items()})
         + f"; total {time.perf_counter() - t0:.3f} s")
     log(card_line())

@@ -39,6 +39,7 @@ from . import __version__
 from .core.field import FieldOptions
 from .core.fragment import SHARD_WIDTH
 from .core.holder import Holder
+from .core.index import SYSTEM_INDEX
 from .core.rowstore import SPARSE_MAX
 from .core.translate import TranslateFile
 from .core.view import VIEW_STANDARD
@@ -47,11 +48,12 @@ from .executor.translate import QueryTranslator
 from .parallel.engine import TorchEngine
 from .roaring import codec
 from .util import events as events_mod
-from .util import plan_miner  # noqa: F401 — feeds /debug/sequences from every plan
+from .util import heat  # noqa: F401 — feeds heat, /debug/sequences and the advisor
 from .util import plans
 from .util import tracing
 from .util.logger import NopLogger
 from .util.stats import (
+    INGEST_PATH_SYSTEM,
     INGEST_PATHS,
     METRIC_INGEST_BATCHES,
     METRIC_INGEST_BITS,
@@ -200,6 +202,11 @@ class API:
         # The process-mode server (net/procserver.py), wired by net.serve()
         # with workers: /readyz folds the worker processes' health in.
         self.process_server = None
+        # The self-hosted metrics history and the SLO watcher
+        # (util/history.py, util/slo.py): the Server wires both when
+        # ``[observability] history = true``.
+        self.history = None
+        self.slo = None
         # Whole-query latency and ingest series, resolved once: the hot
         # paths pay the per-series locks only.
         self._h_query_sync = REGISTRY.histogram(METRIC_QUERY, path="sync")
@@ -208,7 +215,7 @@ class API:
             path: (REGISTRY.counter(METRIC_INGEST_BATCHES, path=path),
                    REGISTRY.counter(METRIC_INGEST_BITS, path=path),
                    REGISTRY.histogram(METRIC_INGEST_SECONDS, path=path))
-            for path in INGEST_PATHS
+            for path in INGEST_PATHS + (INGEST_PATH_SYSTEM,)
         }
         self._ingest_changed = REGISTRY.counter(METRIC_INGEST_CHANGED)
         self.holder = holder if holder is not None else Holder(device=device)
@@ -265,7 +272,7 @@ class API:
             resp = self.executor.execute(req.index, req.query, req.shards, opt)
         elapsed = time.monotonic() - start
         trace_id = span.trace_id if span is not None else None
-        self._h_query_sync.observe(elapsed)
+        self._h_query_sync.observe(elapsed, exemplar=trace_id)
         if plan is not None:
             plan.finish(elapsed, trace_id=trace_id)
             plans.record(plan)
@@ -330,7 +337,8 @@ class API:
             if plan is not None:
                 plan.finish(elapsed, trace_id=span.trace_id if span is not None else None)
                 plans.record(plan)
-            self._h_query_pipelined.observe(elapsed)
+            self._h_query_pipelined.observe(
+                elapsed, exemplar=span.trace_id if span is not None else None)
             self._long_query(req, elapsed, span)
 
         fut.add_done_callback(_finish)
@@ -488,6 +496,10 @@ class API:
         """Record one applied import batch (the pilosa_ingest_* series) and
         notify the engine's sync worker, so resident stacks sync behind
         the write instead of on the next query's path."""
+        if index_name == SYSTEM_INDEX:
+            # The history sampler's own writes go through this path: they
+            # count under path="system", out of the series it records.
+            path = INGEST_PATH_SYSTEM
         batches, bits_c, hist = self._ingest_series[path]
         batches.inc()
         bits_c.inc(bits)

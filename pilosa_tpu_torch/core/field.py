@@ -25,6 +25,7 @@ import numpy as np
 
 from ..parallel.mesh import resolve_device
 from ..roaring import Bitmap
+from ..util import fanout
 from . import cache as cache_mod
 from . import timequantum
 from .attrs import AttrStore
@@ -510,10 +511,15 @@ class Field:
         if rows.size == 0:
             return 0
         view = self.view_if_not_exists(VIEW_STANDARD)
-        return sum(
-            frag.bulk_import(r, c, clear=clear)
-            for frag, c, r in self._shard_groups(view, cols, rows)
-        )
+        groups = self._shard_groups(view, cols, rows)
+        if len(groups) == 1:
+            frag, c, r = groups[0]
+            return frag.bulk_import(r, c, clear=clear)
+        # Each fragment has its own lock: the per-fragment applies run
+        # concurrently (util/fanout.py).
+        return sum(fanout.run_fanout(
+            [lambda f=frag, r=r, c=c: f.bulk_import(r, c, clear=clear)
+             for frag, c, r in groups]))
 
     def import_values(self, column_ids, values, clear: bool = False,
                       fresh: bool = False) -> None:
@@ -537,8 +543,14 @@ class Field:
             )
         view = self.view_if_not_exists(view_bsi_name(self.name))
         depth = g.bit_depth()
-        for frag, c, v in self._shard_groups(view, cols, vals - g.min):
+        groups = self._shard_groups(view, cols, vals - g.min)
+        if len(groups) == 1:
+            frag, c, v = groups[0]
             frag.import_values(c, v, depth, clear=clear, fresh=fresh)
+            return
+        fanout.run_fanout(
+            [lambda f=frag, c=c, v=v: f.import_values(c, v, depth, clear=clear, fresh=fresh)
+             for frag, c, v in groups])
 
     def __repr__(self) -> str:
         return f"Field({self.index}/{self.name}, type={self.options.type})"

@@ -17,8 +17,8 @@ A copy of ``pilosa_tpu/net/client.py``.  Left out, each raising
 ``NotImplementedError`` that names its ROADMAP.md item: the cluster
 control-plane message (``send_message``, private protobuf frames) and the
 fragment-block sync calls (``fragment_blocks``, ``block_data``), both
-Queue 1 item 15; and the deterministic fault plane the reference consults
-before each request (``net/faults.py``, item 14).
+Queue 1 item 15.  The deterministic fault plane (``net/faults.py``) is
+consulted before each request, as in the reference.
 """
 
 from __future__ import annotations
@@ -169,6 +169,23 @@ class InternalClient:
     ):
         self.requests += 1
         self._requests_counter.inc()
+        # Deterministic fault plane (net/faults.py): an injected drop or
+        # partition surfaces as a transport-style ClientError (code None),
+        # an injected error as the configured status, before any bytes
+        # leave this host.  The inactive plane costs one attribute read.
+        from .faults import PLANE
+
+        if PLANE.active:
+            rule = PLANE.intercept(f"{self._host}:{self._port}", path)
+            if rule is not None:
+                if rule.action == "error":
+                    raise ClientError(
+                        f"{method} {path}: {rule.status}: injected fault",
+                        code=rule.status, body="injected fault",
+                    )
+                raise ClientError(
+                    f"{method} {path}: injected fault: {rule.action}"
+                )
         headers = {"Content-Type": content_type} if body is not None else {}
         # Propagate the ambient trace context (trace id + this hop's
         # span id) so a remote shard fan-out joins the caller's trace —

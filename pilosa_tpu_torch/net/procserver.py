@@ -686,7 +686,7 @@ class ProcessHTTPServer:
 
     # -- scrape-time aggregation --------------------------------------------
 
-    def aggregate_metrics(self, handler) -> str:
+    def aggregate_metrics(self, handler, openmetrics: bool = False) -> str:
         """The whole node's exposition: fetch every worker's registry
         over IPC, stamp per-process up/rss gauges, render the engine's
         own exposition (with those gauges), and sum the worker
@@ -725,7 +725,7 @@ class ProcessHTTPServer:
                 )
         REGISTRY.set_gauge(METRIC_PROCESS_UP, 1, proc="engine")
         REGISTRY.set_gauge(METRIC_PROCESS_RSS, ipc.rss_bytes(), proc="engine")
-        primary = handler._metrics_text()
+        primary = handler._metrics_text(openmetrics=openmetrics)
         return merge_expositions(primary, others)
 
     # -- readiness / introspection ------------------------------------------

@@ -48,6 +48,7 @@ from ..util.stats import (
 )
 from . import proto
 from .admission import tenant_of
+from .faults import PLANE
 from .front import (  # noqa: F401 — re-exported, the node's names for them
     DeferredResponse,
     _parse_shards,
@@ -59,6 +60,11 @@ from .front import (  # noqa: F401 — re-exported, the node's names for them
 from .wire import count_response_bytes, response_to_json
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+# Negotiated by ``Accept: application/openmetrics-text``: the exposition
+# that may carry exemplars (util/stats prometheus_text).
+OPENMETRICS_CONTENT_TYPE = (
+    "application/openmetrics-text; version=1.0.0; charset=utf-8"
+)
 
 # Serving backend selection (docs/serving.md): "async" is the event-loop
 # reactor (net/aserver.py); "threaded" is the stdlib thread-per-connection
@@ -81,12 +87,6 @@ _UNPORTED_ROUTES = [
     ("POST", "/cluster/resize/remove-node", _ITEM_15),
     ("POST", "/cluster/resize/set-coordinator", _ITEM_15),
     ("GET", "/cluster/metrics", _ITEM_15),
-    ("GET", "/debug/faults", _ITEM_14),
-    ("POST", "/debug/faults", _ITEM_14),
-    ("GET", "/debug/history", _ITEM_14),
-    ("GET", "/debug/heat", _ITEM_14),
-    ("GET", "/debug/prefetch_advice", _ITEM_14),
-    ("GET", "/debug/flightrecorder", _ITEM_14),
     ("GET", "/debug/pprof", _ITEM_14),
     ("GET", "/debug/pprof/goroutine", _ITEM_14),
     ("GET", "/debug/pprof/profile", _ITEM_14),
@@ -132,6 +132,20 @@ def error_response(e: BaseException) -> Tuple[int, bytes]:
     # from callbacks too, where there is no "current" exception.
     traceback.print_exception(type(e), e, e.__traceback__)
     return 500, json.dumps({"error": str(e)}).encode()
+
+
+def _serve_fault(path: str):
+    """The fault plane's serve-side verdict for one request: an injected
+    error's (status, content type, payload), or None (a delay rule has
+    slept already).  ``/debug/faults`` stays immune, so a drill can always
+    be inspected and healed from the node it faults."""
+    if not PLANE.active or path.startswith("/debug/faults"):
+        return None
+    verdict = PLANE.intercept("serve", route=path, transport="serve")
+    if verdict is None:
+        return None
+    payload = json.dumps({"error": f"fault injected: {verdict.status}"}).encode()
+    return verdict.status, "application/json", payload
 
 
 def _unported(path: str, item: str):
@@ -202,6 +216,12 @@ class Handler:
         r("GET", "/internal/fragment/data", self._get_fragment_data)
         r("GET", "/debug/plans", self._debug_plans)
         r("GET", "/debug/sequences", self._debug_sequences)
+        r("GET", "/debug/faults", self._debug_faults_get)
+        r("POST", "/debug/faults", self._debug_faults_post)
+        r("GET", "/debug/history", self._debug_history)
+        r("GET", "/debug/heat", self._debug_heat)
+        r("GET", "/debug/prefetch_advice", self._debug_prefetch_advice)
+        r("GET", "/debug/flightrecorder", self._debug_flightrecorder)
         for method, pattern, item in _UNPORTED_ROUTES:
             r(method, pattern, _unported(pattern, item))
 
@@ -219,9 +239,14 @@ class Handler:
         headers: Optional[dict] = None,
     ):
         """Returns (status, content_type, payload bytes) or a
-        DeferredResponse, and counts every 5xx answer into
-        pilosa_server_errors_total.  (The reference's fault-plane
-        intercept waits for net/faults.py: ROADMAP.md Queue 1 item 14.)"""
+        DeferredResponse.  Applies the fault plane's serve-side rules
+        (peer="serve": drills against this node's own HTTP surface) and
+        counts every 5xx answer into pilosa_server_errors_total, the
+        numerator of the SLO error-rate objective (util/slo.py)."""
+        injected = _serve_fault(path)
+        if injected is not None:
+            self._err_counter.inc()
+            return injected
         result = self._dispatch(method, path, query, body, headers)
         if isinstance(result, DeferredResponse):
             result.on_ready(
@@ -496,6 +521,13 @@ class Handler:
             "Content-Type", ""
         ) or proto.CONTENT_TYPE in headers.get("Accept", ""):
             return None
+        # The inline path bypasses handle(), so it runs the same serve-side
+        # fault intercept and 5xx accounting: without it an injected error
+        # would never reach the SLO's error rate on this path.
+        injected = _serve_fault(path)
+        if injected is not None:
+            self._err_counter.inc()
+            return injected
         req = self._query_request(m.group(1), query, body, headers)
         result = self._defer_query(req)
         if isinstance(result, DeferredResponse):
@@ -572,7 +604,7 @@ class Handler:
         self.api.export_csv(index, field, shard, buf)
         return buf.getvalue()
 
-    def _metrics_text(self) -> str:
+    def _metrics_text(self, openmetrics: bool = False) -> str:
         """The node's Prometheus exposition: the process registry with
         the batcher's pipeline gauges, the engine's counters and the
         serving tier's gauges refreshed at pull time."""
@@ -605,31 +637,31 @@ class Handler:
         # The tenant ledger's rows flush into pilosa_tenant_* at pull time
         # (the query path only touches the ledger's own lock).
         plans_mod.LEDGER.refresh_series()
-        return REGISTRY.prometheus_text()
+        return REGISTRY.prometheus_text(openmetrics=openmetrics)
 
-    def _node_metrics_text(self) -> str:
+    def _node_metrics_text(self, openmetrics: bool = False) -> str:
         """The whole node's exposition: this process's registry and, in
         process mode, every worker's registry summed in at scrape time with
         the per-process liveness and RSS gauges
         (``ProcessHTTPServer.aggregate_metrics``)."""
         srv = self.server
         if srv is not None and hasattr(srv, "aggregate_metrics"):
-            return srv.aggregate_metrics(self)
-        return self._metrics_text()
+            return srv.aggregate_metrics(self, openmetrics=openmetrics)
+        return self._metrics_text(openmetrics=openmetrics)
 
     def _metrics(self, q, b, **kw):
         """GET /metrics: the process registry in the classic Prometheus
-        text exposition.  The OpenMetrics exposition with trace-id
-        exemplars waits for the query plans (ROADMAP.md Queue 1 item 14):
-        a scraper that negotiates it gets a 501."""
+        text exposition.  Negotiating ``Accept: application/openmetrics-text``
+        switches to the OpenMetrics exposition, whose ``_bucket`` samples
+        carry trace-id exemplars (``# {trace_id=...}``): the click-through
+        to /debug/plans?trace=<id>."""
         headers = kw.get("_headers", {})
         accept = next(
             (v for k, v in headers.items() if k.lower() == "accept"), ""
         )
         if "application/openmetrics-text" in accept:
-            raise NotImplementedError(
-                "the OpenMetrics exposition is not ported to pilosa_tpu_torch yet: "
-                f"ROADMAP.md {_ITEM_14}")
+            text = self._node_metrics_text(openmetrics=True)
+            return 200, OPENMETRICS_CONTENT_TYPE, text.encode()
         return 200, PROMETHEUS_CONTENT_TYPE, self._node_metrics_text().encode()
 
     def _healthz(self, q, b, **kw):
@@ -654,6 +686,12 @@ class Handler:
         rs = self.api.residency_status()
         if rs is not None:
             doc["residency"] = rs
+        # SLO burn reasons (util/slo.py): informational only, a degraded
+        # node still answers 200 and takes traffic (shedding is the
+        # admission controller's job).
+        slo = getattr(self.api, "slo", None)
+        if slo is not None:
+            doc["degraded"] = slo.degraded
         payload = json.dumps(doc).encode()
         return (200 if ready else 503), "application/json", payload
 
@@ -757,6 +795,9 @@ class Handler:
             "enabled": plans_mod.ENABLED,
         }
         out["tenants"] = plans_mod.LEDGER.snapshot()
+        # Fault plane: shown whenever rules are installed.
+        if PLANE.active:
+            out["faults"] = PLANE.snapshot()
         ws = self.api.warm_status()
         if ws is not None:
             out["warmStart"] = ws
@@ -769,7 +810,102 @@ class Handler:
             self._rates_prev, snapshot=snap
         )
         out["rates"] = rates
+        # The self-hosted history and the SLO watcher, when wired.
+        hist = getattr(self.api, "history", None)
+        if hist is not None:
+            out["history"] = hist.snapshot()
+        slo = getattr(self.api, "slo", None)
+        if slo is not None:
+            out["slo"] = slo.snapshot()
         return out
+
+    def _debug_faults_get(self, q, b, **kw):
+        """GET /debug/faults: the fault plane's rule table with per-rule
+        matched/injected tallies."""
+        return PLANE.snapshot()
+
+    def _debug_faults_post(self, q, b, **kw):
+        """POST /debug/faults: replace the rule table at runtime.  Body
+        {"seed": N, "rules": [spec, ...]}; an empty rules list heals
+        everything.  Reseeds on every install, so re-posting one schedule
+        replays the same verdicts."""
+        doc = json.loads(b) if b else {}
+        try:
+            PLANE.configure(doc.get("rules", []), doc.get("seed"))
+        except ValueError as e:
+            raise ApiError(str(e)) from None
+        journal = getattr(self.api, "journal", None)
+        if journal is not None:
+            journal.append("faults.configure", rules=len(doc.get("rules", [])),
+                           seed=PLANE.seed, via="http")
+        return PLANE.snapshot()
+
+    def _debug_history(self, q, b, **kw):
+        """GET /debug/history: read the self-hosted metrics history
+        (util/history.py).  ``?series=<family>`` is required;
+        ``since``/``until`` are epoch seconds (default: the last 5
+        minutes), ``step`` downsamples, ``label`` picks one label set.
+        Values are the stored fixed-point integers (divide by ``scale``),
+        what a PQL Sum over ``_system`` returns for the same window."""
+        hist = getattr(self.api, "history", None)
+        if hist is None:
+            return 404, "application/json", json.dumps({
+                "error": "metrics history is not enabled "
+                         "(set [observability] history = true)"
+            }).encode()
+        series = q.get("series", [None])[0]
+        if not series:
+            raise ValueError("series parameter is required")
+
+        def _num(name):
+            raw = q.get(name, [None])[0]
+            if raw is None:
+                return None
+            try:
+                return float(raw)
+            except ValueError:
+                raise ValueError(f"{name} must be epoch seconds")
+
+        return hist.query(series, since=_num("since"), until=_num("until"),
+                          step=_num("step"), label=q.get("label", [None])[0])
+
+    def _debug_heat(self, q, b, **kw):
+        """GET /debug/heat: the working-set heat tables, top-K hot rows and
+        2 KiB blocks by EWMA heat, each row flagged resident or not, with
+        the residency gap in bytes.  ?index= ?field= filter, ?topk=N rows
+        and blocks a table (default 10)."""
+        from ..util import heat as heat_mod
+
+        try:
+            topk = int(q.get("topk", ["10"])[0])
+        except ValueError:
+            raise ValueError("topk must be an integer")
+        heat_mod.HEAT.refresh_gauges()
+        return heat_mod.HEAT.to_doc(index=q.get("index", [None])[0],
+                                    field=q.get("field", [None])[0], topk=topk)
+
+    def _debug_prefetch_advice(self, q, b, **kw):
+        """GET /debug/prefetch_advice: the prefetch advisor's outstanding
+        advice (the predicted-next signature and its row hints) and its
+        running score against what the next query touched."""
+        from ..parallel.advisor import ADVISOR
+
+        return ADVISOR.to_doc()
+
+    def _debug_flightrecorder(self, q, b, **kw):
+        """GET /debug/flightrecorder: capture a flight-recorder bundle now.
+        ``?persist=1`` also writes it to <data-dir>/.flightrec/ as an
+        SLO-triggered capture does."""
+        slo = getattr(self.api, "slo", None)
+        if slo is None:
+            return 404, "application/json", json.dumps({
+                "error": "flight recorder is not enabled "
+                         "(set [observability] history = true)"
+            }).encode()
+        bundle = slo.flight_bundle()
+        if q.get("persist", ["0"])[0] in ("1", "true"):
+            bundle["persistedTo"] = slo.persist_bundle(bundle)
+        return bundle
 
     def _translate_keys(self, q, b, **kw):
         doc = json.loads(b)

@@ -108,9 +108,11 @@ from ..core.view import VIEW_STANDARD, view_bsi_name
 from ..ops import bitops
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
 from ..util import events as events_mod
+from ..util import heat as heat_mod
 from ..util import plans as plans_mod
 from ..util.stats import (METRIC_ENGINE_EVICTIONS, METRIC_ENGINE_PROMOTIONS,
                           METRIC_ENGINE_RESIDENT_BLOCK_FRACTION, REGISTRY)
+from . import advisor as advisor_mod
 from . import bsi as bsi_mod
 from . import fusion as fusion_mod
 from . import groupby as groupby_mod
@@ -564,12 +566,16 @@ class TorchEngine:
         # attribution, a promotion's commit) are not counted again.
         self._probe_tls = threading.local()
         # Eviction pricing: index -> device-cost signal (higher = hotter =
-        # evicted later), LRU among equals.  The reference reads the plan
-        # ledger's per-tenant cost EWMA here and ranks the prefetch
-        # advisor's predicted stacks last; both are ROADMAP.md Queue 1 item
-        # 14 (util/plans.py, parallel/advisor.py) and read as empty until
-        # it lands, so the default is LRU.
-        self.cost_of_index = lambda index: 0.0
+        # evicted later), LRU among equals.  The default is the plan
+        # ledger's per-tenant device-cost EWMA (tenants default to the
+        # index name at the serving layer); tests override it.
+        self.cost_of_index = lambda index: plans_mod.LEDGER.cost_ewma(index)
+        # Working-set heat asks this engine for the resident-vs-host split
+        # (/debug/heat, pilosa_engine_residency_gap_bytes), and the prefetch
+        # advisor drives its promote-ahead requests into this engine's
+        # residency.  Both bindings are weak: neither pins a closed engine.
+        heat_mod.HEAT.bind_engine(self)
+        advisor_mod.ADVISOR.bind_engine(self)
         self._closed = False
         self.last_promote_error: Optional[str] = None
         # key -> (version token, occupied blocks of the row universe).
@@ -713,10 +719,15 @@ class TorchEngine:
         return False
 
     def _evict_for(self, need_bytes: int, protect=frozenset()) -> bool:
-        """Evict resident stacks until ``need_bytes`` more fits the budget,
-        the cheapest first (``cost_of_index``), least recently used among
-        equals.  The budget is a SOFT target: when nothing more can go the
-        caller admits anyway.  Runs under the stacks lock."""
+        """Evict resident stacks until ``need_bytes`` more fits the budget.
+        Victims are priced by predicted next touch, then cost, then LRU
+        (pilosa_tpu/parallel/engine.py:1300-1343): a stack the prefetch
+        advisor's outstanding advice names goes after every other one;
+        within each class the cheapest index (``cost_of_index``) goes
+        first, the least recently used among equals.  With no outstanding
+        advice this is the cost/LRU order.  The budget is a SOFT target:
+        when nothing more can go the caller admits anyway.  Runs under the
+        stacks lock."""
 
         def fits():
             return (self._resident_bytes + self._pending_bytes()
@@ -725,9 +736,11 @@ class TorchEngine:
 
         if fits():
             return True
+        predicted = advisor_mod.ADVISOR.predicted_keys()
         lru_pos = {k: i for i, k in enumerate(self._stacks)}
         order = sorted((k for k in self._stacks if k not in protect),
-                       key=lambda k: (self._index_cost(k[0]), lru_pos[k]))
+                       key=lambda k: (1 if k in predicted else 0,
+                                      self._index_cost(k[0]), lru_pos[k]))
         for k in order:
             if fits():
                 return True
@@ -763,6 +776,53 @@ class TorchEngine:
             self.journal.append("engine.evict", index=index, field=field, view=view,
                                 bytes=stack.footprint, residentBytes=self._resident_bytes)
 
+    # -- working-set heat (pilosa_tpu/parallel/engine.py:1216-1277) ---------
+
+    def residency_row_split(self, key, rows):
+        """(resident subset of ``rows``, device bytes of one row) for the
+        stack ``key``: the heat recorder's resident-vs-host split and the
+        pilosa_engine_residency_gap_bytes numerator.  Read-only: a
+        row_index membership walk under the stacks lock, never a build."""
+        with self._stacks_lock:
+            st = self._stacks.get(key)
+            if st is not None:
+                resident = {r for r in rows if int(r) in st.row_index}
+                return resident, int(st.matrix.shape[1]) * ROW_SHARD_BYTES
+        canonical = self.canonical_shards(key[0])
+        return set(), len(canonical) * ROW_SHARD_BYTES
+
+    @staticmethod
+    def _touch_of(key, st, rows):
+        """One heat touch for ``key``: the rows (None: the whole stack),
+        their occupied-block count and the OR of their 64-bit occupancy
+        masks, from the stack's host summary ``occ`` (no device read)."""
+        if rows is None:
+            return (key[0], key[1], key[2], None, 0, 0)
+        rows_t = tuple(sorted(int(r) for r in rows))
+        n_blocks = 0
+        mask = 0
+        if st is not None and st.occ is not None:
+            R = st.occ.shape[0]
+            for r in rows_t:
+                ridx = st.row_index.get(r)
+                if ridx is None or ridx >= R:
+                    continue
+                m = int(np.bitwise_or.reduce(st.occ[ridx]))
+                n_blocks += m.bit_count()
+                mask |= m
+        return (key[0], key[1], key[2], rows_t, n_blocks, mask)
+
+    def _note_touches(self, lw: _Lowering):
+        """Stamp the dispatch note with the touches this lowering's row
+        hints resolve to: the heat recorder's input.  Free when plans or
+        heat are off."""
+        if not (plans_mod.ENABLED and heat_mod.HEAT.enabled) or not lw.row_hints:
+            return
+        touches = [self._touch_of(key, lw._by_key.get(key), rows)
+                   for key, rows in lw.row_hints.items()]
+        if touches:
+            plans_mod.note_dispatch(touches=touches)
+
     # -- the host-lane fallback protocol (engine.py:1353-1440) --------------
 
     def _host_fallback(self, key, rows, fraction: float, msg: str):
@@ -777,9 +837,15 @@ class TorchEngine:
             self.residency.note_host_fallback()
         self.residency.request(key, rows, cause="reactive")
         # The plan note the /debug/plans analyzer renders as "host
-        # fallback: stack NN% resident".
-        plans_mod.note_dispatch(path="host_fallback", stack="/".join(key),
-                                resident_fraction=round(fraction, 4))
+        # fallback: stack NN% resident".  The miss is a working-set touch
+        # too: heat sees the rows this query wanted although no device
+        # bytes moved, so the residency gap rises as traffic outruns
+        # promotion.
+        plans_mod.note_dispatch(
+            path="host_fallback", stack="/".join(key),
+            resident_fraction=round(fraction, 4),
+            touches=[(key[0], key[1], key[2],
+                      None if rows is None else tuple(sorted(rows)), 0, 0)])
         raise ResidencyMiss(msg, key=key, resident_fraction=fraction)
 
     class _ProbeMode:
@@ -1421,17 +1487,20 @@ class TorchEngine:
         while the node already answers queries (the Server runs this on a
         thread of its own).  Progress lands in ``self.warm_state``
         ({total, built, skipped, done}), which /readyz reports as
-        ``warming`` until done.  Stacks go in holder order; warming stops
-        at the working-set target (``warm_target_bytes``, a fraction of the
-        budget, pilosa_tpu/parallel/engine.py:1677-1683) and skips a stack
-        the card's free memory (``torch.cuda.mem_get_info``) cannot hold,
-        so queries admit their own working set in the headroom.  Warming
-        never evicts.  What waits: the hot-tenant order (``_index_cost``
-        over the plan ledger's cost EWMA: ROADMAP.md Queue 1 item 14) and
-        the prefetch thread that assembles stack N+1 on the host while
-        stack N uploads."""
+        ``warming`` until done.  Hot tenants go first (``_index_cost``, the
+        plan ledger's cost EWMA, which the server persists across
+        restarts), so the indexes traffic hits become resident before cold
+        ones; warming stops at the working-set target
+        (``warm_target_bytes``, a fraction of the budget,
+        pilosa_tpu/parallel/engine.py:1677-1683) and skips a stack the
+        card's free memory (``torch.cuda.mem_get_info``) cannot hold, so
+        queries admit their own working set in the headroom.  Warming
+        never evicts.  What waits: the prefetch thread that assembles
+        stack N+1 on the host while stack N uploads."""
         keys = []
-        for index in list(indexes if indexes is not None else self.holder.indexes):
+        index_list = list(indexes if indexes is not None else self.holder.indexes)
+        index_list.sort(key=lambda i: -self._index_cost(i))
+        for index in index_list:
             idx = self.holder.index(index)
             if idx is None or not self.canonical_shards(index):
                 continue
@@ -1989,6 +2058,7 @@ class TorchEngine:
             if not kernels.fits(prog):
                 raise UnsupportedLowering("count tree exceeds the kernels' limits")
             plan = self._sparse_plan(prog, lw, shards, canonical)
+            self._note_touches(lw)
             if plan is not None:
                 return self._reading(lw.stacks,
                                      lambda: self._dispatch_sparse(prog, lw.mats, plan))
@@ -2158,6 +2228,7 @@ class TorchEngine:
                     raise UnsupportedLowering("count tree exceeds the kernels' limits")
                 progs.append(prog)
             fan = mapping if deduped else None
+            self._note_touches(lw)
             # The reference's record of its padded batch program: the tier
             # it pads to and the operands that program passes.
             if plans_mod.ENABLED:

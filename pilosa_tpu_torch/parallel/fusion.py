@@ -32,10 +32,9 @@ Residency: the drain's row hints (``_item_hints`` merged by
 a partial stack requests the whole drain's working set; a pool stack's
 rows are leaves of the slot table like any row (``("rowb", ...)``), and the
 aggregate edges require full stacks (an item that misses fails alone with
-``ResidencyMiss``, which its caller serves from the host lane).  Left for
-later slices: the working-set heat of each item (``_item_touches``) and
-the per-item plan notes and dispatch notes (``plans_mod.note_dispatch``:
-ROADMAP.md Queue 1 item 14, the plans and the heat recorder).  The reference pads slots
+``ResidencyMiss``, which its caller serves from the host lane).  Each
+item's plan note carries its own working-set touches (``_item_touches``,
+the heat recorder's input), resolved against the drain's stacks.  The reference pads slots
 and edges to pow2 tiers to key XLA executables; F1 takes its table as data
 and templates only on the slot tier, so nothing is padded here, and the
 canonical build order is kept so that a drain in any arrival order maps to
@@ -52,6 +51,7 @@ import torch
 from ..core.cache import pair_sort_key
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD, view_bsi_name
+from ..util import heat as heat_mod
 from ..util import plans as plans_mod
 from . import bsi as bsi_mod
 from . import groupby as groupby_mod
@@ -432,6 +432,15 @@ _EMPTY = {
 }
 
 
+def _item_touches(engine, index, spec, stacks):
+    """Working-set touches of ONE fused item (util/heat.py's note format),
+    from the same hint map the lowering used; ``stacks`` is the drain's
+    merged (index, field, view) -> stack map, so block counts come from
+    the summaries the launch read."""
+    return [engine._touch_of(key, stacks.get(key), rows)
+            for key, rows in _item_hints(engine, index, spec).items()]
+
+
 def build(engine, entries: List[tuple]) -> FusedPlan:
     """Plan one heterogeneous drain (no launch: ``dispatch`` runs the plan,
     possibly many times).  ``entries`` is a list of (index, spec, shards)
@@ -735,8 +744,14 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
             w += _slot_rows(parts[index].slots[j]) / sharers[(index, j)]
         weights.append(max(w, 0.25))
 
-    # Per-item plan notes (pilosa_tpu/parallel/fusion.py:846-882).
+    # Per-item plan notes (pilosa_tpu/parallel/fusion.py:846-882), each with
+    # its own touches: the shared dispatch note stays touch-free, and the
+    # batcher overlays each rider's item note on its copy.
     indexes = sorted({idx for idx, _, _ in entries})
+    stacks_all: dict = {}
+    for lw_t in peel_lws + [p.lw for p in parts.values()]:
+        stacks_all.update(lw_t._by_key)
+    note_touches = plans_mod.ENABLED and heat_mod.HEAT.enabled
     item_notes: list = [None] * n_items
     for i in range(n_items):
         if routes[i] is None or routes[i][0] == "error":
@@ -755,6 +770,13 @@ def build(engine, entries: List[tuple]) -> FusedPlan:
             note.update(sparse_notes[i])
             note["op"] = "Count"
             note["path"] = "sparse"
+        if note_touches:
+            try:
+                touches = _item_touches(engine, entries[i][0], entries[i][1], stacks_all)
+                if touches:
+                    note["touches"] = touches
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
         item_notes[i] = note
 
     # -- output positions and decoders ------------------------------------

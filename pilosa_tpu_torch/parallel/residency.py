@@ -83,6 +83,7 @@ class ResidencyManager:
         self.partial_promotions = 0
         self.declined = 0
         self.dropped = 0  # requests past MAX_PENDING (the host tier serves)
+        self.advisor_deferred = 0  # speculative requests refused under backlog
         self.promoted_bytes = 0
         self.promote_seconds = 0.0
         self._c_full: Dict[str, object] = {}
@@ -97,7 +98,7 @@ class ResidencyManager:
                 trace_id: Optional[str] = None) -> bool:
         """Queue (or merge into) a promotion of ``key``: ``rows`` is the
         row-id working set the query touched, None the whole stack.
-        ``cause`` labels its origin ("reactive" | "warm_start")
+        ``cause`` labels its origin ("reactive" | "warm_start" | "advisor")
         and ``trace_id`` joins it to the query's trace (by default the
         ambient span's).  False when a cooldown or the queue bound absorbed
         it (the host tier serves either way).  Never waits on the card."""
@@ -122,7 +123,17 @@ class ResidencyManager:
                     cur[0].update(rows)
                 if not cur[2] and trace_id:
                     cur[2] = trace_id
+                if cause != "advisor" and cur[1] == "advisor":
+                    # A demand miss caught up with speculation: the merged
+                    # promotion is demand now (worker order and journal).
+                    cur[1] = cause
             else:
+                if cause == "advisor" and len(self._pending) >= MAX_PENDING // 2:
+                    # Speculative requests get the queue's front half only:
+                    # under backlog promote-ahead yields before it can crowd
+                    # out a demand promotion.
+                    self.advisor_deferred += 1
+                    return False
                 if len(self._pending) >= MAX_PENDING:
                     self.dropped += 1
                     return False
@@ -175,7 +186,12 @@ class ResidencyManager:
                     self._cv.wait()
                 if self._closed:
                     return
-                key = next(iter(self._pending))
+                # Demand first: a speculative (advisor) promotion runs only
+                # when no reactive or warm-start request waits, so
+                # promote-ahead competes for budget, never for the worker.
+                key = next((k for k, v in self._pending.items() if v[1] != "advisor"), None)
+                if key is None:
+                    key = next(iter(self._pending))
                 rows, cause, trace_id = self._pending.pop(key)
                 self._busy = True
             try:
@@ -232,6 +248,7 @@ class ResidencyManager:
                 "partialPromotions": self.partial_promotions,
                 "declined": self.declined,
                 "dropped": self.dropped,
+                "advisorDeferred": self.advisor_deferred,
                 "promotedBytes": self.promoted_bytes,
                 "promoteSeconds": round(self.promote_seconds, 6),
                 "cooldowns": len(self._cooldown),

@@ -12,13 +12,20 @@ with no card it raises, and nothing falls back to the host.  The config
 keys of parts this port does not serve yet are refused at construction,
 each naming the ROADMAP.md item that ports it (``_refuse_unported``):
 the cluster, gossip, translate replication and multi-host keys (item
-15), and process mode, the fault plane, the metrics history and statsd
-(item 14).  ``[mesh] devices = -1`` keeps its meaning: no engine, every
-query on the host lane.
+15).  ``[mesh] devices = -1`` keeps its meaning: no engine, every query
+on the host lane.
+
+Besides the listener the node runs the reference's monitors: the fault
+plane's identity and boot rules (``[faults]``), the self-hosted metrics
+history and SLO watcher (``[observability] history = true``), statsd
+(``[metric] service = statsd``), diagnostics (``[metric] diagnostics``),
+and the per-tenant device-cost EWMAs persisted in ``<data-dir>/.tenant_costs``
+across restarts (warm start builds the hottest tenants first).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import uuid
@@ -46,7 +53,6 @@ from .util import (
     VerboseLogger,
 )
 
-_ITEM_14 = "Queue 1 item 14 (serving and observability)"
 _ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 
 # Config attributes this port does not serve yet, and the ROADMAP.md item
@@ -72,8 +78,6 @@ _UNPORTED_KEYS = (
     ("jax_process_id", "[mesh] process-id", _ITEM_15),
     ("mesh_peers", "[mesh] peers", _ITEM_15),
     ("mesh_sequencer", "[mesh] sequencer", _ITEM_15),
-    ("faults_rules", "[faults] rules", _ITEM_14),
-    ("obs_history", "[observability] history", _ITEM_14),
 )
 
 
@@ -118,6 +122,7 @@ class Server:
         self._http_thread = None
         self._closing = threading.Event()
         self._monitors = []
+        self.diagnostics = None
 
     def _refuse_unported(self):
         cfg, defaults = self.config, Config()
@@ -126,10 +131,6 @@ class Server:
                 raise NotImplementedError(
                     f"{key} = {getattr(cfg, attr)!r}: not served by pilosa_tpu_torch yet: "
                     f"ROADMAP.md {item}")
-        if cfg.metric_service == "statsd":
-            raise NotImplementedError(
-                f"[metric] service = 'statsd': not served by pilosa_tpu_torch yet: "
-                f"ROADMAP.md {_ITEM_14}")
         if cfg.mesh_devices not in (-1, 0, 1):
             raise NotImplementedError(
                 f"[mesh] devices = {cfg.mesh_devices!r}: one card serves here; more are "
@@ -143,8 +144,16 @@ class Server:
         return StandardLogger()
 
     def _make_stats(self):
-        if self.config.metric_service == "expvar":
+        svc = self.config.metric_service
+        if svc == "expvar":
             return ExpvarStatsClient()
+        if svc == "statsd":
+            try:
+                from .util.statsd import StatsdClient
+
+                return StatsdClient(self.config.metric_host)
+            except Exception:
+                return NopStatsClient()
         return NopStatsClient()
 
     def _make_tracer(self):
@@ -207,6 +216,7 @@ class Server:
     def _open_bound(self, host: str, port: int):
         self.journal.node = self.node_id
         self.translate_store.open()
+        self._setup_faults(host, port)
         self.holder.open()
         if self.config.mesh_devices >= 0:
             # [engine] device-budget-bytes: the soft device working-set
@@ -215,6 +225,10 @@ class Server:
                 self.holder, device=self.device,
                 max_resident_bytes=self.config.engine_device_budget_bytes or None,
                 logger=self.logger, journal=self.journal)
+            # Seed the warm start's cost order from the last run's
+            # per-tenant device-cost EWMAs: a restarted node re-warms its
+            # hot tenants' stacks first.
+            self._load_tenant_costs()
         node = {"id": self.node_id, "uri": _advertise_uri(host, port, self.scheme),
                 "isCoordinator": True}
         self.api = API(
@@ -239,8 +253,69 @@ class Server:
             "pilosa-tpu listening on %s:%d (node %s, %s)", host, port, self.node_id,
             self.device,
         )
+        # After serve(): process-mode sampling needs api.process_server and
+        # the handler, both wired by serve().
+        self._setup_observability()
         self._start_monitors()
         return self
+
+    def _setup_faults(self, host: str, port: int):
+        """Stamp this node's identity (node id, advertised HTTP endpoint)
+        onto the process-global fault plane and install the boot-time
+        ``[faults]`` rules."""
+        from .net.faults import PLANE
+
+        PLANE.set_local({self.node_id, _advertise_uri(host, port, self.scheme)})
+        if self.config.faults_rules:
+            PLANE.configure(self.config.faults_rules, self.config.faults_seed)
+            self.journal.append("faults.configure", rules=len(self.config.faults_rules),
+                                seed=self.config.faults_seed, via="config")
+
+    def _setup_observability(self):
+        """The self-hosted metrics history and the SLO watcher: a
+        background tick samples every registry series into the ``_system``
+        index (util/history.py) and evaluates the configured SLO burn
+        rates against it (util/slo.py).  Off unless ``[observability]
+        history = true``."""
+        cfg = self.config
+        if not cfg.obs_history:
+            return
+        from .util.heat import HEAT
+        from .util.history import HistorySampler
+        from .util.slo import SLOWatcher
+
+        snapshot_fn = None
+        ps = self.api.process_server
+        if ps is not None:
+            # Process mode: one history for the whole node, sampled from
+            # the aggregated exposition /metrics serves (this process and
+            # every worker's registry), parsed back into snapshot shape.
+            from .util.stats import snapshot_from_exposition
+
+            handler = getattr(getattr(self._http, "RequestHandlerClass", None), "handler",
+                              None)
+            if handler is not None:
+                snapshot_fn = lambda: snapshot_from_exposition(  # noqa: E731
+                    ps.aggregate_metrics(handler))
+        self.api.history = HistorySampler(
+            self.api, node=self.node_id, interval=cfg.obs_sample_interval,
+            retention=cfg.obs_retention, snapshot_fn=snapshot_fn)
+        # Pull-time gauges refresh just before each sample, so the history
+        # tracks the residency gap at tick granularity.
+        self.api.history.pre_tick_hooks.append(HEAT.refresh_gauges)
+        self.api.slo = SLOWatcher(
+            self.api, self.api.history, node=self.node_id,
+            error_rate_target=cfg.obs_slo_error_rate,
+            latency_p95_ms_target=cfg.obs_slo_latency_p95_ms,
+            window=cfg.obs_slo_window, burn_threshold=cfg.obs_slo_burn_threshold,
+            data_dir=self.data_dir, max_bundles=cfg.obs_flightrec_max_bundles)
+        self.journal.append("observability.start", interval=cfg.obs_sample_interval,
+                            retention=cfg.obs_retention, processMode=ps is not None)
+        self._spawn(self._observability_tick, cfg.obs_sample_interval)
+
+    def _observability_tick(self):
+        self.api.history.tick()
+        self.api.slo.tick()
 
     def _server_opts(self) -> dict:
         """Serving-tier knobs for bind_http (docs/serving.md): backend
@@ -298,9 +373,15 @@ class Server:
         # Runtime metrics loop (server.go monitorRuntime :726).
         if self.config.metric_poll_interval > 0:
             self._spawn(self._monitor_runtime, self.config.metric_poll_interval)
-        # The diagnostics loop ([metric] diagnostics, util/diagnostics.py)
-        # waits for ROADMAP.md Queue 1 item 14; with no version-check URL
-        # (the default) the reference's loop sends nothing either.
+        # Diagnostics loop (server.go monitorDiagnostics :675); with no
+        # endpoint and no version-check URL (the defaults) nothing leaves
+        # the host.
+        if self.config.metric_diagnostics:
+            from .util.diagnostics import Diagnostics
+
+            self.diagnostics = Diagnostics(
+                api=self.api, logger=self.logger,
+                version_url=self.config.diagnostics_version_url).start()
 
     def _warm_start(self):
         try:
@@ -335,6 +416,45 @@ class Server:
                 for v in f.views.values():
                     for frag in v.fragments.values():
                         frag.flush_cache()
+        # The per-tenant cost EWMAs persist on the same tick: a small
+        # snapshot that orders the next boot's warm start.
+        self._save_tenant_costs()
+
+    # Persisted per-tenant device-cost EWMAs: the warm start's order
+    # survives restarts.
+    TENANT_COSTS_FILE = ".tenant_costs"
+
+    def _tenant_costs_path(self) -> str:
+        return os.path.join(self.data_dir, self.TENANT_COSTS_FILE)
+
+    def _save_tenant_costs(self):
+        from .util import plans as plans_mod
+
+        try:
+            snap = plans_mod.LEDGER.ewma_snapshot()
+            if not snap:
+                return
+            tmp = self._tenant_costs_path() + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({t: round(v, 9) for t, v in snap.items()}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._tenant_costs_path())
+        except Exception as e:  # noqa: BLE001 — telemetry persistence
+            self.logger.printf("tenant-cost snapshot failed: %s", e)
+
+    def _load_tenant_costs(self):
+        from .util import plans as plans_mod
+
+        try:
+            with open(self._tenant_costs_path()) as f:
+                doc = json.load(f)
+            if isinstance(doc, dict):
+                plans_mod.LEDGER.seed_costs(doc)
+        except FileNotFoundError:
+            pass
+        except Exception as e:  # noqa: BLE001 — a corrupt snapshot: cold order
+            self.logger.printf("tenant-cost snapshot unreadable: %s", e)
 
     def _monitor_runtime(self):
         """Runtime metrics loop (server.go monitorRuntime :726-790:
@@ -355,6 +475,10 @@ class Server:
     def close(self):
         self._closing.set()
         self.journal.append("server.shutdown", node=self.node_id)
+        # Persist the warm start's order before teardown.
+        self._save_tenant_costs()
+        if self.diagnostics is not None:
+            self.diagnostics.close()
         # The engine closes only after the HTTP socket stops accepting.
         if self._http is not None:
             if self._http_thread is not None:

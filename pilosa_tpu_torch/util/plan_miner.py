@@ -9,12 +9,10 @@ is learnable from the plans alone.
 
 A copy of the online half of ``pilosa_tpu/util/plan_miner.py`` (stdlib
 only; the parser and ``fusion.subtree_texts`` are the port's own).  The
-reference feeds ``MINER`` from its heat recorder
-(``pilosa_tpu/util/heat.py:279-282``); here ``observe_plan``, a
-finish-side observer of ``util/plans.py``, feeds it the same way.  The
-reference's offline reports (``mine``, ``mine_sequences`` and their
-renderers, used only by its ``scripts/plan_miner.py``) and the prefetch
-advisor's ``predict_next`` come with the port of their callers
+heat recorder (``util/heat.py``) feeds ``MINER`` every recorded plan, and
+the prefetch advisor reads ``predict_next``.  The reference's offline
+reports (``mine``, ``mine_sequences`` and their renderers, used only by
+its ``scripts/plan_miner.py``) come with the port of that script
 (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
@@ -22,8 +20,6 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
-
-from . import plans as plans_mod
 
 # Top-level call names whose first child is a mask (Row) tree; a bare
 # bitmap call is its own mask.
@@ -150,6 +146,25 @@ class TransitionModel:
                 edge[0] += 1
                 edge[1] += dt
 
+    def predict_next(self, sig: str) -> Optional[Tuple[str, float]]:
+        """Fast single-best path for the per-query advisor hot loop:
+        ``(next_sig, probability)`` or None — one pass, no list build,
+        no sort (ties break on insertion order, oldest edge wins)."""
+        with self._lock:
+            succ = self._next.get(sig)
+            if not succ:
+                return None
+            total = 0
+            best = None
+            best_n = 0
+            for nxt, e in succ.items():
+                n = e[0]
+                total += n
+                if n > best_n:
+                    best_n = n
+                    best = nxt
+            return best, best_n / total
+
     def predictions(self, sig: str,
                     top: int = 3) -> List[Tuple[str, float, float, int]]:
         """``[(next_sig, probability, avg_gap_ms, count), ...]`` ranked
@@ -201,21 +216,6 @@ class TransitionModel:
             self.edges_observed = 0
 
 
-# Process-wide model fed by every recorded plan (``observe_plan``);
-# served at GET /debug/sequences.
+# Process-wide model fed by the heat recorder (util/heat.py observes every
+# recorded plan); served at GET /debug/sequences.
 MINER = TransitionModel()
-
-
-def observe_plan(plan):
-    """Feed one recorded plan to ``MINER``, as the reference's heat
-    recorder does: the plan's signature at its start time.  The
-    ``_system`` self-metrics indexes (a leading ``_``) stay out of the
-    traffic model."""
-    index = getattr(plan, "index", None)
-    query = getattr(plan, "query", None)
-    if not index or index.startswith("_") or not query:
-        return
-    MINER.observe(signature(index, query), float(plan.start_wall))
-
-
-plans_mod.add_observer(observe_plan)

@@ -541,6 +541,11 @@ class TenantLedger:
         # update, the five pilosa_tenant_* series sync at scrape time —
         # pull-time collection, same as the engine/cache gauges.
         self._flushed: Dict[str, list] = {}
+        # tenant -> EWMA device-seconds per query: the ledger's copy of the
+        # measured-cost signal.  Eviction prices stacks by it
+        # (TorchEngine.cost_of_index), warm start orders its builds by it,
+        # and the server persists and reseeds it across restarts.
+        self._ewma: Dict[str, float] = {}
         self._admission = None
 
     def bind_admission(self, admission):
@@ -585,6 +590,10 @@ class TenantLedger:
                 )
         return tenant, row, self._series[tenant]
 
+    # EWMA smoothing of the ledger's cost signal (the admission
+    # controller's COST_EWMA).
+    COST_EWMA = 0.2
+
     def account(self, plan: QueryPlan):
         dev, touched, skipped = plan.tallies()
         with self._lock:
@@ -593,9 +602,37 @@ class TenantLedger:
             row[1] += dev
             row[2] += touched
             row[3] += skipped
+            prev = self._ewma.get(tenant)
+            self._ewma[tenant] = (
+                dev if prev is None
+                else (1 - self.COST_EWMA) * prev + self.COST_EWMA * dev
+            )
         adm = self._admission
         if adm is not None and hasattr(adm, "note_cost"):
             adm.note_cost(tenant, dev)
+
+    def cost_ewma(self, tenant: str) -> float:
+        """The tenant's measured device-cost EWMA (0.0 when unseen): the
+        eviction and warm-start pricing signal."""
+        with self._lock:
+            return self._ewma.get(tenant, 0.0)
+
+    def ewma_snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._ewma)
+
+    def seed_costs(self, costs: Dict[str, float]):
+        """Reseed the cost EWMAs from a persisted snapshot (server boot:
+        warm start orders its builds by the last run's hot tenants).  A
+        tenant that already has a live signal keeps it."""
+        with self._lock:
+            for tenant, v in costs.items():
+                try:
+                    v = float(v)
+                except (TypeError, ValueError):
+                    continue
+                if tenant not in self._ewma and v > 0:
+                    self._ewma[str(tenant)] = v
 
     def note_shed(self, tenant: str):
         with self._lock:
@@ -643,6 +680,7 @@ class TenantLedger:
         with self._lock:
             self._tenants.clear()
             self._flushed.clear()
+            self._ewma.clear()
             # Registry counters stay at their last-flushed values
             # (monotonic contract); only the ledger's own view resets.
 

@@ -8,9 +8,10 @@ Prometheus exposition, ``REGISTRY``, the ``METRIC_*`` names the serving
 modules record, ``diff_rates`` and the ``NopStatsClient`` /
 ``ExpvarStatsClient`` / ``MultiStatsClient`` backends, the per-tenant
 cost series (``pilosa_tenant_*``, fed by ``util/plans.py``), the
-process-mode gauges and ``merge_expositions``.  What waits for ROADMAP.md
-Queue 1 item 14: the OpenMetrics exposition with its trace-id exemplars.
-The engine's fusion counters are plain attributes, named below with the
+process-mode gauges, ``merge_expositions`` and
+``snapshot_from_exposition``, the working-set heat, advisor, history, SLO
+and fault-plane series, and the OpenMetrics exposition whose ``_bucket``
+samples carry trace-id exemplars.  The engine's fusion counters are plain attributes, named below with the
 series that ``/metrics`` publishes them under.
 """
 
@@ -62,9 +63,43 @@ METRIC_ENGINE_HOST_FALLBACKS = "pilosa_engine_host_fallbacks_total"
 METRIC_ENGINE_RESIDENT_BLOCK_FRACTION = "pilosa_engine_resident_block_fraction"
 METRIC_ENGINE_EVICTIONS = "pilosa_engine_evictions_total"
 # The {cause=} of pilosa_engine_promotions_total: "reactive" (a query missed
-# and the worker chased it) or "warm_start" (restart admission).  The
-# reference's "advisor" cause (promote-ahead) comes with parallel/advisor.py,
-# ROADMAP.md Queue 1 item 14.
+# and the worker chased it), "warm_start" (restart admission) or "advisor"
+# (promote-ahead, parallel/advisor.py).
+# -- working-set heat and the prefetch advisor (pilosa_tpu/util/stats.py:452-469)
+#   pilosa_engine_heat_tracked_rows         gauge: rows with live heat state
+#   pilosa_engine_residency_gap_bytes       gauge: bytes of HOT rows not
+#                                           resident on the card (0 when the
+#                                           working set is resident)
+#   pilosa_advisor_predictions_total        rows the prefetch advisor
+#                                           predicted the next query touches
+#   pilosa_advisor_hits_total               predicted rows the next query
+#                                           touched
+#   pilosa_advisor_misses_total             predicted rows it did not touch
+METRIC_ENGINE_HEAT_TRACKED_ROWS = "pilosa_engine_heat_tracked_rows"
+METRIC_ENGINE_RESIDENCY_GAP = "pilosa_engine_residency_gap_bytes"
+METRIC_ADVISOR_PREDICTIONS = "pilosa_advisor_predictions_total"
+METRIC_ADVISOR_HITS = "pilosa_advisor_hits_total"
+METRIC_ADVISOR_MISSES = "pilosa_advisor_misses_total"
+# -- fault plane (net/faults.py) ----------------------------------------------
+#   pilosa_faults_injected_total{action=}   fault-plane injections
+#                                           (drop | delay | error | partition)
+METRIC_FAULTS_INJECTED = "pilosa_faults_injected_total"
+# -- self-hosted metrics history and the SLO watcher (util/history.py,
+# util/slo.py)
+#   pilosa_history_samples_total            series values written to _system
+#   pilosa_history_ticks_total              sampler passes completed
+#   pilosa_history_views_dropped_total      hour views retired by retention
+#   pilosa_history_dropped_total{reason=}   values not stored
+#                                           (stride | clamp | error)
+#   pilosa_history_tick_seconds             histogram: one sampler pass
+#   pilosa_slo_burn_total{slo=}             SLO burn events journaled
+METRIC_HISTORY_SAMPLES = "pilosa_history_samples_total"
+METRIC_HISTORY_TICKS = "pilosa_history_ticks_total"
+METRIC_HISTORY_VIEWS_DROPPED = "pilosa_history_views_dropped_total"
+METRIC_HISTORY_DROPPED = "pilosa_history_dropped_total"
+METRIC_HISTORY_TICK_SECONDS = "pilosa_history_tick_seconds"
+METRIC_SLO_BURN = "pilosa_slo_burn_total"
+HISTORY_DROP_REASONS = ("stride", "clamp", "error")
 
 # Fixed log-spaced latency buckets (seconds), 100 us .. 60 s.  Fixed
 # buckets (not reservoirs) keep observe() O(log B) with bounded memory.
@@ -77,9 +112,14 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 class Histogram:
     """Fixed-bucket latency histogram with linear-interpolation quantile
     estimation.  Thread-safe; observe() is a bisect + one locked
-    increment."""
+    increment.
 
-    __slots__ = ("buckets", "_counts", "sum", "count", "_lock")
+    Exemplars (OpenMetrics): ``observe(v, exemplar=trace_id)`` keeps the
+    most recent (trace id, value, wall time) per bucket, one slot a bucket
+    allocated at the first exemplar: what links a latency bucket to its
+    plan at /debug/plans."""
+
+    __slots__ = ("buckets", "_counts", "sum", "count", "_lock", "_exemplars")
 
     def __init__(self, buckets: Tuple[float, ...] = DEFAULT_BUCKETS):
         self.buckets = tuple(buckets)
@@ -87,13 +127,25 @@ class Histogram:
         self.sum = 0.0
         self.count = 0
         self._lock = threading.Lock()
+        self._exemplars = None  # lazy: [(trace_id, value, wall_ts) | None]
 
-    def observe(self, value: float):
+    def observe(self, value: float, exemplar: Optional[str] = None):
         i = bisect.bisect_left(self.buckets, value)
         with self._lock:
             self._counts[i] += 1
             self.sum += value
             self.count += 1
+            if exemplar:
+                ex = self._exemplars
+                if ex is None:
+                    ex = self._exemplars = [None] * (len(self.buckets) + 1)
+                ex[i] = (exemplar, value, time.time())
+
+    def exemplars(self) -> Optional[list]:
+        """A consistent copy of the per-bucket exemplar slots (None when no
+        exemplar was ever attached)."""
+        with self._lock:
+            return None if self._exemplars is None else list(self._exemplars)
 
     def export(self) -> Tuple[List[int], float, int]:
         """One consistent (counts, sum, count) triple taken under the lock."""
@@ -324,8 +376,14 @@ class MetricsRegistry:
             parts.append(extra)
         return "{" + ",".join(parts) + "}" if parts else ""
 
-    def prometheus_text(self) -> str:
-        """The whole registry in the classic Prometheus text exposition."""
+    def prometheus_text(self, openmetrics: bool = False) -> str:
+        """The whole registry in the Prometheus text exposition.
+
+        ``openmetrics=True`` gives the OpenMetrics exposition: ``_bucket``
+        samples carry their most recent exemplar (``# {trace_id="..."}
+        value timestamp``), counter families drop ``_total`` in HELP/TYPE,
+        and the text ends with ``# EOF``.  The classic text (the default)
+        stays exemplar-free: its consumers reject the suffix."""
         with self._lock:
             hists = {n: dict(s) for n, s in self._hists.items()}
             counters = {n: dict(s) for n, s in self._counters.items()}
@@ -337,21 +395,37 @@ class MetricsRegistry:
             lines.append(f"# HELP {pname} {helps.get(name, name)}")
             lines.append(f"# TYPE {pname} histogram")
             for key in sorted(hists[name]):
-                counts, h_sum, h_count = hists[name][key].export()
+                h = hists[name][key]
+                counts, h_sum, h_count = h.export()
+                exemplars = h.exemplars() if openmetrics else None
+
+                def ex_suffix(i: int) -> str:
+                    if exemplars is None or exemplars[i] is None:
+                        return ""
+                    tid, val, ts = exemplars[i]
+                    esc = str(tid).replace("\\", "\\\\").replace('"', '\\"')
+                    return f' # {{trace_id="{esc}"}} {_prom_float(val)} {_prom_float(ts)}'
+
                 running = 0
-                for i, bound in enumerate(hists[name][key].buckets):
+                for i, bound in enumerate(h.buckets):
                     running += counts[i]
                     le = self._fmt_labels(key, f'le="{_prom_float(bound)}"')
-                    lines.append(f"{pname}_bucket{le} {running}")
+                    lines.append(f"{pname}_bucket{le} {running}{ex_suffix(i)}")
                 le = self._fmt_labels(key, 'le="+Inf"')
-                lines.append(f"{pname}_bucket{le} {running + counts[-1]}")
+                lines.append(f"{pname}_bucket{le} {running + counts[-1]}"
+                             f"{ex_suffix(len(h.buckets))}")
                 lbl = self._fmt_labels(key)
                 lines.append(f"{pname}_sum{lbl} {_prom_float(h_sum)}")
                 lines.append(f"{pname}_count{lbl} {h_count}")
         for name in sorted(counters):
             pname = _prom_name(name)
-            lines.append(f"# HELP {pname} {helps.get(name, name)}")
-            lines.append(f"# TYPE {pname} counter")
+            # OpenMetrics names a counter family without its _total suffix;
+            # the sample lines are the same in both formats.
+            fam = pname
+            if openmetrics and fam.endswith("_total"):
+                fam = fam[: -len("_total")]
+            lines.append(f"# HELP {fam} {helps.get(name, name)}")
+            lines.append(f"# TYPE {fam} counter")
             for key in sorted(counters[name]):
                 lbl = self._fmt_labels(key)
                 lines.append(f"{pname}{lbl} {_prom_float(counters[name][key].get())}")
@@ -362,6 +436,8 @@ class MetricsRegistry:
             for key in sorted(gauges[name]):
                 lbl = self._fmt_labels(key)
                 lines.append(f"{pname}{lbl} {_prom_float(gauges[name][key])}")
+        if openmetrics:
+            lines.append("# EOF")
         return "\n".join(lines) + "\n"
 
     def snapshot(self) -> dict:
@@ -438,6 +514,9 @@ METRIC_INGEST_BITS = "pilosa_ingest_bits_total"
 METRIC_INGEST_CHANGED = "pilosa_ingest_changed_total"
 METRIC_INGEST_SECONDS = "pilosa_ingest_seconds"
 INGEST_PATHS = ("bits", "values", "roaring")
+# The history sampler's own writes to _system: kept out of INGEST_PATHS so
+# that the series it records do not count its writes.
+INGEST_PATH_SYSTEM = "system"
 #   pilosa_engine_stack_rebuilds_total / _updates_total: TorchEngine's
 #   stack_rebuilds and stack_updates, published at scrape time
 METRIC_ENGINE_REBUILDS = "pilosa_engine_stack_rebuilds_total"
@@ -510,6 +589,30 @@ for _path in INGEST_PATHS:
     REGISTRY.histogram(METRIC_INGEST_SECONDS, help="Host time per import batch (seconds)",
                        path=_path)
 REGISTRY.counter(METRIC_INGEST_CHANGED, help="Bits changed by roaring imports")
+REGISTRY.counter(METRIC_INGEST_BATCHES, help="Import batches applied", path=INGEST_PATH_SYSTEM)
+REGISTRY.counter(METRIC_INGEST_BITS, help="Bits carried by import batches",
+                 path=INGEST_PATH_SYSTEM)
+REGISTRY.histogram(METRIC_INGEST_SECONDS, help="Host time per import batch (seconds)",
+                   path=INGEST_PATH_SYSTEM)
+REGISTRY.set_gauge(METRIC_ENGINE_HEAT_TRACKED_ROWS, 0)
+REGISTRY.set_gauge(METRIC_ENGINE_RESIDENCY_GAP, 0)
+REGISTRY.counter(METRIC_ADVISOR_PREDICTIONS,
+                 help="Rows the prefetch advisor predicted the next query would touch")
+REGISTRY.counter(METRIC_ADVISOR_HITS,
+                 help="Advisor-predicted rows the next query actually touched")
+REGISTRY.counter(METRIC_ADVISOR_MISSES, help="Advisor-predicted rows the next query did not touch")
+for _action in ("drop", "delay", "error", "partition"):
+    REGISTRY.counter(METRIC_FAULTS_INJECTED, help="Deterministic fault-plane injections",
+                     action=_action)
+REGISTRY.counter(METRIC_HISTORY_SAMPLES, help="Series values the history sampler stored in _system")
+REGISTRY.counter(METRIC_HISTORY_TICKS, help="History sampler passes completed")
+REGISTRY.counter(METRIC_HISTORY_VIEWS_DROPPED,
+                 help="_system time-quantum views retired by retention")
+for _reason in HISTORY_DROP_REASONS:
+    REGISTRY.counter(METRIC_HISTORY_DROPPED, help="Series values the sampler could not store",
+                     reason=_reason)
+REGISTRY.histogram(METRIC_HISTORY_TICK_SECONDS, help="Cost of one history sampler pass (seconds)")
+del _action, _reason
 
 
 class StatsClient:
@@ -743,3 +846,84 @@ def merge_expositions(primary: str, others: Dict[str, str]) -> str:
         else:
             out.extend(tail_lines)
     return "\n".join(out) + "\n"
+
+
+def snapshot_from_exposition(text: str) -> dict:
+    """Parse a classic Prometheus exposition back into the
+    ``MetricsRegistry.snapshot()`` shape (pilosa_tpu/util/stats.py:1119).
+
+    In process mode the history sampler runs in the device owner but must
+    see the whole node, so it samples the merged exposition
+    (``aggregate_metrics``) instead of the local registry.  Counters and
+    gauges map directly (by their # TYPE lines); histograms are rebuilt
+    from their cumulative ``_bucket`` lines against DEFAULT_BUCKETS, so
+    p50/p95 come out of ``Histogram.snapshot``'s quantile math."""
+    types: Dict[str, str] = {}
+    for fam, meta in _exposition_meta(text).items():
+        for line in meta:
+            parts = line.split()
+            if len(parts) >= 4 and parts[1] == "TYPE":
+                types[fam] = parts[3]
+    counters: Dict[str, Dict[str, float]] = {}
+    gauges: Dict[str, Dict[str, float]] = {}
+    # histogram family -> label_str -> {"buckets": {le: v}, "sum", "count"}
+    hraw: Dict[str, Dict[str, dict]] = {}
+
+    def split_key(key: str):
+        if "{" in key:
+            name, _, rest = key.partition("{")
+            pairs = []
+            for k, v in re.findall(r'([A-Za-z0-9_]+)="((?:[^"\\]|\\.)*)"', rest.rstrip("}")):
+                v = v.replace('\\"', '"').replace("\\n", "\n").replace("\\\\", "\\")
+                pairs.append((k, v))
+            return name, pairs
+        return key, []
+
+    def label_str(pairs) -> str:
+        return ",".join(f"{k}={v}" for k, v in pairs) or "_"
+
+    for key, v, _suffix in _iter_samples(text):
+        name, pairs = split_key(key)
+        base = name
+        kind = None
+        for strip in ("_bucket", "_sum", "_count"):
+            if name.endswith(strip) and types.get(name[: -len(strip)]) == "histogram":
+                base = name[: -len(strip)]
+                kind = strip
+                break
+        if kind is not None:
+            le = None
+            core = [(k, lv) for k, lv in pairs if k != "le"]
+            for k, lv in pairs:
+                if k == "le":
+                    le = lv
+            ent = hraw.setdefault(base, {}).setdefault(
+                label_str(core), {"buckets": {}, "sum": 0.0, "count": 0.0})
+            if kind == "_bucket" and le is not None:
+                ent["buckets"][le] = v
+            elif kind == "_sum":
+                ent["sum"] = v
+            elif kind == "_count":
+                ent["count"] = v
+            continue
+        t = types.get(name)
+        if t == "counter":
+            counters.setdefault(name, {})[label_str(pairs)] = v
+        elif t == "gauge":
+            gauges.setdefault(name, {})[label_str(pairs)] = v
+
+    histograms: Dict[str, Dict[str, dict]] = {}
+    for fam, series in hraw.items():
+        out = histograms.setdefault(fam, {})
+        for ls, ent in series.items():
+            h = Histogram()
+            cumulative = [ent["buckets"].get(_prom_float(b), 0.0) for b in DEFAULT_BUCKETS]
+            cumulative.append(ent["buckets"].get("+Inf", ent["count"]))
+            prev = 0.0
+            for i, c in enumerate(cumulative):
+                h._counts[i] = max(0, int(round(c - prev)))
+                prev = max(prev, c)
+            h.count = int(ent["count"])
+            h.sum = float(ent["sum"])
+            out[ls] = h.snapshot()
+    return {"histograms": histograms, "counters": counters, "gauges": gauges}

@@ -152,7 +152,11 @@ def test_import_is_jax_free():
     serve a query under a budget below one stack (a miss, the promotion,
     then the query warm from the pool), process mode and the query plans
     (``net.ipc``, ``net.worker``, ``net.procserver``, ``util.plans``,
-    ``util.plan_miner``) import and record a profiled query's plan, and no
+    ``util.plan_miner``) import and record a profiled query's plan, the
+    observability modules (``util.heat``, ``parallel.advisor``,
+    ``util.history``, ``util.slo``, ``net.faults``, ``util.statsd``,
+    ``util.diagnostics``, ``util.fanout``) import, a budgeted query records
+    heat, drives an advisor promotion and ticks the history once, and no
     module of pilosa_tpu is loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
@@ -247,6 +251,34 @@ def test_import_is_jax_free():
         "assert r.results == [1] and r.plan['ops'][0]['path'] == 'sparse', r.plan\n"
         "assert plans.STORE.recorded >= 1 and plan_miner.MINER.observed >= 1\n"
         "a.close()\n"
+        "for name in ('util.heat', 'parallel.advisor', 'util.history', 'util.slo', 'net.faults',\n"
+        "             'util.statsd', 'util.diagnostics', 'util.fanout'):\n"
+        "    importlib.import_module('pilosa_tpu_torch.' + name)\n"
+        "import gc\n"
+        "from pilosa_tpu_torch.parallel.advisor import ADVISOR\n"
+        "from pilosa_tpu_torch.util.heat import HEAT\n"
+        "from pilosa_tpu_torch.util.history import HistorySampler\n"
+        "from pilosa_tpu_torch.util.slo import SLOWatcher\n"
+        "hh = Holder(device='cpu'); hh.open(); ix = hh.create_index('h')\n"
+        "for name in ('a', 'b'):\n"
+        "    ix.create_field(name).import_bulk([r for r in range(16) for _ in range(2)],\n"
+        "                                      [c + (r % 8) * 16384 for r in range(16) for c in (0, 2)])\n"
+        "eh = TorchEngine(hh, device='cpu', max_resident_bytes=24 * 1024)\n"
+        "eh.result_memo.maxsize = 0\n"
+        "split = eh.residency_row_split  # a miss's promotion lands before the advice reads\n"
+        "eh.residency_row_split = lambda key, rows: (eh.residency.flush(30.0), split(key, rows))[1]\n"
+        "ah = API(holder=hh, engine=eh)\n"
+        "for k in range(6):\n"
+        "    qh = 'Count(Intersect(Row(a=2), Row(a=10)))' if k % 2 == 0 else 'Count(Intersect(Row(b=4), Row(b=12)))'\n"
+        "    assert ah.query(QueryRequest('h', qh)).results == [2]\n"
+        "    assert eh.residency.flush(30.0); gc.collect()\n"
+        "assert HEAT.totals()['plansObserved'] >= 6 and HEAT.to_doc('h')['tables']\n"
+        "assert ADVISOR.driven_requests >= 1, ADVISOR.to_doc()\n"
+        "assert 'advisor' in {e.fields.get('cause') for e in eh.journal.events(type='engine.promotion')}\n"
+        "hs = HistorySampler(ah, interval=1.0)\n"
+        "assert hs.tick(now=1.7e9) > 0 and 'pilosa_engine_residency_gap_bytes' in hs.series_names()\n"
+        "SLOWatcher(ah, hs, error_rate_target=0.01).tick(now=1.7e9)\n"
+        "ah.close()\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"

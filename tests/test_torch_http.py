@@ -27,6 +27,7 @@ Ids, counts, keys and bytes are discrete: exact agreement (tolerance 0)."""
 
 import http.client
 import json
+import re
 import threading
 
 import numpy as np
@@ -418,9 +419,11 @@ def test_unported_routes_answer_501(method, pattern, item):
 
 
 def test_unported_options_answer_501():
-    """A remote replay, a remote import and the OpenMetrics exposition
-    answer 501 naming their items; a query plan (?profile=1) answers 200
-    with its plan (its differential is ``test_profile_answers_as_the_reference``)."""
+    """A remote replay and a remote import answer 501 naming their items; a
+    query plan (?profile=1) answers 200 with its plan (its differential is
+    ``test_profile_answers_as_the_reference``), and the OpenMetrics
+    exposition answers 200 (its differential is
+    ``test_openmetrics_exemplars_as_the_reference``)."""
     a = tapi.API(device="cpu")
     a.create_index("i")
     a.create_field("i", "f")
@@ -436,9 +439,9 @@ def test_unported_options_answer_501():
         ]:
             status, _, out = send(port, "POST", path, body, headers)
             assert status == 501 and item in json.loads(out)["error"], (path, out)
-        status, _, out = send(port, "GET", "/metrics", b"",
-                              {"Accept": "application/openmetrics-text"})
-        assert status == 501 and "item 14" in json.loads(out)["error"]
+        status, ctype, out = send(port, "GET", "/metrics", b"",
+                                  {"Accept": "application/openmetrics-text"})
+        assert status == 200 and ctype.startswith("application/openmetrics-text")
         status, ctype, out = send(port, "GET", "/metrics")
         assert status == 200 and ctype.startswith("text/plain")
         assert b"pilosa_server_requests_total" in out
@@ -475,9 +478,9 @@ def _close_nodes(apis, servers):
 
 
 # Timings, and what is derived from them: the slow-plan retention ("slow",
-# plans past 100 ms) and the queue-wait note; the reference's "touches".
+# plans past 100 ms) and the queue-wait note.
 _TIMING = ("startTime", "durationMs", "deviceSeconds", "stagesMs", "traceID", "seconds",
-           "touches", "avgGapMs", "slow")
+           "avgGapMs", "slow")
 
 
 def _untimed(doc):
@@ -544,6 +547,53 @@ def test_plan_routes_answer_as_the_reference(route):
             docs = [_untimed(json.loads(g[2])) for g in got]
             assert docs[1] == docs[0], (route, query)
         assert docs[1] != {}
+    finally:
+        _close_nodes(apis, servers)
+
+
+_EXEMPLAR = re.compile(r'^(\S+) (\d+) # \{trace_id="([0-9a-f]+)"\} (\S+) (\S+)$')
+
+
+@pytest.mark.parametrize("backend", ["async", "threaded"])
+def test_openmetrics_exemplars_as_the_reference(backend):
+    """``Accept: application/openmetrics-text`` answers the OpenMetrics
+    exposition as the reference does: its content type, exemplars of the
+    shape ``# {trace_id="..."} value timestamp``, the answers' traceIDs
+    among them on the pilosa_query_seconds buckets of the same label sets,
+    counter families named without ``_total``, and ``# EOF`` last; the
+    classic exposition carries no exemplar."""
+    apis, servers = _engine_nodes(backend)
+    ports = [s.server_address[1] for s in servers]
+    try:
+        shapes = []
+        for port in ports:
+            traces = set()
+            for body in (b"Count(Intersect(Row(f=1), Row(f=2)))", b"Count(Union(Row(f=0), Row(f=3)))",
+                         b"TopN(f, n=2)"):
+                status, _, out = send(port, "POST", "/index/i/query", body)
+                assert status == 200
+                traces.add(json.loads(out)["traceID"])
+            status, ctype, out = send(port, "GET", "/metrics", b"",
+                                      {"Accept": "application/openmetrics-text"})
+            assert status == 200
+            lines = out.decode().splitlines()
+            assert lines[-1] == "# EOF"
+            series = set()
+            for line in lines:
+                m = _EXEMPLAR.match(line)
+                if m is None:
+                    assert ' # {trace_id="' not in line, line
+                    continue
+                float(m.group(4)), float(m.group(5))
+                # The registry is process-wide: only this case's queries.
+                if m.group(1).startswith("pilosa_query_seconds_bucket") and m.group(3) in traces:
+                    series.add(m.group(1).split(",le=")[0])
+            assert series
+            assert "# TYPE pilosa_server_errors counter" in lines
+            classic = send(port, "GET", "/metrics")[2].decode()
+            assert "trace_id" not in classic and "# EOF" not in classic
+            shapes.append((ctype, series))
+        assert shapes[1] == shapes[0]
     finally:
         _close_nodes(apis, servers)
 

@@ -21,11 +21,10 @@ time, duration, stage and device seconds, trace ids, an op's ``seconds``
 and the ``avgGapMs`` of a transition; and what those timings decide: the
 two analyzer notes ("queue wait dominated", and the slow-TopN note that
 a plan past 100 ms gets) and /debug/plans' retention of plans past 100
-ms (``slow``).  The reference's ops also carry ``touches``,
-the input of its working-set heat recorder (``pilosa_tpu/util/heat.py``),
-which the port does not have yet (ROADMAP.md Queue 1): that key is
-dropped from the reference's ops.  Ids, counts, bytes and plan fields are
-discrete: exact agreement (tolerance 0)."""
+ms (``slow``).  The ops' ``touches`` (the working-set heat recorder's
+input: the stacks, rows and occupied blocks each dispatch read) are
+compared with the rest.  Ids, counts, bytes and plan fields are discrete:
+exact agreement (tolerance 0)."""
 
 import json
 import os
@@ -135,8 +134,6 @@ def _req(api, q, **kw):
 def norm_op(op, ref):
     d = dict(op)
     d.pop("seconds", None)
-    if ref:
-        d.pop("touches", None)
     return d
 
 
@@ -374,7 +371,7 @@ def _get(handler, path, query=None):
 def _strip(doc):
     if isinstance(doc, dict):
         return {k: _strip(v) for k, v in doc.items()
-                if k not in TIMING + ("seconds", "touches", "avgGapMs", "slow")}
+                if k not in TIMING + ("seconds", "avgGapMs", "slow")}
     if isinstance(doc, list):
         return [_strip(v) for v in doc]
     return doc

@@ -224,6 +224,37 @@ def test_process_mode_answers_as_the_in_process_reference(nodes):
             assert "libtorch" not in f.read()
 
 
+def test_observability_routes_through_the_workers(nodes):
+    """Heat, the advisor and the fault plane live in the device owner: a
+    worker passes their routes through, so every acceptor (the two workers
+    and the owner's reactor) answers them from the owner's state."""
+    from pilosa_tpu_torch.parallel.advisor import ADVISOR
+    from pilosa_tpu_torch.util import plan_miner
+    from pilosa_tpu_torch.util.heat import HEAT
+
+    _, ta, _, _, ports, _ = nodes
+    HEAT.reset()
+    plan_miner.MINER.reset()
+    ADVISOR.reset()
+    ta.engine.result_memo.clear()
+    for _ in range(4):
+        for text in ("Count(Intersect(Row(f=1), Row(f=2)))", "Count(Intersect(Row(f=3), Row(g=1)))"):
+            status, _, out = send(ports[1], "POST", "/index/i/query", text.encode())
+            assert status == 200, out
+    docs = {}
+    for path in ("/debug/heat?index=i&topk=3", "/debug/prefetch_advice", "/debug/faults",
+                 "/debug/sequences"):
+        got = [send(ports[1], "GET", path) for _ in range(12)]
+        assert {g[0] for g in got} == {200}, got[0]
+        docs[path] = [json.loads(g[2]) for g in got]
+        assert all(d == docs[path][0] for d in docs[path]), path
+    heat = docs["/debug/heat?index=i&topk=3"][0]
+    assert heat["plansObserved"] == 8 and {t["field"] for t in heat["tables"]} == {"f", "g"}
+    assert heat == HEAT.to_doc(index="i", topk=3)
+    adv = docs["/debug/prefetch_advice"][0]
+    assert adv == ADVISOR.to_doc() and adv["outstanding"] is not None
+
+
 def test_admission_is_global_across_workers(nodes):
     _, _, _, ts, ports, adm = nodes
     tplans.LEDGER.reset()

@@ -12,13 +12,12 @@ one budget makes the same decisions.  Then the ``rowb`` pool leaf's plain
 version, and K1's, K5's and F1's plain versions over trees that mix pool
 and stack leaves, against the reference's ``apply_prog`` (JAX on the CPU).
 
-Cases of ``tests/test_residency.py`` that wait for ROADMAP.md Queue 1 item
-14 (the plan ledger, the prefetch advisor and the plan analyzer): ``:288``
-(the ledger's cost EWMA feeds the pricing), the cost order of ``:301``
-(warm start hottest tenant first; its stop-at-target half is here),
-``:360`` (the host-fallback plan annotation), ``:418`` (a write during a
-promote-ahead promotion, which the advisor drives) and ``:460`` (next-touch
-eviction by the advisor's prediction).
+The cases of ``tests/test_residency.py`` that hang off the plan ledger
+and the prefetch advisor run here against the reference too: the ledger's
+cost EWMA as the default eviction price (``:288``), the warm start's
+hottest-tenant-first order (``:301``), the host-fallback plan annotation
+(``:360``), a write during a promote-ahead promotion (``:418``) and
+next-touch eviction by the advisor's prediction (``:460``).
 """
 
 import threading
@@ -34,16 +33,22 @@ from pilosa_tpu.core.field import FieldOptions as JFieldOptions
 from pilosa_tpu.core.holder import Holder as JHolder
 from pilosa_tpu.executor import Executor as JExecutor
 from pilosa_tpu.parallel import MeshEngine, make_mesh
+from pilosa_tpu.parallel import advisor as jadvisor
 from pilosa_tpu.parallel import kernels as jkernels
+from pilosa_tpu.util import plans as jplans
+from pilosa_tpu.util.events import EventJournal as JJournal
 from pilosa_tpu_torch import pql as tpql
 from pilosa_tpu_torch.core.field import FieldOptions as TFieldOptions
 from pilosa_tpu_torch.core.holder import Holder as THolder
 from pilosa_tpu_torch.executor import Executor
+from pilosa_tpu_torch.parallel import advisor as tadvisor
 from pilosa_tpu_torch.parallel import kernels
 from pilosa_tpu_torch.parallel import residency as residency_mod
 from pilosa_tpu_torch.parallel.engine import ROW_SHARD_BYTES, TorchEngine
 from pilosa_tpu_torch.parallel.errors import (HostFallback, PeerlessMeshError, ResidencyMiss,
                                               UnsupportedLowering)
+from pilosa_tpu_torch.util import plans as tplans
+from pilosa_tpu_torch.util.events import EventJournal as TJournal
 from pilosa_tpu_torch.util.stats import REGISTRY
 
 # One (row, shard) of device words plus the occupancy and resident-block
@@ -360,9 +365,10 @@ def test_cost_priced_eviction_prefers_cold_tenants(mesh1):
 
 
 def test_lru_eviction_without_costs(mesh1):
-    """With the default pricing (no plan ledger yet: ROADMAP.md Queue 1
-    item 14) the port evicts least recently used first; the reference with
-    an empty ledger does the same."""
+    """With no cost recorded for any tenant (an empty ledger under the
+    default pricing) the port evicts least recently used first, as the
+    reference does."""
+    tplans.LEDGER.reset()
     jh, th = JHolder(), THolder(device="cpu")
     for h in (jh, th):
         h.open()
@@ -640,9 +646,8 @@ def test_manager_inflight_accounting_and_close():
 
 def test_warm_start_stops_at_target(mesh1):
     """Warm start admits up to WARM_TARGET_FRACTION of the budget and
-    stops there (the stop half of tests/test_residency.py:301; its hottest-
-    tenant-first order waits for the plan ledger, ROADMAP.md Queue 1 item
-    14)."""
+    stops there (the stop half of tests/test_residency.py:301; the
+    hottest-tenant-first half is ``test_warm_start_orders_by_cost``)."""
     th = THolder(device="cpu")
     th.open()
     for name in ("aa", "bb", "cc"):
@@ -906,3 +911,151 @@ def test_concurrent_queries_writes_and_promotions_stay_exact():
     for q in QUERIES:
         assert ex.execute("i", q).results[0] == host.execute("i", q).results[0]
     eng.close()
+
+
+# -- the plan ledger's pricing and the prefetch advisor (tests/test_residency.py
+# :288, :301, :360, :418, :460) --------------------------------------------------
+
+
+def test_ledger_cost_ewma_feeds_default_pricing(mesh1):
+    """The default eviction price is the plan ledger's per-tenant cost EWMA
+    (tests/test_residency.py:288)."""
+    jh, th = JHolder(), THolder(device="cpu")
+    engines = []
+    for h, mod in ((jh, jplans), (th, tplans)):
+        h.open()
+        h.create_index("t1").create_field("f").import_bulk([1], [0])
+        mod.LEDGER.reset()
+        mod.LEDGER.seed_costs({"t1": 0.25, "bad": "x", "zero": 0.0})
+    engines = [MeshEngine(jh, mesh1), TorchEngine(th, device="cpu")]
+    try:
+        for eng in engines:
+            assert eng._index_cost("t1") == 0.25
+            assert eng._index_cost("unknown") == 0.0
+        assert tplans.LEDGER.ewma_snapshot() == jplans.LEDGER.ewma_snapshot() == {"t1": 0.25}
+        # A live signal is never overwritten by a seed.
+        tplans.LEDGER.seed_costs({"t1": 9.0})
+        assert tplans.LEDGER.cost_ewma("t1") == 0.25
+    finally:
+        for mod in (jplans, tplans):
+            mod.LEDGER.reset()
+        for eng in engines:
+            eng.close()
+
+
+def test_warm_start_orders_by_cost(mesh1):
+    """Warm start builds the hottest tenant first and stops at the target
+    (tests/test_residency.py:301): the same stacks in the same order."""
+    jh, th = JHolder(), THolder(device="cpu")
+    for h in (jh, th):
+        h.open()
+        for name in ("aa", "bb", "cc"):
+            h.create_index(name).create_field("f").import_bulk([1], [0])
+    budget = int(2.5 * ROW_SHARD / 0.9)
+    engines = [MeshEngine(jh, mesh1, max_resident_bytes=budget),
+               TorchEngine(th, device="cpu", max_resident_bytes=budget)]
+    states = []
+    for eng in engines:
+        eng.cost_of_index = lambda index: {"bb": 9.0, "cc": 1.0}.get(index, 0.0)
+        states.append(eng.warm_start())
+    assert states[1] == states[0]
+    assert states[1]["built"] == 2 and states[1]["skipped"] == states[1]["total"] - 2
+    assert [k[0] for k in engines[1]._stacks] == [k[0] for k in engines[0]._stacks] == ["bb", "cc"]
+    for eng in engines:
+        eng.close()
+
+
+def test_host_fallback_plan_annotation(mesh1):
+    """A miss stamps the plan note the analyzer renders as "host fallback:
+    stack NN% resident" (tests/test_residency.py:360), with the same notes
+    and touches as the reference's."""
+    sides = make_sides(mesh1, 2 * ROW_SHARD + 4096)
+    plans = []
+    for s, mod in zip(sides, (jplans, tplans)):
+        mod.take_dispatch_note()
+        plan = mod.begin("i", QUERIES[0], tenant="i")
+        with mod.attach(plan):
+            s.q(QUERIES[0])
+        plans.append(plan)
+    notes = [mod.analyze(p) for mod, p in zip((jplans, tplans), plans)]
+    assert notes[1] == notes[0]
+    assert any("host fallback" in n and "resident" in n for n in notes[1]), notes[1]
+    fb = [[o.get("touches") for o in p.ops if o.get("path") == "host_fallback"] for p in plans]
+    assert fb[1] == fb[0] and fb[1]
+    close(sides)
+
+
+def test_write_during_promote_ahead_race(mesh1):
+    """A write landing during an advisor-driven promotion reconciles as a
+    demand one does (the token re-check and the in-place sync), and the
+    journal records the promotion with cause "advisor"
+    (tests/test_residency.py:418)."""
+    sides = make_sides(mesh1, 4 * ROW_SHARD + 4096)
+    journals = [JJournal(), TJournal()]
+    for s, journal in zip(sides, journals):
+        s.engine.journal = journal
+        orig = s.engine._assemble_pool_chunk
+        wrote = threading.Event()
+
+        def racing(chunk_rows, row_index, slot_of, frags, occ, orig=orig, wrote=wrote, s=s):
+            out = orig(chunk_rows, row_index, slot_of, frags, occ)
+            if not wrote.is_set():
+                wrote.set()
+                s.holder.index("i").field("f").import_bulk([10, 11], [100001, 100001])
+            return out
+
+        s.engine._assemble_pool_chunk = racing
+        assert s.engine.residency.request(("i", "f", "standard"), {10, 11}, cause="advisor")
+        s.flush()
+        assert wrote.is_set()
+        promos = journal.events(type="engine.promotion")
+        assert [e.fields.get("cause") for e in promos] == ["advisor"]
+    # The first query reconciles through the token gate and answers the
+    # write's truth (Side.q holds it to the host lane).
+    assert same(sides, lambda s: s.q(QUERIES[0])) > 0
+    assert same(sides, lambda s: sorted(s.stack().row_index)) == [10, 11]
+    close(sides)
+
+
+def test_next_touch_eviction_prefers_predicted_stack(mesh1):
+    """With no outstanding advice the price is cost then LRU (the cheapest
+    tenant goes); with advice naming a stack, that stack survives and the
+    other goes instead (tests/test_residency.py:460), on both sides."""
+    jh, th = JHolder(), THolder(device="cpu")
+    for h in (jh, th):
+        h.open()
+        for name in ("p1", "p2"):
+            h.create_index(name).create_field("f").import_bulk([1], [0])
+        h.index("p1").create_field("g").import_bulk([1], [0])
+    costs = {"p1": 0.0, "p2": 5.0}
+    budget = 2 * ROW_SHARD + 4096
+
+    def admit_third(make):
+        eng = make()
+        eng.cost_of_index = lambda index: costs.get(index, 0.0)
+        eng.field_stack("p1", "f", "standard")
+        eng.field_stack("p2", "f", "standard")
+        assert len(eng._stacks) == 2
+        eng.field_stack("p1", "g", "standard")
+        keys = list(eng._stacks)
+        eng.close()
+        return keys
+
+    makers = (lambda: MeshEngine(jh, mesh1, max_resident_bytes=budget),
+              lambda: TorchEngine(th, device="cpu", max_resident_bytes=budget))
+    try:
+        for mod in (jadvisor, tadvisor):
+            mod.ADVISOR.reset()
+        cold = [admit_third(m) for m in makers]
+        assert cold[1] == cold[0]
+        assert ("p1", "f", "standard") not in cold[1] and ("p2", "f", "standard") in cold[1]
+        for mod in (jadvisor, tadvisor):
+            with mod.ADVISOR._lock:
+                mod.ADVISOR._outstanding = ("sig", 1.0, {("p1", "f", "standard"): frozenset({1})})
+        advised = [admit_third(m) for m in makers]
+        assert advised[1] == advised[0]
+        assert ("p1", "f", "standard") in advised[1]
+        assert ("p2", "f", "standard") not in advised[1]
+    finally:
+        for mod in (jadvisor, tadvisor):
+            mod.ADVISOR.reset()

@@ -18,17 +18,30 @@ JAX package's (pilosa_tpu.server, .config).
   and shows on /debug/vars and /readyz.
 - ``[server] workers = 2`` serves in process mode, with the reference's
   Server's answers on the same data.
+- The six observability routes and three keys that answered 501 or were
+  refused before (``/debug/faults`` GET and POST, ``/debug/history``,
+  ``/debug/heat``, ``/debug/prefetch_advice``, ``/debug/flightrecorder``;
+  ``[faults] rules``, ``[observability] history``, ``[metric] service =
+  statsd``) answer 200 with the reference's document shape, or start a
+  node that serves them as the reference's does.
+- statsd datagrams byte for byte, the diagnostics payload's keys and
+  version compare, the import fan-out's width, results and errors, and
+  multi-shard imports through it.
 
 Answers are ids and counts: exact agreement (tolerance 0)."""
 
+import http.client
 import json
+import time
 
 import pytest
 import torch
 
+from pilosa_tpu import api as japi
 from pilosa_tpu.config import Config as JConfig
 from pilosa_tpu.net import InternalClient as JClient
 from pilosa_tpu.server import Server as JServer
+from pilosa_tpu_torch import api as tapi
 from pilosa_tpu_torch.config import Config as TConfig
 from pilosa_tpu_torch.net import InternalClient as TClient
 from pilosa_tpu_torch.net.client import ClientError
@@ -112,7 +125,6 @@ def test_generate_config_is_the_reference_text(tmp_path):
 
 def _refused_cases():
     cases = [(attr, key, item) for attr, key, item in _UNPORTED_KEYS]
-    cases.append(("metric_service", "[metric] service", "item 14"))
     cases.append(("mesh_devices", "[mesh] devices", "item 15"))
     return cases
 
@@ -239,6 +251,31 @@ def test_server_workers_serves_in_process_mode(tmp_path):
         assert c.readiness()["ready"] is True
         assert _answers(c) == want
         assert b'pilosa_process_up{proc="worker-1"} 1' in c._get("/metrics", raw=True)
+    finally:
+        srv.close()
+
+
+def test_history_samples_the_whole_node_in_process_mode(tmp_path):
+    """With workers, the history samples the node's aggregated exposition
+    (every worker's registry summed in, ``snapshot_from_exposition``), as
+    the reference's Server does: the per-process gauges are series of it."""
+    srv = _open(TServer, _cfg(TConfig, tmp_path / "data", server_workers=2, obs_history=True,
+                              obs_sample_interval=3600.0))
+    try:
+        assert srv._http.wait_ready(60)
+        c = _client(srv)
+        _fill(c)
+        hist = srv.api.history
+        assert hist._snapshot_fn.__name__ == "<lambda>"
+        now = float(int(time.time()))
+        assert hist.tick(now=now) > 0
+        _answers(c)
+        assert hist.tick(now=now + 3600.0) > 0
+        up = hist.query("pilosa_process_up", since=now - 1, until=now + 3601.0)["points"]
+        assert {"proc=worker-0", "proc=worker-1", "proc=engine"} <= set(up)
+        assert all(v == 1000 for series in up.values() for _, v in series)
+        rates = hist.query("pilosa_server_requests_total_rate", since=now, until=now + 3601.0)
+        assert any(v for series in rates["points"].values() for _, v in series)
     finally:
         srv.close()
 
@@ -409,3 +446,227 @@ def test_profiler_tracer_marks_spans_for_torch_profiler():
     assert [t["traceID"] for t in tracer.traces()["recent"]] == [span.trace_id]
     with NopTracer().start_span("x") as none:
         assert none is None
+
+
+# -- the observability routes and keys (formerly 501s and refusals) -------------------
+
+
+def _shape(doc):
+    """A JSON document's shape: its keys, recursively, and the type of each
+    leaf; list elements by their first entry's shape."""
+    if isinstance(doc, dict):
+        return {k: _shape(v) for k, v in doc.items()}
+    if isinstance(doc, list):
+        return [_shape(doc[0])] if doc else []
+    return type(doc).__name__ if doc is not None else None
+
+
+def _obs_pair(tmp_path, **kw):
+    """A reference Server and a port Server on data directories of their
+    own, with the same config: history on, its monitor idle (the tests
+    tick the samplers and watchers by hand, at the same instants)."""
+    kw.setdefault("obs_history", True)
+    kw.setdefault("obs_sample_interval", 3600.0)  # the test ticks by hand
+    kw.setdefault("obs_slo_error_rate", 0.01)
+    out = []
+    for cls in (JServer, TServer):
+        cfg = _cfg(JConfig if cls is JServer else TConfig, tmp_path / cls.__module__, **kw)
+        out.append(_open(cls, cfg))
+    return out
+
+
+_OBS_CASES = [
+    ("route", "GET", "/debug/faults"),
+    ("route", "POST", "/debug/faults"),
+    ("route", "GET", "/debug/history?series=pilosa_history_ticks_total_rate"),
+    ("route", "GET", "/debug/heat"),
+    ("route", "GET", "/debug/prefetch_advice"),
+    ("route", "GET", "/debug/flightrecorder"),
+    ("key", "faults_rules", ["error peer=serve route=/nothing status=503"]),
+    ("key", "obs_history", True),
+    ("key", "metric_service", "statsd"),
+]
+
+
+@pytest.mark.parametrize("kind,a,b", _OBS_CASES, ids=[f"{c[0]}-{c[1]}-{c[2]}"[:60]
+                                                        for c in _OBS_CASES])
+def test_observability_routes_and_keys_serve(tmp_path, kind, a, b):
+    """The six routes and three keys of ROADMAP.md Queue 1 item 14 that
+    answered 501 or refused the node before: each route answers 200 with
+    the reference's document shape, and a node starts with each key and
+    serves it as the reference's does."""
+    import socket
+
+    from pilosa_tpu.net.faults import PLANE as JPLANE
+    from pilosa_tpu_torch.net.faults import PLANE as TPLANE
+
+    sock = None
+    kw = {}
+    if kind == "key" and a == "metric_service":
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sock.bind(("127.0.0.1", 0))
+        sock.settimeout(5.0)
+        kw = {"metric_service": "statsd", "metric_host": f"127.0.0.1:{sock.getsockname()[1]}"}
+    elif kind == "key":
+        kw = {a: b}
+    servers = _obs_pair(tmp_path, **kw)
+    try:
+        clients = [_client(s) for s in servers]
+        for c in clients:
+            c.create_index("i")
+            c.create_field("i", "f")
+            c.query("i", "Set(1, f=1) Set(2, f=2)")
+            c.query("i", "Count(Intersect(Row(f=1), Row(f=2)))")
+        now = float(int(time.time()))
+        for s in servers:
+            if s.api.history is not None:
+                for k in range(2):
+                    s.api.history.tick(now=now + k)
+                    s.api.slo.tick(now=now + k)
+        if kind == "route":
+            body = json.dumps({"seed": 1, "rules": ["delay peer=serve route=/x ms=0"]}).encode()
+            docs = []
+            for s in servers:
+                conn = http.client.HTTPConnection("localhost", s.port, timeout=30)
+                conn.request(a, b, body=body if a == "POST" else None)
+                r = conn.getresponse()
+                assert r.status == 200, (b, r.read())
+                docs.append(json.loads(r.read()))
+                conn.close()
+            if b.startswith("/debug/flightrecorder"):
+                assert set(docs[1]) == set(docs[0])
+            else:
+                assert _shape(docs[1]) == _shape(docs[0]), b
+        elif a == "faults_rules":
+            docs = [c._get("/debug/faults") for c in clients]
+            assert docs[1]["rules"] == docs[0]["rules"] == [TPLANE.snapshot()["rules"][0]]
+            assert [e["type"] for e in servers[1].journal.to_doc(type="faults")["events"]] == [
+                "faults.configure"]
+        elif a == "obs_history":
+            vars_ = [c._get("/debug/vars") for c in clients]
+            for key in ("history", "slo"):
+                assert _shape(vars_[1][key]) == _shape(vars_[0][key]), key
+            ready = [c._get("/readyz") for c in clients]
+            assert ready[1]["degraded"] == ready[0]["degraded"] == []
+        else:
+            from pilosa_tpu_torch.util.statsd import StatsdClient
+
+            assert isinstance(servers[1].stats, StatsdClient)
+            names = set()
+            while True:
+                try:
+                    names.add(sock.recv(65536).split(b":")[0])
+                except socket.timeout:
+                    break
+                if len(names) >= 2:
+                    break
+            assert names, "no statsd datagram arrived"
+    finally:
+        for s in servers:
+            s.close()
+        for plane in (JPLANE, TPLANE):
+            plane.configure([])
+        if sock is not None:
+            sock.close()
+
+
+class _FakeSock:
+    def __init__(self):
+        self.sent = []
+
+    def sendto(self, data, addr):
+        self.sent.append((data, addr))
+
+
+def test_statsd_datagrams_are_the_reference_bytes():
+    from pilosa_tpu.util.statsd import StatsdClient as JStatsd
+    from pilosa_tpu_torch.util.statsd import StatsdClient as TStatsd
+
+    sent = []
+    for cls in (JStatsd, TStatsd):
+        sock = _FakeSock()
+        sock._statsd_addr = ("127.0.0.1", 8125)
+        c = cls(prefix="p", _sock=sock).with_tags("a:1", "b:2")
+        c.count("q", 3, rate=0.5, tags=["x:y"])
+        c.gauge("g", 1.25)
+        c.histogram("h", 7)
+        c.set("s", "v")
+        c.timing("t", 0.0005)
+        c.timing("t", 2.0)
+        c.with_tags("c:3").count("z")
+        sent.append(sock.sent)
+    assert sent[1] == sent[0]
+    assert sent[1][4][0] == b"p.t:0.5|ms|#a:1,b:2"
+
+
+def test_diagnostics_payload_keys_and_version_compare():
+    from pilosa_tpu.util.diagnostics import Diagnostics as JDiag
+    from pilosa_tpu_torch.util.diagnostics import Diagnostics as TDiag
+
+    apis = [japi.API(), tapi.API(device="cpu")]
+    for a in apis:
+        a.create_index("i")
+        a.create_field("i", "t", {"type": "time", "timeQuantum": "YMD"})
+    docs = [cls(api=a).collect() for cls, a in zip((JDiag, TDiag), apis)]
+    assert set(docs[1]) == set(docs[0])
+    for k in ("version", "os", "arch", "numIndexes", "numFields", "fieldTypes",
+              "timeQuantumEnabled", "clusterSize"):
+        assert docs[1][k] == docs[0][k], k
+    assert docs[1]["devicePlatform"] == "cpu"
+    for local, latest in (("v1.2.3", "v2.0.0"), ("v1.2.3", "v1.3.0"), ("v1.2.3", "v1.2.4"),
+                          ("v1.2.3", "v1.2.3"), ("bad", "v1.0.0")):
+        assert TDiag._compare_version(local, latest) == JDiag._compare_version(local, latest)
+    d = TDiag(api=apis[1])
+    d.flush()  # no endpoint: stored locally, nothing sent
+    assert set(d.last_report) == set(docs[1])
+    apis[1].close()
+
+
+@pytest.mark.parametrize("env,n", [(None, 20), ("1", 5), ("3", 2), ("x", 9), ("0", 4)])
+def test_fanout_width_and_results(monkeypatch, env, n):
+    from pilosa_tpu.util import fanout as jfan
+    from pilosa_tpu_torch.util import fanout as tfan
+
+    if env is None:
+        monkeypatch.delenv("PILOSA_IMPORT_FANOUT", raising=False)
+    else:
+        monkeypatch.setenv("PILOSA_IMPORT_FANOUT", env)
+    assert tfan.fanout_width(n) == jfan.fanout_width(n)
+    tasks = [lambda k=k: k * k for k in range(n)]
+    assert tfan.run_fanout(tasks) == jfan.run_fanout(tasks) == [k * k for k in range(n)]
+
+    def boom(k):
+        if k in (1, 3):
+            raise ValueError(f"task {k}")
+        return k
+
+    errs = []
+    for mod in (jfan, tfan):
+        with pytest.raises(ValueError) as e:
+            mod.run_fanout([lambda k=k: boom(k) for k in range(n)])
+        errs.append(str(e.value))
+    assert errs[1] == errs[0] == "task 1"
+
+
+def test_multi_shard_imports_fan_out_as_the_reference():
+    """Bulk bit and value imports over many shards apply their
+    per-fragment groups through the fan-out and answer as the
+    reference's."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    cols = rng.choice(12 << 20, 40000, replace=False)
+    rows = rng.integers(0, 5, len(cols))
+    vals = rng.integers(-50, 1000, len(cols))
+    apis = [japi.API(), tapi.API(device="cpu")]
+    for a in apis:
+        a.create_index("i")
+        a.create_field("i", "f")
+        a.create_field("i", "v", {"type": "int", "min": -50, "max": 1000})
+        a.index("i").field("f").import_bulk(rows.tolist(), cols.tolist())
+        a.index("i").field("v").import_values(cols.tolist(), vals.tolist())
+    for q in ("Count(Row(f=3))", "Sum(field=v)", "Count(Range(v > 500))", "TopN(f, n=3)"):
+        got = [a.query((japi if k == 0 else tapi).QueryRequest("i", q)).results
+               for k, a in enumerate(apis)]
+        assert str(got[1]) == str(got[0]), q
+    apis[1].close()
