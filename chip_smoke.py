@@ -176,8 +176,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    640 connections x 32, after the warm of tiers 1, 9, 65 and 257; the
    batcher's batches, mean batch and K5's launches by K, those at
    K >= 256 among them) and http_mixed_qps (Count, Count, TopN, Sum; F1's
-   launches counted); the same p50 on the threaded backend; and the node
-   through its entry point: python -m pilosa_tpu_torch server on a data
+   launches counted); continuous queries with the memo on, over index cqi
+   of their own (10 shards): POST /cq of a Count tree, a Set over HTTP,
+   then GET /cq/{id}?since=1&wait_ms=5000 returns the new count, equal to
+   a fresh query and served by the repair layer (resultRepair in
+   /debug/vars moved), a Row subscription's one-id diff after a one-bit
+   Set, and 404 after DELETE; the same p50 on the threaded backend; and
+   the node through its entry point: python -m pilosa_tpu_torch server on a data
    directory under build/http_node, b10m's 128 rows on 2 shards by
    import-roaring through InternalClient, the c2 Counts, the CLI's export
    and backup of a small index, SIGTERM, a restart whose warm start must
@@ -192,7 +197,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (> 0 at w >= 2), the worker processes' boot to HELLO and w2/w0; with 4
    workers nvidia-smi's compute apps are those of the owner alone, with no
    worker pid, and no worker has a /dev/nvidia* node open while the owner
-   has; with 2, a sparse
+   has; with 2, POST /cq, GET and DELETE over cqi, a /cq request that a
+   worker took reaching the owner as a passthrough frame, and Counts
+   answered while a long-poll waits, whose delta after a Set is exact; a
+   sparse
    Count with ?profile=1 and X-Pilosa-Tenant answered by a worker: exact,
    its plan path sparse with the engine's own block counts, K2 in the
    profiler's window, the plan under its trace id in /debug/plans, and
@@ -256,6 +264,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    0 before the phase and read after it (observe_launches: this process's
    launches; the node's own launches are in its device owner's process and
    not counted); K1P and K6 must have launched.
+   repair — after observe, before phase 5: bench.py's repair sweep
+   (bench.py:1891-2090, seed 16) on a holder of its own at 960 shards
+   (bench.py: 8), freed at the end: index rpw with seg (16 rows, 4000
+   bits a shard), g1 (6 rows) and g2 (5) of 800, v an int 0..1023 with
+   600 values; the dashboard Count(Intersect(seg=1, seg=2)),
+   Count(Union(seg=3, 4, 5)), TopN(seg, n=8), GroupBy(g1, g2),
+   Sum(field=v) 24 times idle, then 12 write rounds (64 bits into each of
+   2 seg shards, one Set in g1 or g2, one of v, every third round an
+   OPAQUE load_row_words of seg row 0) with 5 timed serves each, every
+   round's served answers equal to a recompute with the repair layer
+   suspended and the memo cleared.  In each round with no OPAQUE write
+   the serve that repairs launches nothing, and the recompute launches
+   K1, K6 and K8; repairs > 0 and fallbacks >= the OPAQUE rounds.
+   bench.py's result_memo_hit_rate_under_write_load (at least 0.9),
+   dashboard_p50_under_ingest_vs_idle, repair_touched_words_per_repair
+   and dashboard_repair_serve_p50_ms, with the recompute's p50; every
+   kernel count set to 0 before the phase and read after it
+   (repair_launches).
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -2675,6 +2701,16 @@ def memo_off(engine):
     finally:
         if memo is not None:
             memo.maxsize = old
+
+
+@contextlib.contextmanager
+def repairs_off(engine):
+    """The engine's repair layer suspended for the block (a checkout from
+    before it has none): a check of the dispatch path after a write must
+    reach it, where a repair would answer from the write's delta."""
+    rep = getattr(engine, "repairs", None)
+    with rep.suspended() if rep is not None else contextlib.nullcontext():
+        yield
 
 
 def batch_bound(progs, mats, masks, mask_ids, S):
@@ -6100,6 +6136,248 @@ def run_observe_path(device, seed, keep, node_cmd=None):
     return out
 
 
+# -- the repair phase: repair-on-write of a dashboard under ingest --------------
+# (bench.py:1891-2090, bench.py --repair-sweep)
+
+RPS_SEED = 16  # bench.py repair_sweep's rng
+RPS_SEG_ROWS = 16  # bench.py RPS_SEG_ROWS
+RPS_BUILD_BITS = 4000  # bench.py RPS_BUILD_BITS: seg bits per shard
+RPS_ROUNDS = 12  # bench.py RPS_ROUNDS
+RPS_WRITES_PER_ROUND = 64  # bench.py RPS_WRITES_PER_ROUND: bits per touched shard
+RPS_READS_PER_ROUND = 5  # bench.py RPS_READS_PER_ROUND: timed serves per write burst
+RPS_IDLE_REPS = 24  # bench.py RPS_IDLE_REPS
+RPS_DASHBOARD = (  # bench.py repair_sweep's dashboard
+    "Count(Intersect(Row(seg=1), Row(seg=2)))",
+    "Count(Union(Row(seg=3), Row(seg=4), Row(seg=5)))",
+    "TopN(seg, n=8)",
+    "GroupBy(Rows(field=g1), Rows(field=g2))",
+    "Sum(field=v)",
+)
+# K1, K6 and K8: the kernels a recompute of the dashboard launches (the
+# no-src TopN is a host reduce); a repaired serve launches none of them.
+RPS_KERNELS = ("count_tree_dense", "sum_tree", "groupn_tree")
+
+
+def run_repair_path(device, n_shards=N_SHARDS, seed=RPS_SEED):
+    """The repair phase (after observe, before the writes): bench.py's
+    repair sweep on a holder of its own at ``n_shards`` (bench.py: 8)
+    with every other parameter of bench.py's.  Index rpw: seg 16 rows of
+    4000 bits a shard, g1 6 rows and g2 5 of 800, v int 0..1023 with 600
+    values Set through the executor.  The five-query dashboard (two
+    Counts, TopN(seg, n=8), GroupBy(g1, g2), Sum(field=v)) serves 24
+    times idle from the memo, then 12 write rounds: 64 bits into each of
+    2 seg shards by bulk_import, one Set in g1 or g2 and one of v, and
+    every third round a load_row_words of seg (OPAQUE: the repair layer
+    must fall back).  Five timed serves a round, and each round's served
+    answers must equal a recompute with the repair layer suspended and
+    the memo cleared.  In each round with no OPAQUE write, the first
+    serve (the one that repairs) launches no kernel at all, and the
+    recompute launches K1, K6 and K8.  Prints bench.py's four numbers
+    (result_memo_hit_rate_under_write_load, at least 0.9;
+    dashboard_p50_under_ingest_vs_idle, bench.py's target 1.5;
+    repair_touched_words_per_repair; dashboard_repair_serve_p50_ms) and
+    the recompute arm's p50.  Every kernel count is set to 0 before the
+    phase and read after it (repair_launches: the recompute arm's, as the
+    served ones launch nothing).  Frees its holder at the end.  Returns
+    the phase's numbers and launches."""
+    import torch
+
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.net.wire import result_to_json
+    from pilosa_tpu_torch.parallel.engine import TorchEngine
+
+    card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    zero_counts()
+    out = {"card": card_line(), "shards": n_shards}
+    rng = np.random.default_rng(seed)
+    holder = Holder(device=device)
+    holder.open()
+    idx = holder.create_index("rpw")
+    for name in ("seg", "g1", "g2"):
+        idx.create_field(name)
+    idx.create_field("v", FieldOptions(type="int", min=0, max=1023))
+    shards = range(n_shards)
+    seg_view = idx.field("seg").view_if_not_exists("standard")
+    for sh in shards:
+        seg_view.fragment_if_not_exists(sh).bulk_import(
+            rng.integers(0, RPS_SEG_ROWS, RPS_BUILD_BITS),
+            rng.integers(0, 1 << 20, RPS_BUILD_BITS))
+    for fname, nrows in (("g1", 6), ("g2", 5)):
+        gview = idx.field(fname).view_if_not_exists("standard")
+        for sh in shards:
+            gview.fragment_if_not_exists(sh).bulk_import(
+                rng.integers(0, nrows, 800), rng.integers(0, 1 << 20, 800))
+    engine = TorchEngine(holder, device=device)
+    ex = Executor(holder, engine=engine)
+
+    def q(text):
+        return ex.execute("rpw", text).results[0]
+
+    for col in rng.integers(0, n_shards << 20, 600):
+        q(f"Set({int(col)}, v={int(rng.integers(0, 1024))})")
+    # bench.py's 600 values cover its 8 shards; over 960 they leave about
+    # half the shards with no v and no existence fragment, and a round's
+    # Set into such a shard would create one, which moves the index's
+    # shard epoch and drops every entry (as the reference does).  So every
+    # shard gets its (empty) v and existence fragments here: no bit and no
+    # answer changes.
+    for view in (idx.field("v").view_if_not_exists("bsig_v"),
+                 idx.existence_field().view_if_not_exists("standard")):
+        for sh in shards:
+            view.fragment_if_not_exists(sh)
+    out["build_s"] = time.perf_counter() - t_phase
+
+    def dash(times=None):
+        got = []
+        for text in RPS_DASHBOARD:
+            t0 = time.perf_counter()
+            got.append(result_to_json(q(text)))
+            if times is not None:
+                times.setdefault(text, []).append(time.perf_counter() - t0)
+        return got
+
+    def recompute():
+        with engine.repairs.suspended():
+            engine.result_memo.clear()
+            return dash()
+
+    def memo_tally():
+        return engine.result_memo.hits, engine.result_memo.misses
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    try:
+        base = dash()
+        if base != recompute():
+            raise AssertionError("repair: the idle dashboard disagrees with its recompute")
+        h0, m0 = memo_tally()
+        idle = []
+        for _ in range(RPS_IDLE_REPS):
+            t0 = time.perf_counter()
+            got = dash()
+            idle.append(time.perf_counter() - t0)
+            if got != base:
+                raise AssertionError("repair: an idle serve disagrees with the first")
+        h1, m1 = memo_tally()
+        rate_idle = (h1 - h0) / max((h1 - h0) + (m1 - m0), 1)
+        t_idle = statistics.median(idle)
+
+        rep0 = sum(engine.repairs.repaired.values())
+        fb0 = sum(engine.repairs.fallbacks.values())
+        tw0 = engine.repairs.touched_words
+        times, first_times, recompute_times = [], [], []
+        hits_acc = miss_acc = forced_stale = 0
+        served_launches, recompute_launches = [], []
+        repair_by_query = {}  # each query's time in the serves that repair
+        for rnd in range(RPS_ROUNDS):
+            for sh in rng.choice(n_shards, 2, replace=False):
+                holder.fragment("rpw", "seg", "standard", int(sh)).bulk_import(
+                    rng.integers(0, RPS_SEG_ROWS, RPS_WRITES_PER_ROUND),
+                    rng.integers(0, 1 << 20, RPS_WRITES_PER_ROUND))
+            gf = "g1" if rnd % 2 else "g2"
+            gs = int(rng.integers(0, n_shards))
+            holder.fragment("rpw", gf, "standard", gs).set_bit(
+                int(rng.integers(0, 5)), (gs << 20) + int(rng.integers(0, 1 << 20)))
+            q(f"Set({int(rng.integers(0, n_shards << 20))}, v={int(rng.integers(0, 1024))})")
+            opaque = rnd % 3 == 2
+            if opaque:
+                holder.fragment("rpw", "seg", "standard", 0).load_row_words(
+                    0, _rand64(rng, 1)[0] & _rand64(rng, 1)[0])
+                forced_stale += 1
+            hb, mb = memo_tally()
+            sync()
+            served = None
+            for rep in range(RPS_READS_PER_ROUND):
+                if rep == 0:
+                    before = read_counts()
+                t0 = time.perf_counter()
+                served = dash(repair_by_query if rep == 0 and not opaque else None)
+                dt = time.perf_counter() - t0
+                times.append(dt)
+                if rep == 0:
+                    first_times.append(dt)
+                    moved = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+                    if not opaque:
+                        served_launches.append(moved)
+                        if moved:
+                            raise AssertionError(f"repair: round {rnd}'s repaired serve "
+                                                 f"launched {moved}")
+            ha, ma = memo_tally()
+            hits_acc += ha - hb
+            miss_acc += ma - mb
+            before = read_counts()
+            sync()
+            t0 = time.perf_counter()
+            want = recompute()
+            sync()
+            recompute_times.append(time.perf_counter() - t0)
+            moved = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+            recompute_launches.append(moved)
+            if card and min(moved.get(k, 0) for k in RPS_KERNELS) <= 0:
+                raise AssertionError(f"repair: round {rnd}'s recompute did not launch "
+                                     f"K1, K6 and K8: {moved}")
+            if served != want:
+                raise AssertionError(f"repair: round {rnd}: served != recompute\n"
+                                     f"  served: {served}\n  want:   {want}")
+        repaired = sum(engine.repairs.repaired.values()) - rep0
+        fallbacks = sum(engine.repairs.fallbacks.values()) - fb0
+        touched = engine.repairs.touched_words - tw0
+        rate_w = (hits_acc + repaired) / max(hits_acc + miss_acc, 1)
+        t_write = statistics.median(times)
+        if repaired <= 0:
+            raise AssertionError("repair: no repair ever served")
+        if fallbacks < forced_stale:
+            raise AssertionError(f"repair: {fallbacks} fallbacks for {forced_stale} OPAQUE rounds")
+        if rate_w < 0.9:
+            raise AssertionError(f"repair: result_memo_hit_rate_under_write_load {rate_w} < 0.9")
+        out.update({
+            "result_memo_hit_rate_under_write_load": rate_w,
+            "memo_hit_rate_idle": rate_idle,
+            "dashboard_p50_under_ingest_vs_idle": t_write / t_idle,
+            "repair_touched_words_per_repair": touched / max(repaired, 1),
+            "dashboard_repair_serve_p50_ms": statistics.median(first_times) * 1e3,
+            "dashboard_recompute_p50_ms": statistics.median(recompute_times) * 1e3,
+            "dashboard_idle_p50_ms": t_idle * 1e3,
+            "dashboard_write_rounds_p50_ms": t_write * 1e3,
+            "repair_serve_p50_ms_by_query": {k: statistics.median(v) * 1e3
+                                             for k, v in repair_by_query.items()},
+            "repaired": repaired, "fallbacks": fallbacks, "forced_stale": forced_stale,
+            "touched_words": touched,
+            "repaired_by_kind": dict(engine.repairs.repaired),
+            "fallbacks_by_kind": dict(engine.repairs.fallbacks),
+            "hub": engine.repairs.snapshot()["hub"],
+            "served_launches": served_launches,
+            "recompute_launches_round0": recompute_launches[0],
+            "stack_updates": engine.stack_updates,
+            "stack_rebuilds": engine.stack_rebuilds,
+        })
+    finally:
+        engine.close()
+        holder.close()
+        del engine, ex, holder
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+    out["launches"] = read_counts()
+    if card and min(out["launches"][k] for k in RPS_KERNELS) <= 0:
+        raise AssertionError(f"repair: K1, K6 or K8 never launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"repair: result_memo_hit_rate_under_write_load {out['result_memo_hit_rate_under_write_load']:.4f} "
+        f"(idle {rate_idle:.4f}), dashboard_p50_under_ingest_vs_idle "
+        f"{out['dashboard_p50_under_ingest_vs_idle']:.4f} (bench.py's target 1.5), "
+        f"repair_touched_words_per_repair {out['repair_touched_words_per_repair']:.1f}, "
+        f"dashboard_repair_serve_p50_ms {out['dashboard_repair_serve_p50_ms']:.4f}, "
+        f"dashboard_recompute_p50_ms {out['dashboard_recompute_p50_ms']:.4f}; repaired "
+        f"{repaired}, fallbacks {fallbacks} (forced {forced_stale}); every round exact "
+        f"against its recompute; {n_shards} shards, {out['seconds']:.3f} s; {out['card']}")
+    return out
+
+
 def bitops_popcount(words, gate):
     from pilosa_tpu_torch.ops import bitops
 
@@ -6291,6 +6569,173 @@ def _seq_p50(port, texts, wants, reps=HTTP_REPS):
     return statistics.median(lat)
 
 
+CQ_INDEX = "cqi"  # the continuous queries' own index: no other phase reads it
+CQ_SHARDS = N_SHARDS_10M
+CQ_WAIT_MS = 5000
+
+
+def _cq_req(port, method, path, body=None, timeout=60):
+    """(status, JSON document) of one request to the node."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else (body if isinstance(body, bytes) else body.encode())
+    req = urllib.request.Request(f"http://localhost:{port}{path}", data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def build_cq_index(holder, seed):
+    """Index cqi over 10 shards: rows 1 and 2 of f with 2^15 bits a shard,
+    row 3 with 64, each column in the existence field too, as an import
+    through the API marks it (a Set into a shard whose existence fragment
+    does not exist yet creates it, which moves the index's shard epoch:
+    every memo entry and repair entry of the index then starts over).
+    Returns {row: sorted columns}."""
+    rng = np.random.default_rng(seed + 47)
+    idx = holder.create_index(CQ_INDEX)
+    f = idx.create_field("f")
+    cols = {}
+    for r, n in ((1, 1 << 15), (2, 1 << 15), (3, 64)):
+        cols[r] = np.unique(np.concatenate([
+            (sh << 20) + rng.choice(1 << 20, n, replace=False) for sh in range(CQ_SHARDS)]))
+        f.import_bulk(np.full(cols[r].size, r), cols[r])
+    every = np.unique(np.concatenate(list(cols.values())))
+    idx.existence_field().import_bulk(np.zeros(every.size, dtype=np.int64), every)
+    return cols
+
+
+def cq_cols_of(holder):
+    """{row: sorted columns} of cqi's f, read from its fragments."""
+    return {r: np.concatenate([
+        (sh << 20) + holder.fragment(CQ_INDEX, "f", "standard", sh).row_positions(r).astype(
+            np.int64) for sh in range(CQ_SHARDS)]) for r in (1, 2, 3)}
+
+
+def cq_http(port, cols):
+    """Continuous queries over HTTP on the in-process node (the memo on):
+    POST /cq of a Count tree and of a Row; a Set over HTTP, then GET
+    /cq/{id}?since=1&wait_ms=5000 returns the new count, equal to a fresh
+    query and served by the repair layer (resultRepair in /debug/vars);
+    the Row's subscription ships a one-id diff after a one-bit Set;
+    DELETE, then GET, is a 404.  Returns its numbers."""
+    out = {}
+    text = "Count(Intersect(Row(f=1), Row(f=2)))"
+    n0 = int(np.intersect1d(cols[1], cols[2]).size)
+    st, doc = _cq_req(port, "POST", "/cq", json.dumps({"index": CQ_INDEX, "query": text}))
+    if st != 200 or doc.get("seq") != 1 or doc.get("result") != [n0]:
+        raise AssertionError(f"cq: POST /cq {text}: {st} {doc} (numpy {n0})")
+    cid = doc["id"]
+
+    def repaired():
+        return _cq_req(port, "GET", "/debug/vars")[1]["engineCaches"]["resultRepair"]
+
+    rep0 = repaired()["repaired"]["count"]
+    col = int(np.setdiff1d(cols[1], cols[2])[0])
+    _cq_req(port, "POST", f"/index/{CQ_INDEX}/query", f"Set({col}, f=2)")
+    t0 = time.perf_counter()
+    st, got = _cq_req(port, "GET", f"/cq/{cid}?since=1&wait_ms={CQ_WAIT_MS}")
+    out["count_delta_ms"] = (time.perf_counter() - t0) * 1e3
+    fresh = _cq_req(port, "POST", f"/index/{CQ_INDEX}/query", text)[1]["results"]
+    rep = repaired()
+    if st != 200 or got.get("deltas") != [{"seq": 2, "result": [n0 + 1]}] or fresh != [n0 + 1]:
+        raise AssertionError(f"cq: GET /cq/{cid} after Set({col}, f=2): {st} {got}; "
+                             f"fresh {fresh}, want {n0 + 1}")
+    if rep["repaired"]["count"] <= rep0:
+        raise AssertionError(f"cq: the count's delta was not served by a repair: {rep}")
+    out["count"] = {"before": n0, "after": fresh[0], "repairs": rep["repaired"]["count"] - rep0}
+    st, doc = _cq_req(port, "POST", "/cq", json.dumps({"index": CQ_INDEX, "query": "Row(f=3)"}))
+    if st != 200 or doc["result"][0]["columns"] != cols[3].tolist():
+        raise AssertionError(f"cq: POST /cq Row(f=3): {st}")
+    rid = doc["id"]
+    col3 = int(np.setdiff1d(np.arange(1 << 20), cols[3])[0])
+    _cq_req(port, "POST", f"/index/{CQ_INDEX}/query", f"Set({col3}, f=3)")
+    t0 = time.perf_counter()
+    st, got = _cq_req(port, "GET", f"/cq/{rid}?since=1&wait_ms={CQ_WAIT_MS}")
+    out["row_diff_ms"] = (time.perf_counter() - t0) * 1e3
+    if st != 200 or got.get("deltas") != [{"seq": 2, "diff": [{"added": [col3], "removed": []}]}]:
+        raise AssertionError(f"cq: GET /cq/{rid} after Set({col3}, f=3): {st} {got}")
+    cols[2] = np.union1d(cols[2], [col])
+    cols[3] = np.union1d(cols[3], [col3])
+    for qid in (cid, rid):
+        if _cq_req(port, "DELETE", f"/cq/{qid}") != (200, {"deleted": qid}):
+            raise AssertionError(f"cq: DELETE /cq/{qid}")
+        st, _ = _cq_req(port, "GET", f"/cq/{qid}?since=0")
+        if st != 404:
+            raise AssertionError(f"cq: GET /cq/{qid} after DELETE: {st}")
+    log(f"http: continuous queries: Count delta after a Set in {out['count_delta_ms']:.3f} ms "
+        f"({out['count']}), the Row's one-id diff in {out['row_diff_ms']:.3f} ms, 404 after "
+        "DELETE")
+    return out
+
+
+def cq_through_workers(srv, port, cols):
+    """Continuous queries through a node with worker processes: create,
+    long-poll and delete, a /cq request taken by a worker reaching the
+    device owner as a passthrough frame (counted on the owner), and a
+    Count answered while a poll waits.  Returns its numbers."""
+    passed = [0]
+    real = srv._handle_http
+
+    def counting(conn, doc):
+        if doc["target"].startswith("/cq"):
+            passed[0] += 1
+        return real(conn, doc)
+
+    srv._handle_http = counting
+    try:
+        text = "Count(Union(Row(f=1), Row(f=3)))"
+        n0 = int(np.union1d(cols[1], cols[3]).size)
+        st, doc = _cq_req(port, "POST", "/cq", json.dumps({"index": CQ_INDEX, "query": text}))
+        if st != 200 or doc.get("result") != [n0]:
+            raise AssertionError(f"procmode: POST /cq {text}: {st} {doc} (numpy {n0})")
+        cid = doc["id"]
+        for _ in range(60):  # fresh connections until a worker took one
+            if _cq_req(port, "GET", f"/cq/{cid}?since=1")[0] != 200:
+                raise AssertionError(f"procmode: GET /cq/{cid}")
+            if passed[0]:
+                break
+        if not passed[0]:
+            raise AssertionError("procmode: no /cq request reached the owner through a worker")
+        polled = {}
+
+        def poll():
+            polled["r"] = _cq_req(port, "GET", f"/cq/{cid}?since=1&wait_ms={CQ_WAIT_MS}")
+
+        t = threading.Thread(target=poll)
+        t.start()
+        time.sleep(0.2)
+        lat = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            st, doc = _cq_req(port, "POST", f"/index/{CQ_INDEX}/query", text)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if st != 200 or doc["results"] != [n0]:
+                raise AssertionError(f"procmode: a Count while a poll waits: {st} {doc}")
+        if not t.is_alive():
+            raise AssertionError(f"procmode: the poll returned before a write: {polled}")
+        col = int(np.setdiff1d(np.arange(1 << 20), np.union1d(cols[1], cols[3]))[0])
+        _cq_req(port, "POST", f"/index/{CQ_INDEX}/query", f"Set({col}, f=3)")
+        t.join(CQ_WAIT_MS / 1e3 + 30)
+        st, got = polled.get("r", (None, None))
+        if t.is_alive() or st != 200 or got["deltas"] != [{"seq": 2, "result": [n0 + 1]}]:
+            raise AssertionError(f"procmode: GET /cq/{cid} after Set({col}, f=3): {polled}")
+        cols[3] = np.union1d(cols[3], [col])
+        if _cq_req(port, "DELETE", f"/cq/{cid}") != (200, {"deleted": cid}):
+            raise AssertionError(f"procmode: DELETE /cq/{cid}")
+        if _cq_req(port, "GET", f"/cq/{cid}?since=0")[0] != 404:
+            raise AssertionError(f"procmode: GET /cq/{cid} after DELETE")
+    finally:
+        srv._handle_http = real
+    out = {"passthrough_frames": passed[0], "count_while_polling_p50_ms": statistics.median(lat)}
+    log(f"procmode: continuous queries through 2 workers: {json.dumps(out)}; the delta after "
+        "a Set exact, 404 after DELETE")
+    return out
+
+
 def run_http_path(device, holder, engine, host, seed, node_cmd=None,
                   node_shards=NODE_SHARDS, conns=QPS_CONNS, per_conn=QPS_PER_CONN):
     """The http phase, after fusion and before the writes of phase 5:
@@ -6366,6 +6811,7 @@ def run_http_path(device, holder, engine, host, seed, node_cmd=None,
                   for r, c in TopNOracle(host["top"]).fused(host["f"][10], 5)]]
     log(f"http: b10m's v10 made; numpy oracles in {time.perf_counter() - t0:.3f} s")
 
+    cq_cols = build_cq_index(holder, seed)
     api = API(holder=holder, engine=engine)
     srv, _ = serve(api, "localhost", 0, admission=AdmissionController(max_inflight=1 << 17))
     port = srv.server_address[1]
@@ -6446,6 +6892,9 @@ def run_http_path(device, holder, engine, host, seed, node_cmd=None,
         if (out["import_roaring"]["stack_updates"], out["import_roaring"]["stack_rebuilds"]) \
                 != (1, 0):
             raise AssertionError(f"http: import-roaring sync {out['import_roaring']}")
+        # -- continuous queries (the memo on) --------------------------------
+        out["cq"] = cq_http(port, cq_cols)
+        api.cq.close()
 
         # -- bench.py's loops, the memo off ----------------------------------
         with memo_off(engine):
@@ -6959,6 +7408,7 @@ def run_procmode_path(device, holder, engine, host, seed, node_cmd=None, workers
                             or any(held["worker_nvidia_fds"]) or not held["owner_nvidia_fds"]):
                         raise AssertionError(f"procmode: a worker holds a CUDA context: {held}")
                 if w == 2:
+                    out["cq"] = cq_through_workers(srv, port, cq_cols_of(holder))
                     out.update(_plans_through_workers(srv, port, engine, want, cuda))
                     out["mixed_w2"] = _mixed_through_workers(engine, port, mixed_texts,
                                                              mixed_wants, conns, cuda)
@@ -7350,7 +7800,8 @@ def run_write_path(device, holder, engine, ex, host, seed):
         ex.execute("bench", f"Set({col}, f=10)")
         _put(ora["f"][10], col, True)
         synced = engine.stack_updates
-        got = ex.execute("bench", q).results[0]
+        with repairs_off(engine):  # the main path's entry would repair it
+            got = ex.execute("bench", q).results[0]
         if got != int(popcounts(ora["f"][10] & ora["f"][11]).sum()):
             raise AssertionError("the profiled write->Count disagrees with numpy")
         if engine.stack_updates != synced + 1:
@@ -8488,12 +8939,16 @@ def main(argv=None):
     observe = run_observe_path(device, args.seed, keep)
     log("observe: " + json.dumps(observe))
     mark("observe")
+    repair = run_repair_path(device)
+    log("repair: " + json.dumps(repair))
+    mark("repair")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     mark("write")
-    for entry in kern:  # the process-mode and observe paths' launches beside the main path's
+    for entry in kern:  # the later paths' launches beside the main path's
         entry["procmode_launches"] = procmode["launches"][entry["name"]]
         entry["observe_launches"] = observe["launches"][entry["name"]]
+        entry["repair_launches"] = repair["launches"][entry["name"]]
     log("timeline (s): " + json.dumps({k: round(v, 3) for k, v in timeline.items()})
         + f"; total {time.perf_counter() - t0:.3f} s")
     log(card_line())

@@ -30,6 +30,7 @@ import csv
 import datetime as dt
 import os
 import shutil
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -66,11 +67,9 @@ from .util.tracing import Tracer
 
 # Methods of the reference's API that this module leaves out, and the
 # ROADMAP.md item that ports each.
-_ITEM_8_14 = "Queue 1 items 8 and 14 (batched serving; serving and observability)"
 _ITEM_14 = "Queue 1 item 14 (serving and observability)"
 _ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 _UNPORTED = {
-    "cq": _ITEM_8_14,
     "recalculate_caches": _ITEM_14,
     "attach_cluster": _ITEM_15,
     "cluster_message": _ITEM_15,
@@ -207,6 +206,10 @@ class API:
         # ``[observability] history = true``.
         self.history = None
         self.slo = None
+        # Continuous queries (net/cq.py), created on first POST /cq —
+        # most deployments never pay the sweeper thread.
+        self._cq = None
+        self._cq_lock = threading.Lock()
         # Whole-query latency and ingest series, resolved once: the hot
         # paths pay the per-series locks only.
         self._h_query_sync = REGISTRY.histogram(METRIC_QUERY, path="sync")
@@ -230,6 +233,17 @@ class API:
                                  translator=QueryTranslator(self.translate_store),
                                  stats=stats)
 
+    @property
+    def cq(self):
+        """Continuous-query manager, created on first use."""
+        if self._cq is None:
+            with self._cq_lock:
+                if self._cq is None:
+                    from .net.cq import CQManager
+
+                    self._cq = CQManager(self)
+        return self._cq
+
     def __getattr__(self, name):
         item = _UNPORTED.get(name)
         if item is None:
@@ -238,7 +252,10 @@ class API:
             f"API.{name} is not ported to pilosa_tpu_torch yet: ROADMAP.md {item}")
 
     def close(self):
-        """Stop the engine's workers and close the holder."""
+        """Stop the continuous queries' sweeper and the engine's workers,
+        and close the holder."""
+        if self._cq is not None:
+            self._cq.close()
         if self.engine is not None:
             self.engine.close()
         self.holder.close()

@@ -55,6 +55,7 @@ from ..ops import bitops
 from ..parallel.mesh import resolve_device
 from ..roaring import codec
 from . import cache as cache_mod
+from .delta import HUB as _DELTA
 from .row import Row
 from .rowstore import SPARSE_MAX, RowStore
 
@@ -152,6 +153,7 @@ class Fragment:
         on_touch=None,
         ack: str = DEFAULT_ACK,
         device=None,
+        view_gen: int = 0,
     ):
         self.index = index
         self.field = field
@@ -167,8 +169,17 @@ class Fragment:
         self.ack = ack
         # Device of the row mirror (the holder's device).
         self.device = resolve_device(device)
-        # Owning view's version bump: the engine's stack invalidation token.
+        # Owning view's version bump (engine stack invalidation) and its
+        # process-unique generation token (the delta-bus log key part
+        # that survives drop/recreate of a same-named view).
         self._on_touch = on_touch
+        self._view_gen = view_gen
+        # Delta capture staging (core/delta.py): an instrumented write
+        # path stashes (rows, widxs, before-words) here just before its
+        # _touch/_touch_rows call, which consumes it into one packet
+        # stamped with the bump's version.  Un-instrumented paths leave
+        # it None and publish OPAQUE — the repair layer then falls back.
+        self._delta_pending = None
 
         self._store = RowStore()
         self.row_counts = self._store.counts
@@ -269,8 +280,7 @@ class Fragment:
         self._version += 1
         WRITE_SEQ.v += 1
         self._mut_floor = self._version  # a load is unattributed: no sync past it
-        if self._on_touch is not None:
-            self._on_touch()
+        self._note_touch()
 
     def positions(self) -> np.ndarray:
         """All storage positions, sorted (for snapshot serialization)."""
@@ -428,8 +438,7 @@ class Fragment:
                 self._word_floor[row_id] = v
             else:
                 self._word_log_push(v, packed)
-        if self._on_touch is not None:
-            self._on_touch()
+        self._note_touch()
 
     def _touch_rows(self, rows: np.ndarray, words: np.ndarray, wbounds: np.ndarray):
         """``_touch`` of a batch: one version bump and one word-log record
@@ -450,8 +459,85 @@ class Fragment:
             packed = np.repeat(rows.astype(np.int64) << 15, sizes) | words
         if packed.size:
             self._word_log_push(v, packed)
-        if self._on_touch is not None:
-            self._on_touch()
+        self._note_touch()
+
+    def _note_touch(self):
+        """Tail of every _touch/_touch_rows: bump the view version and,
+        when a repair subscription is live for this view, publish the
+        staged write delta (core/delta.py) stamped with EXACTLY the
+        version this bump produced.  Runs under the fragment lock, so
+        packet content and version order can never tear.  An
+        un-instrumented write path leaves ``_delta_pending`` None and
+        publishes OPAQUE — the repair layer sees the hole and falls
+        back to recompute instead of serving a silently-wrong repair."""
+        pending, self._delta_pending = self._delta_pending, None
+        if self._on_touch is None:
+            return
+        ver = self._on_touch()
+        if ver is None or not _DELTA.wants(
+            self.index, self.field, self.view, self._view_gen
+        ):
+            # No packet log for this view — still wake index-level
+            # listeners (continuous queries watch whole indexes).
+            _DELTA.touched(self.index)
+            return
+        if pending is None:
+            _DELTA.publish_opaque(
+                self.index, self.field, self.view, self._view_gen, ver
+            )
+        else:
+            rows, widxs, before = pending
+            _DELTA.publish(
+                self.index, self.field, self.view, self._view_gen, ver,
+                self.shard, rows, widxs, before,
+            )
+
+    def _delta_wanted(self) -> bool:
+        """Pre-write gate: capture before-words only when a repair
+        subscription is live.  Unsubscribed ingest pays one dict miss."""
+        return self._on_touch is not None and _DELTA.wants(
+            self.index, self.field, self.view, self._view_gen
+        )
+
+    def _delta_capture_packed(self, packed: np.ndarray):
+        """Before-words for a packed-position batch, read pre-merge.
+        ``packed`` holds ``row*SHARD_WIDTH + pos`` keys, sorted — the
+        (row, word64) pairs fall out with one dedup pass and one
+        rowstore gather per touched row."""
+        pk = packed.astype(np.int64, copy=False)
+        wk = pk >> 6
+        uw = wk[np.r_[True, wk[1:] != wk[:-1]]]
+        rshift = ops.SHARD_WIDTH_EXP - 6
+        rows = (uw >> rshift).astype(np.int64)
+        widxs = (uw & ((1 << rshift) - 1)).astype(np.int64)
+        starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]])
+        bnds = np.append(starts, rows.size)
+        before = np.empty(rows.size, dtype=np.uint64)
+        for k in range(starts.size):
+            lo, hi = int(bnds[k]), int(bnds[k + 1])
+            before[lo:hi] = self._store.words64_at(
+                int(rows[lo]), widxs[lo:hi]
+            )
+        return rows, widxs, before
+
+    def words64_at(self, row_id: int, widxs) -> np.ndarray:
+        """Locked read of a row's uint64 words at sorted word indexes —
+        the repair layer's truth read (parallel/repair.py)."""
+        with self._mu:
+            return self._store.words64_at(row_id, widxs)
+
+    def _delta_capture_bit(self, row_id: int, in_row: int):
+        """Stage the delta of a single-bit write that DID flip: the
+        store mutation already landed, so before = after ^ bit."""
+        if not self._delta_wanted():
+            return
+        w = np.asarray([in_row >> 6], dtype=np.int64)
+        bit = np.uint64(1) << np.uint64(in_row & 63)
+        self._delta_pending = (
+            np.asarray([row_id], dtype=np.int64),
+            w,
+            self._store.words64_at(row_id, w) ^ bit,
+        )
 
     def _word_log_push(self, v: int, packed: np.ndarray):
         """Append one batch's packed ``row << 15 | word`` keys as one
@@ -564,6 +650,7 @@ class Fragment:
         if self._mutex_owners is not None:
             self._mutex_owners[in_row] = row_id
         self._append_op(codec.OP_TYPE_ADD, p)
+        self._delta_capture_bit(row_id, in_row)
         self._touch(row_id, in_row)
         self.cache.add(row_id, self._store.count(row_id))
         return True
@@ -584,6 +671,7 @@ class Fragment:
         ):
             self._mutex_owners[in_row] = -1
         self._append_op(codec.OP_TYPE_REMOVE, p)
+        self._delta_capture_bit(row_id, in_row)
         self._touch(row_id, in_row)
         self.cache.add(row_id, self._store.count(row_id))
         return True
@@ -716,8 +804,22 @@ class Fragment:
             changed_rows.append(i)
         if not changed_rows:
             return False
+        rows = np.asarray(changed_rows, dtype=np.int64)
+        if self._delta_wanted():
+            # Every changed plane flipped exactly the column's bit, so
+            # each row's before-word = its after-word ^ bit.
+            widx = np.asarray([in_row >> 6], dtype=np.int64)
+            bit = np.uint64(1) << np.uint64(in_row & 63)
+            self._delta_pending = (
+                rows,
+                np.full(len(changed_rows), in_row >> 6, dtype=np.int64),
+                np.asarray(
+                    [store.words64_at(r, widx)[0] ^ bit for r in changed_rows],
+                    dtype=np.uint64,
+                ),
+            )
         self._touch_rows(
-            np.asarray(changed_rows, dtype=np.int64),
+            rows,
             np.full(len(changed_rows), in_row >> 5, dtype=np.int32),
             np.arange(len(changed_rows) + 1, dtype=np.int64),
         )
@@ -743,6 +845,11 @@ class Fragment:
         RowStore.bulk_merge + ONE ``_touch_rows``, whose dirty device words
         per row (``packed >> 5``) come out of the same sorted keys.
         Returns bits changed."""
+        delta = (
+            self._delta_capture_packed(packed)
+            if self._delta_wanted()
+            else None
+        )
         rows, bounds, positions = self._split_packed(packed)
         new_counts, changed, touched = self._store.bulk_merge(
             rows, bounds, positions, clear=clear, packed=packed
@@ -768,6 +875,7 @@ class Fragment:
                      if keep.size else words[:0])
             wbounds = np.append(0, np.cumsum(wsizes))
         if rows.size:
+            self._delta_pending = delta
             self._touch_rows(rows, words, wbounds)
             self.cache.bulk_update(rows, new_counts)
         return int(changed.sum())
@@ -910,8 +1018,20 @@ class Fragment:
         """OR (or with ``clear``, AND NOT) dense rows into storage, each
         row's changed 32-bit words logged for the stacks' in-place sync,
         as ``_apply_packed`` logs a sparse batch's.  Returns bits
-        changed."""
+        changed.  The delta capture reads, before any merge, every 64-bit
+        word a given row holds bits in, as ``_delta_capture_packed`` does
+        for the same positions."""
         store = self._store
+        delta = None
+        if self._delta_wanted() and len(rows):
+            widxs = [np.flatnonzero(w).astype(np.int64) for w in words]
+            delta = (
+                np.concatenate([np.full(wi.size, r, dtype=np.int64)
+                                for r, wi in zip(rows, widxs)]),
+                np.concatenate(widxs),
+                np.concatenate([store.words64_at(r, wi)
+                                for r, wi in zip(rows, widxs)]),
+            )
         touched, counts, dirty, changed = [], [], [], 0
         for r, w in zip(rows, words):
             if r not in store and clear:
@@ -930,6 +1050,7 @@ class Fragment:
         if touched:
             self._mutex_owners = None
             rows_a = np.asarray(touched, dtype=np.int64)
+            self._delta_pending = delta
             self._touch_rows(rows_a, np.concatenate(dirty),
                              np.append(0, np.cumsum([d.size for d in dirty])))
             self.cache.bulk_update(rows_a, np.asarray(counts, dtype=np.int64))
@@ -940,7 +1061,10 @@ class Fragment:
         """Install a dense row wholesale — the bulk load path for
         benchmarks and restores (no op-log, no snapshot; the caller
         snapshots if it wants the row on disk).  The array is kept as the
-        row's storage, not copied, when it is already contiguous uint64."""
+        row's storage, not copied, when it is already contiguous uint64.
+        Deliberately publishes OPAQUE (no delta capture): a load is not a
+        serving write, and the repair layer MUST fall back to recompute
+        over it."""
         self._check_open()
         n = self._store.set_dense(
             row_id, np.ascontiguousarray(words_u64, dtype=np.uint64)
@@ -958,6 +1082,19 @@ class Fragment:
         whole-row entry (zeros), so a resident stack holding it syncs in
         place."""
         self._check_open()
+        if self._delta_wanted():
+            # Dense delta: every nonzero word of the row, before-value =
+            # the word itself (after = 0).  Empty when the row was
+            # already empty — an exact no-op packet, never OPAQUE.
+            old = (
+                self._store.words_u64(row_id)
+                if row_id in self._store
+                else np.zeros(WORDS64, dtype=np.uint64)
+            )
+            w = np.flatnonzero(old).astype(np.int64)
+            self._delta_pending = (
+                np.full(w.size, row_id, dtype=np.int64), w, old[w]
+            )
         if self._mutex_owners is not None:
             self._mutex_owners[self._store.positions(row_id).astype(np.int64)] = -1
         changed = self._store.drop(row_id)
@@ -977,6 +1114,14 @@ class Fragment:
                else bitops.to_numpy(seg).view("<u8").copy())
         old = self._store.words_u64(row_id) if row_id in self._store else None
         changed = old is None or not np.array_equal(old, new)
+        if self._delta_wanted():
+            # Dense delta of the overwrite: exactly the words that
+            # differ, with their pre-write values.
+            base = old if old is not None else np.zeros(WORDS64, dtype=np.uint64)
+            w = np.flatnonzero(base != new).astype(np.int64)
+            self._delta_pending = (
+                np.full(w.size, row_id, dtype=np.int64), w, base[w]
+            )
         n = self._store.set_dense(row_id, new)
         self._mutex_owners = None
         self.cache.bulk_add(row_id, n)

@@ -499,6 +499,29 @@ class RowStore:
     def words_u32(self, row_id: int) -> np.ndarray:
         return self.words_u64(row_id).view("<u4")
 
+    def words64_at(self, row_id: int, widxs: np.ndarray) -> np.ndarray:
+        """The row's uint64 words at the given SORTED word indexes —
+        O(selected) for both storage shapes (no densify): the write
+        path's delta capture (core/delta.py) and the repair layer's
+        word-restricted re-evaluation read exactly the touched words,
+        never the 128 KiB row."""
+        widxs = np.asarray(widxs, dtype=np.int64)
+        d = self.dense.get(row_id)
+        if d is not None:
+            return d[widxs]
+        out = np.zeros(len(widxs), dtype=np.uint64)
+        sp = self.sparse.get(row_id)
+        if sp is None or sp.size == 0:
+            return out
+        w = (sp >> np.uint32(6)).astype(np.int64)
+        idx = np.searchsorted(widxs, w)
+        np.minimum(idx, len(widxs) - 1, out=idx)
+        hit = widxs[idx] == w
+        np.bitwise_or.at(
+            out, idx[hit], _ONE << (sp[hit].astype(np.uint64) & _M63)
+        )
+        return out
+
     def occupancy64(self, row_id: int) -> int:
         """Block-occupancy bitmap of a row (bitops.occupancy64): bit b
         set iff occupancy block b holds a set bit.  Sparse rows compute

@@ -121,6 +121,7 @@ class View:
                 mutex=self.mutex,
                 row_attr_store=self.row_attr_store,
                 on_touch=self._bump_version,
+                view_gen=self.gen,
                 ack=self.ack,
                 device=self.device,
             )

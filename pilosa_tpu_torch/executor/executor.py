@@ -1209,14 +1209,32 @@ class Executor:
             raise Error("TopN() can only have one input bitmap")
         field_name, n, row_ids, min_threshold, _, _, _ = self._topn_args(c)
         if not c.children:
+            # Cache-only TopN rides the versioned result memo: a probe miss
+            # first tries the repair layer (a count table kept from write
+            # deltas, re-ranked on serve), and only then recomputes.
+            eng = self.engine
+            key = None
+            probe = getattr(eng, "memo_probe_topn", None)
+            if probe is not None:
+                key, hit = probe(index, field_name, shards, n, min_threshold,
+                                 row_ids or None)
+                if hit is not None:
+                    p = plans_mod.current_plan()
+                    if p is not None:
+                        p.note_op(op="TopN", path="memo", memo="hit")
+                    return [tuple(pr) for pr in hit]
             try:
-                return self.engine.topn_cache_only(
+                out = eng.topn_cache_only(
                     index, field_name, shards, n, min_threshold, row_ids or None
                 )
             except HostFallback:
                 # A direct engine call: claim its note before the fallback.
                 plans_mod.take_dispatch_note()
                 return None
+            if key is not None and out is not None:
+                eng.memo_store_topn(key, field_name, n, min_threshold,
+                                    row_ids or None, out)
+            return out
         # The write sequence before any derived state: a caller whose own
         # write completed never joins a flight computed before it.
         seq = frag_mod.WRITE_SEQ.v

@@ -72,16 +72,12 @@ OPENMETRICS_CONTENT_TYPE = (
 # PILOSA_TPU_SERVER_BACKEND override.
 DEFAULT_BACKEND = "async"
 
-_ITEM_8_14 = "Queue 1 items 8 and 14 (batched serving; serving and observability)"
 _ITEM_14 = "Queue 1 item 14 (serving and observability)"
 _ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 
 # (method, route pattern, ROADMAP.md item) of every reference route this
 # port leaves out: each answers 501 naming its item.
 _UNPORTED_ROUTES = [
-    ("POST", "/cq", _ITEM_8_14),
-    ("GET", "/cq/{cqid}", _ITEM_8_14),
-    ("DELETE", "/cq/{cqid}", _ITEM_8_14),
     ("POST", "/recalculate-caches", _ITEM_14),
     ("POST", "/cluster/resize/abort", _ITEM_15),
     ("POST", "/cluster/resize/remove-node", _ITEM_15),
@@ -201,6 +197,11 @@ class Handler:
         r("POST", "/index/{index}/field/{field}/import-roaring/{shard}",
           self._post_import_roaring)
         r("POST", "/index/{index}/query", self._post_query)
+        # Continuous queries (net/cq.py): subscribe a PQL query, long-poll
+        # its result deltas as writes stream in.
+        r("POST", "/cq", self._post_cq)
+        r("GET", "/cq/{cqid}", self._get_cq)
+        r("DELETE", "/cq/{cqid}", self._delete_cq)
         r("GET", "/export", self._get_export)
         r("GET", "/metrics", self._metrics)
         r("GET", "/healthz", self._healthz)
@@ -554,6 +555,29 @@ class Handler:
             out["plan"] = resp.plan
         return out
 
+    # -- continuous queries (net/cq.py) -------------------------------------
+
+    def _post_cq(self, q, b, **kw):
+        doc = json.loads(b) if b else {}
+        index, query = doc.get("index"), doc.get("query")
+        if not index or not query:
+            raise ApiError("cq requires 'index' and 'query'")
+        return self.api.cq.create(index, query)
+
+    def _get_cq(self, q, b, *, cqid, **kw):
+        since = int(q.get("since", ["0"])[0])
+        wait_ms = int(q.get("wait_ms", ["0"])[0])
+        try:
+            return self.api.cq.poll(cqid, since=since, wait_ms=wait_ms)
+        except KeyError:
+            raise NotFoundError("no such continuous query: %s" % cqid) from None
+
+    def _delete_cq(self, q, b, *, cqid, **kw):
+        try:
+            return self.api.cq.delete(cqid)
+        except KeyError:
+            raise NotFoundError("no such continuous query: %s" % cqid) from None
+
     def _post_import(self, q, b, *, index, field, **kw):
         doc = json.loads(b)
         if _qbool(q, "remote"):
@@ -776,6 +800,12 @@ class Handler:
             # budget, evictions, the residency fraction, the promotion
             # worker and the per-index working set.
             out["engineCaches"] = eng.cache_snapshot()
+        # Continuous-query state: probe the slot directly, so that a
+        # scrape never starts the sweeper thread.
+        cq = getattr(self.api, "_cq", None)
+        if cq is not None:
+            out["continuousQueries"] = cq.snapshot()
+        if eng is not None:
             syncer = eng._ingest_syncer
             if syncer is not None:
                 out["ingestSync"] = {

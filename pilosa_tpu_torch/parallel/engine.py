@@ -117,6 +117,7 @@ from . import bsi as bsi_mod
 from . import fusion as fusion_mod
 from . import groupby as groupby_mod
 from . import kernels
+from . import repair as repair_mod
 from . import residency as residency_mod
 from . import sparse as sparse_mod
 from .errors import HostFallback, ResidencyMiss, UnsupportedLowering  # noqa: F401 (re-exported)
@@ -516,6 +517,10 @@ class TorchEngine:
         self.result_memo = _ResultMemo(DEFAULT_RESULT_MEMO)
         self._memo_sig_cache: Dict[int, list] = {}
         self._memo_sig_lock = threading.Lock()
+        # Repair-on-write layer (repair.py): memo entries carrying their
+        # query's row/field footprint, advanced to the current version
+        # tokens from write deltas instead of recomputed.
+        self.repairs = repair_mod.RepairLayer(self)
         # The cross-request micro-batcher (batcher.py), made at first use.
         self._batcher = None
         self._batcher_lock = threading.Lock()
@@ -1574,6 +1579,7 @@ class TorchEngine:
             self._fused_plans.clear()
             self._universe_blocks_at.clear()
             self.result_memo.clear()
+            self.repairs.clear()
             self.residency = residency_mod.ResidencyManager(self)
             self._closed = False
 
@@ -1815,6 +1821,8 @@ class TorchEngine:
             return 0
         v = int(self._dispatch_count(index, c, shards, canonical))
         self.result_memo.put(key, v)
+        if key is not None:
+            self.repairs.register_count(key, c, v)
         return v
 
     def count_async(self, index: str, c: Call, shards: List[int],
@@ -1823,7 +1831,10 @@ class TorchEngine:
         the device.  A repeat of this (query, shards) against unchanged
         views is answered from the result memo with no launch; the memo
         keeps the device scalar itself, so a later hit hands the same
-        tensor back."""
+        tensor back.  After a write, a miss that the repair layer serves
+        (``memo_probe``) comes back as a host int, put on the card here;
+        a fresh result registers for repair with the device scalar held
+        lazily (the first repair reads it back, never this thread)."""
         key, hit = self._memo_lookup(index, c, shards, memo_key)
         if hit is not None:
             if isinstance(hit, torch.Tensor):
@@ -1834,6 +1845,8 @@ class TorchEngine:
             return torch.zeros((), dtype=torch.int64, device=self.device)
         dev = self._dispatch_count(index, c, shards, canonical)
         self.result_memo.put(key, dev)
+        if key is not None:
+            self.repairs.register_count(key, c, dev)
         return dev
 
     def _memo_lookup(self, index, c, shards, memo_key):
@@ -1845,10 +1858,8 @@ class TorchEngine:
 
     # -- result memo (pilosa_tpu/parallel/engine.py:2695-2830) -------------
     #
-    # The reference also probes its repair layer on a miss
-    # (``self.repairs.probe``, engine.py:2678 and :2825), which answers a
-    # repeat after a write from the write's delta; that layer is ROADMAP.md
-    # Queue 1 item 13, and until it lands a miss dispatches.
+    # A miss probes the repair layer (``self.repairs.probe``), which answers
+    # a repeat after a write from the write's delta with no launch.
 
     # Call names whose referenced fields _collect_fields can enumerate:
     # what the engine lowers (lowerable), so every fused Count is eligible.
@@ -1958,12 +1969,22 @@ class TorchEngine:
         key = self._memo_key(index, c, shards)
         if key is None:
             return None, None
-        return key, self.result_memo.get(key)
+        return key, self._memo_get("count", key)
+
+    def _memo_get(self, kind: Optional[str], key):
+        """The memo's value for ``key``; on a miss, the repair layer's
+        ``kind`` entry advanced to the key's tokens (None: no repair)."""
+        v = self.result_memo.get(key)
+        if v is None and kind is not None:
+            v = self.repairs.probe(kind, key)
+        return v
 
     def memo_store(self, key, value, call=None):
-        """Store a result under a key from ``memo_probe``.  (``call`` is
-        the reference's repair-layer registration, Queue 1 item 13.)"""
+        """Store a result under a key from ``memo_probe``; with ``call``,
+        register its footprint for repair-on-write too."""
         self.result_memo.put(key, value)
+        if call is not None and key is not None and value is not None:
+            self.repairs.register_count(key, call, value)
 
     def memo_probe_groupby(self, index, c_str, fields, filter_call, shards):
         """(key, counts-or-None) for the fused GroupBy lane.  The value is
@@ -1984,18 +2005,43 @@ class TorchEngine:
         if toks is None:
             return None, None
         key = (index, "groupby:" + c_str, tuple(sorted(set(shards))), toks)
-        return key, self.result_memo.get(key)
+        return key, self._memo_get("groupby", key)
 
     def memo_store_groupby(self, key, fields, row_lists, filter_call, counts):
         """Store a GroupBy's counts, shaped [K_1, ..., K_n], under a key
-        from ``memo_probe_groupby``.  (The reference also registers the
-        entry with its repair layer, ``repairs.register_groupby``: ROADMAP.md
-        Queue 1 item 13.)"""
+        from ``memo_probe_groupby``, and register them for repair."""
         if key is None or counts is None:
             return
         shaped = np.asarray(counts, dtype=np.int64).reshape(
             tuple(len(rows) for rows in row_lists))
         self.result_memo.put(key, shaped)
+        self.repairs.register_groupby(key, fields, row_lists, filter_call, shaped)
+
+    def memo_probe_topn(self, index, field_name, shards, n, threshold, row_ids):
+        """(key, pairs-or-None) for the cache-only TopN lane: signed by
+        the field and the rank parameters, tokened over every view of the
+        field.  A miss probes the repair layer, whose count table is
+        re-ranked with exactly topn_cache_only's host reduce."""
+        if self.result_memo.maxsize <= 0:
+            return None, None
+        toks = self.memo_tokens(index, {field_name})
+        if toks is None:
+            return None, None
+        qstr = "topn:%s|%d|%d|%s" % (
+            field_name, n, threshold,
+            ",".join(map(str, row_ids)) if row_ids else "",
+        )
+        key = (index, qstr, tuple(sorted(set(shards))), toks)
+        v = self._memo_get("topn", key)
+        return key, (None if v is None else [tuple(p) for p in v])
+
+    def memo_store_topn(self, key, field_name, n, threshold, row_ids, pairs):
+        """Store a cache-only TopN's pairs under a key from
+        ``memo_probe_topn`` and register its count table for repair."""
+        if key is None or pairs is None:
+            return
+        self.result_memo.put(key, tuple(map(tuple, pairs)))
+        self.repairs.register_topn(key, field_name, n, threshold, row_ids)
 
     @staticmethod
     def _operand_bytes(parts, mask_bytes: int = 0, slot_vector: bool = False,
@@ -2895,6 +2941,8 @@ class TorchEngine:
     # _OP_CACHE_TAG); TopN scores and GroupBy do not (the executor keeps
     # GroupBy's shaped counts itself, memo_probe_groupby).
     _MEMO_OPS = frozenset(("sum", "min", "max", "topnf"))
+    # The repair-layer kind of each memoized op (the full TopN has none).
+    _REPAIR_KIND = {"sum": "sum", "min": "minmax", "max": "minmax"}
 
     def memo_key_op(self, index: str, kind: str, spec: dict, shards):
         """Memo key of an aggregate op: ``_memo_key``'s shape, signed by the
@@ -2912,26 +2960,33 @@ class TorchEngine:
 
     def memo_probe_op(self, index: str, kind: str, spec: dict, shards):
         """(key, value-or-None) for ``submit_op``: a hit answers the op with
-        no launch.  (The reference's repair probe on a miss is ROADMAP.md
-        Queue 1 item 13.)"""
+        no launch.  A miss probes the repair layer (Sum from plane-popcount
+        deltas; Min/Max from the per-field extremum table)."""
         if kind not in self._MEMO_OPS:
             return None, None
         key = self.memo_key_op(index, kind, spec, shards)
         if key is None:
             return None, None
-        v = self.result_memo.get(key)
+        v = self._memo_get(self._REPAIR_KIND.get(kind), key)
         if v is not None and kind == "topnf":
             v = [tuple(p) for p in v]
         return key, v
 
     def memo_store_op(self, key, kind: str, spec: dict, value):
-        """Store an op's result under its submit-time key; DECLINED is never
+        """Store an op's result under its submit-time key; Sum and Min/Max
+        also register their plane footprints for repair.  DECLINED is never
         stored."""
         if key is None or value is None or value is fusion_mod.DECLINED:
             return
         if kind == "topnf":
-            value = tuple(map(tuple, value))
+            self.result_memo.put(key, tuple(map(tuple, value)))
+            return
         self.result_memo.put(key, value)
+        if kind == "sum":
+            self.repairs.register_sum(key, spec["field"], spec.get("filter"), value)
+        elif kind in ("min", "max"):
+            self.repairs.register_minmax(key, spec["field"], spec.get("filter"),
+                                         kind == "min", value)
 
     # -- the aggregate lane (pilosa_tpu/parallel/engine.py:3652-3720) --------
 
@@ -3048,5 +3103,6 @@ class TorchEngine:
             "residency": self.residency.snapshot(),
             "workingSet": self._working_set_snapshot(),
             "resultMemoEntries": len(self.result_memo._od),
+            "resultRepair": self.repairs.snapshot(),
             "fusedPlans": len(self._fused_plans),
         }

@@ -234,6 +234,9 @@ class SLOWatcher:
             device = _device_state(eng)
             if device is not None:
                 bundle["device"] = device
+        cq = getattr(api, "_cq", None)
+        if cq is not None:
+            bundle["continuousQueries"] = cq.snapshot()
         from ..net.faults import PLANE
 
         if PLANE.active:

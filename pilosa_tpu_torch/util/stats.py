@@ -571,6 +571,30 @@ METRIC_CACHE_ENTRIES = "pilosa_cache_entries"
 #   pilosa_process_rss_bytes{proc=}         resident set size per process
 METRIC_PROCESS_UP = "pilosa_process_up"
 METRIC_PROCESS_RSS = "pilosa_process_rss_bytes"
+# -- repair-on-write materialized results (pilosa_tpu/util/stats.py:680-703) --
+#   pilosa_result_repairs_total{kind=}        memo entries advanced to the
+#                                             current version tokens in
+#                                             O(changed bits) instead of
+#                                             recomputed
+#   pilosa_result_repair_fallbacks_total{kind=} repair attempts that fell
+#                                             back to a full recompute
+#                                             (opaque write, coverage hole,
+#                                             structural change, lost race)
+#   pilosa_result_repair_seconds              host time per repair attempt
+#   pilosa_result_repair_touched_words_total  64-bit words a repair actually
+#                                             read — the O(touched) evidence
+#                                             vs the index's total words
+#   pilosa_cq_active                          live continuous-query
+#                                             subscriptions (POST /cq)
+#   pilosa_cq_deltas_total                    result deltas streamed to
+#                                             continuous-query subscribers
+METRIC_RESULT_REPAIRS = "pilosa_result_repairs_total"
+METRIC_RESULT_REPAIR_FALLBACKS = "pilosa_result_repair_fallbacks_total"
+METRIC_RESULT_REPAIR_SECONDS = "pilosa_result_repair_seconds"
+METRIC_RESULT_REPAIR_TOUCHED_WORDS = "pilosa_result_repair_touched_words_total"
+METRIC_CQ_ACTIVE = "pilosa_cq_active"
+METRIC_CQ_DELTAS = "pilosa_cq_deltas_total"
+REPAIR_KINDS = ("count", "sum", "topn", "groupby", "minmax")
 SHED_REASONS = ("overload", "tenant_fair", "queue_full")
 SERVER_REQUEST_PATHS = ("inline", "pool", "shed")
 
@@ -612,7 +636,19 @@ for _reason in HISTORY_DROP_REASONS:
     REGISTRY.counter(METRIC_HISTORY_DROPPED, help="Series values the sampler could not store",
                      reason=_reason)
 REGISTRY.histogram(METRIC_HISTORY_TICK_SECONDS, help="Cost of one history sampler pass (seconds)")
-del _action, _reason
+for _kind in REPAIR_KINDS:
+    REGISTRY.counter(METRIC_RESULT_REPAIRS,
+                     help="Materialized results repaired in-place from write deltas",
+                     kind=_kind)
+    REGISTRY.counter(METRIC_RESULT_REPAIR_FALLBACKS,
+                     help="Repair attempts that fell back to full recompute", kind=_kind)
+REGISTRY.histogram(METRIC_RESULT_REPAIR_SECONDS,
+                   help="Host time per materialized-result repair attempt (seconds)")
+REGISTRY.counter(METRIC_RESULT_REPAIR_TOUCHED_WORDS,
+                 help="64-bit words read by result repairs (O(touched), not O(index))")
+REGISTRY.set_gauge(METRIC_CQ_ACTIVE, 0)
+REGISTRY.counter(METRIC_CQ_DELTAS, help="Result deltas streamed to continuous queries")
+del _action, _reason, _kind
 
 
 class StatsClient:

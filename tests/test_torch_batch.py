@@ -517,7 +517,13 @@ def test_memo_repeat_hits_and_write_misses(pair):
     key2 = teng._memo_key("i", tcall("Intersect(Row(f=10), Row(f=11))"), SHARDS)
     assert key2[:3] == key[:3] and key2[3] != key[3]
     assert teng.result_memo.miss_reason(key2) == "version_token_advanced"
+    # The repair layer serves the miss from the writes' delta, with no
+    # dispatch; suspended, the same miss dispatches.
     assert tex.execute("i", q).results == want2
+    assert teng.dense_dispatches == dense and teng.repairs.repaired["count"] == 1
+    with teng.repairs.suspended():
+        teng.result_memo.clear()
+        assert tex.execute("i", q).results == want2
     assert teng.dense_dispatches == dense + 1
     assert teng.result_memo.miss_reason(None) == "ineligible"
     other = teng._memo_key("i", tcall("Xor(Row(f=10), Row(f=12))"), SHARDS)
@@ -526,8 +532,9 @@ def test_memo_repeat_hits_and_write_misses(pair):
 
 def test_memo_hit_skips_the_kernel_path_and_a_write_reaches_it(pair):
     """A repeated Count is a memo hit: no dispatch, no stack work.  A write
-    moves its key: the next repeat dispatches once, on the stack synced in
-    place (no rebuild)."""
+    moves its key: the next repeat is repaired from the write's delta (no
+    dispatch, no stack work), and with the repair layer suspended it
+    dispatches once, on the stack synced in place (no rebuild)."""
     _, jex, teng, tex = pair
     q = "Count(Intersect(Row(f=10), Row(f=11)))"
     tex.execute("i", q)
@@ -541,6 +548,10 @@ def test_memo_hit_skips_the_kernel_path_and_a_write_reaches_it(pair):
     for ex in (jex, tex):
         ex.execute("i", f"Set({2 * SW + 77}, f=10)")
     assert tex.execute("i", q).results == jex.execute("i", q).results
+    assert state() == (rebuilds, updates, dense)
+    with teng.repairs.suspended():
+        teng.result_memo.clear()
+        assert tex.execute("i", q).results == jex.execute("i", q).results
     assert state() == (rebuilds, updates + 1, dense + 1)
 
 

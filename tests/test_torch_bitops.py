@@ -156,8 +156,10 @@ def test_import_is_jax_free():
     observability modules (``util.heat``, ``parallel.advisor``,
     ``util.history``, ``util.slo``, ``net.faults``, ``util.statsd``,
     ``util.diagnostics``, ``util.fanout``) import, a budgeted query records
-    heat, drives an advisor promotion and ticks the history once, and no
-    module of pilosa_tpu is loaded."""
+    heat, drives an advisor promotion and ticks the history once, the
+    repair-on-write modules (``core.delta``, ``parallel.repair``,
+    ``net.cq``) import and a Count after a write is served by a repair with
+    no dispatch, and no module of pilosa_tpu is loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -279,6 +281,24 @@ def test_import_is_jax_free():
         "assert hs.tick(now=1.7e9) > 0 and 'pilosa_engine_residency_gap_bytes' in hs.series_names()\n"
         "SLOWatcher(ah, hs, error_rate_target=0.01).tick(now=1.7e9)\n"
         "ah.close()\n"
+        "for name in ('core.delta', 'parallel.repair', 'net.cq'):\n"
+        "    importlib.import_module('pilosa_tpu_torch.' + name)\n"
+        "from pilosa_tpu_torch.net.cq import CQManager\n"
+        "from pilosa_tpu_torch.core.delta import HUB\n"
+        "hq = Holder(device='cpu'); hq.open()\n"
+        "hq.create_index('q').create_field('f').import_bulk([1, 1, 2], [3, 4, 3])\n"
+        "eq = TorchEngine(hq, device='cpu')\n"
+        "cq = ex._parse_cached('Intersect(Row(f=1), Row(f=2))').calls[0]\n"
+        "assert eq.count('q', cq, [0]) == 1\n"
+        "hq.fragment('q', 'f', 'standard', 0).set_bit(2, 4)\n"
+        "n = eq.dense_dispatches + eq.sparse_dispatches\n"
+        "assert eq.count('q', cq, [0]) == 2 and eq.repairs.repaired['count'] == 1\n"
+        "assert eq.dense_dispatches + eq.sparse_dispatches == n\n"
+        "aq = API(holder=hq, engine=eq)\n"
+        "assert isinstance(aq.cq, CQManager) and aq.cq.create('q', 'Count(Row(f=1))')['result'] == [2]\n"
+        "logs = HUB.snapshot()['viewLogs']\n"
+        "aq.close()\n"
+        "assert HUB.snapshot()['viewLogs'] == logs - 1\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"

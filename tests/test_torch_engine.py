@@ -186,8 +186,14 @@ def test_stack_cached_until_a_write(twins):
                and not f.view("standard").fragment(0).bit(2, x))
     f.set_bit(1, col)
     f.set_bit(2, col)
+    # The repair layer answers the repeat from the writes' delta, with no
+    # dispatch and no stack work ...
     assert eng.count("i", c, shards) == n0 + 1
-    # Synced in place, not rebuilt.
+    assert eng.repairs.repaired["count"] == 1 and eng.stack_updates == 0
+    # ... and a dispatch syncs the stack in place, not rebuilt.
+    with eng.repairs.suspended():
+        eng.result_memo.clear()
+        assert eng.count("i", c, shards) == n0 + 1
     assert eng.stack_rebuilds == rebuilds
     assert eng.stack_updates == 1
     f.clear_bit(1, col)

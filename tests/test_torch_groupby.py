@@ -416,7 +416,9 @@ def test_groupby_errors(execs):
 
 def test_groupby_memo_hit_then_a_write_misses():
     """A repeat GroupBy is a memo hit with no dispatch; after a write to a
-    group field the repeat misses, dispatches and sees the write."""
+    group field the repeat misses and sees the write: the repair layer
+    serves it from the write's delta with no dispatch, and with the repair
+    layer suspended it dispatches."""
     jh, th = build_twins()
     jex, tex = JExecutor(jh), Executor(th, engine=TorchEngine(th, device="cpu"))
     eng = tex.engine
@@ -431,8 +433,12 @@ def test_groupby_memo_hit_then_a_write_misses():
         jex.execute("i", w)
         tex.execute("i", w)
     after = norm(tex.execute("i", q).results)
-    assert eng.group_dispatches == 2
+    assert eng.group_dispatches == 1 and eng.repairs.repaired["groupby"] == 1
     assert after == norm(jex.execute("i", q).results) != first
+    with eng.repairs.suspended():
+        eng.result_memo.clear()
+        assert norm(tex.execute("i", q).results) == after
+    assert eng.group_dispatches == 2
     # A new row of a group field widens the axis: the row lists follow.
     for w in (f"Set({col}, a=7)", f"Set({col + 1}, a=7)", f"Set({col + 1}, b=2)",
               f"Set({col + 1}, c=1)"):

@@ -231,10 +231,11 @@ def test_host_fallback_touches_match():
 
 def _traffic(apis, cycles=4):
     # A fresh recorder holds no memo touches to replay: start from misses
-    # (the reference's repair layer serves repeats as memo hits too).
+    # (each package's repair layer serves repeats as memo hits too).
     apis[0].mesh_engine.result_memo.clear()
     apis[0].mesh_engine.repairs.clear()
     apis[1].engine.result_memo.clear()
+    apis[1].engine.repairs.clear()
     for _ in range(cycles):
         both(apis, DASH_A)
         both(apis, DASH_B)

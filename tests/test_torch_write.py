@@ -346,9 +346,10 @@ def test_write_syncs_the_resident_stack_in_place(write):
 
 
 def test_store_and_clear_row_stale_the_memo_and_match_the_reference():
-    """A memoized Count misses after a Store or a ClearRow and sees it; a
-    Store of a new row adds the row (a rebuild, as for any new row); the
-    Store into an existing row and a ClearRow sync the stack in place."""
+    """A memoized Count misses after a Store or a ClearRow and sees it (the
+    repair layer serves both from their deltas); a Store of a new row adds
+    the row (a rebuild, as for any new row); the Store into an existing
+    row and a ClearRow sync the stack in place."""
     tw = Twins()
     tw.stacks("d")
     q = "Intersect(Row(d=1), Row(d=2))"
@@ -362,9 +363,10 @@ def test_store_and_clear_row_stale_the_memo_and_match_the_reference():
     assert c1 != c0 and tw.teng.result_memo.hits == hits + 1
     tw.write("ClearRow(d=1)")
     assert tw.count(q) == 0
+    assert tw.teng.repairs.repaired["count"] == 2
+    assert_stack_current(tw, "d")
     _, _, tr, tu = tw.counters()
     assert tr == before[2] and tu > before[3]
-    assert_stack_current(tw, "d")
     # Store into a row no fragment had: the stack grows a row.
     tw.write("Store(Row(d=3), d=9)")
     same_row_words(tw, "d", 9)
@@ -409,6 +411,10 @@ def test_store_and_clear_row_errors_match_the_reference():
 
 def test_set_into_an_empty_block_is_counted_on_the_sparse_path():
     tw = Twins()
+    # Repair-on-write would serve every re-count below with no dispatch
+    # (tests/test_torch_repair.py holds that); this test pins the sparse
+    # path's sync, so its Counts must dispatch.
+    tw.teng.repairs._suspended = 1
     q = "Intersect(Row(c=1), Row(c=2))"
     c0 = tw.count(q)
     assert tw.teng.last_path == "sparse"
@@ -592,7 +598,8 @@ def test_failed_scatter_evicts_the_stack_and_raises(monkeypatch):
     assert ("i", "d", "standard") not in tw.teng._stacks
     monkeypatch.undo()
     rebuilds = tw.teng.stack_rebuilds
-    assert tw.count(q) == c0 + 1
+    with tw.teng.repairs.suspended():  # the query must dispatch to rebuild
+        assert tw.count(q) == c0 + 1
     assert tw.teng.stack_rebuilds == rebuilds + 1
 
 
