@@ -59,6 +59,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    trees and slots whose live word is 0 and whose live word is full, 12
    and 37 shards, two streams.  Integer results, so they must agree
    exactly.  --check-only stops here.
+   native — host only: each path of pilosa_tpu_torch/native (ingest
+   through Field.import_bulk, a fragment's load, codec.serialize) timed
+   against its numpy twin in turns, their results equal (run_native_ab).
 3. main path — the north-star index of bench.py at full scale: index
    "bench" of 960 shards (~1.007B columns), field f of 24 dense random rows,
    field s of 24 rows that each occupy 4 of the 64 occupancy blocks of
@@ -176,7 +179,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    640 connections x 32, after the warm of tiers 1, 9, 65 and 257; the
    batcher's batches, mean batch and K5's launches by K, those at
    K >= 256 among them) and http_mixed_qps (Count, Count, TopN, Sum; F1's
-   launches counted); continuous queries with the memo on, over index cqi
+   launches counted); after those timed loops, POST /recalculate-caches,
+   a /debug/pprof/trace whose Chrome trace must name the Count kernels,
+   /debug/pprof/profile and /heap, and /debug/vars' engineCaches;
+   continuous queries with the memo on, over index cqi
    of their own (10 shards): POST /cq of a Count tree, a Set over HTTP,
    then GET /cq/{id}?since=1&wait_ms=5000 returns the new count, equal to
    a fresh query and served by the repair layer (resultRepair in
@@ -1177,6 +1183,75 @@ def check_bsi_kernels(device, seed):
     return err
 
 
+def check_batch_ranges(device, seed):
+    """K5 with range leaves against count_batch_tree_plain, exactly: depths
+    1, 8, 31 and 63, every kind and BETWEEN at drawn and extreme
+    predicates, a missing value plane and a missing not-null plane, two
+    ranges over one field, ranges beside rows, chain and interpreter
+    trees, the same condition in several queries (its planes staged
+    once), four range leaves in one tree, masks of every shard, none, one
+    and a ragged set; leaf tables of 128 rows (two depth-63 ranges, the
+    stage's last tile width) and of 192 (three, past the stage: the
+    direct path).  Returns max |err|."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    rng = np.random.default_rng(seed + 9)
+    n = 0
+
+    def same(progs, mats, masks, what):
+        nonlocal n
+        ids = [int(i) for i in rng.integers(0, len(masks), len(progs))]
+        batch = kernels.compile_batch(progs, ids)
+        got = kernels.count_batch_tree_cuda(batch, mats, masks, device)
+        torch.cuda.synchronize()
+        _exact("K5", got, kernels.count_batch_tree_plain(progs, mats, masks, ids, device),
+               f"{what} ({len(batch.leaves)} table rows, {batch.ranges.shape[0]} ranges)")
+        n += 1
+
+    S = 12
+    rows = _adversarial_stack(rng, 4, S, device)
+    masks = _batch_masks(rng, S)
+    for depth in (1, 8, 31, 63):
+        st = _bsi_stack(rng, depth, S, device)
+        mats = [st, rows]
+        full = tuple(range(depth + 1))
+        gap = tuple(-1 if i == depth // 2 else i for i in full)
+        nn_gone = full[:-1] + (-1,)
+        preds = list(_BSI_PREDS) + [int(x) for x in rng.integers(0, 1 << min(depth, 62), 3)]
+        progs = []
+        for kind in _BSI_KINDS:
+            for planes in (full, gap, nn_gone):
+                lo, hi = preds[int(rng.integers(0, len(preds)))], preds[int(rng.integers(0, len(preds)))]
+                leaf = _range_leaf(kind, planes, lo, hi)
+                other = _range_leaf(_BSI_KINDS[int(rng.integers(0, 7))], full,
+                                    preds[int(rng.integers(0, len(preds)))], lo)
+                progs += [leaf, ("and", ("row", 1, int(rng.integers(0, 4))), leaf),
+                          ("or", ("and", ("row", 1, 1), leaf), ("andnot", ("row", 1, 2), other)),
+                          ("xor", leaf, other, ("zero",))]
+        four = ("and",) + tuple(_range_leaf(k, full, int(p), 0) for k, p in
+                                zip(("gt", "lt", "neq", "gte"), rng.integers(0, 1 << min(depth, 62), 4)))
+        progs.append(four)
+        same(progs, mats, masks, f"depth {depth}, {len(progs)} queries")
+        same(progs[::9] * 3, mats, masks, f"depth {depth}, repeats")
+        del st
+    # 128 table rows (two depth-63 ranges: staged, 32 positions a tile) and
+    # 192 (three: the direct path), each range in several queries.
+    sts = [_bsi_stack(rng, 63, S, device, extra=0) for _ in range(3)]
+    full = tuple(range(64))
+    for n_st in (2, 3):
+        progs = [_range_leaf(_BSI_KINDS[k % 7], full, int(rng.integers(0, 1 << 62)),
+                             int(rng.integers(0, 1 << 62)), slot=k % n_st) for k in range(12)]
+        progs += [("and", progs[k], progs[k + 1]) for k in range(0, 10, 3)]
+        batch = kernels.compile_batch(progs, [0] * len(progs))
+        assert len(batch.leaves) == 64 * n_st, len(batch.leaves)
+        same(progs, sts, masks, f"{64 * n_st} plane rows")
+    del sts
+    log(f"kernels: {n} comparisons exact (K5 with range leaves against its plain version)")
+    return {"count_batch_tree": 0}
+
+
 # Row lists of the K8 checks, by field: (stack, K), K rows drawn from the
 # stack (a 4-row and a 33-row one); 1 to 8 fields, K of 1, 2, 4, 32 and 33,
 # up to 1024 combinations (32 x 32).  The register form takes the shapes
@@ -1660,7 +1735,7 @@ def check_pool_leaf(device, seed):
                  groupby.groupn_tree_plain(t, mats, m, [dense, dense], lists), f"K8 {t}")
         # K5: batches of the trees without a range leaf, staged (few leaf
         # rows) and unstaged (past 128 distinct rows), with repeats.
-        batch = [t for t in trees if kernels.batchable(t)]
+        batch = [t for t in trees if kernels.fits(t)]
         bmasks = np.stack([np.ones(S, bool), np.zeros(S, bool), rng.random(S) < 0.5])
         for progs in (batch, batch * 3, batch + [("or", ("row", 0, k % 4), rb[k % 7])
                                                  for k in range(140)]):
@@ -1673,7 +1748,7 @@ def check_pool_leaf(device, seed):
         # them) at K = 1, 8, 64 and 300, staged; and over a slot table of
         # 150 rows (more than 128 distinct leaf rows: the direct path) at K
         # = 8 and 300; masks of every shard, none and a ragged set.
-        pool_batch = [t for t in [dense_t] + dead + trees if kernels.batchable(t)]
+        pool_batch = [t for t in [dense_t] + dead + trees if kernels.fits(t)]
         k5p_same([trees[4]], mats, bmasks, f"K=1 (a full live word) S={S} P={P}")
         for K in (8, 64, 300):
             progs = [pool_batch[int(i)] for i in rng.integers(0, len(pool_batch), K)]
@@ -1824,7 +1899,7 @@ def check_pool_leaf(device, seed):
         same(ft, wtable, "F1P on two streams: table", "fused_tree_pool")
         live_slots = torch.unique(wtable[wtable != 0]).long()
         same(fp[live_slots], wpool[live_slots], "F1P on two streams: pool", "fused_tree_pool")
-    progs = [t for t in trees if kernels.batchable(t)]
+    progs = [t for t in trees if kernels.fits(t)]
     outs = []
     torch.cuda.synchronize()
     for i in range(8):
@@ -2717,25 +2792,38 @@ def batch_bound(progs, mats, masks, mask_ids, S):
     """(bytes, integer ops) K5's least work needs for one batch: each
     distinct leaf row's words of the shards some query reading it
     requests read once, the packed upload (leaf addresses, programs,
-    masks) read and the int64 answers written; per query and word, its
-    combines, a popcount and an add."""
+    masks, range records and planes) read and the int64 answers written;
+    per query and word, its combines, a popcount and an add, and two
+    operations per plane word of each range leaf (its planes are leaf
+    rows, read once like any other)."""
     from pilosa_tpu_torch.parallel import kernels
 
     batch = kernels.compile_batch(progs, mask_ids)
+
+    def planes_of(code):
+        kd, off = int(batch.ranges[code >> 8, 2]), int(batch.ranges[code >> 8, 3])
+        return [int(p) for p in batch.planes[off: off + (kd >> 8) + 1] if p >= 0]
+
     req = {}
     for k, (off, n_ops, mid, _) in enumerate(batch.qinfo.tolist()):
         for code in batch.ops[off: off + n_ops].tolist():
             if code & 0xFF == kernels.OP_LEAF:
                 req.setdefault(code >> 8, set()).add(mid)
+            elif code & 0xFF == kernels.OP_RANGE:
+                for p in planes_of(code):
+                    req.setdefault(p, set()).add(mid)
     words = mats[0].shape[2] if mats else 32768
     row_bytes = sum(int(np.any(masks[sorted(m)], axis=0).sum()) for m in req.values()) * words * 4
     upload = (len(batch.leaves) * 8 + batch.qinfo.nbytes + batch.ops.nbytes
-              + kernels.mask_bits(masks).nbytes)
+              + kernels.mask_bits(masks).nbytes + batch.ranges.nbytes + batch.planes.nbytes)
     ops = 0
     for off, n_ops, mid, _ in batch.qinfo.tolist():
-        leaves = sum(1 for c in batch.ops[off: off + n_ops].tolist()
-                     if c & 0xFF in (kernels.OP_LEAF, kernels.OP_ZERO))
-        ops += (n_ops - leaves + 2) * int(masks[mid].sum()) * words
+        codes = batch.ops[off: off + n_ops].tolist()
+        leaves = sum(1 for c in codes if c & 0xFF in (kernels.OP_LEAF, kernels.OP_ZERO,
+                                                      kernels.OP_RANGE))
+        # A range leaf: about two operations per plane word (fragment.go's walks).
+        walk = sum(2 * len(planes_of(c)) for c in codes if c & 0xFF == kernels.OP_RANGE)
+        ops += (n_ops - leaves + 2 + walk) * int(masks[mid].sum()) * words
     return row_bytes + upload + len(progs) * 8, ops
 
 
@@ -3281,9 +3369,11 @@ def run_bsi_path(device, holder, engine, ex, host, seed, err):
     out-of-range cases, on all shards and on every third;
     Count(Intersect(Row(f=10), Range(v > 100))); the time-quantum Counts
     of t=7 and t=8 over three month views; a query of consecutive Counts
-    with Ranges among them (K5 declines those: they run on K1).  The
+    with Ranges among them (one K5 launch, none declined).  The
     launch counters, zeroed just before, must have moved for the range
-    leaf, K6, K7 and K5, and the host lane must not have run.  Then one
+    leaf, K6, K7 and K5, and the host lane must not have run.  Then K5
+    with range leaves at the main path's shape against its plain version,
+    and its time on 8 range Counts beside the same trees as K1 launches.  Then one
     Set(col, v=N) and an import_values of 2^20 values, each followed by
     Sum/Min/Max, with the stack synced in place, not rebuilt.  Returns
     the phase's numbers, its launches and its kernel entries."""
@@ -3359,18 +3449,25 @@ def run_bsi_path(device, holder, engine, ex, host, seed, err):
             got = ex.execute("bench", q).results[0]
             if got != want:
                 raise AssertionError(f"{q}: port {got} != numpy oracle {want}")
+        k5_before = read_counts(COUNT_KERNELS)
         got = ex.execute("bench", batch_q).results
         if got != batch_want:
             raise AssertionError(f"{batch_q}: port {got} != numpy oracle {batch_want}")
         launches = _bsi_counters()
+    batch_launches = {k: launches[k] - k5_before[k] for k in COUNT_KERNELS}
     declines = engine.batch_declines - declines0
     fallbacks = ex.host_fallbacks - fallbacks0
     log(f"bsi: {len(agg_qs)} Sum/Min/Max, {len(range_qs) + 1} range Counts, {len(t_qs)} "
         f"time-range Counts and a 4-Count query exact against numpy; launches {launches}, "
-        f"K5 declines {declines}, host-lane fallbacks {fallbacks}")
-    if fallbacks or declines != 3 or engine.stack_rebuilds != rebuilds0:
+        f"the 4-Count query's {batch_launches}, K5 declines {declines}, host-lane fallbacks "
+        f"{fallbacks}")
+    if fallbacks or declines or engine.stack_rebuilds != rebuilds0:
         raise AssertionError(f"bsi: host-lane fallbacks {fallbacks} (want 0), K5 declines "
-                             f"{declines} (want 3), rebuilds {engine.stack_rebuilds - rebuilds0}")
+                             f"{declines} (want 0), rebuilds {engine.stack_rebuilds - rebuilds0}")
+    if cuda and batch_launches != {"count_tree_dense": 0, "count_tree_blocks": 0,
+                                   "count_batch_tree": 1}:
+        raise AssertionError(f"bsi: the 4-Count query with 3 range trees launched "
+                             f"{batch_launches}, not one K5")
     if cuda and min(launches[k] for k in ("range_leaf", "sum_tree", "minmax_tree",
                                           "count_tree_dense", "count_batch_tree")) <= 0:
         raise AssertionError(f"a kernel of the bsi path never launched: {launches}")
@@ -3402,8 +3499,28 @@ def run_bsi_path(device, holder, engine, ex, host, seed, err):
         key = "range_leaf" if name == "time_range" else name
         err[key] = max(err.get(key, 0), _exact(name, got.reshape(-1), want.reshape(-1),
                                                "at the main path's shape"))
+    # K5 with range leaves at the main path's shape: 8 Count(Range(v >
+    # x_k)), a BETWEEN and Intersect(Row(f=10), Range(v > 100)) in one
+    # batch, held against its plain version; then the 8 ranges alone
+    # timed against the same 8 trees as K1 launches (what the engine ran
+    # before K5 took range leaves) and against K5's bound.
+    thresholds = [int(x) for x in np.linspace(16, 240, 8)]
+    k5_qs = [f"Range(v > {x})" for x in thresholds] + [
+        "Range(v >< [10, 200])", "Intersect(Row(f=10), Range(v > 100))"]
+    k5_progs = [engine._lower("bench", pql.parse(q).calls[0], lw) for q in k5_qs]
+    k5_masks = np.ones((1, S), dtype=bool)
+    got = kernels.count_batch_tree(k5_progs, lw.mats, k5_masks, [0] * len(k5_progs), device)
+    want = kernels.count_batch_tree_plain(k5_progs, lw.mats, k5_masks, [0] * len(k5_progs),
+                                          device)
+    sync()
+    err["count_batch_tree"] = max(err.get("count_batch_tree", 0), _exact(
+        "K5", got, want, "with range leaves on v at the main path's shape"))
+    gt = [int(hist_sum(h_all, every, np.arange(1 << BSI_DEPTH) > x)[1]) for x in thresholds]
+    if got.tolist()[:8] != gt:
+        raise AssertionError(f"K5 range Counts {got.tolist()[:8]} != numpy {gt}")
     out = {"made_s": made_s, "oracle_s": oracle_s, "launches": launches,
-           "k5_declines": declines, "host_fallbacks": fallbacks}
+           "k5_declines": declines, "host_fallbacks": fallbacks,
+           "batch_query_launches": batch_launches}
     entries = []
     if cuda:
         rows_bytes = lambda n: n * S * 32768 * 4  # noqa: E731
@@ -3426,6 +3543,25 @@ def run_bsi_path(device, holder, engine, ex, host, seed, err):
             bound = max(byts / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S) * 1e3
             _times_line(f"bsi {name}", t, bound, t["plain_ms"])
             out[f"{name}_device_ms"], out[f"{name}_bound_ms"] = t["device_ms"], bound
+        eight = k5_progs[:8]
+
+        def k5_call():
+            return kernels.count_batch_tree(eight, lw.mats, k5_masks, [0] * 8, device)
+
+        for _ in range(3):
+            k5_call()
+        sync()
+        t = measured(k5_call, "count_batch_tree_kernel", sync)
+        byts, ops = batch_bound(eight, lw.mats, k5_masks, [0] * 8, S)
+        bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        plain = p50_ms(lambda: kernels.count_batch_tree_plain(eight, lw.mats, k5_masks, [0] * 8,
+                                                              device), 3, sync, batch=1)
+        k1_ms = k1_launches_ms(engine, eight, lw.mats, canonical, gt)
+        _times_line(f"K5 count_batch_tree, 8 Count(Range(v > x)) on v (S={S})", t, bound,
+                    plain, f"; the same 8 trees as 8 K1 launches: {k1_ms:.4f} ms of device "
+                    "time (torch.profiler)")
+        out["k5_ranges"] = {**t, "bound_ms": bound, "bytes": byts, "plain_ms": plain,
+                            "k1_launches_device_ms": k1_ms}
         for name, src, rep in (
                 ("range_leaf", "pilosa_tpu_torch/csrc/tree_eval.cuh",
                  "pilosa_tpu/parallel/kernels.py:108"),
@@ -4755,6 +4891,22 @@ def pool_batch_and_drain(eng, q8, entries, S):
     for plain in (kernels.count_batch_tree_pool_plain, kernels.count_batch_tree_plain):
         _exact("count_batch_tree_pool", got, plain(progs, lw.mats, masks, ids, device),
                f"the residency 8-Count batch against {plain.__name__}")
+    # Pool rows beside a range leaf (planes of a depth-7 stack like rv's,
+    # random words): K5P stages the planes, stack rows live in every block,
+    # beside the pool rows' live blocks.
+    bst = _bsi_stack(np.random.default_rng(S), 7, S, device, extra=0)
+    mats_r = list(lw.mats) + [bst]
+    rg = _range_leaf("gt", tuple(range(8)), 50, 0, slot=len(lw.mats))
+    progs_r = [("and", progs[0], rg), ("or", progs[1], rg), ("andnot", rg, progs[2])]
+    batch_r = kernels.compile_batch(progs_r, ids[:3])
+    assert batch_r.pooled and batch_r.ranges.shape[0] == 1
+    got = kernels.count_batch_tree_pool_cuda(batch_r, mats_r, masks, device)
+    for plain in (kernels.count_batch_tree_pool_plain, kernels.count_batch_tree_plain):
+        _exact("count_batch_tree_pool", got, plain(progs_r, mats_r, masks, ids[:3], device),
+               f"pool rows beside a range leaf against {plain.__name__}")
+    log(f"residency: K5P with pool rows beside a range leaf exact ({S} shards, "
+        f"{len(batch_r.leaves)} table rows)")
+    del bst, mats_r
     def live(leaf, mats):  # a pool leaf's occupied blocks; a stack row's every block
         return int((mats[leaf[2]][leaf[1]] != 0).sum()) if len(leaf) == 3 else 64
 
@@ -6256,6 +6408,7 @@ def run_repair_path(device, n_shards=N_SHARDS, seed=RPS_SEED):
         if base != recompute():
             raise AssertionError("repair: the idle dashboard disagrees with its recompute")
         h0, m0 = memo_tally()
+        caches0 = engine.cache_snapshot()["caches"]
         idle = []
         for _ in range(RPS_IDLE_REPS):
             t0 = time.perf_counter()
@@ -6265,6 +6418,14 @@ def run_repair_path(device, n_shards=N_SHARDS, seed=RPS_SEED):
                 raise AssertionError("repair: an idle serve disagrees with the first")
         h1, m1 = memo_tally()
         rate_idle = (h1 - h0) / max((h1 - h0) + (m1 - m0), 1)
+        # The idle serves' hits per memo cache, from the engine's tallies
+        # (the pilosa_engine_cache_* series): the Sum, the TopN and the
+        # GroupBy each from its own memo_* cache.
+        caches1 = engine.cache_snapshot()["caches"]
+        memo_idle = {k: {hm: caches1[k][hm] - caches0[k][hm] for hm in ("hits", "misses")}
+                     for k in ("result_memo", "memo_sum", "memo_topn", "memo_groupby")}
+        if min(memo_idle[k]["hits"] for k in ("memo_sum", "memo_groupby")) < RPS_IDLE_REPS:
+            raise AssertionError(f"repair: the idle serves' memo tallies {memo_idle}")
         t_idle = statistics.median(idle)
 
         rep0 = sum(engine.repairs.repaired.values())
@@ -6338,6 +6499,9 @@ def run_repair_path(device, n_shards=N_SHARDS, seed=RPS_SEED):
         out.update({
             "result_memo_hit_rate_under_write_load": rate_w,
             "memo_hit_rate_idle": rate_idle,
+            "memo_caches_idle": memo_idle,
+            "engine_caches": {k: v for k, v in engine.cache_snapshot()["caches"].items()
+                              if k.startswith("memo_") or k == "result_memo"},
             "dashboard_p50_under_ingest_vs_idle": t_write / t_idle,
             "repair_touched_words_per_repair": touched / max(repaired, 1),
             "dashboard_repair_serve_p50_ms": statistics.median(first_times) * 1e3,
@@ -6615,6 +6779,80 @@ def cq_cols_of(holder):
             np.int64) for sh in range(CQ_SHARDS)]) for r in (1, 2, 3)}
 
 
+# The kernels a Count over HTTP can launch (K1, K2, K5), by the names the
+# profiler gives them.
+COUNT_KERNEL_NAMES = ("count_tree_dense_kernel", "count_tree_blocks_kernel",
+                      "count_batch_tree_kernel")
+
+
+def debug_routes_http(port, engine, texts, wants, topn_want, cuda, seconds=1.5):
+    """The routes this node ports from item 14, over HTTP: POST
+    /recalculate-caches (a TopN exact after it); POST /debug/pprof/trace
+    captured while a thread sends the c2 Counts (every answer checked,
+    the memo off), whose Chrome trace must name the Count kernels on the
+    card; /debug/pprof/profile and /debug/pprof/heap; and /debug/vars'
+    engineCaches.caches under the reference's names.  Returns its
+    numbers."""
+    import threading
+
+    from pilosa_tpu_torch.util.stats import ENGINE_CACHES
+
+    out = {}
+    status, doc = _cq_req(port, "POST", "/recalculate-caches", b"")
+    if (status, doc) != (200, {}):
+        raise AssertionError(f"http: /recalculate-caches answered {status} {doc}")
+    _http_results(port, "bench", "TopN(top, Row(f=10), n=5)", topn_want,
+                  "TopN after /recalculate-caches")
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pprof_trace")
+    stop, sent, errors = threading.Event(), [0], []
+
+    def counts():
+        try:
+            while not stop.is_set():
+                k = sent[0] % len(texts)
+                _http_results(port, "b10m", texts[k], wants[k], "a Count during the trace")
+                sent[0] += 1
+        except Exception as e:  # noqa: BLE001 — reported after the capture
+            errors.append(e)
+
+    with memo_off(engine):
+        t = threading.Thread(target=counts, daemon=True)
+        t.start()
+        try:
+            status, doc = _cq_req(port, "POST",
+                                  f"/debug/pprof/trace?seconds={seconds}&dir={trace_dir}", b"")
+        finally:
+            stop.set()
+            t.join(120)
+    if errors or status != 200:
+        raise AssertionError(f"http: the trace: {status} {doc} {errors[:1]}")
+    with open(doc["traceFile"]) as f:
+        events = json.load(f)["traceEvents"]
+    named = {n: sum(1 for e in events if n in e.get("name", "")) for n in COUNT_KERNEL_NAMES}
+    out["pprof_trace"] = {"counts_sent": sent[0], "events": len(events), "kernels": named,
+                          "trace_mb": os.path.getsize(doc["traceFile"]) / 1e6}
+    if sent[0] == 0 or (cuda and not any(named.values())):
+        raise AssertionError(f"http: the trace names no Count kernel: {out['pprof_trace']}")
+    status, prof = _cq_req(port, "GET", "/debug/pprof/profile?seconds=0.5&hz=200")
+    status2, dump = _cq_req(port, "GET", "/debug/pprof")
+    if status != 200 or prof["samples"] <= 0 or status2 != 200 or dump["count"] < 1:
+        raise AssertionError(f"http: /debug/pprof/profile {status} or /debug/pprof {status2}")
+    _cq_req(port, "GET", "/debug/pprof/heap?reset=true")
+    armed = _cq_req(port, "GET", "/debug/pprof/heap")[1]
+    heap = _cq_req(port, "GET", "/debug/pprof/heap")[1]
+    _cq_req(port, "GET", "/debug/pprof/heap?reset=true")
+    if not (armed["tracing"] and heap.get("top")):
+        raise AssertionError(f"http: /debug/pprof/heap {armed} {str(heap)[:200]}")
+    out["pprof_profile"] = {"samples": prof["samples"], "distinct_stacks": prof["distinctStacks"],
+                            "threads": dump["count"], "heap_traced_bytes": heap["tracedBytes"]}
+    caches = _cq_req(port, "GET", "/debug/vars")[1]["engineCaches"]["caches"]
+    if list(caches) != list(ENGINE_CACHES) or caches["stack"]["hits"] <= 0:
+        raise AssertionError(f"http: /debug/vars engineCaches.caches {caches}")
+    out["engine_caches"] = caches
+    log(f"http: /recalculate-caches, /debug/pprof*, engineCaches: {json.dumps(out)}")
+    return out
+
+
 def cq_http(port, cols):
     """Continuous queries over HTTP on the in-process node (the memo on):
     POST /cq of a Count tree and of a Row; a Set over HTTP, then GET
@@ -6747,7 +6985,8 @@ def run_http_path(device, holder, engine, host, seed, node_cmd=None,
     synced in place; the launch counters are zeroed first and each must
     move.  Then bench.py's loops with the memo off, every reply checked:
     http_count_e2e_p50, http_count_qps (640 connections x 32 after the
-    warm of tiers 1, 9, 65 and 257) and http_mixed_qps; the same p50 on
+    warm of tiers 1, 9, 65 and 257) and http_mixed_qps, then the debug
+    routes (``debug_routes_http``); the same p50 on
     the threaded backend; and the node through its entry point (``python
     -m pilosa_tpu_torch server``), restarted on its data directory.
     Returns the phase's numbers."""
@@ -6937,6 +7176,9 @@ def run_http_path(device, holder, engine, host, seed, node_cmd=None,
             log(f"http: http_mixed_qps {mixed:.1f} over {n} requests, every reply exact; "
                 f"batches {json.dumps(out['mixed_batches'])}; launches "
                 f"{json.dumps(out['mixed_launches'])} (F1 counted, not required)")
+        # After bench.py's timed loops, so that no profiler capture or
+        # tracemalloc precedes them.
+        out["debug_routes"] = debug_routes_http(port, engine, c2_texts, c2_wants, topn_want, cuda)
     finally:
         srv.shutdown()
     if api.executor.host_fallbacks != fallbacks0:
@@ -7688,6 +7930,100 @@ def write_targets(rng, a, b, n_shards, n, sparse):
             if _bit(b, col) and _bit(a, col) == (verb == "Clear") and (verb, col) not in out:
                 out.append((verb, col))
                 break
+    return out
+
+
+NATIVE_REPS = 2
+NATIVE_BITS = 1 << 20  # bits in one import batch
+
+
+@contextlib.contextmanager
+def numpy_paths():
+    """The host's numpy paths in place of native/'s libraries, as on a
+    host without a compiler."""
+    from pilosa_tpu_torch import native
+    from pilosa_tpu_torch.core import rowstore
+
+    saved = native.load, native.load_merge, rowstore._MERGE
+    native.load = native.load_merge = lambda: None
+    rowstore._MERGE = False
+    try:
+        yield
+    finally:
+        native.load, native.load_merge, rowstore._MERGE = saved
+
+
+def run_native_ab(seed):
+    """The native phase, host only: each path that native/ takes, timed
+    against the numpy path it stands in for, in turns in this process
+    (best of NATIVE_REPS a side, host ms; the results of the last kept
+    and compared).  Ingest: two batches of
+    NATIVE_BITS bits through Field.import_bulk (the shard split and the
+    rows' merge), over 96 shards x 64 rows (sparse rows) and over 16
+    shards x 8 rows (dense rows: the dense apply).  A fragment's load
+    (codec.deserialize) and codec.serialize, of array, bitmap and run
+    containers.  Every native result must equal the numpy one.  Returns
+    {path: {native_ms, numpy_ms, speedup}}."""
+    import torch
+
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.roaring import codec
+
+    rng = np.random.default_rng(seed + 7)
+    cpu = torch.device("cpu")
+
+    def ingest(n_shards, n_rows):
+        batches = [(rng.integers(0, n_rows, NATIVE_BITS), rng.integers(0, n_shards << 20,
+                                                                       NATIVE_BITS))
+                   for _ in range(2)]
+
+        def run(keep):
+            field = Holder(device=cpu).create_index("nat").create_field("f")
+            t = time.perf_counter()
+            for rows, cols in batches:
+                field.import_bulk(rows, cols)
+            dt = time.perf_counter() - t
+            frags = field.view_if_not_exists("standard").fragments
+            return dt, [(s, frags[s].positions()) for s in sorted(frags)] if keep else None
+        return run
+
+    def codec_run(fn, arg):
+        def run(keep):
+            t = time.perf_counter()
+            got = fn(arg)
+            return time.perf_counter() - t, got
+        return run
+
+    shapes = {
+        "array": np.unique(rng.integers(0, 64 << 20, 1 << 20).astype(np.uint64)),
+        "bitmap": np.unique(rng.integers(0, 8 << 20, 1 << 22).astype(np.uint64)),
+        "run": np.concatenate([np.arange(k << 20, (k << 20) + 300000, dtype=np.uint64)
+                               for k in range(16)])}
+    paths = {"ingest_sparse_96x64": ingest(96, 64), "ingest_dense_16x8": ingest(16, 8)}
+    for name, vals in shapes.items():
+        data = codec._serialize_py(vals)
+        paths[f"load_{name}"] = codec_run(lambda d: codec.deserialize(d).values, data)
+        paths[f"serialize_{name}"] = codec_run(codec.serialize, vals)
+    out = {}
+    for name, run in paths.items():
+        best, got = {"native": [], "numpy": []}, {}
+        for rep in range(NATIVE_REPS):
+            for side in ("native", "numpy"):
+                with contextlib.ExitStack() as st:
+                    if side == "numpy":
+                        st.enter_context(numpy_paths())
+                    dt, got[side] = run(rep == NATIVE_REPS - 1)
+                best[side].append(dt * 1e3)
+        a, b = got["native"], got["numpy"]
+        if isinstance(a, list):  # an ingest: (shard, positions) a fragment
+            same = len(a) == len(b) and all(sa == sb and np.array_equal(pa, pb)
+                                            for (sa, pa), (sb, pb) in zip(a, b))
+        else:
+            same = a == b if isinstance(a, bytes) else np.array_equal(a, b)
+        if not same:
+            raise AssertionError(f"native: {name} differs from its numpy path")
+        n, p = min(best["native"]), min(best["numpy"])
+        out[name] = {"native_ms": n, "numpy_ms": p, "speedup": p / n}
     return out
 
 
@@ -8850,10 +9186,19 @@ def main(argv=None):
     log(f"build: {time.perf_counter() - t0:.3f} s "
         f"({', '.join(f'{k} {v:.3f} s' for k, v in built.items()) or 'cached'})")
 
+    from pilosa_tpu_torch import native
+
+    libs = {"roaring_codec": native.load(), "sparse_merge": native.load_merge()}
+    if any(lib is None for lib in libs.values()):
+        raise AssertionError(f"native: a host library did not build or load: {libs}")
+    log("native: both host libraries loaded (" + ", ".join(
+        f"{k} {native.lib_path(k).relative_to(root)}" for k in libs) + ")")
+
     err = check_kernels(device, args.seed)
     err.update(check_topn_kernels(device, args.seed))
     err.update(check_batch_kernel(device, args.seed))
     err.update(check_bsi_kernels(device, args.seed))
+    err.update(check_batch_ranges(device, args.seed))
     err.update(check_groupby_kernel(device, args.seed))
     err.update(check_fused_kernel(device, args.seed))
     err.update(check_pool_leaf(device, args.seed))
@@ -8866,6 +9211,10 @@ def main(argv=None):
         now = time.perf_counter()
         timeline[name] = now - t_mark[0]
         t_mark[0] = now
+
+    # Host only, before any phase's threads start.
+    log("native: " + json.dumps(run_native_ab(args.seed)))
+    mark("native")
 
     holder, engine, ex, host, launches = run_main_path(device, N_SHARDS, args.seed)
     topn_launches, engine_less_query = run_topn_main_path(device, holder, engine, ex, host)
@@ -8893,6 +9242,9 @@ def main(argv=None):
     bsi_out, bsi_entries = run_bsi_path(device, holder, engine, ex, host, args.seed, err)
     log("bsi: " + json.dumps(bsi_out))
     kern += bsi_entries
+    if "k5_ranges" in bsi_out:
+        k5 = next(e for e in kern if e["name"] == "count_batch_tree")
+        k5["at"]["8 Count(Range(v > x)) on v"] = bsi_out["k5_ranges"]
     mark("bsi")
     group_out, group_entry = run_groupby_path(device, holder, engine, ex, host, args.seed, err)
     log("groupby: " + json.dumps(group_out))

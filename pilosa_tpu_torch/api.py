@@ -67,10 +67,8 @@ from .util.tracing import Tracer
 
 # Methods of the reference's API that this module leaves out, and the
 # ROADMAP.md item that ports each.
-_ITEM_14 = "Queue 1 item 14 (serving and observability)"
 _ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 _UNPORTED = {
-    "recalculate_caches": _ITEM_14,
     "attach_cluster": _ITEM_15,
     "cluster_message": _ITEM_15,
     "shard_nodes": _ITEM_15,
@@ -634,3 +632,18 @@ class API:
         if field:
             return self.translate_store.translate_rows_to_uint64(index, field, keys)
         return self.translate_store.translate_columns_to_uint64(index, keys)
+
+    def recalculate_caches(self):
+        """Re-rank every fragment's row cache (pilosa_tpu/api.py:1017), then
+        tell the peers to do the same."""
+        for idx in self.holder.indexes.values():
+            for f in idx.fields.values():
+                for v in f.views.values():
+                    for frag in v.fragments.values():
+                        frag.cache.recalculate()
+        self._broadcast({"type": "recalculate-caches"})
+
+    def _broadcast(self, msg: dict):
+        """A node without a cluster has no peers to tell, as the
+        reference's ``_broadcast`` with no cluster; the message to peers
+        is ROADMAP.md Queue 1 item 15."""

@@ -27,6 +27,7 @@ from ..parallel.mesh import resolve_device
 from ..roaring import Bitmap
 from ..util import fanout
 from . import cache as cache_mod
+from . import rowstore
 from . import timequantum
 from .attrs import AttrStore
 from .fragment import (  # noqa: F401
@@ -483,12 +484,24 @@ class Field:
                 changed += frag.bulk_import(rows, cols, clear=clear)
         return changed
 
+    # Distinct shards the native partition's tables hold; a batch over
+    # more takes the argsort path.
+    _NATIVE_SPLIT_MAX_SHARDS = 4096
+
     @staticmethod
     def _shard_groups(view, cols: np.ndarray, *parallel: np.ndarray):
         """Group column-parallel arrays by shard: yields
         ``(fragment, cols_slice, *parallel_slices)`` per shard, order
-        within a shard preserved (last-write-wins paths depend on it),
-        through ONE stable argsort over the shard keys."""
+        within a shard preserved (last-write-wins paths depend on it):
+        the native stable counting sort where it loads
+        (native/sparse_merge.cpp sm_shard_split), else ONE stable argsort
+        over the shard keys."""
+        if len(parallel) == 1 and cols.dtype == np.int64:
+            lib = rowstore._merge_lib()
+            if lib is not None:
+                groups = Field._shard_groups_native(lib, view, cols, parallel[0])
+                if groups is not None:
+                    return groups
         shards = cols // SHARD_WIDTH
         uniq = np.unique(shards)
         order = np.argsort(shards, kind="stable")
@@ -504,6 +517,27 @@ class Field:
                 (frag, cols[lo:hi]) + tuple(a[lo:hi] for a in parallel)
             )
         return out
+
+    @staticmethod
+    def _shard_groups_native(lib, view, cols, par):
+        """The native shard partition; None when it declines (more distinct
+        shards than its tables hold)."""
+        n = cols.size
+        cols_c = np.ascontiguousarray(cols)
+        par_c = np.ascontiguousarray(par, dtype=np.int64)
+        cols_out = np.empty(n, dtype=np.int64)
+        par_out = np.empty(n, dtype=np.int64)
+        cap = Field._NATIVE_SPLIT_MAX_SHARDS
+        sids = np.empty(cap, dtype=np.int64)
+        bnds = np.empty(cap + 1, dtype=np.int64)
+        ns = lib.sm_shard_split(cols_c.ctypes.data, par_c.ctypes.data, n,
+                                int(SHARD_WIDTH.bit_length() - 1), cap, cols_out.ctypes.data,
+                                par_out.ctypes.data, sids.ctypes.data, bnds.ctypes.data)
+        if ns < 0:
+            return None
+        b = bnds.tolist()
+        return [(view.fragment_if_not_exists(int(s)), cols_out[b[k]: b[k + 1]],
+                 par_out[b[k]: b[k + 1]]) for k, s in enumerate(sids[:ns].tolist())]
 
     def _import_bulk_fast(self, row_ids, column_ids, clear: bool) -> int:
         rows = np.asarray(row_ids, dtype=np.int64)

@@ -935,6 +935,85 @@ class Fragment:
         own[cols] = rws
         return changed
 
+    @_locked
+    def bulk_import_rowloop(self, row_ids: Iterable[int], column_ids: Iterable[int],
+                            clear: bool = False) -> int:
+        """The per-row import walk that ``bulk_import`` vectorizes, as the
+        reference keeps it (pilosa_tpu/core/fragment.py:1208): one
+        RowStore union or difference per row, each with its own ``_touch``
+        (the rows' dirty words for the stacks' in-place sync; a write
+        packet with no captured words, OPAQUE, as the reference's row loop
+        publishes) and cache count.  The differential oracle of the ingest
+        tests and the baseline of ingest measurements, not a serving
+        path."""
+        self._check_open()
+        row_ids = np.asarray(list(row_ids), dtype=np.int64)
+        column_ids = np.asarray(list(column_ids), dtype=np.int64)
+        if row_ids.size == 0:
+            return 0
+        if self.mutex and not clear:
+            changed = self._bulk_import_mutex_rowloop(row_ids, column_ids)
+            self.snapshot()
+            return changed
+        changed = 0
+        in_row = (column_ids % SHARD_WIDTH).astype(np.uint64)
+        packed = (row_ids.astype(np.uint64) << np.uint64(ops.SHARD_WIDTH_EXP)) | in_row
+        for r, pos in self._group_by_row(np.unique(packed)):
+            before = self._store.count(r)
+            after = self._store.difference(r, pos) if clear else self._store.union(r, pos)
+            changed += abs(after - before)
+            if clear and self._mutex_owners is not None:
+                idx = pos.astype(np.int64)
+                mine = self._mutex_owners[idx] == r
+                self._mutex_owners[idx[mine]] = -1
+            self._touch(r, pos)
+            self.cache.bulk_add(r, after)
+        self.cache.invalidate()
+        self.snapshot()
+        return changed
+
+    def _bulk_import_mutex_rowloop(self, row_ids: np.ndarray, column_ids: np.ndarray) -> int:
+        """The per-row walk of ``_bulk_import_mutex``: each stale owner's
+        columns cleared row by row, then each fresh row's set."""
+        in_row = (column_ids % SHARD_WIDTH).astype(np.int64)
+        cols, rws = self._last_write_wins(in_row, row_ids)
+        own = self._owners()
+        prev = own[cols]
+        changed = 0
+        stale = (prev >= 0) & (prev != rws)
+        if stale.any():
+            for r, pos in self._group_by_pairs(prev[stale], cols[stale]):
+                self._store.difference(r, pos)
+                self._touch(r, pos)
+                self.cache.bulk_add(r, self._store.count(r))
+        fresh = prev != rws
+        if fresh.any():
+            for r, pos in self._group_by_pairs(rws[fresh], cols[fresh]):
+                before = self._store.count(r)
+                after = self._store.union(r, pos)
+                changed += after - before
+                self._touch(r, pos)
+                self.cache.bulk_add(r, after)
+        own[cols] = rws
+        self.cache.invalidate()
+        return changed
+
+    def _group_by_row(self, positions: np.ndarray):
+        """Storage positions -> (row_id, sorted in-row uint32) groups."""
+        row_ids = (positions >> np.uint64(ops.SHARD_WIDTH_EXP)).astype(np.int64)
+        in_row = positions & np.uint64(SHARD_WIDTH - 1)
+        yield from self._group_by_pairs(row_ids, in_row)
+
+    @staticmethod
+    def _group_by_pairs(rows: np.ndarray, cols: np.ndarray):
+        """(row, in-row col) vectors -> (row_id, sorted uint32 cols) groups."""
+        order = np.argsort(rows, kind="stable")
+        rows, cols = rows[order], cols[order]
+        uniq, starts = np.unique(rows, return_index=True)
+        bounds = np.append(starts, rows.size)
+        for i, r in enumerate(uniq):
+            yield int(r), np.sort(cols[bounds[i]: bounds[i + 1]]).astype(np.uint32)
+
     @staticmethod
     def _last_write_wins(cols: np.ndarray, *parallel: np.ndarray):
         """Dedup columns keeping the LAST occurrence (later writes win)."""
@@ -1013,6 +1092,33 @@ class Fragment:
         self.cache.invalidate()
         self.snapshot()
         return changed
+
+    @_locked
+    def import_roaring_rowloop(self, data: bytes, clear: bool = False) -> int:
+        """The roaring ingest that ``import_roaring`` vectorizes, as the
+        reference keeps it (pilosa_tpu/core/fragment.py:1417): the scalar
+        container decode (``codec._deserialize_py``), one store walk per
+        row with its own ``_touch`` (an OPAQUE packet each, as the
+        reference's), and ``changed`` from whole-store count sums.  The
+        differential oracle of the ingest tests, not a serving path."""
+        self._check_open()
+        dec = codec._deserialize_py(data)
+        before = sum(self._store.counts.values())
+        positions = dec.values
+        if positions.size:
+            for r, pos in self._group_by_row(positions):
+                if clear:
+                    if r not in self._store:
+                        continue
+                    n = self._store.difference(r, pos)
+                else:
+                    n = self._store.union(r, pos)
+                self._touch(r, pos)
+                self.cache.bulk_add(r, n)
+            self._mutex_owners = None
+            self.cache.invalidate()
+        self.snapshot()
+        return abs(sum(self._store.counts.values()) - before)
 
     def _apply_rows(self, rows, words, clear: bool) -> int:
         """OR (or with ``clear``, AND NOT) dense rows into storage, each

@@ -15,6 +15,7 @@ All positions are in-row (0 .. SHARD_WIDTH).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List
 
 import numpy as np
@@ -22,6 +23,22 @@ import numpy as np
 from ..ops import bitops
 
 WORDS64 = bitops.WORDS64
+
+# The native sparse-merge library (native/sparse_merge.cpp), resolved at
+# first use: None = not yet, False = unavailable.  The numpy
+# implementations below are the
+# fallback and the differential oracle; both give bit-identical stores.
+_MERGE = None
+_ERR_RANGE = -(1 << 63)  # sm_apply_dense's out-of-range answer
+
+
+def _merge_lib():
+    global _MERGE
+    if _MERGE is None:
+        from .. import native
+
+        _MERGE = native.load_merge() or False
+    return _MERGE or None
 
 # Rows with more set bits than this are stored dense.  At the threshold a
 # sparse row costs 16 KiB vs 128 KiB dense (8x); above it dense wins on
@@ -346,9 +363,14 @@ class RowStore:
                 befores_l.append(sp.size)
             else:
                 befores_l.append(0)
-        m_rows, m_pos, m_bounds_arr = self._merge_np(
-            a_rows, a_chunks, a_lens, b, clear, exp
-        )
+        lib = _merge_lib()
+        if lib is not None:
+            m_rows, m_pos, m_bounds_arr = self._merge_native(
+                lib, a_rows, a_chunks, a_lens, b, clear, exp, len(sel_list))
+        else:
+            m_rows, m_pos, m_bounds_arr = self._merge_np(
+                a_rows, a_chunks, a_lens, b, clear, exp
+            )
         befores = np.asarray(befores_l, dtype=np.int64)
         lens = np.diff(m_bounds_arr)
         if not clear and len(m_rows) == len(sel_list) and (
@@ -440,10 +462,50 @@ class RowStore:
         return m_rowkeys[m_starts].tolist(), m_pos, m_bounds_arr
 
     @staticmethod
+    def _merge_native(lib, a_rows, a_chunks, a_lens, b, clear, exp, n_sel):
+        """``_merge_np``'s contract in one linear C pass over both sides
+        (native/sparse_merge.cpp): the existing rows' arrays reach it
+        through a pointer table, with no packed keys built.  ``a_chunks``
+        must stay alive across the call (the caller's locals hold them)."""
+        a_rows_arr = np.asarray(a_rows, dtype=np.int64)
+        a_lens_arr = np.asarray(a_lens, dtype=np.int64)
+        # Per-row sparse arrays are contiguous (np.insert/delete/unique, or
+        # slices of a merged parent).
+        ptrs = np.fromiter((c.ctypes.data for c in a_chunks), dtype=np.uintp,
+                           count=len(a_rows))
+        nb = int(b.size)
+        n_a_rows = a_rows_arr.size
+        cap_pos = max(int(sum(a_lens)) + (0 if clear else nb), 1)
+        cap_rows = n_a_rows + n_sel + 1
+        pos_out = np.empty(cap_pos, dtype=np.uint32)
+        rows_out = np.empty(cap_rows, dtype=np.int64)
+        bounds_out = np.empty(cap_rows + 1, dtype=np.int64)
+        n_merged = ctypes.c_int64(0)
+        fn = lib.sm_diff_split if clear else lib.sm_union_split
+        nr = fn(a_rows_arr.ctypes.data, ptrs.ctypes.data, a_lens_arr.ctypes.data, n_a_rows,
+                b.ctypes.data, nb, int(exp), bitops.SHARD_WIDTH - 1, pos_out.ctypes.data,
+                rows_out.ctypes.data, bounds_out.ctypes.data, ctypes.byref(n_merged))
+        if nr < 0:  # bad arguments never happen in-tree; do not limp on
+            raise RuntimeError(f"sparse_merge kernel rejected its arguments: {nr}")
+        m = n_merged.value
+        m_pos = pos_out[:m]
+        if m * 2 < cap_pos:
+            # Long-lived row views must not pin a parent twice their size.
+            m_pos = m_pos.copy()
+        return rows_out[:nr].tolist(), m_pos, bounds_out[: nr + 1]
+
+    @staticmethod
     def _apply_dense(d: np.ndarray, pos: np.ndarray, clear: bool) -> int:
         """Apply sorted unique in-row positions to a dense word vector in
-        place; returns the signed cardinality delta (numpy reduceat,
-        popcounting only the touched words)."""
+        place; returns the signed cardinality delta: one native pass where
+        the library loads (popcounting only the touched words), else numpy
+        reduceat with the same result."""
+        lib = _merge_lib()
+        if lib is not None:
+            delta = lib.sm_apply_dense(d.ctypes.data, WORDS64, pos.ctypes.data, pos.size,
+                                       1 if clear else 0)
+            if delta != _ERR_RANGE:
+                return int(delta)
         widx = (pos >> np.uint32(6)).astype(np.int64)
         starts = np.flatnonzero(np.r_[True, widx[1:] != widx[:-1]])
         uw = widx[starts]

@@ -39,6 +39,17 @@
 // masks (one bit per shard), leaf row addresses and fan-out live in one
 // device buffer the wrapper uploads with one copy.
 //
+// A BSI range leaf (OP_RANGE) names a record of the batch's range table:
+// its condition (kind, depth, predicate bits) and its planes as rows of the
+// leaf table, where the host de-duplicated them with every other row
+// (parallel/kernels.py compile_batch).  So eight conditions on one field
+// stage the field's planes once per tile, and each query walks them from
+// shared memory (range_walk, eval_range's walk over staged planes); a
+// missing plane (-1) reads as zeros with no load.  The stage's budget
+// counts planes as rows: two depth-63 conditions on two fields fill its
+// 128 rows, and a wider table takes the direct path.  A batch without a
+// range leaf runs the kernel built without them (kRanges false).
+//
 // A leaf row of a partial stack's block pool (OP_ROWB, tree_eval.cuh) is
 // staged through its slot vector: each 2 KiB block of the tile is copied
 // from the pool slot the vector names, and a block in slot 0 (empty in
@@ -64,6 +75,9 @@
 // one round trip, give the same 8 blocks.  K5P stages 32 KiB tiles and
 // takes one CTA a shard at 960 shards (the launcher says why).  A live
 // word of 0 stages nothing and adds nothing, and its CTA still arrives.
+// A range leaf's planes are stack rows, live in every block: a shard where
+// a query holding one is requested stages every block of the rows they
+// read (correct, and no cheaper than K5 there).
 #include <cuda_pipeline.h>
 
 #include "reduce.cuh"
@@ -88,6 +102,10 @@ struct Batch {
   const int4* qinfo;                 // (ops offset, n ops, mask id, chain) per query
   const int* ops;                    // the postfix programs, back to back
   const unsigned int* masks;         // [n masks][s32]: bit s = shard s requested
+  // Per range leaf (OP_RANGE's index): lo, hi, kind | depth << 8, and the
+  // offset of its depth + 1 planes in `planes`, each a leaf row or -1.
+  const long long* ranges;
+  const int* planes;
   int n_leaves;
   int K;
   int s32;
@@ -139,10 +157,62 @@ __device__ __forceinline__ uint4 item_at(const Batch& b, const uint4* stage,
              : make_uint4(0u, 0u, 0u, 0u);
 }
 
+// A range leaf's condition (its record in Batch::ranges).
+struct BatchRange {
+  unsigned long long lo;
+  unsigned long long hi;
+  int kind;
+  int depth;
+};
+
+// eval_range's walk (range_walk.cuh) with plane i at position u read by
+// `plane(i, u)`: K5 reads the planes as leaf rows from its staged tile.
+template <int U, class Plane>
+__device__ __forceinline__ void range_walk(const BatchRange& r, const Plane& plane,
+                                           uint4* out) {
+#define RANGE_PLANE(i, u) plane(i, u)
+#include "range_walk.cuh"
+#undef RANGE_PLANE
+}
+
+// Range leaf `code`'s condition at this lane's U positions `p` of the tile,
+// its planes read as leaf rows (leaf_at: the staged tile, or device
+// memory), a missing plane (-1) as zeros with no load.
+template <int U, bool kStaged, bool kLive>
+__device__ __forceinline__ void range_at(const Batch& b, const uint4* stage, int tile,
+                                         int code, size_t shard_off, int base, const int* p,
+                                         const int* blocks, int n_pos, uint4* out) {
+  const long long* rec = b.ranges + 4 * (size_t)(code >> 8);
+  const long long kd = __ldg(rec + 2);
+  const BatchRange r{(unsigned long long)__ldg(rec), (unsigned long long)__ldg(rec + 1),
+                     (int)(kd & 0xff), (int)(kd >> 8)};
+  const int* planes = b.planes + __ldg(rec + 3);
+  range_walk<U>(
+      r,
+      [&](int i, int u) {
+        const int l = __ldg(planes + i);
+        return l < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                     : leaf_at<kStaged, kLive>(b, stage, tile, l << 8, shard_off, base, p[u],
+                                               blocks, n_pos);
+      },
+      out);
+}
+
+// Marks the leaf rows that range leaf `code` reads (its present planes).
+__device__ __forceinline__ void range_needs(const Batch& b, int code, int* needed) {
+  const long long* rec = b.ranges + 4 * (size_t)(code >> 8);
+  const int depth = (int)(__ldg(rec + 2) >> 8);
+  const int* planes = b.planes + __ldg(rec + 3);
+  for (int i = 0; i <= depth; ++i) {
+    const int l = __ldg(planes + i);
+    if (l >= 0) needed[l] = 1;
+  }
+}
+
 // Popcount of query `q` over this lane's U positions of chunk `c`:
 // positions c * 32U + u * 32 + lane of the tile, so that for each u the
 // warp reads 32 neighbouring words.
-template <int U, bool kStaged, bool kLive>
+template <int U, bool kStaged, bool kLive, bool kRanges>
 __device__ __forceinline__ unsigned int eval_item(const Batch& b,
                                                   const uint4* stage, int tile,
                                                   int4 q, size_t shard_off,
@@ -156,13 +226,26 @@ __device__ __forceinline__ unsigned int eval_item(const Batch& b,
   if (q.w) {  // chain: item (item op)*, two live values per position
     uint4 acc[U];
     const int first = __ldg(ops);
+    if (kRanges && (first & 0xff) == OP_RANGE) {
+      range_at<U, kStaged, kLive>(b, stage, tile, first, shard_off, base, p, blocks, n_pos,
+                                  acc);
+    } else {
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-      acc[u] = item_at<kStaged, kLive>(b, stage, tile, first, shard_off, base, p[u], blocks,
-                                       n_pos);
+      for (int u = 0; u < U; ++u)
+        acc[u] = item_at<kStaged, kLive>(b, stage, tile, first, shard_off, base, p[u], blocks,
+                                         n_pos);
+    }
     for (int pc = 1; pc < q.y; pc += 2) {
       const int code = __ldg(ops + pc);
       const int op = __ldg(ops + pc + 1);
+      if (kRanges && (code & 0xff) == OP_RANGE) {
+        uint4 v[U];
+        range_at<U, kStaged, kLive>(b, stage, tile, code, shard_off, base, p, blocks, n_pos,
+                                    v);
+#pragma unroll
+        for (int u = 0; u < U; ++u) acc[u] = combine4(op, acc[u], v[u]);
+        continue;
+      }
 #pragma unroll
       for (int u = 0; u < U; ++u)
         acc[u] = combine4(
@@ -183,6 +266,9 @@ __device__ __forceinline__ unsigned int eval_item(const Batch& b,
       if (op == OP_LEAF || op == OP_ROWB || op == OP_ZERO) {
         st[sp++] = item_at<kStaged, kLive>(b, stage, tile, code, shard_off, base, p[u],
                                            blocks, n_pos);
+      } else if (kRanges && op == OP_RANGE) {
+        range_at<1, kStaged, kLive>(b, stage, tile, code, shard_off, base, p + u, blocks,
+                                    n_pos, &st[sp++]);
       } else {
         const uint4 r = st[--sp];
         st[sp - 1] = combine4(op, st[sp - 1], r);
@@ -195,7 +281,7 @@ __device__ __forceinline__ unsigned int eval_item(const Batch& b,
 
 // One CTA's work (K5, kLive false: every tile of the shard's rows; K5P,
 // kLive true: the tiles of the live positions only, see the file's head).
-template <int U, bool kStaged, bool kLive>
+template <int U, bool kStaged, bool kLive, bool kRanges>
 __device__ __forceinline__ void count_batch_body(const Batch& b, int tile, int tiles,
                                                  const int* __restrict__ out_index,
                                                  int k_out,
@@ -241,6 +327,8 @@ __device__ __forceinline__ void count_batch_body(const Batch& b, int tile, int t
           const int code = __ldg(b.ops + q.x + pc);
           if ((code & 0xff) == OP_LEAF || (code & 0xff) == OP_ROWB)
             needed[code >> 8] = 1;
+          else if (kRanges && (code & 0xff) == OP_RANGE)
+            range_needs(b, code, needed);
         }
     }
   }
@@ -329,8 +417,8 @@ __device__ __forceinline__ void count_batch_body(const Batch& b, int tile, int t
         const int j = it / chunks;
         const int c = it - j * chunks;
         const int4 q = __ldg(b.qinfo + qlist[j]);
-        unsigned int v = eval_item<U, kStaged, kLive>(b, stage, tile, q, shard_off, base, c,
-                                                      lane, blocks, n_pos);
+        unsigned int v = eval_item<U, kStaged, kLive, kRanges>(b, stage, tile, q, shard_off,
+                                                               base, c, lane, blocks, n_pos);
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
         if (lane == 0 && v) atomicAdd(&cnt[j], v);
@@ -359,32 +447,32 @@ __device__ __forceinline__ void count_batch_body(const Batch& b, int tile, int t
   if (tid == 0) scratch[kMaxQueries] = 0ull;
 }
 
-template <int U, bool kStaged>
+template <int U, bool kStaged, bool kRanges>
 __global__ void __launch_bounds__(kThreads)
     count_batch_tree_kernel(Batch b, int tile, int tiles,
                             const int* __restrict__ out_index, int k_out,
                             unsigned long long* __restrict__ scratch,
                             long long* __restrict__ out) {
-  count_batch_body<U, kStaged, false>(b, tile, tiles, out_index, k_out, scratch, out);
+  count_batch_body<U, kStaged, false, kRanges>(b, tile, tiles, out_index, k_out, scratch, out);
 }
 
 // K5P: K5 over the live blocks of the rows that each shard's requesting
 // queries read.
-template <int U, bool kStaged>
+template <int U, bool kStaged, bool kRanges>
 __global__ void __launch_bounds__(kThreads)
     count_batch_tree_pool_kernel(Batch b, int tile, int tiles,
                                  const int* __restrict__ out_index, int k_out,
                                  unsigned long long* __restrict__ scratch,
                                  long long* __restrict__ out) {
-  count_batch_body<U, kStaged, true>(b, tile, tiles, out_index, k_out, scratch, out);
+  count_batch_body<U, kStaged, true, kRanges>(b, tile, tiles, out_index, k_out, scratch, out);
 }
 
-template <int U, bool kStaged, bool kLive>
+template <int U, bool kStaged, bool kLive, bool kRanges>
 int launch(const Batch& b, int tile, const int* out_index, int k_out,
            int n_shards, unsigned long long* scratch, long long* out,
            cudaStream_t stream) {
-  auto kernel = kLive ? count_batch_tree_pool_kernel<U, kStaged>
-                      : count_batch_tree_kernel<U, kStaged>;
+  auto kernel = kLive ? count_batch_tree_pool_kernel<U, kStaged, kRanges>
+                      : count_batch_tree_kernel<U, kStaged, kRanges>;
   const size_t smem =
       (kStaged ? (size_t)b.n_leaves * tile * sizeof(uint4) : 0) +
       (size_t)b.K * 2 * sizeof(int) +
@@ -429,12 +517,26 @@ int launch(const Batch& b, int tile, const int* out_index, int k_out,
   return (int)cudaGetLastError();
 }
 
-// Host side: count_batch_tree's launch (below), K5 or K5P.
+// Host side: count_batch_tree's launch (below), K5 or K5P, each with the
+// range leaf compiled in only for a batch that has one (kRanges).
+template <bool kLive, bool kRanges>
+int dispatch(const Batch& b, int tile, const int* fan, int k_out, int n_shards,
+             unsigned long long* sc, long long* o, cudaStream_t st) {
+  if (tile >= 128)
+    return launch<4, true, kLive, kRanges>(b, tile, fan, k_out, n_shards, sc, o, st);
+  if (tile >= 32)
+    return launch<1, true, kLive, kRanges>(b, tile, fan, k_out, n_shards, sc, o, st);
+  return launch<4, false, kLive, kRanges>(b, kDirectTile, fan, k_out, n_shards, sc, o, st);
+}
+
 template <bool kLive>
 int run(const void* leaves, int n_leaves, int has_pool, const void* qinfo, int K,
-        const void* ops, const void* masks, const void* out_index, int k_out, int n_shards,
+        const void* ops, const void* masks, const void* ranges, int n_ranges,
+        const void* planes, const void* out_index, int k_out, int n_shards,
         int words, void* scratch, void* out, void* stream) {
-  if (K < 1 || K > kMaxQueries || n_leaves < 0 || n_leaves > kMaxLeaves ||
+  if (K < 1 || K > kMaxQueries || n_leaves < 0 || n_leaves > kMaxLeaves || n_ranges < 0 ||
+      n_ranges > kMaxQueries * MAX_RANGES ||
+      (n_ranges > 0 && (ranges == nullptr || planes == nullptr)) ||
       k_out < 1 || n_shards < 0 || n_shards > 65535 || words <= 0 ||
       words % 4 != 0 || (kLive && (has_pool == 0 || words != kPoolRowVec * 4)))
     return (int)cudaErrorInvalidValue;
@@ -449,6 +551,8 @@ int run(const void* leaves, int n_leaves, int has_pool, const void* qinfo, int K
   b.qinfo = (const int4*)qinfo;
   b.ops = (const int*)ops;
   b.masks = (const unsigned int*)masks;
+  b.ranges = (const long long*)ranges;
+  b.planes = (const int*)planes;
   b.n_leaves = n_leaves;
   b.K = K;
   b.s32 = (n_shards + 31) / 32;
@@ -466,9 +570,8 @@ int run(const void* leaves, int n_leaves, int has_pool, const void* qinfo, int K
   unsigned long long* sc = (unsigned long long*)scratch;
   long long* o = (long long*)out;
   const int* fan = (const int*)out_index;
-  if (tile >= 128) return launch<4, true, kLive>(b, tile, fan, k_out, n_shards, sc, o, st);
-  if (tile >= 32) return launch<1, true, kLive>(b, tile, fan, k_out, n_shards, sc, o, st);
-  return launch<4, false, kLive>(b, kDirectTile, fan, k_out, n_shards, sc, o, st);
+  return n_ranges > 0 ? dispatch<kLive, true>(b, tile, fan, k_out, n_shards, sc, o, st)
+                      : dispatch<kLive, false>(b, tile, fan, k_out, n_shards, sc, o, st);
 }
 
 }  // namespace
@@ -477,26 +580,31 @@ int run(const void* leaves, int n_leaves, int has_pool, const void* qinfo, int K
 // each leaf's slot vector address (0 for a stack row; a pool row's address
 // is the pool's slot 0); has_pool: whether any leaf is a pool row.  qinfo:
 // device int32[K][4].  ops: device int32 programs.  masks: device
-// uint32[n masks][ceil(S / 32)].  out_index: device int32[k_out], or null
+// uint32[n masks][ceil(S / 32)].  ranges: device int64[n_ranges][4] (lo,
+// hi, kind | depth << 8, planes offset), planes: device int32, each entry a
+// leaf row or -1 (both unread, and may be null, for n_ranges 0).
+// out_index: device int32[k_out], or null
 // for out[i] = total of query i (k_out = K).  scratch: device
 // uint64[kMaxQueries + 1], zero (each launch leaves it zero).  out: device
 // int64[k_out], written whole.  Returns the cudaError_t of the launch.
 extern "C" int count_batch_tree(const void* leaves, int n_leaves, int has_pool,
                                 const void* qinfo, int K, const void* ops,
-                                const void* masks, const void* out_index,
+                                const void* masks, const void* ranges, int n_ranges,
+                                const void* planes, const void* out_index,
                                 int k_out, int n_shards, int words,
                                 void* scratch, void* out, void* stream) {
-  return run<false>(leaves, n_leaves, has_pool, qinfo, K, ops, masks, out_index, k_out,
-                    n_shards, words, scratch, out, stream);
+  return run<false>(leaves, n_leaves, has_pool, qinfo, K, ops, masks, ranges, n_ranges, planes,
+                    out_index, k_out, n_shards, words, scratch, out, stream);
 }
 
 // K5P: count_batch_tree's arguments for a batch with pool rows (has_pool
 // 1, words the full 32768 of a pool row), reading the live blocks only.
 extern "C" int count_batch_tree_pool(const void* leaves, int n_leaves, int has_pool,
                                      const void* qinfo, int K, const void* ops,
-                                     const void* masks, const void* out_index,
+                                     const void* masks, const void* ranges, int n_ranges,
+                                     const void* planes, const void* out_index,
                                      int k_out, int n_shards, int words,
                                      void* scratch, void* out, void* stream) {
-  return run<true>(leaves, n_leaves, has_pool, qinfo, K, ops, masks, out_index, k_out,
-                   n_shards, words, scratch, out, stream);
+  return run<true>(leaves, n_leaves, has_pool, qinfo, K, ops, masks, ranges, n_ranges, planes,
+                   out_index, k_out, n_shards, words, scratch, out, stream);
 }

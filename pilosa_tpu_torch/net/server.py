@@ -72,22 +72,15 @@ OPENMETRICS_CONTENT_TYPE = (
 # PILOSA_TPU_SERVER_BACKEND override.
 DEFAULT_BACKEND = "async"
 
-_ITEM_14 = "Queue 1 item 14 (serving and observability)"
 _ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 
 # (method, route pattern, ROADMAP.md item) of every reference route this
 # port leaves out: each answers 501 naming its item.
 _UNPORTED_ROUTES = [
-    ("POST", "/recalculate-caches", _ITEM_14),
     ("POST", "/cluster/resize/abort", _ITEM_15),
     ("POST", "/cluster/resize/remove-node", _ITEM_15),
     ("POST", "/cluster/resize/set-coordinator", _ITEM_15),
     ("GET", "/cluster/metrics", _ITEM_15),
-    ("GET", "/debug/pprof", _ITEM_14),
-    ("GET", "/debug/pprof/goroutine", _ITEM_14),
-    ("GET", "/debug/pprof/profile", _ITEM_14),
-    ("GET", "/debug/pprof/heap", _ITEM_14),
-    ("POST", "/debug/pprof/trace", _ITEM_14),
     ("POST", "/internal/cluster/message", _ITEM_15),
     ("GET", "/internal/fragment/blocks", _ITEM_15),
     ("GET", "/internal/fragment/block/data", _ITEM_15),
@@ -203,12 +196,18 @@ class Handler:
         r("GET", "/cq/{cqid}", self._get_cq)
         r("DELETE", "/cq/{cqid}", self._delete_cq)
         r("GET", "/export", self._get_export)
+        r("POST", "/recalculate-caches", self._recalculate_caches)
         r("GET", "/metrics", self._metrics)
         r("GET", "/healthz", self._healthz)
         r("GET", "/readyz", self._readyz)
         r("GET", "/debug/vars", self._debug_vars)
         r("GET", "/debug/traces", self._debug_traces)
         r("GET", "/debug/events", self._debug_events)
+        r("GET", "/debug/pprof", self._debug_pprof)
+        r("GET", "/debug/pprof/goroutine", self._debug_pprof)
+        r("GET", "/debug/pprof/profile", self._debug_pprof_profile)
+        r("GET", "/debug/pprof/heap", self._debug_pprof_heap)
+        r("POST", "/debug/pprof/trace", self._debug_pprof_trace)
         # Internal routes a single node serves (http/handler.go:262-272).
         r("GET", "/internal/shards/max",
           lambda q, b, **kw: {"standard": self.api.max_shards()})
@@ -770,6 +769,166 @@ class Handler:
         except ValueError:
             raise ValueError("top must be an integer")
         return plan_miner.MINER.to_doc(top=top)
+
+    def _recalculate_caches(self, q, b, **kw):
+        self.api.recalculate_caches()
+        return {}
+
+    def _debug_pprof(self, q, b, **kw):
+        """/debug/pprof (http/handler.go:241): a full thread stack dump,
+        the Python analogue of goroutine profiles."""
+        import sys
+
+        frames = sys._current_frames()
+        threads = {t.ident: t.name for t in threading.enumerate()}
+        out = {}
+        for ident, frame in frames.items():
+            out[threads.get(ident, str(ident))] = traceback.format_stack(frame)
+        return {"threads": out, "count": len(out)}
+
+    # One /debug/pprof/profile at a time: two sampling loops interleaving
+    # their sleeps would each see about half the rate and count the other's
+    # sampler in their stacks.  A waiter gives up after PPROF_WAIT_SECONDS
+    # with a 429, so queued captures do not pin pool threads for minutes.
+    _pprof_profile_lock = threading.Lock()
+    PPROF_WAIT_SECONDS = 15.0
+    # Distinct folded stacks kept per profile; past the cap samples
+    # aggregate under one overflow key, so a long capture stays bounded.
+    PPROF_MAX_STACKS = 5000
+
+    def _debug_pprof_profile(self, q, b, **kw):
+        """/debug/pprof/profile: a wall-clock sampling profiler over every
+        thread (sys._current_frames) for ?seconds=N (at most 60) at ?hz=
+        (at most 1000): folded stacks ("fnA;fnB;fnC count", the flamegraph
+        format) and a table of the top leaf functions.  Identical stacks
+        aggregate across threads; concurrent requests serialize."""
+        import sys
+
+        seconds = min(float(q.get("seconds", ["1"])[0]), 60.0)
+        hz = min(int(q.get("hz", ["100"])[0]), 1000)
+        period = 1.0 / max(hz, 1)
+        me = threading.get_ident()
+        folded: dict = {}
+        leaf_counts: dict = {}
+        n_samples = 0
+        truncated = 0
+        if not Handler._pprof_profile_lock.acquire(timeout=self.PPROF_WAIT_SECONDS):
+            return 429, "application/json", json.dumps({
+                "error": "a profile capture is already in progress",
+                "retryAfterSeconds": self.PPROF_WAIT_SECONDS,
+            }).encode()
+        try:
+            started = time.monotonic()
+            deadline = started + seconds
+            while time.monotonic() < deadline:
+                for ident, frame in sys._current_frames().items():
+                    if ident == me:
+                        continue  # not the profiler's own sampling loop
+                    stack = []
+                    f = frame
+                    while f is not None:
+                        code = f.f_code
+                        stack.append(f"{code.co_name} ({code.co_filename}:{code.co_firstlineno})")
+                        f = f.f_back
+                    stack.reverse()
+                    key = ";".join(stack)
+                    n = folded.get(key)
+                    if n is None and len(folded) >= self.PPROF_MAX_STACKS:
+                        key = "<overflow>"
+                        n = folded.get(key)
+                        truncated += 1
+                    folded[key] = (n or 0) + 1
+                    leaf = stack[-1] if key != "<overflow>" else "<overflow>"
+                    leaf_counts[leaf] = leaf_counts.get(leaf, 0) + 1
+                n_samples += 1
+                time.sleep(period)
+            ended = time.monotonic()
+        finally:
+            Handler._pprof_profile_lock.release()
+        top = sorted(leaf_counts.items(), key=lambda kv: -kv[1])[:50]
+        return {
+            "seconds": seconds,
+            "hz": hz,
+            "samples": n_samples,
+            "distinctStacks": len(folded),
+            "truncatedSamples": truncated,
+            "maxStacks": self.PPROF_MAX_STACKS,
+            # The capture window: two profiles' windows never overlap.
+            "startedMonotonic": started,
+            "endedMonotonic": ended,
+            "top": [{"func": f, "count": c} for f, c in top],
+            "folded": [f"{k} {v}" for k, v in sorted(folded.items(), key=lambda kv: -kv[1])],
+        }
+
+    def _debug_pprof_heap(self, q, b, **kw):
+        """/debug/pprof/heap: a tracemalloc allocation profile.  The first
+        call starts tracing (it costs allocations about twice their time,
+        so it arms on demand); later calls return the top allocation
+        sites by live bytes.  ?reset=true stops tracing."""
+        import tracemalloc
+
+        if _qbool(q, "reset"):
+            if tracemalloc.is_tracing():
+                tracemalloc.stop()
+            return {"tracing": False}
+        if not tracemalloc.is_tracing():
+            tracemalloc.start(25)
+            return {"tracing": True, "note": "tracing armed; call again for a snapshot"}
+        snap = tracemalloc.take_snapshot()
+        stats = snap.statistics("lineno")[:50]
+        current, peak = tracemalloc.get_traced_memory()
+        return {
+            "tracing": True,
+            "tracedBytes": current,
+            "peakBytes": peak,
+            "top": [{"site": str(s.traceback), "bytes": s.size, "count": s.count}
+                    for s in stats],
+        }
+
+    _pprof_trace_lock = threading.Lock()
+
+    def _debug_pprof_trace(self, q, b, **kw):
+        """A torch.profiler capture: host ops, and on the card the kernels
+        themselves (the device side the sampling profiler cannot see).
+        ?seconds=N (at most 10) of whatever the node runs meanwhile,
+        written as a Chrome trace (``trace.json``) into ?dir= (default: a
+        fresh temporary directory); the answer names the file.  A second
+        capture while one runs is refused, not queued."""
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+
+        seconds = min(float(q.get("seconds", ["1"])[0]), 10.0)
+        dirs = q.get("dir")
+        trace_dir = dirs[0] if dirs else tempfile.mkdtemp(prefix="pilosa-torchprof-")
+        if not Handler._pprof_trace_lock.acquire(blocking=False):
+            raise ValueError("a profiler trace is already running")
+        try:
+            activities = [ProfilerActivity.CPU]
+            eng = getattr(self.api, "engine", None)
+            if eng is not None and eng.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            try:
+                # Every thread's host ops (the serving and dispatch
+                # threads), where this PyTorch offers it; the card's
+                # activity is process-wide either way.
+                extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+            except TypeError:
+                extra = {}
+            prof = profile(activities=activities, **extra)
+            prof.start()
+            try:
+                time.sleep(seconds)
+            finally:
+                # Stopped whatever happens: a profiler left running would
+                # refuse every later capture.
+                prof.stop()
+            os.makedirs(trace_dir, exist_ok=True)
+            path = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(path)
+        finally:
+            Handler._pprof_trace_lock.release()
+        return {"traceDir": trace_dir, "seconds": seconds, "traceFile": path}
 
     def _debug_vars(self, q, b, **kw):
         stats = getattr(self.api.executor, "stats", None)

@@ -58,7 +58,7 @@ An item also carries the submit origin of the thread that queued it
 so ``cross_worker_fused_batches`` counts batches whose riders came
 through different worker processes.
 A Count whose tree holds a BSI range leaf joins a drain like any other:
-``count_many_async`` runs it on K1/K2 beside the batch's K5 launch.
+K5 evaluates its range leaves in the same launch.
 """
 
 from __future__ import annotations

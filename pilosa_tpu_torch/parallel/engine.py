@@ -50,8 +50,8 @@ index and the lowered filter go to one launch of K8 ``groupby.groupn_tree``
 combinations the executor's host iterator serves the call.
 
 Serving (``count_many``, the result memo, ``batcher()``): K Counts run as
-one K5 launch (``kernels.count_batch_tree``) with one readback (a tree
-with a range leaf runs on K1 or K2 beside it: K5 takes none); identical
+one K5 launch (``kernels.count_batch_tree``, range leaves included) with
+one readback; identical
 (query, shard set) entries of a batch are evaluated once and fanned back
 out; a batch that dedups to one query takes the scalar path above (K1, or
 K2 through the sparse plan).  The result memo answers a repeat of a
@@ -110,7 +110,9 @@ from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition
 from ..util import events as events_mod
 from ..util import heat as heat_mod
 from ..util import plans as plans_mod
-from ..util.stats import (METRIC_ENGINE_EVICTIONS, METRIC_ENGINE_PROMOTIONS,
+from ..util.stats import (ENGINE_CACHES, METRIC_DEVICE_BYTES_SKIPPED,
+                          METRIC_ENGINE_CACHE_HITS, METRIC_ENGINE_CACHE_MISSES,
+                          METRIC_ENGINE_EVICTIONS, METRIC_ENGINE_PROMOTIONS,
                           METRIC_ENGINE_RESIDENT_BLOCK_FRACTION, REGISTRY)
 from . import advisor as advisor_mod
 from . import bsi as bsi_mod
@@ -528,7 +530,9 @@ class TorchEngine:
         # another entry of the same batch (batch CSE).
         self.batch_dispatches = 0
         self.batch_cse_deduped = 0
-        # Batch entries K5 declined (a range leaf), run on K1 or K2 instead.
+        # Batched Counts sent to the host lane because a tree of their
+        # batch is past the kernels' limits (more than MAX_RANGES range
+        # leaves, say): every Count of that batch.
         self.batch_declines = 0
         # Fused GroupBy launches (K8), and GroupBys past MAX_GROUP_COMBOS
         # (or MAX_GROUP_FIELDS) sent to the executor's host iterator.
@@ -565,6 +569,14 @@ class TorchEngine:
         # Of them, the stacks evicted to make room under the budget.
         self.budget_evictions = 0
         self._evictions_counter = REGISTRY.counter(METRIC_ENGINE_EVICTIONS)
+        # Per-cache hit/miss tallies and their process-metric handles,
+        # resolved once per engine (pilosa_tpu/parallel/engine.py:975-990).
+        self.cache_stats: Dict[str, List[int]] = {name: [0, 0] for name in ENGINE_CACHES}
+        self._cache_counters = {
+            name: (REGISTRY.counter(METRIC_ENGINE_CACHE_HITS, cache=name),
+                   REGISTRY.counter(METRIC_ENGINE_CACHE_MISSES, cache=name))
+            for name in ENGINE_CACHES}
+        self._bytes_skipped_counter = REGISTRY.counter(METRIC_DEVICE_BYTES_SKIPPED)
         self._promotions_warm_counter = REGISTRY.counter(METRIC_ENGINE_PROMOTIONS,
                                                          cause="warm_start")
         # Per thread: fallbacks raised while probing (the batcher's failure
@@ -586,6 +598,14 @@ class TorchEngine:
         # key -> (version token, occupied blocks of the row universe).
         self._universe_blocks_at: Dict[tuple, tuple] = {}
 
+    def _cache_hit(self, name: str):
+        self.cache_stats[name][0] += 1
+        self._cache_counters[name][0].inc()
+
+    def _cache_miss(self, name: str):
+        self.cache_stats[name][1] += 1
+        self._cache_counters[name][1].inc()
+
     # -- canonical shard axis ---------------------------------------------
 
     def canonical_shards(self, index: str) -> List[int]:
@@ -595,7 +615,9 @@ class TorchEngine:
         epoch = self.holder.shard_epoch(index)
         cached = self._canonical.get(index)
         if cached is not None and cached[0] == epoch:
+            self._cache_hit("canonical")
             return cached[1]
+        self._cache_miss("canonical")
         shards = self.holder.local_shards(index)
         self._canonical[index] = (epoch, shards)
         return shards
@@ -608,11 +630,13 @@ class TorchEngine:
         key = (len(canonical), bits)
         m = self._masks.get(key)
         if m is None:
+            self._cache_miss("mask")
             pos = [i for i, b in enumerate(bits) if b]
             m = self._masks[key] = shard_mask(len(canonical), pos, self.device)
             while len(self._masks) > 1024:  # tiny buffers, but bounded
                 self._masks.popitem(last=False)
         else:
+            self._cache_hit("mask")
             self._masks.move_to_end(key)
         return m
 
@@ -654,12 +678,15 @@ class TorchEngine:
         token = self._token(index, view_obj)
         cached = self._stacks.get(key)
         if cached is not None and cached.versions == token and cached.shards == canonical:
+            self._cache_hit("stack")
             self._stacks.move_to_end(key)
             return cached
         prior_rows = None
         if cached is not None:
             updated = self._try_incremental_sync(cached, index, field, view, canonical, token)
             if updated is not None:
+                # An in-place sync reuses the resident matrix: a hit.
+                self._cache_hit("stack")
                 self._stacks.move_to_end(key)
                 return updated
             if cached.partial:
@@ -668,6 +695,7 @@ class TorchEngine:
             self._evict(key)
         if not canonical:
             return None
+        self._cache_miss("stack")
         # Admission (pilosa_tpu/parallel/engine.py:1157-1175): price the
         # FULL stack from its row universe before any host assembly.  One
         # that fits is built now, colder stacks evicted to make room; one
@@ -1969,15 +1997,18 @@ class TorchEngine:
         key = self._memo_key(index, c, shards)
         if key is None:
             return None, None
-        return key, self._memo_get("count", key)
+        return key, self._memo_get("count", key, "result_memo")
 
-    def _memo_get(self, kind: Optional[str], key):
-        """The memo's value for ``key``; on a miss, the repair layer's
-        ``kind`` entry advanced to the key's tokens (None: no repair)."""
+    def _memo_get(self, kind: Optional[str], key, tag: str):
+        """The memo's value for ``key``, a hit or miss of cache ``tag``; on
+        a miss, the repair layer's ``kind`` entry advanced to the key's
+        tokens (None: no repair)."""
         v = self.result_memo.get(key)
-        if v is None and kind is not None:
-            v = self.repairs.probe(kind, key)
-        return v
+        if v is not None:
+            self._cache_hit(tag)
+            return v
+        self._cache_miss(tag)
+        return None if kind is None else self.repairs.probe(kind, key)
 
     def memo_store(self, key, value, call=None):
         """Store a result under a key from ``memo_probe``; with ``call``,
@@ -2005,7 +2036,7 @@ class TorchEngine:
         if toks is None:
             return None, None
         key = (index, "groupby:" + c_str, tuple(sorted(set(shards))), toks)
-        return key, self._memo_get("groupby", key)
+        return key, self._memo_get("groupby", key, "memo_groupby")
 
     def memo_store_groupby(self, key, fields, row_lists, filter_call, counts):
         """Store a GroupBy's counts, shaped [K_1, ..., K_n], under a key
@@ -2032,7 +2063,7 @@ class TorchEngine:
             ",".join(map(str, row_ids)) if row_ids else "",
         )
         key = (index, qstr, tuple(sorted(set(shards))), toks)
-        v = self._memo_get("topn", key)
+        v = self._memo_get("topn", key, "memo_topn")
         return key, (None if v is None else [tuple(p) for p in v])
 
     def memo_store_topn(self, key, field_name, n, threshold, row_ids, pairs):
@@ -2054,8 +2085,9 @@ class TorchEngine:
         pool's slot table, which the reference does not have, never; a
         missing stack as the reference's zero stack, uint32[1, S, WORDS],
         once per shard axis), an int32 row scalar per row leaf (in batch
-        mode one int32 slot vector of at least one entry) and an int32[64]
-        slot vector per pool leaf; ``mask_bytes`` adds the uint32[S, 1]
+        mode one int32 slot vector of at least one entry), an int32[64]
+        slot vector per pool leaf and a range leaf's predicate bits
+        (uint32[depth], two for BETWEEN); ``mask_bytes`` adds the uint32[S, 1]
         shard masks and ``extra`` the other replicated operands.
         ``pad_copies`` re-counts the first program's leaves that many
         times: the reference pads a batch to its tier by lowering query 0
@@ -2072,7 +2104,9 @@ class TorchEngine:
             elif kind == "rowb":
                 total += bitops.OCC_BLOCKS * 4
             elif kind == "range":
-                scalars += sum(1 for r in p[3] if r >= 0)
+                # The reference's predicate bits: uint32[max(depth, 1)]
+                # each, two for BETWEEN (its _bits_arr).
+                total += 4 * max(len(p[3]) - 1, 1) * (2 if p[1] == "between" else 1)
             elif kind == "zero":
                 if S not in zero_axes:
                     zero_axes.add(S)
@@ -2121,6 +2155,7 @@ class TorchEngine:
         blk_bits, skipped = plan
         self.sparse_dispatches += 1
         self.device_bytes_skipped += skipped
+        self._bytes_skipped_counter.inc(skipped)
         self.last_path = "sparse"
         plans_mod.note_dispatch(op="Count", path="sparse", fused=True, bytes_skipped=skipped)
         bits = torch.from_numpy(blk_bits)
@@ -2254,6 +2289,9 @@ class TorchEngine:
                 j = uniq[k] = len(u_calls)
                 u_calls.append(c)
                 u_shards.append(shards)
+                self._cache_miss("batch_cse")
+            else:
+                self._cache_hit("batch_cse")
             mapping.append(j)
         deduped = len(calls) - len(u_calls)
         self.batch_cse_deduped += deduped
@@ -2271,6 +2309,10 @@ class TorchEngine:
             for c in u_calls:
                 prog = self._lower(index, c, lw)
                 if not kernels.fits(prog):
+                    # K5 takes what K1 and K2 take: past that (ranges,
+                    # ops, stack) the caller's host lane answers every
+                    # Count of the batch.
+                    self.batch_declines += len(calls)
                     raise UnsupportedLowering("count tree exceeds the kernels' limits")
                 progs.append(prog)
             fan = mapping if deduped else None
@@ -2287,23 +2329,7 @@ class TorchEngine:
                     bytes_touched=self._operand_bytes(
                         [(lw, progs)], slot_vector=True, pad_copies=K_pad - K,
                         mask_bytes=4 * len(canonical) * len({frozenset(s) for s in u_shards})))
-            solo = [j for j, prog in enumerate(progs) if not kernels.batchable(prog)]
-            if not solo:
-                return self._launch_batch(progs, lw, u_shards, canonical, fan)
-            # K5 takes no range leaf: those queries run one by one on K1 or
-            # K2 (the scalar path), the rest in one K5 launch beside them.
-            self.batch_declines += len(solo)
-            out = torch.empty(len(progs), dtype=torch.int64, device=self.device)
-            for j in solo:
-                out[j] = self._dispatch_count(index, u_calls[j], u_shards[j], canonical)
-            rest = [j for j in range(len(progs)) if j not in set(solo)]
-            if rest:
-                at = torch.as_tensor(rest, dtype=torch.int64).to(self.device)
-                out[at] = self._launch_batch([progs[j] for j in rest], lw,
-                                             [u_shards[j] for j in rest], canonical, None)
-            if fan is not None:
-                out = out[torch.as_tensor(fan, dtype=torch.int64).to(self.device)]
-            return out
+            return self._launch_batch(progs, lw, u_shards, canonical, fan)
 
     def _launch_batch(self, progs, lw: _Lowering, shard_lists, canonical, fan):
         """K5 over lowered trees: one launch, or one per group past a
@@ -2820,9 +2846,11 @@ class TorchEngine:
         plan = self._fused_plans.get(key)
         if plan is not None and self._fused_plan_valid(plan):
             self.fused_plan_hits += 1
+            self._cache_hit("fused_plan")
             self._fused_plans.move_to_end(key)
             return plan
         self.fused_plan_misses += 1
+        self._cache_miss("fused_plan")
         self._fused_plans.pop(key, None)
         plan = fusion_mod.build(self, entries)
         if plan.cacheable:
@@ -2941,6 +2969,9 @@ class TorchEngine:
     # _OP_CACHE_TAG); TopN scores and GroupBy do not (the executor keeps
     # GroupBy's shaped counts itself, memo_probe_groupby).
     _MEMO_OPS = frozenset(("sum", "min", "max", "topnf"))
+    # Each memoized op's cache name in cache_stats.
+    _OP_CACHE_TAG = {"sum": "memo_sum", "min": "memo_min", "max": "memo_max",
+                     "topnf": "memo_topn"}
     # The repair-layer kind of each memoized op (the full TopN has none).
     _REPAIR_KIND = {"sum": "sum", "min": "minmax", "max": "minmax"}
 
@@ -2967,7 +2998,7 @@ class TorchEngine:
         key = self.memo_key_op(index, kind, spec, shards)
         if key is None:
             return None, None
-        v = self._memo_get(self._REPAIR_KIND.get(kind), key)
+        v = self._memo_get(self._REPAIR_KIND.get(kind), key, self._OP_CACHE_TAG[kind])
         if v is not None and kind == "topnf":
             v = [tuple(p) for p in v]
         return key, v
@@ -3078,9 +3109,11 @@ class TorchEngine:
         }
 
     def cache_snapshot(self) -> dict:
-        """The stack cache for /debug/vars: resident and evicted-live bytes,
-        evictions, rebuilds and syncs, the residency fraction, the
-        promotion worker's snapshot and the working set."""
+        """Cache telemetry for /debug/vars: per-cache hit/miss tallies (the
+        counts the pilosa_engine_cache_* series export), the stack cache
+        (resident and evicted-live bytes, evictions, rebuilds and syncs,
+        the residency fraction, the promotion worker's snapshot, the
+        working set) and the sparsity counters."""
         self.refresh_metrics()
         with self._stacks_lock:
             resident = self._resident_bytes
@@ -3088,6 +3121,8 @@ class TorchEngine:
             n_stacks = len(self._stacks)
             partial = sum(1 for st in self._stacks.values() if st.partial)
         return {
+            "caches": {name: {"hits": hm[0], "misses": hm[1]}
+                       for name, hm in self.cache_stats.items()},
             "residentBytes": resident,
             "evictedLiveBytes": pending,
             "deviceBudgetBytes": self.max_resident_bytes,
@@ -3105,4 +3140,6 @@ class TorchEngine:
             "resultMemoEntries": len(self.result_memo._od),
             "resultRepair": self.repairs.snapshot(),
             "fusedPlans": len(self._fused_plans),
+            "sparseDispatches": self.sparse_dispatches,
+            "deviceBytesSkipped": self.device_bytes_skipped,
         }

@@ -543,11 +543,11 @@ def count_tree_pool(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Ten
 count_tree_pool.launches = 0
 
 
-def range_leaf(code: Postfix) -> None:
-    """Called by K1, K1P, K2, K3 and K3P after a launch: ``range_leaf.launches``
-    counts those whose tree holds a range leaf (csrc/tree_eval.cuh), the
-    range leaf's own launch counter."""
-    if code.ranges:
+def range_leaf(code) -> None:
+    """Called by K1, K1P, K2, K3, K3P, K5 and K5P after a launch:
+    ``range_leaf.launches`` counts those whose tree (or batch) holds a
+    range leaf (csrc/tree_eval.cuh), the range leaf's own launch counter."""
+    if len(code.ranges):
         range_leaf.launches += 1
 
 
@@ -935,23 +935,33 @@ class BatchProgram:
     leaf rows, ``qinfo`` int32[K, 4] (program offset, program length,
     mask id, chain form 0/1) and ``ops`` the concatenated postfix
     programs, whose leaf opcodes carry indices into ``leaves``;
-    ``reads``/``pooled`` as ``leaf_reads`` gives them."""
+    ``ranges`` int64[n, 4] the distinct range leaves (``lo``, ``hi``, kind
+    + depth << 8, offset into ``planes``), whose OP_RANGE opcodes index
+    it, and ``planes`` int32 each range leaf's depth + 1 planes as
+    indices into ``leaves`` (-1 for a missing plane, a zero row that
+    nothing reads); ``reads``/``pooled`` as ``leaf_reads`` gives them."""
 
-    __slots__ = ("leaves", "qinfo", "ops", "reads", "pooled")
+    __slots__ = ("leaves", "qinfo", "ops", "ranges", "planes", "reads", "pooled")
 
-    def __init__(self, leaves, qinfo, ops):
+    def __init__(self, leaves, qinfo, ops, ranges, planes):
         self.leaves = leaves
         self.qinfo = qinfo
         self.ops = ops
+        self.ranges = ranges
+        self.planes = planes
         self.reads, self.pooled = leaf_reads(leaves)
 
 
 def _leaf_rows(prog, out: set) -> set:
+    """The distinct leaf-table rows a tree reads: its rows, pool rows and
+    the present planes of its range leaves."""
     if prog[0] == "row":
         out.add((int(prog[1]), int(prog[2])))
     elif prog[0] == "rowb":
         out.add((int(prog[1]), int(prog[3]), int(prog[2])))
-    elif prog[0] not in ("zero", "range"):
+    elif prog[0] == "range":
+        out.update((int(prog[2]), int(p)) for p in prog[3] if p >= 0)
+    elif prog[0] != "zero":
         for p in prog[1:]:
             _leaf_rows(p, out)
     return out
@@ -959,8 +969,9 @@ def _leaf_rows(prog, out: set) -> set:
 
 def batch_groups(progs) -> List[Tuple[int, int]]:
     """Cut a batch into consecutive [start, end) groups of at most
-    BATCH_MAX queries and MAX_BATCH_LEAVES distinct leaf rows each: one K5
-    launch per group (one group unless a batch is past either limit)."""
+    BATCH_MAX queries and MAX_BATCH_LEAVES distinct leaf rows each (range
+    planes included): one K5 launch per group (one group unless a batch is
+    past either limit)."""
     groups, start, seen = [], 0, set()
     for k, prog in enumerate(progs):
         rows = _leaf_rows(prog, set())
@@ -982,41 +993,54 @@ def _is_chain(ops: List[int]) -> bool:
     return all(item(ops[pc]) and not item(ops[pc + 1]) for pc in range(1, len(ops), 2))
 
 
-def batchable(prog) -> bool:
-    """True when K5 takes the tree: it stages leaf rows (pool rows
-    through their slot vectors) in shared memory and has no range leaf
-    (ROADMAP.md Queue 2 item 18), so the engine sends a tree with one to
-    K1 or K2 instead."""
-    return not compile_prog(prog).ranges
-
-
 def compile_batch(progs, mask_ids: Sequence[int]) -> BatchProgram:
-    """Compile K normalized trees into one BatchProgram.  Raises
-    ValueError when a query's program exceeds MAX_PROG or MAX_STACK, holds
-    a range leaf (``batchable``), or the batch exceeds MAX_BATCH_LEAVES
+    """Compile K normalized trees into one BatchProgram.  A range leaf's
+    planes are leaf-table rows like any other, so eight conditions on one
+    field put its planes in the table once.  Raises ValueError when a
+    query's program exceeds MAX_PROG, MAX_STACK or MAX_RANGES (a range
+    leaf past MAX_PLANES planes), or the batch exceeds MAX_BATCH_LEAVES
     distinct leaf rows."""
     if len(progs) != len(mask_ids):
         raise ValueError("one mask id per query")
-    table: Dict[Tuple[int, int], int] = {}
+    table: Dict[tuple, int] = {}
+    range_of: Dict[tuple, int] = {}
+    ranges: List[Tuple[int, int, int, int]] = []
+    planes: List[int] = []
     qinfo = np.zeros((len(progs), 4), dtype=np.int32)
     ops: List[int] = []
     for k, prog in enumerate(progs):
         code = compile_prog(prog)
-        if code.ranges:
-            raise ValueError("K5 takes no range leaves: the engine sends such a tree to K1/K2")
         if any((c & 0xFF) == OP_MREF for c in code.ops):
             raise ValueError("a slot reference (mref) runs only inside a fused program")
-        if code.depth > MAX_STACK or len(code.ops) > MAX_PROG:
-            check_prog(Postfix(code.ops, [], code.depth))
+        if code.depth > MAX_STACK or len(code.ops) > MAX_PROG or code.ranges:
+            check_prog(Postfix(code.ops, [], code.depth, code.ranges))
         glob = [table.setdefault(leaf, len(table)) for leaf in code.leaves]
-        qops = [(c & 0xFF) | (glob[c >> 8] << 8) if (c & 0xFF) in (OP_LEAF, OP_ROWB) else c
-                for c in code.ops]
+        rglob = []
+        for m, kind, rplanes, lo, hi in code.ranges:
+            j = range_of.get((m, kind, rplanes, lo, hi))
+            if j is None:
+                j = range_of[(m, kind, rplanes, lo, hi)] = len(ranges)
+                ranges.append((lo, hi, bsi_ops.RANGE_KINDS.index(kind) | (len(rplanes) - 1) << 8,
+                               len(planes)))
+                planes.extend(table.setdefault((m, p), len(table)) if p >= 0 else -1
+                              for p in rplanes)
+            rglob.append(j)
+        qops = []
+        for c in code.ops:
+            op = c & 0xFF
+            if op in (OP_LEAF, OP_ROWB):
+                c = op | (glob[c >> 8] << 8)
+            elif op == OP_RANGE:
+                c = op | (rglob[c >> 8] << 8)
+            qops.append(c)
         qinfo[k] = (len(ops), len(qops), int(mask_ids[k]), int(code.chain))
         ops.extend(qops)
     if len(table) > MAX_BATCH_LEAVES:
         raise ValueError(f"count batch reads {len(table)} distinct leaf rows; "
                          f"K5 takes {MAX_BATCH_LEAVES}")
-    return BatchProgram(list(table), qinfo, np.asarray(ops or [OP_ZERO], dtype=np.int32))
+    return BatchProgram(list(table), qinfo, np.asarray(ops or [OP_ZERO], dtype=np.int32),
+                        np.asarray(ranges, dtype=np.int64).reshape(-1, 4),
+                        np.asarray(planes, dtype=np.int32))
 
 
 def count_batch_tree_plain(progs, mats: Sequence[torch.Tensor], masks: np.ndarray,
@@ -1051,7 +1075,7 @@ def _batch_plain(count, progs, mats, masks, mask_ids, device, out_index) -> torc
     return out
 
 
-_BATCH_ARGS = [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+_BATCH_ARGS = [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]
 _batch_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -1120,7 +1144,8 @@ def _batch_launch(entry: str, batch: BatchProgram, mats: Sequence[torch.Tensor],
     if k_out == 0:
         return out
     ptrs = np.asarray(leaf_pointers(batch.leaves, mats) or [0], dtype=np.uint64)
-    sections = [ptrs, batch.qinfo, batch.ops, mask_bits(masks)]
+    n_r = batch.ranges.shape[0]
+    sections = [ptrs, batch.qinfo, batch.ops, mask_bits(masks), batch.ranges, batch.planes]
     if fan is not None:
         sections.append(fan)
     buf, offs = _pack(sections)
@@ -1129,10 +1154,12 @@ def _batch_launch(entry: str, batch: BatchProgram, mats: Sequence[torch.Tensor],
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = _lib_fn("count_batch_tree", entry, _BATCH_ARGS)
     err = fn(base + offs[0], len(batch.leaves), int(batch.pooled), base + offs[1], K,
-             base + offs[2], base + offs[3], None if fan is None else base + offs[4], k_out, S,
+             base + offs[2], base + offs[3], base + offs[4] if n_r else None, n_r,
+             base + offs[5] if n_r else None, None if fan is None else base + offs[6], k_out, S,
              words, _batch_scratch_for(device, stream).data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    range_leaf(batch)
     pool_leaf(batch, "count_batch_tree")
     return out
 

@@ -96,9 +96,28 @@ def _words_to_lows(words: np.ndarray) -> np.ndarray:
     return np.flatnonzero(bits).astype(np.uint16)
 
 
+def _native():
+    """The C++ codec (native/roaring_codec.cpp), or None without one."""
+    from .. import native
+
+    return native.load()
+
+
 def serialize(values: np.ndarray) -> bytes:
-    """Serialize a sorted unique u64 vector to pilosa-roaring bytes."""
+    """Serialize a sorted unique u64 vector to pilosa-roaring bytes: the
+    C++ codec where it loads, else ``_serialize_py`` (the same bytes)."""
     values = np.ascontiguousarray(values, dtype=np.uint64)
+    lib = _native()
+    if lib is not None:
+        import ctypes
+
+        ptr = values.ctypes.data_as(ctypes.c_void_p)
+        size = lib.rc_serialize(ptr, values.size, None, 0)
+        if size >= 0:
+            out = np.empty(size, dtype=np.uint8)
+            if lib.rc_serialize(ptr, values.size, out.ctypes.data_as(ctypes.c_void_p),
+                                size) == size:
+                return out.tobytes()
     return _serialize_py(values)
 
 
@@ -212,10 +231,23 @@ def deserialize(data: bytes) -> _Decoded:
     Accepts both Pilosa's 64-bit format (cookie 12348, with op-log replay,
     mirroring unmarshalPilosaRoaring roaring.go:886-974) and the official
     32-bit roaring interchange format (cookies 12346/12347,
-    roaring.go:3885-3925).  The vectorized numpy decoder
-    (``_deserialize_np``) does the work; the scalar ``_deserialize_py``
-    is the torn-tail recovery path.
+    roaring.go:3885-3925).  The C++ codec decodes where it loads, else
+    the vectorized numpy decoder (``_deserialize_np``); corrupt data takes
+    the numpy decoder too, for its error message.  The scalar
+    ``_deserialize_py`` is the torn-tail recovery path.
     """
+    lib = _native()
+    if lib is not None and len(data) >= HEADER_BASE_SIZE:
+        import ctypes
+
+        cap = lib.rc_decoded_bound(data, len(data))
+        if cap >= 0:
+            out = np.empty(cap, dtype=np.uint64)
+            op_n = ctypes.c_int64(0)
+            count = lib.rc_deserialize(data, len(data), out.ctypes.data_as(ctypes.c_void_p),
+                                       cap, ctypes.byref(op_n))
+            if count >= 0:
+                return _Decoded(out[:count], int(op_n.value), [])
     return _deserialize_np(data)
 
 

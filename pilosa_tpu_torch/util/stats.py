@@ -39,6 +39,23 @@ METRIC_ENGINE_FUSED_PROGRAMS = "pilosa_engine_fused_program_programs_total"
 METRIC_ENGINE_FUSED_QUERIES = "pilosa_engine_fused_program_queries_total"
 METRIC_ENGINE_FUSED_MASKS_EVAL = "pilosa_engine_fused_program_masks_evaluated_total"
 METRIC_ENGINE_FUSED_MASKS_REF = "pilosa_engine_fused_program_masks_referenced_total"
+# -- engine caches (pilosa_tpu/util/stats.py:373-377, 675-679) ---------------
+#   pilosa_engine_cache_hits_total{cache=...}   engine cache hits
+#   pilosa_engine_cache_misses_total{cache=...} engine cache misses
+#   pilosa_device_bytes_skipped_total           device bytes the sparse path
+#                                               (K2) skipped
+METRIC_ENGINE_CACHE_HITS = "pilosa_engine_cache_hits_total"
+METRIC_ENGINE_CACHE_MISSES = "pilosa_engine_cache_misses_total"
+METRIC_DEVICE_BYTES_SKIPPED = "pilosa_device_bytes_skipped_total"
+# Engine cache names labelling the hit/miss series, the reference's: the
+# memo_* names are the per-op-kind result-memo tallies.  The port has no
+# device scalar or zero-stack cache (a row goes to a kernel by value, a zero
+# leaf is zeros with no load), so "scalar" and "zeros" stay at 0.
+ENGINE_CACHES = (
+    "stack", "mask", "zeros", "scalar", "canonical", "result_memo",
+    "batch_cse", "fused_plan",
+    "memo_sum", "memo_min", "memo_max", "memo_topn", "memo_groupby",
+)
 # -- tiered residency (pilosa_tpu/util/stats.py:425-451) ----------------------
 #   pilosa_engine_promotions_total{cause=}  promotions completing a FULL stack
 #   pilosa_engine_partial_promotions_total  promotions admitting a partial

@@ -26,6 +26,7 @@ from pilosa_tpu_torch import pql as tpql
 from pilosa_tpu_torch.core.holder import Holder as THolder
 from pilosa_tpu_torch.executor.executor import Executor as TExecutor
 from pilosa_tpu_torch.ops import bitops
+from pilosa_tpu_torch.ops import bsi as tbsi
 from pilosa_tpu_torch.parallel import kernels
 from pilosa_tpu_torch.parallel.engine import TorchEngine, UnsupportedLowering
 
@@ -138,11 +139,17 @@ BATCH_MASKS = np.array([
 BATCH_MASK_IDS = [0, 2, 3, 0, 1, 0, 2]
 
 
-def jax_count_batch(mesh, progs, mask_ids, mats, masks):
+def jax_count_batch(mesh, progs, mask_ids, mats, masks, table=None):
     """The reference count_batch_tree on the same stacks: each leaf a
-    (stack operand, scalar row operand) pair, zero leaves a zero stack,
+    (stack operand, scalar row operand) pair, a pool row a (pool operand,
+    slot vector operand) pair (``table`` the slot table, its place in
+    ``mats`` None), a range leaf its stack operand, its planes' gather and
+    its predicate bits (``ops.bsi.to_bits``), zero leaves a zero stack,
     one uint32[S, 1] mask operand per distinct mask."""
-    operands = [put_global(mesh, m, P(None, SHARD_AXIS)) for m in mats]
+    from pilosa_tpu.ops import bsi as jbsi
+
+    operands = [put_global(mesh, m if m is not None else np.zeros((1, S, W), np.uint32),
+                           P(None, SHARD_AXIS)) for m in mats]
     specs = [P(None, SHARD_AXIS)] * len(mats)
     operands.append(put_global(mesh, np.zeros((1, S, W), np.uint32), P(None, SHARD_AXIS)))
     specs.append(P(None, SHARD_AXIS))
@@ -154,11 +161,23 @@ def jax_count_batch(mesh, progs, mask_ids, mats, masks):
         specs.append(P(SHARD_AXIS))
         mask_ops.append(len(operands) - 1)
 
+    def add(value):
+        operands.append(put_global(mesh, value, P()))
+        specs.append(P())
+        return len(operands) - 1
+
     def conv(p):
         if p[0] == "row":
-            operands.append(put_global(mesh, np.int32(p[2]), P()))
-            specs.append(P())
-            return ("row", p[1], len(operands) - 1)
+            return ("row", p[1], add(np.int32(p[2])))
+        if p[0] == "rowb":
+            return ("rowb", p[1], add(table[p[3]]))
+        if p[0] == "range":
+            _, kind, m, planes, lo, hi = p
+            depth, spec = len(planes) - 1, ("gather", tuple(planes))
+            if kind == "between":
+                return ("between", m, spec, add(jbsi.to_bits(lo, depth)),
+                        add(jbsi.to_bits(hi, depth)))
+            return ("range", kind, m, spec, add(jbsi.to_bits(lo, depth)))
         if p[0] == "zero":
             return ("zero", zero_i)
         return (p[0],) + tuple(conv(q) for q in p[1:])
@@ -188,8 +207,16 @@ def test_count_batch_tree_plain_matches_reference(mesh, stacks):
 def interpret_batch(batch, mats, mask_words, s):
     """Every query's count over shard ``s`` as K5 reads its batch: the
     leaf table, each query's (offset, length, mask id, chain) and postfix
-    ops whose leaf opcodes index the table, the mask bit of shard s."""
+    ops whose leaf opcodes index the table, a range leaf's record (lo, hi,
+    kind | depth << 8, planes offset) and its planes as table rows (-1 a
+    zero row), the mask bit of shard s."""
     out = []
+
+    def plane(l):
+        if l < 0:
+            return np.zeros(W, np.uint32)
+        m, r = batch.leaves[l]
+        return mats[m][r, s]
     for off, n, mid, _chain in batch.qinfo.tolist():
         if not (int(mask_words[mid, s >> 5]) >> (s & 31)) & 1:
             out.append(0)
@@ -202,6 +229,12 @@ def interpret_batch(batch, mats, mask_words, s):
                 stack.append(mats[m][r, s])
             elif op == kernels.OP_ZERO:
                 stack.append(np.zeros(W, np.uint32))
+            elif op == kernels.OP_RANGE:
+                lo, hi, kd, at = batch.ranges[code >> 8].tolist()
+                planes = np.stack([plane(l) for l in batch.planes[at: at + (kd >> 8) + 1]])
+                row = tbsi.range_rows(tbsi.RANGE_KINDS[kd & 0xFF],
+                                      torch.from_numpy(planes.view(np.int32)), lo, hi)
+                stack.append(row.numpy().view(np.uint32))
             else:
                 b, a = stack.pop(), stack.pop()
                 stack.append({kernels.OP_AND: a & b, kernels.OP_OR: a | b,
@@ -223,6 +256,145 @@ def test_compiled_batch_matches_plain(stacks):
                                           BATCH_MASK_IDS, "cpu").tolist()
     per_shard = [interpret_batch(batch, stacks, words, s) for s in range(S)]
     assert [sum(col) for col in zip(*per_shard)] == want
+
+
+# -- range leaves in the batch program ------------------------------------------
+
+DEPTH = 5
+FULL = tuple(range(DEPTH + 1))  # value planes 0..4, then the not-null plane
+GAP = (0, 1, -1, 3, 4, 5)  # a value plane the stack lacks
+NN_GONE = (0, 1, 2, 3, 4, -1)  # no not-null plane: every condition is empty
+
+
+@pytest.fixture(scope="module")
+def bsi_stack():
+    """A BSI stack uint32[DEPTH + 1, S, W] (mats[2]): random planes, shard
+    0 every plane all ones, shard 1 the sign bit only, shard 2 all zero,
+    shard 3 not-null all ones."""
+    rng = np.random.default_rng(9)
+    m = rng.integers(0, 1 << 32, (DEPTH + 1, S, W), dtype=np.uint64).astype(np.uint32)
+    m[:, 0] = 0xFFFFFFFF
+    m[:, 1] = 0x80000000
+    m[:, 2] = 0
+    m[DEPTH, 3] = 0xFFFFFFFF
+    return m
+
+
+def rg(kind, lo, hi=0, planes=FULL, slot=2):
+    return ("range", kind, slot, planes, lo, hi if kind == "between" else 0)
+
+
+RANGE_PROGS = [
+    rg("eq", 7), rg("neq", 7), rg("lt", 9), rg("lte", 9), rg("gt", 21), rg("gte", 21),
+    rg("between", 4, 26), rg("eq", 0), rg("lt", 0), rg("gte", 31), rg("between", 31, 0),
+    rg("gt", 12, planes=GAP), rg("lte", 12, planes=NN_GONE), rg("between", 2, 17, planes=GAP),
+    ("and", rg("gt", 3), rg("lt", 20)),  # two ranges over one field
+    ("or", ("row", 0, 1), rg("eq", 5)),  # a range beside rows
+    ("andnot", ("row", 1, 0), rg("neq", 2)),
+    ("xor", ("and", ("row", 0, 2), rg("gte", 8)), ("or", rg("lt", 3), ("row", 1, 3))),
+    ("and", rg("gt", 1), rg("lt", 30), rg("neq", 4), rg("between", 2, 28)),  # four
+    rg("gt", 21),  # a repeat: one range record, its planes staged once
+]
+
+
+def test_count_batch_tree_plain_with_ranges_matches_reference(mesh, stacks, bsi_stack):
+    """Range leaves of every kind, a missing value plane and a missing
+    not-null plane, two ranges over one field, ranges beside rows, in chain
+    and interpreter trees, against the reference's count_batch_tree."""
+    mats = stacks + [bsi_stack]
+    ids = [k % len(BATCH_MASKS) for k in range(len(RANGE_PROGS))]
+    want = jax_count_batch(mesh, RANGE_PROGS, ids, mats, BATCH_MASKS)
+    got = kernels.count_batch_tree(RANGE_PROGS, torch_mats(mats), BATCH_MASKS, ids, "cpu")
+    assert got.tolist() == want
+    assert any(want) and kernels.count_batch_tree_cuda.launches == 0
+    every = [0] * len(RANGE_PROGS)
+    assert (kernels.count_batch_tree(RANGE_PROGS, torch_mats(mats), BATCH_MASKS, every,
+                                     "cpu").tolist()
+            == jax_count_batch(mesh, RANGE_PROGS, every, mats, BATCH_MASKS))
+
+
+def test_compiled_batch_with_ranges_matches_plain(stacks, bsi_stack):
+    """The range leaves as K5 reads them: one record per distinct
+    condition, its planes as leaf-table rows shared with every query and
+    with the row leaves (a missing plane -1), evaluated from the table."""
+    mats = stacks + [bsi_stack]
+    progs = RANGE_PROGS + [("or", ("row", 2, 3), rg("gt", 21))]  # a plane as a row leaf
+    ids = [k % len(BATCH_MASKS) for k in range(len(progs))]
+    batch = kernels.compile_batch(progs, ids)
+    # The 6 planes (one of them also a row leaf) and 4 rows of the two
+    # stacks, each once.
+    assert len(batch.leaves) == len(set(batch.leaves)) == 10
+    assert batch.ranges.shape[0] == len({p for t in RANGE_PROGS for p in kernels.compile_prog(
+        t).ranges})
+    kd = batch.ranges[:, 2]
+    assert set((kd >> 8).tolist()) == {DEPTH}
+    assert (batch.planes == -1).sum() == 3  # GAP twice, NN_GONE once
+    words = kernels.mask_bits(BATCH_MASKS)
+    want = kernels.count_batch_tree_plain(progs, torch_mats(mats), BATCH_MASKS, ids,
+                                          "cpu").tolist()
+    per_shard = [interpret_batch(batch, mats, words, s) for s in range(S)]
+    assert [sum(col) for col in zip(*per_shard)] == want
+
+
+def test_batch_of_ranges_reads_planes_once():
+    """Eight conditions on one field put its planes in the table once; the
+    groups count planes as rows."""
+    progs = [rg("gt", x) for x in range(0, 32, 4)]
+    batch = kernels.compile_batch(progs, [0] * 8)
+    assert batch.leaves == [(2, p) for p in FULL] and batch.ranges.shape[0] == 8
+    assert kernels.batch_groups(progs) == [(0, 8)]
+    deep = tuple(range(64))
+    wide = [rg("gt", 5, planes=deep, slot=k) for k in range(3)]
+    assert len(kernels.compile_batch(wide, [0, 0, 0]).leaves) == 192
+
+
+def test_batch_past_the_stage_with_ranges():
+    """Three depth-63 ranges over three stacks (192 plane rows, past the
+    128-row stage: the kernel's direct path) beside row leaves: the plain
+    answers equal each query's own count, and the table holds every plane
+    once."""
+    rng = np.random.default_rng(4)
+    deep = tuple(range(64))
+    mats = [torch.from_numpy(rng.integers(0, 1 << 32, (64, 2, W), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)) for _ in range(3)]
+    progs = [rg(k, (1 << 62) + 12345 * i, 1 << 61, planes=deep, slot=i % 3)
+             for i, k in enumerate(tbsi.RANGE_KINDS)]
+    progs += [("and", progs[0], progs[1]), ("or", ("row", 0, 70 - 64), progs[5])]
+    masks = np.array([[1, 1], [0, 1]], dtype=bool)
+    ids = [k % 2 for k in range(len(progs))]
+    batch = kernels.compile_batch(progs, ids)
+    assert len(batch.leaves) == 192
+    got = kernels.count_batch_tree(progs, mats, masks, ids, "cpu").tolist()
+    dev_masks = torch.from_numpy(masks.astype(np.int32))
+    assert got == [int(kernels.count_tree_plain(p, mats, dev_masks[i]))
+                   for p, i in zip(progs, ids)]
+    assert kernels.fits(progs[-1])
+    five = ("or",) + tuple(rg("gt", k) for k in range(5))
+    assert not kernels.fits(five)
+    with pytest.raises(ValueError, match="range leaves"):
+        kernels.compile_batch([five], [0])
+
+
+def test_count_batch_pool_with_ranges_matches_reference(mesh):
+    """K5P's plain version with pool rows beside range leaves (a range leaf
+    is live in every block), against the reference's count_batch_tree."""
+    from test_torch_pool_count import make_case, mats_of
+
+    pool, table, dense, bsi = make_case(13, S, 9)
+    full = (0, 1, 2, 3)
+    rb = lambda r: ("rowb", 1, 2, r)  # noqa: E731
+    progs = [("and", rb(0), ("range", "gt", 3, full, 3, 0)),
+             ("or", rb(2), ("range", "between", 3, full, 1, 5)),
+             ("andnot", ("range", "lte", 3, (0, -1, 2, 3), 4, 0), rb(3)),
+             ("xor", rb(4), ("row", 0, 1), ("range", "neq", 3, full, 2, 0)),
+             ("and", rb(1), ("range", "gt", 3, full, 3, 0))]
+    mats = mats_of(pool, table, dense, bsi)
+    ids = [k % len(BATCH_MASKS) for k in range(len(progs))]
+    got = kernels.count_batch_tree(progs, mats, BATCH_MASKS, ids, "cpu")
+    want = jax_count_batch(mesh, progs, ids, [dense, pool, None, bsi], BATCH_MASKS,
+                           table=table)
+    assert got.tolist() == want
+    assert torch.equal(got, kernels.count_batch_tree_plain(progs, mats, BATCH_MASKS, ids, "cpu"))
 
 
 def test_mask_bits_past_one_word():

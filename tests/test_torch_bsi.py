@@ -243,22 +243,43 @@ def test_tree_past_the_limits_takes_the_host_lane(execs):
     assert out["port"] == out["jfused"] and port.host_fallbacks == before + 1
 
 
-def test_count_batch_sends_range_trees_to_k1(execs, twins):
-    """K5 takes no range leaf: in a run of consecutive Counts, the trees
-    with one run on K1/K2 and the rest as one batch, and the answers are
-    the reference's, also through execute_async (the batcher)."""
+def test_batch_declines_count_every_count_of_the_batch(execs):
+    """A batch of Counts with one tree past the kernels' limits goes to the
+    host lane whole: batch_declines rises by every Count of that batch, and
+    the answers are the reference's."""
     port = execs["port"]
     eng = port.engine
-    q = ("Count(Range(v > 100)) Count(Intersect(Row(g=1), Row(g=2))) Count(Range(n < 0)) "
-         "Count(Union(Row(g=1), Range(v == 5))) Count(Difference(Row(g=2), Row(g=1)))")
+    five = "Union(Range(v > 10), Range(v < 3), Range(n > 0), Range(sp == 2), Range(c > 9))"
+    q = f"Count(Intersect(Row(g=1), Row(g=2))) Count({five}) Count(Range(v > 100))"
     d0, b0 = eng.batch_declines, eng.batch_dispatches
     with_memo = eng.result_memo.maxsize
     eng.result_memo.maxsize = 0
     try:
         out = answers(execs, q)
         assert out["port"] == out["jfused"]
-        assert eng.batch_declines == d0 + 3
-        assert eng.batch_dispatches == b0 + 1
+        assert eng.batch_declines == d0 + 3 and eng.batch_dispatches == b0
+    finally:
+        eng.result_memo.maxsize = with_memo
+
+
+def test_count_batch_takes_range_trees_in_k5(execs, twins):
+    """K5 takes range leaves: a run of consecutive Counts, three of them
+    with range leaves (two over one field, one over two fields' planes),
+    is one batch with no decline, and the answers are the reference's,
+    also through execute_async (the batcher)."""
+    port = execs["port"]
+    eng = port.engine
+    q = ("Count(Range(v > 100)) Count(Intersect(Row(g=1), Row(g=2))) Count(Range(n < 0)) "
+         "Count(Union(Row(g=1), Range(v == 5))) Count(Difference(Row(g=2), Row(g=1))) "
+         "Count(Intersect(Range(v >< [10, 200]), Range(sp < 9)))")
+    d0, b0, k0 = eng.batch_declines, eng.batch_dispatches, eng.dense_dispatches
+    with_memo = eng.result_memo.maxsize
+    eng.result_memo.maxsize = 0
+    try:
+        out = answers(execs, q)
+        assert out["port"] == out["jfused"]
+        assert eng.batch_declines == d0
+        assert eng.batch_dispatches == b0 + 1 and eng.dense_dispatches == k0
         fut = port.execute_async("i", q)
         assert [norm(r) for r in fut.result(60).results] == out["jfused"]
         assert port.async_fallbacks == 0
@@ -369,8 +390,11 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     with pytest.raises(ValueError, match="range leaves"):
         kernels.check_prog(kernels.compile_prog(("or",) + (leaf,) * 2 + tuple(
             ("range", "lt", 0, planes, k, 0) for k in range(4))))
-    with pytest.raises(ValueError, match="K5 takes no range leaves"):
-        kernels.compile_batch([leaf], [0])
+    # K5 takes the range leaf: its planes are leaf-table rows.
+    batch = kernels.compile_batch([leaf, ("and", leaf, ("row", 0, depth + 1))], [0, 0])
+    assert batch.ranges.shape[0] == 1 and len(batch.leaves) == depth + 2
+    assert kernels.count_batch_tree([leaf], [st], np.array([[1, 0]], bool), [0],
+                                    "cpu").tolist() == [int(want)]
 
 
 def test_decoders_match_the_reference():

@@ -773,3 +773,53 @@ def test_executor_aggregates_sequential(twins):
     for q in DASH_QUERIES + ["TopN(w, n=2)", "Max(field=v)"]:
         assert norm(ex.execute("i", q).results) == norm(jex.execute("i", q).results), q
     assert ex.engine.fused_programs == 0
+
+
+# -- the engine's cache tallies against the reference's ------------------------
+
+TALLY_QUERIES = [
+    "Count(Intersect(Row(seg=0), Row(w=1)))",
+    "Count(Intersect(Row(seg=0), Row(w=1)))",
+    "Count(Row(w=1)) Count(Union(Row(w=2), Row(g=1))) Count(Union(Row(w=2), Row(g=1)))",
+    "Sum(field=v)", "Sum(field=v)", "Min(field=v)", "Min(field=v)", "Max(field=v)",
+    "Max(Row(w=2), field=v)", "Max(Row(w=2), field=v)",
+    "TopN(w, n=3)", "TopN(w, n=3)",
+    "GroupBy(Rows(field=g), Rows(field=w))", "GroupBy(Rows(field=g), Rows(field=w))",
+]
+# The tallies the reference's executor and engine keep the same way; the
+# stack, mask and canonical caches count the port's own lookups (its
+# lowering differs), and scalar and zeros are XLA operand caches the port
+# does not have.
+SHARED_TALLIES = ("result_memo", "batch_cse", "fused_plan", "memo_sum", "memo_min",
+                  "memo_max", "memo_topn", "memo_groupby")
+
+
+def test_cache_tallies_match_the_reference(twins):
+    """One fixed sequence (repeated Counts, a multi-Count query with a
+    duplicate, Sum/Min/Max repeated, a cache-only TopN and a GroupBy
+    twice, one dashboard drain twice) through both executors and engines:
+    ``cache_snapshot()["caches"]`` has the reference's names, and the
+    memo, batch-CSE and fused-plan tallies equal the reference's."""
+    from pilosa_tpu.util.stats import ENGINE_CACHES as J_CACHES
+    from pilosa_tpu_torch.util.stats import ENGINE_CACHES as T_CACHES
+
+    jh, th = twins
+    jeng, teng = MeshEngine(jh, make_mesh(8)), TorchEngine(th, device="cpu")
+    jex, tex = JExecutor(jh, mesh_engine=jeng), Executor(th, engine=teng)
+    try:
+        for text in TALLY_QUERIES:
+            want = jex.execute("i", text).results
+            got = tex.execute("i", text).results
+            assert len(got) == len(want), text
+        for _ in range(2):
+            jeng.fused_many("i", _widgets(jp, 4))
+            teng.fused_many("i", _widgets(tp, 4))
+        got, want = teng.cache_snapshot()["caches"], jeng.cache_snapshot()["caches"]
+        assert T_CACHES == J_CACHES and list(got) == list(want)
+        assert {k: got[k] for k in SHARED_TALLIES} == {k: want[k] for k in SHARED_TALLIES}
+        assert got["fused_plan"] == {"hits": 1, "misses": 1}
+        assert got["batch_cse"]["hits"] >= 1 and got["memo_sum"] == {"hits": 1, "misses": 1}
+        assert got["scalar"] == got["zeros"] == {"hits": 0, "misses": 0}
+        assert got["stack"]["hits"] > 0 and got["canonical"]["hits"] > 0
+    finally:
+        teng.close()

@@ -401,6 +401,231 @@ def test_concurrent_counts_through_the_reactor(pair):
     assert not errors, errors[:3]
 
 
+# -- /recalculate-caches and /debug/pprof* -------------------------------------
+
+def test_recalculate_caches_matches_the_reference(pair):
+    """After writes that change a ranked cache's order, TopN serves the
+    debounced ranking on both nodes; POST /recalculate-caches re-ranks
+    every fragment's cache, and TopN then answers as the reference's does,
+    with the new order."""
+    same(pair, "POST", "/index/r", "")
+    same(pair, "POST", "/index/r/field/f", "")
+    rows = [r for r in range(6) for _ in range(10 * (r + 1))]
+    cols = [SW * (k % 3) + k for k in range(len(rows))]
+    same(pair, "POST", "/index/r/field/f/import",
+         json.dumps({"rowIDs": rows, "columnIDs": cols}))
+    before = q(pair, "r", "TopN(f, n=3)")
+    # Row 0 overtakes every other row: 70 more bits.
+    sets = " ".join(f"Set({5000 + k}, f=0)" for k in range(70))
+    q(pair, "r", sets)
+    assert same(pair, "POST", "/recalculate-caches", "") == {}
+    after = q(pair, "r", "TopN(f, n=3)")
+    assert after != before and after["results"][0][0] == {"id": 0, "count": 80}
+
+
+def test_api_recalculate_caches_matches_the_reference():
+    """``API.recalculate_caches`` re-ranks the caches as the reference's
+    does: TopN equal after a cache-changing write."""
+    ja, ta = japi.API(), tapi.API(device="cpu")
+    try:
+        for a in (ja, ta):
+            a.create_index("r").create_field("f")
+            a.import_bits(japi.ImportRequest("r", "f", row_ids=[1] * 30 + [2] * 20,
+                                             column_ids=list(range(50)))
+                          if a is ja else tapi.ImportRequest(
+                              "r", "f", row_ids=[1] * 30 + [2] * 20, column_ids=list(range(50))))
+        ask = lambda a, text: a.query(  # noqa: E731
+            (japi if a is ja else tapi).QueryRequest("r", text)).results
+        assert ask(ta, "TopN(f, n=2)") == ask(ja, "TopN(f, n=2)")
+        for a in (ja, ta):
+            ask(a, " ".join(f"Set({100 + k}, f=2)" for k in range(25)))
+            assert a.recalculate_caches() is None
+        got = [tuple(p) for p in ask(ta, "TopN(f, n=2)")[0]]
+        assert got == [tuple(p) for p in ask(ja, "TopN(f, n=2)")[0]] == [(2, 45), (1, 30)]
+    finally:
+        ja.holder.close()
+        ta.close()
+
+
+@pytest.mark.parametrize("route", ["/debug/pprof", "/debug/pprof/goroutine"])
+def test_debug_pprof_thread_dump(pair, route):
+    """/debug/pprof and /debug/pprof/goroutine: a stack dump of every
+    thread, the serving thread among them, in the reference's shape."""
+    jport, tport = pair[:2]
+    want, got = send(jport, "GET", route), send(tport, "GET", route)
+    assert got[0] == want[0] == 200 and got[1] == want[1] == "application/json"
+    jdoc, tdoc = json.loads(want[2]), json.loads(got[2])
+    assert set(tdoc) == set(jdoc) == {"threads", "count"}
+    assert tdoc["count"] == len(tdoc["threads"]) >= 1
+    assert all(isinstance(v, list) and v for v in tdoc["threads"].values())
+    assert any("_debug_pprof" in "".join(v) for v in tdoc["threads"].values())
+
+
+def test_debug_pprof_profile_and_heap(pair):
+    """/debug/pprof/profile samples every thread into folded stacks (a
+    busy thread shows up); /debug/pprof/heap arms tracemalloc, snapshots
+    the top allocation sites, and ?reset=true stops it: the reference's
+    fields on both nodes."""
+    import tracemalloc
+
+    jport, tport = pair[:2]
+    stop = threading.Event()
+
+    def spin():  # a busy thread the profiler must catch
+        while not stop.is_set():
+            sum(range(1000))
+
+    t = threading.Thread(target=spin, daemon=True, name="busy-worker")
+    t.start()
+    try:
+        docs = [json.loads(send(p, "GET", "/debug/pprof/profile?seconds=0.3&hz=200")[2])
+                for p in (jport, tport)]
+    finally:
+        stop.set()
+        t.join(10)
+    jdoc, tdoc = docs
+    assert set(tdoc) == set(jdoc)
+    assert tdoc["samples"] > 10 and tdoc["seconds"] == 0.3 and tdoc["hz"] == 200
+    assert any("spin" in line for line in tdoc["folded"])
+    assert any("spin" in e["func"] for e in tdoc["top"])
+    was = tracemalloc.is_tracing()
+    try:
+        for port in (jport, tport):
+            send(port, "GET", "/debug/pprof/heap?reset=true")
+            armed = json.loads(send(port, "GET", "/debug/pprof/heap")[2])
+            assert armed["tracing"] is True and "note" in armed
+            snap = json.loads(send(port, "GET", "/debug/pprof/heap")[2])
+            assert set(snap) == {"tracing", "tracedBytes", "peakBytes", "top"}
+            assert snap["peakBytes"] >= snap["tracedBytes"] > 0 and snap["top"]
+            assert json.loads(send(port, "GET", "/debug/pprof/heap?reset=true")[2]) == {
+                "tracing": False}
+    finally:
+        if was and not tracemalloc.is_tracing():
+            tracemalloc.start(25)
+
+
+def test_pprof_profile_serialized_and_capped():
+    """Two profiles at once run one after the other (their windows never
+    overlap); a third that cannot start within PPROF_WAIT_SECONDS gets a
+    429; past PPROF_MAX_STACKS distinct stacks, samples aggregate under
+    the overflow key (after tests/test_plans.py's reference test)."""
+    from pilosa_tpu_torch.net.server import Handler
+
+    a = tapi.API(device="cpu")
+    handler = Handler(a)
+    results = []
+
+    def run(seconds="0.2"):
+        results.append(handler._debug_pprof_profile({"seconds": [seconds], "hz": ["200"]}, b""))
+
+    try:
+        threads = [threading.Thread(target=run) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        first, second = sorted(results, key=lambda r: r["startedMonotonic"])
+        assert second["startedMonotonic"] >= first["endedMonotonic"]
+        assert all(r["samples"] > 0 and r["distinctStacks"] <= r["maxStacks"] for r in results)
+        old_cap, old_wait = Handler.PPROF_MAX_STACKS, Handler.PPROF_WAIT_SECONDS
+        try:
+            Handler.PPROF_MAX_STACKS = 1
+            stop = threading.Event()
+
+            def spin_a():
+                while not stop.is_set():
+                    sum(range(500))
+
+            def spin_b():
+                while not stop.is_set():
+                    sum(range(600))
+
+            busy = [threading.Thread(target=f, daemon=True) for f in (spin_a, spin_b)]
+            for t in busy:
+                t.start()
+            try:
+                doc = handler._debug_pprof_profile({"seconds": ["0.2"], "hz": ["200"]}, b"")
+            finally:
+                stop.set()
+                for t in busy:
+                    t.join(10)
+            assert doc["distinctStacks"] == 2 and doc["truncatedSamples"] > 0
+            assert any(line.startswith("<overflow> ") for line in doc["folded"])
+            Handler.PPROF_WAIT_SECONDS = 0.05
+            with Handler._pprof_profile_lock:
+                status, ctype, body = handler._debug_pprof_profile({"seconds": ["0.1"]}, b"")
+            assert status == 429 and ctype == "application/json"
+            assert json.loads(body)["retryAfterSeconds"] == 0.05
+        finally:
+            Handler.PPROF_MAX_STACKS, Handler.PPROF_WAIT_SECONDS = old_cap, old_wait
+    finally:
+        a.close()
+
+
+def test_pprof_trace_captures_a_chrome_trace(pair, tmp_path):
+    """POST /debug/pprof/trace: a torch.profiler capture of the CPU
+    activity (on the CPU node), written as a Chrome trace whose path the
+    answer names, the Counts served meanwhile in it; ?seconds is capped at
+    10; a capture while one runs is refused as the reference refuses it."""
+    from pilosa_tpu.net.server import Handler as JHandler
+    from pilosa_tpu_torch.net.server import Handler as THandler
+
+    jport, tport, ta = pair
+    same(pair, "POST", "/index/i", "")
+    same(pair, "POST", "/index/i/field/f", "")
+    same(pair, "POST", "/index/i/field/f/import",
+         json.dumps({"rowIDs": [1, 1, 2], "columnIDs": [1, 2, SW + 2]}))
+    ta.engine.result_memo.maxsize = 0  # every Count computes
+    stop = threading.Event()
+
+    def counts():
+        while not stop.is_set():
+            send(tport, "POST", "/index/i/query", b"Count(Intersect(Row(f=1), Row(f=2)))")
+
+    t = threading.Thread(target=counts, daemon=True)
+    t.start()
+    try:
+        status, ctype, body = send(tport, "POST", f"/debug/pprof/trace?seconds=0.5&dir={tmp_path}")
+    finally:
+        stop.set()
+        t.join(30)
+    assert status == 200 and ctype == "application/json"
+    doc = json.loads(body)
+    assert doc["traceDir"] == str(tmp_path) and doc["seconds"] == 0.5
+    with open(doc["traceFile"]) as f:
+        trace = json.load(f)
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert "aten::bitwise_and" in names  # the Counts' plain evaluation, on serving threads
+    # A capture already running: both nodes refuse the second alike.
+    with JHandler._pprof_trace_lock, THandler._pprof_trace_lock:
+        same(pair, "POST", "/debug/pprof/trace?seconds=0.1", status=400)
+
+
+def test_debug_vars_carries_engine_caches(pair):
+    """/debug/vars' engineCaches carries the per-cache tallies under the
+    reference's names and the sparse path's skipped bytes, after
+    tests/test_sparsity.py's test of the reference."""
+    from pilosa_tpu.util.stats import ENGINE_CACHES as J_CACHES
+
+    tport = pair[1]
+    send(tport, "POST", "/index/i", b"")
+    send(tport, "POST", "/index/i/field/f", b"")
+    send(tport, "POST", "/index/i/field/f/import",
+         json.dumps({"rowIDs": [10, 10], "columnIDs": [1, 5]}).encode())
+    send(tport, "POST", "/index/i/query", b"Count(Intersect(Row(f=10), Row(f=10)))")
+    doc = json.loads(send(tport, "GET", "/debug/vars")[2])
+    caches = doc["engineCaches"]["caches"]
+    assert list(caches) == list(J_CACHES)
+    assert caches["canonical"]["misses"] >= 1 and caches["result_memo"]["misses"] >= 1
+    assert "deviceBytesSkipped" in doc["engineCaches"]
+    assert "sparseDispatches" in doc["engineCaches"]
+    text = send(tport, "GET", "/metrics")[2].decode()
+    for series in ('pilosa_engine_cache_hits_total{cache="stack"}',
+                   'pilosa_engine_cache_misses_total{cache="result_memo"}',
+                   "pilosa_device_bytes_skipped_total"):
+        assert series in text, series
+
+
 @pytest.mark.parametrize("method,pattern,item", _UNPORTED_ROUTES)
 def test_unported_routes_answer_501(method, pattern, item):
     """Each route of a module this port leaves out answers 501 with an

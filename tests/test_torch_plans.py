@@ -215,6 +215,34 @@ def test_consecutive_counts_one_batch(apis):
     assert plan["ops"][1]["tier"] == 8 and plan["ops"][1]["cse_unique"] == 2
 
 
+@pytest.mark.parametrize("q", ["Count(Range(v > 10))",
+                               "Count(Intersect(Row(f=1), Range(v >< [5, 50])))"])
+def test_range_count_operand_bytes_match(apis, q):
+    """A lone Count with a range leaf: its predicate bits (uint32[depth],
+    two for BETWEEN) among the operand bytes, as the reference's (the
+    plans counted its planes before).  The rest of the op differs by
+    design: the port's sparse planner reads a range leaf's occupancy (K2
+    evaluates range leaves), the reference's sends it dense unplanned."""
+    want, got = both_plans(apis, q)
+    assert [o["bytes_touched"] for o in got["ops"]] == [o["bytes_touched"] for o in want["ops"]]
+    assert got["bytesTouched"] == want["bytesTouched"]
+
+
+@pytest.mark.parametrize("q", [
+    "Count(Range(v > 10)) Count(Range(v < 40)) Count(Intersect(Row(f=1), Range(v >< [5, 50])))",
+    "Count(Intersect(Row(f=0), Row(f=3))) Count(Union(Row(g=1), Range(v == 7)))"
+    " Count(Union(Row(g=1), Range(v == 7)))",
+])
+def test_batch_with_range_leaves_plan_matches(apis, q):
+    """A batch of Counts with range leaves is one K5 launch (no Count on
+    K1 beside it), and its plan record, the range planes among its
+    operand bytes, equals the reference's padded batch program's."""
+    plan = assert_same(apis, q)
+    ops = [o for o in plan["ops"] if o["path"] != "fast_cardinality"]
+    assert {o["path"] for o in ops} == {"dense_batch"} and len(ops) == 3
+    assert ops[0]["bytes_touched"] > 0 and ops[0]["tier"] == 8
+
+
 @pytest.mark.parametrize("q", [
     "TopN(f, Row(g=1), n=2)",
     "TopN(f, n=3)",

@@ -296,14 +296,15 @@ def test_fused_pool_drain_matches_reference(mesh1, kind):  # noqa: F811
 # -- (c) K5P's plain version ---------------------------------------------------
 
 def batch_trees(rng, n_rows, K):
-    """K trees of pool and stack rows (no range leaf: K5 takes none),
-    each with a pool leaf, a dead one and a full one among them."""
+    """K trees of pool and stack rows (range leaves among them since K5
+    takes them), each with a pool leaf, a dead one and a full one among
+    them."""
     from test_torch_pool_count import pooled_tree
 
     out = [("and", rb(1), rb(0)), ("or", rb(2), ("row", 0, 1))]
     while len(out) < K:
         t = pooled_tree(rng, n_rows)
-        if kernels.batchable(t) and kernels.fits(t):
+        if kernels.fits(t):
             out.append(t)
     return out[:K]
 
@@ -328,8 +329,11 @@ def test_count_batch_pool_plain_matches_plain(S, P_slots, K):
 def jax_count_batch(mesh, progs, mask_ids, case, masks):
     """The reference count_batch_tree over the case's operands: stack rows
     as (operand, scalar operand), pool rows as ("rowb", pool operand, slot
-    vector operand), zero leaves a zero stack."""
-    pool, table, dense, _ = case
+    vector operand), range leaves over the BSI stack as (operand, plane
+    gather, predicate bits), zero leaves a zero stack."""
+    from pilosa_tpu.ops import bsi as jbsi
+
+    pool, table, dense, bsi = case
     S = dense.shape[1]
     ops, specs = [], []
 
@@ -340,6 +344,7 @@ def jax_count_batch(mesh, progs, mask_ids, case, masks):
 
     i_dense, i_pool = add(dense, P(None, SHARD_AXIS)), add(pool, P(None, SHARD_AXIS))
     i_zero = add(np.zeros((1, S, W), np.uint32), P(None, SHARD_AXIS))
+    i_bsi = add(bsi, P(None, SHARD_AXIS))
     i_mask = [add(np.where(m[:, None], 0xFFFFFFFF, 0).astype(np.uint32), P(SHARD_AXIS))
               for m in masks]
 
@@ -348,6 +353,12 @@ def jax_count_batch(mesh, progs, mask_ids, case, masks):
             return ("row", i_dense, add(np.int32(p[2]), P()))
         if p[0] == "rowb":
             return ("rowb", i_pool, add(table[p[3]], P()))
+        if p[0] == "range":
+            _, kind, _, planes, lo, hi = p
+            bits = lambda v: add(jbsi.to_bits(v, len(planes) - 1), P())  # noqa: E731
+            if kind == "between":
+                return ("between", i_bsi, ("gather", tuple(planes)), bits(lo), bits(hi))
+            return ("range", kind, i_bsi, ("gather", tuple(planes)), bits(lo))
         if p[0] == "zero":
             return ("zero", i_zero)
         return (p[0],) + tuple(conv(q) for q in p[1:])

@@ -255,6 +255,28 @@ def test_observability_routes_through_the_workers(nodes):
     assert adv == ADVISOR.to_doc() and adv["outstanding"] is not None
 
 
+@pytest.mark.parametrize("method,path", [
+    ("GET", "/debug/pprof"), ("GET", "/debug/pprof/goroutine"),
+    ("GET", "/debug/pprof/profile?seconds=0.1&hz=100"), ("GET", "/debug/pprof/heap?reset=true"),
+    ("POST", "/debug/pprof/trace?seconds=0.1"), ("POST", "/recalculate-caches"),
+])
+def test_pprof_and_recalculate_routes_through_the_workers(nodes, method, path):
+    """The routes this node ports from item 14 pass through a worker to
+    the device owner, as the reference's: every acceptor answers 200 with
+    the owner's document (its threads, its trace file)."""
+    _, _, _, ts, ports, _ = nodes
+    got = [send(ports[1], method, path) for _ in range(6)]
+    assert {g[0] for g in got} == {200}, got[0]
+    docs = [json.loads(g[2]) for g in got]
+    if path == "/debug/pprof":
+        # The owner's threads: its process pool runs the passthrough.
+        assert all(d["count"] >= 1 for d in docs)
+    if path.startswith("/debug/pprof/trace"):
+        assert all(os.path.exists(d["traceFile"]) for d in docs)
+    if path == "/recalculate-caches":
+        assert docs == [{}] * 6
+
+
 def test_admission_is_global_across_workers(nodes):
     _, _, _, ts, ports, adm = nodes
     tplans.LEDGER.reset()

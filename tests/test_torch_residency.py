@@ -791,7 +791,7 @@ def test_count_batch_plain_over_pool_leaves_matches_reference():
     pool, table, dense = _pool_case(6)
     masks = np.array([[1, 1, 1], [0, 1, 0]], dtype=bool)
     mask_ids = [i % 2 for i in range(len(TREES))]
-    assert all(kernels.batchable(t) for t in TREES)
+    assert all(kernels.fits(t) for t in TREES)
     got = kernels.count_batch_tree(TREES, _mats(dense, pool, table), masks, mask_ids, "cpu")
     for k, tree in enumerate(TREES):
         ref = _ref_eval(tree, dense, pool, table)[masks[mask_ids[k]]]
