@@ -57,8 +57,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    blocks, rows all zero, slots shared by two rows, a pool of one slot,
    pool leaves alone and beside stack rows and range leaves, mref chains,
    trees and slots whose live word is 0 and whose live word is full, 12
-   and 37 shards, two streams.  Integer results, so they must agree
-   exactly.  --check-only stops here.
+   and 37 shards, two streams; K5 with range leaves (check_batch_ranges:
+   every kind at depths 1 to 63, 1, 8, 12 and 16 conditions on one field,
+   two fields, the staged tiles and the direct path); K7P alone
+   (check_minmax_pool: Min and Max at depths 1, 8 and 63, live words of
+   0, 1 and 64 blocks, empty and unrequested shards, ties across shards).
+   Integer results, so they must agree exactly.  --check-only stops here.
    native — host only: each path of pilosa_tpu_torch/native (ingest
    through Field.import_bulk, a fragment's load, codec.serialize) timed
    against its numpy twin in turns, their results equal (run_native_ab).
@@ -372,7 +376,14 @@ N_SHARDS = 960  # 960 * 2^20 = ~1.007B columns (bench.py:66)
 W64 = 16384  # uint64 words per 2^20-bit shard row
 F_ROWS = range(10, 34)  # 24 rows -> 12 disjoint pairs (bench.py:66-75)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 table entry)
+# 32-bit integer add and bitwise operations run at 64 a clock an SM, and
+# population count at 16 (the CUDA C Programming Guide's arithmetic
+# throughput table, compute capability 9.0): at an H100 SXM's 132 SMs and
+# 1.98 GHz maximum SM clock, 1.67e13 and 4.18e12 a second.  card_rates()
+# puts the card's own SM count and maximum clock in their place.
+INT_OPS_PER_SM_CLOCK, POPC_PER_SM_CLOCK = 64, 16
+INT_OPS_PER_S = INT_OPS_PER_SM_CLOCK * 132 * 1.98e9
+POPC_PER_S = POPC_PER_SM_CLOCK * 132 * 1.98e9
 BLOCKS_PER_ROW = 4  # occupied blocks of each sparse row, per shard
 BLOCK_POOL = 8  # per shard, the sparse rows draw their blocks from 8
 TOP_ROWS = range(16)  # field top: 16 TopN candidate rows (bench.py:70,434-438)
@@ -400,6 +411,38 @@ def p50_ms(fn, reps, sync, batch=10):
         sync()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def card_rates():
+    """Set INT_OPS_PER_S and POPC_PER_S from the card's SM count and its
+    maximum SM clock (nvidia-smi clocks.max.sm); returns the two rates."""
+    import torch
+
+    global INT_OPS_PER_S, POPC_PER_S
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                             timeout=30, check=True)
+        hz = float(res.stdout.split()[0]) * 1e6
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        hz = 1.98e9
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_OPS_PER_S = INT_OPS_PER_SM_CLOCK * sms * hz
+    POPC_PER_S = POPC_PER_SM_CLOCK * sms * hz
+    return INT_OPS_PER_S, POPC_PER_S
+
+
+def op_seconds(ops):
+    """The least time of ``ops``: a count of 32-bit integer operations, or
+    (integer operations, population counts), each at its own rate."""
+    n_int, n_popc = ops if isinstance(ops, tuple) else (ops, 0)
+    return max(n_int / INT_OPS_PER_S, n_popc / POPC_PER_S)
+
+
+def least_ms(byts, ops):
+    """A kernel's bound: the larger of its bytes over the memory rate and
+    its operations over the card's rates (op_seconds), in ms."""
+    return max(byts / HBM_BYTES_PER_S, op_seconds(ops)) * 1e3
 
 
 def on_card(fn, expect=None, windows=3):
@@ -1188,11 +1231,13 @@ def check_batch_ranges(device, seed):
     1, 8, 31 and 63, every kind and BETWEEN at drawn and extreme
     predicates, a missing value plane and a missing not-null plane, two
     ranges over one field, ranges beside rows, chain and interpreter
-    trees, the same condition in several queries (its planes staged
-    once), four range leaves in one tree, masks of every shard, none, one
-    and a ragged set; leaf tables of 128 rows (two depth-63 ranges, the
-    stage's last tile width) and of 192 (three, past the stage: the
-    direct path).  Returns max |err|."""
+    trees, the same condition in several queries (walked once), four
+    range leaves in one tree, masks of every shard, none, one and a
+    ragged set; two and three depth-63 fields (128 and 192 plane rows)
+    alone, beside 40 rows read as rows (the narrowest staged tile) and
+    beside 65 (past the stage: the direct path); 1, 8, 12 and 16
+    conditions on one depth-8 field (one group), strict kinds at their
+    edges among them; two fields in one batch.  Returns max |err|."""
     import torch
 
     from pilosa_tpu_torch.parallel import kernels
@@ -1236,8 +1281,11 @@ def check_batch_ranges(device, seed):
         same(progs, mats, masks, f"depth {depth}, {len(progs)} queries")
         same(progs[::9] * 3, mats, masks, f"depth {depth}, repeats")
         del st
-    # 128 table rows (two depth-63 ranges: staged, 32 positions a tile) and
-    # 192 (three: the direct path), each range in several queries.
+    # Two and three depth-63 fields (128 and 192 plane rows in the table;
+    # the grouped pass reads planes from device memory, so both stage only
+    # their range rows), each range in several queries; then 65 and 40 rows
+    # read as rows beside them: past the 128-row stage (the direct path)
+    # and the stage's narrowest tiles (32 positions, U = 1).
     sts = [_bsi_stack(rng, 63, S, device, extra=0) for _ in range(3)]
     full = tuple(range(64))
     for n_st in (2, 3):
@@ -1245,9 +1293,44 @@ def check_batch_ranges(device, seed):
                              int(rng.integers(0, 1 << 62)), slot=k % n_st) for k in range(12)]
         progs += [("and", progs[k], progs[k + 1]) for k in range(0, 10, 3)]
         batch = kernels.compile_batch(progs, [0] * len(progs))
-        assert len(batch.leaves) == 64 * n_st, len(batch.leaves)
+        assert len(batch.leaves) == 64 * n_st and kernels.batch_tile(batch) == 256, \
+            (len(batch.leaves), kernels.batch_tile(batch))
         same(progs, sts, masks, f"{64 * n_st} plane rows")
+        for n_rows, tile in ((65, 0), (40, 32)):
+            rows = [("or",) + tuple(("row", 2 - r // 64, r % 64)
+                                    for r in range(q, min(q + 20, n_rows)))
+                    for q in range(0, n_rows, 20)]
+            wide = progs + [("and", progs[k % 12], rows[k]) for k in range(len(rows))]
+            assert kernels.batch_tile(kernels.compile_batch(wide, [0] * len(wide))) == tile
+            same(wide, sts, masks, f"{64 * n_st} plane rows, {n_rows} rows read as rows "
+                 f"({'direct' if not tile else f'tile {tile}'})")
     del sts
+    # Conditions on one depth-8 field like the bsi phase's v: 1, 8, 12 and
+    # 16 in a batch (one group, walked once a position), with NEQ, BETWEEN
+    # and the strict kinds at their edges (1 and 255, empty walks) among
+    # them; then two fields (v and a depth-16 one) in one batch, a plane
+    # read as a row, a missing plane.
+    v = _bsi_stack(rng, 8, S, device)
+    w = _bsi_stack(rng, 16, S, device)
+    fv, fw = tuple(range(9)), tuple(-1 if i == 5 else i for i in range(17))
+    edge = [("gt", 255, 0), ("lt", 1, 0), ("gt", 254, 0), ("lt", 0, 0), ("neq", 0, 0),
+            ("between", 7, 3)]
+    for n_cond in (1, 8, 12, 16):
+        conds = [(_BSI_KINDS[k % 7], int(x), int(x) + 60)
+                 for k, x in enumerate(rng.integers(0, 256, n_cond))]
+        conds[:len(edge)] = edge[:n_cond]
+        progs = [_range_leaf(k, fv, lo, hi) for k, lo, hi in conds]
+        batch = kernels.compile_batch(progs, [0] * len(progs))
+        assert batch.groups.tolist() == [[0, n_cond, 8, 0]] and batch.n_rows == 0
+        same(progs + [("and", progs[0], ("row", 0, 9))], [v], masks, f"{n_cond} conditions on v")
+    progs = [_range_leaf("gt", fv, 100, 0), _range_leaf("between", fw, 300, 40000, slot=1),
+             ("or", ("row", 0, 4), _range_leaf("lte", fv, 77, 0)),
+             ("andnot", _range_leaf("neq", fw, 12345, 0, slot=1), ("row", 1, 3)),
+             ("and", _range_leaf("gt", fv, 100, 0), _range_leaf("lt", fw, 999, 0, slot=1))]
+    batch = kernels.compile_batch(progs, [0] * len(progs))
+    assert batch.groups.shape[0] == 2 and batch.n_rows == 2
+    same(progs, [v, w], masks, "two fields")
+    del v, w
     log(f"kernels: {n} comparisons exact (K5 with range leaves against its plain version)")
     return {"count_batch_tree": 0}
 
@@ -1546,6 +1629,72 @@ def _pool_case(rng, S, P, n_rows, device):
         table[n_rows - 1] = rng.integers(1, P, 64)  # every block
     return (torch.from_numpy(words.view(np.int32)).to(device),
             torch.from_numpy(table).to(device))
+
+
+def check_minmax_pool(device, seed):
+    """K7P (minmax_tree_pool) against both plain versions, Min and Max,
+    exactly, at the shapes its design turns on: depths 1, 8 and 63 (the 8-
+    and 63-plane tiers: live blocks two at a time, and one at a time), a
+    live word of one block (the lone block after the pairs) and of all 64,
+    chain and interpreter filters over pool rows,
+    stack rows and a range leaf, a dead live word, unrequested shards,
+    shards whose filter is empty (every pool word zero there), and ties
+    across shards (three shards holding the same values).  Returns max
+    |err|."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import bsi, kernels
+
+    rng = np.random.default_rng(seed + 29)
+    S, P = 40, 9
+    pool, table = _pool_case(rng, S, P, 6, device)
+    pool[:, 5] = 0  # shard 5: every pool word zero, so a pool filter is empty there
+    table[0] = 0
+    table[0, 37] = 3  # row 0 live in one block
+    dense = _adversarial_stack(rng, 4, S, device)
+    dense[:, 5] = 0
+    fbst = _bsi_stack(rng, 8, S, device)
+    mats = [dense, pool, table, fbst]
+    rb = [("rowb", 1, 2, r) for r in range(7)]
+    rg = _range_leaf("gt", tuple(range(9)), int(rng.integers(0, 256)), 0, slot=3)
+    filters = [rb[0], ("and", rb[0], ("row", 0, 1)), ("or", rb[5], rb[2]),
+               ("or", rb[3], ("row", 0, 2)), ("and", rb[2], rg),
+               ("andnot", ("or", rb[2], rb[4]), ("and", rb[3], ("row", 0, 0))),
+               ("and", rb[1], rb[2])]
+    no03 = np.ones(S, np.int32)
+    no03[[0, 3]] = 0
+    masks = [torch.from_numpy(m).to(device) for m in (
+        np.ones(S, np.int32), np.zeros(S, np.int32), (rng.random(S) < 0.5).astype(np.int32),
+        no03)]
+    err, n = 0, 0
+    for depth in (1, 8, 63):
+        bst = _bsi_stack(rng, depth, S, device, extra=0)
+        bst[:, 7] = bst[:, 6]  # ties: shards 6, 7 and 8 hold the same values
+        bst[:, 8] = bst[:, 6]
+        full = tuple(range(depth + 1))
+        holed = tuple(-1 if i == depth // 2 else i for i in full)
+        lives = []
+        for t in filters:
+            code = kernels.compile_prog(t)
+            lives.append(int(kernels.live_blocks(t, mats, device).sum()))
+            for mi, m in enumerate(masks):
+                planes = holed if mi == 2 else full
+                for is_min in (True, False):
+                    got = bsi.minmax_tree_pool_cuda(code, mats, m, bst, planes, is_min)
+                    for plain in (bsi.minmax_tree_pool_plain, bsi.minmax_tree_plain):
+                        want = plain(t, mats, m, bst, planes, is_min)
+                        for g, w, part in zip(got, want, ("values", "counts")):
+                            torch.cuda.synchronize()
+                            err = max(err, _exact(
+                                "K7P", g, w, f"{'Min' if is_min else 'Max'} {part} depth "
+                                f"{depth} {t} mask {mi} ({plain.__name__})"))
+                            n += 1
+        assert {1, 64, 0} <= set(lives), lives
+        del bst
+    log(f"kernels: {n} comparisons exact (K7P minmax_tree_pool against both plain versions: "
+        "depths 1, 8, 63, live words of 0, 1 and 64 blocks, empty and unrequested shards, "
+        "ties)")
+    return {"minmax_tree_pool": err}
 
 
 def check_pool_leaf(device, seed):
@@ -2447,8 +2596,9 @@ def engine_topn_kernels(ex, q, want):
 
 def _entry(name, source, replaces, launches, err, times, plain, byts, ops, library):
     """One {"kernels": [...]} entry; the bound is the larger of the bytes
-    over the memory rate and the integer operations over the card's rate."""
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    over the memory rate and the operations (an integer count, or integer
+    operations and population counts) over the card's rates."""
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, op_seconds(ops)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times["ms"],
@@ -2643,7 +2793,7 @@ def time_topn(engine, ex, holder, device, err, launches):
     bytes3 = (K + 1) * S * W * 4 + K * S * 4 + S * 4 + K * 4 + K * 8
     out = [_entry("score_rows", "pilosa_tpu_torch/csrc/score_rows.cu",
                   "pilosa_tpu/parallel/kernels.py:346", launches["score_rows"],
-                  err["score_rows"], t3, plain3, bytes3, 3 * K * S * W, None)]
+                  err["score_rows"], t3, plain3, bytes3, (2 * K * S * W, K * S * W), None)]
     _times_line(f"K3 score_rows at K={K}, S={S}", t3, out[-1]["bound_ms"], plain3)
 
     # The trim runs in K3's last block (past 256 candidates in
@@ -2741,8 +2891,8 @@ def time_topn(engine, ex, holder, device, err, launches):
         t = measured(lambda: kernels.and_popcount_rows_cuda(m, r, rows), "and_popcount_rows_kernel", sync)
         plain = p50_ms(lambda: bitops.popcount_and_rows_plain(m, r, rows), 5, sync, batch=2)
         R = m.shape[0] if rows is None else len(rows)
-        byts, ops = R * W * 4 + W * 4 + R * 4, 3 * R * W
-        bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        byts, ops = R * W * 4 + W * 4 + R * 4, (2 * R * W, R * W)
+        bound = least_ms(byts, ops)
         p2.append((R, t, plain, byts, ops))
         _times_line(f"P2 and_popcount_rows at [{R}, {W}]" + (" by index" if rows else ""),
                     t, bound, plain, f"; {bound / t['device_ms'] * 100:.1f}% of the bound")
@@ -2789,42 +2939,53 @@ def repairs_off(engine):
 
 
 def batch_bound(progs, mats, masks, mask_ids, S):
-    """(bytes, integer ops) K5's least work needs for one batch: each
-    distinct leaf row's words of the shards some query reading it
-    requests read once, the packed upload (leaf addresses, programs,
-    masks, range records and planes) read and the int64 answers written;
-    per query and word, its combines, a popcount and an add, and two
-    operations per plane word of each range leaf (its planes are leaf
-    rows, read once like any other)."""
+    """(bytes, (integer ops, popcounts)) K5's least work needs for one
+    batch: each distinct leaf row's words of the shards some query reading
+    it requests read once, the packed upload (leaf addresses, programs,
+    masks, range records, planes, groups and walk forms) read and the
+    int64 answers written; per query and word its combines and an add, and
+    a popcount; per distinct range leaf and word of the shards its queries
+    request, one three-input logic operation per plane word of its walk
+    (two for BETWEEN's double walk; its planes are leaf rows, read once
+    like any other)."""
     from pilosa_tpu_torch.parallel import kernels
 
     batch = kernels.compile_batch(progs, mask_ids)
 
-    def planes_of(code):
-        kd, off = int(batch.ranges[code >> 8, 2]), int(batch.ranges[code >> 8, 3])
+    def planes_of(r):
+        kd, off = int(batch.ranges[r, 2]), int(batch.ranges[r, 3])
         return [int(p) for p in batch.planes[off: off + (kd >> 8) + 1] if p >= 0]
 
-    req = {}
+    req, rreq = {}, {}
     for k, (off, n_ops, mid, _) in enumerate(batch.qinfo.tolist()):
         for code in batch.ops[off: off + n_ops].tolist():
             if code & 0xFF == kernels.OP_LEAF:
                 req.setdefault(code >> 8, set()).add(mid)
             elif code & 0xFF == kernels.OP_RANGE:
-                for p in planes_of(code):
+                rreq.setdefault(code >> 8, set()).add(mid)
+                for p in planes_of(code >> 8):
                     req.setdefault(p, set()).add(mid)
     words = mats[0].shape[2] if mats else 32768
-    row_bytes = sum(int(np.any(masks[sorted(m)], axis=0).sum()) for m in req.values()) * words * 4
+
+    def shards(mids):
+        return int(np.any(masks[sorted(mids)], axis=0).sum())
+
+    row_bytes = sum(shards(m) for m in req.values()) * words * 4
     upload = (len(batch.leaves) * 8 + batch.qinfo.nbytes + batch.ops.nbytes
-              + kernels.mask_bits(masks).nbytes + batch.ranges.nbytes + batch.planes.nbytes)
-    ops = 0
+              + kernels.mask_bits(masks).nbytes + batch.ranges.nbytes + batch.planes.nbytes
+              + batch.groups.nbytes + batch.walks.nbytes)
+    n_int = n_popc = 0
     for off, n_ops, mid, _ in batch.qinfo.tolist():
         codes = batch.ops[off: off + n_ops].tolist()
         leaves = sum(1 for c in codes if c & 0xFF in (kernels.OP_LEAF, kernels.OP_ZERO,
                                                       kernels.OP_RANGE))
-        # A range leaf: about two operations per plane word (fragment.go's walks).
-        walk = sum(2 * len(planes_of(c)) for c in codes if c & 0xFF == kernels.OP_RANGE)
-        ops += (n_ops - leaves + 2 + walk) * int(masks[mid].sum()) * words
-    return row_bytes + upload + len(progs) * 8, ops
+        n_int += (n_ops - leaves + 1) * int(masks[mid].sum()) * words
+        n_popc += int(masks[mid].sum()) * words
+    between = kernels.bsi_ops.RANGE_KINDS.index("between")
+    for r, mids in rreq.items():
+        steps = 2 if int(batch.ranges[r, 2]) & 0xFF == between else 1
+        n_int += steps * len(planes_of(r)) * shards(mids) * words
+    return row_bytes + upload + len(progs) * 8, (n_int, n_popc)
 
 
 def f_batch(engine, K, seed):
@@ -2845,8 +3006,10 @@ def f_batch(engine, K, seed):
 
 def k1_launches_ms(engine, progs, mats, canonical, want, windows=3):
     """The device time of the same trees through K1, one launch each on
-    the same stack (torch.profiler, the mean over ``windows`` passes of
-    all of them), after K1's answers are held against ``want``."""
+    the same stack (torch.profiler, the mean launch over ``windows``
+    passes of all of them, times their count), after K1's answers are held
+    against ``want``.  Each window starts with one more launch than it
+    counts: the profiler can lose a window's first record."""
     from pilosa_tpu_torch.parallel import kernels
 
     codes = [kernels.compile_prog(p) for p in progs]
@@ -2857,13 +3020,15 @@ def k1_launches_ms(engine, progs, mats, canonical, want, windows=3):
     def k1_count(seen):
         return sum(n for k, (n, _) in seen.items() if "count_tree_dense_kernel" in k)
 
+    n_want = windows * len(codes)
     seen = on_card(lambda: [kernels.count_tree_dense(c, mats, mask)
-                            for _ in range(windows) for c in codes],
-                   lambda seen: k1_count(seen) == windows * len(codes))
+                            for c in codes[:1] + codes * windows],
+                   lambda seen: n_want <= k1_count(seen) <= n_want + 1)
     hits = [v for k, v in seen.items() if "count_tree_dense_kernel" in k]
-    if sum(n for n, _ in hits) != windows * len(codes):
-        raise AssertionError(f"torch.profiler saw {hits} K1 launches, not {windows * len(codes)}")
-    return sum(t for _, t in hits) / windows
+    n_seen = sum(n for n, _ in hits)
+    if not n_want <= n_seen <= n_want + 1:
+        raise AssertionError(f"torch.profiler saw {hits} K1 launches, not {n_want} or {n_want + 1}")
+    return sum(t for _, t in hits) / n_seen * len(codes)
 
 
 def time_batch_f(engine, device, err, seed):
@@ -2898,7 +3063,7 @@ def time_batch_f(engine, device, err, seed):
         plain = (p50_ms(lambda: kernels.count_batch_tree_plain(progs, mats, masks, ids, device),
                         3, sync, batch=1) if K <= 64 else None)
         byts, ops = batch_bound(progs, mats, masks, ids, S)
-        bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        bound = least_ms(byts, ops)
         distinct = len(kernels.compile_batch(progs, ids).leaves)
         k1_ms = k1_launches_ms(engine, progs, mats, canonical, got.tolist())
         rows[K] = {"times": t, "plain_ms": plain, "bytes": byts, "ops": ops, "bound_ms": bound,
@@ -3210,7 +3375,7 @@ def run_b10m(device, holder, engine, seed):
     plain = p50_ms(lambda: kernels.count_batch_tree_plain(progs, lw.mats, masks, ids, device), 5,
                    sync, batch=1)
     byts, ops = batch_bound(progs, lw.mats, masks, ids, N_SHARDS_10M)
-    bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+    bound = least_ms(byts, ops)
     _times_line(f"K5 count_batch_tree at K={C2_B} on b10m", t, bound, plain)
     return out, {"times": t, "plain_ms": plain, "bytes": byts, "ops": ops, "bound_ms": bound,
                  "distinct_leaves": 128}
@@ -3358,6 +3523,56 @@ def _zero_bsi_counters():
 
 def _vc(res):
     return (res.val, res.count)
+
+
+def time_k5_ranges(engine, lw, canonical, eight, gt, device, err):
+    """K5 over 8 and 16 range conditions on v in one launch (the 8
+    Range(v > x) of the bsi phase, whose numpy answers are ``gt``, then 16
+    of every kind), each held against its plain version, then timed
+    (``measured``) beside its bound (``batch_bound``), the plain p50 and
+    the same trees as K1 launches (held against K5's answers).  Returns
+    {"k5_ranges": ..., "k5_ranges_16": ...}."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import kernels
+
+    sync = torch.cuda.synchronize
+    S = len(canonical)
+    k5_masks = np.ones((1, S), dtype=bool)
+    out = {}
+    kinds = ("<", "<=", "==", "!=", ">=", ">", "><")
+    sixteen = eight + [engine._lower("bench", pql.parse(
+        f"Range(v {kinds[k % 7]} {x})" if kinds[k % 7] != "><" else
+        f"Range(v >< [{x}, {x + 90}])").calls[0], lw) for k, x in enumerate(
+            np.linspace(20, 230, 8).astype(int).tolist())]
+    for name, progs in (("k5_ranges", eight), ("k5_ranges_16", sixteen)):
+        K = len(progs)
+
+        def k5_call(progs=progs, K=K):
+            return kernels.count_batch_tree(progs, lw.mats, k5_masks, [0] * K, device)
+
+        got = k5_call()
+        err["count_batch_tree"] = max(err["count_batch_tree"], _exact(
+            "K5", got, kernels.count_batch_tree_plain(progs, lw.mats, k5_masks, [0] * K,
+                                                      device), f"{K} conditions on v"))
+        for _ in range(3):
+            k5_call()
+        sync()
+        t = measured(k5_call, "count_batch_tree_kernel", sync)
+        byts, ops = batch_bound(progs, lw.mats, k5_masks, [0] * K, S)
+        bound = least_ms(byts, ops)
+        plain = p50_ms(lambda progs=progs, K=K: kernels.count_batch_tree_plain(
+            progs, lw.mats, k5_masks, [0] * K, device), 3, sync, batch=1)
+        k1_ms = k1_launches_ms(engine, progs, lw.mats, canonical,
+                               gt if K == 8 else got.tolist())
+        _times_line(f"K5 count_batch_tree, {K} range conditions on v (S={S})", t, bound,
+                    plain, f"; the same {K} trees as {K} K1 launches: {k1_ms:.4f} ms of "
+                    f"device time (torch.profiler); {bound / t['device_ms'] * 100:.1f}% of "
+                    "the bound")
+        out[name] = {**t, "bound_ms": bound, "bytes": byts, "ops": ops, "plain_ms": plain,
+                     "k1_launches_device_ms": k1_ms}
+    return out
 
 
 def run_bsi_path(device, holder, engine, ex, host, seed, err):
@@ -3534,34 +3749,22 @@ def run_bsi_path(device, holder, engine, ex, host, seed, err):
             times[name] = measured(fn, kernel_of[name], sync)
             times[name]["plain_ms"] = p50_ms(plain, 3, sync, batch=1)
         # Least time: each plane (or leaf row) of the requested shards read
-        # once; a few integer operations per word and plane.
-        spec = {"range_leaf": (BSI_DEPTH + 1, 4), "time_range": (3, 2),
-                "sum_tree": (BSI_DEPTH + 1, 3), "minmax_tree": (BSI_DEPTH + 1, 6)}
+        # once; per word position (a word of one row), the integer
+        # operations and popcounts: the range walk one three-input logic
+        # operation a plane word, then an add and a popcount; the time
+        # range two ORs, an add and a popcount; Sum an AND, an add and a
+        # popcount a plane word; Min/Max six operations a plane word.
+        spec = {"range_leaf": (BSI_DEPTH + 1, BSI_DEPTH + 2, 1), "time_range": (3, 3, 1),
+                "sum_tree": (BSI_DEPTH + 1, 2 * (BSI_DEPTH + 1), BSI_DEPTH + 1),
+                "minmax_tree": (BSI_DEPTH + 1, 6 * (BSI_DEPTH + 1), 1)}
         for name, t in times.items():
-            n_rows, ops = spec[name]
-            byts, n_ops = rows_bytes(n_rows) + S * 4 + 8, rows_bytes(n_rows) // 4 * ops
-            bound = max(byts / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S) * 1e3
+            n_rows, n_int, n_popc = spec[name]
+            pos = rows_bytes(1) // 4
+            byts, n_ops = rows_bytes(n_rows) + S * 4 + 8, (pos * n_int, pos * n_popc)
+            bound = least_ms(byts, n_ops)
             _times_line(f"bsi {name}", t, bound, t["plain_ms"])
             out[f"{name}_device_ms"], out[f"{name}_bound_ms"] = t["device_ms"], bound
-        eight = k5_progs[:8]
-
-        def k5_call():
-            return kernels.count_batch_tree(eight, lw.mats, k5_masks, [0] * 8, device)
-
-        for _ in range(3):
-            k5_call()
-        sync()
-        t = measured(k5_call, "count_batch_tree_kernel", sync)
-        byts, ops = batch_bound(eight, lw.mats, k5_masks, [0] * 8, S)
-        bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
-        plain = p50_ms(lambda: kernels.count_batch_tree_plain(eight, lw.mats, k5_masks, [0] * 8,
-                                                              device), 3, sync, batch=1)
-        k1_ms = k1_launches_ms(engine, eight, lw.mats, canonical, gt)
-        _times_line(f"K5 count_batch_tree, 8 Count(Range(v > x)) on v (S={S})", t, bound,
-                    plain, f"; the same 8 trees as 8 K1 launches: {k1_ms:.4f} ms of device "
-                    "time (torch.profiler)")
-        out["k5_ranges"] = {**t, "bound_ms": bound, "bytes": byts, "plain_ms": plain,
-                            "k1_launches_device_ms": k1_ms}
+        out.update(time_k5_ranges(engine, lw, canonical, k5_progs[:8], gt, device, err))
         for name, src, rep in (
                 ("range_leaf", "pilosa_tpu_torch/csrc/tree_eval.cuh",
                  "pilosa_tpu/parallel/kernels.py:108"),
@@ -3570,9 +3773,10 @@ def run_bsi_path(device, holder, engine, ex, host, seed, err):
                 ("minmax_tree", "pilosa_tpu_torch/csrc/minmax_tree.cu",
                  "pilosa_tpu/parallel/kernels.py:511")):
             t = times[name]
-            n_rows, ops = spec[name]
+            n_rows, n_int, n_popc = spec[name]
+            pos = rows_bytes(1) // 4
             entries.append(_entry(name, src, rep, launches[name], err[name], t, t["plain_ms"],
-                                  rows_bytes(n_rows) + S * 4 + 8, rows_bytes(n_rows) // 4 * ops,
+                                  rows_bytes(n_rows) + S * 4 + 8, (pos * n_int, pos * n_popc),
                                   None))
         # bench.py's metrics: the engine call (CUDA events around 10 calls,
         # per call) and Executor.execute (host clock around a synchronous
@@ -3765,8 +3969,8 @@ def k8_work(ks, filtered, n_shards):
     popcount and an add per word and combination."""
     n_rows, C, words = sum(ks) + filtered, math.prod(ks), n_shards * 32768
     byts = n_rows * words * 4 + n_shards * 4 + 4 * n_rows + C * 8
-    ops = words * C * 3
-    return byts, ops, max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+    ops = (words * C * 2, words * C)
+    return byts, ops, least_ms(byts, ops)
 
 
 def group_queries(n_shards):
@@ -4412,15 +4616,16 @@ def _pql_result(res):
 
 
 def f1_work(code, n_shards, n_mat, n_counted):
-    """(bytes, operations) of one F1 launch over every shard: each leaf row
-    (and each range leaf's planes) read once, each materialized slot
-    written once; a 32-bit operation per word for each item, slot
-    reference and counted slot's popcount."""
+    """(bytes, (integer ops, popcounts)) of one F1 launch over every shard:
+    each leaf row (and each range leaf's planes) read once, each
+    materialized slot written once; a 32-bit operation per word for each
+    item and slot reference, and a popcount per word of each counted
+    slot."""
     rows = len(code.leaves) + sum(len(r[2]) for r in code.ranges) + n_mat
     byts = rows * n_shards * W64 * 8
-    ops = n_shards * W64 * 2 * (len(code.items) + sum(bin(m).count("1") for m in code.mref)
-                                + n_counted)
-    return byts, ops
+    words = n_shards * W64 * 2
+    return byts, (words * (len(code.items) + sum(bin(m).count("1") for m in code.mref)),
+                  words * n_counted)
 
 
 def run_fusion_path(device, holder, engine, ex, seed, err, n_shards=N_SHARDS):
@@ -4644,7 +4849,7 @@ def run_fusion_path(device, holder, engine, ex, seed, err, n_shards=N_SHARDS):
         err["fused_tree"] = max(err.get("fused_tree", 0), e)
         del vals_p
         byts, ops = f1_work(code, n_shards, len(spec.mat_slots), len(set(cslots)))
-        bound = max(byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        bound = least_ms(byts, ops)
         for _ in range(3):
             f1()
         sync()
@@ -9171,6 +9376,9 @@ def main(argv=None):
     device = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    n_int, n_popc = card_rates()
+    log(f"rates: {n_int:.4g} integer operations and {n_popc:.4g} popcounts a second "
+        "(the card's SMs at its maximum SM clock)")
     if args.root and args.serving:
         run_serving_ab(root, args.seed, args.serving)
         return 0
@@ -9202,6 +9410,8 @@ def main(argv=None):
     err.update(check_groupby_kernel(device, args.seed))
     err.update(check_fused_kernel(device, args.seed))
     err.update(check_pool_leaf(device, args.seed))
+    err["minmax_tree_pool"] = max(err.get("minmax_tree_pool", 0),
+                                  check_minmax_pool(device, args.seed)["minmax_tree_pool"])
     if args.check_only:
         log(f"check-only: every kernel exact against its plain version: {err}")
         return 0
@@ -9245,6 +9455,7 @@ def main(argv=None):
     if "k5_ranges" in bsi_out:
         k5 = next(e for e in kern if e["name"] == "count_batch_tree")
         k5["at"]["8 Count(Range(v > x)) on v"] = bsi_out["k5_ranges"]
+        k5["at"]["16 range conditions on v"] = bsi_out["k5_ranges_16"]
     mark("bsi")
     group_out, group_entry = run_groupby_path(device, holder, engine, ex, host, args.seed, err)
     log("groupby: " + json.dumps(group_out))
@@ -9277,16 +9488,18 @@ def main(argv=None):
     # K3P, K6P, K7P, K8P, K5P and F1P on the residency phase's TopN, Sum,
     # Min, GroupBy, 8-Count query and drain over pool rows: an AND, a
     # popcount and an add per word read (K7P: six per plane word, as K7).
-    for name, src, rep, ops in (
-            ("score_rows_pool", "score_rows", "pilosa_tpu/parallel/kernels.py:346", 3),
-            ("sum_tree_pool", "sum_tree", "pilosa_tpu/parallel/kernels.py:475", 3),
-            ("minmax_tree_pool", "minmax_tree", "pilosa_tpu/parallel/kernels.py:511", 6),
-            ("groupn_tree_pool", "groupn_tree_pool", "pilosa_tpu/parallel/kernels.py:707", 3),
-            ("count_batch_tree_pool", "count_batch_tree", "pilosa_tpu/parallel/kernels.py:255", 3),
-            ("fused_tree_pool", "fused_tree", "pilosa_tpu/parallel/kernels.py:545", 3)):
+    for name, src, rep, (n_int, n_popc) in (
+            ("score_rows_pool", "score_rows", "pilosa_tpu/parallel/kernels.py:346", (2, 1)),
+            ("sum_tree_pool", "sum_tree", "pilosa_tpu/parallel/kernels.py:475", (2, 1)),
+            ("minmax_tree_pool", "minmax_tree", "pilosa_tpu/parallel/kernels.py:511", (6, 0)),
+            ("groupn_tree_pool", "groupn_tree_pool", "pilosa_tpu/parallel/kernels.py:707", (2, 1)),
+            ("count_batch_tree_pool", "count_batch_tree", "pilosa_tpu/parallel/kernels.py:255",
+             (2, 1)),
+            ("fused_tree_pool", "fused_tree", "pilosa_tpu/parallel/kernels.py:545", (2, 1))):
         n, t = aggs[name]
+        words = t["bytes"] // 4
         kern.append(_entry(name, f"pilosa_tpu_torch/csrc/{src}.cu", rep, n, err[name], t,
-                           t["plain_ms"], t["bytes"], t["bytes"] // 4 * ops, None))
+                           t["plain_ms"], t["bytes"], (words * n_int, words * n_popc), None))
     mark("residency")
     observe = run_observe_path(device, args.seed, keep)
     log("observe: " + json.dumps(observe))

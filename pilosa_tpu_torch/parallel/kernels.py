@@ -932,24 +932,63 @@ MAX_BATCH_LEAVES = 4096
 
 class BatchProgram:
     """A batch compiled for K5: ``leaves`` the distinct (mat_slot, row)
-    leaf rows, ``qinfo`` int32[K, 4] (program offset, program length,
-    mask id, chain form 0/1) and ``ops`` the concatenated postfix
-    programs, whose leaf opcodes carry indices into ``leaves``;
-    ``ranges`` int64[n, 4] the distinct range leaves (``lo``, ``hi``, kind
-    + depth << 8, offset into ``planes``), whose OP_RANGE opcodes index
-    it, and ``planes`` int32 each range leaf's depth + 1 planes as
-    indices into ``leaves`` (-1 for a missing plane, a zero row that
-    nothing reads); ``reads``/``pooled`` as ``leaf_reads`` gives them."""
+    leaf rows, the ``n_rows`` rows some query reads as a row first, then
+    the planes that only range leaves read; ``qinfo`` int32[K, 4] (program
+    offset, program length, mask id, chain form 0/1) and ``ops`` the
+    concatenated postfix programs, whose leaf opcodes carry indices into
+    ``leaves``; ``ranges`` int64[n, 4] the distinct range leaves (``lo``,
+    ``hi``, kind + depth << 8, offset into ``planes``), whose OP_RANGE
+    opcodes index it, and ``planes`` int32 each group's depth + 1 planes
+    as indices into ``leaves`` (-1 for a missing plane, a zero row that
+    nothing reads); ``groups`` int32[g, 4] the range leaves over one
+    field's planes (first range, count, depth, offset into ``planes``,
+    shared by the group's ranges, which are numbered group by group), and
+    ``walks`` int64[n, 3] each range leaf in the form K5's grouped pass
+    walks (``walk_form``); ``reads``/``pooled`` as ``leaf_reads`` gives
+    them."""
 
-    __slots__ = ("leaves", "qinfo", "ops", "ranges", "planes", "reads", "pooled")
+    __slots__ = ("leaves", "qinfo", "ops", "ranges", "planes", "groups", "walks", "n_rows",
+                 "reads", "pooled")
 
-    def __init__(self, leaves, qinfo, ops, ranges, planes):
+    def __init__(self, leaves, qinfo, ops, ranges, planes, groups, walks, n_rows):
         self.leaves = leaves
         self.qinfo = qinfo
         self.ops = ops
         self.ranges = ranges
         self.planes = planes
+        self.groups = groups
+        self.walks = walks
+        self.n_rows = n_rows
         self.reads, self.pooled = leaf_reads(leaves)
+
+
+# The walk classes of K5's grouped range pass (csrc/count_batch_tree.cu
+# kWalk*): equality, >= and <= comparisons of the value against the
+# predicate, or both for BETWEEN, each a chain over the planes low bit
+# first; a strict comparison starts its chain empty, neq negates eq.
+WALK_EQ, WALK_GE, WALK_LE, WALK_BETWEEN = range(4)
+WALK_NEG, WALK_STRICT = 1 << 8, 1 << 9
+
+
+def walk_form(kind: str, depth: int, lo: int, hi: int) -> Tuple[int, int, int]:
+    """A range condition as K5's grouped pass walks it: (lo, hi, class |
+    flags), the predicates cut to their low ``depth`` bits, the only ones
+    eval_range reads.  eq and neq compare for equality (neq negated
+    against the not-null plane), gte and lte walk their comparison, gt and
+    lt the same strictly, between both; at depth 0, with no value planes,
+    every kind but neq is the not-null plane, so nothing is strict there."""
+    mask = (1 << depth) - 1
+    x, y = lo & mask, hi & mask
+    strict = WALK_STRICT if depth and kind in ("gt", "lt") else 0
+    if kind in ("eq", "neq"):
+        return x, 0, WALK_EQ | (WALK_NEG if kind == "neq" else 0)
+    if kind == "between":
+        return x, y, WALK_BETWEEN
+    if kind in ("gt", "gte"):
+        return x, 0, WALK_GE | strict
+    if kind in ("lt", "lte"):
+        return x, 0, WALK_LE | strict
+    raise ValueError(f"bad range kind: {kind!r}")
 
 
 def _leaf_rows(prog, out: set) -> set:
@@ -994,44 +1033,50 @@ def _is_chain(ops: List[int]) -> bool:
 
 
 def compile_batch(progs, mask_ids: Sequence[int]) -> BatchProgram:
-    """Compile K normalized trees into one BatchProgram.  A range leaf's
-    planes are leaf-table rows like any other, so eight conditions on one
-    field put its planes in the table once.  Raises ValueError when a
-    query's program exceeds MAX_PROG, MAX_STACK or MAX_RANGES (a range
-    leaf past MAX_PLANES planes), or the batch exceeds MAX_BATCH_LEAVES
-    distinct leaf rows."""
+    """Compile K normalized trees into one BatchProgram.  The rows that
+    queries read as rows come first in the leaf table; the distinct range
+    leaves are grouped by the planes they walk (one field's, at one depth),
+    so eight conditions on one field are one group whose planes K5 reads
+    once a tile.  Raises ValueError when a query's program exceeds
+    MAX_PROG, MAX_STACK or MAX_RANGES (a range leaf past MAX_PLANES planes),
+    or the batch exceeds MAX_BATCH_LEAVES distinct leaf rows."""
     if len(progs) != len(mask_ids):
         raise ValueError("one mask id per query")
+    codes = []
     table: Dict[tuple, int] = {}
-    range_of: Dict[tuple, int] = {}
-    ranges: List[Tuple[int, int, int, int]] = []
-    planes: List[int] = []
-    qinfo = np.zeros((len(progs), 4), dtype=np.int32)
-    ops: List[int] = []
-    for k, prog in enumerate(progs):
+    conds: Dict[tuple, Dict[tuple, None]] = {}  # (mat, planes) -> its conditions, in order
+    for prog in progs:
         code = compile_prog(prog)
         if any((c & 0xFF) == OP_MREF for c in code.ops):
             raise ValueError("a slot reference (mref) runs only inside a fused program")
         if code.depth > MAX_STACK or len(code.ops) > MAX_PROG or code.ranges:
             check_prog(Postfix(code.ops, [], code.depth, code.ranges))
-        glob = [table.setdefault(leaf, len(table)) for leaf in code.leaves]
-        rglob = []
+        for leaf in code.leaves:
+            table.setdefault(leaf, len(table))
         for m, kind, rplanes, lo, hi in code.ranges:
-            j = range_of.get((m, kind, rplanes, lo, hi))
-            if j is None:
-                j = range_of[(m, kind, rplanes, lo, hi)] = len(ranges)
-                ranges.append((lo, hi, bsi_ops.RANGE_KINDS.index(kind) | (len(rplanes) - 1) << 8,
-                               len(planes)))
-                planes.extend(table.setdefault((m, p), len(table)) if p >= 0 else -1
-                              for p in rplanes)
-            rglob.append(j)
+            conds.setdefault((m, rplanes), {}).setdefault((kind, lo, hi), None)
+        codes.append(code)
+    n_rows = len(table)
+    range_of: Dict[tuple, int] = {}
+    ranges, walks, groups, planes = [], [], [], []
+    for (m, rplanes), group in conds.items():
+        depth, off = len(rplanes) - 1, len(planes)
+        planes.extend(table.setdefault((m, p), len(table)) if p >= 0 else -1 for p in rplanes)
+        groups.append((len(ranges), len(group), depth, off))
+        for kind, lo, hi in group:
+            range_of[(m, kind, rplanes, lo, hi)] = len(ranges)
+            ranges.append((lo, hi, bsi_ops.RANGE_KINDS.index(kind) | depth << 8, off))
+            walks.append(walk_form(kind, depth, lo, hi))
+    qinfo = np.zeros((len(progs), 4), dtype=np.int32)
+    ops: List[int] = []
+    for k, code in enumerate(codes):
         qops = []
         for c in code.ops:
             op = c & 0xFF
             if op in (OP_LEAF, OP_ROWB):
-                c = op | (glob[c >> 8] << 8)
+                c = op | (table[code.leaves[c >> 8]] << 8)
             elif op == OP_RANGE:
-                c = op | (rglob[c >> 8] << 8)
+                c = op | (range_of[code.ranges[c >> 8]] << 8)
             qops.append(c)
         qinfo[k] = (len(ops), len(qops), int(mask_ids[k]), int(code.chain))
         ops.extend(qops)
@@ -1040,7 +1085,32 @@ def compile_batch(progs, mask_ids: Sequence[int]) -> BatchProgram:
                          f"K5 takes {MAX_BATCH_LEAVES}")
     return BatchProgram(list(table), qinfo, np.asarray(ops or [OP_ZERO], dtype=np.int32),
                         np.asarray(ranges, dtype=np.int64).reshape(-1, 4),
-                        np.asarray(planes, dtype=np.int32))
+                        np.asarray(planes, dtype=np.int32),
+                        np.asarray(groups, dtype=np.int32).reshape(-1, 4),
+                        np.asarray(walks, dtype=np.int64).reshape(-1, 3), n_rows)
+
+
+# K5's shared-memory stage (csrc/count_batch_tree.cu kStageBytes; K5P
+# stages half as much) and its tile widths in uint4 positions.
+BATCH_STAGE_BYTES = 64 * 1024
+BATCH_DIRECT_TILE = 1024
+
+
+def batch_tile(batch: BatchProgram, pooled: bool = False) -> int:
+    """The tile K5 (K5P with ``pooled``) takes for ``batch``, as its
+    launcher picks it (csrc/count_batch_tree.cu run): the widest power of
+    two up to BATCH_DIRECT_TILE whose staged rows fit the stage, 0 for the
+    direct path (no stage, every leaf word from device memory).  A batch
+    without range leaves stages each leaf row once; one with range leaves
+    stages each row read as a row twice (two tiles in flight) and each
+    range leaf's result once."""
+    n_r = batch.ranges.shape[0]
+    rows = 2 * batch.n_rows + n_r if n_r else len(batch.leaves)
+    stage = BATCH_STAGE_BYTES // 2 if pooled else BATCH_STAGE_BYTES
+    tile = BATCH_DIRECT_TILE
+    while tile >= 32 and rows * tile * 16 > stage:
+        tile >>= 1
+    return tile if tile >= 32 else 0
 
 
 def count_batch_tree_plain(progs, mats: Sequence[torch.Tensor], masks: np.ndarray,
@@ -1049,7 +1119,9 @@ def count_batch_tree_plain(progs, mats: Sequence[torch.Tensor], masks: np.ndarra
     """int64[K] masked popcounts of K trees, ``count_tree_plain`` per query
     (``masks`` bool[M, S] the distinct requested-shard masks, query k
     reading row ``mask_ids[k]``); with ``out_index`` the answers fanned out
-    as ``result[out_index]``.  The CPU path and the reference K5 is held
+    as ``result[out_index]``.  A range leaf's row is evaluated once per
+    batch, its planes gathered once per field (``_ranges_once``), as K5
+    walks a group once a tile.  The CPU path and the reference K5 is held
     against."""
     return _batch_plain(count_tree_plain, progs, mats, masks, mask_ids, device, out_index)
 
@@ -1064,8 +1136,47 @@ def count_batch_tree_pool_plain(progs, mats: Sequence[torch.Tensor], masks: np.n
     return _batch_plain(count_tree_pool_plain, progs, mats, masks, mask_ids, device, out_index)
 
 
+def _ranges_once(progs, mats: Sequence[torch.Tensor]) -> tuple:
+    """The batch's range leaves evaluated once each (``ops.bsi.range_rows``
+    over planes gathered once per field and plane list, the groups of
+    ``compile_batch``): the trees with every range leaf replaced by
+    ``("row", len(mats), j)`` and ``mats`` with the list of those rows
+    appended (unchanged without a range leaf)."""
+    groups: Dict[tuple, Dict[tuple, None]] = {}
+
+    def find(p):
+        if p[0] == "range":
+            groups.setdefault((int(p[2]), tuple(p[3])), {}).setdefault((p[1], p[4], p[5]), None)
+        elif p[0] in _NODE_OPS:
+            for q in p[1:]:
+                find(q)
+
+    for p in progs:
+        find(p)
+    if not groups:
+        return progs, mats
+    rows, index = [], {}
+    for (slot, planes), conds in groups.items():
+        stack = range_planes(mats[slot], planes, lambda words: words)
+        for kind, lo, hi in conds:
+            index[(kind, slot, planes, lo, hi)] = len(rows)
+            rows.append(bsi_ops.range_rows(kind, stack, lo, hi))
+    extra = len(mats)
+
+    def sub(p):
+        if p[0] == "range":
+            return ("row", extra, index[(p[1], int(p[2]), tuple(p[3]), p[4], p[5])])
+        if p[0] in _NODE_OPS:
+            return (p[0],) + tuple(sub(q) for q in p[1:])
+        return p
+
+    return [sub(p) for p in progs], list(mats) + [rows]
+
+
 def _batch_plain(count, progs, mats, masks, mask_ids, device, out_index) -> torch.Tensor:
-    """``count(prog, mats, mask)`` per query into int64[K], fanned out."""
+    """``count(prog, mats, mask)`` per query into int64[K], fanned out,
+    each range leaf evaluated once (``_ranges_once``)."""
+    progs, mats = _ranges_once(progs, mats)
     dev_masks = torch.from_numpy(np.ascontiguousarray(masks, dtype=np.int32)).to(device)
     out = torch.zeros(len(progs), dtype=torch.int64, device=device)
     for k, prog in enumerate(progs):
@@ -1075,7 +1186,8 @@ def _batch_plain(count, progs, mats, masks, mask_ids, device, out_index) -> torc
     return out
 
 
-_BATCH_ARGS = [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]
+_BATCH_ARGS = [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
+               _P, _P, _P]
 _batch_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -1145,7 +1257,8 @@ def _batch_launch(entry: str, batch: BatchProgram, mats: Sequence[torch.Tensor],
         return out
     ptrs = np.asarray(leaf_pointers(batch.leaves, mats) or [0], dtype=np.uint64)
     n_r = batch.ranges.shape[0]
-    sections = [ptrs, batch.qinfo, batch.ops, mask_bits(masks), batch.ranges, batch.planes]
+    sections = [ptrs, batch.qinfo, batch.ops, mask_bits(masks), batch.ranges, batch.planes,
+                batch.groups, batch.walks]
     if fan is not None:
         sections.append(fan)
     buf, offs = _pack(sections)
@@ -1153,10 +1266,13 @@ def _batch_launch(entry: str, batch: BatchProgram, mats: Sequence[torch.Tensor],
     base = dev_buf.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = _lib_fn("count_batch_tree", entry, _BATCH_ARGS)
+    ranged = (lambda i: base + offs[i] if n_r else None)  # noqa: E731
     err = fn(base + offs[0], len(batch.leaves), int(batch.pooled), base + offs[1], K,
-             base + offs[2], base + offs[3], base + offs[4] if n_r else None, n_r,
-             base + offs[5] if n_r else None, None if fan is None else base + offs[6], k_out, S,
-             words, _batch_scratch_for(device, stream).data_ptr(), out.data_ptr(), stream)
+             base + offs[2], base + offs[3], ranged(4), n_r, ranged(5), ranged(6),
+             ranged(7), batch.groups.shape[0], batch.n_rows,
+             int(batch.groups[:, 2].max()) if n_r else 0,
+             None if fan is None else base + offs[8], k_out, S, words,
+             _batch_scratch_for(device, stream).data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     range_leaf(batch)

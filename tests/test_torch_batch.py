@@ -204,19 +204,63 @@ def test_count_batch_tree_plain_matches_reference(mesh, stacks):
     assert kernels.count_batch_tree_cuda.launches == 0
 
 
+def walk_np(walk, planes):
+    """A range leaf's walk form (``BatchProgram.walks``: lo, hi, class |
+    flags) over numpy planes uint32[depth + 1, W], as K5's grouped pass
+    walks it (csrc/count_batch_tree.cu walk_range): a chain over the value
+    planes, low bit first, comparing the value's low bits with the
+    predicate's (equal; >=, or > when strict; <=, or <; BETWEEN both), then
+    the not-null plane (neq: not-null and not equal)."""
+    lo, hi, form = (int(x) for x in walk)
+    depth = planes.shape[0] - 1
+    nn = planes[depth]
+    ones = np.full_like(nn, 0xFFFFFFFF)
+    c = np.zeros_like(nn) if form & kernels.WALK_STRICT else ones.copy()
+    c2 = ones.copy()
+    cls = form & 0xFF
+    for i in range(depth):
+        v, m = planes[i], ones if (lo >> i) & 1 else np.zeros_like(nn)
+        if cls == kernels.WALK_EQ:
+            c &= ~(v ^ m)
+        elif cls == kernels.WALK_LE:
+            c = np.where(m != 0, ~v | c, ~v & c)
+        else:
+            c = np.where(m != 0, v & c, v | c)
+        if cls == kernels.WALK_BETWEEN:
+            c2 = np.where((hi >> i) & 1, ~v | c2, ~v & c2)
+    return nn & ~c if form & kernels.WALK_NEG else nn & c & c2
+
+
 def interpret_batch(batch, mats, mask_words, s):
     """Every query's count over shard ``s`` as K5 reads its batch: the
-    leaf table, each query's (offset, length, mask id, chain) and postfix
-    ops whose leaf opcodes index the table, a range leaf's record (lo, hi,
-    kind | depth << 8, planes offset) and its planes as table rows (-1 a
-    zero row), the mask bit of shard s."""
-    out = []
-
+    leaf table (the rows read as rows first, a pool row through its slot
+    vector), each query's (offset, length, mask id, chain) and postfix ops
+    whose leaf opcodes index the table, mask bit s; each range group's
+    planes (-1 a zero row) gathered once and every condition of the group
+    walked once in its walk form (``walk_np``), a query's range leaf then
+    reading its condition's result row."""
     def plane(l):
         if l < 0:
             return np.zeros(W, np.uint32)
         m, r = batch.leaves[l]
         return mats[m][r, s]
+
+    def leaf(l):
+        if len(batch.leaves[l]) == 3:
+            m, r, t = batch.leaves[l]
+            row = kernels.pool_row(torch.from_numpy(mats[m].view(np.int32)),
+                                   torch.from_numpy(np.asarray(mats[t][r])))
+            return row[s].numpy().view(np.uint32)
+        return plane(l)
+
+    result = {}
+    for first, count, depth, off in batch.groups.tolist():
+        planes = np.stack([plane(l) for l in batch.planes[off: off + depth + 1]])
+        for c in range(first, first + count):
+            lo, hi, kd, at = batch.ranges[c].tolist()
+            assert at == off and kd >> 8 == depth  # the group's planes, read once
+            result[c] = walk_np(batch.walks[c], planes)
+    out = []
     for off, n, mid, _chain in batch.qinfo.tolist():
         if not (int(mask_words[mid, s >> 5]) >> (s & 31)) & 1:
             out.append(0)
@@ -224,17 +268,13 @@ def interpret_batch(batch, mats, mask_words, s):
         stack = []
         for code in batch.ops[off: off + n].tolist():
             op = code & 0xFF
-            if op == kernels.OP_LEAF:
-                m, r = batch.leaves[code >> 8]
-                stack.append(mats[m][r, s])
+            if op in (kernels.OP_LEAF, kernels.OP_ROWB):
+                assert code >> 8 < batch.n_rows  # a row read as a row is staged
+                stack.append(leaf(code >> 8))
             elif op == kernels.OP_ZERO:
                 stack.append(np.zeros(W, np.uint32))
             elif op == kernels.OP_RANGE:
-                lo, hi, kd, at = batch.ranges[code >> 8].tolist()
-                planes = np.stack([plane(l) for l in batch.planes[at: at + (kd >> 8) + 1]])
-                row = tbsi.range_rows(tbsi.RANGE_KINDS[kd & 0xFF],
-                                      torch.from_numpy(planes.view(np.int32)), lo, hi)
-                stack.append(row.numpy().view(np.uint32))
+                stack.append(result[code >> 8])
             else:
                 b, a = stack.pop(), stack.pop()
                 stack.append({kernels.OP_AND: a & b, kernels.OP_OR: a | b,
@@ -322,13 +362,15 @@ def test_compiled_batch_with_ranges_matches_plain(stacks, bsi_stack):
     ids = [k % len(BATCH_MASKS) for k in range(len(progs))]
     batch = kernels.compile_batch(progs, ids)
     # The 6 planes (one of them also a row leaf) and 4 rows of the two
-    # stacks, each once.
-    assert len(batch.leaves) == len(set(batch.leaves)) == 10
+    # stacks, each once, the 5 rows read as rows first.
+    assert len(batch.leaves) == len(set(batch.leaves)) == 10 and batch.n_rows == 5
     assert batch.ranges.shape[0] == len({p for t in RANGE_PROGS for p in kernels.compile_prog(
         t).ranges})
     kd = batch.ranges[:, 2]
     assert set((kd >> 8).tolist()) == {DEPTH}
-    assert (batch.planes == -1).sum() == 3  # GAP twice, NN_GONE once
+    # One group per plane list (FULL, GAP, NN_GONE), each list once.
+    assert batch.groups.shape[0] == 3 and batch.groups[:, 1].sum() == batch.ranges.shape[0]
+    assert (batch.planes == -1).sum() == 2
     words = kernels.mask_bits(BATCH_MASKS)
     want = kernels.count_batch_tree_plain(progs, torch_mats(mats), BATCH_MASKS, ids,
                                           "cpu").tolist()
@@ -349,10 +391,13 @@ def test_batch_of_ranges_reads_planes_once():
 
 
 def test_batch_past_the_stage_with_ranges():
-    """Three depth-63 ranges over three stacks (192 plane rows, past the
-    128-row stage: the kernel's direct path) beside row leaves: the plain
-    answers equal each query's own count, and the table holds every plane
-    once."""
+    """Three depth-63 ranges over three stacks (192 plane rows in the
+    table, none of them staged: the grouped pass reads planes from device
+    memory) beside row leaves take the stage; 64 more rows read as rows
+    (twice 65 staged rows and the range rows, past the 128-row stage) take
+    the kernel's direct path.  Either way the plain answers equal each
+    query's own count and the group walk's, and the table holds every
+    plane once."""
     rng = np.random.default_rng(4)
     deep = tuple(range(64))
     mats = [torch.from_numpy(rng.integers(0, 1 << 32, (64, 2, W), dtype=np.uint64)
@@ -360,19 +405,125 @@ def test_batch_past_the_stage_with_ranges():
     progs = [rg(k, (1 << 62) + 12345 * i, 1 << 61, planes=deep, slot=i % 3)
              for i, k in enumerate(tbsi.RANGE_KINDS)]
     progs += [("and", progs[0], progs[1]), ("or", ("row", 0, 70 - 64), progs[5])]
+    wide = progs + [("or",) + tuple(("row", 1, r) for r in range(32)),
+                    ("and", progs[3], ("or",) + tuple(("row", 1, r) for r in range(32, 64)))]
     masks = np.array([[1, 1], [0, 1]], dtype=bool)
-    ids = [k % 2 for k in range(len(progs))]
-    batch = kernels.compile_batch(progs, ids)
-    assert len(batch.leaves) == 192
-    got = kernels.count_batch_tree(progs, mats, masks, ids, "cpu").tolist()
     dev_masks = torch.from_numpy(masks.astype(np.int32))
-    assert got == [int(kernels.count_tree_plain(p, mats, dev_masks[i]))
-                   for p, i in zip(progs, ids)]
+    words = kernels.mask_bits(masks)
+    np_mats = [m.numpy().view(np.uint32) for m in mats]
+    for batch_progs, staged in ((progs, True), (wide, False)):
+        ids = [k % 2 for k in range(len(batch_progs))]
+        batch = kernels.compile_batch(batch_progs, ids)
+        # Every row read as a row is a plane too: 1 staged (plane 6 of
+        # stack 0), then 64 more (stack 1's).
+        assert len(batch.leaves) == 192 and batch.n_rows == (1 if staged else 65)
+        assert (kernels.batch_tile(batch) > 0) == staged
+        got = kernels.count_batch_tree(batch_progs, mats, masks, ids, "cpu").tolist()
+        assert got == [int(kernels.count_tree_plain(p, mats, dev_masks[i]))
+                       for p, i in zip(batch_progs, ids)]
+        per_shard = [interpret_batch(batch, np_mats, words, s) for s in range(2)]
+        assert [sum(col) for col in zip(*per_shard)] == got
     assert kernels.fits(progs[-1])
     five = ("or",) + tuple(rg("gt", k) for k in range(5))
     assert not kernels.fits(five)
     with pytest.raises(ValueError, match="range leaves"):
         kernels.compile_batch([five], [0])
+
+
+def random_bsi(rng, depth, S_=S):
+    """A BSI stack uint32[depth + 1, S_, W]: random value planes, the
+    not-null plane about three quarters set; shard 0 every plane all ones,
+    shard 1 all zero."""
+    m = rng.integers(0, 1 << 32, (depth + 1, S_, W), dtype=np.uint64).astype(np.uint32)
+    m[depth] |= rng.integers(0, 1 << 32, (S_, W), dtype=np.uint64).astype(np.uint32)
+    m[:, 0] = 0xFFFFFFFF
+    m[:, 1] = 0
+    return m
+
+
+def check_grouped(mesh, progs, mats, reference=True):
+    """A batch's plain answers against the reference's count_batch_tree
+    (``reference``), count_tree_plain per query and the group walk per
+    shard (interpret_batch); returns the compiled batch and the answers."""
+    ids = [k % len(BATCH_MASKS) for k in range(len(progs))]
+    got = kernels.count_batch_tree(progs, torch_mats(mats), BATCH_MASKS, ids, "cpu").tolist()
+    if reference:
+        assert got == jax_count_batch(mesh, progs, ids, mats, BATCH_MASKS)
+    dev_masks = torch.from_numpy(BATCH_MASKS.astype(np.int32))
+    assert got == [int(kernels.count_tree_plain(p, torch_mats(mats), dev_masks[i]))
+                   for p, i in zip(progs, ids)]
+    batch = kernels.compile_batch(progs, ids)
+    words = kernels.mask_bits(BATCH_MASKS)
+    per_shard = [interpret_batch(batch, mats, words, s) for s in range(S)]
+    assert [sum(col) for col in zip(*per_shard)] == got
+    return batch, got
+
+
+@pytest.mark.parametrize("depth", [1, 8, 63])
+def test_grouped_pass_every_kind(mesh, stacks, depth):
+    """Every RANGE_KINDS entry at the extreme predicates (0, 1, the top
+    value and the one under it) and a drawn one over one field: one group,
+    each distinct condition walked once in its walk form (strict ones
+    empty at the edges); beside rows too."""
+    rng = np.random.default_rng(100 + depth)
+    full = tuple(range(depth + 1))
+    top = (1 << depth) - 1
+    preds = sorted({0, 1, top, top - 1, int(rng.integers(0, top + 1))})
+    progs = [rg(kind, lo, preds[(j + 2) % len(preds)], planes=full)
+             for kind in tbsi.RANGE_KINDS for j, lo in enumerate(preds)]
+    progs += [("and", ("row", 0, 1), rg("gt", preds[-2], planes=full)),
+              ("or", rg("lt", 1, planes=full), ("row", 1, 2))]
+    batch, got = check_grouped(mesh, progs, stacks + [random_bsi(rng, depth)],
+                               reference=True)
+    assert batch.groups.tolist() == [[0, batch.ranges.shape[0], depth, 0]]
+    assert any(got) and any(w & kernels.WALK_STRICT for w in batch.walks[:, 2].tolist())
+
+
+def test_grouped_pass_two_fields(mesh, stacks):
+    """Conditions on two fields in one batch (depths 8 and 5): a group
+    each, a condition repeated across queries walked once, a plane that is
+    also a row leaf staged as a row, and a missing plane."""
+    rng = np.random.default_rng(21)
+    v8, v5 = random_bsi(rng, 8), random_bsi(rng, 5)
+    f8, f5 = tuple(range(9)), (0, 1, -1, 3, 4, 5)
+    a, b = ("range", "gt", 2, f8, 100, 0), ("range", "between", 3, f5, 3, 20)
+    progs = [a, b, ("and", a, b), ("or", ("row", 2, 4), b), ("andnot", a, ("row", 3, 5)),
+             ("range", "lte", 3, f5, 9, 0), a, ("xor", ("row", 0, 1), a, b)]
+    batch, got = check_grouped(mesh, progs, stacks + [v8, v5])
+    assert batch.groups[:, 1].tolist() == [1, 2] and batch.ranges.shape[0] == 3
+    # Plane 4 of v8 is a row leaf as well: staged as a row, walked from
+    # device memory; every other plane is read by the pass alone.
+    assert (2, 4) in batch.leaves[:batch.n_rows] and (2, 3) in batch.leaves[batch.n_rows:]
+    assert (batch.planes == -1).sum() == 1 and any(got)
+
+
+def test_grouped_pass_twelve_conditions(mesh, stacks):
+    """Twelve conditions on one field, one group: each walked once per
+    position from the same plane words."""
+    rng = np.random.default_rng(12)
+    full = tuple(range(9))
+    progs = [rg(tbsi.RANGE_KINDS[k % 7], int(x), int(x) + 40, planes=full)
+             for k, x in enumerate(np.linspace(3, 250, 12).astype(int))]
+    batch, got = check_grouped(mesh, progs, stacks + [random_bsi(rng, 8)])
+    assert batch.groups.tolist() == [[0, 12, 8, 0]] and batch.n_rows == 0
+    assert kernels.batch_tile(batch) == 256  # 12 range rows of 256 positions: 48 KiB
+
+
+@pytest.mark.parametrize("kind", list(tbsi.RANGE_KINDS))
+def test_walk_form_matches_range_rows(kind):
+    """walk_form's chains (strict ones starting empty, neq a negated eq,
+    depth 0's not-null plane) walked by walk_np equal ops.bsi.range_rows
+    for every predicate of depths 0 to 3 and high bits past the depth."""
+    rng = np.random.default_rng(7)
+    for depth in range(4):
+        planes = rng.integers(0, 1 << 32, (depth + 1, 64), dtype=np.uint64).astype(np.uint32)
+        for lo in range(1 << depth):
+            for hi in ((1 << depth) - 1 - lo, lo) if kind == "between" else (0,):
+                for high in (0, 1 << depth):
+                    want = tbsi.range_rows(kind, torch.from_numpy(planes.view(np.int32)), lo | high,
+                                           hi | high).numpy().view(np.uint32)
+                    walk = kernels.walk_form(kind, depth, lo | high, hi | high)
+                    assert np.array_equal(walk_np(walk, planes), want), (kind, depth, lo, hi)
 
 
 def test_count_batch_pool_with_ranges_matches_reference(mesh):
@@ -395,6 +546,34 @@ def test_count_batch_pool_with_ranges_matches_reference(mesh):
                            table=table)
     assert got.tolist() == want
     assert torch.equal(got, kernels.count_batch_tree_plain(progs, mats, BATCH_MASKS, ids, "cpu"))
+
+
+def test_grouped_pass_pool_rows_beside_ranges():
+    """K5P's batch with pool rows beside range leaves: the pool rows are
+    staged rows (first in the table), the range leaves one group walked
+    once; the group walk per shard equals the pool plain version, which
+    equals count_tree_plain per query."""
+    from test_torch_pool_count import make_case, mats_of
+
+    pool, table, dense, bsi = make_case(31, S, 9)
+    full = (0, 1, 2, 3)
+    rb = lambda r: ("rowb", 1, 2, r)  # noqa: E731
+    progs = [("and", rb(0), ("range", "gt", 3, full, 3, 0)),
+             ("or", rb(2), ("range", "lt", 3, full, 6, 0)),
+             ("andnot", ("range", "neq", 3, full, 2, 0), ("or", rb(3), ("row", 0, 2))),
+             ("and", rb(4), rb(5)), ("range", "gt", 3, full, 3, 0)]
+    ids = [k % len(BATCH_MASKS) for k in range(len(progs))]
+    mats = mats_of(pool, table, dense, bsi)
+    got = kernels.count_batch_tree(progs, mats, BATCH_MASKS, ids, "cpu")
+    batch = kernels.compile_batch(progs, ids)
+    assert batch.pooled and batch.groups.tolist() == [[0, 3, 3, 0]] and batch.n_rows == 6
+    assert kernels.batch_tile(batch, pooled=True) == 128  # (2 x 6 + 3) rows in 32 KiB
+    words = kernels.mask_bits(BATCH_MASKS)
+    per_shard = [interpret_batch(batch, [dense, pool, table, bsi], words, s) for s in range(S)]
+    assert [sum(col) for col in zip(*per_shard)] == got.tolist()
+    dev_masks = torch.from_numpy(BATCH_MASKS.astype(np.int32))
+    assert got.tolist() == [int(kernels.count_tree_plain(p, mats, dev_masks[i]))
+                            for p, i in zip(progs, ids)]
 
 
 def test_mask_bits_past_one_word():
