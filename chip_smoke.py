@@ -292,6 +292,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and dashboard_repair_serve_p50_ms, with the recompute's p50; every
    kernel count set to 0 before the phase and read after it
    (repair_launches).
+   cluster — after repair, before phase 5: three node processes (python
+   -m pilosa_tpu_torch server) on the one card, [cluster] replicas = 2,
+   node 0 the coordinator, nodes 1 and 2 with [gossip] seeds at node 0's
+   gossip port on loopback.  Each node's data directory is written before
+   it starts, with the port's Holder, from the main path's own words (f,
+   24 rows; top, 16 rows): only the shards the port's placement gives it
+   (about 640 of the 960, 3.3 GB), its id and the three-node topology.
+   K9 topn_slab first at the phase's shape in this process (the main
+   engine's top stack, node 0's shards masked), exact against its plain
+   version and timed.  Then Count(Intersect(Row(f=a), Row(f=b))) and
+   TopN(top, Row(f=a), n=5) through every node's HTTP, equal to numpy
+   (the TopN to the reference's two-phase walk over the words); each
+   node's /debug/vars must show K1 and K9 launches and the slab lane
+   served with no decline.  A Set through the node that owns no replica
+   of its shard, read back from both owners; the coordinator's
+   cluster_count_p50_ms and cluster_topn_p50_ms beside the same queries'
+   single-node HTTP p50s (an in-process node over the main engine); then
+   node 2 killed and the same queries through nodes 0 and 1 again, the
+   reads failing over to the surviving replicas.  The data directories
+   are removed at the end.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -825,6 +845,80 @@ def check_topn_kernels(device, seed):
     log(f"kernels: {n} comparisons exact (K3 with its trim, and P2, against plain versions)")
     err["topn_trim"] = max(err["topn_trim"], check_trim(device, seed))
     return err
+
+
+# K9's checks: K_pad at each width its sorts take, slabs below and past the
+# qualifiers, thresholds that gate nothing, some or every candidate.
+SLAB_CHECK_K = (8, 64, 512, 4096)
+
+
+def check_topn_slab(device, seed):
+    """K9 topn_slab against its plain version (topn_slab_tree_plain) on the
+    card: K_pad 8, 64, 512 and 4096; candidate rows repeated (equal scores)
+    and cache counts drawn from a few values (ties in the walk), absent
+    from a shard's cache (count 0) for about a third; thresholds that gate
+    nothing, about half and every pair (fewer qualifiers than n); n_sel 0,
+    1, 5 and K_pad; slabs of 1, 8 pairs and K_pad (qual > k_out); chain,
+    interpreter and zero src trees; masks of every shard and a ragged set;
+    two streams.  Returns {"topn_slab": max |err|}."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    rng = np.random.default_rng(seed + 9)
+    err, n = 0, 0
+    for K in SLAB_CHECK_K:
+        S = 24 if K <= 512 else 6
+        mats = [_adversarial_stack(rng, 4, S, device), _adversarial_stack(rng, 4, S, device)]
+        R = 16
+        cand = _adversarial_stack(rng, R, S, device)
+        idx = rng.integers(0, R, K).astype(np.int32)  # rows repeat: equal scores
+        cnt = rng.choice([0, 1 << 18, 1 << 19, 700000], size=(K, S)).astype(np.int32)
+        ci = torch.from_numpy(idx).to(device)
+        cn = torch.from_numpy(cnt).to(device)
+        ragged = (rng.random(S) < 0.5).astype(np.int32)
+        ragged[0] = 1
+        for prog in TOPN_SRC_PROGS[:3] if K <= 64 else TOPN_SRC_PROGS[:1]:
+            code = kernels.compile_prog(prog)
+            for m in (np.ones(S, np.int32), ragged):
+                mask = torch.from_numpy(m).to(device)
+                scores, _ = kernels.topn_tree_plain(prog, mats, mask, cand, ci)
+                mid = int(scores[scores > 0].float().median()) if (scores > 0).any() else 1
+                for thr in (1, mid, 1 << 21):
+                    for n_sel in sorted({0, 1, 5, K}):
+                        for k_out in sorted({1, 8, K}):
+                            got = kernels.topn_slab_cuda(code, mats, mask, cand, ci, cn, thr,
+                                                         n_sel, k_out)
+                            torch.cuda.synchronize()
+                            want = kernels.slab_select_plain(scores, cn, thr, n_sel, k_out)
+                            what = f"K_pad={K} {prog} thr={thr} n={n_sel} k_out={k_out}"
+                            for g, w, part in zip(got, want, ("vals", "idx", "qual")):
+                                err = max(err, _exact("K9", g, w, f"{part} {what}"))
+                            n += 1
+    # Launches overlapping on two streams, each against its plain version.
+    S, K = 24, 64
+    side = torch.cuda.Stream(device=device)
+    mats = [_adversarial_stack(rng, 4, S, device)]
+    cand = _adversarial_stack(rng, 8, S, device)
+    ci = torch.from_numpy(rng.integers(0, 8, K).astype(np.int32)).to(device)
+    cn = torch.from_numpy(rng.integers(0, 1 << 20, (K, S)).astype(np.int32)).to(device)
+    mask = torch.ones(S, dtype=torch.int32, device=device)
+    code = kernels.compile_prog(TOPN_SRC_PROGS[0])
+    torch.cuda.synchronize()
+    got = []
+    for i in range(8):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.default_stream(device)):
+            got.append((i + 1, kernels.topn_slab_cuda(code, mats, mask, cand, ci, cn, 1, i + 1,
+                                                      16)))
+    torch.cuda.synchronize()
+    for n_sel, g in got:
+        want = kernels.topn_slab_tree_plain(TOPN_SRC_PROGS[0], mats, mask, cand, ci, cn, 1,
+                                            n_sel, 16)
+        for gg, w in zip(g, want):
+            err = max(err, _exact("K9", gg, w, f"on two streams, n={n_sel}"))
+        n += 1
+    log(f"kernels: {n} comparisons exact (K9 topn_slab against topn_slab_tree_plain)")
+    return {"topn_slab": err}
 
 
 # The trim's own checks: K and n_out on both sides of its sort's widths
@@ -3143,6 +3237,7 @@ KERNEL_COUNTERS = {
     "fused_tree_pool": ("kernels", "fused_tree_pool_cuda", "launches"),
     "range_leaf": ("kernels", "range_leaf", "launches"),
     "rowb": ("kernels", "pool_leaf", "launches"),
+    "topn_slab": ("kernels", "topn_slab_cuda", "launches"),
 }
 COUNT_KERNELS = ("count_tree_dense", "count_tree_blocks", "count_batch_tree")
 BSI_KERNELS = ("range_leaf", "sum_tree", "minmax_tree") + COUNT_KERNELS
@@ -7447,7 +7542,7 @@ def _start_node(cmd, data_dir, port, log_path, extra=()):
     return proc
 
 
-def _wait_ready(proc, port, log_path, what):
+def _wait_ready(proc, port, log_path, what, timeout=None):
     """Poll /readyz until 200 (at most NODE_READY_S from the start); a
     node still opening its holder has bound its socket but serves nothing
     yet, so each poll has a short timeout.  Returns (seconds, whether a
@@ -7456,9 +7551,10 @@ def _wait_ready(proc, port, log_path, what):
     from pilosa_tpu_torch.net.client import ClientError
 
     client = InternalClient(f"http://localhost:{port}", timeout=2.0, retries=0)
+    timeout = NODE_READY_S if timeout is None else timeout
     t0 = time.perf_counter()
     warming = False
-    while time.perf_counter() - t0 < NODE_READY_S:
+    while time.perf_counter() - t0 < timeout:
         if proc.poll() is not None:
             raise AssertionError(f"http: the node exited ({proc.returncode}) {what}: "
                                  f"{open(log_path).read()[-3000:]}")
@@ -7469,7 +7565,7 @@ def _wait_ready(proc, port, log_path, what):
             if e.code == 503 and "warming" in (e.body or ""):
                 warming = True
         time.sleep(0.1)
-    raise AssertionError(f"http: /readyz not 200 within {NODE_READY_S} s {what}")
+    raise AssertionError(f"http: /readyz not 200 within {timeout} s {what}")
 
 
 def _stop_node(proc, log_path):
@@ -8079,6 +8175,343 @@ def run_procmode_node(w10, c2_texts, node_cmd=None, node_shards=NODE_SHARDS):
 
 
 # -- phase 5: the write path -------------------------------------------------
+
+# -- the cluster phase --------------------------------------------------------
+
+CLUSTER_NODES = 3
+CLUSTER_REPLICAS = 2
+CLUSTER_READY_S = 240.0  # each node loads ~3.3 GB and warms its stacks first
+CLUSTER_REPS = 12  # timed queries of each kind, each a fresh one
+CLUSTER_SET_ROW = 1  # field cl's row: a field of its own, so f and top keep their stacks
+
+
+def cluster_placement(n_shards, n_nodes=CLUSTER_NODES, replicas=CLUSTER_REPLICAS):
+    """{node id: [shards it owns]} and {shard: [owner ids, primary first]}
+    by the port's placement (cluster.shard_nodes) over nodes n0..n{k-1}."""
+    from pilosa_tpu_torch.cluster import Cluster, Node
+
+    nodes = [Node(f"n{i}", f"http://n{i}", i == 0) for i in range(n_nodes)]
+    c = Cluster(nodes[0], replica_n=replicas)
+    c.nodes = list(nodes)
+    owners = {sh: [n.id for n in c.shard_nodes("bench", sh)] for sh in range(n_shards)}
+    owned = {n.id: [sh for sh in range(n_shards) if n.id in owners[sh]] for n in nodes}
+    return owned, owners
+
+
+def write_node_dirs(dirs, owned, owners, host, topology, threads=8):
+    """Every node's data directory before it starts, with the port's
+    Holder: index bench (as build_index: f and top, plus an empty field cl
+    for the replicated Set) holding only the shards that node owns, each
+    fragment's snapshot and ranked cache on disk, the node's id and the
+    cluster's topology.  Each shard's fragment bytes are serialized once
+    (``codec.serialize_rows``, what a snapshot writes) and written once,
+    ``threads`` shards at a time: its second owner's file is a hard link
+    to the first's, since the phase never writes f or top (a node appends
+    to a fragment's file only when it writes that fragment, and replaces
+    it whole when it snapshots).  The ranked caches are written for each
+    owner."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.core.view import VIEW_STANDARD
+    from pilosa_tpu_torch.ops.bitops import popcount_np
+    from pilosa_tpu_torch.roaring import codec
+
+    fields = (("f", F_ROWS), ("top", TOP_ROWS))
+    paths = {}  # (node id, field, shard) -> the fragment's file
+    for nid, data_dir in dirs.items():
+        os.makedirs(data_dir, exist_ok=True)
+        holder = Holder(data_dir, device="cpu")
+        holder.open()
+        idx = holder.create_index("bench")
+        for name, _ in fields:
+            view = idx.create_field(name).view_if_not_exists(VIEW_STANDARD)
+            for sh in owned[nid]:
+                paths[nid, name, sh] = view.fragment_if_not_exists(sh).path
+        idx.create_field("cl")
+        holder.close()
+        with open(os.path.join(data_dir, ".id"), "w") as f:
+            f.write(nid)
+        with open(os.path.join(data_dir, ".topology"), "w") as f:
+            json.dump({"nodes": topology}, f)
+
+    def one(sh):
+        for name, rows in fields:
+            words = [host[name][r][sh] for r in rows]
+            data = codec.serialize_rows((r, w, None) for r, w in zip(rows, words))
+            cache = json.dumps({"pairs": [[r, int(popcount_np(w))] for r, w in zip(rows, words)]})
+            first = paths[owners[sh][0], name, sh]
+            with open(first, "wb") as f:
+                f.write(data)
+            for nid in owners[sh]:
+                path = paths[nid, name, sh]
+                if path != first:
+                    os.remove(path)
+                    os.link(first, path)
+                with open(path + ".cache", "w") as f:
+                    f.write(cache)
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(one, sorted(owners)))
+
+
+def cluster_config(path, i, gossip_ports, budget):
+    seeds = "" if i == 0 else f'seeds = ["127.0.0.1:{gossip_ports[0]}"]\n'
+    with open(path, "w") as f:
+        f.write(
+            "[cluster]\n"
+            f"replicas = {CLUSTER_REPLICAS}\n"
+            f"coordinator = {'true' if i == 0 else 'false'}\n"
+            "[gossip]\n"
+            f"port = {gossip_ports[i]}\n"
+            + seeds +
+            'probe-interval = "200ms"\n'
+            'probe-timeout = "100ms"\n'
+            'push-pull-interval = "1s"\n'
+            "suspicion-mult = 2\n"
+            "[anti-entropy]\n"
+            'interval = "1h"\n'
+            "[engine]\n"
+            f"device-budget-bytes = {budget}\n")
+
+
+def slab_inputs(engine, shards, src_row=10, n=5):
+    """K9's arguments as TorchEngine.topn_device_full builds them, for
+    TopN(top, Row(f=src_row), n) over ``shards`` of the main engine."""
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import fusion
+
+    canonical = engine.canonical_shards("bench")
+    stack = engine.field_stack("bench", "top", "standard", canonical)
+    entry = engine._topn_slab_candidates("bench", "top", stack)
+    K_pad = entry.host_cnt.shape[1]
+    k_out = min(K_pad, fusion._pow2(max(2 * n, 8)))
+    mask = engine._mask_words(shards, canonical)
+    src = pql.parse(f"Row(f={src_row})").calls[0]
+    prog, lw = engine._lower_src("bench", src, canonical)
+    return (prog, lw.mats, mask, stack.matrix, entry.cand_idx, entry.dev_cnt, 1, n, k_out), lw
+
+
+def time_slab(engine, device, err, shards):
+    """K9 at the cluster phase's shape on the main engine: node 0's shards
+    of top's 960 masked in, TopN(top, Row(f=10), n=5): exact against its
+    plain version, then timed beside it.  Returns the times and the bytes
+    of its bound: the candidate and src rows of the masked shards, 128 KiB
+    each, read once."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    args, lw = slab_inputs(engine, shards)
+    got = kernels.topn_slab_tree(*args)
+    torch.cuda.synchronize()
+    want = kernels.topn_slab_tree_plain(*args)
+    for g, w, part in zip(got, want, ("vals", "idx", "qual")):
+        err["topn_slab"] = max(err.get("topn_slab", 0),
+                               _exact("K9", g, w, f"{part} at the cluster phase's shape"))
+    n_real = len(TOP_ROWS)
+    byts = (n_real + len(lw.mats)) * len(shards) * 32768 * 4
+    K_pad = args[4].shape[0]
+    # Two bitonic sorts of K_pad keys a shard: log2(K)(log2(K)+1)/2 steps,
+    # K/2 compare-exchanges a step, about 4 integer operations each.
+    lg = K_pad.bit_length() - 1
+    ops = 2 * (lg * (lg + 1) // 2) * (K_pad // 2) * 4 * len(shards)
+    bound = least_ms(byts, ops)
+    sync = torch.cuda.synchronize
+    # Per call: the score and the selection kernels, one launch each.
+    t = measured(lambda: kernels.topn_slab_tree(*args), "topn_slab", sync, per_call=True,
+                 bound_ms=bound)
+    plain = p50_ms(lambda: kernels.topn_slab_tree_plain(*args), 3, sync, batch=1)
+    _times_line(f"K9 topn_slab (K_pad {K_pad}, {len(shards)} of 960 shards)", t, bound, plain,
+                ", library: none (no popcount in PyTorch)")
+    return t, plain, byts, ops
+
+
+def _node_doc(client, path):
+    return json.loads(client._get(path, raw=True))
+
+
+def _cluster_query(client, q, want, what):
+    got = client.query("bench", q)["results"][0]
+    if isinstance(got, list):
+        got = [(p["id"], p["count"]) for p in got]
+    if got != want:
+        raise AssertionError(f"cluster: {q} {what}: {got} != numpy {want}")
+    return got
+
+
+def run_cluster_path(device, holder, engine, host, seed, err, node_cmd=None,
+                     n_shards=N_SHARDS):
+    """The cluster phase (module docstring).  Returns (out, kernels-line
+    entry of K9)."""
+    import shutil
+    import signal
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.net import InternalClient
+    from pilosa_tpu_torch.net.server import serve
+
+    cuda = device.type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "cluster_nodes")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {"card": card_line()}
+    owned, owners = cluster_placement(n_shards)
+    out["shards_per_node"] = {k: len(v) for k, v in owned.items()}
+
+    # K9 at the phase's shape, in this process.
+    entry = None
+    if cuda:
+        t, plain, byts, ops = time_slab(engine, device, err, owned["n0"])
+        out["k9_at_phase_shape"] = {"ms": t["ms"], "device_ms": t["device_ms"],
+                                    "host_us": t["host_us"], "plain_ms": plain,
+                                    "bound_ms": least_ms(byts, ops)}
+
+    ports = [_free_port() for _ in range(CLUSTER_NODES)]
+    gports = [_free_port() for _ in range(CLUSTER_NODES)]
+    topology = [{"id": f"n{i}", "uri": f"http://localhost:{ports[i]}",
+                 "isCoordinator": i == 0, "state": "READY", "devices": 1}
+                for i in range(CLUSTER_NODES)]
+    t0 = time.perf_counter()
+    dirs = [os.path.join(work, f"n{i}") for i in range(CLUSTER_NODES)]
+    write_node_dirs({f"n{i}": d for i, d in enumerate(dirs)}, owned, owners, host, topology)
+    node_bytes = max(len(v) for v in owned.values()) * (len(F_ROWS) + len(TOP_ROWS)) * 32768 * 4
+    out["write_s"] = time.perf_counter() - t0
+    log(f"cluster: wrote {CLUSTER_NODES} data directories ({out['shards_per_node']} shards, "
+        f"{node_bytes / 1e9:.2f} GB of rows on the busiest) in {out['write_s']:.3f} s")
+
+    cmd = node_cmd or [sys.executable, "-m", "pilosa_tpu_torch"]
+    procs, logs = [], []
+    clients = [InternalClient(f"http://localhost:{p}", timeout=600) for p in ports]
+    try:
+        t0 = time.perf_counter()
+        for i in range(CLUSTER_NODES):
+            cfg = os.path.join(work, f"n{i}.toml")
+            cluster_config(cfg, i, gports, 2 * node_bytes)
+            logs.append(os.path.join(work, f"n{i}.log"))
+            procs.append(_start_node(cmd, dirs[i], ports[i], logs[i], extra=["-c", cfg]))
+        for i in range(CLUSTER_NODES):
+            _wait_ready(procs[i], ports[i], logs[i], f"(cluster node n{i})",
+                        timeout=CLUSTER_READY_S)
+        # Every node knows every shard once each node's NodeStatus, sent to
+        # its peers when it serves, is through: Explain plans without
+        # dispatching.
+        for i, c in enumerate(clients):
+            _poll(f"cluster: n{i} knows all {n_shards} shards",
+                  lambda c=c: sum(c.query("bench", "Explain(Count(Row(f=10)))")["results"][0][k]
+                                  for k in ("localShards", "remoteShards")) == n_shards, 60.0)
+        out["ready_s"] = time.perf_counter() - t0
+        st = _node_doc(clients[0], "/status")
+        if st["state"] != "NORMAL" or len(st["nodes"]) != CLUSTER_NODES:
+            raise AssertionError(f"cluster: /status of the coordinator: {st}")
+        log(f"cluster: three nodes ready in {out['ready_s']:.3f} s; /status {st['state']}, "
+            f"nodes {[n['id'] for n in st['nodes']]}")
+
+        f, o = host["f"], TopNOracle(host["top"])
+        count_q = "Count(Intersect(Row(f=10), Row(f=22)))"
+        count_want = int(and_popcounts(f[10][:n_shards], f[22][:n_shards]).sum())
+        topn_q = "TopN(top, Row(f=10), n=5)"
+        topn_want = o.two_phase(f[10], 5)
+        for i, c in enumerate(clients):
+            _cluster_query(c, count_q, count_want, f"through n{i}")
+            _cluster_query(c, topn_q, topn_want, f"through n{i}")
+        launches = {}
+        for i, c in enumerate(clients):
+            dv = _node_doc(c, "/debug/vars")
+            kl = dv["engine"]["kernelLaunches"]
+            slab = dv["engineCaches"]["topnSlab"]
+            launches[f"n{i}"] = {"count_tree_dense": kl["count_tree_dense"],
+                                 "topn_slab": kl["topn_slab"], "slab": slab}
+            if cuda and (kl["count_tree_dense"] <= 0 or kl["topn_slab"] <= 0):
+                raise AssertionError(f"cluster: node n{i} launched no K1 or no K9: {kl}")
+            if slab["served"] <= 0 or any(slab["declines"].values()):
+                raise AssertionError(f"cluster: node n{i}'s slab lane: {slab}")
+        out["launches"] = launches
+        log(f"cluster: {count_q} and {topn_q} exact through every node; launches {launches}")
+
+        # A Set through the node that owns no replica of the bit's shard.
+        sh = next(x for x in range(n_shards) if "n1" not in owners[x])
+        col = sh * (1 << 20) + 12345
+        res = clients[1].query("bench", f"Set({col}, cl={CLUSTER_SET_ROW})")["results"]
+        if res != [True]:
+            raise AssertionError(f"cluster: Set through n1: {res}")
+        for nid in owners[sh]:
+            c = clients[int(nid[1:])]
+            got = c.query("bench", f"Row(cl={CLUSTER_SET_ROW})", shards=[sh],
+                          remote=True)["results"][0]["columns"]
+            if got != [col]:
+                raise AssertionError(f"cluster: owner {nid} of shard {sh} holds {got}, not "
+                                     f"the Set's column {col}")
+        out["set"] = {"shard": sh, "owners": owners[sh], "through": "n1"}
+        log(f"cluster: Set({col}) through n1 read back from both owners {owners[sh]}")
+
+        # Coordinator p50s, each query a fresh one, beside one node over
+        # the main engine (in process, its memo off).
+        pairs = [(10 + k, 22 + k) for k in range(CLUSTER_REPS)]
+        srcs = [10 + k for k in range(CLUSTER_REPS)]
+
+        def p50(client):
+            ct, tt = [], []
+            for a, b in pairs:
+                t1 = time.perf_counter()
+                client.query("bench", f"Count(Intersect(Row(f={a}), Row(f={b})))")
+                ct.append(time.perf_counter() - t1)
+            for a in srcs:
+                t1 = time.perf_counter()
+                client.query("bench", f"TopN(top, Row(f={a}), n=5)")
+                tt.append(time.perf_counter() - t1)
+            return statistics.median(ct) * 1e3, statistics.median(tt) * 1e3
+
+        out["cluster_count_p50_ms"], out["cluster_topn_p50_ms"] = p50(clients[0])
+        a, b = pairs[-1]
+        _cluster_query(clients[0], f"Count(Intersect(Row(f={a}), Row(f={b})))",
+                       int(and_popcounts(f[a][:n_shards], f[b][:n_shards]).sum()),
+                       "(the last timed Count)")
+        _cluster_query(clients[0], f"TopN(top, Row(f={srcs[-1]}), n=5)",
+                       o.two_phase(f[srcs[-1]], 5), "(the last timed TopN)")
+        api = API(holder=holder, engine=engine)
+        srv, _ = serve(api, "localhost", 0)
+        try:
+            with memo_off(engine):
+                one = InternalClient(f"http://localhost:{srv.server_address[1]}", timeout=600)
+                out["single_count_p50_ms"], out["single_topn_p50_ms"] = p50(one)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        log(f"cluster: coordinator HTTP p50 Count {out['cluster_count_p50_ms']:.3f} ms, TopN "
+            f"{out['cluster_topn_p50_ms']:.3f} ms; one node over the same index "
+            f"{out['single_count_p50_ms']:.3f} ms and {out['single_topn_p50_ms']:.3f} ms")
+
+        # Node n2 killed: the same reads fail over to the replicas.
+        procs[2].send_signal(signal.SIGKILL)
+        procs[2].wait(60)
+        t0 = time.perf_counter()
+        for i in (0, 1):
+            _cluster_query(clients[i], count_q, count_want, f"through n{i} with n2 killed")
+            _cluster_query(clients[i], topn_q, topn_want, f"through n{i} with n2 killed")
+        out["failover_s"] = time.perf_counter() - t0
+        log(f"cluster: n2 killed; {count_q} and {topn_q} exact through n0 and n1 "
+            f"in {out['failover_s']:.3f} s")
+    finally:
+        for i, proc in enumerate(procs):
+            if proc.poll() is None:
+                try:
+                    _stop_node(proc, logs[i])
+                except AssertionError:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                    raise
+        shutil.rmtree(work, ignore_errors=True)
+    if cuda:
+        n_k9 = sum(v["topn_slab"] for v in out["launches"].values())
+        entry = _entry("topn_slab", "pilosa_tpu_torch/csrc/topn_slab.cu",
+                       "pilosa_tpu/parallel/kernels.py:396", n_k9, err["topn_slab"], t, plain,
+                       byts, ops, None)
+        entry["library"] = "none: no popcount in PyTorch"
+    return out, entry
+
 
 OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
 NEW_ROW = 99  # no field of the index has this row
@@ -9404,6 +9837,7 @@ def main(argv=None):
 
     err = check_kernels(device, args.seed)
     err.update(check_topn_kernels(device, args.seed))
+    err.update(check_topn_slab(device, args.seed))
     err.update(check_batch_kernel(device, args.seed))
     err.update(check_bsi_kernels(device, args.seed))
     err.update(check_batch_ranges(device, args.seed))
@@ -9507,6 +9941,10 @@ def main(argv=None):
     repair = run_repair_path(device)
     log("repair: " + json.dumps(repair))
     mark("repair")
+    cluster, k9_entry = run_cluster_path(device, holder, engine, host, args.seed, err)
+    log("cluster: " + json.dumps(cluster))
+    kern.append(k9_entry)
+    mark("cluster")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     mark("write")

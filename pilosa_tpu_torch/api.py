@@ -19,8 +19,16 @@ observe ``pilosa_query_seconds`` and write the long-query log line.
 facts a single node answers (``node``, ``hosts``, ``state``,
 ``readiness``, ``warm_status``) back ``/status`` and ``/readyz``.
 
-The reference's other methods belong to modules not ported yet; calling one
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it
+With a cluster attached (``attach_cluster``), schema changes are broadcast
+to the peers, imports group their bits by shard and go to every live owner
+(a DOWN owner's miss queued as a hint), ``cluster_message`` applies the
+peers' control-plane messages, and the anti-entropy and resize calls
+(``fragment_blocks``, ``fragment_block_data``, the attribute diffs,
+``get_translate_data``) and the cluster's admin (``set_coordinator``,
+``remove_node``, ``resize_abort``) are served, as in ``pilosa_tpu/api.py``.
+
+The multi-process mesh's two methods are not ported yet; calling one raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it
 (``_UNPORTED``), so nothing left out can change an answer silently.
 """
 
@@ -47,8 +55,9 @@ from .core.view import VIEW_STANDARD
 from .executor import ExecOptions, Executor, QueryResponse
 from .executor.translate import QueryTranslator
 from .parallel.engine import TorchEngine
-from .roaring import codec
+from .roaring import Bitmap, codec
 from .util import events as events_mod
+from .util import fanout
 from .util import heat  # noqa: F401 — feeds heat, /debug/sequences and the advisor
 from .util import plans
 from .util import tracing
@@ -59,6 +68,7 @@ from .util.stats import (
     METRIC_INGEST_BATCHES,
     METRIC_INGEST_BITS,
     METRIC_INGEST_CHANGED,
+    METRIC_INGEST_DEGRADED_BATCHES,
     METRIC_INGEST_SECONDS,
     METRIC_QUERY,
     REGISTRY,
@@ -67,22 +77,10 @@ from .util.tracing import Tracer
 
 # Methods of the reference's API that this module leaves out, and the
 # ROADMAP.md item that ports each.
-_ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
+_ITEM_15C = "Queue 1 item 15 part C (the multi-process mesh)"
 _UNPORTED = {
-    "attach_cluster": _ITEM_15,
-    "cluster_message": _ITEM_15,
-    "shard_nodes": _ITEM_15,
-    "set_coordinator": _ITEM_15,
-    "remove_node": _ITEM_15,
-    "resize_abort": _ITEM_15,
-    "get_translate_data": _ITEM_15,
-    "mesh_ticket": _ITEM_15,
-    "mesh_collective_accept": _ITEM_15,
-    "fragment_blocks": _ITEM_15,
-    "fragment_block_data": _ITEM_15,
-    "delete_available_shard": _ITEM_15,
-    "index_attr_diff": _ITEM_15,
-    "field_attr_diff": _ITEM_15,
+    "mesh_ticket": _ITEM_15C,
+    "mesh_collective_accept": _ITEM_15C,
 }
 
 
@@ -95,9 +93,10 @@ class NotFoundError(ApiError):
 
 
 class QueryRequest:
-    """handler.go:21-47, single node.  ``remote`` (a peer's replay) is
-    accepted so that a caller that sets it gets an error naming the item
-    that ports it, never a silently different response.
+    """handler.go:21-47.  ``remote`` marks a peer's replay.
+    ``replica_read`` and ``freshness_ms`` (X-Pilosa-Replica-Read,
+    X-Pilosa-Freshness-Ms) override the cluster's replica-read mode and
+    freshness bound for this request ("" and None defer to them).
     ``trace_context`` (the caller's X-Trace-Id) roots the query's span in
     the caller's trace.  ``profile`` returns the recorded query plan with
     the response; ``tenant`` keys the plan's cost attribution (the
@@ -115,6 +114,8 @@ class QueryRequest:
         trace_context=None,
         profile: bool = False,
         tenant: str = "default",
+        replica_read: str = "",
+        freshness_ms: Optional[float] = None,
     ):
         self.index = index
         self.query = query
@@ -123,6 +124,8 @@ class QueryRequest:
         self.exclude_row_attrs = exclude_row_attrs
         self.exclude_columns = exclude_columns
         self.remote = remote
+        self.replica_read = replica_read
+        self.freshness_ms = freshness_ms
         self.trace_context = trace_context
         self.profile = profile
         self.tenant = tenant or "default"
@@ -181,15 +184,20 @@ class API:
     reference's (pilosa_tpu/api.py:140-200): the default tracer is a real
     span tracer, so every response carries a trace id.  ``node`` is the
     dict ``/status`` reports for this node (the Server passes its id and
-    address).  ``with_engine=False`` builds no engine: every query runs on
-    the host lane (the Server's ``[mesh] devices = -1``)."""
+    address), or the cluster's ``Node``.  ``with_engine=False`` builds no
+    engine: every query runs on the host lane (the Server's ``[mesh]
+    devices = -1``).  ``cluster`` attaches a ``cluster.Cluster``."""
 
     def __init__(self, holder: Optional[Holder] = None,
                  translate_store: Optional[TranslateFile] = None,
                  engine: Optional[TorchEngine] = None, device=None, stats=None,
                  tracer=None, long_query_time: float = 0.0, logger=None, journal=None,
-                 node: Optional[dict] = None, with_engine: bool = True):
+                 node=None, with_engine: bool = True, cluster=None):
         self.long_query_time = long_query_time
+        self.cluster = None
+        # The gossip transport, for the readiness probe's convergence
+        # check: set by the Server after it starts gossip.
+        self.gossip = None
         self.logger = logger if logger is not None else NopLogger()
         self.journal = journal if journal is not None else events_mod.JOURNAL
         self.tracer = tracer if tracer is not None else Tracer()
@@ -230,6 +238,25 @@ class API:
         self.executor = Executor(self.holder, engine=self.engine,
                                  translator=QueryTranslator(self.translate_store),
                                  stats=stats)
+        if cluster is not None:
+            self.attach_cluster(cluster, node)
+
+    def attach_cluster(self, cluster, node=None):
+        """Wire the cluster into the executor and install the create-shard
+        broadcast (view.go:226 CreateShardMessage)."""
+        self.cluster = cluster
+        self._node = node if node is not None else cluster.node
+        self.executor.cluster = cluster
+        if cluster.holder is None:
+            cluster.holder = self.holder
+
+        def on_create_shard(index, field, shard):
+            # Gossiped asynchronously, as the reference's SendAsync; the
+            # HTTP fan-out when no gossip transport is attached.
+            cluster.send_async({"type": "create-shard", "index": index, "field": field,
+                                "shard": shard})
+
+        self.holder.set_on_create_shard(on_create_shard)
 
     @property
     def cq(self):
@@ -262,12 +289,11 @@ class API:
 
     @staticmethod
     def _exec_options(req: QueryRequest) -> ExecOptions:
-        if req.remote:
-            raise NotImplementedError(
-                f"remote queries are not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_15}")
-        return ExecOptions(exclude_row_attrs=req.exclude_row_attrs,
+        return ExecOptions(remote=req.remote, exclude_row_attrs=req.exclude_row_attrs,
                            exclude_columns=req.exclude_columns,
-                           column_attrs=req.column_attrs)
+                           column_attrs=req.column_attrs,
+                           replica_read=getattr(req, "replica_read", ""),
+                           freshness_ms=getattr(req, "freshness_ms", None))
 
     def _long_query(self, req: QueryRequest, elapsed: float, span):
         """The long-query log line (api.go:1021, server LongQueryTime)."""
@@ -281,7 +307,10 @@ class API:
         start = time.monotonic()
         # The query's plan: the executor, engine and batcher stamp their
         # decisions on it while the span carries the timing tree.
-        plan = plans.begin(req.index, req.query, tenant=req.tenant, profile=req.profile)
+        # A peer's replay records no plan: the coordinator's plan charges
+        # the whole query.
+        plan = None if req.remote else plans.begin(req.index, req.query, tenant=req.tenant,
+                                                   profile=req.profile)
         with self.tracer.start_span("api.Query", parent=req.trace_context, index=req.index,
                                     remote=req.remote) as span, plans.attach(plan):
             resp = self.executor.execute(req.index, req.query, req.shards, opt)
@@ -328,7 +357,8 @@ class API:
         # batcher's drain thread.
         span = self.tracer.begin("api.Query", parent=req.trace_context, index=req.index,
                                  pipelined=True)
-        plan = plans.begin(req.index, req.query, tenant=req.tenant, profile=req.profile)
+        plan = None if req.remote else plans.begin(req.index, req.query, tenant=req.tenant,
+                                                   profile=req.profile)
         if plan is not None:
             plan.pipelined = True
         with tracing.attach(span), plans.attach(plan):
@@ -362,7 +392,10 @@ class API:
     # -- schema (api.go :129-386, 625-687) ---------------------------------
 
     def create_index(self, name: str, keys: bool = False, track_existence: bool = True):
-        return self.holder.create_index(name, keys=keys, track_existence=track_existence)
+        idx = self.holder.create_index(name, keys=keys, track_existence=track_existence)
+        self._broadcast({"type": "create-index", "index": name, "cid": idx.creation_id,
+                         "meta": {"keys": keys}})
+        return idx
 
     def index(self, name: str):
         idx = self.holder.index(name)
@@ -379,12 +412,17 @@ class API:
         self.holder.tombstone(cid)
         for fcid in field_cids:
             self.holder.tombstone(fcid)
+        self._broadcast({"type": "delete-index", "index": name, "cid": cid,
+                         "fieldCids": field_cids})
 
     def create_field(self, index_name: str, field_name: str, options=None):
         idx = self.index(index_name)
         if isinstance(options, dict):
             options = FieldOptions.from_dict(options)
-        return idx.create_field(field_name, options)
+        f = idx.create_field(field_name, options)
+        self._broadcast({"type": "create-field", "index": index_name, "field": field_name,
+                         "cid": f.creation_id, "meta": f.options.to_dict()})
+        return f
 
     def field(self, index_name: str, field_name: str):
         f = self.index(index_name).field(field_name)
@@ -399,6 +437,8 @@ class API:
         idx.delete_field(field_name)
         self.holder.bump_shard_epoch(index_name)
         self.holder.tombstone(cid)
+        self._broadcast({"type": "delete-field", "index": index_name, "field": field_name,
+                         "cid": cid})
 
     def schema(self) -> List[dict]:
         return self.holder.schema()
@@ -415,13 +455,126 @@ class API:
         self.holder.bump_shard_epoch(index_name)
         if v.path and os.path.isdir(v.path):
             shutil.rmtree(v.path)
+        self._broadcast({"type": "delete-view", "index": index_name, "field": field_name,
+                         "view": view_name})
 
     # -- imports (api.go Import :787, ImportValue :895, ImportRoaring :290) -
 
-    def import_bits(self, req: ImportRequest, clear: bool = False):
+    def _check_writable(self):
+        """Reject writes while the cluster resizes (api.go validate :93:
+        apiImport/apiImportValue are methodsNormal-only — absent from
+        the RESIZING method set).  A write accepted mid-resize could
+        land on a fragment already copied to its new owner and vanish
+        when the old copy is cleaned; clients retry after the (bounded)
+        resize completes."""
+        if self.cluster is not None and self.cluster.state == "RESIZING":
+            raise ApiError("cluster is resizing: writes are rejected")
+
+    def _live_owners(
+        self, index: str, shard: int, clear: bool = False, hint_op=None,
+        rollback=None,
+    ):
+        """A shard's owners with DOWN ones skipped — the DEGRADED write
+        policy (docs/durability.md): survivors take the write, the ack
+        is made durable on them, and each DOWN owner's miss is durably
+        QUEUED as a hint record (hinted handoff) for replay on
+        recovery.  ``hint_op`` builds the replayable op payload lazily
+        (once per shard, only when an owner is actually DOWN).  Raises
+        when every owner is DOWN (nothing can make the ack durable).
+        ``clear`` marks a bit-REMOVING import — anti-entropy's
+        majority-tie-to-set merge would re-SET the removed bits once
+        the dead owner (still holding them) recovers, silently undoing
+        the acked write — so those ack ONLY when every miss was
+        absorbed by the hint queue, and fail loudly on overflow/expiry
+        (the pre-hint fallback).  Callers pass clear=True for explicit
+        ?clear=true imports AND for implicitly destructive ones
+        (mutex/bool fields displace the previous row, BSI value imports
+        rewrite bit planes).  Returns
+        (live_owners, skipped_count, hinted_count)."""
+        owners = self.cluster.shard_nodes(index, shard)
+        live = [n for n in owners if n.state != "DOWN"]
+        down = [n for n in owners if n.state == "DOWN"]
+        if not live:
+            raise ApiError(
+                f"import unavailable: every owner of shard {shard} is "
+                f"DOWN ({', '.join(n.id for n in owners)})"
+            )
+        hinted = 0
+        # (node id, seq) enqueues awaiting rollback.  ``rollback`` is
+        # CALLER-owned and spans the whole import: the gate failing on
+        # shard B must also unwind shard A's hints — the grouping loop
+        # runs before any apply, so the entire batch fails un-acked and
+        # every absorbed miss is a phantom.
+        fresh = rollback if rollback is not None else []
+        hints = getattr(self.cluster, "hints", None)
+        if down and hints is not None and hint_op is not None:
+            op = hint_op()
+            for n in down:
+                seq = hints.enqueue(n.id, index, shard, op)
+                if seq:
+                    hinted += 1
+                    fresh.append((n.id, seq))
+        if clear and hinted < len(down):
+            # All-or-nothing for destructive imports: the batch is about
+            # to FAIL (no ack), so any miss already absorbed — THIS
+            # shard's or an earlier one's — must not survive to replay
+            # an import that never happened.
+            for nid, seq in fresh:
+                hints.discard(nid, [seq])
+            del fresh[:]
+            raise ApiError(
+                f"clear import unavailable: owner of shard {shard} is "
+                "DOWN, the hint queue could not absorb the miss, and a "
+                "degraded bit-removing import would be reverted by "
+                "anti-entropy on its recovery"
+            )
+        return live, len(down) - hinted, hinted
+
+    def _discard_hint_rollback(self, fresh):
+        """Unwind a failed import batch's queued hints — every shard's,
+        whatever raised (a later shard's all-owners-DOWN error, a
+        fan-out failure): the client got no ack, so no absorbed miss
+        may survive to replay."""
+        hints = getattr(self.cluster, "hints", None)
+        if hints is None:
+            return
+        for nid, seq in fresh:
+            hints.discard(nid, [seq])
+        del fresh[:]
+
+    def _import_destructive(self, f, clear: bool) -> bool:
+        """Does this import REMOVE bits on apply?  Explicit clears do;
+        so do set-imports into mutex/bool fields (last-write-wins
+        displaces the column's previous row)."""
+        from .core.field import FIELD_TYPE_BOOL, FIELD_TYPE_MUTEX
+
+        return clear or f.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)
+
+    def _note_degraded(self, index: str, skipped: int, hinted: int = 0):
+        """Record how a degraded import fan-out handled its DOWN
+        owners: ``hinted`` misses are queued for replay (the new
+        normal), ``skipped`` ones fell back to the pre-hint anti-entropy
+        seeding (hint queue absent or full).  Only a true skip counts
+        the degraded-batches series — a hinted batch is not degraded,
+        its replay is deterministic."""
+        if hinted:
+            self.journal.append(
+                "ingest.hinted", index=index, hintedOwners=hinted,
+            )
+        if not skipped:
+            return
+        REGISTRY.inc(METRIC_INGEST_DEGRADED_BATCHES)
+        self.journal.append(
+            "ingest.degraded", index=index, skippedOwners=skipped,
+        )
+
+    def import_bits(self, req: ImportRequest, clear: bool = False, remote: bool = False):
         """Bulk bit import: translate the keys, then one bulk write per
         fragment (api.go Import :787-894).  ``clear`` removes the given
-        bits instead (the handler's ?clear=true, http/handler.go:1002)."""
+        bits instead (the handler's ?clear=true, http/handler.go:1002).  In
+        a cluster the bits group by shard and go to every live owner of
+        each (``remote`` marks a peer's forward, applied here as given)."""
+        self._check_writable()
         t0 = time.monotonic()
         idx = self.index(req.index)
         f = self.field(req.index, req.field)
@@ -447,6 +600,57 @@ class API:
             if not f.time_quantum():
                 raise ValueError(
                     f"field {req.field!r} has no time quantum: cannot import with timestamps")
+        if self.cluster is None or remote:
+            self._import_local(idx, f, row_ids, col_ids, timestamps, clear)
+            self._ingest_done("bits", req.index, len(col_ids), t0, remote=remote)
+            return
+        # Group by shard and send each group to its owners (api.go:835-860):
+        # this node's groups in one local apply, the peers' through the
+        # bounded fan-out.  .tolist(): the peers' slices go through
+        # json.dumps, which refuses numpy integers.
+        col_ids = np.asarray(col_ids).tolist()
+        row_ids = np.asarray(row_ids).tolist()
+        groups: Dict[int, list] = {}
+        for i, c in enumerate(col_ids):
+            groups.setdefault(c // SHARD_WIDTH, []).append(i)
+        local_idxs: list = []
+        jobs = []
+        skipped_owners = hinted_owners = 0
+        hint_rollback: list = []  # every shard's hints of this batch
+        try:
+            for shard, idxs in sorted(groups.items()):
+                s_rows = [row_ids[i] for i in idxs]
+                s_cols = [col_ids[i] for i in idxs]
+                s_ts = [timestamps[i] for i in idxs] if timestamps else []
+                live, skipped, hinted = self._live_owners(
+                    req.index, shard, clear=self._import_destructive(f, clear),
+                    hint_op=lambda r=s_rows, c=s_cols, t=s_ts: {
+                        "kind": "import_bits", "field": req.field, "rows": r, "cols": c,
+                        "ts": t or None, "clear": clear},
+                    rollback=hint_rollback)
+                skipped_owners += skipped
+                hinted_owners += hinted
+                for node in live:
+                    if node.id == self.cluster.node.id:
+                        local_idxs.extend(idxs)
+                    else:
+                        jobs.append(lambda n=node, s=shard, r=s_rows, c=s_cols, t=s_ts:
+                                    self.cluster.client(n).import_bits(
+                                        req.index, req.field, s, r, c, timestamps=t or None,
+                                        remote=True, clear=clear))
+            if local_idxs:
+                jobs.append(lambda: self._import_local(
+                    idx, f, [row_ids[i] for i in local_idxs], [col_ids[i] for i in local_idxs],
+                    [timestamps[i] for i in local_idxs] if timestamps else [], clear))
+            fanout.run_fanout(jobs)
+        except Exception:
+            # The batch fails unacked wherever it raised: unwind its hints.
+            self._discard_hint_rollback(hint_rollback)
+            raise
+        self._note_degraded(req.index, skipped_owners, hinted_owners)
+        self._ingest_done("bits", req.index, len(col_ids), t0)
+
+    def _import_local(self, idx, f, row_ids, col_ids, timestamps, clear=False):
         ts = None
         if timestamps:
             # Epoch nanoseconds, the reference's wire format (api.go:874).
@@ -457,12 +661,13 @@ class API:
         if not clear and ef is not None and len(col_ids):
             ef.import_bulk(np.zeros(len(col_ids), dtype=np.int64), col_ids)
         f.import_bulk(row_ids, col_ids, ts, clear=clear)
-        self._ingest_done("bits", req.index, len(col_ids), t0)
 
     def import_values(self, req: ImportValueRequest, clear: bool = False,
-                      fresh: bool = False):
+                      fresh: bool = False, remote: bool = False):
         """BSI value import (api.go ImportValue :895); ``fresh`` is the
-        caller's promise that the columns hold no value yet."""
+        caller's promise that the columns hold no value yet.  In a cluster
+        the values go to every live owner of their shard."""
+        self._check_writable()
         t0 = time.monotonic()
         idx = self.index(req.index)
         f = self.field(req.index, req.field)
@@ -472,10 +677,56 @@ class API:
                 raise ApiError("importing keys into unkeyed index")
             col_ids = self.translate_store.translate_columns_to_uint64(
                 req.index, req.column_keys)
-        ef = idx.existence_field()
-        if not clear and ef is not None and len(col_ids):
-            ef.import_bulk([0] * len(col_ids), col_ids)
-        f.import_values(col_ids, req.values, clear=clear, fresh=fresh)
+
+        def apply_local(cols, values):
+            ef = idx.existence_field()
+            if not clear and ef is not None and len(cols):
+                ef.import_bulk([0] * len(cols), cols)
+            # ``fresh`` is a local caller's promise: it never rides the fan-out.
+            f.import_values(cols, values, clear=clear, fresh=fresh)
+
+        if self.cluster is None or remote:
+            apply_local(col_ids, req.values)
+            self._ingest_done("values", req.index, len(col_ids), t0, remote=remote)
+            return
+        vals = np.asarray(req.values).tolist()
+        groups: Dict[int, list] = {}
+        for i, c in enumerate(col_ids):
+            groups.setdefault(c // SHARD_WIDTH, []).append(i)
+        local_idxs: list = []
+        jobs = []
+        skipped_owners = hinted_owners = 0
+        hint_rollback: list = []
+        try:
+            for shard, idxs in sorted(groups.items()):
+                cols = [col_ids[i] for i in idxs]
+                values = [vals[i] for i in idxs]
+                # A value import rewrites bit planes: it clears bits, so a
+                # DOWN owner is acked only through the hint queue.
+                live, skipped, hinted = self._live_owners(
+                    req.index, shard, clear=True,
+                    hint_op=lambda c=cols, v=values: {
+                        "kind": "import_values", "field": req.field, "cols": c, "values": v,
+                        "clear": clear},
+                    rollback=hint_rollback)
+                skipped_owners += skipped
+                hinted_owners += hinted
+                for node in live:
+                    if node.id == self.cluster.node.id:
+                        local_idxs.extend(idxs)
+                    else:
+                        jobs.append(lambda n=node, s=shard, c=cols, v=values:
+                                    self.cluster.client(n).import_values(
+                                        req.index, req.field, s, c, v, remote=True,
+                                        clear=clear))
+            if local_idxs:
+                jobs.append(lambda: apply_local([col_ids[i] for i in local_idxs],
+                                                [vals[i] for i in local_idxs]))
+            fanout.run_fanout(jobs)
+        except Exception:
+            self._discard_hint_rollback(hint_rollback)
+            raise
+        self._note_degraded(req.index, skipped_owners, hinted_owners)
         self._ingest_done("values", req.index, len(col_ids), t0)
 
     def import_roaring(self, index_name: str, field_name: str, shard: int, data: bytes,
@@ -485,6 +736,7 @@ class API:
         by rows where it holds dense rows (``codec.decode_rows``),
         and serves both the fragment and the existence field.
         Returns bits changed."""
+        self._check_writable()
         t0 = time.monotonic()
         idx = self.index(index_name)
         f = self.field(index_name, field_name)
@@ -507,20 +759,22 @@ class API:
         return n
 
     def _ingest_done(self, path: str, index_name: str, bits: int, t0: float,
-                     changed: int = 0):
+                     changed: int = 0, remote: bool = False):
         """Record one applied import batch (the pilosa_ingest_* series) and
         notify the engine's sync worker, so resident stacks sync behind
-        the write instead of on the next query's path."""
+        the write instead of on the next query's path.  A peer's forward
+        (``remote``) is counted at the node that took the import."""
         if index_name == SYSTEM_INDEX:
             # The history sampler's own writes go through this path: they
             # count under path="system", out of the series it records.
             path = INGEST_PATH_SYSTEM
-        batches, bits_c, hist = self._ingest_series[path]
-        batches.inc()
-        bits_c.inc(bits)
-        hist.observe(time.monotonic() - t0)
-        if changed:
-            self._ingest_changed.inc(changed)
+        if not remote:
+            batches, bits_c, hist = self._ingest_series[path]
+            batches.inc()
+            bits_c.inc(bits)
+            hist.observe(time.monotonic() - t0)
+            if changed:
+                self._ingest_changed.inc(changed)
         if self.engine is not None:
             self.engine.ingest_syncer().notify(index_name)
 
@@ -546,6 +800,11 @@ class API:
 
     # -- shards and node facts (api.go :493-563, 992-1010) ----------------
 
+    def shard_nodes(self, index_name: str, shard: int) -> List[dict]:
+        if self.cluster is not None:
+            return [n.to_dict() for n in self.cluster.shard_nodes(index_name, shard)]
+        return [self.node()]
+
     def max_shards(self) -> Dict[str, int]:
         out = {}
         for name, idx in self.holder.indexes.items():
@@ -557,23 +816,64 @@ class API:
         return {name: [int(s) for s in idx.available_shards()]
                 for name, idx in self.holder.indexes.items()}
 
+    def fragment_blocks(
+        self, index_name: str, field_name: str, view_name: str, shard: int
+    ):
+        frag = self.holder.fragment(index_name, field_name, view_name, shard)
+        if frag is None:
+            raise NotFoundError("fragment not found")
+        return [
+            {"id": blk, "checksum": digest.hex()}
+            for blk, digest in frag.checksum_blocks()
+        ]
+
+    def fragment_block_data(
+        self, index_name: str, field_name: str, view_name: str, shard: int, block: int
+    ):
+        frag = self.holder.fragment(index_name, field_name, view_name, shard)
+        if frag is None:
+            raise NotFoundError("fragment not found")
+        rows, cols = frag.block_data(block)
+        return {"rows": rows.tolist(), "cols": cols.tolist()}
+
+    def delete_available_shard(self, index_name, field_name, shard: int):
+        self.field(index_name, field_name).remove_available_shard(shard)
+
+    # -- attr diff (api.go :689-786) ----------------------------------------
+
+    def index_attr_diff(self, index_name: str, blocks: List[dict]) -> Dict[int, dict]:
+        idx = self.index(index_name)
+        return _attr_diff(idx.column_attr_store, blocks)
+
+    def field_attr_diff(
+        self, index_name: str, field_name: str, blocks: List[dict]
+    ) -> Dict[int, dict]:
+        f = self.field(index_name, field_name)
+        return _attr_diff(f.row_attr_store, blocks)
+
     def node(self) -> dict:
         """This node as ``/status`` reports it (api.go Node)."""
         if self._node is not None:
-            return dict(self._node)
+            to_dict = getattr(self._node, "to_dict", None)
+            return to_dict() if to_dict is not None else dict(self._node)
         return {"id": "local", "uri": "http://localhost:10101", "isCoordinator": True}
 
     def hosts(self) -> List[dict]:
+        if self.cluster is not None:
+            return [n.to_dict() for n in self.cluster.nodes]
         return [self.node()]
 
     def state(self) -> str:
+        if self.cluster is not None:
+            return self.cluster.state
         return "NORMAL"
 
     def readiness(self) -> Tuple[bool, List[str]]:
         """Readiness verdict with reason strings (the GET /readyz
         contract): ready iff the holder is open, the engine's warm start,
-        when one ran this boot, is done and, in process mode, every worker
-        process is connected."""
+        when one ran this boot, is done, the cluster's state is NORMAL,
+        gossip has converged (no member suspect) and, in process mode,
+        every worker process is connected."""
         reasons: List[str] = []
         if not self.holder.opened:
             reasons.append("holder not opened")
@@ -581,6 +881,13 @@ class API:
         if ws is not None and not ws["done"]:
             reasons.append(f"warming: residency {ws['fraction']:.0%} "
                            f"({ws['built']}/{ws['total']} stacks)")
+        if self.cluster is not None and self.cluster.state != "NORMAL":
+            reasons.append(f"cluster state {self.cluster.state}")
+        if self.gossip is not None:
+            suspects = sorted(mid for mid, state in self.gossip.member_states().items()
+                              if state == "suspect")
+            if suspects:
+                reasons.append("gossip not converged: suspect " + ",".join(suspects))
         # Process mode: a missing or crashed worker process holds
         # readiness back until the supervisor's respawn reconnects it.
         ps = self.process_server
@@ -643,7 +950,196 @@ class API:
                         frag.cache.recalculate()
         self._broadcast({"type": "recalculate-caches"})
 
+    def cluster_message(self, msg: dict):
+        """Receive a broadcast control-plane message (server.go:485-580)."""
+        typ = msg.get("type")
+        # Gossip delivery is AT-LEAST-ONCE and unordered (dedup ids
+        # eventually expire while peers may still retransmit), so every
+        # handler here must be idempotent.  Schema messages carry the
+        # object's creation_id ("cid"): creates skip tombstoned ids and
+        # adopt the originator's id; deletes tombstone the id and only
+        # remove a local object of that same incarnation — a redelivered
+        # or reordered delete can't destroy a recreated object, and
+        # clock skew is irrelevant (no wall-clock comparison).
+        if typ == "create-index":
+            self._apply_create_index(msg)
+        elif typ == "delete-index":
+            cid = msg.get("cid", "")
+            self.holder.tombstone(cid)
+            for fcid in msg.get("fieldCids", []):
+                self.holder.tombstone(fcid)
+            idx = self.holder.index(msg["index"])
+            if idx is not None and (not cid or idx.creation_id == cid):
+                for f in idx.fields.values():
+                    self.holder.tombstone(f.creation_id)
+                self.holder.delete_index(msg["index"])
+        elif typ == "create-field":
+            self._apply_create_field(msg["index"], msg)
+        elif typ == "delete-field":
+            cid = msg.get("cid", "")
+            self.holder.tombstone(cid)
+            idx = self.holder.index(msg["index"])
+            f = idx.field(msg["field"]) if idx is not None else None
+            if f is not None and (not cid or f.creation_id == cid):
+                idx.delete_field(msg["field"])
+                self.holder.bump_shard_epoch(msg["index"])
+        elif typ == "create-shard":
+            idx = self.holder.index(msg["index"])
+            f = idx.field(msg["field"]) if idx else None
+            if f is not None:
+                f.add_remote_available_shards(Bitmap([msg["shard"]]))
+        elif typ == "node-status":
+            # A NodeStatus exchange is a heartbeat: record receipt plus
+            # the sender's per-index data-version tokens — the evidence
+            # bounded replica reads run on (docs/durability.md).
+            if self.cluster is not None:
+                sender = msg.get("node", {}).get("id")
+                if sender:
+                    self.cluster.note_heartbeat(
+                        sender,
+                        msg.get("versions") or None,
+                        ae_passes=msg.get("aePasses"),
+                        # Peer-advertised pending-hint counts (hinted
+                        # handoff): quarantine release + the syncer's
+                        # defer-own-pass check consume these.  A status
+                        # WITHOUT the field (pre-hint peer) leaves the
+                        # previous advertisement untouched.
+                        pending_hints=msg.get("pendingHints"),
+                    )
+
+            # Anti-entropy schema reconciliation: adopt the sender's
+            # tombstones FIRST (so a delete this node missed applies here
+            # instead of this node's stale schema resurrecting it
+            # elsewhere), then merge creations, skipping anything
+            # tombstoned on either side.
+            for cid in msg.get("tombstones", []):
+                if self.holder.is_tombstoned(cid):
+                    continue
+                self.holder.tombstone(cid)
+                for iname, idx in list(self.holder.indexes.items()):
+                    if idx.creation_id == cid:
+                        for f in idx.fields.values():
+                            self.holder.tombstone(f.creation_id)
+                        self.holder.delete_index(iname)
+                        break
+                    for fname, f in list(idx.fields.items()):
+                        if f.creation_id == cid:
+                            idx.delete_field(fname)
+                            self.holder.bump_shard_epoch(iname)
+                            break
+            for index_name, info in msg.get("indexes", {}).items():
+                idx = self._apply_create_index(
+                    {
+                        "index": index_name,
+                        "cid": info.get("cid", ""),
+                        "meta": {"keys": info.get("keys", False)},
+                    }
+                )
+                if idx is None:
+                    continue
+                for field_name, finfo in info.get("fields", {}).items():
+                    f = self._apply_create_field(
+                        index_name,
+                        {
+                            "field": field_name,
+                            "cid": finfo.get("cid", ""),
+                            "meta": finfo.get("options", {}),
+                        },
+                    )
+                    if f is not None:
+                        f.add_remote_available_shards(
+                            Bitmap(finfo.get("availableShards", []))
+                        )
+            # RESIZING is coordinator-granted: if the coordinator's
+            # periodic status says the resize is over but this node
+            # missed the set-state NORMAL broadcast (one lost POST — or
+            # a coordinator that died mid-job and restarted), adopt its
+            # state instead of staying wedged in RESIZING forever
+            # (mergeClusterStatus parity, cluster.go:1530-1570).
+            if (
+                self.cluster is not None
+                and self.cluster.state == "RESIZING"
+                and msg.get("node", {}).get("isCoordinator")
+                and msg.get("state") not in (None, "", "RESIZING")
+            ):
+                self.cluster.set_state(msg["state"])
+        elif typ == "recalculate-caches":
+            for idx in self.holder.indexes.values():
+                for f in idx.fields.values():
+                    for v in f.views.values():
+                        for frag in v.fragments.values():
+                            frag.cache.recalculate()
+        elif self.cluster is not None:
+            self.cluster.receive_message(msg)
+
+    def _apply_create_index(self, msg: dict):
+        """Idempotent remote create-index: skip tombstoned incarnations,
+        adopt the originator's creation_id on fresh creates, and converge
+        to min(local, remote) cid when both sides created the same name
+        concurrently (otherwise ids diverge forever and later deletes are
+        silently ignored on half the cluster).  Returns the index or None
+        (tombstoned)."""
+        cid = msg.get("cid", "")
+        if self.holder.is_tombstoned(cid):
+            return None
+        existing = self.holder.index(msg["index"])
+        idx = self.holder.create_index_if_not_exists(
+            msg["index"], keys=msg.get("meta", {}).get("keys", False)
+        )
+        if cid and (existing is None or cid < idx.creation_id):
+            idx.creation_id = cid
+            idx.save_meta()
+        return idx
+
+    def _apply_create_field(self, index_name: str, msg: dict):
+        """Idempotent remote create-field (see _apply_create_index)."""
+        cid = msg.get("cid", "")
+        if self.holder.is_tombstoned(cid):
+            return None
+        idx = self.holder.index(index_name)
+        if idx is None:
+            return None
+        existing = idx.field(msg["field"])
+        f = idx.create_field_if_not_exists(
+            msg["field"], FieldOptions.from_dict(msg.get("meta", {}))
+        )
+        if cid and (existing is None or cid < f.creation_id):
+            f.creation_id = cid
+            f.save_meta()
+        return f
+
+    def set_coordinator(self, node_id: str):
+        if self.cluster is None:
+            raise ApiError("not clustered")
+        return self.cluster.set_coordinator(node_id)
+
+    def remove_node(self, node_id: str):
+        if self.cluster is None:
+            raise ApiError("not clustered")
+        return self.cluster.remove_node(node_id)
+
+    def resize_abort(self):
+        if self.cluster is None:
+            raise ApiError("not clustered")
+        self.cluster.abort_resize()
+
+    # -- translation (api.go :1124-1166) ------------------------------------
+
+    def get_translate_data(self, offset: int) -> bytes:
+        return self.translate_store.reader(offset)
+
     def _broadcast(self, msg: dict):
-        """A node without a cluster has no peers to tell, as the
-        reference's ``_broadcast`` with no cluster; the message to peers
-        is ROADMAP.md Queue 1 item 15."""
+        if self.cluster is not None:
+            self.cluster.send_sync(msg)
+
+
+def _attr_diff(store, blocks: List[dict]) -> Dict[int, dict]:
+    """The attributes of the local blocks whose checksums differ from the
+    peer's (api.go:689-786)."""
+    peer = {b["id"]: bytes.fromhex(b["checksum"]) for b in blocks}
+    out: Dict[int, dict] = {}
+    for blk, digest in store.blocks():
+        if peer.get(blk) == digest:
+            continue
+        out.update(store.block_data(blk))
+    return out

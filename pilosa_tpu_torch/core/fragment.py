@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import bisect
 import functools
+import hashlib
 import heapq
 import json
 import math
@@ -63,6 +64,8 @@ SHARD_WIDTH = ops.SHARD_WIDTH
 WORDS64 = bitops.WORDS64
 
 DEFAULT_MAX_OP_N = 2000
+
+HASH_BLOCK_SIZE = 100  # rows per anti-entropy checksum block
 
 # -- ingest ack/durability policy ([storage] ack) ----------------------------
 #   received — applied to host memory and buffered toward the op-log;
@@ -1358,6 +1361,64 @@ class Fragment:
         out = [(rid, c) for c, rid in heap]
         out.sort(key=cache_mod.pair_sort_key)
         return out
+
+    # -- anti-entropy blocks (fragment.go Blocks :1226-1321) ---------------
+
+    @_locked
+    def checksum_blocks(self) -> List[Tuple[int, bytes]]:
+        """(block, checksum) for each non-empty block of HASH_BLOCK_SIZE
+        rows: blake2b over each row's id and sorted positions, so sparse-
+        and dense-stored copies of a row agree across replicas
+        (pilosa_tpu/core/fragment.py:1652)."""
+        blocks: Dict[int, List[int]] = {}
+        for r in self.row_ids():
+            blocks.setdefault(r // HASH_BLOCK_SIZE, []).append(r)
+        out = []
+        for blk in sorted(blocks):
+            h = hashlib.blake2b(digest_size=16)
+            for r in blocks[blk]:
+                h.update(r.to_bytes(8, "little"))
+                h.update(np.ascontiguousarray(self._store.positions(r), dtype="<u4").tobytes())
+            out.append((blk, h.digest()))
+        return out
+
+    def block_data(self, block: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Every (row, column) pair of a block, row-major (BlockData RPC)."""
+        rows_out, cols_out = [], []
+        for r in self.row_ids():
+            if r // HASH_BLOCK_SIZE != block:
+                continue
+            pos = self._store.positions(r).astype(np.uint64)
+            rows_out.append(np.full(pos.size, r, dtype=np.uint64))
+            cols_out.append(pos)
+        if not rows_out:
+            return np.empty(0, dtype=np.uint64), np.empty(0, dtype=np.uint64)
+        return np.concatenate(rows_out), np.concatenate(cols_out)
+
+    def merge_block(self, block: int, peer_pairs: List[Tuple[np.ndarray, np.ndarray]]
+                    ) -> Tuple[List[list], List[list]]:
+        """Reconcile a block against peer copies by majority vote per (row,
+        column) pair, ties to set (fragment.go mergeBlock :1323-1442).
+        Applies the local diff and returns each peer's (sets, clears)."""
+        self._check_open()
+        local_rows, local_cols = self.block_data(block)
+        copies = [set(zip(local_rows.tolist(), local_cols.tolist()))]
+        copies += [set(zip(pr.tolist(), pc.tolist())) for pr, pc in peer_pairs]
+        majority_n = (len(copies) + 1) // 2
+        union = sorted(set().union(*copies))
+        sets: List[list] = [[] for _ in copies]
+        clears: List[list] = [[] for _ in copies]
+        for pair in union:
+            new_value = sum(1 for c in copies if pair in c) >= majority_n
+            for i, c in enumerate(copies):
+                if (pair in c) != new_value:
+                    (sets if new_value else clears)[i].append(pair)
+        base = self.shard * SHARD_WIDTH
+        for r, c in sets[0]:
+            self.set_bit(int(r), base + int(c))
+        for r, c in clears[0]:
+            self.clear_bit(int(r), base + int(c))
+        return sets[1:], clears[1:]
 
     def __repr__(self) -> str:
         return (

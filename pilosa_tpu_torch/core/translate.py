@@ -20,9 +20,9 @@ length.  The table is checkpointed to a sidecar ``<log>.idx`` with a
 log-offset watermark, so reopening a store replays only the log tail
 written since the last checkpoint.
 
-Replicas streaming the primary's log (the reference's ``reader`` /
-``apply_log``) belong to the cluster, which is not ported (ROADMAP.md
-Queue 1 item 15).
+Replicas stream the primary's log (``reader`` / ``apply_log``, the
+cluster's ``[translation] primary-url``) and refuse new keys
+(``read_only``).
 """
 
 from __future__ import annotations
@@ -46,6 +46,10 @@ _LOAD_NUM, _LOAD_DEN = 7, 10  # resize above 70% occupancy
 
 class TranslateError(Exception):
     pass
+
+
+class ReadOnlyError(TranslateError):
+    """Writes attempted on a replica (translate.go ErrTranslateStoreReadOnly)."""
 
 
 def _hash(kb: bytes) -> int:
@@ -302,16 +306,17 @@ def _decode_entries(data: bytes, start: int = 0):
 
 
 class TranslateFile:
-    """On-disk (or in-memory) translate store with one writer
-    (translate.go:55).
+    """On-disk (or in-memory) translate store; one writer (the
+    coordinator), replicas replay the primary's log (translate.go:55).
 
     Reopen cost: the sidecar checkpoint restores every index with one
     bulk array read, then only the log tail past the checkpoint's
     watermark is replayed (``replayed_bytes`` reports how much — the
     bounded-startup contract the reference gets from its mmap design)."""
 
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None, read_only: bool = False):
         self.path = path
+        self.read_only = read_only
         self._lock = threading.RLock()
         self._log = _LogView(path)
         self._cols: Dict[str, _RHIndex] = {}
@@ -447,6 +452,8 @@ class TranslateFile:
             out = [m.get(k.encode()) for k in keys]
             if all(out):
                 return out
+            if self.read_only:
+                raise ReadOnlyError("translate store is read-only")
             new_pairs = []
             seen: Dict[str, int] = {}
             for i, (k, id) in enumerate(zip(keys, out)):
@@ -492,3 +499,26 @@ class TranslateFile:
                 return ""
             kb = m.key_by_id(id)
             return "" if kb is None else kb.decode()
+
+    # -- replication (translate.go:358-432) --------------------------------
+
+    def reader(self, offset: int) -> bytes:
+        """Raw log bytes from offset (the /internal/translate/data body)."""
+        return self._log.read(offset, max(self._log.size - offset, 0))
+
+    def apply_log(self, data: bytes) -> int:
+        """Replica side: apply a chunk of the primary's log; returns the
+        bytes consumed (the last entry may be cut mid-record)."""
+        with self._lock:
+            base = self._log.size
+            consumed = 0
+            applied = []
+            for typ, index, field, pairs, end in _decode_entries(data):
+                applied.append((typ, index, field, pairs))
+                consumed = end
+            if consumed:
+                # The local log first, so that indexed offsets are readable.
+                self._log.append(data[:consumed])
+                for typ, index, field, pairs in applied:
+                    self._apply(typ, index, field, pairs, base_off=base)
+            return consumed

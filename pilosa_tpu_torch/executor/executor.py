@@ -1,9 +1,8 @@
 """The query executor: PQL call dispatch, the fused Count, TopN, BSI and
 GroupBy lanes and the host bitmap lane.
 
-The port of the Count, TopN, BSI and GroupBy slices of
-``pilosa_tpu/executor/executor.py`` (upstream Pilosa: executor.go:84-2890),
-single node:
+The port of ``pilosa_tpu/executor/executor.py`` (upstream Pilosa:
+executor.go:84-2890):
 
 - ``execute`` parses PQL and dispatches each call (executeCall
   :256-295).
@@ -64,6 +63,20 @@ single node:
   plugs in), string keys in the calls become ids before execution and
   the results' ids become keys after it.
 
+- The cluster (``cluster/``): with ``cluster`` set, ``map_reduce`` groups
+  the shards by owning node (``_mapper``): this node's shards run on its
+  own card through the lanes above, a peer's go to it as one remote query
+  (``remote=True``, its partial merged into the same reduce), and a peer
+  that fails in transport is marked DOWN and its shards retried on the
+  next replica within a hedge budget.  ``_read_route`` picks a replica per
+  shard (``primary``, ``any`` or ``bounded``, the request's
+  ``replica_read`` and ``freshness_ms`` over the cluster's).  Single-bit
+  writes apply on every live owner (``_write_replicated``); a DOWN
+  owner's miss is queued as a hint (``cluster/hints.py``); attribute
+  writes go to every node.  Writes are refused while the cluster resizes.
+  The serving memo lane and the async Count path stay off for any query
+  with a remote shard, as in the reference.
+
 - Query plans (``util/plans.py``): each call stamps the plan the API
   attached to the thread, as the reference's executor does; the engine
   and the batcher stamp the dispatch decisions.  ``Explain(<query>)``
@@ -96,7 +109,7 @@ from ..parallel.errors import HostFallback
 from ..parallel.singleflight import SingleFlight
 from ..pql import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ, Call, Condition, Query
 from ..util import plans as plans_mod
-from ..util.stats import NopStatsClient
+from ..util.stats import METRIC_REPLICA_READS, REGISTRY, NopStatsClient
 
 TIME_FORMAT = "%Y-%m-%dT%H:%M"  # pilosa.TimeFormat
 
@@ -108,6 +121,12 @@ DEFAULT_FIELD = "general"
 DEFAULT_MIN_THRESHOLD = 1
 
 _WRITE_CALLS = {"Set", "Clear", "SetRowAttrs", "SetColumnAttrs", "Store", "ClearRow"}
+
+# Write calls that remove bits (directly, or by overwriting a row): never
+# acked with an owner DOWN unless the hint queue absorbs the miss, since
+# anti-entropy's majority-tie-to-set merge would set them again when the
+# owner recovers (pilosa_tpu/executor/executor.py:326-331).
+_DESTRUCTIVE_CALLS = {"Clear", "ClearRow", "Store"}
 
 
 
@@ -124,20 +143,28 @@ class FieldNotFoundError(Error):
 
 
 class ExecOptions:
-    """executor.go execOptions, single node: the reference's ``remote``,
-    ``replica_read`` and ``freshness_ms`` belong to the cluster (ROADMAP.md
-    Queue 1 item 15)."""
+    """executor.go execOptions.  ``remote`` marks a peer's replay (its
+    shards run here as given, and its results are not key-translated);
+    ``replica_read`` ("" defers to the cluster's ``[cluster]
+    replica-read``) and ``freshness_ms`` (None defers to ``[cluster]
+    freshness-ms``) are the request's replica-read override."""
 
-    __slots__ = ("exclude_row_attrs", "exclude_columns", "column_attrs")
+    __slots__ = ("remote", "exclude_row_attrs", "exclude_columns", "column_attrs",
+                 "replica_read", "freshness_ms")
 
-    def __init__(self, exclude_row_attrs: bool = False, exclude_columns: bool = False,
-                 column_attrs: bool = False):
+    def __init__(self, remote: bool = False, exclude_row_attrs: bool = False,
+                 exclude_columns: bool = False, column_attrs: bool = False,
+                 replica_read: str = "", freshness_ms: Optional[float] = None):
+        self.remote = remote
         self.exclude_row_attrs = exclude_row_attrs
         self.exclude_columns = exclude_columns
         self.column_attrs = column_attrs
+        self.replica_read = replica_read
+        self.freshness_ms = freshness_ms
 
     def copy(self) -> "ExecOptions":
-        return ExecOptions(self.exclude_row_attrs, self.exclude_columns, self.column_attrs)
+        return ExecOptions(self.remote, self.exclude_row_attrs, self.exclude_columns,
+                           self.column_attrs, self.replica_read, self.freshness_ms)
 
 
 class ValCount:
@@ -455,17 +482,21 @@ class _QueryFuture:
 
 
 class Executor:
-    """Single-node query executor over a Holder and, optionally, a
-    ``TorchEngine`` for the fused lanes and a ``QueryTranslator`` for
-    string keys."""
+    """The query executor over a Holder and, optionally, a ``TorchEngine``
+    for the fused lanes, a ``QueryTranslator`` for string keys and a
+    ``Cluster`` whose peers answer the shards this node does not own."""
 
     _PARSE_CACHE_MAX = 512
     _GROUP_ROWS_MAX = 256
 
-    def __init__(self, holder, engine=None, translator=None, stats=None):
+    def __init__(self, holder, engine=None, translator=None, stats=None, cluster=None):
         self.holder = holder
         self.engine = engine
         self.translator = translator
+        self.cluster = cluster
+        # One per peer query the mapper sent (the reference's
+        # remote_fanouts): a query whose shards are all local leaves it at 0.
+        self.remote_fanouts = 0
         # Per-call counts by index (the reference's stats.count hooks),
         # served at /debug/vars by an ExpvarStatsClient.
         self.stats = stats if stats is not None else NopStatsClient()
@@ -514,7 +545,7 @@ class Executor:
             raise IndexNotFoundError(index)
         if query.write_call_n() > MAX_WRITES_PER_REQUEST:
             raise Error("too many writes in a single request")
-        if self.translator is not None:
+        if self.translator is not None and not (opt is not None and opt.remote):
             self.translator.translate_calls(index, idx, query.calls)
         return self._execute_translated(index, query, shards, opt)
 
@@ -535,7 +566,7 @@ class Executor:
         resp = QueryResponse(results)
         if opt.column_attrs:
             resp.column_attr_sets = self._column_attr_sets(index, idx, results)
-        if self.translator is not None:
+        if self.translator is not None and not opt.remote:
             self.translator.translate_results(index, idx, query.calls, results)
         return resp
 
@@ -564,7 +595,7 @@ class Executor:
         Consecutive only: a write between two Counts must be visible to the
         second."""
         if calls and all(c.name == "SetRowAttrs" for c in calls):
-            return self._execute_bulk_set_row_attrs(index, calls)
+            return self._execute_bulk_set_row_attrs(index, calls, opt)
         results: list = []
         i, n = 0, len(calls)
         while i < n:
@@ -573,7 +604,7 @@ class Executor:
                 while j < n and calls[j].name == "Count":
                     j += 1
                 if j - i >= 2:
-                    batch = self._mesh_count_many(index, calls[i:j], shards)
+                    batch = self._mesh_count_many(index, calls[i:j], shards, opt)
                     if batch is None:
                         # The run declined as a whole: each call once.
                         batch = [self._execute_call(index, c, shards, opt)
@@ -595,7 +626,7 @@ class Executor:
         waiting for the card.  None when the query is not eligible (a
         ``columnAttrs`` request among them): the caller runs ``execute``."""
         eng = self.engine
-        if eng is None or (opt is not None and opt.column_attrs):
+        if eng is None or (opt is not None and (opt.remote or opt.column_attrs)):
             return None
         try:
             if isinstance(query, str):
@@ -615,6 +646,10 @@ class Executor:
                 self.translator.translate_calls(index, idx, calls)
             if not shards:
                 shards = self._default_shards(index) or [0]
+            if self.cluster is not None:
+                local = set(self._local_shards(index, shards))
+                if any(s not in local for s in shards):
+                    return None  # remote shards: the sync mapper splits them
             children = [c.children[0] for c in calls]
             if not all(eng.lowerable(ch) for ch in children):
                 return None
@@ -639,7 +674,7 @@ class Executor:
         Correct as the batcher's memo lane is: the key carries the version
         token of every view the tree reads."""
         eng = self.engine
-        if eng is None or self.translator is not None:
+        if eng is None or self.cluster is not None or self.translator is not None:
             return None
         try:
             q = self._parse_cached(query)
@@ -699,37 +734,44 @@ class Executor:
         if ids is not None and not isinstance(ids, list):
             raise Error("ids must be a list")
         name = c.name
+        # Writes are refused while the cluster resizes (api.go validate
+        # :93): a write accepted mid-resize could land on a fragment already
+        # copied to its new owner and vanish when the old copy is cleaned.
+        # Reads route on the pre-resize topology until the job completes.
+        if (name in _WRITE_CALLS and self.cluster is not None
+                and self.cluster.state == "RESIZING"):
+            raise Error("cluster is resizing: writes are rejected")
         self.stats.count(name, 1, tags=[f"index:{index}"])
         if name == "Count":
-            return self._execute_count(index, c, shards)
+            return self._execute_count(index, c, shards, opt)
         if name == "Set":
-            return self._execute_set(index, c)
+            return self._execute_set(index, c, opt)
         if name == "Clear":
-            return self._execute_clear_bit(index, c)
+            return self._execute_clear_bit(index, c, opt)
         if name == "TopN":
-            return self._execute_topn(index, c, shards)
+            return self._execute_topn(index, c, shards, opt)
         if name == "Sum":
-            return self._execute_sum(index, c, shards)
+            return self._execute_sum(index, c, shards, opt)
         if name in ("Min", "Max"):
-            return self._execute_min_max(index, c, shards, name == "Min")
+            return self._execute_min_max(index, c, shards, opt, name == "Min")
         if name == "ClearRow":
-            return self._execute_clear_row(index, c, shards)
+            return self._execute_clear_row(index, c, shards, opt)
         if name == "Store":
-            return self._execute_set_row(index, c, shards)
+            return self._execute_set_row(index, c, shards, opt)
         if name == "Rows":
-            return self._execute_rows(index, c, shards)
+            return self._execute_rows(index, c, shards, opt)
         if name == "GroupBy":
-            return self._execute_group_by(index, c, shards)
+            return self._execute_group_by(index, c, shards, opt)
         if name == "SetRowAttrs":
-            self._execute_set_row_attrs(index, c)
+            self._execute_set_row_attrs(index, c, opt)
             return None
         if name == "SetColumnAttrs":
-            self._execute_set_column_attrs(index, c)
+            self._execute_set_column_attrs(index, c, opt)
             return None
         if name == "Options":
             return self._execute_options_call(index, c, shards, opt)
         if name == "Explain":
-            return self._execute_explain(index, c, shards)
+            return self._execute_explain(index, c, shards, opt)
         return self._execute_bitmap_call(index, c, shards, opt)
 
     @staticmethod
@@ -748,12 +790,313 @@ class Executor:
             raise FieldNotFoundError(field_name)
         return f
 
+    # -- map/reduce over shards (executor.go mapReduce :2183) --------------
+
+    def map_reduce(self, index, shards, call, opt, map_fn, reduce_fn):
+        """Per-shard map + reduce (executor.go mapReduce :2183-2321).
+
+        Single-node (or remote re-entry): every shard maps locally.  With
+        a cluster, shards group by owning node; remote groups execute the
+        serialized call on their peer in one RPC (remoteExec :2142) and
+        the partial merges into the same reduce.  A failed peer's shards
+        retry on the next replica (executor.go :2216-2231)."""
+        if self.cluster is None or opt.remote:
+            result = None
+            for shard in shards:
+                result = reduce_fn(result, map_fn(shard))
+            return result
+        # Hedge budget shared across the whole fan-out (including
+        # recursion after peer failures): a query may re-route its shards
+        # past at most replica_n extra peers before erroring — so replica
+        # hedging is bounded and can never retry-storm a flapping
+        # cluster.  One failed peer consumes one unit regardless of how
+        # many shards re-route.
+        budget = {"left": max(2, self.cluster.replica_n)}
+        return self._mapper(
+            index, shards, call, opt, map_fn, reduce_fn, set(), budget
+        )
+
+    def _read_route(self, index, shard, owners, call, opt, hinted=None):
+        """Pick this shard's execution target among its owners
+        (docs/durability.md "Replica reads").  Local ownership always
+        wins (zero-hop).  Writes pin to strict replica order — their
+        replication fan-out handles owner death explicitly.  For reads,
+        DOWN owners are deprioritized (a dead primary must not eat a
+        round-trip per query before the hedge kicks in) and the
+        configured mode picks among the live ones:
+
+          primary — first live owner in replica order (reference
+                    behavior + proactive DOWN skip)
+          any     — deterministic per-shard rotation across live owners
+                    (replicaN>1 scales reads, not just failover)
+          bounded — the ``any`` rotation filtered by the freshness bound
+                    (cluster.replica_fresh); no fresh replica -> first
+                    live owner."""
+        cluster = self.cluster
+        me = cluster.node.id
+        local = next((n for n in owners if n.id == me), None)
+        is_write = call is not None and call.name in _WRITE_CALLS
+        if local is not None and not is_write:
+            return local  # reads: local ownership always wins (zero-hop)
+        alive = [n for n in owners if n.state != "DOWN"]
+        if not alive:
+            if is_write:
+                # No replica can make the ack durable: the same loud
+                # failure as _write_replicated — a write must never
+                # take the last-resort READ path below (it would count
+                # as a read, bypass the destructive gate, and be
+                # forwarded to a node the detector says is dead).
+                # Unwind earlier shards' hints like every sibling
+                # raise: the write fails un-acked.
+                self._discard_hinted(hinted)
+                raise Error(
+                    f"write unavailable: every owner of shard {shard} "
+                    f"is DOWN ({', '.join(n.id for n in owners)})"
+                )
+            # All owners DOWN: the last resort keeps replica order —
+            # counted, journaled, and stamped onto the plan so the
+            # /debug/plans analyzer can say WHY this read went to a
+            # node the failure detector distrusts.
+            REGISTRY.inc(METRIC_REPLICA_READS, route="last_resort")
+            cluster.journal.append(
+                "replica.last_resort", index=index, shard=shard,
+                owners=[n.id for n in owners],
+            )
+            p = plans_mod.current_plan()
+            if p is not None:
+                p.note_op(
+                    op=call.name if call is not None else "read",
+                    last_resort=True, shard=shard,
+                )
+            return owners[0]
+        if is_write:
+            # The DOWN-owner check runs even when this node owns the
+            # shard locally: a write applied here while a CO-owner is
+            # DOWN still needs that co-owner's miss queued (or, for
+            # destructive calls without a queue, the loud failure) —
+            # the pre-hint local-win fast path silently skipped it.
+            if call.name in _DESTRUCTIVE_CALLS and len(alive) < len(owners):
+                # Hinted handoff (docs/durability.md): the miss queues
+                # durably for replay on recovery instead of failing the
+                # write — the recovered owner receives the clear BEFORE
+                # anti-entropy can merge against it.  Only when the
+                # queue cannot absorb it (no manager / overflow /
+                # expiry) does this fall back to the pre-hint loud failure.
+                down = [n for n in owners if n.state == "DOWN"]
+                h = self._hint_down_writes(
+                    index, shard, down, call, shards=[shard],
+                    dedup=hinted, all_or_nothing=True,
+                )
+                if h < len(down):
+                    # The whole call fails un-acked: earlier shards'
+                    # hints (routing runs before ANY shard maps, so
+                    # nothing has applied) are phantoms — unwind them.
+                    self._discard_hinted(hinted)
+                    raise Error(
+                        f"{call.name} unavailable: an owner of shard "
+                        f"{shard} is DOWN, the hint queue could not "
+                        "absorb the miss, and a degraded bit-removing "
+                        "write would be reverted by anti-entropy on "
+                        "its recovery"
+                    )
+            return local if local is not None else alive[0]
+        mode = (opt.replica_read or cluster.replica_read) if opt else (
+            cluster.replica_read
+        )
+        if mode == "any" and len(alive) > 1:
+            return alive[shard % len(alive)]
+        if mode == "bounded" and len(alive) > 1:
+            bound = (
+                opt.freshness_ms
+                if opt is not None and opt.freshness_ms is not None
+                else cluster.freshness_ms
+            )
+            k = shard % len(alive)
+            for n in alive[k:] + alive[:k]:
+                if cluster.replica_fresh(n.id, index, bound):
+                    return n
+        return alive[0]
+
+    def _mapper(
+        self, index, shards, call, opt, map_fn, reduce_fn, down_ids, budget
+    ):
+        by_node = {}
+        for s, placed in zip(shards, self.cluster.owners_of(index, shards)):
+            owners = [n for n in placed if n.id not in down_ids]
+            if not owners:
+                if call is not None and call.name in _WRITE_CALLS:
+                    # Same unwind as the sibling raise paths: the
+                    # write fails un-acked, so hints queued by earlier
+                    # routing/transport handling must not replay.
+                    self._discard_hinted(budget.get("hinted"))
+                raise Error(f"no available node for shard {s}")
+            # The hinted-dedup set rides the shared budget dict: a
+            # hedge recursion re-routes shards through _read_route
+            # again, and a (node, shard) miss already queued must not
+            # be double-queued as a second hint.
+            target = self._read_route(
+                index, s, owners, call, opt,
+                hinted=budget.setdefault("hinted", {}),
+            )
+            # [target, shards, every-shard-routed-to-its-primary?] —
+            # the primary verdict is recorded HERE, where the owners
+            # list is already in hand, so the metric label below never
+            # recomputes placement.
+            entry = by_node.setdefault(target.id, [target, [], True])
+            entry[1].append(s)
+            entry[2] = entry[2] and owners[0].id == target.id
+
+        result = None
+        me = self.cluster.node.id
+        # Encode once: the remote fan-out ships the SAME query text to
+        # every peer, and str(call) re-serializes the whole tree — O(tree)
+        # per node adds up on wide clusters.
+        call_text = str(call)
+        for node_id, (node, node_shards, is_primary) in sorted(
+            by_node.items()
+        ):
+            if node_id == me:
+                for shard in node_shards:
+                    result = reduce_fn(result, map_fn(shard))
+                continue
+            REGISTRY.inc(
+                METRIC_REPLICA_READS,
+                route="hedge" if down_ids else (
+                    "primary" if is_primary else "replica"
+                ),
+            )
+            try:
+                self.remote_fanouts += 1
+                t_rpc = time.monotonic()
+                doc = self.cluster.client(node).query(
+                    index, call_text, shards=node_shards, remote=True
+                )
+                p = plans_mod.current_plan()
+                if p is not None:
+                    # Per-node fan-out latency attribution: the plan's
+                    # "which peer was slow" record.
+                    p.note_fanout(
+                        node_id, time.monotonic() - t_rpc, len(node_shards)
+                    )
+            except Exception as e:
+                # Classify before hedging.  An HTTP ERROR RESPONSE
+                # proves the peer's serving plane is up: a 4xx (except
+                # 429) is a deterministic request error every replica
+                # would repeat — re-raise, don't hide it behind a
+                # hedge; a 429/5xx shed hedges to another replica but
+                # must NOT mark the node DOWN (one shed from a loaded
+                # peer would otherwise exile it — degraded writes,
+                # quarantine, holddown — for RECOVERY_HOLDDOWN per
+                # occurrence).  404 also hedges without a verdict: a
+                # schema-lagged peer may not know the index yet while
+                # its replica does.  Only a TRANSPORT failure (no
+                # status: refused/reset/timeout) is a failure verdict.
+                code = getattr(e, "code", None)
+                if (
+                    code is not None
+                    and 400 <= code < 500
+                    and code not in (404, 429)
+                ):
+                    raise
+                if code is None:
+                    self.cluster.node_failed(node_id)
+                    if call is not None and call.name in _WRITE_CALLS:
+                        # A write whose forward died in transport: the
+                        # peer may have missed it entirely, and the
+                        # recursion below re-routes these shards to
+                        # another replica — so the miss must be queued
+                        # as a hint NOW (replayed idempotently on
+                        # recovery) or a destructive call would leave
+                        # the failed owner holding bits anti-entropy
+                        # will resurrect.  Unabsorbable destructive
+                        # misses fail loudly: the client never got an
+                        # ack, so nothing acked can be lost.
+                        failed = self.cluster.node_by_id(node_id)
+                        dedup = budget.setdefault("hinted", {})
+                        h = 0
+                        if failed is not None:
+                            for s in node_shards:
+                                h += self._hint_down_writes(
+                                    index, s, [failed], call,
+                                    shards=[s], dedup=dedup,
+                                    all_or_nothing=(
+                                        call.name in _DESTRUCTIVE_CALLS
+                                    ),
+                                )
+                        if (
+                            call.name in _DESTRUCTIVE_CALLS
+                            and h < len(node_shards)
+                        ):
+                            # Failing the whole call: unwind every hint
+                            # it queued (this group's AND earlier
+                            # routing's) — the client gets an error,
+                            # so none of them may replay.
+                            self._discard_hinted(dedup)
+                            raise Error(
+                                f"{call.name} unavailable: the forward "
+                                f"to {node_id} failed in transport and "
+                                "the hint queue could not absorb the "
+                                "miss — a partial bit-removing write "
+                                "would be reverted by anti-entropy on "
+                                "its recovery"
+                            ) from e
+                budget["left"] -= 1
+                if budget["left"] < 0:
+                    if call is not None and call.name in _WRITE_CALLS:
+                        # Same unwind as the destructive gate: the
+                        # write is failing un-acked.
+                        self._discard_hinted(budget.get("hinted"))
+                    raise Error(
+                        f"replica hedge budget exhausted at node "
+                        f"{node_id}: {e}"
+                    ) from e
+                sub = self._mapper(
+                    index,
+                    node_shards,
+                    call,
+                    opt,
+                    map_fn,
+                    reduce_fn,
+                    down_ids | {node_id},
+                    budget,
+                )
+                if sub is not None:
+                    result = reduce_fn(result, sub)
+                continue
+            from ..net.wire import result_from_json
+
+            v = result_from_json(call.name, doc["results"][0], device=self.holder.device)
+            result = reduce_fn(result, v)
+        return result
+
+    def _local_shards(self, index, shards, remote: bool = False):
+        """The locally-owned subset of ``shards`` (all of them when there
+        is no cluster).  ``remote=True`` — a peer re-entry — returns ALL
+        requested shards: the initiator already routed them here, and
+        re-filtering against this node's possibly NEWER topology (a
+        resize admitting a node mid-query) would wrongly drop shards the
+        old placement assigned to us (executor.go mapper: Remote=true
+        executes the given shards verbatim)."""
+        if self.cluster is None or remote:
+            return list(shards)
+        me = self.cluster.node.id
+        return [s for s, owners in zip(shards, self.cluster.owners_of(index, shards))
+                if any(n.id == me for n in owners)]
+
     # -- host bitmap lane --------------------------------------------------
 
     def _execute_bitmap_call(self, index, c: Call, shards, opt: ExecOptions) -> Row:
-        row = Row()
-        for shard in shards:
-            row.merge(self._execute_bitmap_call_shard(index, c, shard))
+        def reduce_fn(prev, v):
+            if prev is None:
+                prev = Row()
+            prev.merge(v)
+            return prev
+
+        row = self.map_reduce(index, shards, c, opt,
+                              lambda shard: self._execute_bitmap_call_shard(index, c, shard),
+                              reduce_fn)
+        if row is None:
+            row = Row()
         # A Row() result carries its row's attributes (executor.go:491-530).
         if c.name == "Row":
             if opt.exclude_row_attrs:
@@ -823,31 +1166,49 @@ class Executor:
 
     # -- Count -------------------------------------------------------------
 
-    def _execute_count(self, index, c: Call, shards) -> int:
+    def _execute_count(self, index, c: Call, shards, opt: ExecOptions) -> int:
         if len(c.children) != 1:
             raise Error("Count() requires a single bitmap input")
         child = c.children[0]
-        fast = self._count_from_cardinalities(index, child, shards)
+        fast = self._count_from_cardinalities(index, child, shards, opt.remote)
         if fast is not None:
             return fast
-        fused = self._mesh_count(index, child, shards)
+        fused = self._mesh_count(index, child, shards, opt)
+
+        def map_fn(shard):
+            return self._execute_bitmap_call_shard(index, child, shard).count()
+
         if fused is not None:
-            return fused
-        if self.engine is not None and shards:
+            # This node's shards counted on the card; a peer's shards go to
+            # the peer.  A resize between the two can route a "remote" shard
+            # back here: the host lane then serves it, exactly.
+            local_shards, count = fused
+            remote = [s for s in shards if s not in local_shards]
+            if not remote:
+                return count
+            p = plans_mod.current_plan()
+            if p is not None:
+                p.note_op(op="Count", path="fanout_split", local_shards=len(local_shards),
+                          remote_shards=len(remote))
+            return count + (self.map_reduce(index, remote, c, opt, map_fn,
+                                            lambda a, v: (a or 0) + v) or 0)
+        local = set(self._local_shards(index, shards, opt.remote))
+        n_local = sum(1 for s in shards if s in local)
+        if self.engine is not None and n_local:
             self.host_fallbacks += 1
         p = plans_mod.current_plan()
         if p is not None:
-            # No fused dispatch: the host lane serves every shard locally.
-            p.note_op(op="Count", path="host", local_shards=len(shards), remote_shards=0)
-        return sum(
-            self._execute_bitmap_call_shard(index, child, shard).count()
-            for shard in shards
-        )
+            # No fused dispatch: the host lane serves this node's shards.
+            n_remote = len(shards) - n_local
+            p.note_op(op="Count", path="fanout" if n_remote else "host",
+                      local_shards=n_local, remote_shards=n_remote)
+        return self.map_reduce(index, shards, c, opt, map_fn, lambda a, v: (a or 0) + v) or 0
 
-    def _count_from_cardinalities(self, index, child: Call, shards):
+    def _count_from_cardinalities(self, index, child: Call, shards, remote: bool = False):
         """O(1)-per-shard Count of an unfiltered Row: sum the maintained
         per-row cardinalities with zero device work (the analogue of
-        summing roaring container ``n`` fields).  None for anything else."""
+        summing roaring container ``n`` fields).  None for anything else,
+        and in a cluster for any shard this node does not own."""
         if child.name != "Row" or child.children or len(child.args) != 1:
             return None
         (field_name, row_val), = child.args.items()
@@ -857,6 +1218,10 @@ class Executor:
         f = idx.field(field_name) if idx is not None else None
         if f is None or f.options.type == FIELD_TYPE_INT:
             return None
+        if self.cluster is not None:
+            local = set(self._local_shards(index, shards, remote))
+            if any(s not in local for s in shards):
+                return None
         view = f.view(VIEW_STANDARD)
         p = plans_mod.current_plan()
         if p is not None:
@@ -872,16 +1237,23 @@ class Executor:
                 total += frag.row_count(row_val)
         return total
 
-    def _mesh_count_many(self, index, calls, shards):
+    def _mesh_count_many(self, index, calls, shards, opt: ExecOptions):
         """A run of consecutive Count() calls as ONE batched dispatch
         (``TorchEngine.count_many``); O(1)-lane answers are peeled off
         first.  The counts in call order, or None to run the calls one by
-        one (a tree with no device lowering)."""
+        one (a tree with no device lowering, a peer's replay, or a shard
+        this node does not own)."""
+        if opt.remote:
+            return None
         children = []
         for c in calls:
             if len(c.children) != 1 or not self.engine.lowerable(c.children[0]):
                 return None
             children.append(c.children[0])
+        if self.cluster is not None:
+            local = set(self._local_shards(index, shards))
+            if any(s not in local for s in shards):
+                return None  # remote shards: the per-call path splits them
         results: list = [None] * len(children)
         rem_idx, rem_calls = [], []
         plan = plans_mod.current_plan()
@@ -924,20 +1296,25 @@ class Executor:
         self.stats.count("Count", len(calls), tags=[f"index:{index}"])
         return results
 
-    def _mesh_count(self, index, child: Call, shards):
-        """Fused Count through the engine's batcher, or None when the tree
-        has no device lowering.  A lone caller runs the count directly
-        (``CountBatcher.submit``, then ``_direct``: no added latency); a
-        caller arriving while a batch is in flight, or within the hot
-        window after one, queues and is answered by the next K5 launch."""
-        if self.engine is None or not shards:
+    def _mesh_count(self, index, child: Call, shards, opt: ExecOptions):
+        """Fused Count of this node's shards through the engine's batcher:
+        (local shard set, count), or None when there is no engine, no local
+        shard or the tree has no device lowering.  A lone caller runs the
+        count directly (``CountBatcher.submit``, then ``_direct``: no added
+        latency); a caller arriving while a batch is in flight, or within
+        the hot window after one, queues and is answered by the next K5
+        launch."""
+        if self.engine is None:
+            return None
+        local = self._local_shards(index, shards, opt.remote)
+        if not local:
             return None
         try:
-            return self.engine.batched_count(index, child, list(shards))
+            return set(local), self.engine.batched_count(index, child, list(local))
         except HostFallback:
             return None
 
-    def _execute_explain(self, index, c: Call, shards) -> dict:
+    def _execute_explain(self, index, c: Call, shards, opt: ExecOptions) -> dict:
         """``Explain(<query>)``: plan WITHOUT dispatching
         (pilosa_tpu/executor/executor.py:1531-1568).  Reports the path a
         real execution would take (the O(1) lane's eligibility, the memo,
@@ -955,12 +1332,15 @@ class Executor:
             doc["fastCardinalityEligible"] = bool(
                 inner.name == "Row" and not inner.children and len(inner.args) == 1
                 and isinstance(arg, int) and not isinstance(arg, bool))
-        doc["localShards"] = len(shards)
-        doc["remoteShards"] = 0
+        local = set(self._local_shards(index, shards, opt.remote))
+        doc["localShards"] = sum(1 for s in shards if s in local)
+        doc["remoteShards"] = len(shards) - doc["localShards"]
         if self.engine is None:
             doc.update(op=child.name, plannedPath="host", lowerable=False)
             return doc
         doc.update(self.engine.explain_count(index, target, shards))
+        if doc.get("remoteShards"):
+            doc["plannedPath"] = f"{doc.get('plannedPath', 'dense')}+fanout"
         return doc
 
     # -- Range (executor.go :1233-1440) ------------------------------------
@@ -1076,20 +1456,28 @@ class Executor:
             words = bitops.full_row(frag.device)
         return frag, bsig, words
 
-    def _bsi_host_lane(self, index, c: Call, shards, map_fn, reduce_fn) -> ValCount:
-        if self.engine is not None and shards:
+    def _bsi_host_lane(self, index, c: Call, shards, opt: ExecOptions, map_fn,
+                       reduce_fn) -> ValCount:
+        local = set(self._local_shards(index, shards, opt.remote))
+        if self.engine is not None and any(s in local for s in shards):
             self.host_fallbacks += 1
-        result = ValCount()
-        for shard in shards:
+
+        def shard_fn(shard):
             ctx = self._bsi_shard_ctx(index, c, shard)
-            if ctx is not None:
-                result = reduce_fn(result, map_fn(*ctx))
+            return ValCount() if ctx is None else map_fn(*ctx)
+
+        result = self.map_reduce(index, shards, c, opt, shard_fn,
+                                 lambda a, v: reduce_fn(a or ValCount(), v)) or ValCount()
         return ValCount() if result.count == 0 else result
 
-    def _execute_sum(self, index, c: Call, shards) -> ValCount:
-        fused = self._mesh_sum(index, c, shards)
+    def _execute_sum(self, index, c: Call, shards, opt: ExecOptions) -> ValCount:
+        fused = self._mesh_sum(index, c, shards, opt)
         if fused is not None:
-            return ValCount() if fused.count == 0 else fused
+            local_shards, vc = fused
+            remote = [s for s in shards if s not in local_shards]
+            if remote:
+                vc = vc.add(self._execute_sum(index, c, remote, opt))
+            return ValCount() if vc.count == 0 else vc
 
         def map_fn(frag, bsig, filt):
             depth = bsig.bit_depth()
@@ -1098,7 +1486,7 @@ class Executor:
             n = int(n)
             return ValCount(sum(int(counts[i]) << i for i in range(depth)) + n * bsig.min, n)
 
-        return self._bsi_host_lane(index, c, shards, map_fn, ValCount.add)
+        return self._bsi_host_lane(index, c, shards, opt, map_fn, ValCount.add)
 
     def _bsi_flight(self, kind, index, c: Call, shards, run):
         """Run ``run(field_name, filter_call)`` of a fused Sum/Min/Max as one
@@ -1120,19 +1508,28 @@ class Executor:
         except HostFallback:
             return None
 
-    def _mesh_sum(self, index, c: Call, shards) -> Optional[ValCount]:
-        """Fused BSI Sum through the engine's batch lane (one K6 launch for a
-        lone caller; concurrent callers fuse with their drain-mates), or
-        None."""
+    def _mesh_sum(self, index, c: Call, shards, opt: ExecOptions):
+        """Fused BSI Sum of this node's shards through the engine's batch
+        lane (one K6 launch for a lone caller; concurrent callers fuse with
+        their drain-mates): (local shard set, ValCount), or None."""
+        local = self._local_shards(index, shards, opt.remote)
+        if not local:
+            return None
         res = self._bsi_flight(
-            "sum", index, c, shards,
-            lambda fld, filt: self.engine.batched_sum(index, fld, filt, list(shards)))
-        return None if res is None else ValCount(*res)
+            "sum", index, c, local,
+            lambda fld, filt: self.engine.batched_sum(index, fld, filt, list(local)))
+        return None if res is None else (set(local), ValCount(*res))
 
-    def _execute_min_max(self, index, c: Call, shards, is_min: bool) -> ValCount:
-        fused = self._mesh_min_max(index, c, shards, is_min)
+    def _execute_min_max(self, index, c: Call, shards, opt: ExecOptions,
+                         is_min: bool) -> ValCount:
+        fused = self._mesh_min_max(index, c, shards, opt, is_min)
         if fused is not None:
-            return ValCount() if fused.count == 0 else fused
+            local_shards, vc = fused
+            remote = [s for s in shards if s not in local_shards]
+            if remote:
+                rest = self._execute_min_max(index, c, remote, opt, is_min)
+                vc = vc.smaller(rest) if is_min else vc.larger(rest)
+            return ValCount() if vc.count == 0 else vc
 
         def map_fn(frag, bsig, filt):
             planes = frag.device_planes(bsig.bit_depth())
@@ -1140,17 +1537,21 @@ class Executor:
             n = int(n)
             return ValCount() if n == 0 else ValCount(int(val) + bsig.min, n)
 
-        return self._bsi_host_lane(index, c, shards, map_fn,
+        return self._bsi_host_lane(index, c, shards, opt, map_fn,
                                    ValCount.smaller if is_min else ValCount.larger)
 
-    def _mesh_min_max(self, index, c: Call, shards, is_min: bool) -> Optional[ValCount]:
-        """Fused BSI Min/Max through the engine's batch lane (one K7 launch
-        for a lone caller), or None."""
+    def _mesh_min_max(self, index, c: Call, shards, opt: ExecOptions, is_min: bool):
+        """Fused BSI Min/Max of this node's shards through the engine's
+        batch lane (one K7 launch for a lone caller): (local shard set,
+        ValCount), or None."""
+        local = self._local_shards(index, shards, opt.remote)
+        if not local:
+            return None
         res = self._bsi_flight(
-            ("minmax", is_min), index, c, shards,
-            lambda fld, filt: self.engine.batched_min_max(index, fld, filt, list(shards),
+            ("minmax", is_min), index, c, local,
+            lambda fld, filt: self.engine.batched_min_max(index, fld, filt, list(local),
                                                           is_min))
-        return None if res is None else ValCount(*res)
+        return None if res is None else (set(local), ValCount(*res))
 
     # -- TopN (executor.go :694-828) ---------------------------------------
 
@@ -1171,34 +1572,37 @@ class Executor:
         return (field_name, n, row_ids, min_threshold, c.args.get("attrName", ""),
                 c.args.get("attrValues"), tanimoto)
 
-    def _execute_topn(self, index, c: Call, shards):
+    def _execute_topn(self, index, c: Call, shards, opt: ExecOptions):
         ids_arg, _ = c.uint_slice_arg("ids")
         n, _ = c.uint_arg("n")
 
-        fused = self._mesh_topn_full(index, c, shards)
+        fused = self._mesh_topn_full(index, c, shards, opt)
         if fused is not None:
             return fused
 
-        pairs = self._execute_topn_shards(index, c, shards)
-        if not pairs or ids_arg:
+        pairs = self._execute_topn_shards(index, c, shards, opt)
+        # A peer's replay returns its untrimmed pairs for the coordinator's
+        # merge and recount.
+        if not pairs or ids_arg or opt.remote:
             return pairs
 
         # Phase 2: refetch exact counts for the merged candidate ids
         # (executor.go :715-733).
         other = c.clone()
         other.args["ids"] = sorted(r for r, _ in pairs)
-        trimmed = self._execute_topn_shards(index, other, shards)
+        trimmed = self._execute_topn_shards(index, other, shards, opt)
         if n and n < len(trimmed):
             trimmed = trimmed[:n]
         return trimmed
 
-    def _mesh_topn_full(self, index, c: Call, shards):
+    def _mesh_topn_full(self, index, c: Call, shards, opt: ExecOptions):
         """Single-dispatch TopN: both reference phases and the trim
         collapse into one K3 launch, with one small readback.  None when there
         is no engine, an attribute or Tanimoto filter needs the host walk,
-        the candidate union is past MAX_TOPN_CANDIDATES, or the src tree
-        has no device lowering; the two-phase path then runs."""
-        if self.engine is None:
+        the candidate union is past MAX_TOPN_CANDIDATES, the src tree
+        has no device lowering, a shard is a peer's, or the call is a peer's
+        replay (it returns untrimmed pairs); the two-phase path then runs."""
+        if self.engine is None or opt.remote:
             return None
         if c.args.get("attrName") or c.args.get("attrValues"):
             return None
@@ -1207,6 +1611,10 @@ class Executor:
             return None
         if len(c.children) > 1:
             raise Error("TopN() can only have one input bitmap")
+        if self.cluster is not None:
+            local = set(self._local_shards(index, shards))
+            if any(s not in local for s in shards):
+                return None
         field_name, n, row_ids, min_threshold, _, _, _ = self._topn_args(c)
         if not c.children:
             # Cache-only TopN rides the versioned result memo: a probe miss
@@ -1251,36 +1659,62 @@ class Executor:
         # A copy: the flight's waiters share one list.
         return list(out) if isinstance(out, list) else out
 
-    def _execute_topn_shards(self, index, c: Call, shards):
-        fused = self._mesh_topn_shards(index, c, shards)
+    def _execute_topn_shards(self, index, c: Call, shards, opt: ExecOptions):
+        def map_fn(shard):
+            return self._execute_topn_shard(index, c, shard)
+
+        def reduce_fn(prev, v):
+            return cache_mod.merge_pairs([prev or [], v])
+
+        fused = self._mesh_topn_shards(index, c, shards, opt)
         if fused is not None:
-            pairs = fused
+            local_shards, pairs = fused
+            remote = [s for s in shards if s not in local_shards]
+            if remote:
+                rpairs = self.map_reduce(index, remote, c, opt, map_fn, reduce_fn) or []
+                pairs = cache_mod.merge_pairs([pairs, rpairs])
         else:
-            pairs = []
-            for shard in shards:
-                pairs = cache_mod.merge_pairs(
-                    [pairs, self._execute_topn_shard(index, c, shard)]
-                )
+            pairs = self.map_reduce(index, shards, c, opt, map_fn, reduce_fn) or []
         pairs.sort(key=cache_mod.pair_sort_key)
         return pairs
 
-    def _mesh_topn_shards(self, index, c: Call, shards):
-        """TopN phase 1 over every requested shard: the per-candidate src
-        intersection counts of all shards in one K3 launch
-        (``TorchEngine.batched_topn_scores``), then the reference's per-shard heap
-        walk on the host over the precomputed scores.  Returns the merged
-        pairs, or None to run the per-shard host lane.
+    def _mesh_topn_shards(self, index, c: Call, shards, opt: ExecOptions):
+        """TopN phase 1 over this node's shards: (local shard set, merged
+        pairs), or None to run the per-shard host lane.  A peer's shards
+        go to the peer (``_execute_topn_shards``).
 
-        The reference first tries its device slab lane
-        (``kernels.topn_slab_tree``) here.  On one node it declines every
-        call that reaches this point (the filters and the oversized union
-        that sent the call here decline it too), and otherwise serves only
-        peer calls of a cluster, so it is not ported (ROADMAP.md Queue 2
-        item 11)."""
-        if self.engine is None or len(c.children) != 1 or not shards:
+        First the slab lane (``TorchEngine.topn_device_full``, K9): each
+        shard's gated candidate walk and top-k on the card, a fixed-width
+        slab a shard, so the host merges at most k_out pairs a shard.  It
+        serves a cluster's peers and the coordinator's own shards once one
+        shard is remote.  It declines (None) with ``ids``, an attribute or
+        Tanimoto filter or n = 0, and in the engine past MAX_TOPN_CANDIDATES
+        candidates, when a shard's qualifiers overflow its slab, or on the
+        engine's HostFallback (each counted there); then
+        the per-candidate src counts of every shard in one K3 launch
+        (``TorchEngine.batched_topn_scores``) and the reference's
+        per-shard heap walk on the host over the precomputed scores."""
+        if self.engine is None or len(c.children) != 1:
+            return None
+        shards = self._local_shards(index, shards, opt.remote)
+        if not shards:
             return None
         (field_name, n, row_ids, min_threshold, attr_name, attr_values,
          tanimoto) = self._topn_args(c)
+        if (not row_ids and not attr_name and not attr_values and tanimoto == 0 and n > 0
+                and self.engine.topn_slab_enabled):
+            # The write sequence before any derived state.
+            seq = frag_mod.WRITE_SEQ.v
+            out = self._sflight.do(
+                ("topn_slab", seq, index, str(c), tuple(sorted(shards))),
+                lambda: self.engine.topn_device_full(
+                    index, field_name, c.children[0], shards, int(n), min_threshold))
+            if out is not None:
+                p = plans_mod.current_plan()
+                if p is not None:
+                    p.note_op(op="TopN", path="device_slab", topkDevice=int(n))
+                # A copy: the flight's waiters share one list.
+                return set(shards), list(out)
         frags = {}
         cand_set = set()
         for s in shards:
@@ -1295,7 +1729,7 @@ class Executor:
             frags[s] = frag
             cand_set.update(r for r, _ in pairs)
         if not frags:
-            return []
+            return set(shards), []
         candidates = sorted(cand_set)
         p = plans_mod.current_plan()
         if p is not None:
@@ -1307,7 +1741,7 @@ class Executor:
         except HostFallback:
             return None
         if scored is None:
-            return []
+            return set(shards), []
         scores, src_counts, shard_pos = scored
         cand_pos = {r: i for i, r in enumerate(candidates)}
         all_pairs = []
@@ -1329,7 +1763,7 @@ class Executor:
                     src_count_total=int(src_counts[si]),
                 )
             )
-        return cache_mod.merge_pairs(all_pairs)
+        return set(shards), cache_mod.merge_pairs(all_pairs)
 
     def _execute_topn_shard(self, index, c: Call, shard: int):
         (field_name, n, row_ids, min_threshold, attr_name, attr_values,
@@ -1354,16 +1788,15 @@ class Executor:
 
     # -- Rows / GroupBy (executor.go :897-1170) ----------------------------
 
-    def _execute_rows(self, index, c: Call, shards) -> List[int]:
+    def _execute_rows(self, index, c: Call, shards, opt: ExecOptions) -> List[int]:
         col, ok = c.uint_arg("column")
         if ok:
             shards = [col // frag_mod.SHARD_WIDTH]
         limit_arg, has_limit = c.uint_arg("limit")
         limit = limit_arg if has_limit else _MAXINT
-        out: List[int] = []
-        for shard in shards:
-            out = _merge_row_ids(out, self._execute_rows_shard(index, c, shard), limit)
-        return out
+        return self.map_reduce(
+            index, shards, c, opt, lambda shard: self._execute_rows_shard(index, c, shard),
+            lambda prev, v: _merge_row_ids(prev or [], v, limit)) or []
 
     def _execute_rows_shard(self, index, c: Call, shard: int) -> List[int]:
         field_name = c.args.get("field")
@@ -1384,7 +1817,7 @@ class Executor:
         return frag.rows_filtered(start=previous + 1 if has_prev else 0, column=column,
                                   limit=limit_arg if has_limit else None)
 
-    def _execute_group_by(self, index, c: Call, shards) -> List[GroupCount]:
+    def _execute_group_by(self, index, c: Call, shards, opt: ExecOptions) -> List[GroupCount]:
         """GroupBy (executor.go :1056): the fused lane over plain
         ``Rows(field=f)`` children, else the per-shard host iterator; then
         ``offset`` and ``limit``."""
@@ -1409,15 +1842,25 @@ class Executor:
             _, has_lim = child.uint_arg("limit")
             _, has_col = child.uint_arg("column")
             if has_lim or has_col:
-                child_rows[i] = self._execute_rows(index, child, shards)
+                child_rows[i] = self._execute_rows(index, child, shards, opt)
                 if not child_rows[i]:
                     return []
-        results = self._mesh_group_by(index, c, filter_call, shards)
-        if results is None:
-            results = []
-            for shard in shards:
-                results = _merge_group_counts(results, self._execute_group_by_shard(
-                    index, c, filter_call, shard, child_rows), limit)
+
+        def map_fn(shard):
+            return self._execute_group_by_shard(index, c, filter_call, shard, child_rows)
+
+        def reduce_fn(prev, v):
+            return _merge_group_counts(prev or [], v, limit)
+
+        fused = self._mesh_group_by(index, c, filter_call, shards, opt)
+        if fused is not None:
+            local_shards, results = fused
+            remote = [s for s in shards if s not in local_shards]
+            if remote:
+                rres = self.map_reduce(index, remote, c, opt, map_fn, reduce_fn) or []
+                results = _merge_group_counts(results, rres, limit)
+        else:
+            results = self.map_reduce(index, shards, c, opt, map_fn, reduce_fn) or []
         offset, has_offset = c.uint_arg("offset")
         if has_offset and offset < len(results):
             results = results[offset:]
@@ -1425,21 +1868,25 @@ class Executor:
             results = results[:limit]
         return results
 
-    def _mesh_group_by(self, index, c: Call, filter_call, shards):
-        """Fused GroupBy: every group combination's count in one K8 launch
-        (``TorchEngine.batched_group_counts``), assembled in row-major
-        order with the reference's progressive ``limit`` cut.  Applies to
-        plain ``Rows(field=f)`` children only.  The shaped count tensor
-        rides the result memo; the assembled list never does, so a memo
-        hit cannot drift from a recompute.  None sends the call to the
-        host lane: no engine, another child, more than MAX_GROUP_COMBOS
+    def _mesh_group_by(self, index, c: Call, filter_call, shards, opt: ExecOptions):
+        """Fused GroupBy of this node's shards: every group combination's
+        count in one K8 launch (``TorchEngine.batched_group_counts``),
+        assembled in row-major order with the reference's progressive
+        ``limit`` cut; (local shard set, results).  Applies to plain
+        ``Rows(field=f)`` children only.  The shaped count tensor rides the
+        result memo; the assembled list never does, so a memo hit cannot
+        drift from a recompute.  None sends the call to the host lane: no
+        engine, no local shard, another child, more than MAX_GROUP_COMBOS
         combinations, or a filter with no device lowering."""
         eng = self.engine
-        if eng is None or not shards:
+        if eng is None:
             return None
         for child in c.children:
             if child.name != "Rows" or set(child.args) - {"field"}:
                 return None
+        shards = self._local_shards(index, shards, opt.remote)
+        if not shards:
+            return None
         # The write sequence before the row lists: a leader with stale row
         # sets must key as pre-write.
         seq = frag_mod.WRITE_SEQ.v
@@ -1448,7 +1895,7 @@ class Executor:
         key, hit = eng.memo_probe_groupby(index, qsig, fields, filter_call, shards)
         row_lists = [self._group_rows(index, f, shards) for f in fields]
         if any(not rows for rows in row_lists):
-            return []
+            return set(shards), []
         shape = tuple(len(rows) for rows in row_lists)
         if hit is not None and tuple(hit.shape) == shape:
             p = plans_mod.current_plan()
@@ -1484,7 +1931,7 @@ class Executor:
                     n))
             if len(results) >= limit:
                 break
-        return results
+        return set(shards), results
 
     def _group_rows(self, index, field, shards) -> List[int]:
         """The sorted union of the field's row ids over ``shards``: the
@@ -1533,7 +1980,7 @@ class Executor:
 
     # -- writes ------------------------------------------------------------
 
-    def _execute_set(self, index, c: Call) -> bool:
+    def _execute_set(self, index, c: Call, opt: ExecOptions) -> bool:
         col_id, ok = c.uint_arg("_col")
         if not ok:
             raise Error("Set() column argument 'col' required")
@@ -1546,7 +1993,10 @@ class Executor:
             value, ok = c.int_arg(field_name)
             if not ok:
                 raise Error("Set() row argument required")
-            return f.set_value(col_id, value)
+            # A BSI Set rewrites value planes: it clears bits.
+            return self._write_replicated(index, c, col_id, opt,
+                                          lambda: f.set_value(col_id, value),
+                                          destructive=True)
         row_id, ok = c.uint_arg(field_name)
         if not ok:
             raise Error("Set() row argument required")
@@ -1559,9 +2009,12 @@ class Executor:
                 raise Error(f"invalid date: {ts}") from None
         if f.options.type == FIELD_TYPE_BOOL and row_id not in (0, 1):
             raise Error("bool field rows must be 0 or 1")
-        return f.set_bit(row_id, col_id, timestamp)
+        # Mutex and bool sets clear the column's previous row.
+        return self._write_replicated(
+            index, c, col_id, opt, lambda: f.set_bit(row_id, col_id, timestamp),
+            destructive=f.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL))
 
-    def _execute_clear_bit(self, index, c: Call) -> bool:
+    def _execute_clear_bit(self, index, c: Call, opt: ExecOptions) -> bool:
         field_name = self._field_arg(c)
         f = self._field(index, field_name)
         row_id, ok = c.uint_arg(field_name)
@@ -1570,11 +2023,162 @@ class Executor:
         col_id, ok = c.uint_arg("_col")
         if not ok:
             raise Error("Clear() col argument required")
-        return f.clear_bit(row_id, col_id)
+        return self._write_replicated(index, c, col_id, opt,
+                                      lambda: f.clear_bit(row_id, col_id), destructive=True)
+
+    def _hint_down_writes(
+        self, index, shard, down, call, shards=None, dedup=None,
+        all_or_nothing=False,
+    ):
+        """Durably queue the missed write for each DOWN owner (hinted
+        handoff, docs/durability.md): the hint record carries the
+        serialized call, replayed with remote=True against the
+        recovered owner by the HintManager's worker.  Returns how many
+        of ``down`` were absorbed — the caller applies the skip-or-fail
+        fallback policy to the rest.  ``dedup`` ({(node, shard): seq}
+        scoped to one logical write) keeps a hedge-recursion re-route
+        from double-queuing the same miss.  ``all_or_nothing`` (the
+        destructive-gate contract) ROLLS BACK this call's fresh
+        enqueues and returns 0 when any of ``down`` could not be
+        absorbed: the caller is about to fail the write without an
+        ack, and a surviving partial hint would replay an op that
+        never happened onto one replica."""
+        hints = getattr(self.cluster, "hints", None)
+        if hints is None:
+            return 0
+        op = {"kind": "query", "query": str(call)}
+        if shards is not None:
+            op["shards"] = [int(s) for s in shards]
+        n = 0
+        fresh = []  # (node_id, dedup key, seq) queued by THIS call
+        for node in down:
+            key = (node.id, shard)
+            if dedup is not None and key in dedup:
+                n += 1  # already queued by an earlier route of this write
+                continue
+            seq = hints.enqueue(node.id, index, shard, op)
+            if seq:
+                n += 1
+                fresh.append((node.id, key, seq))
+                if dedup is not None:
+                    dedup[key] = seq
+        if all_or_nothing and n < len(down):
+            for node_id, key, seq in fresh:
+                hints.discard(node_id, [seq])
+                if dedup is not None:
+                    dedup.pop(key, None)
+            return 0
+        if n:
+            self._note_hinted(index, call.name, shard, n)
+        return n
+
+    def _discard_hinted(self, dedup):
+        """Unwind EVERY hint a failing logical write queued — across
+        all its shards and targets (the per-call all_or_nothing rolls
+        back only the current shard's batch; the write erroring at a
+        LATER shard must not leave earlier shards' hints to replay an
+        op the client never got an ack for)."""
+        hints = getattr(self.cluster, "hints", None)
+        if hints is None or not dedup:
+            return
+        for (node_id, _shard), seq in list(dedup.items()):
+            hints.discard(node_id, [seq])
+        dedup.clear()
+
+    def _note_hinted(self, index, op_name, shard, n):
+        """One hinted write: journal + plan stamp (the analyzer's
+        "owner DOWN: queued as hint" annotation feeds off the op
+        note; the pilosa_hints_* series are counted by the manager)."""
+        self.cluster.journal.append(
+            "write.hinted", index=index, op=op_name, shard=int(shard),
+            owners=int(n),
+        )
+        p = plans_mod.current_plan()
+        if p is not None:
+            p.note_op(op=op_name, hinted=int(n), shard=int(shard))
+
+    def _write_replicated(
+        self, index, c: Call, col_id: int, opt, local_fn,
+        destructive: bool = False,
+    ):
+        """Apply a single-bit write on every replica of the column's shard:
+        locally when this node is an owner, forwarded otherwise
+        (executor.go executeSetBitField :1865-1898).  Single-node: just
+        local.
+
+        DEGRADED policy (docs/durability.md): an owner the failure
+        detector has marked DOWN has the miss durably QUEUED as a hint
+        record for replay on recovery (hinted handoff) — the surviving
+        owners take the write now and the recovered owner receives it
+        before anti-entropy can merge against it.  When the hint queue
+        cannot absorb the miss (no manager / overflow / expiry) the
+        policy falls back verbatim to the pre-hint policy: purely-ADDITIVE sets skip
+        the dead owner (anti-entropy seeds it on recovery — majority
+        ties resolve to set, so the survivor's bit wins) while
+        DESTRUCTIVE writes fail loudly — a Clear, or any write that
+        implicitly clears bits (mutex/bool sets displacing the previous
+        row, BSI sets rewriting value planes), acked on the lone
+        survivor would be partially REVERTED by that same tie rule when
+        the dead owner recovers still holding the old bits.  Every
+        owner DOWN fails loudly: there is no replica to make the ack
+        durable on.  An owner that is not yet marked DOWN but fails the
+        forward also fails the write loudly — the client never got an
+        ack, so nothing acked can be lost."""
+        if self.cluster is None:
+            return local_fn()
+        shard = col_id // frag_mod.SHARD_WIDTH
+        owners = self.cluster.shard_nodes(index, shard)
+        if opt.remote:
+            # Directed delivery (replication forward or hint replay):
+            # the sender already ran the degraded-write policy — apply
+            # locally when this node is an owner, no re-gating (a
+            # replay must land even while some OTHER owner is DOWN).
+            if any(n.id == self.cluster.node.id for n in owners):
+                return bool(local_fn())
+            return False
+        live = [n for n in owners if n.state != "DOWN"]
+        down = [n for n in owners if n.state == "DOWN"]
+        if not live:
+            raise Error(
+                f"write unavailable: every owner of shard {shard} is DOWN "
+                f"({', '.join(n.id for n in owners)})"
+            )
+        hinted = 0
+        if down:
+            hinted = self._hint_down_writes(
+                index, shard, down, c, all_or_nothing=destructive,
+            )
+        if destructive and hinted < len(down):
+            raise Error(
+                f"{c.name} unavailable: owner of shard {shard} is DOWN, "
+                "the hint queue could not absorb the miss, and a "
+                "degraded bit-removing write would be reverted by "
+                "anti-entropy's majority-tie-to-set merge on recovery"
+            )
+        ret = False
+        for node in live:
+            if node.id == self.cluster.node.id:
+                if local_fn():
+                    ret = True
+                continue
+            doc = self.cluster.client(node).query(index, str(c), remote=True)
+            if doc["results"][0]:
+                ret = True
+        return ret
+
+    def _forward_to_all(self, index, c: Call, opt):
+        """Forward an attr write to every other node (executor.go
+        :1964-1993)."""
+        if self.cluster is None or opt.remote:
+            return
+        for node in self.cluster.nodes:
+            if node.id == self.cluster.node.id:
+                continue
+            self.cluster.client(node).query(index, str(c), remote=True)
 
     # -- whole-row writes (executor.go :1964-2040) --------------------------
 
-    def _execute_clear_row(self, index, c: Call, shards) -> bool:
+    def _execute_clear_row(self, index, c: Call, shards, opt: ExecOptions) -> bool:
         field_name = self._field_arg(c)
         f = self._field(index, field_name)
         if f.options.type not in (FIELD_TYPE_SET, FIELD_TYPE_TIME, FIELD_TYPE_MUTEX,
@@ -1583,15 +2187,17 @@ class Executor:
         row_id, ok = c.uint_arg(field_name)
         if not ok:
             raise Error("ClearRow() row argument required")
-        changed = False
-        for shard in shards:
+        def map_fn(shard):
+            changed = False
             for view in list(f.views.values()):
                 frag = view.fragment(shard)
                 if frag is not None:
                     changed |= frag.clear_row(row_id)
-        return changed
+            return changed
 
-    def _execute_set_row(self, index, c: Call, shards) -> bool:
+        return bool(self.map_reduce(index, shards, c, opt, map_fn, lambda a, v: bool(a) or v))
+
+    def _execute_set_row(self, index, c: Call, shards, opt: ExecOptions) -> bool:
         field_name = self._field_arg(c)
         f = self._field(index, field_name)
         if f.options.type != FIELD_TYPE_SET:
@@ -1601,12 +2207,12 @@ class Executor:
             raise Error("Store() row argument required")
         if len(c.children) != 1:
             raise Error("Store() requires a source row")
-        changed = False
-        for shard in shards:
+        def map_fn(shard):
             src = self._execute_bitmap_call_shard(index, c.children[0], shard)
             frag = f.view_if_not_exists(VIEW_STANDARD).fragment_if_not_exists(shard)
-            changed |= frag.set_row(src, row_id)
-        return changed
+            return frag.set_row(src, row_id)
+
+        return bool(self.map_reduce(index, shards, c, opt, map_fn, lambda a, v: bool(a) or v))
 
     # -- attributes (executor.go :2693-2730) -------------------------------
 
@@ -1619,11 +2225,12 @@ class Executor:
         attrs = {k: v for k, v in c.args.items() if k not in ("_field", "_row")}
         return f, row_id, attrs
 
-    def _execute_set_row_attrs(self, index, c: Call):
+    def _execute_set_row_attrs(self, index, c: Call, opt: ExecOptions):
         f, row_id, attrs = self._row_attrs_args(index, c)
         f.row_attr_store.set_attrs(row_id, attrs)
+        self._forward_to_all(index, c, opt)
 
-    def _execute_bulk_set_row_attrs(self, index, calls: List[Call]) -> list:
+    def _execute_bulk_set_row_attrs(self, index, calls: List[Call], opt: ExecOptions) -> list:
         """A query of SetRowAttrs calls alone: one bulk write per field."""
         by_field: Dict[str, tuple] = {}
         for c in calls:
@@ -1631,9 +2238,11 @@ class Executor:
             by_field.setdefault(f.name, (f, {}))[1].setdefault(row_id, {}).update(attrs)
         for f, m in by_field.values():
             f.row_attr_store.set_bulk_attrs(m)
+        for c in calls:
+            self._forward_to_all(index, c, opt)
         return [None] * len(calls)
 
-    def _execute_set_column_attrs(self, index, c: Call):
+    def _execute_set_column_attrs(self, index, c: Call, opt: ExecOptions):
         idx = self.holder.index(index)
         if idx is None:
             raise IndexNotFoundError(index)
@@ -1642,6 +2251,7 @@ class Executor:
             raise Error("SetColumnAttrs() column required")
         attrs = {k: v for k, v in c.args.items() if k not in ("_col", "field")}
         idx.column_attr_store.set_attrs(col, attrs)
+        self._forward_to_all(index, c, opt)
 
     # -- Options (executor.go :317) ----------------------------------------
 

@@ -13,12 +13,8 @@ handshake) per call via ``urllib.urlopen``.  Every hop now reuses an
 idle persistent connection from a small per-client pool, exactly what
 the reference gets for free from Go's http.Transport.
 
-A copy of ``pilosa_tpu/net/client.py``.  Left out, each raising
-``NotImplementedError`` that names its ROADMAP.md item: the cluster
-control-plane message (``send_message``, private protobuf frames) and the
-fragment-block sync calls (``fragment_blocks``, ``block_data``), both
-Queue 1 item 15.  The deterministic fault plane (``net/faults.py``) is
-consulted before each request, as in the reference.
+A copy of ``pilosa_tpu/net/client.py``.  The deterministic fault plane
+(``net/faults.py``) is consulted before each request, as in the reference.
 """
 
 from __future__ import annotations
@@ -34,7 +30,6 @@ from typing import List, Optional
 from ..util import tracing
 from ..util.stats import METRIC_CLIENT_RETRIES, METRIC_CLUSTER_REMOTE_CALLS, REGISTRY
 
-_ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
 
 
 class ClientError(Exception):
@@ -406,12 +401,16 @@ class InternalClient:
     # -- fragment sync (http/client.go :813-904) ---------------------------
 
     def fragment_blocks(self, index: str, field: str, view: str, shard: int) -> list:
-        raise NotImplementedError(
-            f"fragment block sync is not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_15}")
+        return self._get(
+            f"/internal/fragment/blocks?index={index}&field={field}"
+            f"&view={view}&shard={shard}"
+        )["blocks"]
 
     def block_data(self, index: str, field: str, view: str, shard: int, block: int) -> dict:
-        raise NotImplementedError(
-            f"fragment block sync is not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_15}")
+        return self._get(
+            f"/internal/fragment/block/data?index={index}&field={field}"
+            f"&view={view}&shard={shard}&block={block}"
+        )
 
     def retrieve_shard(self, index: str, field: str, shard: int, view: str = "standard") -> bytes:
         """Whole-fragment roaring snapshot (RetrieveShardFromURI :708)."""
@@ -446,9 +445,14 @@ class InternalClient:
 
     def send_message(self, msg: dict):
         """Cluster control-plane message as [1-byte type][protobuf]
-        (broadcast.go:75-83): the private protobuf frames are not ported."""
-        raise NotImplementedError(
-            f"cluster messages are not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_15}")
+        (broadcast.go:75-83 + internal/private.proto via net.privproto)."""
+        from . import privproto
+
+        self._post(
+            "/internal/cluster/message",
+            body=privproto.marshal_cluster_message(msg),
+            content_type="application/x-protobuf",
+        )
 
     def nodes(self) -> list:
         return self._get("/internal/nodes")

@@ -1,15 +1,15 @@
 """HTTP server: the reference's route table on stdlib http.server.
 
 Routes mirror http/handler.go:237-272 — the public JSON API plus the
-single-node ``/internal/*`` endpoints that backup, restore and key
-translation use.  gorilla/mux becomes a regex route table; JSON is the
+``/internal/*`` endpoints that backup, restore, key translation and the
+cluster (control-plane messages, anti-entropy, resize, the peers' remote
+queries and imports) use.  gorilla/mux becomes a regex route table; JSON is the
 canonical wire format, and the query and import routes negotiate
 protobuf (``application/x-protobuf``) as the reference does.
 
-The port of the single-node part of ``pilosa_tpu/net/server.py``: every
-route listed in ``Handler.__init__`` answers as the reference answers,
-byte for byte apart from trace ids and timings.  The routes of modules
-not ported yet answer 501 with ``{"error": ...}`` naming the ROADMAP.md
+The port of ``pilosa_tpu/net/server.py``: every route listed in
+``Handler.__init__`` answers as the reference answers, byte for byte apart
+from trace ids and timings.  The multi-process mesh's routes answer 501 with ``{"error": ...}`` naming the ROADMAP.md
 item that ports them (``_UNPORTED_ROUTES``), and an API method that
 raises ``NotImplementedError`` does the same; every other error keeps
 the reference's mapping (``error_response``).  A kernel that fails on
@@ -27,7 +27,7 @@ import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..api import API, ApiError, ImportRequest, ImportValueRequest, NotFoundError, QueryRequest
@@ -35,6 +35,7 @@ from ..executor import QueryResponse
 from ..executor.executor import Error as ExecError, FieldNotFoundError, IndexNotFoundError
 from ..executor.translate import TranslateError
 from ..pql import ParseError
+from ..parallel import kernels as kernels_mod
 from ..util import plans as plans_mod
 from ..util.stats import (
     METRIC_ENGINE_FUSED_MASKS_EVAL,
@@ -72,27 +73,13 @@ OPENMETRICS_CONTENT_TYPE = (
 # PILOSA_TPU_SERVER_BACKEND override.
 DEFAULT_BACKEND = "async"
 
-_ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
+_ITEM_15C = "Queue 1 item 15 part C (the multi-process mesh)"
 
 # (method, route pattern, ROADMAP.md item) of every reference route this
 # port leaves out: each answers 501 naming its item.
 _UNPORTED_ROUTES = [
-    ("POST", "/cluster/resize/abort", _ITEM_15),
-    ("POST", "/cluster/resize/remove-node", _ITEM_15),
-    ("POST", "/cluster/resize/set-coordinator", _ITEM_15),
-    ("GET", "/cluster/metrics", _ITEM_15),
-    ("POST", "/internal/cluster/message", _ITEM_15),
-    ("GET", "/internal/fragment/blocks", _ITEM_15),
-    ("GET", "/internal/fragment/block/data", _ITEM_15),
-    ("GET", "/internal/fragment/nodes", _ITEM_15),
-    ("GET", "/internal/nodes", _ITEM_15),
-    ("POST", "/internal/index/{index}/attr/diff", _ITEM_15),
-    ("POST", "/internal/index/{index}/field/{field}/attr/diff", _ITEM_15),
-    ("DELETE", "/internal/index/{index}/field/{field}/remote-available-shards/{shardID}",
-     _ITEM_15),
-    ("GET", "/internal/translate/data", _ITEM_15),
-    ("POST", "/internal/mesh/dispatch", _ITEM_15),
-    ("POST", "/internal/mesh/ticket", _ITEM_15),
+    ("POST", "/internal/mesh/dispatch", _ITEM_15C),
+    ("POST", "/internal/mesh/ticket", _ITEM_15C),
 ]
 
 
@@ -104,6 +91,49 @@ def _resolve_backend(backend: Optional[str]) -> str:
 
 # Process start reference for /healthz uptime.
 _START_MONOTONIC = time.monotonic()
+
+# Per-node scrape failure marker in the federated /cluster/metrics
+# exposition (NOT registered in the process REGISTRY: it describes the
+# federation attempt, not this node).
+SCRAPE_ERROR_SERIES = "pilosa_node_scrape_error"
+
+
+def _relabel_prometheus(text: str, node_id: str, seen_meta: set) -> List[str]:
+    """Stamp ``node="<id>"`` onto every sample of one node's exposition
+    so the federated output is one valid exposition labeled by origin.
+    # HELP / # TYPE lines are kept the FIRST time a metric name appears
+    (duplicate metadata is a text-format violation); ``seen_meta`` is
+    the cross-node dedup set the caller threads through."""
+    esc = node_id.replace("\\", "\\\\").replace('"', '\\"')
+    label = f'node="{esc}"'
+    out: List[str] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)  # '#', HELP/TYPE, name, rest
+            if len(parts) >= 3 and parts[1] in ("HELP", "TYPE"):
+                key = (parts[1], parts[2])
+                if key in seen_meta:
+                    continue
+                seen_meta.add(key)
+            out.append(line)
+            continue
+        name_labels, sep, value = line.rpartition(" ")
+        if not sep:
+            continue  # not a sample line; drop rather than corrupt
+        if name_labels.endswith("}"):
+            brace = name_labels.index("{")
+            inner = name_labels[brace + 1 : -1]
+            name_labels = (
+                name_labels[:brace]
+                + "{" + label + ("," + inner if inner else "") + "}"
+            )
+        else:
+            name_labels = name_labels + "{" + label + "}"
+        out.append(f"{name_labels} {value}")
+    return out
 
 
 def error_response(e: BaseException) -> Tuple[int, bytes]:
@@ -197,9 +227,13 @@ class Handler:
         r("DELETE", "/cq/{cqid}", self._delete_cq)
         r("GET", "/export", self._get_export)
         r("POST", "/recalculate-caches", self._recalculate_caches)
+        r("POST", "/cluster/resize/abort", self._resize_abort)
+        r("POST", "/cluster/resize/remove-node", self._remove_node)
+        r("POST", "/cluster/resize/set-coordinator", self._set_coordinator)
         r("GET", "/metrics", self._metrics)
         r("GET", "/healthz", self._healthz)
         r("GET", "/readyz", self._readyz)
+        r("GET", "/cluster/metrics", self._cluster_metrics)
         r("GET", "/debug/vars", self._debug_vars)
         r("GET", "/debug/traces", self._debug_traces)
         r("GET", "/debug/events", self._debug_events)
@@ -208,9 +242,19 @@ class Handler:
         r("GET", "/debug/pprof/profile", self._debug_pprof_profile)
         r("GET", "/debug/pprof/heap", self._debug_pprof_heap)
         r("POST", "/debug/pprof/trace", self._debug_pprof_trace)
-        # Internal routes a single node serves (http/handler.go:262-272).
+        # Internal routes (http/handler.go:262-272).
+        r("POST", "/internal/cluster/message", self._cluster_message)
+        r("GET", "/internal/fragment/blocks", self._fragment_blocks)
+        r("GET", "/internal/fragment/block/data", self._fragment_block_data)
+        r("GET", "/internal/fragment/nodes", self._fragment_nodes)
+        r("GET", "/internal/nodes", lambda q, b, **kw: self.api.hosts())
         r("GET", "/internal/shards/max",
           lambda q, b, **kw: {"standard": self.api.max_shards()})
+        r("POST", "/internal/index/{index}/attr/diff", self._index_attr_diff)
+        r("POST", "/internal/index/{index}/field/{field}/attr/diff", self._field_attr_diff)
+        r("DELETE", "/internal/index/{index}/field/{field}/remote-available-shards/{shardID}",
+          self._delete_remote_available_shard)
+        r("GET", "/internal/translate/data", self._translate_data)
         r("POST", "/internal/translate/keys", self._translate_keys)
         r("POST", "/internal/fragment/data", self._post_fragment_data)
         r("GET", "/internal/fragment/data", self._get_fragment_data)
@@ -361,9 +405,6 @@ class Handler:
 
     def _import_proto(self, index, field, q, body):
         doc = proto.decode_import_request(body)
-        if _qbool(q, "remote"):
-            raise NotImplementedError(
-                f"remote imports are not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_15}")
         if doc["columnIDs"] or doc["columnKeys"]:
             self.api.import_bits(
                 ImportRequest(
@@ -376,6 +417,7 @@ class Handler:
                     column_keys=doc["columnKeys"],
                     timestamps=doc["timestamps"],
                 ),
+                remote=_qbool(q, "remote"),
                 clear=_qbool(q, "clear"),
             )
         return 200, proto.CONTENT_TYPE, b""
@@ -386,11 +428,23 @@ class Handler:
         return {"name": "pilosa-tpu", "version": self.api.version()}
 
     def _status(self, q, b, **kw):
-        return {
+        doc = {
             "state": self.api.state(),
             "nodes": self.api.hosts(),
             "localID": self.api.node()["id"],
         }
+        # Pending-hint advertisement (hinted handoff): the syncer's
+        # SYNCHRONOUS pre-pass check fetches this from every live peer
+        # — gossiped advertisements alone lose the race against a
+        # stale node whose first post-heal pass would push reverted
+        # bits before any broadcast lands (docs/durability.md).
+        cluster = self.api.cluster
+        hints = getattr(cluster, "hints", None) if cluster else None
+        if hints is not None:
+            doc["pendingHints"] = hints.pending_map()
+            doc["aePasses"] = cluster.ae_passes
+        return doc
+
 
     def _get_index(self, q, b, *, index, **kw):
         idx = self.api.index(index)
@@ -426,9 +480,9 @@ class Handler:
         protobuf (http/handler.go handlePostQuery); accept JSON
         {"query": ...} as well as a bare PQL string."""
         doc = decode_query_doc(q, b)
-        # X-Pilosa-Replica-Read / X-Pilosa-Freshness-Ms are validated as
-        # the reference validates them; a single node is every shard's
-        # primary, so a valid value changes nothing.
+        # X-Pilosa-Replica-Read picks primary, any or bounded for this
+        # request; X-Pilosa-Freshness-Ms bounds how stale a replica may be
+        # for bounded reads (and implies bounded mode with no mode header).
         h = headers or {}
         replica_read = (
             h.get("X-Pilosa-Replica-Read") or h.get("x-pilosa-replica-read")
@@ -439,14 +493,17 @@ class Handler:
                 f"X-Pilosa-Replica-Read: {replica_read!r}: expected "
                 "primary, any, or bounded"
             )
+        freshness_ms = None
         raw = h.get("X-Pilosa-Freshness-Ms") or h.get("x-pilosa-freshness-ms")
         if raw:
             try:
-                float(raw)
+                freshness_ms = float(raw)
             except ValueError:
                 raise ValueError(
                     f"X-Pilosa-Freshness-Ms: {raw!r}: expected a number"
                 ) from None
+            if not replica_read:
+                replica_read = "bounded"
         return QueryRequest(
             index,
             doc["query"],
@@ -462,6 +519,8 @@ class Handler:
             # fairness resolves it (the header, else the index name).
             profile=doc["profile"],
             tenant=tenant_of(h, f"/index/{index}/query"),
+            replica_read=replica_read,
+            freshness_ms=freshness_ms,
         )
 
     def _defer_query(self, req: QueryRequest):
@@ -579,9 +638,7 @@ class Handler:
 
     def _post_import(self, q, b, *, index, field, **kw):
         doc = json.loads(b)
-        if _qbool(q, "remote"):
-            raise NotImplementedError(
-                f"remote imports are not ported to pilosa_tpu_torch yet: ROADMAP.md {_ITEM_15}")
+        remote = _qbool(q, "remote")
         clear = _qbool(q, "clear")  # handler.go:1002 doClear
         if "values" in doc:
             self.api.import_values(
@@ -593,6 +650,7 @@ class Handler:
                     column_keys=doc.get("columnKeys"),
                     values=doc.get("values"),
                 ),
+                remote=remote,
                 clear=clear,
             )
         else:
@@ -607,6 +665,7 @@ class Handler:
                     column_keys=doc.get("columnKeys"),
                     timestamps=doc.get("timestamps"),
                 ),
+                remote=remote,
                 clear=clear,
             )
         return {}
@@ -626,6 +685,20 @@ class Handler:
         buf = io.StringIO()
         self.api.export_csv(index, field, shard, buf)
         return buf.getvalue()
+
+    def _resize_abort(self, q, b, **kw):
+        self.api.resize_abort()
+        return {}
+
+    def _remove_node(self, q, b, **kw):
+        doc = json.loads(b) if b else {}
+        node = self.api.remove_node(doc.get("id", ""))
+        return {"remove": node}
+
+    def _set_coordinator(self, q, b, **kw):
+        doc = json.loads(b) if b else {}
+        old, new = self.api.set_coordinator(doc.get("id", ""))
+        return {"old": old, "new": new}
 
     def _metrics_text(self, openmetrics: bool = False) -> str:
         """The node's Prometheus exposition: the process registry with
@@ -696,9 +769,10 @@ class Handler:
         }
 
     def _readyz(self, q, b, **kw):
-        """GET /readyz: 200 only when the holder is open and the warm
-        start (when one ran this boot) is done; 503 with the reasons
-        otherwise, with the warm start's progress under ``warming``."""
+        """GET /readyz: 200 only when the holder is open, the warm start
+        (when one ran this boot) is done, the cluster's state is NORMAL and
+        gossip has converged; 503 with the reasons otherwise, with the warm
+        start's progress under ``warming``."""
         ready, reasons = self.api.readiness()
         doc = {"ready": ready, "reasons": reasons, "state": self.api.state()}
         ws = self.api.warm_status()
@@ -954,6 +1028,8 @@ class Handler:
                 "groupDispatches": eng.group_dispatches,
                 "fusedPrograms": eng.fused_programs,
                 "deviceBytesSkipped": eng.device_bytes_skipped,
+                # Each kernel's launches in this process, by C entry.
+                "kernelLaunches": kernels_mod.launch_counts(),
             }
             # The stack cache: resident and evicted-live bytes against the
             # budget, evictions, the residency fraction, the promotion
@@ -1095,6 +1171,164 @@ class Handler:
         if q.get("persist", ["0"])[0] in ("1", "true"):
             bundle["persistedTo"] = slo.persist_bundle(bundle)
         return bundle
+
+    # Per-node scrape budget for the federation fan-out.
+    CLUSTER_METRICS_TIMEOUT = 5.0
+    # Shared, bounded scrape pool (lazy): a per-request executor would
+    # leak a straggler thread per unreachable peer per scrape — with a
+    # 15 s Prometheus interval against a blackholed node that
+    # accumulates forever and stalls interpreter exit on the atexit
+    # join.  One bounded pool caps the straggler count for the process.
+    _fed_pool = None
+    _fed_pool_lock = threading.Lock()
+
+    @classmethod
+    def _federation_pool(cls):
+        from concurrent.futures import ThreadPoolExecutor
+
+        with cls._fed_pool_lock:
+            if cls._fed_pool is None:
+                cls._fed_pool = ThreadPoolExecutor(
+                    max_workers=8, thread_name_prefix="fed-scrape"
+                )
+            return cls._fed_pool
+
+    def _cluster_metrics(self, q, b, **kw):
+        """GET /cluster/metrics: federate every cluster node's /metrics
+        into ONE exposition, each sample labeled node="<id>" — a single
+        scrape target for the whole cluster (pull-time federation; no
+        node streams samples anywhere).  The fan-out rides the existing
+        internal clients, is timeout-bounded per request, and a node
+        that cannot be scraped (down, slow, DOWN-state) degrades to
+        pilosa_node_scrape_error{node=...} 1 instead of failing the
+        scrape."""
+        try:
+            timeout = min(
+                max(
+                    float(
+                        q.get(
+                            "timeout", [str(self.CLUSTER_METRICS_TIMEOUT)]
+                        )[0]
+                    ),
+                    0.1,
+                ),
+                30.0,
+            )
+        except ValueError:
+            timeout = self.CLUSTER_METRICS_TIMEOUT
+        local_id = self.api.node()["id"]
+        cluster = getattr(self.api, "cluster", None)
+        seen_meta: set = set()
+        body: List[str] = []
+        errors: Dict[str, int] = {local_id: 0}
+        if cluster is None:
+            body.extend(
+                _relabel_prometheus(self._node_metrics_text(), local_id, seen_meta)
+            )
+        else:
+            nodes = list(cluster.nodes)
+            remote = [
+                n for n in nodes if n.id != local_id and n.state != "DOWN"
+            ]
+            for n in nodes:
+                if n.id != local_id and n.state == "DOWN":
+                    errors[n.id] = 1
+            pool = self._federation_pool()
+            futures = {
+                n.id: pool.submit(cluster.client(n).metrics) for n in remote
+            }
+            # The local node never scrapes itself over HTTP.
+            body.extend(
+                _relabel_prometheus(self._node_metrics_text(), local_id, seen_meta)
+            )
+            deadline = time.monotonic() + timeout
+            for n in remote:
+                try:
+                    text = futures[n.id].result(
+                        timeout=max(0.0, deadline - time.monotonic())
+                    )
+                    body.extend(_relabel_prometheus(text, n.id, seen_meta))
+                    errors[n.id] = 0
+                except Exception:  # noqa: BLE001 — degraded, not fatal
+                    errors[n.id] = 1
+                    futures[n.id].cancel()  # drop it if not yet started
+        head = [
+            f"# HELP {SCRAPE_ERROR_SERIES} 1 when the node's /metrics "
+            "could not be federated within the timeout",
+            f"# TYPE {SCRAPE_ERROR_SERIES} gauge",
+        ]
+        for nid in sorted(errors):
+            esc = nid.replace("\\", "\\\\").replace('"', '\\"')
+            head.append(f'{SCRAPE_ERROR_SERIES}{{node="{esc}"}} {errors[nid]}')
+        text = "\n".join(head + body) + "\n"
+        return 200, PROMETHEUS_CONTENT_TYPE, text.encode()
+
+    def _cluster_message(self, q, b, **kw):
+        """POST /internal/cluster/message: [1-byte type][protobuf] frames
+        (type bytes 0-15, broadcast.go:55-73); legacy JSON bodies (first
+        byte '{') still accepted."""
+        from . import privproto
+
+        # Content-Type is authoritative when present (internal clients
+        # label frames x-protobuf); the byte sniff is the fallback for
+        # unlabeled peers.  Type bytes occupy 0-15 — but \t/\n/\r
+        # (9/10/13) also start whitespace-padded JSON, so the sniff
+        # requires a parseable frame for those ambiguous bytes.
+        ctype = kw.get("_headers", {}).get("Content-Type", "")
+        if "protobuf" in ctype:
+            self.api.cluster_message(privproto.unmarshal_cluster_message(b))
+        elif "json" in ctype or not b or b[0] >= 16:
+            self.api.cluster_message(json.loads(b))
+        elif b[0] in (9, 10, 13):
+            # JSON first: whitespace-padded JSON always parses, while a
+            # genuine type-9/10/13 frame never does (its payload is
+            # protobuf or empty) — the reverse order would let type 13's
+            # permissive empty decoder swallow JSON bodies.
+            try:
+                msg = json.loads(b)
+            except ValueError:
+                msg = privproto.unmarshal_cluster_message(b)
+            self.api.cluster_message(msg)
+        else:
+            self.api.cluster_message(privproto.unmarshal_cluster_message(b))
+        return {}
+
+    def _fragment_blocks(self, q, b, **kw):
+        return {
+            "blocks": self.api.fragment_blocks(
+                q["index"][0], q["field"][0], q["view"][0], int(q["shard"][0])
+            )
+        }
+
+    def _fragment_block_data(self, q, b, **kw):
+        return self.api.fragment_block_data(
+            q["index"][0],
+            q["field"][0],
+            q["view"][0],
+            int(q["shard"][0]),
+            int(q["block"][0]),
+        )
+
+    def _fragment_nodes(self, q, b, **kw):
+        return self.api.shard_nodes(q["index"][0], int(q["shard"][0]))
+
+    def _index_attr_diff(self, q, b, *, index, **kw):
+        doc = json.loads(b)
+        attrs = self.api.index_attr_diff(index, doc.get("blocks", []))
+        return {"attrs": {str(k): v for k, v in attrs.items()}}
+
+    def _field_attr_diff(self, q, b, *, index, field, **kw):
+        doc = json.loads(b)
+        attrs = self.api.field_attr_diff(index, field, doc.get("blocks", []))
+        return {"attrs": {str(k): v for k, v in attrs.items()}}
+
+    def _delete_remote_available_shard(self, q, b, *, index, field, shardID, **kw):
+        self.api.delete_available_shard(index, field, int(shardID))
+        return {}
+
+    def _translate_data(self, q, b, **kw):
+        offset = int(q.get("offset", ["0"])[0])
+        return self.api.get_translate_data(offset)
 
     def _translate_keys(self, q, b, **kw):
         doc = json.loads(b)

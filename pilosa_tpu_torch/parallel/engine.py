@@ -92,6 +92,7 @@ op's own program (``solo_op``), and Sum/Min/Max/TopN ride the result memo
 from __future__ import annotations
 
 import gc
+import os
 import threading
 import time
 import weakref
@@ -102,7 +103,7 @@ import numpy as np
 import torch
 
 from ..core import timequantum
-from ..core.cache import pair_sort_key
+from ..core.cache import merge_pairs, pair_sort_key
 from ..core.index import EXISTENCE_FIELD_NAME
 from ..core.view import VIEW_STANDARD, view_bsi_name
 from ..ops import bitops
@@ -514,6 +515,21 @@ class TorchEngine:
         # (index, field) -> (stack token, _TopNCandidates): the cache-fed
         # TopN candidate build, rebuilt when the stack's token moves.
         self._topn_cands: Dict[Tuple[str, str], tuple] = {}
+        # The TopN slab lane (topn_device_full, K9): a cluster node's phase
+        # 1 as each shard's gated walk and top k_out on the card.
+        # PILOSA_TOPN_SLAB=0 (or False here) sends every such call to the
+        # host walk, the lane's differential oracle.  Its candidates are
+        # cached as _topn_cands are, but carry ranked-cache counts.
+        self.topn_slab_enabled = os.environ.get("PILOSA_TOPN_SLAB", "1") != "0"
+        self._topn_slab_cands: Dict[Tuple[str, str], tuple] = {}
+        # Calls the slab lane served, and those it declined to the host
+        # walk, by reason: n = 0, a candidate union past
+        # MAX_TOPN_CANDIDATES, a shard whose qualifiers overflowed its
+        # slab (qual > k_out), a src tree without a device lowering, a
+        # stack not on the card.
+        self.topn_slab_served = 0
+        self.topn_slab_declines = {"n0": 0, "candidates": 0, "overflow": 0,
+                                   "lowering": 0, "residency": 0}
         # Versioned result memo (_ResultMemo) and the memo-key signature
         # cache: id(call) -> [call, query text, fields, referenced bit].
         self.result_memo = _ResultMemo(DEFAULT_RESULT_MEMO)
@@ -538,6 +554,9 @@ class TorchEngine:
         # (or MAX_GROUP_FIELDS) sent to the executor's host iterator.
         self.group_dispatches = 0
         self.group_host_fallbacks = 0
+        # TopN launches: phase-1 scores and the full TopN (K3) and the slab
+        # lane (K9).
+        self.topn_dispatches = 0
         # Whole-dashboard fusion: drains launched as fused programs, the
         # items that rode them, distinct masks evaluated and mask
         # references asked for (the gap is the evaluations fusion saved;
@@ -1604,6 +1623,7 @@ class TorchEngine:
             self._pending_free = []
             self._masks.clear()
             self._topn_cands.clear()
+            self._topn_slab_cands.clear()
             self._fused_plans.clear()
             self._universe_blocks_at.clear()
             self.result_memo.clear()
@@ -2511,6 +2531,7 @@ class TorchEngine:
             mask = self._mask_words(shards, canonical)
             prog, lw = self._lower_src(index, src_call, canonical)
             cand_idx = torch.from_numpy(idx).to(self.device)
+            self.topn_dispatches += 1
             scores, counts = self._reading(
                 lw.stacks + [stack],
                 lambda: kernels.topn_tree(prog, lw.mats, mask, stack.matrix, cand_idx))
@@ -2577,6 +2598,127 @@ class TorchEngine:
         self._topn_cands[key] = (stack.versions, entry)
         return entry
 
+    @property
+    def fused_dispatches(self) -> int:
+        """The device programs the engine ran for queries (the reference's
+        ``fused_dispatches``): Count launches dense, sparse and batched,
+        GroupBy, TopN and whole-dashboard drains."""
+        return (self.dense_dispatches + self.sparse_dispatches + self.batch_dispatches
+                + self.group_dispatches + self.topn_dispatches + self.fused_programs)
+
+    def _topn_slab_candidates(self, index, field, stack) -> _TopNCandidates:
+        """The slab lane's candidate arrays (pilosa_tpu/parallel/engine.py
+        :4271).  Unlike ``_topn_candidates``, the counts are each shard's
+        ranked-CACHE counts, 0 where a row is absent from that shard's
+        cache: the walk K9 replaces visits only the cached pairs, and cache
+        counts go stale below the admission threshold, so store counts
+        would change which rows the gate admits.  ``host_cnt`` is
+        int32[S, K_pad] and ``dev_cnt`` its [K_pad, S] twin, K9's layout."""
+        key = (index, field)
+        cached = self._topn_slab_cands.get(key)
+        if cached is not None and cached[0] == stack.versions:
+            return cached[1]
+        S = len(stack.shards)
+        shard_cols = [None] * S
+        for si, s in enumerate(stack.shards):
+            frag = self.holder.fragment(index, field, VIEW_STANDARD, s)
+            if frag is None:
+                continue
+            ids, cnts = frag.cache.rank_columns()
+            if ids.size:
+                shard_cols[si] = (np.asarray(ids, dtype=np.int64), np.asarray(cnts, dtype=np.int64))
+        cols = [c[0] for c in shard_cols if c is not None]
+        cands = [int(r) for r in np.unique(np.concatenate(cols))[::-1]] if cols else []
+        K = len(cands)
+        K_pad = max(8, 1 << (K - 1).bit_length()) if K else 8
+        host_cnt = np.zeros((S, K_pad), dtype=np.int32)
+        if K:
+            cand_arr = np.asarray(cands, dtype=np.int64)
+            for si, col in enumerate(shard_cols):
+                if col is None:
+                    continue
+                ids, cnts = col
+                order = np.argsort(ids)
+                sid, scnt = ids[order], cnts[order]
+                pos = np.searchsorted(sid, cand_arr)
+                inb = pos < sid.size
+                hit = np.zeros(K, dtype=bool)
+                hit[inb] = sid[pos[inb]] == cand_arr[inb]
+                host_cnt[si, :K][hit] = scnt[pos[hit]].astype(np.int32)
+        idx = np.zeros(K_pad, dtype=np.int32)
+        idx[:K] = [stack.row_index.get(r, 0) for r in cands]
+        entry = _TopNCandidates(
+            cands,
+            torch.from_numpy(idx).to(self.device),
+            torch.from_numpy(host_cnt.T.copy()).to(self.device),
+            host_cnt,
+        )
+        self._topn_slab_cands[key] = (stack.versions, entry)
+        return entry
+
+    def topn_device_full(self, index: str, field: str, src_call: Call, shards, n: int,
+                         min_threshold: int):
+        """TopN phase 1 with each shard's candidate walk on the card (K9,
+        ``kernels.topn_slab_tree``; pilosa_tpu/parallel/engine.py:4342): the
+        gates, the heap walk's threshold and a top k_out slab a shard, so
+        the host merges at most k_out pairs a shard.  Returns the merged
+        (row_id, count) pairs over ``shards``, equal to the host walk of
+        ``Fragment.top``, or None when the lane declines (counted in
+        ``topn_slab_declines``): n = 0, a candidate union past
+        MAX_TOPN_CANDIDATES, a shard whose qualifiers overflow its slab
+        (qual > k_out), or the engine's HostFallback: a src tree without
+        a device lowering, a stack not on the card (the reference's
+        executor catches these around the call)."""
+        if not n:
+            self.topn_slab_declines["n0"] += 1
+            return None
+        try:
+            return self._topn_slab(index, field, src_call, shards, n, min_threshold)
+        except HostFallback as e:
+            plans_mod.take_dispatch_note()
+            reason = "lowering" if isinstance(e, UnsupportedLowering) else "residency"
+            self.topn_slab_declines[reason] += 1
+            return None
+
+    def _topn_slab(self, index, field, src_call, shards, n, min_threshold):
+        canonical = self.canonical_shards(index)
+        with self._stacks_lock:
+            stack = self._require_full_stack(
+                index, field, VIEW_STANDARD,
+                self.field_stack(index, field, VIEW_STANDARD, canonical))
+            if stack is None:
+                return []
+            entry = self._topn_slab_candidates(index, field, stack)
+            if not entry.cands:
+                return []
+            if len(entry.cands) > self.MAX_TOPN_CANDIDATES:
+                self.topn_slab_declines["candidates"] += 1
+                return None
+            K_pad = entry.host_cnt.shape[1]
+            # The slab: 2n rounded up to a power of two (headroom for the
+            # merge across shards), at most K_pad.
+            k_out = min(K_pad, fusion_mod._pow2(max(2 * int(n), 8)))
+            mask = self._mask_words(shards, canonical)
+            prog, lw = self._lower_src(index, src_call, canonical)
+            self.topn_dispatches += 1
+            out = self._reading(lw.stacks + [stack], lambda: kernels.topn_slab_tree(
+                prog, lw.mats, mask, stack.matrix, entry.cand_idx, entry.dev_cnt,
+                max(int(min_threshold), 1), int(n), k_out))
+        vals, idx, qual = (t.cpu().numpy() for t in out)
+        pos = {s: i for i, s in enumerate(stack.shards)}
+        per_shard = []
+        for s in shards:
+            si = pos.get(s)
+            if si is None:
+                continue
+            if int(qual[si]) > k_out:
+                self.topn_slab_declines["overflow"] += 1
+                return None  # the slab overflowed: the host walk is exact
+            per_shard.append([(entry.cands[int(i)], int(v))
+                              for v, i in zip(vals[si], idx[si]) if v > 0])
+        self.topn_slab_served += 1
+        return merge_pairs(per_shard)
+
     def topn_full_async(self, index: str, field: str, src_call: Call, shards,
                         n: int, min_threshold: int, row_ids=None):
         """The whole TopN (phase-1 scores, per-shard gates, exact totals
@@ -2601,6 +2743,7 @@ class TorchEngine:
             n_out = min(int(n), K_pad) if n and not row_ids else None
             mask = self._mask_words(shards, canonical)
             prog, lw = self._lower_src(index, src_call, canonical)
+            self.topn_dispatches += 1
             out = self._reading(lw.stacks + [stack], lambda: kernels.topn_full_tree(
                 prog, lw.mats, mask, stack.matrix, entry.cand_idx, entry.dev_cnt,
                 max(int(min_threshold), 1), n_out,
@@ -3142,4 +3285,6 @@ class TorchEngine:
             "fusedPlans": len(self._fused_plans),
             "sparseDispatches": self.sparse_dispatches,
             "deviceBytesSkipped": self.device_bytes_skipped,
+            "topnSlab": {"served": self.topn_slab_served,
+                         "declines": dict(self.topn_slab_declines)},
         }

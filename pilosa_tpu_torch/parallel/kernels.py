@@ -50,6 +50,9 @@ the src leaves and the candidate rows at the tree's live blocks only.  A
 full TopN is one K3 launch: its last block ranks the totals and writes
 the top n.  P2 ``csrc/and_popcount_rows.cu`` scores one fragment's rows,
 named by index, against one src row (``bitops.popcount_and_rows``).
+``topn_slab_tree`` (a cluster node's TopN phase 1) wraps K9
+``csrc/topn_slab.cu`` the same way: the candidates' scores against the src
+tree, then each shard's gated walk and top k_out in one CTA a shard.
 
 ``count_batch_tree`` (K Counts in one launch, below) compiles a batch of
 trees into one table of distinct leaf rows and one postfix program per
@@ -556,7 +559,7 @@ range_leaf.launches = 0
 
 def pool_leaf(code, kernel: str) -> None:
     """Called by every kernel wrapper whose launch may carry pool leaves
-    (K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, K7P, K8, K8P, F1 and F1P)
+    (K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, K7P, K8, K8P, F1, F1P and K9)
     after it launched (K3P under "score_rows", K6P under "sum_tree", K7P
     under "minmax_tree", K8P under "groupn_tree", K5P under
     "count_batch_tree", F1P under "fused_tree"):
@@ -909,6 +912,123 @@ def topn_full_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
     launch = score_rows_pool_cuda if code.pooled else score_rows_cuda
     return launch(code, mats, mask, cand_mat, cand_idx, scores=False, cnt=cnt, thr=thr,
                   n_out=n_out)[2]
+
+
+# -- TopN's per-shard slab: K9 topn_slab ---------------------------------------
+#
+# The port of pilosa_tpu/parallel/kernels.py:396 topn_slab_tree: for each
+# shard, fragment.top's heap walk in closed form (csrc/topn_slab.cu's
+# comment), so a cluster node returns at most k_out pairs a shard.
+
+SLAB_MAX = 4096  # K_pad at most (csrc/topn_slab.cu kMaxCands)
+
+
+def slab_select_plain(scores: torch.Tensor, cnt: torch.Tensor, thr: int, n_sel: int,
+                      k_out: int):
+    """The selection of ``topn_slab_tree`` from scores and cache counts
+    int32[K, S]: (vals int32[S, k_out], idx int32[S, k_out], qual int32[S]),
+    in plain PyTorch ops.  The walk is a stable sort of -cnt, and the slab a
+    stable descending sort, so ties go to the lower candidate position
+    (jax.lax.top_k's order) without relying on torch.topk's tie order."""
+    scores = scores.to(torch.int64)
+    cnt = cnt.to(torch.int64)
+    g = torch.where((cnt >= thr) & (scores >= thr), scores, torch.zeros_like(scores))
+    order = torch.sort(-cnt, dim=0, stable=True).indices
+    g_ord = torch.gather(g, 0, order)
+    q = g_ord > 0
+    nq = q.sum(dim=0)
+    if n_sel:
+        c = torch.cumsum(q.to(torch.int64), dim=0)
+        a = torch.where(q & (c <= n_sel), g_ord, torch.full_like(g_ord, 2**31 - 1))
+        t = torch.where(nq >= n_sel, a.min(dim=0).values, torch.full_like(nq, thr))
+    else:
+        t = torch.full_like(nq, thr)
+    keep = (g > 0) & (g >= t[None, :])
+    qual = keep.sum(dim=0).to(torch.int32)
+    kept = torch.where(keep, g, torch.zeros_like(g)).T
+    top = torch.sort(kept, dim=1, descending=True, stable=True)
+    vals = top.values[:, :k_out].to(torch.int32)
+    idx = top.indices[:, :k_out].to(torch.int32)
+    return vals, idx, qual
+
+
+def topn_slab_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr: int, n_sel: int,
+                         k_out: int):
+    """K9's plain version: the candidates' scores against the masked src
+    tree (the SWAR popcount, one candidate at a time; a src tree with a
+    pool leaf read at its live blocks), then ``slab_select_plain``."""
+    if compile_prog(prog).pooled:
+        src, select = _src_pool_plain(prog, mats, mask, cand_mat)
+    else:
+        src, select = _src_plain(prog, mats, mask, cand_mat), (lambda words: words)
+    scores = _scores_plain(cand_mat, cand_idx.tolist(), src, select)
+    return slab_select_plain(scores, cnt, thr, n_sel, k_out)
+
+
+_TOPN_SLAB_ARGS = _TREE_ARGS + [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+
+
+def topn_slab_cuda(code: Postfix, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                   cand_mat: torch.Tensor, cand_idx: torch.Tensor, cnt: torch.Tensor,
+                   thr: int, n_sel: int, k_out: int):
+    """Launch K9 (``csrc/topn_slab.cu``) on the card, on the current
+    stream, without waiting for the device: (vals int32[S, k_out], idx
+    int32[S, k_out], qual int32[S]).  ``cand_idx`` int32[K_pad] (K_pad a
+    power of two, 8 <= K_pad <= SLAB_MAX), ``cnt`` int32[K_pad, S],
+    ``thr`` >= 1, 1 <= ``k_out`` <= K_pad."""
+    if cand_mat.dtype != torch.int32 or cand_mat.dim() != 3 or not cand_mat.is_contiguous():
+        raise ValueError("cand_mat must be a contiguous int32[R, S, W] tensor")
+    if not cand_mat.is_cuda:
+        raise ValueError("cand_mat must live on the card")
+    R, S, W = cand_mat.shape
+    K = cand_idx.shape[0]
+    if not 8 <= K <= SLAB_MAX or K & (K - 1):
+        raise ValueError(f"K9 takes a power-of-two K_pad in [8, {SLAB_MAX}], got {K}")
+    if thr < 1 or n_sel < 0 or not 1 <= k_out <= K:
+        raise ValueError(f"K9 takes thr >= 1, n_sel >= 0 and 1 <= k_out <= K_pad, got "
+                         f"thr={thr}, n_sel={n_sel}, k_out={k_out}, K_pad={K}")
+    mask = _on_card_int32(mask, "mask", (S,))
+    cand_idx = _on_card_int32(cand_idx, "cand_idx", (K,))
+    cnt = _on_card_int32(cnt, "cnt", (K, S))
+    check_stacks(list(mats) + [cand_mat], S, code, extra=(len(mats),))
+    if int(cand_idx.min()) < 0 or int(cand_idx.max()) >= R:
+        raise ValueError(f"candidate row outside the stack of {R} rows")
+    dev = cand_mat.device
+    scores = torch.empty((K, S), dtype=torch.int32, device=dev)
+    vals = torch.empty((S, k_out), dtype=torch.int32, device=dev)
+    idx = torch.empty((S, k_out), dtype=torch.int32, device=dev)
+    qual = torch.empty(S, dtype=torch.int32, device=dev)
+    fn = _lib_fn("topn_slab", "topn_slab", _TOPN_SLAB_ARGS)
+    err = fn(*_c_leaves(code, mats), mask.data_ptr(), cand_mat.data_ptr(), cand_idx.data_ptr(),
+             K, S, W, cnt.data_ptr(), int(thr), int(n_sel), int(k_out), scores.data_ptr(),
+             vals.data_ptr(), idx.data_ptr(), qual.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"topn_slab launch failed: cudaError {err}")
+    range_leaf(code)
+    pool_leaf(code, "topn_slab")
+    topn_slab_cuda.launches += 1
+    return vals, idx, qual
+
+
+topn_slab_cuda.launches = 0
+
+
+def topn_slab_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor,
+                   cand_mat: torch.Tensor, cand_idx: torch.Tensor, cnt: torch.Tensor,
+                   thr: int, n_sel: int, k_out: int):
+    """TopN's per-shard slab (pilosa_tpu/parallel/kernels.py:396
+    topn_slab_tree): each shard's gated candidate walk and top ``k_out``,
+    (vals int32[S, k_out], idx int32[S, k_out], qual int32[S]); ``qual[s]``
+    > k_out means shard s's walk overflowed its slab.  ``cand_idx`` names
+    the id-descending candidates' stack rows, ``cnt`` int32[K_pad, S] their
+    ranked-cache counts (0 where absent from a shard's cache).  CUDA tensors
+    launch K9 or raise; CPU tensors take ``topn_slab_tree_plain``."""
+    code = compile_prog(prog)
+    check_prog(code)
+    if mask.is_cuda:
+        return topn_slab_cuda(code, mats, mask, cand_mat, cand_idx, cnt, thr, n_sel, k_out)
+    return topn_slab_tree_plain(prog, mats, mask, cand_mat, cand_idx, cnt, thr, n_sel, k_out)
 
 
 # -- K Counts in one launch: K5 count_batch_tree ------------------------------
@@ -1829,3 +1949,17 @@ def fused_tree(spec: FusedSpec, mats: Sequence[torch.Tensor], masks: Sequence[to
         if spec.count_edges:
             outs.append(counts)
     return outs + _agg_outputs(spec, mats, mat, masks, tensors, plain=False)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launches in this process, by C entry: the
+    counts /debug/vars shows under ``engine.kernelLaunches``."""
+    from . import bsi, groupby, sparse
+
+    wrappers = (count_tree_dense, count_tree_pool, sparse.count_tree_blocks_cuda,
+                score_rows_cuda, score_rows_pool_cuda, and_popcount_rows_cuda,
+                count_batch_tree_cuda, count_batch_tree_pool_cuda, bsi.sum_tree_cuda,
+                bsi.sum_tree_pool_cuda, bsi.minmax_tree_cuda, bsi.minmax_tree_pool_cuda,
+                groupby.groupn_tree_cuda, groupby.groupn_tree_pool_cuda, fused_tree_cuda,
+                fused_tree_pool_cuda, topn_slab_cuda)
+    return {w.__name__.removesuffix("_cuda"): int(w.launches) for w in wrappers}

@@ -2,18 +2,23 @@
 
 Mirror of the reference's pilosa.Server + server.Command assembly
 (server.go:100-801, server/server.go:56-414): owns the holder, the
-translate store, the ``TorchEngine``, the API and the HTTP listener.
-``open`` brings them up in the reference's order (translate -> holder ->
-engine -> API -> listener -> monitors).
+translate store, the cluster, the ``TorchEngine``, the API and the HTTP
+listener.  ``open`` brings them up in the reference's order (translate ->
+cluster and gossip -> holder -> engine -> API -> listener -> monitors).
 
-The port of the single-node part of ``pilosa_tpu/server.py``.  A Server
-runs on the card unless ``device`` names another (``"cpu"`` in tests):
-with no card it raises, and nothing falls back to the host.  The config
-keys of parts this port does not serve yet are refused at construction,
-each naming the ROADMAP.md item that ports it (``_refuse_unported``):
-the cluster, gossip, translate replication and multi-host keys (item
-15).  ``[mesh] devices = -1`` keeps its meaning: no engine, every query
-on the host lane.
+The port of ``pilosa_tpu/server.py``.  A Server runs on the card unless
+``device`` names another (``"cpu"`` in tests): with no card it raises, and
+nothing falls back to the host.  ``[cluster] hosts``, ``[gossip] seeds`` or
+``[cluster] coordinator = true`` make the node a cluster member
+(``_setup_cluster``): placement and replication (``[cluster] replicas``),
+hinted handoff (``[cluster] hint-max-bytes``), SWIM gossip membership
+(``[gossip]``), anti-entropy every ``[anti-entropy] interval``, and the
+translate log replicated from ``[translation] primary-url``.  The
+multi-process mesh's keys (``[mesh] coordinator``, ``processes``,
+``process-id``, ``peers``, ``sequencer``) are refused at construction,
+naming the ROADMAP.md item that ports them (``_refuse_unported``).
+``[mesh] devices = -1`` keeps its meaning: no engine, every query on the
+host lane.
 
 Besides the listener the node runs the reference's monitors: the fault
 plane's identity and boot rules (``[faults]``), the self-hosted metrics
@@ -28,6 +33,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 import uuid
 from typing import Optional
 
@@ -53,26 +59,11 @@ from .util import (
     VerboseLogger,
 )
 
-_ITEM_15 = "Queue 1 item 15 (multi-GPU and multi-host)"
+_ITEM_15 = "Queue 1 item 15 part C (the multi-process mesh)"
 
 # Config attributes this port does not serve yet, and the ROADMAP.md item
 # that ports each: a value other than the default raises at construction.
 _UNPORTED_KEYS = (
-    ("cluster_coordinator", "[cluster] coordinator", _ITEM_15),
-    ("cluster_replicas", "[cluster] replicas", _ITEM_15),
-    ("cluster_hosts", "[cluster] hosts", _ITEM_15),
-    ("cluster_replica_read", "[cluster] replica-read", _ITEM_15),
-    ("cluster_freshness_ms", "[cluster] freshness-ms", _ITEM_15),
-    ("cluster_hint_max_bytes", "[cluster] hint-max-bytes", _ITEM_15),
-    ("cluster_hint_max_age", "[cluster] hint-max-age", _ITEM_15),
-    ("cluster_recovery_holddown_ms", "[cluster] recovery-holddown-ms", _ITEM_15),
-    ("gossip_port", "[gossip] port", _ITEM_15),
-    ("gossip_seeds", "[gossip] seeds", _ITEM_15),
-    ("gossip_probe_interval", "[gossip] probe-interval", _ITEM_15),
-    ("gossip_probe_timeout", "[gossip] probe-timeout", _ITEM_15),
-    ("gossip_push_pull_interval", "[gossip] push-pull-interval", _ITEM_15),
-    ("gossip_suspicion_mult", "[gossip] suspicion-mult", _ITEM_15),
-    ("translation_primary_url", "[translation] primary-url", _ITEM_15),
     ("jax_coordinator", "[mesh] coordinator", _ITEM_15),
     ("jax_num_processes", "[mesh] processes", _ITEM_15),
     ("jax_process_id", "[mesh] process-id", _ITEM_15),
@@ -104,6 +95,28 @@ class Server:
                 f"{self.config.cluster_replica_read!r}: expected "
                 "primary, any, or bounded"
             )
+        try:
+            holddown = float(self.config.cluster_recovery_holddown_ms)
+        except (TypeError, ValueError):
+            holddown = -1.0
+        if holddown < 0:
+            raise ValueError(
+                f"[cluster] recovery-holddown-ms = "
+                f"{self.config.cluster_recovery_holddown_ms!r}: expected "
+                "a non-negative number of milliseconds"
+            )
+        if int(self.config.cluster_hint_max_bytes) < 0:
+            raise ValueError(
+                f"[cluster] hint-max-bytes = "
+                f"{self.config.cluster_hint_max_bytes!r}: expected >= 0 "
+                "(0 disables hinted handoff)"
+            )
+        if float(self.config.cluster_hint_max_age) <= 0:
+            raise ValueError(
+                f"[cluster] hint-max-age = "
+                f"{self.config.cluster_hint_max_age!r}: expected a "
+                "positive duration"
+            )
         self._refuse_unported()
         self.device = resolve_device(device)
         self.data_dir = os.path.expanduser(self.config.data_dir)
@@ -118,9 +131,18 @@ class Server:
         self.journal = EventJournal(node=self.node_id, logger=self.logger)
         self.api: Optional[API] = None
         self.engine: Optional[TorchEngine] = None
+        self.cluster = None
+        self.gossip = None
+        self.hints = None  # the HintManager, wired in _setup_cluster
+        self.syncer = None
+        self._membership_events = None
+        # Internal clients per (uri, timeout), reused across calls.
+        self._client_cache = {}
         self._http = None
         self._http_thread = None
         self._closing = threading.Event()
+        # Set once the node serves: NodeStatus goes to peers only then.
+        self._opened = threading.Event()
         self._monitors = []
         self.diagnostics = None
 
@@ -214,10 +236,15 @@ class Server:
             raise
 
     def _open_bound(self, host: str, port: int):
+        # The harness may set node_id after construction: stamp the
+        # journal's node label before any component appends.
         self.journal.node = self.node_id
         self.translate_store.open()
+        self._setup_cluster(host, port)
         self._setup_faults(host, port)
         self.holder.open()
+        if self.cluster is not None:
+            self.cluster.holder = self.holder
         if self.config.mesh_devices >= 0:
             # [engine] device-budget-bytes: the soft device working-set
             # target (0: the engine's default, a fraction of the card).
@@ -229,8 +256,11 @@ class Server:
             # per-tenant device-cost EWMAs: a restarted node re-warms its
             # hot tenants' stacks first.
             self._load_tenant_costs()
-        node = {"id": self.node_id, "uri": _advertise_uri(host, port, self.scheme),
-                "isCoordinator": True}
+        if self.cluster is not None:
+            node = self.cluster.node
+        else:
+            node = {"id": self.node_id, "uri": _advertise_uri(host, port, self.scheme),
+                    "isCoordinator": True}
         self.api = API(
             holder=self.holder,
             translate_store=self.translate_store,
@@ -242,7 +272,11 @@ class Server:
             logger=self.logger,
             journal=self.journal,
             node=node,
+            cluster=self.cluster,
         )
+        # The readiness probe's gossip-convergence check reads the
+        # transport (None without gossip).
+        self.api.gossip = self.gossip
         self._http, self._http_thread = serve(
             self.api,
             srv=self._http,
@@ -257,15 +291,229 @@ class Server:
         # the handler, both wired by serve().
         self._setup_observability()
         self._start_monitors()
+        self._opened.set()
+        if self.cluster is not None:
+            self._tell_status()
         return self
 
+    def _setup_cluster(self, host: str, port: int):
+        """Wire the cluster when hosts, gossip seeds, or the coordinator
+        role are configured (server/server.go setupNetworking :302);
+        single-node otherwise.  The coordinator case matters for
+        bootstrap: the FIRST node of a gossip-joined cluster has no
+        seeds and no static host list, but must still start its gossip
+        listener for followers to join."""
+        if self.config.cluster_disabled or not (
+            self.config.cluster_hosts
+            or self.config.gossip_seeds
+            or self.config.cluster_coordinator
+        ):
+            return
+        from .cluster import Cluster, Node
+
+        uri = _advertise_uri(host, port, self.scheme)
+        self.cluster = Cluster(
+            # One card a node: every node weighs 1 in placement.
+            node=Node(self.node_id, uri, self.config.cluster_coordinator, devices=1),
+            replica_n=self.config.cluster_replicas,
+            hosts=self.config.cluster_hosts,
+            path=self.data_dir,
+            client_factory=self._make_client,
+            logger=self.logger,
+            journal=self.journal,
+        )
+        # Replica-read routing policy (docs/durability.md).
+        self.cluster.replica_read = self.config.cluster_replica_read
+        self.cluster.freshness_ms = self.config.cluster_freshness_ms
+        self.cluster.recovery_holddown = (
+            float(self.config.cluster_recovery_holddown_ms) / 1000.0
+        )
+        # Hinted handoff (docs/durability.md): durable bounded replay
+        # queues for writes to DOWN owners; hint-max-bytes 0 keeps the
+        # pre-hint skip-or-fail-loud policy.
+        if int(self.config.cluster_hint_max_bytes) > 0:
+            from .cluster.hints import HintManager
+
+            self.hints = HintManager(
+                self.data_dir,
+                node_id=self.node_id,
+                max_bytes=self.config.cluster_hint_max_bytes,
+                max_age=self.config.cluster_hint_max_age,
+                ack=self.config.storage_ack,
+                journal=self.journal,
+                logger=self.logger,
+            )
+            self.hints.cluster = self.cluster
+            self.cluster.hints = self.hints
+            self.hints.start()
+        if (
+            not self.config.cluster_hosts
+            and not self.config.gossip_seeds
+            and len(self.cluster.nodes) <= 1
+        ):
+            # Lone bootstrap coordinator: serve NORMAL immediately (one
+            # READY node is a healthy cluster of one); followers joining
+            # later re-run the state machine via membership events.  The
+            # node-count check matters on RESTART: a persisted .topology
+            # may have restored absent peers, and those must re-form via
+            # membership before the cluster reports healthy.
+            self.cluster._determine_state()
+        self._setup_gossip(uri)
+
+    def _setup_gossip(self, uri: str):
+        """SWIM membership feeding cluster join/leave events
+        (gossip/gossip.go eventReceiver :317-396)."""
+        from .cluster import Node
+        from .cluster.gossip import GossipNode
+
+        cluster = self.cluster
+
+        # Membership events drain through a serialized worker (the
+        # reference's joiningLeavingNodes channel + listenForJoins
+        # goroutine, cluster.go:1095-1145): a join that triggers a
+        # resize JOB blocks until the job completes, and that must never
+        # stall the SWIM probe/ack loop the callbacks run on.
+        import queue as queue_mod
+
+        events: "queue_mod.Queue" = queue_mod.Queue()
+
+        def membership_worker():
+            while True:
+                item = events.get()
+                if item is None:
+                    return
+                kind, member = item
+                try:
+                    if kind == "join":
+                        cluster.add_node(
+                            Node(
+                                member.id,
+                                member.meta.get("uri"),
+                                member.meta.get("coordinator", False),
+                                devices=member.meta.get("devices", 1),
+                            )
+                        )
+                    else:
+                        cluster.node_failed(member.id)
+                except Exception as e:
+                    self.logger.printf(
+                        "membership %s for %s failed: %s", kind, member.id, e
+                    )
+
+        self._membership_events = events
+        t = threading.Thread(
+            target=membership_worker, daemon=True, name="membership"
+        )
+        t.start()
+        self._monitors.append(t)
+
+        def on_join(member):
+            if member.meta.get("uri"):
+                events.put(("join", member))
+
+        def on_leave(member):
+            events.put(("leave", member))
+
+        def on_message(payload):
+            # Gossip-delivered cluster messages (SendAsync receive path)
+            # dispatch like HTTP /internal/cluster/message bodies.
+            if isinstance(payload, dict) and self.api is not None:
+                try:
+                    self.api.cluster_message(payload)
+                except Exception as e:
+                    self.logger.printf("gossip message failed: %s", e)
+
+        self.gossip = GossipNode(
+            self.node_id,
+            meta={
+                "uri": uri,
+                "coordinator": self.config.cluster_coordinator,
+                # Placement weight: capacity-weighted shard ownership
+                # reads this from every member's metadata.
+                "devices": self.cluster.node.devices,
+            },
+            port=self.config.gossip_port,
+            probe_interval=self.config.gossip_probe_interval,
+            probe_timeout=self.config.gossip_probe_timeout,
+            suspicion_mult=self.config.gossip_suspicion_mult,
+            on_join=on_join,
+            on_leave=on_leave,
+            on_message=on_message,
+            # Direct-liveness evidence feeds the freshness registry
+            # bounded replica reads consult (docs/durability.md).
+            on_alive=cluster.note_heartbeat,
+            logger=self.logger,
+            journal=self.journal,
+        ).start()
+        cluster.gossip_send_async = self.gossip.send_async
+        if self.config.gossip_seeds:
+            # Seed joins RETRY in the background until another member is
+            # known: a one-shot join silently strands a node that boots
+            # before its seed (concurrent cluster bring-up — the normal
+            # case under an orchestrator).  The reference's memberlist
+            # Join is likewise driven until it reports contact
+            # (gossip/gossip.go joinWithRetry pattern).
+            def join_seeds():
+                deadline = time.monotonic() + 120.0
+                while (
+                    not self._closing.is_set()
+                    and time.monotonic() < deadline
+                ):
+                    for seed in self.config.gossip_seeds:
+                        h, _, p = seed.rpartition(":")
+                        try:
+                            self.gossip.join((h or "127.0.0.1", int(p)))
+                        except Exception as e:
+                            self.logger.debugf("seed join failed: %s", e)
+                    if len(self.gossip.members) > 1:
+                        return
+                    time.sleep(0.5)
+
+            t = threading.Thread(
+                target=join_seeds, daemon=True, name="gossip-join"
+            )
+            t.start()
+            self._monitors.append(t)
+
+    def _tell_status(self):
+        """Send this node's NodeStatus (schema and available shards) to each
+        peer once, on a thread, retrying a peer until it answers (120 s at
+        most).  A departure from the reference, whose nodes learn a peer's
+        shards at their first anti-entropy pass (Go Pilosa's memberlist
+        push-pull carries the same NodeStatus): a cluster started on data
+        directories written beforehand, or restarted from its persisted
+        topology, routes to every shard as soon as its nodes serve."""
+
+        def run():
+            me = self.cluster.node.id
+            pending = [n.id for n in self.cluster.nodes if n.id != me]
+            deadline = time.monotonic() + 120.0
+            while pending and not self._closing.is_set() and time.monotonic() < deadline:
+                for node_id in list(pending):
+                    node = self.cluster.node_by_id(node_id)
+                    try:
+                        if node is not None:
+                            self.cluster.send_to(node, self.cluster.node_status())
+                        pending.remove(node_id)
+                    except Exception:  # noqa: BLE001 — not serving yet: try again
+                        pass
+                self._closing.wait(0.5 if pending else 0)
+
+        t = threading.Thread(target=run, daemon=True, name="node-status")
+        t.start()
+        self._monitors.append(t)
+
     def _setup_faults(self, host: str, port: int):
-        """Stamp this node's identity (node id, advertised HTTP endpoint)
-        onto the process-global fault plane and install the boot-time
-        ``[faults]`` rules."""
+        """Stamp this node's identity (node id, advertised HTTP endpoint,
+        bound gossip endpoint) onto the process-global fault plane and
+        install the boot-time ``[faults]`` rules: one partition body POSTed
+        to every node lets each enforce only its own side."""
         from .net.faults import PLANE
 
-        PLANE.set_local({self.node_id, _advertise_uri(host, port, self.scheme)})
+        addrs = {self.node_id, _advertise_uri(host, port, self.scheme)}
+        if self.gossip is not None:
+            addrs.add(f"{self.gossip.addr[0]}:{self.gossip.addr[1]}")
+        PLANE.set_local(addrs)
         if self.config.faults_rules:
             PLANE.configure(self.config.faults_rules, self.config.faults_seed)
             self.journal.append("faults.configure", rules=len(self.config.faults_rules),
@@ -355,6 +603,30 @@ class Server:
         """'https' when TLS serving is configured, else 'http'."""
         return "https" if self.config.tls_certificate else "http"
 
+    def _make_client(self, uri: str, timeout: float = 30.0):
+        """Cluster-internal client honoring tls.skip-verify for
+        self-signed deployments (http/client.go GetHTTPClient).  Cached
+        per (uri, timeout): on https the skip-verify SSLContext loads
+        the system CA bundle from disk, far too expensive to rebuild on
+        the per-second replication poll or per-dispatch ticket fetch."""
+        from .net import InternalClient
+
+        key = (uri, timeout)
+        c = self._client_cache.get(key)
+        if c is None:
+            c = InternalClient(
+                uri, timeout=timeout,
+                tls_skip_verify=self.config.tls_skip_verify,
+                # Per-attempt socket bound < the whole-request deadline:
+                # a black-holed dial to a mid-restart peer must leave
+                # deadline for the backoff budget (and the mapper's
+                # hedge) to engage, instead of one connect eating the
+                # full timeout (docs/durability.md).
+                attempt_timeout=min(10.0, timeout),
+            )
+            self._client_cache[key] = c
+        return c
+
     @property
     def port(self) -> int:
         return self._http.server_address[1]
@@ -373,6 +645,8 @@ class Server:
         # Runtime metrics loop (server.go monitorRuntime :726).
         if self.config.metric_poll_interval > 0:
             self._spawn(self._monitor_runtime, self.config.metric_poll_interval)
+        if self.cluster is not None:
+            self.start_anti_entropy()
         # Diagnostics loop (server.go monitorDiagnostics :675); with no
         # endpoint and no version-check URL (the defaults) nothing leaves
         # the host.
@@ -382,6 +656,11 @@ class Server:
             self.diagnostics = Diagnostics(
                 api=self.api, logger=self.logger,
                 version_url=self.config.diagnostics_version_url).start()
+        # Translate-log replication from the primary (translate.go
+        # monitorReplication :358-432).
+        if self.config.translation_primary_url:
+            self.translate_store.read_only = True
+            self._spawn(self._replicate_translate, 1.0)
 
     def _warm_start(self):
         try:
@@ -397,6 +676,40 @@ class Server:
             ws = self.engine.warm_state
             if ws is not None:
                 ws["done"] = True  # never pin readyz on a failed warm
+
+    def _replicate_translate(self):
+        client = self._make_client(self.config.translation_primary_url)
+        data = client.translate_data(self.translate_store.size())
+        if data:
+            self.translate_store.apply_log(data)
+
+    def start_anti_entropy(self, interval: Optional[float] = None):
+        """Spawn the anti-entropy loop (server.go monitorAntiEntropy
+        :430-483).  Callable after a late cluster attach (test harness)."""
+        from .cluster.syncer import HolderSyncer
+
+        self.syncer = HolderSyncer(
+            self.holder, self.cluster, self.logger, journal=self.journal
+        )
+
+        def sync_and_clean():
+            self.syncer.sync_holder()
+            # Drop fragments this node no longer owns (holder.go
+            # holderCleaner :852-902).
+            self.cluster.clean_holder()
+            # Re-exchange NodeStatus (schema + per-field available shards)
+            # over the reliable fan-out: a create-shard gossip broadcast
+            # whose retransmit budget drained before reaching some node is
+            # repaired here within one anti-entropy interval
+            # (server.go NodeStatus :626-674).
+            self.cluster.send_sync(self.cluster.node_status())
+
+        self._spawn(
+            sync_and_clean,
+            interval
+            if interval is not None
+            else self.config.anti_entropy_interval,
+        )
 
     def _spawn(self, fn, interval: float):
         def loop():
@@ -479,6 +792,14 @@ class Server:
         self._save_tenant_costs()
         if self.diagnostics is not None:
             self.diagnostics.close()
+        if self._membership_events is not None:
+            self._membership_events.put(None)
+        if self.gossip is not None:
+            self.gossip.close()
+        if self.hints is not None:
+            # Stop the replay worker and flush the queue files: pending
+            # hints are durable, and a restart resumes their replay.
+            self.hints.close()
         # The engine closes only after the HTTP socket stops accepting.
         if self._http is not None:
             if self._http_thread is not None:

@@ -117,6 +117,32 @@ METRIC_HISTORY_DROPPED = "pilosa_history_dropped_total"
 METRIC_HISTORY_TICK_SECONDS = "pilosa_history_tick_seconds"
 METRIC_SLO_BURN = "pilosa_slo_burn_total"
 HISTORY_DROP_REASONS = ("stride", "clamp", "error")
+# -- the cluster (cluster/, executor/executor.py; pilosa_tpu/util/stats.py:473-561)
+#   pilosa_gossip_state_transitions_total{from=,to=}  gossip member state changes
+#   pilosa_replica_reads_total{route=}      reads the shard mapper routed off
+#                                           the node: primary, replica, hedge
+#                                           (re-routed after a peer failure)
+#                                           or last_resort (every owner DOWN)
+#   pilosa_ingest_degraded_batches_total    import batches acked with DOWN
+#                                           owners skipped (anti-entropy heals)
+#   pilosa_hints_queued_total               writes to a DOWN owner queued as
+#                                           hint records for replay
+#   pilosa_hints_replayed_total             hint records acked by their
+#                                           recovered target
+#   pilosa_hints_dropped_total{reason=}     hint records dropped unreplayed
+#   pilosa_hints_pending                    gauge: records awaiting replay
+#   pilosa_hints_pending_bytes              gauge: their bytes on disk
+METRIC_GOSSIP_TRANSITIONS = "pilosa_gossip_state_transitions_total"
+METRIC_REPLICA_READS = "pilosa_replica_reads_total"
+METRIC_INGEST_DEGRADED_BATCHES = "pilosa_ingest_degraded_batches_total"
+METRIC_HINTS_QUEUED = "pilosa_hints_queued_total"
+METRIC_HINTS_REPLAYED = "pilosa_hints_replayed_total"
+METRIC_HINTS_DROPPED = "pilosa_hints_dropped_total"
+METRIC_HINTS_PENDING = "pilosa_hints_pending"
+METRIC_HINTS_PENDING_BYTES = "pilosa_hints_pending_bytes"
+HINT_DROP_REASONS = (
+    "overflow", "expired", "rejected", "node_removed", "io_error", "rolled_back",
+)
 
 # Fixed log-spaced latency buckets (seconds), 100 us .. 60 s.  Fixed
 # buckets (not reservoirs) keep observe() O(log B) with bounded memory.
@@ -665,7 +691,19 @@ REGISTRY.counter(METRIC_RESULT_REPAIR_TOUCHED_WORDS,
                  help="64-bit words read by result repairs (O(touched), not O(index))")
 REGISTRY.set_gauge(METRIC_CQ_ACTIVE, 0)
 REGISTRY.counter(METRIC_CQ_DELTAS, help="Result deltas streamed to continuous queries")
-del _action, _reason, _kind
+for _route in ("primary", "replica", "hedge", "last_resort"):
+    REGISTRY.counter(METRIC_REPLICA_READS, help="Reads routed off-node by the shard mapper",
+                     route=_route)
+REGISTRY.counter(METRIC_HINTS_QUEUED, help="Writes to DOWN owners durably queued as hint records")
+REGISTRY.counter(METRIC_HINTS_REPLAYED, help="Hint records acked by their recovered target")
+for _reason in HINT_DROP_REASONS:
+    REGISTRY.counter(METRIC_HINTS_DROPPED,
+                     help="Hint records dropped without replay (policy fallback)", reason=_reason)
+REGISTRY.set_gauge(METRIC_HINTS_PENDING, 0)
+REGISTRY.set_gauge(METRIC_HINTS_PENDING_BYTES, 0)
+REGISTRY.counter(METRIC_INGEST_DEGRADED_BATCHES,
+                 help="Import batches acked with DOWN owners skipped (anti-entropy heals)")
+del _action, _reason, _kind, _route
 
 
 class StatsClient:

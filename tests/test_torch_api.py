@@ -317,11 +317,11 @@ def test_what_is_left_out_raises_naming_its_item():
     # Item 14's recalculate_caches is ported: a single node re-ranks its
     # caches and has no peer to tell.
     assert t.recalculate_caches() is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        t.attach_cluster(None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        t.query(tapi.QueryRequest("i", "Count(Row(f=1))", remote=True))
+    # The cluster is ported: only the multi-process mesh's methods raise.
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15 part C"):
+        t.mesh_ticket()
     t.create_index("i").create_field("f")
+    assert t.query(tapi.QueryRequest("i", "Count(Row(f=1))", remote=True)).results == [0]
     plan = t.query(tapi.QueryRequest("i", "Count(Row(f=1))", profile=True)).plan
     assert plan["ops"] == [{"op": "Count", "path": "fast_cardinality"}]
     with pytest.raises(AttributeError):

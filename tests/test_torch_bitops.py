@@ -159,7 +159,10 @@ def test_import_is_jax_free():
     heat, drives an advisor promotion and ticks the history once, the
     repair-on-write modules (``core.delta``, ``parallel.repair``,
     ``net.cq``) import and a Count after a write is served by a repair with
-    no dispatch, and no module of pilosa_tpu is loaded."""
+    no dispatch, the cluster modules (``cluster.cluster``, ``gossip``,
+    ``hints``, ``syncer``, ``harness`` and ``net.privproto``) import, a
+    cluster message round-trips and placement answers, K9's wrapper and
+    library are present, and no module of pilosa_tpu is loaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -299,6 +302,16 @@ def test_import_is_jax_free():
         "logs = HUB.snapshot()['viewLogs']\n"
         "aq.close()\n"
         "assert HUB.snapshot()['viewLogs'] == logs - 1\n"
+        "from pilosa_tpu_torch.cluster import Cluster, Node, jump_hash, place_partition\n"
+        "from pilosa_tpu_torch.cluster import gossip, hints, syncer, harness\n"
+        "from pilosa_tpu_torch.net import privproto\n"
+        "msg = {'type': 'create-shard', 'index': 'i', 'field': 'f', 'shard': 3}\n"
+        "assert privproto.unmarshal_cluster_message(privproto.marshal_cluster_message(msg)) == msg\n"
+        "c = Cluster(Node('a', 'http://a'), replica_n=2)\n"
+        "c.nodes = [Node('a', 'http://a'), Node('b', 'http://b'), Node('c', 'http://c')]\n"
+        "assert len(c.shard_nodes('i', 7)) == 2 and jump_hash(1, 10) in range(10)\n"
+        "assert callable(kernels.topn_slab_tree) and 'topn_slab' in build.KERNELS\n"
+        "assert callable(TorchEngine.topn_device_full)\n"
         "bad = [m for m in sys.modules if m == 'pilosa_tpu' or m.startswith('pilosa_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"

@@ -644,8 +644,10 @@ def test_unported_routes_answer_501(method, pattern, item):
 
 
 def test_unported_options_answer_501():
-    """A remote replay and a remote import answer 501 naming their items; a
-    query plan (?profile=1) answers 200 with its plan (its differential is
+    """A remote replay and a remote import, 501 before the cluster was
+    ported, now answer 200 as the reference's do (the cluster's
+    differentials are tests/test_torch_cluster*.py); a query plan
+    (?profile=1) answers 200 with its plan (its differential is
     ``test_profile_answers_as_the_reference``), and the OpenMetrics
     exposition answers 200 (its differential is
     ``test_openmetrics_exemplars_as_the_reference``)."""
@@ -657,13 +659,11 @@ def test_unported_options_answer_501():
     try:
         status, _, out = send(port, "POST", "/index/i/query?profile=1", b"Count(Row(f=1))")
         assert status == 200 and json.loads(out)["plan"]["ops"][0]["path"] == "fast_cardinality"
-        for path, body, headers, item in [
-            ("/index/i/query?remote=true", b"Count(Row(f=1))", {}, "item 15"),
-            ("/index/i/field/f/import?remote=true", b'{"rowIDs": [1], "columnIDs": [1]}',
-             {}, "item 15"),
-        ]:
-            status, _, out = send(port, "POST", path, body, headers)
-            assert status == 501 and item in json.loads(out)["error"], (path, out)
+        status, _, out = send(port, "POST", "/index/i/field/f/import?remote=true",
+                              b'{"rowIDs": [1], "columnIDs": [1]}')
+        assert status == 200 and json.loads(out) == {}, out
+        status, _, out = send(port, "POST", "/index/i/query?remote=true", b"Count(Row(f=1))")
+        assert status == 200 and json.loads(out)["results"] == [1], out
         status, ctype, out = send(port, "GET", "/metrics", b"",
                                   {"Accept": "application/openmetrics-text"})
         assert status == 200 and ctype.startswith("application/openmetrics-text")

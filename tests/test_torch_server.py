@@ -468,6 +468,19 @@ def _obs_pair(tmp_path, **kw):
     kw.setdefault("obs_history", True)
     kw.setdefault("obs_sample_interval", 3600.0)  # the test ticks by hand
     kw.setdefault("obs_slo_error_rate", 0.01)
+    # The heat recorder, the transition miner and the advisor are process
+    # singletons in each package: both start from nothing, so what other
+    # tests of this worker queried before cannot make the two advisors'
+    # documents differ.
+    from pilosa_tpu.parallel.advisor import ADVISOR as JADVISOR
+    from pilosa_tpu.util import plan_miner as jminer
+    from pilosa_tpu.util.heat import HEAT as JHEAT
+    from pilosa_tpu_torch.parallel.advisor import ADVISOR as TADVISOR
+    from pilosa_tpu_torch.util import plan_miner as tminer
+    from pilosa_tpu_torch.util.heat import HEAT as THEAT
+
+    for obj in (JHEAT, jminer.MINER, JADVISOR, THEAT, tminer.MINER, TADVISOR):
+        obj.reset()
     out = []
     for cls in (JServer, TServer):
         cfg = _cfg(JConfig if cls is JServer else TConfig, tmp_path / cls.__module__, **kw)
@@ -516,7 +529,11 @@ def test_observability_routes_and_keys_serve(tmp_path, kind, a, b):
             c.create_index("i")
             c.create_field("i", "f")
             c.query("i", "Set(1, f=1) Set(2, f=2)")
-            c.query("i", "Count(Intersect(Row(f=1), Row(f=2)))")
+            # Three Counts: the advisor learns the Count -> Count transition
+            # on the second and grades its advice on the third, so that
+            # /debug/prefetch_advice carries a graded prediction.
+            for _ in range(3):
+                c.query("i", "Count(Intersect(Row(f=1), Row(f=2)))")
         now = float(int(time.time()))
         for s in servers:
             if s.api.history is not None:
@@ -537,6 +554,8 @@ def test_observability_routes_and_keys_serve(tmp_path, kind, a, b):
                 assert set(docs[1]) == set(docs[0])
             else:
                 assert _shape(docs[1]) == _shape(docs[0]), b
+            if b == "/debug/prefetch_advice":
+                assert docs[0]["lastGrade"] is not None and docs[1]["lastGrade"] is not None
         elif a == "faults_rules":
             docs = [c._get("/debug/faults") for c in clients]
             assert docs[1]["rules"] == docs[0]["rules"] == [TPLANE.snapshot()["rules"][0]]
