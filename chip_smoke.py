@@ -61,7 +61,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every kind at depths 1 to 63, 1, 8, 12 and 16 conditions on one field,
    two fields, the staged tiles and the direct path); K7P alone
    (check_minmax_pool: Min and Max at depths 1, 8 and 63, live words of
-   0, 1 and 64 blocks, empty and unrequested shards, ties across shards).
+   0, 1 and 64 blocks, empty and unrequested shards, ties across shards);
+   K10 eval_tree (check_eval_tree: every word of the main path's trees,
+   range leaves of every kind, pool leaves, masks of every, no and half
+   the shards, 31 shards); K3's trim launched alone (check_trim_alone:
+   check_trim's totals, the caller's totals kept, two streams).
    Integer results, so they must agree exactly.  --check-only stops here.
    native — host only: each path of pilosa_tpu_torch/native (ingest
    through Field.import_bulk, a fragment's load, codec.serialize) timed
@@ -102,7 +106,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    computes the same function); P2 also at scripts/pallas_vs_xla.py's
    shapes; the end-to-end Count and TopN p50s, and the card's name and
    power limit; K5 at K = 8, 64 and 256 distinct two-row trees on f,
-   beside the device time of as many K1 launches.
+   beside the device time of as many K1 launches; K10 eval_tree on
+   Intersect(Row(f=10), Row(f=22)) over 960 shards (one process) and 480
+   (a rank's block), beside torch.bitwise_and of the same rows; K3's trim
+   alone at K = 16 and 4096, beside torch.topk.
    serve — batched Count serving on the same index, before phase 5: a
    query of 8 consecutive Counts on f, and one on s, each one K5 launch
    and no K1/K2 launch; 64 threads x 32 Executor.execute_async Counts
@@ -312,6 +319,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    node 2 killed and the same queries through nodes 0 and 1 again, the
    reads failing over to the surviving replicas.  The data directories
    are removed at the end.
+   mesh — after cluster, before phase 5: two ranks of one multi-process
+   mesh on the one card (python -m pilosa_tpu_torch server -c
+   mesh_n{i}.toml: [mesh] coordinator on loopback, processes = 2,
+   process-id = i, the other node as its peer, node 0 the sequencer), each
+   holding 480 of the 960 canonical positions, its collectives on gloo
+   over host copies.  Both data directories hold index bench with f, top,
+   v, ga and gb at every shard, written from the main holder's rows while
+   the cluster phase's nodes open theirs: f and top are hard links to the
+   cluster phase's files, v, ga and gb serialized once and the second
+   directory's files hard links to the first's.  Each query kind once
+   through node 0, exact against numpy, with the psum-dispatch count
+   moving on both nodes: Count(Intersect), a two-Count query, Sum, Min and
+   Max of v, TopN(top, Row(f=10), n=5), GroupBy(Rows(ga), Rows(gb)) and a
+   Row tree restricted by Options(..., shards=[...]) to two shards on
+   each rank; then both nodes initiating every query at once under
+   tickets, every answer exact; the coordinator's HTTP p50 of Count and
+   TopN beside the cluster phase's and one node's; each node's device
+   bytes, gloo all-gather and all-reduce times, no host fallback and no
+   failed broadcast, and K1, K5, K6, K7, K3, its trim alone, K8 and K10
+   launched on both.
 5. write — on the same index, last because it writes it: 32 Sets and 32
    Clears through Executor.execute on f=10 (dense) and s=10 (sparse;
    half its Sets into blocks the row left empty), each read back by a
@@ -384,6 +411,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1017,6 +1045,110 @@ def check_trim(device, seed):
         n += 1
     log(f"kernels: {n} comparisons exact (K3's trim on totals set directly, against "
         "topn_trim_plain)")
+    return e
+
+
+def check_eval_tree(device, seed):
+    """K10 eval_tree against eval_tree_plain, every word exact: the main
+    path's trees and the zero tree over two adversarial stacks, with masks
+    of every, no and a random half of the shards; range leaves of every
+    kind over a BSI stack, alone and beside rows; pool leaves over a block
+    pool (slot 0, a recycled slot, an empty row, every block); 31 shards
+    (a ragged grid).  Returns max |err| (the differing words)."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    rng = np.random.default_rng(seed + 23)
+    S = 12
+    mats = [_adversarial_stack(rng, 4, S, device), _adversarial_stack(rng, 4, S, device)]
+    masks = [torch.from_numpy(m).to(device) for m in (
+        np.ones(S, np.int32), np.zeros(S, np.int32), (rng.random(S) < 0.5).astype(np.int32))]
+    n, err = 0, 0
+
+    def same(prog, mats, mask, what):
+        nonlocal n, err
+        got = kernels.eval_tree(prog, mats, mask)
+        want = kernels.eval_tree_plain(prog, mats, mask)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum()) if got.shape == want.shape else got.numel()
+        err = max(err, bad)
+        if bad:
+            raise AssertionError(f"K10 {what}: {bad} words differ from eval_tree_plain")
+        n += 1
+
+    for prog in KERNEL_PROGS + [("zero",)]:
+        for mask in masks:
+            same(prog, mats, mask, f"{prog} mask={mask.tolist()}")
+    depth = 8
+    bmat = _bsi_stack(rng, depth, S, device)
+    planes = list(range(depth)) + [depth]
+    for kind in _BSI_KINDS:
+        lo = int(rng.integers(0, 1 << depth))
+        hi = int(rng.integers(lo, 1 << depth))
+        leaf = _range_leaf(kind, planes, lo, hi)
+        for prog in (leaf, ("and", leaf, ("row", 0, depth + 1)),
+                     ("or", ("row", 0, depth + 2), leaf)):
+            same(prog, [bmat], masks[2], f"range {kind} {prog}")
+    pool, table = _pool_case(rng, S, 9, 6, device)
+    pmats = [mats[0], pool, table]
+    for prog in (("rowb", 1, 2, 0), ("and", ("rowb", 1, 2, 2), ("row", 0, 1)),
+                 ("or", ("rowb", 1, 2, 5), ("rowb", 1, 2, 1)),
+                 ("xor", ("row", 0, 3), ("rowb", 1, 2, 6)),
+                 ("andnot", ("rowb", 1, 2, 3), ("and", ("row", 0, 0), ("rowb", 1, 2, 4)))):
+        for mask in (masks[0], masks[2]):
+            same(prog, pmats, mask, f"pool {prog}")
+    S2 = 31
+    mats2 = [_adversarial_stack(rng, 4, S2, device) for _ in range(2)]
+    mask2 = torch.from_numpy((rng.random(S2) < 0.7).astype(np.int32)).to(device)
+    for prog in KERNEL_PROGS:
+        same(prog, mats2, mask2, f"{prog} over {S2} shards")
+    log(f"kernels: {n} comparisons exact (K10 eval_tree against eval_tree_plain)")
+    return err
+
+
+def check_trim_alone(device, seed):
+    """K3's trim launched alone (``kernels.score_rows_trim_cuda``, the mesh's
+    TopN after the all-reduce) against topn_trim_plain, exactly: K in
+    TRIM_CHECK_K, n_out in TRIM_CHECK_N_OUT and K, totals drawn, tied, all
+    equal, zero and at 2^31 - 1, the caller's totals left as they were;
+    then 16 launches alternating between two streams.  Returns max |err|."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    rng = np.random.default_rng(seed + 29)
+    e, n = 0, 0
+    for K in TRIM_CHECK_K:
+        for kind in ("drawn", "ties", "equal", "zero", "int32_max"):
+            totals = torch.from_numpy(_trim_totals(rng, kind, K).astype(np.int64)).to(device)
+            kept = totals.clone()
+            for n_out in sorted({v for v in TRIM_CHECK_N_OUT if v <= K} | {K}):
+                got = kernels.score_rows_trim_cuda(totals, n_out)
+                torch.cuda.synchronize()
+                wv, wi = kernels.topn_trim_plain(kept, n_out)
+                what = f"K={K} {kind} n_out={n_out}"
+                e = max(e, _exact("K3 trim alone", got[0], wv, f"vals {what}"),
+                        _exact("K3 trim alone", got[1], wi, f"idx {what}"),
+                        _exact("K3 trim alone", totals, kept, f"caller's totals {what}"))
+                n += 1
+    side = torch.cuda.Stream(device=device)
+    torch.cuda.synchronize()
+    pending = []
+    for i in range(16):
+        K = TRIM_CHECK_K[i % len(TRIM_CHECK_K)]
+        totals = torch.from_numpy(_trim_totals(rng, "ties", K).astype(np.int64)).to(device)
+        n_out = min(K, (1, 5, 257, K)[i % 4])
+        stream = side if i % 2 else torch.cuda.default_stream(device)
+        stream.wait_stream(torch.cuda.default_stream(device))
+        with torch.cuda.stream(stream):
+            pending.append((totals, n_out, kernels.score_rows_trim_cuda(totals, n_out)))
+    torch.cuda.synchronize()
+    for totals, n_out, got in pending:
+        want = torch.stack(kernels.topn_trim_plain(totals, n_out))
+        e = max(e, _exact("K3 trim alone", got, want, f"on two streams, K={totals.shape[0]}"))
+        n += 1
+    log(f"kernels: {n} comparisons exact (K3's trim alone, against topn_trim_plain)")
     return e
 
 
@@ -3169,6 +3301,87 @@ def time_batch_f(engine, device, err, seed):
     return rows
 
 
+def time_eval_tree(engine, device, err):
+    """K10 at the mesh phase's shapes, Intersect(Row(f=10), Row(f=22)) on
+    the main engine's f stack: over all 960 shards in one process (the
+    engine's own lowering) and over a rank's block of 480 (the two rows'
+    first 480 shards, copied out), each exact against eval_tree_plain and
+    against one torch.bitwise_and(a, b, out=o) over the same rows (the
+    library call that computes the same words), timed beside its bound:
+    the two leaf rows read and the words written, every shard.  Returns
+    {S: (times, plain_ms, library_ms, bytes, operations)}."""
+    import torch
+
+    from pilosa_tpu_torch import pql
+    from pilosa_tpu_torch.parallel import kernels
+    from pilosa_tpu_torch.parallel.engine import _Lowering
+
+    sync = torch.cuda.synchronize
+    canonical = engine.canonical_shards("bench")
+    lw = _Lowering(engine, canonical)
+    prog = engine._lower("bench", pql.parse("Intersect(Row(f=10), Row(f=22))").calls[0], lw)
+    mat = lw.mats[0]
+    r10, r22 = lw.stacks[0].row_index[10], lw.stacks[0].row_index[22]
+    out = {}
+    for S in (len(canonical), len(canonical) // 2):
+        if S == len(canonical):
+            mats, p = lw.mats, prog
+        else:
+            mats = [torch.stack([mat[r10, :S], mat[r22, :S]]).contiguous()]
+            p = ("and", ("row", 0, 0), ("row", 0, 1))
+        a, b = (mats[0][r10], mats[0][r22]) if S == len(canonical) else (mats[0][0], mats[0][1])
+        mask = torch.ones(S, dtype=torch.int32, device=device)
+        got = kernels.eval_tree(p, mats, mask)
+        lib = torch.empty_like(a)
+        torch.bitwise_and(a, b, out=lib)
+        want = kernels.eval_tree_plain(p, mats, mask)
+        sync()
+        bad = int((got != want).sum()) + int((got != lib).sum())
+        err["eval_tree"] = max(err.get("eval_tree", 0), bad)
+        if bad:
+            raise AssertionError(f"K10 over {S} shards: {bad} words differ from its plain "
+                                 "version or torch.bitwise_and")
+        del got, want
+        byts, ops = 3 * S * 32768 * 4, S * 32768
+        t = measured(lambda: kernels.eval_tree(p, mats, mask), "eval_tree_kernel", sync,
+                     bound_ms=least_ms(byts, ops))
+        plain = p50_ms(lambda: kernels.eval_tree_plain(p, mats, mask), 5, sync)
+        library = p50_ms(lambda: torch.bitwise_and(a, b, out=lib), 15, sync)
+        _times_line(f"K10 eval_tree over {S} shards", t, least_ms(byts, ops), plain,
+                    f", torch.bitwise_and {library:.4f} ms")
+        out[S] = (t, plain, library, byts, ops)
+        del mats, lib
+    return out
+
+
+def time_trim_alone(device):
+    """K3's trim launched alone (the mesh's TopN after the all-reduce) on
+    drawn totals at K = 16 (the mesh phase's TopN over top) and 4096, n_out
+    5: timed beside the plain version and one torch.topk(totals, 5) (the
+    library call; its tie order is not guaranteed).  Its bound: the
+    totals read and the pairs written, or the bitonic sort's compare and
+    select per key and step.  Returns {K: (times, plain_ms, library_ms,
+    bytes, operations)}."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import kernels
+
+    sync = torch.cuda.synchronize
+    rng = np.random.default_rng(31)
+    out = {}
+    for K in (16, 4096):
+        totals = torch.from_numpy(rng.integers(0, 1 << 30, K)).to(device)
+        steps = K.bit_length() * (K.bit_length() - 1) // 2
+        byts, ops = K * 8 + 2 * 5 * 4, 2 * K * steps
+        t = measured(lambda: kernels.score_rows_trim_cuda(totals, 5), "score_rows_trim_kernel", sync)
+        plain = p50_ms(lambda: kernels.topn_trim_plain(totals, 5), 15, sync)
+        library = p50_ms(lambda: torch.topk(totals, 5), 15, sync)
+        _times_line(f"K3 trim alone at K={K}", t, least_ms(byts, ops), plain,
+                    f", torch.topk {library:.4f} ms")
+        out[K] = (t, plain, library, byts, ops)
+    return out
+
+
 def expected_counts(host):
     """{PQL: numpy answer} of the main path's 30 Counts."""
     return {pql_of(f, op, rows): int(oracle(host[f], op, rows)) for f, op, rows in
@@ -3238,6 +3451,8 @@ KERNEL_COUNTERS = {
     "range_leaf": ("kernels", "range_leaf", "launches"),
     "rowb": ("kernels", "pool_leaf", "launches"),
     "topn_slab": ("kernels", "topn_slab_cuda", "launches"),
+    "eval_tree": ("kernels", "eval_tree_cuda", "launches"),
+    "score_rows_trim": ("kernels", "score_rows_trim_cuda", "launches"),
 }
 COUNT_KERNELS = ("count_tree_dense", "count_tree_blocks", "count_batch_tree")
 BSI_KERNELS = ("range_leaf", "sum_tree", "minmax_tree") + COUNT_KERNELS
@@ -8209,7 +8424,7 @@ def write_node_dirs(dirs, owned, owners, host, topology, threads=8):
     to the first's, since the phase never writes f or top (a node appends
     to a fragment's file only when it writes that fragment, and replaces
     it whole when it snapshots).  The ranked caches are written for each
-    owner."""
+    owner.  Returns {(field, shard): the shard's first file}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pilosa_tpu_torch.core.holder import Holder
@@ -8253,6 +8468,7 @@ def write_node_dirs(dirs, owned, owners, host, topology, threads=8):
 
     with ThreadPoolExecutor(threads) as pool:
         list(pool.map(one, sorted(owners)))
+    return {(name, sh): paths[owners[sh][0], name, sh] for name, _ in fields for sh in owners}
 
 
 def cluster_config(path, i, gossip_ports, budget):
@@ -8341,9 +8557,12 @@ def _cluster_query(client, q, want, what):
 
 
 def run_cluster_path(device, holder, engine, host, seed, err, node_cmd=None,
-                     n_shards=N_SHARDS):
+                     n_shards=N_SHARDS, while_starting=None):
     """The cluster phase (module docstring).  Returns (out, kernels-line
-    entry of K9)."""
+    entry of K9).  ``while_starting(files)``, given {(field, shard): a file
+    holding that fragment} of the data directories, runs while the nodes
+    open them (the mesh phase writes its directories there, its f and top
+    files hard links to these)."""
     import shutil
     import signal
 
@@ -8375,7 +8594,8 @@ def run_cluster_path(device, holder, engine, host, seed, err, node_cmd=None,
                 for i in range(CLUSTER_NODES)]
     t0 = time.perf_counter()
     dirs = [os.path.join(work, f"n{i}") for i in range(CLUSTER_NODES)]
-    write_node_dirs({f"n{i}": d for i, d in enumerate(dirs)}, owned, owners, host, topology)
+    files = write_node_dirs({f"n{i}": d for i, d in enumerate(dirs)}, owned, owners, host,
+                            topology)
     node_bytes = max(len(v) for v in owned.values()) * (len(F_ROWS) + len(TOP_ROWS)) * 32768 * 4
     out["write_s"] = time.perf_counter() - t0
     log(f"cluster: wrote {CLUSTER_NODES} data directories ({out['shards_per_node']} shards, "
@@ -8391,6 +8611,8 @@ def run_cluster_path(device, holder, engine, host, seed, err, node_cmd=None,
             cluster_config(cfg, i, gports, 2 * node_bytes)
             logs.append(os.path.join(work, f"n{i}.log"))
             procs.append(_start_node(cmd, dirs[i], ports[i], logs[i], extra=["-c", cfg]))
+        if while_starting is not None:
+            while_starting(files)
         for i in range(CLUSTER_NODES):
             _wait_ready(procs[i], ports[i], logs[i], f"(cluster node n{i})",
                         timeout=CLUSTER_READY_S)
@@ -8511,6 +8733,391 @@ def run_cluster_path(device, holder, engine, host, seed, err, node_cmd=None,
                        byts, ops, None)
         entry["library"] = "none: no popcount in PyTorch"
     return out, entry
+
+
+# -- the mesh phase -------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_FIELDS = ("f", "top", "v", "ga", "gb")
+MESH_READY_S = 300.0  # each node opens the whole index (6.9 GB) before it serves
+MESH_ROUNDS = 2  # interleaved rounds of every query, each client
+
+
+def mesh_row_shards(n_shards):
+    """The Row query's shards: two on each of the two ranks."""
+    return (1, 2, n_shards - 2, n_shards - 1)
+
+
+def write_mesh_dirs(holder, dirs, n_shards, linked=None, threads=8):
+    """Both ranks' data directories before the nodes start: index bench
+    with MESH_FIELDS at every shard (each rank's node holds the whole index,
+    as the reference's processes replay the same data; a rank builds its
+    stacks over its block only), from the main holder's rows as they are
+    now.  Each fragment is serialized once (``codec.serialize_rows``) into
+    the first directory and hard-linked into the other (no node writes
+    these fields); a ranked cache is written beside each standard view's
+    fragment.  ``linked`` maps (field, shard) to a file of the same
+    fragment written already (the cluster phase's f and top): those are
+    hard-linked, with their caches, and not serialized again."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.ops.bitops import popcount_np
+    from pilosa_tpu_torch.roaring import codec
+
+    linked = linked or {}
+    src = holder.index("bench")
+    views = [(name, vname) for name in MESH_FIELDS for vname in sorted(src.field(name).views)]
+    paths = {}  # (directory, field, view, shard) -> the fragment's file
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+        h = Holder(d, device="cpu")
+        h.open()
+        idx = h.create_index("bench")
+        for name in MESH_FIELDS:
+            f = idx.create_field(name, src.field(name).options)
+            for vname in src.field(name).views:
+                view = f.view_if_not_exists(vname)
+                for sh in range(n_shards):
+                    paths[d, name, vname, sh] = view.fragment_if_not_exists(sh).path
+        h.close()
+
+    def one(sh):
+        for name, vname in views:
+            done = linked.get((name, sh)) if vname == "standard" else None
+            if done is not None:
+                for d in dirs:
+                    path = paths[d, name, vname, sh]
+                    os.remove(path)
+                    os.link(done, path)
+                    if os.path.exists(done + ".cache"):
+                        if os.path.exists(path + ".cache"):
+                            os.remove(path + ".cache")
+                        os.link(done + ".cache", path + ".cache")
+                continue
+            frag = src.field(name).view(vname).fragment(sh)
+            rows = frag.row_ids() if frag is not None else []
+            words = [frag.row_words(r).view(np.uint64) for r in rows]
+            first = paths[dirs[0], name, vname, sh]
+            with open(first, "wb") as f:
+                f.write(codec.serialize_rows((r, w, None) for r, w in zip(rows, words)))
+            cache = None
+            if vname == "standard":
+                cache = json.dumps({"pairs": [[r, int(popcount_np(w))]
+                                              for r, w in zip(rows, words)]})
+            for d in dirs:
+                path = paths[d, name, vname, sh]
+                if path != first:
+                    os.remove(path)
+                    os.link(first, path)
+                if cache is not None:
+                    with open(path + ".cache", "w") as f:
+                        f.write(cache)
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(one, range(n_shards)))
+
+
+def mesh_config(path, rank, coordinator, ports):
+    """A rank's [mesh] keys: the process group at ``coordinator``, the other
+    node as its peer, node 0 the sequencer."""
+    peers = ", ".join(f'"http://localhost:{p}"' for i, p in enumerate(ports) if i != rank)
+    sequencer = "self" if rank == 0 else f"http://localhost:{ports[0]}"
+    with open(path, "w") as f:
+        f.write("[mesh]\n"
+                f'coordinator = "{coordinator}"\n'
+                f"processes = {len(ports)}\n"
+                f"process-id = {rank}\n"
+                f"peers = [{peers}]\n"
+                f'sequencer = "{sequencer}"\n')
+
+
+def holder_rows(holder, field, view, rows, n_shards):
+    """{row: uint64[S, W64]} words of ``rows`` of a view of index bench,
+    read from the holder's fragments."""
+    v = holder.index("bench").field(field).view(view)
+    out = {}
+    for r in rows:
+        w = np.zeros((n_shards, W64), np.uint64)
+        for sh in range(n_shards):
+            frag = v.fragment(sh)
+            if frag is not None:
+                w[sh] = frag.row_words(r).view(np.uint64)
+        out[r] = w
+    return out
+
+
+def bsi_extremes(planes, nn, is_min):
+    """Per shard the extreme value of the not-null columns and how many
+    columns hold it, by one greedy walk of the planes from the top (the
+    plane walk of fragment.go min/max): (int64[S] values, int64[S]
+    counts, bool[S] any column)."""
+    cand = nn.copy()
+    val = np.zeros(nn.shape[0], np.int64)
+    for i in range(len(planes) - 1, -1, -1):
+        sel = cand & (~planes[i] if is_min else planes[i])
+        has = sel.any(axis=1)
+        cand = np.where(has[:, None], sel, cand)
+        if not is_min:
+            val |= has.astype(np.int64) << i
+        else:
+            val |= (~has).astype(np.int64) << i
+    counts = np.bitwise_count(cand).sum(axis=1).astype(np.int64)
+    return val, counts, nn.any(axis=1)
+
+
+def valcount(vals, counts, present, is_min):
+    """The reference's ValCount reduce over the shards in canonical order:
+    the extreme, and the count of the first shard holding it."""
+    best, n = 0, 0
+    for v, c, p in zip(vals.tolist(), counts.tolist(), present.tolist()):
+        if p and (n == 0 or (v < best if is_min else v > best)):
+            best, n = v, c
+    return best, n
+
+
+def mesh_wants(holder, host, n_shards):
+    """(query, numpy answer) of the mesh phase, over the main holder's
+    words as they are now."""
+    from pilosa_tpu_torch.ops.bitops import popcount_np
+
+    f = host["f"]
+    bsig = holder.index("bench").field("v").bsi_group("v")
+    depth = bsig.bit_depth()
+    pl = holder_rows(holder, "v", "bsig_v", range(depth + 1), n_shards)
+    planes, nn = [pl[i] for i in range(depth)], pl[depth]
+    total = sum(popcount_np(planes[i] & nn) << i for i in range(depth))
+    g = {**holder_rows(holder, "ga", "standard", range(G_ROWS["ga"]), n_shards),
+         **{("b", r): w for r, w in
+            holder_rows(holder, "gb", "standard", range(G_ROWS["gb"]), n_shards).items()}}
+    groups = {}
+    for a in range(G_ROWS["ga"]):
+        for b in range(G_ROWS["gb"]):
+            n = int(and_popcounts(g[a], g["b", b]).sum())
+            if n:
+                groups[a, b] = n
+    row_shards = mesh_row_shards(n_shards)
+    words = f[10][list(row_shards)] & f[22][list(row_shards)]
+    cols = []
+    for k, sh in enumerate(row_shards):
+        bits = np.unpackbits(words[k].view(np.uint8), bitorder="little")
+        cols.append(np.flatnonzero(bits) + (sh << 20))
+    shards = ", ".join(map(str, row_shards))
+    return [
+        ("Count(Intersect(Row(f=10), Row(f=22)))",
+         [int(and_popcounts(f[10][:n_shards], f[22][:n_shards]).sum())]),
+        ("Count(Union(Row(f=11), Row(f=23)))Count(Xor(Row(f=12), Row(f=24)))",
+         [popcount_np(f[11] | f[23]), popcount_np(f[12] ^ f[24])]),
+        ("Sum(field=v)", [{"value": int(total) + bsig.min * popcount_np(nn),
+                           "count": popcount_np(nn)}]),
+        ("Min(field=v)", [dict(zip(("value", "count"),
+                                   valcount(*bsi_extremes(planes, nn, True), True)))]),
+        ("Max(field=v)", [dict(zip(("value", "count"),
+                                   valcount(*bsi_extremes(planes, nn, False), False)))]),
+        ("TopN(top, Row(f=10), n=5)", [TopNOracle(host["top"]).fused(f[10], 5)]),
+        ("GroupBy(Rows(field=ga), Rows(field=gb))", [groups]),
+        (f"Options(Intersect(Row(f=10), Row(f=22)), shards=[{shards}])",
+         [np.concatenate(cols).tolist()]),
+    ]
+
+
+def _mesh_result(q, got):
+    """A reply's results in the oracle's form."""
+    if q.startswith("TopN"):
+        return [[(p["id"], p["count"]) for p in got[0]]]
+    if q.startswith("GroupBy"):
+        return [{(x["group"][0]["rowID"], x["group"][1]["rowID"]): x["count"] for x in got[0]}]
+    if q.startswith("Options"):
+        return [got[0]["columns"]]
+    if q.startswith(("Min", "Max", "Sum")):
+        return [{"value": got[0]["value"], "count": got[0]["count"]}]
+    return got
+
+
+MESH_NODE_KERNELS = ("count_tree_dense", "count_batch_tree", "sum_tree", "minmax_tree",
+                     "score_rows", "score_rows_trim", "groupn_tree", "eval_tree")
+
+
+def mesh_dirs():
+    """The ranks' data directories (``write_mesh_dirs``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return [os.path.join(root, "build", "mesh_nodes", f"n{i}") for i in range(MESH_RANKS)]
+
+
+def run_mesh_path(device, holder, host, seed, err, cluster, node_cmd=None, n_shards=N_SHARDS,
+                  written_s=None):
+    """The mesh phase (module docstring).  Returns its numbers and each
+    node's kernel launches.  ``written_s``: the seconds the ranks' data
+    directories (``mesh_dirs``) took to write while the cluster phase's
+    nodes opened theirs; None: the phase writes them."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.net import InternalClient
+
+    cuda = device.type == "cuda"
+    dirs = mesh_dirs()
+    work = os.path.dirname(dirs[0])
+    out = {"card": card_line(), "ranks": MESH_RANKS}
+    t0 = time.perf_counter()
+    wants = mesh_wants(holder, host, n_shards)
+    out["oracle_s"] = time.perf_counter() - t0
+    if written_s is None:
+        shutil.rmtree(work, ignore_errors=True)
+        t0 = time.perf_counter()
+        write_mesh_dirs(holder, dirs, n_shards)
+        written_s = time.perf_counter() - t0
+    out["write_s"] = written_s
+    log(f"mesh: numpy answers in {out['oracle_s']:.3f} s; {MESH_RANKS} data directories of "
+        f"index bench ({', '.join(MESH_FIELDS)}, {n_shards} shards) written in "
+        f"{out['write_s']:.3f} s (during the cluster phase's node start, when run after it)")
+
+    cmd = node_cmd or [sys.executable, "-m", "pilosa_tpu_torch"]
+    ports = [_free_port() for _ in range(MESH_RANKS)]
+    coordinator = f"127.0.0.1:{_free_port()}"
+    clients = [InternalClient(f"http://localhost:{p}", timeout=600) for p in ports]
+    procs, logs = [], []
+
+    def vars_of(i):
+        return _node_doc(clients[i], "/debug/vars")
+
+    def psums():
+        return [vars_of(i)["engine"]["mesh"]["psumDispatches"] for i in range(MESH_RANKS)]
+
+    def check(i, q, want, what):
+        got = _mesh_result(q, clients[i].query("bench", q)["results"])
+        if got != want:
+            raise AssertionError(f"mesh: {q} {what}: {str(got)[:300]} != numpy {str(want)[:300]}")
+
+    try:
+        t0 = time.perf_counter()
+        for i in range(MESH_RANKS):
+            cfg = os.path.join(work, f"mesh_n{i}.toml")
+            mesh_config(cfg, i, coordinator, ports)
+            logs.append(os.path.join(work, f"n{i}.log"))
+            procs.append(_start_node(cmd, dirs[i], ports[i], logs[i], extra=["-c", cfg]))
+        for i in range(MESH_RANKS):
+            _wait_ready(procs[i], ports[i], logs[i], f"(mesh node n{i})", timeout=MESH_READY_S)
+        out["ready_s"] = time.perf_counter() - t0
+        for i in range(MESH_RANKS):
+            mesh = vars_of(i)["engine"]["mesh"]
+            if (mesh["rank"], mesh["world"]) != (i, MESH_RANKS):
+                raise AssertionError(f"mesh: node n{i} is rank {mesh}")
+        log(f"mesh: {MESH_RANKS} ranks ready in {out['ready_s']:.3f} s, "
+            f"{n_shards // MESH_RANKS} of the {n_shards} canonical positions each")
+
+        # Each kind once through n0: every node runs its part of the
+        # collective (its psum-dispatch count moves).
+        moved = {}
+        for q, want in wants:
+            before = psums()
+            t1 = time.perf_counter()
+            check(0, q, want, "through n0")
+            took = time.perf_counter() - t1
+            after = psums()
+            moved[q] = [b - a for a, b in zip(before, after)]
+            if any(m <= 0 for m in moved[q]):
+                raise AssertionError(f"mesh: {q}: a node ran no dispatch: {moved[q]}")
+            log(f"mesh: {q[:60]} exact through n0 in {took:.3f} s; dispatches a node {moved[q]}")
+        out["dispatches"] = moved
+
+        # Both nodes initiate at once under tickets, interleaved.
+        errs = []
+
+        def client(i):
+            try:
+                order = wants if i == 0 else wants[::-1]
+                for _ in range(MESH_ROUNDS):
+                    for q, want in order:
+                        check(i, q, want, f"through n{i} (interleaved)")
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append((i, repr(e)[:2000]))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(MESH_RANKS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        if any(th.is_alive() for th in threads) or errs:
+            raise AssertionError(f"mesh: interleaved clients: {errs or 'wedged'}")
+        out["interleaved_s"] = time.perf_counter() - t0
+        log(f"mesh: {MESH_ROUNDS} rounds of {len(wants)} queries from both nodes at once, "
+            f"every answer exact, in {out['interleaved_s']:.3f} s")
+
+        # The coordinator's HTTP p50s, each query a fresh one.
+        pairs = [(10 + k, 22 + k) for k in range(CLUSTER_REPS)]
+        ct, tt = [], []
+        for a, b in pairs:
+            t1 = time.perf_counter()
+            clients[0].query("bench", f"Count(Intersect(Row(f={a}), Row(f={b})))")
+            ct.append(time.perf_counter() - t1)
+        for a, _ in pairs:
+            t1 = time.perf_counter()
+            clients[0].query("bench", f"TopN(top, Row(f={a}), n=5)")
+            tt.append(time.perf_counter() - t1)
+        out["mesh_count_p50_ms"] = statistics.median(ct) * 1e3
+        out["mesh_topn_p50_ms"] = statistics.median(tt) * 1e3
+        a, b = pairs[-1]
+        check(0, f"Count(Intersect(Row(f={a}), Row(f={b})))",
+              [int(and_popcounts(host["f"][a][:n_shards], host["f"][b][:n_shards]).sum())],
+              "(the last timed Count)")
+        for k in ("cluster_count_p50_ms", "cluster_topn_p50_ms", "single_count_p50_ms",
+                  "single_topn_p50_ms"):
+            out[k] = cluster.get(k)
+        log(f"mesh: coordinator HTTP p50 Count {out['mesh_count_p50_ms']:.3f} ms, TopN "
+            f"{out['mesh_topn_p50_ms']:.3f} ms; the cluster phase's coordinator "
+            f"{out['cluster_count_p50_ms']} and {out['cluster_topn_p50_ms']} ms, one node "
+            f"{out['single_count_p50_ms']} and {out['single_topn_p50_ms']} ms")
+
+        nodes = {}
+        for i in range(MESH_RANKS):
+            dv = vars_of(i)
+            mesh, kl = dv["engine"]["mesh"], dv["engine"]["kernelLaunches"]
+            caches = dv["engineCaches"]
+            nodes[f"n{i}"] = {
+                "device_bytes": caches["residentBytes"], "host_fallbacks": caches["hostFallbacks"],
+                "degraded": mesh["degraded"], "psum_dispatches": mesh["psumDispatches"],
+                "reduces": mesh["reduces"], "reduce_ms_each":
+                    mesh["reduceSeconds"] / max(1, mesh["reduces"]) * 1e3,
+                "gathers": mesh["gathers"],
+                "gather_ms_each": mesh["gatherSeconds"] / max(1, mesh["gathers"]) * 1e3,
+                "eval_gathers": mesh["evalGathers"],
+                "eval_gather_bytes_each": mesh["evalGatherBytes"] / max(1, mesh["evalGathers"]),
+                "eval_gather_ms_each":
+                    mesh["evalGatherSeconds"] / max(1, mesh["evalGathers"]) * 1e3,
+                "launches": {k: kl[k] for k in MESH_NODE_KERNELS},
+            }
+            n = nodes[f"n{i}"]
+            if n["host_fallbacks"] or n["degraded"]:
+                raise AssertionError(f"mesh: node n{i} fell back to the host lane: {n}")
+            if cuda and any(v <= 0 for v in n["launches"].values()):
+                raise AssertionError(f"mesh: node n{i} did not launch every kernel: {n}")
+            if not n["gathers"] or not n["eval_gathers"]:
+                raise AssertionError(f"mesh: node n{i} ran no all-gather: {n}")
+        out["nodes"] = nodes
+        log("mesh: " + "; ".join(
+            f"{k} {v['device_bytes'] / 1e9:.2f} GB on the card, gloo all-gather of a Row's "
+            f"words {v['eval_gather_ms_each']:.1f} ms each ({v['eval_gather_bytes_each'] / 1e6:.1f}"
+            f" MB a rank), of per-shard results {v['gather_ms_each']:.3f} ms, all-reduce "
+            f"{v['reduce_ms_each']:.3f} ms (the initiator's include the wait for its peer)"
+            for k, v in nodes.items()))
+    finally:
+        # Both ranks stop at once (SIGTERM, each its own wait).
+        t0 = time.perf_counter()
+        live = [i for i, proc in enumerate(procs) if proc.poll() is None]
+        with ThreadPoolExecutor(max(1, len(live))) as pool:
+            stops = [pool.submit(_stop_node, procs[i], logs[i]) for i in live]
+        for i, stop in zip(live, stops):
+            if stop.exception() is not None and procs[i].poll() is None:
+                procs[i].kill()
+                procs[i].wait()
+        out["stop_s"] = time.perf_counter() - t0
+        shutil.rmtree(work, ignore_errors=True)
+        for stop in stops:
+            if stop.exception() is not None:
+                raise stop.exception()
+    return out
 
 
 OCC_BLOCK_BITS = 1 << 14  # 64 occupancy blocks of 2 KiB per 2^20-bit shard row
@@ -9846,6 +10453,8 @@ def main(argv=None):
     err.update(check_pool_leaf(device, args.seed))
     err["minmax_tree_pool"] = max(err.get("minmax_tree_pool", 0),
                                   check_minmax_pool(device, args.seed)["minmax_tree_pool"])
+    err["eval_tree"] = check_eval_tree(device, args.seed)
+    err["score_rows_trim"] = check_trim_alone(device, args.seed)
     if args.check_only:
         log(f"check-only: every kernel exact against its plain version: {err}")
         return 0
@@ -9874,6 +10483,8 @@ def main(argv=None):
     kern = time_kernels(engine, ex, device, err, launches)
     kern += time_topn(engine, ex, holder, device, err, launches)
     rows_f = time_batch_f(engine, device, err, args.seed)
+    k10_times = time_eval_tree(engine, device, err)
+    trim_times = time_trim_alone(device)
     # After the timing windows, so that no profiler session precedes them.
     engine_less_kernels(holder, *engine_less_query)
     q = "TopN(top, Row(f=10), n=5)"
@@ -9941,10 +10552,41 @@ def main(argv=None):
     repair = run_repair_path(device)
     log("repair: " + json.dumps(repair))
     mark("repair")
-    cluster, k9_entry = run_cluster_path(device, holder, engine, host, args.seed, err)
+    # The mesh phase's data directories are written while the cluster's
+    # nodes open theirs, their f and top files links to the cluster's.
+    written = {}
+
+    def write_mesh(files):
+        shutil.rmtree(os.path.dirname(mesh_dirs()[0]), ignore_errors=True)
+        t1 = time.perf_counter()
+        write_mesh_dirs(holder, mesh_dirs(), N_SHARDS, files)
+        written["s"] = time.perf_counter() - t1
+
+    cluster, k9_entry = run_cluster_path(device, holder, engine, host, args.seed, err,
+                                         while_starting=write_mesh)
     log("cluster: " + json.dumps(cluster))
     kern.append(k9_entry)
     mark("cluster")
+    mesh = run_mesh_path(device, holder, host, args.seed, err, cluster, written_s=written["s"])
+    log("mesh: " + json.dumps(mesh))
+    # K10 and the trim alone run on the mesh's ranks only: their launches
+    # are the nodes', timed at the phase's shapes in this process.
+    for name, src, rep, times, main_at, other in (
+            ("eval_tree", "eval_tree", "pilosa_tpu/parallel/kernels.py:284", k10_times,
+             N_SHARDS, f"{N_SHARDS // 2} shards (a rank's block)"),
+            ("score_rows_trim", "score_rows", "pilosa_tpu/parallel/kernels.py:356", trim_times,
+             16, "K = 4096")):
+        t, plain, library, byts, ops = times[main_at]
+        entry = _entry(name, f"pilosa_tpu_torch/csrc/{src}.cu", rep,
+                       sum(v["launches"][name] for v in mesh["nodes"].values()),
+                       err[name], t, plain, byts, ops, library)
+        t, plain, library, byts, ops = next(v for k, v in times.items() if k != main_at)
+        entry["at"] = {other: {"ms": t["ms"], "device_ms": t["device_ms"],
+                               "host_us": t["host_us"], "plain_ms": plain,
+                               "library_ms": library, "bound_ms": least_ms(byts, ops)}}
+        entry["mesh_launches"] = {k: v["launches"][name] for k, v in mesh["nodes"].items()}
+        kern.append(entry)
+    mark("mesh")
     # Last: it writes the index every phase above read.
     log("write: " + json.dumps(run_write_path(device, holder, engine, ex, host, args.seed)))
     mark("write")

@@ -27,9 +27,13 @@ peers' control-plane messages, and the anti-entropy and resize calls
 ``get_translate_data``) and the cluster's admin (``set_coordinator``,
 ``remove_node``, ``resize_abort``) are served, as in ``pilosa_tpu/api.py``.
 
-The multi-process mesh's two methods are not ported yet; calling one raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it
-(``_UNPORTED``), so nothing left out can change an answer silently.
+On a multi-process mesh (``parallel/multihost.py``) the API is the peers'
+side of the two-phase collective handoff (pilosa_tpu/api.py:1311-1660):
+``mesh_ticket`` issues the sequencer's dense tickets,
+``mesh_collective_accept`` validates a peer's dispatch and registers it
+(accept), queues it for replay (commit) or drops it (abort, or expiry),
+and the replay worker enters the same collective through the engine's
+gate, so the initiator's all-reduce or all-gather completes.
 """
 
 from __future__ import annotations
@@ -75,13 +79,6 @@ from .util.stats import (
 )
 from .util.tracing import Tracer
 
-# Methods of the reference's API that this module leaves out, and the
-# ROADMAP.md item that ports each.
-_ITEM_15C = "Queue 1 item 15 part C (the multi-process mesh)"
-_UNPORTED = {
-    "mesh_ticket": _ITEM_15C,
-    "mesh_collective_accept": _ITEM_15C,
-}
 
 
 class ApiError(Exception):
@@ -238,6 +235,15 @@ class API:
         self.executor = Executor(self.holder, engine=self.engine,
                                  translator=QueryTranslator(self.translate_store),
                                  stats=stats)
+        # The multi-process mesh's peer side: the replay queue and its
+        # worker (made at the first unsequenced dispatch), the accepted but
+        # uncommitted dispatches by did (payload, expiry timer), and the
+        # ticket counter when this node is the sequencer.
+        self._mesh_replay_q = None
+        self._mesh_replay_lock = threading.Lock()
+        self._mesh_pending: Dict[str, tuple] = {}
+        self._mesh_ticket_next = 0
+        self._mesh_ticket_lock = threading.Lock()
         if cluster is not None:
             self.attach_cluster(cluster, node)
 
@@ -268,13 +274,6 @@ class API:
 
                     self._cq = CQManager(self)
         return self._cq
-
-    def __getattr__(self, name):
-        item = _UNPORTED.get(name)
-        if item is None:
-            raise AttributeError(name)
-        raise NotImplementedError(
-            f"API.{name} is not ported to pilosa_tpu_torch yet: ROADMAP.md {item}")
 
     def close(self):
         """Stop the continuous queries' sweeper and the engine's workers,
@@ -934,6 +933,294 @@ class API:
 
     def info(self) -> dict:
         return {"shardWidth": SHARD_WIDTH}
+
+    # -- the multi-process mesh (pilosa_tpu/api.py:1307-1660) ----------------
+
+    # Accepted but uncommitted dispatches expire after this many seconds:
+    # an initiator that died between accept and commit leaves no pending
+    # entry behind.  It exceeds the initiator's whole accept fan-out (35 s
+    # a peer, server._broadcast_dispatch), so a slow handoff that succeeds
+    # never races its own expiry.
+    MESH_PENDING_TIMEOUT = 120.0
+    # A replay's readback waits at most this long for its collective: a
+    # collective some rank never joins is logged, not a permanent wedge of
+    # the replay worker.
+    MESH_REPLAY_TIMEOUT = 120.0
+
+    # The payload keys each collective kind needs.
+    _MESH_REQUIRED = {
+        "count": ("query",),
+        "eval": ("query",),
+        "count_batch": ("queries", "shardsList"),
+        "sum": ("field",),
+        "minmax": ("field", "isMin"),
+        "topn": ("field", "src", "n", "minThreshold", "cands"),
+        "topn_scores": ("field", "rows", "src"),
+        "group": ("fields", "rows"),
+    }
+
+    def mesh_ticket(self) -> int:
+        """The next dense collective sequence number (this node is the
+        mesh sequencer; route /internal/mesh/ticket): tickets give the
+        collectives one global order, so any node may initiate
+        (parallel/seqgate.py)."""
+        with self._mesh_ticket_lock:
+            seq = self._mesh_ticket_next
+            self._mesh_ticket_next += 1
+            return seq
+
+    def mesh_collective_accept(self, payload: dict):
+        """Accept a peer's collective dispatch (route /internal/mesh/dispatch):
+        validate it now, so that a bad dispatch fails the initiator's
+        handoff with a 400 before any rank enters a collective, then
+        replay it on the worker: the same lowering over the same holder
+        state gives this rank's part of the same collective.  Kinds are
+        the engine's collectives: count, eval, count_batch, sum, minmax,
+        topn, topn_scores and group.
+
+        The handoff is two-phase (server._broadcast_dispatch): ``phase:
+        "accept"`` validates and registers the dispatch under its ``did``
+        without entering it, ``"commit"`` queues its replay, ``"abort"``
+        (or expiry) drops it.  A payload with no ``did`` is a single-phase
+        dispatch (in-process callers)."""
+        phase = payload.get("phase", "accept")
+        if phase in ("commit", "abort"):
+            return self._mesh_collective_resolve(payload, phase)
+        if self.engine is None:
+            raise ApiError("mesh engine not available")
+        from . import pql as pql_mod
+
+        kind = payload.get("kind")
+        required = self._MESH_REQUIRED.get(kind)
+        if required is None:
+            raise ApiError(f"unknown collective kind: {kind}")
+        missing = [k for k in required if k not in payload]
+        if missing:
+            raise ApiError(f"collective {kind} missing: {missing}")
+        idx = self.holder.index(payload.get("index", ""))
+        if idx is None:
+            raise NotFoundError(f"index not found: {payload.get('index')}")
+        # Data-plane parity: the replay lays out this rank's block from the
+        # LOCAL canonical shard axis, so a shard the initiator has and this
+        # node has not heard of would give the ranks different shapes: a
+        # hang instead of an error.  Reject the divergence now.
+        canon = payload.get("canon")
+        if canon is not None:
+            mine = self.engine.canonical_shards(payload["index"])
+            if [int(s) for s in canon] != [int(s) for s in mine]:
+                raise ApiError(
+                    f"canonical shard axis diverged: initiator={canon} "
+                    f"local={mine} (retry after anti-entropy)"
+                )
+        # A replay that silently declines (an unknown field) would strand
+        # the initiator's collective: reject at accept time.
+        for fname in [payload["field"]] if "field" in payload else payload.get("fields", []):
+            f = idx.field(fname)
+            if f is None:
+                raise NotFoundError(f"field not found: {fname}")
+            if kind in ("sum", "minmax") and f.bsi_group(fname) is None:
+                raise ApiError(f"field is not BSI: {fname}")
+        # Parse every call text once, up front: a syntax error surfaces to
+        # the initiator as a 400; the parsed calls ride the queue.
+        payload = dict(payload)
+        payload["_calls"] = {}
+        for key in ("query", "src", "filter"):
+            text = payload.get(key)
+            if text is None and (key == "filter" or key not in required):
+                continue
+            if not text:
+                raise ApiError(f"collective {kind}: empty {key}")
+            q = pql_mod.parse(text)
+            if len(q.calls) != 1:
+                raise ApiError("collective dispatch carries exactly one call")
+            payload["_calls"][key] = q.calls[0]
+        if kind == "count_batch":
+            if len(payload["queries"]) != len(payload["shardsList"]):
+                raise ApiError("count_batch: queries/shardsList length mismatch")
+            if not payload["queries"]:
+                raise ApiError("count_batch: empty batch")
+            batch_calls = []
+            for text in payload["queries"]:
+                q = pql_mod.parse(text)
+                if len(q.calls) != 1:
+                    raise ApiError("collective dispatch carries exactly one call")
+                batch_calls.append(q.calls[0])
+            payload["_batch_calls"] = batch_calls
+        self._ensure_mesh_worker()
+        did = payload.get("did")
+        if did is None:
+            self._mesh_replay_q.put(payload)  # single-phase (in-process)
+            return True
+        timer = threading.Timer(self.MESH_PENDING_TIMEOUT, self._mesh_pending_expire,
+                                args=(did,))
+        timer.daemon = True
+        with self._mesh_replay_lock:
+            self._mesh_pending[did] = (payload, timer)
+        timer.start()
+        return True
+
+    def _ensure_mesh_worker(self):
+        with self._mesh_replay_lock:
+            if self._mesh_replay_q is None:
+                import queue as queue_mod
+
+                self._mesh_replay_q = queue_mod.Queue()
+                threading.Thread(target=self._mesh_replay_loop, daemon=True,
+                                 name="mesh-replay").start()
+
+    def _mesh_collective_resolve(self, payload: dict, phase: str):
+        """Commit or abort a pending two-phase dispatch.  A sequenced one
+        (it carries a ticket) runs on a thread of its own through the
+        engine's seq gate, in ticket order whatever the order commits
+        arrive in; an unsequenced one keeps the FIFO replay worker."""
+        did = payload.get("did")
+        with self._mesh_replay_lock:
+            entry = self._mesh_pending.pop(did, None)
+        if entry is None:
+            if phase == "abort":
+                # An unknown did is a no-op, but an abort that carries a
+                # ticket still skips it: the accept may have failed HERE
+                # while other peers took the ticket into their streams.
+                seq = payload.get("seq")
+                if seq is not None and self.engine is not None:
+                    self.engine.seq_gate.skip(int(seq))
+                return True
+            raise ApiError(f"unknown or expired dispatch: {did}")
+        pending, timer = entry
+        timer.cancel()
+        seq = pending.get("seq")
+        if phase == "commit":
+            if seq is not None:
+                threading.Thread(target=self._mesh_seq_replay, args=(pending,),
+                                 daemon=True, name=f"mesh-seq-{seq}").start()
+            else:
+                self._mesh_replay_q.put(pending)
+        elif seq is not None:
+            self.engine.seq_gate.skip(int(seq))
+        return True
+
+    def _mesh_pending_expire(self, did: str):
+        with self._mesh_replay_lock:
+            entry = self._mesh_pending.pop(did, None)
+        if entry is not None:
+            pending, _timer = entry
+            seq = pending.get("seq")
+            if seq is not None and self.engine is not None:
+                self.engine.seq_gate.skip(int(seq))
+            self.logger.printf(
+                "mesh dispatch %s expired uncommitted (initiator died mid-handoff?); "
+                "dropped without dispatching", did)
+
+    def _mesh_seq_replay(self, payload: dict):
+        """Run one committed sequenced dispatch: enter the gate at its
+        ticket, dispatch (the collective included), exit, read back."""
+        seq = int(payload["seq"])
+        gate = self.engine.seq_gate
+        try:
+            if not gate.enter(seq):
+                self.logger.printf(
+                    "mesh seq %d was force-skipped before replay (initiator may hang)", seq)
+                return
+            try:
+                dev = self._mesh_replay_dispatch(payload)
+            finally:
+                gate.exit(seq)
+            self._mesh_replay_readback(dev, payload)
+        except Exception as e:  # noqa: BLE001
+            self.logger.printf("mesh seq replay failed: %s", e)
+        finally:
+            # A replay's plan note belongs to no query on this thread.
+            plans.take_dispatch_note()
+
+    def _mesh_replay_loop(self):
+        """Replay peers' unsequenced dispatches in arrival order (the
+        initiator serializes its collectives under the engine's lock and
+        hands them off in order, so arrival order is initiation order)."""
+        while True:
+            payload = self._mesh_replay_q.get()
+            try:
+                with self.engine.collective_lock:
+                    dev = self._mesh_replay_dispatch(payload)
+                self._mesh_replay_readback(dev, payload)
+            except Exception as e:  # noqa: BLE001
+                self.logger.printf("mesh replay failed: %s", e)
+            finally:
+                plans.take_dispatch_note()
+
+    def _mesh_replay_readback(self, dev, payload: dict):
+        """A bounded wait for a replayed dispatch's result.  The port's
+        dispatch returns only after its collective (the all-reduce or
+        all-gather on the host) completed, so this waits for the card's
+        part of the result: on a side thread, at most
+        MESH_REPLAY_TIMEOUT, logged if it sticks or fails."""
+        if dev is None:
+            # The initiator dispatched; a replay that declined strands it.
+            # Accept-time validation makes this unreachable for a known
+            # schema: say so loudly if it happens anyway.
+            self.logger.printf(
+                "mesh replay DID NOT DISPATCH (initiator may hang): %r",
+                {k: v for k, v in payload.items() if not k.startswith("_")})
+            return
+        err: list = []
+
+        def wait():
+            try:
+                for t in dev if isinstance(dev, (list, tuple)) else (dev,):
+                    t.reshape(-1)[:1].cpu()
+            except Exception as e:  # noqa: BLE001
+                err.append(e)
+
+        waiter = threading.Thread(target=wait, daemon=True)
+        waiter.start()
+        waiter.join(self.MESH_REPLAY_TIMEOUT)
+        if waiter.is_alive():
+            self.logger.printf(
+                "mesh replay result STUCK >%ss: %r", self.MESH_REPLAY_TIMEOUT,
+                {k: v for k, v in payload.items() if not k.startswith("_")})
+        elif err:
+            self.logger.printf("mesh replay readback failed: %s", err[0])
+
+    def _mesh_replay_dispatch(self, payload: dict):
+        """Enter the dispatch the initiator described, with
+        ``broadcast=False``: the result (None when nothing dispatched)."""
+        eng = self.engine
+        kind = payload["kind"]
+        index = payload["index"]
+        shards = payload.get("shards")
+        if shards is None:
+            idx = self.holder.index(index)
+            shards = [int(s) for s in idx.available_shards()] if idx else []
+        calls = payload["_calls"]  # parsed at accept time
+        if kind == "count":
+            return eng.count_async(index, calls.get("query"), shards, broadcast=False)
+        if kind == "eval":
+            words, _ = eng.bitmap_stack(index, calls.get("query"), shards, broadcast=False)
+            return words
+        if kind == "count_batch":
+            return eng.count_many_async(index, payload["_batch_calls"], payload["shardsList"],
+                                        broadcast=False)
+        if kind == "sum":
+            res = eng.sum_async(index, payload["field"], calls.get("filter"), shards,
+                                broadcast=False)
+            return None if res is None else res[0]
+        if kind == "minmax":
+            res = eng.min_max_async(index, payload["field"], calls.get("filter"), shards,
+                                    payload["isMin"], broadcast=False)
+            return None if res is None else res[0]
+        if kind == "topn":
+            res = eng.topn_full_async(index, payload["field"], calls.get("src"), shards,
+                                      payload["n"], payload["minThreshold"],
+                                      row_ids=payload.get("rowIds"), broadcast=False,
+                                      replay_cands=payload["cands"])
+            return None if res is None else res[2]
+        if kind == "topn_scores":
+            res = eng.topn_scores_async(index, payload["field"], payload["rows"],
+                                        calls.get("src"), shards, broadcast=False)
+            return None if res is None else res[0]
+        if kind == "group":
+            return eng.group_counts_async(index, payload["fields"], payload["rows"],
+                                          calls.get("filter"), shards, broadcast=False)
+        raise ApiError(f"unknown collective kind: {kind}")
 
     def translate_keys(self, index: str, field: str, keys: List[str]) -> List[int]:
         if field:

@@ -529,3 +529,23 @@ extern "C" int score_rows_pool(const void* const* leaf_ptrs, int n_leaves,
                           n_ops, mask, cand_base, cand_idx, n_cands, n_shards, words, scores,
                           src_counts, cnt, thr, scratch, n_out, out, stream);
 }
+
+// The trim alone, over totals the caller passes in (TopN on a
+// multi-process mesh, whose totals are summed across ranks on the host
+// between K3 and the trim): totals device int64[n_cands], non-negative,
+// 1 <= n_cands <= 4096; their top n_out (1 <= n_out <= n_cands) written to
+// out int32[2, n_out] as K3's trim writes them, by the same one-block
+// score_rows_trim_kernel, which leaves the totals at zero.  Returns the
+// cudaError_t of the launch.
+extern "C" int score_rows_trim(void* totals, int n_cands, int n_out, void* out,
+                               void* stream) {
+  if (totals == nullptr || out == nullptr || n_cands < 1 || n_cands > kMaxCands ||
+      n_out < 1 || n_out > n_cands)
+    return (int)cudaErrorInvalidValue;
+  Totals t = {};
+  t.acc = (unsigned long long*)totals;
+  t.n_out = n_out;
+  t.trimmed = (int*)out;
+  score_rows_trim_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(t, n_cands);
+  return (int)cudaGetLastError();
+}

@@ -616,6 +616,28 @@ class Executor:
             i += 1
         return results
 
+    def _mesh_bitmap_row(self, index, c: Call, shards, opt: ExecOptions):
+        """A Row-valued tree on a MULTI-PROCESS mesh (executor.py:1623-1648):
+        the engine's ``eval`` collective evaluates it on every rank (K10)
+        and gathers the words back (``TorchEngine.bitmap_row``), so a Row
+        query does not fall back to the host loop there.  A single process
+        keeps the host per-shard path: the segments live on this host
+        already.  Returns a Row, or None to take the host path."""
+        eng = self.engine
+        if eng is None or not eng.multiproc or opt.remote or not eng.lowerable(c):
+            return None
+        if self.cluster is not None:
+            local = set(self._local_shards(index, shards))
+            if any(s not in local for s in shards):
+                return None
+        try:
+            return eng.bitmap_row(index, c, list(shards))
+        except (HostFallback, ValueError):
+            # Claim a half-written plan note, or it merges into the next
+            # query's record on this pooled thread.
+            plans_mod.take_dispatch_note()
+            return None
+
     # -- deferred execution (executor.py:587-697) ----------------------------
 
     def execute_async(self, index: str, query, shards: Optional[List[int]] = None,
@@ -626,7 +648,8 @@ class Executor:
         waiting for the card.  None when the query is not eligible (a
         ``columnAttrs`` request among them): the caller runs ``execute``."""
         eng = self.engine
-        if eng is None or (opt is not None and (opt.remote or opt.column_attrs)):
+        if eng is None or eng._peerless_multiproc or (
+                opt is not None and (opt.remote or opt.column_attrs)):
             return None
         try:
             if isinstance(query, str):
@@ -674,7 +697,8 @@ class Executor:
         Correct as the batcher's memo lane is: the key carries the version
         token of every view the tree reads."""
         eng = self.engine
-        if eng is None or self.cluster is not None or self.translator is not None:
+        if (eng is None or self.cluster is not None or self.translator is not None
+                or eng._peerless_multiproc):
             return None
         try:
             q = self._parse_cached(query)
@@ -1092,9 +1116,11 @@ class Executor:
             prev.merge(v)
             return prev
 
-        row = self.map_reduce(index, shards, c, opt,
-                              lambda shard: self._execute_bitmap_call_shard(index, c, shard),
-                              reduce_fn)
+        row = self._mesh_bitmap_row(index, c, shards, opt)
+        if row is None:
+            row = self.map_reduce(index, shards, c, opt,
+                                  lambda shard: self._execute_bitmap_call_shard(index, c, shard),
+                                  reduce_fn)
         if row is None:
             row = Row()
         # A Row() result carries its row's attributes (executor.go:491-530).

@@ -9,10 +9,11 @@ protobuf (``application/x-protobuf``) as the reference does.
 
 The port of ``pilosa_tpu/net/server.py``: every route listed in
 ``Handler.__init__`` answers as the reference answers, byte for byte apart
-from trace ids and timings.  The multi-process mesh's routes answer 501 with ``{"error": ...}`` naming the ROADMAP.md
-item that ports them (``_UNPORTED_ROUTES``), and an API method that
-raises ``NotImplementedError`` does the same; every other error keeps
-the reference's mapping (``error_response``).  A kernel that fails on
+from trace ids and timings, the multi-process mesh's
+``/internal/mesh/dispatch`` and ``/internal/mesh/ticket`` included.  An
+API method that raises ``NotImplementedError`` answers 501 with
+``{"error": ...}``; every other error keeps the reference's mapping
+(``error_response``).  A kernel that fails on
 the card fails its request with a 500: nothing here falls back to a
 plain version.
 """
@@ -72,15 +73,6 @@ OPENMETRICS_CONTENT_TYPE = (
 # server kept as the differential oracle.  Config [server] backend /
 # PILOSA_TPU_SERVER_BACKEND override.
 DEFAULT_BACKEND = "async"
-
-_ITEM_15C = "Queue 1 item 15 part C (the multi-process mesh)"
-
-# (method, route pattern, ROADMAP.md item) of every reference route this
-# port leaves out: each answers 501 naming its item.
-_UNPORTED_ROUTES = [
-    ("POST", "/internal/mesh/dispatch", _ITEM_15C),
-    ("POST", "/internal/mesh/ticket", _ITEM_15C),
-]
 
 
 def _resolve_backend(backend: Optional[str]) -> str:
@@ -167,13 +159,6 @@ def _serve_fault(path: str):
     return verdict.status, "application/json", payload
 
 
-def _unported(path: str, item: str):
-    def fn(q, b, **kw):
-        raise NotImplementedError(
-            f"{path} is not ported to pilosa_tpu_torch yet: ROADMAP.md {item}")
-    return fn
-
-
 class Route:
     def __init__(self, method: str, pattern: str, fn: Callable):
         self.method = method
@@ -258,6 +243,8 @@ class Handler:
         r("POST", "/internal/translate/keys", self._translate_keys)
         r("POST", "/internal/fragment/data", self._post_fragment_data)
         r("GET", "/internal/fragment/data", self._get_fragment_data)
+        r("POST", "/internal/mesh/dispatch", self._mesh_dispatch)
+        r("POST", "/internal/mesh/ticket", self._mesh_ticket)
         r("GET", "/debug/plans", self._debug_plans)
         r("GET", "/debug/sequences", self._debug_sequences)
         r("GET", "/debug/faults", self._debug_faults_get)
@@ -266,8 +253,17 @@ class Handler:
         r("GET", "/debug/heat", self._debug_heat)
         r("GET", "/debug/prefetch_advice", self._debug_prefetch_advice)
         r("GET", "/debug/flightrecorder", self._debug_flightrecorder)
-        for method, pattern, item in _UNPORTED_ROUTES:
-            r(method, pattern, _unported(pattern, item))
+
+    def _mesh_ticket(self, q, body, **kw):
+        """The next collective ticket (this node is the mesh sequencer)."""
+        return {"seq": self.api.mesh_ticket()}
+
+    def _mesh_dispatch(self, q, body, **kw):
+        """A peer's collective dispatch: validate and register (or commit,
+        or abort) it, and answer at once; the replay worker enters the
+        collective so that the initiator's completes."""
+        self.api.mesh_collective_accept(json.loads(body))
+        return {"accepted": True}
 
     def _route(self, method, pattern, fn):
         self.routes.append(Route(method, pattern, fn))
@@ -1018,6 +1014,7 @@ class Handler:
             snap = eng.pipeline_snapshot()
             if snap is not None:
                 out["pipeline"] = snap
+            red, gat, ev = (eng.mesh_collectives[k] for k in ("reduce", "gather", "eval"))
             out["engine"] = {
                 "device": str(eng.device),
                 "stackRebuilds": eng.stack_rebuilds,
@@ -1030,6 +1027,17 @@ class Handler:
                 "deviceBytesSkipped": eng.device_bytes_skipped,
                 # Each kernel's launches in this process, by C entry.
                 "kernelLaunches": kernels_mod.launch_counts(),
+                # The multi-process mesh: this rank, the ranks, the
+                # dispatches whose reduce ran on the card (and the
+                # collective), and the collectives whose broadcast failed
+                # (each query then served by the host lane).
+                "mesh": {"rank": eng.rank, "world": eng.world,
+                         "psumDispatches": eng.fused_dispatches,
+                         "degraded": eng.mesh_degraded,
+                         "reduces": red[0], "reduceSeconds": red[1], "reduceBytes": red[2],
+                         "gathers": gat[0], "gatherSeconds": gat[1], "gatherBytes": gat[2],
+                         "evalGathers": ev[0], "evalGatherSeconds": ev[1],
+                         "evalGatherBytes": ev[2]},
             }
             # The stack cache: resident and evicted-live bytes against the
             # budget, evictions, the residency fraction, the promotion

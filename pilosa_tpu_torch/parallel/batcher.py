@@ -449,10 +449,15 @@ class CountBatcher:
         by_index: dict = {}
         for it in batch:
             by_index.setdefault(it.index, []).append(it)
+        multiproc = getattr(self.engine, "multiproc", False)
         for index, items in by_index.items():
             aggs = [it for it in items if it.kind != "count"]
             counts = [it for it in items if it.kind == "count"]
-            if aggs:
+            if aggs and multiproc:
+                # A multi-process mesh has no fused program: each aggregate
+                # runs its own collective (pilosa_tpu/parallel/batcher.py:552).
+                groups.extend(("solo", index, [it]) for it in aggs)
+            elif aggs:
                 agg_texts = set()
                 for it in aggs:
                     agg_texts |= fusion.item_texts(it.spec)

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 KERNELS = ("count_tree_dense", "count_tree_pool", "count_tree_blocks", "score_rows",
            "and_popcount_rows", "count_batch_tree", "sum_tree", "minmax_tree", "groupn_tree",
-           "groupn_tree_pool", "fused_tree", "topn_slab")
+           "groupn_tree_pool", "fused_tree", "topn_slab", "eval_tree")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

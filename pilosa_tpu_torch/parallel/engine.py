@@ -87,10 +87,22 @@ through ``batched_sum``, ``batched_min_max``, ``batched_topn_scores``,
 ``batched_topn_full`` and ``batched_group_counts``; a lone caller runs the
 op's own program (``solo_op``), and Sum/Min/Max/TopN ride the result memo
 (``memo_probe_op``).
+
+The multi-process mesh (``multihost.py``; pilosa_tpu/parallel/engine.py
+:826-880, :2982-3070): each rank's stacks, lowerings and masks are laid
+out over its block of the canonical axis (``_rank_block``), and every
+Count, batch, Sum, Min/Max, TopN, GroupBy and Row evaluation
+(``bitmap_stack``, K10) is a collective: handed to the peers first
+(``collective_broadcast``), entered in ticket order (``seq_gate``) or
+under ``collective_lock``, and finished on the host by an all-reduce or an
+all-gather.  The memo, the sparse lane, promotion, warm start, the
+incremental sync, the fused drain and the slab lane decline there, as in
+the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import threading
@@ -114,18 +126,23 @@ from ..util import plans as plans_mod
 from ..util.stats import (ENGINE_CACHES, METRIC_DEVICE_BYTES_SKIPPED,
                           METRIC_ENGINE_CACHE_HITS, METRIC_ENGINE_CACHE_MISSES,
                           METRIC_ENGINE_EVICTIONS, METRIC_ENGINE_PROMOTIONS,
-                          METRIC_ENGINE_RESIDENT_BLOCK_FRACTION, REGISTRY)
+                          METRIC_ENGINE_RESIDENT_BLOCK_FRACTION, METRIC_MESH_DEVICES,
+                          METRIC_MESH_LOCAL_DEVICES, METRIC_MESH_PSUM_DISPATCHES,
+                          METRIC_MESH_SHARDS_PER_DEVICE, REGISTRY)
 from . import advisor as advisor_mod
 from . import bsi as bsi_mod
 from . import fusion as fusion_mod
 from . import groupby as groupby_mod
 from . import kernels
+from . import multihost
 from . import repair as repair_mod
 from . import residency as residency_mod
 from . import sparse as sparse_mod
-from .errors import HostFallback, ResidencyMiss, UnsupportedLowering  # noqa: F401 (re-exported)
+from .errors import (HostFallback, PeerlessMeshError, ResidencyMiss,  # noqa: F401 (re-exported)
+                     UnsupportedLowering)
 from .fusion import decode_topn_full
-from .mesh import host_stack, put_stack, resolve_device, shard_mask
+from .mesh import host_stack, pad_shards, put_stack, resolve_device, shard_mask
+from .seqgate import SeqGate
 
 # count()/count_async()'s "the caller probed the memo already" default.
 _MEMO_UNSET = object()
@@ -616,6 +633,44 @@ class TorchEngine:
         self.last_promote_error: Optional[str] = None
         # key -> (version token, occupied blocks of the row universe).
         self._universe_blocks_at: Dict[tuple, tuple] = {}
+        # BSI Sum/Min/Max launches (K6, K7) and tree evaluations (K10).
+        self.bsi_dispatches = 0
+        self.eval_dispatches = 0
+        # -- the multi-process mesh (pilosa_tpu/parallel/engine.py:826-880) --
+        # On a mesh of several ranks (multihost.py) this rank's stacks hold
+        # its block of every canonical axis (``_rank_block``), and every
+        # dispatch ends in a collective on the host (``_mesh_sum``,
+        # ``_mesh_gather``) that every rank must enter, in one order.  The
+        # server sets ``collective_broadcast`` to a fn(kind, payload) that
+        # hands the dispatch to every peer (two-phase, route
+        # /internal/mesh/dispatch) before this rank enters it; without a
+        # ``ticket`` fn ``collective_lock`` orders this process's own
+        # collectives and initiation must go through one entry node; with
+        # one (a fn returning the sequencer's next dense ticket) every
+        # collective, initiated here or replayed, enters ``seq_gate`` in
+        # ticket order, so any node may initiate.
+        self.collective_broadcast = None
+        self.collective_lock = threading.Lock()
+        self.ticket = None
+        self.seq_gate = SeqGate(on_stall=self._log_seq_stall)
+        self.world = multihost.process_count()
+        self.rank = multihost.process_index()
+        # Count/Sum/Min/Max/TopN/GroupBy/Row replay on peers; without a
+        # configured broadcast on a multi-process mesh every one of them
+        # goes to the executor's host lane (``_peerless_multiproc``).
+        self.multiproc = self.world > 1
+        self._rank_axes: Dict[int, tuple] = {}
+        # Collectives whose broadcast failed (a peer outage): each query
+        # degraded to the host lane.
+        self.mesh_degraded = 0
+        # The collectives this rank ran on the host, by kind: [count,
+        # seconds, bytes it sent] of the all-reduces, the all-gathers of
+        # per-shard results, and the all-gathers of a Row's words.
+        self.mesh_collectives = {"reduce": [0, 0.0, 0], "gather": [0, 0.0, 0],
+                                 "eval": [0, 0.0, 0]}
+        self._last_degraded_log = 0.0
+        REGISTRY.set_gauge(METRIC_MESH_DEVICES, self.world)
+        REGISTRY.set_gauge(METRIC_MESH_LOCAL_DEVICES, 1)
 
     def _cache_hit(self, name: str):
         self.cache_stats[name][0] += 1
@@ -640,6 +695,36 @@ class TorchEngine:
         shards = self.holder.local_shards(index)
         self._canonical[index] = (epoch, shards)
         return shards
+
+    def _rank_block(self, canonical: List[int]) -> List[int]:
+        """This rank's block of a canonical axis: the whole axis on one
+        process; on a mesh the positions ``multihost.owned_positions``
+        gives it over the axis padded to the world size, a padding
+        position as the shard id ``-1 - position``, which no fragment and
+        no request has (the reference's zero-padded shard axis,
+        ``pilosa_tpu/parallel/mesh.py pad_shards``).  Every rank's block
+        has the same length, so the kernels and the collectives see one
+        shape everywhere.  Stacks, lowerings and masks are laid out over
+        it; this is the one place the position arithmetic lives."""
+        if not self.multiproc or not canonical:
+            return canonical
+        key = id(canonical)
+        hit = self._rank_axes.get(key)
+        if hit is not None and hit[0] is canonical:
+            return hit[1]
+        n = len(canonical)
+        owned = sorted(multihost.owned_positions(pad_shards(n, self.world), self.world,
+                                                 self.rank))
+        block = [canonical[p] if p < n else -1 - p for p in owned]
+        if len(self._rank_axes) > 256:
+            self._rank_axes.clear()
+        self._rank_axes[key] = (canonical, block)
+        return block
+
+    def rank_shards(self, index: str) -> List[int]:
+        """This rank's block of the index's canonical shard axis
+        (``_rank_block``): the axis the index's stacks are built over."""
+        return self._rank_block(self.canonical_shards(index))
 
     def _mask_words(self, shards, canonical) -> torch.Tensor:
         """int32[S] per-shard gate on the device: 1 for requested shards,
@@ -687,7 +772,7 @@ class TorchEngine:
         raises ``ResidencyMiss`` so the query is served from the host tier
         meanwhile."""
         if canonical is None:
-            canonical = self.canonical_shards(index)
+            canonical = self.rank_shards(index)
         key = (index, field, view)
         with self._stacks_lock:
             return self._field_stack_locked(key, index, field, view, canonical, rows_hint)
@@ -720,12 +805,15 @@ class TorchEngine:
         # that fits is built now, colder stacks evicted to make room; one
         # that does not requests a promotion of the touched rows and sends
         # the query to the host tier.
-        universe = self._row_universe(index, field, view, canonical)
-        full_foot = max(1, len(universe)) * len(canonical) * ROW_SHARD_BYTES
-        if not self._admissible(full_foot):
-            if prior_rows:
-                rows_hint = prior_rows if rows_hint is None else set(rows_hint) | prior_rows
-            self._miss_to_host(key, rows_hint, 0.0, full_foot)
+        # A multi-process mesh skips the estimate: the working-set regime
+        # is single-process only (pilosa_tpu/parallel/engine.py:1177).
+        if not self.multiproc:
+            universe = self._row_universe(index, field, view, canonical)
+            full_foot = max(1, len(universe)) * len(canonical) * ROW_SHARD_BYTES
+            if not self._admissible(full_foot):
+                if prior_rows:
+                    rows_hint = prior_rows if rows_hint is None else set(rows_hint) | prior_rows
+                self._miss_to_host(key, rows_hint, 0.0, full_foot)
         frag_sync, row_index, buf, occ = self._assemble_host(index, field, view, canonical)
         self._evict_for(int(buf.numel()) * 4 + int(occ.nbytes))
         home = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
@@ -840,7 +928,7 @@ class TorchEngine:
             if st is not None:
                 resident = {r for r in rows if int(r) in st.row_index}
                 return resident, int(st.matrix.shape[1]) * ROW_SHARD_BYTES
-        canonical = self.canonical_shards(key[0])
+        canonical = self.rank_shards(key[0])
         return set(), len(canonical) * ROW_SHARD_BYTES
 
     @staticmethod
@@ -976,7 +1064,9 @@ class TorchEngine:
         uploads run on this thread's current stream (the default stream,
         the queries' own), so no query reads the pool before they land."""
         index, field, view = key
-        if self._closed:
+        # A multi-process mesh never promotes (engine.py:1737): its stacks
+        # are built whole.
+        if self._closed or self.multiproc:
             return "skipped", 0
         with self._stacks_lock:
             canonical = self.canonical_shards(index)
@@ -1233,7 +1323,8 @@ class TorchEngine:
         occupancy summary takes each row's exact bitmap from the same
         snapshot as its words, and only once the scatter was enqueued
         without error; a failed scatter evicts the stack and re-raises."""
-        if cached.shards != canonical or not cached.frag_sync:
+        # A multi-process mesh rebuilds (pilosa_tpu/parallel/engine.py:2029).
+        if self.multiproc or cached.shards != canonical or not cached.frag_sync:
             return None
         # A shard-epoch change alone does not bail (a fragment created in
         # a sibling field bumps the index's epoch); this stack's own
@@ -1516,7 +1607,7 @@ class TorchEngine:
         built here.  Returns the stacks visited."""
         with self._stacks_lock:
             keys = [k for k in self._stacks if k[0] == index]
-            canonical = self.canonical_shards(index)
+            canonical = self.rank_shards(index)
             n = 0
             for key in keys:
                 if key in self._stacks:
@@ -1550,7 +1641,10 @@ class TorchEngine:
         never evicts.  What waits: the prefetch thread that assembles
         stack N+1 on the host while stack N uploads."""
         keys = []
-        index_list = list(indexes if indexes is not None else self.holder.indexes)
+        # A multi-process mesh does not warm (engine.py:1524): its stacks
+        # build at the first collective, on every rank alike.
+        index_list = [] if self.multiproc else list(
+            indexes if indexes is not None else self.holder.indexes)
         index_list.sort(key=lambda i: -self._index_cost(i))
         for index in index_list:
             idx = self.holder.index(index)
@@ -1592,7 +1686,7 @@ class TorchEngine:
 
     def _stack_bytes(self, index: str, field: str, view: str) -> int:
         """The budget charge of a view's full stack."""
-        canonical = self.canonical_shards(index)
+        canonical = self.rank_shards(index)
         rows = self._row_universe(index, field, view, canonical)
         return max(1, len(rows)) * len(canonical) * ROW_SHARD_BYTES
 
@@ -1867,14 +1961,16 @@ class TorchEngine:
         canonical = self.canonical_shards(index)
         if not canonical:
             return 0
-        v = int(self._dispatch_count(index, c, shards, canonical))
+        if self._peerless_multiproc:
+            raise PeerlessMeshError("multi-process mesh without peer broadcast")
+        v = int(self._count_collective(index, c, shards, canonical))
         self.result_memo.put(key, v)
         if key is not None:
             self.repairs.register_count(key, c, v)
         return v
 
     def count_async(self, index: str, c: Call, shards: List[int],
-                    memo_key=_MEMO_UNSET) -> torch.Tensor:
+                    memo_key=_MEMO_UNSET, broadcast: bool = True) -> torch.Tensor:
         """Count(tree) as a 0-d int64 device tensor, without waiting for
         the device.  A repeat of this (query, shards) against unchanged
         views is answered from the result memo with no launch; the memo
@@ -1882,8 +1978,13 @@ class TorchEngine:
         tensor back.  After a write, a miss that the repair layer serves
         (``memo_probe``) comes back as a host int, put on the card here;
         a fresh result registers for repair with the device scalar held
-        lazily (the first repair reads it back, never this thread)."""
-        key, hit = self._memo_lookup(index, c, shards, memo_key)
+        lazily (the first repair reads it back, never this thread).
+        ``broadcast=False`` marks a peer's replay on a mesh: no memo, no
+        broadcast back."""
+        if broadcast and self._peerless_multiproc:
+            raise PeerlessMeshError("multi-process mesh without peer broadcast")
+        key, hit = (None, None) if not broadcast else self._memo_lookup(
+            index, c, shards, memo_key)
         if hit is not None:
             if isinstance(hit, torch.Tensor):
                 return hit
@@ -1891,7 +1992,7 @@ class TorchEngine:
         canonical = self.canonical_shards(index)
         if not canonical:
             return torch.zeros((), dtype=torch.int64, device=self.device)
-        dev = self._dispatch_count(index, c, shards, canonical)
+        dev = self._count_collective(index, c, shards, canonical, broadcast)
         self.result_memo.put(key, dev)
         if key is not None:
             self.repairs.register_count(key, c, dev)
@@ -2014,6 +2115,10 @@ class TorchEngine:
         under the tokens read AT SUBMIT TIME: a write landing mid-flight
         keys its readers to new tokens, so the entry can only be served to
         queries that began before the write."""
+        # The version tokens are process-local: a multi-process mesh never
+        # serves a memo entry (engine.py:2815).
+        if self.multiproc:
+            return None, None
         key = self._memo_key(index, c, shards)
         if key is None:
             return None, None
@@ -2044,7 +2149,7 @@ class TorchEngine:
         from a recompute.  The tokens cover the group fields and the
         filter's fields; the row lists derive from the group fields'
         standard views, so unchanged tokens pin the array's axes too."""
-        if self.result_memo.maxsize <= 0:
+        if self.multiproc or self.result_memo.maxsize <= 0:
             return None, None
         tfields = set(fields)
         if filter_call is not None:
@@ -2073,7 +2178,7 @@ class TorchEngine:
         the field and the rank parameters, tokened over every view of the
         field.  A miss probes the repair layer, whose count table is
         re-ranked with exactly topn_cache_only's host reduce."""
-        if self.result_memo.maxsize <= 0:
+        if self.multiproc or self.result_memo.maxsize <= 0:
             return None, None
         toks = self.memo_tokens(index, {field_name})
         if toks is None:
@@ -2199,6 +2304,8 @@ class TorchEngine:
         one (structurally unreachable) sends the query to the host tier
         rather than count stale zeros
         (pilosa_tpu/parallel/engine.py:3150-3162)."""
+        if self.multiproc:
+            return None  # the sparse lane is local only (engine.py:3129)
         S = len(canonical)
         n_leaves = 0
         pooled = False
@@ -2262,6 +2369,171 @@ class TorchEngine:
         plans_mod.note_dispatch(bytes_touched=n_leaves * total_blocks * block_bytes)
         return occ.view(np.int64), skipped
 
+    # -- the multi-process mesh (pilosa_tpu/parallel/engine.py:2982-3070) ----
+
+    @property
+    def _peerless_multiproc(self) -> bool:
+        """A multi-process mesh with NO peer replay configured: a collective
+        would wait for ranks that never join, so every fused path goes to
+        the executor's host lane instead."""
+        return self.multiproc and self.collective_broadcast is None
+
+    def _collective(self, kind, payload, dispatch, broadcast=True):
+        """Run a dispatch; on a mesh with peers, hand its descriptor
+        (``payload()``, built only then) to every peer first: a peer that
+        cannot accept raises HERE, before any rank enters the collective,
+        and the query degrades to the host lane (PeerlessMeshError).
+        ``broadcast=False`` marks a peer's replay, which its caller gates.
+
+        With a ticket fn the dispatch enters the seq gate at its ticket, so
+        concurrent initiators on different nodes enter collectives in one
+        global order; without one, ``collective_lock`` orders this
+        process's own stream and initiation goes through one entry node.
+        ``dispatch`` runs this rank's kernels and then the collective
+        itself (``_mesh_sum``, ``_mesh_gather``), so it returns only once
+        every rank has joined."""
+        if not broadcast or self.collective_broadcast is None:
+            return dispatch()
+        if self.ticket is not None:
+            seq = int(self.ticket())
+            try:
+                self.collective_broadcast(kind, dict(payload(), seq=seq))
+            except Exception as e:
+                # Peers were told to skip this seq (the abort carries it);
+                # this gate must skip it too, or it stalls itself.
+                self.seq_gate.skip(seq)
+                self._log_degraded(kind, e)
+                raise PeerlessMeshError(f"mesh broadcast failed: {e!r}") from e
+            if not self.seq_gate.enter(seq):
+                raise PeerlessMeshError(f"collective seq {seq} was force-skipped (gate stall)")
+            try:
+                return dispatch()
+            finally:
+                self.seq_gate.exit(seq)
+        with self.collective_lock:
+            try:
+                self.collective_broadcast(kind, payload())
+            except Exception as e:
+                self._log_degraded(kind, e)
+                raise PeerlessMeshError(f"mesh broadcast failed: {e!r}") from e
+            return dispatch()
+
+    def _mesh_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's partial result summed over the mesh (the
+        reference's psum); the result itself on one process."""
+        if not self.multiproc:
+            return t
+        t0 = time.perf_counter()
+        out = multihost.all_reduce_sum(t)
+        self._note_collective("reduce", t0, t)
+        return out
+
+    def _mesh_gather(self, t: torch.Tensor, canonical, dim: int = 0,
+                     kind: str = "gather") -> torch.Tensor:
+        """A per-shard result over this rank's block, gathered over the
+        whole canonical axis along ``dim`` (the reference's
+        replicate_shards), counted under ``kind``; the result itself on
+        one process."""
+        if not self.multiproc:
+            return t
+        t0 = time.perf_counter()
+        if dim:
+            out = multihost.all_gather_shards(t.transpose(0, dim), len(canonical)).transpose(0, dim)
+        else:
+            out = multihost.all_gather_shards(t, len(canonical))
+        self._note_collective(kind, t0, t)
+        return out
+
+    def _note_collective(self, kind, t0, t):
+        c = self.mesh_collectives[kind]
+        c[0] += 1
+        c[1] += time.perf_counter() - t0
+        c[2] += t.numel() * t.element_size()
+
+    # Seconds between degraded-mode log lines (one a query would flood the
+    # log during a peer outage).
+    DEGRADED_LOG_INTERVAL = 5.0
+
+    def _log_degraded(self, kind, err):
+        """A broadcast that failed sends its query to the host lane; the
+        log keeps a broken broadcast hook (a bug, not an outage) visible."""
+        self.mesh_degraded += 1
+        now = time.monotonic()
+        if now - self._last_degraded_log < self.DEGRADED_LOG_INTERVAL:
+            return
+        self._last_degraded_log = now
+        if self.logger is not None:
+            self.logger.printf("mesh broadcast for '%s' failed; fused queries degrade to the "
+                               "host path: %r", kind, err)
+
+    def _log_seq_stall(self, seq: int):
+        """A gate force-skip leaves a trace on this node: the initiator's
+        own log never fires when the initiator is the one that died."""
+        if self.logger is not None:
+            self.logger.printf("mesh seq %d force-skipped after gate stall (initiator died "
+                               "before commit?)", seq)
+
+    def _count_collective(self, index, c, shards, canonical, broadcast=True):
+        """Count(tree) over this rank's block, summed over the mesh: one
+        ``count`` collective."""
+        return self._collective(
+            "count",
+            lambda: {"index": index, "query": str(c), "shards": list(shards),
+                     "canon": [int(x) for x in canonical]},
+            lambda: self._mesh_sum(self._dispatch_count(
+                index, c, shards, self._rank_block(canonical))),
+            broadcast)
+
+    def bitmap_stack(self, index: str, c: Call, shards: List[int],
+                     canonical: Optional[List[int]] = None, broadcast: bool = True):
+        """The tree's masked words int32[S, WORDS] over the canonical shard
+        axis, by K10 (``kernels.eval_tree``), with that axis: (words,
+        canonical), or (None, []) with no shards or on a mesh without
+        peers.  On a mesh each rank evaluates its block and the words are
+        gathered to every rank, an ``eval`` collective (the analogue of
+        remoteExec returning row segments, executor.go:2142-2158).  A tree
+        with no device lowering is UnsupportedLowering."""
+        if canonical is None:
+            canonical = self.canonical_shards(index)
+        if not canonical:
+            return None, []
+        if broadcast and self._peerless_multiproc:
+            return None, []
+        local = self._rank_block(canonical)
+
+        def dispatch():
+            with self._stacks_lock:
+                lw = _Lowering(self, local)
+                lw.row_hints = self._collect_row_hints(index, c)
+                prog = self._lower(index, c, lw)
+                if not kernels.fits(prog):
+                    raise UnsupportedLowering("tree exceeds the kernels' limits")
+                self._note_touches(lw)
+                mask = self._mask_words(shards, local)
+                self.eval_dispatches += 1
+                words = self._reading(lw.stacks, lambda: kernels.eval_tree(prog, lw.mats, mask))
+            return self._mesh_gather(words, canonical, kind="eval")
+
+        return self._collective(
+            "eval",
+            lambda: {"index": index, "query": str(c), "shards": list(shards),
+                     "canon": [int(x) for x in canonical]},
+            dispatch, broadcast), canonical
+
+    def bitmap_row(self, index: str, c: Call, shards: List[int]):
+        """Evaluate a tree into a core Row of the requested shards' non-empty
+        segments (views of the words on the engine's device), or None when
+        the engine declines (no shards, or a mesh without peers): the
+        caller's host lane answers then."""
+        from ..core.row import Row
+
+        words, canonical = self.bitmap_stack(index, c, shards)
+        if words is None:
+            return None
+        nonzero = words.ne(0).any(dim=1).tolist()
+        req = set(shards)
+        return Row({s: words[i] for i, s in enumerate(canonical) if s in req and nonzero[i]})
+
     # -- batched Counts (pilosa_tpu/parallel/engine.py:3246-3386, 3719-3865)
 
     # The reference's batch program tiers: its plan records the tier a
@@ -2283,16 +2555,25 @@ class TorchEngine:
         ``shards_list[i]`` is query i's requested shard subset."""
         return [int(v) for v in self.count_many_async(index, calls, shards_list).tolist()]
 
-    def count_many_async(self, index: str, calls, shards_list) -> torch.Tensor:
+    def count_many_async(self, index: str, calls, shards_list,
+                         broadcast: bool = True) -> torch.Tensor:
         """``count_many`` as an int64[K] device tensor, without waiting for
-        the device.  (The reference's multi-process replay of the batch,
-        ``_collective``, is ROADMAP.md Queue 1 item 15.)"""
+        the device; on a mesh one ``count_batch`` collective."""
         if not calls:
             return torch.zeros(0, dtype=torch.int64, device=self.device)
         canonical = self.canonical_shards(index)
         if not canonical:
             return torch.zeros(len(calls), dtype=torch.int64, device=self.device)
-        return self._dispatch_count_batch(index, calls, shards_list, canonical)
+        if broadcast and self._peerless_multiproc:
+            raise PeerlessMeshError("multi-process mesh without peer broadcast")
+        return self._collective(
+            "count_batch",
+            lambda: {"index": index, "queries": [str(c) for c in calls],
+                     "shardsList": [list(x) for x in shards_list],
+                     "canon": [int(x) for x in canonical]},
+            lambda: self._mesh_sum(self._dispatch_count_batch(
+                index, calls, shards_list, self._rank_block(canonical))),
+            broadcast)
 
     def _dispatch_count_batch(self, index, calls, shards_list, canonical):
         # Batch CSE: identical (query text, shard set) entries — repeated
@@ -2456,7 +2737,7 @@ class TorchEngine:
         surviving = bitops.popcount_np(occ)
         total = max(1, n_req * bitops.OCC_BLOCKS)
         frac = surviving / total
-        sparse = frac <= self.sparse_threshold
+        sparse = frac <= self.sparse_threshold and not self.multiproc
         n_leaves = leaves(c)
         doc.update(
             sparseEligible=True,
@@ -2512,31 +2793,70 @@ class TorchEngine:
         return prog, lw
 
     def topn_scores_async(self, index: str, field: str, candidate_rows: List[int],
-                          src_call: Call, shards: List[int]):
+                          src_call: Call, shards: List[int], broadcast: bool = True):
         """TopN phase 1 as one K3 launch, without waiting for the device:
         ([scores int32[K, S], src_counts int32[S]], decoder), the decoder
         giving ``topn_scores``' result from their host arrays, or None
-        when the field has no stack."""
+        when the field has no stack.  On a mesh a ``topn_scores``
+        collective: each rank scores its block, gathered over the axis."""
         canonical = self.canonical_shards(index)
-        with self._stacks_lock:
-            stack = self._require_full_stack(
-                index, field, VIEW_STANDARD,
-                self.field_stack(index, field, VIEW_STANDARD, canonical))
-            if stack is None:
-                return None
-            present = np.asarray([r in stack.row_index for r in candidate_rows], dtype=bool)
-            idx = np.asarray(
-                [stack.row_index.get(r, 0) for r in candidate_rows], dtype=np.int32
-            )
-            mask = self._mask_words(shards, canonical)
-            prog, lw = self._lower_src(index, src_call, canonical)
-            cand_idx = torch.from_numpy(idx).to(self.device)
-            self.topn_dispatches += 1
-            scores, counts = self._reading(
-                lw.stacks + [stack],
-                lambda: kernels.topn_tree(prog, lw.mats, mask, stack.matrix, cand_idx))
-        pos = {s: i for i, s in enumerate(stack.shards)}
-        return [scores, counts], fusion_mod._TopNScoresDecode(present, pos)
+        if not canonical:
+            return None
+        if broadcast and self._peerless_multiproc:
+            raise PeerlessMeshError("multi-process mesh without peer broadcast")
+        local = self._rank_block(canonical)
+        present = None
+
+        def dispatch():
+            nonlocal present
+            with self._stacks_lock:
+                stack = self._require_full_stack(
+                    index, field, VIEW_STANDARD,
+                    self.field_stack(index, field, VIEW_STANDARD, local))
+                present = np.asarray([r in stack.row_index for r in candidate_rows], dtype=bool)
+                idx = np.asarray(
+                    [stack.row_index.get(r, 0) for r in candidate_rows], dtype=np.int32
+                )
+                mask = self._mask_words(shards, local)
+                prog, lw = self._lower_src(index, src_call, local)
+                cand_idx = torch.from_numpy(idx).to(self.device)
+                self.topn_dispatches += 1
+                scores, counts = self._reading(
+                    lw.stacks + [stack],
+                    lambda: kernels.topn_tree(prog, lw.mats, mask, stack.matrix, cand_idx))
+            if self.multiproc:
+                # A row absent from this rank's block read stack row 0: zero
+                # it before the gather.  Present is then where some shard of
+                # the whole axis has the row (the holder's view, the same on
+                # every rank).
+                here = torch.from_numpy(present).to(scores.device)
+                scores = scores * here[:, None].to(scores.dtype)
+                present = np.asarray(
+                    self._rows_present(index, field, candidate_rows, canonical), dtype=bool)
+            return [self._mesh_gather(scores, canonical, dim=1),
+                    self._mesh_gather(counts, canonical)]
+
+        tensors = self._collective(
+            "topn_scores",
+            lambda: {"index": index, "field": field,
+                     "rows": [int(r) for r in candidate_rows], "src": str(src_call),
+                     "shards": list(shards), "canon": [int(x) for x in canonical]},
+            dispatch, broadcast)
+        pos = {s: i for i, s in enumerate(canonical)}
+        return tensors, fusion_mod._TopNScoresDecode(present, pos)
+
+    def _rows_present(self, index, field, rows, shards) -> List[bool]:
+        """Whether each row has a bit in some fragment of ``shards`` of the
+        field's standard view: the row table of a stack over those shards
+        (``_assemble_host``), read from the holder."""
+        view = self.holder.view(index, field, VIEW_STANDARD)
+        have = set()
+        if view is not None:
+            for s in shards:
+                f = view.fragment(s)
+                if f is not None:
+                    have.update(f.row_ids())
+        return [r in have for r in rows]
 
     def topn_scores(self, index: str, field: str, candidate_rows: List[int],
                     src_call: Call, shards: List[int]):
@@ -2551,18 +2871,25 @@ class TorchEngine:
         tensors, dec = res
         return dec([t.cpu().numpy() for t in tensors])
 
-    def _build_topn_candidates(self, index, field, stack, cands) -> _TopNCandidates:
-        """Assemble the id-descending candidate arrays for a stack."""
-        S = len(stack.shards)
+    def _host_counts(self, index, field, shards, cands) -> np.ndarray:
+        """int32[S, K_pad] store row counts of the id-descending candidates
+        per shard of ``shards`` (zero for pad slots and absent rows)."""
         K = len(cands)
         K_pad = max(8, 1 << (K - 1).bit_length()) if K else 8
-        host_cnt = np.zeros((S, K_pad), dtype=np.int32)
+        host_cnt = np.zeros((len(shards), K_pad), dtype=np.int32)
         if K:
             cand_arr = np.asarray(cands, dtype=np.int64)
-            for si, s in enumerate(stack.shards):
+            for si, s in enumerate(shards):
                 frag = self.holder.fragment(index, field, VIEW_STANDARD, s)
                 if frag is not None:
                     host_cnt[si, :K] = frag.counts_for(cand_arr).astype(np.int32)
+        return host_cnt
+
+    def _build_topn_candidates(self, index, field, stack, cands) -> _TopNCandidates:
+        """Assemble the id-descending candidate arrays for a stack."""
+        K = len(cands)
+        host_cnt = self._host_counts(index, field, stack.shards, cands)
+        K_pad = host_cnt.shape[1]
         idx = np.zeros(K_pad, dtype=np.int32)
         idx[:K] = [stack.row_index.get(r, 0) for r in cands]
         return _TopNCandidates(
@@ -2584,7 +2911,9 @@ class TorchEngine:
         if cached is not None and cached[0] == stack.versions:
             return cached[1]
         cols = []
-        for s in stack.shards:
+        # On a mesh the union spans the whole axis, as the reference's
+        # global stack does: every rank then ranks the same candidates.
+        for s in self.canonical_shards(index) if self.multiproc else stack.shards:
             frag = self.holder.fragment(index, field, VIEW_STANDARD, s)
             if frag is None:
                 continue
@@ -2602,9 +2931,13 @@ class TorchEngine:
     def fused_dispatches(self) -> int:
         """The device programs the engine ran for queries (the reference's
         ``fused_dispatches``): Count launches dense, sparse and batched,
-        GroupBy, TopN and whole-dashboard drains."""
+        GroupBy, TopN, BSI, tree evaluations and whole-dashboard drains.
+        Published as pilosa_mesh_psum_dispatches_total (``refresh_metrics``):
+        each one's shard reduce ran on the card, or in the collective on a
+        mesh, in place of a per-shard host loop."""
         return (self.dense_dispatches + self.sparse_dispatches + self.batch_dispatches
-                + self.group_dispatches + self.topn_dispatches + self.fused_programs)
+                + self.group_dispatches + self.topn_dispatches + self.fused_programs
+                + self.bsi_dispatches + self.eval_dispatches)
 
     def _topn_slab_candidates(self, index, field, stack) -> _TopNCandidates:
         """The slab lane's candidate arrays (pilosa_tpu/parallel/engine.py
@@ -2669,6 +3002,8 @@ class TorchEngine:
         (qual > k_out), or the engine's HostFallback: a src tree without
         a device lowering, a stack not on the card (the reference's
         executor catches these around the call)."""
+        if self.multiproc:
+            return None  # no collective of its own (engine.py:4358): the host walk
         if not n:
             self.topn_slab_declines["n0"] += 1
             return None
@@ -2720,20 +3055,39 @@ class TorchEngine:
         return merge_pairs(per_shard)
 
     def topn_full_async(self, index: str, field: str, src_call: Call, shards,
-                        n: int, min_threshold: int, row_ids=None):
+                        n: int, min_threshold: int, row_ids=None, broadcast: bool = True,
+                        replay_cands=None):
         """The whole TopN (phase-1 scores, per-shard gates, exact totals
         and the trim) as one K3 launch, without waiting for the device:
         (candidates, n_out, device result: int32[2, n_out] or the int64[K]
         totals), or None when the candidate union is past
-        MAX_TOPN_CANDIDATES (the two-phase path runs)."""
+        MAX_TOPN_CANDIDATES (the two-phase path runs).  On a mesh a
+        ``topn`` collective: each rank's K3 writes its block's totals, the
+        totals are summed over the mesh and K3's trim runs alone on them
+        (``kernels.topn_trim``).  ``replay_cands`` is the initiator's
+        candidate list, which a replay ranks as it is (the ranked caches
+        behind the union may differ between processes in time)."""
         canonical = self.canonical_shards(index)
-        with self._stacks_lock:
-            stack = self._require_full_stack(
-                index, field, VIEW_STANDARD,
-                self.field_stack(index, field, VIEW_STANDARD, canonical))
-            if stack is None:
-                return [], None, None
-            entry = self._topn_candidates(index, field, stack, row_ids)
+        if not canonical:
+            return [], None, None
+        if broadcast and self._peerless_multiproc:
+            raise PeerlessMeshError("multi-process mesh without peer broadcast")
+        local = self._rank_block(canonical)
+        # One process holds the stacks lock from the candidates to the
+        # launch, so that they see one state of the stacks (the lock is
+        # re-entrant).  On a mesh each half takes it on its own: a thread
+        # that holds it must never wait at the seq gate, where a replay
+        # that needs the lock may be ahead of it.
+        mesh = self.multiproc or self.collective_broadcast is not None
+        with contextlib.nullcontext() if mesh else self._stacks_lock:
+            with self._stacks_lock:
+                stack = self._require_full_stack(
+                    index, field, VIEW_STANDARD,
+                    self.field_stack(index, field, VIEW_STANDARD, local))
+                if replay_cands is not None:
+                    entry = self._build_topn_candidates(index, field, stack, list(replay_cands))
+                else:
+                    entry = self._topn_candidates(index, field, stack, row_ids)
             if not entry.cands:
                 return [], None, None
             if len(entry.cands) > self.MAX_TOPN_CANDIDATES:
@@ -2741,13 +3095,29 @@ class TorchEngine:
             # ids= mode and n=0 skip the trim (never truncate).
             K_pad = entry.host_cnt.shape[1]
             n_out = min(int(n), K_pad) if n and not row_ids else None
-            mask = self._mask_words(shards, canonical)
-            prog, lw = self._lower_src(index, src_call, canonical)
-            self.topn_dispatches += 1
-            out = self._reading(lw.stacks + [stack], lambda: kernels.topn_full_tree(
-                prog, lw.mats, mask, stack.matrix, entry.cand_idx, entry.dev_cnt,
-                max(int(min_threshold), 1), n_out,
-            ))
+
+            def dispatch():
+                with self._stacks_lock:
+                    mask = self._mask_words(shards, local)
+                    prog, lw = self._lower_src(index, src_call, local)
+                    self.topn_dispatches += 1
+                    out = self._reading(lw.stacks + [stack], lambda: kernels.topn_full_tree(
+                        prog, lw.mats, mask, stack.matrix, entry.cand_idx, entry.dev_cnt,
+                        max(int(min_threshold), 1), None if self.multiproc else n_out,
+                    ))
+                if not self.multiproc:
+                    return out
+                totals = self._mesh_sum(out)
+                return totals if n_out is None else kernels.topn_trim(totals, n_out)
+
+            out = self._collective(
+                "topn",
+                lambda: {"index": index, "field": field, "src": str(src_call),
+                         "shards": list(shards), "n": int(n), "minThreshold": int(min_threshold),
+                         "rowIds": None if not row_ids else [int(r) for r in row_ids],
+                         "cands": [int(x) for x in entry.cands],
+                         "canon": [int(x) for x in canonical]},
+                dispatch, broadcast)
             return entry.cands, n_out, out
 
     def topn_full(self, index: str, field: str, src_call: Call, shards,
@@ -2774,7 +3144,7 @@ class TorchEngine:
         with self._stacks_lock:
             stack = self._require_full_stack(
                 index, field, VIEW_STANDARD,
-                self.field_stack(index, field, VIEW_STANDARD, canonical))
+                self.field_stack(index, field, VIEW_STANDARD, self._rank_block(canonical)))
         if stack is None:
             return []
         entry = self._topn_candidates(index, field, stack, row_ids)
@@ -2785,12 +3155,17 @@ class TorchEngine:
             return []
         if K > self.MAX_TOPN_CANDIDATES:
             return None
-        pos = {s: i for i, s in enumerate(stack.shards)}
+        # A rank's stack holds its block: on a mesh the host reduce reads
+        # the whole axis's counts from the holder, as the reference's does.
+        axis, host_cnt = stack.shards, entry.host_cnt
+        if self.multiproc:
+            axis, host_cnt = canonical, self._host_counts(index, field, canonical, entry.cands)
+        pos = {s: i for i, s in enumerate(axis)}
         rows = [pos[s] for s in shards if s in pos]
         if not rows:
             return []
         thr = max(int(min_threshold), 1)
-        cnt = entry.host_cnt[np.asarray(rows, dtype=np.intp)][:, :K]
+        cnt = host_cnt[np.asarray(rows, dtype=np.intp)][:, :K]
         gated = np.where(cnt >= thr, cnt, 0)
         totals = gated.sum(axis=0, dtype=np.int64)
         if n:
@@ -2813,44 +3188,61 @@ class TorchEngine:
         return pairs
 
     # -- BSI Sum, Min, Max (pilosa_tpu/parallel/engine.py:3953-4100) -------
-    #
-    # The reference replays these across processes (``_collective``); that
-    # is ROADMAP.md Queue 1 item 15.
 
     def _bsi_dispatch(self, index: str, field_name: str, filter_call: Optional[Call],
-                      shards, launch):
+                      shards, launch, broadcast=True, kind="sum", extra=None, finish=None):
         """Lower the filter, then ``launch(prog, mats, mask, plane_mat,
         planes)`` under the stacks lock: (device result, canonical, depth,
         bsig), or None when the field is not an int field or the index has
         no shards.  A filter tree with no lowering, or past the kernels'
-        limits, is UnsupportedLowering."""
+        limits, is UnsupportedLowering.  On a mesh a ``kind`` collective
+        (payload fields ``extra`` beside the reference's), ``finish``
+        taking this rank's result over the mesh."""
         bsig = self._bsi_group(index, field_name)
         if bsig is None:
             return None
         depth = bsig.bit_depth()
         canonical = self.canonical_shards(index)
-        with self._stacks_lock:
-            view = view_bsi_name(field_name)
-            stack = self._require_full_stack(index, field_name, view,
-                                             self.field_stack(index, field_name, view, canonical))
-            if stack is None:
-                return None
-            lw = _Lowering(self, canonical)
-            if filter_call is not None:
-                lw.row_hints = self._collect_row_hints(index, filter_call)
-            prog = None if filter_call is None else self._lower(index, filter_call, lw)
-            if prog is not None and not kernels.fits(prog):
-                raise UnsupportedLowering("filter tree exceeds the kernels' limits")
-            mask = self._mask_words(shards, canonical)
-            planes = self._plane_spec(stack, depth)
-            dev = self._reading(lw.stacks + [stack], lambda: launch(
-                prog, lw.mats, mask, stack.matrix, planes))
+        if not canonical:
+            return None
+        if broadcast and self._peerless_multiproc:
+            raise PeerlessMeshError("multi-process mesh without peer broadcast")
+        local = self._rank_block(canonical)
+
+        def dispatch():
+            with self._stacks_lock:
+                view = view_bsi_name(field_name)
+                stack = self._require_full_stack(
+                    index, field_name, view, self.field_stack(index, field_name, view, local))
+                lw = _Lowering(self, local)
+                if filter_call is not None:
+                    lw.row_hints = self._collect_row_hints(index, filter_call)
+                prog = None if filter_call is None else self._lower(index, filter_call, lw)
+                if prog is not None and not kernels.fits(prog):
+                    raise UnsupportedLowering("filter tree exceeds the kernels' limits")
+                mask = self._mask_words(shards, local)
+                planes = self._plane_spec(stack, depth)
+                self.bsi_dispatches += 1
+                dev = self._reading(lw.stacks + [stack], lambda: launch(
+                    prog, lw.mats, mask, stack.matrix, planes))
+            return dev if not self.multiproc else finish(dev)
+
+        dev = self._collective(
+            kind,
+            lambda: dict({"index": index, "field": field_name,
+                          "filter": None if filter_call is None else str(filter_call),
+                          "shards": list(shards)}, **(extra or {}),
+                         canon=[int(x) for x in canonical]),
+            dispatch, broadcast)
         return dev, canonical, depth, bsig
 
-    def sum_async(self, index: str, field_name: str, filter_call: Optional[Call], shards):
+    def sum_async(self, index: str, field_name: str, filter_call: Optional[Call], shards,
+                  broadcast: bool = True):
         """BSI Sum as one K6 launch, the result left on the device:
-        (int64[depth + 1] counts, depth, bsig), or None (no int field)."""
-        res = self._bsi_dispatch(index, field_name, filter_call, shards, bsi_mod.sum_tree)
+        (int64[depth + 1] counts, depth, bsig), or None (no int field); on a
+        mesh a ``sum`` collective, the counts summed over the ranks."""
+        res = self._bsi_dispatch(index, field_name, filter_call, shards, bsi_mod.sum_tree,
+                                 broadcast, "sum", finish=self._mesh_sum)
         if res is None:
             return None
         dev, _, depth, bsig = res
@@ -2866,12 +3258,17 @@ class TorchEngine:
         return bsi_mod.decode_sum(dev.cpu().numpy(), depth, bsig.min)
 
     def min_max_async(self, index: str, field_name: str, filter_call: Optional[Call],
-                      shards, is_min: bool):
+                      shards, is_min: bool, broadcast: bool = True):
         """BSI Min or Max as one K7 launch, the per-shard (values, counts)
-        left on the device: (result, canonical, depth, bsig), or None."""
+        left on the device: (result, canonical, depth, bsig), or None; on a
+        mesh a ``minmax`` collective, both gathered over the canonical
+        axis."""
+        canonical = self.canonical_shards(index)
         return self._bsi_dispatch(
             index, field_name, filter_call, shards,
-            lambda *a: bsi_mod.minmax_tree(*a, is_min))
+            lambda *a: bsi_mod.minmax_tree(*a, is_min), broadcast, "minmax",
+            {"isMin": bool(is_min)},
+            lambda dev: tuple(self._mesh_gather(t, canonical) for t in dev))
 
     def min_max(self, index: str, field_name: str, filter_call: Optional[Call], shards,
                 is_min: bool):
@@ -2887,7 +3284,7 @@ class TorchEngine:
     # -- GroupBy (pilosa_tpu/parallel/engine.py:3702-3717, 4571-4673) ------
 
     def group_counts_async(self, index: str, fields: List[str], row_lists,
-                           filter_call: Optional[Call], shards):
+                           filter_call: Optional[Call], shards, broadcast: bool = True):
         """Fused GroupBy as one K8 launch, the int64[K_1 * ... * K_n] counts
         (row-major over ``row_lists``, the requested shards only) left on
         the device.  None when the fused path does not apply: no shards,
@@ -2895,7 +3292,9 @@ class TorchEngine:
         fields (counted in ``group_host_fallbacks``; the executor's host
         iterator serves them).  A listed row the stack lacks has no bits in
         the stack's snapshot and counts zero.  A filter with no device
-        lowering, or past the kernels' limits, is UnsupportedLowering."""
+        lowering, or past the kernels' limits, is UnsupportedLowering.  On a
+        mesh a ``group`` collective, the counts summed over the ranks (a
+        row absent from a rank's block counts zero there)."""
         if not fields:
             raise ValueError("fused GroupBy requires at least one field")
         combos = 1
@@ -2907,22 +3306,36 @@ class TorchEngine:
         canonical = self.canonical_shards(index)
         if not canonical:
             return None
-        with self._stacks_lock:
-            stacks = [self._require_full_stack(
-                index, f, VIEW_STANDARD, self.field_stack(index, f, VIEW_STANDARD, canonical))
-                for f in fields]
-            idx_lists = [[st.row_index.get(r, -1) for r in rows]
-                         for st, rows in zip(stacks, row_lists)]
-            lw = _Lowering(self, canonical)
-            if filter_call is not None:
-                lw.row_hints = self._collect_row_hints(index, filter_call)
-            prog = None if filter_call is None else self._lower(index, filter_call, lw)
-            if prog is not None and not kernels.fits(prog):
-                raise UnsupportedLowering("filter tree exceeds the kernels' limits")
-            mask = self._mask_words(shards, canonical)
-            self.group_dispatches += 1
-            return self._reading(lw.stacks + stacks, lambda: groupby_mod.groupn_tree(
-                prog, lw.mats, mask, [st.matrix for st in stacks], idx_lists))
+        if broadcast and self._peerless_multiproc:
+            raise PeerlessMeshError("multi-process mesh without peer broadcast")
+        local = self._rank_block(canonical)
+
+        def dispatch():
+            with self._stacks_lock:
+                stacks = [self._require_full_stack(
+                    index, f, VIEW_STANDARD, self.field_stack(index, f, VIEW_STANDARD, local))
+                    for f in fields]
+                idx_lists = [[st.row_index.get(r, -1) for r in rows]
+                             for st, rows in zip(stacks, row_lists)]
+                lw = _Lowering(self, local)
+                if filter_call is not None:
+                    lw.row_hints = self._collect_row_hints(index, filter_call)
+                prog = None if filter_call is None else self._lower(index, filter_call, lw)
+                if prog is not None and not kernels.fits(prog):
+                    raise UnsupportedLowering("filter tree exceeds the kernels' limits")
+                mask = self._mask_words(shards, local)
+                self.group_dispatches += 1
+                dev = self._reading(lw.stacks + stacks, lambda: groupby_mod.groupn_tree(
+                    prog, lw.mats, mask, [st.matrix for st in stacks], idx_lists))
+            return self._mesh_sum(dev)
+
+        return self._collective(
+            "group",
+            lambda: {"index": index, "fields": list(fields),
+                     "rows": [[int(r) for r in rows] for rows in row_lists],
+                     "filter": None if filter_call is None else str(filter_call),
+                     "shards": list(shards), "canon": [int(x) for x in canonical]},
+            dispatch, broadcast)
 
     def group_counts(self, index: str, fields: List[str], row_lists,
                      filter_call: Optional[Call], shards):
@@ -2951,7 +3364,11 @@ class TorchEngine:
         without waiting for the device (``fusion.build`` / ``dispatch``).
         ``entries`` is a list of (index, spec, shards) triples, spec
         {"kind": ...} plus the op's arguments; returns a
-        ``fusion.FusedDispatch`` whose decoders give each op's result."""
+        ``fusion.FusedDispatch`` whose decoders give each op's result.
+        Single process only: a fused program has no collective of its own,
+        so a multi-process mesh keeps the per-op paths (engine.py:3409)."""
+        if self.multiproc:
+            raise UnsupportedLowering("a fused drain needs a single-process mesh")
         entries = list(entries)
         n = len(entries)
         # Canonical order BEFORE keying and building: concurrent arrivals
@@ -3136,7 +3553,7 @@ class TorchEngine:
         """(key, value-or-None) for ``submit_op``: a hit answers the op with
         no launch.  A miss probes the repair layer (Sum from plane-popcount
         deltas; Min/Max from the per-field extremum table)."""
-        if kind not in self._MEMO_OPS:
+        if kind not in self._MEMO_OPS or self.multiproc:
             return None, None
         key = self.memo_key_op(index, kind, spec, shards)
         if key is None:
@@ -3167,16 +3584,23 @@ class TorchEngine:
     def batched_sum(self, index: str, field: str, filter_call, shards):
         """BSI Sum through the batcher: a lone caller runs K6 directly;
         concurrent callers drain into one fused program with their
-        drain-mates."""
+        drain-mates.  A multi-process mesh runs each op's own collective
+        (engine.py:3656-3707)."""
+        if self.multiproc:
+            return self.sum(index, field, filter_call, shards)
         return self.batcher().submit_op(
             index, "sum", {"kind": "sum", "field": field, "filter": filter_call}, shards)
 
     def batched_min_max(self, index: str, field: str, filter_call, shards, is_min: bool):
+        if self.multiproc:
+            return self.min_max(index, field, filter_call, shards, is_min)
         kind = "min" if is_min else "max"
         return self.batcher().submit_op(
             index, kind, {"kind": kind, "field": field, "filter": filter_call}, shards)
 
     def batched_topn_scores(self, index: str, field: str, candidate_rows, src_call, shards):
+        if self.multiproc:
+            return self.topn_scores(index, field, candidate_rows, src_call, shards)
         return self.batcher().submit_op(
             index, "topn", {"kind": "topn", "field": field, "rows": list(candidate_rows),
                             "src": src_call}, shards)
@@ -3185,6 +3609,8 @@ class TorchEngine:
                           min_threshold: int, row_ids=None):
         """Full TopN through the batcher: sorted pairs, or None when the
         fused path declines (candidate union too large)."""
+        if self.multiproc:
+            return self.topn_full(index, field, src_call, shards, n, min_threshold, row_ids)
         out = self.batcher().submit_op(
             index, "topnf",
             {"kind": "topnf", "field": field, "src": src_call, "n": int(n),
@@ -3199,6 +3625,8 @@ class TorchEngine:
         None when the fused path declines (past MAX_GROUP_COMBOS
         combinations, or a missing stack): the executor's host iterator
         then serves it."""
+        if self.multiproc:
+            return self.group_counts(index, fields, row_lists, filter_call, shards)
         out = self.batcher().submit_op(
             index, "group",
             {"kind": "group", "fields": list(fields), "rows": [list(r) for r in row_lists],
@@ -3221,8 +3649,13 @@ class TorchEngine:
         return round(res / tot, 4) if tot else 1.0
 
     def refresh_metrics(self):
-        """Scrape-time gauges of the residency state."""
+        """Scrape-time gauges of the residency state and the mesh."""
         REGISTRY.set_gauge(METRIC_ENGINE_RESIDENT_BLOCK_FRACTION, self.resident_block_fraction())
+        REGISTRY.counter(METRIC_MESH_PSUM_DISPATCHES).set(self.fused_dispatches)
+        REGISTRY.set_gauge(METRIC_MESH_DEVICES, self.world)
+        widest = max((len(shards) for _, shards in list(self._canonical.values())), default=0)
+        REGISTRY.set_gauge(METRIC_MESH_SHARDS_PER_DEVICE,
+                           pad_shards(widest, self.world) // self.world if widest else 0)
 
     def _working_set_snapshot(self) -> dict:
         """Per-index resident-vs-total bytes, the promotion queue and the

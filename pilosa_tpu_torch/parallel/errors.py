@@ -8,10 +8,14 @@ one type, so a new reason to decline can never miss a site:
 
 - ``UnsupportedLowering``: the call tree has no device lowering (an
   unported call, a bad argument, a tree past the kernels' limits);
-- ``PeerlessMeshError`` and its subclass ``ResidencyMiss``: the stack (or
-  the rows of it a query touches) is not on the card and does not fit the
-  device budget whole; a promotion of the touched working set has been
-  requested (``residency.py``) and the host tier answers meanwhile.
+- ``PeerlessMeshError``: a collective of the multi-process mesh cannot
+  proceed (no peer broadcast configured, or the handoff to a peer
+  failed), so the query runs on this process's host lane instead of in a
+  collective no peer joins;
+- its subclass ``ResidencyMiss``: the stack (or the rows of it a query
+  touches) is not on the card and does not fit the device budget whole; a
+  promotion of the touched working set has been requested
+  (``residency.py``) and the host tier answers meanwhile.
 
 No other exception from the engine is caught, so a kernel fault surfaces.
 """
@@ -27,9 +31,11 @@ class UnsupportedLowering(HostFallback):
 
 
 class PeerlessMeshError(HostFallback, RuntimeError):
-    """A collective cannot proceed across processes (the reference's
-    multi-process mesh; the port's cluster is ROADMAP.md Queue 1 item 15).
-    Kept as the base of ``ResidencyMiss``, as in the reference."""
+    """A collective cannot proceed on a multi-process mesh: no peer
+    broadcast is configured, or the handoff failed (a peer down, a refused
+    accept, a lost commit).  Entering the collective would wait for ranks
+    that never join, so the executor's host lane answers instead.  The
+    base of ``ResidencyMiss``, as in the reference."""
 
 
 class ResidencyMiss(PeerlessMeshError):

@@ -1,7 +1,8 @@
 """Count(tree) and TopN scoring over field stacks: K1 ``count_tree_dense``,
 K1P ``count_tree_pool``, K3 ``score_rows`` (with TopN's trim in its last
-block), P2 ``and_popcount_rows``, K5/K5P ``count_batch_tree`` and F1/F1P
-``fused_tree``, each beside its plain twin.
+block, or launched alone), P2 ``and_popcount_rows``, K5/K5P
+``count_batch_tree``, F1/F1P ``fused_tree`` and K10 ``eval_tree``, each
+beside its plain twin.
 
 The engine lowers a PQL call tree to a normalized program over a list of
 field stacks ``int32[R, S, WORDS]`` (rows major, the canonical shard axis
@@ -53,6 +54,13 @@ named by index, against one src row (``bitops.popcount_and_rows``).
 ``topn_slab_tree`` (a cluster node's TopN phase 1) wraps K9
 ``csrc/topn_slab.cu`` the same way: the candidates' scores against the src
 tree, then each shard's gated walk and top k_out in one CTA a shard.
+``topn_trim`` launches K3's trim alone over totals the caller passes in
+(a multi-process mesh's TopN, whose totals are summed across the ranks
+between K3 and the trim).
+
+``eval_tree`` (a Row-valued tree, below) wraps K10 ``csrc/eval_tree.cu``
+the same way: the tree's words over the requested shards, written whole,
+for the multi-process mesh's Row results.
 
 ``count_batch_tree`` (K Counts in one launch, below) compiles a batch of
 trees into one table of distinct leaf rows and one postfix program per
@@ -559,7 +567,7 @@ range_leaf.launches = 0
 
 def pool_leaf(code, kernel: str) -> None:
     """Called by every kernel wrapper whose launch may carry pool leaves
-    (K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, K7P, K8, K8P, F1, F1P and K9)
+    (K1, K1P, K2, K3, K3P, K5, K5P, K6, K6P, K7, K7P, K8, K8P, F1, F1P, K9 and K10)
     after it launched (K3P under "score_rows", K6P under "sum_tree", K7P
     under "minmax_tree", K8P under "groupn_tree", K5P under
     "count_batch_tree", F1P under "fused_tree"):
@@ -585,6 +593,61 @@ def count_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.
     if mask.is_cuda:
         return (count_tree_pool if code.pooled else count_tree_dense)(code, mats, mask)
     return (count_tree_pool_plain if code.pooled else count_tree_plain)(prog, mats, mask)
+
+
+
+# -- The masked tree words: K10 eval_tree ---------------------------------------
+#
+# The port of pilosa_tpu/parallel/kernels.py:284 eval_tree: the tree's words
+# over the requested shards (a Row() query's bitmap), no reduction.  On a
+# multi-process mesh each rank evaluates its block and
+# ``multihost.all_gather_shards`` replicates the words (:297
+# eval_tree_replicated).
+
+
+def eval_tree_plain(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
+    """The masked words int32[S, W] of a tree, in plain PyTorch ops
+    (``filter_plain`` with the tree required): the CPU path and the
+    reference the card's kernel is held against.  A tree that is zero
+    whole gives WORDS zeros a shard."""
+    like = torch.empty((mask.shape[0], bitops.WORDS), dtype=torch.int32, device=mask.device)
+    return filter_plain(prog, mats, mask, like)
+
+
+def eval_tree_cuda(code: Postfix, mats: Sequence[torch.Tensor],
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Launch K10 (``csrc/eval_tree.cu``) on the card: the masked words
+    int32[S, W], every word written, without waiting for the device."""
+    if not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 1:
+        raise ValueError("mask must be an int32[S] tensor on the card")
+    mask = mask.contiguous()
+    n_shards = mask.shape[0]
+    words = check_stacks(mats, n_shards, code)
+    fn = _lib_fn("eval_tree", "eval_tree", _TREE_ARGS + [_P, _I, _I, _P, _P])
+    out = torch.empty((n_shards, words), dtype=torch.int32, device=mask.device)
+    stream = torch.cuda.current_stream(mask.device).cuda_stream
+    err = fn(*_c_leaves(code, mats), mask.data_ptr(), n_shards, words, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"eval_tree launch failed: cudaError {err}")
+    range_leaf(code)
+    pool_leaf(code, "eval_tree")
+    eval_tree_cuda.launches += 1
+    return out
+
+
+eval_tree_cuda.launches = 0
+
+
+def eval_tree(prog, mats: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
+    """The masked words int32[S, W] of a tree over the requested shards
+    (``mask`` int32[S], nonzero = requested; the other shards' words are
+    zero).  CUDA tensors launch K10 or raise; CPU tensors take the plain
+    version."""
+    code = compile_prog(prog)
+    check_prog(code)
+    if mask.is_cuda:
+        return eval_tree_cuda(code, mats, mask)
+    return eval_tree_plain(prog, mats, mask)
 
 
 # -- TopN scoring: K3 score_rows (and the trim in its last block) -----------
@@ -828,6 +891,42 @@ score_rows_pool_cuda.trims = 0
 # (csrc/and_popcount_rows.cu kMaxListed); a longer list goes up in one
 # pinned, non-blocking copy.
 P2_MAX_LISTED = 512
+
+
+def score_rows_trim_cuda(totals: torch.Tensor, n_out: int) -> torch.Tensor:
+    """K3's trim alone (``csrc/score_rows.cu`` score_rows_trim, one block of
+    ``score_rows_trim_kernel``) over totals the caller passes in, int64[K]
+    on the card (1 <= K <= TOTALS_MAX): their top ``n_out`` as int32[2,
+    n_out], values then candidate indices, value descending and the lower
+    index first on ties, without waiting for the device.  The kernel
+    zeroes what it reads, so it runs on a copy."""
+    if not totals.is_cuda or totals.dtype != torch.int64 or totals.dim() != 1:
+        raise ValueError("totals must be an int64[K] tensor on the card")
+    K = totals.shape[0]
+    if not 1 <= K <= TOTALS_MAX or not 1 <= n_out <= K:
+        raise ValueError(f"the trim takes 1 <= n_out <= K <= {TOTALS_MAX}, "
+                         f"got n_out={n_out}, K={K}")
+    work = totals.clone()
+    out = torch.empty((2, n_out), dtype=torch.int32, device=totals.device)
+    fn = _lib_fn("score_rows", "score_rows_trim", [_P, _I, _I, _P, _P])
+    err = fn(work.data_ptr(), K, int(n_out), out.data_ptr(),
+             torch.cuda.current_stream(totals.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score_rows_trim launch failed: cudaError {err}")
+    score_rows_trim_cuda.launches += 1
+    return out
+
+
+score_rows_trim_cuda.launches = 0
+
+
+def topn_trim(totals: torch.Tensor, n_out: int) -> torch.Tensor:
+    """The top ``n_out`` of totals int64[K] as int32[2, n_out] (values, then
+    candidate indices; jax.lax.top_k's order).  CUDA tensors launch K3's
+    trim alone or raise; CPU tensors take ``topn_trim_plain``."""
+    if totals.is_cuda:
+        return score_rows_trim_cuda(totals, n_out)
+    return torch.stack(topn_trim_plain(totals, n_out))
 
 
 def and_popcount_rows_cuda(matrix: torch.Tensor, row: torch.Tensor,
@@ -1961,5 +2060,5 @@ def launch_counts() -> Dict[str, int]:
                 count_batch_tree_cuda, count_batch_tree_pool_cuda, bsi.sum_tree_cuda,
                 bsi.sum_tree_pool_cuda, bsi.minmax_tree_cuda, bsi.minmax_tree_pool_cuda,
                 groupby.groupn_tree_cuda, groupby.groupn_tree_pool_cuda, fused_tree_cuda,
-                fused_tree_pool_cuda, topn_slab_cuda)
+                fused_tree_pool_cuda, topn_slab_cuda, eval_tree_cuda, score_rows_trim_cuda)
     return {w.__name__.removesuffix("_cuda"): int(w.launches) for w in wrappers}

@@ -5,7 +5,11 @@ axis to a multiple of the mesh size and reduces with a ``psum`` over ICI
 (``pilosa_tpu/parallel/mesh.py``).  On one card the whole shard axis is
 local: a field stack is one contiguous rows-major ``int32[R, S, WORDS]``
 tensor with no padding, and the reduce is the kernel's own (a block
-reduce plus one atomic add per block).
+reduce plus one atomic add per block).  On a multi-process mesh
+(``multihost.py``) the canonical axis is padded to a multiple of the
+world size (``pad_shards``) and rank r owns the contiguous block
+``[r * k, (r + 1) * k)`` of it (``shard_owner``): its stacks hold that
+block only, and a collective on the host finishes each dispatch.
 
 Every entry point of the port runs on the card unless the caller asks for
 the CPU: ``resolve_device(None)`` is ``cuda`` and raises when no card is
@@ -57,3 +61,22 @@ def shard_mask(n_shards: int, positions, device: torch.device) -> torch.Tensor:
     host = np.zeros(n_shards, dtype=np.int32)
     host[list(positions)] = 1
     return torch.from_numpy(host).to(device)
+
+
+def pad_shards(n_shards: int, world: int) -> int:
+    """Shard count padded up to a multiple of the mesh size ``world`` (the
+    number of ranks), and at least one position a rank."""
+    return max(((n_shards + world - 1) // world) * world, world)
+
+
+def shard_owner(shard_index: int, n_shards_padded: int, world: int) -> int:
+    """The rank owning canonical position ``shard_index``.
+    ``n_shards_padded`` must be a positive multiple of the mesh size (what
+    ``pad_shards`` returns): anything else is a caller bug surfaced
+    loudly, not a ZeroDivisionError deep in a dispatch."""
+    if n_shards_padded < world or n_shards_padded % world:
+        raise ValueError(
+            f"n_shards_padded={n_shards_padded} is not a positive "
+            f"multiple of the mesh size {world} (use pad_shards)"
+        )
+    return shard_index // (n_shards_padded // world)

@@ -196,11 +196,22 @@ def serialize_rows(rows) -> bytes:
         counts = np.bitwise_count(w).sum(axis=1, dtype=np.int64)
         below = np.zeros_like(w)
         below[:, 1:] = w[:, :-1] >> np.uint64(63)
-        runs = np.bitwise_count(w & ~((w << np.uint64(1)) | below)).sum(axis=1, dtype=np.int64)
+        starts = w & ~((w << np.uint64(1)) | below)
+        runs = np.bitwise_count(starts).sum(axis=1, dtype=np.int64)
         key0 = int(row) * ROW_CONTAINERS
         for c in np.flatnonzero(counts).tolist():
             n, r = int(counts[c]), int(runs[c])
-            if (r <= RUN_MAX_SIZE and r <= n // 2) or n < ARRAY_MAX_SIZE:
+            if r <= RUN_MAX_SIZE and r <= n // 2:
+                # A run container straight from the words: each run's first
+                # bit (its lower neighbour 0) and last bit (its upper
+                # neighbour 0), never the container's positions.
+                above = np.zeros_like(w[c])
+                above[:-1] = w[c, 1:] << np.uint64(63)
+                ends = w[c] & ~((w[c] >> np.uint64(1)) | above)
+                pairs = np.stack([_words_to_lows(starts[c]), _words_to_lows(ends)], axis=1)
+                headers.append((key0 + c, CONTAINER_RUN, n))
+                payloads.append(struct.pack("<H", r) + pairs.astype("<u2").tobytes())
+            elif n < ARRAY_MAX_SIZE:
                 _containers(_words_to_lows(w[c]).astype(np.uint64)
                             + np.uint64((key0 + c) << 16), headers, payloads)
             else:
@@ -498,12 +509,19 @@ def decode_rows(data: bytes, dense_over: int = ARRAY_MAX_SIZE):
                 raise ValueError("roaring: truncated data: run container")
             runs = np.frombuffer(data, dtype="<u2", count=run_count * 2,
                                  offset=off + 2).reshape(run_count, 2).astype(np.int64)
-            lows = _expand_runs(runs[:, 0], runs[:, 1] - runs[:, 0] + 1).astype(np.uint64)
-            pos = (keys[i] << np.uint64(16)) | lows
             if in_dense[i]:
-                scatter(pos, slot[i])
+                # The runs as the container's bits: +1 at each run's first
+                # bit, -1 past its last, summed (never one position a bit).
+                edge = np.zeros((1 << 16) + 1, dtype=np.int32)
+                np.add.at(edge, runs[:, 0], 1)
+                np.add.at(edge, runs[:, 1] + 1, -1)
+                bits = (np.cumsum(edge[:-1]) > 0).astype(np.uint8)
+                c = int(keys[i]) & (ROW_CONTAINERS - 1)
+                mat[slot[i], c * _WORDS_PER_CONTAINER:(c + 1) * _WORDS_PER_CONTAINER] |= \
+                    np.packbits(bits, bitorder="little").view("<u8")
             else:
-                chunks.append(pos)
+                lows = _expand_runs(runs[:, 0], runs[:, 1] - runs[:, 0] + 1).astype(np.uint64)
+                chunks.append((keys[i] << np.uint64(16)) | lows)
         else:
             raise ValueError(f"roaring: unknown container type {ctype}")
     positions = np.unique(np.concatenate(chunks)) if chunks else np.empty(0, dtype=np.uint64)

@@ -13,12 +13,17 @@ nothing falls back to the host.  ``[cluster] hosts``, ``[gossip] seeds`` or
 (``_setup_cluster``): placement and replication (``[cluster] replicas``),
 hinted handoff (``[cluster] hint-max-bytes``), SWIM gossip membership
 (``[gossip]``), anti-entropy every ``[anti-entropy] interval``, and the
-translate log replicated from ``[translation] primary-url``.  The
-multi-process mesh's keys (``[mesh] coordinator``, ``processes``,
-``process-id``, ``peers``, ``sequencer``) are refused at construction,
-naming the ROADMAP.md item that ports them (``_refuse_unported``).
-``[mesh] devices = -1`` keeps its meaning: no engine, every query on the
-host lane.
+translate log replicated from ``[translation] primary-url``.  ``[mesh]
+coordinator``, ``processes`` and ``process-id`` make the node one rank of
+a multi-process mesh (``parallel/multihost.py``: a gloo group joined before
+the holder opens); ``[mesh] peers`` are the other ranks' nodes, to which
+every collective is handed in two phases (``_broadcast_dispatch``), and
+``[mesh] sequencer`` (``self`` or the sequencer's URI) gives the
+collectives tickets, so that any node may initiate.  ``[mesh] devices =
+-1`` keeps its meaning: no engine, every query on the host lane; more
+devices than the process has leaves the node without an engine, as the
+reference's does, and a single-process mesh over several cards is refused
+(``_refuse_unported``).
 
 Besides the listener the node runs the reference's monitors: the fault
 plane's identity and boot rules (``[faults]``), the self-hosted metrics
@@ -45,6 +50,7 @@ from .core.translate import TranslateFile
 from .net import serve
 from .net.admission import AdmissionController, _parse_weights
 from .net.server import bind_http, make_server_ssl_context
+from .parallel import multihost
 from .parallel.engine import TorchEngine
 from .parallel.mesh import resolve_device
 from .util import (
@@ -59,17 +65,9 @@ from .util import (
     VerboseLogger,
 )
 
-_ITEM_15 = "Queue 1 item 15 part C (the multi-process mesh)"
-
-# Config attributes this port does not serve yet, and the ROADMAP.md item
-# that ports each: a value other than the default raises at construction.
-_UNPORTED_KEYS = (
-    ("jax_coordinator", "[mesh] coordinator", _ITEM_15),
-    ("jax_num_processes", "[mesh] processes", _ITEM_15),
-    ("jax_process_id", "[mesh] process-id", _ITEM_15),
-    ("mesh_peers", "[mesh] peers", _ITEM_15),
-    ("mesh_sequencer", "[mesh] sequencer", _ITEM_15),
-)
+# A single-process mesh over several cards waits for a machine with a
+# second card (ROADMAP.md).
+_MULTI_CARD = "Queue 1 item 15 part D (a single-process mesh over several cards)"
 
 
 def _advertise_uri(host: str, port: int, scheme: str = "http") -> str:
@@ -118,6 +116,9 @@ class Server:
                 "positive duration"
             )
         self._refuse_unported()
+        if device is None and self.config.jax_coordinator:
+            # A mesh rank's card: its process id modulo the cards here.
+            device = multihost.rank_device(self.config.jax_process_id)
         self.device = resolve_device(device)
         self.data_dir = os.path.expanduser(self.config.data_dir)
         self.logger = self._make_logger()
@@ -140,6 +141,8 @@ class Server:
         self._client_cache = {}
         self._http = None
         self._http_thread = None
+        # The peer fan-out pool of a mesh rank with [mesh] peers.
+        self._mesh_pool = None
         self._closing = threading.Event()
         # Set once the node serves: NodeStatus goes to peers only then.
         self._opened = threading.Event()
@@ -147,16 +150,15 @@ class Server:
         self.diagnostics = None
 
     def _refuse_unported(self):
-        cfg, defaults = self.config, Config()
-        for attr, key, item in _UNPORTED_KEYS:
-            if getattr(cfg, attr) != getattr(defaults, attr):
-                raise NotImplementedError(
-                    f"{key} = {getattr(cfg, attr)!r}: not served by pilosa_tpu_torch yet: "
-                    f"ROADMAP.md {item}")
-        if cfg.mesh_devices not in (-1, 0, 1):
+        """``[mesh] devices`` above 1 that the process's cards could hold:
+        one process over several cards is not served (more devices than
+        the process has leave the node without an engine, in
+        ``_make_engine``, as in the reference)."""
+        n = self.config.mesh_devices
+        if 1 < n <= multihost.local_device_count():
             raise NotImplementedError(
-                f"[mesh] devices = {cfg.mesh_devices!r}: one card serves here; more are "
-                f"ROADMAP.md {_ITEM_15}")
+                f"[mesh] devices = {n!r}: a rank serves one card here; a single-process "
+                f"mesh over several is ROADMAP.md {_MULTI_CARD}")
 
     # -- assembly ----------------------------------------------------------
 
@@ -239,6 +241,17 @@ class Server:
         # The harness may set node_id after construction: stamp the
         # journal's node label before any component appends.
         self.journal.node = self.node_id
+        # The process group comes up before the holder opens (the analogue
+        # of setupNetworking preceding holder.Open, server/server.go:302).
+        if self.config.jax_coordinator:
+            multihost.initialize(
+                coordinator_address=self.config.jax_coordinator,
+                num_processes=self.config.jax_num_processes or None,
+                process_id=(self.config.jax_process_id
+                            if self.config.jax_num_processes else None))
+            self.logger.printf("mesh process group up: rank %d/%d on %s",
+                               multihost.process_index(), multihost.process_count(),
+                               self.device)
         self.translate_store.open()
         self._setup_cluster(host, port)
         self._setup_faults(host, port)
@@ -246,16 +259,9 @@ class Server:
         if self.cluster is not None:
             self.cluster.holder = self.holder
         if self.config.mesh_devices >= 0:
-            # [engine] device-budget-bytes: the soft device working-set
-            # target (0: the engine's default, a fraction of the card).
-            self.engine = TorchEngine(
-                self.holder, device=self.device,
-                max_resident_bytes=self.config.engine_device_budget_bytes or None,
-                logger=self.logger, journal=self.journal)
-            # Seed the warm start's cost order from the last run's
-            # per-tenant device-cost EWMAs: a restarted node re-warms its
-            # hot tenants' stacks first.
-            self._load_tenant_costs()
+            self.engine = self._make_engine()
+        if self.engine is not None and self.config.mesh_sequencer:
+            self.engine.ticket = self._make_ticket_fn()
         if self.cluster is not None:
             node = self.cluster.node
         else:
@@ -295,6 +301,99 @@ class Server:
         if self.cluster is not None:
             self._tell_status()
         return self
+
+    def _make_engine(self) -> Optional[TorchEngine]:
+        """The node's engine, None when it cannot be made: a ``[mesh]
+        devices`` past the cards this process has, as the reference's
+        make_mesh refuses it (the node then serves from the host lane).
+        With ``[mesh] peers`` every collective is handed to them first
+        (``_broadcast_dispatch``), so that their ranks join it."""
+        try:
+            n, have = self.config.mesh_devices, multihost.local_device_count()
+            if n > have:
+                raise ValueError(f"requested {n} devices, only {have} available")
+            # [engine] device-budget-bytes: the soft device working-set
+            # target (0: the engine's default, a fraction of the card).
+            engine = TorchEngine(
+                self.holder, device=self.device,
+                max_resident_bytes=self.config.engine_device_budget_bytes or None,
+                logger=self.logger, journal=self.journal)
+        except ValueError as e:
+            self.logger.printf("mesh engine unavailable: %s", e)
+            return None
+        # Seed the warm start's cost order from the last run's per-tenant
+        # device-cost EWMAs: a restarted node re-warms its hot tenants'
+        # stacks first.
+        self._load_tenant_costs()
+        if self.config.mesh_peers:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._mesh_pool = ThreadPoolExecutor(
+                max_workers=max(4, len(self.config.mesh_peers)),
+                thread_name_prefix="mesh-peer")
+            engine.collective_broadcast = self._broadcast_dispatch
+        return engine
+
+    def _make_ticket_fn(self):
+        """Collective tickets (symmetric initiation): the local counter when
+        this node is the sequencer, else one HTTP round trip to it."""
+        target = self.config.mesh_sequencer
+        if target == "self":
+            return lambda: self.api.mesh_ticket()
+
+        def fetch():
+            # 10 s: a dead sequencer must not stall dispatchers for the
+            # client's whole default timeout.
+            doc = self._make_client(target, timeout=10.0)._post("/internal/mesh/ticket", {})
+            return int(doc["seq"])
+
+        return fetch
+
+    def _broadcast_dispatch(self, kind, payload):
+        """Two-phase handoff of a collective's descriptor to every peer
+        (pilosa_tpu/server.py:459-517).  Accept: each peer validates and
+        registers the dispatch without entering it, so a peer that is down
+        or refuses raises here and the others get an abort: a partial
+        fan-out never strands a rank in a collective no peer joins.
+        Commit, only after every peer accepted: the peers queue the
+        replay.  A peer that accepted and never hears a commit (this
+        process died mid-handoff) expires its entry instead of entering
+        the collective (API.MESH_PENDING_TIMEOUT)."""
+        did = uuid.uuid4().hex
+
+        def post(url, body):
+            self._make_client(url, timeout=self.config.mesh_dispatch_timeout)._do(
+                "POST", "/internal/mesh/dispatch", body, content_type="application/json")
+
+        def fanout(body):
+            futures = [self._mesh_pool.submit(post, url, body) for url in self.config.mesh_peers]
+            errs = []
+            for url, f in zip(self.config.mesh_peers, futures):
+                try:
+                    f.result(timeout=35)
+                except Exception as e:  # noqa: BLE001 — every peer's error is reported
+                    errs.append(f"{url}: {e}")
+            return errs
+
+        accept = json.dumps(dict(payload, kind=kind, did=did, phase="accept")).encode()
+        # The resolutions carry the ticket too: a peer that REJECTED the
+        # accept never registered the did, but its seq gate still has to
+        # skip the ticket the other peers took into their streams.
+        resolution = {"did": did}
+        if payload.get("seq") is not None:
+            resolution["seq"] = payload["seq"]
+        errs = fanout(accept)
+        if errs:
+            # Release the peers that DID accept; one the abort misses
+            # expires the entry on its own timer.
+            fanout(json.dumps(dict(resolution, phase="abort")).encode())
+            raise RuntimeError(f"mesh peers unavailable: {'; '.join(errs)}")
+        errs = fanout(json.dumps(dict(resolution, phase="commit")).encode())
+        if errs:
+            # Peers the commit missed expire and abort; those it reached
+            # enter a collective that cannot complete without the others,
+            # so the query fails loudly here.
+            raise RuntimeError(f"mesh commit failed (peers will expire): {'; '.join(errs)}")
 
     def _setup_cluster(self, host: str, port: int):
         """Wire the cluster when hosts, gossip seeds, or the coordinator
@@ -819,5 +918,7 @@ class Server:
                 REGISTRY.prometheus_text()
             except Exception as e:  # noqa: BLE001
                 self.logger.printf("metrics registry unreadable after engine close: %s", e)
+        if self._mesh_pool is not None:
+            self._mesh_pool.shutdown(wait=False)
         self.holder.close()
         self.translate_store.close()

@@ -568,6 +568,22 @@ METRIC_ENGINE_UPDATES = "pilosa_engine_stack_updates_total"
 #   pilosa_cluster_remote_calls_total      InternalClient requests
 METRIC_CLIENT_RETRIES = "pilosa_client_retries_total"
 METRIC_CLUSTER_REMOTE_CALLS = "pilosa_cluster_remote_calls_total"
+# -- the multi-process mesh (pilosa_tpu/util/stats.py:604-624) ----------------
+#   pilosa_mesh_devices                     gauge: ranks in the shard mesh (one
+#                                           card a rank)
+#   pilosa_mesh_local_devices               gauge: the mesh's devices this
+#                                           process addresses (the node's
+#                                           placement weight: 1)
+#   pilosa_mesh_shards_per_device           gauge: padded shard-axis
+#                                           occupancy per rank (max over
+#                                           the indexes seen)
+#   pilosa_mesh_psum_dispatches_total       counter: engine dispatches whose
+#                                           shard reduce ran on the card
+#                                           (the all-reduce on a mesh)
+METRIC_MESH_DEVICES = "pilosa_mesh_devices"
+METRIC_MESH_LOCAL_DEVICES = "pilosa_mesh_local_devices"
+METRIC_MESH_SHARDS_PER_DEVICE = "pilosa_mesh_shards_per_device"
+METRIC_MESH_PSUM_DISPATCHES = "pilosa_mesh_psum_dispatches_total"
 # -- serving tier ------------------------------------------------------------
 #   pilosa_admission_inflight               gauge: requests admitted, not done
 #   pilosa_admission_active_tenants         gauge: tenants with in-flight work

@@ -317,9 +317,8 @@ def test_what_is_left_out_raises_naming_its_item():
     # Item 14's recalculate_caches is ported: a single node re-ranks its
     # caches and has no peer to tell.
     assert t.recalculate_caches() is None
-    # The cluster is ported: only the multi-process mesh's methods raise.
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15 part C"):
-        t.mesh_ticket()
+    # The cluster and the multi-process mesh are ported: nothing raises.
+    assert t.mesh_ticket() == 0
     t.create_index("i").create_field("f")
     assert t.query(tapi.QueryRequest("i", "Count(Row(f=1))", remote=True)).results == [0]
     plan = t.query(tapi.QueryRequest("i", "Count(Row(f=1))", profile=True)).plan

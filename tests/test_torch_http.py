@@ -45,7 +45,15 @@ from pilosa_tpu_torch.core.row import Row as TRow
 from pilosa_tpu_torch.executor import executor as tex
 from pilosa_tpu_torch.net import proto as tproto
 from pilosa_tpu_torch.net import wire as twire
-from pilosa_tpu_torch.net.server import _UNPORTED_ROUTES
+
+# The routes and API methods the port answered with 501 until the
+# multi-process mesh was ported, with the ROADMAP.md item that ported them.
+_MESH_ITEM = "Queue 1 item 15 part C (the multi-process mesh)"
+_UNPORTED_ROUTES = [
+    ("POST", "/internal/mesh/dispatch", _MESH_ITEM),
+    ("POST", "/internal/mesh/ticket", _MESH_ITEM),
+]
+_UNPORTED_API = {"mesh_ticket": _MESH_ITEM, "mesh_collective_accept": _MESH_ITEM}
 from pilosa_tpu_torch.net.server import serve as tserve
 
 SW = 1 << 20
@@ -628,19 +636,32 @@ def test_debug_vars_carries_engine_caches(pair):
 
 @pytest.mark.parametrize("method,pattern,item", _UNPORTED_ROUTES)
 def test_unported_routes_answer_501(method, pattern, item):
-    """Each route of a module this port leaves out answers 501 with an
-    error naming its ROADMAP.md item."""
-    a = tapi.API(device="cpu")
-    srv, _ = tserve(a, "localhost", 0)
+    """The multi-process mesh's routes, 501 until it was ported, answer as
+    the reference's over an engine: the ticket route issues 0 then 1, and
+    a dispatch with no kind is a 400 naming the unknown kind (the two-phase
+    handoff itself: tests/test_torch_multihost.py)."""
+    from pilosa_tpu.core.holder import Holder as JHolder
+    from pilosa_tpu.parallel import MeshEngine, make_mesh
+
+    jh = JHolder()
+    jh.open()
+    apis = [tapi.API(device="cpu"), japi.API(holder=jh, mesh_engine=MeshEngine(jh, make_mesh(1)))]
+    servers = [tserve(apis[0], "localhost", 0)[0], jserve(apis[1], "localhost", 0)[0]]
     try:
-        path = pattern.format(cqid="x", index="i", field="f", shardID="0")
-        status, ctype, body = send(srv.server_address[1], method, path, b"{}")
-        assert status == 501 and ctype == "application/json"
-        assert item in json.loads(body)["error"]
-        assert "ROADMAP.md" in json.loads(body)["error"]
+        got = []
+        for srv in servers:
+            got.append([send(srv.server_address[1], method, pattern, b"{}") for _ in range(2)])
+        assert got[0] == got[1], got
+        status, ctype, body = got[0][1]
+        assert ctype == "application/json"
+        if pattern.endswith("ticket"):
+            assert status == 200 and json.loads(body) == {"seq": 1}
+        else:
+            assert status == 400 and "unknown collective kind" in json.loads(body)["error"]
     finally:
-        srv.shutdown()
-        a.close()
+        for srv in servers:
+            srv.shutdown()
+        apis[0].close()
 
 
 def test_unported_options_answer_501():
@@ -823,11 +844,17 @@ def test_openmetrics_exemplars_as_the_reference(backend):
         _close_nodes(apis, servers)
 
 
-@pytest.mark.parametrize("name,item", sorted(tapi._UNPORTED.items()))
+@pytest.mark.parametrize("name,item", sorted(_UNPORTED_API.items()))
 def test_unported_api_methods_raise_naming_their_item(name, item):
+    """The mesh's API methods, which raised until the multi-process mesh
+    was ported, answer as the reference's: the sequencer's tickets count
+    from 0, and a dispatch with no kind is refused naming it."""
     a = tapi.API(device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match=item.split(" (")[0]):
-            getattr(a, name)()
+        if name == "mesh_ticket":
+            assert [a.mesh_ticket() for _ in range(3)] == [0, 1, 2]
+        else:
+            with pytest.raises(tapi.ApiError, match="unknown collective kind"):
+                getattr(a, name)({})
     finally:
         a.close()
